@@ -7,14 +7,25 @@ Phases, each printing one JSON line of its own numbers:
   1 device   the card's name and power limit (nvidia-smi), torch/CUDA versions
   2 build    compile the CUDA kernels from gen3c_tpu_torch/kernels/csrc
   3 kernels  each kernel against its plain PyTorch version at the main
-             path's shapes: max/mean abs error, kernel and reference ms
-             (CUDA events, median after a warm-up), attention TF/s
+             paths' shapes: max/mean abs error, kernel and reference ms
+             (CUDA events, median after a warm-up), attention TF/s; K3
+             (band attention) also its visited key tiles and agreement
+             with K1 at a full window; K7q/K7 (W8A8) exact codes, int32
+             accumulators and outputs, TOPS, and cuBLAS bf16 at the shape
   4 main     GEN3C-7B at full width (28 blocks x 4096, 32 x 128 heads,
              bf16, random weights from seed 0) generating one 121-frame
              704x1280 chunk through run_chunked_generation with 2 Euler
              steps and batched CFG; seconds per phase, peak memory, and
              the launches of each kernel in that run
-  5 chain    the tiny preset chaining two chunks (17 frames) on the card:
+  5 fast     the same model and chunk with the --perf_preset fast knobs:
+             W8A8 (quantized on the card), band window 2, step-cache
+             interval 2, guidance interval 1.75..81, 8 steps: the asserted
+             CFG/condition-only and refresh/cached step pattern, seconds
+             per step by kind, quantize seconds, peak memory, launches
+  6 fast_parity  a 1024-channel, 2-block bf16 DiT with W8A8 and band
+             window 1 over 5 latent frames, on the card (kernels) and on
+             the CPU (plain versions) with the same weights
+  7 chain    the tiny preset chaining two chunks (17 frames) on the card:
              update_cache (non-rigid Adam fit), re-render and the kernels
              between chunks; the first chunk is compared with the same
              model run on the CPU through the plain versions
@@ -25,6 +36,8 @@ exits non-zero and prints no last line. There is no CPU fallback.
 
 from __future__ import annotations
 
+import argparse
+import copy
 import json
 import os
 import shutil
@@ -40,6 +53,15 @@ ATTN_TOL = {"max": 2e-2, "mean": 2e-3}  # bf16 output, fp32 softmax, 56k-key sum
 ATTN_F32_TOL = 1e-4
 SPLAT_TOL = 1e-4  # fp32 sums whose order the atomics change
 SPLAT_MASK_AGREE = 0.999  # a pixel whose only weight is ~1e-7 may flip known/unknown
+# both bf16, the card through the kernels and the CPU through the plain
+# versions, each rounding in its own places, and W8A8 activation codes at a
+# rounding boundary may take the neighbouring code: twice the bf16
+# port-vs-JAX DiT tolerance (3e-2 / 3e-3 at a mean |out| of 0.8), taken
+# relative to the mean |out| of the net under test
+FAST_PARITY_TOL = {"max": 6e-2 / 0.8, "mean": 6e-3 / 0.8}
+INT8_PEAK_TOPS = 1979.0  # H100 SXM dense int8 (data sheet)
+BAND_7B = (44 * 80, 2, 1)  # tokens per latent frame, window, prefix frames
+LATENT_T_7B = 16
 
 
 def emit(phase: str, **numbers) -> None:
@@ -172,6 +194,115 @@ def _splat_case(gen) -> dict:
     return res
 
 
+def _band_pairs(T: int, window: int, prefix: int) -> int:
+    """Visible (query frame, key frame) pairs of a band over T frames."""
+    return sum(kf < prefix or abs(qf - kf) <= window for qf in range(T) for kf in range(T))
+
+
+def _band_case(gen) -> dict:
+    """K3 at the 7B self-attention shape with the fast preset's band."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import cuda
+
+    B, L, H, D = 2, LATENT_T_7B * BAND_7B[0], 32, 128
+    q, k, v = (torch.randn((B, L, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    out = kernels.attention(q, k, v, band=BAND_7B)
+    ref = kernels.attention_reference(q, k, v, BAND_7B)
+    visited = torch.zeros(1, dtype=torch.int64, device="cuda")
+    cuda.attention(q, k, v, BAND_7B, visited=visited)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    tiles = -(-L // 64)
+    pairs = _band_pairs(LATENT_T_7B, *BAND_7B[1:])
+    res = {"name": "K3 band self-attention", "q": [B, L, H, D], "band": list(BAND_7B),
+           "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+           "finite": bool(torch.isfinite(out).all().item()),
+           "visited_tiles": visited.item(), "k1_tiles": B * H * tiles * tiles,
+           "frame_pairs": pairs, "frame_pairs_all": LATENT_T_7B ** 2}
+    res["visited_fraction"] = res["visited_tiles"] / res["k1_tiles"]
+    del out, ref, err
+    full_band = (BAND_7B[0], LATENT_T_7B - 1, 1)  # every frame pair: K1's work
+    res["full_window_equals_k1"] = bool(torch.equal(kernels.attention(q, k, v, band=full_band),
+                                                    kernels.attention(q, k, v)))
+    res["ms"] = cuda_ms(lambda: kernels.attention(q, k, v, band=BAND_7B), reps=3)
+    res["plain_ms"] = cuda_ms(lambda: kernels.attention_reference(q, k, v, BAND_7B), reps=1,
+                              warmup=0)
+    flop = 4.0 * B * H * D * pairs * BAND_7B[0] ** 2  # the unmasked work only
+    res.update(tflops=flop / res["ms"] / 1e9, plain_tflops=flop / res["plain_ms"] / 1e9)
+    emit("kernel", **res)
+    if (not res["finite"] or res["max_abs_err"] > ATTN_TOL["max"]
+            or res["mean_abs_err"] > ATTN_TOL["mean"] or not res["full_window_equals_k1"]):
+        raise AssertionError(f"K3: kernel disagrees with its plain version or K1: {res}")
+    if res["visited_tiles"] != B * H * tiles * tiles * pairs // LATENT_T_7B ** 2:
+        raise AssertionError(f"K3 did not skip the masked tiles: {res}")
+    return res
+
+
+def _quant_case(gen) -> dict:
+    """K7q on the 7B q/k/v input shape (tokens of the 2B CFG batch x 4096)."""
+    from gen3c_tpu_torch import kernels
+
+    x = torch.randn((2 * 56320, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    x[0] = 0  # a zero token
+    codes, scale = kernels.quantize_rows(x)
+    want_codes, want_scale = kernels.quantize_rows_reference(x)
+    torch.cuda.synchronize()
+    res = {"name": "K7q per-token int8 quantize", "shape": list(x.shape),
+           "codes_equal": bool(torch.equal(codes, want_codes)),
+           "scales_equal": bool(torch.equal(scale, want_scale)),
+           "max_abs_err": (scale - want_scale).abs().max().item()}
+    res["ms"] = cuda_ms(lambda: kernels.quantize_rows(x), reps=5)
+    res["plain_ms"] = cuda_ms(lambda: kernels.quantize_rows_reference(x), reps=3)
+    res["gb_per_s"] = x.numel() * 3 / res["ms"] / 1e6  # bf16 read, int8 write
+    emit("kernel", **res)
+    if not (res["codes_equal"] and res["scales_equal"]):
+        raise AssertionError(f"K7q: kernel disagrees with its plain version: {res}")
+    return res
+
+
+def _gemm_case(gen, name: str, M: int, K: int, N: int) -> dict:
+    """K7 at one 7B linear shape: exact int32 accumulators and bf16
+    outputs against the plain version, then times."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import cuda
+
+    bf16 = torch.bfloat16
+    x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
+    x[0] = 0
+    w = (torch.randn((N, K), generator=gen, device="cuda") * 0.02).to(bf16)
+    wq, ws = kernels.quantize_rows(w)
+    xq, xs = kernels.quantize_rows(x)
+    acc = cuda.int8_gemm(xq, wq, None, None, torch.int32)
+    acc_ref = kernels.int8_matmul_reference(xq, wq)
+    res = {"name": f"K7 int8 GEMM {name}", "M": M, "K": K, "N": N,
+           "acc_equal": bool(torch.equal(acc, acc_ref))}
+    del acc
+    out = cuda.int8_gemm(xq, wq, xs, ws, bf16)
+    ref = acc_ref.float().mul_(xs[:, None]).mul_(ws[None, :]).to(bf16)
+    del acc_ref
+    res["max_abs_err"] = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+    res["linear_equal"] = bool(torch.equal(kernels.w8a8_matmul(x, wq, ws, bf16),
+                                           kernels.w8a8_matmul_reference(x, wq, ws, bf16)))
+
+    def plain():
+        return kernels.int8_matmul_reference(xq, wq).float().mul_(xs[:, None]).mul_(
+            ws[None, :]).to(bf16)
+
+    res["ms"] = cuda_ms(lambda: cuda.int8_gemm(xq, wq, xs, ws, bf16), reps=5)
+    res["plain_ms"] = cuda_ms(plain, reps=1)
+    res["cublas_bf16_ms"] = cuda_ms(lambda: x @ w.T, reps=5)
+    ops = 2.0 * M * N * K
+    res.update(tops=ops / res["ms"] / 1e9, plain_tops=ops / res["plain_ms"] / 1e9,
+               cublas_bf16_tflops=ops / res["cublas_bf16_ms"] / 1e9)
+    res["int8_peak_share"] = res["tops"] / INT8_PEAK_TOPS
+    emit("kernel", **res)
+    if not (res["acc_equal"] and res["linear_equal"]) or res["max_abs_err"] != 0.0:
+        raise AssertionError(f"K7: kernel disagrees with its plain version: {res}")
+    return res
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
@@ -188,6 +319,14 @@ def phase_kernels() -> dict:
                                              (2, 333, 4, 24), bf16, ATTN_TOL, gen, time_it=False)
     results["K5"] = _splat_case(gen)
     torch.cuda.empty_cache()
+    results["K3"] = _band_case(gen)
+    torch.cuda.empty_cache()
+    results["K7q"] = _quant_case(gen)
+    tokens = 2 * 56320  # the CFG batch of one 121-frame chunk
+    results["K7"] = [_gemm_case(gen, name, M, K, N) for name, M, K, N in [
+        ("q/k/v/out", tokens, 4096, 4096), ("fc1", tokens, 4096, 16384),
+        ("fc2", tokens, 16384, 4096), ("cross k/v", 2 * 512, 1024, 4096)]]
+    torch.cuda.empty_cache()
     return results
 
 
@@ -200,7 +339,7 @@ def _seed_image(h: int, w: int, seed: int) -> np.ndarray:
     return np.clip(img, -1, 1)[None, :, None]
 
 
-def _run_chain(model, preset, device, num_frames, num_steps, seed):
+def _run_chain(model, preset, device, num_frames, num_steps, seed, **pipeline_kw):
     from gen3c_tpu_torch.cache import Cache3DBuffer
     from gen3c_tpu_torch.ops.camera import generate_camera_trajectory
     from gen3c_tpu_torch.pipelines.chunked import run_chunked_generation
@@ -219,7 +358,7 @@ def _run_chain(model, preset, device, num_frames, num_steps, seed):
                           filter_points_threshold=0.05, device=device)
     w2cs, ks = generate_camera_trajectory("left", w2c0, k, num_frames, 0.3, "center_facing", 1.0,
                                           device=device)
-    pipeline = Gen3cPipeline(model=model, num_steps=num_steps, guidance=1.0)
+    pipeline = Gen3cPipeline(model=model, num_steps=num_steps, guidance=1.0, **pipeline_kw)
     timings = {}
     video, _ = run_chunked_generation(pipeline, cache, w2cs, ks, seed_frames=image, prompt="",
                                       update_cache_with_depth=estimator, timings=timings)
@@ -254,7 +393,7 @@ def phase_main() -> dict:
         "build_model_s": build_s, "render_s": timings["render"],
         "encode_condition_s": pipeline.last_timings["encode_condition"],
         "encode_warps_s": pipeline.last_timings["encode_warps"],
-        "denoise_step_s": pipeline.last_timings["denoise_steps"],
+        "denoise_step_s": [s["seconds"] for s in pipeline.last_timings["denoise_steps"]],
         "decode_s": pipeline.last_timings["decode"], "chunk_total_s": total_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
         "latents_finite": bool(torch.isfinite(samples).all().item()),
@@ -268,11 +407,144 @@ def phase_main() -> dict:
         raise AssertionError(f"main path: video {video.shape} {video.dtype}")
     if not res["latents_finite"]:
         raise AssertionError("main path: non-finite latents")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in ("K1", "K2", "K5") if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path did not launch kernels {missing}: {launches}")
     del model, pipeline, samples
     torch.cuda.empty_cache()
+    return res
+
+
+FAST_STEPS = 8
+# at 8 steps the guidance interval 1.75..81 covers steps 0-3; the cache
+# (interval 2, 2 warmup and 2 tail steps) runs the net on 0, 1, 2, 4, 6, 7
+FAST_PATTERN = [(True, True)] * 3 + [(True, False), (False, True), (False, False),
+                                     (False, True), (False, True)]
+
+
+def phase_fast() -> dict:
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.models.quantize import QuantLinear
+    from gen3c_tpu_torch.pipelines import factory
+
+    args = argparse.Namespace(perf_preset="fast", quantize_w8a8=False, quantize_int8=False,
+                              attn_temporal_window=None, step_cache_interval=1,
+                              step_cache_threshold=0.0, guidance_interval=None)
+    factory.apply_perf_preset(args)
+    torch.cuda.reset_peak_memory_stats()
+    timed = {}
+    quantize = factory.quantize_dit_
+
+    def timed_quantize(net, act_quant):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = quantize(net, act_quant=act_quant)
+        torch.cuda.synchronize()
+        timed["quantize_s"] = time.perf_counter() - t0
+        return out
+
+    factory.quantize_dit_ = timed_quantize  # time the quantize inside the user entry point
+    try:
+        t0 = time.perf_counter()
+        model, preset = factory.build_gen3c_model(
+            "gen3c_7b", device="cuda", seed=0, quantize="w8a8" if args.quantize_w8a8 else False,
+            attn_temporal_window=args.attn_temporal_window)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        factory.quantize_dit_ = quantize
+    qlinears = [m for m in model.net.modules() if isinstance(m, QuantLinear)]
+    int8_bytes = sum(m.weight.numel() for m in qlinears)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    video, pipeline, timings = _run_chain(
+        model, preset, "cuda", num_frames=121, num_steps=FAST_STEPS, seed=0,
+        step_cache_interval=args.step_cache_interval,
+        guidance_interval=tuple(args.guidance_interval))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    steps = pipeline.last_timings["denoise_steps"]
+    kinds = [(s["cfg"], s["refresh"]) for s in steps]
+    samples = pipeline.last_samples
+    res = {
+        "model": preset.name, "quantize": "w8a8", "band": [44 * 80, args.attn_temporal_window, 1],
+        "step_cache_interval": args.step_cache_interval,
+        "guidance_interval": list(args.guidance_interval), "num_steps": FAST_STEPS,
+        "quant_linears": len(qlinears), "int8_weight_gb": int8_bytes / 1e9,
+        "build_model_s": build_s, "quantize_s": timed["quantize_s"],
+        "steps": [{"s": s["seconds"], "cfg": s["cfg"], "refresh": s["refresh"]} for s in steps],
+        "denoise_s": sum(s["seconds"] for s in steps),
+        "encode_condition_s": pipeline.last_timings["encode_condition"],
+        "encode_warps_s": pipeline.last_timings["encode_warps"],
+        "decode_s": pipeline.last_timings["decode"], "render_s": timings["render"],
+        "chunk_total_s": total_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches, "latents_finite": bool(torch.isfinite(samples).all().item()),
+        "latent_std": samples.float().std().item(), "frames": int(video.shape[0]),
+    }
+    emit("fast", **res)
+    if kinds != FAST_PATTERN:
+        raise AssertionError(f"fast: step pattern {kinds}, expected {FAST_PATTERN}")
+    if video.shape != (121, 704, 1280, 3) or not res["latents_finite"]:
+        raise AssertionError(f"fast: video {video.shape}, finite latents {res['latents_finite']}")
+    if len(qlinears) != 28 * 10 + 3:  # q/k/v/out x 2, fc1, fc2 per block; x/t embedders
+        raise AssertionError(f"fast: {len(qlinears)} quantized linears")
+    if not (launches["K3"] > 0 and launches["K7"] > 0 and launches["K7q"] > 0
+            and launches["K1"] == 0):
+        raise AssertionError(f"fast path launches: {launches}")
+    del model, pipeline, samples
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_fast_parity() -> dict:
+    """W8A8 + band DiT on the card (kernels) against the CPU (plain versions)."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.models.dit import DiTConfig, GeneralDIT
+    from gen3c_tpu_torch.models.quantize import QuantLinear, quantize_dit_
+
+    cfg = DiTConfig(in_channels=16 + 16 * 4 + 1, model_channels=1024, num_blocks=2,
+                    num_heads=8, rope_t_extrapolation_ratio=2.0, attn_temporal_window=1)
+    cpu = GeneralDIT(cfg).init_random(torch.Generator().manual_seed(2))
+    _randomize_gates(cpu, torch.Generator().manual_seed(3))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(0)
+    T, H, W = 5, 24, 40  # 12 x 20 = 240 tokens per latent frame: frames straddle tiles
+    x = torch.from_numpy(rng.standard_normal((2, cfg.in_channels, T, H, W)).astype(np.float32))
+    t = torch.from_numpy(rng.uniform(-2, 1, (2,)).astype(np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((2, 512, 1024)).astype(np.float32))
+    ctx[1] = 0  # the zero text embedding of the uncond half
+    # the bf16 rounding noise between the two routes, before quantization
+    base = (gpu(x.cuda(), t.cuda(), ctx.cuda(), fps=24.0).float().cpu()
+            - cpu(x, t, ctx, fps=24.0).float()).abs()
+    quantize_dit_(cpu, act_quant=True)  # plain version
+    quantize_dit_(gpu, act_quant=True)  # K7q
+    cpu_q = {n: m for n, m in cpu.named_modules() if isinstance(m, QuantLinear)}
+    codes_equal = all(torch.equal(m.weight.cpu(), cpu_q[n].weight)
+                      and torch.equal(m.scale.cpu(), cpu_q[n].scale)
+                      for n, m in gpu.named_modules() if isinstance(m, QuantLinear))
+    kernels.reset_launch_counts()
+    got = gpu(x.cuda(), t.cuda(), ctx.cuda(), fps=24.0).float().cpu()
+    launches = dict(kernels.launch_counts)
+    want = cpu(x, t, ctx, fps=24.0).float()
+    err = (got - want).abs()
+    scale = want.abs().mean().item()
+    res = {"dit": "1024 ch x 2 blocks x 8 heads, bf16, W8A8, band window 1",
+           "tokens": T * H * W // 4, "quant_linears": len(cpu_q), "weight_codes_equal": codes_equal,
+           "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+           "mean_abs_out": scale, "rel_max_err": err.max().item() / scale,
+           "rel_mean_err": err.mean().item() / scale,
+           "bf16_unquantized_rel_max_err": base.max().item() / scale,
+           "bf16_unquantized_rel_mean_err": base.mean().item() / scale,
+           "rel_tol": FAST_PARITY_TOL, "launches": launches}
+    emit("fast_parity", **res)
+    if not codes_equal or not torch.isfinite(got).all():
+        raise AssertionError(f"fast_parity: {res}")
+    if res["rel_max_err"] > FAST_PARITY_TOL["max"] or res["rel_mean_err"] > FAST_PARITY_TOL["mean"]:
+        raise AssertionError(f"fast_parity: card and CPU disagree: {res}")
+    if launches["K3"] != cfg.num_blocks or launches["K1"] or not launches["K7"]:
+        raise AssertionError(f"fast_parity did not run K3/K7: {launches}")
     return res
 
 
@@ -316,7 +588,7 @@ def phase_chain() -> dict:
     emit("ar_chain", **res)
     if gpu_video.shape != (17, preset.height, preset.width, 3):
         raise AssertionError(f"AR chain: video {gpu_video.shape}")
-    if len(timings["update"]) != 1 or any(n == 0 for n in launches.values()):
+    if len(timings["update"]) != 1 or any(launches[k] == 0 for k in ("K1", "K2", "K5")):
         raise AssertionError(f"AR chain did not run update_cache and every kernel on the card: {res}")
     if res["chunk1_within_1"] < 0.999:
         raise AssertionError(f"AR chain: card and CPU disagree on chunk 1: {res}")
@@ -329,7 +601,10 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     launches = phase_main()["launches"]
+    fast_launches = phase_fast()["launches"]
+    phase_fast_parity()
     phase_chain()
+    k7 = max(kern["K7"], key=lambda r: r["M"] * r["N"] * r["K"])  # fc1
     table = [
         {"name": "K1 self-attention", "route": "cuda",
          "source": "gen3c_tpu_torch/kernels/csrc/attention.cu",
@@ -346,6 +621,21 @@ def main() -> int:
          "replaces": "gen3c_tpu/ops/geometry.py:205", "launches": launches["K5"],
          "max_abs_err": kern["K5"]["max_abs_err"], "ms": kern["K5"]["ms"],
          "plain_ms": kern["K5"]["plain_ms"]},
+        {"name": "K3 band self-attention", "route": "cuda",
+         "source": "gen3c_tpu_torch/kernels/csrc/attention.cu",
+         "replaces": "gen3c_tpu/models/dit.py:459", "launches": fast_launches["K3"],
+         "max_abs_err": kern["K3"]["max_abs_err"], "ms": kern["K3"]["ms"],
+         "plain_ms": kern["K3"]["plain_ms"]},
+        {"name": "K7q per-token int8 quantize", "route": "cuda",
+         "source": "gen3c_tpu_torch/kernels/csrc/w8a8.cu",
+         "replaces": "gen3c_tpu/models/quantize.py:55", "launches": fast_launches["K7q"],
+         "max_abs_err": kern["K7q"]["max_abs_err"], "ms": kern["K7q"]["ms"],
+         "plain_ms": kern["K7q"]["plain_ms"]},
+        {"name": "K7 int8 GEMM + rescale (fc1 shape)", "route": "cuda",
+         "source": "gen3c_tpu_torch/kernels/csrc/w8a8.cu",
+         "replaces": "gen3c_tpu/models/quantize.py:61", "launches": fast_launches["K7"],
+         "max_abs_err": max(r["max_abs_err"] for r in kern["K7"]), "ms": k7["ms"],
+         "plain_ms": k7["plain_ms"]},
     ]
     print(json.dumps({"kernels": table}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

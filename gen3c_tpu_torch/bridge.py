@@ -3,7 +3,10 @@
 ``dit_state_from_jax`` is the inverse of gen3c_tpu/models/convert.py
 ``convert_dit_state_dict``: it names every leaf of the JAX DiT tree with
 the reference checkpoint's torch name and transposes the linears back to
-(out, in). ``vae_state_from_jax`` is the identity, because the JAX VAE
+(out, in). A quantized linear ({"q" | "q8", "scale"}, from
+gen3c_tpu/models/quantize.py) becomes the ``weight`` (int8 codes, (out,
+in)) and ``scale`` ((out,)) of a ``models.quantize.QuantLinear``; the net
+must have been given that structure (``quantize_dit_``) before loading. ``vae_state_from_jax`` is the identity, because the JAX VAE
 params are already keyed by the reference names. Both take numpy-valued
 trees (``jax.device_get`` output), so this module needs no JAX.
 """
@@ -27,17 +30,25 @@ def _t(x) -> torch.Tensor:
     return _a(x).T.contiguous()
 
 
+def _linear(name: str, entry: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX linear entry {"w"} or {"q" | "q8", "scale"} -> state_dict items."""
+    if "w" in entry:
+        return {f"{name}.weight": _t(entry["w"])}
+    codes = entry["q"] if "q" in entry else entry["q8"]
+    return {f"{name}.weight": _t(codes), f"{name}.scale": _a(entry["scale"]).reshape(-1)}
+
+
 def dit_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX DiT param tree (numpy leaves) -> GeneralDIT state_dict."""
     sd: Dict[str, torch.Tensor] = {
-        "x_embedder.proj.1.weight": _t(tree["x_embedder"]["w"]),
-        "t_embedder.1.linear_1.weight": _t(tree["t_embedder"]["linear_1"]["w"]),
-        "t_embedder.1.linear_2.weight": _t(tree["t_embedder"]["linear_2"]["w"]),
+        **_linear("x_embedder.proj.1", tree["x_embedder"]),
+        **_linear("t_embedder.1.linear_1", tree["t_embedder"]["linear_1"]),
+        **_linear("t_embedder.1.linear_2", tree["t_embedder"]["linear_2"]),
         "affline_norm.weight": _a(tree["affline_norm"]["scale"]),
         "extra_pos_embedder.pos_emb_t": _a(tree["extra_pos_emb"]["t"]),
         "extra_pos_embedder.pos_emb_h": _a(tree["extra_pos_emb"]["h"]),
         "extra_pos_embedder.pos_emb_w": _a(tree["extra_pos_emb"]["w"]),
-        "final_layer.linear.weight": _t(tree["final"]["linear"]["w"]),
+        **_linear("final_layer.linear", tree["final"]["linear"]),
         "final_layer.adaLN_modulation.1.weight": _t(tree["final"]["adaln"]["w1"]),
         "final_layer.adaLN_modulation.2.weight": _t(tree["final"]["adaln"]["w2"]),
     }
@@ -46,17 +57,17 @@ def dit_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for j, sub in enumerate(("fa", "ca")):
             p = blk[sub]
             pre = f"{base}.{j}.block.attn"
-            sd[f"{pre}.to_q.0.weight"] = _t(p["q"]["w"])
+            sd.update(_linear(f"{pre}.to_q.0", p["q"]))
             sd[f"{pre}.to_q.1.weight"] = _a(p["q_norm"]["scale"])
-            sd[f"{pre}.to_k.0.weight"] = _t(p["k"]["w"])
+            sd.update(_linear(f"{pre}.to_k.0", p["k"]))
             sd[f"{pre}.to_k.1.weight"] = _a(p["k_norm"]["scale"])
-            sd[f"{pre}.to_v.0.weight"] = _t(p["v"]["w"])
-            sd[f"{pre}.to_out.0.weight"] = _t(p["out"]["w"])
+            sd.update(_linear(f"{pre}.to_v.0", p["v"]))
+            sd.update(_linear(f"{pre}.to_out.0", p["out"]))
             sd[f"{base}.{j}.adaLN_modulation.1.weight"] = _t(p["adaln"]["w1"])
             sd[f"{base}.{j}.adaLN_modulation.2.weight"] = _t(p["adaln"]["w2"])
         mlp = blk["mlp"]
-        sd[f"{base}.2.block.layer1.weight"] = _t(mlp["fc1"]["w"])
-        sd[f"{base}.2.block.layer2.weight"] = _t(mlp["fc2"]["w"])
+        sd.update(_linear(f"{base}.2.block.layer1", mlp["fc1"]))
+        sd.update(_linear(f"{base}.2.block.layer2", mlp["fc2"]))
         sd[f"{base}.2.adaLN_modulation.1.weight"] = _t(mlp["adaln"]["w1"])
         sd[f"{base}.2.adaLN_modulation.2.weight"] = _t(mlp["adaln"]["w2"])
     return sd

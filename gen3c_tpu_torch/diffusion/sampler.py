@@ -1,20 +1,30 @@
 """EDM-Euler video sampling with conditioned-region replacement and CFG.
 
-Port of the exact path of gen3c_tpu/diffusion/sampler.py
-``generate_samples`` (the ``body`` loop, :256-348, :600-603): each step
-re-noises the condition region, runs ONE batched [cond | uncond] DiT
-forward of size 2B, combines with CFG, replaces the condition region in
-the output and takes an Euler step. The loop is a plain Python loop.
+Port of gen3c_tpu/diffusion/sampler.py ``generate_samples`` (:148-777) as
+plain Python control flow: each step re-noises the condition region, runs
+the DiT (one batched [cond | uncond] forward of size 2B, or a
+condition-only forward of size B outside the guidance interval), combines
+with CFG (optionally rescaled), replaces the condition region in the
+output and takes an Euler step. Step caching reuses the last raw network
+output on skipped steps: on a fixed interval after a 2-step warmup and
+before a 2-step tail, or adaptively when the latent's accumulated relative
+drift crosses a threshold.
+
+Not ported: the dpm2m/res2ab solvers, span caching (``net_fn_skip``), and
+the JAX package's host-loop, streaming and cfg-axis variants.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from gen3c_tpu_torch.diffusion.scheduler import EDMEulerSchedule
+
+CACHE_WARMUP = 2  # first steps that always run the network
+CACHE_TAIL = 2  # last steps that always run the network
 
 
 def arch_invariant_randn(shape, seed: Optional[int] = None) -> np.ndarray:
@@ -23,9 +33,34 @@ def arch_invariant_randn(shape, seed: Optional[int] = None) -> np.ndarray:
     return np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
 
 
-def apply_cfg(out_cond: torch.Tensor, out_uncond: torch.Tensor, guidance: float) -> torch.Tensor:
-    """cond + g * (cond - uncond)."""
-    return out_cond + guidance * (out_cond - out_uncond)
+def guidance_interval_steps(schedule: EDMEulerSchedule, num_steps: int,
+                            guidance_interval: Sequence[float]) -> Tuple[int, int]:
+    """(i0, i1): CFG runs on steps i0 <= i < i1, the steps whose sigma lies
+    in [lo, hi] (arXiv:2404.07724); the others run condition-only. The
+    sigmas decrease, so the range is contiguous (sampler.py:40-68)."""
+    lo, hi = float(guidance_interval[0]), float(guidance_interval[1])
+    if not 0.0 <= lo <= hi:
+        raise ValueError(f"guidance_interval must satisfy 0 <= lo <= hi, got ({lo}, {hi})")
+    sig = np.asarray(schedule.sigmas(num_steps), np.float64)[:num_steps]
+    idx = np.nonzero((sig >= lo) & (sig <= hi))[0]
+    if idx.size == 0:
+        return 0, 0
+    return int(idx[0]), int(idx[-1]) + 1
+
+
+def apply_cfg(out_cond: torch.Tensor, out_uncond: torch.Tensor, guidance: float,
+              cfg_rescale: float = 0.0) -> torch.Tensor:
+    """cond + g * (cond - uncond); with cfg_rescale = phi > 0 the result is
+    blended with its copy rescaled to the cond branch's per-sample
+    (population) std (arXiv:2305.08891, sampler.py:89-115)."""
+    out = out_cond + guidance * (out_cond - out_uncond)
+    if cfg_rescale <= 0:
+        return out
+    dims = tuple(range(1, out.ndim))
+    std_c = out_cond.std(dim=dims, keepdim=True, correction=0)
+    std_o = out.std(dim=dims, keepdim=True, correction=0)
+    rescaled = out * (std_c / std_o.clamp_min(1e-6))
+    return cfg_rescale * rescaled + (1.0 - cfg_rescale) * out
 
 
 @torch.no_grad()
@@ -45,42 +80,99 @@ def generate_samples(
     condition_augment_sigma: float = 0.001,
     schedule: EDMEulerSchedule = EDMEulerSchedule(),
     net_in_dtype: torch.dtype = torch.float32,
-    on_step: Optional[Callable[[int], None]] = None,
+    step_cache_interval: int = 1,
+    step_cache_threshold: float = 0.0,
+    guidance_interval: Optional[Sequence[float]] = None,
+    cfg_rescale: float = 0.0,
+    on_step: Optional[Callable[[int, bool, bool], None]] = None,
 ) -> torch.Tensor:
     """Run the denoising loop; returns the final latent (B, C, T, H, W), fp32.
 
-    net_fn(x_in, t_in, crossattn) -> raw DiT output for a 2B batch whose
-    channels already carry [x, input mask, pose latent]. on_step(i) is
-    called after each step (timing hooks).
+    net_fn(x_in, t_in, crossattn) -> raw DiT output for a batch whose
+    channels already carry [x, input mask, pose latent]: 2B for a CFG
+    step, B for a condition-only one. on_step(i, cfg, refreshed) is
+    called after each step (timing hooks): whether step i ran CFG and
+    whether it ran the network (False: it reused the cache).
+
+    step_cache_interval > 1: the network runs on steps i < 2, i >= n - 2,
+    (i - 2) % interval == 0 and on re-entry into the guidance interval;
+    step_cache_threshold > 0 instead runs it when the accumulated relative
+    L1 drift of the scaled latent exceeds the threshold (interval ignored;
+    not composable with a guidance interval that excludes steps).
     """
     sigmas = [float(s) for s in schedule.sigmas(num_steps)]
     c_noises = [float(t) for t in schedule.timesteps(num_steps)]
     B = init_noise.shape[0]
+    dev = init_noise.device
     xt = init_noise.float() * schedule.init_noise_sigma
     aug = condition_augment_sigma
     gt = gt_latent.float()
     indicator_base = condition_video_indicator.float()
     augment_latent = (gt + augment_noise.float() * aug) * schedule.c_in(aug)
     crossattn_both = torch.cat([crossattn_cond, crossattn_uncond], dim=0)
-    t_in_shape = (2 * B,)
+    mask = condition_video_input_mask.to(net_in_dtype)
+    pose_cond = pose_latent_cond.to(net_in_dtype)
+    pose_uncond = pose_latent_uncond.to(net_in_dtype)
+
+    gi = None
+    if guidance_interval is not None:
+        gi = guidance_interval_steps(schedule, num_steps, guidance_interval)
+        if gi == (0, num_steps):
+            gi = None  # every step in the interval: the plain CFG loop
+        elif step_cache_threshold > 0:
+            raise ValueError("guidance_interval composes with the plain and fixed-"
+                             "interval-cached loops only (not adaptive caching)")
+    adaptive = step_cache_threshold > 0
+    caching = adaptive or step_cache_interval > 1
+    # the last raw [cond | uncond] network output; condition-only steps
+    # refresh or read its cond half only
+    cached = torch.zeros((2 * B,) + tuple(gt.shape[1:]), dtype=torch.float32, device=dev)
+    prev = torch.zeros_like(xt)
+    drift_acc = 0.0
 
     for i in range(num_steps):
         sigma = sigmas[i]
+        use_cfg = gi is None or gi[0] <= i < gi[1]
         indicator = torch.zeros_like(indicator_base) if aug >= sigma else indicator_base
         c_in = schedule.c_in(sigma)
         new_xt = indicator * (augment_latent / c_in) + (1 - indicator) * xt
-        x_scaled = (new_xt * c_in).to(net_in_dtype)
-        mask = condition_video_input_mask.to(net_in_dtype)
-        x_in = torch.cat([
-            torch.cat([x_scaled, mask, pose_latent_cond.to(net_in_dtype)], dim=1),
-            torch.cat([x_scaled, mask, pose_latent_uncond.to(net_in_dtype)], dim=1),
-        ], dim=0)
-        t_in = torch.full(t_in_shape, c_noises[i], dtype=torch.float32, device=xt.device)
-        net_out = net_fn(x_in, t_in, crossattn_both).float()
-        net_output = apply_cfg(net_out[:B], net_out[B:], guidance)
+        edge = i < CACHE_WARMUP or i >= num_steps - CACHE_TAIL
+        if adaptive:
+            cur = new_xt * c_in
+            rel = ((cur - prev).abs().mean() / (prev.abs().mean() + 1e-8)).item()
+            drift = drift_acc + rel
+            refresh = edge or drift > step_cache_threshold
+            drift_acc = 0.0 if refresh else drift
+            prev = cur
+        elif caching:
+            refresh = (edge or (i - CACHE_WARMUP) % step_cache_interval == 0
+                       # re-entry into the CFG range: the cache's uncond half
+                       # is stale (condition-only steps never refresh it)
+                       or (use_cfg and gi is not None and i == gi[0]))
+        else:
+            refresh = True
+
+        if refresh:
+            x_scaled = (new_xt * c_in).to(net_in_dtype)
+            x_cond = torch.cat([x_scaled, mask, pose_cond], dim=1)
+            if use_cfg:
+                x_in = torch.cat([x_cond, torch.cat([x_scaled, mask, pose_uncond], dim=1)])
+                t_in = torch.full((2 * B,), c_noises[i], dtype=torch.float32, device=dev)
+                net_out = net_fn(x_in, t_in, crossattn_both).float()
+                if caching:
+                    cached = net_out
+            else:
+                t_in = torch.full((B,), c_noises[i], dtype=torch.float32, device=dev)
+                net_out = net_fn(x_cond, t_in, crossattn_cond).float()
+                if caching:
+                    cached = torch.cat([net_out, cached[B:]], dim=0)
+        else:
+            net_out = cached if use_cfg else cached[:B]
+        net_output = (apply_cfg(net_out[:B], net_out[B:], guidance, cfg_rescale)
+                      if use_cfg else net_out)
         latent_unscaled = schedule.reverse_precondition_output(gt, new_xt, sigma)
         new_output = indicator * latent_unscaled + (1 - indicator) * net_output
         xt = schedule.step(new_output, new_xt, sigma, sigmas[i + 1])
         if on_step is not None:
-            on_step(i)
+            on_step(i, use_cfg, refresh)
     return xt

@@ -2,9 +2,11 @@
 
 The sources have a plain C interface (no PyTorch or Python headers), so
 ``nvcc`` alone compiles them in seconds and no ``ninja`` is needed; the
-library is loaded with ``ctypes``. The output goes to ``_build/<hash>/``
-next to this file, keyed by a hash of the sources and the flags, so an
-edited source rebuilds and an unchanged one is reused. Any failure raises.
+library is loaded with ``ctypes``. Each source compiles to an object in
+its own ``nvcc`` process, all started together, and one more ``nvcc``
+links them. The output goes to ``_build/<hash>/`` next to this file, keyed
+by a hash of the sources and the flags, so an edited source rebuilds and
+an unchanged one is reused. Any failure raises.
 """
 
 from __future__ import annotations
@@ -19,10 +21,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libgen3c_torch_kernels.so"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo", "--ptxas-options=-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "-lineinfo", "--ptxas-options=-v",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -68,16 +70,33 @@ def build() -> dict:
         return {"path": str(lib), "seconds": 0.0, "cached": True, "log": log}
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log += " ".join(cmd) + "\n" + out
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        tmp = out_dir / f".{LIB_NAME}.{tag}.tmp"
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
     log_path.write_text(log)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed with exit code {proc.returncode}:\n{log[-8000:]}"
-        )
+    if failed:
+        raise KernelBuildError(f"nvcc failed with exit codes {failed}:\n{log[-8000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return {"path": str(lib), "seconds": seconds, "cached": False, "log": log}

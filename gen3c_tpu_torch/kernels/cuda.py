@@ -10,7 +10,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,6 +20,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def library() -> ctypes.CDLL:
@@ -28,20 +29,19 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(_build.build()["path"])
-            lib.gen3c_attention_bf16.argtypes = [
-                _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-                _I, _I, _I, _I, _I, ctypes.c_float, _I, _P,
-            ]
-            lib.gen3c_attention_bf16.restype = _I
-            lib.gen3c_attention_f32.argtypes = [
-                _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-                _I, _I, _I, _I, _I, ctypes.c_float, _P,
-            ]
-            lib.gen3c_attention_f32.restype = _I
+            attn = [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+                    _I, _I, _I, _I, _I, ctypes.c_float, ctypes.POINTER(_I), _P]
+            lib.gen3c_attention_bf16.argtypes = attn + [_I, _P]
+            lib.gen3c_attention_f32.argtypes = attn + [_P]
             lib.gen3c_splat.argtypes = [
                 _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P,
             ]
-            lib.gen3c_splat.restype = _I
+            lib.gen3c_quant_rows.argtypes = [_P, _L, _I, _I, _I, _P, _P, _P]
+            lib.gen3c_w8a8_gemm.argtypes = [_P, _L, _P, _L, _P, _P, _P, _I, _I, _I,
+                                            _I, _I, _P]
+            for fn in (lib.gen3c_attention_bf16, lib.gen3c_attention_f32, lib.gen3c_splat,
+                       lib.gen3c_quant_rows, lib.gen3c_w8a8_gemm):
+                fn.restype = _I
             _lib = lib
         return _lib
 
@@ -55,9 +55,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              band: Optional[Tuple[int, int, int]] = None,
+              visited: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, Lq, H, D) x (B, Lk, H, D) -> (B, Lq, H, D): gen3c_attention_bf16
-    for bf16 inputs, gen3c_attention_f32 for fp32 inputs."""
+    for bf16 inputs, gen3c_attention_f32 for fp32 inputs.
+
+    band=(hw, window, prefix) restricts each query to its temporal band
+    (K3); the kernel then visits only the key tiles the band reaches. It
+    needs every query row to see at least one key. visited, a one-element
+    int64 CUDA tensor, receives the number of key tiles a band call visits.
+    """
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("attention kernel: q, k, v must be on one CUDA device")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
@@ -65,10 +73,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"attention kernel: bad shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     B, Lq, H, D = q.shape
+    Lk = k.shape[1]
     if k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
         raise ValueError(f"attention kernel: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree")
     if not 0 < D <= 128 or B > 65535 or H > 65535:
         raise ValueError(f"attention kernel takes head dim <= 128, B and H <= 65535 (got {q.shape})")
+    band_arg = None
+    if band is not None:
+        hw, window, prefix = (int(x) for x in band)
+        if hw <= 0 or window < 0 or prefix < 0:
+            raise ValueError(f"attention kernel: bad band {band}")
+        if prefix == 0 and ((Lq - 1) // hw - window) * hw >= Lk:
+            raise ValueError(f"attention kernel: band {band} leaves queries of Lq={Lq} "
+                             f"no key among Lk={Lk}")
+        band_arg = (_I * 3)(hw, window, prefix)
+    if visited is not None and not (visited.is_cuda and visited.dtype == torch.int64
+                                    and visited.numel() == 1):
+        raise ValueError("attention kernel: visited must be one int64 on the card")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(
@@ -79,7 +100,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     scale = 1.0 / math.sqrt(D)
     lib = library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            B, Lq, k.shape[1], H, D, scale)
+            B, Lq, Lk, H, D, scale, band_arg,
+            None if visited is None else visited.data_ptr())
     if q.dtype == torch.bfloat16:
         vec = D % 8 == 0 and all(
             t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
@@ -88,6 +110,66 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
         _check(lib.gen3c_attention_bf16(*args, int(vec), _stream(q)), "attention_bf16")
     else:
         _check(lib.gen3c_attention_f32(*args, _stream(q)), "attention_f32")
+    return out
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gen3c_quant_rows (K7q): x (M, K) bf16/fp32 -> (int8 codes (M, K),
+    fp32 scales (M,))."""
+    if not x.is_cuda or x.ndim != 2:
+        raise ValueError(f"quant kernel takes a 2-D CUDA tensor, got {x.device} {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quant kernel takes bf16 or fp32, got {x.dtype}")
+    M, K = x.shape
+    if M == 0 or K == 0:
+        raise ValueError(f"quant kernel: empty input {tuple(x.shape)}")
+    if x.stride(1) != 1 or x.stride(0) < K:
+        x = x.contiguous()
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    scale = torch.empty((M,), dtype=torch.float32, device=x.device)
+    _check(library().gen3c_quant_rows(x.data_ptr(), x.stride(0), M, K,
+                                      int(x.dtype == torch.bfloat16), codes.data_ptr(),
+                                      scale.data_ptr(), _stream(x)), "quant_rows")
+    return codes, scale
+
+
+_EPI = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, xscale: Optional[torch.Tensor],
+              wscale: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:
+    """gen3c_w8a8_gemm (K7): int8 xq (M, K) x int8 wq (N, K)^T -> (M, N).
+
+    out_dtype int32 returns the raw accumulators (scales unused); fp32 or
+    bf16 returns (acc * xscale[m]) * wscale[n] in that dtype.
+    """
+    if out_dtype not in _EPI:
+        raise TypeError(f"int8 GEMM writes int32, fp32 or bf16, not {out_dtype}")
+    if not (xq.is_cuda and wq.device == xq.device) or xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError("int8 GEMM: xq and wq must be int8 on one CUDA device")
+    if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[1] or 0 in xq.shape + wq.shape:
+        raise ValueError(f"int8 GEMM: bad shapes {tuple(xq.shape)} x {tuple(wq.shape)}")
+    M, K = xq.shape
+    N = wq.shape[0]
+    if (M + 127) // 128 > 65535:
+        raise ValueError(f"int8 GEMM takes at most {65535 * 128} rows, got {M}")
+    xq, wq = (t if t.stride(1) == 1 else t.contiguous() for t in (xq, wq))
+    scales = (xscale, wscale)
+    if out_dtype != torch.int32:
+        if any(s is None or not s.is_cuda or s.dtype != torch.float32 for s in scales):
+            raise ValueError("int8 GEMM: xscale and wscale must be fp32 CUDA tensors")
+        if xscale.shape != (M,) or wscale.shape != (N,):
+            raise ValueError(f"int8 GEMM: scales {tuple(xscale.shape)} {tuple(wscale.shape)} "
+                             f"for M={M} N={N}")
+        xscale, wscale = xscale.contiguous(), wscale.contiguous()
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    vec = (K % 16 == 0 and xq.stride(0) % 16 == 0 and wq.stride(0) % 16 == 0
+           and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0)
+    _check(library().gen3c_w8a8_gemm(
+        xq.data_ptr(), xq.stride(0), wq.data_ptr(), wq.stride(0),
+        None if xscale is None else xscale.data_ptr(),
+        None if wscale is None else wscale.data_ptr(),
+        out.data_ptr(), M, N, K, _EPI[out_dtype], int(vec), _stream(xq)), "w8a8_gemm")
     return out
 
 

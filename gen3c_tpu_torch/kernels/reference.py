@@ -6,7 +6,11 @@ non-Pallas paths:
 
   * ``attention_reference``: the XLA path of gen3c_tpu/models/dit.py
     ``attention_op`` (:511-517), with the queries processed in chunks so
-    that it also runs at the 7B self-attention length.
+    that it also runs at the 7B self-attention length; with ``band`` the
+    dense temporal-band mask of :412-416 and :513-515.
+  * ``quantize_rows_reference``, ``int8_matmul_reference`` and
+    ``w8a8_matmul_reference``: gen3c_tpu/models/quantize.py
+    ``w8a8_matmul`` (:48-69), split at the two kernels (K7q, K7).
   * ``splat_reference``: gen3c_tpu/ops/geometry.py ``bilinear_splatting``
     (:205-316) with the scatter-add as ``index_add_`` (the ``.at[].add`` of
     :299-300).
@@ -17,27 +21,92 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 MAX_EXPONENT = 80.0  # geometry.py _MAX_EXPONENT
 _LOGITS_PER_CHUNK = 1 << 28  # fp32 logits live at once in the reference
+# int8 x int8 products summed over this many terms stay below 2^24, so an
+# fp32 matmul of the codes is exact (1024 * 128^2 = 2^24)
+_EXACT_K_CHUNK = 1024
+_ACC_PER_CHUNK = 1 << 28  # int32 accumulators formed at once in the reference
+
+INV_127 = float(np.float32(1.0) / np.float32(127.0))  # 1/127 rounded to fp32
+Band = Tuple[int, int, int]  # (tokens per frame, window in frames, prefix frames)
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        band: Optional[Band] = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v. q: (B, Lq, H, D), k/v: (B, Lk, H, D).
 
     The logits are formed in the input dtype, scaled and soft-maxed in
     fp32, and the probabilities cast back to v's dtype (dit.py:512-517).
+    band=(hw, window, prefix): query token i may see key token j only if
+    |i // hw - j // hw| <= window or j // hw < prefix; other logits are
+    set to -1e30 before the softmax, as dit.py does.
     """
     B, Lq, H, D = q.shape
+    Lk = k.shape[1]
     scale = 1.0 / math.sqrt(D)
-    chunk = max(1, _LOGITS_PER_CHUNK // (B * H * k.shape[1]))
+    chunk = max(1, _LOGITS_PER_CHUNK // (B * H * Lk))
     outs = []
     for s in range(0, Lq, chunk):
         logits = torch.einsum("bqhd,bkhd->bhqk", q[:, s:s + chunk], k).float() * scale
+        if band is not None:
+            hw, window, prefix = band
+            qf = torch.arange(s, min(s + chunk, Lq), device=q.device) // hw
+            kf = torch.arange(Lk, device=q.device) // hw
+            allowed = ((qf[:, None] - kf[None, :]).abs() <= window) | (kf[None, :] < prefix)
+            logits.masked_fill_(~allowed, -1e30)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, v))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def quantize_rows_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row absmax int8: x (M, K) -> (codes (M, K) int8, scales (M,) fp32).
+
+    scale = max(absmax * INV_127, 1e-12); code = clip(round_half_even(x /
+    scale), -127, 127), all in fp32 (quantize.py:55-59, and :33-36 for a
+    weight stored (out, in)). quantize.py writes ``absmax / 127.0``; XLA
+    compiles that division by a constant into a multiply by the fp32
+    reciprocal, and the port reproduces the compiled numbers. The codes
+    are a true division. An all-zero row gets codes 0.
+    """
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1, keepdim=True) * INV_127).clamp_min(1e-12)
+    codes = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
+    return codes, scale.squeeze(-1)
+
+
+def int8_matmul_reference(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact int32 accumulators of int8 xq (M, K) x int8 wq (N, K)^T -> (M, N).
+
+    torch has no integer matmul on CUDA, so the codes are multiplied as
+    fp32 in K-chunks of 1024, each of which is exact, and summed in int32.
+    """
+    M, K = xq.shape
+    N = wq.shape[0]
+    acc = torch.zeros((M, N), dtype=torch.int32, device=xq.device)
+    rows = max(1, _ACC_PER_CHUNK // max(N, 1))
+    for m0 in range(0, M, rows):
+        for k0 in range(0, K, _EXACT_K_CHUNK):
+            part = xq[m0:m0 + rows, k0:k0 + _EXACT_K_CHUNK].float() @ \
+                wq[:, k0:k0 + _EXACT_K_CHUNK].float().T
+            acc[m0:m0 + rows] += part.to(torch.int32)
+    return acc
+
+
+def w8a8_matmul_reference(x: torch.Tensor, qweight: torch.Tensor, wscale: torch.Tensor,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    """x (..., K) @ int8 qweight (N, K)^T with per-token int8 activations:
+    quantize x's rows, accumulate exactly in int32, then
+    ``(acc * xscale) * wscale`` in fp32 and cast (quantize.py:55-69)."""
+    K = x.shape[-1]
+    xq, xscale = quantize_rows_reference(x.reshape(-1, K))
+    acc = int8_matmul_reference(xq, qweight)
+    out = acc.float().mul_(xscale[:, None]).mul_(wscale.float()[None, :])
+    return out.to(out_dtype).reshape(*x.shape[:-1], qweight.shape[0])
 
 
 def splat_max_logd(depth: torch.Tensor, group: Optional[int] = None) -> torch.Tensor:

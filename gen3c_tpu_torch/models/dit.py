@@ -1,7 +1,7 @@
 """GeneralDIT: the Cosmos 7B video diffusion transformer in PyTorch.
 
 Port of gen3c_tpu/models/dit.py ``dit_forward`` for one device (no
-context/tensor/sequence parallelism, no span cache, no band attention).
+context/tensor/sequence parallelism, no span cache).
 The module tree carries the reference checkpoint's parameter names, the
 left-hand side of gen3c_tpu/models/convert.py ``convert_dit_state_dict``,
 so a reference ``model.pt`` loads with ``load_state_dict``:
@@ -13,8 +13,16 @@ so a reference ``model.pt`` loads with ``load_state_dict``:
 
 Numerics follow the JAX package: tokens (B, L, D) with L = T*H*W in the
 model dtype; timestep embedding, AdaLN-LoRA modulation, norms statistics
-and RoPE in fp32; erf-GELU MLP. Self-attention runs through kernel K1 and
+and RoPE in fp32; erf-GELU MLP. Self-attention runs through kernel K1, or
+K3 with ``attn_temporal_window`` set (each latent frame attends to the
+frames within the window plus the first ``attn_prefix_frames``), and
 cross-attention through K2 (``gen3c_tpu_torch.kernels.attention``).
+
+After ``models.quantize.quantize_dit_`` the large linears are QuantLinear
+and resolve as dit.py ``_w`` / ``_linear`` do: q/k/v/out/fc1/fc2 run their
+own forward (the W8A8 kernels K7q + K7, or a dequantized matmul), the
+patch embedding dequantizes in the model dtype and the timestep MLP in
+fp32.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gen3c_tpu_torch import kernels
+from gen3c_tpu_torch.models.quantize import linear_weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +63,9 @@ class DiTConfig:
     concat_padding_mask: bool = True
     base_fps: int = 24
     dtype: torch.dtype = torch.bfloat16
+    # temporal-band self-attention (K3): None = full attention (K1)
+    attn_temporal_window: Optional[int] = None
+    attn_prefix_frames: int = 1
 
     @property
     def head_dim(self) -> int:
@@ -97,6 +109,18 @@ def _l2_rms_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     norm = eps + torch.linalg.vector_norm(xf, dim=-1, keepdim=True) / math.sqrt(x.shape[-1])
     return (xf / norm).to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """erf-GELU as jax.nn.gelu(approximate=False) computes it: 0.5 * x *
+    erfc(-x * sqrt(0.5)) with every product rounded in x's dtype and
+    sqrt(0.5) itself rounded to it (0.70703 in bf16). F.gelu's single fp32
+    evaluation would be off by a bias of ~2e-4 per bf16 element. In place
+    on one temporary, which rounds the same: (-x) * c == x * (-c), and
+    scaling by 0.5 is exact, so the order of the last two products does
+    not matter."""
+    neg_sqrt_half = -float(torch.tensor(math.sqrt(0.5), dtype=x.dtype))
+    return (x * neg_sqrt_half).erfc_().mul_(x).mul_(0.5)
 
 
 def timestep_sincos(timesteps: torch.Tensor, num_channels: int) -> torch.Tensor:
@@ -187,7 +211,7 @@ class Attention(nn.Module):
         self.to_v = nn.Sequential(_linear(ctx_dim, dim, device, dtype))
         self.to_out = nn.Sequential(_linear(dim, dim, device, dtype))
 
-    def forward(self, x, context=None, rope=None):
+    def forward(self, x, context=None, rope=None, band=None):
         B, L, D = x.shape
         ctx = x if context is None else context
         hd = D // self.num_heads
@@ -197,7 +221,8 @@ class Attention(nn.Module):
         if context is None:
             q = apply_rope(q, *rope)
             k = apply_rope(k, *rope)
-        out = kernels.attention(q, k, v, kernel_id="K1" if context is None else "K2")
+        out = kernels.attention(q, k, v, kernel_id="K1" if context is None else "K2",
+                                band=band)
         return self.to_out[0](out.reshape(B, L, D))
 
 
@@ -206,8 +231,8 @@ class VideoAttn(nn.Module):
         super().__init__()
         self.attn = Attention(dim, ctx_dim, num_heads, device, dtype)
 
-    def forward(self, x, context=None, rope=None):
-        return self.attn(x, context, rope)
+    def forward(self, x, context=None, rope=None, band=None):
+        return self.attn(x, context, rope, band)
 
 
 class GPT2FeedForward(nn.Module):
@@ -218,8 +243,8 @@ class GPT2FeedForward(nn.Module):
         self.layer1 = _linear(dim, hidden, device, dtype)
         self.layer2 = _linear(hidden, dim, device, dtype)
 
-    def forward(self, x, context=None, rope=None):
-        return self.layer2(F.gelu(self.layer1(x), approximate="none"))
+    def forward(self, x):
+        return self.layer2(_gelu(self.layer1(x)))
 
 
 class DITBuildingBlock(nn.Module):
@@ -232,10 +257,10 @@ class DITBuildingBlock(nn.Module):
             nn.SiLU(), _linear(dim, lora_dim, device, dtype), _linear(lora_dim, 3 * dim, device, dtype)
         )
 
-    def forward(self, x, emb, lora, context=None, rope=None):
+    def forward(self, x, emb, lora, **block_kwargs):
         shift, scale, gate = _adaln_modulation(self.adaLN_modulation, emb, lora, 3)
         modded = (_layer_norm(x).float() * (1 + scale[:, None, :]) + shift[:, None, :]).to(x.dtype)
-        return x + gate[:, None, :].to(x.dtype) * self.block(modded, context, rope)
+        return x + gate[:, None, :].to(x.dtype) * self.block(modded, **block_kwargs)
 
 
 class GeneralDITTransformerBlock(nn.Module):
@@ -252,9 +277,9 @@ class GeneralDITTransformerBlock(nn.Module):
                              D, L, device, dtype),
         ])
 
-    def forward(self, x, emb, lora, extra, ctx, rope):
+    def forward(self, x, emb, lora, extra, ctx, rope, band=None):
         x = x + extra
-        x = self.blocks[0](x, emb, lora, rope=rope)
+        x = self.blocks[0](x, emb, lora, rope=rope, band=band)
         x = self.blocks[1](x, emb, lora, context=ctx)
         return self.blocks[2](x, emb, lora)
 
@@ -333,7 +358,7 @@ class GeneralDIT(nn.Module):
             C += 1
         x = x.reshape(B, C, T // pt, pt, H // ps, ps, W // ps, ps)
         x = x.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(B, T // pt, H // ps, W // ps, C * pt * ps * ps)
-        return self.x_embedder.proj[1](x)
+        return F.linear(x, linear_weight(self.x_embedder.proj[1], x.dtype))
 
     def unpatchify(self, x: torch.Tensor, T: int, H: int, W: int) -> torch.Tensor:
         """(B, T', H', W', p*p*t*C) -> (B, C, T, H, W), channel layout (p1, p2, t, C)."""
@@ -362,22 +387,24 @@ class GeneralDIT(nn.Module):
         tokens = tokens.reshape(B, L, D)
         rope = self.rope(Tp, Hp, Wp, fps, x.device)
         extra = self.extra_pos_embedder(Tp, Hp, Wp).to(dtype).reshape(1, L, D)
+        band = (None if cfg.attn_temporal_window is None
+                else (Hp * Wp, cfg.attn_temporal_window, cfg.attn_prefix_frames))
 
         # affine emb = RMSNorm(sincos); lora = the 2-layer MLP output
         sincos = timestep_sincos(timesteps.reshape(-1), D)
         temb = self.t_embedder[1]
-        h = F.silu(F.linear(sincos, temb.linear_1.weight.float()))
-        lora = F.linear(h, temb.linear_2.weight.float())
+        h = F.silu(F.linear(sincos, linear_weight(temb.linear_1, torch.float32)))
+        lora = F.linear(h, linear_weight(temb.linear_2, torch.float32))
         emb = _rms_norm(sincos, self.affline_norm.weight)
 
         ctx = crossattn_emb.to(dtype)
         for blk in self.blocks.values():
-            tokens = blk(tokens, emb, lora, extra, ctx, rope)
+            tokens = blk(tokens, emb, lora, extra, ctx, rope, band)
 
         fshift, fscale = _adaln_modulation(self.final_layer.adaLN_modulation, emb, lora, 2)
         tokens = (_layer_norm(tokens).float() * (1 + fscale[:, None, :])
                   + fshift[:, None, :]).to(dtype)
-        tokens = self.final_layer.linear(tokens)
+        tokens = F.linear(tokens, linear_weight(self.final_layer.linear, dtype))
         return self.unpatchify(tokens.reshape(B, Tp, Hp, Wp, -1), T, H, W)
 
     @torch.no_grad()

@@ -2,13 +2,14 @@
 
 Latents are scaled by sigma_data; the warped buffers and their masks are
 VAE-encoded per buffer into the pose latent; sampling is the EDM-Euler
-loop with batched CFG on one device.
+loop with batched CFG on one device, with the JAX package's guidance
+interval, CFG rescale and step caching.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,9 +99,17 @@ class Gen3CModel:
         num_steps: int = 35,
         seed: int = 1,
         neg_t5_embeddings: Optional[torch.Tensor] = None,
+        step_cache_interval: int = 1,
+        step_cache_threshold: float = 0.0,
+        guidance_interval: Optional[Sequence[float]] = None,
+        cfg_rescale: float = 0.0,
         on_step=None,
     ) -> torch.Tensor:
-        """The GEN3C denoise; returns the latent (B, 16, T, H', W'), fp32."""
+        """The GEN3C denoise; returns the latent (B, 16, T, H', W'), fp32.
+
+        guidance_interval=(sigma_lo, sigma_hi) restricts CFG to the steps
+        whose sigma lies inside it; the sampling options are those of
+        ``diffusion.sampler.generate_samples``."""
         B = condition_latent.shape[0]
         state_shape = tuple(self.state_shape)
         dev = condition_latent.device
@@ -139,5 +148,9 @@ class Gen3CModel:
             condition_augment_sigma=DEFAULT_AUGMENT_SIGMA,
             schedule=self.schedule,
             net_in_dtype=self.net.cfg.dtype,
+            step_cache_interval=step_cache_interval,
+            step_cache_threshold=step_cache_threshold,
+            guidance_interval=guidance_interval,
+            cfg_rescale=cfg_rescale,
             on_step=on_step,
         )

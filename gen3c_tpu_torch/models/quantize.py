@@ -1,0 +1,100 @@
+"""Int8 DiT weights: weight-only int8 and W8A8 (port of gen3c_tpu/models/quantize.py).
+
+Every large linear of the DiT is stored as int8 codes with one fp32 absmax
+scale per output channel. A weight-only (``act_quant=False``) linear
+dequantizes in the compute dtype and runs a bf16 matmul; a W8A8
+(``act_quant=True``) linear quantizes its input per token on the fly and
+runs the int8 GEMM (kernels K7q and K7 on a card). The JAX package stores a
+weight (in, out) with a (1, out) scale; the port keeps torch's (out, in)
+layout with an (out,) scale, so quantizing a weight is the per-row
+quantization of its activations.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from gen3c_tpu_torch import kernels
+
+# linears with at least this many elements get quantized (quantize.py _MIN_SIZE)
+_MIN_SIZE = 1 << 20
+
+# the GeneralDIT linears that are {"w"} leaves of the JAX param tree; the
+# AdaLN modulation layers ({"w1", "w2"} leaves) are never quantized
+_QUANTIZABLE_SUFFIXES = (
+    "x_embedder.proj.1", "t_embedder.1.linear_1", "t_embedder.1.linear_2",
+    "to_q.0", "to_k.0", "to_v.0", "to_out.0", "layer1", "layer2", "final_layer.linear",
+)
+
+
+def quantize_linear(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel absmax int8 of an (out, in) weight: (codes (out,
+    in) int8, scales (out,) fp32), the numbers of quantize.py
+    ``quantize_linear`` transposed. On a card this launches K7q."""
+    return kernels.quantize_rows(w)
+
+
+class QuantLinear(nn.Module):
+    """A bias-free linear holding int8 ``weight`` (out, in) and fp32
+    ``scale`` (out,). ``act_quant`` selects W8A8 (the "q8" entries of the
+    JAX tree) over weight-only int8 (the "q" entries)."""
+
+    def __init__(self, in_features: int, out_features: int, act_quant: bool, device=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.act_quant = act_quant
+        self.register_buffer("weight", torch.zeros((out_features, in_features),
+                                                   dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones((out_features,), dtype=torch.float32,
+                                                 device=device))
+
+    def dequantize(self, dtype: torch.dtype) -> torch.Tensor:
+        """codes.astype(dtype) * scale.astype(dtype): the product is rounded
+        in ``dtype`` (quantize.py ``weight``)."""
+        return self.weight.to(dtype) * self.scale.to(dtype)[:, None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ W in x's dtype: the W8A8 GEMM, or the dequantized matmul
+        (dit.py ``_linear``)."""
+        if self.act_quant:
+            return kernels.w8a8_matmul(x, self.weight, self.scale, x.dtype)
+        return F.linear(x, self.dequantize(x.dtype))
+
+    def extra_repr(self) -> str:
+        return f"{self.in_features}, {self.out_features}, act_quant={self.act_quant}"
+
+
+def linear_weight(module: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """The (out, in) weight of a plain or quantized linear in ``dtype``,
+    dequantized where needed (dit.py ``_w``)."""
+    if isinstance(module, QuantLinear):
+        return module.dequantize(dtype)
+    return module.weight.to(dtype)
+
+
+@torch.no_grad()
+def quantize_dit_(net: nn.Module, act_quant: bool = False) -> nn.Module:
+    """Replace, in place and one layer at a time, every large linear of a
+    GeneralDIT with a QuantLinear, freeing each source weight as it goes
+    (quantize.py ``quantize_dit_params_inplace``). The layers are those
+    the JAX package quantizes: the {"w"} linears with >= _MIN_SIZE
+    elements (x_embedder, the timestep MLP, every q/k/v/out, fc1, fc2; the
+    final linear only if it is that large)."""
+    targets = [name for name, mod in net.named_modules()
+               if isinstance(mod, nn.Linear) and name.endswith(_QUANTIZABLE_SUFFIXES)
+               and mod.weight.numel() >= _MIN_SIZE]
+    for name in targets:
+        parent_name, _, attr = name.rpartition(".")
+        parent = net.get_submodule(parent_name)
+        lin = getattr(parent, attr)
+        codes, scale = quantize_linear(lin.weight)
+        q = QuantLinear(lin.in_features, lin.out_features, act_quant, device=codes.device)
+        q.weight.copy_(codes)
+        q.scale.copy_(scale)
+        setattr(parent, attr, q)
+        del lin, codes, scale
+    return net

@@ -3,7 +3,9 @@
 "gen3c_7b" is GEN3C-Cosmos-7B at full width (28 blocks x 4096 channels,
 32 heads x 128, bf16 DiT, fp32 CV8x8x8 VAE); "gen3c_tiny" is the same
 topology at test size in fp32. No checkpoint loading yet: weights are a
-seeded random init drawn on the target device.
+seeded random init drawn on the target device. ``apply_perf_preset``
+expands ``--perf_preset fast`` (W8A8, band attention, step caching,
+guidance interval) as the JAX package does.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from gen3c_tpu_torch.models.dit import DiTConfig, GeneralDIT
 from gen3c_tpu_torch.models.gen3c import Gen3CModel
+from gen3c_tpu_torch.models.quantize import quantize_dit_
 from gen3c_tpu_torch.models.vae import CV8x8x8, CausalVAE, VAEConfig, VideoTokenizer
 from gen3c_tpu_torch.utils import log
 
@@ -94,14 +97,22 @@ def build_gen3c_model(
     seed: int = 0,
     dtype: Optional[torch.dtype] = None,
     checkpoint_dir: Optional[str] = None,
+    quantize: Union[bool, str] = False,
+    attn_temporal_window: Optional[int] = None,
 ) -> Tuple[Gen3CModel, Gen3CPreset]:
     """Build a Gen3CModel with seeded random weights on ``device``.
 
     dtype overrides the preset's DiT dtype (bf16 for 7B, fp32 for tiny);
-    the VAE stays fp32. A checkpoint_dir that holds real weights raises:
-    loading them is not ported yet, and silently ignoring them would
-    change what the run means.
+    the VAE stays fp32. quantize: False, "int8" (weight-only) or "w8a8"
+    (int8 weights and activations); the DiT is quantized after the build,
+    layer by layer on the device, as the JAX factory does (:333-341).
+    attn_temporal_window sets the DiT's band self-attention (K3). A
+    checkpoint_dir that holds real weights raises: loading them is not
+    ported yet, and silently ignoring them would change what the run
+    means.
     """
+    if quantize not in (False, "int8", "w8a8"):
+        raise ValueError(f"quantize must be False, 'int8' or 'w8a8', got {quantize!r}")
     if isinstance(preset, str):
         preset = PRESETS[preset]
     if checkpoint_dir:
@@ -112,6 +123,9 @@ def build_gen3c_model(
             )
     if dtype is not None:
         preset = dataclasses.replace(preset, dit=dataclasses.replace(preset.dit, dtype=dtype))
+    if attn_temporal_window is not None:
+        preset = dataclasses.replace(preset, dit=dataclasses.replace(
+            preset.dit, attn_temporal_window=attn_temporal_window))
     device = torch.device(device)
     log.warning(f"No checkpoint loading in this port; RANDOM init ({preset.name}, seed {seed}).")
 
@@ -121,6 +135,9 @@ def build_gen3c_model(
         vae = CausalVAE(preset.vae)
     net = net.to_empty(device=device).init_random(gen)
     vae = vae.to_empty(device=device).init_random(gen)
+    if quantize:
+        log.info(f"quantizing DiT weights to int8 ({quantize})")
+        quantize_dit_(net, act_quant=quantize == "w8a8")
     net.eval()
     vae.eval()
     tokenizer = VideoTokenizer(vae, pixel_chunk_duration=preset.chunk_size,
@@ -133,3 +150,22 @@ def build_gen3c_model(
         state_shape=preset.state_shape,
     )
     return model, preset
+
+
+def apply_perf_preset(args) -> None:
+    """Expand --perf_preset into individual knobs, only where the user left
+    the default, so explicit flags win (gen3c_tpu/pipelines/factory.py
+    ``apply_perf_preset``). "fast" = W8A8 + temporal-band window 2 +
+    step-cache interval 2 + guidance interval sigma 1.75..81; "exact"
+    (default) changes nothing."""
+    if getattr(args, "perf_preset", "exact") != "fast":
+        return
+    if not (getattr(args, "quantize_w8a8", False) or getattr(args, "quantize_int8", False)):
+        args.quantize_w8a8 = True
+    if getattr(args, "attn_temporal_window", None) is None:
+        args.attn_temporal_window = 2
+    if getattr(args, "step_cache_interval", 1) <= 1 and not getattr(
+            args, "step_cache_threshold", 0.0):
+        args.step_cache_interval = 2
+    if getattr(args, "guidance_interval", None) is None:
+        args.guidance_interval = [1.75, 81.0]

@@ -6,15 +6,16 @@ gen3c_tpu/pipelines/gen3c_pipeline.py).
   warped buffers + masks -> per-buffer VAE latents (pose conditioning)
   -> EDM-Euler denoise with batched CFG -> VAE decode -> uint8 frames
 
-Only the exact sampling path is ported (Euler, CFG on every step, no
-step caching); the CLI refuses the JAX package's other sampling options.
+Sampling is Euler with the JAX package's guidance interval, CFG rescale
+and step caching (fixed-interval or adaptive); the dpm2m/res2ab solvers
+and span caching are not ported and the CLI refuses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,13 +43,20 @@ class Gen3cPipeline:
     model: Gen3CModel
     guidance: float = 1.0
     num_steps: int = 35
+    step_cache_interval: int = 1
+    step_cache_threshold: float = 0.0
+    # (sigma_lo, sigma_hi): CFG only on steps inside the interval
+    guidance_interval: Optional[Sequence[float]] = None
+    cfg_rescale: float = 0.0
     seed: int = 0
 
     def __post_init__(self):
         # zero text embeddings until the T5 encoder is ported
         self.text_encoder = DummyT5TextEncoder()
         # seconds of the last generate(): encode_condition, encode_warps,
-        # denoise_steps (one per step), decode; and its final latent
+        # denoise_steps (one {"seconds", "cfg", "refresh"} per step: whether
+        # the step ran CFG or condition-only, and whether it ran the network
+        # or reused the step cache), decode; and its final latent
         self.last_timings: dict = {}
         self.last_samples: Optional[torch.Tensor] = None
 
@@ -91,10 +99,11 @@ class Gen3cPipeline:
 
         last = [t2]
 
-        def on_step(i):
+        def on_step(i, cfg, refresh):
             synchronize(dev)
             now = time.perf_counter()
-            timings["denoise_steps"].append(now - last[0])
+            timings["denoise_steps"].append({"seconds": now - last[0], "cfg": cfg,
+                                             "refresh": refresh})
             last[0] = now
 
         log.info(f"Denoising ({self.num_steps} steps, CFG batched)...")
@@ -107,6 +116,10 @@ class Gen3cPipeline:
             num_steps=self.num_steps,
             seed=self.seed if seed is None else seed,
             neg_t5_embeddings=neg_emb,
+            step_cache_interval=self.step_cache_interval,
+            step_cache_threshold=self.step_cache_threshold,
+            guidance_interval=self.guidance_interval,
+            cfg_rescale=self.cfg_rescale,
             on_step=on_step,
         )
         del pose_latent
@@ -116,6 +129,8 @@ class Gen3cPipeline:
         timings["decode"] = time.perf_counter() - t3
         self.last_timings = timings
         self.last_samples = samples
-        log.info(f"denoise steps {['%.2f' % s for s in timings['denoise_steps']]}s, "
+        steps = [f"{s['seconds']:.2f}{'' if s['cfg'] else 'c'}{'' if s['refresh'] else '*'}"
+                 for s in timings["denoise_steps"]]
+        log.info(f"denoise steps {steps}s (c: condition-only, *: cached), "
                  f"decode {timings['decode']:.2f}s")
         return frames_u8, prompt

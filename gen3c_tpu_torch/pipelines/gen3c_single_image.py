@@ -9,7 +9,7 @@ a flag whose feature is not ported raises NotImplementedError.
 Usage:
   python -m gen3c_tpu_torch.pipelines.gen3c_single_image \
       --input_image_path image.png --trajectory left --device cuda \
-      [--model_preset gen3c_tiny]
+      [--model_preset gen3c_tiny] [--perf_preset fast]
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from gen3c_tpu_torch.cache.cache3d import Cache3DBuffer
 from gen3c_tpu_torch.ops.camera import CAMERA_ROTATIONS, TRAJECTORY_TYPES, generate_camera_trajectory
 from gen3c_tpu_torch.pipelines.chunked import compose_buffer_video, run_chunked_generation
 from gen3c_tpu_torch.pipelines.depth import make_depth_estimator
-from gen3c_tpu_torch.pipelines.factory import PRESETS, build_gen3c_model
+from gen3c_tpu_torch.pipelines.factory import PRESETS, apply_perf_preset, build_gen3c_model
 from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
 from gen3c_tpu_torch.utils import log
 
@@ -43,21 +43,33 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--video_save_folder", type=str, default="outputs/")
     p.add_argument("--guidance", type=float, default=1.0)
     p.add_argument("--guidance_interval", type=float, nargs=2, default=None,
-                   metavar=("SIGMA_LO", "SIGMA_HI"), help="not ported yet")
+                   metavar=("SIGMA_LO", "SIGMA_HI"),
+                   help="run CFG only on steps whose sigma lies in [LO, HI] "
+                        "(arXiv:2404.07724); the others run the conditioned "
+                        "forward alone. Default: CFG on every step")
     p.add_argument("--perf_preset", choices=["exact", "fast"], default="exact",
-                   help="only 'exact' is ported")
-    p.add_argument("--cfg_rescale", type=float, default=0.0, help="> 0 not ported yet")
+                   help="'fast' = W8A8 + band window 2 + step-cache interval 2 + "
+                        "guidance interval 1.75..81; explicit flags win")
+    p.add_argument("--cfg_rescale", type=float, default=0.0,
+                   help="phi in [0, 1]: blend in the CFG output rescaled to the "
+                        "cond branch's std (arXiv:2305.08891); 0 = plain CFG")
     p.add_argument("--num_steps", type=int, default=35)
     p.add_argument("--solver", default="euler", choices=("euler", "dpm2m", "res2ab"),
                    help="only euler is ported")
-    p.add_argument("--step_cache_interval", type=int, default=1, help="> 1 not ported yet")
+    p.add_argument("--step_cache_interval", type=int, default=1,
+                   help="> 1: run the DiT every Nth step after a 2-step warmup "
+                        "and before a 2-step tail, reusing its output between")
     p.add_argument("--step_cache_block_span", type=int, nargs=2, default=None,
                    metavar=("LO", "HI"), help="not ported yet")
     p.add_argument("--step_cache_span_dtype", type=str, default="bf16",
                    choices=["bf16", "int8"], help="not ported yet")
-    p.add_argument("--step_cache_threshold", type=float, default=0.0, help="> 0 not ported yet")
+    p.add_argument("--step_cache_threshold", type=float, default=0.0,
+                   help="> 0: adaptive step caching, refresh when the latent's "
+                        "accumulated relative drift exceeds it (overrides "
+                        "--step_cache_interval)")
     p.add_argument("--attn_temporal_window", type=int, default=None,
-                   help="band attention (kernel K3), not ported yet")
+                   help="band self-attention (kernel K3): each latent frame "
+                        "attends to frames within +/- N plus the seed frame")
     p.add_argument("--cp_attn", type=str, default=None,
                    choices=["allgather", "ring", "ulysses"], help="not ported yet")
     p.add_argument("--num_video_frames", type=int, default=121,
@@ -93,8 +105,11 @@ def create_parser() -> argparse.ArgumentParser:
                  "offload_guardrail_models", "disable_guardrail",
                  "disable_prompt_upsampler"):
         p.add_argument(f"--{flag}", action="store_true")
-    p.add_argument("--quantize_int8", action="store_true", help="not ported yet")
-    p.add_argument("--quantize_w8a8", action="store_true", help="not ported yet")
+    p.add_argument("--quantize_int8", action="store_true",
+                   help="int8 weight-only DiT (dequantized bf16 matmuls)")
+    p.add_argument("--quantize_w8a8", action="store_true",
+                   help="int8 DiT weights and per-token int8 activations "
+                        "(kernels K7q + K7)")
     return p
 
 
@@ -102,28 +117,37 @@ def check_ported(args) -> None:
     """Raise NotImplementedError naming each set flag whose feature this
     port does not have."""
     unported = {
-        "--quantize_int8": args.quantize_int8,
-        "--quantize_w8a8": args.quantize_w8a8,
-        "--step_cache_interval": args.step_cache_interval != 1,
         "--step_cache_block_span": args.step_cache_block_span is not None,
         "--step_cache_span_dtype": args.step_cache_span_dtype != "bf16",
-        "--step_cache_threshold": args.step_cache_threshold > 0,
-        "--attn_temporal_window": args.attn_temporal_window is not None,
-        "--guidance_interval": args.guidance_interval is not None,
         "--solver": args.solver != "euler",
-        "--cfg_rescale": args.cfg_rescale > 0,
         "--num_devices": args.num_devices > 1,
         "--parallel": args.parallel != "cp",
         "--cp_attn": args.cp_attn is not None,
         "--foreground_masking": args.foreground_masking,
         "--enable_prompt_encoder": not args.disable_prompt_encoder,
-        "--perf_preset": args.perf_preset != "exact",
         "--offload_diffusion_transformer": args.offload_diffusion_transformer,
         "--offload_tokenizer": args.offload_tokenizer,
     }
     for flag, used in unported.items():
         if used:
             raise NotImplementedError(f"{flag} is not ported to gen3c_tpu_torch yet")
+
+
+def save_video(video: np.ndarray, fps: int, filepath: str) -> str:
+    """gen3c_tpu.utils.io.save_video: an mp4 through imageio's ffmpeg, or,
+    where ffmpeg is unavailable, an MJPEG AVI beside it. A machine without
+    imageio itself takes that AVI route too (save_video imports imageio
+    before it can get there). Returns the written path."""
+    try:
+        import imageio  # noqa: F401
+    except ImportError:
+        from gen3c_tpu.utils.mjpeg_avi import write_mjpeg_avi
+
+        avi_path = os.path.splitext(filepath)[0] + ".avi"
+        os.makedirs(os.path.dirname(os.path.abspath(avi_path)), exist_ok=True)
+        write_mjpeg_avi(avi_path, video, fps=fps, quality=75)  # save_video's quality 5
+        return avi_path
+    return io_utils.save_video(video, fps, filepath)
 
 
 def validate_args(args, chunk_size: int) -> None:
@@ -134,13 +158,20 @@ def validate_args(args, chunk_size: int) -> None:
 
 
 def demo(args) -> str:
+    apply_perf_preset(args)
     check_ported(args)
     device = torch.device(args.device)
+    quantize = "w8a8" if args.quantize_w8a8 else ("int8" if args.quantize_int8 else False)
     model, preset = build_gen3c_model(args.model_preset, device=device, seed=args.seed,
-                                      checkpoint_dir=args.checkpoint_dir)
+                                      checkpoint_dir=args.checkpoint_dir, quantize=quantize,
+                                      attn_temporal_window=args.attn_temporal_window)
     validate_args(args, preset.chunk_size)
-    pipeline = Gen3cPipeline(model=model, guidance=args.guidance, num_steps=args.num_steps,
-                             seed=args.seed)
+    pipeline = Gen3cPipeline(
+        model=model, guidance=args.guidance, num_steps=args.num_steps, seed=args.seed,
+        step_cache_interval=args.step_cache_interval,
+        step_cache_threshold=args.step_cache_threshold,
+        guidance_interval=tuple(args.guidance_interval) if args.guidance_interval else None,
+        cfg_rescale=args.cfg_rescale)
     if args.batch_input_path:
         inputs = io_utils.read_prompts_from_file(args.batch_input_path)
     else:
@@ -190,8 +221,8 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name)
         save_buffer=args.save_buffer,
     )
     final_video = compose_buffer_video(video, all_warps, h, w)
-    save_path = io_utils.save_video(final_video, args.fps,
-                                    os.path.join(args.video_save_folder, f"{save_name}.mp4"))
+    save_path = save_video(final_video, args.fps,
+                           os.path.join(args.video_save_folder, f"{save_name}.mp4"))
     log.info(f"Saved video to {save_path}")
     return save_path
 

@@ -208,17 +208,75 @@ def test_cli_subprocess(tmp_path):
     assert saved, out.stdout[-2000:]
 
 
-@pytest.mark.parametrize("flag", [["--quantize_w8a8"], ["--step_cache_interval", "2"],
-                                  ["--attn_temporal_window", "2"], ["--solver", "dpm2m"],
+def test_cli_saves_avi_without_imageio(tmp_path, monkeypatch):
+    """Without imageio the CLI writes the MJPEG AVI that gen3c_tpu's
+    save_video writes when ffmpeg is missing, and it reads back."""
+    from gen3c_tpu.utils.mjpeg_avi import read_mjpeg_avi
+    from gen3c_tpu_torch.pipelines import gen3c_single_image as cli
+
+    monkeypatch.setitem(sys.modules, "imageio", None)  # import imageio -> ImportError
+    video = np.random.default_rng(0).integers(0, 255, (3, 16, 24, 3), dtype=np.uint8)
+    path = cli.save_video(video, 24, str(tmp_path / "v" / "out.mp4"))
+    assert path == str(tmp_path / "v" / "out.avi")
+    frames = read_mjpeg_avi(path)[0]
+    assert len(frames) == 3 and frames[0].shape == (16, 24, 3)
+
+
+def test_cli_fast_preset_subprocess(tmp_path):
+    """--perf_preset fast through the CLI: W8A8 (no linear of the tiny preset
+    is large enough to quantize), band window 2, step-cache interval 2 and
+    the guidance interval."""
+    img = tmp_path / "in.png"
+    _tiny_image(img)
+    out = subprocess.run(
+        [sys.executable, "-m", "gen3c_tpu_torch.pipelines.gen3c_single_image",
+         "--device", "cpu", "--model_preset", "gen3c_tiny", "--num_steps", "8",
+         "--perf_preset", "fast", "--depth_source", "heuristic", "--num_video_frames", "9",
+         "--input_image_path", str(img), "--video_save_folder", str(tmp_path / "out"),
+         "--checkpoint_dir", str(tmp_path / "none")],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert os.listdir(tmp_path / "out")
+    log = out.stdout + out.stderr
+    assert "quantizing DiT weights to int8 (w8a8)" in log
+    assert "c*" in log  # a cached condition-only step in the step log
+
+
+@pytest.mark.parametrize("flag", [["--step_cache_block_span", "0", "4"],
+                                  ["--step_cache_span_dtype", "int8"], ["--solver", "res2ab"],
+                                  ["--cp_attn", "ring"], ["--solver", "dpm2m"],
                                   ["--num_devices", "2"], ["--foreground_masking"],
-                                  ["--enable_prompt_encoder"], ["--perf_preset", "fast"],
-                                  ["--guidance_interval", "1", "9"], ["--cfg_rescale", "0.5"]])
+                                  ["--enable_prompt_encoder"], ["--parallel", "tp"],
+                                  ["--offload_diffusion_transformer"], ["--offload_tokenizer"]])
 def test_cli_unported_flags_raise(flag):
     from gen3c_tpu_torch.pipelines import gen3c_single_image as cli
 
     args = cli.create_parser().parse_args(["--input_image_path", "x.png", *flag])
     with pytest.raises(NotImplementedError, match=flag[0]):
         cli.check_ported(args)
+
+
+@pytest.mark.parametrize("flags", [[], ["--perf_preset", "fast"],
+                                   ["--perf_preset", "fast", "--quantize_int8"],
+                                   ["--perf_preset", "fast", "--step_cache_threshold", "0.1",
+                                    "--attn_temporal_window", "1"],
+                                   ["--perf_preset", "fast", "--step_cache_interval", "3",
+                                    "--guidance_interval", "0.5", "20"],
+                                   ["--perf_preset", "exact", "--cfg_rescale", "0.7"]])
+def test_perf_preset_expands_as_jax(flags):
+    """The port's apply_perf_preset sets the knobs JAX's sets, and the CLI
+    accepts every one of them."""
+    from gen3c_tpu.pipelines import gen3c_single_image as jcli
+    from gen3c_tpu_torch.pipelines import gen3c_single_image as cli
+
+    argv = ["--input_image_path", "x.png", *flags]
+    ours, theirs = cli.create_parser().parse_args(argv), jcli.create_parser().parse_args(argv)
+    tfactory.apply_perf_preset(ours)
+    jfactory.apply_perf_preset(theirs)
+    for key in ("quantize_w8a8", "quantize_int8", "attn_temporal_window", "step_cache_interval",
+                "step_cache_threshold", "guidance_interval", "cfg_rescale", "perf_preset"):
+        assert getattr(ours, key) == getattr(theirs, key), key
+    cli.check_ported(ours)
 
 
 def test_port_never_imports_jax():
