@@ -29,7 +29,20 @@ Phases, each printing one JSON line of its own numbers:
              update_cache (non-rigid Adam fit), re-render and the kernels
              between chunks; the first chunk is compared with the same
              model run on the CPU through the plain versions
-Then the kernel table as one JSON line, the nvidia-smi line, and as the
+  8 train    train_step at GEN3C-7B width (4096 channels, 32 x 128 heads,
+             bf16, 12 of 28 blocks, gates randomized) on one 121-frame
+             704x1280 clip (56,320 tokens, 512 text tokens), B=1, remat,
+             TrainerConfig's optimizer defaults, 3 steps: s per step, loss
+             and grad-norm per step, state GiB reckoned and measured, peak
+             GiB, and the launches of K1, K2 and K4
+  9 train_parity  one train_step of a 1024-channel, 2-block bf16 DiT on the
+             card (kernels) and on the CPU (plain versions) with the same
+             weights and draws: loss, grad-norm, each grad leaf's error
+ 10 train_cli the training CLI (gen3c_tiny, fp32, remat) for 4 steps with
+             checkpoints, then resumed to 6
+Phase 3 also holds K4 (the attention backward) and its forward with the
+row logsumexp at the 7B self- and cross-attention shapes and at a ragged
+fp32 tiny shape. Then the kernel table as one JSON line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no last line. There is no CPU fallback.
 """
@@ -62,6 +75,17 @@ FAST_PARITY_TOL = {"max": 6e-2 / 0.8, "mean": 6e-3 / 0.8}
 INT8_PEAK_TOPS = 1979.0  # H100 SXM dense int8 (data sheet)
 BAND_7B = (44 * 80, 2, 1)  # tokens per latent frame, window, prefix frames
 LATENT_T_7B = 16
+# K4 against an fp32 truth (the plain backward in fp32 at the same bf16
+# inputs): no further from it than the plain bf16 version (which also rounds
+# the logits and dO.V^T to bf16) plus a margin, relative to mean |truth|
+K4_TOL = {"max_margin": 1e-2, "mean_margin": 1e-3}
+K4_F32_TOL = 1e-4  # relative to mean |plain|, fp32 on both sides
+TRAIN_BLOCKS_7B = 12  # of 28: the state (12 bytes a parameter) must fit 80 GB
+# card (kernels) against CPU (plain versions), both bf16, per gradient leaf:
+# mean |delta| / mean |cpu| and max |delta| / max |cpu|; loss and grad-norm
+# relative (set before the first run, PERF.md)
+TRAIN_PARITY_TOL = {"loss": 1e-2, "grad_norm": 2e-2, "leaf_mean": 5e-2, "leaf_max": 0.1}
+BF16_PEAK_TFLOPS = 989.0  # H100 SXM dense bf16 (data sheet)
 
 
 def emit(phase: str, **numbers) -> None:
@@ -148,6 +172,67 @@ def _attention_case(name, shape_q, shape_kv, dtype, tol, gen, time_it=True):
     emit("kernel", **res)
     if not res["finite"] or res["max_abs_err"] > tol["max"] or res["mean_abs_err"] > tol["mean"]:
         raise AssertionError(f"{name}: kernel disagrees with its plain version: {res}")
+    return res
+
+
+def _rel_err(a, ref):
+    """(max, mean) |a - ref| relative to mean |ref|."""
+    d = (a.float() - ref.float()).abs()
+    m = ref.float().abs().mean()
+    return (d.max() / m).item(), (d.mean() / m).item()
+
+
+def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True):
+    """K4 and its forward with lse against the plain versions."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import cuda
+
+    q = torch.randn(shape_q, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(shape_kv, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(shape_kv, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(shape_q, generator=gen, device="cuda").to(dtype)
+    out, lse = cuda.attention_fwd_lse(q, k, v)
+    res = {"name": name, "q": list(shape_q), "kv": list(shape_kv), "dtype": str(dtype),
+           "fwd_equals_k1": bool(torch.equal(out, cuda.attention(q, k, v)))}
+    _, ref_lse = kernels.attention_forward_reference(q, k, v)
+    res["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
+    del ref_lse
+    got = cuda.attention_bwd(q, k, v, out, do, lse)
+    plain = kernels.attention_backward_reference(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    res["finite"] = bool(all(torch.isfinite(g).all().item() for g in got))
+    res["max_abs_err"] = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, plain))
+    ok = res["finite"] and res["fwd_equals_k1"]
+    if dtype == torch.float32:
+        for n, g, p in zip("qkv", got, plain):
+            res[f"d{n}_rel_max"], res[f"d{n}_rel_mean"] = _rel_err(g, p)
+            ok = ok and res[f"d{n}_rel_max"] <= K4_F32_TOL
+    else:
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        o32, l32 = kernels.attention_forward_reference(q32, k32, v32)
+        truth = kernels.attention_backward_reference(q32, k32, v32, o32, do32, l32)
+        del q32, k32, v32, do32, o32, l32
+        for n, g, p, t in zip("qkv", got, plain, truth):
+            res[f"d{n}_rel_max"], res[f"d{n}_rel_mean"] = _rel_err(g, p)
+            kmax, kmean = _rel_err(g, t)
+            pmax, pmean = _rel_err(p, t)
+            res[f"d{n}_vs_fp32"] = {"kernel_max": kmax, "kernel_mean": kmean,
+                                   "plain_max": pmax, "plain_mean": pmean}
+            ok = ok and kmax <= pmax + K4_TOL["max_margin"] and kmean <= pmean + K4_TOL["mean_margin"]
+        del truth
+    del got, plain
+    if time_it:
+        B, Lq, H, D = shape_q
+        res["ms"] = cuda_ms(lambda: cuda.attention_bwd(q, k, v, out, do, lse), reps=3)
+        res["plain_ms"] = cuda_ms(
+            lambda: kernels.attention_backward_reference(q, k, v, out, do, lse), reps=1, warmup=0)
+        res["fwd_lse_ms"] = cuda_ms(lambda: cuda.attention_fwd_lse(q, k, v), reps=3)
+        flop = 10.0 * B * H * Lq * shape_kv[1] * D
+        res.update(tflops=flop / res["ms"] / 1e9, plain_tflops=flop / res["plain_ms"] / 1e9,
+                   bf16_peak_share=flop / res["ms"] / 1e9 / BF16_PEAK_TFLOPS)
+    emit("kernel", **res)
+    if not ok:
+        raise AssertionError(f"{name}: K4 disagrees with its plain version: {res}")
     return res
 
 
@@ -317,6 +402,16 @@ def phase_kernels() -> dict:
                                         torch.float32, tol32, gen)
     results["K1_bf16_d24"] = _attention_case("K1 bf16 D=24 ragged", (2, 1000, 4, 24),
                                              (2, 333, 4, 24), bf16, ATTN_TOL, gen, time_it=False)
+    torch.cuda.empty_cache()
+    results["K4_self"] = _k4_case("K4 self-attention backward", (1, 56320, 32, 128),
+                                  (1, 56320, 32, 128), bf16, gen)
+    torch.cuda.empty_cache()
+    results["K4_cross"] = _k4_case("K4 cross-attention backward", (1, 56320, 32, 128),
+                                   (1, 512, 32, 128), bf16, gen)
+    results["K4_f32"] = [_k4_case(f"K4 fp32 D=24 ragged, {lk} keys", (2, 250, 4, 24),
+                                  (2, lk, 4, 24), torch.float32, gen, time_it=False)
+                         for lk in (250, 37)]
+    torch.cuda.empty_cache()
     results["K5"] = _splat_case(gen)
     torch.cuda.empty_cache()
     results["K3"] = _band_case(gen)
@@ -595,6 +690,173 @@ def phase_chain() -> dict:
     return res
 
 
+def _train_batch(cfg, T, H, W, ctx_len, seed):
+    """One synthetic clip (B=1) drawn on the CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    return {"x0": torch.randn((1, 16, T, H, W), generator=gen),
+            "crossattn_emb": torch.randn((1, ctx_len, 1024), generator=gen),
+            "extra_channels": torch.randn((1, cfg.in_channels - 16, T, H, W), generator=gen)}
+
+
+def phase_train() -> dict:
+    """train_step at GEN3C-7B width, 12 blocks, one 121-frame clip."""
+    import dataclasses
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET
+    from gen3c_tpu_torch.training.train import build_net
+    from gen3c_tpu_torch.training.train_step import init_train_state, make_optimizer, train_step
+    from gen3c_tpu_torch.training.trainer import TrainerConfig
+
+    cfg = dataclasses.replace(GEN3C_7B_PRESET.dit, num_blocks=TRAIN_BLOCKS_7B)
+    tc = TrainerConfig()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    net = build_net(cfg, "cuda", seed=0)
+    _randomize_gates(net, torch.Generator(device="cuda").manual_seed(1))
+    opt = make_optimizer(lr=tc.lr, weight_decay=tc.weight_decay, grad_clip=tc.grad_clip,
+                         warmup_steps=tc.warmup_steps, grad_accum_steps=tc.grad_accum_steps)
+    state = init_train_state(net, opt)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    res = {"model": "gen3c_7b", "blocks": cfg.num_blocks, "channels": cfg.model_channels,
+           "heads": cfg.num_heads, "head_dim": cfg.head_dim, "dtype": str(cfg.dtype),
+           "params": n_params, "build_s": time.perf_counter() - t0,
+           # bf16 params, grads, AdamW mu and nu (2 bytes each) + fp32 EMA (4)
+           "state_gib_reckoned": n_params * 12 / 2 ** 30,
+           "state_gib_measured_without_grads": (torch.cuda.memory_allocated() - base) / 2 ** 30}
+    T, H, W = LATENT_T_7B, 88, 160
+    batch = {k: v.cuda() for k, v in _train_batch(cfg, T, H, W, 512, seed=0).items()}
+    res.update(latent=[16, T, H, W], tokens=T * H * W // 4, ctx_tokens=512, batch=1, remat=True,
+               optimizer={"lr": tc.lr, "weight_decay": tc.weight_decay,
+                          "grad_clip": tc.grad_clip, "warmup_steps": tc.warmup_steps})
+    gen = torch.Generator().manual_seed(0)
+    kernels.reset_launch_counts()
+    steps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, gen, cfg, opt, remat=True)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t0, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"])})
+    launches = dict(kernels.launch_counts)
+    res.update(steps=steps, launches=launches,
+               k4_by_forward=dict(kernels.k4_launches_by_forward),
+               peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30, step=state.step,
+               ema_finite=bool(all(torch.isfinite(e).all().item()
+                                   for e in state.ema_params.values())))
+    emit("train", **res)
+    per_step = 2 * cfg.num_blocks  # one K4 per attention backward: self and cross
+    if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) and s["grad_norm"] > 0
+               for s in steps) or not res["ema_finite"]:
+        raise AssertionError(f"train: non-finite or zero loss / grad-norm: {res}")
+    if (launches["K4"] != 3 * per_step or launches["K1"] != 3 * per_step
+            or launches["K2"] != 3 * per_step or launches["K3"]):
+        raise AssertionError(f"train: launches {launches}, expected K4 = K1 = K2 = "
+                             f"{3 * per_step} (remat runs each forward twice)")
+    del state, net, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_parity() -> dict:
+    """One train_step of a 1024-wide bf16 DiT on the card and on the CPU."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.models.dit import DiTConfig, GeneralDIT
+    from gen3c_tpu_torch.training.train_step import (
+        draw_step, init_train_state, loss_and_grads, make_optimizer, train_step)
+
+    cfg = DiTConfig(in_channels=16 + 16 * 4 + 1, model_channels=1024, num_blocks=2,
+                    num_heads=8, rope_t_extrapolation_ratio=2.0)
+    cpu = GeneralDIT(cfg).init_random(torch.Generator().manual_seed(2))
+    _randomize_gates(cpu, torch.Generator().manual_seed(3))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    T, H, W = 5, 24, 40  # 1,200 tokens
+    batch = _train_batch(cfg, T, H, W, 512, seed=4)
+    draws = draw_step(torch.Generator().manual_seed(5), batch["x0"].shape, False, False)
+    out = {}
+    for dev, net in (("cuda", gpu), ("cpu", cpu)):
+        opt = make_optimizer(warmup_steps=1)
+        state = init_train_state(net, opt)
+        kernels.reset_launch_counts()
+        loss, grads, _ = loss_and_grads(net, batch, None, cfg, draws=draws)
+        launches = dict(kernels.launch_counts)
+        state, m = train_step(state, batch, None, cfg, opt, draws=draws)
+        out[dev] = {"loss": float(loss), "step_loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]), "launches": launches,
+                    "grads": {n: g.float().cpu() for n, g in grads.items()}}
+    g_cuda, g_cpu = out["cuda"].pop("grads"), out["cpu"].pop("grads")
+    leaves = {}
+    for n, ref in g_cpu.items():
+        d = (g_cuda[n] - ref).abs()
+        leaves[n] = {"rel_mean": (d.mean() / ref.abs().mean().clamp_min(1e-30)).item(),
+                     "rel_max": (d.max() / ref.abs().max().clamp_min(1e-30)).item()}
+    worst_mean = max(leaves.items(), key=lambda kv: kv[1]["rel_mean"])
+    worst_max = max(leaves.items(), key=lambda kv: kv[1]["rel_max"])
+    res = {"dit": "1024 ch x 2 blocks x 8 heads, bf16, gates randomized", "tokens": T * H * W // 4,
+           "cuda": out["cuda"], "cpu": out["cpu"],
+           "loss_rel_err": abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(out["cpu"]["loss"]),
+           "grad_norm_rel_err": abs(out["cuda"]["grad_norm"] - out["cpu"]["grad_norm"])
+           / out["cpu"]["grad_norm"],
+           "leaves": len(leaves), "worst_leaf_rel_mean": [worst_mean[0], worst_mean[1]["rel_mean"]],
+           "worst_leaf_rel_max": [worst_max[0], worst_max[1]["rel_max"]],
+           "median_leaf_rel_mean": float(np.median([v["rel_mean"] for v in leaves.values()])),
+           "tol": TRAIN_PARITY_TOL}
+    emit("train_parity", **res)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "train_parity_leaves.json"), "w") as f:
+        json.dump(leaves, f, indent=1)
+    if out["cuda"]["launches"]["K4"] != 2 * cfg.num_blocks:
+        raise AssertionError(f"train_parity: the card's backward did not run K4: {res}")
+    if (res["loss_rel_err"] > TRAIN_PARITY_TOL["loss"]
+            or res["grad_norm_rel_err"] > TRAIN_PARITY_TOL["grad_norm"]
+            or worst_mean[1]["rel_mean"] > TRAIN_PARITY_TOL["leaf_mean"]
+            or worst_max[1]["rel_max"] > TRAIN_PARITY_TOL["leaf_max"]):
+        raise AssertionError(f"train_parity: card and CPU disagree: {res}")
+    return res
+
+
+def phase_train_cli() -> dict:
+    """The training CLI on the card (tiny, fp32: the fp32 K4), then a resume."""
+    import tempfile
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.training import train
+
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as job:
+        args = ["--synthetic", "--remat", "experiment=gen3c_tiny", "trainer.max_iter=4",
+                "trainer.save_every=2", "trainer.warmup_steps=1", f"trainer.job_dir={job}"]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = train.main(args)
+        first_s = time.perf_counter() - t0
+        launches_first = dict(kernels.launch_counts)
+        first_checkpoints = first.checkpointer.steps()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        resumed = train.main([a.replace("max_iter=4", "max_iter=6") for a in args])
+        resumed_s = time.perf_counter() - t0
+        launches_resumed = dict(kernels.launch_counts)
+        res = {"experiment": "gen3c_tiny", "device": str(next(first.state.params.parameters()).device),
+               "first_run": {"steps": first.state.step, "s": first_s, "launches": launches_first,
+                             "checkpoints": first_checkpoints},
+               "resumed_run": {"steps": resumed.state.step, "s": resumed_s,
+                               "launches": launches_resumed,
+                               "checkpoints": resumed.checkpointer.steps()}}
+    emit("train_cli", **res)
+    per_step = 2 * first.dit_cfg.num_blocks
+    if not (first.state.step == 4 and resumed.state.step == 6
+            and res["first_run"]["checkpoints"] == [2, 4]
+            and res["resumed_run"]["checkpoints"] == [2, 4, 6]
+            and launches_first["K4"] == 4 * per_step
+            and launches_resumed["K4"] == 2 * per_step  # steps 5 and 6: resumed at 4
+            and res["device"].startswith("cuda")):
+        raise AssertionError(f"train_cli: {res}")
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     info = phase_device()
@@ -604,6 +866,12 @@ def main() -> int:
     fast_launches = phase_fast()["launches"]
     phase_fast_parity()
     phase_chain()
+    train_launches = phase_train()["k4_by_forward"]
+    phase_train_parity()
+    phase_train_cli()
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gen3c_tpu"))
+    if foreign:
+        raise AssertionError(f"the port imported JAX or the JAX package: {foreign[:8]}")
     k7 = max(kern["K7"], key=lambda r: r["M"] * r["N"] * r["K"])  # fc1
     table = [
         {"name": "K1 self-attention", "route": "cuda",
@@ -636,6 +904,16 @@ def main() -> int:
          "replaces": "gen3c_tpu/models/quantize.py:61", "launches": fast_launches["K7"],
          "max_abs_err": max(r["max_abs_err"] for r in kern["K7"]), "ms": k7["ms"],
          "plain_ms": k7["plain_ms"]},
+        {"name": "K4 self-attention backward", "route": "cuda",
+         "source": "gen3c_tpu_torch/kernels/csrc/attention_bwd.cu",
+         "replaces": "gen3c_tpu/models/dit.py:464", "launches": train_launches["K1"],
+         "max_abs_err": kern["K4_self"]["max_abs_err"], "ms": kern["K4_self"]["ms"],
+         "plain_ms": kern["K4_self"]["plain_ms"]},
+        {"name": "K4 cross-attention backward", "route": "cuda",
+         "source": "gen3c_tpu_torch/kernels/csrc/attention_bwd.cu",
+         "replaces": "gen3c_tpu/models/dit.py:508", "launches": train_launches["K2"],
+         "max_abs_err": kern["K4_cross"]["max_abs_err"], "ms": kern["K4_cross"]["ms"],
+         "plain_ms": kern["K4_cross"]["plain_ms"]},
     ]
     print(json.dumps({"kernels": table}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

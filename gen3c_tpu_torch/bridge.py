@@ -7,7 +7,9 @@ the reference checkpoint's torch name and transposes the linears back to
 gen3c_tpu/models/quantize.py) becomes the ``weight`` (int8 codes, (out,
 in)) and ``scale`` ((out,)) of a ``models.quantize.QuantLinear``; the net
 must have been given that structure (``quantize_dit_``) before loading. ``vae_state_from_jax`` is the identity, because the JAX VAE
-params are already keyed by the reference names. Both take numpy-valued
+params are already keyed by the reference names. ``train_params_from_jax``
+carries a training tree across, the logvar head and its {"net", "logvar"}
+wrapper included. All take numpy-valued
 trees (``jax.device_get`` output), so this module needs no JAX.
 """
 
@@ -71,6 +73,24 @@ def dit_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         sd[f"{base}.2.adaLN_modulation.1.weight"] = _t(mlp["adaln"]["w1"])
         sd[f"{base}.2.adaLN_modulation.2.weight"] = _t(mlp["adaln"]["w2"])
     return sd
+
+
+def logvar_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX logvar head ({"freqs", "phases", "w"}, losses.py
+    ``init_logvar_params``) -> training.losses.LogvarHead state_dict; the
+    same names and shapes (w stays (C, 1))."""
+    return {k: _a(tree[k]) for k in ("freqs", "phases", "w")}
+
+
+def train_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The tree gen3c_tpu's train step trains -> the state_dict of the
+    module the port's trains: a DiT tree as ``dit_state_from_jax``; the
+    ``loss_add_logvar`` wrapper {"net", "logvar"} as
+    training.train_step.NetWithLogvar (``net.*``, ``logvar.*``)."""
+    if "net" not in tree:
+        return dit_state_from_jax(tree)
+    return {**{f"net.{k}": v for k, v in dit_state_from_jax(tree["net"]).items()},
+            **{f"logvar.{k}": v for k, v in logvar_state_from_jax(tree["logvar"]).items()}}
 
 
 def vae_state_from_jax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

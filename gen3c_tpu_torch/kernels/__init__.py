@@ -3,18 +3,22 @@
   K1   DiT self-attention        (gen3c_tpu/models/dit.py:445-471, Pallas splash)
   K2   DiT cross-attention       (dit.py:472-510, Pallas flash)
   K3   band self-attention       (dit.py:459-460, splash + make_temporal_band_mask :370-409)
+  K4   attention backward        (splash/flash backward, dit.py:464-470 and :508, reached
+                                  from gen3c_tpu/training/train_step.py:233)
   K5   forward-warp splat        (gen3c_tpu/ops/geometry.py:205-316)
   K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59)
   K7   int8 x int8 GEMM + rescale (quantize.py:60-69)
 
-K1, K2 and K3 share ``csrc/attention.cu``; K5 is ``csrc/splat.cu``; K7q
-and K7 are ``csrc/w8a8.cu``. A CUDA tensor launches the compiled kernel
+K1, K2 and K3 share ``csrc/attention.cu``; K4 and the training forward
+(K1/K2 with the row logsumexp) are ``csrc/attention_bwd.cu``; K5 is
+``csrc/splat.cu``; K7q and K7 are ``csrc/w8a8.cu``. A CUDA tensor launches the compiled kernel
 (built at first use, see ``build``); a CPU tensor runs the plain PyTorch
 version in ``reference``. There is no other switch: on a card the
 references run only where a caller asks for them by name.
 
 ``launch_counts`` counts kernel launches per kernel id, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels (K4 once per backward call,
+``k4_launches_by_forward`` by the forward it differentiates).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 
 from gen3c_tpu_torch.kernels.reference import (
     Band,
+    attention_backward_reference,
+    attention_forward_reference,
     attention_reference,
     int8_matmul_reference,
     quantize_rows_reference,
@@ -36,16 +42,20 @@ from gen3c_tpu_torch.kernels.reference import (
 
 __all__ = [
     "attention", "splat", "quantize_rows", "w8a8_matmul", "launch_counts",
-    "reset_launch_counts", "attention_reference", "splat_reference",
-    "quantize_rows_reference", "int8_matmul_reference", "w8a8_matmul_reference",
+    "reset_launch_counts", "attention_reference", "attention_forward_reference",
+    "attention_backward_reference", "splat_reference", "quantize_rows_reference",
+    "int8_matmul_reference", "w8a8_matmul_reference",
 ]
 
-launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K5": 0, "K7q": 0, "K7": 0}
+launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7q": 0, "K7": 0}
+# K4's launches split by the forward they differentiate (K1 self-, K2 cross-attention)
+k4_launches_by_forward = {"K1": 0, "K2": 0}
 
 
 def reset_launch_counts() -> None:
-    for key in launch_counts:
-        launch_counts[key] = 0
+    for counts in (launch_counts, k4_launches_by_forward):
+        for key in counts:
+            counts[key] = 0
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> bool:
@@ -65,21 +75,62 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     band=(hw, window, prefix) is the temporal band of K3 (see
     ``attention_reference``); a call with a band counts as K3.
 
-    The kernels have no backward yet (K4): on a card, inputs that require
-    grad are refused rather than given a result that autograd would treat
-    as a constant.
+    Without a gradient to track (grad mode off, or no input requiring
+    grad) this is one forward launch. Otherwise it is ``_Attention``: a
+    forward that also keeps the row logsumexp (counted under kernel_id)
+    and K4 as its backward. Under per-block remat the forward of a block
+    runs twice per training step (forward, then the recompute before its
+    backward), so kernel_id counts two launches per block and step and K4
+    one. The band has no backward kernel yet (K4-band): on a card, a band
+    with a gradient to track raises.
     """
-    if not _on_cuda(q, "attention"):
-        return attention_reference(q, k, v, band)
+    on_cuda = _on_cuda(q, "attention")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "attention on CUDA has no backward kernel yet (K4, the splash/flash "
-            "backward, is not ported): call it under torch.no_grad()")
+        if on_cuda and band is not None:
+            raise NotImplementedError(
+                "band attention on CUDA has no backward kernel yet (K4-band, the splash "
+                "backward with the temporal-band mask, is not ported): train with full "
+                "attention or call it under torch.no_grad()")
+        return _Attention.apply(q, k, v, kernel_id, band)
+    if not on_cuda:
+        return attention_reference(q, k, v, band)
     from gen3c_tpu_torch.kernels import cuda
 
     out = cuda.attention(q, k, v, band)
     launch_counts["K3" if band is not None else kernel_id] += 1
     return out
+
+
+class _Attention(torch.autograd.Function):
+    """Attention whose backward is K4 (dq, dk, dv from the saved q, k, v,
+    output and logsumexp) on a card, ``attention_backward_reference`` on
+    the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kernel_id, band):
+        if q.device.type == "cuda":
+            from gen3c_tpu_torch.kernels import cuda
+
+            out, lse = cuda.attention_fwd_lse(q, k, v)
+            launch_counts[kernel_id] += 1
+        else:
+            out, lse = attention_forward_reference(q, k, v, band)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.band, ctx.kernel_id = band, kernel_id
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cuda":
+            from gen3c_tpu_torch.kernels import cuda
+
+            dq, dk, dv = cuda.attention_bwd(q, k, v, out, dout, lse)
+            launch_counts["K4"] += 1
+            k4_launches_by_forward[ctx.kernel_id] += 1
+        else:
+            dq, dk, dv = attention_backward_reference(q, k, v, out, dout, lse, ctx.band)
+        return dq, dk, dv, None, None
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -39,8 +39,12 @@ def library() -> ctypes.CDLL:
             lib.gen3c_quant_rows.argtypes = [_P, _L, _I, _I, _I, _P, _P, _P]
             lib.gen3c_w8a8_gemm.argtypes = [_P, _L, _P, _L, _P, _P, _P, _I, _I, _I,
                                             _I, _I, _P]
+            shape = [_I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+            lib.gen3c_attention_fwd_lse.argtypes = [_P] * 5 + shape
+            lib.gen3c_attention_bwd.argtypes = [_P] * 10 + shape
             for fn in (lib.gen3c_attention_bf16, lib.gen3c_attention_f32, lib.gen3c_splat,
-                       lib.gen3c_quant_rows, lib.gen3c_w8a8_gemm):
+                       lib.gen3c_quant_rows, lib.gen3c_w8a8_gemm,
+                       lib.gen3c_attention_fwd_lse, lib.gen3c_attention_bwd):
                 fn.restype = _I
             _lib = lib
         return _lib
@@ -55,6 +59,24 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, ...]:
+    """What every attention kernel takes: q (B, Lq, H, D), k/v (B, Lk, H, D)
+    on one CUDA device, bf16 or fp32, 0 < D <= 128, B and H <= 65535;
+    returns (B, Lq, Lk, H, D)."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("attention kernel: q, k, v must be on one CUDA device")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"attention kernel takes bf16 or fp32, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError(f"attention kernel: bad shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    B, Lq, H, D = q.shape
+    if k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
+        raise ValueError(f"attention kernel: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree")
+    if not 0 < D <= 128 or B > 65535 or H > 65535:
+        raise ValueError(f"attention kernel takes head dim <= 128, B and H <= 65535 (got {q.shape})")
+    return B, Lq, k.shape[1], H, D
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               band: Optional[Tuple[int, int, int]] = None,
               visited: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -66,18 +88,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     needs every query row to see at least one key. visited, a one-element
     int64 CUDA tensor, receives the number of key tiles a band call visits.
     """
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("attention kernel: q, k, v must be on one CUDA device")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"attention kernel takes bf16 or fp32, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
-        raise ValueError(f"attention kernel: bad shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    B, Lq, H, D = q.shape
-    Lk = k.shape[1]
-    if k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
-        raise ValueError(f"attention kernel: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree")
-    if not 0 < D <= 128 or B > 65535 or H > 65535:
-        raise ValueError(f"attention kernel takes head dim <= 128, B and H <= 65535 (got {q.shape})")
+    B, Lq, Lk, H, D = _check_qkv(q, k, v)
     band_arg = None
     if band is not None:
         hw, window, prefix = (int(x) for x in band)
@@ -111,6 +122,57 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         _check(lib.gen3c_attention_f32(*args, _stream(q)), "attention_f32")
     return out
+
+
+def _training_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``_check_qkv`` for the training kernels (``attention_bwd.cu``), which
+    also need non-empty sequences and contiguous tensors: returns the three
+    made contiguous, (B, Lq, Lk, H, D) and the bf16 and vec flags."""
+    B, Lq, Lk, H, D = _check_qkv(q, k, v)
+    if Lq == 0 or Lk == 0 or B == 0 or H == 0:
+        raise ValueError(f"attention kernel: empty shapes {tuple(q.shape)} {tuple(k.shape)}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    bf16 = q.dtype == torch.bfloat16
+    vec = bf16 and D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    return (q, k, v), (B, Lq, Lk, H, D), bf16, vec
+
+
+def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gen3c_attention_fwd_lse: attention's output (B, Lq, H, D) and the fp32
+    row logsumexp of the scaled logits (B, H, Lq), the forward that K4's
+    backward needs. Contiguous copies are made of strided inputs."""
+    (q, k, v), (B, Lq, Lk, H, D), bf16, vec = _training_layout(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    _check(library().gen3c_attention_fwd_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        B, Lq, Lk, H, D, 1.0 / math.sqrt(D), int(bf16), int(vec), _stream(q)), "attention_fwd_lse")
+    return out, lse
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  dout: torch.Tensor, lse: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """gen3c_attention_bwd (K4): (dq, dk, dv) like (q, k, v) from the
+    forward's out and lse and the upstream gradient dout (like out)."""
+    (q, k, v), (B, Lq, Lk, H, D), bf16, vec = _training_layout(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype \
+            or dout.dtype != q.dtype or out.device != q.device or dout.device != q.device:
+        raise ValueError(f"attention backward: out {tuple(out.shape)} {out.dtype} and dout "
+                         f"{tuple(dout.shape)} {dout.dtype} must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, Lq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"attention backward: lse {tuple(lse.shape)} {lse.dtype}, "
+                         f"expected ({B}, {H}, {Lq}) fp32")
+    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    vec = vec and out.data_ptr() % 16 == 0 and dout.data_ptr() % 16 == 0
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    _check(library().gen3c_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Lq, Lk, H, D, 1.0 / math.sqrt(D), int(bf16), int(vec), _stream(q)), "attention_bwd")
+    return dq, dk, dv
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -8,6 +8,9 @@ non-Pallas paths:
     ``attention_op`` (:511-517), with the queries processed in chunks so
     that it also runs at the 7B self-attention length; with ``band`` the
     dense temporal-band mask of :412-416 and :513-515.
+    ``attention_forward_reference`` adds the row logsumexp and
+    ``attention_backward_reference`` is the backward (K4's plain version),
+    chunked the same way.
   * ``quantize_rows_reference``, ``int8_matmul_reference`` and
     ``w8a8_matmul_reference``: gen3c_tpu/models/quantize.py
     ``w8a8_matmul`` (:48-69), split at the two kernels (K7q, K7).
@@ -35,6 +38,28 @@ INV_127 = float(np.float32(1.0) / np.float32(127.0))  # 1/127 rounded to fp32
 Band = Tuple[int, int, int]  # (tokens per frame, window in frames, prefix frames)
 
 
+def _logits(q: torch.Tensor, k: torch.Tensor, s: int, e: int,
+            band: Optional[Band]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """fp32 scaled logits of queries [s, e), (B, H, e - s, Lk): formed in the
+    input dtype, scaled in fp32, band-masked to -1e30 (dit.py:512-515); and
+    the band's (e - s, Lk) mask of visible keys (None without a band)."""
+    Lk = k.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q[:, s:e], k).float() * (1.0 / math.sqrt(q.shape[-1]))
+    allowed = None
+    if band is not None:
+        hw, window, prefix = band
+        qf = torch.arange(s, e, device=q.device) // hw
+        kf = torch.arange(Lk, device=q.device) // hw
+        allowed = ((qf[:, None] - kf[None, :]).abs() <= window) | (kf[None, :] < prefix)
+        logits.masked_fill_(~allowed, -1e30)
+    return logits, allowed
+
+
+def _query_chunk(q: torch.Tensor, k: torch.Tensor) -> int:
+    B, _, H, _ = q.shape
+    return max(1, _LOGITS_PER_CHUNK // (B * H * k.shape[1]))
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         band: Optional[Band] = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v. q: (B, Lq, H, D), k/v: (B, Lk, H, D).
@@ -45,22 +70,74 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     |i // hw - j // hw| <= window or j // hw < prefix; other logits are
     set to -1e30 before the softmax, as dit.py does.
     """
-    B, Lq, H, D = q.shape
-    Lk = k.shape[1]
-    scale = 1.0 / math.sqrt(D)
-    chunk = max(1, _LOGITS_PER_CHUNK // (B * H * Lk))
-    outs = []
+    return _forward(q, k, v, band, with_lse=False)[0]
+
+
+def attention_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                band: Optional[Band] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``attention_reference``'s output and the fp32 row logsumexp of its
+    scaled logits, (B, H, Lq): the plain version of K4's forward."""
+    return _forward(q, k, v, band, with_lse=True)
+
+
+def _forward(q, k, v, band, with_lse):
+    Lq = q.shape[1]
+    chunk = _query_chunk(q, k)
+    outs, lses = [], []
     for s in range(0, Lq, chunk):
-        logits = torch.einsum("bqhd,bkhd->bhqk", q[:, s:s + chunk], k).float() * scale
-        if band is not None:
-            hw, window, prefix = band
-            qf = torch.arange(s, min(s + chunk, Lq), device=q.device) // hw
-            kf = torch.arange(Lk, device=q.device) // hw
-            allowed = ((qf[:, None] - kf[None, :]).abs() <= window) | (kf[None, :] < prefix)
-            logits.masked_fill_(~allowed, -1e30)
+        logits, _ = _logits(q, k, s, min(s + chunk, Lq), band)
+        if with_lse:
+            lses.append(torch.logsumexp(logits, dim=-1))
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, v))
-    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out, (torch.cat(lses, dim=2) if with_lse else None)
+
+
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                                 band: Optional[Band] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``attention_reference`` given its output, the upstream
+    gradient dout (like out) and the forward's lse: the plain version of K4.
+
+    Chunked over queries like the forward, so it runs at the 7B
+    self-attention length (autograd through ``attention_reference`` would
+    keep every chunk's probabilities: ~406 GB for one 56,320-token layer).
+    Per chunk: P = exp(S - lse), Delta = rowsum(dO * O) in fp32,
+    dV += P^T dO, dS = P * (dO V^T - Delta), dQ = scale dS K and
+    dK += scale dS^T Q. The products take their operands in the input
+    dtype (P and dS rounded to it, as the kernel rounds them) and sum in
+    fp32; dk and dv accumulate over chunks in fp32 and are cast once. The
+    band (CPU path only: K4 has no band yet) masks as the forward does.
+    """
+    Lq = q.shape[1]
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)  # (B, H, Lq)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dqs = []
+    chunk = _query_chunk(q, k)
+    for s in range(0, Lq, chunk):
+        e = min(s + chunk, Lq)
+        logits, allowed = _logits(q, k, s, e, band)
+        p = torch.exp(logits - lse[:, :, s:e, None])
+        if allowed is not None:
+            # a row that sees no key: the forward's softmax over -1e30 logits
+            # averaged v (exp(S - lse) cannot say so: lse lost its log(Lk))
+            p[:, :, ~allowed.any(dim=1)] = 1.0 / k.shape[1]
+        dv += torch.einsum("bhqk,bqhd->bkhd", p.to(dt), dout[:, s:e]).float()
+        dp = torch.einsum("bqhd,bkhd->bhqk", dout[:, s:e], v).float()
+        ds = p * (dp - delta[:, :, s:e, None])
+        del p, dp
+        if allowed is not None:
+            ds.masked_fill_(~allowed, 0.0)  # the mask's logits are constants
+        ds = ds.to(dt)
+        dqs.append((torch.einsum("bhqk,bkhd->bqhd", ds, k).float() * scale).to(dt))
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, q[:, s:e]).float()
+    return torch.cat(dqs, dim=1), (dk * scale).to(dt), dv.to(dt)
 
 
 def quantize_rows_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,9 @@
 """GeneralDIT: the Cosmos 7B video diffusion transformer in PyTorch.
 
 Port of gen3c_tpu/models/dit.py ``dit_forward`` for one device (no
-context/tensor/sequence parallelism, no span cache).
+context/tensor/sequence parallelism, no span cache), differentiable for
+training (attention's backward is kernel K4), with optional per-block
+remat.
 The module tree carries the reference checkpoint's parameter names, the
 left-hand side of gen3c_tpu/models/convert.py ``convert_dit_state_dict``,
 so a reference ``model.pt`` loads with ``load_state_dict``:
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gen3c_tpu_torch import kernels
 from gen3c_tpu_torch.models.quantize import linear_weight
@@ -374,10 +377,16 @@ class GeneralDIT(nn.Module):
             self._rope_cache = {key: rope_3d_table(self.cfg, T, H, W, fps=fps, device=device)}
         return self._rope_cache[key]
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, crossattn_emb: torch.Tensor,
                 fps: Optional[float] = None,
-                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                padding_mask: Optional[torch.Tensor] = None,
+                remat: bool = False) -> torch.Tensor:
+        """remat=True recomputes each block's activations in the backward
+        instead of keeping them (``torch.utils.checkpoint``, non-reentrant:
+        dit.py's ``jax.checkpoint(block_step)``, :1040-1045). Serving calls
+        this under ``torch.no_grad()`` (the sampler, the pipeline), and a
+        fresh net's parameters do not require grad; the trainer turns
+        them on."""
         cfg = self.cfg
         dtype = cfg.dtype
         B, C, T, H, W = x.shape
@@ -399,7 +408,11 @@ class GeneralDIT(nn.Module):
 
         ctx = crossattn_emb.to(dtype)
         for blk in self.blocks.values():
-            tokens = blk(tokens, emb, lora, extra, ctx, rope, band)
+            if remat and torch.is_grad_enabled():
+                tokens = checkpoint(blk, tokens, emb, lora, extra, ctx, rope, band,
+                                    use_reentrant=False)
+            else:
+                tokens = blk(tokens, emb, lora, extra, ctx, rope, band)
 
         fshift, fscale = _adaln_modulation(self.final_layer.adaLN_modulation, emb, lora, 2)
         tokens = (_layer_norm(tokens).float() * (1 + fscale[:, None, :])

@@ -1,0 +1,97 @@
+"""Training CLI (port of gen3c_tpu/training/train.py) on one device.
+
+    python -m gen3c_tpu_torch.training.train --synthetic --remat \\
+        experiment=gen3c_tiny trainer.max_iter=4 trainer.save_every=2 \\
+        trainer.warmup_steps=1 trainer.job_dir=runs/tiny
+
+``experiment=`` picks a preset (gen3c_tiny, gen3c_7b, GEN3C_Cosmos_7B),
+``trainer.<field>=`` overrides TrainerConfig, any other ``a.b=v`` the
+preset (``dit.num_blocks=12``). The DiT gets seeded random weights on
+``--device`` (default: the card if there is one). Running again with the
+same job_dir resumes from its latest checkpoint. The JAX CLI's mesh flags
+are accepted and refused above one device; ``--data_root`` (packaged
+clips, Gen3CClipDataset) is not ported yet, so ``--synthetic`` is the data.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional
+
+import torch
+
+from gen3c_tpu_torch.models.dit import DiTConfig, GeneralDIT
+from gen3c_tpu_torch.training.trainer import Trainer, TrainerConfig, synthetic_latent_dataset
+from gen3c_tpu_torch.utils import log, registry
+
+
+def build_net(dit_cfg: DiTConfig, device, seed: int) -> GeneralDIT:
+    """A GeneralDIT with the JAX package's random init, drawn on ``device``."""
+    device = torch.device(device)
+    with torch.device("meta"):
+        net = GeneralDIT(dit_cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return net.to_empty(device=device).init_random(gen)
+
+
+def main(argv=None) -> Optional[Trainer]:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    overrides = [a for a in argv if "=" in a and not a.startswith("--")]
+    flags = [a for a in argv if a not in overrides and a != "--"]
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--data_root", type=str, default=None)
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--cp", type=int, default=None)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--sequence_parallel", action="store_true")
+    p.add_argument("--remat", action="store_true", help="activation-checkpoint DiT blocks")
+    p.add_argument("--loss_add_logvar", action="store_true",
+                   help="Kendall uncertainty loss with a learned per-sigma logvar head")
+    p.add_argument("--text_dropout_rate", type=float, default=0.0)
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: cuda if available, else cpu)")
+    args = p.parse_args(flags)
+    if args.dp > 1 or (args.cp or 1) > 1 or args.tp > 1 or args.fsdp or args.sequence_parallel:
+        raise NotImplementedError("dp/cp/tp meshes, FSDP and sequence parallelism are not "
+                                  "ported (ROADMAP Queue 1 item 15): train on one device")
+    if args.data_root:
+        raise NotImplementedError("--data_root needs Gen3CClipDataset, which is not ported "
+                                  "yet (ROADMAP Queue 1 item 16): use --synthetic")
+
+    exp_name = "gen3c_tiny"
+    t_cfg = TrainerConfig()
+    rest = []
+    for ov in overrides:
+        key, _, val = ov.partition("=")
+        if key == "experiment":
+            exp_name = val
+        elif key.startswith("trainer."):
+            t_cfg = registry.apply_overrides(t_cfg, [ov[len("trainer."):]])
+        else:
+            rest.append(ov)
+    preset = registry.apply_overrides(registry.get_experiment(exp_name), rest)
+    for flag in ("remat", "loss_add_logvar"):
+        if getattr(args, flag):
+            t_cfg = registry.apply_overrides(t_cfg, [f"{flag}=True"])
+    if args.text_dropout_rate:
+        t_cfg = registry.apply_overrides(t_cfg, [f"text_dropout_rate={args.text_dropout_rate}"])
+
+    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    log.info(f"experiment={exp_name} device={device}")
+    net = build_net(preset.dit, device, t_cfg.seed)
+    trainer = Trainer(t_cfg, preset.dit, net)
+    C, T, Hl, Wl = preset.state_shape
+    data = synthetic_latent_dataset(args.batch_size, C, T, Hl, Wl,
+                                    extra_channels=preset.dit.in_channels - C, ctx_len=16)
+    state = trainer.train(data)
+    log.info(f"training done at step {state.step}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

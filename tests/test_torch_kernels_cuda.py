@@ -8,7 +8,8 @@ the test, never at import). Run on a GPU machine with
 Shapes cover what the wrappers promise: bf16 and fp32, head dims from 8 to
 128 (zero-padded to the MMA depth), ragged Lq and Lk, strided inputs,
 temporal bands whose frames straddle the 64-key tiles, several splat
-groups in one launch, and int8 GEMMs of any M, N, K. Tolerances: bf16
+groups in one launch, int8 GEMMs of any M, N, K, and K4 (the attention
+backward) at ragged self and cross shapes. Tolerances: bf16
 outputs of fp32 softmaxes (atol 2e-2), fp32 (atol 1e-4), atomic fp32 splat
 sums (1e-4 on pixels both call known, masks on >= 99.9% of pixels); int8
 codes, scales, int32 accumulators and the rescaled outputs exactly.
@@ -20,6 +21,8 @@ import torch
 from gen3c_tpu_torch import kernels
 from gen3c_tpu_torch.kernels import cuda as kcuda
 from gen3c_tpu_torch.kernels.reference import (
+    attention_backward_reference,
+    attention_forward_reference,
     attention_reference,
     int8_matmul_reference,
     quantize_rows_reference,
@@ -146,14 +149,98 @@ def test_band_attention_full_window_is_k1(gen, dtype):
 
 
 def test_attention_refuses_inputs_that_require_grad(gen):
+    """A band with a gradient to track has no backward kernel (K4-band)."""
     q = torch.randn((1, 64, 2, 32), generator=gen, device="cuda", requires_grad=True)
     k = torch.randn((1, 64, 2, 32), generator=gen, device="cuda")
-    with pytest.raises(NotImplementedError, match="K4"):
-        kernels.attention(q, k, k)
-    with pytest.raises(NotImplementedError, match="K4"):
+    with pytest.raises(NotImplementedError, match="K4-band"):
         kernels.attention(q, k, k, band=(16, 1, 1))
     with torch.no_grad():
-        kernels.attention(q, k, k)  # no graph is built: allowed
+        kernels.attention(q, k, k, band=(16, 1, 1))  # no graph is built: allowed
+
+
+def test_attention_without_grad_is_the_forward_launch(gen):
+    """Grad off (or no input requiring grad): one K1 launch, as serving runs."""
+    q = torch.randn((1, 64, 2, 32), generator=gen, device="cuda", requires_grad=True)
+    before = dict(kernels.launch_counts)
+    with torch.no_grad():
+        out = kernels.attention(q, q, q)
+    kernels.attention(q.detach(), q.detach(), q.detach())
+    torch.cuda.synchronize()
+    assert out.grad_fn is None
+    assert kernels.launch_counts["K1"] == before["K1"] + 2
+    assert kernels.launch_counts["K4"] == before["K4"]
+
+
+def _rel(a, ref):
+    """max and mean |a - ref| relative to mean |ref|."""
+    d = (a.float() - ref.float()).abs()
+    m = ref.float().abs().mean()
+    return (d.max() / m).item(), (d.mean() / m).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lq,lk,d", [(250, 250, 24), (250, 37, 24), (130, 7, 64), (200, 333, 64),
+                                     (257, 300, 128), (1, 1, 128), (100, 512, 128)])
+def test_attention_backward_kernel_matches_reference(gen, dtype, lq, lk, d):
+    """K4 (and its forward with lse) against the plain versions. fp32: max
+    |delta| <= 1e-4 of mean |.|. bf16: the kernel and the plain bf16
+    backward are both held to the fp32 backward at the same inputs; the
+    kernel (S and dP in fp32, P and dS rounded to bf16 for the MMAs) must
+    be no further from it than the plain version (which also rounds S and
+    dP to bf16), plus 1e-2 of mean |.| on the max and 1e-3 on the mean (as
+    chip_smoke.py holds it at the 7B shapes)."""
+    b, h = 2, 3
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
+               for n in (lq, lk, lk))
+    do = torch.randn((b, lq, h, d), generator=gen, device="cuda").to(dtype)
+    out, lse = kcuda.attention_fwd_lse(q, k, v)
+    ref_out, ref_lse = attention_forward_reference(q, k, v)
+    assert torch.equal(out, kcuda.attention(q, k, v))  # the forward is K1's, bit for bit
+    assert (lse - ref_lse).abs().max().item() <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    got = kcuda.attention_bwd(q, k, v, out, do, lse)
+    plain = attention_backward_reference(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    assert all(g.dtype == dtype and g.shape == t.shape for g, t in zip(got, (q, k, v)))
+    assert all(torch.isfinite(g).all() for g in got)
+    if lq == 1 and lk == 1:
+        # one key: P = 1, so dv = dout and dS = dO.v - rowsum(dO * O) cancels to
+        # rounding, which leaves dq = dk = 0 (no relative error can be formed)
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        assert _rel(got[2], do)[0] <= tol
+        assert max(got[0].abs().max().item(), got[1].abs().max().item()) <= tol
+        return
+    if dtype == torch.float32:
+        for g, p in zip(got, plain):
+            assert _rel(g, p)[0] <= 1e-4
+        return
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o32, l32 = attention_forward_reference(q32, k32, v32)
+    truth = attention_backward_reference(q32, k32, v32, o32, do32, l32)
+    for name, g, p, t in zip("qkv", got, plain, truth):
+        kmax, kmean = _rel(g, t)
+        pmax, pmean = _rel(p, t)
+        assert kmax <= pmax + 1e-2 and kmean <= pmean + 1e-3, (name, kmax, kmean, pmax, pmean)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+def test_attention_autograd_launches_k4(gen, dtype, tol):
+    """kernels.attention with inputs that require grad: the forward with
+    lse (counted as kernel_id) and K4 once per backward, with autograd
+    through the plain forward's gradients (fp32 tolerance as above; bf16
+    relative to mean |.|)."""
+    q, k, v = (torch.randn((2, n, 3, 64), generator=gen, device="cuda").to(dtype)
+               .requires_grad_(True) for n in (150, 90, 90))
+    do = torch.randn((2, 150, 3, 64), generator=gen, device="cuda").to(dtype)
+    before = dict(kernels.launch_counts)
+    out = kernels.attention(q, k, v, kernel_id="K2")
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["K2"] == before["K2"] + 1
+    assert kernels.launch_counts["K4"] == before["K4"] + 1
+    leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*leaves), leaves, do.float())
+    for g, w in zip(got, want):
+        assert _rel(g, w)[0] <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

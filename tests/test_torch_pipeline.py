@@ -295,6 +295,21 @@ video, _ = Gen3cPipeline(model=model, num_steps=2).generate(
     torch.zeros(1, p.chunk_size, 1, 3, p.height, p.width),
     torch.ones(1, p.chunk_size, 1, 1, p.height, p.width))
 assert video.shape == (p.chunk_size, p.height, p.width, 3)
+# training: two train_steps, then one Trainer step with its checkpoint
+import tempfile
+from gen3c_tpu_torch.training.train import build_net
+from gen3c_tpu_torch.training.train_step import init_train_state, make_optimizer, train_step
+from gen3c_tpu_torch.training.trainer import Trainer, TrainerConfig, synthetic_latent_dataset
+data = synthetic_latent_dataset(1, 16, 2, 8, 8)
+opt = make_optimizer(lr=1e-3, warmup_steps=1)
+state = init_train_state(build_net(p.dit, "cpu", 0), opt)
+gen = torch.Generator().manual_seed(0)
+for _ in range(2):
+    state, metrics = train_step(state, next(data), gen, p.dit, opt, remat=True)
+assert state.step == 2 and np.isfinite(float(metrics["loss"]))
+with tempfile.TemporaryDirectory() as job:
+    cfg = TrainerConfig(job_dir=job, max_iter=1, warmup_steps=1, prefetch_batches=0)
+    assert Trainer(cfg, p.dit, build_net(p.dit, "cpu", 0)).train(data).step == 1
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 print("jax-free")
 """
