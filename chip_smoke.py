@@ -35,16 +35,33 @@ Phases, each printing one JSON line of its own numbers:
              TrainerConfig's optimizer defaults, 3 steps: s per step, loss
              and grad-norm per step, state GiB reckoned and measured, peak
              GiB, and the launches of K1, K2 and K4
-  9 train_parity  one train_step of a 1024-channel, 2-block bf16 DiT on the
+  9 lora_band_train  LoRA fine-tuning of the full 28-block GEN3C-7B (bf16,
+             random base from seed 0, gates randomized) with the fast
+             preset's band (window 2, prefix 1): the batch from
+             build_gen3c_train_batch on a seeded 121-frame 704x1280 RGBD
+             clip (7B VAE, K5), then 3 lora_train_steps (rank 16 on the
+             attention projections, remat): s per step, loss, grad-norm,
+             peak GiB, base and adapter GiB reckoned and measured, launches
+             per step (K4band 28, K3 56, K2 56, K4 28, K1 0), and the base
+             bitwise unchanged
+ 10 train_parity  one train_step of a 1024-channel, 2-block bf16 DiT on the
              card (kernels) and on the CPU (plain versions) with the same
              weights and draws: loss, grad-norm, each grad leaf's error
- 10 train_cli the training CLI (gen3c_tiny, fp32, remat) for 4 steps with
-             checkpoints, then resumed to 6
+ 11 band_train_parity  the same with band window 1 (K4-band on the card)
+ 12 train_cli the training CLI (gen3c_tiny, fp32, remat) for 4 steps with
+             checkpoints, then resumed to 6, then 2 steps with --data_root on
+             a packaged clip and band window 1
 Phase 3 also holds K4 (the attention backward) and its forward with the
 row logsumexp at the 7B self- and cross-attention shapes and at a ragged
-fp32 tiny shape. Then the kernel table as one JSON line, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}. Any failure raises: the script
-exits non-zero and prints no last line. There is no CPU fallback.
+fp32 tiny shape; K4-band at the 7B self shape with the fast preset's band
+(its visited-tile fractions, its forward against K3's bits), at a full
+window against K4's bits and at a ragged fp32 shape; and P1, the mma.sync
+rate probe, in bf16 and int8. Every kernel's bound (bytes or operations at
+the data-sheet peaks) and the time of one PyTorch call that computes its
+function, where there is one, go beside its time. Then the kernel table as
+one JSON line, the nvidia-smi line, and as the last line {"ok": true,
+"device": {...}}. Any failure raises: the script exits non-zero and prints
+no last line. There is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -86,10 +103,58 @@ TRAIN_BLOCKS_7B = 12  # of 28: the state (12 bytes a parameter) must fit 80 GB
 # relative (set before the first run, PERF.md)
 TRAIN_PARITY_TOL = {"loss": 1e-2, "grad_norm": 2e-2, "leaf_mean": 5e-2, "leaf_max": 0.1}
 BF16_PEAK_TFLOPS = 989.0  # H100 SXM dense bf16 (data sheet)
+FP32_PEAK_TFLOPS = 67.0  # H100 SXM fp32 outside the tensor cores (data sheet)
+HBM_TB_PER_S = 3.35  # H100 SXM HBM3 (data sheet)
+LORA_RANK = 16
+LORA_STEPS = 3
+P1_SHAPE = (1408, 128, 1024)  # the QK^T block shape of scripts/probe_int8_attention.py
+P1_REPS = 8000  # that script's R at K = 128
 
 
 def emit(phase: str, **numbers) -> None:
     print(json.dumps({"phase": phase, **numbers}), flush=True)
+
+
+def bound(nbytes: float, ops: float, peak_tops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / (HBM_TB_PER_S * 1e12) * 1e3
+    t_ops = ops / (peak_tops * 1e12) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def library_ms(fn, reps: int = 3):
+    """cuda_ms of one PyTorch call that computes a kernel's function (its
+    yardstick; the port never calls it), or None where the card cannot
+    hold it."""
+    try:
+        return cuda_ms(fn, reps=reps)
+    except torch.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None
+
+
+def _sdpa(q, k, v, mask=None):
+    """F.scaled_dot_product_attention in the kernels' (B, L, H, D) layout."""
+    import torch.nn.functional as F
+
+    out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                         attn_mask=mask)
+    return out.transpose(1, 2)
+
+
+def _band_mask(L: int, band) -> torch.Tensor:
+    """The dense (L, L) boolean band mask, built from its (T, T) frame mask
+    (no (L, L) temporaries beside it)."""
+    hw, window, prefix = band
+    f = torch.arange(L, device="cuda") // hw
+    t = torch.arange(int(f[-1]) + 1, device="cuda")
+    frames = ((t[:, None] - t[None, :]).abs() <= window) | (t[None, :] < prefix)
+    return frames[f][:, f]
 
 
 def nvidia_smi_line() -> str:
@@ -168,7 +233,9 @@ def _attention_case(name, shape_q, shape_kv, dtype, tol, gen, time_it=True):
         B, Lq, H, D = shape_q
         flop = 4.0 * B * H * Lq * shape_kv[1] * D
         res.update(ms=ms, plain_ms=plain_ms, tflops=flop / ms / 1e9,
-                   plain_tflops=flop / plain_ms / 1e9)
+                   plain_tflops=flop / plain_ms / 1e9, library_ms=library_ms(lambda: _sdpa(q, k, v)),
+                   **bound(tensor_bytes(q, k, v, q), flop,
+                           BF16_PEAK_TFLOPS if dtype == torch.bfloat16 else FP32_PEAK_TFLOPS))
     emit("kernel", **res)
     if not res["finite"] or res["max_abs_err"] > tol["max"] or res["mean_abs_err"] > tol["mean"]:
         raise AssertionError(f"{name}: kernel disagrees with its plain version: {res}")
@@ -182,8 +249,24 @@ def _rel_err(a, ref):
     return (d.max() / m).item(), (d.mean() / m).item()
 
 
-def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True):
-    """K4 and its forward with lse against the plain versions."""
+def _library_backward_ms(q, k, v, do, mask=None):
+    """The backward of F.scaled_dot_product_attention (with the dense band
+    mask, if given) on the same inputs: one torch.autograd.grad call after
+    one forward, or None where the card cannot hold it."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    try:
+        out = _sdpa(*leaves, mask)
+        ms = library_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    except torch.OutOfMemoryError:
+        ms = None
+    del leaves
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True, band=None):
+    """K4 (K4-band with a band) and its forward with lse against the plain
+    versions; a bf16 band call also counts the tiles it visits."""
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.kernels import cuda
 
@@ -191,26 +274,43 @@ def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True):
     k = torch.randn(shape_kv, generator=gen, device="cuda").to(dtype)
     v = torch.randn(shape_kv, generator=gen, device="cuda").to(dtype)
     do = torch.randn(shape_q, generator=gen, device="cuda").to(dtype)
-    out, lse = cuda.attention_fwd_lse(q, k, v)
+    B, Lq, H, D = shape_q
+    Lk = shape_kv[1]
+    vis_f = torch.zeros(1, dtype=torch.int64, device="cuda")
+    vis_b = torch.zeros(2, dtype=torch.int64, device="cuda")
+    out, lse = cuda.attention_fwd_lse(q, k, v, band, visited=vis_f)
+    forward = "k3" if band is not None else "k1"  # the serving forward it must equal
     res = {"name": name, "q": list(shape_q), "kv": list(shape_kv), "dtype": str(dtype),
-           "fwd_equals_k1": bool(torch.equal(out, cuda.attention(q, k, v)))}
-    _, ref_lse = kernels.attention_forward_reference(q, k, v)
+           "band": list(band) if band else None,
+           f"fwd_equals_{forward}": bool(torch.equal(out, cuda.attention(q, k, v, band)))}
+    _, ref_lse = kernels.attention_forward_reference(q, k, v, band)
     res["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
     del ref_lse
-    got = cuda.attention_bwd(q, k, v, out, do, lse)
-    plain = kernels.attention_backward_reference(q, k, v, out, do, lse)
+    got = cuda.attention_bwd(q, k, v, out, do, lse, band, visited=vis_b)
+    plain = kernels.attention_backward_reference(q, k, v, out, do, lse, band)
     torch.cuda.synchronize()
     res["finite"] = bool(all(torch.isfinite(g).all().item() for g in got))
     res["max_abs_err"] = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, plain))
-    ok = res["finite"] and res["fwd_equals_k1"]
+    ok = res["finite"] and res[f"fwd_equals_{forward}"]
+    pairs = Lq * Lk  # visible (query, key) pairs
+    if band is not None:
+        T = -(-Lq // band[0])
+        pairs = _band_pairs(T, *band[1:]) * band[0] ** 2
+        if dtype == torch.bfloat16:
+            tiles64, tiles32 = -(-Lk // 64), -(-Lq // 32)
+            res["visited_fraction"] = {
+                "forward": vis_f.item() / (B * H * tiles64 * -(-Lq // 64)),
+                "dkdv": vis_b[0].item() / (B * H * tiles64 * tiles32),
+                "dq": vis_b[1].item() / (B * H * tiles64 * -(-Lq // 64)),
+                "frame_pairs": pairs / (Lq * Lk)}
     if dtype == torch.float32:
         for n, g, p in zip("qkv", got, plain):
             res[f"d{n}_rel_max"], res[f"d{n}_rel_mean"] = _rel_err(g, p)
             ok = ok and res[f"d{n}_rel_max"] <= K4_F32_TOL
     else:
         q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
-        o32, l32 = kernels.attention_forward_reference(q32, k32, v32)
-        truth = kernels.attention_backward_reference(q32, k32, v32, o32, do32, l32)
+        o32, l32 = kernels.attention_forward_reference(q32, k32, v32, band)
+        truth = kernels.attention_backward_reference(q32, k32, v32, o32, do32, l32, band)
         del q32, k32, v32, do32, o32, l32
         for n, g, p, t in zip("qkv", got, plain, truth):
             res[f"d{n}_rel_max"], res[f"d{n}_rel_mean"] = _rel_err(g, p)
@@ -222,18 +322,68 @@ def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True):
         del truth
     del got, plain
     if time_it:
-        B, Lq, H, D = shape_q
-        res["ms"] = cuda_ms(lambda: cuda.attention_bwd(q, k, v, out, do, lse), reps=3)
+        res["ms"] = cuda_ms(lambda: cuda.attention_bwd(q, k, v, out, do, lse, band), reps=3)
         res["plain_ms"] = cuda_ms(
-            lambda: kernels.attention_backward_reference(q, k, v, out, do, lse), reps=1, warmup=0)
-        res["fwd_lse_ms"] = cuda_ms(lambda: cuda.attention_fwd_lse(q, k, v), reps=3)
-        flop = 10.0 * B * H * Lq * shape_kv[1] * D
+            lambda: kernels.attention_backward_reference(q, k, v, out, do, lse, band), reps=1,
+            warmup=0)
+        res["fwd_lse_ms"] = cuda_ms(lambda: cuda.attention_fwd_lse(q, k, v, band), reps=3)
+        flop = 10.0 * B * H * pairs * D  # the visible work only
         res.update(tflops=flop / res["ms"] / 1e9, plain_tflops=flop / res["plain_ms"] / 1e9,
-                   bf16_peak_share=flop / res["ms"] / 1e9 / BF16_PEAK_TFLOPS)
+                   bf16_peak_share=flop / res["ms"] / 1e9 / BF16_PEAK_TFLOPS,
+                   **bound(tensor_bytes(q, k, v, out, do, lse, q, k, v), flop, BF16_PEAK_TFLOPS))
+        del out, lse
+        torch.cuda.empty_cache()
+        res["library_ms"] = _library_backward_ms(
+            q, k, v, do, None if band is None else _band_mask(Lq, band))
     emit("kernel", **res)
     if not ok:
-        raise AssertionError(f"{name}: K4 disagrees with its plain version: {res}")
+        raise AssertionError(f"{name}: the backward disagrees with its plain version: {res}")
+    if band is not None and dtype == torch.bfloat16:
+        frac = res["visited_fraction"]
+        if abs(frac["dkdv"] - frac["frame_pairs"]) > 0.01 or vis_b[1].item() != vis_f.item():
+            raise AssertionError(f"{name} did not skip the masked tiles: {res}")
     return res
+
+
+def _k4_full_window_case(gen) -> dict:
+    """K4-band at a window over every frame of the 7B self shape: K4's tiles
+    in K4's order, so the forward with lse and the backward give K4's bits."""
+    from gen3c_tpu_torch.kernels import cuda
+
+    q, k, v, do = (torch.randn((1, LATENT_T_7B * BAND_7B[0], 32, 128), generator=gen,
+                               device="cuda").to(torch.bfloat16) for _ in range(4))
+    full_band = (BAND_7B[0], LATENT_T_7B - 1, 1)
+    out, lse = cuda.attention_fwd_lse(q, k, v)
+    out_b, lse_b = cuda.attention_fwd_lse(q, k, v, full_band)
+    res = {"name": "K4-band at a full window against K4", "band": list(full_band),
+           "forward_equal": bool(torch.equal(out, out_b) and torch.equal(lse, lse_b))}
+    del out_b, lse_b
+    want = cuda.attention_bwd(q, k, v, out, do, lse)
+    got = cuda.attention_bwd(q, k, v, out, do, lse, full_band)
+    res["backward_equal"] = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    emit("kernel", **res)
+    if not (res["forward_equal"] and res["backward_equal"]):
+        raise AssertionError(f"K4-band at a full window differs from K4: {res}")
+    return res
+
+
+def _mma_probe_case(gen, dtype: str) -> dict:
+    """P1 against its plain version (probe_int8_attention.check), then its
+    rate at the attention QK^T block shape, as the probe script runs it."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.scripts import probe_int8_attention as probe
+
+    M, K, N = P1_SHAPE
+    kernels.reset_launch_counts()
+    r = probe.measure(M, K, N, dtype, P1_REPS, gen, plain=True)
+    r["launches"] = kernels.launch_counts["P1"]  # the probe's own run: check and timings
+    r["name"] = f"P1 mma.sync rate probe ({dtype})"
+    elem = 1 if dtype == "int8" else 2
+    r.update(**bound((M * K + K * N) * elem + M * N * 4, 2.0 * M * K * N * P1_REPS,
+                     INT8_PEAK_TOPS if dtype == "int8" else BF16_PEAK_TFLOPS),
+             library_ms=None)  # no one PyTorch call sums R products
+    emit("kernel", **r)
+    return r
 
 
 def _splat_case(gen) -> dict:
@@ -273,6 +423,9 @@ def _splat_case(gen) -> dict:
     res["ms"] = cuda_ms(lambda: kernels.splat(frame, mask, tdepth, flow, None, True), reps=5)
     res["plain_ms"] = cuda_ms(lambda: kernels.splat_reference(frame, mask, tdepth, flow, None, True),
                               reps=3)
+    # each source pixel adds its c values and weight into 4 targets
+    res.update(library_ms=None, **bound(tensor_bytes(frame, mask, tdepth, flow, out, m),
+                                        8.0 * (c + 1) * b * h * w, FP32_PEAK_TFLOPS))
     emit("kernel", **res)
     if err > SPLAT_TOL or agree < SPLAT_MASK_AGREE:
         raise AssertionError(f"K5: kernel disagrees with its plain version: {res}")
@@ -314,7 +467,12 @@ def _band_case(gen) -> dict:
     res["plain_ms"] = cuda_ms(lambda: kernels.attention_reference(q, k, v, BAND_7B), reps=1,
                               warmup=0)
     flop = 4.0 * B * H * D * pairs * BAND_7B[0] ** 2  # the unmasked work only
-    res.update(tflops=flop / res["ms"] / 1e9, plain_tflops=flop / res["plain_ms"] / 1e9)
+    res.update(tflops=flop / res["ms"] / 1e9, plain_tflops=flop / res["plain_ms"] / 1e9,
+               **bound(tensor_bytes(q, k, v, q), flop, BF16_PEAK_TFLOPS))
+    mask = _band_mask(L, BAND_7B)  # SDPA with the dense mask: it computes every tile
+    res["library_ms"] = library_ms(lambda: _sdpa(q, k, v, mask))
+    del mask
+    torch.cuda.empty_cache()
     emit("kernel", **res)
     if (not res["finite"] or res["max_abs_err"] > ATTN_TOL["max"]
             or res["mean_abs_err"] > ATTN_TOL["mean"] or not res["full_window_equals_k1"]):
@@ -340,6 +498,9 @@ def _quant_case(gen) -> dict:
     res["ms"] = cuda_ms(lambda: kernels.quantize_rows(x), reps=5)
     res["plain_ms"] = cuda_ms(lambda: kernels.quantize_rows_reference(x), reps=3)
     res["gb_per_s"] = x.numel() * 3 / res["ms"] / 1e6  # bf16 read, int8 write
+    # absmax, scale, divide, round: ~4 fp32 operations an element
+    res.update(library_ms=None, **bound(tensor_bytes(x, codes, scale), 4.0 * x.numel(),
+                                        FP32_PEAK_TFLOPS))
     emit("kernel", **res)
     if not (res["codes_equal"] and res["scales_equal"]):
         raise AssertionError(f"K7q: kernel disagrees with its plain version: {res}")
@@ -382,6 +543,11 @@ def _gemm_case(gen, name: str, M: int, K: int, N: int) -> dict:
     res.update(tops=ops / res["ms"] / 1e9, plain_tops=ops / res["plain_ms"] / 1e9,
                cublas_bf16_tflops=ops / res["cublas_bf16_ms"] / 1e9)
     res["int8_peak_share"] = res["tops"] / INT8_PEAK_TOPS
+    res.update(**bound(tensor_bytes(xq, wq, xs, ws) + M * N * 2, ops, INT8_PEAK_TOPS))
+    try:  # cuBLAS's int8 product (int32 out): the GEMM without K7's rescale
+        res["library_ms"] = library_ms(lambda: torch._int_mm(xq, wq.t()), reps=5)
+    except RuntimeError as e:  # a shape _int_mm does not take
+        res["library_ms"], res["library_error"] = None, str(e)[:200]
     emit("kernel", **res)
     if not (res["acc_equal"] and res["linear_equal"]) or res["max_abs_err"] != 0.0:
         raise AssertionError(f"K7: kernel disagrees with its plain version: {res}")
@@ -412,6 +578,15 @@ def phase_kernels() -> dict:
                                   (2, lk, 4, 24), torch.float32, gen, time_it=False)
                          for lk in (250, 37)]
     torch.cuda.empty_cache()
+    results["K4band"] = _k4_case("K4-band self-attention backward", (1, 56320, 32, 128),
+                                 (1, 56320, 32, 128), bf16, gen, band=BAND_7B)
+    torch.cuda.empty_cache()
+    results["K4band_full"] = _k4_full_window_case(gen)
+    torch.cuda.empty_cache()
+    # fp32, ragged: frames of 37 tokens straddle the 32-wide tiles; prefix 2
+    results["K4band_f32"] = _k4_case("K4-band fp32 D=24 ragged", (2, 250, 4, 24), (2, 250, 4, 24),
+                                     torch.float32, gen, time_it=False, band=(37, 1, 2))
+    results["P1"] = [_mma_probe_case(gen, dtype) for dtype in ("bf16", "int8")]
     results["K5"] = _splat_case(gen)
     torch.cuda.empty_cache()
     results["K3"] = _band_case(gen)
@@ -761,19 +936,134 @@ def phase_train() -> dict:
     return res
 
 
+def _synthetic_clip(frames: int, h: int, w: int, seed: int):
+    """A seeded RGBD clip: the seed image panning (2 pixels a frame), a
+    slanted depth plane, and cameras moving left along a trajectory; as a
+    packaged clip holds them: (image, depth, w2c, intrinsics)."""
+    from gen3c_tpu_torch.ops.camera import generate_camera_trajectory
+    from gen3c_tpu_torch.pipelines.depth import default_intrinsics
+
+    base = _seed_image(h, w, seed)[0, :, 0]
+    image = np.stack([np.roll(base, 2 * i, axis=2) for i in range(frames)])
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    depth = np.broadcast_to((2.5 - 0.8 * yy + 0.3 * np.sin(6 * xx)).astype(np.float32),
+                            (frames, 1, h, w)).copy()
+    k = default_intrinsics(h, w)
+    w2c, ks = generate_camera_trajectory("left", np.eye(4, dtype=np.float32), k, frames, 0.3,
+                                         "center_facing", 1.0)
+    return (image, depth, np.asarray(w2c, np.float32).reshape(frames, 4, 4),
+            np.asarray(ks, np.float32).reshape(frames, 3, 3))
+
+
+def phase_lora_band_train() -> dict:
+    """LoRA fine-tuning of the full 28-block GEN3C-7B with the fast preset's
+    band: a batch from build_gen3c_train_batch on a 121-frame 704x1280 RGBD
+    clip (7B VAE, K5), then lora_train_step (rank 16 on DEFAULT_TARGETS,
+    remat, make_optimizer with warmup 1) over the frozen base."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
+    from gen3c_tpu_torch.training.datasets import build_gen3c_train_batch
+    from gen3c_tpu_torch.training.lora import init_lora_params, lora_leaves, lora_train_step
+    from gen3c_tpu_torch.training.train_step import make_optimizer
+    from gen3c_tpu_torch.training.trainer import TrainerConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, preset = build_gen3c_model("gen3c_7b", device="cuda", seed=0,
+                                      attn_temporal_window=BAND_7B[1])
+    net, cfg = model.net, preset.dit
+    _randomize_gates(net, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    res = {"model": preset.name, "blocks": cfg.num_blocks, "channels": cfg.model_channels,
+           "heads": cfg.num_heads, "head_dim": cfg.head_dim, "dtype": str(cfg.dtype),
+           "band": [BAND_7B[0], cfg.attn_temporal_window, cfg.attn_prefix_frames],
+           "build_model_s": time.perf_counter() - t0,
+           "base_gib_reckoned": sum(tensor_bytes(p) for p in net.parameters()) / 2 ** 30,
+           "model_gib_measured": (torch.cuda.memory_allocated() - mem0) / 2 ** 30}  # DiT + VAE
+    saved = {n: p.detach().cpu() for n, p in net.named_parameters()}
+
+    image, depth, w2c, k = _synthetic_clip(preset.chunk_size, preset.height, preset.width, seed=0)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch = build_gen3c_train_batch(model, image, depth, w2c, k)
+    torch.cuda.synchronize()
+    res.update(batch_s=time.perf_counter() - t0, batch_launches=dict(kernels.launch_counts),
+               latent=list(batch["x0"].shape[1:]), tokens=int(np.prod(batch["x0"].shape[2:])) // 4,
+               extra_channels=batch["extra_channels"].shape[1],
+               batch_finite=bool(all(torch.isfinite(t).all().item() for t in batch.values())))
+    del image, depth
+
+    mem1 = torch.cuda.memory_allocated()
+    lora = init_lora_params(torch.Generator(device="cuda").manual_seed(0), net, rank=LORA_RANK)
+    tc = TrainerConfig()
+    opt = make_optimizer(lr=tc.lr, weight_decay=tc.weight_decay, grad_clip=tc.grad_clip,
+                         warmup_steps=1)
+    opt_state = opt.init(lora_leaves(lora))
+    n_adapter = sum(t.numel() for t in lora_leaves(lora).values())
+    res.update(rank=LORA_RANK, adapters=len(lora), adapter_params=n_adapter,
+               # fp32 A and B, Adam's mu and nu
+               adapter_gib_reckoned=n_adapter * 4 * 3 / 2 ** 30,
+               adapter_gib_measured=(torch.cuda.memory_allocated() - mem1) / 2 ** 30,
+               optimizer={"lr": tc.lr, "weight_decay": tc.weight_decay,
+                          "grad_clip": tc.grad_clip, "warmup_steps": 1})
+    gen = torch.Generator().manual_seed(0)
+    kernels.reset_launch_counts()
+    steps = []
+    for _ in range(LORA_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lora, opt_state, m = lora_train_step(lora, opt_state, net, batch, gen, cfg, opt,
+                                             remat=True)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t0, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"])})
+    launches = dict(kernels.launch_counts)
+    by_forward = dict(kernels.k4_launches_by_forward)
+    res.update(steps=steps, launches=launches, k4_by_forward=by_forward,
+               launches_per_step={k: v / LORA_STEPS for k, v in launches.items() if v},
+               peak_gib=(torch.cuda.max_memory_allocated() - mem0) / 2 ** 30,
+               adapters_moved=bool(any(ab["b"].abs().max().item() > 0 for ab in lora.values())),
+               base_unchanged=all(torch.equal(p.detach().cpu(), saved[n])
+                                  for n, p in net.named_parameters()))
+    emit("lora_band_train", **res)
+    n = cfg.num_blocks
+    want = {"K4band": n, "K3": 2 * n, "K2": 2 * n, "K4": n, "K1": 0}  # remat: forwards twice
+    got = {key: launches[key] / LORA_STEPS for key in want}
+    if got != want or by_forward["K2"] != n * LORA_STEPS or by_forward["K1"]:
+        raise AssertionError(f"lora_band_train: launches per step {got}, expected {want}: {res}")
+    if not (res["base_unchanged"] and res["adapters_moved"] and res["batch_finite"]
+            and all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps)
+            and res["batch_launches"]["K5"] > 0 and n == 28):
+        raise AssertionError(f"lora_band_train: {res}")
+    del model, net, batch, lora, opt_state, saved
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_train_parity() -> dict:
     """One train_step of a 1024-wide bf16 DiT on the card and on the CPU."""
+    return _train_parity("train_parity", window=None)
+
+
+def phase_band_train_parity() -> dict:
+    """The same with band window 1 over the 5 latent frames of 240 tokens:
+    the band forward with lse and K4-band on the card."""
+    return _train_parity("band_train_parity", window=1)
+
+
+def _train_parity(phase: str, window) -> dict:
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.models.dit import DiTConfig, GeneralDIT
     from gen3c_tpu_torch.training.train_step import (
         draw_step, init_train_state, loss_and_grads, make_optimizer, train_step)
 
     cfg = DiTConfig(in_channels=16 + 16 * 4 + 1, model_channels=1024, num_blocks=2,
-                    num_heads=8, rope_t_extrapolation_ratio=2.0)
+                    num_heads=8, rope_t_extrapolation_ratio=2.0, attn_temporal_window=window)
     cpu = GeneralDIT(cfg).init_random(torch.Generator().manual_seed(2))
     _randomize_gates(cpu, torch.Generator().manual_seed(3))
     gpu = copy.deepcopy(cpu).to("cuda")
-    T, H, W = 5, 24, 40  # 1,200 tokens
+    T, H, W = 5, 24, 40  # 1,200 tokens: 5 latent frames of 12 x 20
     batch = _train_batch(cfg, T, H, W, 512, seed=4)
     draws = draw_step(torch.Generator().manual_seed(5), batch["x0"].shape, False, False)
     out = {}
@@ -796,6 +1086,7 @@ def phase_train_parity() -> dict:
     worst_mean = max(leaves.items(), key=lambda kv: kv[1]["rel_mean"])
     worst_max = max(leaves.items(), key=lambda kv: kv[1]["rel_max"])
     res = {"dit": "1024 ch x 2 blocks x 8 heads, bf16, gates randomized", "tokens": T * H * W // 4,
+           "band": None if window is None else [H * W // 4, window, cfg.attn_prefix_frames],
            "cuda": out["cuda"], "cpu": out["cpu"],
            "loss_rel_err": abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(out["cpu"]["loss"]),
            "grad_norm_rel_err": abs(out["cuda"]["grad_norm"] - out["cpu"]["grad_norm"])
@@ -804,22 +1095,28 @@ def phase_train_parity() -> dict:
            "worst_leaf_rel_max": [worst_max[0], worst_max[1]["rel_max"]],
            "median_leaf_rel_mean": float(np.median([v["rel_mean"] for v in leaves.values()])),
            "tol": TRAIN_PARITY_TOL}
-    emit("train_parity", **res)
+    emit(phase, **res)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "train_parity_leaves.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"{phase}_leaves.json"), "w") as f:
         json.dump(leaves, f, indent=1)
-    if out["cuda"]["launches"]["K4"] != 2 * cfg.num_blocks:
-        raise AssertionError(f"train_parity: the card's backward did not run K4: {res}")
+    n = cfg.num_blocks
+    ran = out["cuda"]["launches"]
+    want = ({"K4": 2 * n, "K4band": 0, "K1": n, "K3": 0} if window is None
+            else {"K4": n, "K4band": n, "K1": 0, "K3": n})  # cross-attention is K2 + K4
+    if any(ran[k] != v for k, v in want.items()):
+        raise AssertionError(f"{phase}: the card's step ran {ran}, expected {want}: {res}")
     if (res["loss_rel_err"] > TRAIN_PARITY_TOL["loss"]
             or res["grad_norm_rel_err"] > TRAIN_PARITY_TOL["grad_norm"]
             or worst_mean[1]["rel_mean"] > TRAIN_PARITY_TOL["leaf_mean"]
             or worst_max[1]["rel_max"] > TRAIN_PARITY_TOL["leaf_max"]):
-        raise AssertionError(f"train_parity: card and CPU disagree: {res}")
+        raise AssertionError(f"{phase}: card and CPU disagree: {res}")
     return res
 
 
 def phase_train_cli() -> dict:
-    """The training CLI on the card (tiny, fp32: the fp32 K4), then a resume."""
+    """The training CLI on the card (tiny, fp32: the fp32 K4), then a resume,
+    then a --data_root run on a packaged clip with band window 1 (the fp32
+    K4-band, and K5 in the batches)."""
     import tempfile
 
     from gen3c_tpu_torch import kernels
@@ -845,6 +1142,21 @@ def phase_train_cli() -> dict:
                "resumed_run": {"steps": resumed.state.step, "s": resumed_s,
                                "launches": launches_resumed,
                                "checkpoints": resumed.checkpointer.steps()}}
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
+        from gen3c_tpu_torch.pipelines.factory import PRESETS
+
+        tiny = PRESETS["gen3c_tiny"]
+        image, depth, w2c, k = _synthetic_clip(tiny.chunk_size + 4, tiny.height, tiny.width, seed=3)
+        np.savez(os.path.join(root, "clip.npz"), image=image, depth=depth, w2c=w2c, intrinsics=k)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        clips = train.main(["--data_root", root, "experiment=gen3c_tiny",
+                            "dit.attn_temporal_window=1", "trainer.max_iter=2",
+                            "trainer.warmup_steps=1", f"trainer.job_dir={root}/job"])
+        res["data_root_run"] = {"steps": clips.state.step, "s": time.perf_counter() - t0,
+                                "band_window": clips.dit_cfg.attn_temporal_window,
+                                "launches": dict(kernels.launch_counts),
+                                "device": str(next(clips.state.params.parameters()).device)}
     emit("train_cli", **res)
     per_step = 2 * first.dit_cfg.num_blocks
     if not (first.state.step == 4 and resumed.state.step == 6
@@ -854,6 +1166,11 @@ def phase_train_cli() -> dict:
             and launches_resumed["K4"] == 2 * per_step  # steps 5 and 6: resumed at 4
             and res["device"].startswith("cuda")):
         raise AssertionError(f"train_cli: {res}")
+    run, blocks = res["data_root_run"], clips.dit_cfg.num_blocks
+    if not (run["steps"] == 2 and run["device"].startswith("cuda")
+            and run["launches"]["K4band"] == 2 * blocks and run["launches"]["K1"] == 0
+            and run["launches"]["K5"] > 0):
+        raise AssertionError(f"train_cli --data_root: {res}")
     return res
 
 
@@ -867,54 +1184,45 @@ def main() -> int:
     phase_fast_parity()
     phase_chain()
     train_launches = phase_train()["k4_by_forward"]
+    lora_launches = phase_lora_band_train()["launches"]
     phase_train_parity()
+    phase_band_train_parity()
     phase_train_cli()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gen3c_tpu"))
     if foreign:
         raise AssertionError(f"the port imported JAX or the JAX package: {foreign[:8]}")
     k7 = max(kern["K7"], key=lambda r: r["M"] * r["N"] * r["K"])  # fc1
+    csrc = "gen3c_tpu_torch/kernels/csrc/"
+
+    def row(name, source, replaces, launches, case, **override):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
+                "launches": launches, **{k: case[k] for k in keys}, **override}
+
     table = [
-        {"name": "K1 self-attention", "route": "cuda",
-         "source": "gen3c_tpu_torch/kernels/csrc/attention.cu",
-         "replaces": "gen3c_tpu/models/dit.py:445", "launches": launches["K1"],
-         "max_abs_err": kern["K1"]["max_abs_err"], "ms": kern["K1"]["ms"],
-         "plain_ms": kern["K1"]["plain_ms"]},
-        {"name": "K2 cross-attention", "route": "cuda",
-         "source": "gen3c_tpu_torch/kernels/csrc/attention.cu",
-         "replaces": "gen3c_tpu/models/dit.py:472", "launches": launches["K2"],
-         "max_abs_err": kern["K2"]["max_abs_err"], "ms": kern["K2"]["ms"],
-         "plain_ms": kern["K2"]["plain_ms"]},
-        {"name": "K5 forward-warp splat", "route": "cuda",
-         "source": "gen3c_tpu_torch/kernels/csrc/splat.cu",
-         "replaces": "gen3c_tpu/ops/geometry.py:205", "launches": launches["K5"],
-         "max_abs_err": kern["K5"]["max_abs_err"], "ms": kern["K5"]["ms"],
-         "plain_ms": kern["K5"]["plain_ms"]},
-        {"name": "K3 band self-attention", "route": "cuda",
-         "source": "gen3c_tpu_torch/kernels/csrc/attention.cu",
-         "replaces": "gen3c_tpu/models/dit.py:459", "launches": fast_launches["K3"],
-         "max_abs_err": kern["K3"]["max_abs_err"], "ms": kern["K3"]["ms"],
-         "plain_ms": kern["K3"]["plain_ms"]},
-        {"name": "K7q per-token int8 quantize", "route": "cuda",
-         "source": "gen3c_tpu_torch/kernels/csrc/w8a8.cu",
-         "replaces": "gen3c_tpu/models/quantize.py:55", "launches": fast_launches["K7q"],
-         "max_abs_err": kern["K7q"]["max_abs_err"], "ms": kern["K7q"]["ms"],
-         "plain_ms": kern["K7q"]["plain_ms"]},
-        {"name": "K7 int8 GEMM + rescale (fc1 shape)", "route": "cuda",
-         "source": "gen3c_tpu_torch/kernels/csrc/w8a8.cu",
-         "replaces": "gen3c_tpu/models/quantize.py:61", "launches": fast_launches["K7"],
-         "max_abs_err": max(r["max_abs_err"] for r in kern["K7"]), "ms": k7["ms"],
-         "plain_ms": k7["plain_ms"]},
-        {"name": "K4 self-attention backward", "route": "cuda",
-         "source": "gen3c_tpu_torch/kernels/csrc/attention_bwd.cu",
-         "replaces": "gen3c_tpu/models/dit.py:464", "launches": train_launches["K1"],
-         "max_abs_err": kern["K4_self"]["max_abs_err"], "ms": kern["K4_self"]["ms"],
-         "plain_ms": kern["K4_self"]["plain_ms"]},
-        {"name": "K4 cross-attention backward", "route": "cuda",
-         "source": "gen3c_tpu_torch/kernels/csrc/attention_bwd.cu",
-         "replaces": "gen3c_tpu/models/dit.py:508", "launches": train_launches["K2"],
-         "max_abs_err": kern["K4_cross"]["max_abs_err"], "ms": kern["K4_cross"]["ms"],
-         "plain_ms": kern["K4_cross"]["plain_ms"]},
-    ]
+        row("K1 self-attention", "attention.cu", "gen3c_tpu/models/dit.py:445", launches["K1"],
+            kern["K1"]),
+        row("K2 cross-attention", "attention.cu", "gen3c_tpu/models/dit.py:472", launches["K2"],
+            kern["K2"]),
+        row("K5 forward-warp splat", "splat.cu", "gen3c_tpu/ops/geometry.py:205",
+            launches["K5"], kern["K5"]),
+        row("K3 band self-attention", "attention.cu", "gen3c_tpu/models/dit.py:459",
+            fast_launches["K3"], kern["K3"]),
+        row("K7q per-token int8 quantize", "w8a8.cu", "gen3c_tpu/models/quantize.py:55",
+            fast_launches["K7q"], kern["K7q"]),
+        row("K7 int8 GEMM + rescale (fc1 shape)", "w8a8.cu", "gen3c_tpu/models/quantize.py:61",
+            fast_launches["K7"], k7, max_abs_err=max(r["max_abs_err"] for r in kern["K7"])),
+        row("K4 self-attention backward", "attention_bwd.cu", "gen3c_tpu/models/dit.py:464",
+            train_launches["K1"], kern["K4_self"]),
+        row("K4 cross-attention backward", "attention_bwd.cu", "gen3c_tpu/models/dit.py:508",
+            train_launches["K2"], kern["K4_cross"]),
+        row("K4-band band self-attention backward", "attention_bwd.cu",
+            "gen3c_tpu/models/dit.py:464", lora_launches["K4band"], kern["K4band"]),
+    ] + [row(p1["name"], "mma_probe.cu", "scripts/probe_int8_attention.py:59", p1["launches"], p1)
+         for p1 in kern["P1"]]
+    idle = [r["name"] for r in table if r["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels that their path never launched: {idle}")
     print(json.dumps({"kernels": table}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi_line(), flush=True)

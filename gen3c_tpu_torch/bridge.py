@@ -9,7 +9,7 @@ in)) and ``scale`` ((out,)) of a ``models.quantize.QuantLinear``; the net
 must have been given that structure (``quantize_dit_``) before loading. ``vae_state_from_jax`` is the identity, because the JAX VAE
 params are already keyed by the reference names. ``train_params_from_jax``
 carries a training tree across, the logvar head and its {"net", "logvar"}
-wrapper included. All take numpy-valued
+wrapper included; ``lora_state_from_jax`` the LoRA adapters. All take numpy-valued
 trees (``jax.device_get`` output), so this module needs no JAX.
 """
 
@@ -91,6 +91,12 @@ def train_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         return dit_state_from_jax(tree)
     return {**{f"net.{k}": v for k, v in dit_state_from_jax(tree["net"]).items()},
             **{f"logvar.{k}": v for k, v in logvar_state_from_jax(tree["logvar"]).items()}}
+
+
+def lora_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """gen3c_tpu LoRA adapters {path: {"a": (in, r), "b": (r, out)}} (numpy
+    leaves) -> training.lora's adapters: the same paths and orientation."""
+    return {path: {"a": _a(ab["a"]), "b": _a(ab["b"])} for path, ab in tree.items()}
 
 
 def vae_state_from_jax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -5,13 +5,16 @@
   K3   band self-attention       (dit.py:459-460, splash + make_temporal_band_mask :370-409)
   K4   attention backward        (splash/flash backward, dit.py:464-470 and :508, reached
                                   from gen3c_tpu/training/train_step.py:233)
+  K4band  band attention backward (the splash backward under K3's mask, dit.py:459-470)
   K5   forward-warp splat        (gen3c_tpu/ops/geometry.py:205-316)
   K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59)
   K7   int8 x int8 GEMM + rescale (quantize.py:60-69)
+  P1   mma.sync rate probe       (scripts/probe_int8_attention.py:37-62; ``mma_probe``)
 
-K1, K2 and K3 share ``csrc/attention.cu``; K4 and the training forward
-(K1/K2 with the row logsumexp) are ``csrc/attention_bwd.cu``; K5 is
-``csrc/splat.cu``; K7q and K7 are ``csrc/w8a8.cu``. A CUDA tensor launches the compiled kernel
+K1, K2 and K3 share ``csrc/attention.cu``; K4, K4band and the training
+forward (K1/K2/K3 with the row logsumexp) are ``csrc/attention_bwd.cu``; K5
+is ``csrc/splat.cu``; K7q and K7 are ``csrc/w8a8.cu``; P1 is
+``csrc/mma_probe.cu``. A CUDA tensor launches the compiled kernel
 (built at first use, see ``build``); a CPU tensor runs the plain PyTorch
 version in ``reference``. There is no other switch: on a card the
 references run only where a caller asks for them by name.
@@ -33,6 +36,7 @@ from gen3c_tpu_torch.kernels.reference import (
     attention_forward_reference,
     attention_reference,
     int8_matmul_reference,
+    mma_probe_reference,
     quantize_rows_reference,
     splat_max_logd,
     splat_normalize,
@@ -41,13 +45,14 @@ from gen3c_tpu_torch.kernels.reference import (
 )
 
 __all__ = [
-    "attention", "splat", "quantize_rows", "w8a8_matmul", "launch_counts",
+    "attention", "splat", "quantize_rows", "w8a8_matmul", "mma_probe", "launch_counts",
     "reset_launch_counts", "attention_reference", "attention_forward_reference",
     "attention_backward_reference", "splat_reference", "quantize_rows_reference",
-    "int8_matmul_reference", "w8a8_matmul_reference",
+    "int8_matmul_reference", "w8a8_matmul_reference", "mma_probe_reference",
 ]
 
-launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7q": 0, "K7": 0}
+launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4band": 0, "K5": 0, "K7q": 0, "K7": 0,
+                 "P1": 0}
 # K4's launches split by the forward they differentiate (K1 self-, K2 cross-attention)
 k4_launches_by_forward = {"K1": 0, "K2": 0}
 
@@ -77,20 +82,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Without a gradient to track (grad mode off, or no input requiring
     grad) this is one forward launch. Otherwise it is ``_Attention``: a
-    forward that also keeps the row logsumexp (counted under kernel_id)
-    and K4 as its backward. Under per-block remat the forward of a block
-    runs twice per training step (forward, then the recompute before its
-    backward), so kernel_id counts two launches per block and step and K4
-    one. The band has no backward kernel yet (K4-band): on a card, a band
-    with a gradient to track raises.
+    forward that also keeps the row logsumexp (counted under kernel_id, or
+    K3 with a band) and K4 as its backward (K4band with a band). Under
+    per-block remat the forward of a block runs twice per training step
+    (forward, then the recompute before its backward), so the forward
+    counts two launches per block and step and the backward one.
     """
     on_cuda = _on_cuda(q, "attention")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if on_cuda and band is not None:
-            raise NotImplementedError(
-                "band attention on CUDA has no backward kernel yet (K4-band, the splash "
-                "backward with the temporal-band mask, is not ported): train with full "
-                "attention or call it under torch.no_grad()")
         return _Attention.apply(q, k, v, kernel_id, band)
     if not on_cuda:
         return attention_reference(q, k, v, band)
@@ -102,17 +101,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _Attention(torch.autograd.Function):
-    """Attention whose backward is K4 (dq, dk, dv from the saved q, k, v,
-    output and logsumexp) on a card, ``attention_backward_reference`` on
-    the CPU."""
+    """Attention whose backward is K4, or K4band under a band (dq, dk, dv
+    from the saved q, k, v, output and logsumexp) on a card,
+    ``attention_backward_reference`` on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, kernel_id, band):
         if q.device.type == "cuda":
             from gen3c_tpu_torch.kernels import cuda
 
-            out, lse = cuda.attention_fwd_lse(q, k, v)
-            launch_counts[kernel_id] += 1
+            out, lse = cuda.attention_fwd_lse(q, k, v, band)
+            launch_counts["K3" if band is not None else kernel_id] += 1
         else:
             out, lse = attention_forward_reference(q, k, v, band)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -125,9 +124,12 @@ class _Attention(torch.autograd.Function):
         if q.device.type == "cuda":
             from gen3c_tpu_torch.kernels import cuda
 
-            dq, dk, dv = cuda.attention_bwd(q, k, v, out, dout, lse)
-            launch_counts["K4"] += 1
-            k4_launches_by_forward[ctx.kernel_id] += 1
+            dq, dk, dv = cuda.attention_bwd(q, k, v, out, dout, lse, ctx.band)
+            if ctx.band is not None:
+                launch_counts["K4band"] += 1
+            else:
+                launch_counts["K4"] += 1
+                k4_launches_by_forward[ctx.kernel_id] += 1
         else:
             dq, dk, dv = attention_backward_reference(q, k, v, out, dout, lse, ctx.band)
         return dq, dk, dv, None, None
@@ -188,3 +190,19 @@ def splat(
                                 max_logd, depth_weight_scale)
     launch_counts["K5"] += 1
     return splat_normalize(acc, c, h, w, is_image)
+
+
+def mma_probe(a: torch.Tensor, b: torch.Tensor, reps: int, ctas_per_sm: int = 1) -> torch.Tensor:
+    """P1: sum over i < reps of (a + i % 2) @ b, a (M, K) and b (K, N) both
+    bf16 (fp32 out) or both int8 (int32 out); see ``mma_probe_reference``.
+    On a card, ``csrc/mma_probe.cu`` keeps each CTA's operand tiles in
+    shared memory and issues the product ``reps`` times with at least
+    ``ctas_per_sm`` CTAs per SM (a matmul-rate probe; ``cuda.mma_probe``
+    also returns the CTAs it launched)."""
+    if not _on_cuda(a, "mma_probe"):
+        return mma_probe_reference(a, b, reps)
+    from gen3c_tpu_torch.kernels import cuda
+
+    out, _ = cuda.mma_probe(a, b, reps, ctas_per_sm)
+    launch_counts["P1"] += 1
+    return out

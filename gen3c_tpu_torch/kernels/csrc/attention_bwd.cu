@@ -43,7 +43,29 @@
 //                      64-key tiles: S = Q K^T, dP = dO V^T, dQ += dS K.
 //   attn_bwd_delta     Delta in fp32, one warp per (batch, query, head) row.
 //   *_f32              the same three passes on the CUDA cores, one warp per
-//                      query (forward, dQ) or per key (dK/dV), 32-wide tiles.
+//                      query (forward, dQ) or per key (dK/dV), 32-wide tiles;
+//                      they take the band below too (hw 0: full attention).
+//
+// K4-band: the same forward and backward under K3's temporal band (the
+// splash kernel's VJP with make_temporal_band_mask, gen3c_tpu/models/
+// dit.py:370-409 and :459-470): query token i sees key token j iff
+// |i/hw - j/hw| <= window or j/hw < prefix. Each bf16 kernel has one body,
+// templated on kBand, with two entry points: K4's take Params only, K4-band's
+// (attn_fwd_lse_bf16_band, attn_bwd_dq_bf16_band, attn_bwd_dkdv_bf16_band)
+// also take the band as a separate Band argument. So the full-attention
+// kernels keep their parameter lists and code generation (attention.cu's K3
+// note: one more parameter field cost K1 three registers and 2.3x its time).
+//   forward, dQ        a 64-query CTA visits only the 64-key tiles K3 visits
+//                      (band_key_tiles: the prefix tiles and the tiles of the
+//                      frames within the window, merged where they touch).
+//   dK/dV              the transpose: a 64-key CTA holding a prefix key
+//                      visits every 32-query tile, any other only the query
+//                      tiles of its key frames +/- window.
+// A tile pair that is not wholly visible (band boundary, ragged end) masks
+// per element; P of a masked pair is 0. Every CTA still owns its output rows
+// (no atomics). At a window >= T - 1 the kernels visit K4's tiles in K4's
+// order with K4's arithmetic, so they give K4's bits. The band forward's
+// arithmetic is K3's (attn_fwd_bf16_band), so its output is K3's bit for bit.
 //
 // What bounds it: per (batch, head) the backward does 2.5x the forward's
 // matrix work (S recomputed twice, four more products) against ~8 L D bytes,
@@ -81,6 +103,83 @@ struct Params {
   int B, Lq, Lk, H, D;
   float scale;
 };
+
+// K3's temporal band (K4-band), a kernel argument of its own (see above).
+struct Band {
+  int hw, window, prefix;        // hw <= 0: full attention
+  unsigned long long* visited;   // optional tile counters (see the entry points)
+};
+
+// Key-tile ranges [b0, e0) and [b1, e1) (the second may be empty) that hold
+// a key visible to a query of [q_first, q_last]: the prefix frames and the
+// frames within the window of the queries' frames, merged where they touch
+// (attention.cu's kv_tile_ranges).
+__device__ __forceinline__ void band_key_tiles(const Band& band, int Lk, int q_first,
+                                               int q_last, int tile, int& b0, int& e0,
+                                               int& b1, int& e1) {
+  b0 = 0;
+  e0 = (Lk + tile - 1) / tile;
+  b1 = e1 = 0;
+  if (band.hw <= 0) return;
+  const long long hw = band.hw;
+  const long long pre_end = min(static_cast<long long>(band.prefix) * hw,
+                                static_cast<long long>(Lk));
+  e0 = static_cast<int>((pre_end + tile - 1) / tile);
+  const long long lo = max(0LL, q_first / hw - band.window) * hw;
+  const long long hi = min((q_last / hw + band.window + 1) * hw, static_cast<long long>(Lk));
+  if (lo < hi) {
+    b1 = static_cast<int>(lo / tile);
+    e1 = static_cast<int>((hi + tile - 1) / tile);
+  }
+  if (b1 < e1 && b1 <= e0) {  // the ranges touch: one range
+    e0 = max(e0, e1);
+    b1 = e1 = 0;
+  }
+}
+
+// Query-tile range [b, e) whose queries see a key of [k_first, k_last]: all
+// of them if one key is a prefix key, else the frames within the window.
+__device__ __forceinline__ void band_query_tiles(const Band& band, int Lq, int k_first,
+                                                 int k_last, int tile, int& b, int& e) {
+  b = 0;
+  e = (Lq + tile - 1) / tile;
+  if (band.hw <= 0) return;
+  const long long hw = band.hw;
+  const long long kf_lo = k_first / hw;
+  if (kf_lo < band.prefix) return;
+  const long long lo = max(0LL, kf_lo - band.window) * hw;
+  const long long hi = min((k_last / hw + band.window + 1) * hw, static_cast<long long>(Lq));
+  if (lo >= hi) {
+    b = e = 0;
+    return;
+  }
+  b = static_cast<int>(lo / tile);
+  e = static_cast<int>((hi + tile - 1) / tile);
+}
+
+// True when every key of [n0, n0 + ntile) exists and every query of frames
+// qf_lo..qf_hi sees it, so that the tile needs no mask (attention.cu's
+// tile_all_visible).
+__device__ __forceinline__ bool band_tile_visible(const Band& band, int Lk, int n0, int ntile,
+                                                  int qf_lo, int qf_hi) {
+  const long long end = static_cast<long long>(n0) + ntile;
+  if (end > Lk) return false;
+  if (band.hw <= 0) return true;
+  const long long hw = band.hw;
+  if (end <= static_cast<long long>(band.prefix) * hw) return true;
+  return static_cast<long long>(n0) >= (qf_hi - band.window) * hw &&
+         end <= (static_cast<long long>(qf_lo) + band.window + 1) * hw;
+}
+
+// Whether a query of frame qf sees a key of frame kf under the band.
+__device__ __forceinline__ bool band_frames_visible(const Band& band, int qf, int kf) {
+  return kf < band.prefix || abs(qf - kf) <= band.window;
+}
+
+// The same for tokens q and k (hw <= 0: full attention).
+__device__ __forceinline__ bool band_tokens_visible(const Band& band, int q, int k) {
+  return band.hw <= 0 || band_frames_visible(band, q / band.hw, k / band.hw);
+}
 
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
                                           const uint32_t b[2]) {
@@ -214,13 +313,20 @@ __device__ __forceinline__ void store_rows(const Params& p, __nv_bfloat16* out, 
   }
 }
 
-// ------------------------------- bf16 forward -------------------------------
+// ------------------------- bf16 forward and backward -------------------------
+//
+// Each of the three bf16 kernels has one body, templated on kBand: false is
+// K4 (every tile, the Params-only entry points), true is K4-band (the tiles
+// the band reaches, the Params + Band entry points). The band's code sits
+// behind `if constexpr (kBand)`, so K4's instantiations compile as if it were
+// not there, and each family keeps its own register cap and count.
 
-// At most 128 registers (4 CTAs per SM): left free, nvcc takes 130 and one
-// CTA per SM fewer, which cost 15% (333 against 284 ms at the 7B self shape,
-// B=1, on an H100 80GB HBM3 at 700 W).
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kThreads, 4) attn_fwd_lse_bf16(const Params p) {
+// The forward with lse. K4: every key tile, K1's arithmetic. K4-band: the key
+// tiles K3 visits with K3's arithmetic tile for tile and operation for
+// operation, so the output is K3's bits; band.visited[0] += the key tiles
+// each CTA visits.
+template <int DP, bool VEC, bool kBand>
+__device__ __forceinline__ void fwd_lse_bf16_body(const Params& p, const Band& band) {
   constexpr int kPitch = DP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -250,7 +356,10 @@ __global__ void __launch_bounds__(kThreads, 4) attn_fwd_lse_bf16(const Params p)
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
   float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
 
-  for (int n0 = 0; n0 < p.Lk; n0 += kBlockN) {
+  // One 64-key tile from n0: S = Q K^T, the online softmax, O += P V. A
+  // band tile that is all_visible skips the mask (K3's whole tiles); any
+  // other tile masks per element.
+  auto key_tile = [&](int n0, bool all_visible) {
     __syncthreads();  // previous tile fully consumed
     load_tile<DP, kBlockN, VEC>(sK, k, s_l, n0, p.Lk, p.D);
     load_tile<DP, kBlockN, VEC>(sV, v, s_l, n0, p.Lk, p.D);
@@ -262,22 +371,45 @@ __global__ void __launch_bounds__(kThreads, 4) attn_fwd_lse_bf16(const Params p)
     mma_rows_rows<DP, kBlockN / 8>(s, sQ, wrow, sK);
 
     float mx[2] = {m_run[0], m_run[1]};
+    if (kBand && all_visible) {
 #pragma unroll
-    for (int t = 0; t < kBlockN / 8; ++t) {
+      for (int t = 0; t < kBlockN / 8; ++t) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + t * 8 + tg * 2 + (e & 1);
-        const float x = col < p.Lk ? s[t][e] * scale_log2 : -INFINITY;
-        s[t][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        for (int e = 0; e < 4; ++e) {
+          s[t][e] *= scale_log2;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
+        }
+      }
+    } else {
+      int qf_row[2] = {0, 0};  // the frames of rows g and g + 8
+      if constexpr (kBand) {
+        qf_row[0] = (q0 + wrow + g) / band.hw;
+        qf_row[1] = (q0 + wrow + g + 8) / band.hw;
+      }
+#pragma unroll
+      for (int t = 0; t < kBlockN / 8; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n0 + t * 8 + tg * 2 + (e & 1);
+          bool vis = col < p.Lk;
+          if constexpr (kBand) {
+            vis = vis && band_frames_visible(band, qf_row[e >> 1], col / band.hw);
+          }
+          const float x = vis ? s[t][e] * scale_log2 : -INFINITY;
+          s[t][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
       }
     }
-    float alpha[2];
+    float alpha[2], m_use[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = exp2f(m_run[i] - mx[i]);  // 0 on the first tile
+      // a band row with no visible key yet (max -inf) exponentiates against
+      // 0, so that p and alpha are 0, not NaN; a K4 tile always has a key
+      m_use[i] = kBand && mx[i] == -INFINITY ? 0.f : mx[i];
+      alpha[i] = exp2f(m_run[i] - m_use[i]);  // 0 on the first tile
       m_run[i] = mx[i];
       l_run[i] *= alpha[i];
     }
@@ -285,7 +417,7 @@ __global__ void __launch_bounds__(kThreads, 4) attn_fwd_lse_bf16(const Params p)
     for (int t = 0; t < kBlockN / 8; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(s[t][e] - m_run[e >> 1]);
+        const float pe = exp2f(s[t][e] - m_use[e >> 1]);
         s[t][e] = pe;
         l_run[e >> 1] += pe;
       }
@@ -298,6 +430,23 @@ __global__ void __launch_bounds__(kThreads, 4) attn_fwd_lse_bf16(const Params p)
       o[t][3] *= alpha[1];
     }
     mma_acc_rows<DP, kBlockN / 16>(o, s, sV);
+  };
+
+  if constexpr (kBand) {
+    const int q_last = min(q0 + kBlockM, p.Lq) - 1;
+    int b0, e0, b1, e1;
+    band_key_tiles(band, p.Lk, q0, q_last, kBlockN, b0, e0, b1, e1);
+    const int n_tiles = (e0 - b0) + (e1 - b1);
+    const int qf_lo = q0 / band.hw, qf_hi = q_last / band.hw;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int n0 = (it < e0 - b0 ? b0 + it : b1 + it - (e0 - b0)) * kBlockN;
+      key_tile(n0, band_tile_visible(band, p.Lk, n0, kBlockN, qf_lo, qf_hi));
+    }
+    if (band.visited != nullptr && threadIdx.x == 0) {
+      atomicAdd(band.visited, static_cast<unsigned long long>(n_tiles));
+    }
+  } else {
+    for (int n0 = 0; n0 < p.Lk; n0 += kBlockN) key_tile(n0, false);
   }
 
 #pragma unroll
@@ -325,14 +474,12 @@ __global__ void __launch_bounds__(kThreads, 4) attn_fwd_lse_bf16(const Params p)
   }
 }
 
-// ------------------------------- bf16 backward -------------------------------
-
-// At most 168 registers (3 CTAs per SM): left free, nvcc takes 229 (2 CTAs
-// per SM); the cap spills 88 bytes to the stack and still gains 10% (1,511
-// against 1,355 ms for the whole backward at the 7B self shape, B=1, on an
-// H100 80GB HBM3 at 700 W), with bitwise the same result.
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kThreads, 3) attn_bwd_dkdv_bf16(const Params p) {
+// dK/dV: the 64-key CTA loops over 32-query tiles (K4: all of them; K4-band:
+// those whose queries see one of its keys, band_query_tiles, masking per
+// element in the tiles that are not wholly visible; band.visited[0] += the
+// query tiles each CTA visits).
+template <int DP, bool VEC, bool kBand>
+__device__ __forceinline__ void bwd_dkdv_bf16_body(const Params& p, const Band& band) {
   constexpr int kPitch = DP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -347,6 +494,7 @@ __global__ void __launch_bounds__(kThreads, 3) attn_bwd_dkdv_bf16(const Params p
   const int n0 = blockIdx.x * kBlockN;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
   const int tg = lane & 3;
   const int wrow = warp * 16;
   const long long s_l = static_cast<long long>(p.H) * p.D;
@@ -368,8 +516,16 @@ __global__ void __launch_bounds__(kThreads, 3) attn_bwd_dkdv_bf16(const Params p
     dk[t][0] = dk[t][1] = dk[t][2] = dk[t][3] = 0.f;
     dv[t][0] = dv[t][1] = dv[t][2] = dv[t][3] = 0.f;
   }
+  // band: the query tiles [mb, me) to visit, and the frames of this
+  // thread's key rows g and g + 8 (rows >= Lk are not stored)
+  int mb = 0, me = 0, kf_row[2] = {0, 0};
+  if constexpr (kBand) {
+    band_query_tiles(band, p.Lq, n0, min(n0 + kBlockN, p.Lk) - 1, kBlockQ, mb, me);
+    kf_row[0] = (n0 + wrow + g) / band.hw;
+    kf_row[1] = (n0 + wrow + g + 8) / band.hw;
+  }
 
-  for (int m0 = 0; m0 < p.Lq; m0 += kBlockQ) {
+  auto query_tile = [&](int m0, bool all_visible) {
     __syncthreads();  // previous query tile fully consumed (and K/V staged)
     load_tile<DP, kBlockQ, VEC>(sQ, q, s_l, m0, p.Lq, p.D);
     load_tile<DP, kBlockQ, VEC>(sDO, dO, s_l, m0, p.Lq, p.D);
@@ -393,27 +549,46 @@ __global__ void __launch_bounds__(kThreads, 3) attn_bwd_dkdv_bf16(const Params p
     mma_rows_rows<DP, kBlockQ / 8>(dpt, sV, wrow, sDO);
 
     // P^T = exp(S^T * scale - lse) with lse per column (query), and
-    // dS^T = P^T (dP^T - Delta); queries >= Lq contribute nothing
+    // dS^T = P^T (dP^T - Delta); queries >= Lq and masked pairs give 0
 #pragma unroll
     for (int t = 0; t < kBlockQ / 8; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = t * 8 + tg * 2 + (e & 1);
-        const float pe = m0 + col < p.Lq ? exp2f(st[t][e] * scale_log2 - sLse[col]) : 0.f;
+        bool vis = true;
+        if constexpr (kBand) {
+          vis = all_visible || band_frames_visible(band, (m0 + col) / band.hw, kf_row[e >> 1]);
+        }
+        const float pe = m0 + col < p.Lq && vis ? exp2f(st[t][e] * scale_log2 - sLse[col]) : 0.f;
         st[t][e] = pe;
         dpt[t][e] = pe * (dpt[t][e] - sDelta[col]);
       }
     }
     mma_acc_rows<DP, kBlockQ / 16>(dv, st, sDO);   // dV += P^T dO
     mma_acc_rows<DP, kBlockQ / 16>(dk, dpt, sQ);   // dK += dS^T Q
+  };
+
+  if constexpr (kBand) {
+    for (int mt = mb; mt < me; ++mt) {
+      const int m0 = mt * kBlockQ;
+      query_tile(m0, band_tile_visible(band, p.Lk, n0, kBlockN, m0 / band.hw,
+                                       (min(m0 + kBlockQ, p.Lq) - 1) / band.hw));
+    }
+    if (band.visited != nullptr && threadIdx.x == 0) {
+      atomicAdd(band.visited, static_cast<unsigned long long>(me - mb));
+    }
+  } else {
+    for (int m0 = 0; m0 < p.Lq; m0 += kBlockQ) query_tile(m0, false);
   }
 
   store_rows<DP>(p, static_cast<__nv_bfloat16*>(p.dk), b, h, p.Lk, n0 + wrow, dk, p.scale);
   store_rows<DP>(p, static_cast<__nv_bfloat16*>(p.dv), b, h, p.Lk, n0 + wrow, dv, 1.f);
 }
 
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dq_bf16(const Params p) {
+// dQ: the 64-query CTA loops over 64-key tiles (K4: all of them; K4-band: the
+// forward's, band.visited[1] += the key tiles each CTA visits).
+template <int DP, bool VEC, bool kBand>
+__device__ __forceinline__ void bwd_dq_bf16_body(const Params& p, const Band& band) {
   constexpr int kPitch = DP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -454,8 +629,13 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_bf16(const Params p) {
   float dq[DP / 8][4];
 #pragma unroll
   for (int t = 0; t < DP / 8; ++t) dq[t][0] = dq[t][1] = dq[t][2] = dq[t][3] = 0.f;
+  int qf_row[2] = {0, 0};  // band: the frames of rows g and g + 8
+  if constexpr (kBand) {
+    qf_row[0] = (q0 + wrow + g) / band.hw;
+    qf_row[1] = (q0 + wrow + g + 8) / band.hw;
+  }
 
-  for (int n0 = 0; n0 < p.Lk; n0 += kBlockN) {
+  auto key_tile = [&](int n0, bool all_visible) {
     __syncthreads();  // previous tile fully consumed
     load_tile<DP, kBlockN, VEC>(sK, k, s_l, n0, p.Lk, p.D);
     load_tile<DP, kBlockN, VEC>(sV, v, s_l, n0, p.Lk, p.D);
@@ -474,13 +654,80 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_bf16(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n0 + t * 8 + tg * 2 + (e & 1);
-        const float pe = col < p.Lk ? exp2f(s[t][e] * scale_log2 - lse_l2[e >> 1]) : 0.f;
+        bool vis;
+        if constexpr (kBand) {
+          vis = all_visible ||
+                (col < p.Lk && band_frames_visible(band, qf_row[e >> 1], col / band.hw));
+        } else {
+          vis = col < p.Lk;
+        }
+        const float pe = vis ? exp2f(s[t][e] * scale_log2 - lse_l2[e >> 1]) : 0.f;
         s[t][e] = pe * (dp[t][e] - dlt[e >> 1]);  // dS
       }
     }
     mma_acc_rows<DP, kBlockN / 16>(dq, s, sK);  // dQ += dS K
+  };
+
+  if constexpr (kBand) {
+    const int q_last = min(q0 + kBlockM, p.Lq) - 1;
+    int b0, e0, b1, e1;
+    band_key_tiles(band, p.Lk, q0, q_last, kBlockN, b0, e0, b1, e1);
+    const int n_tiles = (e0 - b0) + (e1 - b1);
+    const int qf_lo = q0 / band.hw, qf_hi = q_last / band.hw;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int n0 = (it < e0 - b0 ? b0 + it : b1 + it - (e0 - b0)) * kBlockN;
+      key_tile(n0, band_tile_visible(band, p.Lk, n0, kBlockN, qf_lo, qf_hi));
+    }
+    if (band.visited != nullptr && threadIdx.x == 0) {
+      atomicAdd(band.visited + 1, static_cast<unsigned long long>(n_tiles));
+    }
+  } else {
+    for (int n0 = 0; n0 < p.Lk; n0 += kBlockN) key_tile(n0, false);
   }
   store_rows<DP>(p, static_cast<__nv_bfloat16*>(p.dq), b, h, p.Lq, q0 + wrow, dq, p.scale);
+}
+
+// The entry points: K4's take Params only, K4-band's Params and the Band.
+
+// At most 128 registers (4 CTAs per SM): left free, nvcc takes 130 and one
+// CTA per SM fewer, which cost 15% (333 against 284 ms at the 7B self shape,
+// B=1, on an H100 80GB HBM3 at 700 W). The band forward takes the same cap.
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads, 4) attn_fwd_lse_bf16(const Params p) {
+  fwd_lse_bf16_body<DP, VEC, false>(p, Band{});
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads, 4) attn_fwd_lse_bf16_band(const Params p,
+                                                                      const Band band) {
+  fwd_lse_bf16_body<DP, VEC, true>(p, band);
+}
+
+// At most 168 registers (3 CTAs per SM): left free, nvcc takes 229 (2 CTAs
+// per SM); the cap spills 88 bytes to the stack and still gains 10% (1,511
+// against 1,355 ms for the whole backward at the 7B self shape, B=1, on an
+// H100 80GB HBM3 at 700 W), with bitwise the same result. The band kernel
+// takes the same cap.
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads, 3) attn_bwd_dkdv_bf16(const Params p) {
+  bwd_dkdv_bf16_body<DP, VEC, false>(p, Band{});
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads, 3) attn_bwd_dkdv_bf16_band(const Params p,
+                                                                       const Band band) {
+  bwd_dkdv_bf16_body<DP, VEC, true>(p, band);
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads) attn_bwd_dq_bf16(const Params p) {
+  bwd_dq_bf16_body<DP, VEC, false>(p, Band{});
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads) attn_bwd_dq_bf16_band(const Params p,
+                                                                  const Band band) {
+  bwd_dq_bf16_body<DP, VEC, true>(p, band);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -528,7 +775,11 @@ __device__ __forceinline__ void load_f32_pair(float (*sA)[kF32MaxD + 1],
   }
 }
 
-__global__ void __launch_bounds__(kF32Warps * 32) attn_fwd_lse_f32(const Params p) {
+// The f32 kernels take the band too (hw <= 0: full attention): the CTA's 8
+// queries (forward, dQ) visit band_key_tiles' 32-key tiles, its 8 keys
+// (dK/dV) band_query_tiles' 32-query tiles, and every element is masked.
+__global__ void __launch_bounds__(kF32Warps * 32) attn_fwd_lse_f32(const Params p,
+                                                                   const Band band) {
   __shared__ float sQ[kF32Warps][kF32MaxD];
   __shared__ float sK[kF32Tile][kF32MaxD + 1];  // +1: lane-per-key reads
   __shared__ float sV[kF32Tile][kF32MaxD + 1];
@@ -551,19 +802,26 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_fwd_lse_f32(const Params 
   float m_run = -INFINITY;
   float l_run = 0.f;
 
-  for (int n0 = 0; n0 < p.Lk; n0 += kF32Tile) {
+  const int q0 = blockIdx.x * kF32Warps;
+  int b0, e0, b1, e1;
+  band_key_tiles(band, p.Lk, q0, min(q0 + kF32Warps, p.Lq) - 1, kF32Tile, b0, e0, b1, e1);
+  const int n_tiles = (e0 - b0) + (e1 - b1);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int n0 = (it < e0 - b0 ? b0 + it : b1 + it - (e0 - b0)) * kF32Tile;
     __syncthreads();
     load_f32_pair(sK, sV, k, v, s_l, n0, p.Lk, p.D);
     __syncthreads();
     float sc = 0.f;  // lane j scores key n0 + j
     for (int d = 0; d < p.D; ++d) sc += sQ[warp][d] * sK[lane][d];
-    sc = n0 + lane < p.Lk ? sc * p.scale : -INFINITY;
+    const bool vis = n0 + lane < p.Lk && band_tokens_visible(band, row, n0 + lane);
+    sc = vis ? sc * p.scale : -INFINITY;
     float mx = sc;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    const float pj = expf(sc - m_new);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet
+    const float alpha = expf(m_run - m_use);
+    const float pj = expf(sc - m_use);
     float psum = pj;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
@@ -587,7 +845,8 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_fwd_lse_f32(const Params 
   if (lane == 0) p.lse[(static_cast<long long>(b) * p.H + h) * p.Lq + row] = m_run + logf(l_run);
 }
 
-__global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dq_f32(const Params p) {
+__global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dq_f32(const Params p,
+                                                                  const Band band) {
   __shared__ float sQ[kF32Warps][kF32MaxD];
   __shared__ float sDO[kF32Warps][kF32MaxD];
   __shared__ float sK[kF32Tile][kF32MaxD + 1];
@@ -615,7 +874,12 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dq_f32(const Params p
   const float dlt = row_ok ? p.delta[bh * p.Lq + row] : 0.f;
   float acc[kF32MaxD / 32] = {0.f, 0.f, 0.f, 0.f};
 
-  for (int n0 = 0; n0 < p.Lk; n0 += kF32Tile) {
+  const int q0 = blockIdx.x * kF32Warps;
+  int b0, e0, b1, e1;
+  band_key_tiles(band, p.Lk, q0, min(q0 + kF32Warps, p.Lq) - 1, kF32Tile, b0, e0, b1, e1);
+  const int n_tiles = (e0 - b0) + (e1 - b1);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int n0 = (it < e0 - b0 ? b0 + it : b1 + it - (e0 - b0)) * kF32Tile;
     __syncthreads();
     load_f32_pair(sK, sV, k, v, s_l, n0, p.Lk, p.D);
     __syncthreads();
@@ -624,7 +888,8 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dq_f32(const Params p
       sc += sQ[warp][d] * sK[lane][d];
       dpj += sDO[warp][d] * sV[lane][d];
     }
-    const float pj = n0 + lane < p.Lk ? expf(sc * p.scale - lse) : 0.f;
+    const bool vis = n0 + lane < p.Lk && band_tokens_visible(band, row, n0 + lane);
+    const float pj = vis ? expf(sc * p.scale - lse) : 0.f;
     const float ds = pj * (dpj - dlt);
     for (int j = 0; j < kF32Tile; ++j) {
       const float dsj = __shfl_sync(0xffffffffu, ds, j);
@@ -641,7 +906,8 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dq_f32(const Params p
   }
 }
 
-__global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dkdv_f32(const Params p) {
+__global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dkdv_f32(const Params p,
+                                                                    const Band band) {
   __shared__ float sK[kF32Warps][kF32MaxD];
   __shared__ float sV[kF32Warps][kF32MaxD];
   __shared__ float sQ[kF32Tile][kF32MaxD + 1];
@@ -670,7 +936,11 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dkdv_f32(const Params
   float dk[kF32MaxD / 32] = {0.f, 0.f, 0.f, 0.f};
   float dv[kF32MaxD / 32] = {0.f, 0.f, 0.f, 0.f};
 
-  for (int m0 = 0; m0 < p.Lq; m0 += kF32Tile) {
+  const int k0 = blockIdx.x * kF32Warps;
+  int mb, me;
+  band_query_tiles(band, p.Lq, k0, min(k0 + kF32Warps, p.Lk) - 1, kF32Tile, mb, me);
+  for (int mt = mb; mt < me; ++mt) {
+    const int m0 = mt * kF32Tile;
     __syncthreads();
     load_f32_pair(sQ, sDO, q, dO, s_l, m0, p.Lq, p.D);
     if (threadIdx.x < kF32Tile) {
@@ -684,7 +954,8 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dkdv_f32(const Params
       sc += sQ[lane][d] * sK[warp][d];
       dpi += sDO[lane][d] * sV[warp][d];
     }
-    const float pi = m0 + lane < p.Lq ? expf(sc * p.scale - sLse[lane]) : 0.f;
+    const bool vis = m0 + lane < p.Lq && band_tokens_visible(band, m0 + lane, key);
+    const float pi = vis ? expf(sc * p.scale - sLse[lane]) : 0.f;
     const float ds = pi * (dpi - sDelta[lane]);
     for (int j = 0; j < kF32Tile; ++j) {
       const float pjj = __shfl_sync(0xffffffffu, pi, j);
@@ -711,34 +982,40 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dkdv_f32(const Params
 
 // ------------------------------- launchers -------------------------------
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, const Params& p) {
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
+                   const Args&... args) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
+// hw > 0: the band kernels (K4-band); else the full-attention ones (K4)
 template <int DP, bool VEC>
-cudaError_t fwd_bf16(const Params& p, cudaStream_t s) {
+cudaError_t fwd_bf16(const Params& p, const Band& band, cudaStream_t s) {
   const size_t smem = static_cast<size_t>(kBlockM + 2 * kBlockN) * (DP + 8) * sizeof(__nv_bfloat16);
-  return launch(attn_fwd_lse_bf16<DP, VEC>, dim3((p.Lq + kBlockM - 1) / kBlockM, p.H, p.B),
-                smem, s, p);
+  const dim3 grid((p.Lq + kBlockM - 1) / kBlockM, p.H, p.B);
+  if (band.hw > 0) return launch(attn_fwd_lse_bf16_band<DP, VEC>, grid, smem, s, p, band);
+  return launch(attn_fwd_lse_bf16<DP, VEC>, grid, smem, s, p);
 }
 
 template <int DP, bool VEC>
-cudaError_t bwd_bf16(const Params& p, cudaStream_t s) {
+cudaError_t bwd_bf16(const Params& p, const Band& band, cudaStream_t s) {
   const size_t pitch = (DP + 8) * sizeof(__nv_bfloat16);
   const size_t smem_dkdv = (2 * kBlockN + 2 * kBlockQ) * pitch + 2 * kBlockQ * sizeof(float);
-  cudaError_t err = launch(attn_bwd_dkdv_bf16<DP, VEC>,
-                           dim3((p.Lk + kBlockN - 1) / kBlockN, p.H, p.B), smem_dkdv, s, p);
+  const dim3 grid_dkdv((p.Lk + kBlockN - 1) / kBlockN, p.H, p.B);
+  cudaError_t err =
+      band.hw > 0 ? launch(attn_bwd_dkdv_bf16_band<DP, VEC>, grid_dkdv, smem_dkdv, s, p, band)
+                  : launch(attn_bwd_dkdv_bf16<DP, VEC>, grid_dkdv, smem_dkdv, s, p);
   if (err != cudaSuccess) return err;
   const size_t smem_dq = (2 * kBlockM + 2 * kBlockN) * pitch;
-  return launch(attn_bwd_dq_bf16<DP, VEC>, dim3((p.Lq + kBlockM - 1) / kBlockM, p.H, p.B),
-                smem_dq, s, p);
+  const dim3 grid_dq((p.Lq + kBlockM - 1) / kBlockM, p.H, p.B);
+  if (band.hw > 0) return launch(attn_bwd_dq_bf16_band<DP, VEC>, grid_dq, smem_dq, s, p, band);
+  return launch(attn_bwd_dq_bf16<DP, VEC>, grid_dq, smem_dq, s, p);
 }
 
 bool bad_shape(int B, int Lq, int Lk, int H, int D) {
@@ -746,16 +1023,37 @@ bool bad_shape(int B, int Lq, int Lk, int H, int D) {
          B > 65535;
 }
 
+// band: null (full attention) or {hw, window, prefix}, hw > 0
+bool bad_band(const int* band) {
+  return band != nullptr && (band[0] <= 0 || band[1] < 0 || band[2] < 0);
+}
+
+Band make_band(const int* band, void* visited) {
+  Band b;
+  b.hw = band != nullptr ? band[0] : 0;
+  b.window = band != nullptr ? band[1] : 0;
+  b.prefix = band != nullptr ? band[2] : 0;
+  b.visited = static_cast<unsigned long long*>(visited);
+  return b;
+}
+
 }  // namespace
 
 // Forward with logsumexp. q (B, Lq, H, D), k/v (B, Lk, H, D), out like q, all
 // contiguous; lse (B, H, Lq) fp32. bf16 != 0: bf16 tensors (tensor cores),
 // else fp32 (CUDA cores). vec: nonzero when D % 8 == 0 and every tensor is
-// 16-byte aligned (bf16 only). Returns a cudaError_t (0 on success).
+// 16-byte aligned (bf16 only). band: null for full attention, else {hw,
+// window, prefix} (K4-band's forward); visited: null, or one device counter
+// that a bf16 band call adds its visited 64-key tiles to. Returns a
+// cudaError_t (0 on success).
 extern "C" int gen3c_attention_fwd_lse(const void* q, const void* k, const void* v, void* out,
                                        float* lse, int B, int Lq, int Lk, int H, int D,
-                                       float scale, int bf16, int vec, void* stream) {
-  if (bad_shape(B, Lq, Lk, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+                                       float scale, int bf16, int vec, const int* band,
+                                       void* visited, void* stream) {
+  if (bad_shape(B, Lq, Lk, H, D) || bad_band(band)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Band bd = make_band(band, visited);
   Params p = {};
   p.q = q;
   p.k = k;
@@ -770,23 +1068,35 @@ extern "C" int gen3c_attention_fwd_lse(const void* q, const void* k, const void*
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16) {
-    attn_fwd_lse_f32<<<dim3((Lq + kF32Warps - 1) / kF32Warps, H, B), kF32Warps * 32, 0, s>>>(p);
+    attn_fwd_lse_f32<<<dim3((Lq + kF32Warps - 1) / kF32Warps, H, B), kF32Warps * 32, 0, s>>>(
+        p, bd);
     return static_cast<int>(cudaGetLastError());
   }
   const bool vv = vec != 0;
-  if (D <= 32) return static_cast<int>(vv ? fwd_bf16<32, true>(p, s) : fwd_bf16<32, false>(p, s));
-  if (D <= 64) return static_cast<int>(vv ? fwd_bf16<64, true>(p, s) : fwd_bf16<64, false>(p, s));
-  return static_cast<int>(vv ? fwd_bf16<128, true>(p, s) : fwd_bf16<128, false>(p, s));
+  if (D <= 32) {
+    return static_cast<int>(vv ? fwd_bf16<32, true>(p, bd, s) : fwd_bf16<32, false>(p, bd, s));
+  }
+  if (D <= 64) {
+    return static_cast<int>(vv ? fwd_bf16<64, true>(p, bd, s) : fwd_bf16<64, false>(p, bd, s));
+  }
+  return static_cast<int>(vv ? fwd_bf16<128, true>(p, bd, s) : fwd_bf16<128, false>(p, bd, s));
 }
 
-// Backward (K4): dq, dk, dv (like q, k, v, contiguous) from q, k, v, the
-// forward's out and lse, and dout (like out). delta is (B, H, Lq) fp32 scratch.
-// Three launches: Delta, dK/dV, dQ. Arguments as gen3c_attention_fwd_lse.
+// Backward (K4, or K4-band with a band): dq, dk, dv (like q, k, v, contiguous)
+// from q, k, v, the forward's out and lse, and dout (like out). delta is (B,
+// H, Lq) fp32 scratch. Three launches: Delta, dK/dV, dQ. Arguments as
+// gen3c_attention_fwd_lse, but visited is null or two device counters: a bf16
+// band call adds the 32-query tiles its dK/dV CTAs visit to [0] and the
+// 64-key tiles its dQ CTAs visit to [1].
 extern "C" int gen3c_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, int B, int Lq, int Lk, int H, int D,
-                                   float scale, int bf16, int vec, void* stream) {
-  if (bad_shape(B, Lq, Lk, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+                                   float scale, int bf16, int vec, const int* band,
+                                   void* visited, void* stream) {
+  if (bad_shape(B, Lq, Lk, H, D) || bad_band(band)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Band bd = make_band(band, visited);
   Params p = {};
   p.q = q;
   p.k = k;
@@ -816,14 +1126,18 @@ extern "C" int gen3c_attention_bwd(const void* q, const void* k, const void* v, 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!bf16) {
     const int threads = kF32Warps * 32;
-    attn_bwd_dkdv_f32<<<dim3((Lk + kF32Warps - 1) / kF32Warps, H, B), threads, 0, s>>>(p);
+    attn_bwd_dkdv_f32<<<dim3((Lk + kF32Warps - 1) / kF32Warps, H, B), threads, 0, s>>>(p, bd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dq_f32<<<dim3((Lq + kF32Warps - 1) / kF32Warps, H, B), threads, 0, s>>>(p);
+    attn_bwd_dq_f32<<<dim3((Lq + kF32Warps - 1) / kF32Warps, H, B), threads, 0, s>>>(p, bd);
     return static_cast<int>(cudaGetLastError());
   }
   const bool vv = vec != 0;
-  if (D <= 32) return static_cast<int>(vv ? bwd_bf16<32, true>(p, s) : bwd_bf16<32, false>(p, s));
-  if (D <= 64) return static_cast<int>(vv ? bwd_bf16<64, true>(p, s) : bwd_bf16<64, false>(p, s));
-  return static_cast<int>(vv ? bwd_bf16<128, true>(p, s) : bwd_bf16<128, false>(p, s));
+  if (D <= 32) {
+    return static_cast<int>(vv ? bwd_bf16<32, true>(p, bd, s) : bwd_bf16<32, false>(p, bd, s));
+  }
+  if (D <= 64) {
+    return static_cast<int>(vv ? bwd_bf16<64, true>(p, bd, s) : bwd_bf16<64, false>(p, bd, s));
+  }
+  return static_cast<int>(vv ? bwd_bf16<128, true>(p, bd, s) : bwd_bf16<128, false>(p, bd, s));
 }

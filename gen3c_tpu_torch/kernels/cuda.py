@@ -39,12 +39,14 @@ def library() -> ctypes.CDLL:
             lib.gen3c_quant_rows.argtypes = [_P, _L, _I, _I, _I, _P, _P, _P]
             lib.gen3c_w8a8_gemm.argtypes = [_P, _L, _P, _L, _P, _P, _P, _I, _I, _I,
                                             _I, _I, _P]
-            shape = [_I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+            shape = [_I, _I, _I, _I, _I, ctypes.c_float, _I, _I, ctypes.POINTER(_I), _P, _P]
             lib.gen3c_attention_fwd_lse.argtypes = [_P] * 5 + shape
             lib.gen3c_attention_bwd.argtypes = [_P] * 10 + shape
+            lib.gen3c_mma_probe.argtypes = [_P, _P, _P] + [_I] * 7 + [_P]
             for fn in (lib.gen3c_attention_bf16, lib.gen3c_attention_f32, lib.gen3c_splat,
                        lib.gen3c_quant_rows, lib.gen3c_w8a8_gemm,
-                       lib.gen3c_attention_fwd_lse, lib.gen3c_attention_bwd):
+                       lib.gen3c_attention_fwd_lse, lib.gen3c_attention_bwd,
+                       lib.gen3c_mma_probe):
                 fn.restype = _I
             _lib = lib
         return _lib
@@ -77,6 +79,30 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, 
     return B, Lq, k.shape[1], H, D
 
 
+def _band_arg(band: Optional[Tuple[int, int, int]], Lq: int, Lk: int):
+    """The kernels' {hw, window, prefix} array for a band (None: full
+    attention). Every query row must see at least one key."""
+    if band is None:
+        return None
+    hw, window, prefix = (int(x) for x in band)
+    if hw <= 0 or window < 0 or prefix < 0:
+        raise ValueError(f"attention kernel: bad band {band}")
+    if prefix == 0 and ((Lq - 1) // hw - window) * hw >= Lk:
+        raise ValueError(f"attention kernel: band {band} leaves queries of Lq={Lq} "
+                         f"no key among Lk={Lk}")
+    return (_I * 3)(hw, window, prefix)
+
+
+def _visited_ptr(visited: Optional[torch.Tensor], n: int):
+    """The device address of ``n`` int64 tile counters (or None)."""
+    if visited is None:
+        return None
+    if not (visited.is_cuda and visited.dtype == torch.int64 and visited.numel() == n
+            and visited.is_contiguous()):
+        raise ValueError(f"attention kernel: visited must be {n} contiguous int64 on the card")
+    return visited.data_ptr()
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               band: Optional[Tuple[int, int, int]] = None,
               visited: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -89,18 +115,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int64 CUDA tensor, receives the number of key tiles a band call visits.
     """
     B, Lq, Lk, H, D = _check_qkv(q, k, v)
-    band_arg = None
-    if band is not None:
-        hw, window, prefix = (int(x) for x in band)
-        if hw <= 0 or window < 0 or prefix < 0:
-            raise ValueError(f"attention kernel: bad band {band}")
-        if prefix == 0 and ((Lq - 1) // hw - window) * hw >= Lk:
-            raise ValueError(f"attention kernel: band {band} leaves queries of Lq={Lq} "
-                             f"no key among Lk={Lk}")
-        band_arg = (_I * 3)(hw, window, prefix)
-    if visited is not None and not (visited.is_cuda and visited.dtype == torch.int64
-                                    and visited.numel() == 1):
-        raise ValueError("attention kernel: visited must be one int64 on the card")
+    band_arg = _band_arg(band, Lq, Lk)
+    visited_ptr = _visited_ptr(visited, 1)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(
@@ -111,8 +127,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(D)
     lib = library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            B, Lq, Lk, H, D, scale, band_arg,
-            None if visited is None else visited.data_ptr())
+            B, Lq, Lk, H, D, scale, band_arg, visited_ptr)
     if q.dtype == torch.bfloat16:
         vec = D % 8 == 0 and all(
             t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
@@ -137,26 +152,40 @@ def _training_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return (q, k, v), (B, Lq, Lk, H, D), bf16, vec
 
 
-def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      band: Optional[Tuple[int, int, int]] = None,
+                      visited: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """gen3c_attention_fwd_lse: attention's output (B, Lq, H, D) and the fp32
     row logsumexp of the scaled logits (B, H, Lq), the forward that K4's
-    backward needs. Contiguous copies are made of strided inputs."""
+    backward needs. Contiguous copies are made of strided inputs. band as
+    ``attention`` (the band forward of K4-band, K3's output bit for bit);
+    visited, one int64 on the card, receives a bf16 band call's key tiles."""
     (q, k, v), (B, Lq, Lk, H, D), bf16, vec = _training_layout(q, k, v)
+    band_arg = _band_arg(band, Lq, Lk)
+    visited_ptr = _visited_ptr(visited, 1)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     _check(library().gen3c_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B, Lq, Lk, H, D, 1.0 / math.sqrt(D), int(bf16), int(vec), _stream(q)), "attention_fwd_lse")
+        B, Lq, Lk, H, D, 1.0 / math.sqrt(D), int(bf16), int(vec), band_arg, visited_ptr,
+        _stream(q)), "attention_fwd_lse")
     return out, lse
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                  dout: torch.Tensor, lse: torch.Tensor
+                  dout: torch.Tensor, lse: torch.Tensor,
+                  band: Optional[Tuple[int, int, int]] = None,
+                  visited: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """gen3c_attention_bwd (K4): (dq, dk, dv) like (q, k, v) from the
-    forward's out and lse and the upstream gradient dout (like out)."""
+    """gen3c_attention_bwd (K4; K4-band with a band): (dq, dk, dv) like (q,
+    k, v) from the forward's out and lse and the upstream gradient dout
+    (like out). visited, two int64 on the card, receives a bf16 band
+    call's visited tiles: [0] the 32-query tiles of its dK/dV kernel, [1]
+    the 64-key tiles of its dQ kernel."""
     (q, k, v), (B, Lq, Lk, H, D), bf16, vec = _training_layout(q, k, v)
+    band_arg = _band_arg(band, Lq, Lk)
+    visited_ptr = _visited_ptr(visited, 2)
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype \
             or dout.dtype != q.dtype or out.device != q.device or dout.device != q.device:
         raise ValueError(f"attention backward: out {tuple(out.shape)} {out.dtype} and dout "
@@ -171,7 +200,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     _check(library().gen3c_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, Lq, Lk, H, D, 1.0 / math.sqrt(D), int(bf16), int(vec), _stream(q)), "attention_bwd")
+        B, Lq, Lk, H, D, 1.0 / math.sqrt(D), int(bf16), int(vec), band_arg, visited_ptr,
+        _stream(q)), "attention_bwd")
     return dq, dk, dv
 
 
@@ -275,3 +305,37 @@ def splat_accumulate(
     )
     _check(rc, "splat")
     return acc
+
+
+def mma_probe_cols(k: int, element_size: int) -> int:
+    """The output columns of a P1 CTA: 64 if its 64 rows of A and 64 of B^T
+    (K elements and 16 bytes of padding each) fit in shared memory, else 32."""
+    return 64 if (64 + 64) * (k * element_size + 16) <= 227 * 1024 else 32
+
+
+def mma_probe(a: torch.Tensor, b: torch.Tensor, reps: int,
+              ctas_per_sm: int = 1) -> Tuple[torch.Tensor, int]:
+    """gen3c_mma_probe (P1): sum over i < reps of (a + i % 2) @ b for a (M,
+    K) and b (K, N), both bf16 (fp32 out) or both int8 (int32 out), K a
+    multiple of 32 up to 1024. Returns (out, the CTAs launched): at least
+    ``ctas_per_sm`` CTAs per SM, each holding a 64-row block of the output
+    with its operands in shared memory (``mma_probe_cols`` columns); a
+    small output is computed several times over."""
+    if not (a.is_cuda and b.device == a.device) or a.dtype != b.dtype:
+        raise ValueError("mma probe: a and b must share one CUDA device and dtype")
+    if a.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"mma probe takes bf16 or int8, got {a.dtype}")
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"mma probe: bad shapes {tuple(a.shape)} x {tuple(b.shape)}")
+    (M, K), N = a.shape, b.shape[1]
+    if K % 32 or not 0 < K <= 1024 or M == 0 or N == 0 or reps < 0 or ctas_per_sm < 1:
+        raise ValueError(f"mma probe takes K % 32 == 0, K <= 1024 (got M={M} K={K} N={N}), "
+                         f"reps >= 0 (got {reps})")
+    int8 = a.dtype == torch.int8
+    a, bT = a.contiguous(), b.t().contiguous()
+    out = torch.empty((M, N), dtype=torch.int32 if int8 else torch.float32, device=a.device)
+    bn = mma_probe_cols(K, a.element_size())
+    min_ctas = ctas_per_sm * torch.cuda.get_device_properties(a.device).multi_processor_count
+    _check(library().gen3c_mma_probe(a.data_ptr(), bT.data_ptr(), out.data_ptr(), M, N, K,
+                                     int(reps), int(int8), bn, min_ctas, _stream(a)), "mma_probe")
+    return out, max(-(-M // 64) * -(-N // bn), min_ctas)

@@ -17,6 +17,8 @@ non-Pallas paths:
   * ``splat_reference``: gen3c_tpu/ops/geometry.py ``bilinear_splatting``
     (:205-316) with the scatter-add as ``index_add_`` (the ``.at[].add`` of
     :299-300).
+  * ``mma_probe_reference``: the loop of scripts/probe_int8_attention.py's
+    Pallas kernel (:37-62), P1's plain version.
 """
 
 from __future__ import annotations
@@ -110,7 +112,7 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     dK += scale dS^T Q. The products take their operands in the input
     dtype (P and dS rounded to it, as the kernel rounds them) and sum in
     fp32; dk and dv accumulate over chunks in fp32 and are cast once. The
-    band (CPU path only: K4 has no band yet) masks as the forward does.
+    band masks as the forward does (K4-band's plain version).
     """
     Lq = q.shape[1]
     dt = q.dtype
@@ -184,6 +186,26 @@ def w8a8_matmul_reference(x: torch.Tensor, qweight: torch.Tensor, wscale: torch.
     acc = int8_matmul_reference(xq, qweight)
     out = acc.float().mul_(xscale[:, None]).mul_(wscale.float()[None, :])
     return out.to(out_dtype).reshape(*x.shape[:-1], qweight.shape[0])
+
+
+def mma_probe_reference(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
+    """sum over i < reps of (a + i % 2) @ b, a (M, K), b (K, N): the loop of
+    scripts/probe_int8_attention.py's Pallas kernel (P1's plain version).
+    bf16: a + 1 rounded to bf16, each product exact in fp32 and summed in
+    fp32 (in another order than the kernel's). int8: a + 1 wraps in int8,
+    the products are exact (``int8_matmul_reference``) and summed in int32,
+    wrapping as the kernel's int32 MMA sums do."""
+    if a.dtype == torch.int8:
+        bT = b.t().contiguous()
+        acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int32, device=a.device)
+        for i in range(reps):
+            acc += int8_matmul_reference((a.to(torch.int16) + i % 2).to(torch.int8), bT)
+        return acc
+    bf = b.float()
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32, device=a.device)
+    for i in range(reps):
+        acc += (a.float() + i % 2).to(a.dtype).float() @ bf
+    return acc
 
 
 def splat_max_logd(depth: torch.Tensor, group: Optional[int] = None) -> torch.Tensor:

@@ -41,7 +41,7 @@ class FileDepthEstimator:
             data = np.load(self.path)
             depth = data[list(data.keys())[0]].astype(np.float32)
         elif ext == ".exr":
-            from gen3c_tpu.utils.exr import read_exr_depth
+            from gen3c_tpu_torch.utils.exr import read_exr_depth
 
             with open(self.path, "rb") as f:
                 depth = read_exr_depth(f.read())

@@ -20,7 +20,6 @@ import os
 import numpy as np
 import torch
 
-from gen3c_tpu.utils import io as io_utils
 from gen3c_tpu_torch.cache.cache3d import Cache3DBuffer
 from gen3c_tpu_torch.ops.camera import CAMERA_ROTATIONS, TRAJECTORY_TYPES, generate_camera_trajectory
 from gen3c_tpu_torch.pipelines.chunked import compose_buffer_video, run_chunked_generation
@@ -28,6 +27,7 @@ from gen3c_tpu_torch.pipelines.depth import make_depth_estimator
 from gen3c_tpu_torch.pipelines.factory import PRESETS, apply_perf_preset, build_gen3c_model
 from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
 from gen3c_tpu_torch.utils import log
+from gen3c_tpu_torch.utils.io import read_image_bcthw, read_prompts_from_file, save_video
 
 
 def create_parser() -> argparse.ArgumentParser:
@@ -133,23 +133,6 @@ def check_ported(args) -> None:
             raise NotImplementedError(f"{flag} is not ported to gen3c_tpu_torch yet")
 
 
-def save_video(video: np.ndarray, fps: int, filepath: str) -> str:
-    """gen3c_tpu.utils.io.save_video: an mp4 through imageio's ffmpeg, or,
-    where ffmpeg is unavailable, an MJPEG AVI beside it. A machine without
-    imageio itself takes that AVI route too (save_video imports imageio
-    before it can get there). Returns the written path."""
-    try:
-        import imageio  # noqa: F401
-    except ImportError:
-        from gen3c_tpu.utils.mjpeg_avi import write_mjpeg_avi
-
-        avi_path = os.path.splitext(filepath)[0] + ".avi"
-        os.makedirs(os.path.dirname(os.path.abspath(avi_path)), exist_ok=True)
-        write_mjpeg_avi(avi_path, video, fps=fps, quality=75)  # save_video's quality 5
-        return avi_path
-    return io_utils.save_video(video, fps, filepath)
-
-
 def validate_args(args, chunk_size: int) -> None:
     n = args.num_video_frames
     if n < chunk_size or (n - 1) % (chunk_size - 1):
@@ -173,7 +156,7 @@ def demo(args) -> str:
         guidance_interval=tuple(args.guidance_interval) if args.guidance_interval else None,
         cfg_rescale=args.cfg_rescale)
     if args.batch_input_path:
-        inputs = io_utils.read_prompts_from_file(args.batch_input_path)
+        inputs = read_prompts_from_file(args.batch_input_path)
     else:
         inputs = [{"prompt": args.prompt, "visual_input": args.input_image_path}]
     save_path = ""
@@ -186,7 +169,7 @@ def demo(args) -> str:
 
 def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name) -> str:
     h, w = preset.height, preset.width
-    image_b3thw = io_utils.read_image_bcthw(image_path, h, w)
+    image_b3thw = read_image_bcthw(image_path, h, w)
     image_hwc01 = (image_b3thw[0, :, 0].transpose(1, 2, 0) + 1.0) / 2.0
     estimator = make_depth_estimator(args.depth_source, args.depth_path)
     depth, intrinsics, _ = estimator(image_hwc01)

@@ -1,0 +1,161 @@
+"""Two versions of the training attention kernels side by side, on one card.
+
+A change to ``kernels/csrc/attention_bwd.cu`` that should not change K4's or
+K4-band's code or results (a refactor) is held to the version before it:
+
+    python -m gen3c_tpu_torch.scripts.compare_attention_builds ptx OLD.cu NEW.cu
+        compiles both sources with kernels/build.py's flags, to PTX and
+        through ptxas -v, and prints for every kernel entry whether its PTX
+        is the same (line information and the anonymous namespace's hash
+        aside) and its registers and stack, spill-store and spill-load
+        bytes in each version.
+
+    PYTHONPATH=<checkout> python gen3c_tpu_torch/scripts/compare_attention_builds.py run TAG
+        runs the K4 and K4-band of the gen3c_tpu_torch found first on the
+        path at the GEN3C-7B self shape (1, 56,320, 32, 128) bf16, full and
+        with the band 3,520 / 2 / 1, and at two ragged bf16 shapes, and
+        prints one JSON line: a hash of every output (forward, lse, dq, dk,
+        dv) and CUDA-event milliseconds (median of 3 after a warm-up).
+
+Run ``run`` for the old and the new checkout in one call, in the order old,
+new, new, old: equal hashes show the same bits, and the times compare.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+_NAMESPACE = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+
+
+def _ptx_entries(ptx: str) -> dict:
+    """{entry name: its PTX lines, without line information or comments}."""
+    out, cur = {}, None
+    for line in ptx.splitlines():
+        m = re.match(r"\s*\.(?:visible\s+)?\.?entry\s+(\S+?)\(", line)
+        if m:
+            cur = _NAMESPACE.sub("NS", m.group(1))
+            out[cur] = []
+            continue
+        s = line.strip()
+        if cur is not None and s and not s.startswith((".loc", ".file", "//")):
+            out[cur].append(_NAMESPACE.sub("NS", s))
+    return out
+
+
+def _ptxas_counts(log: str) -> dict:
+    """{entry name: (registers, stack, spill-store, spill-load bytes)}."""
+    out, cur, frame = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = _NAMESPACE.sub("NS", m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), *frame)
+            cur = None
+    return out
+
+
+def compare_ptx(old: str, new: str) -> bool:
+    """Print the per-entry comparison; True when every entry's registers and
+    spills are the same."""
+    from gen3c_tpu_torch.kernels.build import NVCC_FLAGS, find_nvcc
+
+    flags = [f for f in NVCC_FLAGS if f != "--ptxas-options=-v"]
+    nvcc = find_nvcc()
+    ptx, counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, src in (("old", old), ("new", new)):
+            out = Path(tmp) / f"{tag}.ptx"
+            subprocess.run([nvcc, *flags, "-ptx", "-o", str(out), src], check=True)
+            log = subprocess.run([nvcc, *flags, "--ptxas-options=-v", "-c", "-o",
+                                  str(Path(tmp) / f"{tag}.o"), src],
+                                 check=True, capture_output=True, text=True)
+            ptx[tag] = _ptx_entries(out.read_text())
+            counts[tag] = _ptxas_counts(log.stdout + log.stderr)
+    same_counts = True
+    for name in sorted(set(ptx["old"]) | set(ptx["new"])):
+        a, b = counts["old"].get(name), counts["new"].get(name)
+        same_counts &= a == b
+        same_ptx = ptx["old"].get(name) == ptx["new"].get(name)
+        print(json.dumps({"entry": name, "ptx_identical": same_ptx,
+                          "regs_stack_spills_old": a, "regs_stack_spills_new": b}))
+    print(json.dumps({"entries": len(ptx["new"]), "counts_identical": same_counts}))
+    return same_counts
+
+
+def _hash(*tensors) -> str:
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def run(tag: str) -> dict:
+    """The K4 / K4-band hashes and times of the gen3c_tpu_torch on the path."""
+    import torch
+
+    import gen3c_tpu_torch
+    from gen3c_tpu_torch.kernels import cuda
+
+    def ms(fn) -> float:
+        fn()
+        times = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[1]
+
+    def inputs(shape_q, shape_kv, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        q, do = (torch.randn(shape_q, generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(shape_kv, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        return q, k, v, do
+
+    res = {"tag": tag, "package": str(Path(gen3c_tpu_torch.__file__).parent)}
+    q, k, v, do = inputs((1, 56320, 32, 128), (1, 56320, 32, 128), 0)
+    for name, band in (("k4", None), ("k4band", (3520, 2, 1))):
+        out, lse = cuda.attention_fwd_lse(q, k, v, band)
+        res[f"{name}_hash"] = _hash(out, lse, *cuda.attention_bwd(q, k, v, out, do, lse, band))
+        res[f"{name}_bwd_ms"] = ms(lambda: cuda.attention_bwd(q, k, v, out, do, lse, band))
+        res[f"{name}_fwd_lse_ms"] = ms(lambda: cuda.attention_fwd_lse(q, k, v, band))
+    del q, k, v, do, out, lse
+    for name, lk, band in (("ragged_band", 1000, (37, 1, 2)), ("ragged_k4", 333, None)):
+        q, k, v, do = inputs((2, 1000, 4, 64), (2, lk, 4, 64), 1)
+        out, lse = cuda.attention_fwd_lse(q, k, v, band)
+        res[f"{name}_hash"] = _hash(out, lse, *cuda.attention_bwd(q, k, v, out, do, lse, band))
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if len(argv) == 3 and argv[0] == "ptx":
+        return 0 if compare_ptx(argv[1], argv[2]) else 1
+    if len(argv) == 2 and argv[0] == "run":
+        run(argv[1])
+        return 0
+    raise SystemExit(__doc__)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,18 +1,139 @@
-"""Training data helpers (the part of gen3c_tpu/training/datasets.py the
-port needs so far; that module imports jax.numpy, so this is a port, not
-an import). ``Gen3CClipDataset`` is not ported yet."""
+"""Training data: GEN3C RGBD clips -> diffusion training batches (port of
+gen3c_tpu/training/datasets.py :27-142 and its ``PrefetchIterator``).
+
+A packaged clip (``pipelines.data_loaders``) becomes one batch in the
+train_step format, on the model's device:
+
+  x0             (B, 16, T', H', W')   clean video latent (sigma_data-scaled)
+  crossattn_emb  (B, 512, 1024)        T5 embedding (or zeros)
+  extra_channels (B, 65, T', H', W')   [condition mask | pose latents]
+
+The clip's first frame seeds a ``Cache3DBuffer``, the clip's own cameras
+render the warp buffers (K5), and the VAE encodes the clip and the buffers.
+The video-only and multiview datasets wait for their slices.
+"""
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
+from typing import Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from gen3c_tpu_torch.utils import log
+
+
+def _to_signed_range(video: np.ndarray, path: str) -> np.ndarray:
+    """Pixels to [-1, 1]: [0, 255] is scaled, [0, 1] shifted (with a
+    warning: a half-range feed to the VAE would corrupt training), signed
+    data passes through."""
+    if video.max() > 1.5:
+        return video / 127.5 - 1.0
+    if video.min() >= 0.0 and video.max() <= 1.0:
+        log.warning(f"{path}: frames look [0, 1]-normalized; mapping to [-1, 1]")
+        return video * 2.0 - 1.0
+    return video
+
+
+@torch.no_grad()
+def build_gen3c_train_batch(
+    model,
+    image: np.ndarray,  # (F, 3, H, W) in [-1, 1]
+    depth: np.ndarray,  # (F, 1, H, W)
+    w2c: np.ndarray,  # (F, 4, 4)
+    intrinsics: np.ndarray,  # (F, 3, 3)
+    t5_embedding: Optional[np.ndarray] = None,  # (512, 1024)
+    mask: Optional[np.ndarray] = None,
+    num_condition_t: int = 1,
+    seed: int = 0,
+) -> dict:
+    """One training sample from an RGBD clip of ``model.chunk_size`` frames
+    (a models.gen3c.Gen3CModel: only its VAE is used): the first frame
+    seeds the cache, the clip's cameras render the warps, everything is
+    VAE-encoded. Tensors on the model's device, fp32, batch 1."""
+    from gen3c_tpu_torch.cache.cache3d import Cache3DBuffer
+
+    F = image.shape[0]
+    if F != model.chunk_size:
+        raise ValueError(f"a clip of {F} frames; the model takes {model.chunk_size}")
+    dev = model.device
+    cache = Cache3DBuffer(
+        frame_buffer_max=model.frame_buffer_max, seed=seed,
+        input_image=torch.from_numpy(image[:1]), input_depth=torch.from_numpy(depth[:1]),
+        input_mask=torch.from_numpy(mask[:1]) if mask is not None else None,
+        input_w2c=torch.from_numpy(w2c[:1]), input_intrinsics=torch.from_numpy(intrinsics[:1]),
+        device=dev)
+    warp_images, warp_masks = cache.render_cache(torch.from_numpy(w2c[None]),
+                                                 torch.from_numpy(intrinsics[None]))
+    video = torch.from_numpy(np.ascontiguousarray(image.transpose(1, 0, 2, 3)[None])).to(dev)
+    x0 = model.encode(video)
+    del video
+    pose_latent = model.encode_warped_frames(warp_images, warp_masks)
+    _, _, T, Hl, Wl = x0.shape
+    indicator = torch.zeros((1, 1, T, 1, 1), dtype=x0.dtype, device=dev)
+    indicator[:, :, :num_condition_t] = 1.0
+    extra = torch.cat([indicator.expand(1, 1, T, Hl, Wl), pose_latent.to(x0.dtype)], dim=1)
+    if t5_embedding is None:
+        t5_embedding = np.zeros((512, 1024), np.float32)
+    return {"x0": x0.float(),
+            "crossattn_emb": torch.from_numpy(np.asarray(t5_embedding, np.float32)[None]).to(dev),
+            "extra_channels": extra.float()}
+
+
+class Gen3CClipDataset:
+    """Training batches over a directory of packaged clips, for ever.
+
+    Layout: <root>/*.npz or *.pt (``data_loaders.load_data_packaged_format``),
+    each with an optional sibling <clip>.t5.npy embedding (the precompute
+    pattern of scripts/get_t5_embeddings.py). Each sample is a random clip
+    and a random window of ``model.chunk_size`` frames in it, from a numpy
+    RandomState(seed), as gen3c_tpu draws them."""
+
+    def __init__(self, root: str, model, batch_size: int = 1, seed: int = 0):
+        self.root = root
+        self.model = model
+        self.batch_size = batch_size
+        self.clips: List[str] = sorted(os.path.join(root, f) for f in os.listdir(root)
+                                       if f.endswith((".npz", ".pt")))
+        if not self.clips:
+            raise FileNotFoundError(f"no clips (*.npz, *.pt) under {root}")
+        self.rng = np.random.RandomState(seed)
+        log.info(f"Gen3CClipDataset: {len(self.clips)} clips in {root}")
+
+    def _load_sample(self, path: str) -> dict:
+        from gen3c_tpu_torch.pipelines.data_loaders import load_data_packaged_format
+
+        image, depth, mask, w2c, k = load_data_packaged_format(path)
+        t5_path = os.path.splitext(path)[0] + ".t5.npy"
+        t5 = np.load(t5_path) if os.path.exists(t5_path) else None
+        chunk = self.model.chunk_size
+        if image.shape[0] < chunk:
+            raise ValueError(f"{path}: {image.shape[0]} frames, fewer than the chunk's {chunk}")
+        start = self.rng.randint(0, image.shape[0] - chunk + 1)
+        sl = slice(start, start + chunk)
+        return build_gen3c_train_batch(
+            self.model, image[sl], depth[sl], w2c[sl], k[sl], t5_embedding=t5,
+            mask=mask[sl] if mask is not None else None,
+            seed=int(self.rng.randint(0, 2 ** 31)))
+
+    def __iter__(self) -> Iterator[dict]:
+        while True:
+            picks = self.rng.choice(len(self.clips), self.batch_size)
+            samples = [self._load_sample(self.clips[i]) for i in picks]
+            yield {k: torch.cat([s[k] for s in samples], dim=0) for k in samples[0]}
 
 
 class PrefetchIterator:
     """Background-thread batch prefetcher: the wrapped iterator runs in a
     worker thread while the training step executes, behind a bounded queue
-    (double buffering by default). Exceptions reach the consumer; close()
-    (or garbage collection) stops the worker."""
+    (double buffering by default). Exceptions reach the consumer. close()
+    stops the worker and waits for the batch it is building (the Trainer
+    calls it when training ends: a worker left inside a torch op when the
+    interpreter exits aborts the process); garbage collection stops it
+    without waiting."""
 
     _SENTINEL = object()
 
@@ -21,16 +142,24 @@ class PrefetchIterator:
         self._err = None
         self._stop = threading.Event()
 
+        def put(item) -> bool:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
         def worker():
             try:
                 for item in iterable:
-                    if self._stop.is_set():
+                    if not put(item):
                         return
-                    self._q.put(item)
             except BaseException as e:  # noqa: BLE001 - re-raised in __next__
                 self._err = e
             finally:
-                self._q.put(self._SENTINEL)
+                put(self._SENTINEL)
 
         self._thread = threading.Thread(target=worker, daemon=True)
         self._thread.start()
@@ -46,14 +175,10 @@ class PrefetchIterator:
             raise StopIteration
         return item
 
-    def close(self):
+    def close(self, wait: bool = True):
         self._stop.set()
-        # drain so a blocked put() wakes up and sees the stop flag
-        try:
-            while True:
-                self._q.get_nowait()
-        except queue.Empty:
-            pass
+        if wait and self._thread is not threading.current_thread():
+            self._thread.join()
 
     def __del__(self):
-        self.close()
+        self.close(wait=False)

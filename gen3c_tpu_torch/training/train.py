@@ -6,11 +6,15 @@
 
 ``experiment=`` picks a preset (gen3c_tiny, gen3c_7b, GEN3C_Cosmos_7B),
 ``trainer.<field>=`` overrides TrainerConfig, any other ``a.b=v`` the
-preset (``dit.num_blocks=12``). The DiT gets seeded random weights on
-``--device`` (default: the card if there is one). Running again with the
-same job_dir resumes from its latest checkpoint. The JAX CLI's mesh flags
-are accepted and refused above one device; ``--data_root`` (packaged
-clips, Gen3CClipDataset) is not ported yet, so ``--synthetic`` is the data.
+preset (``dit.num_blocks=12``, ``dit.attn_temporal_window=2`` for band
+attention). The DiT gets seeded random weights on ``--device``: ``cuda``
+unless the caller passes another (the tests pass ``cpu``). Running again
+with the same job_dir resumes from its latest checkpoint. The JAX CLI's
+mesh flags are accepted and refused above one device. The data is
+``--synthetic`` latents or ``--data_root``, a directory of packaged RGBD
+clips (``datasets.Gen3CClipDataset``): the preset's GEN3C model is built
+on the device, and its DiT is the one trained (one DiT, not two) while its
+VAE and the 3D cache turn each clip into a batch.
 """
 
 from __future__ import annotations
@@ -53,15 +57,15 @@ def main(argv=None) -> Optional[Trainer]:
     p.add_argument("--loss_add_logvar", action="store_true",
                    help="Kendall uncertainty loss with a learned per-sigma logvar head")
     p.add_argument("--text_dropout_rate", type=float, default=0.0)
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda if available, else cpu)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (default cuda; pass cpu to train on the CPU)")
     args = p.parse_args(flags)
     if args.dp > 1 or (args.cp or 1) > 1 or args.tp > 1 or args.fsdp or args.sequence_parallel:
         raise NotImplementedError("dp/cp/tp meshes, FSDP and sequence parallelism are not "
                                   "ported (ROADMAP Queue 1 item 15): train on one device")
-    if args.data_root:
-        raise NotImplementedError("--data_root needs Gen3CClipDataset, which is not ported "
-                                  "yet (ROADMAP Queue 1 item 16): use --synthetic")
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device here "
+                           "(pass --device cpu to train on the CPU)")
 
     exp_name = "gen3c_tiny"
     t_cfg = TrainerConfig()
@@ -81,13 +85,22 @@ def main(argv=None) -> Optional[Trainer]:
     if args.text_dropout_rate:
         t_cfg = registry.apply_overrides(t_cfg, [f"text_dropout_rate={args.text_dropout_rate}"])
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
-    log.info(f"experiment={exp_name} device={device}")
-    net = build_net(preset.dit, device, t_cfg.seed)
+    log.info(f"experiment={exp_name} device={args.device}")
+    if args.data_root:
+        from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
+        from gen3c_tpu_torch.training.datasets import Gen3CClipDataset
+
+        # the net build_net would draw: build_gen3c_model seeds its generator
+        # the same way and draws the DiT first
+        model, _ = build_gen3c_model(preset, device=args.device, seed=t_cfg.seed)
+        net = model.net
+        data = iter(Gen3CClipDataset(args.data_root, model, args.batch_size))
+    else:
+        net = build_net(preset.dit, args.device, t_cfg.seed)
+        C, T, Hl, Wl = preset.state_shape
+        data = synthetic_latent_dataset(args.batch_size, C, T, Hl, Wl,
+                                        extra_channels=preset.dit.in_channels - C, ctx_len=16)
     trainer = Trainer(t_cfg, preset.dit, net)
-    C, T, Hl, Wl = preset.state_shape
-    data = synthetic_latent_dataset(args.batch_size, C, T, Hl, Wl,
-                                    extra_channels=preset.dit.in_channels - C, ctx_len=16)
     state = trainer.train(data)
     log.info(f"training done at step {state.step}")
     return trainer

@@ -122,10 +122,25 @@ class Trainer:
         cfg = self.config
         start = self.maybe_resume()
         self.callbacks.on_train_start(self)
+        prefetch = None
         if cfg.prefetch_batches > 0:
             from gen3c_tpu_torch.training.datasets import PrefetchIterator
 
-            dataloader = PrefetchIterator(dataloader, prefetch=cfg.prefetch_batches)
+            dataloader = prefetch = PrefetchIterator(dataloader, prefetch=cfg.prefetch_batches)
+        try:
+            self._run(dataloader, start, validate_fn)
+        finally:
+            if prefetch is not None:
+                prefetch.close()
+        self.checkpointer.save(cfg.max_iter, self.state.state_dict())
+        self.checkpointer.wait()
+        self.callbacks.on_train_end(self)
+        self.callbacks.on_app_end(self)
+        return self.state
+
+    def _run(self, dataloader: Iterable[dict], start: int,
+             validate_fn: Optional[Callable[[TrainState, int], dict]]) -> None:
+        cfg = self.config
         it = iter(dataloader)
         for step in range(start + 1, cfg.max_iter + 1):
             self.callbacks.on_training_step_start(self, step)
@@ -155,11 +170,6 @@ class Trainer:
                 val = validate_fn(self.state, step)
                 self.callbacks.on_validation_step_end(self, step, val)
                 self.callbacks.on_validation_end(self, step, val)
-        self.checkpointer.save(cfg.max_iter, self.state.state_dict())
-        self.checkpointer.wait()
-        self.callbacks.on_train_end(self)
-        self.callbacks.on_app_end(self)
-        return self.state
 
 
 def synthetic_latent_dataset(batch: int, channels: int, t: int, h: int, w: int,

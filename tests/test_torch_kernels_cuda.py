@@ -148,14 +148,136 @@ def test_band_attention_full_window_is_k1(gen, dtype):
     assert torch.equal(full, banded)
 
 
-def test_attention_refuses_inputs_that_require_grad(gen):
-    """A band with a gradient to track has no backward kernel (K4-band)."""
-    q = torch.randn((1, 64, 2, 32), generator=gen, device="cuda", requires_grad=True)
-    k = torch.randn((1, 64, 2, 32), generator=gen, device="cuda")
-    with pytest.raises(NotImplementedError, match="K4-band"):
-        kernels.attention(q, k, k, band=(16, 1, 1))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+def test_band_attention_with_grad_launches_k4band(gen, dtype, tol):
+    """A band with a gradient to track: the band forward with lse (counted
+    as K3) and K4-band once per backward, with the gradients of autograd
+    through the plain band forward (tolerances as for K4's autograd test)."""
+    band = (50, 1, 1)
+    q, k, v = (torch.randn((2, 230, 3, 64), generator=gen, device="cuda").to(dtype)
+               .requires_grad_(True) for _ in range(3))
+    do = torch.randn((2, 230, 3, 64), generator=gen, device="cuda").to(dtype)
+    before = dict(kernels.launch_counts)
+    out = kernels.attention(q, k, v, band=band)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["K3"] == before["K3"] + 1
+    assert kernels.launch_counts["K4band"] == before["K4band"] + 1
+    assert kernels.launch_counts["K4"] == before["K4"] and kernels.launch_counts["K1"] == before["K1"]
+    leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*leaves, band), leaves, do.float())
+    for g, w in zip(got, want):
+        assert _rel(g, w)[0] <= tol
     with torch.no_grad():
-        kernels.attention(q, k, k, band=(16, 1, 1))  # no graph is built: allowed
+        kernels.attention(q, k, v, band=band)  # no graph: the K3 forward alone
+    assert kernels.launch_counts["K4band"] == before["K4band"] + 1
+
+
+def _band_tile_pairs(lq, lk, band, q_tile, k_tile, by_key=False):
+    """(query tile, key tile) pairs the band kernels visit: per query tile
+    the key tiles of the frames it reaches (K3's ranges), or, by_key, per
+    key tile the query tiles whose frames reach it (dK/dV's ranges)."""
+    hw, window, prefix = band
+    n = 0
+    if not by_key:
+        return _visible_tiles(lq, lk, band, q_tile, k_tile)
+    for k0 in range(0, lk, k_tile):
+        kf_lo, kf_hi = k0 // hw, (min(k0 + k_tile, lk) - 1) // hw
+        for q0 in range(0, lq, q_tile):
+            qf_lo, qf_hi = q0 // hw, (min(q0 + q_tile, lq) - 1) // hw
+            n += kf_lo < prefix or (qf_hi >= kf_lo - window and qf_lo <= kf_hi + window)
+    return n
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("l,d,band", [(333, 64, (60, 1, 1)), (450, 128, (64, 2, 2)),
+                                      (257, 24, (100, 0, 0)), (500, 96, (7, 3, 0)),
+                                      (129, 128, (40, 0, 2))])
+def test_band_backward_kernel_matches_reference(gen, dtype, l, d, band):
+    """K4-band (and its forward with lse) against the plain band backward,
+    held as K4 is: fp32 within 1e-4 of mean |.|; bf16 no further from the
+    fp32 truth than the plain bf16 version plus 1e-2 (max) / 1e-3 (mean) of
+    mean |.|. The band forward is K3's output bit for bit, and the tiles
+    visited are those the band reaches: dQ and the forward over 64-key
+    tiles per 64-query tile, dK/dV over 32-query tiles per 64-key tile."""
+    b, h = 2, 3
+    q, k, v, do = (torch.randn((b, l, h, d), generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    vis_f = torch.zeros(1, dtype=torch.int64, device="cuda")
+    out, lse = kcuda.attention_fwd_lse(q, k, v, band, visited=vis_f)
+    ref_out, ref_lse = attention_forward_reference(q, k, v, band)
+    if dtype == torch.bfloat16:
+        assert torch.equal(out, kcuda.attention(q, k, v, band))  # K3's bits
+    assert (out.float() - ref_out.float()).abs().max().item() <= (2e-2 if dtype == torch.bfloat16
+                                                                   else 1e-4)
+    assert (lse - ref_lse).abs().max().item() <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    vis_b = torch.zeros(2, dtype=torch.int64, device="cuda")
+    got = kcuda.attention_bwd(q, k, v, out, do, lse, band, visited=vis_b)
+    plain = attention_backward_reference(q, k, v, out, do, lse, band)
+    torch.cuda.synchronize()
+    assert all(g.dtype == dtype and g.shape == t.shape for g, t in zip(got, (q, k, v)))
+    assert all(torch.isfinite(g).all() for g in got)
+    if dtype == torch.bfloat16:
+        assert vis_f.item() == b * h * _band_tile_pairs(l, l, band, 64, 64)
+        assert vis_b[0].item() == b * h * _band_tile_pairs(l, l, band, 32, 64, by_key=True)
+        assert vis_b[1].item() == vis_f.item()
+    if dtype == torch.float32:
+        for g, p in zip(got, plain):
+            assert _rel(g, p)[0] <= 1e-4
+        return
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o32, l32 = attention_forward_reference(q32, k32, v32, band)
+    truth = attention_backward_reference(q32, k32, v32, o32, do32, l32, band)
+    for name, g, p, t in zip("qkv", got, plain, truth):
+        kmax, kmean = _rel(g, t)
+        pmax, pmean = _rel(p, t)
+        assert kmax <= pmax + 1e-2 and kmean <= pmean + 1e-3, (name, kmax, kmean, pmax, pmean)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_band_backward_full_window_is_k4(gen, dtype):
+    """window >= T - 1 visits K4's tiles in K4's order, unmasked: the forward
+    with lse and the backward give K4's bits."""
+    b, l, h, d, hw = 2, 700, 4, 128, 100
+    q, k, v, do = (torch.randn((b, l, h, d), generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    band = (hw, l // hw - 1, 1)
+    out, lse = kcuda.attention_fwd_lse(q, k, v)
+    out_b, lse_b = kcuda.attention_fwd_lse(q, k, v, band)
+    assert torch.equal(out, out_b) and torch.equal(lse, lse_b)
+    full = kcuda.attention_bwd(q, k, v, out, do, lse)
+    banded = kcuda.attention_bwd(q, k, v, out, do, lse, band)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(full, banded))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("m,k,n,reps", [(64, 128, 64, 1), (200, 256, 130, 3), (512, 1024, 512, 2),
+                                        (1408, 1024, 128, 2), (1408, 128, 1024, 4), (1, 32, 1, 5)])
+def test_mma_probe_matches_reference(gen, dtype, m, k, n, reps):
+    """P1 against its plain version: int8 exactly (small integers: int32
+    cannot wrap); bf16 within fp32 summation order, 1e-5 of reps * (|a| +
+    1) @ |b| per element."""
+    if dtype == torch.int8:
+        a = torch.randint(-100, 100, (m, k), generator=gen, device="cuda").to(torch.int8)
+        a[0, :4] = 127  # a + 1 wraps to -128 on odd passes, as the Pallas add does
+        b = torch.randint(-100, 100, (k, n), generator=gen, device="cuda").to(torch.int8)
+    else:
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+    before = kernels.launch_counts["P1"]
+    out = kernels.mma_probe(a, b, reps)
+    want = kernels.mma_probe_reference(a, b, reps)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["P1"] == before + 1
+    assert out.shape == (m, n) and out.dtype == want.dtype
+    if dtype == torch.int8:
+        assert torch.equal(out, want)
+    else:
+        bound = reps * ((a.float().abs() + 1) @ b.float().abs())
+        assert ((out - want).abs() <= 1e-5 * bound).all()
+    _, ctas = kcuda.mma_probe(a, b, reps)
+    assert ctas >= torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def test_attention_without_grad_is_the_forward_launch(gen):

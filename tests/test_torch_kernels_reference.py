@@ -3,13 +3,15 @@
 attention_reference (K1/K2) against gen3c_tpu.models.dit.attention_op and
 splat_reference (K5) against gen3c_tpu.ops.geometry.bilinear_splatting, on
 the same numpy inputs. On the CPU attention_op takes its XLA path and
-bilinear_splatting its scatter-add path; the CUDA kernels themselves are
-held against these references on the card by chip_smoke.py.
+bilinear_splatting its scatter-add path; mma_probe_reference (P1) is held
+to the probe script's Pallas kernel in interpret mode. The CUDA kernels
+themselves are held against these references on the card by chip_smoke.py.
 """
 
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,10 +107,66 @@ def test_kernels_import_without_nvcc_or_triton():
     code = (
         "import sys, gen3c_tpu_torch.kernels as k, gen3c_tpu_torch.kernels.cuda; "
         "assert 'triton' not in sys.modules; "
-        "assert sorted(k.launch_counts) == ['K1', 'K2', 'K3', 'K4', 'K5', 'K7', 'K7q']; print('ok')"
+        "assert sorted(k.launch_counts) == ['K1', 'K2', 'K3', 'K4', 'K4band', 'K5', 'K7', 'K7q', "
+        "'P1']; print('ok')"
     )
     env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _pallas_probe():
+    """scripts/probe_int8_attention.py's Pallas kernel body (P1), loaded
+    from its file (it is a script, not a module of the package)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+                        "probe_int8_attention.py")
+    spec = importlib.util.spec_from_file_location("probe_int8_attention", path)
+    mod = importlib.util.module_from_spec(spec)
+    env = dict(os.environ)
+    try:
+        spec.loader.exec_module(mod)
+    finally:  # the script points JAX's compilation cache at the repo: undo it
+        os.environ.clear()
+        os.environ.update(env)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,reps", [(16, 32, 8, 3), (24, 64, 40, 4), (8, 128, 16, 1)])
+def test_mma_probe_reference_matches_pallas_interpret(dtype, m, k, n, reps):
+    """P1's plain version against the probe script's Pallas kernel run in
+    interpret mode on the CPU: int8 exactly (a + 1 wraps in int8 on odd
+    passes: a holds 127s), bf16 within 1e-5 of reps * (|a| + 1) @ |b|
+    (the fp32 sums in another order)."""
+    from functools import partial
+
+    from jax.experimental import pallas as pl
+
+    probe = _pallas_probe()
+    rng = np.random.default_rng(m + k)
+    if dtype == "int8":
+        a = rng.integers(-100, 100, (m, k)).astype(np.int8)
+        a[0, :3] = 127
+        b = rng.integers(-100, 100, (k, n)).astype(np.int8)
+        ja, jb, acc = jnp.asarray(a), jnp.asarray(b), jnp.int32
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    else:
+        a32, b32 = (rng.standard_normal(s).astype(np.float32) for s in ((m, k), (k, n)))
+        ja, jb, acc = jnp.asarray(a32, jnp.bfloat16), jnp.asarray(b32, jnp.bfloat16), jnp.float32
+        ta, tb = torch.from_numpy(a32).to(torch.bfloat16), torch.from_numpy(b32).to(torch.bfloat16)
+    want = np.asarray(pl.pallas_call(partial(probe._mm_loop_kernel, reps=reps, acc_dtype=acc),
+                                     out_shape=jax.ShapeDtypeStruct((m, n), acc),
+                                     interpret=True)(ja, jb))
+    got = kernels.mma_probe(ta, tb, reps)  # a CPU tensor: the plain version
+    if dtype == "int8":
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        assert got.dtype == torch.float32
+        bound = reps * ((ta.float().abs() + 1) @ tb.float().abs()).numpy()
+        assert (np.abs(got.numpy() - want) <= 1e-5 * bound).all()

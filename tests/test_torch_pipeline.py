@@ -280,6 +280,9 @@ def test_perf_preset_expands_as_jax(flags):
 
 
 def test_port_never_imports_jax():
+    """Every module of the port imports, and its paths run (generation, a
+    train step, the Trainer, a LoRA step with the band, the training CLI on
+    a packaged clip), without importing jax, jaxlib or any gen3c_tpu module."""
     code = r"""
 import importlib, pkgutil, sys
 import numpy as np, torch
@@ -310,7 +313,34 @@ assert state.step == 2 and np.isfinite(float(metrics["loss"]))
 with tempfile.TemporaryDirectory() as job:
     cfg = TrainerConfig(job_dir=job, max_iter=1, warmup_steps=1, prefetch_batches=0)
     assert Trainer(cfg, p.dit, build_net(p.dit, "cpu", 0)).train(data).step == 1
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+# LoRA: one lora_train_step over a frozen base with the band and remat
+import dataclasses
+from gen3c_tpu_torch.training.lora import init_lora_params, lora_leaves, lora_train_step
+band_cfg = dataclasses.replace(p.dit, attn_temporal_window=0)
+base = build_net(band_cfg, "cpu", 0)
+lora = init_lora_params(gen, base, rank=2)
+opt_state = opt.init(lora_leaves(lora))
+lora, opt_state, metrics = lora_train_step(lora, opt_state, base, next(data), gen, band_cfg, opt,
+                                           remat=True)
+assert np.isfinite(float(metrics["loss"]))
+# the training CLI on a packaged clip (--data_root)
+from gen3c_tpu_torch.ops.camera import generate_camera_trajectory
+from gen3c_tpu_torch.pipelines.depth import default_intrinsics
+from gen3c_tpu_torch.training import train
+with tempfile.TemporaryDirectory() as root:
+    F, h, w = p.chunk_size, p.height, p.width
+    w2c, ks = generate_camera_trajectory("left", np.eye(4, dtype=np.float32),
+                                         default_intrinsics(h, w), F, 0.3, "center_facing", 1.0)
+    np.savez(f"{root}/clip.npz", image=rng.uniform(-1, 1, (F, 3, h, w)).astype(np.float32),
+             depth=np.full((F, 1, h, w), 2.0, np.float32),
+             w2c=np.asarray(w2c, np.float32).reshape(F, 4, 4),
+             intrinsics=np.asarray(ks, np.float32).reshape(F, 3, 3))
+    cli = train.main(["--data_root", root, "--device", "cpu", "experiment=gen3c_tiny",
+                      "dit.attn_temporal_window=1", "trainer.max_iter=1", "trainer.warmup_steps=1",
+                      f"trainer.job_dir={root}/job"])
+    assert cli.state.step == 1
+foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gen3c_tpu"))
+assert not foreign, foreign[:8]
 print("jax-free")
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

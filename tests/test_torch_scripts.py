@@ -1,0 +1,111 @@
+"""The port's measurement scripts on the CPU: what they parse and count.
+
+The scripts themselves run on a card; here their parsing and bookkeeping
+are held to hand-made inputs, and their entry points to refusing to run
+without a card.
+"""
+
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from gen3c_tpu_torch.scripts import compare_attention_builds as cab
+from gen3c_tpu_torch.scripts import probe_int8_attention as probe
+from gen3c_tpu_torch.scripts import profile_lora_step as prof
+
+NS_A = "_GLOBAL__N__ee55c35c_16_attention_bwd_cu_87cbb326"
+NS_B = "_GLOBAL__N__0123abcd_16_attention_bwd_cu_deadbeef"
+
+
+def _ptx(ns: str, loc: int, body: str) -> str:
+    return f"""//
+// Generated by NVIDIA NVVM Compiler
+.version 8.8
+.visible .entry _ZN{len(ns)}{ns}4fwdEv(
+\t.param .u64 p
+)
+{{
+\t.loc\t1 {loc} 3
+\tmov.u32 \t%r1, %ctaid.x;
+\t{body}
+\tret;
+}}
+.entry _ZN{len(ns)}{ns}4bwdEv(
+)
+{{
+\tret;
+}}
+"""
+
+
+def test_ptx_entries_ignore_line_info_and_namespace_hash():
+    a = cab._ptx_entries(_ptx(NS_A, 10, "add.s32 %r2, %r1, 1;"))
+    b = cab._ptx_entries(_ptx(NS_B, 99, "add.s32 %r2, %r1, 1;"))
+    c = cab._ptx_entries(_ptx(NS_B, 10, "add.s32 %r2, %r1, 2;"))
+    assert list(a) == ["_ZN49NS4fwdEv", "_ZN49NS4bwdEv"]
+    assert a == b
+    assert a["_ZN49NS4fwdEv"] != c["_ZN49NS4fwdEv"] and a["_ZN49NS4bwdEv"] == c["_ZN49NS4bwdEv"]
+
+
+def test_ptxas_counts_per_entry():
+    log = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN{NS_A}4fwdEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN{NS_A}4fwdEv
+    64 bytes stack frame, 116 bytes spill stores, 100 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN{NS_B}4bwdEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN{NS_B}4bwdEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 166 registers, used 1 barriers
+"""
+    assert cab._ptxas_counts(log) == {"_ZNNS4fwdEv": (128, 64, 116, 100),
+                                      "_ZNNS4bwdEv": (166, 0, 0, 0)}
+
+
+def test_compare_attention_builds_usage_without_arguments():
+    with pytest.raises(SystemExit, match="side by side"):
+        cab.main([])
+
+
+def _row(key, us, device=False, shapes=(), annotation=False, total=0.0):
+    return SimpleNamespace(key=key, self_device_time_total=us, device_time_total=total,
+                           device_type="DeviceType.CUDA" if device else "DeviceType.CPU",
+                           is_user_annotation=annotation, input_shapes=list(shapes))
+
+
+def test_profile_split_by_kind():
+    tokens = (56320, 512)
+    rows = [
+        _row("void (anonymous namespace)::attn_bwd_dkdv_bf16_band<128, true>(P, B)", 6000.0, True),
+        _row("void (anonymous namespace)::attn_fwd_lse_bf16_band<128, true>(P, B)", 3000.0, True),
+        _row("nvjet_tst_192x192_64x4_2x1_v_bz_coopB_TNN", 2500.0, True),
+        _row("void at::native::elementwise_kernel<128, 2>(...)", 700.0, True),
+        _row("lora_merge", 300.0, True, annotation=True),  # the range's device side
+        _row("lora_merge", 0.0, total=90.0),
+        _row("aten::mm", 30.0, shapes=[[4096, 16], [16, 4096]]),  # A @ B
+        _row("aten::mm", 400.0, shapes=[[4096, 56320], [56320, 4096]]),  # dense dW
+        _row("aten::mm", 20.0, shapes=[[4096, 512], [512, 1024]]),  # cross k/v dW
+        _row("aten::addmm", 2050.0, shapes=[[4096], [56320, 4096], [4096, 4096]]),
+        _row("aten::mm", 0.0, shapes=[[1, 4096], [4096, 256]]),  # no device time
+    ]
+    got = prof.split(SimpleNamespace(key_averages=lambda group_by_input_shape: rows), tokens)
+    assert got["kernel_ms"] == pytest.approx(12.2)
+    assert got["attention_ms"] == {"attn_bwd_dkdv_bf16_band": 6.0, "attn_fwd_lse_bf16_band": 3.0}
+    assert got["by_kind_ms"] == pytest.approx({
+        "attention": 9.0, "gemm_merge": 0.03, "gemm_dense_dw": 0.42, "gemm_other": 2.05,
+        "other": 12.2 - 9.0 - 2.5})
+    assert got["lora_merge_range_ms"] == pytest.approx(0.09)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")
+@pytest.mark.parametrize("main", [probe.main, lambda: prof.main([])], ids=["probe", "profile"])
+def test_scripts_refuse_to_run_without_a_card(main):
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        main()
+
+
+def test_probe_sweeps_the_jax_scripts_cases():
+    assert probe.SQUARE_K == (128, 256, 512, 1024)
+    assert [s[:3] for s in probe.BLOCK_SHAPES] == [(1408, 128, 1024), (1408, 1024, 128)]
+    assert probe.CTAS_PER_SM == (1, 4)

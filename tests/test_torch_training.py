@@ -402,14 +402,18 @@ def test_cli_overrides_and_resume(tmp_path):
     assert trainer.state.step == 2
     again = train.main([a.replace("max_iter=2", "max_iter=3") for a in args])
     assert again.state.step == 3 and again.checkpointer.steps() == [1, 2, 3]
-    for flags in (["--dp", "2"], ["--fsdp"], ["--data_root", "x"]):
+    for flags in (["--dp", "2"], ["--fsdp"]):
         with pytest.raises(NotImplementedError):
-            train.main(["--synthetic", *flags, f"trainer.job_dir={job}2"])
+            train.main(["--synthetic", "--device", "cpu", *flags, f"trainer.job_dir={job}2"])
+    with pytest.raises(FileNotFoundError):  # --data_root is ported: a missing root raises
+        train.main(["--data_root", str(tmp_path / "missing"), "--device", "cpu",
+                    f"trainer.job_dir={job}3"])
 
 
 def test_cli_runs_without_jax(tmp_path):
     code = ("import sys; from gen3c_tpu_torch.training import train; "
-            f"train.main(['--synthetic', 'experiment=gen3c_tiny', 'trainer.max_iter=3', "
+            f"train.main(['--synthetic', '--device', 'cpu', 'experiment=gen3c_tiny', "
+            "'trainer.max_iter=3', "
             f"'trainer.warmup_steps=1', 'trainer.job_dir={tmp_path / 'nojax'}']); "
             "assert 'jax' not in sys.modules; "
             "assert not [m for m in sys.modules if m.split('.')[0] == 'gen3c_tpu'], "
