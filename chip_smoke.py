@@ -42,7 +42,7 @@ Phases, each printing one JSON line of its own numbers:
              clip (7B VAE, K5), then 3 lora_train_steps (rank 16 on the
              attention projections, remat): s per step, loss, grad-norm,
              peak GiB, base and adapter GiB reckoned and measured, launches
-             per step (K4band 28, K3 56, K2 56, K4 28, K1 0), and the base
+             per step (K4band 28, K3lse 56, K2 56, K4 28, K1 0), and the base
              bitwise unchanged
  10 train_parity  one train_step of a 1024-channel, 2-block bf16 DiT on the
              card (kernels) and on the CPU (plain versions) with the same
@@ -51,12 +51,25 @@ Phases, each printing one JSON line of its own numbers:
  12 train_cli the training CLI (gen3c_tiny, fp32, remat) for 4 steps with
              checkpoints, then resumed to 6, then 2 steps with --data_root on
              a packaged clip and band window 1
+ 13 dynamic  the gen3c_dynamic CLI's entry point with the same 7B (built once
+             for main, dynamic and multiview) on a seeded 121-frame 704x1280
+             packaged clip whose depth has nearer discs and a railing (depth
+             boundaries), --foreground_masking, 2 Euler steps: render s with
+             and without masking, K6 launches (121), the culled fraction,
+             s per denoise step, peak GiB
+ 14 multiview the gen3c_multiview CLI's entry point, same 7B, 4 key frames,
+             --frame_buffer_max 2, --foreground_masking, 1 chunk, 1 step: the
+             buffers each chunk kept, render s, launches
 Phase 3 also holds K4 (the attention backward) and its forward with the
 row logsumexp at the 7B self- and cross-attention shapes and at a ragged
 fp32 tiny shape; K4-band at the 7B self shape with the fast preset's band
 (its visited-tile fractions, its forward against K3's bits), at a full
-window against K4's bits and at a ragged fp32 shape; and P1, the mma.sync
-rate probe, in bf16 and int8. Every kernel's bound (bytes or operations at
+window against K4's bits and at a ragged fp32 shape; K3lse, the band
+forward with the row logsumexp, at the LoRA + band shape; P1, the mma.sync
+rate probe, in bf16 and int8; K6 (the ray-triangle depth) on the 901,120
+rays of a 704x1280 frame against the boundary mesh of a seeded depth, with
+its hit-flip fraction; and P2, K1's tile sweep, at the 7B self-attention
+shape over K1's tile and three others. Every kernel's bound (bytes or operations at
 the data-sheet peaks) and the time of one PyTorch call that computes its
 function, where there is one, go beside its time. Then the kernel table as
 one JSON line, the nvidia-smi line, and as the last line {"ok": true,
@@ -73,6 +86,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -109,6 +123,19 @@ LORA_RANK = 16
 LORA_STEPS = 3
 P1_SHAPE = (1408, 128, 1024)  # the QK^T block shape of scripts/probe_int8_attention.py
 P1_REPS = 8000  # that script's R at K = 128
+# K6 against its plain version (the same operations in the same order, no
+# contraction): hit decisions may flip on at most 1e-4 of the rays, and hit
+# distances both report agree within 1e-5 relative
+K6_TOL = {"flip_fraction": 1e-4, "rel_err": 1e-5}
+# per (ray, triangle) pair: 29 fp32 arithmetic operations (cross 9, a 5,
+# reciprocal 1, u 6, v 6, t 1, u + v 1) and 7 comparisons (raycast.cu)
+K6_OPS_PER_PAIR = 36
+# P2 in the smoke: K1's own tile, two larger tiles and K1's tile read from the
+# (B, H, L, D) layout (the script sweeps them all)
+P2_SMOKE_CONFIGS = ((64, 64, "blhd"), (128, 64, "blhd"), (64, 128, "blhd"), (64, 64, "bhld"))
+DYNAMIC_STEPS = 2
+MULTIVIEW_STEPS = 1
+MULTIVIEW_KEY_FRAMES = 4
 
 
 def emit(phase: str, **numbers) -> None:
@@ -554,6 +581,145 @@ def _gemm_case(gen, name: str, M: int, K: int, N: int) -> dict:
     return res
 
 
+def _foreground_depth(h: int, w: int, seed: int, shift: float = 0.0) -> torch.Tensor:
+    """(h, w) depth on the card: a slanted plane with 16 nearer discs and a
+    railing of 16 bars in front, all moved right by ``shift`` pixels. Its
+    depth boundaries give ~19k boundary-mesh triangles at 704x1280."""
+    rng = np.random.default_rng(seed)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device="cuda"),
+                            torch.arange(w, dtype=torch.float32, device="cuda"), indexing="ij")
+    depth = 2.5 - 0.8 * yy / h + 0.3 * torch.sin(6 * xx / w)
+    for _ in range(16):
+        cy, cx, r = rng.uniform(0.1 * h, 0.9 * h), rng.uniform(0.1 * w, 0.9 * w), rng.uniform(30, 90)
+        depth = torch.where((yy - cy) ** 2 + (xx - cx - shift) ** 2 < r * r,
+                            float(rng.uniform(1.2, 1.6)), depth)
+    return torch.where((((xx - shift) % (w / 16)) < 14) & (yy > 0.35 * h), 1.0, depth)
+
+
+def _ray_case() -> dict:
+    """K6 on the 901,120 rays of a 704x1280 camera against the boundary mesh
+    of a seeded depth seen from a camera moved left and forward, as
+    foreground masking builds it."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.ops import geometry, raycast
+    from gen3c_tpu_torch.pipelines.depth import default_intrinsics
+
+    h, w = 704, 1280
+    depth = _foreground_depth(h, w, seed=0)[None, None]
+    k = torch.from_numpy(default_intrinsics(h, w)).cuda()[None]
+    pts = geometry.unproject_points(depth, torch.eye(4, device="cuda")[None], k)
+    target = torch.eye(4, device="cuda")[None]
+    target[0, 0, 3], target[0, 2, 3] = 0.15, -0.1
+    _, cam = geometry.project_points(pts, target, k)
+    vertices, faces = raycast.build_boundary_mesh(cam[0], ~geometry.reliable_depth_mask(depth)[0, 0])
+    v0, v1, v2 = (vertices[faces[:, i]].contiguous() for i in range(3))
+    rays = geometry.pixel_rays(h, w, k)[0].reshape(-1, 3).contiguous()
+    got = kernels.ray_triangle_depth(rays, v0, v1, v2)
+    want = kernels.ray_triangle_depth_reference(rays, v0, v1, v2)
+    torch.cuda.synchronize()
+    R, T = rays.shape[0], v0.shape[0]
+    both = (got > 0) & (want > 0)
+    diff = (got - want).abs()[both]
+    res = {"name": "K6 ray-triangle depth", "rays": R, "triangles": T,
+           "hit_fraction": (want > 0).float().mean().item(),
+           "flip_fraction": ((got > 0) != (want > 0)).float().mean().item(),
+           "max_abs_err": diff.max().item() if diff.numel() else 0.0,
+           "rel_err": (diff / want[both]).max().item() if diff.numel() else 0.0,
+           "tol": K6_TOL}
+    res["ms"] = cuda_ms(lambda: kernels.ray_triangle_depth(rays, v0, v1, v2), reps=3)
+    res["plain_ms"] = cuda_ms(lambda: kernels.ray_triangle_depth_reference(rays, v0, v1, v2),
+                              reps=1, warmup=0)
+    pairs = R * T  # every pair is tested: nothing ends early
+    res.update(pairs=pairs, gpairs_per_s=pairs / res["ms"] / 1e6, library_ms=None,
+               **bound(tensor_bytes(rays, v0, v1, v2, got), K6_OPS_PER_PAIR * pairs,
+                       FP32_PEAK_TFLOPS))
+    emit("kernel", **res)
+    if (T == 0 or res["flip_fraction"] > K6_TOL["flip_fraction"]
+            or res["rel_err"] > K6_TOL["rel_err"] or res["hit_fraction"] == 0):
+        raise AssertionError(f"K6: kernel disagrees with its plain version: {res}")
+    return res
+
+
+def _p2_case(gen) -> dict:
+    """P2, K1's tile sweep, at the 7B self-attention shape over
+    P2_SMOKE_CONFIGS: each config checked on a small shape against the plain
+    attention (the script's check), then timed and held to the plain
+    attention on the full-shape inputs (the same values in both layouts)."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.scripts import sweep_attention as sweep
+
+    shape = (sweep.B, sweep.L, sweep.H, sweep.D)
+    kernels.reset_launch_counts()
+    q, k, v = sweep.qkv(shape, shape, "blhd", gen)
+    layouts = {"blhd": (q, k, v),
+               "bhld": tuple(t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))}
+    plain = {}
+    plain_ms = cuda_ms(lambda: plain.__setitem__("out", kernels.attention_reference(q, k, v)),
+                       reps=1, warmup=0)
+    rows = []
+    for config in P2_SMOKE_CONFIGS:
+        check_err = sweep.check(config, gen)
+        bm, bn, layout = config
+        err = (kernels.attention_tiles(*layouts[layout], bm, bn).float() - plain["out"].float()).abs()
+        row = sweep.measure(config, *layouts[layout])
+        row.update(check_max_abs_err=check_err, max_abs_err=err.max().item(),
+                   mean_abs_err=err.mean().item())
+        del err
+        emit("p2_config", **row)
+        rows.append(row)
+    best = min(rows, key=lambda r: r["ms"])
+    res = {"name": "P2 K1 tile sweep", "q": list(shape), "configs": rows, "best": best["config"],
+           "ms": best["ms"], "tflops": best["tflops"], "k1_tile_ms": rows[0]["ms"],
+           "plain_ms": plain_ms, "launches": kernels.launch_counts["P2"],  # the sweep's own run
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           **bound(tensor_bytes(q, k, v, q), sweep.FLOPS, BF16_PEAK_TFLOPS)}
+    del plain
+    torch.cuda.empty_cache()
+    res["library_ms"] = library_ms(lambda: _sdpa(q, k, v))
+    emit("kernel", **res)
+    bad = [r["config"] for r in rows
+           if r["max_abs_err"] > ATTN_TOL["max"] or r["mean_abs_err"] > ATTN_TOL["mean"]]
+    if bad:
+        raise AssertionError(f"P2: {bad} disagree with the plain attention: {res}")
+    return res
+
+
+def _k3lse_case(gen) -> dict:
+    """K3lse, the band forward that keeps the row logsumexp (the forward of
+    K4-band in LoRA + band training), at B=1, the 7B self shape, the fast
+    preset's band."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import cuda
+
+    B, L, H, D = 1, LATENT_T_7B * BAND_7B[0], 32, 128
+    q, k, v = (torch.randn((B, L, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    out, lse = cuda.attention_fwd_lse(q, k, v, BAND_7B)
+    ref, ref_lse = kernels.attention_forward_reference(q, k, v, BAND_7B)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    res = {"name": "K3lse band forward with lse", "q": [B, L, H, D], "band": list(BAND_7B),
+           "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+           "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+           "equals_k3": bool(torch.equal(out, cuda.attention(q, k, v, BAND_7B)))}
+    del ref, ref_lse, err
+    res["ms"] = cuda_ms(lambda: cuda.attention_fwd_lse(q, k, v, BAND_7B), reps=3)
+    res["plain_ms"] = cuda_ms(lambda: kernels.attention_forward_reference(q, k, v, BAND_7B),
+                              reps=1, warmup=0)
+    flop = 4.0 * B * H * D * _band_pairs(LATENT_T_7B, *BAND_7B[1:]) * BAND_7B[0] ** 2
+    res.update(tflops=flop / res["ms"] / 1e9,
+               **bound(tensor_bytes(q, k, v, out, lse), flop, BF16_PEAK_TFLOPS))
+    mask = _band_mask(L, BAND_7B)
+    res["library_ms"] = library_ms(lambda: _sdpa(q, k, v, mask))
+    del mask
+    torch.cuda.empty_cache()
+    emit("kernel", **res)
+    if (res["max_abs_err"] > ATTN_TOL["max"] or res["mean_abs_err"] > ATTN_TOL["mean"]
+            or res["lse_max_abs_err"] > 1e-2 or not res["equals_k3"]):
+        raise AssertionError(f"K3lse: kernel disagrees with its plain version or K3: {res}")
+    return res
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
@@ -586,8 +752,14 @@ def phase_kernels() -> dict:
     # fp32, ragged: frames of 37 tokens straddle the 32-wide tiles; prefix 2
     results["K4band_f32"] = _k4_case("K4-band fp32 D=24 ragged", (2, 250, 4, 24), (2, 250, 4, 24),
                                      torch.float32, gen, time_it=False, band=(37, 1, 2))
+    results["K3lse"] = _k3lse_case(gen)
+    torch.cuda.empty_cache()
     results["P1"] = [_mma_probe_case(gen, dtype) for dtype in ("bf16", "int8")]
     results["K5"] = _splat_case(gen)
+    results["K6"] = _ray_case()
+    torch.cuda.empty_cache()
+    results["P2"] = _p2_case(gen)
+    torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     results["K3"] = _band_case(gen)
     torch.cuda.empty_cache()
@@ -635,15 +807,21 @@ def _run_chain(model, preset, device, num_frames, num_steps, seed, **pipeline_kw
     return video, pipeline, timings
 
 
-def phase_main() -> dict:
-    from gen3c_tpu_torch import kernels
+def build_7b():
+    """The GEN3C-7B (bf16 DiT, fp32 VAE, seed 0) on the card, built once for
+    main_path, dynamic and multiview: (model, preset, seconds)."""
     from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, preset = build_gen3c_model("gen3c_7b", device="cuda", seed=0)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    return model, preset, time.perf_counter() - t0
+
+
+def phase_main(model, preset, build_s: float) -> dict:
+    from gen3c_tpu_torch import kernels
+
     cfg = preset.dit
     n_params = sum(p.numel() for p in model.net.parameters())
 
@@ -680,7 +858,150 @@ def phase_main() -> dict:
     missing = [k for k in ("K1", "K2", "K5") if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path did not launch kernels {missing}: {launches}")
-    del model, pipeline, samples
+    del pipeline, samples
+    torch.cuda.empty_cache()
+    return res
+
+
+def _dynamic_clip(path: str, preset, seed: int = 0) -> None:
+    """A seeded packaged clip of one chunk: the seed image panning 2 pixels
+    a frame over a depth whose discs and railing (``_foreground_depth``)
+    move 2 pixels a frame, filmed by a static camera."""
+    from gen3c_tpu_torch.pipelines.depth import default_intrinsics
+
+    h, w, n = preset.height, preset.width, preset.chunk_size
+    base = _seed_image(h, w, seed)[0, :, 0].astype(np.float16)
+    image = np.stack([np.roll(base, 2 * i, axis=2) for i in range(n)])
+    depth = np.stack([_foreground_depth(h, w, seed, shift=2.0 * i).cpu().numpy()
+                      for i in range(n)])[:, None]
+    np.savez(path, image=image, depth=depth,
+             w2c=np.repeat(np.eye(4, dtype=np.float32)[None], n, 0),
+             intrinsics=np.repeat(default_intrinsics(h, w)[None], n, 0))
+
+
+def phase_dynamic(model, preset) -> dict:
+    """The gen3c_dynamic CLI's entry point on a packaged 121-frame clip with
+    foreground masking, then the chunk's buffers rendered again without and
+    with masking (render seconds, the fraction of splatted pixels culled)."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.pipelines import gen3c_dynamic
+
+    n = preset.chunk_size
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
+        t0 = time.perf_counter()
+        _dynamic_clip(os.path.join(root, "clip.npz"), preset)
+        clip_s = time.perf_counter() - t0
+        argv = ["--input_video_path", os.path.join(root, "clip.npz"), "--model_preset", preset.name,
+                "--num_video_frames", str(n), "--num_steps", str(DYNAMIC_STEPS),
+                "--trajectory", "left", "--video_save_folder", root, "--device", "cuda"]
+        args = gen3c_dynamic.create_parser().parse_args(argv + ["--foreground_masking"])
+        record = {}
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = gen3c_dynamic.demo(args, built=(model, preset), record=record)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        saved = os.path.getsize(path) if os.path.isfile(path) else 0
+        renders = {}
+        for masking in (False, True):
+            cache, w2cs, ks, _ = gen3c_dynamic.load_scene(
+                gen3c_dynamic.create_parser().parse_args(
+                    argv + (["--foreground_masking"] if masking else [])), preset,
+                torch.device("cuda"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, masks = cache.render_cache(w2cs, ks, start_frame_idx=0)
+            torch.cuda.synchronize()
+            renders[masking] = (time.perf_counter() - t0, masks > 0)
+            del cache, masks
+        known, kept = renders[False][1], renders[True][1]
+        pipe = record["pipeline"]
+        res = {"model": preset.name, "frames": n, "steps": DYNAMIC_STEPS, "clip_s": clip_s,
+               "render_s": record["render"], "render_unmasked_s": renders[False][0],
+               "render_masked_s": renders[True][0],
+               "culled_fraction": ((known & ~kept).sum() / known.sum()).item(),
+               "known_fraction": known.float().mean().item(),
+               "encode_condition_s": pipe["encode_condition"], "encode_warps_s": pipe["encode_warps"],
+               "denoise_step_s": [st["seconds"] for st in pipe["denoise_steps"]],
+               "decode_s": pipe["decode"], "total_s": total_s, "peak_mem_gib": peak,
+               "launches": launches, "saved": [os.path.basename(path), saved],
+               "video_shape": list(record["video"].shape)}
+        del known, kept, renders
+    emit("dynamic", **res)
+    if res["video_shape"] != [n, preset.height, preset.width, 3] or not saved:
+        raise AssertionError(f"dynamic: video {res['video_shape']}, {saved} bytes saved")
+    missing = [k for k in ("K1", "K2", "K5", "K6") if launches[k] == 0]
+    if missing or launches["K6"] != n or not res["culled_fraction"] > 0:
+        raise AssertionError(f"dynamic: launches {launches} (K6 {n} expected), "
+                             f"culled {res['culled_fraction']}: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def _multiview_npz(path: str, preset, seed: int = 1) -> None:
+    """MULTIVIEW_KEY_FRAMES seeded key frames of one scene (the depth of
+    ``_foreground_depth``) from cameras 0.1 apart, and the trajectory: one
+    chunk moving left from the first key frame's camera."""
+    from gen3c_tpu_torch.ops.camera import generate_camera_trajectory
+    from gen3c_tpu_torch.pipelines.depth import default_intrinsics
+
+    h, w, n, keys = preset.height, preset.width, preset.chunk_size, MULTIVIEW_KEY_FRAMES
+    k = default_intrinsics(h, w)
+    w2c = np.repeat(np.eye(4, dtype=np.float32)[None], keys, 0)
+    w2c[:, 0, 3] = [0.0, 0.1, -0.1, 0.2]
+    w2cs, ks = generate_camera_trajectory("left", np.eye(4, dtype=np.float32), k, n, 0.3,
+                                          "center_facing", 1.0)
+    depth = _foreground_depth(h, w, seed).cpu().numpy()
+    np.savez(path, images_key_frames=np.concatenate([_seed_image(h, w, seed + i)[:, :, 0]
+                                                     for i in range(keys)]),
+             depth_key_frames=np.repeat(depth[None, None], keys, 0),
+             K_key_frames=np.repeat(k[None], keys, 0), w2cs_key_frames=w2c,
+             w2cs_all=np.asarray(w2cs, np.float32).reshape(n, 4, 4),
+             Ks_all=np.asarray(ks, np.float32).reshape(n, 3, 3))
+
+
+def phase_multiview(model, preset) -> dict:
+    """The gen3c_multiview CLI's entry point: 4 key frames, the top 2
+    buffers by rendered overlap, foreground masking, one chunk."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.pipelines import gen3c_multiview
+
+    n = preset.chunk_size
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
+        _multiview_npz(os.path.join(root, "mv.npz"), preset)
+        args = gen3c_multiview.create_parser().parse_args(
+            ["--npz_path", os.path.join(root, "mv.npz"), "--model_preset", preset.name,
+             "--num_video_frames", str(n), "--num_steps", str(MULTIVIEW_STEPS),
+             "--frame_buffer_max", "2", "--foreground_masking", "--video_save_folder", root,
+             "--device", "cuda"])
+        record = {}
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = gen3c_multiview.demo(args, built=(model, preset), record=record)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        saved = os.path.getsize(path) if os.path.isfile(path) else 0
+    pipe = record["pipeline"]
+    res = {"model": preset.name, "key_frames": MULTIVIEW_KEY_FRAMES, "frame_buffer_max": 2,
+           "frames": n, "steps": MULTIVIEW_STEPS, "selections": record["selections"],
+           "render_s": record["render"], "encode_warps_s": pipe["encode_warps"],
+           "denoise_step_s": [st["seconds"] for st in pipe["denoise_steps"]],
+           "decode_s": pipe["decode"], "total_s": total_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
+           "saved": [os.path.basename(path), saved], "video_shape": list(record["video"].shape)}
+    emit("multiview", **res)
+    if res["video_shape"] != [n, preset.height, preset.width, 3] or not saved:
+        raise AssertionError(f"multiview: video {res['video_shape']}, {saved} bytes saved")
+    if (len(res["selections"]) != 1 or len(res["selections"][0]) != 2
+            or any(launches[k] == 0 for k in ("K1", "K2", "K5", "K6"))):
+        raise AssertionError(f"multiview: {res}")
     torch.cuda.empty_cache()
     return res
 
@@ -1028,7 +1349,7 @@ def phase_lora_band_train() -> dict:
                                   for n, p in net.named_parameters()))
     emit("lora_band_train", **res)
     n = cfg.num_blocks
-    want = {"K4band": n, "K3": 2 * n, "K2": 2 * n, "K4": n, "K1": 0}  # remat: forwards twice
+    want = {"K4band": n, "K3lse": 2 * n, "K3": 0, "K2": 2 * n, "K4": n, "K1": 0}  # remat: twice
     got = {key: launches[key] / LORA_STEPS for key in want}
     if got != want or by_forward["K2"] != n * LORA_STEPS or by_forward["K1"]:
         raise AssertionError(f"lora_band_train: launches per step {got}, expected {want}: {res}")
@@ -1101,8 +1422,8 @@ def _train_parity(phase: str, window) -> dict:
         json.dump(leaves, f, indent=1)
     n = cfg.num_blocks
     ran = out["cuda"]["launches"]
-    want = ({"K4": 2 * n, "K4band": 0, "K1": n, "K3": 0} if window is None
-            else {"K4": n, "K4band": n, "K1": 0, "K3": n})  # cross-attention is K2 + K4
+    want = ({"K4": 2 * n, "K4band": 0, "K1": n, "K3": 0, "K3lse": 0} if window is None
+            else {"K4": n, "K4band": n, "K1": 0, "K3": 0, "K3lse": n})  # cross: K2 + K4
     if any(ran[k] != v for k, v in want.items()):
         raise AssertionError(f"{phase}: the card's step ran {ran}, expected {want}: {res}")
     if (res["loss_rel_err"] > TRAIN_PARITY_TOL["loss"]
@@ -1179,7 +1500,12 @@ def main() -> int:
     info = phase_device()
     phase_build()
     kern = phase_kernels()
-    launches = phase_main()["launches"]
+    model, preset, build_s = build_7b()
+    launches = phase_main(model, preset, build_s)["launches"]
+    dynamic_launches = phase_dynamic(model, preset)["launches"]
+    phase_multiview(model, preset)
+    del model
+    torch.cuda.empty_cache()
     fast_launches = phase_fast()["launches"]
     phase_fast_parity()
     phase_chain()
@@ -1218,6 +1544,12 @@ def main() -> int:
             train_launches["K2"], kern["K4_cross"]),
         row("K4-band band self-attention backward", "attention_bwd.cu",
             "gen3c_tpu/models/dit.py:464", lora_launches["K4band"], kern["K4band"]),
+        row("K3lse band forward with lse", "attention_bwd.cu", "gen3c_tpu/models/dit.py:459",
+            lora_launches["K3lse"], kern["K3lse"]),
+        row("K6 ray-triangle depth", "raycast.cu", "gen3c_tpu/ops/raycast.py:97",
+            dynamic_launches["K6"], kern["K6"]),
+        row(f"P2 K1 tile sweep (best {kern['P2']['best']})", "attention.cu",
+            "scripts/sweep_attention.py:32", kern["P2"]["launches"], kern["P2"]),
     ] + [row(p1["name"], "mma_probe.cu", "scripts/probe_int8_attention.py:59", p1["launches"], p1)
          for p1 in kern["P1"]]
     idle = [r["name"] for r in table if r["launches"] == 0]

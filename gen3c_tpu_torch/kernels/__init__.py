@@ -3,21 +3,25 @@
   K1   DiT self-attention        (gen3c_tpu/models/dit.py:445-471, Pallas splash)
   K2   DiT cross-attention       (dit.py:472-510, Pallas flash)
   K3   band self-attention       (dit.py:459-460, splash + make_temporal_band_mask :370-409)
+  K3lse  the band forward that keeps the row logsumexp (the forward of K4band)
   K4   attention backward        (splash/flash backward, dit.py:464-470 and :508, reached
                                   from gen3c_tpu/training/train_step.py:233)
   K4band  band attention backward (the splash backward under K3's mask, dit.py:459-470)
   K5   forward-warp splat        (gen3c_tpu/ops/geometry.py:205-316)
+  K6   nearest ray-triangle hit  (gen3c_tpu/ops/raycast.py:97-140)
   K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59)
   K7   int8 x int8 GEMM + rescale (quantize.py:60-69)
   P1   mma.sync rate probe       (scripts/probe_int8_attention.py:37-62; ``mma_probe``)
+  P2   K1's tile sweep           (scripts/sweep_attention.py:32-68; ``attention_tiles``)
 
-K1, K2 and K3 share ``csrc/attention.cu``; K4, K4band and the training
-forward (K1/K2/K3 with the row logsumexp) are ``csrc/attention_bwd.cu``; K5
-is ``csrc/splat.cu``; K7q and K7 are ``csrc/w8a8.cu``; P1 is
-``csrc/mma_probe.cu``. A CUDA tensor launches the compiled kernel
-(built at first use, see ``build``); a CPU tensor runs the plain PyTorch
-version in ``reference``. There is no other switch: on a card the
-references run only where a caller asks for them by name.
+K1, K2, K3 and P2 share ``csrc/attention.cu``; K4, K4band and the training
+forward (K1/K2 with the row logsumexp, and K3lse) are
+``csrc/attention_bwd.cu``; K5 is ``csrc/splat.cu``; K6 is
+``csrc/raycast.cu``; K7q and K7 are ``csrc/w8a8.cu``; P1 is
+``csrc/mma_probe.cu``. A CUDA tensor launches the compiled kernel (built at
+first use, see ``build``); a CPU tensor runs the plain PyTorch version in
+``reference``. There is no other switch: on a card the references run only
+where a caller asks for them by name.
 
 ``launch_counts`` counts kernel launches per kernel id, so a run can show
 that its main path went through the kernels (K4 once per backward call,
@@ -38,6 +42,7 @@ from gen3c_tpu_torch.kernels.reference import (
     int8_matmul_reference,
     mma_probe_reference,
     quantize_rows_reference,
+    ray_triangle_depth_reference,
     splat_max_logd,
     splat_normalize,
     splat_reference,
@@ -45,14 +50,15 @@ from gen3c_tpu_torch.kernels.reference import (
 )
 
 __all__ = [
-    "attention", "splat", "quantize_rows", "w8a8_matmul", "mma_probe", "launch_counts",
-    "reset_launch_counts", "attention_reference", "attention_forward_reference",
-    "attention_backward_reference", "splat_reference", "quantize_rows_reference",
-    "int8_matmul_reference", "w8a8_matmul_reference", "mma_probe_reference",
+    "attention", "attention_tiles", "splat", "ray_triangle_depth", "quantize_rows",
+    "w8a8_matmul", "mma_probe", "launch_counts", "reset_launch_counts", "attention_reference",
+    "attention_forward_reference", "attention_backward_reference", "splat_reference",
+    "ray_triangle_depth_reference", "quantize_rows_reference", "int8_matmul_reference",
+    "w8a8_matmul_reference", "mma_probe_reference",
 ]
 
-launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4band": 0, "K5": 0, "K7q": 0, "K7": 0,
-                 "P1": 0}
+launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K3lse": 0, "K4": 0, "K4band": 0, "K5": 0, "K6": 0,
+                 "K7q": 0, "K7": 0, "P1": 0, "P2": 0}
 # K4's launches split by the forward they differentiate (K1 self-, K2 cross-attention)
 k4_launches_by_forward = {"K1": 0, "K2": 0}
 
@@ -78,12 +84,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel_id names the TPU kernel this call stands in for ("K1" for
     self-attention, "K2" for cross-attention); it selects the launch count.
     band=(hw, window, prefix) is the temporal band of K3 (see
-    ``attention_reference``); a call with a band counts as K3.
+    ``attention_reference``); a forward-only call with a band counts as K3.
 
     Without a gradient to track (grad mode off, or no input requiring
     grad) this is one forward launch. Otherwise it is ``_Attention``: a
     forward that also keeps the row logsumexp (counted under kernel_id, or
-    K3 with a band) and K4 as its backward (K4band with a band). Under
+    K3lse with a band) and K4 as its backward (K4band with a band). Under
     per-block remat the forward of a block runs twice per training step
     (forward, then the recompute before its backward), so the forward
     counts two launches per block and step and the backward one.
@@ -111,7 +117,7 @@ class _Attention(torch.autograd.Function):
             from gen3c_tpu_torch.kernels import cuda
 
             out, lse = cuda.attention_fwd_lse(q, k, v, band)
-            launch_counts["K3" if band is not None else kernel_id] += 1
+            launch_counts["K3lse" if band is not None else kernel_id] += 1
         else:
             out, lse = attention_forward_reference(q, k, v, band)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -161,6 +167,39 @@ def w8a8_matmul(x: torch.Tensor, qweight: torch.Tensor, wscale: torch.Tensor,
     out = cuda.int8_gemm(xq, qweight, xscale, wscale, out_dtype)
     launch_counts["K7"] += 1
     return out.reshape(*x.shape[:-1], qweight.shape[0])
+
+
+def attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    block_m: int = 64, block_n: int = 64) -> torch.Tensor:
+    """P2: K1's bf16 forward instantiated with block_m queries (block_m / 16
+    warps) and block_n keys per tile, one of ``cuda.TILE_CONFIGS``; (64, 64)
+    is K1's own instantiation. q (B, Lq, H, 128), k/v (B, Lk, H, 128) bf16
+    in any strides with unit stride along D. The tile sweep's kernel: the
+    port's attention always runs K1 (``attention``)."""
+    if not _on_cuda(q, "attention_tiles"):
+        return attention_reference(q, k, v)
+    from gen3c_tpu_torch.kernels import cuda
+
+    out = cuda.attention_tiles(q, k, v, block_m, block_n)
+    launch_counts["P2"] += 1
+    return out
+
+
+def ray_triangle_depth(ray_dirs: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
+                       v2: torch.Tensor) -> torch.Tensor:
+    """K6: the nearest hit distance per ray, (R,) fp32, 0.0 where no triangle
+    hits (gen3c_tpu's ``ray_triangle_depth``). ray_dirs (R, 3) with origins
+    at 0, triangles v0/v1/v2 (T, 3), all fp32; T may be 0 (zeros, nothing
+    launched). See ``ray_triangle_depth_reference``."""
+    if not _on_cuda(ray_dirs, "ray_triangle_depth"):
+        return ray_triangle_depth_reference(ray_dirs, v0, v1, v2)
+    if v0.shape[0] == 0 or ray_dirs.shape[0] == 0:
+        return torch.zeros(ray_dirs.shape[0], dtype=torch.float32, device=ray_dirs.device)
+    from gen3c_tpu_torch.kernels import cuda
+
+    out = cuda.ray_triangle_depth(ray_dirs, v0, v1, v2)
+    launch_counts["K6"] += 1
+    return out
 
 
 def splat(

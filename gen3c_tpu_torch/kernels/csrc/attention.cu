@@ -7,6 +7,9 @@
 //       (make_temporal_band_mask, dit.py:370-409, used at :459-460)
 // All compute softmax(q.k^T / sqrt(d)) . v per (batch, head) with the
 // softmax in fp32; K2 is the Lq != Lk case of the same kernel.
+//   P2  scripts/sweep_attention.py:32-68, the splash block-size sweep:
+//       K1's body instantiated with other tiles (attn_fwd_bf16_tiles,
+//       gen3c_attention_bf16_tiles); K1 itself keeps its 64 x 64 tile.
 //
 // K3's band (hw, window, prefix): query token i sees key token j iff
 // |i/hw - j/hw| <= window or j/hw < prefix (frames of hw tokens, t-major
@@ -152,9 +155,10 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Stage rows [row0, row0 + 64) x [0, DP) of one (batch, head) slice into
-// shared memory (row pitch DP + 8), zero-filling rows >= L and dims >= D.
-template <int DP, bool VEC>
+// Stage rows [row0, row0 + ROWS) x [0, DP) of one (batch, head) slice into
+// shared memory (row pitch DP + 8), zero-filling rows >= L and dims >= D,
+// with THREADS threads.
+template <int DP, bool VEC, int ROWS = 64, int THREADS = kThreads>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
                                           const __nv_bfloat16* base,
                                           long long s_l, int row0, int L,
@@ -162,7 +166,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
   constexpr int kPitch = DP + 8;
   if (VEC) {  // D % 8 == 0 and 16-byte aligned rows: one uint4 per 8 dims
     constexpr int kChunks = DP / 8;
-    for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
       const int r = i / kChunks;
       const int c = (i % kChunks) * 8;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -173,7 +177,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
       *reinterpret_cast<uint4*>(smem + r * kPitch + c) = val;
     }
   } else {
-    for (int i = threadIdx.x; i < 64 * DP; i += kThreads) {
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
       const int r = i / DP;
       const int c = i % DP;
       __nv_bfloat16 val = __float2bfloat16(0.f);
@@ -185,18 +189,19 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
   }
 }
 
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-    attn_fwd_bf16(const AttnParams p) {
+// K1's body for a tile of BM queries (BM / 16 warps of 16 rows) and BN keys.
+template <int DP, bool VEC, int BM, int BN>
+__device__ __forceinline__ void attn_fwd_bf16_body(const AttnParams& p) {
+  constexpr int kTileThreads = BM * 2;
   constexpr int kPitch = DP + 8;  // +16 bytes: conflict-free fragment reads
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBlockM * kPitch;
-  __nv_bfloat16* sV = sK + kBlockN * kPitch;
+  __nv_bfloat16* sK = sQ + BM * kPitch;
+  __nv_bfloat16* sV = sK + BN * kPitch;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockM;
+  const int q0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;   // fragment row group
@@ -210,7 +215,7 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* v =
       static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  load_tile<DP, VEC>(sQ, q, p.q_sl, q0, p.Lq, p.D);
+  load_tile<DP, VEC, BM, kTileThreads>(sQ, q, p.q_sl, q0, p.Lq, p.D);
 
   const float scale_log2 = p.scale * 1.4426950408889634f;
   float o[DP / 8][4];
@@ -221,16 +226,16 @@ __global__ void __launch_bounds__(kThreads)
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
   float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
 
-  for (int n0 = 0; n0 < p.Lk; n0 += kBlockN) {
+  for (int n0 = 0; n0 < p.Lk; n0 += BN) {
     __syncthreads();  // previous tile fully consumed
-    load_tile<DP, VEC>(sK, k, p.k_sl, n0, p.Lk, p.D);
-    load_tile<DP, VEC>(sV, v, p.v_sl, n0, p.Lk, p.D);
+    load_tile<DP, VEC, BN, kTileThreads>(sK, k, p.k_sl, n0, p.Lk, p.D);
+    load_tile<DP, VEC, BN, kTileThreads>(sV, v, p.v_sl, n0, p.Lk, p.D);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[kBlockN / 8][4];
+    float s[BN / 8][4];
 #pragma unroll
-    for (int t = 0; t < kBlockN / 8; ++t) {
+    for (int t = 0; t < BN / 8; ++t) {
       s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
     }
 #pragma unroll
@@ -239,7 +244,7 @@ __global__ void __launch_bounds__(kThreads)
       const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * kPitch),
                              ld_u32(qa + 8), ld_u32(qa + 8 * kPitch + 8)};
 #pragma unroll
-      for (int t = 0; t < kBlockN / 8; ++t) {
+      for (int t = 0; t < BN / 8; ++t) {
         const __nv_bfloat16* kb = sK + (t * 8 + g) * kPitch + kk * 16 + tg * 2;
         const uint32_t bb[2] = {ld_u32(kb), ld_u32(kb + 8)};
         mma_16816(s[t], a, bb);
@@ -249,7 +254,7 @@ __global__ void __launch_bounds__(kThreads)
     // online softmax: scale the fp32 logits, mask keys >= Lk
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int t = 0; t < kBlockN / 8; ++t) {
+    for (int t = 0; t < BN / 8; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n0 + t * 8 + tg * 2 + (e & 1);
@@ -268,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
       l_run[i] *= alpha[i];
     }
 #pragma unroll
-    for (int t = 0; t < kBlockN / 8; ++t) {
+    for (int t = 0; t < BN / 8; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float pe = exp2f(s[t][e] - m_run[e >> 1]);
@@ -287,7 +292,7 @@ __global__ void __launch_bounds__(kThreads)
     // O += P V: the accumulator layout of two adjacent key n-tiles is the
     // A-operand layout of one k16 step, so P never leaves registers.
 #pragma unroll
-    for (int j = 0; j < kBlockN / 16; ++j) {
+    for (int j = 0; j < BN / 16; ++j) {
       const uint32_t a[4] = {pack_f32x2(s[2 * j][0], s[2 * j][1]),
                              pack_f32x2(s[2 * j][2], s[2 * j][3]),
                              pack_f32x2(s[2 * j + 1][0], s[2 * j + 1][1]),
@@ -323,6 +328,19 @@ __global__ void __launch_bounds__(kThreads)
       if (col + 1 < p.D) orow[col + 1] = __float2bfloat16(o[t][2 * i + 1] * inv);
     }
   }
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    attn_fwd_bf16(const AttnParams p) {
+  attn_fwd_bf16_body<DP, VEC, kBlockM, kBlockN>(p);
+}
+
+// P2: K1 with another tile, for the tile sweep (head dim 128, 16-byte rows).
+template <int BM, int BN>
+__global__ void __launch_bounds__(BM * 2)
+    attn_fwd_bf16_tiles(const AttnParams p) {
+  attn_fwd_bf16_body<128, true, BM, BN>(p);
 }
 
 // K3: attn_fwd_bf16 restricted to the key tiles of each query tile's band.
@@ -612,6 +630,18 @@ cudaError_t dispatch_vec(const AttnParams& p, const Band& band, bool vec,
              : launch_bf16<DP, false>(p, band, stream);
 }
 
+template <int BM, int BN>
+cudaError_t launch_tiles(const AttnParams& p, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(BM + 2 * BN) * (128 + 8) * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(attn_fwd_bf16_tiles<BM, BN>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lq + BM - 1) / BM, p.H, p.B);
+  attn_fwd_bf16_tiles<BM, BN><<<grid, BM * 2, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 AttnParams make_params(const void* q, const void* k, const void* v, void* o,
                        const long long* strides, int B, int Lq, int Lk, int H,
                        int D, float scale) {
@@ -690,4 +720,26 @@ extern "C" int gen3c_attention_f32(const void* q, const void* k, const void* v,
   attn_fwd_f32<<<grid, kF32Warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       p, make_band(band, visited));
   return static_cast<int>(cudaGetLastError());
+}
+
+// P2: K1's bf16 forward with a (block_m, block_n) tile of the sweep's list
+// (kernels/cuda.py TILE_CONFIGS); (64, 64) launches K1's own kernel. Head
+// dim 128, 16-byte aligned rows. Returns a cudaError_t (0 on success).
+extern "C" int gen3c_attention_bf16_tiles(const void* q, const void* k, const void* v,
+                                          void* o, const long long* strides, int B,
+                                          int Lq, int Lk, int H, int D, float scale,
+                                          int block_m, int block_n, void* stream) {
+  if (B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || D != 128 || H > 65535 || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const AttnParams p = make_params(q, k, v, o, strides, B, Lq, Lk, H, D, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (block_m == 64 && block_n == 64) err = launch_bf16<128, true>(p, make_band(nullptr, nullptr), s);
+  if (block_m == 64 && block_n == 32) err = launch_tiles<64, 32>(p, s);
+  if (block_m == 64 && block_n == 128) err = launch_tiles<64, 128>(p, s);
+  if (block_m == 128 && block_n == 32) err = launch_tiles<128, 32>(p, s);
+  if (block_m == 128 && block_n == 64) err = launch_tiles<128, 64>(p, s);
+  if (block_m == 128 && block_n == 128) err = launch_tiles<128, 128>(p, s);
+  return static_cast<int>(err);
 }

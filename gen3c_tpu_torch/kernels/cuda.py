@@ -43,10 +43,13 @@ def library() -> ctypes.CDLL:
             lib.gen3c_attention_fwd_lse.argtypes = [_P] * 5 + shape
             lib.gen3c_attention_bwd.argtypes = [_P] * 10 + shape
             lib.gen3c_mma_probe.argtypes = [_P, _P, _P] + [_I] * 7 + [_P]
+            lib.gen3c_attention_bf16_tiles.argtypes = attn[:-2] + [_I, _I, _P]
+            lib.gen3c_ray_triangle_depth.argtypes = [_P, _P, _I, _I, _P, _P]
             for fn in (lib.gen3c_attention_bf16, lib.gen3c_attention_f32, lib.gen3c_splat,
                        lib.gen3c_quant_rows, lib.gen3c_w8a8_gemm,
                        lib.gen3c_attention_fwd_lse, lib.gen3c_attention_bwd,
-                       lib.gen3c_mma_probe):
+                       lib.gen3c_mma_probe, lib.gen3c_attention_bf16_tiles,
+                       lib.gen3c_ray_triangle_depth):
                 fn.restype = _I
             _lib = lib
         return _lib
@@ -136,6 +139,66 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check(lib.gen3c_attention_bf16(*args, int(vec), _stream(q)), "attention_bf16")
     else:
         _check(lib.gen3c_attention_f32(*args, _stream(q)), "attention_f32")
+    return out
+
+
+# P2: the (block_m, block_n) tiles attention.cu instantiates K1's bf16
+# forward with (block_m / 16 warps); (64, 64) is K1's own.
+TILE_CONFIGS = ((64, 32), (64, 64), (64, 128), (128, 32), (128, 64), (128, 128))
+SMEM_LIMIT = 227 * 1024  # shared memory one CTA may use on an H100
+
+
+def tile_smem_bytes(block_m: int, block_n: int, d: int = 128) -> int:
+    """Shared memory of one CTA: the Q tile and the K and V tiles, rows of
+    D + 8 bf16 (16 bytes of padding against bank conflicts)."""
+    return (block_m + 2 * block_n) * (d + 8) * 2
+
+
+def attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    block_m: int, block_n: int) -> torch.Tensor:
+    """gen3c_attention_bf16_tiles (P2): K1's bf16 forward with a
+    (block_m, block_n) tile of ``TILE_CONFIGS``. Head dim 128 only; q, k
+    and v in any strides whose rows start 16-byte aligned."""
+    if (block_m, block_n) not in TILE_CONFIGS:
+        raise ValueError(f"attention tiles: ({block_m}, {block_n}) is not one of {TILE_CONFIGS}")
+    B, Lq, Lk, H, D = _check_qkv(q, k, v)
+    if q.dtype != torch.bfloat16 or D != 128:
+        raise ValueError(f"attention tiles: bf16 with head dim 128 only, got {q.dtype} D={D}")
+    if not all(t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+               and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)):
+        raise ValueError("attention tiles: rows must be 16-byte aligned with unit stride along D")
+    out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v) for i in range(3)))
+    _check(library().gen3c_attention_bf16_tiles(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, B, Lq, Lk, H, D,
+        1.0 / math.sqrt(D), block_m, block_n, _stream(q)), "attention_bf16_tiles")
+    return out
+
+
+def ray_triangle_depth(rays: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
+                       v2: torch.Tensor) -> torch.Tensor:
+    """gen3c_ray_triangle_depth (K6): the nearest hit distance per ray, (R,)
+    fp32, 0.0 where none. rays (R, 3) and v0/v1/v2 (T, 3) fp32 on one CUDA
+    device, R and T > 0. The per-triangle terms (``ray_triangle_setup``)
+    are formed here with torch, once per mesh."""
+    from gen3c_tpu_torch.kernels.reference import ray_triangle_setup
+
+    tensors = {"rays": rays, "v0": v0, "v1": v1, "v2": v2}
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != rays.device:
+            raise ValueError(f"ray-triangle kernel: {name} must be on {rays.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"ray-triangle kernel takes fp32, {name} is {t.dtype}")
+        if t.ndim != 2 or t.shape[1] != 3:
+            raise ValueError(f"ray-triangle kernel: {name} has shape {tuple(t.shape)}, not (n, 3)")
+    R, T = rays.shape[0], v0.shape[0]
+    if v1.shape[0] != T or v2.shape[0] != T or R == 0 or T == 0 or R >= 2 ** 31:
+        raise ValueError(f"ray-triangle kernel: bad counts R={R}, T={T}/{v1.shape[0]}/{v2.shape[0]}")
+    tris = ray_triangle_setup(v0, v1, v2)
+    rays = rays.contiguous()
+    out = torch.empty(R, dtype=torch.float32, device=rays.device)
+    _check(library().gen3c_ray_triangle_depth(rays.data_ptr(), tris.data_ptr(), R, T,
+                                              out.data_ptr(), _stream(rays)), "ray_triangle_depth")
     return out
 
 

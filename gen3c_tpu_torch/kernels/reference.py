@@ -19,6 +19,8 @@ non-Pallas paths:
     :299-300).
   * ``mma_probe_reference``: the loop of scripts/probe_int8_attention.py's
     Pallas kernel (:37-62), P1's plain version.
+  * ``ray_triangle_depth_reference``: gen3c_tpu/ops/raycast.py
+    ``ray_triangle_depth`` (:97-140), K6's plain version, chunked over rays.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ _LOGITS_PER_CHUNK = 1 << 28  # fp32 logits live at once in the reference
 # fp32 matmul of the codes is exact (1024 * 128^2 = 2^24)
 _EXACT_K_CHUNK = 1024
 _ACC_PER_CHUNK = 1 << 28  # int32 accumulators formed at once in the reference
+_RAY_PAIRS_PER_CHUNK = 1 << 24  # (ray, triangle) pairs formed at once in the reference
+RAY_EPS = 1e-8  # raycast.py _EPS
 
 INV_127 = float(np.float32(1.0) / np.float32(127.0))  # 1/127 rounded to fp32
 Band = Tuple[int, int, int]  # (tokens per frame, window in frames, prefix frames)
@@ -310,3 +314,61 @@ def splat_reference(
     acc = splat_accumulate_reference(frame1, mask1, depth1, flow12, flow12_mask,
                                      max_logd, depth_weight_scale)
     return splat_normalize(acc, c, h, w, is_image)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.cross's formula, each product and difference a separate op."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a0 b0 + a1 b1) + a2 b2 over the last axis, in that order."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def ray_triangle_setup(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """The ray-independent terms of Moller-Trumbore per triangle, (T, 13)
+    fp32: e1 = v1 - v0, e2 = v2 - v0, s = -v0 (the origin minus v0),
+    q = cross(s, e1) and dot(e2, q). K6 reads these rows."""
+    e1, e2, s = v1 - v0, v2 - v0, -v0
+    q = _cross(s, e1)
+    return torch.cat([e1, e2, s, q, _dot(e2, q)[:, None]], dim=1).contiguous()
+
+
+def ray_triangle_depth_reference(ray_dirs: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
+                                 v2: torch.Tensor, tri_valid: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """Smallest hit distance per ray, (R,) fp32, 0.0 where no triangle hits.
+
+    ray_dirs (R, 3) with origins at 0; triangles v0/v1/v2 (T, 3); tri_valid
+    (T,) bool marks the triangles to test (the JAX version's padding mask).
+    Moller-Trumbore with eps 1e-8 as gen3c_tpu's ``ray_triangle_depth``:
+    h = cross(d, e2), a = dot(e1, h), f = 1 / a, u = f dot(s, h),
+    v = f dot(d, q), t = f dot(e2, q); a hit is |a| >= 1e-8, 0 <= u <= 1,
+    v >= 0, u + v <= 1, t > 1e-8. Rays go in chunks of 2^24 pairs.
+    """
+    R, T = ray_dirs.shape[0], v0.shape[0]
+    out = torch.zeros(R, dtype=torch.float32, device=ray_dirs.device)
+    if T == 0 or R == 0:
+        return out
+    tri = ray_triangle_setup(v0.float(), v1.float(), v2.float())
+    e1, e2, s, q, eq = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9], tri[:, 9:12], tri[:, 12]
+    dirs = ray_dirs.float()
+    rows = max(1, _RAY_PAIRS_PER_CHUNK // T)
+    for r0 in range(0, R, rows):
+        d = dirs[r0:r0 + rows, None, :]  # (c, 1, 3)
+        h = _cross(d, e2[None])  # (c, T, 3)
+        a = _dot(e1[None], h)
+        f = 1.0 / torch.where(a.abs() < RAY_EPS, torch.ones_like(a), a)
+        u = f * _dot(s[None], h)
+        v = f * _dot(d, q[None])
+        t = f * eq[None]
+        hit = ((a.abs() >= RAY_EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+               & (t > RAY_EPS))
+        if tri_valid is not None:
+            hit &= tri_valid[None]
+        best = torch.where(hit, t, torch.full_like(t, 1e10)).amin(dim=1)
+        out[r0:r0 + rows] = torch.where(best < 1e10, best, torch.zeros_like(best))
+    return out

@@ -29,11 +29,19 @@ def create_grid(h: int, w: int, dtype=torch.float32, device=None) -> torch.Tenso
     return torch.stack([x, y], dim=0)
 
 
-def _pixel_rays(h: int, w: int, intrinsic: torch.Tensor) -> torch.Tensor:
+def _unit_depth_rays(h: int, w: int, intrinsic: torch.Tensor) -> torch.Tensor:
     """Unnormalised K^-1 [x, y, 1] per pixel: (b, h, w, 3)."""
     grid = create_grid(h, w, intrinsic.dtype, intrinsic.device)
     pos = torch.stack([grid[0], grid[1], torch.ones_like(grid[0])], dim=-1)
     return torch.einsum("bij,hwj->bhwi", _inv(intrinsic), pos)
+
+
+def pixel_rays(h: int, w: int, intrinsic: torch.Tensor) -> torch.Tensor:
+    """Unit-norm camera rays through every pixel, intrinsic (b, 3, 3) ->
+    (b, h, w, 3) (gen3c_tpu's ``pixel_rays``; a zero ray stays zero)."""
+    unnorm = _unit_depth_rays(h, w, intrinsic)
+    norm = torch.sqrt((unnorm * unnorm).sum(dim=-1, keepdim=True))
+    return unnorm / torch.where(norm == 0, torch.ones_like(norm), norm)
 
 
 def unproject_points(
@@ -51,7 +59,7 @@ def unproject_points(
     if mask.ndim == 4:
         mask = mask[:, 0]
     mask = mask.bool()
-    unnorm = _pixel_rays(h, w, intrinsic)
+    unnorm = _unit_depth_rays(h, w, intrinsic)
     if is_depth:
         cam = depth[:, 0, :, :, None] * unnorm
     else:
@@ -85,7 +93,7 @@ def compute_transformed_points(
     if intrinsic2 is None:
         intrinsic2 = intrinsic1
     transformation = torch.einsum("bij,bjk->bik", transformation2, _inv(transformation1))
-    unnorm = _pixel_rays(h, w, intrinsic1)
+    unnorm = _unit_depth_rays(h, w, intrinsic1)
     if is_depth:
         cam1 = depth[:, 0, :, :, None] * unnorm
     else:

@@ -29,10 +29,14 @@ def run_chunked_generation(
     prompt: str,
     negative_prompt: Optional[str] = None,
     update_cache_with_depth: Optional[Callable] = None,  # depth estimator or None
+    use_start_frame_idx: bool = False,  # Cache4D: chunk c renders its own source frames
     save_buffer: bool = False,
     timings: Optional[dict] = None,
 ) -> Tuple[np.ndarray, List[np.ndarray]]:
     """Returns (video (T, H, W, 3) uint8, list of warp buffers).
+
+    ``use_start_frame_idx`` renders the window [start, end) of a
+    per-frame cache (``Cache4D``) from its own source frames.
 
     ``timings``, if given, receives per-chunk seconds: "render" (cache
     render), "update" (depth + update_cache) and "generate".
@@ -49,7 +53,8 @@ def run_chunked_generation(
 
     def render(start: int, end: int):
         t0 = time.perf_counter()
-        wi, wm = cache.render_cache(w2cs[:, start:end], ks[:, start:end])
+        wi, wm = cache.render_cache(w2cs[:, start:end], ks[:, start:end],
+                                    start_frame_idx=start if use_start_frame_idx else 0)
         synchronize(dev)
         timings["render"].append(time.perf_counter() - t0)
         return wi, wm

@@ -5,7 +5,8 @@
 topology at test size in fp32. No checkpoint loading yet: weights are a
 seeded random init drawn on the target device. ``apply_perf_preset``
 expands ``--perf_preset fast`` (W8A8, band attention, step caching,
-guidance interval) as the JAX package does.
+guidance interval) as the JAX package does; ``add_perf_flags``,
+``check_ported`` and ``build_from_args`` serve the CLIs.
 """
 
 from __future__ import annotations
@@ -169,3 +170,75 @@ def apply_perf_preset(args) -> None:
         args.step_cache_interval = 2
     if getattr(args, "guidance_interval", None) is None:
         args.guidance_interval = [1.75, 81.0]
+
+
+def add_perf_flags(p) -> None:
+    """The speed flags the dynamic and multiview CLIs share with
+    gen3c_tpu's ``add_perf_flags`` (same names and defaults), and
+    ``--device``."""
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (cuda, cuda:N or cpu)")
+    p.add_argument("--perf_preset", choices=["exact", "fast"], default="exact",
+                   help="'fast' = W8A8 + band window 2 + step-cache interval 2 + "
+                        "guidance interval 1.75..81; explicit flags win")
+    p.add_argument("--quantize_int8", action="store_true",
+                   help="int8 weight-only DiT (dequantized bf16 matmuls)")
+    p.add_argument("--quantize_w8a8", action="store_true",
+                   help="int8 DiT weights and per-token int8 activations (kernels K7q + K7)")
+    p.add_argument("--offload_diffusion_transformer", action="store_true", help="not ported yet")
+    p.add_argument("--offload_tokenizer", action="store_true", help="not ported yet")
+    p.add_argument("--step_cache_interval", type=int, default=1,
+                   help="> 1: run the DiT every Nth step after a 2-step warmup and "
+                        "before a 2-step tail, reusing its output between")
+    p.add_argument("--attn_temporal_window", type=int, default=None,
+                   help="band self-attention (kernel K3): each latent frame attends "
+                        "to frames within +/- N plus the seed frame")
+    p.add_argument("--guidance_interval", type=float, nargs=2, default=None,
+                   metavar=("SIGMA_LO", "SIGMA_HI"),
+                   help="run CFG only on steps whose sigma lies in [LO, HI]")
+    p.add_argument("--cfg_rescale", type=float, default=0.0,
+                   help="phi in [0, 1]: blend in the CFG output rescaled to the cond "
+                        "branch's std; 0 = plain CFG")
+    p.add_argument("--cp_attn", type=str, default=None,
+                   choices=["allgather", "ring", "ulysses"], help="not ported yet")
+    p.add_argument("--parallel", type=str, default="cp", help="multi-device: not ported yet")
+    p.add_argument("--num_devices", "--num_gpus", type=int, default=1, dest="num_devices",
+                   help="> 1 not ported yet")
+
+
+def check_ported(args) -> None:
+    """Raise NotImplementedError naming the first set flag of a CLI whose
+    feature this port does not have (flags a CLI lacks count as unset)."""
+    unported = {
+        "--step_cache_block_span": getattr(args, "step_cache_block_span", None) is not None,
+        "--step_cache_span_dtype": getattr(args, "step_cache_span_dtype", "bf16") != "bf16",
+        "--solver": getattr(args, "solver", "euler") != "euler",
+        "--num_devices": getattr(args, "num_devices", 1) > 1,
+        "--parallel": getattr(args, "parallel", "cp") != "cp",
+        "--cp_attn": getattr(args, "cp_attn", None) is not None,
+        "--enable_prompt_encoder": not getattr(args, "disable_prompt_encoder", True),
+        "--offload_diffusion_transformer": getattr(args, "offload_diffusion_transformer", False),
+        "--offload_tokenizer": getattr(args, "offload_tokenizer", False),
+    }
+    for flag, used in unported.items():
+        if used:
+            raise NotImplementedError(f"{flag} is not ported to gen3c_tpu_torch yet")
+
+
+def build_from_args(args) -> Tuple[Gen3CModel, Gen3CPreset]:
+    """``apply_perf_preset``, ``check_ported``, then ``build_gen3c_model`` on
+    ``args.device`` with the quantization and band the flags ask for."""
+    apply_perf_preset(args)
+    check_ported(args)
+    quantize = "w8a8" if args.quantize_w8a8 else ("int8" if args.quantize_int8 else False)
+    return build_gen3c_model(args.model_preset, device=args.device, seed=args.seed,
+                             checkpoint_dir=args.checkpoint_dir, quantize=quantize,
+                             attn_temporal_window=args.attn_temporal_window)
+
+
+def validate_num_frames(num_video_frames: int, chunk_size: int) -> None:
+    """A run chains chunks of chunk_size frames with one frame of overlap."""
+    n = num_video_frames
+    if n < chunk_size or (n - 1) % (chunk_size - 1):
+        raise ValueError(
+            f"num_video_frames must be {chunk_size} + k*{chunk_size - 1} (got {n})")

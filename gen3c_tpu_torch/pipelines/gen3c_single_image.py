@@ -22,9 +22,10 @@ import torch
 
 from gen3c_tpu_torch.cache.cache3d import Cache3DBuffer
 from gen3c_tpu_torch.ops.camera import CAMERA_ROTATIONS, TRAJECTORY_TYPES, generate_camera_trajectory
+from gen3c_tpu_torch.pipelines import factory
 from gen3c_tpu_torch.pipelines.chunked import compose_buffer_video, run_chunked_generation
 from gen3c_tpu_torch.pipelines.depth import make_depth_estimator
-from gen3c_tpu_torch.pipelines.factory import PRESETS, apply_perf_preset, build_gen3c_model
+from gen3c_tpu_torch.pipelines.factory import PRESETS
 from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
 from gen3c_tpu_torch.utils import log
 from gen3c_tpu_torch.utils.io import read_image_bcthw, read_prompts_from_file, save_video
@@ -88,7 +89,8 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--noise_aug_strength", type=float, default=0.0)
     p.add_argument("--frame_buffer_max", type=int, default=2)
     p.add_argument("--filter_points_threshold", type=float, default=0.05)
-    p.add_argument("--foreground_masking", action="store_true", help="not ported yet")
+    p.add_argument("--foreground_masking", action="store_true",
+                   help="cull splatted pixels behind the depth-boundary mesh (kernel K6)")
     p.add_argument("--save_buffer", action="store_true")
     p.add_argument("--batch_input_path", type=str, default=None,
                    help="JSONL with one {\"prompt\",\"visual_input\"} per line")
@@ -113,42 +115,10 @@ def create_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError naming each set flag whose feature this
-    port does not have."""
-    unported = {
-        "--step_cache_block_span": args.step_cache_block_span is not None,
-        "--step_cache_span_dtype": args.step_cache_span_dtype != "bf16",
-        "--solver": args.solver != "euler",
-        "--num_devices": args.num_devices > 1,
-        "--parallel": args.parallel != "cp",
-        "--cp_attn": args.cp_attn is not None,
-        "--foreground_masking": args.foreground_masking,
-        "--enable_prompt_encoder": not args.disable_prompt_encoder,
-        "--offload_diffusion_transformer": args.offload_diffusion_transformer,
-        "--offload_tokenizer": args.offload_tokenizer,
-    }
-    for flag, used in unported.items():
-        if used:
-            raise NotImplementedError(f"{flag} is not ported to gen3c_tpu_torch yet")
-
-
-def validate_args(args, chunk_size: int) -> None:
-    n = args.num_video_frames
-    if n < chunk_size or (n - 1) % (chunk_size - 1):
-        raise ValueError(
-            f"num_video_frames must be {chunk_size} + k*{chunk_size - 1} (got {n})")
-
-
 def demo(args) -> str:
-    apply_perf_preset(args)
-    check_ported(args)
+    model, preset = factory.build_from_args(args)
     device = torch.device(args.device)
-    quantize = "w8a8" if args.quantize_w8a8 else ("int8" if args.quantize_int8 else False)
-    model, preset = build_gen3c_model(args.model_preset, device=device, seed=args.seed,
-                                      checkpoint_dir=args.checkpoint_dir, quantize=quantize,
-                                      attn_temporal_window=args.attn_temporal_window)
-    validate_args(args, preset.chunk_size)
+    factory.validate_num_frames(args.num_video_frames, preset.chunk_size)
     pipeline = Gen3cPipeline(
         model=model, guidance=args.guidance, num_steps=args.num_steps, seed=args.seed,
         step_cache_interval=args.step_cache_interval,
@@ -183,6 +153,7 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name)
         input_w2c=torch.from_numpy(w2c0[None]),
         input_intrinsics=torch.from_numpy(np.asarray(intrinsics, np.float32)[None]),
         filter_points_threshold=args.filter_points_threshold,
+        foreground_masking=args.foreground_masking,
         device=device,
     )
     w2cs, ks = generate_camera_trajectory(

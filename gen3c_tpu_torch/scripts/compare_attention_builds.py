@@ -1,7 +1,8 @@
-"""Two versions of the training attention kernels side by side, on one card.
+"""Two versions of the attention kernels side by side, on one card.
 
-A change to ``kernels/csrc/attention_bwd.cu`` that should not change K4's or
-K4-band's code or results (a refactor) is held to the version before it:
+A change to ``kernels/csrc/attention.cu`` or ``attention_bwd.cu`` that should
+not change K1's, K3's, K4's or K4-band's code or results (a refactor, or
+instantiations added beside them) is held to the version before it:
 
     python -m gen3c_tpu_torch.scripts.compare_attention_builds ptx OLD.cu NEW.cu
         compiles both sources with kernels/build.py's flags, to PTX and
@@ -11,11 +12,12 @@ K4-band's code or results (a refactor) is held to the version before it:
         bytes in each version.
 
     PYTHONPATH=<checkout> python gen3c_tpu_torch/scripts/compare_attention_builds.py run TAG
-        runs the K4 and K4-band of the gen3c_tpu_torch found first on the
-        path at the GEN3C-7B self shape (1, 56,320, 32, 128) bf16, full and
-        with the band 3,520 / 2 / 1, and at two ragged bf16 shapes, and
-        prints one JSON line: a hash of every output (forward, lse, dq, dk,
-        dv) and CUDA-event milliseconds (median of 3 after a warm-up).
+        runs the K1 and K3 (B = 2) and the K4 and K4-band (B = 1) of the
+        gen3c_tpu_torch found first on the path at the GEN3C-7B self shape
+        (B, 56,320, 32, 128) bf16, full and with the band 3,520 / 2 / 1,
+        and K4 at two ragged bf16 shapes, and prints one JSON line: a hash
+        of every output (forward, lse, dq, dk, dv) and CUDA-event
+        milliseconds (median of 3 after a warm-up).
 
 Run ``run`` for the old and the new checkout in one call, in the order old,
 new, new, old: equal hashes show the same bits, and the times compare.
@@ -68,8 +70,9 @@ def _ptxas_counts(log: str) -> dict:
 
 
 def compare_ptx(old: str, new: str) -> bool:
-    """Print the per-entry comparison; True when every entry's registers and
-    spills are the same."""
+    """Print the per-entry comparison; True when every entry that both
+    versions have keeps its registers and spills (entries one version adds
+    are listed, with null counts on the other side)."""
     from gen3c_tpu_torch.kernels.build import NVCC_FLAGS, find_nvcc
 
     flags = [f for f in NVCC_FLAGS if f != "--ptxas-options=-v"]
@@ -87,11 +90,13 @@ def compare_ptx(old: str, new: str) -> bool:
     same_counts = True
     for name in sorted(set(ptx["old"]) | set(ptx["new"])):
         a, b = counts["old"].get(name), counts["new"].get(name)
-        same_counts &= a == b
+        same_counts &= a == b or name not in ptx["old"] or name not in ptx["new"]
         same_ptx = ptx["old"].get(name) == ptx["new"].get(name)
         print(json.dumps({"entry": name, "ptx_identical": same_ptx,
                           "regs_stack_spills_old": a, "regs_stack_spills_new": b}))
-    print(json.dumps({"entries": len(ptx["new"]), "counts_identical": same_counts}))
+    print(json.dumps({"entries": len(ptx["new"]), "added": len(set(ptx["new"]) - set(ptx["old"])),
+                      "removed": len(set(ptx["old"]) - set(ptx["new"])),
+                      "counts_identical": same_counts}))
     return same_counts
 
 
@@ -105,7 +110,8 @@ def _hash(*tensors) -> str:
 
 
 def run(tag: str) -> dict:
-    """The K4 / K4-band hashes and times of the gen3c_tpu_torch on the path."""
+    """The K1 / K3 / K4 / K4-band hashes and times of the gen3c_tpu_torch on
+    the path."""
     import torch
 
     import gen3c_tpu_torch
@@ -132,6 +138,11 @@ def run(tag: str) -> dict:
         return q, k, v, do
 
     res = {"tag": tag, "package": str(Path(gen3c_tpu_torch.__file__).parent)}
+    q, k, v, _ = inputs((2, 56320, 32, 128), (2, 56320, 32, 128), 2)
+    for name, band in (("k1", None), ("k3", (3520, 2, 1))):
+        res[f"{name}_hash"] = _hash(cuda.attention(q, k, v, band))
+        res[f"{name}_ms"] = ms(lambda: cuda.attention(q, k, v, band))
+    del q, k, v
     q, k, v, do = inputs((1, 56320, 32, 128), (1, 56320, 32, 128), 0)
     for name, band in (("k4", None), ("k4band", (3520, 2, 1))):
         out, lse = cuda.attention_fwd_lse(q, k, v, band)

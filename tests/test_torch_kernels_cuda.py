@@ -9,7 +9,9 @@ Shapes cover what the wrappers promise: bf16 and fp32, head dims from 8 to
 128 (zero-padded to the MMA depth), ragged Lq and Lk, strided inputs,
 temporal bands whose frames straddle the 64-key tiles, several splat
 groups in one launch, int8 GEMMs of any M, N, K, and K4 (the attention
-backward) at ragged self and cross shapes. Tolerances: bf16
+backward) at ragged self and cross shapes, K6 (the ray-triangle depth)
+at ragged ray and triangle counts, and every tile of P2 (K1's tile sweep).
+Tolerances: bf16
 outputs of fp32 softmaxes (atol 2e-2), fp32 (atol 1e-4), atomic fp32 splat
 sums (1e-4 on pixels both call known, masks on >= 99.9% of pixels); int8
 codes, scales, int32 accumulators and the rescaled outputs exactly.
@@ -26,6 +28,7 @@ from gen3c_tpu_torch.kernels.reference import (
     attention_reference,
     int8_matmul_reference,
     quantize_rows_reference,
+    ray_triangle_depth_reference,
     splat_reference,
     w8a8_matmul_reference,
 )
@@ -151,8 +154,9 @@ def test_band_attention_full_window_is_k1(gen, dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
 def test_band_attention_with_grad_launches_k4band(gen, dtype, tol):
     """A band with a gradient to track: the band forward with lse (counted
-    as K3) and K4-band once per backward, with the gradients of autograd
-    through the plain band forward (tolerances as for K4's autograd test)."""
+    as K3lse, apart from K3) and K4-band once per backward, with the
+    gradients of autograd through the plain band forward (tolerances as for
+    K4's autograd test)."""
     band = (50, 1, 1)
     q, k, v = (torch.randn((2, 230, 3, 64), generator=gen, device="cuda").to(dtype)
                .requires_grad_(True) for _ in range(3))
@@ -161,7 +165,8 @@ def test_band_attention_with_grad_launches_k4band(gen, dtype, tol):
     out = kernels.attention(q, k, v, band=band)
     got = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["K3"] == before["K3"] + 1
+    assert kernels.launch_counts["K3lse"] == before["K3lse"] + 1
+    assert kernels.launch_counts["K3"] == before["K3"]
     assert kernels.launch_counts["K4band"] == before["K4band"] + 1
     assert kernels.launch_counts["K4"] == before["K4"] and kernels.launch_counts["K1"] == before["K1"]
     leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
@@ -171,6 +176,8 @@ def test_band_attention_with_grad_launches_k4band(gen, dtype, tol):
     with torch.no_grad():
         kernels.attention(q, k, v, band=band)  # no graph: the K3 forward alone
     assert kernels.launch_counts["K4band"] == before["K4band"] + 1
+    assert kernels.launch_counts["K3"] == before["K3"] + 1
+    assert kernels.launch_counts["K3lse"] == before["K3lse"] + 1
 
 
 def _band_tile_pairs(lq, lk, band, q_tile, k_tile, by_key=False):
@@ -410,3 +417,58 @@ def test_w8a8_kernel_rejects_what_it_does_not_take(gen):
         kcuda.int8_gemm(xq, xq, None, None, torch.float16)
     with pytest.raises(ValueError):
         kcuda.int8_gemm(xq, xq, None, None, torch.float32)  # scales missing
+
+
+@pytest.mark.parametrize("r,t", [(1, 1), (257, 0), (1000, 37), (3000, 513), (4097, 1500)])
+def test_ray_triangle_kernel_matches_reference(gen, r, t):
+    """K6 against its plain version: the same operations in the same order,
+    no contraction, so hit decisions flip on at most 1e-4 of the rays and
+    common hits agree within 1e-5 relative (the smoke holds the same at
+    901,120 rays). Rays toward a boundary-like mesh of steep and flat
+    triangles, some exactly through shared vertices; T = 0 launches nothing."""
+    rays = torch.randn((r, 3), generator=gen, device="cuda") * torch.tensor([0.4, 0.3, 1.0],
+                                                                              device="cuda")
+    rays[:, 2] = rays[:, 2].abs() + 0.2
+    rays = rays / rays.norm(dim=1, keepdim=True)
+    v0 = torch.rand((t, 3), generator=gen, device="cuda") * 2 - 1
+    v0[:, 2] = v0[:, 2] + 2.0
+    v1 = v0 + torch.rand((t, 3), generator=gen, device="cuda") * 0.5
+    v2 = v0 + torch.rand((t, 3), generator=gen, device="cuda") * 0.5
+    if t > 1:
+        v1[1] = v0[0]  # a shared vertex, and a ray straight through it
+        rays[0] = v0[0] / v0[0].norm()
+    before = kernels.launch_counts["K6"]
+    got = kernels.ray_triangle_depth(rays, v0, v1, v2)
+    want = ray_triangle_depth_reference(rays, v0, v1, v2)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["K6"] == before + (t > 0)
+    assert got.shape == (r,) and got.dtype == torch.float32
+    flips = ((got > 0) != (want > 0)).float().mean().item()
+    both = (got > 0) & (want > 0)
+    assert flips <= 1e-4
+    assert both.any() or t < 37
+    rel = ((got - want).abs() / want.clamp_min(1e-30))[both]
+    assert rel.numel() == 0 or rel.max().item() <= 1e-5
+    if t == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("config", [(64, 32, "blhd"), (64, 64, "blhd"), (64, 128, "blhd"),
+                                    (128, 32, "blhd"), (128, 64, "blhd"), (128, 128, "blhd"),
+                                    (64, 64, "bhld")])
+def test_attention_tile_sweep_matches_reference(gen, config):
+    """Every P2 tile against the plain attention at ragged shapes (and K1's
+    own tile equal to K1), counted as P2 and not as K1."""
+    from gen3c_tpu_torch.scripts import sweep_attention as sweep
+
+    assert config in sweep.configs()
+    before = dict(kernels.launch_counts)
+    assert sweep.check(config, gen) <= 2e-2
+    bm, bn, layout = config
+    for lq, lk in ((1, 1), (130, 7), (257, 300)):
+        q, k, v = sweep.qkv((2, lq, 3, 128), (2, lk, 3, 128), layout, gen)
+        out = kernels.attention_tiles(q, k, v, bm, bn)
+        assert (out.float() - attention_reference(q, k, v).float()).abs().max().item() <= 2e-2
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["P2"] == before["P2"] + 4
+    assert kernels.launch_counts["K1"] == before["K1"] + ((bm, bn) == (64, 64))

@@ -245,7 +245,8 @@ def test_cli_fast_preset_subprocess(tmp_path):
 @pytest.mark.parametrize("flag", [["--step_cache_block_span", "0", "4"],
                                   ["--step_cache_span_dtype", "int8"], ["--solver", "res2ab"],
                                   ["--cp_attn", "ring"], ["--solver", "dpm2m"],
-                                  ["--num_devices", "2"], ["--foreground_masking"],
+                                  ["--num_devices", "2"],
+                                  ["--enable_prompt_encoder", "--t5_backend", "torch"],
                                   ["--enable_prompt_encoder"], ["--parallel", "tp"],
                                   ["--offload_diffusion_transformer"], ["--offload_tokenizer"]])
 def test_cli_unported_flags_raise(flag):
@@ -253,7 +254,7 @@ def test_cli_unported_flags_raise(flag):
 
     args = cli.create_parser().parse_args(["--input_image_path", "x.png", *flag])
     with pytest.raises(NotImplementedError, match=flag[0]):
-        cli.check_ported(args)
+        cli.demo(args)
 
 
 @pytest.mark.parametrize("flags", [[], ["--perf_preset", "fast"],
@@ -276,13 +277,14 @@ def test_perf_preset_expands_as_jax(flags):
     for key in ("quantize_w8a8", "quantize_int8", "attn_temporal_window", "step_cache_interval",
                 "step_cache_threshold", "guidance_interval", "cfg_rescale", "perf_preset"):
         assert getattr(ours, key) == getattr(theirs, key), key
-    cli.check_ported(ours)
+    tfactory.check_ported(ours)
 
 
 def test_port_never_imports_jax():
     """Every module of the port imports, and its paths run (generation, a
     train step, the Trainer, a LoRA step with the band, the training CLI on
-    a packaged clip), without importing jax, jaxlib or any gen3c_tpu module."""
+    a packaged clip, the dynamic and multiview CLIs with foreground
+    masking), without importing jax, jaxlib or any gen3c_tpu module."""
     code = r"""
 import importlib, pkgutil, sys
 import numpy as np, torch
@@ -339,6 +341,28 @@ with tempfile.TemporaryDirectory() as root:
                       "dit.attn_temporal_window=1", "trainer.max_iter=1", "trainer.warmup_steps=1",
                       f"trainer.job_dir={root}/job"])
     assert cli.state.step == 1
+# the dynamic and multiview CLIs, foreground-masked, on a clip with a nearer box
+from gen3c_tpu_torch.pipelines import gen3c_dynamic, gen3c_multiview
+with tempfile.TemporaryDirectory() as root:
+    F, h, w = p.chunk_size, p.height, p.width
+    depth = np.full((F, 1, h, w), 2.0, np.float32)
+    depth[:, :, h // 3:2 * h // 3, w // 3:2 * w // 3] = 1.0
+    image = rng.uniform(-1, 1, (F, 3, h, w)).astype(np.float32)
+    k = np.repeat(default_intrinsics(h, w)[None], F, 0)
+    w2c = np.asarray(w2c, np.float32).reshape(F, 4, 4)
+    np.savez(f"{root}/clip.npz", image=image, depth=depth, intrinsics=k,
+             w2c=np.repeat(np.eye(4, dtype=np.float32)[None], F, 0))
+    np.savez(f"{root}/mv.npz", images_key_frames=image[:3], depth_key_frames=depth[:3],
+             K_key_frames=k[:3], w2cs_key_frames=w2c[:3], w2cs_all=w2c, Ks_all=k)
+    common = ["--device", "cpu", "--model_preset", "gen3c_tiny", "--num_steps", "1",
+              "--num_video_frames", str(F), "--foreground_masking", "--video_save_folder", root,
+              "--checkpoint_dir", f"{root}/none"]
+    gen3c_dynamic.demo(gen3c_dynamic.create_parser().parse_args(
+        ["--input_video_path", f"{root}/clip.npz", "--trajectory", "left"] + common))
+    record = {}
+    gen3c_multiview.demo(gen3c_multiview.create_parser().parse_args(
+        ["--npz_path", f"{root}/mv.npz", "--frame_buffer_max", "2"] + common), record=record)
+    assert len(record["selections"]) == 1 and len(record["selections"][0]) == 2
 foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gen3c_tpu"))
 assert not foreign, foreign[:8]
 print("jax-free")

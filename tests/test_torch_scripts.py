@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from gen3c_tpu_torch.scripts import compare_attention_builds as cab
+from gen3c_tpu_torch.kernels import cuda as kcuda
 from gen3c_tpu_torch.scripts import probe_int8_attention as probe
 from gen3c_tpu_torch.scripts import profile_lora_step as prof
+from gen3c_tpu_torch.scripts import sweep_attention as sweep
 
 NS_A = "_GLOBAL__N__ee55c35c_16_attention_bwd_cu_87cbb326"
 NS_B = "_GLOBAL__N__0123abcd_16_attention_bwd_cu_deadbeef"
@@ -99,7 +101,8 @@ def test_profile_split_by_kind():
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")
-@pytest.mark.parametrize("main", [probe.main, lambda: prof.main([])], ids=["probe", "profile"])
+@pytest.mark.parametrize("main", [probe.main, lambda: prof.main([]), lambda: sweep.main([])],
+                         ids=["probe", "profile", "sweep"])
 def test_scripts_refuse_to_run_without_a_card(main):
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         main()
@@ -109,3 +112,20 @@ def test_probe_sweeps_the_jax_scripts_cases():
     assert probe.SQUARE_K == (128, 256, 512, 1024)
     assert [s[:3] for s in probe.BLOCK_SHAPES] == [(1408, 128, 1024), (1408, 1024, 128)]
     assert probe.CTAS_PER_SM == (1, 4)
+
+
+def test_sweep_configs_fit_shared_memory_and_warp_rows():
+    """P2's tiles: BLOCK_M 64 or 128 (16 query rows per warp: 4 or 8 warps),
+    BLOCK_N 32, 64 or 128, each within a CTA's 227 KB of shared memory at D
+    = 128; K1's own 64 x 64 tile is among them, and is the one tile also
+    read from the (B, H, L, D) layout."""
+    assert set(kcuda.TILE_CONFIGS) == {(bm, bn) for bm in (64, 128) for bn in (32, 64, 128)
+                                       if kcuda.tile_smem_bytes(bm, bn) <= kcuda.SMEM_LIMIT}
+    assert all(bm % 16 == 0 and bm // 16 in (4, 8) for bm, _ in kcuda.TILE_CONFIGS)
+    assert kcuda.tile_smem_bytes(64, 64) == (64 + 128) * 136 * 2  # K1's launch
+    got = sweep.configs()
+    assert got[:len(kcuda.TILE_CONFIGS)] == [(bm, bn, "blhd") for bm, bn in kcuda.TILE_CONFIGS]
+    assert got[len(kcuda.TILE_CONFIGS):] == [(64, 64, "bhld")]
+    assert sweep.configs(quick=True) == got[:len(kcuda.TILE_CONFIGS)]
+    assert sweep.tag((128, 32, "blhd")) == "bm=128 bn=32 warps=8 layout=blhd"
+    assert sweep.FLOPS == 4.0 * 2 * 32 * 56320 ** 2 * 128
