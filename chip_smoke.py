@@ -14,9 +14,9 @@ Phases, each printing one JSON line of its own numbers:
              accumulators and outputs, TOPS, and cuBLAS bf16 at the shape
   4 main     GEN3C-7B at full width (28 blocks x 4096, 32 x 128 heads,
              bf16, random weights from seed 0) generating one 121-frame
-             704x1280 chunk through run_chunked_generation with 2 Euler
-             steps and batched CFG; seconds per phase, peak memory, and
-             the launches of each kernel in that run
+             704x1280 chunk through run_chunked_generation with MAIN_STEPS
+             Euler steps and batched CFG; seconds per phase, peak memory,
+             and the launches of each kernel in that run
   5 fast     the same model and chunk with the --perf_preset fast knobs:
              W8A8 (quantized on the card), band window 2, step-cache
              interval 2, guidance interval 1.75..81, 8 steps: the asserted
@@ -32,14 +32,14 @@ Phases, each printing one JSON line of its own numbers:
   8 train    train_step at GEN3C-7B width (4096 channels, 32 x 128 heads,
              bf16, 12 of 28 blocks, gates randomized) on one 121-frame
              704x1280 clip (56,320 tokens, 512 text tokens), B=1, remat,
-             TrainerConfig's optimizer defaults, 3 steps: s per step, loss
+             TrainerConfig's optimizer defaults, TRAIN_STEPS steps: s per step, loss
              and grad-norm per step, state GiB reckoned and measured, peak
              GiB, and the launches of K1, K2 and K4
   9 lora_band_train  LoRA fine-tuning of the full 28-block GEN3C-7B (bf16,
              random base from seed 0, gates randomized) with the fast
              preset's band (window 2, prefix 1): the batch from
              build_gen3c_train_batch on a seeded 121-frame 704x1280 RGBD
-             clip (7B VAE, K5), then 3 lora_train_steps (rank 16 on the
+             clip (7B VAE, K5), then LORA_STEPS lora_train_steps (rank 16 on the
              attention projections, remat): s per step, loss, grad-norm,
              peak GiB, base and adapter GiB reckoned and measured, launches
              per step (K4band 28, K3lse 56, K2 56, K4 28, K1 0), and the base
@@ -54,12 +54,25 @@ Phases, each printing one JSON line of its own numbers:
  13 dynamic  the gen3c_dynamic CLI's entry point with the same 7B (built once
              for main, dynamic and multiview) on a seeded 121-frame 704x1280
              packaged clip whose depth has nearer discs and a railing (depth
-             boundaries), --foreground_masking, 2 Euler steps: render s with
+             boundaries), --foreground_masking, DYNAMIC_STEPS Euler steps: render s with
              and without masking, K6 launches (121), the culled fraction,
              s per denoise step, peak GiB
  14 multiview the gen3c_multiview CLI's entry point, same 7B, 4 key frames,
              --frame_buffer_max 2, --foreground_masking, 1 chunk, 1 step: the
              buffers each chunk kept, render s, launches
+ 15 cp       context- and CFG-parallel denoising: CP_RANKS processes on the
+             one card, each a rank (torchrun's environment, gloo: NCCL
+             refuses two ranks of a communicator on one GPU) that builds
+             the 7B from main_path's seeds through build_gen3c_model and runs
+             main_path's chunk through its entry point: Ulysses over all
+             28 blocks, held to main_path's latent, then ring, all-gather
+             and cfg2 at CP_SHORT_BLOCKS blocks, held to the single process
+             at that depth within CP_NOISE_FACTOR times the bf16 noise floor
+             measured there (the single process with its CFG pair as two
+             B = 1 calls), not below CP_TOL; per rank s per step, the bytes each
+             collective moved, peak GiB and launches (K1cp, K1ring +
+             K1merge, K1ag). The ranks share the card and their collectives
+             pass through host memory: none of these is a multi-card time
 Phase 3 also holds K4 (the attention backward) and its forward with the
 row logsumexp at the 7B self- and cross-attention shapes and at a ragged
 fp32 tiny shape; K4-band at the 7B self shape with the fast preset's band
@@ -69,7 +82,14 @@ forward with the row logsumexp, at the LoRA + band shape; P1, the mma.sync
 rate probe, in bf16 and int8; K6 (the ray-triangle depth) on the 901,120
 rays of a 704x1280 frame against the boundary mesh of a seeded depth, with
 its hit-flip fraction; and P2, K1's tile sweep, at the 7B self-attention
-shape over K1's tile and three others. Every kernel's bound (bytes or operations at
+shape over K1's tile and three others; and the context-parallel kernels
+at the 7B shard shapes: K1cp (K1, or K3 under the band, on a Ulysses
+rank's 32/cp heads read in place from the all-to-all's layout) at cp 2, 4
+and 8 against K1's output sliced, K1ag (a 28,160-query shard over the
+gathered 56,320 keys), and K1ring + K1merge (every rank's ring over its
+KV shards) at cp 2 and 4, with and without the band, against K1 or K3 on
+the whole sequence and the plain ring, the folded steps against the
+band's visible frame pairs. Every kernel's bound (bytes or operations at
 the data-sheet peaks) and the time of one PyTorch call that computes its
 function, where there is one, go beside its time. Then the kernel table as
 one JSON line, the nvidia-smi line, and as the last line {"ok": true,
@@ -80,10 +100,13 @@ no last line. There is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import gc
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -120,7 +143,7 @@ BF16_PEAK_TFLOPS = 989.0  # H100 SXM dense bf16 (data sheet)
 FP32_PEAK_TFLOPS = 67.0  # H100 SXM fp32 outside the tensor cores (data sheet)
 HBM_TB_PER_S = 3.35  # H100 SXM HBM3 (data sheet)
 LORA_RANK = 16
-LORA_STEPS = 3
+LORA_STEPS = 2
 P1_SHAPE = (1408, 128, 1024)  # the QK^T block shape of scripts/probe_int8_attention.py
 P1_REPS = 8000  # that script's R at K = 128
 # K6 against its plain version (the same operations in the same order, no
@@ -133,9 +156,30 @@ K6_OPS_PER_PAIR = 36
 # P2 in the smoke: K1's own tile, two larger tiles and K1's tile read from the
 # (B, H, L, D) layout (the script sweeps them all)
 P2_SMOKE_CONFIGS = ((64, 64, "blhd"), (128, 64, "blhd"), (64, 128, "blhd"), (64, 64, "bhld"))
-DYNAMIC_STEPS = 2
+DYNAMIC_STEPS = 1
 MULTIVIEW_STEPS = 1
 MULTIVIEW_KEY_FRAMES = 4
+MAIN_STEPS = 1  # main_path's Euler steps; its latent is the cp phase's reference
+TRAIN_STEPS = 1
+CP_SIZES = (2, 4, 8)  # K1cp's shard shapes: (2, 56,320, 32 / cp, 128)
+RING_CP_SIZES = (2, 4)  # K1ring's: (2, 56,320 / cp, 32, 128), cp = 2 the cp phase's
+CP_RANKS = 2  # the cp phase: two ranks on the one card
+CP_SHORT_BLOCKS = 4  # of 28: the depth of the ring, all-gather and cfg2 runs
+# a rank's latent against the single process's, relative to mean
+# |reference|: both are bf16 7B forwards, but each rank's linears run on half
+# the rows (cuBLAS tiles them otherwise, and bf16 rounds each output), so
+# the bound is CP_NOISE_FACTOR times the bf16 noise floor measured in the
+# same run (the single process with its CFG pair as two B = 1 calls, the
+# same halving with no parallel code; phase_cp_reference), and never below
+# CP_TOL. A wrong shard, position or combine moves the latent by O(1)
+CP_TOL = {"max": 0.1, "mean": 0.01}
+CP_NOISE_FACTOR = 2.0
+CP_TIMEOUT_S = 700  # the cp phase's two ranks, together
+# the share of the card each rank's caching allocator may hold: each peaks at
+# ~31 GiB allocated (the 7B and the VAE's 121-frame activations, as main_path),
+# and memory one rank's allocator keeps cached is lost to the other, so
+# without a cap the two reserve more than the card has
+CP_MEMORY_FRACTION = 0.45
 
 
 def emit(phase: str, **numbers) -> None:
@@ -720,6 +764,219 @@ def _k3lse_case(gen) -> dict:
     return res
 
 
+def _ulysses_view(x: torch.Tensor, cp: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s H/cp heads of the whole sequence x (B, L, H, D) as
+    collectives.seq_to_heads leaves them: a view of the all-to-all's (cp,
+    L/cp, B, H/cp, D) receive buffer, which K1cp reads in place."""
+    B, L, H, D = x.shape
+    hc = H // cp
+    buf = x[:, :, rank * hc:(rank + 1) * hc].reshape(B, cp, L // cp, hc, D)
+    return buf.permute(1, 2, 0, 3, 4).contiguous().view(L, B, hc, D).permute(1, 0, 2, 3)
+
+
+def _k1cp_cases(q, k, v, full: dict) -> list:
+    """K1cp (K1, or K3 under the band, on a Ulysses rank's heads) at the 7B
+    shard shapes (2, 56,320, 32/cp, 128) for cp in CP_SIZES, with and
+    without the band: rank 0's heads read in place from the all-to-all's
+    layout, held to K1's (K3's) output on all 32 heads, sliced (equal bits
+    expected: each (batch, head) is computed alone), and to the plain
+    attention on the shard."""
+    from gen3c_tpu_torch import kernels
+
+    B, L, H, D = q.shape
+    rows = []
+    for cp in CP_SIZES:
+        for band in (None, BAND_7B):
+            hc = H // cp
+            qs, ks, vs = (_ulysses_view(t, cp, 0) for t in (q, k, v))
+            out = kernels.attention(qs, ks, vs, kernel_id="K1cp", band=band)
+            want = full[band][:, :, :hc]
+            plain = {}
+            plain_ms = cuda_ms(lambda: plain.__setitem__(
+                "out", kernels.attention_reference(qs, ks, vs, band)), reps=1, warmup=0)
+            torch.cuda.synchronize()
+            err = (out.float() - plain["out"].float()).abs()
+            diff = (out.float() - want.float()).abs()
+            res = {"name": f"K1cp cp={cp}" + (" band" if band else ""), "cp": cp,
+                   "q": [B, L, hc, D], "band": list(band) if band else None,
+                   "equals_full_sliced": bool(torch.equal(out, want)),
+                   "max_abs_diff_full_sliced": diff.max().item(),
+                   "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+                   "plain_ms": plain_ms}
+            del out, plain, err, diff
+            res["ms"] = cuda_ms(lambda: kernels.attention(qs, ks, vs, kernel_id="K1cp", band=band),
+                                reps=3)
+            pairs = L * L if band is None else (
+                _band_pairs(LATENT_T_7B, *band[1:]) * band[0] ** 2)
+            flop = 4.0 * B * hc * D * pairs
+            res.update(tflops=flop / res["ms"] / 1e9,
+                       **bound(4 * B * L * hc * D * 2, flop, BF16_PEAK_TFLOPS))
+            contig = [t.contiguous() for t in (qs, ks, vs)]
+            mask = None if band is None else _band_mask(L, band)
+            res["library_ms"] = library_ms(lambda: _sdpa(*contig, mask))
+            del contig, mask, qs, ks, vs
+            torch.cuda.empty_cache()
+            emit("kernel", **res)
+            if res["max_abs_err"] > ATTN_TOL["max"] or res["mean_abs_err"] > ATTN_TOL["mean"]:
+                raise AssertionError(f"K1cp disagrees with its plain version: {res}")
+            if res["max_abs_diff_full_sliced"] > ATTN_TOL["max"]:
+                raise AssertionError(f"K1cp disagrees with K1 on all heads: {res}")
+            rows.append(res)
+    return rows
+
+
+def _ring_rank(q, k, v, cp: int, rank: int, band, fold, merge):
+    """Rank ``rank``'s ring attention over the cp KV shards of k/v with the
+    given fold and merge (the kernels or their plain versions), as
+    models.dit._ring_attention runs it; returns (output, the source ranks
+    whose shards it folded)."""
+    from gen3c_tpu_torch.models.dit import ring_step_needed
+
+    B, L, H, D = q.shape
+    ls = L // cp
+    qs = q[:, rank * ls:(rank + 1) * ls].contiguous()
+    acc = torch.zeros((B, ls, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.full((B, H, ls), float("-inf"), device=q.device)
+    out, folded = None, []
+    for step in range(cp):
+        src = (rank - step) % cp
+        last = step == cp - 1
+        if band is None or ring_step_needed(rank, src, ls // band[0], band):
+            o, l_ = fold(qs, k[:, src * ls:(src + 1) * ls], v[:, src * ls:(src + 1) * ls], band,
+                         rank * ls, src * ls)
+            out = merge(acc, lse, o, l_, q.dtype if last else None)
+            folded.append(src)
+            del o, l_
+        elif last:
+            out = merge(acc, lse, None, None, q.dtype)
+    return out, folded
+
+
+def _ring_case(q, k, v, full: dict, cp: int, band) -> dict:
+    """K1ring + K1merge at the 7B shard shapes: every rank of a cp-way ring
+    folds its shards and merges, held to K1 (K3 under the band) on the
+    whole sequence, and rank 1's result to the plain fold and merge; the
+    folded steps are held to the visible frame pairs of each shard pair.
+    Times of one fold and one merge at the shard shape; the library's
+    time is SDPA's flash attention with lse at that shape."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import reference
+
+    B, L, H, D = q.shape
+    ls = L // cp
+    errs, folded_all, plain_err = [], [], None
+    for rank in range(cp):
+        got, folded = _ring_rank(q, k, v, cp, rank, band, kernels.ring_fold, kernels.ring_merge)
+        errs.append((got.float() - full[band][:, rank * ls:(rank + 1) * ls].float()).abs())
+        if rank == 1:
+            plain, _ = _ring_rank(q, k, v, cp, rank, band, reference.ring_fold_reference,
+                                  reference.ring_merge_reference)
+            plain_err = (got.float() - plain.float()).abs()
+            del plain
+        folded_all.append(folded)
+        del got
+    frames = ls // BAND_7B[0]
+    want_folded = [[s for s in ((r - i) % cp for i in range(cp))
+                    if band is None or _shards_see_each_other(r, s, frames, band)]
+                   for r in range(cp)]
+    res = {"name": f"K1ring + K1merge cp={cp}" + (" band" if band else ""), "cp": cp,
+           "q_shard": [B, ls, H, D], "band": list(band) if band else None,
+           "max_abs_err_vs_full": max(e.max().item() for e in errs),
+           "mean_abs_err_vs_full": float(np.mean([e.mean().item() for e in errs])),
+           "max_abs_err": plain_err.max().item(), "mean_abs_err": plain_err.mean().item(),
+           "folded": folded_all, "folded_expected": want_folded,
+           "skipped_steps": sum(cp - len(f) for f in folded_all)}
+    del errs, plain_err
+    qs, ks, vs = (t[:, ls:2 * ls].contiguous() for t in (q, k, v))  # rank 1, its own shard
+    o, l_ = kernels.ring_fold(qs, ks, vs, band, ls, ls)
+    acc = torch.zeros((B, ls, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.full((B, H, ls), float("-inf"), device=q.device)
+    res["fold_ms"] = cuda_ms(lambda: kernels.ring_fold(qs, ks, vs, band, ls, ls), reps=3)
+    res["merge_ms"] = cuda_ms(lambda: kernels.ring_merge(acc, lse, o, l_), reps=3)
+    res["plain_fold_ms"] = cuda_ms(lambda: reference.ring_fold_reference(qs, ks, vs, band, ls, ls),
+                                   reps=1, warmup=0)
+    res["plain_merge_ms"] = cuda_ms(lambda: reference.ring_merge_reference(acc, lse, o, l_),
+                                    reps=1, warmup=0)
+    pairs = ls * ls if band is None else _band_pairs(frames, *band[1:]) * band[0] ** 2
+    flop = 4.0 * B * H * D * pairs  # one diagonal step's visible work
+    res["fold_bound"] = bound(tensor_bytes(qs, ks, vs, o, l_), flop, BF16_PEAK_TFLOPS)
+    # fp32 state read and written, the step's bf16 output and both lses read
+    res["merge_bound"] = bound(tensor_bytes(acc, acc, o, l_, lse, lse), 6.0 * acc.numel(),
+                               FP32_PEAK_TFLOPS)
+    res["library_ms"] = library_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+        qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)))
+    res["fold_tflops"] = flop / res["fold_ms"] / 1e9
+    del qs, ks, vs, o, l_, acc, lse
+    torch.cuda.empty_cache()
+    emit("kernel", **res)
+    if (res["max_abs_err_vs_full"] > ATTN_TOL["max"] or res["mean_abs_err_vs_full"] > ATTN_TOL["mean"]
+            or res["max_abs_err"] > ATTN_TOL["max"] or res["mean_abs_err"] > ATTN_TOL["mean"]):
+        raise AssertionError(f"K1ring/K1merge disagree with K1 or the plain ring: {res}")
+    if folded_all != want_folded:
+        raise AssertionError(f"K1ring skipped other steps than the band's frame pairs: {res}")
+    return res
+
+
+def _shards_see_each_other(q_rank: int, kv_rank: int, frames: int, band) -> bool:
+    """Whether a query shard and a KV shard of ``frames`` frames hold a
+    visible (query frame, key frame) pair: counted pair by pair, not by
+    the ring's rule."""
+    _, window, prefix = band
+    return any(kf < prefix or abs(qf - kf) <= window
+               for qf in range(q_rank * frames, (q_rank + 1) * frames)
+               for kf in range(kv_rank * frames, (kv_rank + 1) * frames))
+
+
+def _k1ag_case(q, k, v) -> dict:
+    """K1ag: K1 on rank 0's query shard of a 2-way all-gather (Lq = L/2)
+    over all L keys, read in place from the gather's (rank, position,
+    batch, ...) layout, against K1's rows and the plain attention."""
+    from gen3c_tpu_torch import kernels
+
+    B, L, H, D = q.shape
+    ls = L // 2
+    qs = q[:, :ls]
+    ks, vs = (t.transpose(0, 1).contiguous().transpose(0, 1) for t in (k, v))  # gathered layout
+    out = kernels.attention(qs, ks, vs, kernel_id="K1ag")
+    plain = {}
+    plain_ms = cuda_ms(lambda: plain.__setitem__("out", kernels.attention_reference(qs, ks, vs)),
+                       reps=1, warmup=0)
+    torch.cuda.synchronize()
+    err = (out.float() - plain["out"].float()).abs()
+    res = {"name": "K1ag all-gather self-attention", "q": [B, ls, H, D], "kv": [B, L, H, D],
+           "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "plain_ms": plain_ms}
+    del out, plain, err
+    res["ms"] = cuda_ms(lambda: kernels.attention(qs, ks, vs, kernel_id="K1ag"), reps=3)
+    flop = 4.0 * B * H * ls * L * D
+    res.update(tflops=flop / res["ms"] / 1e9,
+               **bound(tensor_bytes(qs, ks, vs, qs), flop, BF16_PEAK_TFLOPS))
+    contig = [t.contiguous() for t in (qs, ks, vs)]
+    res["library_ms"] = library_ms(lambda: _sdpa(*contig))
+    del contig, ks, vs
+    torch.cuda.empty_cache()
+    emit("kernel", **res)
+    if res["max_abs_err"] > ATTN_TOL["max"] or res["mean_abs_err"] > ATTN_TOL["mean"]:
+        raise AssertionError(f"K1ag disagrees with its plain version: {res}")
+    return res
+
+
+def cp_kernel_cases(gen) -> dict:
+    """K1cp, K1ring + K1merge and K1ag at the 7B self-attention shape,
+    (2, 56,320, 32, 128) bf16, on one set of inputs whose K1 and K3 outputs
+    on the whole sequence are the reference."""
+    from gen3c_tpu_torch import kernels
+
+    q, k, v = (torch.randn((2, LATENT_T_7B * BAND_7B[0], 32, 128), generator=gen,
+                           device="cuda").to(torch.bfloat16) for _ in range(3))
+    full = {None: kernels.attention(q, k, v), BAND_7B: kernels.attention(q, k, v, band=BAND_7B)}
+    out = {"K1cp": _k1cp_cases(q, k, v, full), "K1ag": _k1ag_case(q, k, v)}
+    out["K1ring"] = [_ring_case(q, k, v, full, cp, band) for cp in RING_CP_SIZES
+                     for band in (None, BAND_7B)]
+    del q, k, v, full
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
@@ -769,6 +1026,7 @@ def phase_kernels() -> dict:
         ("q/k/v/out", tokens, 4096, 4096), ("fc1", tokens, 4096, 16384),
         ("fc2", tokens, 16384, 4096), ("cross k/v", 2 * 512, 1024, 4096)]]
     torch.cuda.empty_cache()
+    results.update(cp_kernel_cases(gen))
     return results
 
 
@@ -808,15 +1066,224 @@ def _run_chain(model, preset, device, num_frames, num_steps, seed, **pipeline_kw
 
 
 def build_7b():
-    """The GEN3C-7B (bf16 DiT, fp32 VAE, seed 0) on the card, built once for
-    main_path, dynamic and multiview: (model, preset, seconds)."""
+    """The GEN3C-7B (bf16 DiT, fp32 VAE, seed 0, AdaLN output layers and
+    final linear randomized from seed 1 so that the output depends on the
+    attention) on the card, built once for main_path, dynamic, multiview
+    and the cp phase's references: (model, preset, seconds)."""
     from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, preset = build_gen3c_model("gen3c_7b", device="cuda", seed=0)
+    _randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
     return model, preset, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _depth(net, blocks):
+    """Run ``net`` with its first ``blocks`` blocks only (None: all of
+    them); the others come back after."""
+    if blocks is None:
+        yield
+        return
+    saved = dict(net.blocks.items())
+    for name in list(saved)[blocks:]:
+        del net.blocks[name]
+    try:
+        yield
+    finally:
+        for name, blk in saved.items():
+            if name not in net.blocks:
+                net.blocks[name] = blk
+
+
+class _OneSampleAtATime(torch.nn.Module):
+    """The DiT called on one sample at a time: the CFG pair as two B = 1
+    forwards, whose linears run on half the rows, as each cp or cfg rank
+    runs them. The same arithmetic as the batched call but for cuBLAS's
+    tiling and bf16's rounding of it."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+        self.cfg = net.cfg
+
+    def forward(self, x, t, ctx, **kw):
+        return torch.cat([self.net(x[i:i + 1], t[i:i + 1], ctx[i:i + 1], **kw)
+                          for i in range(x.shape[0])])
+
+
+def _rel_diff(got: np.ndarray, ref: np.ndarray) -> dict:
+    d = np.abs(got - ref)
+    scale = float(np.abs(ref).mean())
+    return {"max_abs_diff": float(d.max()), "mean_abs_diff": float(d.mean()),
+            "rel_max": float(d.max()) / scale, "rel_mean": float(d.mean()) / scale}
+
+
+def phase_cp_reference(model, preset, main_latent: np.ndarray) -> dict:
+    """What the cp phase is held to: the single-process latents (main_path's
+    for the 28-block run, main_path's chunk and steps at CP_SHORT_BLOCKS
+    blocks for the others) and, at both depths, the bf16 noise floor: how
+    far the same single process moves when it runs one sample at a time."""
+    def run(blocks, one_at_a_time):
+        net = model.net
+        if one_at_a_time:
+            model.net = _OneSampleAtATime(net)
+        try:
+            with _depth(net, blocks):
+                _, pipeline, _ = _run_chain(model, preset, "cuda", num_frames=121,
+                                            num_steps=MAIN_STEPS, seed=0)
+        finally:
+            model.net = net
+        return pipeline.last_samples.float().cpu().numpy()
+
+    short = run(CP_SHORT_BLOCKS, False)
+    noise = {"full": _rel_diff(run(None, True), main_latent),
+             "short": _rel_diff(run(CP_SHORT_BLOCKS, True), short)}
+    torch.cuda.empty_cache()
+    emit("cp_reference", blocks=CP_SHORT_BLOCKS, one_sample_at_a_time=noise)
+    return {"short": short, "noise": noise}
+
+
+# the cp phase's runs, in order: (name, parallel strategy, cp_attn, blocks)
+CP_RUNS = (("ulysses", "cp", "ulysses", None), ("ring", "cp", "ring", CP_SHORT_BLOCKS),
+           ("allgather", "cp", "allgather", CP_SHORT_BLOCKS),
+           ("cfg2", "cfg2", "allgather", CP_SHORT_BLOCKS))
+
+
+def cp_worker(rank: int, port: int, out_dir: str) -> int:
+    """One rank of the cp phase, a process of its own with torchrun's
+    environment: the 7B (main_path's seeds) through build_gen3c_model over
+    CP_RANKS ranks on cuda:0 with gloo, then each of CP_RUNS through
+    main_path's entry point (run_chunked_generation, 121 frames,
+    MAIN_STEPS steps); per run its seconds, collective traffic, peak GiB
+    and launches to rank<r>.json, and rank 0's latent to cp_<name>.npy."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.models import dit
+    from gen3c_tpu_torch.parallel import collectives, mesh
+    from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(CP_RANKS),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.cuda.set_per_process_memory_fraction(CP_MEMORY_FRACTION, 0)
+    t0 = time.perf_counter()
+    model, preset = build_gen3c_model("gen3c_7b", device="cuda:0", seed=0, num_devices=CP_RANKS,
+                                      parallel="cp", cp_attn="ulysses", dist_backend="gloo")
+    _randomize_gates(model.net, torch.Generator(device="cuda:0").manual_seed(1))
+    groups = {"cp": model.groups, "cfg2": mesh.make_groups(cfg=2, backend="gloo")}
+    torch.cuda.synchronize()
+    out = {"rank": rank, "build_s": time.perf_counter() - t0,
+           "backend": dist.get_backend(model.groups.cp.group), "runs": {}}
+    for name, parallel, impl, blocks in CP_RUNS:
+        model.groups = groups[parallel]
+        model.net.cfg = dataclasses.replace(model.net.cfg, cp_attn_impl=impl)
+        with _depth(model.net, blocks):
+            torch.cuda.synchronize()
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            collectives.reset_traffic()
+            dit.ring_steps.update(folded=0, skipped=0)
+            t0 = time.perf_counter()
+            _, pipeline, _ = _run_chain(model, preset, "cuda:0", num_frames=121,
+                                        num_steps=MAIN_STEPS, seed=0)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            launches = dict(kernels.launch_counts)
+        samples = pipeline.last_samples
+        if rank == 0:
+            np.save(os.path.join(out_dir, f"cp_{name}.npy"), samples.float().cpu().numpy())
+        steps = pipeline.last_timings["denoise_steps"]
+        out["runs"][name] = {
+            "parallel": parallel, "cp_attn": impl, "blocks": blocks or preset.dit.num_blocks,
+            "step_s": [s["seconds"] for s in steps], "chunk_s": total_s,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
+            "traffic_per_step": {op: {k: v / len(steps) for k, v in c.items()}
+                                 for op, c in collectives.traffic.items() if c["calls"]},
+            "ring_steps": dict(dit.ring_steps),
+            "latents_finite": bool(torch.isfinite(samples).all().item())}
+        del pipeline, samples
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_cp(main_latent: np.ndarray, refs: dict) -> dict:
+    """CP_RANKS ranks of the 7B on the one card (cp_worker, gloo): Ulysses
+    over all 28 blocks against main_path's single-process latent, and
+    ring, all-gather and cfg2 at CP_SHORT_BLOCKS blocks against
+    phase_cp_reference's, each within CP_NOISE_FACTOR times that depth's
+    noise floor (not below CP_TOL). The ranks share the card and their
+    collectives go through host memory: none of these times is a
+    multi-card time."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    parent_gib = torch.cuda.memory_allocated() / 2 ** 30
+    free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=OUT_DIR, prefix="cp_")
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w") for r in range(CP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cp-rank", str(r),
+                               "--cp-port", str(port), "--cp-out", out_dir],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(CP_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, CP_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    wall_s = time.perf_counter() - t0
+    if any(proc.returncode != 0 for proc in procs):
+        tails = [open(os.path.join(out_dir, f"rank{r}.log")).read()[-3000:] for r in range(CP_RANKS)]
+        raise AssertionError(f"cp: ranks exited {[p.returncode for p in procs]} after "
+                             f"{wall_s:.0f} s (this process held {parent_gib:.2f} GiB, "
+                             f"{free_gib:.2f} GiB free):\n" + "\n----\n".join(tails))
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(CP_RANKS)]
+    res = {"ranks": CP_RANKS, "backend": ranks[0]["backend"], "wall_s": wall_s,
+           "build_s": [r["build_s"] for r in ranks], "parent_gib": parent_gib,
+           "free_gib_at_start": free_gib, "noise": refs["noise"],
+           "note": "both ranks share one card and their collectives go through host memory "
+                   "(gloo): no time here is a multi-card time", "runs": {}}
+    bad = []
+    for name, _, _, blocks in CP_RUNS:
+        ref = main_latent if blocks is None else refs["short"]
+        noise = refs["noise"]["full" if blocks is None else "short"]
+        tol = {k: max(CP_TOL[k], CP_NOISE_FACTOR * noise[f"rel_{k}"]) for k in ("max", "mean")}
+        run = {"rank": [r["runs"][name] for r in ranks], "tol": tol,
+               **_rel_diff(np.load(os.path.join(out_dir, f"cp_{name}.npy")), ref)}
+        res["runs"][name] = run
+        if run["rel_max"] > tol["max"] or run["rel_mean"] > tol["mean"] or not all(
+                r["latents_finite"] for r in run["rank"]):
+            bad.append(f"{name} disagrees with the single process")
+        launches = run["rank"][0]["launches"]
+        want = {"ulysses": ("K1cp", "K2", "K5"), "ring": ("K1ring", "K1merge", "K2"),
+                "allgather": ("K1ag", "K2"), "cfg2": ("K1", "K2")}[name]
+        stray = {"ulysses": ("K1", "K1ag", "K1ring"), "ring": ("K1", "K1cp", "K1ag"),
+                 "allgather": ("K1", "K1cp", "K1ring"), "cfg2": ("K1cp", "K1ag", "K1ring")}[name]
+        if any(launches[k] == 0 for k in want) or any(launches[k] for k in stray):
+            bad.append(f"{name} launched {launches}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit("cp", **res)
+    if bad:
+        raise AssertionError(f"cp: {bad}: {res}")
+    return res
 
 
 def phase_main(model, preset, build_s: float) -> dict:
@@ -827,8 +1294,8 @@ def phase_main(model, preset, build_s: float) -> dict:
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    video, pipeline, timings = _run_chain(model, preset, "cuda", num_frames=121, num_steps=2,
-                                          seed=0)
+    video, pipeline, timings = _run_chain(model, preset, "cuda", num_frames=121,
+                                          num_steps=MAIN_STEPS, seed=0)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
@@ -858,6 +1325,7 @@ def phase_main(model, preset, build_s: float) -> dict:
     missing = [k for k in ("K1", "K2", "K5") if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path did not launch kernels {missing}: {launches}")
+    res["samples"] = samples.float().cpu().numpy()  # the cp phase's 28-block reference
     del pipeline, samples
     torch.cuda.empty_cache()
     return res
@@ -1230,7 +1698,7 @@ def phase_train() -> dict:
     gen = torch.Generator().manual_seed(0)
     kernels.reset_launch_counts()
     steps = []
-    for _ in range(3):
+    for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = train_step(state, batch, gen, cfg, opt, remat=True)
@@ -1248,10 +1716,10 @@ def phase_train() -> dict:
     if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) and s["grad_norm"] > 0
                for s in steps) or not res["ema_finite"]:
         raise AssertionError(f"train: non-finite or zero loss / grad-norm: {res}")
-    if (launches["K4"] != 3 * per_step or launches["K1"] != 3 * per_step
-            or launches["K2"] != 3 * per_step or launches["K3"]):
+    if (launches["K4"] != TRAIN_STEPS * per_step or launches["K1"] != TRAIN_STEPS * per_step
+            or launches["K2"] != TRAIN_STEPS * per_step or launches["K3"]):
         raise AssertionError(f"train: launches {launches}, expected K4 = K1 = K2 = "
-                             f"{3 * per_step} (remat runs each forward twice)")
+                             f"{TRAIN_STEPS * per_step} (remat runs each forward twice)")
     del state, net, batch
     torch.cuda.empty_cache()
     return res
@@ -1495,17 +1963,31 @@ def phase_train_cli() -> dict:
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="gen3c_tpu_torch smoke run on one GPU")
+    p.add_argument("--cp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--cp-port", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--cp-out", type=str, default="", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.cp_rank is not None:  # one rank of the cp phase
+        return cp_worker(args.cp_rank, args.cp_port, args.cp_out)
     t_start = time.perf_counter()
     info = phase_device()
     phase_build()
     kern = phase_kernels()
     model, preset, build_s = build_7b()
-    launches = phase_main(model, preset, build_s)["launches"]
+    main_res = phase_main(model, preset, build_s)
+    launches = main_res["launches"]
     dynamic_launches = phase_dynamic(model, preset)["launches"]
     phase_multiview(model, preset)
+    main_latent = main_res.pop("samples")
+    cp_refs = phase_cp_reference(model, preset, main_latent)
+    # the two ranks need the card to themselves: the 7B must be gone, even
+    # where a reference cycle still holds it
     del model
+    gc.collect()
     torch.cuda.empty_cache()
+    cp_runs = phase_cp(main_latent, cp_refs)["runs"]
     fast_launches = phase_fast()["launches"]
     phase_fast_parity()
     phase_chain()
@@ -1522,8 +2004,9 @@ def main() -> int:
 
     def row(name, source, replaces, launches, case, **override):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        got = {k: case[k] for k in keys if k in case}
         return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
-                "launches": launches, **{k: case[k] for k in keys}, **override}
+                "launches": launches, **{**got, **override}}
 
     table = [
         row("K1 self-attention", "attention.cu", "gen3c_tpu/models/dit.py:445", launches["K1"],
@@ -1552,6 +2035,28 @@ def main() -> int:
             "scripts/sweep_attention.py:32", kern["P2"]["launches"], kern["P2"]),
     ] + [row(p1["name"], "mma_probe.cu", "scripts/probe_int8_attention.py:59", p1["launches"], p1)
          for p1 in kern["P1"]]
+    # the cp phase's kernels, at its shard shapes (cp = 2), launches of rank 0's runs
+    cp_launch = {name: run["rank"][0]["launches"] for name, run in cp_runs.items()}
+    k1cp = next(r for r in kern["K1cp"] if r["cp"] == CP_RANKS and r["band"] is None)
+    ring = next(r for r in kern["K1ring"] if r["cp"] == CP_RANKS and r["band"] is None)
+    table += [
+        row("K1cp Ulysses self-attention (cp=2 heads)", "attention.cu",
+            "gen3c_tpu/models/dit.py:653", cp_launch["ulysses"]["K1cp"], k1cp),
+        row("K1ag all-gather self-attention (cp=2)", "attention.cu",
+            "gen3c_tpu/models/dit.py:766", cp_launch["allgather"]["K1ag"], kern["K1ag"]),
+        row("K1ring ring-attention step (cp=2)", "attention_bwd.cu",
+            "gen3c_tpu/models/dit.py:529", cp_launch["ring"]["K1ring"], ring,
+            ms=ring["fold_ms"], plain_ms=ring["plain_fold_ms"], **ring["fold_bound"]),
+        row("K1merge ring-attention merge (cp=2)", "attention_merge.cu",
+            "gen3c_tpu/models/dit.py:614", cp_launch["ring"]["K1merge"], ring,
+            ms=ring["merge_ms"], plain_ms=ring["plain_merge_ms"], library_ms=None,
+            **ring["merge_bound"]),
+    ]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    incomplete = [(r["name"], k) for r in table for k in keys if k not in r]
+    if incomplete:
+        raise AssertionError(f"kernel table rows without a key: {incomplete}")
     idle = [r["name"] for r in table if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels that their path never launched: {idle}")

@@ -10,8 +10,15 @@ output on skipped steps: on a fixed interval after a 2-step warmup and
 before a 2-step tail, or adaptively when the latent's accumulated relative
 drift crosses a threshold.
 
+Under context parallelism (``cp``: the tensors are this rank's latent-T
+shard) the per-sample statistics are summed over the axis: CFG rescale's
+stds and the adaptive cache's drift, so that every rank takes the same
+refresh decision. Under CFG parallelism (``cfg``, 2 ranks) rank 0 runs the
+conditioned forward and rank 1 the unconditioned one, and one all-reduce
+combines them (gen3c_tpu's ``cfg_axis``).
+
 Not ported: the dpm2m/res2ab solvers, span caching (``net_fn_skip``), and
-the JAX package's host-loop, streaming and cfg-axis variants.
+the JAX package's host-loop and streaming variants.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import numpy as np
 import torch
 
 from gen3c_tpu_torch.diffusion.scheduler import EDMEulerSchedule
+from gen3c_tpu_torch.parallel import collectives
+from gen3c_tpu_torch.parallel.mesh import Axis
 
 CACHE_WARMUP = 2  # first steps that always run the network
 CACHE_TAIL = 2  # last steps that always run the network
@@ -48,19 +57,36 @@ def guidance_interval_steps(schedule: EDMEulerSchedule, num_steps: int,
     return int(idx[0]), int(idx[-1]) + 1
 
 
+def per_sample_std(x: torch.Tensor, shard: Optional[Axis] = None) -> torch.Tensor:
+    """The population std over all non-batch dims, keepdim; over the whole
+    tensor when it is sharded on ``shard`` (summed moments, as
+    sampler.py:71-86 computes it)."""
+    dims = tuple(range(1, x.ndim))
+    if shard is None:
+        return x.std(dim=dims, keepdim=True, correction=0)
+    n = x[0].numel() * shard.size
+    s1 = collectives.all_reduce(x.sum(dim=dims, keepdim=True), shard)
+    s2 = collectives.all_reduce((x * x).sum(dim=dims, keepdim=True), shard)
+    mean = s1 / n
+    return (s2 / n - mean * mean).clamp_min(0.0).sqrt()
+
+
+def _rescale(out: torch.Tensor, std_c: torch.Tensor, std_o: torch.Tensor,
+             cfg_rescale: float) -> torch.Tensor:
+    rescaled = out * (std_c / std_o.clamp_min(1e-6))
+    return cfg_rescale * rescaled + (1.0 - cfg_rescale) * out
+
+
 def apply_cfg(out_cond: torch.Tensor, out_uncond: torch.Tensor, guidance: float,
-              cfg_rescale: float = 0.0) -> torch.Tensor:
+              cfg_rescale: float = 0.0, shard: Optional[Axis] = None) -> torch.Tensor:
     """cond + g * (cond - uncond); with cfg_rescale = phi > 0 the result is
     blended with its copy rescaled to the cond branch's per-sample
-    (population) std (arXiv:2305.08891, sampler.py:89-115)."""
+    (population) std (arXiv:2305.08891, sampler.py:89-115), taken over the
+    whole latent when it is sharded on ``shard``."""
     out = out_cond + guidance * (out_cond - out_uncond)
     if cfg_rescale <= 0:
         return out
-    dims = tuple(range(1, out.ndim))
-    std_c = out_cond.std(dim=dims, keepdim=True, correction=0)
-    std_o = out.std(dim=dims, keepdim=True, correction=0)
-    rescaled = out * (std_c / std_o.clamp_min(1e-6))
-    return cfg_rescale * rescaled + (1.0 - cfg_rescale) * out
+    return _rescale(out, per_sample_std(out_cond, shard), per_sample_std(out, shard), cfg_rescale)
 
 
 @torch.no_grad()
@@ -85,6 +111,8 @@ def generate_samples(
     guidance_interval: Optional[Sequence[float]] = None,
     cfg_rescale: float = 0.0,
     on_step: Optional[Callable[[int, bool, bool], None]] = None,
+    cp: Optional[Axis] = None,
+    cfg: Optional[Axis] = None,
 ) -> torch.Tensor:
     """Run the denoising loop; returns the final latent (B, C, T, H, W), fp32.
 
@@ -99,6 +127,15 @@ def generate_samples(
     step_cache_threshold > 0 instead runs it when the accumulated relative
     L1 drift of the scaled latent exceeds the threshold (interval ignored;
     not composable with a guidance interval that excludes steps).
+
+    cp: the context-parallel axis the tensors are sharded on (latent T),
+    for CFG rescale's stds and the adaptive drift. cfg: a 2-rank CFG axis
+    (sampler.py:368-531): a CFG step runs net_fn once at batch B, the
+    conditioned half on rank 0 and the unconditioned on rank 1, and
+    all_reduce of (1 + g) * cond and -g * uncond combines them; the cache
+    then holds that combined output. It composes with the guidance interval
+    (condition-only steps run replicated) and the fixed-interval cache, not
+    with adaptive caching.
     """
     sigmas = [float(s) for s in schedule.sigmas(num_steps)]
     c_noises = [float(t) for t in schedule.timesteps(num_steps)]
@@ -124,9 +161,28 @@ def generate_samples(
                              "interval-cached loops only (not adaptive caching)")
     adaptive = step_cache_threshold > 0
     caching = adaptive or step_cache_interval > 1
-    # the last raw [cond | uncond] network output; condition-only steps
-    # refresh or read its cond half only
-    cached = torch.zeros((2 * B,) + tuple(gt.shape[1:]), dtype=torch.float32, device=dev)
+    if cfg is not None and adaptive:
+        raise ValueError("cfg_axis (CFG parallelism) composes with the plain and fixed-interval-"
+                         "cached loops only (not adaptive/span caching)")
+
+    def cfg_parallel_output(x_cond, x_uncond, t_in):
+        """This rank's half of the CFG pair, combined by one all-reduce
+        (sampler.py:380-402); with cfg_rescale the cond branch's std comes
+        from rank 0 through a second, scalar-sized one."""
+        is_c = cfg.rank == 0
+        raw = net_fn(x_cond if is_c else x_uncond, t_in,
+                     crossattn_cond if is_c else crossattn_uncond).float()
+        out = collectives.all_reduce(raw * ((1.0 + guidance) if is_c else -guidance), cfg)
+        if cfg_rescale <= 0:
+            return out
+        std_r = per_sample_std(raw, cp)
+        std_c = collectives.all_reduce(std_r if is_c else torch.zeros_like(std_r), cfg)
+        return _rescale(out, std_c, per_sample_std(out, cp), cfg_rescale)
+
+    # the last raw [cond | uncond] network output (condition-only steps
+    # refresh or read its cond half only); under cfg the combined B-sized one
+    cached = torch.zeros(((B if cfg is not None else 2 * B),) + tuple(gt.shape[1:]),
+                         dtype=torch.float32, device=dev)
     prev = torch.zeros_like(xt)
     drift_acc = 0.0
 
@@ -139,7 +195,10 @@ def generate_samples(
         edge = i < CACHE_WARMUP or i >= num_steps - CACHE_TAIL
         if adaptive:
             cur = new_xt * c_in
-            rel = ((cur - prev).abs().mean() / (prev.abs().mean() + 1e-8)).item()
+            num, den = (cur - prev).abs().mean(), prev.abs().mean()
+            if cp is not None:  # every rank must take the same branch
+                num, den = (collectives.all_reduce(t, cp, "mean") for t in (num, den))
+            rel = (num / (den + 1e-8)).item()
             drift = drift_acc + rel
             refresh = edge or drift > step_cache_threshold
             drift_acc = 0.0 if refresh else drift
@@ -155,7 +214,13 @@ def generate_samples(
         if refresh:
             x_scaled = (new_xt * c_in).to(net_in_dtype)
             x_cond = torch.cat([x_scaled, mask, pose_cond], dim=1)
-            if use_cfg:
+            if cfg is not None and use_cfg:
+                # the cache holds the combined B-sized output
+                t_in = torch.full((B,), c_noises[i], dtype=torch.float32, device=dev)
+                net_out = cfg_parallel_output(
+                    x_cond, torch.cat([x_scaled, mask, pose_uncond], dim=1), t_in)
+                cached = net_out
+            elif use_cfg:
                 x_in = torch.cat([x_cond, torch.cat([x_scaled, mask, pose_uncond], dim=1)])
                 t_in = torch.full((2 * B,), c_noises[i], dtype=torch.float32, device=dev)
                 net_out = net_fn(x_in, t_in, crossattn_both).float()
@@ -165,11 +230,13 @@ def generate_samples(
                 t_in = torch.full((B,), c_noises[i], dtype=torch.float32, device=dev)
                 net_out = net_fn(x_cond, t_in, crossattn_cond).float()
                 if caching:
-                    cached = torch.cat([net_out, cached[B:]], dim=0)
+                    cached = torch.cat([net_out, cached[B:]], dim=0)  # cached[B:] empty under cfg
         else:
             net_out = cached if use_cfg else cached[:B]
-        net_output = (apply_cfg(net_out[:B], net_out[B:], guidance, cfg_rescale)
-                      if use_cfg else net_out)
+        if use_cfg and cfg is None:
+            net_output = apply_cfg(net_out[:B], net_out[B:], guidance, cfg_rescale, cp)
+        else:  # condition-only, or already combined over the cfg axis
+            net_output = net_out
         latent_unscaled = schedule.reverse_precondition_output(gt, new_xt, sigma)
         new_output = indicator * latent_unscaled + (1 - indicator) * net_output
         xt = schedule.step(new_output, new_xt, sigma, sigmas[i + 1])

@@ -3,6 +3,12 @@
   K1   DiT self-attention        (gen3c_tpu/models/dit.py:445-471, Pallas splash)
   K2   DiT cross-attention       (dit.py:472-510, Pallas flash)
   K3   band self-attention       (dit.py:459-460, splash + make_temporal_band_mask :370-409)
+  K1cp  K1 (or K3 under the band) on the H/cp heads of a Ulysses rank
+                                 (dit.py:653-678, splash after the all-to-all)
+  K1ag  K1 on a query shard over the all-gathered keys (dit.py:763-766)
+  K1ring  one ring-attention step: the forward with lse of a query shard over
+                                 one KV shard (dit.py:597-645, an XLA stand-in)
+  K1merge the ring's online-softmax merge of a step into the running result
   K3lse  the band forward that keeps the row logsumexp (the forward of K4band)
   K4   attention backward        (splash/flash backward, dit.py:464-470 and :508, reached
                                   from gen3c_tpu/training/train_step.py:233)
@@ -16,7 +22,8 @@
 
 K1, K2, K3 and P2 share ``csrc/attention.cu``; K4, K4band and the training
 forward (K1/K2 with the row logsumexp, and K3lse) are
-``csrc/attention_bwd.cu``; K5 is ``csrc/splat.cu``; K6 is
+``csrc/attention_bwd.cu``; K1ring is ``attention_bwd.cu`` too and K1merge
+``csrc/attention_merge.cu``; K5 is ``csrc/splat.cu``; K6 is
 ``csrc/raycast.cu``; K7q and K7 are ``csrc/w8a8.cu``; P1 is
 ``csrc/mma_probe.cu``. A CUDA tensor launches the compiled kernel (built at
 first use, see ``build``); a CPU tensor runs the plain PyTorch version in
@@ -43,6 +50,8 @@ from gen3c_tpu_torch.kernels.reference import (
     mma_probe_reference,
     quantize_rows_reference,
     ray_triangle_depth_reference,
+    ring_fold_reference,
+    ring_merge_reference,
     splat_max_logd,
     splat_normalize,
     splat_reference,
@@ -51,14 +60,16 @@ from gen3c_tpu_torch.kernels.reference import (
 
 __all__ = [
     "attention", "attention_tiles", "splat", "ray_triangle_depth", "quantize_rows",
-    "w8a8_matmul", "mma_probe", "launch_counts", "reset_launch_counts", "attention_reference",
-    "attention_forward_reference", "attention_backward_reference", "splat_reference",
+    "w8a8_matmul", "mma_probe", "ring_fold", "ring_merge", "launch_counts",
+    "reset_launch_counts", "attention_reference", "attention_forward_reference", "attention_backward_reference", "splat_reference",
     "ray_triangle_depth_reference", "quantize_rows_reference", "int8_matmul_reference",
-    "w8a8_matmul_reference", "mma_probe_reference",
+    "w8a8_matmul_reference", "mma_probe_reference", "ring_fold_reference",
+    "ring_merge_reference",
 ]
 
 launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K3lse": 0, "K4": 0, "K4band": 0, "K5": 0, "K6": 0,
-                 "K7q": 0, "K7": 0, "P1": 0, "P2": 0}
+                 "K7q": 0, "K7": 0, "P1": 0, "P2": 0, "K1cp": 0, "K1ag": 0, "K1ring": 0,
+                 "K1merge": 0}
 # K4's launches split by the forward they differentiate (K1 self-, K2 cross-attention)
 k4_launches_by_forward = {"K1": 0, "K2": 0}
 
@@ -82,9 +93,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Non-causal attention, q (B, Lq, H, D), k/v (B, Lk, H, D).
 
     kernel_id names the TPU kernel this call stands in for ("K1" for
-    self-attention, "K2" for cross-attention); it selects the launch count.
-    band=(hw, window, prefix) is the temporal band of K3 (see
-    ``attention_reference``); a forward-only call with a band counts as K3.
+    self-attention, "K2" for cross-attention, "K1cp" for a Ulysses rank's
+    heads, "K1ag" for a query shard over all-gathered keys); it selects the
+    launch count. band=(hw, window, prefix) is the temporal band of K3 (see
+    ``attention_reference``); a forward-only "K1" call with a band counts as
+    K3, a "K1cp" call as K1cp with or without one.
 
     Without a gradient to track (grad mode off, or no input requiring
     grad) this is one forward launch. Otherwise it is ``_Attention``: a
@@ -102,7 +115,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from gen3c_tpu_torch.kernels import cuda
 
     out = cuda.attention(q, k, v, band)
-    launch_counts["K3" if band is not None else kernel_id] += 1
+    launch_counts["K3" if band is not None and kernel_id == "K1" else kernel_id] += 1
     return out
 
 
@@ -139,6 +152,36 @@ class _Attention(torch.autograd.Function):
         else:
             dq, dk, dv = attention_backward_reference(q, k, v, out, dout, lse, ctx.band)
         return dq, dk, dv, None, None
+
+
+def ring_fold(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: Optional[Band] = None,
+              q_off: int = 0, k_off: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1ring: one ring-attention step, (out like q, fp32 lse (B, H, Lq))
+    of the queries (global positions q_off + i) over one KV shard (k_off +
+    j); rows the band leaves without a key give 0 and -inf. See
+    ``ring_fold_reference``."""
+    if not _on_cuda(q, "ring_fold"):
+        return ring_fold_reference(q, k, v, band, q_off, k_off)
+    from gen3c_tpu_torch.kernels import cuda
+
+    out = cuda.attention_ring_fold(q, k, v, band, q_off, k_off)
+    launch_counts["K1ring"] += 1
+    return out
+
+
+def ring_merge(acc: torch.Tensor, acc_lse: torch.Tensor, out: Optional[torch.Tensor] = None,
+               lse: Optional[torch.Tensor] = None,
+               final_dtype: Optional[torch.dtype] = None) -> Optional[torch.Tensor]:
+    """K1merge: fold a ring step's (out, lse) into the running fp32 state
+    (acc, acc_lse) in place, or with final_dtype return the merged result
+    in that dtype; see ``ring_merge_reference``."""
+    if not _on_cuda(acc, "ring_merge"):
+        return ring_merge_reference(acc, acc_lse, out, lse, final_dtype)
+    from gen3c_tpu_torch.kernels import cuda
+
+    merged = cuda.attention_merge(acc, acc_lse, out, lse, final_dtype)
+    launch_counts["K1merge"] += 1
+    return merged
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

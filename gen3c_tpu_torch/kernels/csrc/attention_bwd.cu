@@ -67,6 +67,11 @@
 // order with K4's arithmetic, so they give K4's bits. The band forward's
 // arithmetic is K3's (attn_fwd_bf16_band), so its output is K3's bit for bit.
 //
+// K1ring (gen3c_attention_ring_fold): one step of ring attention, the
+// forward with lse of a query shard over one KV shard. Without a band it is
+// attn_fwd_lse_bf16 itself; under the band, attn_fwd_lse_bf16_ring, the band
+// forward's body with the shards' global offsets (Band.q_off, Band.k_off).
+//
 // What bounds it: per (batch, head) the backward does 2.5x the forward's
 // matrix work (S recomputed twice, four more products) against ~8 L D bytes,
 // so at the GEN3C-7B shape (L = 56,320, D = 128) the rate at which the
@@ -105,28 +110,35 @@ struct Params {
 };
 
 // K3's temporal band (K4-band), a kernel argument of its own (see above).
+// q_off and k_off are the global sequence positions of the call's first
+// query and key: nonzero only in a ring-attention step (K1ring), whose
+// queries and keys are shards of a longer sequence. They live here, not in
+// Params, for the reason above.
 struct Band {
   int hw, window, prefix;        // hw <= 0: full attention
   unsigned long long* visited;   // optional tile counters (see the entry points)
+  int q_off, k_off;
 };
 
-// Key-tile ranges [b0, e0) and [b1, e1) (the second may be empty) that hold
-// a key visible to a query of [q_first, q_last]: the prefix frames and the
-// frames within the window of the queries' frames, merged where they touch
-// (attention.cu's kv_tile_ranges).
+// Key-tile ranges [b0, e0) and [b1, e1) (the second may be empty) of the
+// call's keys (global positions k_off + j, j < Lk) that hold a key visible
+// to a query of global positions [q_first, q_last]: the prefix frames and
+// the frames within the window of the queries' frames, merged where they
+// touch (attention.cu's kv_tile_ranges; k_off = 0 is that function).
 __device__ __forceinline__ void band_key_tiles(const Band& band, int Lk, int q_first,
                                                int q_last, int tile, int& b0, int& e0,
-                                               int& b1, int& e1) {
+                                               int& b1, int& e1, int k_off = 0) {
   b0 = 0;
   e0 = (Lk + tile - 1) / tile;
   b1 = e1 = 0;
   if (band.hw <= 0) return;
   const long long hw = band.hw;
-  const long long pre_end = min(static_cast<long long>(band.prefix) * hw,
+  const long long pre_end = min(static_cast<long long>(band.prefix) * hw - k_off,
                                 static_cast<long long>(Lk));
-  e0 = static_cast<int>((pre_end + tile - 1) / tile);
-  const long long lo = max(0LL, q_first / hw - band.window) * hw;
-  const long long hi = min((q_last / hw + band.window + 1) * hw, static_cast<long long>(Lk));
+  e0 = pre_end > 0 ? static_cast<int>((pre_end + tile - 1) / tile) : 0;
+  const long long lo = max(0LL, max(0LL, q_first / hw - band.window) * hw - k_off);
+  const long long hi =
+      min((q_last / hw + band.window + 1) * hw - k_off, static_cast<long long>(Lk));
   if (lo < hi) {
     b1 = static_cast<int>(lo / tile);
     e1 = static_cast<int>((hi + tile - 1) / tile);
@@ -159,16 +171,17 @@ __device__ __forceinline__ void band_query_tiles(const Band& band, int Lq, int k
 
 // True when every key of [n0, n0 + ntile) exists and every query of frames
 // qf_lo..qf_hi sees it, so that the tile needs no mask (attention.cu's
-// tile_all_visible).
+// tile_all_visible). The keys sit at global positions k_off + n0 onward.
 __device__ __forceinline__ bool band_tile_visible(const Band& band, int Lk, int n0, int ntile,
-                                                  int qf_lo, int qf_hi) {
+                                                  int qf_lo, int qf_hi, int k_off = 0) {
   const long long end = static_cast<long long>(n0) + ntile;
   if (end > Lk) return false;
   if (band.hw <= 0) return true;
   const long long hw = band.hw;
-  if (end <= static_cast<long long>(band.prefix) * hw) return true;
-  return static_cast<long long>(n0) >= (qf_hi - band.window) * hw &&
-         end <= (static_cast<long long>(qf_lo) + band.window + 1) * hw;
+  const long long g0 = static_cast<long long>(n0) + k_off, g_end = end + k_off;
+  if (g_end <= static_cast<long long>(band.prefix) * hw) return true;
+  return g0 >= (qf_hi - band.window) * hw &&
+         g_end <= (static_cast<long long>(qf_lo) + band.window + 1) * hw;
 }
 
 // Whether a query of frame qf sees a key of frame kf under the band.
@@ -325,7 +338,12 @@ __device__ __forceinline__ void store_rows(const Params& p, __nv_bfloat16* out, 
 // tiles K3 visits with K3's arithmetic tile for tile and operation for
 // operation, so the output is K3's bits; band.visited[0] += the key tiles
 // each CTA visits.
-template <int DP, bool VEC, bool kBand>
+// kRing (K1ring, one step of ring attention under the band): the same with
+// the queries and keys at the global positions band.q_off + i and
+// band.k_off + j. A query row that sees no key of the shard writes out 0
+// and lse -inf (no NaN), which the merge (attention_merge.cu) takes as no
+// contribution. Without kRing the offsets are the constant 0.
+template <int DP, bool VEC, bool kBand, bool kRing = false>
 __device__ __forceinline__ void fwd_lse_bf16_body(const Params& p, const Band& band) {
   constexpr int kPitch = DP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -346,6 +364,8 @@ __device__ __forceinline__ void fwd_lse_bf16_body(const Params& p, const Band& b
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + row_offset(p, b, h, p.Lq, 0);
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + row_offset(p, b, h, p.Lk, 0);
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + row_offset(p, b, h, p.Lk, 0);
+  const int q_off = kRing ? band.q_off : 0;  // global position of query row 0
+  const int k_off = kRing ? band.k_off : 0;  // and of key row 0
 
   load_tile<DP, kBlockM, VEC>(sQ, q, s_l, q0, p.Lq, p.D);
 
@@ -383,8 +403,8 @@ __device__ __forceinline__ void fwd_lse_bf16_body(const Params& p, const Band& b
     } else {
       int qf_row[2] = {0, 0};  // the frames of rows g and g + 8
       if constexpr (kBand) {
-        qf_row[0] = (q0 + wrow + g) / band.hw;
-        qf_row[1] = (q0 + wrow + g + 8) / band.hw;
+        qf_row[0] = (q_off + q0 + wrow + g) / band.hw;
+        qf_row[1] = (q_off + q0 + wrow + g + 8) / band.hw;
       }
 #pragma unroll
       for (int t = 0; t < kBlockN / 8; ++t) {
@@ -393,7 +413,7 @@ __device__ __forceinline__ void fwd_lse_bf16_body(const Params& p, const Band& b
           const int col = n0 + t * 8 + tg * 2 + (e & 1);
           bool vis = col < p.Lk;
           if constexpr (kBand) {
-            vis = vis && band_frames_visible(band, qf_row[e >> 1], col / band.hw);
+            vis = vis && band_frames_visible(band, qf_row[e >> 1], (k_off + col) / band.hw);
           }
           const float x = vis ? s[t][e] * scale_log2 : -INFINITY;
           s[t][e] = x;
@@ -435,12 +455,12 @@ __device__ __forceinline__ void fwd_lse_bf16_body(const Params& p, const Band& b
   if constexpr (kBand) {
     const int q_last = min(q0 + kBlockM, p.Lq) - 1;
     int b0, e0, b1, e1;
-    band_key_tiles(band, p.Lk, q0, q_last, kBlockN, b0, e0, b1, e1);
+    band_key_tiles(band, p.Lk, q_off + q0, q_off + q_last, kBlockN, b0, e0, b1, e1, k_off);
     const int n_tiles = (e0 - b0) + (e1 - b1);
-    const int qf_lo = q0 / band.hw, qf_hi = q_last / band.hw;
+    const int qf_lo = (q_off + q0) / band.hw, qf_hi = (q_off + q_last) / band.hw;
     for (int it = 0; it < n_tiles; ++it) {
       const int n0 = (it < e0 - b0 ? b0 + it : b1 + it - (e0 - b0)) * kBlockN;
-      key_tile(n0, band_tile_visible(band, p.Lk, n0, kBlockN, qf_lo, qf_hi));
+      key_tile(n0, band_tile_visible(band, p.Lk, n0, kBlockN, qf_lo, qf_hi, k_off));
     }
     if (band.visited != nullptr && threadIdx.x == 0) {
       atomicAdd(band.visited, static_cast<unsigned long long>(n_tiles));
@@ -459,7 +479,8 @@ __device__ __forceinline__ void fwd_lse_bf16_body(const Params& p, const Band& b
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + wrow + g + 8 * i;
     if (row >= p.Lq) continue;
-    const float inv = 1.f / l_run[i];
+    // kRing: a row without a visible key has l_run 0 (and m_run -inf)
+    const float inv = kRing && l_run[i] == 0.f ? 0.f : 1.f / l_run[i];
     __nv_bfloat16* orow = out + row_offset(p, b, h, p.Lq, row);
 #pragma unroll
     for (int t = 0; t < DP / 8; ++t) {
@@ -703,6 +724,13 @@ __global__ void __launch_bounds__(kThreads, 4) attn_fwd_lse_bf16_band(const Para
   fwd_lse_bf16_body<DP, VEC, true>(p, band);
 }
 
+// K1ring under the band: a kernel of its own, so that K3lse's code stays as it was.
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads, 4) attn_fwd_lse_bf16_ring(const Params p,
+                                                                      const Band band) {
+  fwd_lse_bf16_body<DP, VEC, true, true>(p, band);
+}
+
 // At most 168 registers (3 CTAs per SM): left free, nvcc takes 229 (2 CTAs
 // per SM); the cap spills 88 bytes to the stack and still gains 10% (1,511
 // against 1,355 ms for the whole backward at the 7B self shape, B=1, on an
@@ -778,6 +806,9 @@ __device__ __forceinline__ void load_f32_pair(float (*sA)[kF32MaxD + 1],
 // The f32 kernels take the band too (hw <= 0: full attention): the CTA's 8
 // queries (forward, dQ) visit band_key_tiles' 32-key tiles, its 8 keys
 // (dK/dV) band_query_tiles' 32-query tiles, and every element is masked.
+// The forward also serves K1ring in fp32: it places its queries and keys at
+// band.q_off + i and band.k_off + j (0 outside a ring step), and a row that
+// sees no key writes out 0 and lse -inf.
 __global__ void __launch_bounds__(kF32Warps * 32) attn_fwd_lse_f32(const Params p,
                                                                    const Band band) {
   __shared__ float sQ[kF32Warps][kF32MaxD];
@@ -804,7 +835,8 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_fwd_lse_f32(const Params 
 
   const int q0 = blockIdx.x * kF32Warps;
   int b0, e0, b1, e1;
-  band_key_tiles(band, p.Lk, q0, min(q0 + kF32Warps, p.Lq) - 1, kF32Tile, b0, e0, b1, e1);
+  band_key_tiles(band, p.Lk, band.q_off + q0, band.q_off + min(q0 + kF32Warps, p.Lq) - 1,
+                 kF32Tile, b0, e0, b1, e1, band.k_off);
   const int n_tiles = (e0 - b0) + (e1 - b1);
   for (int it = 0; it < n_tiles; ++it) {
     const int n0 = (it < e0 - b0 ? b0 + it : b1 + it - (e0 - b0)) * kF32Tile;
@@ -813,7 +845,8 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_fwd_lse_f32(const Params 
     __syncthreads();
     float sc = 0.f;  // lane j scores key n0 + j
     for (int d = 0; d < p.D; ++d) sc += sQ[warp][d] * sK[lane][d];
-    const bool vis = n0 + lane < p.Lk && band_tokens_visible(band, row, n0 + lane);
+    const bool vis = n0 + lane < p.Lk &&
+                     band_tokens_visible(band, band.q_off + row, band.k_off + n0 + lane);
     sc = vis ? sc * p.scale : -INFINITY;
     float mx = sc;
 #pragma unroll
@@ -837,10 +870,11 @@ __global__ void __launch_bounds__(kF32Warps * 32) attn_fwd_lse_f32(const Params 
   }
   if (!row_ok) return;
   float* orow = static_cast<float*>(p.out) + row_offset(p, b, h, p.Lq, row);
+  const bool any_key = l_run > 0.f;  // else m_run is -inf and the lse below -inf
 #pragma unroll
   for (int i = 0; i < kF32MaxD / 32; ++i) {
     const int d = lane + 32 * i;
-    if (d < p.D) orow[d] = acc[i] / l_run;
+    if (d < p.D) orow[d] = any_key ? acc[i] / l_run : 0.f;
   }
   if (lane == 0) p.lse[(static_cast<long long>(b) * p.H + h) * p.Lq + row] = m_run + logf(l_run);
 }
@@ -994,11 +1028,13 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// hw > 0: the band kernels (K4-band); else the full-attention ones (K4)
+// hw > 0: the band kernels (K4-band, or K1ring's with ring); else the
+// full-attention ones (K4, which is also K1ring's full-attention step)
 template <int DP, bool VEC>
-cudaError_t fwd_bf16(const Params& p, const Band& band, cudaStream_t s) {
+cudaError_t fwd_bf16(const Params& p, const Band& band, cudaStream_t s, bool ring = false) {
   const size_t smem = static_cast<size_t>(kBlockM + 2 * kBlockN) * (DP + 8) * sizeof(__nv_bfloat16);
   const dim3 grid((p.Lq + kBlockM - 1) / kBlockM, p.H, p.B);
+  if (band.hw > 0 && ring) return launch(attn_fwd_lse_bf16_ring<DP, VEC>, grid, smem, s, p, band);
   if (band.hw > 0) return launch(attn_fwd_lse_bf16_band<DP, VEC>, grid, smem, s, p, band);
   return launch(attn_fwd_lse_bf16<DP, VEC>, grid, smem, s, p);
 }
@@ -1028,13 +1064,50 @@ bool bad_band(const int* band) {
   return band != nullptr && (band[0] <= 0 || band[1] < 0 || band[2] < 0);
 }
 
-Band make_band(const int* band, void* visited) {
+Band make_band(const int* band, void* visited, int q_off = 0, int k_off = 0) {
   Band b;
   b.hw = band != nullptr ? band[0] : 0;
   b.window = band != nullptr ? band[1] : 0;
   b.prefix = band != nullptr ? band[2] : 0;
   b.visited = static_cast<unsigned long long*>(visited);
+  b.q_off = q_off;
+  b.k_off = k_off;
   return b;
+}
+
+// The forward with lse of gen3c_attention_fwd_lse; ring selects K1ring's
+// band kernel, which reads the band's offsets.
+int fwd_lse(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Lq,
+            int Lk, int H, int D, float scale, int bf16, int vec, const Band& bd, bool ring,
+            cudaStream_t s) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  p.lse = lse;
+  p.B = B;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.H = H;
+  p.D = D;
+  p.scale = scale;
+  if (!bf16) {
+    attn_fwd_lse_f32<<<dim3((Lq + kF32Warps - 1) / kF32Warps, H, B), kF32Warps * 32, 0, s>>>(
+        p, bd);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool vv = vec != 0;
+  if (D <= 32) {
+    return static_cast<int>(vv ? fwd_bf16<32, true>(p, bd, s, ring)
+                               : fwd_bf16<32, false>(p, bd, s, ring));
+  }
+  if (D <= 64) {
+    return static_cast<int>(vv ? fwd_bf16<64, true>(p, bd, s, ring)
+                               : fwd_bf16<64, false>(p, bd, s, ring));
+  }
+  return static_cast<int>(vv ? fwd_bf16<128, true>(p, bd, s, ring)
+                             : fwd_bf16<128, false>(p, bd, s, ring));
 }
 
 }  // namespace
@@ -1053,33 +1126,27 @@ extern "C" int gen3c_attention_fwd_lse(const void* q, const void* k, const void*
   if (bad_shape(B, Lq, Lk, H, D) || bad_band(band)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Band bd = make_band(band, visited);
-  Params p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.out = out;
-  p.lse = lse;
-  p.B = B;
-  p.Lq = Lq;
-  p.Lk = Lk;
-  p.H = H;
-  p.D = D;
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16) {
-    attn_fwd_lse_f32<<<dim3((Lq + kF32Warps - 1) / kF32Warps, H, B), kF32Warps * 32, 0, s>>>(
-        p, bd);
-    return static_cast<int>(cudaGetLastError());
+  return fwd_lse(q, k, v, out, lse, B, Lq, Lk, H, D, scale, bf16, vec, make_band(band, visited),
+                 false, static_cast<cudaStream_t>(stream));
+}
+
+// K1ring: one step of ring attention (gen3c_tpu/models/dit.py:597-645, the
+// fold of one KV shard into a query shard). The forward with lse of the
+// queries, at global sequence positions q_off + i, over the keys of one
+// shard, at k_off + j: without a band K4's forward (positions do not
+// matter), with one the ring band kernel, whose rows that see no key of the
+// shard write out 0 and lse -inf. Arguments otherwise as
+// gen3c_attention_fwd_lse. attention_merge.cu folds the (out, lse) into the
+// running result.
+extern "C" int gen3c_attention_ring_fold(const void* q, const void* k, const void* v, void* out,
+                                         float* lse, int B, int Lq, int Lk, int H, int D,
+                                         float scale, int bf16, int vec, const int* band,
+                                         int q_off, int k_off, void* stream) {
+  if (bad_shape(B, Lq, Lk, H, D) || bad_band(band) || q_off < 0 || k_off < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vv = vec != 0;
-  if (D <= 32) {
-    return static_cast<int>(vv ? fwd_bf16<32, true>(p, bd, s) : fwd_bf16<32, false>(p, bd, s));
-  }
-  if (D <= 64) {
-    return static_cast<int>(vv ? fwd_bf16<64, true>(p, bd, s) : fwd_bf16<64, false>(p, bd, s));
-  }
-  return static_cast<int>(vv ? fwd_bf16<128, true>(p, bd, s) : fwd_bf16<128, false>(p, bd, s));
+  return fwd_lse(q, k, v, out, lse, B, Lq, Lk, H, D, scale, bf16, vec,
+                 make_band(band, nullptr, q_off, k_off), true, static_cast<cudaStream_t>(stream));
 }
 
 // Backward (K4, or K4-band with a band): dq, dk, dv (like q, k, v, contiguous)

@@ -41,6 +41,8 @@ def library() -> ctypes.CDLL:
                                             _I, _I, _P]
             shape = [_I, _I, _I, _I, _I, ctypes.c_float, _I, _I, ctypes.POINTER(_I), _P, _P]
             lib.gen3c_attention_fwd_lse.argtypes = [_P] * 5 + shape
+            lib.gen3c_attention_ring_fold.argtypes = [_P] * 5 + shape[:-2] + [_I, _I, _P]
+            lib.gen3c_attention_merge.argtypes = [_P] * 5 + [_I] * 6 + [_P]
             lib.gen3c_attention_bwd.argtypes = [_P] * 10 + shape
             lib.gen3c_mma_probe.argtypes = [_P, _P, _P] + [_I] * 7 + [_P]
             lib.gen3c_attention_bf16_tiles.argtypes = attn[:-2] + [_I, _I, _P]
@@ -48,6 +50,7 @@ def library() -> ctypes.CDLL:
             for fn in (lib.gen3c_attention_bf16, lib.gen3c_attention_f32, lib.gen3c_splat,
                        lib.gen3c_quant_rows, lib.gen3c_w8a8_gemm,
                        lib.gen3c_attention_fwd_lse, lib.gen3c_attention_bwd,
+                       lib.gen3c_attention_ring_fold, lib.gen3c_attention_merge,
                        lib.gen3c_mma_probe, lib.gen3c_attention_bf16_tiles,
                        lib.gen3c_ray_triangle_depth):
                 fn.restype = _I
@@ -234,6 +237,69 @@ def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, Lq, Lk, H, D, 1.0 / math.sqrt(D), int(bf16), int(vec), band_arg, visited_ptr,
         _stream(q)), "attention_fwd_lse")
     return out, lse
+
+
+def attention_ring_fold(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        band: Optional[Tuple[int, int, int]] = None, q_off: int = 0,
+                        k_off: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gen3c_attention_ring_fold (K1ring): one ring-attention step, the
+    output (B, Lq, H, D) and fp32 row logsumexp (B, H, Lq) of the queries
+    (global positions q_off + i) over one KV shard (k_off + j). Under a band
+    a row may see no key of the shard: its output is 0 and its lse -inf.
+    Contiguous copies are made of strided inputs."""
+    (q, k, v), (B, Lq, Lk, H, D), bf16, vec = _training_layout(q, k, v)
+    if q_off < 0 or k_off < 0:
+        raise ValueError(f"ring fold: offsets must be >= 0, got {q_off}, {k_off}")
+    band_arg = None
+    if band is not None:
+        hw, window, prefix = (int(x) for x in band)
+        if hw <= 0 or window < 0 or prefix < 0:
+            raise ValueError(f"ring fold: bad band {band}")
+        band_arg = (_I * 3)(hw, window, prefix)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    _check(library().gen3c_attention_ring_fold(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        B, Lq, Lk, H, D, 1.0 / math.sqrt(D), int(bf16), int(vec), band_arg, int(q_off),
+        int(k_off), _stream(q)), "attention_ring_fold")
+    return out, lse
+
+
+def attention_merge(acc: torch.Tensor, acc_lse: torch.Tensor, out: Optional[torch.Tensor],
+                    lse: Optional[torch.Tensor],
+                    final_dtype: Optional[torch.dtype] = None) -> Optional[torch.Tensor]:
+    """gen3c_attention_merge (K1merge): fold one ring step's (out, lse) into
+    the running fp32 state (acc (B, L, H, D), acc_lse (B, H, L)), in place;
+    or, with final_dtype (bf16 or fp32), return the merged result in that
+    dtype and leave the state as it was. out = lse = None folds nothing
+    (then final_dtype is required)."""
+    if not (acc.is_cuda and acc_lse.device == acc.device) or acc.dtype != torch.float32 \
+            or acc_lse.dtype != torch.float32 or acc.ndim != 4:
+        raise ValueError("merge kernel: acc and acc_lse must be fp32 on one CUDA device")
+    B, L, H, D = acc.shape
+    if acc_lse.shape != (B, H, L) or not (acc.is_contiguous() and acc_lse.is_contiguous()):
+        raise ValueError(f"merge kernel: acc {tuple(acc.shape)} and acc_lse "
+                         f"{tuple(acc_lse.shape)} must be contiguous (B, L, H, D), (B, H, L)")
+    if (out is None) != (lse is None) or (out is None and final_dtype is None):
+        raise ValueError("merge kernel: give out and lse together, or final_dtype alone")
+    if final_dtype not in (None, torch.bfloat16, torch.float32):
+        raise TypeError(f"merge kernel writes bf16 or fp32, not {final_dtype}")
+    if out is not None:
+        if out.shape != acc.shape or out.device != acc.device \
+                or out.dtype not in (torch.bfloat16, torch.float32) \
+                or lse.shape != acc_lse.shape or lse.dtype != torch.float32 \
+                or lse.device != acc.device:
+            raise ValueError(f"merge kernel: step out {tuple(out.shape)} {out.dtype} and lse "
+                             f"{tuple(lse.shape)} {lse.dtype} do not match the state")
+        out, lse = out.contiguous(), lse.contiguous()
+    final = None if final_dtype is None else torch.empty(acc.shape, dtype=final_dtype,
+                                                        device=acc.device)
+    _check(library().gen3c_attention_merge(
+        acc.data_ptr(), acc_lse.data_ptr(), None if out is None else out.data_ptr(),
+        None if lse is None else lse.data_ptr(), None if final is None else final.data_ptr(),
+        B, L, H, D, int(out is not None and out.dtype == torch.bfloat16),
+        int(final_dtype == torch.bfloat16), _stream(acc)), "attention_merge")
+    return final
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,

@@ -11,6 +11,11 @@ non-Pallas paths:
     ``attention_forward_reference`` adds the row logsumexp and
     ``attention_backward_reference`` is the backward (K4's plain version),
     chunked the same way.
+  * ``ring_fold_reference`` and ``ring_merge_reference``: one step of
+    gen3c_tpu/models/dit.py ``_ring_attention`` (:597-645), split at the
+    two kernels (K1ring, K1merge): the fold of one KV shard in fp32 over
+    512-row query blocks with the band at global positions (:603-619), and
+    the online-softmax merge of its result into the running state.
   * ``quantize_rows_reference``, ``int8_matmul_reference`` and
     ``w8a8_matmul_reference``: gen3c_tpu/models/quantize.py
     ``w8a8_matmul`` (:48-69), split at the two kernels (K7q, K7).
@@ -144,6 +149,75 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
         dqs.append((torch.einsum("bhqk,bkhd->bqhd", ds, k).float() * scale).to(dt))
         dk += torch.einsum("bhqk,bqhd->bkhd", ds, q[:, s:e]).float()
     return torch.cat(dqs, dim=1), (dk * scale).to(dt), dv.to(dt)
+
+
+RING_Q_BLOCK = 512  # dit.py _ring_attention's q_block
+
+
+def ring_fold_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        band: Optional[Band] = None, q_off: int = 0, k_off: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ring-attention step, K1ring's plain version: the attention of
+    the queries q (B, Lq, H, D), at global positions q_off + i, over one KV
+    shard k/v (B, Lk, H, D), at k_off + j; returns (out like q, the fp32 row
+    logsumexp (B, H, Lq)).
+
+    As dit.py folds a shard (:598-625): q, k and v in fp32, the logits
+    scaled in fp32, 512-row query blocks, the band evaluated on global
+    frames. A row that sees no key of the shard gets out 0 and lse -inf
+    (dit.py gates its probabilities to 0, :617-619).
+    """
+    Lq, Lk = q.shape[1], k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kf, vf = k.float(), v.float()
+    outs, lses = [], []
+    for s in range(0, Lq, RING_Q_BLOCK):
+        e = min(s + RING_Q_BLOCK, Lq)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q[:, s:e].float(), kf) * scale
+        if band is not None:
+            hw, window, prefix = band
+            qf = (q_off + torch.arange(s, e, device=q.device)) // hw
+            kfr = (k_off + torch.arange(Lk, device=q.device)) // hw
+            allowed = ((qf[:, None] - kfr[None, :]).abs() <= window) | (kfr[None, :] < prefix)
+            logits.masked_fill_(~allowed, -math.inf)
+        m = logits.amax(dim=-1, keepdim=True)  # -inf for a row without a key
+        p = torch.exp(logits - torch.where(m == -math.inf, torch.zeros_like(m), m))
+        den = p.sum(dim=-1)  # (B, H, rows), 0 for a row without a key
+        num = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+        inv = torch.where(den > 0, 1.0 / den, torch.zeros_like(den))
+        outs.append((num * inv.transpose(1, 2)[..., None]).to(q.dtype))
+        lses.append(m[..., 0] + torch.log(den))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
+def ring_merge_reference(acc: torch.Tensor, acc_lse: torch.Tensor,
+                         out: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None,
+                         final_dtype: Optional[torch.dtype] = None) -> Optional[torch.Tensor]:
+    """K1merge's plain version: fold one ring step's (out, lse) into the
+    running state acc (B, L, H, D) fp32 and acc_lse (B, H, L) fp32 (it
+    starts at 0 and -inf), in place; with final_dtype, return the merged
+    result in that dtype instead and leave the state. Weights exp(lse - m)
+    for m the larger lse; a row whose two lses are -inf stays 0 and -inf.
+    out = lse = None folds nothing."""
+    step_lse = torch.full_like(acc_lse, -math.inf) if lse is None else lse
+    m = torch.maximum(acc_lse, step_lse)
+    m_use = torch.where(m == -math.inf, torch.zeros_like(m), m)
+    wa, ws = torch.exp(acc_lse - m_use), torch.exp(step_lse - m_use)
+    total = wa + ws
+    inv = torch.where(total > 0, 1.0 / total, torch.zeros_like(total))
+
+    def per_row(w):  # (B, H, L) -> (B, L, H, 1)
+        return (w * inv).transpose(1, 2)[..., None]
+
+    merged = acc * per_row(wa)
+    if out is not None:
+        merged = merged + out.float() * per_row(ws)
+    if final_dtype is not None:
+        return merged.to(final_dtype)
+    acc.copy_(merged)
+    acc_lse.copy_(torch.where(total > 0, m_use + torch.log(total),
+                              torch.full_like(total, -math.inf)))
+    return None
 
 
 def quantize_rows_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,9 +1,15 @@
 """GeneralDIT: the Cosmos 7B video diffusion transformer in PyTorch.
 
-Port of gen3c_tpu/models/dit.py ``dit_forward`` for one device (no
-context/tensor/sequence parallelism, no span cache), differentiable for
-training (attention's backward is kernel K4), with optional per-block
-remat.
+Port of gen3c_tpu/models/dit.py ``dit_forward`` (no tensor or sequence
+parallelism, no span cache), differentiable for training (attention's
+backward is kernel K4), with optional per-block remat. Under context
+parallelism (``forward(cp=axis)``, one process per rank) the tokens are
+this rank's contiguous latent-T shard: the position tables are built for
+the whole sequence and sliced, and self-attention runs one of the JAX
+package's three strategies (``DiTConfig.cp_attn_impl``): "ulysses" (an
+all-to-all to H/cp heads of the whole sequence, kernel K1cp, then back),
+"ring" (KV shards passed around the ring, each folded in by K1ring and
+merged by K1merge) or "allgather" (K/V gathered, kernel K1ag).
 The module tree carries the reference checkpoint's parameter names, the
 left-hand side of gen3c_tpu/models/convert.py ``convert_dit_state_dict``,
 so a reference ``model.pt`` loads with ``load_state_dict``:
@@ -41,6 +47,8 @@ from torch.utils.checkpoint import checkpoint
 
 from gen3c_tpu_torch import kernels
 from gen3c_tpu_torch.models.quantize import linear_weight
+from gen3c_tpu_torch.parallel import collectives
+from gen3c_tpu_torch.parallel.mesh import Axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +77,8 @@ class DiTConfig:
     # temporal-band self-attention (K3): None = full attention (K1)
     attn_temporal_window: Optional[int] = None
     attn_prefix_frames: int = 1
+    # self-attention under context parallelism: allgather, ring or ulysses
+    cp_attn_impl: str = "allgather"
 
     @property
     def head_dim(self) -> int:
@@ -186,6 +196,95 @@ def _adaln_modulation(mod: nn.Sequential, emb: torch.Tensor, lora: torch.Tensor,
     return torch.chunk(h, n_chunks, dim=-1)
 
 
+# ------------------------- context-parallel self-attention -------------------------
+
+# ring steps this process folded (K1ring) and skipped under the band
+ring_steps = {"folded": 0, "skipped": 0}
+
+
+def ring_step_needed(q_rank: int, kv_rank: int, frames: int, band) -> bool:
+    """Whether a query shard and a KV shard of ``frames`` latent frames each
+    hold a (query frame, key frame) pair inside the band or its prefix
+    (dit.py:633-641, decided on the host: each rank knows both origins)."""
+    _, window, prefix = band
+    qf0, kf0 = q_rank * frames, kv_rank * frames
+    return ((kf0 <= qf0 + frames - 1 + window and qf0 <= kf0 + frames - 1 + window)
+            or kf0 < prefix)
+
+
+def _ulysses_attention(q, k, v, cp: Axis, band=None):
+    """dit.py ``_ulysses_attention`` (:653-678): an all-to-all turns the
+    (B, L/cp, H, D) sequence shards into (B, L, H/cp, D) head shards, K1
+    (K3 under the band, whose positions are global: each rank holds the
+    whole sequence) runs on them as K1cp, a second all-to-all restores
+    the sequence shards. Needs H % cp == 0."""
+    qg, kg, vg = (collectives.seq_to_heads(t, cp) for t in (q, k, v))
+    out = kernels.attention(qg, kg, vg, kernel_id="K1cp", band=band)
+    return collectives.heads_to_seq(out, cp)
+
+
+def _ring_attention(q, k, v, cp: Axis, band=None):
+    """dit.py ``_ring_attention`` (:529-650): rank r keeps its query shard
+    and passes the KV shards around the ring (after s shifts it holds rank
+    r - s's). Each step folds the shard it holds into the queries (K1ring:
+    the forward with lse at the shards' global positions) and merges the
+    result into a running fp32 output and lse (K1merge); the last merge
+    writes q's dtype. Under the band a step whose two shards share no
+    visible frame pair is skipped (its shift still runs). The shift after
+    the last step, whose result dit.py never reads, is left out."""
+    n, r = cp.size, cp.rank
+    B, L, H, D = q.shape
+    frames = None
+    if band is not None:
+        if L % band[0]:
+            raise ValueError(f"ring attention under the band: the shard of {L} tokens must be "
+                             f"whole frames of {band[0]}")
+        frames = L // band[0]
+    acc = torch.zeros((B, L, H, D), dtype=torch.float32, device=q.device)
+    acc_lse = torch.full((B, H, L), -math.inf, dtype=torch.float32, device=q.device)
+    out = None
+    for step in range(n):
+        kv_rank = (r - step) % n
+        last = step == n - 1
+        if band is None or ring_step_needed(r, kv_rank, frames, band):
+            o, lse = kernels.ring_fold(q, k, v, band, r * L, kv_rank * L)
+            out = kernels.ring_merge(acc, acc_lse, o, lse, q.dtype if last else None)
+            ring_steps["folded"] += 1
+        else:
+            ring_steps["skipped"] += 1
+            if last:
+                out = kernels.ring_merge(acc, acc_lse, final_dtype=q.dtype)
+        if not last:
+            k, v = collectives.ring_shift([k, v], cp)
+    return out
+
+
+def _allgather_attention(q, k, v, cp: Axis):
+    """dit.py's all-gather strategy (:763-766): K and V gathered over the
+    axis, then K1 with Lq = L/cp queries over all L keys (K1ag)."""
+    k, v = (collectives.all_gather(t, 1, cp) for t in (k, v))
+    return kernels.attention(q, k, v, kernel_id="K1ag")
+
+
+def cp_self_attention(q, k, v, cp: Axis, impl: str, band=None):
+    """Self-attention of this rank's sequence shard under context
+    parallelism, by strategy (dit.py:737-766)."""
+    if band is not None and impl not in ("ulysses", "ring"):
+        raise ValueError(
+            "attn_temporal_window under context parallelism requires cp_attn_impl='ulysses' "
+            "(local full-sequence attention) or 'ring' (dynamic per-rank band masks); the "
+            "allgather strategy's splash mask is program-static under SPMD and cannot encode "
+            "per-rank q offsets")
+    if impl == "ring":
+        return _ring_attention(q, k, v, cp, band)
+    if impl == "ulysses":
+        return _ulysses_attention(q, k, v, cp, band)
+    if impl != "allgather":
+        raise ValueError(f"unknown cp_attn_impl {impl!r}; expected 'allgather', 'ring' or "
+                         f"'ulysses'")
+    return _allgather_attention(q, k, v, cp)
+
+
 # ------------------------------ modules ------------------------------
 
 
@@ -214,7 +313,9 @@ class Attention(nn.Module):
         self.to_v = nn.Sequential(_linear(ctx_dim, dim, device, dtype))
         self.to_out = nn.Sequential(_linear(dim, dim, device, dtype))
 
-    def forward(self, x, context=None, rope=None, band=None):
+    def forward(self, x, context=None, rope=None, band=None, cp=None, cp_impl="allgather"):
+        """cp: the context-parallel axis (self-attention of a sequence
+        shard, by strategy cp_impl; see ``cp_self_attention``)."""
         B, L, D = x.shape
         ctx = x if context is None else context
         hd = D // self.num_heads
@@ -224,8 +325,11 @@ class Attention(nn.Module):
         if context is None:
             q = apply_rope(q, *rope)
             k = apply_rope(k, *rope)
-        out = kernels.attention(q, k, v, kernel_id="K1" if context is None else "K2",
-                                band=band)
+        if context is None and cp is not None:
+            out = cp_self_attention(q, k, v, cp, cp_impl, band)
+        else:
+            out = kernels.attention(q, k, v, kernel_id="K1" if context is None else "K2",
+                                    band=band)
         return self.to_out[0](out.reshape(B, L, D))
 
 
@@ -234,8 +338,8 @@ class VideoAttn(nn.Module):
         super().__init__()
         self.attn = Attention(dim, ctx_dim, num_heads, device, dtype)
 
-    def forward(self, x, context=None, rope=None, band=None):
-        return self.attn(x, context, rope, band)
+    def forward(self, x, context=None, rope=None, band=None, cp=None, cp_impl="allgather"):
+        return self.attn(x, context, rope, band, cp, cp_impl)
 
 
 class GPT2FeedForward(nn.Module):
@@ -280,9 +384,9 @@ class GeneralDITTransformerBlock(nn.Module):
                              D, L, device, dtype),
         ])
 
-    def forward(self, x, emb, lora, extra, ctx, rope, band=None):
+    def forward(self, x, emb, lora, extra, ctx, rope, band=None, cp=None, cp_impl="allgather"):
         x = x + extra
-        x = self.blocks[0](x, emb, lora, rope=rope, band=band)
+        x = self.blocks[0](x, emb, lora, rope=rope, band=band, cp=cp, cp_impl=cp_impl)
         x = self.blocks[1](x, emb, lora, context=ctx)
         return self.blocks[2](x, emb, lora)
 
@@ -371,22 +475,33 @@ class GeneralDIT(nn.Module):
         x = x.reshape(B, T // pt, H // ps, W // ps, ps, ps, pt, C)
         return x.permute(0, 7, 1, 6, 2, 4, 3, 5).reshape(B, C, T, H, W)
 
-    def rope(self, T: int, H: int, W: int, fps: Optional[float], device):
-        key = (T, H, W, fps, str(device))
+    def rope(self, T: int, H: int, W: int, fps: Optional[float], device,
+             rank: int = 0, size: int = 1):
+        """The RoPE table of a (T * size, H, W) grid, cut to the tokens of
+        latent frames [rank T, (rank + 1) T) (t-major tokens: a T-chunk is
+        an L-chunk), cached per shape, fps, device and rank."""
+        key = (T, H, W, fps, str(device), rank, size)
         if key not in self._rope_cache:
-            self._rope_cache = {key: rope_3d_table(self.cfg, T, H, W, fps=fps, device=device)}
+            L = T * H * W
+            cos, sin = rope_3d_table(self.cfg, T * size, H, W, fps=fps, device=device)
+            self._rope_cache = {key: (cos[rank * L:(rank + 1) * L], sin[rank * L:(rank + 1) * L])}
         return self._rope_cache[key]
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, crossattn_emb: torch.Tensor,
                 fps: Optional[float] = None,
                 padding_mask: Optional[torch.Tensor] = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, cp: Optional[Axis] = None) -> torch.Tensor:
         """remat=True recomputes each block's activations in the backward
         instead of keeping them (``torch.utils.checkpoint``, non-reentrant:
         dit.py's ``jax.checkpoint(block_step)``, :1040-1045). Serving calls
         this under ``torch.no_grad()`` (the sampler, the pipeline), and a
         fresh net's parameters do not require grad; the trainer turns
-        them on."""
+        them on.
+
+        cp: the context-parallel axis (size > 1). x is then this rank's
+        contiguous latent-T shard; the RoPE table and the extra position
+        embedding are built for the T * cp frames and sliced to it
+        (dit.py:929-946), and self-attention runs ``cfg.cp_attn_impl``."""
         cfg = self.cfg
         dtype = cfg.dtype
         B, C, T, H, W = x.shape
@@ -394,8 +509,10 @@ class GeneralDIT(nn.Module):
         _, Tp, Hp, Wp, D = tokens.shape
         L = Tp * Hp * Wp
         tokens = tokens.reshape(B, L, D)
-        rope = self.rope(Tp, Hp, Wp, fps, x.device)
-        extra = self.extra_pos_embedder(Tp, Hp, Wp).to(dtype).reshape(1, L, D)
+        rank, size = (0, 1) if cp is None else (cp.rank, cp.size)
+        rope = self.rope(Tp, Hp, Wp, fps, x.device, rank, size)
+        extra = self.extra_pos_embedder(Tp * size, Hp, Wp)[rank * Tp:(rank + 1) * Tp]
+        extra = extra.to(dtype).reshape(1, L, D)
         band = (None if cfg.attn_temporal_window is None
                 else (Hp * Wp, cfg.attn_temporal_window, cfg.attn_prefix_frames))
 
@@ -407,12 +524,13 @@ class GeneralDIT(nn.Module):
         emb = _rms_norm(sincos, self.affline_norm.weight)
 
         ctx = crossattn_emb.to(dtype)
+        impl = cfg.cp_attn_impl
         for blk in self.blocks.values():
             if remat and torch.is_grad_enabled():
-                tokens = checkpoint(blk, tokens, emb, lora, extra, ctx, rope, band,
+                tokens = checkpoint(blk, tokens, emb, lora, extra, ctx, rope, band, cp, impl,
                                     use_reentrant=False)
             else:
-                tokens = blk(tokens, emb, lora, extra, ctx, rope, band)
+                tokens = blk(tokens, emb, lora, extra, ctx, rope, band, cp, impl)
 
         fshift, fscale = _adaln_modulation(self.final_layer.adaLN_modulation, emb, lora, 2)
         tokens = (_layer_norm(tokens).float() * (1 + fscale[:, None, :])

@@ -2,8 +2,10 @@
 
 Latents are scaled by sigma_data; the warped buffers and their masks are
 VAE-encoded per buffer into the pose latent; sampling is the EDM-Euler
-loop with batched CFG on one device, with the JAX package's guidance
-interval, CFG rescale and step caching.
+loop with batched CFG, with the JAX package's guidance interval, CFG
+rescale and step caching, on one device or, when the model carries
+process groups with a cp or cfg axis of size > 1, context- and
+CFG-parallel over them (``parallel.cp.cp_generate_samples``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from gen3c_tpu_torch.diffusion.scheduler import EDMEulerSchedule
 from gen3c_tpu_torch.models.conditioner import make_condition_pair
 from gen3c_tpu_torch.models.dit import GeneralDIT
 from gen3c_tpu_torch.models.vae import VideoTokenizer
+from gen3c_tpu_torch.parallel.mesh import Groups
 
 DEFAULT_AUGMENT_SIGMA = 0.001
 
@@ -34,6 +37,8 @@ class Gen3CModel:
     chunk_size: int = 121  # pixel frames per diffusion call
     state_shape: Tuple[int, int, int, int] = (16, 16, 88, 160)
     schedule: EDMEulerSchedule = dataclasses.field(default_factory=EDMEulerSchedule)
+    # this rank's cfg and cp axes (parallel.mesh.make_groups); None: one device
+    groups: Optional[Groups] = None
 
     @property
     def device(self) -> torch.device:
@@ -129,11 +134,7 @@ class Gen3CModel:
         init_noise = np.random.RandomState(seed).standard_normal((B,) + state_shape)
         augment_noise = arch_invariant_randn((B,) + state_shape, seed)
 
-        def net_fn(x_in, t_in, crossattn):
-            return self.net(x_in, t_in, crossattn, fps=24.0)
-
-        return generate_samples(
-            net_fn,
+        inputs = dict(
             init_noise=torch.from_numpy(init_noise.astype(np.float32)).to(dev),
             augment_noise=torch.from_numpy(augment_noise).to(dev),
             crossattn_cond=cond.crossattn_emb,
@@ -154,3 +155,13 @@ class Gen3CModel:
             cfg_rescale=cfg_rescale,
             on_step=on_step,
         )
+        if self.groups is not None and self.groups.parallel:
+            # gen3c_tpu/models/gen3c.py:317-350: every rank holds the global noise
+            from gen3c_tpu_torch.parallel.cp import cp_generate_samples
+
+            return cp_generate_samples(self.groups, self.net, **inputs)
+
+        def net_fn(x_in, t_in, crossattn):
+            return self.net(x_in, t_in, crossattn, fps=24.0)
+
+        return generate_samples(net_fn, **inputs)

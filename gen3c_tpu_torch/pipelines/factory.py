@@ -7,12 +7,21 @@ seeded random init drawn on the target device. ``apply_perf_preset``
 expands ``--perf_preset fast`` (W8A8, band attention, step caching,
 guidance interval) as the JAX package does; ``add_perf_flags``,
 ``check_ported`` and ``build_from_args`` serve the CLIs.
+
+Over several devices (``num_devices`` > 1, one process per rank as
+``torchrun`` starts them) the model carries the process groups of its
+``parallel`` strategy: "cp" (context parallel over every rank), "cfg2"
+(the CFG pair split over 2 ranks) or "cfg2cpN" (both, on 2N ranks), with
+``cp_attn`` choosing the self-attention strategy (gen3c_tpu/pipelines/
+factory.py:138-157, 374-453). Tensor parallelism ("tp", "cpNtpM[sp]",
+"cfg2...tpM") is not ported (ROADMAP item 15).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from typing import Optional, Tuple, Union
 
 import torch
@@ -21,6 +30,7 @@ from gen3c_tpu_torch.models.dit import DiTConfig, GeneralDIT
 from gen3c_tpu_torch.models.gen3c import Gen3CModel
 from gen3c_tpu_torch.models.quantize import quantize_dit_
 from gen3c_tpu_torch.models.vae import CV8x8x8, CausalVAE, VAEConfig, VideoTokenizer
+from gen3c_tpu_torch.parallel import mesh
 from gen3c_tpu_torch.utils import log
 
 
@@ -92,6 +102,36 @@ _CHECKPOINT_FILES = (
 )
 
 
+def parse_parallel(parallel: str) -> Tuple[int, Optional[int]]:
+    """(cfg, cp) of a strategy name: "cp" -> (1, None: every rank), "cfg2"
+    -> (2, 1), "cfg2cpN" -> (2, N). An unknown name raises ValueError;
+    the tensor-parallel ones ("tp", "cpNtpM[sp]", "cfg2[cpN]tpM")
+    NotImplementedError (gen3c_tpu/pipelines/factory.py:374-453)."""
+    cp_tp = re.fullmatch(r"cp(\d+)tp(\d+)(sp)?", parallel)
+    cfg = re.fullmatch(r"cfg2(?:cp(\d+))?(?:tp(\d+))?", parallel)
+    if parallel not in ("cp", "tp") and not cp_tp and not cfg:
+        raise ValueError(f"unknown parallel strategy {parallel!r}")
+    if parallel == "tp" or cp_tp or (cfg and cfg.group(2)):
+        raise NotImplementedError(
+            f"--parallel {parallel}: tensor and sequence parallelism are not ported to "
+            f"gen3c_tpu_torch yet ({mesh.ITEM_15})")
+    if cfg:
+        return 2, int(cfg.group(1) or 1)
+    return 1, None
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device a rank runs on: a bare "cuda" is cuda:$LOCAL_RANK (the
+    card torchrun gives this process), made current; anything else as
+    given."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", mesh.local_rank())
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
 def build_gen3c_model(
     preset: Union[str, Gen3CPreset] = "gen3c_7b",
     device: Union[str, torch.device] = "cuda",
@@ -100,8 +140,13 @@ def build_gen3c_model(
     checkpoint_dir: Optional[str] = None,
     quantize: Union[bool, str] = False,
     attn_temporal_window: Optional[int] = None,
+    num_devices: int = 1,
+    parallel: str = "cp",
+    cp_attn: Optional[str] = None,
+    dist_backend: Optional[str] = None,
 ) -> Tuple[Gen3CModel, Gen3CPreset]:
-    """Build a Gen3CModel with seeded random weights on ``device``.
+    """Build a Gen3CModel with seeded random weights on ``device`` (a bare
+    "cuda": cuda:$LOCAL_RANK).
 
     dtype overrides the preset's DiT dtype (bf16 for 7B, fp32 for tiny);
     the VAE stays fp32. quantize: False, "int8" (weight-only) or "w8a8"
@@ -111,9 +156,23 @@ def build_gen3c_model(
     checkpoint_dir that holds real weights raises: loading them is not
     ported yet, and silently ignoring them would change what the run
     means.
+
+    num_devices > 1: this process is one rank of a job of that many
+    (``torchrun``'s environment; ``parallel.mesh.maybe_distributed_init``
+    joins it with dist_backend, default NCCL on CUDA and gloo on the CPU;
+    gloo also serves ranks that share one card). Every rank builds the same
+    weights from the same seed, and the model carries the groups of the
+    ``parallel`` strategy (``parse_parallel``, validated even at one
+    device). cp_attn ("allgather", the default, "ring" or "ulysses") is the
+    self-attention under context parallelism; a band over several devices
+    needs "ulysses" or "ring".
     """
     if quantize not in (False, "int8", "w8a8"):
         raise ValueError(f"quantize must be False, 'int8' or 'w8a8', got {quantize!r}")
+    cfg_n, cp_n = parse_parallel(parallel)
+    if cp_attn is not None and cp_attn not in ("allgather", "ring", "ulysses"):
+        raise ValueError(f"unknown cp_attn {cp_attn!r}; expected 'allgather', 'ring' or "
+                         f"'ulysses'")
     if isinstance(preset, str):
         preset = PRESETS[preset]
     if checkpoint_dir:
@@ -124,10 +183,33 @@ def build_gen3c_model(
             )
     if dtype is not None:
         preset = dataclasses.replace(preset, dit=dataclasses.replace(preset.dit, dtype=dtype))
+    if cp_attn is not None:
+        preset = dataclasses.replace(preset, dit=dataclasses.replace(
+            preset.dit, cp_attn_impl=cp_attn))
     if attn_temporal_window is not None:
+        if num_devices > 1 and preset.dit.cp_attn_impl not in ("ulysses", "ring"):
+            raise ValueError(
+                "attn_temporal_window over multiple devices requires cp_attn='ulysses' or "
+                "'ring' (the allgather splash mask is program-static and lacks per-rank q "
+                "offsets)")
         preset = dataclasses.replace(preset, dit=dataclasses.replace(
             preset.dit, attn_temporal_window=attn_temporal_window))
-    device = torch.device(device)
+    device = resolve_device(device)
+    groups = None
+    if num_devices > 1:
+        mesh.maybe_distributed_init(dist_backend, device)
+        world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+        if world != num_devices:
+            raise ValueError(f"num_devices={num_devices} but this job has {world} process(es): "
+                             f"launch one per device (torchrun --nproc_per_node "
+                             f"{num_devices})")
+        cp_n = num_devices // cfg_n if cp_n is None else cp_n
+        if cfg_n * cp_n != num_devices:
+            raise ValueError(f"parallel={parallel!r} needs {cfg_n * cp_n} devices, got "
+                             f"num_devices={num_devices}")
+        groups = mesh.make_groups(cfg=cfg_n, cp=cp_n, backend=dist_backend)
+        log.info(f"parallel denoising over {num_devices} ranks: cfg={cfg_n} x cp={cp_n}"
+                 + (f" ({preset.dit.cp_attn_impl} self-attention)" if cp_n > 1 else ""))
     log.warning(f"No checkpoint loading in this port; RANDOM init ({preset.name}, seed {seed}).")
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -149,6 +231,7 @@ def build_gen3c_model(
         frame_buffer_max=preset.frame_buffer_max,
         chunk_size=preset.chunk_size,
         state_shape=preset.state_shape,
+        groups=groups,
     )
     return model, preset
 
@@ -177,7 +260,7 @@ def add_perf_flags(p) -> None:
     gen3c_tpu's ``add_perf_flags`` (same names and defaults), and
     ``--device``."""
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (cuda, cuda:N or cpu)")
+                   help="torch device to run on (cuda = cuda:$LOCAL_RANK, cuda:N or cpu)")
     p.add_argument("--perf_preset", choices=["exact", "fast"], default="exact",
                    help="'fast' = W8A8 + band window 2 + step-cache interval 2 + "
                         "guidance interval 1.75..81; explicit flags win")
@@ -185,8 +268,10 @@ def add_perf_flags(p) -> None:
                    help="int8 weight-only DiT (dequantized bf16 matmuls)")
     p.add_argument("--quantize_w8a8", action="store_true",
                    help="int8 DiT weights and per-token int8 activations (kernels K7q + K7)")
-    p.add_argument("--offload_diffusion_transformer", action="store_true", help="not ported yet")
-    p.add_argument("--offload_tokenizer", action="store_true", help="not ported yet")
+    p.add_argument("--offload_diffusion_transformer", action="store_true",
+                   help="accepted and ignored: the DiT stays on the device")
+    p.add_argument("--offload_tokenizer", action="store_true",
+                   help="accepted and ignored: the VAE stays on the device")
     p.add_argument("--step_cache_interval", type=int, default=1,
                    help="> 1: run the DiT every Nth step after a 2-step warmup and "
                         "before a 2-step tail, reusing its output between")
@@ -199,11 +284,19 @@ def add_perf_flags(p) -> None:
     p.add_argument("--cfg_rescale", type=float, default=0.0,
                    help="phi in [0, 1]: blend in the CFG output rescaled to the cond "
                         "branch's std; 0 = plain CFG")
+    add_parallel_flags(p)
+
+
+def add_parallel_flags(p) -> None:
+    """gen3c_tpu's multi-device flags: --num_devices/--num_gpus, --parallel
+    and --cp_attn."""
     p.add_argument("--cp_attn", type=str, default=None,
-                   choices=["allgather", "ring", "ulysses"], help="not ported yet")
-    p.add_argument("--parallel", type=str, default="cp", help="multi-device: not ported yet")
+                   choices=["allgather", "ring", "ulysses"],
+                   help="self-attention under context parallelism (default allgather)")
+    p.add_argument("--parallel", type=str, default="cp",
+                   help="multi-device strategy: cp, cfg2 or cfg2cpN")
     p.add_argument("--num_devices", "--num_gpus", type=int, default=1, dest="num_devices",
-                   help="> 1 not ported yet")
+                   help="> 1: one process per device, launched by torchrun --nproc_per_node N")
 
 
 def check_ported(args) -> None:
@@ -213,12 +306,7 @@ def check_ported(args) -> None:
         "--step_cache_block_span": getattr(args, "step_cache_block_span", None) is not None,
         "--step_cache_span_dtype": getattr(args, "step_cache_span_dtype", "bf16") != "bf16",
         "--solver": getattr(args, "solver", "euler") != "euler",
-        "--num_devices": getattr(args, "num_devices", 1) > 1,
-        "--parallel": getattr(args, "parallel", "cp") != "cp",
-        "--cp_attn": getattr(args, "cp_attn", None) is not None,
         "--enable_prompt_encoder": not getattr(args, "disable_prompt_encoder", True),
-        "--offload_diffusion_transformer": getattr(args, "offload_diffusion_transformer", False),
-        "--offload_tokenizer": getattr(args, "offload_tokenizer", False),
     }
     for flag, used in unported.items():
         if used:
@@ -227,13 +315,24 @@ def check_ported(args) -> None:
 
 def build_from_args(args) -> Tuple[Gen3CModel, Gen3CPreset]:
     """``apply_perf_preset``, ``check_ported``, then ``build_gen3c_model`` on
-    ``args.device`` with the quantization and band the flags ask for."""
+    ``args.device`` with the quantization, band and parallel strategy the
+    flags ask for; ``args.device`` becomes the device the rank runs on. The
+    offload flags are accepted and change nothing (offload is not ported:
+    the 7B fits one card)."""
     apply_perf_preset(args)
     check_ported(args)
+    for flag, what in (("offload_diffusion_transformer", "the DiT"),
+                       ("offload_tokenizer", "the VAE")):
+        if getattr(args, flag, False):
+            log.info(f"--{flag}: ignored, {what} stays on the device (offload is not ported)")
     quantize = "w8a8" if args.quantize_w8a8 else ("int8" if args.quantize_int8 else False)
-    return build_gen3c_model(args.model_preset, device=args.device, seed=args.seed,
-                             checkpoint_dir=args.checkpoint_dir, quantize=quantize,
-                             attn_temporal_window=args.attn_temporal_window)
+    model, preset = build_gen3c_model(args.model_preset, device=args.device, seed=args.seed,
+                                      checkpoint_dir=args.checkpoint_dir, quantize=quantize,
+                                      attn_temporal_window=args.attn_temporal_window,
+                                      num_devices=args.num_devices, parallel=args.parallel,
+                                      cp_attn=args.cp_attn)
+    args.device = str(model.device)
+    return model, preset
 
 
 def validate_num_frames(num_video_frames: int, chunk_size: int) -> None:

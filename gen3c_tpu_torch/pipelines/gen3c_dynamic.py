@@ -26,6 +26,7 @@ import torch
 
 from gen3c_tpu_torch.cache import Cache4D
 from gen3c_tpu_torch.ops.camera import CAMERA_ROTATIONS, TRAJECTORY_TYPES, generate_camera_trajectory
+from gen3c_tpu_torch.parallel.mesh import process_rank
 from gen3c_tpu_torch.pipelines import data_loaders, factory
 from gen3c_tpu_torch.pipelines.chunked import compose_buffer_video, run_chunked_generation
 from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
@@ -128,6 +129,8 @@ def demo(args, built: Optional[tuple] = None, record: Optional[dict] = None) -> 
     record["pipeline"] = pipeline.last_timings
     final = compose_buffer_video(video, all_warps, preset.height, preset.width)
     record["video"] = final
+    if process_rank() != 0:  # every rank holds the video; rank 0 writes it
+        return ""
     save_path = save_video(final, args.fps,
                            os.path.join(args.video_save_folder, f"{args.video_save_name}.mp4"))
     log.info(f"Saved video to {save_path}")

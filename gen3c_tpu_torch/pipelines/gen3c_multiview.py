@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from gen3c_tpu_torch.cache import Cache3DBufferSelector
+from gen3c_tpu_torch.parallel.mesh import process_rank
 from gen3c_tpu_torch.pipelines import factory
 from gen3c_tpu_torch.pipelines.chunked import compose_buffer_video, run_chunked_generation
 from gen3c_tpu_torch.pipelines.data_loaders import load_multiview_npz
@@ -108,6 +109,8 @@ def demo(args, built: Optional[tuple] = None, record: Optional[dict] = None) -> 
     record["selections"] = cache.selections
     final = compose_buffer_video(video, all_warps, preset.height, preset.width)
     record["video"] = final
+    if process_rank() != 0:  # every rank holds the video; rank 0 writes it
+        return ""
     save_path = save_video(final, args.fps,
                            os.path.join(args.video_save_folder, f"{args.video_save_name}.mp4"))
     log.info(f"Saved video to {save_path}")

@@ -10,6 +10,12 @@ Usage:
   python -m gen3c_tpu_torch.pipelines.gen3c_single_image \
       --input_image_path image.png --trajectory left --device cuda \
       [--model_preset gen3c_tiny] [--perf_preset fast]
+
+On N devices, one process per device, as the reference runs it:
+  torchrun --nproc_per_node N -m gen3c_tpu_torch.pipelines.gen3c_single_image \
+      --num_gpus N --parallel cp --cp_attn ulysses ...
+Every rank renders, encodes and denoises its share; rank 0 alone logs and
+writes the video.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from gen3c_tpu_torch.cache.cache3d import Cache3DBuffer
 from gen3c_tpu_torch.ops.camera import CAMERA_ROTATIONS, TRAJECTORY_TYPES, generate_camera_trajectory
+from gen3c_tpu_torch.parallel.mesh import process_rank
 from gen3c_tpu_torch.pipelines import factory
 from gen3c_tpu_torch.pipelines.chunked import compose_buffer_video, run_chunked_generation
 from gen3c_tpu_torch.pipelines.depth import make_depth_estimator
@@ -34,7 +41,7 @@ from gen3c_tpu_torch.utils.io import read_image_bcthw, read_prompts_from_file, s
 def create_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="GEN3C single-image (PyTorch/CUDA)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (cuda, cuda:N or cpu)")
+                   help="torch device to run on (cuda = cuda:$LOCAL_RANK, cuda:N or cpu)")
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
     p.add_argument("--model_preset", type=str, default="gen3c_7b", choices=sorted(PRESETS))
     p.add_argument("--prompt", type=str, default="")
@@ -71,8 +78,6 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn_temporal_window", type=int, default=None,
                    help="band self-attention (kernel K3): each latent frame "
                         "attends to frames within +/- N plus the seed frame")
-    p.add_argument("--cp_attn", type=str, default=None,
-                   choices=["allgather", "ring", "ulysses"], help="not ported yet")
     p.add_argument("--num_video_frames", type=int, default=121,
                    help="(N-1) %% (chunk-1) must be 0")
     p.add_argument("--fps", type=int, default=24)
@@ -97,11 +102,10 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--depth_source", type=str, default="auto",
                    choices=["auto", "moge", "file", "heuristic"])
     p.add_argument("--depth_path", type=str, default=None)
-    p.add_argument("--parallel", type=str, default="cp", help="multi-device: not ported yet")
-    p.add_argument("--num_devices", "--num_gpus", type=int, default=1, dest="num_devices",
-                   help="> 1 not ported yet")
-    # offload flags of the reference CLI; the text-encoder, upsampler and
-    # guardrail ones change nothing here (as in the JAX package)
+    factory.add_parallel_flags(p)
+    # offload flags of the reference CLI: none changes anything here (the
+    # DiT and VAE ones log that they are ignored; the others, as in the JAX
+    # package, are silent)
     for flag in ("offload_diffusion_transformer", "offload_tokenizer",
                  "offload_text_encoder_model", "offload_prompt_upsampler",
                  "offload_guardrail_models", "disable_guardrail",
@@ -174,6 +178,8 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name)
         update_cache_with_depth=estimator,
         save_buffer=args.save_buffer,
     )
+    if process_rank() != 0:  # every rank holds the video; rank 0 writes it
+        return ""
     final_video = compose_buffer_video(video, all_warps, h, w)
     save_path = save_video(final_video, args.fps,
                            os.path.join(args.video_save_folder, f"{save_name}.mp4"))

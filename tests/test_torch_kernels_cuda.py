@@ -10,7 +10,10 @@ Shapes cover what the wrappers promise: bf16 and fp32, head dims from 8 to
 temporal bands whose frames straddle the 64-key tiles, several splat
 groups in one launch, int8 GEMMs of any M, N, K, and K4 (the attention
 backward) at ragged self and cross shapes, K6 (the ray-triangle depth)
-at ragged ray and triangle counts, and every tile of P2 (K1's tile sweep).
+at ragged ray and triangle counts, every tile of P2 (K1's tile sweep), K1cp
+(K1 read in place from the Ulysses all-to-all's layout: K1's bits), and
+K1ring + K1merge over 4 KV shards with and without the band (rows left
+without a key by a shard: 0 and -inf, no NaN).
 Tolerances: bf16
 outputs of fp32 softmaxes (atol 2e-2), fp32 (atol 1e-4), atomic fp32 splat
 sums (1e-4 on pixels both call known, masks on >= 99.9% of pixels); int8
@@ -22,6 +25,7 @@ import torch
 
 from gen3c_tpu_torch import kernels
 from gen3c_tpu_torch.kernels import cuda as kcuda
+from gen3c_tpu_torch.models import dit
 from gen3c_tpu_torch.kernels.reference import (
     attention_backward_reference,
     attention_forward_reference,
@@ -472,3 +476,142 @@ def test_attention_tile_sweep_matches_reference(gen, config):
     torch.cuda.synchronize()
     assert kernels.launch_counts["P2"] == before["P2"] + 4
     assert kernels.launch_counts["K1"] == before["K1"] + ((bm, bn) == (64, 64))
+
+
+def _ulysses_view(x, cp, rank):
+    """Rank ``rank``'s heads of the whole sequence x (B, L, H, D), laid out
+    as collectives.seq_to_heads leaves them: a view of an (cp, L/cp, B,
+    H/cp, D) receive buffer."""
+    B, L, H, D = x.shape
+    hc = H // cp
+    buf = x[:, :, rank * hc:(rank + 1) * hc].reshape(B, cp, L // cp, hc, D)
+    buf = buf.permute(1, 2, 0, 3, 4).contiguous()
+    return buf.view(L, B, hc, D).permute(1, 0, 2, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("band", [None, (60, 1, 1)])
+@pytest.mark.parametrize("cp", [2, 4])
+def test_k1cp_on_the_ulysses_layout_is_k1_sliced(gen, dtype, band, cp):
+    """K1cp: K1 (K3 under the band) on a rank's H/cp heads, read in place
+    from the all-to-all's receive layout, gives the bits of K1 on all
+    heads for those heads (each (batch, head) is computed alone)."""
+    b, l, h, d = 2, 480, 8, 64
+    q, k, v = (torch.randn((b, l, h, d), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    full = kernels.attention(q, k, v, band=band)
+    for rank in range(cp):
+        views = [_ulysses_view(t, cp, rank) for t in (q, k, v)]
+        assert not views[0].is_contiguous()
+        before = dict(kernels.launch_counts)
+        out = kernels.attention(*views, kernel_id="K1cp", band=band)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["K1cp"] == before["K1cp"] + 1
+        assert kernels.launch_counts["K3"] == before["K3"]
+        hc = h // cp
+        assert torch.equal(out, full[:, :, rank * hc:(rank + 1) * hc])
+
+
+def _ring(q, k, v, cp, rank, band, fold, merge):
+    """Rank ``rank``'s ring attention over the cp KV shards of k/v, with
+    the given fold and merge (kernels or plain versions); the steps it
+    folded."""
+    B, L, H, D = q.shape
+    ls = L // cp
+    qs = q[:, rank * ls:(rank + 1) * ls].contiguous()
+    acc = torch.zeros((B, ls, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.full((B, H, ls), float("-inf"), device=q.device)
+    out, folded = None, []
+    for step in range(cp):
+        src = (rank - step) % cp
+        last = step == cp - 1
+        if band is None or dit.ring_step_needed(rank, src, ls // band[0], band):
+            o, l_ = fold(qs, k[:, src * ls:(src + 1) * ls].contiguous(),
+                         v[:, src * ls:(src + 1) * ls].contiguous(), band, rank * ls, src * ls)
+            assert torch.isfinite(o).all() and not torch.isnan(l_).any()
+            out = merge(acc, lse, o, l_, q.dtype if last else None)
+            folded.append(src)
+        elif last:
+            out = merge(acc, lse, None, None, q.dtype)
+    return out, folded
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("band", [None, (60, 1, 1), (60, 0, 0), (60, 2, 2)])
+def test_ring_fold_and_merge_match_k1_and_plain(gen, dtype, atol, band):
+    """K1ring + K1merge over 4 shards (ragged: 60-token frames straddle the
+    64-key tiles) against K1 (K3 under the band) on the whole sequence and
+    against the plain fold and merge; skipped steps follow JAX's rule."""
+    from gen3c_tpu_torch.kernels.reference import ring_fold_reference, ring_merge_reference
+
+    b, l, h, d, cp = 2, 960, 4, 64, 4
+    q, k, v = (torch.randn((b, l, h, d), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    want = kernels.attention(q, k, v, band=band)
+    for rank in range(cp):
+        before = dict(kernels.launch_counts)
+        got, folded = _ring(q, k, v, cp, rank, band, kernels.ring_fold, kernels.ring_merge)
+        plain, _ = _ring(q, k, v, cp, rank, band, ring_fold_reference, ring_merge_reference)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["K1ring"] == before["K1ring"] + len(folded)
+        assert kernels.launch_counts["K1merge"] - before["K1merge"] in (len(folded),
+                                                                        len(folded) + 1)
+        if band is not None and band[1] == 0 and band[2] == 0:
+            assert folded == [rank]  # only the diagonal shard holds visible pairs
+        rows = want[:, rank * (l // cp):(rank + 1) * (l // cp)]
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        assert (got.float() - rows.float()).abs().max().item() <= atol
+        assert (got.float() - plain.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_fold_rows_without_keys_are_zero(gen, dtype):
+    """A step whose shard the band hides from some query rows: those rows
+    give out 0 and lse -inf (no NaN), and merging them changes nothing."""
+    b, h, d, hw = 1, 2, 64, 50
+    q = torch.randn((b, 200, h, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, 200, h, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, 200, h, d), generator=gen, device="cuda").to(dtype)
+    band = (hw, 1, 0)  # query frames 4..7 (q_off 200) see key frames 3..8 only
+    out, lse = kernels.ring_fold(q, k, v, band, q_off=200, k_off=0)
+    torch.cuda.synchronize()
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    dark = torch.arange(200, device="cuda") >= 50  # query frames 5..7 see no key frame < 4
+    assert (out[:, dark] == 0).all() and torch.isinf(lse[:, :, dark]).all()
+    assert torch.isfinite(lse[:, :, ~dark]).all()
+    acc = torch.randn((b, 200, h, d), generator=gen, device="cuda")
+    acc_lse = torch.randn((b, h, 200), generator=gen, device="cuda")
+    a0, l0 = acc.clone(), acc_lse.clone()
+    kernels.ring_merge(acc, acc_lse, out, lse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(acc[:, dark], a0[:, dark])
+    torch.testing.assert_close(acc_lse[:, :, dark], l0[:, :, dark])
+
+
+def test_offload_flags_are_no_ops_on_the_card(tmp_path, monkeypatch):
+    """The tiny CLI on the card with --offload_diffusion_transformer and
+    --offload_tokenizer gives the frames it gives without them (uint8,
+    |delta| <= 1 on >= 99.9%: K5's atomics sum in any order; the frames are
+    taken before the lossy video codec)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from PIL import Image
+
+    from gen3c_tpu_torch.pipelines import gen3c_single_image as cli
+
+    img = tmp_path / "in.png"
+    Image.fromarray((np.random.default_rng(0).uniform(size=(96, 160, 3)) * 255)
+                    .astype(np.uint8)).save(img)
+    videos = []
+    monkeypatch.setattr(cli, "save_video", lambda video, fps, path: videos.append(video) or path)
+    for flags in ([], ["--offload_diffusion_transformer", "--offload_tokenizer"]):
+        args = cli.create_parser().parse_args(
+            ["--device", "cuda", "--model_preset", "gen3c_tiny", "--num_steps", "2",
+             "--depth_source", "heuristic", "--num_video_frames", "9", "--input_image_path",
+             str(img), "--video_save_folder", str(tmp_path), "--checkpoint_dir",
+             str(tmp_path / "n"), *flags])
+        cli.demo(args)
+    assert len(videos) == 2 and videos[0].shape == videos[1].shape == (9, 96, 160, 3)
+    diff = np.abs(videos[0].astype(np.int16) - videos[1].astype(np.int16))
+    assert (diff <= 1).mean() >= 0.999, (diff.max(), (diff > 1).mean())

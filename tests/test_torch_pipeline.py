@@ -244,12 +244,14 @@ def test_cli_fast_preset_subprocess(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--step_cache_block_span", "0", "4"],
                                   ["--step_cache_span_dtype", "int8"], ["--solver", "res2ab"],
-                                  ["--cp_attn", "ring"], ["--solver", "dpm2m"],
-                                  ["--num_devices", "2"],
+                                  ["--parallel", "cp2tp2"], ["--solver", "dpm2m"],
+                                  ["--parallel", "cfg2tp2"],
                                   ["--enable_prompt_encoder", "--t5_backend", "torch"],
                                   ["--enable_prompt_encoder"], ["--parallel", "tp"],
-                                  ["--offload_diffusion_transformer"], ["--offload_tokenizer"]])
+                                  ["--parallel", "cp2tp2sp"], ["--parallel", "cfg2cp2tp2"]])
 def test_cli_unported_flags_raise(flag):
+    """Flags of paths the port does not have yet raise NotImplementedError
+    naming the flag (the tensor-parallel strategies even at one device)."""
     from gen3c_tpu_torch.pipelines import gen3c_single_image as cli
 
     args = cli.create_parser().parse_args(["--input_image_path", "x.png", *flag])
@@ -284,7 +286,8 @@ def test_port_never_imports_jax():
     """Every module of the port imports, and its paths run (generation, a
     train step, the Trainer, a LoRA step with the band, the training CLI on
     a packaged clip, the dynamic and multiview CLIs with foreground
-    masking), without importing jax, jaxlib or any gen3c_tpu module."""
+    masking, a two-rank context-parallel run under torchrun), without
+    importing jax, jaxlib or any gen3c_tpu module."""
     code = r"""
 import importlib, pkgutil, sys
 import numpy as np, torch
@@ -363,6 +366,30 @@ with tempfile.TemporaryDirectory() as root:
     gen3c_multiview.demo(gen3c_multiview.create_parser().parse_args(
         ["--npz_path", f"{root}/mv.npz", "--frame_buffer_max", "2"] + common), record=record)
     assert len(record["selections"]) == 1 and len(record["selections"][0]) == 2
+# a context-parallel run: two ranks (torchrun, gloo), ring attention, each
+# rank checking its own modules
+import os, subprocess
+rank_code = '''
+import sys, numpy as np, torch
+from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
+from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
+model, p = build_gen3c_model("gen3c_tiny", device="cpu", seed=0, num_devices=2, cp_attn="ring")
+assert model.groups.cp.size == 2
+video, _ = Gen3cPipeline(model=model, num_steps=1).generate(
+    "", np.zeros((1, 3, 1, p.height, p.width), np.float32),
+    torch.zeros(1, p.chunk_size, 1, 3, p.height, p.width),
+    torch.ones(1, p.chunk_size, 1, 1, p.height, p.width))
+foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gen3c_tpu"))
+assert not foreign, foreign[:8]
+print("rank jax-free")
+'''
+with tempfile.TemporaryDirectory() as root:
+    open(f"{root}/rank.py", "w").write(rank_code)
+    out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "2", f"{root}/rank.py"],
+                         env=dict(os.environ, PYTHONPATH=os.getcwd()), capture_output=True,
+                         text=True, timeout=200)
+    assert out.returncode == 0 and out.stdout.count("rank jax-free") == 2, out.stderr[-2000:]
 foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gen3c_tpu"))
 assert not foreign, foreign[:8]
 print("jax-free")
