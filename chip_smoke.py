@@ -73,6 +73,17 @@ Phases, each printing one JSON line of its own numbers:
              collective moved, peak GiB and launches (K1cp, K1ring +
              K1merge, K1ag). The ranks share the card and their collectives
              pass through host memory: none of these is a multi-card time
+Every bf16 attention case of phase 3 also prints its launches by body
+(kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
+registers, stack and spill bytes (ptxas -v, the build log) and dynamic
+shared memory of the attention_wgmma.cu entries it ran; phase 2 lists every
+such entry and fails if one spills. Every 7B-shape call of the attention
+family, and main, train, lora_band_train and cp, must run the wgmma body
+only. K4's cases also hold two backward calls to the same bits. At the 7B
+self shape the mma.sync bodies, which serve the bf16 inputs no TMA map
+describes, are held too: the same values at a base off 16-byte alignment
+through K1's forward, the forward with lse, a ring step and the backward,
+against the same plain versions, counted apart from K4's routes.
 Phase 3 also holds K4 (the attention backward) and its forward with the
 row logsumexp at the 7B self- and cross-attention shapes and at a ragged
 fp32 tiny shape; K4-band at the 7B self shape with the fast preset's band
@@ -236,8 +247,9 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
-    """Median milliseconds of fn() on the current stream (CUDA events)."""
+def cuda_times(fn, reps: int = 3, warmup: int = 1) -> list:
+    """Milliseconds of each of reps calls of fn() on the current stream
+    (CUDA events), after warmup calls."""
     for _ in range(warmup):
         fn()
     times = []
@@ -248,7 +260,61 @@ def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
+
+
+def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
+    """Median milliseconds of fn() on the current stream (CUDA events)."""
+    return float(np.median(cuda_times(fn, reps, warmup)))
+
+
+def _ptxas() -> dict:
+    """{kernel entry: (registers, stack, spill-store, spill-load bytes)} from
+    ptxas -v in the kernel build's log."""
+    from gen3c_tpu_torch.kernels import build
+    from gen3c_tpu_torch.scripts.compare_attention_builds import _ptxas_counts
+
+    return _ptxas_counts(build.build()["log"])
+
+
+def wgmma_entries(kind: str, d: int, band: bool, lse: bool = False) -> dict:
+    """The attention_wgmma.cu entries one call launches ("fwd": the forward,
+    "bwd": Delta, dK/dV and dQ) at head dim d: registers, stack and spill
+    bytes from the build log, and the dynamic shared memory they ask for."""
+    from gen3c_tpu_torch.kernels import cuda
+
+    dp = 64 if d <= 64 else 128
+    smem = cuda.wgmma_smem_bytes(d)
+    b = f"Lb{int(band)}E"
+    if kind == "fwd":
+        want = {f"attn_fwd_wgmma<{dp},{int(band)},{int(lse)}>":
+                (f"attn_fwd_wgmmaILi{dp}E{b}Lb{int(lse)}EE", smem["fwd"])}
+    else:
+        want = {f"attn_bwd_dkdv_wgmma<{dp},{int(band)}>": (f"attn_bwd_dkdv_wgmmaILi{dp}E{b}E",
+                                                          smem["dkdv"]),
+                f"attn_bwd_dq_wgmma<{dp},{int(band)}>": (f"attn_bwd_dq_wgmmaILi{dp}E{b}E",
+                                                        smem["dq"]),
+                "attn_bwd_delta_wgmma": ("attn_bwd_delta_wgmma", 0)}
+    counts = _ptxas()
+    out = {}
+    for name, (pattern, dynamic) in want.items():
+        regs, stack, spill_st, spill_ld = next(v for k, v in counts.items() if pattern in k)
+        out[name] = {"registers": regs, "stack": stack, "spill_stores": spill_st,
+                     "spill_loads": spill_ld, "smem_dynamic": dynamic}
+    return out
+
+
+def route_delta(before: dict) -> dict:
+    """The bf16 attention family's launches per body since ``before``."""
+    from gen3c_tpu_torch import kernels
+
+    return {k: kernels.route_counts[k] - before[k] for k in before}
+
+
+def require_wgmma(name: str, routes: dict) -> None:
+    """Every launch of the family went to the wgmma body, and one did."""
+    if routes["mma_sync"] or not routes["wgmma"]:
+        raise AssertionError(f"{name}: attention launches by body {routes}, expected wgmma only")
 
 
 # ----------------------------------------------------------------------------
@@ -281,7 +347,13 @@ def phase_build() -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as f:
         f.write(info["log"])
-    emit("build", seconds=round(info["seconds"], 3), cached=info["cached"], library=info["path"])
+    wgmma = {k: v for k, v in _ptxas().items() if "_wgmma" in k}
+    emit("build", seconds=round(info["seconds"], 3), cached=info["cached"], library=info["path"],
+         wgmma_entries={k: {"registers": v[0], "stack": v[1], "spill_stores": v[2],
+                            "spill_loads": v[3]} for k, v in wgmma.items()})
+    spilled = [k for k, v in wgmma.items() if v[2] or v[3]]
+    if len(wgmma) < 17 or spilled:
+        raise AssertionError(f"attention_wgmma.cu: {len(wgmma)} entries, spilling: {spilled}")
 
 
 def _attention_case(name, shape_q, shape_kv, dtype, tol, gen, time_it=True):
@@ -290,6 +362,7 @@ def _attention_case(name, shape_q, shape_kv, dtype, tol, gen, time_it=True):
     q = torch.randn(shape_q, generator=gen, device="cuda").to(dtype)
     k = torch.randn(shape_kv, generator=gen, device="cuda").to(dtype)
     v = torch.randn(shape_kv, generator=gen, device="cuda").to(dtype)
+    before = dict(kernels.route_counts)
     out = kernels.attention(q, k, v)
     ref = kernels.attention_reference(q, k, v)
     torch.cuda.synchronize()
@@ -307,7 +380,13 @@ def _attention_case(name, shape_q, shape_kv, dtype, tol, gen, time_it=True):
                    plain_tflops=flop / plain_ms / 1e9, library_ms=library_ms(lambda: _sdpa(q, k, v)),
                    **bound(tensor_bytes(q, k, v, q), flop,
                            BF16_PEAK_TFLOPS if dtype == torch.bfloat16 else FP32_PEAK_TFLOPS))
+        res["bound_share"] = res["bound_ms"] / ms
+    res["routes"] = route_delta(before)
+    if dtype == torch.bfloat16:
+        res["entries"] = wgmma_entries("fwd", shape_q[3], band=False)
     emit("kernel", **res)
+    if dtype == torch.bfloat16:
+        require_wgmma(name, res["routes"])
     if not res["finite"] or res["max_abs_err"] > tol["max"] or res["mean_abs_err"] > tol["mean"]:
         raise AssertionError(f"{name}: kernel disagrees with its plain version: {res}")
     return res
@@ -335,9 +414,57 @@ def _library_backward_ms(q, k, v, do, mask=None):
     return ms
 
 
-def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True, band=None):
+def _off_alignment(t: torch.Tensor) -> torch.Tensor:
+    """t's values at a base 2 bytes past a 16-byte boundary, which no TMA
+    tensor map describes."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _mma_sync_check(q, k, v, do, band, ref, ref_lse, plain, truth) -> dict:
+    """The mma.sync bodies (attention.cu, attention_bwd.cu), which serve
+    every bf16 input no TMA map describes, at the shape of q, k, v: the same
+    values at a base off 16-byte alignment through K1's forward, the forward
+    with lse, a ring step at offsets 0 and the backward, against the plain
+    versions the wgmma body was held to (ATTN_TOL; K4_TOL's margins)."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import cuda
+
+    qm, km, vm, dom = (_off_alignment(t) for t in (q, k, v, do))
+    before = dict(kernels.route_counts)
+    outs = {"attention": (cuda.attention(qm, km, vm, band), None),
+            "fwd_lse": cuda.attention_fwd_lse(qm, km, vm, band),
+            "ring_fold": cuda.attention_ring_fold(qm, km, vm, band, 0, 0)}
+    res = {"forward_err": {}}
+    for entry, (out, lse) in outs.items():
+        err = (out.float() - ref.float()).abs()
+        res["forward_err"][entry] = {"max": err.max().item(), "mean": err.mean().item(),
+                                     "lse_max": None if lse is None else
+                                     (lse - ref_lse).abs().max().item()}
+        del err
+    out, lse = outs["fwd_lse"]
+    got = cuda.attention_bwd(qm, km, vm, out, dom, lse, band)
+    torch.cuda.synchronize()
+    res["routes"] = route_delta(before)
+    ok = res["routes"] == {"wgmma": 0, "mma_sync": 4} and all(
+        e["max"] <= ATTN_TOL["max"] and e["mean"] <= ATTN_TOL["mean"]
+        for e in res["forward_err"].values())
+    for n, g, p, t in zip("qkv", got, plain, truth):
+        kmax, kmean = _rel_err(g, t)
+        pmax, pmean = _rel_err(p, t)
+        res[f"d{n}_vs_fp32"] = {"kernel_max": kmax, "kernel_mean": kmean}
+        ok = ok and kmax <= pmax + K4_TOL["max_margin"] and kmean <= pmean + K4_TOL["mean_margin"]
+    res["ok"] = ok
+    return res
+
+
+def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True, band=None, mma_sync_too=False):
     """K4 (K4-band with a band) and its forward with lse against the plain
-    versions; a bf16 band call also counts the tiles it visits."""
+    versions; a bf16 band call also counts the tiles it visits. With
+    mma_sync_too, also the mma.sync bodies on the same values
+    (``_mma_sync_check``), apart in the route counts."""
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.kernels import cuda
 
@@ -349,25 +476,27 @@ def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True, band=None):
     Lk = shape_kv[1]
     vis_f = torch.zeros(1, dtype=torch.int64, device="cuda")
     vis_b = torch.zeros(2, dtype=torch.int64, device="cuda")
+    before = dict(kernels.route_counts)
     out, lse = cuda.attention_fwd_lse(q, k, v, band, visited=vis_f)
     forward = "k3" if band is not None else "k1"  # the serving forward it must equal
     res = {"name": name, "q": list(shape_q), "kv": list(shape_kv), "dtype": str(dtype),
            "band": list(band) if band else None,
            f"fwd_equals_{forward}": bool(torch.equal(out, cuda.attention(q, k, v, band)))}
-    _, ref_lse = kernels.attention_forward_reference(q, k, v, band)
+    ref_out, ref_lse = kernels.attention_forward_reference(q, k, v, band)
     res["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
-    del ref_lse
     got = cuda.attention_bwd(q, k, v, out, do, lse, band, visited=vis_b)
+    res["equal_bits_twice"] = all(bool(torch.equal(a, b)) for a, b in
+                                  zip(got, cuda.attention_bwd(q, k, v, out, do, lse, band)))
     plain = kernels.attention_backward_reference(q, k, v, out, do, lse, band)
     torch.cuda.synchronize()
     res["finite"] = bool(all(torch.isfinite(g).all().item() for g in got))
     res["max_abs_err"] = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, plain))
-    ok = res["finite"] and res[f"fwd_equals_{forward}"]
+    ok = res["finite"] and res[f"fwd_equals_{forward}"] and res["equal_bits_twice"]
     pairs = Lq * Lk  # visible (query, key) pairs
     if band is not None:
         T = -(-Lq // band[0])
         pairs = _band_pairs(T, *band[1:]) * band[0] ** 2
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16:  # the units of both bodies: 64-key, 64- and 32-query tiles
             tiles64, tiles32 = -(-Lk // 64), -(-Lq // 32)
             res["visited_fraction"] = {
                 "forward": vis_f.item() / (B * H * tiles64 * -(-Lq // 64)),
@@ -390,8 +519,12 @@ def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True, band=None):
             res[f"d{n}_vs_fp32"] = {"kernel_max": kmax, "kernel_mean": kmean,
                                    "plain_max": pmax, "plain_mean": pmean}
             ok = ok and kmax <= pmax + K4_TOL["max_margin"] and kmean <= pmean + K4_TOL["mean_margin"]
+        if mma_sync_too:
+            res["mma_sync_route"] = _mma_sync_check(q, k, v, do, band, ref_out, ref_lse, plain,
+                                                    truth)
+            ok = ok and res["mma_sync_route"]["ok"]
         del truth
-    del got, plain
+    del got, plain, ref_out, ref_lse
     if time_it:
         res["ms"] = cuda_ms(lambda: cuda.attention_bwd(q, k, v, out, do, lse, band), reps=3)
         res["plain_ms"] = cuda_ms(
@@ -402,13 +535,26 @@ def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True, band=None):
         res.update(tflops=flop / res["ms"] / 1e9, plain_tflops=flop / res["plain_ms"] / 1e9,
                    bf16_peak_share=flop / res["ms"] / 1e9 / BF16_PEAK_TFLOPS,
                    **bound(tensor_bytes(q, k, v, out, do, lse, q, k, v), flop, BF16_PEAK_TFLOPS))
+        # this design recomputes S in both kernels: 14 L^2 D flop against the 10 counted
+        res["deterministic_floor_ms"] = res["bound_ms"] * 14 / 10
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        res["fwd_lse_tflops"] = flop * 4 / 10 / res["fwd_lse_ms"] / 1e9
         del out, lse
         torch.cuda.empty_cache()
         res["library_ms"] = _library_backward_ms(
             q, k, v, do, None if band is None else _band_mask(Lq, band))
+    res["routes"] = route_delta(before)
+    if "mma_sync_route" in res:  # the check's launches, apart
+        res["routes"] = {key: n - res["mma_sync_route"]["routes"][key]
+                         for key, n in res["routes"].items()}
+    if dtype == torch.bfloat16:
+        res["entries"] = {**wgmma_entries("fwd", D, band is not None, lse=True),
+                          **wgmma_entries("bwd", D, band is not None)}
     emit("kernel", **res)
     if not ok:
         raise AssertionError(f"{name}: the backward disagrees with its plain version: {res}")
+    if dtype == torch.bfloat16:
+        require_wgmma(name, res["routes"])
     if band is not None and dtype == torch.bfloat16:
         frac = res["visited_fraction"]
         if abs(frac["dkdv"] - frac["frame_pairs"]) > 0.01 or vis_b[1].item() != vis_f.item():
@@ -491,7 +637,9 @@ def _splat_case(gen) -> dict:
     agree = (m == m_ref).float().mean().item()
     res = {"name": "K5 splat", "shape": [b, c, h, w], "max_abs_err": err, "mask_agree": agree,
            "known_fraction": m.mean().item()}
-    res["ms"] = cuda_ms(lambda: kernels.splat(frame, mask, tdepth, flow, None, True), reps=5)
+    # a sub-millisecond kernel: every run is kept, to show the spread
+    res["ms_runs"] = cuda_times(lambda: kernels.splat(frame, mask, tdepth, flow, None, True), reps=5)
+    res["ms"] = float(np.median(res["ms_runs"]))
     res["plain_ms"] = cuda_ms(lambda: kernels.splat_reference(frame, mask, tdepth, flow, None, True),
                               reps=3)
     # each source pixel adds its c values and weight into 4 targets
@@ -516,6 +664,7 @@ def _band_case(gen) -> dict:
     B, L, H, D = 2, LATENT_T_7B * BAND_7B[0], 32, 128
     q, k, v = (torch.randn((B, L, H, D), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
+    before = dict(kernels.route_counts)
     out = kernels.attention(q, k, v, band=BAND_7B)
     ref = kernels.attention_reference(q, k, v, BAND_7B)
     visited = torch.zeros(1, dtype=torch.int64, device="cuda")
@@ -544,7 +693,10 @@ def _band_case(gen) -> dict:
     res["library_ms"] = library_ms(lambda: _sdpa(q, k, v, mask))
     del mask
     torch.cuda.empty_cache()
+    res.update(bound_share=res["bound_ms"] / res["ms"], routes=route_delta(before),
+               entries=wgmma_entries("fwd", D, band=True))
     emit("kernel", **res)
+    require_wgmma(res["name"], res["routes"])
     if (not res["finite"] or res["max_abs_err"] > ATTN_TOL["max"]
             or res["mean_abs_err"] > ATTN_TOL["mean"] or not res["full_window_equals_k1"]):
         raise AssertionError(f"K3: kernel disagrees with its plain version or K1: {res}")
@@ -738,6 +890,7 @@ def _k3lse_case(gen) -> dict:
     B, L, H, D = 1, LATENT_T_7B * BAND_7B[0], 32, 128
     q, k, v = (torch.randn((B, L, H, D), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
+    before = dict(kernels.route_counts)
     out, lse = cuda.attention_fwd_lse(q, k, v, BAND_7B)
     ref, ref_lse = kernels.attention_forward_reference(q, k, v, BAND_7B)
     torch.cuda.synchronize()
@@ -757,7 +910,10 @@ def _k3lse_case(gen) -> dict:
     res["library_ms"] = library_ms(lambda: _sdpa(q, k, v, mask))
     del mask
     torch.cuda.empty_cache()
+    res.update(bound_share=res["bound_ms"] / res["ms"], routes=route_delta(before),
+               entries=wgmma_entries("fwd", D, band=True, lse=True))
     emit("kernel", **res)
+    require_wgmma(res["name"], res["routes"])
     if (res["max_abs_err"] > ATTN_TOL["max"] or res["mean_abs_err"] > ATTN_TOL["mean"]
             or res["lse_max_abs_err"] > 1e-2 or not res["equals_k3"]):
         raise AssertionError(f"K3lse: kernel disagrees with its plain version or K3: {res}")
@@ -789,6 +945,7 @@ def _k1cp_cases(q, k, v, full: dict) -> list:
         for band in (None, BAND_7B):
             hc = H // cp
             qs, ks, vs = (_ulysses_view(t, cp, 0) for t in (q, k, v))
+            before = dict(kernels.route_counts)
             out = kernels.attention(qs, ks, vs, kernel_id="K1cp", band=band)
             want = full[band][:, :, :hc]
             plain = {}
@@ -811,6 +968,9 @@ def _k1cp_cases(q, k, v, full: dict) -> list:
             flop = 4.0 * B * hc * D * pairs
             res.update(tflops=flop / res["ms"] / 1e9,
                        **bound(4 * B * L * hc * D * 2, flop, BF16_PEAK_TFLOPS))
+            res.update(bound_share=res["bound_ms"] / res["ms"], routes=route_delta(before),
+                       entries=wgmma_entries("fwd", D, band=band is not None))
+            require_wgmma(res["name"], res["routes"])
             contig = [t.contiguous() for t in (qs, ks, vs)]
             mask = None if band is None else _band_mask(L, band)
             res["library_ms"] = library_ms(lambda: _sdpa(*contig, mask))
@@ -865,6 +1025,7 @@ def _ring_case(q, k, v, full: dict, cp: int, band) -> dict:
     B, L, H, D = q.shape
     ls = L // cp
     errs, folded_all, plain_err = [], [], None
+    before = dict(kernels.route_counts)
     for rank in range(cp):
         got, folded = _ring_rank(q, k, v, cp, rank, band, kernels.ring_fold, kernels.ring_merge)
         errs.append((got.float() - full[band][:, rank * ls:(rank + 1) * ls].float()).abs())
@@ -906,9 +1067,12 @@ def _ring_case(q, k, v, full: dict, cp: int, band) -> dict:
     res["library_ms"] = library_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
         qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)))
     res["fold_tflops"] = flop / res["fold_ms"] / 1e9
+    res.update(fold_bound_share=res["fold_bound"]["bound_ms"] / res["fold_ms"],
+               routes=route_delta(before), entries=wgmma_entries("fwd", D, band is not None, True))
     del qs, ks, vs, o, l_, acc, lse
     torch.cuda.empty_cache()
     emit("kernel", **res)
+    require_wgmma(res["name"], res["routes"])
     if (res["max_abs_err_vs_full"] > ATTN_TOL["max"] or res["mean_abs_err_vs_full"] > ATTN_TOL["mean"]
             or res["max_abs_err"] > ATTN_TOL["max"] or res["mean_abs_err"] > ATTN_TOL["mean"]):
         raise AssertionError(f"K1ring/K1merge disagree with K1 or the plain ring: {res}")
@@ -937,6 +1101,7 @@ def _k1ag_case(q, k, v) -> dict:
     ls = L // 2
     qs = q[:, :ls]
     ks, vs = (t.transpose(0, 1).contiguous().transpose(0, 1) for t in (k, v))  # gathered layout
+    before = dict(kernels.route_counts)
     out = kernels.attention(qs, ks, vs, kernel_id="K1ag")
     plain = {}
     plain_ms = cuda_ms(lambda: plain.__setitem__("out", kernels.attention_reference(qs, ks, vs)),
@@ -950,11 +1115,14 @@ def _k1ag_case(q, k, v) -> dict:
     flop = 4.0 * B * H * ls * L * D
     res.update(tflops=flop / res["ms"] / 1e9,
                **bound(tensor_bytes(qs, ks, vs, qs), flop, BF16_PEAK_TFLOPS))
+    res.update(bound_share=res["bound_ms"] / res["ms"], routes=route_delta(before),
+               entries=wgmma_entries("fwd", D, band=False))
     contig = [t.contiguous() for t in (qs, ks, vs)]
     res["library_ms"] = library_ms(lambda: _sdpa(*contig))
     del contig, ks, vs
     torch.cuda.empty_cache()
     emit("kernel", **res)
+    require_wgmma(res["name"], res["routes"])
     if res["max_abs_err"] > ATTN_TOL["max"] or res["mean_abs_err"] > ATTN_TOL["mean"]:
         raise AssertionError(f"K1ag disagrees with its plain version: {res}")
     return res
@@ -993,7 +1161,7 @@ def phase_kernels() -> dict:
                                              (2, 333, 4, 24), bf16, ATTN_TOL, gen, time_it=False)
     torch.cuda.empty_cache()
     results["K4_self"] = _k4_case("K4 self-attention backward", (1, 56320, 32, 128),
-                                  (1, 56320, 32, 128), bf16, gen)
+                                  (1, 56320, 32, 128), bf16, gen, mma_sync_too=True)
     torch.cuda.empty_cache()
     results["K4_cross"] = _k4_case("K4 cross-attention backward", (1, 56320, 32, 128),
                                    (1, 512, 32, 128), bf16, gen)
@@ -1195,6 +1363,7 @@ def cp_worker(rank: int, port: int, out_dir: str) -> int:
             torch.cuda.synchronize()
             total_s = time.perf_counter() - t0
             launches = dict(kernels.launch_counts)
+            routes = dict(kernels.route_counts)
         samples = pipeline.last_samples
         if rank == 0:
             np.save(os.path.join(out_dir, f"cp_{name}.npy"), samples.float().cpu().numpy())
@@ -1203,7 +1372,7 @@ def cp_worker(rank: int, port: int, out_dir: str) -> int:
             "parallel": parallel, "cp_attn": impl, "blocks": blocks or preset.dit.num_blocks,
             "step_s": [s["seconds"] for s in steps], "chunk_s": total_s,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
-            "traffic_per_step": {op: {k: v / len(steps) for k, v in c.items()}
+            "routes": routes, "traffic_per_step": {op: {k: v / len(steps) for k, v in c.items()}
                                  for op, c in collectives.traffic.items() if c["calls"]},
             "ring_steps": dict(dit.ring_steps),
             "latents_finite": bool(torch.isfinite(samples).all().item())}
@@ -1279,6 +1448,9 @@ def phase_cp(main_latent: np.ndarray, refs: dict) -> dict:
                  "allgather": ("K1", "K1cp", "K1ring"), "cfg2": ("K1cp", "K1ag", "K1ring")}[name]
         if any(launches[k] == 0 for k in want) or any(launches[k] for k in stray):
             bad.append(f"{name} launched {launches}")
+        routes = [r["routes"] for r in run["rank"]]
+        if any(r["mma_sync"] or not r["wgmma"] for r in routes):
+            bad.append(f"{name}: attention launches by body {routes}, expected wgmma only")
     shutil.rmtree(out_dir, ignore_errors=True)
     emit("cp", **res)
     if bad:
@@ -1299,6 +1471,7 @@ def phase_main(model, preset, build_s: float) -> dict:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
+    routes = dict(kernels.route_counts)
     samples = pipeline.last_samples
     res = {
         "model": preset.name, "blocks": cfg.num_blocks, "channels": cfg.model_channels,
@@ -1311,10 +1484,11 @@ def phase_main(model, preset, build_s: float) -> dict:
         "denoise_step_s": [s["seconds"] for s in pipeline.last_timings["denoise_steps"]],
         "decode_s": pipeline.last_timings["decode"], "chunk_total_s": total_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
-        "latents_finite": bool(torch.isfinite(samples).all().item()),
+        "routes": routes, "latents_finite": bool(torch.isfinite(samples).all().item()),
         "latent_std": samples.float().std().item(),
     }
     emit("main_path", **res)
+    require_wgmma("main path", routes)
     os.makedirs(OUT_DIR, exist_ok=True)
     np.save(os.path.join(OUT_DIR, "smoke_7b_video.npy"), video)
     np.save(os.path.join(OUT_DIR, "smoke_7b_latents.npy"), samples.float().cpu().numpy())
@@ -1706,12 +1880,13 @@ def phase_train() -> dict:
         steps.append({"s": time.perf_counter() - t0, "loss": float(m["loss"]),
                       "grad_norm": float(m["grad_norm"])})
     launches = dict(kernels.launch_counts)
-    res.update(steps=steps, launches=launches,
+    res.update(steps=steps, launches=launches, routes=dict(kernels.route_counts),
                k4_by_forward=dict(kernels.k4_launches_by_forward),
                peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30, step=state.step,
                ema_finite=bool(all(torch.isfinite(e).all().item()
                                    for e in state.ema_params.values())))
     emit("train", **res)
+    require_wgmma("train", res["routes"])
     per_step = 2 * cfg.num_blocks  # one K4 per attention backward: self and cross
     if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) and s["grad_norm"] > 0
                for s in steps) or not res["ema_finite"]:
@@ -1810,12 +1985,14 @@ def phase_lora_band_train() -> dict:
     launches = dict(kernels.launch_counts)
     by_forward = dict(kernels.k4_launches_by_forward)
     res.update(steps=steps, launches=launches, k4_by_forward=by_forward,
+               routes=dict(kernels.route_counts),
                launches_per_step={k: v / LORA_STEPS for k, v in launches.items() if v},
                peak_gib=(torch.cuda.max_memory_allocated() - mem0) / 2 ** 30,
                adapters_moved=bool(any(ab["b"].abs().max().item() > 0 for ab in lora.values())),
                base_unchanged=all(torch.equal(p.detach().cpu(), saved[n])
                                   for n, p in net.named_parameters()))
     emit("lora_band_train", **res)
+    require_wgmma("lora_band_train", res["routes"])
     n = cfg.num_blocks
     want = {"K4band": n, "K3lse": 2 * n, "K3": 0, "K2": 2 * n, "K4": n, "K1": 0}  # remat: twice
     got = {key: launches[key] / LORA_STEPS for key in want}
@@ -2003,36 +2180,38 @@ def main(argv=None) -> int:
     csrc = "gen3c_tpu_torch/kernels/csrc/"
 
     def row(name, source, replaces, launches, case, **override):
-        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "entries")
         got = {k: case[k] for k in keys if k in case}
+        if source == "attention_wgmma.cu":  # the family's wgmma body, and its entries
+            got["body"] = "wgmma"
         return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
                 "launches": launches, **{**got, **override}}
 
     table = [
-        row("K1 self-attention", "attention.cu", "gen3c_tpu/models/dit.py:445", launches["K1"],
-            kern["K1"]),
-        row("K2 cross-attention", "attention.cu", "gen3c_tpu/models/dit.py:472", launches["K2"],
-            kern["K2"]),
+        row("K1 self-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:445",
+            launches["K1"], kern["K1"]),
+        row("K2 cross-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:472",
+            launches["K2"], kern["K2"]),
         row("K5 forward-warp splat", "splat.cu", "gen3c_tpu/ops/geometry.py:205",
             launches["K5"], kern["K5"]),
-        row("K3 band self-attention", "attention.cu", "gen3c_tpu/models/dit.py:459",
+        row("K3 band self-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:459",
             fast_launches["K3"], kern["K3"]),
         row("K7q per-token int8 quantize", "w8a8.cu", "gen3c_tpu/models/quantize.py:55",
             fast_launches["K7q"], kern["K7q"]),
         row("K7 int8 GEMM + rescale (fc1 shape)", "w8a8.cu", "gen3c_tpu/models/quantize.py:61",
             fast_launches["K7"], k7, max_abs_err=max(r["max_abs_err"] for r in kern["K7"])),
-        row("K4 self-attention backward", "attention_bwd.cu", "gen3c_tpu/models/dit.py:464",
+        row("K4 self-attention backward", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:464",
             train_launches["K1"], kern["K4_self"]),
-        row("K4 cross-attention backward", "attention_bwd.cu", "gen3c_tpu/models/dit.py:508",
+        row("K4 cross-attention backward", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:508",
             train_launches["K2"], kern["K4_cross"]),
-        row("K4-band band self-attention backward", "attention_bwd.cu",
+        row("K4-band band self-attention backward", "attention_wgmma.cu",
             "gen3c_tpu/models/dit.py:464", lora_launches["K4band"], kern["K4band"]),
-        row("K3lse band forward with lse", "attention_bwd.cu", "gen3c_tpu/models/dit.py:459",
+        row("K3lse band forward with lse", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:459",
             lora_launches["K3lse"], kern["K3lse"]),
         row("K6 ray-triangle depth", "raycast.cu", "gen3c_tpu/ops/raycast.py:97",
             dynamic_launches["K6"], kern["K6"]),
         row(f"P2 K1 tile sweep (best {kern['P2']['best']})", "attention.cu",
-            "scripts/sweep_attention.py:32", kern["P2"]["launches"], kern["P2"]),
+            "scripts/sweep_attention.py:32", kern["P2"]["launches"], kern["P2"], body="mma_sync"),
     ] + [row(p1["name"], "mma_probe.cu", "scripts/probe_int8_attention.py:59", p1["launches"], p1)
          for p1 in kern["P1"]]
     # the cp phase's kernels, at its shard shapes (cp = 2), launches of rank 0's runs
@@ -2040,11 +2219,11 @@ def main(argv=None) -> int:
     k1cp = next(r for r in kern["K1cp"] if r["cp"] == CP_RANKS and r["band"] is None)
     ring = next(r for r in kern["K1ring"] if r["cp"] == CP_RANKS and r["band"] is None)
     table += [
-        row("K1cp Ulysses self-attention (cp=2 heads)", "attention.cu",
+        row("K1cp Ulysses self-attention (cp=2 heads)", "attention_wgmma.cu",
             "gen3c_tpu/models/dit.py:653", cp_launch["ulysses"]["K1cp"], k1cp),
-        row("K1ag all-gather self-attention (cp=2)", "attention.cu",
+        row("K1ag all-gather self-attention (cp=2)", "attention_wgmma.cu",
             "gen3c_tpu/models/dit.py:766", cp_launch["allgather"]["K1ag"], kern["K1ag"]),
-        row("K1ring ring-attention step (cp=2)", "attention_bwd.cu",
+        row("K1ring ring-attention step (cp=2)", "attention_wgmma.cu",
             "gen3c_tpu/models/dit.py:529", cp_launch["ring"]["K1ring"], ring,
             ms=ring["fold_ms"], plain_ms=ring["plain_fold_ms"], **ring["fold_bound"]),
         row("K1merge ring-attention merge (cp=2)", "attention_merge.cu",

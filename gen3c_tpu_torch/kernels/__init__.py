@@ -20,8 +20,12 @@
   P1   mma.sync rate probe       (scripts/probe_int8_attention.py:37-62; ``mma_probe``)
   P2   K1's tile sweep           (scripts/sweep_attention.py:32-68; ``attention_tiles``)
 
-K1, K2, K3 and P2 share ``csrc/attention.cu``; K4, K4band and the training
-forward (K1/K2 with the row logsumexp, and K3lse) are
+The bf16 attention family (K1, K2, K3, K1cp, K1ag, K3lse, K1ring, the
+training forward with the row logsumexp, K4, K4band) runs
+``csrc/attention_wgmma.cu`` (TMA + wgmma, its PTX helpers in
+``csrc/hopper.h``) wherever ``cuda.attention_route`` says a TMA tensor map
+describes the inputs, else the mma.sync bodies: K1, K2, K3 and P2 in
+``csrc/attention.cu``; K4, K4band and the training forward in
 ``csrc/attention_bwd.cu``; K1ring is ``attention_bwd.cu`` too and K1merge
 ``csrc/attention_merge.cu``; K5 is ``csrc/splat.cu``; K6 is
 ``csrc/raycast.cu``; K7q and K7 are ``csrc/w8a8.cu``; P1 is
@@ -33,6 +37,13 @@ where a caller asks for them by name.
 ``launch_counts`` counts kernel launches per kernel id, so a run can show
 that its main path went through the kernels (K4 once per backward call,
 ``k4_launches_by_forward`` by the forward it differentiates).
+``route_counts`` splits the bf16 attention family's launches (every entry
+above that ``csrc/attention_wgmma.cu`` can serve: K1, K2, K3, K1cp, K1ag,
+K3lse, K1ring and the forwards with lse, K4, K4band) by the body
+``cuda.attention_route`` chose: "wgmma" (TMA + wgmma,
+``attention_wgmma.cu``) for inputs a TMA tensor map describes, "mma_sync"
+(``attention.cu`` / ``attention_bwd.cu``) for the rest. P2 calls its
+mma.sync tiles by name and takes no route.
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ from gen3c_tpu_torch.kernels.reference import (
 
 __all__ = [
     "attention", "attention_tiles", "splat", "ray_triangle_depth", "quantize_rows",
-    "w8a8_matmul", "mma_probe", "ring_fold", "ring_merge", "launch_counts",
+    "w8a8_matmul", "mma_probe", "ring_fold", "ring_merge", "launch_counts", "route_counts",
     "reset_launch_counts", "attention_reference", "attention_forward_reference", "attention_backward_reference", "splat_reference",
     "ray_triangle_depth_reference", "quantize_rows_reference", "int8_matmul_reference",
     "w8a8_matmul_reference", "mma_probe_reference", "ring_fold_reference",
@@ -72,10 +83,12 @@ launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K3lse": 0, "K4": 0, "K4band": 0, "K
                  "K1merge": 0}
 # K4's launches split by the forward they differentiate (K1 self-, K2 cross-attention)
 k4_launches_by_forward = {"K1": 0, "K2": 0}
+# the bf16 attention family's launches by body (cuda.attention_route)
+route_counts = {"wgmma": 0, "mma_sync": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, k4_launches_by_forward):
+    for counts in (launch_counts, k4_launches_by_forward, route_counts):
         for key in counts:
             counts[key] = 0
 

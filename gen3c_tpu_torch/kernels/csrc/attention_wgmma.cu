@@ -1,0 +1,1129 @@
+// Attention forward and backward for Hopper (sm_90a) on wgmma and TMA.
+//
+// One forward body and one backward pair for every bf16 entry whose tensors a
+// TMA tensor map can describe (kernels/cuda.py ``attention_route``: head dim a
+// multiple of 8 up to 128, 16-byte aligned base and strides). They replace,
+// for those inputs, the mma.sync bodies of attention.cu and attention_bwd.cu,
+// which stay for the rest and for P2's tile sweep:
+//   attn_fwd_wgmma<DP, kBand, kLse>  K1, K2, K1cp, K1ag (no band, no lse), K3
+//       and K1cp under the band (band), the training forward of K4 and
+//       K1ring's full-attention step (lse), K3lse and K1ring under the band
+//       (band and lse). The TPU kernels: gen3c_tpu/models/dit.py:445-471
+//       (splash), :472-510 (flash), :459-460 (the temporal band), :653-678
+//       (Ulysses) and the XLA ring fold (:529). Every entry instantiates this
+//       one body, so their bit-for-bit relations hold by construction: the
+//       output with lse is the output without it, and a band whose window
+//       covers every frame visits every tile, unmasked, in order: K1's bits.
+//   attn_bwd_dkdv_wgmma / attn_bwd_dq_wgmma <DP, kBand>  K4 and K4-band, the
+//       splash / flash VJPs (dit.py:464-470, :508), two kernels that each own
+//       their output rows: no atomics, deterministic bits, and the full-window
+//       band gives K4's bits.
+//   attn_bwd_delta_wgmma  Delta = rowsum(dO * O), one bandwidth-bound pass.
+//
+// Shape of the kernels: two consumer warpgroups (warps 0-7) that own 64 rows
+// each (wgmma's M), and a ring of stages in shared memory filled by TMA,
+// each with a "full" mbarrier (the bytes landed) and an "empty" one (both
+// consumers are done with it). Products run on wgmma with both operands in
+// shared memory in the 128-byte swizzle TMA writes, or with P / dS as the
+// register A operand. The forward and dQ add a producer warpgroup (warps
+// 8-11) of which one thread issues the loads (the forward: setmaxnreg,
+// producer 40, consumers 232); dK/dV loads from its first consumer warp
+// instead (see there).
+//   forward  128 queries a CTA; Q loaded once; K and V tiles of 64 keys
+//            through 4 stages. S = Q K^T (K-major B), the online softmax in
+//            fp32 registers with the scale on the fp32 logits, O += P V (V
+//            the MN-major B operand), O in fp32 registers; bf16 O (and fp32
+//            lse) written from registers.
+//   dK/dV    128 keys a CTA (64 a consumer), K and V loaded once; Q and dO
+//            tiles of 32 queries, with their lse and Delta, through 4 stages,
+//            loaded by the first consumer warp (no producer warpgroup: see
+//            the kernel).
+//            S^T = K Q^T and dP^T = V dO^T, P^T = exp(S^T scale - lse) and
+//            dS^T = P^T (dP^T - Delta) in fp32 registers, dV += P^T dO and
+//            dK += dS^T Q with P^T and dS^T as register A operands.
+//   dQ       128 queries a CTA, Q and dO loaded once; K and V tiles of 64
+//            keys through 3 stages: S, dP, dS as above, dQ += dS K (K the
+//            MN-major B operand).
+// The design recomputes S in both backward kernels (7 products against
+// FlashAttention-2's 5), the price of owning every output row.
+//
+// The band (K3's temporal band, gen3c_tpu/models/dit.py:370-409): query
+// token i sees key token j iff |i/hw - j/hw| <= window or j/hw < prefix, at
+// global positions q_off + i and k_off + j (K1ring's shards; 0 otherwise).
+// Each consumer warpgroup (64 rows) visits exactly the tiles a 64-row tile
+// of the mma.sync kernels visits (band_key_tiles / band_query_tiles: the
+// prefix and the frames within the window, merged where they touch) and
+// masks per element only a tile that is not wholly visible to its rows; the
+// producer loads the union of its two consumers' tiles. At the 7B shape (hw
+// = 3,520 = 55 x 64) a 64-row group never straddles a frame, so no 7B tile
+// is masked, although a 128-row CTA straddles every other frame edge.
+// band.visited counts, per consumer, the tiles it computed: forward and dQ
+// 64-key tiles ([0] and [1]), dK/dV 32-query tiles ([0]), the units of the
+// mma.sync kernels.
+//
+// Layout: q (B, Lq, H, D), k/v (B, Lk, H, D), each through its own tensor
+// map (dims D, then head, sequence and batch in any order of their strides:
+// the wrapper sorts them, and `order` says which map dim holds which); rows
+// past L and dims past D arrive zero-filled. Outputs (B, L, H, D) and lse /
+// Delta (B, H, Lq) contiguous.
+//
+// What bounds it: at the 7B self shape (L = 56,320, D = 128) the work is
+// 4 L^2 D flop per (batch, head) forward and 14 L^2 D backward (this
+// design) against ~4 L D bytes: the tensor-core rate. wgmma is the only
+// instruction that reaches it (mma.sync tops out at 315.5 TF/s, PERF.md).
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hopper.h"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int kConsumerThreads = 256;               // two consumer warpgroups
+constexpr int kThreads = kConsumerThreads + 128;    // and one producer warpgroup
+// The forward's register split (setmaxnreg). ptxas budgets a 384-thread
+// CTA at 168 registers a thread either way; with setmaxnreg in a kernel it
+// uses all 168, without it fewer (the forward 134-147 at D 128, and K3 then
+// ran 11% slower: PERF.md). The dQ kernel takes none: without it K4 ran 3%
+// faster (dQ at 155 registers) and K4-band 2.5% slower.
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(128 * kProducerRegs + kConsumerThreads * kConsumerRegs <= kThreads * 168,
+              "the register split must fit what the CTA launches with");
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+constexpr int kBlockM = 128;  // forward, dQ: queries per CTA; dK/dV: keys per CTA
+constexpr int kBlockN = 64;   // forward, dQ: keys per tile
+constexpr int kBlockQ = 32;   // dK/dV: queries per tile
+constexpr int kFwdStages = 4;
+constexpr int kDqStages = 3;
+constexpr int kDkdvStages = 4;
+constexpr int kRowBytes = 128;  // one 64-dim half of a row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct FwdParams {
+  __nv_bfloat16* o;  // (B, Lq, H, D)
+  float* lse;        // (B, H, Lq), natural log; kLse only
+  int Lq, Lk, H, D;
+  float scale;
+  int order_q, order_k, order_v;  // see map_coord
+};
+
+struct BwdParams {
+  const __nv_bfloat16* o;     // Delta's input, like dout
+  const __nv_bfloat16* dout;  // (B, Lq, H, D)
+  const float* lse;           // (B, H, Lq)
+  float* delta;               // (B, H, Lq)
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int B, Lq, Lk, H, D;
+  float scale;
+  int order_q, order_k, order_v, order_do;
+};
+
+// `order` packs, for map dims 1..3, which of (head 0, row 1, batch 2) each
+// holds, two bits a dim.
+__device__ __forceinline__ int map_coord(int order, int dim, int h, int row, int b) {
+  const int which = (order >> (2 * (dim - 1))) & 3;
+  return which == 0 ? h : (which == 1 ? row : b);
+}
+
+// Load rows [row, row + box rows) of (batch b, head h), DP / 64 halves.
+template <int DP>
+__device__ __forceinline__ void load_rows(unsigned char* dst, int half_bytes,
+                                          const CUtensorMap* map, int order, uint64_t* bar, int h,
+                                          int row, int b) {
+#pragma unroll
+  for (int half = 0; half < DP / 64; ++half) {
+    tma_load_4d(dst + half * half_bytes, map, bar, half * 64, map_coord(order, 1, h, row, b),
+                map_coord(order, 2, h, row, b), map_coord(order, 3, h, row, b));
+  }
+}
+
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((1024 - (a & 1023)) & 1023);
+}
+
+// ---------------------------------- the band ----------------------------------
+
+#include "band.h"
+
+// The n-th tile of ranges [b0, e0) + [b1, e1).
+__device__ __forceinline__ int nth_tile(int n, int b0, int e0, int b1) {
+  return n < e0 - b0 ? b0 + n : b1 + n - (e0 - b0);
+}
+
+__device__ __forceinline__ bool in_ranges(int t, int b0, int e0, int b1, int e1) {
+  return (t >= b0 && t < e0) || (t >= b1 && t < e1);
+}
+
+// ---------------------------------- forward -----------------------------------
+
+template <int DP>
+struct FwdSmem {
+  static constexpr int kHalves = DP / 64;
+  static constexpr int kQHalf = kBlockM * kRowBytes;
+  static constexpr int kKvHalf = kBlockN * kRowBytes;
+  static constexpr int kStage = 2 * kHalves * kKvHalf;  // K halves, then V halves
+  static constexpr int kQ = kHalves * kQHalf;
+  static constexpr int kBars = (1 + 2 * kFwdStages) * 8;
+  static constexpr int kBytes = 1024 + kQ + kFwdStages * kStage + kBars;
+};
+
+template <int DP, bool kBand, bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const FwdParams p, const Band band) {
+  using S = FwdSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sKV = smem + S::kQ;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + kFwdStages * S::kStage);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kFwdStages;
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * kBlockM;
+  const int q_off = kBand ? band.q_off : 0;
+  const int k_off = kBand ? band.k_off : 0;
+  int b0 = 0, e0 = (p.Lk + kBlockN - 1) / kBlockN, b1 = 0, e1 = 0;
+  if constexpr (kBand) {
+    band_key_tiles(band, p.Lk, q_off + q0, q_off + min(q0 + kBlockM, p.Lq) - 1, kBlockN, b0, e0,
+                   b1, e1, k_off);
+  }
+  const int n_tiles = (e0 - b0) + (e1 - b1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_arrive_expect_tx(q_full, S::kQ);
+      load_rows<DP>(sQ, S::kQHalf, &tq, p.order_q, q_full, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kFwdStages;
+        mbar_wait(&empty[s], ((it / kFwdStages) & 1) ^ 1);
+        const int n0 = nth_tile(it, b0, e0, b1) * kBlockN;
+        unsigned char* stage = sKV + s * S::kStage;
+        mbar_arrive_expect_tx(&full[s], S::kStage);
+        load_rows<DP>(stage, S::kKvHalf, &tk, p.order_k, &full[s], h, n0, b);
+        load_rows<DP>(stage + S::kHalves * S::kKvHalf, S::kKvHalf, &tv, p.order_v, &full[s], h, n0,
+                      b);
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int cw = threadIdx.x / 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int tg = lane & 3;
+    const int wq0 = q0 + cw * 64;  // this warpgroup's first query
+    const bool active = wq0 < p.Lq;
+    // this warpgroup's own tiles: a band's for its 64 rows, else every tile
+    int wb0 = b0, we0 = e0, wb1 = b1, we1 = e1, qf_lo = 0, qf_hi = 0;
+    int qf_row[2] = {0, 0};
+    if constexpr (kBand) {
+      const int wq_last = min(wq0 + 64, p.Lq) - 1;
+      wb0 = we0 = wb1 = we1 = 0;
+      if (active) {
+        band_key_tiles(band, p.Lk, q_off + wq0, q_off + wq_last, kBlockN, wb0, we0, wb1, we1,
+                       k_off);
+      }
+      qf_lo = (q_off + wq0) / band.hw;
+      qf_hi = (q_off + wq_last) / band.hw;
+      qf_row[0] = (q_off + wq0 + warp * 16 + g) / band.hw;
+      qf_row[1] = (q_off + wq0 + warp * 16 + g + 8) / band.hw;
+    }
+
+    const float scale_log2 = p.scale * kLog2e;
+    float o[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
+    float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
+    int visited = 0;
+    const uint32_t q_base = smem_u32(sQ) + cw * 64 * kRowBytes;
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kFwdStages;
+      const int tile = nth_tile(it, b0, e0, b1);
+      mbar_wait(&full[s], (it / kFwdStages) & 1);
+      if (active && in_ranges(tile, wb0, we0, wb1, we1)) {
+        ++visited;
+        const int n0 = tile * kBlockN;
+        const uint32_t q_at = opaque(q_base);
+        const uint32_t k_base = smem_u32(sKV + s * S::kStage);
+        const uint32_t v_base = k_base + S::kHalves * S::kKvHalf;
+
+        // S = Q K^T, 64 rows x 64 keys
+        float sc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+        fence_regs(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_n64(sc, wgmma_desc(q_at + (kk / 4) * S::kQHalf + off, 16, 1024),
+                       wgmma_desc(k_base + (kk / 4) * S::kKvHalf + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        // online softmax: scale the fp32 logits; a tile that is not wholly
+        // visible to this warpgroup's rows (the ragged end, a band edge)
+        // masks per element
+        bool masked = n0 + kBlockN > p.Lk;
+        if constexpr (kBand) {
+          masked = !band_tile_visible(band, p.Lk, n0, kBlockN, qf_lo, qf_hi, k_off);
+        }
+        float mx[2] = {m_run[0], m_run[1]};
+        if (!masked) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            sc[i] *= scale_log2;
+            mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = n0 + 8 * (i >> 2) + 2 * tg + (i & 1);
+            bool vis = col < p.Lk;
+            if constexpr (kBand) {
+              vis = vis && band_frames_visible(band, qf_row[(i >> 1) & 1], (k_off + col) / band.hw);
+            }
+            const float x = vis ? sc[i] * scale_log2 : -INFINITY;
+            sc[i] = x;
+            mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+          }
+        }
+        float alpha[2], m_use[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          // a row with no visible key yet (max -inf) exponentiates against 0,
+          // so that its p and alpha are 0, not NaN
+          m_use[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+          alpha[r] = exp2f(m_run[r] - m_use[r]);  // 0 on the first tile
+          m_run[r] = mx[r];
+          l_run[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float pe = exp2f(sc[i] - m_use[(i >> 1) & 1]);
+          sc[i] = pe;
+          l_run[(i >> 1) & 1] += pe;
+        }
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+        // O += P V
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a(sc, kk, pa[kk]);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t dv = wgmma_desc(v_base + kk * 2048, S::kKvHalf, 1024);
+          if constexpr (DP == 128) {
+            wgmma_rs_n128(o, pa[kk], dv);
+          } else {
+            wgmma_rs_n64(o, pa[kk], dv);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    if (kBand && band.visited != nullptr && tid == 0) {
+      atomicAdd(band.visited, static_cast<unsigned long long>(visited));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wq0 + warp * 16 + g + 8 * r;
+      if (row >= p.Lq) continue;
+      // a row that sees no key (K1ring's shards) has l_run 0: out 0, lse -inf
+      const float inv = l_run[r] == 0.f ? 0.f : 1.f / l_run[r];
+      __nv_bfloat16* orow = p.o + ((static_cast<long long>(b) * p.Lq + row) * p.H + h) * p.D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * tg;
+        if (col < p.D) {
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16x2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        }
+      }
+      if (kLse && tg == 0) {
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Lq + row] =
+            (m_run[r] + log2f(l_run[r])) * kLn2;
+      }
+    }
+  }
+}
+
+// ------------------------------- backward: dK/dV ------------------------------
+
+template <int DP>
+struct DkdvSmem {
+  static constexpr int kHalves = DP / 64;
+  static constexpr int kKvHalf = kBlockM * kRowBytes;  // 128 keys
+  static constexpr int kQHalf = kBlockQ * kRowBytes;   // 32 queries
+  static constexpr int kKV = 2 * kHalves * kKvHalf;    // K halves, then V halves
+  static constexpr int kStage = 2 * kHalves * kQHalf;  // Q halves, then dO halves
+  static constexpr int kVec = kDkdvStages * kBlockQ * 4;  // lse (log2 units) or Delta
+  static constexpr int kBars = (1 + 2 * kDkdvStages) * 8;
+  static constexpr int kBytes = 1024 + kKV + kDkdvStages * kStage + 2 * kVec + kBars;
+};
+
+// No producer warpgroup here: the first warp of consumer 0 also loads, a
+// stage behind (tile it - 1 + stages into the stage tile it - 1 freed), so
+// that the CTA launches with 256 threads and its consumers may take up to
+// 255 registers each: dK and dV are 128 fp32 registers a thread, and in a
+// 384-thread CTA they spilled (ptxas compiles it for 168 registers a thread,
+// and setmaxnreg does not raise that).
+template <int DP, bool kBand>
+__global__ void __launch_bounds__(kConsumerThreads, 1)
+    attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const BwdParams p,
+                        const Band band) {
+  using S = DkdvSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* sKV = smem;
+  unsigned char* sQD = smem + S::kKV;
+  float* sLse = reinterpret_cast<float*>(sQD + kDkdvStages * S::kStage);
+  float* sDelta = sLse + kDkdvStages * kBlockQ;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sDelta + kDkdvStages * kBlockQ);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kDkdvStages;
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int n0 = blockIdx.x * kBlockM;  // the CTA's first key
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  int mb = 0, me = (p.Lq + kBlockQ - 1) / kBlockQ;
+  if constexpr (kBand) {
+    band_query_tiles(band, p.Lq, n0, min(n0 + kBlockM, p.Lk) - 1, kBlockQ, mb, me);
+  }
+  const int n_tiles = me - mb;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkdvStages; ++s) {
+      mbar_init(&full[s], 32);  // the loading warp's lanes (lse and Delta) + the bytes
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // tile `it` into its stage (free) by the loading warp: each lane stages
+  // one query row's lse and Delta, lane 0 the Q and dO tiles
+  const bool loader = threadIdx.x < 32;
+  auto load_tile = [&](int it) {
+    const int s = it % kDkdvStages;
+    const int m0 = (mb + it) * kBlockQ;
+    const int row = m0 + static_cast<int>(threadIdx.x);
+    // a missing query row gets lse 0 and Delta 0 (its Q and dO rows are
+    // zero, so its terms vanish)
+    sLse[s * kBlockQ + threadIdx.x] = row < p.Lq ? p.lse[bh * p.Lq + row] * kLog2e : 0.f;
+    sDelta[s * kBlockQ + threadIdx.x] = row < p.Lq ? p.delta[bh * p.Lq + row] : 0.f;
+    if (threadIdx.x == 0) {
+      unsigned char* stage = sQD + s * S::kStage;
+      mbar_arrive_expect_tx(&full[s], S::kStage);
+      load_rows<DP>(stage, S::kQHalf, &tq, p.order_q, &full[s], h, m0, b);
+      load_rows<DP>(stage + S::kHalves * S::kQHalf, S::kQHalf, &tdo, p.order_do, &full[s], h,
+                    m0, b);
+    } else {
+      mbar_arrive(&full[s]);
+    }
+  };
+  if (loader) {
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      tma_prefetch_map(&tdo);
+      mbar_arrive_expect_tx(kv_full, S::kKV);
+      load_rows<DP>(sKV, S::kKvHalf, &tk, p.order_k, kv_full, h, n0, b);
+      load_rows<DP>(sKV + S::kHalves * S::kKvHalf, S::kKvHalf, &tv, p.order_v, kv_full, h, n0, b);
+    }
+    for (int it = 0; it < min(kDkdvStages, n_tiles); ++it) load_tile(it);
+  }
+
+  {
+    const int tid = threadIdx.x % 128;
+    const int cw = threadIdx.x / 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int tg = lane & 3;
+    const int wk0 = n0 + cw * 64;  // this warpgroup's first key
+    const bool active = wk0 < p.Lk;
+    int wmb = mb, wme = me;
+    int kf_row[2] = {0, 0};  // band: the frames of this thread's key rows g and g + 8
+    if constexpr (kBand) {
+      wmb = wme = 0;
+      if (active) band_query_tiles(band, p.Lq, wk0, min(wk0 + 64, p.Lk) - 1, kBlockQ, wmb, wme);
+      kf_row[0] = (wk0 + warp * 16 + g) / band.hw;
+      kf_row[1] = (wk0 + warp * 16 + g + 8) / band.hw;
+    }
+
+    const float scale_log2 = p.scale * kLog2e;
+    float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+    int visited = 0;
+    const uint32_t k_base = smem_u32(sKV) + cw * 64 * kRowBytes;
+    const uint32_t v_base = k_base + S::kHalves * S::kKvHalf;
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kDkdvStages;
+      const int mt = mb + it;
+      mbar_wait(&full[s], (it / kDkdvStages) & 1);
+      if (active && mt >= wmb && mt < wme) {
+        ++visited;
+        const int m0 = mt * kBlockQ;
+        const uint32_t k_at = opaque(k_base), v_at = opaque(v_base);
+        const uint32_t q_base = smem_u32(sQD + s * S::kStage);
+        const uint32_t do_base = q_base + S::kHalves * S::kQHalf;
+        const float* lse = sLse + s * kBlockQ;
+        const float* dlt = sDelta + s * kBlockQ;
+
+        // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x 32 queries
+        float st[16], dpt[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) st[i] = dpt[i] = 0.f;
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_n32(st, wgmma_desc(k_at + (kk / 4) * S::kKvHalf + off, 16, 1024),
+                       wgmma_desc(q_base + (kk / 4) * S::kQHalf + off, 16, 1024), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_n32(dpt, wgmma_desc(v_at + (kk / 4) * S::kKvHalf + off, 16, 1024),
+                       wgmma_desc(do_base + (kk / 4) * S::kQHalf + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        // P^T = exp(S^T scale - lse) with lse per column (query), dS^T = P^T
+        // (dP^T - Delta); queries >= Lq and masked pairs give 0
+        bool masked = m0 + kBlockQ > p.Lq;
+        if constexpr (kBand) {
+          masked = masked || !band_tile_visible(band, p.Lk, wk0, 64, m0 / band.hw,
+                                                (min(m0 + kBlockQ, p.Lq) - 1) / band.hw, 0);
+        }
+        if (!masked) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int col = 8 * (i >> 2) + 2 * tg + (i & 1);
+            const float pe = exp2f(st[i] * scale_log2 - lse[col]);
+            st[i] = pe;
+            dpt[i] = pe * (dpt[i] - dlt[col]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int col = 8 * (i >> 2) + 2 * tg + (i & 1);
+            bool vis = m0 + col < p.Lq;
+            if constexpr (kBand) {
+              vis = vis && band_frames_visible(band, (m0 + col) / band.hw, kf_row[(i >> 1) & 1]);
+            }
+            const float pe = vis ? exp2f(st[i] * scale_log2 - lse[col]) : 0.f;
+            st[i] = pe;
+            dpt[i] = pe * (dpt[i] - dlt[col]);
+          }
+        }
+
+        // dV += P^T dO and dK += dS^T Q, the queries the reduction dim
+        uint32_t pa[2][4], da[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          acc_to_a(st, kk, pa[kk]);
+          acc_to_a(dpt, kk, da[kk]);
+        }
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint64_t desc = wgmma_desc(do_base + kk * 2048, S::kQHalf, 1024);
+          if constexpr (DP == 128) {
+            wgmma_rs_n128(dv, pa[kk], desc);
+          } else {
+            wgmma_rs_n64(dv, pa[kk], desc);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint64_t desc = wgmma_desc(q_base + kk * 2048, S::kQHalf, 1024);
+          if constexpr (DP == 128) {
+            wgmma_rs_n128(dk, da[kk], desc);
+          } else {
+            wgmma_rs_n64(dk, da[kk], desc);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      // refill the stage of the tile before this one, once both consumers
+      // have released it
+      const int next = it - 1 + kDkdvStages;
+      if (loader && it >= 1 && next < n_tiles) {
+        mbar_wait(&empty[(it - 1) % kDkdvStages], ((it - 1) / kDkdvStages) & 1);
+        load_tile(next);
+      }
+    }
+    if (kBand && band.visited != nullptr && tid == 0) {
+      atomicAdd(band.visited, static_cast<unsigned long long>(visited));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wk0 + warp * 16 + g + 8 * r;
+      if (row >= p.Lk) continue;
+      const long long off = ((static_cast<long long>(b) * p.Lk + row) * p.H + h) * p.D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * tg;
+        if (col < p.D) {
+          *reinterpret_cast<uint32_t*>(p.dk + off + col) =
+              pack_bf16x2(dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
+          *reinterpret_cast<uint32_t*>(p.dv + off + col) =
+              pack_bf16x2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// --------------------------------- backward: dQ -------------------------------
+
+template <int DP>
+struct DqSmem {
+  static constexpr int kHalves = DP / 64;
+  static constexpr int kQHalf = kBlockM * kRowBytes;
+  static constexpr int kKvHalf = kBlockN * kRowBytes;
+  static constexpr int kQD = 2 * kHalves * kQHalf;     // Q halves, then dO halves
+  static constexpr int kStage = 2 * kHalves * kKvHalf;  // K halves, then V halves
+  static constexpr int kBars = (1 + 2 * kDqStages) * 8;
+  static constexpr int kBytes = 1024 + kQD + kDqStages * kStage + kBars;
+};
+
+template <int DP, bool kBand>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const BwdParams p,
+                      const Band band) {
+  using S = DqSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* sQD = smem;
+  unsigned char* sKV = smem + S::kQD;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + kDqStages * S::kStage);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kDqStages;
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * kBlockM;
+  int b0 = 0, e0 = (p.Lk + kBlockN - 1) / kBlockN, b1 = 0, e1 = 0;
+  if constexpr (kBand) {
+    band_key_tiles(band, p.Lk, q0, min(q0 + kBlockM, p.Lq) - 1, kBlockN, b0, e0, b1, e1, 0);
+  }
+  const int n_tiles = (e0 - b0) + (e1 - b1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {  // producer
+    if (threadIdx.x == kConsumerThreads) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      tma_prefetch_map(&tdo);
+      mbar_arrive_expect_tx(q_full, S::kQD);
+      load_rows<DP>(sQD, S::kQHalf, &tq, p.order_q, q_full, h, q0, b);
+      load_rows<DP>(sQD + S::kHalves * S::kQHalf, S::kQHalf, &tdo, p.order_do, q_full, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kDqStages;
+        mbar_wait(&empty[s], ((it / kDqStages) & 1) ^ 1);
+        const int n0 = nth_tile(it, b0, e0, b1) * kBlockN;
+        unsigned char* stage = sKV + s * S::kStage;
+        mbar_arrive_expect_tx(&full[s], S::kStage);
+        load_rows<DP>(stage, S::kKvHalf, &tk, p.order_k, &full[s], h, n0, b);
+        load_rows<DP>(stage + S::kHalves * S::kKvHalf, S::kKvHalf, &tv, p.order_v, &full[s], h, n0,
+                      b);
+      }
+    }
+  } else {  // consumers
+    const int tid = threadIdx.x % 128;
+    const int cw = threadIdx.x / 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int tg = lane & 3;
+    const int wq0 = q0 + cw * 64;
+    const bool active = wq0 < p.Lq;
+    int wb0 = b0, we0 = e0, wb1 = b1, we1 = e1, qf_lo = 0, qf_hi = 0;
+    int qf_row[2] = {0, 0};
+    if constexpr (kBand) {
+      const int wq_last = min(wq0 + 64, p.Lq) - 1;
+      wb0 = we0 = wb1 = we1 = 0;
+      if (active) band_key_tiles(band, p.Lk, wq0, wq_last, kBlockN, wb0, we0, wb1, we1, 0);
+      qf_lo = wq0 / band.hw;
+      qf_hi = wq_last / band.hw;
+      qf_row[0] = (wq0 + warp * 16 + g) / band.hw;
+      qf_row[1] = (wq0 + warp * 16 + g + 8) / band.hw;
+    }
+    // rows g and g + 8; a missing row gets lse 0 and Delta 0 (zero q and dO
+    // rows: its dS is 0 and it is not written)
+    const long long bh = static_cast<long long>(b) * p.H + h;
+    float lse_l2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wq0 + warp * 16 + g + 8 * r;
+      lse_l2[r] = row < p.Lq ? p.lse[bh * p.Lq + row] * kLog2e : 0.f;
+      dlt[r] = row < p.Lq ? p.delta[bh * p.Lq + row] : 0.f;
+    }
+
+    const float scale_log2 = p.scale * kLog2e;
+    float dq[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+    int visited = 0;
+    const uint32_t q_base = smem_u32(sQD) + cw * 64 * kRowBytes;
+    const uint32_t do_base = q_base + S::kHalves * S::kQHalf;
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kDqStages;
+      const int tile = nth_tile(it, b0, e0, b1);
+      mbar_wait(&full[s], (it / kDqStages) & 1);
+      if (active && in_ranges(tile, wb0, we0, wb1, we1)) {
+        ++visited;
+        const int n0 = tile * kBlockN;
+        const uint32_t q_at = opaque(q_base), do_at = opaque(do_base);
+        const uint32_t k_base = smem_u32(sKV + s * S::kStage);
+        const uint32_t v_base = k_base + S::kHalves * S::kKvHalf;
+
+        // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
+        float sc[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_n64(sc, wgmma_desc(q_at + (kk / 4) * S::kQHalf + off, 16, 1024),
+                       wgmma_desc(k_base + (kk / 4) * S::kKvHalf + off, 16, 1024), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_n64(dp, wgmma_desc(do_at + (kk / 4) * S::kQHalf + off, 16, 1024),
+                       wgmma_desc(v_base + (kk / 4) * S::kKvHalf + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        bool masked = n0 + kBlockN > p.Lk;
+        if constexpr (kBand) {
+          masked = !band_tile_visible(band, p.Lk, n0, kBlockN, qf_lo, qf_hi, 0);
+        }
+        if (!masked) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const float pe = exp2f(sc[i] * scale_log2 - lse_l2[(i >> 1) & 1]);
+            sc[i] = pe * (dp[i] - dlt[(i >> 1) & 1]);  // dS
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = n0 + 8 * (i >> 2) + 2 * tg + (i & 1);
+            bool vis = col < p.Lk;
+            if constexpr (kBand) {
+              vis = vis && band_frames_visible(band, qf_row[(i >> 1) & 1], col / band.hw);
+            }
+            const float pe = vis ? exp2f(sc[i] * scale_log2 - lse_l2[(i >> 1) & 1]) : 0.f;
+            sc[i] = pe * (dp[i] - dlt[(i >> 1) & 1]);
+          }
+        }
+
+        // dQ += dS K, the keys the reduction dim
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a(sc, kk, da[kk]);
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t desc = wgmma_desc(k_base + kk * 2048, S::kKvHalf, 1024);
+          if constexpr (DP == 128) {
+            wgmma_rs_n128(dq, da[kk], desc);
+          } else {
+            wgmma_rs_n64(dq, da[kk], desc);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    if (kBand && band.visited != nullptr && tid == 0) {
+      atomicAdd(band.visited + 1, static_cast<unsigned long long>(visited));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wq0 + warp * 16 + g + 8 * r;
+      if (row >= p.Lq) continue;
+      __nv_bfloat16* out = p.dq + ((static_cast<long long>(b) * p.Lq + row) * p.H + h) * p.D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * tg;
+        if (col < p.D) {
+          *reinterpret_cast<uint32_t*>(out + col) =
+              pack_bf16x2(dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
+        }
+      }
+    }
+  }
+}
+
+// Delta = rowsum(dO * O) in fp32, (B, H, Lq); one warp per (b, row, h) of
+// the contiguous (B, Lq, H, D) O and dO.
+__global__ void __launch_bounds__(256) attn_bwd_delta_wgmma(const BwdParams p) {
+  const long long rows = static_cast<long long>(p.B) * p.Lq * p.H;
+  const long long r = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const __nv_bfloat16* o = p.o + r * p.D;
+  const __nv_bfloat16* dO = p.dout + r * p.D;
+  float acc = 0.f;
+  for (int d = lane; d < p.D; d += 32) acc += __bfloat162float(o[d]) * __bfloat162float(dO[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = static_cast<int>(r % p.H);
+    const long long bl = r / p.H;  // b * Lq + row
+    const int row = static_cast<int>(bl % p.Lq);
+    const long long b = bl / p.Lq;
+    p.delta[(b * p.H + h) * p.Lq + row] = acc;
+  }
+}
+
+// ------------------------------------ host -------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is fetched
+// through the runtime's entry-point lookup, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// The map words of one tensor, as kernels/cuda.py tensor_map_params packs
+// them: dims[4] (D first, elements), byte strides of dims 1..3, box[4],
+// swizzle bytes, order (see map_coord). The box must be 64 elements of D by
+// `rows` of the sequence; the swizzle 128 bytes.
+constexpr int kMapWords = 13;
+
+cudaError_t make_map(CUtensorMap* map, const void* base, const long long* w, int rows) {
+  const int order = static_cast<int>(w[12]);
+  for (int d = 1; d <= 3; ++d) {
+    const int which = (order >> (2 * (d - 1))) & 3;
+    if (which > 2 || w[7 + d] != (which == 1 ? rows : 1)) return cudaErrorInvalidValue;
+  }
+  if (w[7] != 64 || w[11] != 128 || (reinterpret_cast<uintptr_t>(base) & 15) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = static_cast<cuuint64_t>(w[i]);
+    box[i] = static_cast<cuuint32_t>(w[7 + i]);
+  }
+  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(w[4 + i]);
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int DP, bool kBand, bool kLse>
+cudaError_t launch_fwd(const CUtensorMap* maps, const FwdParams& p, const Band& band, int B,
+                       cudaStream_t stream) {
+  auto kernel = attn_fwd_wgmma<DP, kBand, kLse>;
+  const int smem = FwdSmem<DP>::kBytes;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lq + kBlockM - 1) / kBlockM, p.H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], p, band);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t dispatch_fwd(const CUtensorMap* maps, const FwdParams& p, const Band& band, int B,
+                         bool lse, cudaStream_t s) {
+  const bool bd = band.hw > 0;
+  if (bd && lse) return launch_fwd<DP, true, true>(maps, p, band, B, s);
+  if (bd) return launch_fwd<DP, true, false>(maps, p, band, B, s);
+  if (lse) return launch_fwd<DP, false, true>(maps, p, band, B, s);
+  return launch_fwd<DP, false, false>(maps, p, band, B, s);
+}
+
+template <int DP, bool kBand>
+cudaError_t launch_bwd(const CUtensorMap* dkdv_maps, const CUtensorMap* dq_maps,
+                       const BwdParams& p, const Band& band, int B, cudaStream_t stream) {
+  auto dkdv = attn_bwd_dkdv_wgmma<DP, kBand>;
+  const int smem_dkdv = DkdvSmem<DP>::kBytes;
+  cudaError_t err = set_smem(dkdv, smem_dkdv);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3((p.Lk + kBlockM - 1) / kBlockM, p.H, B), kConsumerThreads, smem_dkdv, stream>>>(
+      dkdv_maps[0], dkdv_maps[1], dkdv_maps[2], dkdv_maps[3], p, band);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto dq = attn_bwd_dq_wgmma<DP, kBand>;
+  const int smem_dq = DqSmem<DP>::kBytes;
+  err = set_smem(dq, smem_dq);
+  if (err != cudaSuccess) return err;
+  dq<<<dim3((p.Lq + kBlockM - 1) / kBlockM, p.H, B), kThreads, smem_dq, stream>>>(
+      dq_maps[0], dq_maps[1], dq_maps[2], dq_maps[3], p, band);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int B, int Lq, int Lk, int H, int D) {
+  return B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || D <= 0 || D > 128 || D % 8 != 0 ||
+         H > 65535 || B > 65535;
+}
+
+Band make_band(const int* band, void* visited, int q_off, int k_off) {
+  Band b;
+  b.hw = band != nullptr ? band[0] : 0;
+  b.window = band != nullptr ? band[1] : 0;
+  b.prefix = band != nullptr ? band[2] : 0;
+  b.visited = static_cast<unsigned long long*>(visited);
+  b.q_off = q_off;
+  b.k_off = k_off;
+  return b;
+}
+
+}  // namespace
+
+// The box rows each tensor map of a call must have (kernels/cuda.py builds
+// the maps' words with them): forward q, k, v; backward dK/dV q, k, v, dout,
+// then dQ q, k, v, dout.
+extern "C" void gen3c_attention_wgmma_box_rows(int* fwd, int* bwd) {
+  fwd[0] = kBlockM;
+  fwd[1] = fwd[2] = kBlockN;
+  bwd[0] = bwd[3] = kBlockQ;
+  bwd[1] = bwd[2] = kBlockM;
+  bwd[4] = bwd[7] = kBlockM;
+  bwd[5] = bwd[6] = kBlockN;
+}
+
+// The dynamic shared memory each kernel asks for at head dim dp (64 or
+// 128): fwd, dK/dV, dQ.
+extern "C" void gen3c_attention_wgmma_smem(int dp, int* bytes) {
+  bytes[0] = dp == 64 ? FwdSmem<64>::kBytes : FwdSmem<128>::kBytes;
+  bytes[1] = dp == 64 ? DkdvSmem<64>::kBytes : DkdvSmem<128>::kBytes;
+  bytes[2] = dp == 64 ? DqSmem<64>::kBytes : DqSmem<128>::kBytes;
+}
+
+// Forward (lse null: without the row logsumexp). q, k, v bf16 with their
+// map words (3 x kMapWords: see make_map); out (B, Lq, H, D) and lse (B, H,
+// Lq) contiguous. band: null or {hw, window, prefix}; q_off / k_off the ring
+// step's global offsets; visited: null or one device counter. Returns a
+// cudaError_t (0 on success).
+extern "C" int gen3c_attention_wgmma_fwd(const void* q, const void* k, const void* v,
+                                         const long long* words, void* out, float* lse, int B,
+                                         int Lq, int Lk, int H, int D, float scale,
+                                         const int* band, int q_off, int k_off, void* visited,
+                                         void* stream) {
+  if (bad_shape(B, Lq, Lk, H, D) || q_off < 0 || k_off < 0 ||
+      (band != nullptr && (band[0] <= 0 || band[1] < 0 || band[2] < 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const int rows[3] = {kBlockM, kBlockN, kBlockN};
+  for (int i = 0; i < 3; ++i) {
+    cudaError_t err = make_map(&maps[i], bases[i], words + i * kMapWords, rows[i]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  FwdParams p;
+  p.o = static_cast<__nv_bfloat16*>(out);
+  p.lse = lse;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.H = H;
+  p.D = D;
+  p.scale = scale;
+  p.order_q = static_cast<int>(words[12]);
+  p.order_k = static_cast<int>(words[kMapWords + 12]);
+  p.order_v = static_cast<int>(words[2 * kMapWords + 12]);
+  const Band bd = make_band(band, visited, q_off, k_off);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool with_lse = lse != nullptr;
+  if (D <= 64) return static_cast<int>(dispatch_fwd<64>(maps, p, bd, B, with_lse, s));
+  return static_cast<int>(dispatch_fwd<128>(maps, p, bd, B, with_lse, s));
+}
+
+// Backward (K4; K4-band with a band): dq, dk, dv (contiguous, like q, k, v)
+// from q, k, v, out, dout (contiguous bf16), the forward's lse (B, H, Lq);
+// delta (B, H, Lq) fp32 scratch. words: 8 x kMapWords, the dK/dV kernel's
+// maps of q, k, v, dout, then the dQ kernel's (box rows as
+// gen3c_attention_wgmma_box_rows). visited: null or two device counters.
+// Three launches: Delta, dK/dV, dQ.
+extern "C" int gen3c_attention_wgmma_bwd(const void* q, const void* k, const void* v,
+                                         const void* out, const void* dout,
+                                         const long long* words, const float* lse, float* delta,
+                                         void* dq, void* dk, void* dv, int B, int Lq, int Lk,
+                                         int H, int D, float scale, const int* band,
+                                         void* visited, void* stream) {
+  if (bad_shape(B, Lq, Lk, H, D) ||
+      (band != nullptr && (band[0] <= 0 || band[1] < 0 || band[2] < 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int fwd_rows[3], bwd_rows[8];
+  gen3c_attention_wgmma_box_rows(fwd_rows, bwd_rows);
+  CUtensorMap maps[8];
+  const void* bases[8] = {q, k, v, dout, q, k, v, dout};
+  for (int i = 0; i < 8; ++i) {
+    cudaError_t err = make_map(&maps[i], bases[i], words + i * kMapWords, bwd_rows[i]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  BwdParams p;
+  p.o = static_cast<const __nv_bfloat16*>(out);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.B = B;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.H = H;
+  p.D = D;
+  p.scale = scale;
+  p.order_q = static_cast<int>(words[12]);
+  p.order_k = static_cast<int>(words[kMapWords + 12]);
+  p.order_v = static_cast<int>(words[2 * kMapWords + 12]);
+  p.order_do = static_cast<int>(words[3 * kMapWords + 12]);
+  for (int i = 0; i < 4; ++i) {  // the dQ kernel's maps must hold the same orders
+    if (words[i * kMapWords + 12] != words[(4 + i) * kMapWords + 12]) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const Band bd = make_band(band, visited, 0, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long rows = static_cast<long long>(B) * Lq * H;
+  attn_bwd_delta_wgmma<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool bnd = bd.hw > 0;
+  if (D <= 64) {
+    err = bnd ? launch_bwd<64, true>(maps, maps + 4, p, bd, B, s)
+              : launch_bwd<64, false>(maps, maps + 4, p, bd, B, s);
+  } else {
+    err = bnd ? launch_bwd<128, true>(maps, maps + 4, p, bd, B, s)
+              : launch_bwd<128, false>(maps, maps + 4, p, bd, B, s);
+  }
+  return static_cast<int>(err);
+}

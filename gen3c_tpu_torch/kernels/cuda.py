@@ -47,13 +47,29 @@ def library() -> ctypes.CDLL:
             lib.gen3c_mma_probe.argtypes = [_P, _P, _P] + [_I] * 7 + [_P]
             lib.gen3c_attention_bf16_tiles.argtypes = attn[:-2] + [_I, _I, _P]
             lib.gen3c_ray_triangle_depth.argtypes = [_P, _P, _I, _I, _P, _P]
+            words = ctypes.POINTER(ctypes.c_longlong)
+            band_ptr = ctypes.POINTER(_I)
+            lib.gen3c_attention_wgmma_fwd.argtypes = ([_P, _P, _P, words, _P, _P] + [_I] * 5
+                                                      + [ctypes.c_float, band_ptr, _I, _I, _P, _P])
+            lib.gen3c_attention_wgmma_bwd.argtypes = ([_P] * 5 + [words] + [_P] * 5 + [_I] * 5
+                                                      + [ctypes.c_float, band_ptr, _P, _P])
+            lib.gen3c_attention_wgmma_box_rows.argtypes = [ctypes.POINTER(_I)] * 2
+            lib.gen3c_attention_wgmma_box_rows.restype = None
+            lib.gen3c_attention_wgmma_smem.argtypes = [_I, ctypes.POINTER(_I)]
+            lib.gen3c_attention_wgmma_smem.restype = None
             for fn in (lib.gen3c_attention_bf16, lib.gen3c_attention_f32, lib.gen3c_splat,
                        lib.gen3c_quant_rows, lib.gen3c_w8a8_gemm,
                        lib.gen3c_attention_fwd_lse, lib.gen3c_attention_bwd,
                        lib.gen3c_attention_ring_fold, lib.gen3c_attention_merge,
                        lib.gen3c_mma_probe, lib.gen3c_attention_bf16_tiles,
-                       lib.gen3c_ray_triangle_depth):
+                       lib.gen3c_ray_triangle_depth, lib.gen3c_attention_wgmma_fwd,
+                       lib.gen3c_attention_wgmma_bwd):
                 fn.restype = _I
+            fwd_rows, bwd_rows = (_I * 3)(), (_I * 8)()
+            lib.gen3c_attention_wgmma_box_rows(fwd_rows, bwd_rows)
+            if (tuple(fwd_rows), tuple(bwd_rows)) != (WGMMA_FWD_BOX_ROWS, WGMMA_BWD_BOX_ROWS):
+                raise RuntimeError(f"attention_wgmma.cu's box rows {tuple(fwd_rows)} "
+                                   f"{tuple(bwd_rows)} differ from cuda.py's")
             _lib = lib
         return _lib
 
@@ -108,12 +124,121 @@ def _visited_ptr(visited: Optional[torch.Tensor], n: int):
         raise ValueError(f"attention kernel: visited must be {n} contiguous int64 on the card")
     return visited.data_ptr()
 
+# ------------------------------ the attention route ------------------------------
+#
+# Every bf16 attention entry (K1, K2, K3, K1cp, K1ag, the forward with lse,
+# K3lse, K1ring; K4 and K4-band) takes one of two bodies, by one rule:
+# ``attention_route``. "wgmma" (csrc/attention_wgmma.cu, TMA loads and wgmma
+# products) for every input a TMA tensor map can describe; "mma_sync"
+# (attention.cu / attention_bwd.cu) for the rest. fp32 inputs run the CUDA-core
+# kernels and take no route. Each launch of the family adds one to its route's
+# count in ``kernels.route_counts``.
+
+TMA_BOX_COLS = 64  # elements of D per box: 128 bytes of bf16, the swizzle span
+TMA_SWIZZLE = 128
+# Box rows of attention_wgmma.cu's maps (gen3c_attention_wgmma_box_rows, checked
+# when the library loads): forward q, k, v; backward dK/dV q, k, v, dout, then
+# dQ q, k, v, dout.
+WGMMA_FWD_BOX_ROWS = (128, 64, 64)
+WGMMA_BWD_BOX_ROWS = (32, 128, 128, 32, 128, 64, 64, 128)
+
+
+def tma_describable(t: torch.Tensor) -> bool:
+    """Whether a (B, L, H, D) tensor fits attention_wgmma.cu's tensor maps:
+    bf16, 0 < D <= 128 with D a multiple of 8 (rows of 16-byte multiples),
+    unit stride along D, a 16-byte aligned base, and a positive 16-byte
+    multiple as the byte stride of every other dim longer than 1."""
+    if t.dtype != torch.bfloat16 or t.ndim != 4:
+        return False
+    D = t.shape[3]
+    if not (0 < D <= 128 and D % 8 == 0) or t.stride(3) != 1 or t.data_ptr() % 16:
+        return False
+    return all(t.shape[i] == 1 or (t.stride(i) > 0 and t.stride(i) * t.element_size() % 16 == 0)
+               for i in range(3))
+
+
+def attention_route(*tensors: torch.Tensor) -> str:
+    """The body a bf16 attention call runs: "wgmma" when every tensor of the
+    call is ``tma_describable``, else "mma_sync"; "fp32" for fp32 inputs
+    (the CUDA-core kernels). The same rule for every entry of the family,
+    so at a given shape and layout they all take the same body."""
+    if tensors[0].dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if all(tma_describable(t) for t in tensors) else "mma_sync"
+
+
+def tensor_map_params(t: torch.Tensor, box_rows: int) -> dict:
+    """The tiled tensor map of a ``tma_describable`` (B, L, H, D) tensor for
+    boxes of ``box_rows`` sequence rows by ``TMA_BOX_COLS`` of D, in the
+    words cuTensorMapEncodeTiled takes: dims (elements, D first), the byte
+    strides of dims 1..3, the box, the swizzle in bytes, and ``order``: for
+    map dims 1..3, which of head (0), sequence (1) and batch (2) each holds,
+    two bits a dim. The dims after D go in ascending order of their strides
+    (a dim of length 1 last, with the extent so far as its stride): the
+    layout of a permuted packed tensor, as K1cp's all-to-all view is."""
+    if not tma_describable(t):
+        raise ValueError(f"no tensor map for {t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    B, L, H, D = t.shape
+    elem = t.element_size()
+    outer = [(t.stride(2) * elem, H, 0), (t.stride(1) * elem, L, 1), (t.stride(0) * elem, B, 2)]
+    long_dims = sorted((o for o in outer if o[1] > 1), key=lambda o: o[0])
+    extent = D * elem
+    dims, strides, which = [D], [], []
+    for stride, n, w in long_dims:
+        dims.append(n)
+        strides.append(stride)
+        which.append(w)
+        extent = max(extent, stride * n)
+    for _, n, w in (o for o in outer if o[1] == 1):
+        dims.append(1)
+        strides.append(-(-extent // 16) * 16)
+        which.append(w)
+    return {"dims": dims, "strides": strides,
+            "box": [TMA_BOX_COLS] + [box_rows if w == 1 else 1 for w in which],
+            "swizzle": TMA_SWIZZLE, "order": sum(w << (2 * i) for i, w in enumerate(which))}
+
+
+def _map_words(pairs) -> ctypes.Array:
+    """The words gen3c_attention_wgmma_* take, per (tensor, box rows): dims[4],
+    strides[3], box[4], swizzle, order (attention_wgmma.cu's make_map)."""
+    words = []
+    for t, rows in pairs:
+        m = tensor_map_params(t, rows)
+        words += m["dims"] + m["strides"] + m["box"] + [m["swizzle"], m["order"]]
+    return (ctypes.c_longlong * len(words))(*words)
+
+
+def _count_route(route: str) -> None:
+    from gen3c_tpu_torch.kernels import route_counts
+
+    if route in route_counts:
+        route_counts[route] += 1
+
+
+def _wgmma_fwd(q, k, v, out, lse, band_arg, q_off, k_off, visited_ptr) -> None:
+    """gen3c_attention_wgmma_fwd into out (and lse, unless None)."""
+    B, Lq, H, D = q.shape
+    words = _map_words(zip((q, k, v), WGMMA_FWD_BOX_ROWS))
+    _check(library().gen3c_attention_wgmma_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), words, out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Lq, k.shape[1], H, D, 1.0 / math.sqrt(D),
+        band_arg, int(q_off), int(k_off), visited_ptr, _stream(q)), "attention_wgmma_fwd")
+
+
+def wgmma_smem_bytes(d: int) -> dict:
+    """The dynamic shared memory attention_wgmma.cu's kernels ask for at head
+    dim d (its DP: 64 or 128)."""
+    out = (_I * 3)()
+    library().gen3c_attention_wgmma_smem(64 if d <= 64 else 128, out)
+    return {"fwd": out[0], "dkdv": out[1], "dq": out[2]}
+
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               band: Optional[Tuple[int, int, int]] = None,
               visited: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, Lq, H, D) x (B, Lk, H, D) -> (B, Lq, H, D): gen3c_attention_bf16
-    for bf16 inputs, gen3c_attention_f32 for fp32 inputs.
+    """(B, Lq, H, D) x (B, Lk, H, D) -> (B, Lq, H, D): for bf16 inputs the
+    body of ``attention_route`` (gen3c_attention_wgmma_fwd or
+    gen3c_attention_bf16), gen3c_attention_f32 for fp32 inputs.
 
     band=(hw, window, prefix) restricts each query to its temporal band
     (K3); the kernel then visits only the key tiles the band reaches. It
@@ -125,6 +250,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     visited_ptr = _visited_ptr(visited, 1)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    route = attention_route(q, k, v)
+    if route == "wgmma":
+        _wgmma_fwd(q, k, v, out, None, band_arg, 0, 0, visited_ptr)
+        _count_route(route)
+        return out
     strides = (ctypes.c_longlong * 9)(
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
@@ -140,6 +270,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             for t in (q, k, v)
         )
         _check(lib.gen3c_attention_bf16(*args, int(vec), _stream(q)), "attention_bf16")
+        _count_route(route)
     else:
         _check(lib.gen3c_attention_f32(*args, _stream(q)), "attention_f32")
     return out
@@ -232,6 +363,12 @@ def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     visited_ptr = _visited_ptr(visited, 1)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    route = attention_route(q, k, v)
+    if route == "wgmma":
+        _wgmma_fwd(q, k, v, out, lse, band_arg, 0, 0, visited_ptr)
+        _count_route(route)
+        return out, lse
+    _count_route(route)
     _check(library().gen3c_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, Lq, Lk, H, D, 1.0 / math.sqrt(D), int(bf16), int(vec), band_arg, visited_ptr,
@@ -258,6 +395,12 @@ def attention_ring_fold(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         band_arg = (_I * 3)(hw, window, prefix)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    route = attention_route(q, k, v)
+    if route == "wgmma":
+        _wgmma_fwd(q, k, v, out, lse, band_arg, q_off, k_off, None)
+        _count_route(route)
+        return out, lse
+    _count_route(route)
     _check(library().gen3c_attention_ring_fold(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, Lq, Lk, H, D, 1.0 / math.sqrt(D), int(bf16), int(vec), band_arg, int(q_off),
@@ -326,6 +469,17 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     vec = vec and out.data_ptr() % 16 == 0 and dout.data_ptr() % 16 == 0
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    route = attention_route(q, k, v, out, dout)
+    if route == "wgmma":
+        words = _map_words(zip((q, k, v, dout) * 2, WGMMA_BWD_BOX_ROWS))
+        _check(library().gen3c_attention_wgmma_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), words,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Lq, Lk, H, D, 1.0 / math.sqrt(D), band_arg, visited_ptr, _stream(q)),
+            "attention_wgmma_bwd")
+        _count_route(route)
+        return dq, dk, dv
+    _count_route(route)
     _check(library().gen3c_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -16,11 +16,15 @@ instantiations added beside them) is held to the version before it:
         gen3c_tpu_torch found first on the path at the GEN3C-7B self shape
         (B, 56,320, 32, 128) bf16, full and with the band 3,520 / 2 / 1,
         and K4 at two ragged bf16 shapes, and prints one JSON line: a hash
-        of every output (forward, lse, dq, dk, dv) and CUDA-event
-        milliseconds (median of 3 after a warm-up).
+        of every output (forward, lse, dq, dk, dv), CUDA-event
+        milliseconds (median of 3 after a warm-up) and, where the checkout
+        counts them, the attention launches by body (``route_counts``).
 
 Run ``run`` for the old and the new checkout in one call, in the order old,
-new, new, old: equal hashes show the same bits, and the times compare.
+new, new, old: equal hashes show the same bits, and the times compare. The
+wgmma body (attention_wgmma.cu) sums in the mma.sync bodies' order (each
+k16 step in the tensor core, the same tiles per row in the same order), so
+across that change of body too the hashes agree.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ def _ptx_entries(ptx: str) -> dict:
             out[cur] = []
             continue
         s = line.strip()
+        if s.startswith(".section"):  # debug sections: they spell the namespace hash in bytes
+            cur = None
         if cur is not None and s and not s.startswith((".loc", ".file", "//")):
             out[cur].append(_NAMESPACE.sub("NS", s))
     return out
@@ -87,16 +93,17 @@ def compare_ptx(old: str, new: str) -> bool:
                                  check=True, capture_output=True, text=True)
             ptx[tag] = _ptx_entries(out.read_text())
             counts[tag] = _ptxas_counts(log.stdout + log.stderr)
-    same_counts = True
+    same_counts, n_same_ptx = True, 0
     for name in sorted(set(ptx["old"]) | set(ptx["new"])):
         a, b = counts["old"].get(name), counts["new"].get(name)
         same_counts &= a == b or name not in ptx["old"] or name not in ptx["new"]
         same_ptx = ptx["old"].get(name) == ptx["new"].get(name)
+        n_same_ptx += same_ptx
         print(json.dumps({"entry": name, "ptx_identical": same_ptx,
                           "regs_stack_spills_old": a, "regs_stack_spills_new": b}))
     print(json.dumps({"entries": len(ptx["new"]), "added": len(set(ptx["new"]) - set(ptx["old"])),
                       "removed": len(set(ptx["old"]) - set(ptx["new"])),
-                      "counts_identical": same_counts}))
+                      "ptx_identical": n_same_ptx, "counts_identical": same_counts}))
     return same_counts
 
 
@@ -137,6 +144,9 @@ def run(tag: str) -> dict:
                 for _ in range(2))
         return q, k, v, do
 
+    from gen3c_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
     res = {"tag": tag, "package": str(Path(gen3c_tpu_torch.__file__).parent)}
     q, k, v, _ = inputs((2, 56320, 32, 128), (2, 56320, 32, 128), 2)
     for name, band in (("k1", None), ("k3", (3520, 2, 1))):
@@ -154,6 +164,7 @@ def run(tag: str) -> dict:
         q, k, v, do = inputs((2, 1000, 4, 64), (2, lk, 4, 64), 1)
         out, lse = cuda.attention_fwd_lse(q, k, v, band)
         res[f"{name}_hash"] = _hash(out, lse, *cuda.attention_bwd(q, k, v, out, do, lse, band))
+    res["routes"] = dict(getattr(kernels, "route_counts", {})) or None
     print(json.dumps(res), flush=True)
     return res
 

@@ -50,6 +50,18 @@ def test_ptx_entries_ignore_line_info_and_namespace_hash():
     assert a["_ZN49NS4fwdEv"] != c["_ZN49NS4fwdEv"] and a["_ZN49NS4bwdEv"] == c["_ZN49NS4bwdEv"]
 
 
+def test_ptx_entries_leave_out_the_debug_sections():
+    """-lineinfo appends .section .debug_str to the last entry's text,
+    spelling the anonymous namespace's hash as bytes."""
+    def with_debug(ns):
+        spelled = ",".join(str(ord(c)) for c in ns)
+        return _ptx(ns, 10, "add.s32 %r2, %r1, 1;") + (
+            f"\t.section\t.debug_str\n\t{{\n$L__info_string0:\n.b8 {spelled}\n\t}}\n")
+
+    a, b = cab._ptx_entries(with_debug(NS_A)), cab._ptx_entries(with_debug(NS_B))
+    assert a == b == cab._ptx_entries(_ptx(NS_A, 10, "add.s32 %r2, %r1, 1;"))
+
+
 def test_ptxas_counts_per_entry():
     log = f"""ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN{NS_A}4fwdEv' for 'sm_90a'
