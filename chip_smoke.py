@@ -10,8 +10,10 @@ Phases, each printing one JSON line of its own numbers:
              paths' shapes: max/mean abs error, kernel and reference ms
              (CUDA events, median after a warm-up), attention TF/s; K3
              (band attention) also its visited key tiles and agreement
-             with K1 at a full window; K7q/K7 (W8A8) exact codes, int32
-             accumulators and outputs, TOPS, and cuBLAS bf16 at the shape
+             with K1 at a full window; K7q/K7 (W8A8) exact codes at both
+             activation widths, int32 accumulators and outputs at the four
+             7B shapes and a ragged one (K = 1,000: codes copied into
+             16-byte rows), TOPS, torch._int_mm and cuBLAS bf16 at the shape
   4 main     GEN3C-7B at full width (28 blocks x 4096, 32 x 128 heads,
              bf16, random weights from seed 0) generating one 121-frame
              704x1280 chunk through run_chunked_generation with MAIN_STEPS
@@ -705,25 +707,28 @@ def _band_case(gen) -> dict:
     return res
 
 
-def _quant_case(gen) -> dict:
-    """K7q on the 7B q/k/v input shape (tokens of the 2B CFG batch x 4096)."""
+def _quant_case(gen, k: int) -> dict:
+    """K7q on a 7B activation shape: the tokens of the 2B CFG batch x 4096
+    (q/k/v, fc1) or x 16384 (fc2's input)."""
     from gen3c_tpu_torch import kernels
 
-    x = torch.randn((2 * 56320, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn((2 * 56320, k), generator=gen, device="cuda").to(torch.bfloat16)
     x[0] = 0  # a zero token
     codes, scale = kernels.quantize_rows(x)
     want_codes, want_scale = kernels.quantize_rows_reference(x)
     torch.cuda.synchronize()
-    res = {"name": "K7q per-token int8 quantize", "shape": list(x.shape),
+    res = {"name": f"K7q per-token int8 quantize, K={k}", "shape": list(x.shape),
            "codes_equal": bool(torch.equal(codes, want_codes)),
            "scales_equal": bool(torch.equal(scale, want_scale)),
            "max_abs_err": (scale - want_scale).abs().max().item()}
+    del want_codes, want_scale
     res["ms"] = cuda_ms(lambda: kernels.quantize_rows(x), reps=5)
     res["plain_ms"] = cuda_ms(lambda: kernels.quantize_rows_reference(x), reps=3)
     res["gb_per_s"] = x.numel() * 3 / res["ms"] / 1e6  # bf16 read, int8 write
     # absmax, scale, divide, round: ~4 fp32 operations an element
     res.update(library_ms=None, **bound(tensor_bytes(x, codes, scale), 4.0 * x.numel(),
                                         FP32_PEAK_TFLOPS))
+    res["bound_share"] = res["bound_ms"] / res["ms"]
     emit("kernel", **res)
     if not (res["codes_equal"] and res["scales_equal"]):
         raise AssertionError(f"K7q: kernel disagrees with its plain version: {res}")
@@ -731,8 +736,10 @@ def _quant_case(gen) -> dict:
 
 
 def _gemm_case(gen, name: str, M: int, K: int, N: int) -> dict:
-    """K7 at one 7B linear shape: exact int32 accumulators and bf16
-    outputs against the plain version, then times."""
+    """K7 at one linear shape: exact int32 accumulators and bf16 outputs
+    against the plain version, then times. The codes are K7q's, contiguous:
+    where K is not a multiple of 16 no tensor map describes their rows, and
+    K7 reads them from a copy in 16-byte rows ("copied")."""
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.kernels import cuda
 
@@ -745,7 +752,7 @@ def _gemm_case(gen, name: str, M: int, K: int, N: int) -> dict:
     acc = cuda.int8_gemm(xq, wq, None, None, torch.int32)
     acc_ref = kernels.int8_matmul_reference(xq, wq)
     res = {"name": f"K7 int8 GEMM {name}", "M": M, "K": K, "N": N,
-           "acc_equal": bool(torch.equal(acc, acc_ref))}
+           "copied": cuda.w8a8_operand(xq) is not xq, "acc_equal": bool(torch.equal(acc, acc_ref))}
     del acc
     out = cuda.int8_gemm(xq, wq, xs, ws, bf16)
     ref = acc_ref.float().mul_(xs[:, None]).mul_(ws[None, :]).to(bf16)
@@ -1188,11 +1195,17 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     results["K3"] = _band_case(gen)
     torch.cuda.empty_cache()
-    results["K7q"] = _quant_case(gen)
+    results["K7q"] = [_quant_case(gen, k) for k in (4096, 16384)]
+    torch.cuda.empty_cache()
     tokens = 2 * 56320  # the CFG batch of one 121-frame chunk
     results["K7"] = [_gemm_case(gen, name, M, K, N) for name, M, K, N in [
         ("q/k/v/out", tokens, 4096, 4096), ("fc1", tokens, 4096, 16384),
         ("fc2", tokens, 16384, 4096), ("cross k/v", 2 * 512, 1024, 4096)]]
+    if any(r["copied"] for r in results["K7"]):  # the 7B's codes go to TMA as they are
+        raise AssertionError(f"K7 copied the codes of a 7B shape: {results['K7']}")
+    torch.cuda.empty_cache()
+    # ragged M, N and K (1,000: no tensor map describes rows of 1,000 bytes)
+    results["K7_ragged"] = _gemm_case(gen, "ragged", 4099, 1000, 4104)
     torch.cuda.empty_cache()
     results.update(cp_kernel_cases(gen))
     return results
@@ -2177,6 +2190,7 @@ def main(argv=None) -> int:
     if foreign:
         raise AssertionError(f"the port imported JAX or the JAX package: {foreign[:8]}")
     k7 = max(kern["K7"], key=lambda r: r["M"] * r["N"] * r["K"])  # fc1
+    k7_cases = kern["K7"] + [kern["K7_ragged"]]
     csrc = "gen3c_tpu_torch/kernels/csrc/"
 
     def row(name, source, replaces, launches, case, **override):
@@ -2196,10 +2210,16 @@ def main(argv=None) -> int:
             launches["K5"], kern["K5"]),
         row("K3 band self-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:459",
             fast_launches["K3"], kern["K3"]),
-        row("K7q per-token int8 quantize", "w8a8.cu", "gen3c_tpu/models/quantize.py:55",
-            fast_launches["K7q"], kern["K7q"]),
+        row("K7q per-token int8 quantize (K=4096)", "w8a8.cu", "gen3c_tpu/models/quantize.py:55",
+            fast_launches["K7q"], kern["K7q"][0],
+            max_abs_err=max(r["max_abs_err"] for r in kern["K7q"]),
+            widths=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_share")}
+                    for r in kern["K7q"]]),
         row("K7 int8 GEMM + rescale (fc1 shape)", "w8a8.cu", "gen3c_tpu/models/quantize.py:61",
-            fast_launches["K7"], k7, max_abs_err=max(r["max_abs_err"] for r in kern["K7"])),
+            fast_launches["K7"], k7,
+            max_abs_err=max(r["max_abs_err"] for r in k7_cases),
+            shapes=[{k: r[k] for k in ("name", "copied", "ms", "library_ms", "bound_ms")}
+                    for r in k7_cases]),
         row("K4 self-attention backward", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:464",
             train_launches["K1"], kern["K4_self"]),
         row("K4 cross-attention backward", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:508",

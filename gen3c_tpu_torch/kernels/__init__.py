@@ -15,8 +15,8 @@
   K4band  band attention backward (the splash backward under K3's mask, dit.py:459-470)
   K5   forward-warp splat        (gen3c_tpu/ops/geometry.py:205-316)
   K6   nearest ray-triangle hit  (gen3c_tpu/ops/raycast.py:97-140)
-  K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59)
-  K7   int8 x int8 GEMM + rescale (quantize.py:60-69)
+  K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59), one pass a row
+  K7   int8 x int8 GEMM + rescale (quantize.py:60-69), TMA + wgmma s8
   P1   mma.sync rate probe       (scripts/probe_int8_attention.py:37-62; ``mma_probe``)
   P2   K1's tile sweep           (scripts/sweep_attention.py:32-68; ``attention_tiles``)
 

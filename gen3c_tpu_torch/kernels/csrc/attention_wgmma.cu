@@ -145,11 +145,6 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, int half_bytes,
   }
 }
 
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
-  const uint32_t a = smem_u32(raw);
-  return raw + ((1024 - (a & 1023)) & 1023);
-}
-
 // ---------------------------------- the band ----------------------------------
 
 #include "band.h"
@@ -881,32 +876,6 @@ __global__ void __launch_bounds__(256) attn_bwd_delta_wgmma(const BwdParams p) {
 }
 
 // ------------------------------------ host -------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is fetched
-// through the runtime's entry-point lookup, so the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
 
 // The map words of one tensor, as kernels/cuda.py tensor_map_params packs
 // them: dims[4] (D first, elements), byte strides of dims 1..3, box[4],

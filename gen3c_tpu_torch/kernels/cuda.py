@@ -37,8 +37,10 @@ def library() -> ctypes.CDLL:
                 _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P,
             ]
             lib.gen3c_quant_rows.argtypes = [_P, _L, _I, _I, _I, _P, _P, _P]
-            lib.gen3c_w8a8_gemm.argtypes = [_P, _L, _P, _L, _P, _P, _P, _I, _I, _I,
-                                            _I, _I, _P]
+            lib.gen3c_w8a8_gemm_wgmma.argtypes = [_P, _P, ctypes.POINTER(ctypes.c_longlong),
+                                                  _P, _P, _P, _I, _I, _I, _I, _P]
+            lib.gen3c_w8a8_box_rows.argtypes = [ctypes.POINTER(_I)]
+            lib.gen3c_w8a8_box_rows.restype = None
             shape = [_I, _I, _I, _I, _I, ctypes.c_float, _I, _I, ctypes.POINTER(_I), _P, _P]
             lib.gen3c_attention_fwd_lse.argtypes = [_P] * 5 + shape
             lib.gen3c_attention_ring_fold.argtypes = [_P] * 5 + shape[:-2] + [_I, _I, _P]
@@ -58,7 +60,7 @@ def library() -> ctypes.CDLL:
             lib.gen3c_attention_wgmma_smem.argtypes = [_I, ctypes.POINTER(_I)]
             lib.gen3c_attention_wgmma_smem.restype = None
             for fn in (lib.gen3c_attention_bf16, lib.gen3c_attention_f32, lib.gen3c_splat,
-                       lib.gen3c_quant_rows, lib.gen3c_w8a8_gemm,
+                       lib.gen3c_quant_rows, lib.gen3c_w8a8_gemm_wgmma,
                        lib.gen3c_attention_fwd_lse, lib.gen3c_attention_bwd,
                        lib.gen3c_attention_ring_fold, lib.gen3c_attention_merge,
                        lib.gen3c_mma_probe, lib.gen3c_attention_bf16_tiles,
@@ -70,6 +72,11 @@ def library() -> ctypes.CDLL:
             if (tuple(fwd_rows), tuple(bwd_rows)) != (WGMMA_FWD_BOX_ROWS, WGMMA_BWD_BOX_ROWS):
                 raise RuntimeError(f"attention_wgmma.cu's box rows {tuple(fwd_rows)} "
                                    f"{tuple(bwd_rows)} differ from cuda.py's")
+            w8a8_rows = (_I * 2)()
+            lib.gen3c_w8a8_box_rows(w8a8_rows)
+            if tuple(w8a8_rows) != W8A8_BOX_ROWS:
+                raise RuntimeError(f"w8a8.cu's box rows {tuple(w8a8_rows)} differ from "
+                                   f"cuda.py's {W8A8_BOX_ROWS}")
             _lib = lib
         return _lib
 
@@ -490,7 +497,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """gen3c_quant_rows (K7q): x (M, K) bf16/fp32 -> (int8 codes (M, K),
-    fp32 scales (M,))."""
+    fp32 scales (M,)), one pass over each row (rows over 64 KiB: two); rows
+    of any stride and alignment."""
     if not x.is_cuda or x.ndim != 2:
         raise ValueError(f"quant kernel takes a 2-D CUDA tensor, got {x.device} {tuple(x.shape)}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -508,12 +516,68 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes, scale
 
 
+# ---------------------------------- K7 -----------------------------------
+#
+# K7 (w8a8.cu's w8a8_gemm_wgmma) reads both operands through 2-d TMA tensor
+# maps. An operand no map describes (an unaligned base, a row stride off 16
+# bytes, as in contiguous codes whose K is not a multiple of 16) is first
+# copied into rows of K rounded up to 16 bytes: the map's K stays the true
+# K, so TMA zero-fills the pad whatever it holds, and the sums are the same.
+
+W8A8_BOX_BYTES = 128  # bytes of K per box: one 128-byte swizzle row
+# Box rows of w8a8.cu's maps (gen3c_w8a8_box_rows, checked when the library
+# loads): the activation codes, then the weight codes.
+W8A8_BOX_ROWS = (128, 256)
+
+
+def _w8a8_describable(t: torch.Tensor) -> bool:
+    """A 2-d int8 operand a 2-d TMA map takes: unit stride along K, a
+    16-byte aligned base, and a positive 16-byte multiple as its row stride
+    (bytes) where it has more than one row."""
+    if t.dtype != torch.int8 or t.ndim != 2 or t.stride(1) != 1 or t.data_ptr() % 16:
+        return False
+    return t.shape[0] == 1 or (t.stride(0) > 0 and t.stride(0) % 16 == 0)
+
+
+def w8a8_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (rows, K) int8 itself where a tensor map describes it, else a
+    copy in rows of K rounded up to 16 bytes (the pad left unwritten)."""
+    if _w8a8_describable(t):
+        return t
+    rows, K = t.shape
+    return torch.empty((rows, -(-K // 16) * 16), dtype=torch.int8, device=t.device)[:, :K].copy_(t)
+
+
+def w8a8_map_params(t: torch.Tensor, box_rows: int) -> dict:
+    """The 2-d tiled tensor map of a ``_w8a8_describable`` (rows, K) int8
+    operand for boxes of ``W8A8_BOX_BYTES`` of K by ``box_rows`` rows, in the
+    words cuTensorMapEncodeTiled takes: dims (K first), the row stride in
+    bytes (a single row: K rounded up to 16), the box and the swizzle."""
+    if not _w8a8_describable(t):
+        raise ValueError(f"no tensor map for {t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    rows, K = t.shape
+    stride = t.stride(0) if rows > 1 else -(-K // 16) * 16
+    return {"dims": [K, rows], "strides": [stride], "box": [W8A8_BOX_BYTES, box_rows],
+            "swizzle": TMA_SWIZZLE}
+
+
+def _w8a8_words(xq: torch.Tensor, wq: torch.Tensor) -> ctypes.Array:
+    """The words gen3c_w8a8_gemm_wgmma takes: per operand dims[2], the
+    stride, box[2], swizzle (w8a8.cu's make_gemm_map)."""
+    words = []
+    for t, rows in zip((xq, wq), W8A8_BOX_ROWS):
+        m = w8a8_map_params(t, rows)
+        words += m["dims"] + m["strides"] + m["box"] + [m["swizzle"]]
+    return (ctypes.c_longlong * len(words))(*words)
+
+
 _EPI = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, xscale: Optional[torch.Tensor],
               wscale: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:
-    """gen3c_w8a8_gemm (K7): int8 xq (M, K) x int8 wq (N, K)^T -> (M, N).
+    """K7 (gen3c_w8a8_gemm_wgmma): int8 xq (M, K) x int8 wq (N, K)^T -> (M, N),
+    each operand as ``w8a8_operand`` lays it out.
 
     out_dtype int32 returns the raw accumulators (scales unused); fp32 or
     bf16 returns (acc * xscale[m]) * wscale[n] in that dtype.
@@ -526,9 +590,7 @@ def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, xscale: Optional[torch.Tensor]
         raise ValueError(f"int8 GEMM: bad shapes {tuple(xq.shape)} x {tuple(wq.shape)}")
     M, K = xq.shape
     N = wq.shape[0]
-    if (M + 127) // 128 > 65535:
-        raise ValueError(f"int8 GEMM takes at most {65535 * 128} rows, got {M}")
-    xq, wq = (t if t.stride(1) == 1 else t.contiguous() for t in (xq, wq))
+    xq, wq = w8a8_operand(xq), w8a8_operand(wq)
     scales = (xscale, wscale)
     if out_dtype != torch.int32:
         if any(s is None or not s.is_cuda or s.dtype != torch.float32 for s in scales):
@@ -538,13 +600,11 @@ def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, xscale: Optional[torch.Tensor]
                              f"for M={M} N={N}")
         xscale, wscale = xscale.contiguous(), wscale.contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    vec = (K % 16 == 0 and xq.stride(0) % 16 == 0 and wq.stride(0) % 16 == 0
-           and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0)
-    _check(library().gen3c_w8a8_gemm(
-        xq.data_ptr(), xq.stride(0), wq.data_ptr(), wq.stride(0),
-        None if xscale is None else xscale.data_ptr(),
-        None if wscale is None else wscale.data_ptr(),
-        out.data_ptr(), M, N, K, _EPI[out_dtype], int(vec), _stream(xq)), "w8a8_gemm")
+    xs_ptr = None if xscale is None else xscale.data_ptr()
+    ws_ptr = None if wscale is None else wscale.data_ptr()
+    _check(library().gen3c_w8a8_gemm_wgmma(
+        xq.data_ptr(), wq.data_ptr(), _w8a8_words(xq, wq), xs_ptr, ws_ptr, out.data_ptr(),
+        M, N, K, _EPI[out_dtype], _stream(xq)), "w8a8_gemm_wgmma")
     return out
 
 

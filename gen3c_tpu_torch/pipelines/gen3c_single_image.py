@@ -21,11 +21,15 @@ writes the video.
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import time
+from typing import Optional
 
 import numpy as np
 import torch
 
+from gen3c_tpu_torch import kernels
 from gen3c_tpu_torch.cache.cache3d import Cache3DBuffer
 from gen3c_tpu_torch.ops.camera import CAMERA_ROTATIONS, TRAJECTORY_TYPES, generate_camera_trajectory
 from gen3c_tpu_torch.parallel.mesh import process_rank
@@ -33,7 +37,7 @@ from gen3c_tpu_torch.pipelines import factory
 from gen3c_tpu_torch.pipelines.chunked import compose_buffer_video, run_chunked_generation
 from gen3c_tpu_torch.pipelines.depth import make_depth_estimator
 from gen3c_tpu_torch.pipelines.factory import PRESETS
-from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
+from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline, synchronize
 from gen3c_tpu_torch.utils import log
 from gen3c_tpu_torch.utils.io import read_image_bcthw, read_prompts_from_file, save_video
 
@@ -102,6 +106,9 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--depth_source", type=str, default="auto",
                    choices=["auto", "moge", "file", "heuristic"])
     p.add_argument("--depth_path", type=str, default=None)
+    p.add_argument("--timings_json", type=str, default=None,
+                   help="write the run's seconds, kernel launches and peak memory "
+                        "to this JSON file (rank 0)")
     factory.add_parallel_flags(p)
     # offload flags of the reference CLI: none changes anything here (the
     # DiT and VAE ones log that they are ignored; the others, as in the JAX
@@ -119,9 +126,21 @@ def create_parser() -> argparse.ArgumentParser:
     return p
 
 
-def demo(args) -> str:
+def demo(args, record: Optional[dict] = None) -> str:
+    """Run the CLI; returns the path of the saved video. ``record`` (and the
+    file ``--timings_json``) receives the seconds of the model build
+    ("build": weights and quantization) and of the whole call
+    ("entry_point"), the device's peak GiB ("peak_gib", None on the CPU)
+    and, for the last input, ``run_chunked_generation``'s seconds per chunk
+    ("render", "update", "generate") and in all ("chunked_generation"), the
+    last chunk's ``pipeline.last_timings`` ("pipeline") and the kernel
+    launches of the generation ("launches")."""
+    record = {} if record is None else record
+    t0 = time.perf_counter()
     model, preset = factory.build_from_args(args)
     device = torch.device(args.device)
+    synchronize(device)
+    record["build"] = time.perf_counter() - t0
     factory.validate_num_frames(args.num_video_frames, preset.chunk_size)
     pipeline = Gen3cPipeline(
         model=model, guidance=args.guidance, num_steps=args.num_steps, seed=args.seed,
@@ -137,11 +156,18 @@ def demo(args) -> str:
     for i, d in enumerate(inputs):
         name = str(i) if args.batch_input_path else args.video_save_name
         save_path = _generate_one(args, preset, pipeline, device, d.get("visual_input"),
-                                  d.get("prompt", ""), name)
+                                  d.get("prompt", ""), name, record)
+    record["entry_point"] = time.perf_counter() - t0
+    record["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                          if device.type == "cuda" else None)
+    if args.timings_json and process_rank() == 0:
+        with open(args.timings_json, "w") as f:
+            json.dump(record, f)
     return save_path
 
 
-def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name) -> str:
+def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name,
+                  record: dict) -> str:
     h, w = preset.height, preset.width
     image_b3thw = read_image_bcthw(image_path, h, w)
     image_hwc01 = (image_b3thw[0, :, 0].transpose(1, 2, 0) + 1.0) / 2.0
@@ -170,6 +196,9 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name)
         center_depth=1.0,
         device=device,
     )
+    launches = dict(kernels.launch_counts)
+    timings = {}
+    t0 = time.perf_counter()
     video, all_warps = run_chunked_generation(
         pipeline, cache, w2cs, ks,
         seed_frames=image_b3thw[:, :, :1],
@@ -177,7 +206,11 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name)
         negative_prompt=args.negative_prompt or None,
         update_cache_with_depth=estimator,
         save_buffer=args.save_buffer,
+        timings=timings,
     )
+    record.update(timings, chunked_generation=time.perf_counter() - t0,
+                  pipeline=pipeline.last_timings,
+                  launches={k: n - launches[k] for k, n in kernels.launch_counts.items()})
     if process_rank() != 0:  # every rank holds the video; rank 0 writes it
         return ""
     final_video = compose_buffer_video(video, all_warps, h, w)

@@ -8,7 +8,8 @@ the test, never at import). Run on a GPU machine with
 Shapes cover what the wrappers promise: bf16 and fp32, head dims from 8 to
 128 (zero-padded to the MMA depth), ragged Lq and Lk, strided inputs,
 temporal bands whose frames straddle the 64-key tiles, several splat
-groups in one launch, int8 GEMMs of any M, N, K, and K4 (the attention
+groups in one launch, int8 GEMMs of any M, N, K and row layout, K7q in
+one pass at any K and row alignment, and K4 (the attention
 backward) at ragged self and cross shapes, K6 (the ray-triangle depth)
 at ragged ray and triangle counts, every tile of P2 (K1's tile sweep), K1cp
 (K1 read in place from the Ulysses all-to-all's layout: K1's bits), and
@@ -410,6 +411,90 @@ def test_w8a8_kernel_matches_reference(gen, out_dtype, m, n, k):
     assert out.shape == (2, m, n) and out.dtype == out_dtype
     assert torch.equal(out, w8a8_matmul_reference(x, wq, wscale, out_dtype))
     assert (out[0, 0] == 0).all()
+
+
+def _k7_equal(xq, wq, xs, ws):
+    """K7 on (xq, wq) against the plain version: int32 accumulators, fp32
+    and bf16 outputs all equal."""
+    acc = kcuda.int8_gemm(xq, wq, None, None, torch.int32)
+    want = int8_matmul_reference(xq, wq)
+    assert torch.equal(acc, want)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = kcuda.int8_gemm(xq, wq, xs, ws, dtype)
+        ref = want.float().mul_(xs[:, None]).mul_(ws[None, :]).to(dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and torch.equal(out, ref), dtype
+
+
+@pytest.mark.parametrize("k,pitch", [(16, 16), (48, 48), (1000, 1024), (1000, 1000),
+                                     (4096, 4096), (16384, 16384)])
+@pytest.mark.parametrize("n", [8, 33, 200, 4096 + 8])
+@pytest.mark.parametrize("m", [1, 127, 129, 300])
+def test_w8a8_wgmma_body_matches_reference(gen, m, n, k, pitch):
+    """K7 at ragged M, N and K: K = 1,000 in rows of 1,024 bytes (TMA
+    zero-fills past K) and contiguous (rows of 1,000 bytes, copied into
+    16-byte rows first): the plain version's bits."""
+    xq = torch.randint(-127, 128, (m, pitch), generator=gen, device="cuda",
+                       dtype=torch.int8)[:, :k]
+    wq = torch.randint(-127, 128, (n, pitch), generator=gen, device="cuda",
+                       dtype=torch.int8)[:, :k]
+    xs = torch.rand(m, generator=gen, device="cuda") + 1e-3
+    ws = torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-4
+    assert (kcuda.w8a8_operand(xq) is xq) == (pitch % 16 == 0 or m == 1)
+    _k7_equal(xq, wq, xs, ws)
+
+
+@pytest.mark.parametrize("m,n,k", [(130, 200, 1000), (300, 4096 + 8, 4096)])
+def test_w8a8_unaligned_base_matches_reference(gen, m, n, k):
+    """Codes read from a base off 16-byte alignment: no tensor map takes
+    them, so K7 reads a copy, and gives the same bits."""
+    buf = torch.randint(-127, 128, (m * k + 1,), generator=gen, device="cuda", dtype=torch.int8)
+    xq = buf[1:].view(m, k)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    xs = torch.rand(m, generator=gen, device="cuda") + 1e-3
+    ws = torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-4
+    assert xq.data_ptr() % 16 and kcuda.w8a8_operand(xq) is not xq
+    _k7_equal(xq, wq, xs, ws)
+
+
+def test_w8a8_matmul_counts_its_launches(gen):
+    """kernels.w8a8_matmul at the tiny preset's fc1 (96 -> 384): one K7q and
+    one K7, reset with the launch counts."""
+    x = torch.randn((2, 40, 96), generator=gen, device="cuda").to(torch.bfloat16)
+    wq, ws = quantize_rows_reference(torch.randn((384, 96), generator=gen, device="cuda"))
+    kernels.reset_launch_counts()
+    out = kernels.w8a8_matmul(x, wq, ws, torch.bfloat16)
+    assert torch.equal(out, w8a8_matmul_reference(x, wq, ws, torch.bfloat16))
+    assert kernels.launch_counts["K7"] == 1 and kernels.launch_counts["K7q"] == 1
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts["K7"] == 0 and kernels.launch_counts["K7q"] == 0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [16, 1000, 4096, 16384, 40000])
+def test_quant_rows_one_pass_matches_reference(gen, k, dtype, layout):
+    """K7q's one pass at both 7B widths, a ragged K and a tiny one, and a
+    row longer than a CTA holds in registers (40,000: two or three slices,
+    each read again for its codes), with a zero row; "unaligned": rows read
+    from a buffer of pitch K + 3 at an offset of one element, so every row
+    starts at another alignment (the scalar head and tail, byte-wise code
+    stores)."""
+    m = 37
+    if layout == "contiguous":
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    else:
+        x = torch.randn((m, k + 3), generator=gen, device="cuda").to(dtype)[:, 1:k + 1]
+        assert x.data_ptr() % 16 and x.stride(0) == k + 3
+    x[3] = 0
+    x[5, k // 2] = 40.0  # an outlier
+    x[6, k - 1] = -50.0  # one in the last slice
+    codes, scale = kcuda.quantize_rows(x)
+    want_codes, want_scale = quantize_rows_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, want_codes)
+    assert torch.equal(scale, want_scale)
+    assert (codes[3] == 0).all() and codes[5, k // 2] == 127 and codes[6, k - 1] == -127
 
 
 def test_w8a8_kernel_rejects_what_it_does_not_take(gen):

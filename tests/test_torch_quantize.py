@@ -79,7 +79,9 @@ def test_quantize_linear_matches_jax(dtype, n_in, n_out):
 
 
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (37, 1000, 130), (64, 2100, 33)])
+# K = 16,384 is fc2's input width (the 7B's MLP), K = 1,003 not a multiple of 8
+@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (37, 1000, 130), (64, 2100, 33),
+                                   (3, 16384, 8), (5, 1003, 9)])
 def test_w8a8_matmul_matches_jax(out_dtype, m, k, n):
     rng = np.random.default_rng(k)
     x = rng.standard_normal((2, m, k)).astype(np.float32)

@@ -5,16 +5,20 @@ are held to hand-made inputs, and their entry points to refusing to run
 without a card.
 """
 
+import json
+import tempfile
 from types import SimpleNamespace
 
 import pytest
 import torch
 
 from gen3c_tpu_torch.scripts import compare_attention_builds as cab
+from gen3c_tpu_torch.scripts import compare_w8a8_builds as cwb
 from gen3c_tpu_torch.kernels import cuda as kcuda
 from gen3c_tpu_torch.scripts import probe_int8_attention as probe
 from gen3c_tpu_torch.scripts import profile_lora_step as prof
 from gen3c_tpu_torch.scripts import sweep_attention as sweep
+from gen3c_tpu_torch.scripts import time_fast_chunk as tfc
 
 NS_A = "_GLOBAL__N__ee55c35c_16_attention_bwd_cu_87cbb326"
 NS_B = "_GLOBAL__N__0123abcd_16_attention_bwd_cu_deadbeef"
@@ -80,6 +84,47 @@ ptxas info    : Used 166 registers, used 1 barriers
 def test_compare_attention_builds_usage_without_arguments():
     with pytest.raises(SystemExit, match="side by side"):
         cab.main([])
+
+
+def test_compare_w8a8_builds_usage_and_shapes():
+    """The four GEN3C-7B linear shapes at the CFG batch's 112,640 tokens (and
+    the text's 1,024), a ragged one whose K is not a 16-byte multiple (read
+    from 1,024-byte rows), and both activation widths of K7q."""
+    with pytest.raises(SystemExit, match="side by side"):
+        cwb.main([])
+    shapes = {name: (m, k, n) for name, m, k, n in cwb.GEMM_SHAPES}
+    assert shapes == {"qkv_out": (112640, 4096, 4096), "fc1": (112640, 4096, 16384),
+                      "fc2": (112640, 16384, 4096), "cross_kv": (1024, 1024, 4096),
+                      "ragged": (4099, 1000, 4104)}
+    assert cwb.QUANT_WIDTHS == (4096, 16384)
+
+
+def test_time_fast_chunk_usage():
+    with pytest.raises(SystemExit, match="single-image CLI"):
+        tfc.main([])
+
+
+def test_time_fast_chunk_records_a_cpu_rehearsal(tmp_path, monkeypatch):
+    """The chunk timer through the CLI's entry point on the CPU (tiny preset,
+    one 9-frame chunk, 4 steps): its step kinds and counts, the CLI's
+    ``--timings_json`` file beside it, and its temporary files gone."""
+    scratch = tmp_path / "tmp"
+    scratch.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(scratch))
+    written = tmp_path / "timings.json"
+    rec = tfc.run("cpu", ["--device", "cpu", "--model_preset", "gen3c_tiny", "--num_steps", "4",
+                          "--num_video_frames", "9", "--timings_json", str(written)])
+    assert rec["device"] == "cpu" and rec["build_s"] > 0 and rec["chunk_s"] > 0
+    # the fast preset at 4 steps: guidance over the first two, no step cached
+    assert [(s["cfg"], s["refresh"]) for s in rec["steps"]] == [(True, True)] * 2 + [(False, True)] * 2
+    assert rec["cfg_refresh_s"]["n"] == 2 and rec["cond_refresh_s"]["n"] == 2
+    assert rec["cached_steps"] == 0 and len(rec["render_s"]) == 1
+    assert rec["launches"]["K7"] == 0 and rec["peak_gib"] is None
+    assert rec["entry_point_s"] > rec["build_s"] + rec["chunk_s"] - 1e-6
+    got = json.loads(written.read_text())
+    assert got["build"] == rec["build_s"] and got["chunked_generation"] == rec["chunk_s"]
+    assert [s["seconds"] for s in got["pipeline"]["denoise_steps"]] == [s["s"] for s in rec["steps"]]
+    assert list(scratch.iterdir()) == []  # its image and video are gone
 
 
 def _row(key, us, device=False, shapes=(), annotation=False, total=0.0):
