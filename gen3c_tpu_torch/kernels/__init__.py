@@ -63,8 +63,6 @@ from gen3c_tpu_torch.kernels.reference import (
     ray_triangle_depth_reference,
     ring_fold_reference,
     ring_merge_reference,
-    splat_max_logd,
-    splat_normalize,
     splat_reference,
     w8a8_matmul_reference,
 )
@@ -246,7 +244,10 @@ def ray_triangle_depth(ray_dirs: torch.Tensor, v0: torch.Tensor, v1: torch.Tenso
     """K6: the nearest hit distance per ray, (R,) fp32, 0.0 where no triangle
     hits (gen3c_tpu's ``ray_triangle_depth``). ray_dirs (R, 3) with origins
     at 0, triangles v0/v1/v2 (T, 3), all fp32; T may be 0 (zeros, nothing
-    launched). See ``ray_triangle_depth_reference``."""
+    launched). See ``ray_triangle_depth_reference``; on a card the triangles
+    are culled per 256 rays (``reference.ray_triangle_bounds``), which
+    keeps its bits. One K6 launch counted per call (setup and depth
+    kernels)."""
     if not _on_cuda(ray_dirs, "ray_triangle_depth"):
         return ray_triangle_depth_reference(ray_dirs, v0, v1, v2)
     if v0.shape[0] == 0 or ray_dirs.shape[0] == 0:
@@ -272,19 +273,18 @@ def splat(
 
     Same contract as gen3c_tpu.ops.geometry.bilinear_splatting; ``group``
     consecutive batch entries share one log-depth maximum (default: the
-    whole batch, as there).
+    whole batch, as there). On a card one K5 is counted per call, which
+    runs ``cuda.splat``'s three kernels.
     """
     if not _on_cuda(frame1, "splat"):
         return splat_reference(frame1, mask1, depth1, flow12, flow12_mask,
                                is_image, depth_weight_scale, group)
     from gen3c_tpu_torch.kernels import cuda
 
-    b, c, h, w = frame1.shape
-    max_logd = splat_max_logd(depth1, group)
-    acc = cuda.splat_accumulate(frame1, mask1, depth1, flow12, flow12_mask,
-                                max_logd, depth_weight_scale)
+    out = cuda.splat(frame1, mask1, depth1, flow12, flow12_mask, is_image, depth_weight_scale,
+                     group)
     launch_counts["K5"] += 1
-    return splat_normalize(acc, c, h, w, is_image)
+    return out
 
 
 def mma_probe(a: torch.Tensor, b: torch.Tensor, reps: int, ctas_per_sm: int = 1) -> torch.Tensor:

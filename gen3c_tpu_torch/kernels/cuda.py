@@ -33,9 +33,8 @@ def library() -> ctypes.CDLL:
                     _I, _I, _I, _I, _I, ctypes.c_float, ctypes.POINTER(_I), _P]
             lib.gen3c_attention_bf16.argtypes = attn + [_I, _P]
             lib.gen3c_attention_f32.argtypes = attn + [_P]
-            lib.gen3c_splat.argtypes = [
-                _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P,
-            ]
+            lib.gen3c_splat.argtypes = [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P,
+                                                              ctypes.POINTER(ctypes.c_float), _P]
             lib.gen3c_quant_rows.argtypes = [_P, _L, _I, _I, _I, _P, _P, _P]
             lib.gen3c_w8a8_gemm_wgmma.argtypes = [_P, _P, ctypes.POINTER(ctypes.c_longlong),
                                                   _P, _P, _P, _I, _I, _I, _I, _P]
@@ -48,7 +47,8 @@ def library() -> ctypes.CDLL:
             lib.gen3c_attention_bwd.argtypes = [_P] * 10 + shape
             lib.gen3c_mma_probe.argtypes = [_P, _P, _P] + [_I] * 7 + [_P]
             lib.gen3c_attention_bf16_tiles.argtypes = attn[:-2] + [_I, _I, _P]
-            lib.gen3c_ray_triangle_depth.argtypes = [_P, _P, _I, _I, _P, _P]
+            lib.gen3c_ray_triangle_depth.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
+            lib.gen3c_ray_triangle_prepare.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P]
             words = ctypes.POINTER(ctypes.c_longlong)
             band_ptr = ctypes.POINTER(_I)
             lib.gen3c_attention_wgmma_fwd.argtypes = ([_P, _P, _P, words, _P, _P] + [_I] * 5
@@ -64,7 +64,8 @@ def library() -> ctypes.CDLL:
                        lib.gen3c_attention_fwd_lse, lib.gen3c_attention_bwd,
                        lib.gen3c_attention_ring_fold, lib.gen3c_attention_merge,
                        lib.gen3c_mma_probe, lib.gen3c_attention_bf16_tiles,
-                       lib.gen3c_ray_triangle_depth, lib.gen3c_attention_wgmma_fwd,
+                       lib.gen3c_ray_triangle_depth, lib.gen3c_ray_triangle_prepare,
+                       lib.gen3c_attention_wgmma_fwd,
                        lib.gen3c_attention_wgmma_bwd):
                 fn.restype = _I
             fwd_rows, bwd_rows = (_I * 3)(), (_I * 8)()
@@ -316,14 +317,32 @@ def attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def ray_triangle_setup_and_bounds(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6's per-mesh inputs, formed by its setup kernel (one launch): the
+    (T, 13) rows of ``reference.ray_triangle_setup``, their (T, 4) culling
+    rectangles and the (ceil(T / 32), 4) chunk rectangles, the bits of
+    ``reference.ray_triangle_bounds`` and ``ray_chunk_bounds``. v0/v1/v2
+    (T, 3) fp32 on one card, T > 0."""
+    T = v0.shape[0]
+    dev = v0.device
+    tris = torch.empty((T, 13), dtype=torch.float32, device=dev)
+    boxes = torch.empty((T, 4), dtype=torch.float32, device=dev)
+    chunks = torch.empty((-(-T // 32), 4), dtype=torch.float32, device=dev)
+    v0, v1, v2 = (v.contiguous() for v in (v0, v1, v2))
+    _check(library().gen3c_ray_triangle_prepare(v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), T,
+                                                tris.data_ptr(), boxes.data_ptr(),
+                                                chunks.data_ptr(), _stream(v0)),
+           "ray_triangle_prepare")
+    return tris, boxes, chunks
+
+
 def ray_triangle_depth(rays: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
                        v2: torch.Tensor) -> torch.Tensor:
-    """gen3c_ray_triangle_depth (K6): the nearest hit distance per ray, (R,)
-    fp32, 0.0 where none. rays (R, 3) and v0/v1/v2 (T, 3) fp32 on one CUDA
-    device, R and T > 0. The per-triangle terms (``ray_triangle_setup``)
-    are formed here with torch, once per mesh."""
-    from gen3c_tpu_torch.kernels.reference import ray_triangle_setup
-
+    """K6: the nearest hit distance per ray, (R,) fp32, 0.0 where none.
+    rays (R, 3) and v0/v1/v2 (T, 3) fp32 on one CUDA device, R and T > 0.
+    Two launches: the setup kernel (``ray_triangle_setup_and_bounds``),
+    once per mesh, then the culled hit kernel (``ray_triangle_hits``)."""
     tensors = {"rays": rays, "v0": v0, "v1": v1, "v2": v2}
     for name, t in tensors.items():
         if not t.is_cuda or t.device != rays.device:
@@ -335,11 +354,20 @@ def ray_triangle_depth(rays: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
     R, T = rays.shape[0], v0.shape[0]
     if v1.shape[0] != T or v2.shape[0] != T or R == 0 or T == 0 or R >= 2 ** 31:
         raise ValueError(f"ray-triangle kernel: bad counts R={R}, T={T}/{v1.shape[0]}/{v2.shape[0]}")
-    tris = ray_triangle_setup(v0, v1, v2)
+    return ray_triangle_hits(rays, *ray_triangle_setup_and_bounds(v0, v1, v2))
+
+
+def ray_triangle_hits(rays: torch.Tensor, tris: torch.Tensor, boxes: torch.Tensor,
+                      chunks: torch.Tensor) -> torch.Tensor:
+    """gen3c_ray_triangle_depth: K6's hit kernel on the per-mesh inputs of
+    ``ray_triangle_setup_and_bounds``, which culls the triangles per tile of
+    256 consecutive rays. ``ray_triangle_depth`` has checked the shapes."""
     rays = rays.contiguous()
-    out = torch.empty(R, dtype=torch.float32, device=rays.device)
-    _check(library().gen3c_ray_triangle_depth(rays.data_ptr(), tris.data_ptr(), R, T,
-                                              out.data_ptr(), _stream(rays)), "ray_triangle_depth")
+    out = torch.empty(rays.shape[0], dtype=torch.float32, device=rays.device)
+    _check(library().gen3c_ray_triangle_depth(rays.data_ptr(), tris.data_ptr(), boxes.data_ptr(),
+                                              chunks.data_ptr(), rays.shape[0], tris.shape[0],
+                                              out.data_ptr(), _stream(rays)),
+           "ray_triangle_depth")
     return out
 
 
@@ -608,21 +636,32 @@ def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, xscale: Optional[torch.Tensor]
     return out
 
 
-def splat_accumulate(
+def splat(
     frame: torch.Tensor,
     mask: Optional[torch.Tensor],
     depth: torch.Tensor,
     flow: torch.Tensor,
     flow_mask: Optional[torch.Tensor],
-    max_logd: torch.Tensor,
+    is_image: bool = False,
     depth_weight_scale: float = 50.0,
-) -> torch.Tensor:
-    """gen3c_splat: the (b, (h+2)*(w+2), c+1) fp32 accumulator."""
+    group: Optional[int] = None,
+    counts: Optional[torch.Tensor] = None,
+    part_ms: Optional[list] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gen3c_splat (K5): (warped (b, c, h, w), mask2 (b, 1, h, w)) fp32 in
+    one call of three kernels (prepare, accumulate, finish; see splat.cu).
+    ``group`` consecutive batch entries share a log-depth maximum (default:
+    all). For measurement only: ``counts`` (2,) int32 on the card gets the
+    corners added by atomics and the corners merged added; a ``part_ms``
+    list gets the three kernels' ms (the call then waits for them)."""
     b, c, h, w = frame.shape
+    group = b if group is None else group
+    if group <= 0 or b % group:
+        raise ValueError(f"group={group} must divide the batch {b}")
     expect = {
         "frame": (frame, (b, c, h, w)), "mask": (mask, (b, 1, h, w)),
         "depth": (depth, (b, 1, h, w)), "flow": (flow, (b, 2, h, w)),
-        "flow_mask": (flow_mask, (b, 1, h, w)), "max_logd": (max_logd, (b,)),
+        "flow_mask": (flow_mask, (b, 1, h, w)),
     }
     ready = {}
     for name, (t, shape) in expect.items():
@@ -636,18 +675,31 @@ def splat_accumulate(
         if tuple(t.shape) != shape:
             raise ValueError(f"splat kernel: {name} has shape {tuple(t.shape)}, expected {shape}")
         ready[name] = t.contiguous()
-    acc = torch.zeros((b, (h + 2) * (w + 2), c + 1), dtype=torch.float32, device=frame.device)
+    if counts is not None and (counts.dtype != torch.int32 or counts.numel() != 2
+                               or counts.device != frame.device):
+        raise ValueError("splat kernel: counts must be 2 int32 on the frame's device")
+    dev = frame.device
+    acc = torch.empty((b, (h + 2) * (w + 2), c + 1), dtype=torch.float32, device=dev)
+    if acc.data_ptr() % 16:  # the vector atomics' rows; the caching allocator aligns to 512
+        raise RuntimeError("splat kernel: accumulator not 16-byte aligned")
+    max_bits = torch.empty(b // group, dtype=torch.int32, device=dev)
+    out = torch.empty((b, c, h, w), dtype=torch.float32, device=dev)
+    known = torch.empty((b, 1, h, w), dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    ms = (ctypes.c_float * 3)() if part_ms is not None else None
     rc = library().gen3c_splat(
         ptr(ready["frame"]), ptr(ready["mask"]), ptr(ready["depth"]), ptr(ready["flow"]),
-        ptr(ready["flow_mask"]), ptr(ready["max_logd"]), acc.data_ptr(),
-        b, c, h, w, float(depth_weight_scale), _stream(frame),
+        ptr(ready["flow_mask"]), acc.data_ptr(), max_bits.data_ptr(), out.data_ptr(),
+        known.data_ptr(), b, c, h, w, group, float(depth_weight_scale), int(is_image),
+        ptr(counts), ms, _stream(frame),
     )
     _check(rc, "splat")
-    return acc
+    if part_ms is not None:
+        part_ms.extend(float(x) for x in ms)
+    return out, known
 
 
 def mma_probe_cols(k: int, element_size: int) -> int:

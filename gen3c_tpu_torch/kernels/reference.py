@@ -411,6 +411,31 @@ def ray_triangle_setup(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor) -> 
     return torch.cat([e1, e2, s, q, _dot(e2, q)[:, None]], dim=1).contiguous()
 
 
+def _ray_triangle_hits(dirs: torch.Tensor, tri: torch.Tensor, keep=None) -> torch.Tensor:
+    """The nearest hit per ray of ``dirs`` (R, 3) over the rows ``tri`` (T,
+    13) of ``ray_triangle_setup``, 0.0 where none; ``keep(r0, r1)`` gives
+    the (r1 - r0, T) bool pairs to test for rays r0:r1 (None: every pair)."""
+    R, T = dirs.shape[0], tri.shape[0]
+    out = torch.zeros(R, dtype=torch.float32, device=dirs.device)
+    e1, e2, s, q, eq = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9], tri[:, 9:12], tri[:, 12]
+    rows = max(1, _RAY_PAIRS_PER_CHUNK // max(T, 1))
+    for r0 in range(0, R, rows):
+        d = dirs[r0:r0 + rows, None, :]  # (c, 1, 3)
+        h = _cross(d, e2[None])  # (c, T, 3)
+        a = _dot(e1[None], h)
+        f = 1.0 / torch.where(a.abs() < RAY_EPS, torch.ones_like(a), a)
+        u = f * _dot(s[None], h)
+        v = f * _dot(d, q[None])
+        t = f * eq[None]
+        hit = ((a.abs() >= RAY_EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+               & (t > RAY_EPS))
+        if keep is not None:
+            hit &= keep(r0, r0 + d.shape[0])
+        best = torch.where(hit, t, torch.full_like(t, 1e10)).amin(dim=1)
+        out[r0:r0 + rows] = torch.where(best < 1e10, best, torch.zeros_like(best))
+    return out
+
+
 def ray_triangle_depth_reference(ray_dirs: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
                                  v2: torch.Tensor, tri_valid: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
@@ -424,25 +449,182 @@ def ray_triangle_depth_reference(ray_dirs: torch.Tensor, v0: torch.Tensor, v1: t
     v >= 0, u + v <= 1, t > 1e-8. Rays go in chunks of 2^24 pairs.
     """
     R, T = ray_dirs.shape[0], v0.shape[0]
-    out = torch.zeros(R, dtype=torch.float32, device=ray_dirs.device)
     if T == 0 or R == 0:
-        return out
+        return torch.zeros(R, dtype=torch.float32, device=ray_dirs.device)
     tri = ray_triangle_setup(v0.float(), v1.float(), v2.float())
-    e1, e2, s, q, eq = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9], tri[:, 9:12], tri[:, 12]
-    dirs = ray_dirs.float()
-    rows = max(1, _RAY_PAIRS_PER_CHUNK // T)
-    for r0 in range(0, R, rows):
-        d = dirs[r0:r0 + rows, None, :]  # (c, 1, 3)
-        h = _cross(d, e2[None])  # (c, T, 3)
-        a = _dot(e1[None], h)
-        f = 1.0 / torch.where(a.abs() < RAY_EPS, torch.ones_like(a), a)
-        u = f * _dot(s[None], h)
-        v = f * _dot(d, q[None])
-        t = f * eq[None]
-        hit = ((a.abs() >= RAY_EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-               & (t > RAY_EPS))
-        if tri_valid is not None:
-            hit &= tri_valid[None]
-        best = torch.where(hit, t, torch.full_like(t, 1e10)).amin(dim=1)
-        out[r0:r0 + rows] = torch.where(best < 1e10, best, torch.zeros_like(best))
-    return out
+    keep = None if tri_valid is None else (lambda r0, r1: tri_valid[None])
+    return _ray_triangle_hits(ray_dirs.float(), tri, keep)
+
+
+# K6's culling rule. A ray d passes the fp32 hit test of a triangle's row
+# only if d lies within the angle asin(eta) of the triangle's cone (the rays
+# from the origin through the triangle that the row describes exactly:
+# P0 = -s, P1 = P0 + e1, P2 = P0 + e2). Writing d = l0 P0 + l1 P1 + l2 P2
+# (|d| = 1), the test's numerators are u a = -l1 det, v a = -l2 det and
+# a - u a - v a = -l0 det (det = P0 . (P1 x P2)); each is computed with an
+# error below E |d| (E_u = k |s||e2|, E_v = k |s||e1|, E_a = k |e1||e2|,
+# the third E_a + E_u + E_v + 4u |e1||e2| for the rounding of u + v <= 1,
+# k = 16u, 2.7 times the 5.9u that the cross, the dot and the rounded
+# reciprocal sum to), and t > 1e-8 fixes the sign of a once |det| exceeds
+# twice the error of dot(e2, q). So a passing ray has every
+# l_j >= -E_j / |det|, and lies within eta = sum_j E_j |P_j| / |det| of the
+# cone. Seen through the image plane z = 1 a turn by beta moves a ray by at
+# most beta sec^2(polar angle), so the rectangle of the vertices' (x/z,
+# y/z) widened by beta sec^2(theta_max + beta) <= eta / (cos(beta)
+# cos^2(theta_max + beta)) (beta = asin(eta), cos(theta_max) the least
+# z / |P_j|), then by RAY_BOX_REL of each coordinate and RAY_BOX_ABS (the
+# fp32 roundings of the tile's d_x/d_z and of the rectangle), holds every
+# ray that can pass. A triangle with a vertex at z <= 0, a non-finite term,
+# eta > RAY_CULL_MAX_ETA or cos(theta_max + beta) < RAY_CULL_MIN_COS is
+# uncullable: its rectangle is the whole plane. A tile whose rays include
+# one with d_z <= 0 (or a non-finite d_x/d_z) tests every triangle. The
+# rule is written in fp64 +, -, *, / and sqrt, each a separate correctly
+# rounded operation, so that K6's setup kernel forms the same bits.
+RAY_TILE = 256  # rays a K6 CTA culls as one tile: a 256-ray strip
+RAY_CHUNK = 32  # triangles under one chunk bound (the kernel's first level)
+_ROUND = 2.0 ** -24  # fp32 unit roundoff
+RAY_TEST_ERR = 16.0 * _ROUND  # k above
+RAY_CULL_MAX_ETA = 0.5  # sin of the widest turn allowed
+RAY_CULL_MIN_COS = 0.17  # cos(theta_max + beta) >= 0.17: sec^2 stays below 35
+RAY_BOX_REL = 1e-6  # of each rectangle coordinate (16x the fp32 rounding)
+RAY_BOX_ABS = 1e-6  # ~1e-3 of a pixel at 704x1280, 50 degrees
+
+
+def ray_triangle_bounds(tri: torch.Tensor) -> torch.Tensor:
+    """Per triangle row of ``ray_triangle_setup`` (T, 13), the rectangle
+    (x_lo, y_lo, x_hi, y_hi) fp32 of d_x/d_z, d_y/d_z that holds every ray
+    d that can pass its fp32 hit test (see the rule above); (-inf, -inf,
+    inf, inf) for an uncullable triangle. Computed in fp64, one operation at
+    a time in K6's setup kernel's order."""
+    t64 = tri.double()
+    e1, e2, s = t64[:, 0:3], t64[:, 3:6], t64[:, 6:9]
+    p0 = -s
+    p1, p2 = p0 + e1, p0 + e2
+    det = _dot(p0, _cross(p1, p2)).abs()
+    n_e1, n_e2, n_s = (torch.sqrt(_dot(v, v)) for v in (e1, e2, s))
+    err_a = RAY_TEST_ERR * n_e1 * n_e2
+    err_u = RAY_TEST_ERR * n_s * n_e2
+    err_v = RAY_TEST_ERR * n_s * n_e1
+    err_w = err_a + err_u + err_v + 4 * _ROUND * n_e1 * n_e2
+    err_t = RAY_TEST_ERR * n_e1 * n_e2 * n_s
+    n_p0, n_p1, n_p2 = (torch.sqrt(_dot(v, v)) for v in (p0, p1, p2))
+    eta = (err_w * n_p0 + err_u * n_p1 + err_v * n_p2) / det
+    cos_polar = torch.minimum(torch.minimum(p0[:, 2] / n_p0, p1[:, 2] / n_p1), p2[:, 2] / n_p2)
+    cos_beta = torch.sqrt(1.0 - eta * eta)
+    cos_far = cos_polar * cos_beta - torch.sqrt(1.0 - cos_polar * cos_polar) * eta
+    margin = eta / (cos_beta * cos_far * cos_far)
+    cullable = (torch.isfinite(tri).all(dim=1) & (p0[:, 2] > 0) & (p1[:, 2] > 0) & (p2[:, 2] > 0)
+                & (det > 2.0 * err_t) & (eta <= RAY_CULL_MAX_ETA) & (cos_far >= RAY_CULL_MIN_COS))
+    bounds = []
+    for axis in (0, 1):
+        x0, x1, x2 = p0[:, axis] / p0[:, 2], p1[:, axis] / p1[:, 2], p2[:, axis] / p2[:, 2]
+        lo = torch.minimum(torch.minimum(x0, x1), x2) - margin
+        hi = torch.maximum(torch.maximum(x0, x1), x2) + margin
+        bounds.append((lo - RAY_BOX_REL * lo.abs() - RAY_BOX_ABS,
+                       hi + RAY_BOX_REL * hi.abs() + RAY_BOX_ABS))
+    box = torch.stack([bounds[0][0], bounds[1][0], bounds[0][1], bounds[1][1]], dim=1)
+    whole = torch.tensor([-math.inf, -math.inf, math.inf, math.inf], dtype=torch.float64,
+                         device=tri.device)
+    return torch.where(cullable[:, None], box, whole).float().contiguous()
+
+
+def ray_chunk_bounds(boxes: torch.Tensor) -> torch.Tensor:
+    """The union of every RAY_CHUNK consecutive triangle rectangles,
+    (ceil(T / RAY_CHUNK), 4) fp32: K6's first culling level."""
+    T = boxes.shape[0]
+    pad = -T % RAY_CHUNK
+    empty = torch.tensor([math.inf, math.inf, -math.inf, -math.inf], device=boxes.device)
+    full = torch.cat([boxes, empty.expand(pad, 4)]).reshape(-1, RAY_CHUNK, 4)
+    return torch.cat([full[..., :2].amin(dim=1), full[..., 2:].amax(dim=1)], dim=1).contiguous()
+
+
+def ray_tiles(ray_dirs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's tiles of rays, RAY_TILE consecutive rays each (ray r is in tile
+    r // RAY_TILE): their exact rectangles (n, 4) fp32 of d_x/d_z, d_y/d_z
+    over the rays, and whether the tile culls (n,) bool: False when a ray
+    has d_z <= 0 or a non-finite ratio (NaN included), and the tile then
+    tests every triangle."""
+    R = ray_dirs.shape[0]
+    tile, n = torch.arange(R, device=ray_dirs.device) // RAY_TILE, -(-R // RAY_TILE)
+    d = ray_dirs.float()
+    rx, ry = d[:, 0] / d[:, 2], d[:, 1] / d[:, 2]
+    good = (d[:, 2] > 0) & torch.isfinite(rx) & torch.isfinite(ry)
+
+    def reduce(v, fill, how):
+        out = torch.full((n,), fill, device=d.device)
+        return out.scatter_reduce_(0, tile, torch.where(good, v, fill), how)
+
+    box = torch.stack([reduce(rx, math.inf, "amin"), reduce(ry, math.inf, "amin"),
+                       reduce(rx, -math.inf, "amax"), reduce(ry, -math.inf, "amax")], dim=1)
+    bad = torch.zeros(n, device=d.device).index_add_(0, tile, (~good).float())
+    return box, bad == 0
+
+
+def ray_triangle_kept(tiles: torch.Tensor, cull: torch.Tensor,
+                      boxes: torch.Tensor) -> torch.Tensor:
+    """(n tiles, T) bool: the (tile, triangle) pairs K6 tests, those whose
+    rectangles overlap (closed) or whose tile does not cull."""
+    t, b = tiles[:, None], boxes[None]
+    overlap = ((b[..., 0] <= t[..., 2]) & (b[..., 2] >= t[..., 0]) & (b[..., 1] <= t[..., 3])
+               & (b[..., 3] >= t[..., 1]))
+    return overlap | ~cull[:, None]
+
+
+def ray_triangle_depth_culled_reference(ray_dirs: torch.Tensor, v0: torch.Tensor,
+                                        v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """K6 as the kernel runs it, in plain torch: only the (tile, triangle)
+    pairs that ``ray_triangle_kept`` keeps are tested. It equals
+    ``ray_triangle_depth_reference`` bit for bit when no culled pair hits."""
+    R, T = ray_dirs.shape[0], v0.shape[0]
+    if T == 0 or R == 0:
+        return torch.zeros(R, dtype=torch.float32, device=ray_dirs.device)
+    tri = ray_triangle_setup(v0.float(), v1.float(), v2.float())
+    kept = ray_triangle_kept(*ray_tiles(ray_dirs), ray_triangle_bounds(tri))
+    return _ray_triangle_hits(ray_dirs.float(), tri,
+                              lambda r0, r1: kept[torch.arange(r0, r1, device=kept.device) // RAY_TILE])
+
+
+def ray_triangle_footprint_pairs(ray_dirs: torch.Tensor, boxes: torch.Tensor,
+                                 pairs_at_once: int = 1 << 26) -> int:
+    """The (ray, triangle) pairs a per-ray footprint test keeps: for each
+    triangle the rays whose (d_x/d_z, d_y/d_z) lie in its rectangle (every
+    ray for an uncullable one), plus every triangle for each ray with d_z
+    <= 0 or a non-finite ratio. K6's bound counts 36 operations for each.
+    Each triangle's rays are counted from the rays sorted by x or by y,
+    whichever range is shorter."""
+    d = ray_dirs.float()
+    rx, ry = d[:, 0] / d[:, 2], d[:, 1] / d[:, 2]
+    good = (d[:, 2] > 0) & torch.isfinite(rx) & torch.isfinite(ry)
+    rx, ry = rx[good], ry[good]
+    n_good, T = rx.numel(), boxes.shape[0]
+    total = (d.shape[0] - n_good) * T
+    if n_good == 0 or T == 0:
+        return int(total)
+    whole = torch.isinf(boxes).all(dim=1)
+    total += int(whole.sum()) * n_good
+    boxes = boxes[~whole]
+    ranges = []
+    for key, other, k_lo, k_hi, o_lo, o_hi in ((rx, ry, 0, 2, 1, 3), (ry, rx, 1, 3, 0, 2)):
+        order = torch.argsort(key)
+        keys = key[order].contiguous()
+        i0 = torch.searchsorted(keys, boxes[:, k_lo].contiguous(), right=False)
+        i1 = torch.searchsorted(keys, boxes[:, k_hi].contiguous(), right=True)
+        ranges.append((i0, (i1 - i0).clamp(min=0), other[order], o_lo, o_hi))
+    use_x = ranges[0][1] <= ranges[1][1]
+    for which, (i0, n, other, o_lo, o_hi) in ((use_x, ranges[0]), (~use_x, ranges[1])):
+        idx = torch.nonzero(which).flatten()
+        ends = torch.cumsum(n[idx], 0)
+        start = 0
+        while start < idx.numel():
+            stop = int(torch.searchsorted(ends, ends[start] - n[idx[start]] + pairs_at_once,
+                                          right=True))
+            stop = max(stop, start + 1)
+            sel = idx[start:stop]
+            cnt = n[sel]
+            owner = torch.repeat_interleave(torch.arange(sel.numel(), device=d.device), cnt)
+            first = torch.cumsum(cnt, 0) - cnt
+            pos = i0[sel][owner] + torch.arange(owner.numel(), device=d.device) - first[owner]
+            v = other[pos]
+            total += int(((v >= boxes[sel, o_lo][owner]) & (v <= boxes[sel, o_hi][owner])).sum())
+            start = stop
+    return int(total)

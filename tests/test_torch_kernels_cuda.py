@@ -11,7 +11,10 @@ temporal bands whose frames straddle the 64-key tiles, several splat
 groups in one launch, int8 GEMMs of any M, N, K and row layout, K7q in
 one pass at any K and row alignment, and K4 (the attention
 backward) at ragged self and cross shapes, K6 (the ray-triangle depth)
-at ragged ray and triangle counts, every tile of P2 (K1's tile sweep), K1cp
+at ragged ray and triangle counts and bit for bit at T = 0, 1, a
+straddling mesh and T = 120,000 (its setup kernel: the plain rule's
+bits), K5 with NaN and +inf depths and with its corners merged across lanes,
+every tile of P2 (K1's tile sweep), K1cp
 (K1 read in place from the Ulysses all-to-all's layout: K1's bits), and
 K1ring + K1merge over 4 KV shards with and without the band (rows left
 without a key by a shard: 0 and -inf, no NaN).
@@ -26,6 +29,7 @@ import torch
 
 from gen3c_tpu_torch import kernels
 from gen3c_tpu_torch.kernels import cuda as kcuda
+from gen3c_tpu_torch.kernels import reference
 from gen3c_tpu_torch.models import dit
 from gen3c_tpu_torch.kernels.reference import (
     attention_backward_reference,
@@ -540,6 +544,125 @@ def test_ray_triangle_kernel_matches_reference(gen, r, t):
     assert rel.numel() == 0 or rel.max().item() <= 1e-5
     if t == 0:
         assert not got.any()
+
+
+def _splat_check(out, m, ref, m_ref):
+    """K5 against its plain version: the NaN pattern equal, masks on >= 99.9%
+    of pixels, finite values where both know the pixel within 1e-4."""
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert (m == m_ref).float().mean().item() >= 0.999
+    both = ((m > 0) & (m_ref > 0)).expand_as(out) & torch.isfinite(ref) & torch.isfinite(out)
+    assert ((out - ref).abs() * both).nan_to_num().max().item() <= 1e-4
+
+
+def test_splat_kernel_keeps_nonfinite_depth(gen):
+    """A NaN depth (buffer 0) and a +inf depth (buffer 1), each buffer its
+    own group: the inputs the CPU test holds splat_reference to gen3c_tpu
+    with. NaN spreads as torch.clamp and amax spread it (fmaxf / fminf
+    would drop it)."""
+    from torch_splat_cases import nonfinite_splat_inputs
+
+    frame, mask, depth, flow, fmask = (torch.from_numpy(a).cuda() for a in nonfinite_splat_inputs())
+    for is_image in (True, False):
+        out, m = kernels.splat(frame, mask, depth, flow, fmask, is_image, group=1)
+        ref, m_ref = splat_reference(frame, mask, depth, flow, fmask, is_image, group=1)
+        torch.cuda.synchronize()
+        assert torch.isnan(ref[0]).any() and torch.isnan(ref[1]).any()
+        assert not torch.isnan(ref[1]).all()
+        _splat_check(out, m, ref, m_ref)
+    nan_max = depth.clone()
+    nan_max[0, 0, 5, 6] = -float("nan")  # the sign bit set: still the largest
+    out, m = kernels.splat(frame, mask, nan_max, flow, fmask, True, group=1)
+    ref, m_ref = splat_reference(frame, mask, nan_max, flow, fmask, True, group=1)
+    _splat_check(out, m, ref, m_ref)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3])
+@pytest.mark.parametrize("flow_kind", ["constant", "integer", "smooth", "random"])
+def test_splat_kernel_merges_neighbouring_corners(gen, c, flow_kind):
+    """The accumulate merges a lane's east corners into the next lane's west
+    ones where the cells match (C = 1 and 3; C = 2 takes scalar atomics,
+    merges and counts nothing; a whole-pixel flow puts a lane's four corners on one
+    cell and the next lane's elsewhere): the plain version's function, and
+    every corner either added or merged."""
+    b, h, w = 2, 61, 333
+    frame = torch.rand((b, c, h, w), generator=gen, device="cuda") * 2 - 1
+    depth = torch.rand((b, 1, h, w), generator=gen, device="cuda") * 3 + 0.5
+    mask = (torch.rand((b, 1, h, w), generator=gen, device="cuda") > 0.1).float()
+    yy, xx = torch.meshgrid(torch.arange(h, device="cuda"), torch.arange(w, device="cuda"),
+                            indexing="ij")
+    flow = torch.zeros((b, 2, h, w), device="cuda")
+    if flow_kind == "constant":
+        flow[:, 0], flow[:, 1] = 3.3, -1.7
+    elif flow_kind == "integer":
+        flow[:, 0], flow[:, 1] = 2.0, 1.0
+    elif flow_kind == "smooth":
+        flow[:, 0], flow[:, 1] = 0.02 * xx + 0.5 * torch.sin(yy / 9.0), 0.01 * yy - 0.003 * xx
+    else:
+        flow = (torch.rand((b, 2, h, w), generator=gen, device="cuda") - 0.5) * 2 * w
+    ref, m_ref = splat_reference(frame, mask, depth, flow, None, True)
+    counts = torch.zeros(2, dtype=torch.int32, device="cuda")
+    out, m = kcuda.splat(frame, mask, depth, flow, None, True, counts=counts)
+    torch.cuda.synchronize()
+    _splat_check(out, m, ref, m_ref)
+    added, merged = counts.tolist()
+    if c == 2:  # scalar atomics: nothing merged, nothing counted
+        assert added == merged == 0
+        return
+    assert added + merged == 4 * b * h * w
+    if flow_kind in ("constant", "smooth"):  # east corners are the next lane's west ones
+        assert merged > 0.4 * (added + merged)
+
+
+def test_ray_triangle_setup_kernel_is_the_plain_rule(gen):
+    """K6's setup kernel forms the rows, rectangles and chunk rectangles of
+    reference.ray_triangle_setup / ray_triangle_bounds / ray_chunk_bounds
+    bit for bit, uncullable triangles (a vertex behind the camera, NaN)
+    included, at a T that is not a multiple of 32."""
+    t = 1000
+    v0 = torch.rand((t, 3), generator=gen, device="cuda") * 2 - 1
+    v0[:, 2] += 2.0
+    v1 = v0 + torch.rand((t, 3), generator=gen, device="cuda") * 0.2
+    v2 = v0 + torch.rand((t, 3), generator=gen, device="cuda") * 0.2
+    v0[:7, 2] = -0.5
+    v1[7:9, 0] = float("nan")
+    v2[9] = v0[9]
+    tris, boxes, chunks = kcuda.ray_triangle_setup_and_bounds(v0, v1, v2)
+    want_tris = reference.ray_triangle_setup(v0, v1, v2)
+    want_boxes = reference.ray_triangle_bounds(want_tris)
+    assert torch.equal(tris.nan_to_num(), want_tris.nan_to_num())
+    assert torch.equal(torch.isnan(tris), torch.isnan(want_tris))
+    assert torch.equal(boxes, want_boxes)
+    assert torch.equal(chunks, reference.ray_chunk_bounds(want_boxes))
+    assert torch.isinf(boxes[:10]).all()
+
+
+@pytest.mark.parametrize("case", ["empty", "one", "straddling", "dense"])
+def test_ray_triangle_kernel_is_the_plain_version_bit_for_bit(gen, case):
+    """The culled K6 against the all-pairs plain version, the same bits: T
+    = 0 (nothing launched), T = 1, a mesh with triangles straddling z = 0
+    and rays with d_z <= 0, and T = 120,000 small triangles (a dense mesh)."""
+    r = 100 * 160
+    rays = torch.randn((r, 3), generator=gen, device="cuda") * torch.tensor([0.4, 0.3, 1.0],
+                                                                              device="cuda")
+    rays[:, 2] = rays[:, 2].abs() + 0.2
+    t = {"empty": 0, "one": 1, "straddling": 500, "dense": 120_000}[case]
+    v0 = torch.rand((t, 3), generator=gen, device="cuda") * 2 - 1
+    v0[:, 2] += 2.0
+    size = 0.02 if case == "dense" else 0.5
+    v1 = v0 + torch.rand((t, 3), generator=gen, device="cuda") * size
+    v2 = v0 + torch.rand((t, 3), generator=gen, device="cuda") * size
+    if case == "straddling":
+        v0[:50, 2] = -1.0
+        rays[::97, 2] *= -1
+    rays = rays / rays.norm(dim=1, keepdim=True)
+    before = kernels.launch_counts["K6"]
+    got = kernels.ray_triangle_depth(rays, v0, v1, v2)
+    want = ray_triangle_depth_reference(rays, v0, v1, v2)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["K6"] == before + (t > 0)
+    assert torch.equal(got, want)
+    assert (want > 0).any() or t == 0
 
 
 @pytest.mark.parametrize("config", [(64, 32, "blhd"), (64, 64, "blhd"), (64, 128, "blhd"),

@@ -21,6 +21,7 @@ from gen3c_tpu.models.dit import attention_op
 from gen3c_tpu.ops.geometry import bilinear_splatting
 from gen3c_tpu_torch import kernels
 from gen3c_tpu_torch.kernels.reference import attention_reference, splat_reference
+from torch_splat_cases import nonfinite_splat_inputs, splat_inputs as _splat_inputs
 
 torch.set_num_threads(2)
 
@@ -48,21 +49,6 @@ def test_attention_dispatch_uses_reference_on_cpu():
     np.testing.assert_array_equal(kernels.attention(q, k, v, kernel_id="K2").numpy(),
                                   attention_reference(q, k, v).numpy())
     assert kernels.launch_counts == before  # the CPU path launches no kernel
-
-
-def _splat_inputs(rng, b, c, h, w, integer_flow=False, with_masks=True):
-    frame = rng.uniform(-1, 1, (b, c, h, w)).astype(np.float32)
-    if integer_flow:
-        # whole-pixel shifts: floor == ceil at every target
-        flow = rng.integers(-3, 4, (b, 2, h, w)).astype(np.float32)
-    else:
-        # reaches past every border, so some points fall off the grid
-        flow = rng.uniform(-0.6 * w, 0.6 * w, (b, 2, h, w)).astype(np.float32)
-    depth = rng.uniform(-0.5, 4.0, (b, 1, h, w)).astype(np.float32)  # some <= 0
-    depth[0, 0, :2] = 0.0
-    mask = (rng.uniform(size=(b, 1, h, w)) > 0.2).astype(np.float32) if with_masks else None
-    fmask = (rng.uniform(size=(b, 1, h, w)) > 0.1).astype(np.float32) if with_masks else None
-    return frame, mask, depth, flow, fmask
 
 
 _SPLAT_CASES = ["integer", "off_grid", "two_buffers", "no_masks"]
@@ -101,6 +87,27 @@ def test_splat_groups_keep_their_own_depth_max():
         alone = splat_reference(frame[sl], mask[sl], depth[sl], flow[sl], fmask[sl], is_image=True)
         np.testing.assert_array_equal(joint[0][sl].numpy(), alone[0].numpy())
         np.testing.assert_array_equal(joint[1][sl].numpy(), alone[1].numpy())
+
+
+@pytest.mark.parametrize("is_image", [True, False])
+@pytest.mark.parametrize("buffer", [0, 1], ids=["nan_depth", "inf_depth"])
+def test_splat_reference_keeps_nonfinite_depth_as_jax(buffer, is_image):
+    """jnp.maximum / jnp.minimum and jnp.max keep a NaN, as torch.clamp and
+    amax do: a NaN depth makes the buffer's log-depth maximum NaN and every
+    pixel it splats NaN; a +inf depth makes the maximum inf and its own
+    pixel's weight inf / inf = NaN. The NaN pattern is the same, the finite
+    values agree as in the finite cases, and the masks are equal."""
+    sl = slice(buffer, buffer + 1)
+    frame, mask, depth, flow, fmask = (a[sl] for a in nonfinite_splat_inputs())
+    want_img, want_mask = (np.asarray(a) for a in bilinear_splatting(
+        *(jnp.asarray(a) for a in (frame, mask, depth, flow, fmask)), is_image=is_image))
+    got_img, got_mask = (a.numpy() for a in splat_reference(
+        *(torch.from_numpy(a) for a in (frame, mask, depth, flow, fmask)), is_image=is_image))
+    nan = np.isnan(want_img)
+    assert nan.any() and (not nan.all() if buffer else nan[want_mask.repeat(3, 1) > 0].all())
+    np.testing.assert_array_equal(np.isnan(got_img), nan)
+    np.testing.assert_array_equal(got_mask, want_mask)
+    np.testing.assert_allclose(got_img[~nan], want_img[~nan], atol=1e-5, rtol=0)
 
 
 def test_kernels_import_without_nvcc_or_triton():

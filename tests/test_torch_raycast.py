@@ -23,6 +23,7 @@ import torch
 from gen3c_tpu.ops import geometry as jgeometry
 from gen3c_tpu.ops import raycast as jraycast
 from gen3c_tpu_torch import kernels
+from gen3c_tpu_torch.kernels import reference
 from gen3c_tpu_torch.kernels.reference import ray_triangle_depth_reference
 from gen3c_tpu_torch.ops import geometry, raycast
 
@@ -227,3 +228,147 @@ def test_apply_foreground_masking_matches_jax():
                                want[0][np.broadcast_to(keep, want[0].shape)], atol=1e-6)
     np.testing.assert_array_equal(got[2][keep[:, 0]], want[2][keep[:, 0]])
     np.testing.assert_array_equal(got[0][2], warped[2])  # the empty mesh: untouched
+
+
+# K6's culling rule (kernels/reference.py): the plain version of what the
+# kernel tests. Every case holds the culled evaluation to the all-pairs one
+# bit for bit (a culled pair is a certain miss and the minimum is exact) and
+# to gen3c_tpu in its hit decisions; both tile shapes.
+
+def _boundary_scene(seed, h=72, w=96):
+    """Rays of an h x w camera moved left and forward, and the boundary mesh
+    of a seeded depth with discs (curtain triangles across its edges)."""
+    pts, bmask, k = _cam_points(h, w, seed)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[0, 3], w2c[2, 3] = 0.3, -0.2
+    cam = (pts @ w2c[:3, :3].T + w2c[:3, 3]).astype(np.float32)
+    v, f = raycast.build_boundary_mesh(torch.from_numpy(cam), torch.from_numpy(bmask))
+    rays = geometry.pixel_rays(h, w, torch.from_numpy(k)[None])[0].reshape(-1, 3).numpy()
+    return rays, *(v[f[:, i]].numpy() for i in range(3))
+
+
+def _grazing_scene(seed):
+    """test_ray_triangle_depth_matches_jax_on_a_grazing_mesh's grid, random
+    triangles and rays through vertices and edge midpoints, rays parallel."""
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(np.arange(-4, 5), np.arange(-4, 5), indexing="ij"), -1)
+    g = np.concatenate([g, np.full(g.shape[:2] + (1,), 2.0)], -1).astype(np.float32)
+    tl, tr, bl, br = g[:-1, :-1], g[:-1, 1:], g[1:, :-1], g[1:, 1:]
+    grid = [np.concatenate([a.reshape(-1, 3), b.reshape(-1, 3)]) for a, b in
+            ((tl, tr), (tr, br), (bl, bl))]
+    rand = [rng.uniform(-3, 3, (40, 3)).astype(np.float32) + [0, 0, 4] for _ in range(3)]
+    v0, v1, v2 = (np.concatenate([a, b]) for a, b in zip(grid, rand))
+    xy = np.concatenate([g[..., :2].reshape(-1, 2), (g[:-1, :, :2] + [0.5, 0]).reshape(-1, 2),
+                         rng.uniform(-4, 4, (700, 2))]).astype(np.float32)
+    dirs = np.concatenate([xy, np.full((len(xy), 1), 2.0, np.float32)], 1)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    parallel = np.concatenate([rng.standard_normal((20, 2)), np.zeros((20, 1))], 1)
+    return np.concatenate([dirs, parallel.astype(np.float32)]), v0, v1, v2
+
+
+def _odd_triangles_scene(seed, kind):
+    """Rays toward z > 0 (a few with d_z <= 0 or NaN for "bad_rays") and
+    triangles in front, with some that straddle z = 0, lie behind it, are
+    degenerate (a repeated vertex, collinear) or hold a NaN vertex."""
+    rng = np.random.default_rng(seed)
+    dirs = rng.standard_normal((700, 3)).astype(np.float32) * [0.4, 0.3, 1.0]
+    dirs[:, 2] = np.abs(dirs[:, 2]) + 0.2
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    v0 = rng.uniform(-1, 1, (120, 3)).astype(np.float32) + [0, 0, 2]
+    v1 = v0 + rng.uniform(0, 0.4, (120, 3)).astype(np.float32)
+    v2 = v0 + rng.uniform(0, 0.4, (120, 3)).astype(np.float32)
+    if kind == "straddling":
+        v0[:20, 2] = -rng.uniform(0.1, 1.0, 20)  # one vertex behind the camera
+        v1[20:30, 2] = v2[20:30, 2] = v0[20:30, 2] = -1.0  # wholly behind
+        v0[30:40, 2] = 0.0  # a vertex on the camera plane
+        big = rng.uniform(-3, 3, (10, 3)).astype(np.float32)
+        v0[40:50], v1[40:50], v2[40:50] = big * [1, 1, 0] + [0, 0, 0.5], big, -big + [0, 0, 3]
+    elif kind == "degenerate_nan":
+        v1[:10] = v0[:10]  # a repeated vertex
+        v2[10:20] = 2 * v1[10:20] - v0[10:20]  # collinear
+        v0[20:25, 1] = np.nan
+        v2[25:30] = np.inf
+    elif kind == "bad_rays":
+        dirs[::37, 2] = -np.abs(dirs[::37, 2])  # behind
+        dirs[5, 2] = 0.0
+        dirs[300] = np.nan
+    return dirs, v0, v1, v2
+
+
+_CULL_CASES = {
+    "boundary_3": lambda: _boundary_scene(3),
+    "boundary_4": lambda: _boundary_scene(4),
+    "grazing_0": lambda: _grazing_scene(0),
+    "grazing_1": lambda: _grazing_scene(1),
+    "straddling": lambda: _odd_triangles_scene(5, "straddling"),
+    "degenerate_nan": lambda: _odd_triangles_scene(6, "degenerate_nan"),
+    "bad_rays": lambda: _odd_triangles_scene(7, "bad_rays"),
+    "permuted": lambda: (lambda s: (s[0][np.random.default_rng(8).permutation(len(s[0]))],
+                                    *s[1:]))(_boundary_scene(3)),
+    "ragged": lambda: (lambda s: (s[0][:1000], *s[1:]))(_boundary_scene(4)),
+}
+
+
+@pytest.mark.parametrize("case", list(_CULL_CASES))
+def test_culled_plain_version_is_the_all_pairs_one(case):
+    dirs, v0, v1, v2 = _CULL_CASES[case]()
+    t = [torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in (dirs, v0, v1, v2)]
+    want = ray_triangle_depth_reference(*t)
+    got = reference.ray_triangle_depth_culled_reference(*t)
+    assert torch.equal(got, want)
+    finite = np.isfinite(dirs).all(1)
+    jax_want = _jax_depth(dirs[finite], v0, v1, v2)
+    flip_tol = GRAZING_FLIP_TOL if case.startswith("grazing") else FLIP_TOL
+    _assert_depths_close(got.numpy()[finite], jax_want, flip_tol)
+    tiles, cull = reference.ray_tiles(t[0])
+    kept = reference.ray_triangle_kept(tiles, cull, reference.ray_triangle_bounds(
+        reference.ray_triangle_setup(*t[1:])))
+    if case.startswith("boundary") or case == "ragged":
+        assert kept.float().mean() < 0.5  # the rule culls most pairs of a boundary mesh
+    if case == "bad_rays":
+        bad = ~((t[0][:, 2] > 0) & torch.isfinite(t[0]).all(1))
+        tile = torch.arange(len(dirs)) // reference.RAY_TILE
+        assert torch.equal(~cull, torch.zeros_like(cull).index_fill_(0, tile[bad], True))
+        assert kept[~cull].all()
+
+
+def test_uncullable_triangles_cover_the_plane():
+    """A vertex at or behind z = 0, a non-finite vertex, a degenerate or an
+    edge-on triangle (its plane through the camera centre) gets the whole
+    plane; a small triangle facing the camera (7 pixels wide at 704x1280,
+    where a pixel is 7.3e-4) gets its projected vertices' rectangle
+    widened by the rounding bound, ~1 pixel here."""
+    v0 = np.array([[0, 0, 2], [0, 0, -1], [0, 0, 0], [np.nan, 0, 2], [0, 0, 2], [0, 0, 2]],
+                  np.float32)
+    v1 = np.array([[0.01, 0, 2], [0.1, 0, 2], [0.1, 0, 2], [0.1, 0, 2], [0.1, 0, 2], [0, 0, 3]],
+                  np.float32)
+    v2 = np.array([[0, 0.01, 2], [0, 0.1, 2], [0, 0.1, 2], [0, 0.1, 2], [0.2, 0, 2], [0, 0, 4]],
+                  np.float32)
+    tri = reference.ray_triangle_setup(*(torch.from_numpy(a) for a in (v0, v1, v2)))
+    boxes = reference.ray_triangle_bounds(tri)
+    whole = torch.isinf(boxes).all(1)
+    assert whole.tolist() == [False, True, True, True, True, True]
+    x_lo, y_lo, x_hi, y_hi = boxes[0].tolist()
+    assert -1e-3 < x_lo < 0 < 0.005 < x_hi < 0.005 + 1e-3
+    assert -1e-3 < y_lo < 0 < 0.005 < y_hi < 0.005 + 1e-3
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_footprint_pairs_count_the_rays_in_each_rectangle(seed):
+    """The pairs K6's bound counts: every ray inside each triangle's
+    rectangle (from rays sorted by x or by y, in small batches), every
+    triangle for each ray with d_z <= 0, against the dense count."""
+    dirs, v0, v1, v2 = _boundary_scene(seed, 40, 56)
+    dirs[::50, 2] *= -1
+    rays = torch.from_numpy(dirs)
+    boxes = reference.ray_triangle_bounds(reference.ray_triangle_setup(
+        *(torch.from_numpy(a) for a in (v0, v1, v2))))
+    boxes[:3] = torch.tensor([-np.inf, -np.inf, np.inf, np.inf])  # uncullable
+    rx, ry = rays[:, 0] / rays[:, 2], rays[:, 1] / rays[:, 2]
+    good = (rays[:, 2] > 0)[:, None]
+    inside = ((rx[:, None] >= boxes[:, 0]) & (rx[:, None] <= boxes[:, 2])
+              & (ry[:, None] >= boxes[:, 1]) & (ry[:, None] <= boxes[:, 3]))
+    want = int((inside & good).sum()) + int((~good).sum()) * len(boxes)
+    assert reference.ray_triangle_footprint_pairs(rays, boxes) == want
+    assert reference.ray_triangle_footprint_pairs(rays, boxes, pairs_at_once=7) == want
+    assert want < 0.5 * len(dirs) * len(boxes)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from gen3c_tpu_torch.scripts import compare_attention_builds as cab
+from gen3c_tpu_torch.scripts import compare_render_builds as crb
 from gen3c_tpu_torch.scripts import compare_w8a8_builds as cwb
 from gen3c_tpu_torch.kernels import cuda as kcuda
 from gen3c_tpu_torch.scripts import probe_int8_attention as probe
@@ -97,6 +98,28 @@ def test_compare_w8a8_builds_usage_and_shapes():
                       "fc2": (112640, 16384, 4096), "cross_kv": (1024, 1024, 4096),
                       "ragged": (4099, 1000, 4104)}
     assert cwb.QUANT_WIDTHS == (4096, 16384)
+
+
+def test_compare_render_builds_usage_and_scenes():
+    """ptx takes two sources and run one tag; anything else prints the usage.
+    The scenes are chip_smoke.py's (this tree's, loaded by path whichever
+    package the path holds): its ~19k-triangle mesh and the dense one
+    whose boundary covers the frame, and its tolerances for K5."""
+    for argv in ([], ["ptx", "a.cu"], ["run"], ["run", "a", "b"], ["diff", "a"]):
+        with pytest.raises(SystemExit, match="side by side"):
+            crb.main(argv)
+    cs = crb.chip_smoke()
+    assert cs.K6_DENSE_SCENE == {"discs": 64, "bars": 128, "bar_top": 0.0}
+    assert (cs.SPLAT_TOL, cs.SPLAT_MASK_AGREE) == (1e-4, 0.999)
+    assert callable(cs.k6_mesh) and callable(cs.splat_inputs)
+    assert crb.OUT_DIR.parts == ("outputs", "render_builds")
+
+
+def test_compare_render_builds_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal without a card")
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        crb.main(["run", "cpu"])
 
 
 def test_time_fast_chunk_usage():
