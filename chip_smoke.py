@@ -75,6 +75,16 @@ Phases, each printing one JSON line of its own numbers:
              collective moved, peak GiB and launches (K1cp, K1ring +
              K1merge, K1ag). The ranks share the card and their collectives
              pass through host memory: none of these is a multi-card time
+ 16 moge     MoGe ViT-L (fp32, seeded weights) on a seeded 704x1280 image
+             through moge_infer, the single-image path's depth source: s,
+             peak GiB, its fp32 attention's launches (K1vit, 24), and the
+             same call on the CPU: head output, mask and recovered shift
+ 17 t5       the T5 encoder at t5-11b's full width (seeded bf16 weights) on
+             2 x 512 ids: s and peak GiB; a 2-layer full-width cut held to
+             the CPU (fp32 products, TF32 off); the encoder freed after
+ 18 checkpoint  a 2-block GEN3C-7B-width net written as model.pt and as
+             dit.npz and loaded back through build_gen3c_model, bits equal;
+             a prompt encoder without its files raises
 Every bf16 attention case of phase 3 also prints its launches by body
 (kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
 registers, stack and spill bytes (ptxas -v, the build log) and dynamic
@@ -204,6 +214,17 @@ CP_TIMEOUT_S = 700  # the cp phase's two ranks, together
 # and memory one rank's allocator keeps cached is lost to the other, so
 # without a cap the two reserve more than the card has
 CP_MEMORY_FRACTION = 0.45
+T5_LEN = 512  # the prompt encoder's padded length
+T5_PADDED_AFTER = 300  # the second prompt's tokens
+T5_CUT_LAYERS = 2
+# the 2-layer t5-11b cut, card against CPU, both fp32 products (TF32 off):
+# |delta| relative to mean |cpu|; other summation orders only
+T5_CUT_TOL = {"max": 1e-2, "mean": 1e-4}
+# MoGe ViT-L's head output, card against CPU, fp32 (cuDNN TF32 off in its
+# convolutions), relative to mean |cpu|
+MOGE_TOL = {"max": 1e-2, "mean": 1e-4}
+MOGE_FIT_TOL = 1e-2  # the recovered focal and shift, card against CPU, relative
+CKPT_BLOCKS = 2  # the checkpoint round trip's depth at 7B width
 
 
 def emit(phase: str, **numbers) -> None:
@@ -1289,6 +1310,9 @@ def phase_kernels() -> dict:
     tol32 = {"max": ATTN_F32_TOL, "mean": ATTN_F32_TOL}
     results["K1_f32"] = _attention_case("K1 fp32 D=24 ragged", (2, 1000, 4, 24), (2, 1000, 4, 24),
                                         torch.float32, tol32, gen)
+    # MoGe ViT-L's attention at 704x1280 (fit to 378x700: 27 x 50 patches + cls)
+    results["K1vit"] = _attention_case("K1vit MoGe ViT-L self-attention (fp32)", (1, 1351, 16, 64),
+                                       (1, 1351, 16, 64), torch.float32, tol32, gen)
     results["K1_bf16_d24"] = _attention_case("K1 bf16 D=24 ragged", (2, 1000, 4, 24),
                                              (2, 333, 4, 24), bf16, ATTN_TOL, gen, time_it=False)
     torch.cuda.empty_cache()
@@ -1967,6 +1991,219 @@ def phase_chain() -> dict:
     return res
 
 
+def _cut_rel_err(a: torch.Tensor, ref: torch.Tensor) -> dict:
+    m = ref.float().abs().mean()
+    d = (a.float().cpu() - ref.float()).abs()
+    return {"max": (d.max() / m).item(), "mean": (d.mean() / m).item()}
+
+
+def phase_t5() -> dict:
+    """The T5 encoder stack at t5-11b's full width (24 layers, d_model
+    1024, 128 x 128 heads, d_ff 65,536; seeded bf16 weights) on 2 x 512
+    seeded ids, the second prompt padded after 300: seconds and peak; then
+    a 2-layer full-width cut of the same weights on the card and on the CPU
+    (fp32 products, TF32 off on both), held to T5_CUT_TOL; the encoder is
+    freed after."""
+    import dataclasses
+
+    from gen3c_tpu_torch.models.t5 import T5_11B, T5Encoder
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("T5: TF32 is on for fp32 matmuls; the encoder's products need it off")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, T5_11B.vocab_size, (2, T5_LEN)))
+    mask = torch.ones(2, T5_LEN, dtype=torch.long)
+    mask[1, T5_PADDED_AFTER:] = 0
+    with torch.device("meta"):
+        enc = T5Encoder(T5_11B)
+    t0 = time.perf_counter()
+    enc = enc.to_empty(device="cuda").init_random(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in enc.parameters())
+    enc(ids.cuda(), mask.cuda())  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = enc(ids.cuda(), mask.cuda())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res = {"layers": T5_11B.num_layers, "d_model": T5_11B.d_model, "heads": T5_11B.num_heads,
+           "d_ff": T5_11B.d_ff, "params": n_params, "dtype": str(T5_11B.dtype),
+           "tokens": list(ids.shape), "init_s": init_s, "encode_s": times,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "finite": bool(torch.isfinite(out).all().item()), "out_shape": list(out.shape)}
+    del out
+    cut_cfg = dataclasses.replace(T5_11B, num_layers=T5_CUT_LAYERS)
+    state = {k: v for k, v in enc.state_dict().items()
+             if not k.startswith("layers.") or int(k.split(".")[1]) < T5_CUT_LAYERS}
+    del enc
+    torch.cuda.empty_cache()
+    with torch.device("meta"):
+        cut_gpu, cut_cpu = T5Encoder(cut_cfg), T5Encoder(cut_cfg)
+    cut_gpu = cut_gpu.to_empty(device="cuda")
+    cut_gpu.load_state_dict(state)
+    cut_cpu = cut_cpu.to_empty(device="cpu")
+    cut_cpu.load_state_dict({k: v.cpu() for k, v in state.items()})
+    del state
+    t0 = time.perf_counter()
+    got = cut_gpu(ids.cuda(), mask.cuda())
+    torch.cuda.synchronize()
+    cut_gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = cut_cpu(ids, mask)
+    cut_cpu_s = time.perf_counter() - t0
+    res.update(cut_layers=T5_CUT_LAYERS, cut_err=_cut_rel_err(got, want), cut_gpu_s=cut_gpu_s,
+               cut_cpu_s=cut_cpu_s)
+    del cut_gpu, cut_cpu, got, want
+    torch.cuda.empty_cache()
+    emit("t5", **res)
+    if not res["finite"] or res["out_shape"] != [2, T5_LEN, T5_11B.d_model]:
+        raise AssertionError(f"T5: {res}")
+    if any(res["cut_err"][k] > T5_CUT_TOL[k] for k in T5_CUT_TOL):
+        raise AssertionError(f"T5: the card and the CPU disagree on the 2-layer cut: {res}")
+    return res
+
+
+def phase_moge() -> dict:
+    """MoGe ViT-L (24 blocks x 1024, 16 x 64 heads, fp32) on a seeded
+    704x1280 image through moge_infer, the depth source of the seed frame
+    and of every AR chunk after the first: seconds, peak and the launches of
+    its fp32 attention (K1vit, 24); then the same call on the CPU with the
+    same weights: the head's output within MOGE_TOL, the masks, and the
+    recovered focal and shift within MOGE_FIT_TOL. (With seeded weights the
+    search's residual is flat near its minimum, so the card's and the CPU's
+    sums, in other orders, may settle a few cells of its last grid apart:
+    10 cells, 1.6e-3, with seed 0 on an H100.)"""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.aux import moge
+
+    from gen3c_tpu_torch.scripts.time_main_path import seeded_moge_params
+
+    cfg = moge.MOGE_VITL
+    params = seeded_moge_params(cfg, 0, "cuda")
+    image = (_seed_image(704, 1280, 3)[0, :, 0].transpose(1, 2, 0) + 1) / 2
+    img = torch.from_numpy(np.ascontiguousarray(image, np.float32))
+    heads = {}
+    infer_head = moge.moge_head
+
+    def keep_head(p, c, taps, hw):
+        out = infer_head(p, c, taps, hw)
+        heads[out.device.type] = out
+        return out
+
+    fits = {}
+    recover = moge.recover_focal_shift
+
+    def keep_fit(points, mask):
+        f, t = recover(points, mask)
+        fits[points.device.type] = (float(f), float(t))
+        return f, t
+
+    moge.moge_head, moge.recover_focal_shift = keep_head, keep_fit
+    try:
+        moge.moge_infer(params, cfg, img.cuda())  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        depth, k, mask = moge.moge_infer(params, cfg, img.cuda())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        depth_cpu, k_cpu, mask_cpu = moge.moge_infer({n: v.cpu() for n, v in params.items()}, cfg,
+                                                     img)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        moge.moge_head, moge.recover_focal_shift = infer_head, recover
+    res = {"width": cfg.width, "depth": cfg.depth, "heads": cfg.heads,
+           "fit": list(moge._fit_resolution(704, 1280, cfg.patch_size, 518 * 518)),
+           "tokens": 1 + 27 * 50, "seconds": seconds, "cpu_seconds": cpu_s, "peak_gib": peak,
+           "launches": launches, "head_err": _cut_rel_err(heads["cuda"], heads["cpu"]),
+           "mask_agree": (mask.cpu() == mask_cpu).float().mean().item(),
+           "valid": mask.float().mean().item(), "focal_shift": fits,
+           "fit_rel_err": max(abs(a - b) / abs(b) for a, b in zip(fits["cuda"], fits["cpu"])),
+           "depth_finite": bool(torch.isfinite(depth[mask]).all().item()),
+           "intrinsics": k.cpu().tolist()}
+    emit("moge", **res)
+    del params, depth, heads
+    torch.cuda.empty_cache()
+    if launches["K1vit"] != cfg.depth or launches["K1"]:
+        raise AssertionError(f"MoGe: fp32 attention launches {launches}, expected {cfg.depth} K1vit")
+    if any(res["head_err"][key] > MOGE_TOL[key] for key in MOGE_TOL) or res["mask_agree"] < 0.999:
+        raise AssertionError(f"MoGe: the card and the CPU disagree: {res}")
+    if res["fit_rel_err"] > MOGE_FIT_TOL or not res["depth_finite"]:
+        raise AssertionError(f"MoGe: recovered shift or depth off: {res}")
+    return res
+
+
+def phase_checkpoint() -> dict:
+    """A checkpoint round trip at GEN3C-7B width, 2 of 28 blocks: the net
+    (seeded bf16 weights) written as the reference's wrapped model.pt and as
+    the JAX package's dit.npz, each loaded back by build_gen3c_model from
+    its own checkpoint_dir, bits equal to the net in memory; and a prompt
+    encoder that cannot load (no transformers or t5-11b files here) raises."""
+    import dataclasses
+
+    from gen3c_tpu_torch.models.convert import convert_dit_state_dict
+    from gen3c_tpu_torch.models.t5 import make_t5_encoder
+    from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET, build_gen3c_model
+    from gen3c_tpu_torch.utils.checkpoint import save_params_npz
+
+    preset = dataclasses.replace(GEN3C_7B_PRESET, dit=dataclasses.replace(
+        GEN3C_7B_PRESET.dit, num_blocks=CKPT_BLOCKS))
+    model, _ = build_gen3c_model(preset, device="cuda", seed=0)
+    _randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
+    state = {k: v.cpu() for k, v in model.net.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="smoke_ckpt_")
+    res = {"blocks": CKPT_BLOCKS, "params": sum(v.numel() for v in state.values()),
+           "dtype": str(preset.dit.dtype)}
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "pt", "GEN3C-Cosmos-7B"))
+        torch.save({"model": {f"net.{k}": v for k, v in state.items()},
+                    "ema": {f"net-{k}".replace(".", "-"): v for k, v in state.items()}},
+                   os.path.join(root, "pt", "GEN3C-Cosmos-7B", "model.pt"))
+        res["write_pt_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        save_params_npz(os.path.join(root, "npz", "gen3c_tpu", "dit.npz"),
+                        convert_dit_state_dict(state, preset.dit, dtype=preset.dit.dtype))
+        res["write_npz_s"] = time.perf_counter() - t0
+        for form in ("pt", "npz"):
+            t0 = time.perf_counter()
+            loaded, _ = build_gen3c_model(preset, device="cuda", seed=5,
+                                          checkpoint_dir=os.path.join(root, form))
+            torch.cuda.synchronize()
+            res[f"load_{form}_s"] = time.perf_counter() - t0
+            got = loaded.net.state_dict()
+            res[f"{form}_bits_equal"] = set(got) == set(state) and all(
+                torch.equal(got[k].cpu(), v) for k, v in state.items())
+            del loaded, got
+            torch.cuda.empty_cache()
+        res["bytes"] = {f: sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in
+                               os.walk(os.path.join(root, f)) for n in ns) for f in ("pt", "npz")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    try:
+        make_t5_encoder("jax", checkpoint_dir=root, device="cuda")
+        res["prompt_encoder_error"] = None
+    except (ImportError, FileNotFoundError) as e:
+        res["prompt_encoder_error"] = f"{type(e).__name__}: {str(e)[:160]}"
+    emit("checkpoint", **res)
+    if not (res["pt_bits_equal"] and res["npz_bits_equal"]):
+        raise AssertionError(f"checkpoint round trip changed the weights: {res}")
+    if res["prompt_encoder_error"] is None:
+        raise AssertionError("a prompt encoder without its files loaded")
+    return res
+
+
 def _train_batch(cfg, T, H, W, ctx_len, seed):
     """One synthetic clip (B=1) drawn on the CPU from ``seed``."""
     gen = torch.Generator().manual_seed(seed)
@@ -2307,6 +2544,9 @@ def main(argv=None) -> int:
     fast_launches = phase_fast()["launches"]
     phase_fast_parity()
     phase_chain()
+    moge_launches = phase_moge()["launches"]
+    phase_t5()
+    phase_checkpoint()
     train_launches = phase_train()["k4_by_forward"]
     lora_launches = phase_lora_band_train()["launches"]
     phase_train_parity()
@@ -2362,6 +2602,9 @@ def main(argv=None) -> int:
             "scripts/sweep_attention.py:32", kern["P2"]["launches"], kern["P2"], body="mma_sync"),
     ] + [row(p1["name"], "mma_probe.cu", "scripts/probe_int8_attention.py:59", p1["launches"], p1)
          for p1 in kern["P1"]]
+    table.append(row("K1vit MoGe ViT-L self-attention (fp32)", "attention.cu",
+                     "gen3c_tpu/aux/moge.py:159", moge_launches["K1vit"], kern["K1vit"],
+                     body="fp32"))
     # the cp phase's kernels, at its shard shapes (cp = 2), launches of rank 0's runs
     cp_launch = {name: run["rank"][0]["launches"] for name, run in cp_runs.items()}
     k1cp = next(r for r in kern["K1cp"] if r["cp"] == CP_RANKS and r["band"] is None)

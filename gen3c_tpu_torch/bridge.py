@@ -10,7 +10,8 @@ must have been given that structure (``quantize_dit_``) before loading. ``vae_st
 params are already keyed by the reference names. ``train_params_from_jax``
 carries a training tree across, the logvar head and its {"net", "logvar"}
 wrapper included; ``lora_state_from_jax`` the LoRA adapters. All take numpy-valued
-trees (``jax.device_get`` output), so this module needs no JAX.
+trees (``jax.device_get`` output, or the numpy and bf16 torch leaves of
+``utils.checkpoint.load_params_npz_tree``), so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch
 
 
 def _a(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # a bf16 leaf of utils.checkpoint.load_params_npz_tree
+        return x
     arr = np.array(x)
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: torch cannot wrap it
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)

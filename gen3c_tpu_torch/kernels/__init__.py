@@ -13,6 +13,8 @@
   K4   attention backward        (splash/flash backward, dit.py:464-470 and :508, reached
                                   from gen3c_tpu/training/train_step.py:233)
   K4band  band attention backward (the splash backward under K3's mask, dit.py:459-470)
+  K1vit  MoGe's ViT self-attention  (gen3c_tpu/aux/moge.py:159-173, XLA), fp32: the
+                                 attention.cu fp32 body on a card
   K5   forward-warp splat        (gen3c_tpu/ops/geometry.py:205-316)
   K6   nearest ray-triangle hit  (gen3c_tpu/ops/raycast.py:97-140)
   K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59), one pass a row
@@ -78,7 +80,7 @@ __all__ = [
 
 launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K3lse": 0, "K4": 0, "K4band": 0, "K5": 0, "K6": 0,
                  "K7q": 0, "K7": 0, "P1": 0, "P2": 0, "K1cp": 0, "K1ag": 0, "K1ring": 0,
-                 "K1merge": 0}
+                 "K1merge": 0, "K1vit": 0}
 # K4's launches split by the forward they differentiate (K1 self-, K2 cross-attention)
 k4_launches_by_forward = {"K1": 0, "K2": 0}
 # the bf16 attention family's launches by body (cuda.attention_route)
@@ -105,8 +107,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     kernel_id names the TPU kernel this call stands in for ("K1" for
     self-attention, "K2" for cross-attention, "K1cp" for a Ulysses rank's
-    heads, "K1ag" for a query shard over all-gathered keys); it selects the
-    launch count. band=(hw, window, prefix) is the temporal band of K3 (see
+    heads, "K1ag" for a query shard over all-gathered keys, "K1vit" for
+    MoGe's ViT); it selects the launch count. band=(hw, window, prefix) is the temporal band of K3 (see
     ``attention_reference``); a forward-only "K1" call with a band counts as
     K3, a "K1cp" call as K1cp with or without one.
 

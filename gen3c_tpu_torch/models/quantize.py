@@ -77,13 +77,16 @@ def linear_weight(module: nn.Module, dtype: torch.dtype) -> torch.Tensor:
 
 
 @torch.no_grad()
-def quantize_dit_(net: nn.Module, act_quant: bool = False) -> nn.Module:
+def quantize_dit_(net: nn.Module, act_quant: bool = False, structure_only: bool = False
+                  ) -> nn.Module:
     """Replace, in place and one layer at a time, every large linear of a
     GeneralDIT with a QuantLinear, freeing each source weight as it goes
     (quantize.py ``quantize_dit_params_inplace``). The layers are those
     the JAX package quantizes: the {"w"} linears with >= _MIN_SIZE
     elements (x_embedder, the timestep MLP, every q/k/v/out, fc1, fc2; the
-    final linear only if it is that large)."""
+    final linear only if it is that large). structure_only: put empty
+    QuantLinears in their place (on the weights' device, ``meta`` too),
+    for a pre-quantized checkpoint to load into."""
     targets = [name for name, mod in net.named_modules()
                if isinstance(mod, nn.Linear) and name.endswith(_QUANTIZABLE_SUFFIXES)
                and mod.weight.numel() >= _MIN_SIZE]
@@ -91,10 +94,12 @@ def quantize_dit_(net: nn.Module, act_quant: bool = False) -> nn.Module:
         parent_name, _, attr = name.rpartition(".")
         parent = net.get_submodule(parent_name)
         lin = getattr(parent, attr)
-        codes, scale = quantize_linear(lin.weight)
-        q = QuantLinear(lin.in_features, lin.out_features, act_quant, device=codes.device)
-        q.weight.copy_(codes)
-        q.scale.copy_(scale)
+        q = QuantLinear(lin.in_features, lin.out_features, act_quant, device=lin.weight.device)
+        if not structure_only:
+            codes, scale = quantize_linear(lin.weight)
+            q.weight.copy_(codes)
+            q.scale.copy_(scale)
+            del codes, scale
         setattr(parent, attr, q)
-        del lin, codes, scale
+        del lin
     return net

@@ -16,6 +16,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from gen3c_tpu_torch import kernels
 from gen3c_tpu_torch.pipelines.gen3c_pipeline import synchronize
 from gen3c_tpu_torch.utils import log
 
@@ -38,8 +39,14 @@ def run_chunked_generation(
     ``use_start_frame_idx`` renders the window [start, end) of a
     per-frame cache (``Cache4D``) from its own source frames.
 
-    ``timings``, if given, receives per-chunk seconds: "render" (cache
-    render), "update" (depth + update_cache) and "generate".
+    ``timings``, if given, receives lists with one entry a chunk:
+    "render" (cache render), "generate", "pipeline" (the chunk's
+    ``pipeline.last_timings``: prompt, seed and warp encodes, every denoise
+    step, decode), "launches" (kernel launches by id from the render to
+    the end of generate) and "peak_gib" (the device's peak from the
+    chunk's start, None on the CPU); and from the second chunk on "depth"
+    (the estimator on the last frame) and "update" (``update_cache``, the
+    depth alignment included).
     """
     chunk = pipeline.model.chunk_size
     t_total = w2cs.shape[1]
@@ -47,9 +54,20 @@ def run_chunked_generation(
         raise ValueError(f"{t_total} frames do not chain in chunks of {chunk}")
     num_iters = (t_total - 1) // (chunk - 1)
     timings = {} if timings is None else timings
-    for key in ("render", "update", "generate"):
+    for key in ("render", "depth", "update", "generate", "pipeline", "launches", "peak_gib"):
         timings.setdefault(key, [])
     dev = cache.device
+
+    def chunk_start():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        return dict(kernels.launch_counts)
+
+    def chunk_end(before):
+        timings["pipeline"].append(pipeline.last_timings)
+        timings["launches"].append({k: n - before[k] for k, n in kernels.launch_counts.items()})
+        timings["peak_gib"].append(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                                   if dev.type == "cuda" else None)
 
     def render(start: int, end: int):
         t0 = time.perf_counter()
@@ -67,19 +85,25 @@ def run_chunked_generation(
         return video
 
     log.info(f"Generating frames 0 - {chunk}")
+    before = chunk_start()
     warp_images, warp_masks = render(0, chunk)
     all_warps = [warp_images.cpu().numpy()] if save_buffer else []
     video = generate(seed_frames, warp_images, warp_masks)
     del warp_images, warp_masks
+    chunk_end(before)
 
     for it in range(1, num_iters):
         start = it * (chunk - 1)
         end = start + chunk
         log.info(f"Generating frames {start} - {end}")
         last = video[-1].astype(np.float32) / 255.0  # (H, W, 3) in [0, 1]
+        before = chunk_start()
         if update_cache_with_depth is not None:
             t0 = time.perf_counter()
             pred_depth, _, _ = update_cache_with_depth(last)
+            synchronize(dev)
+            timings["depth"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
             cache.update_cache(
                 new_image=torch.from_numpy((last.transpose(2, 0, 1)[None] * 2 - 1).astype(np.float32)),
                 new_depth=torch.from_numpy(np.asarray(pred_depth, np.float32)[None, None]),
@@ -94,6 +118,7 @@ def run_chunked_generation(
         seed = (last.transpose(2, 0, 1)[None, :, None] * 2 - 1).astype(np.float32)
         video_new = generate(seed, warp_images, warp_masks)
         del warp_images, warp_masks
+        chunk_end(before)
         video = np.concatenate([video, video_new[1:]], axis=0)
     return video, all_warps
 

@@ -2,8 +2,10 @@
 
 "gen3c_7b" is GEN3C-Cosmos-7B at full width (28 blocks x 4096 channels,
 32 heads x 128, bf16 DiT, fp32 CV8x8x8 VAE); "gen3c_tiny" is the same
-topology at test size in fp32. No checkpoint loading yet: weights are a
-seeded random init drawn on the target device. ``apply_perf_preset``
+topology at test size in fp32. ``build_gen3c_model`` loads the weights
+the JAX factory loads, in its order (``checkpoint_dir`` layout below), and
+draws a seeded random init on the target device, with a warning, for a
+part it finds no checkpoint of. ``apply_perf_preset``
 expands ``--perf_preset fast`` (W8A8, band attention, step caching,
 guidance interval) as the JAX package does; ``add_perf_flags``,
 ``check_ported`` and ``build_from_args`` serve the CLIs.
@@ -26,11 +28,14 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from gen3c_tpu_torch.bridge import dit_state_from_jax
+from gen3c_tpu_torch.models.convert import dit_state_for_net
 from gen3c_tpu_torch.models.dit import DiTConfig, GeneralDIT
 from gen3c_tpu_torch.models.gen3c import Gen3CModel
 from gen3c_tpu_torch.models.quantize import quantize_dit_
 from gen3c_tpu_torch.models.vae import CV8x8x8, CausalVAE, VAEConfig, VideoTokenizer
 from gen3c_tpu_torch.parallel import mesh
+from gen3c_tpu_torch.utils import checkpoint as ckpt
 from gen3c_tpu_torch.utils import log
 
 
@@ -93,14 +98,6 @@ GEN3C_TINY_PRESET = Gen3CPreset(
 
 PRESETS = {p.name: p for p in (GEN3C_7B_PRESET, GEN3C_TINY_PRESET)}
 
-# checkpoint files the JAX factory would load; the port cannot yet
-_CHECKPOINT_FILES = (
-    os.path.join("GEN3C-Cosmos-7B", "model.pt"),
-    os.path.join("gen3c_tpu", "dit.npz"),
-    os.path.join("gen3c_tpu", "vae.npz"),
-    "Cosmos-Tokenize1-CV8x8x8-720p",
-)
-
 
 def parse_parallel(parallel: str) -> Tuple[int, Optional[int]]:
     """(cfg, cp) of a strategy name: "cp" -> (1, None: every rank), "cfg2"
@@ -145,17 +142,27 @@ def build_gen3c_model(
     cp_attn: Optional[str] = None,
     dist_backend: Optional[str] = None,
 ) -> Tuple[Gen3CModel, Gen3CPreset]:
-    """Build a Gen3CModel with seeded random weights on ``device`` (a bare
-    "cuda": cuda:$LOCAL_RANK).
+    """Build a Gen3CModel on ``device`` (a bare "cuda": cuda:$LOCAL_RANK),
+    loading weights from ``checkpoint_dir`` as the JAX factory does
+    (gen3c_tpu/pipelines/factory.py:179-267), first found first:
+
+      DiT  <dir>/gen3c_tpu/dit_{int8,w8a8}.npz  pre-quantized, when quantizing
+           <dir>/gen3c_tpu/dit.npz              native (JAX parameter tree)
+           <dir>/GEN3C-Cosmos-7B/model.pt       the reference's torch pickle
+      VAE  <dir>/gen3c_tpu/vae.npz              native (reference names)
+           <dir>/Cosmos-Tokenize1-CV8x8x8-720p/{encoder,decoder}.jit + mean_std.pt
+
+    A part with none of its files gets a seeded random init (``seed``),
+    with a warning. Loading is strict: a key that is neither a parameter
+    nor accounted for (``models.convert``) raises, and so does a missing
+    one.
 
     dtype overrides the preset's DiT dtype (bf16 for 7B, fp32 for tiny);
     the VAE stays fp32. quantize: False, "int8" (weight-only) or "w8a8"
     (int8 weights and activations); the DiT is quantized after the build,
-    layer by layer on the device, as the JAX factory does (:333-341).
-    attn_temporal_window sets the DiT's band self-attention (K3). A
-    checkpoint_dir that holds real weights raises: loading them is not
-    ported yet, and silently ignoring them would change what the run
-    means.
+    layer by layer on the device, as the JAX factory does (:333-341),
+    unless it was loaded pre-quantized. attn_temporal_window sets the
+    DiT's band self-attention (K3).
 
     num_devices > 1: this process is one rank of a job of that many
     (``torchrun``'s environment; ``parallel.mesh.maybe_distributed_init``
@@ -175,12 +182,6 @@ def build_gen3c_model(
                          f"'ulysses'")
     if isinstance(preset, str):
         preset = PRESETS[preset]
-    if checkpoint_dir:
-        found = [f for f in _CHECKPOINT_FILES if os.path.exists(os.path.join(checkpoint_dir, f))]
-        if found:
-            raise NotImplementedError(
-                f"checkpoint loading is not ported yet (found {found} in {checkpoint_dir})"
-            )
     if dtype is not None:
         preset = dataclasses.replace(preset, dit=dataclasses.replace(preset.dit, dtype=dtype))
     if cp_attn is not None:
@@ -210,20 +211,16 @@ def build_gen3c_model(
         groups = mesh.make_groups(cfg=cfg_n, cp=cp_n, backend=dist_backend)
         log.info(f"parallel denoising over {num_devices} ranks: cfg={cfg_n} x cp={cp_n}"
                  + (f" ({preset.dit.cp_attn_impl} self-attention)" if cp_n > 1 else ""))
-    log.warning(f"No checkpoint loading in this port; RANDOM init ({preset.name}, seed {seed}).")
-
     gen = torch.Generator(device=device).manual_seed(seed)
-    with torch.device("meta"):
-        net = GeneralDIT(preset.dit)
-        vae = CausalVAE(preset.vae)
-    net = net.to_empty(device=device).init_random(gen)
-    vae = vae.to_empty(device=device).init_random(gen)
-    if quantize:
+    net, prequantized = _acquire_dit(preset, checkpoint_dir, quantize, device, gen, seed)
+    vae, latent_mean, latent_std = _acquire_vae(preset, checkpoint_dir, device, gen)
+    if quantize and not prequantized:
         log.info(f"quantizing DiT weights to int8 ({quantize})")
         quantize_dit_(net, act_quant=quantize == "w8a8")
     net.eval()
     vae.eval()
     tokenizer = VideoTokenizer(vae, pixel_chunk_duration=preset.chunk_size,
+                               latent_mean=latent_mean, latent_std=latent_std,
                                spatial_resolution=(preset.height, preset.width))
     model = Gen3CModel(
         net=net,
@@ -234,6 +231,67 @@ def build_gen3c_model(
         groups=groups,
     )
     return model, preset
+
+
+def _acquire_dit(preset: Gen3CPreset, checkpoint_dir: Optional[str], quantize, device, gen,
+                 seed: int) -> Tuple[GeneralDIT, bool]:
+    """The DiT on ``device`` from the first checkpoint found, else a random
+    init from ``gen``; and whether it came pre-quantized."""
+    with torch.device("meta"):
+        net = GeneralDIT(preset.dit)
+    if checkpoint_dir:
+        native_q = os.path.join(checkpoint_dir, "gen3c_tpu", f"dit_{quantize}.npz")
+        if quantize and os.path.exists(native_q):
+            quantize_dit_(net, act_quant=quantize == "w8a8", structure_only=True)
+            net = net.to_empty(device=device)
+            net.load_state_dict(dit_state_from_jax(ckpt.load_params_npz_tree(native_q)))
+            log.info(f"Loaded pre-quantized DiT from {native_q}")
+            return net, True
+        native = os.path.join(checkpoint_dir, "gen3c_tpu", "dit.npz")
+        torch_dit = os.path.join(checkpoint_dir, "GEN3C-Cosmos-7B", "model.pt")
+        if os.path.exists(native):
+            state = dit_state_from_jax(ckpt.load_params_npz_tree(native))
+            log.info(f"Loaded DiT weights from {native}")
+        elif os.path.exists(torch_dit):
+            state = dit_state_for_net(ckpt.load_torch_dit_checkpoint(torch_dit),
+                                      net.state_dict().keys())
+            log.info(f"Converted DiT weights from {torch_dit}")
+        else:
+            state = None
+        if state is not None:
+            net = net.to_empty(device=device)
+            net.load_state_dict(state)
+            return net, False
+    log.warning(f"No DiT checkpoint found; RANDOM init ({preset.name}, seed {seed}). "
+                "Generated videos will be noise-quality.")
+    return net.to_empty(device=device).init_random(gen), False
+
+
+def _acquire_vae(preset: Gen3CPreset, checkpoint_dir: Optional[str], device, gen):
+    """(the VAE on ``device``, latent mean, latent std) from the first
+    checkpoint found, else a random init from ``gen`` and no statistics."""
+    with torch.device("meta"):
+        vae = CausalVAE(preset.vae)
+    vae = vae.to_empty(device=device)
+    state = mean = std = None
+    if checkpoint_dir:
+        native = os.path.join(checkpoint_dir, "gen3c_tpu", "vae.npz")
+        vae_dir = os.path.join(checkpoint_dir, "Cosmos-Tokenize1-CV8x8x8-720p")
+        if os.path.exists(native):
+            state = ckpt.vae_state_dict(ckpt.load_flat_npz(native))
+            log.info(f"Loaded VAE weights from {native}")
+        elif os.path.isdir(vae_dir):
+            state, mean, std = ckpt.load_torchscript_tokenizer(vae_dir)
+            log.info(f"Converted VAE weights from {vae_dir}")
+    if state is None:
+        log.warning("No VAE checkpoint found; RANDOM init.")
+        return vae.init_random(gen), None, None
+    vae.load_state_dict(state)
+    lat_t = (preset.chunk_size - 1) // preset.vae.temporal_compression + 1
+    c = preset.vae.latent_channels
+    mean, std = (None if x is None else x.reshape(1, c, -1, 1, 1)[:, :, :lat_t]
+                 for x in (mean, std))
+    return vae, mean, std
 
 
 def apply_perf_preset(args) -> None:
@@ -306,7 +364,6 @@ def check_ported(args) -> None:
         "--step_cache_block_span": getattr(args, "step_cache_block_span", None) is not None,
         "--step_cache_span_dtype": getattr(args, "step_cache_span_dtype", "bf16") != "bf16",
         "--solver": getattr(args, "solver", "euler") != "euler",
-        "--enable_prompt_encoder": not getattr(args, "disable_prompt_encoder", True),
     }
     for flag, used in unported.items():
         if used:
@@ -333,6 +390,32 @@ def build_from_args(args) -> Tuple[Gen3CModel, Gen3CPreset]:
                                       cp_attn=args.cp_attn)
     args.device = str(model.device)
     return model, preset
+
+
+def add_prompt_encoder_flags(p) -> None:
+    """gen3c_tpu's prompt-encoder flags: --t5_backend and
+    --enable_prompt_encoder / --disable_prompt_encoder (the default)."""
+    p.add_argument("--t5_backend", type=str, default="jax", choices=["jax", "torch"],
+                   help="the prompt encoder's T5 stack: jax = this package's encoder on "
+                        "--device, torch = transformers' T5EncoderModel")
+    p.add_argument("--disable_prompt_encoder", action="store_true", default=True)
+    p.add_argument("--enable_prompt_encoder", dest="disable_prompt_encoder",
+                   action="store_false",
+                   help="encode the prompts with T5-11B from <checkpoint_dir>/google-t5/t5-11b "
+                        "or the local Hugging Face cache (needs transformers); default: zeros")
+
+
+def build_text_encoder(args, device: Union[str, torch.device]):
+    """The prompt encoder ``--enable_prompt_encoder`` asks for, on
+    ``device``: ``models.t5.make_t5_encoder(--t5_backend)``, its weights
+    from <checkpoint_dir>/google-t5/t5-11b or the local Hugging Face cache
+    (missing files or ``transformers`` raise, naming what is missing); or
+    None, zero embeddings, without the flag (the CLIs' default)."""
+    if getattr(args, "disable_prompt_encoder", True):
+        return None
+    from gen3c_tpu_torch.models.t5 import make_t5_encoder
+
+    return make_t5_encoder(getattr(args, "t5_backend", "jax"), args.checkpoint_dir, device=device)
 
 
 def validate_num_frames(num_video_frames: int, chunk_size: int) -> None:

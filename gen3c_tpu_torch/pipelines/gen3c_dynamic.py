@@ -53,11 +53,7 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_video_frames", type=int, default=121)
     p.add_argument("--fps", type=int, default=24)
     p.add_argument("--seed", type=int, default=1)
-    p.add_argument("--t5_backend", type=str, default="jax", choices=["jax", "torch"],
-                   help="used only with the prompt encoder, which is not ported yet")
-    p.add_argument("--disable_prompt_encoder", action="store_true", default=True)
-    p.add_argument("--enable_prompt_encoder", dest="disable_prompt_encoder",
-                   action="store_false", help="not ported yet")
+    factory.add_prompt_encoder_flags(p)
     p.add_argument("--trajectory", type=str, default="none", choices=sorted(TRAJECTORY_TYPES))
     p.add_argument("--camera_rotation", type=str, default="center_facing",
                    choices=sorted(CAMERA_ROTATIONS))
@@ -115,7 +111,8 @@ def demo(args, built: Optional[tuple] = None, record: Optional[dict] = None) -> 
     model, preset = built if built is not None else factory.build_from_args(args)
     factory.validate_num_frames(args.num_video_frames, preset.chunk_size)
     pipeline = Gen3cPipeline(
-        model=model, guidance=args.guidance, num_steps=args.num_steps, seed=args.seed,
+        model=model, text_encoder=factory.build_text_encoder(args, model.device),
+        guidance=args.guidance, num_steps=args.num_steps, seed=args.seed,
         step_cache_interval=args.step_cache_interval,
         guidance_interval=tuple(args.guidance_interval) if args.guidance_interval else None,
         cfg_rescale=args.cfg_rescale)

@@ -39,11 +39,7 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--npz_path", type=str, required=True)
     p.add_argument("--prompt", type=str, default="")
     p.add_argument("--negative_prompt", type=str, default="")
-    p.add_argument("--t5_backend", type=str, default="jax", choices=["jax", "torch"],
-                   help="used only with the prompt encoder, which is not ported yet")
-    p.add_argument("--disable_prompt_encoder", action="store_true", default=True)
-    p.add_argument("--enable_prompt_encoder", dest="disable_prompt_encoder",
-                   action="store_false", help="not ported yet")
+    factory.add_prompt_encoder_flags(p)
     p.add_argument("--video_save_name", type=str, default="output")
     p.add_argument("--solver", default="euler", choices=("euler", "dpm2m", "res2ab"),
                    help="only euler is ported")
@@ -95,7 +91,8 @@ def demo(args, built: Optional[tuple] = None, record: Optional[dict] = None) -> 
     model, preset = built if built is not None else factory.build_from_args(args)
     factory.validate_num_frames(args.num_video_frames, preset.chunk_size)
     pipeline = Gen3cPipeline(
-        model=model, guidance=args.guidance, num_steps=args.num_steps, seed=args.seed,
+        model=model, text_encoder=factory.build_text_encoder(args, model.device),
+        guidance=args.guidance, num_steps=args.num_steps, seed=args.seed,
         step_cache_interval=args.step_cache_interval,
         guidance_interval=tuple(args.guidance_interval) if args.guidance_interval else None,
         cfg_rescale=args.cfg_rescale)

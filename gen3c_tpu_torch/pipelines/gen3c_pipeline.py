@@ -1,7 +1,7 @@
 """Gen3cPipeline: one generation chunk, end to end (port of
 gen3c_tpu/pipelines/gen3c_pipeline.py).
 
-  prompt -> T5 embedding (zeros while the prompt encoder is not ported)
+  prompt -> T5 embedding (the text encoder's, or zeros without one)
   seed frames -> condition latent (zero-padded chunk encode)
   warped buffers + masks -> per-buffer VAE latents (pose conditioning)
   -> EDM-Euler denoise with batched CFG -> VAE decode -> uint8 frames
@@ -41,6 +41,9 @@ def video_to_uint8(video: torch.Tensor) -> np.ndarray:
 @dataclasses.dataclass
 class Gen3cPipeline:
     model: Gen3CModel
+    # encode_prompts(prompt) -> (embeddings, mask), e.g. models.t5's
+    # T5TextEncoder; None: zero embeddings (DummyT5TextEncoder)
+    text_encoder: Optional[object] = None
     guidance: float = 1.0
     num_steps: int = 35
     step_cache_interval: int = 1
@@ -51,9 +54,10 @@ class Gen3cPipeline:
     seed: int = 0
 
     def __post_init__(self):
-        # zero text embeddings until the T5 encoder is ported
-        self.text_encoder = DummyT5TextEncoder()
-        # seconds of the last generate(): encode_condition, encode_warps,
+        if self.text_encoder is None:
+            self.text_encoder = DummyT5TextEncoder()
+        # seconds of the last generate(): encode_prompt (the prompt and the
+        # negative prompt), encode_condition, encode_warps,
         # denoise_steps (one {"seconds", "cfg", "refresh"} per step: whether
         # the step ran CFG or condition-only, and whether it ran the network
         # or reused the step cache), decode; and its final latent
@@ -77,8 +81,11 @@ class Gen3cPipeline:
         """Generate one chunk: ((T, H, W, 3) uint8 frames, prompt)."""
         dev = self.model.device
         timings = {"denoise_steps": []}
+        t0 = time.perf_counter()
         t5_emb = self._encode_prompt(prompt)
         neg_emb = self._encode_prompt(negative_prompt) if negative_prompt else None
+        synchronize(dev)
+        timings["encode_prompt"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         frames = torch.as_tensor(image_frames).to(device=dev, dtype=torch.float32)

@@ -86,11 +86,7 @@ def create_parser() -> argparse.ArgumentParser:
                    help="(N-1) %% (chunk-1) must be 0")
     p.add_argument("--fps", type=int, default=24)
     p.add_argument("--seed", type=int, default=1)
-    p.add_argument("--t5_backend", type=str, default="jax", choices=["jax", "torch"],
-                   help="used only with the prompt encoder, which is not ported yet")
-    p.add_argument("--disable_prompt_encoder", action="store_true", default=True)
-    p.add_argument("--enable_prompt_encoder", dest="disable_prompt_encoder",
-                   action="store_false", help="not ported yet")
+    factory.add_prompt_encoder_flags(p)
     p.add_argument("--trajectory", type=str, default="left", choices=sorted(TRAJECTORY_TYPES))
     p.add_argument("--camera_rotation", type=str, default="center_facing",
                    choices=sorted(CAMERA_ROTATIONS))
@@ -104,7 +100,9 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_input_path", type=str, default=None,
                    help="JSONL with one {\"prompt\",\"visual_input\"} per line")
     p.add_argument("--depth_source", type=str, default="auto",
-                   choices=["auto", "moge", "file", "heuristic"])
+                   choices=["auto", "moge_jax", "moge", "file", "heuristic"],
+                   help="auto: --depth_path, else MoGe from $GEN3C_MOGE_CHECKPOINT "
+                        "(moge_jax), else the moge package, else the heuristic")
     p.add_argument("--depth_path", type=str, default=None)
     p.add_argument("--timings_json", type=str, default=None,
                    help="write the run's seconds, kernel launches and peak memory "
@@ -129,12 +127,17 @@ def create_parser() -> argparse.ArgumentParser:
 def demo(args, record: Optional[dict] = None) -> str:
     """Run the CLI; returns the path of the saved video. ``record`` (and the
     file ``--timings_json``) receives the seconds of the model build
-    ("build": weights and quantization) and of the whole call
-    ("entry_point"), the device's peak GiB ("peak_gib", None on the CPU)
-    and, for the last input, ``run_chunked_generation``'s seconds per chunk
-    ("render", "update", "generate") and in all ("chunked_generation"), the
-    last chunk's ``pipeline.last_timings`` ("pipeline") and the kernel
-    launches of the generation ("launches")."""
+    ("build": weights and quantization), of the text encoder's
+    ("build_text_encoder") and of the whole call ("entry_point"), the
+    device's peak GiB ("peak_gib", None on the CPU) and, for the last
+    input: the seed frame's depth estimate ("seed_depth"), the device's
+    peak before the first chunk ("setup_peak_gib"),
+    ``run_chunked_generation``'s lists with an entry a chunk ("render",
+    "depth", "update", "generate", "pipeline": the chunk's encodes, denoise
+    steps and decode, "chunk_launches", "chunk_peak_gib") and its seconds in
+    all ("chunked_generation"), the frames generated ("frames"), the kernel
+    launches from the seed frame's depth to the last chunk ("launches") and
+    the video's save ("save")."""
     record = {} if record is None else record
     t0 = time.perf_counter()
     model, preset = factory.build_from_args(args)
@@ -142,8 +145,12 @@ def demo(args, record: Optional[dict] = None) -> str:
     synchronize(device)
     record["build"] = time.perf_counter() - t0
     factory.validate_num_frames(args.num_video_frames, preset.chunk_size)
+    t1 = time.perf_counter()
+    text_encoder = factory.build_text_encoder(args, device)
+    record["build_text_encoder"] = time.perf_counter() - t1
     pipeline = Gen3cPipeline(
-        model=model, guidance=args.guidance, num_steps=args.num_steps, seed=args.seed,
+        model=model, text_encoder=text_encoder, guidance=args.guidance,
+        num_steps=args.num_steps, seed=args.seed,
         step_cache_interval=args.step_cache_interval,
         step_cache_threshold=args.step_cache_threshold,
         guidance_interval=tuple(args.guidance_interval) if args.guidance_interval else None,
@@ -158,8 +165,12 @@ def demo(args, record: Optional[dict] = None) -> str:
         save_path = _generate_one(args, preset, pipeline, device, d.get("visual_input"),
                                   d.get("prompt", ""), name, record)
     record["entry_point"] = time.perf_counter() - t0
-    record["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2 ** 30
-                          if device.type == "cuda" else None)
+    if device.type == "cuda":
+        record["peak_gib"] = max([torch.cuda.max_memory_allocated(device) / 2 ** 30,
+                                  record.get("setup_peak_gib", 0.0)]
+                                 + [p for p in record.get("chunk_peak_gib", []) if p])
+    else:
+        record["peak_gib"] = None
     if args.timings_json and process_rank() == 0:
         with open(args.timings_json, "w") as f:
             json.dump(record, f)
@@ -171,8 +182,11 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name,
     h, w = preset.height, preset.width
     image_b3thw = read_image_bcthw(image_path, h, w)
     image_hwc01 = (image_b3thw[0, :, 0].transpose(1, 2, 0) + 1.0) / 2.0
-    estimator = make_depth_estimator(args.depth_source, args.depth_path)
+    estimator = make_depth_estimator(args.depth_source, args.depth_path, device=str(device))
+    launches = dict(kernels.launch_counts)
+    t0 = time.perf_counter()
     depth, intrinsics, _ = estimator(image_hwc01)
+    record["seed_depth"] = time.perf_counter() - t0
     w2c0 = np.eye(4, dtype=np.float32)
     cache = Cache3DBuffer(
         frame_buffer_max=args.frame_buffer_max,
@@ -196,7 +210,8 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name,
         center_depth=1.0,
         device=device,
     )
-    launches = dict(kernels.launch_counts)
+    if device.type == "cuda":
+        record["setup_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
     timings = {}
     t0 = time.perf_counter()
     video, all_warps = run_chunked_generation(
@@ -208,14 +223,18 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name,
         save_buffer=args.save_buffer,
         timings=timings,
     )
+    chunk_peaks, chunk_launches = timings.pop("peak_gib"), timings.pop("launches")
     record.update(timings, chunked_generation=time.perf_counter() - t0,
-                  pipeline=pipeline.last_timings,
+                  chunk_peak_gib=chunk_peaks, chunk_launches=chunk_launches,
+                  frames=int(video.shape[0]),
                   launches={k: n - launches[k] for k, n in kernels.launch_counts.items()})
     if process_rank() != 0:  # every rank holds the video; rank 0 writes it
         return ""
+    t0 = time.perf_counter()
     final_video = compose_buffer_video(video, all_warps, h, w)
     save_path = save_video(final_video, args.fps,
                            os.path.join(args.video_save_folder, f"{save_name}.mp4"))
+    record["save"] = time.perf_counter() - t0
     log.info(f"Saved video to {save_path}")
     return save_path
 

@@ -392,15 +392,21 @@ def test_single_image_cli_foreground_masking_matches_jax(tmp_path, monkeypatch, 
 @pytest.mark.parametrize("flag", [["--solver", "dpm2m"], ["--enable_prompt_encoder"],
                                   ["--parallel", "cp2tp2"], ["--parallel", "tp"],
                                   ["--parallel", "cfg2tp2"]])
-def test_new_clis_refuse_unported_flags(cli, flag):
+def test_new_clis_refuse_unported_flags(cli, flag, tmp_path):
     """Flags of paths the port does not have yet raise NotImplementedError
     naming the flag (multi-device cp and cfg2 and the offload flags are
-    ported: tests/test_torch_parallel*.py)."""
+    ported: tests/test_torch_parallel*.py). The prompt encoder is ported:
+    without the t5-11b files it raises an error naming them."""
     import importlib
 
     module = importlib.import_module(f"gen3c_tpu_torch.pipelines.{cli}")
     first = ["--npz_path", "x.npz"] if cli == "gen3c_multiview" else []
     args = module.create_parser().parse_args(first + flag + ["--device", "cpu"])
+    if flag[0] == "--enable_prompt_encoder":
+        args.model_preset, args.checkpoint_dir = "gen3c_tiny", str(tmp_path)
+        with pytest.raises(FileNotFoundError, match="google-t5/t5-11b"):
+            module.demo(args)
+        return
     with pytest.raises(NotImplementedError, match=flag[0]):
         module.demo(args)
 

@@ -249,11 +249,20 @@ def test_cli_fast_preset_subprocess(tmp_path):
                                   ["--enable_prompt_encoder", "--t5_backend", "torch"],
                                   ["--enable_prompt_encoder"], ["--parallel", "tp"],
                                   ["--parallel", "cp2tp2sp"], ["--parallel", "cfg2cp2tp2"]])
-def test_cli_unported_flags_raise(flag):
+def test_cli_unported_flags_raise(flag, tmp_path):
     """Flags of paths the port does not have yet raise NotImplementedError
-    naming the flag (the tensor-parallel strategies even at one device)."""
+    naming the flag (the tensor-parallel strategies even at one device).
+    The prompt encoder is ported: without the t5-11b files it raises an
+    error naming them (tests/test_torch_t5.py has it load)."""
     from gen3c_tpu_torch.pipelines import gen3c_single_image as cli
 
+    if flag[0] == "--enable_prompt_encoder":
+        args = cli.create_parser().parse_args(
+            ["--input_image_path", "x.png", *flag, "--device", "cpu", "--model_preset",
+             "gen3c_tiny", "--checkpoint_dir", str(tmp_path)])
+        with pytest.raises(FileNotFoundError, match="google-t5/t5-11b"):
+            cli.demo(args)
+        return
     args = cli.create_parser().parse_args(["--input_image_path", "x.png", *flag])
     with pytest.raises(NotImplementedError, match=flag[0]):
         cli.demo(args)
@@ -286,8 +295,9 @@ def test_port_never_imports_jax():
     """Every module of the port imports, and its paths run (generation, a
     train step, the Trainer, a LoRA step with the band, the training CLI on
     a packaged clip, the dynamic and multiview CLIs with foreground
-    masking, a two-rank context-parallel run under torchrun), without
-    importing jax, jaxlib or any gen3c_tpu module."""
+    masking, checkpoints written and loaded, the T5 stack, the single-image
+    AR chain with MoGe depth, a two-rank context-parallel run under
+    torchrun), without importing jax, jaxlib or any gen3c_tpu module."""
     code = r"""
 import importlib, pkgutil, sys
 import numpy as np, torch
@@ -366,6 +376,42 @@ with tempfile.TemporaryDirectory() as root:
     gen3c_multiview.demo(gen3c_multiview.create_parser().parse_args(
         ["--npz_path", f"{root}/mv.npz", "--frame_buffer_max", "2"] + common), record=record)
     assert len(record["selections"]) == 1 and len(record["selections"][0]) == 2
+# checkpoints: the tiny net written as dit.npz and as a wrapped model.pt, each
+# loaded back by the factory; the T5 stack; MoGe depth from an npz through the
+# single-image CLI's AR chain (two chunks)
+import os
+from gen3c_tpu_torch.models.convert import convert_dit_state_dict
+from gen3c_tpu_torch.utils.checkpoint import save_params_npz
+from gen3c_tpu_torch.pipelines import gen3c_single_image
+with tempfile.TemporaryDirectory() as root:
+    state = model.net.state_dict()
+    save_params_npz(f"{root}/npz/gen3c_tpu/dit.npz", convert_dit_state_dict(state, p.dit))
+    os.makedirs(f"{root}/pt/GEN3C-Cosmos-7B")
+    torch.save({"model": {f"net.{k}": v for k, v in state.items()}},
+               f"{root}/pt/GEN3C-Cosmos-7B/model.pt")
+    for d in ("npz", "pt"):
+        loaded, _ = build_gen3c_model("gen3c_tiny", device="cpu", checkpoint_dir=f"{root}/{d}")
+        assert all(torch.equal(v, state[k]) for k, v in loaded.net.state_dict().items())
+    from gen3c_tpu_torch.models.t5 import T5Config, T5Encoder
+    enc = T5Encoder(T5Config(vocab_size=20, d_model=16, num_layers=1, num_heads=2, d_kv=4,
+                             d_ff=8, dtype=torch.float32)).init_random(gen)
+    assert torch.isfinite(enc(torch.zeros(1, 5, dtype=torch.long), torch.ones(1, 5))).all()
+    from gen3c_tpu_torch.aux import moge
+    sd = {k: v.numpy() for k, v in moge.init_moge_params(gen, moge.MOGE_TINY).items()}
+    sd["head.out.bias"] = np.array([0.0, 0.0, 2.0, 4.0], np.float32)
+    np.savez(f"{root}/moge.npz", **sd)
+    os.environ["GEN3C_MOGE_CHECKPOINT"] = f"{root}/moge.npz"
+    moge.MOGE_VITL = moge.MOGE_TINY
+    from PIL import Image
+    Image.fromarray((rng.uniform(size=(p.height, p.width, 3)) * 255).astype(np.uint8)).save(
+        f"{root}/in.png")
+    record = {}
+    gen3c_single_image.demo(gen3c_single_image.create_parser().parse_args(
+        ["--input_image_path", f"{root}/in.png", "--depth_source", "moge_jax", "--device", "cpu",
+         "--model_preset", "gen3c_tiny", "--num_steps", "1", "--num_video_frames",
+         str(2 * p.chunk_size - 1), "--video_save_folder", root, "--checkpoint_dir",
+         f"{root}/npz"]), record=record)
+    assert len(record["depth"]) == 1 and record["seed_depth"] > 0
 # a context-parallel run: two ranks (torchrun, gloo), ring attention, each
 # rank checking its own modules
 import os, subprocess

@@ -6,6 +6,7 @@ without a card.
 """
 
 import json
+import os
 import tempfile
 from types import SimpleNamespace
 
@@ -19,7 +20,7 @@ from gen3c_tpu_torch.kernels import cuda as kcuda
 from gen3c_tpu_torch.scripts import probe_int8_attention as probe
 from gen3c_tpu_torch.scripts import profile_lora_step as prof
 from gen3c_tpu_torch.scripts import sweep_attention as sweep
-from gen3c_tpu_torch.scripts import time_fast_chunk as tfc
+from gen3c_tpu_torch.scripts import time_main_path as tmp
 
 NS_A = "_GLOBAL__N__ee55c35c_16_attention_bwd_cu_87cbb326"
 NS_B = "_GLOBAL__N__0123abcd_16_attention_bwd_cu_deadbeef"
@@ -123,31 +124,53 @@ def test_compare_render_builds_refuses_to_run_without_a_card():
 
 
 def test_time_fast_chunk_usage():
-    with pytest.raises(SystemExit, match="single-image CLI"):
-        tfc.main([])
+    with pytest.raises(SystemExit, match="single-image main path"):
+        tmp.main([])
 
 
-def test_time_fast_chunk_records_a_cpu_rehearsal(tmp_path, monkeypatch):
-    """The chunk timer through the CLI's entry point on the CPU (tiny preset,
-    one 9-frame chunk, 4 steps): its step kinds and counts, the CLI's
-    ``--timings_json`` file beside it, and its temporary files gone."""
+@pytest.mark.parametrize("flags,frames", [(["--perf_preset", "fast"], 9), ([], 17)])
+def test_time_fast_chunk_records_a_cpu_rehearsal(tmp_path, monkeypatch, flags, frames):
+    """The main-path timer (scripts/time_main_path.py) through the CLI's
+    entry point on the CPU (tiny preset, 4 steps): one fast 9-frame chunk
+    and a two-chunk exact AR run, MoGe (the tiny config behind auto) for
+    the seed frame and between the chunks; each chunk's step kinds and
+    counts, the CLI's ``--timings_json`` file beside it, and its temporary
+    files gone."""
+    from gen3c_tpu_torch.aux import moge
+
     scratch = tmp_path / "tmp"
     scratch.mkdir()
     monkeypatch.setattr(tempfile, "tempdir", str(scratch))
+    monkeypatch.delenv("GEN3C_MOGE_CHECKPOINT", raising=False)
     written = tmp_path / "timings.json"
-    rec = tfc.run("cpu", ["--device", "cpu", "--model_preset", "gen3c_tiny", "--num_steps", "4",
-                          "--num_video_frames", "9", "--timings_json", str(written)])
-    assert rec["device"] == "cpu" and rec["build_s"] > 0 and rec["chunk_s"] > 0
-    # the fast preset at 4 steps: guidance over the first two, no step cached
-    assert [(s["cfg"], s["refresh"]) for s in rec["steps"]] == [(True, True)] * 2 + [(False, True)] * 2
-    assert rec["cfg_refresh_s"]["n"] == 2 and rec["cond_refresh_s"]["n"] == 2
-    assert rec["cached_steps"] == 0 and len(rec["render_s"]) == 1
+    calls = []
+    infer = moge.moge_infer
+    monkeypatch.setattr(moge, "moge_infer", lambda *a, **k: (calls.append(1), infer(*a, **k))[1])
+    rec = tmp.run("cpu", ["--device", "cpu", "--model_preset", "gen3c_tiny", "--num_steps", "4",
+                          "--num_video_frames", str(frames), "--timings_json", str(written)]
+                  + flags)
+    chunks = rec["chunks"]
+    assert rec["device"] == "cpu" and rec["build_s"] > 0 and rec["frames"] == frames
+    assert len(chunks) == len(calls) == (frames - 1) // 8  # MoGe: the seed, then between chunks
+    assert moge.MOGE_VITL.width == 1024 and "GEN3C_MOGE_CHECKPOINT" not in os.environ
+    if flags:  # the fast preset at 4 steps: guidance over the first two, no step cached
+        assert ([(s["cfg"], s["refresh"]) for s in chunks[0]["steps"]]
+                == [(True, True)] * 2 + [(False, True)] * 2)
+        assert chunks[0]["cfg_refresh_s"]["n"] == 2 and chunks[0]["cond_refresh_s"]["n"] == 2
+    else:
+        assert [c["cfg_refresh_s"]["n"] for c in chunks] == [4, 4]
+        assert chunks[0]["depth_s"] is None and chunks[1]["depth_s"] > 0
+        assert chunks[1]["update_s"] > 0 and chunks[1]["render_s"] > 0
+    assert all(c["cached_steps"] == 0 and c["peak_gib"] is None for c in chunks)
     assert rec["launches"]["K7"] == 0 and rec["peak_gib"] is None
-    assert rec["entry_point_s"] > rec["build_s"] + rec["chunk_s"] - 1e-6
+    assert rec["entry_point_s"] > rec["build_s"] + rec["chunked_generation_s"] - 1e-6
     got = json.loads(written.read_text())
-    assert got["build"] == rec["build_s"] and got["chunked_generation"] == rec["chunk_s"]
-    assert [s["seconds"] for s in got["pipeline"]["denoise_steps"]] == [s["s"] for s in rec["steps"]]
-    assert list(scratch.iterdir()) == []  # its image and video are gone
+    assert got["build"] == rec["build_s"] and got["chunked_generation"] == rec["chunked_generation_s"]
+    assert ([s["seconds"] for s in got["pipeline"][-1]["denoise_steps"]]
+            == [s["s"] for s in chunks[-1]["steps"]])
+    # its image, checkpoint and video are gone (torch.optim's first import of
+    # torch._dynamo, in the depth alignment's Adam, leaves its cache directory)
+    assert [p for p in scratch.iterdir() if not p.name.startswith("torchinductor")] == []
 
 
 def _row(key, us, device=False, shapes=(), annotation=False, total=0.0):
