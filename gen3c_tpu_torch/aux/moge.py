@@ -8,8 +8,8 @@ z-shift -> depth and intrinsics.
   * backbone: DINOv2 ViT-L/14 (patch 14, width 1024, depth 24, 16 heads,
     LayerScale, pre-norm blocks, a cls token, the 37 x 37 learned position
     embedding resized bicubically to the input's patch grid); its
-    attention runs ``kernels.attention`` (counted "K1vit"), in fp32 on a
-    card the ``attention.cu`` fp32 body;
+    attention runs ``kernels.attention`` (counted "K1vit"), in fp32: on a
+    card ``attention_f32.cu``, three TF32 products on the tensor cores;
   * head: gen3c_tpu's multi-level fusion (a 1x1 projection per tapped
     layer, summed) and two bilinear x2 upsampling 3x3 convs to 4 channels
     (3 point-map channels and a mask logit);

@@ -13,23 +13,27 @@
   K4   attention backward        (splash/flash backward, dit.py:464-470 and :508, reached
                                   from gen3c_tpu/training/train_step.py:233)
   K4band  band attention backward (the splash backward under K3's mask, dit.py:459-470)
-  K1vit  MoGe's ViT self-attention  (gen3c_tpu/aux/moge.py:159-173, XLA), fp32: the
-                                 attention.cu fp32 body on a card
+  K1vit  MoGe's ViT self-attention  (gen3c_tpu/aux/moge.py:159-173, XLA), fp32: three
+                                 TF32 products on the tensor cores (attention_f32.cu)
   K5   forward-warp splat        (gen3c_tpu/ops/geometry.py:205-316)
   K6   nearest ray-triangle hit  (gen3c_tpu/ops/raycast.py:97-140)
   K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59), one pass a row
   K7   int8 x int8 GEMM + rescale (quantize.py:60-69), TMA + wgmma s8
   P1   mma.sync rate probe       (scripts/probe_int8_attention.py:37-62; ``mma_probe``)
-  P2   K1's tile sweep           (scripts/sweep_attention.py:32-68; ``attention_tiles``)
+  P2   K1's tile sweep           (scripts/sweep_attention.py:32-68; ``attention_point``:
+                                 K1's wgmma forward built at a point of the sweep)
 
 The bf16 attention family (K1, K2, K3, K1cp, K1ag, K3lse, K1ring, the
 training forward with the row logsumexp, K4, K4band) runs
 ``csrc/attention_wgmma.cu`` (TMA + wgmma, its PTX helpers in
 ``csrc/hopper.h``) wherever ``cuda.attention_route`` says a TMA tensor map
-describes the inputs, else the mma.sync bodies: K1, K2, K3 and P2 in
+describes the inputs, else the mma.sync bodies: K1, K2 and K3 in
 ``csrc/attention.cu``; K4, K4band and the training forward in
 ``csrc/attention_bwd.cu``; K1ring is ``attention_bwd.cu`` too and K1merge
-``csrc/attention_merge.cu``; K5 is ``csrc/splat.cu``; K6 is
+``csrc/attention_merge.cu``; an fp32 forward (K1vit, the fp32 tiny
+preset's K1, K2, K3) is ``csrc/attention_f32.cu``; P2 is
+``attention_wgmma.cu``'s forward built at its sweep's points; K5 is
+``csrc/splat.cu``; K6 is
 ``csrc/raycast.cu``; K7q and K7 are ``csrc/w8a8.cu``; P1 is
 ``csrc/mma_probe.cu``. A CUDA tensor launches the compiled kernel (built at
 first use, see ``build``); a CPU tensor runs the plain PyTorch version in
@@ -45,7 +49,7 @@ K3lse, K1ring and the forwards with lse, K4, K4band) by the body
 ``cuda.attention_route`` chose: "wgmma" (TMA + wgmma,
 ``attention_wgmma.cu``) for inputs a TMA tensor map describes, "mma_sync"
 (``attention.cu`` / ``attention_bwd.cu``) for the rest. P2 calls its
-mma.sync tiles by name and takes no route.
+forward by point and takes no route.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ from gen3c_tpu_torch.kernels.reference import (
 )
 
 __all__ = [
-    "attention", "attention_tiles", "splat", "ray_triangle_depth", "quantize_rows",
+    "attention", "attention_point", "splat", "ray_triangle_depth", "quantize_rows",
     "w8a8_matmul", "mma_probe", "ring_fold", "ring_merge", "launch_counts", "route_counts",
     "reset_launch_counts", "attention_reference", "attention_forward_reference", "attention_backward_reference", "splat_reference",
     "ray_triangle_depth_reference", "quantize_rows_reference", "int8_matmul_reference",
@@ -225,18 +229,18 @@ def w8a8_matmul(x: torch.Tensor, qweight: torch.Tensor, wscale: torch.Tensor,
     return out.reshape(*x.shape[:-1], qweight.shape[0])
 
 
-def attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    block_m: int = 64, block_n: int = 64) -> torch.Tensor:
-    """P2: K1's bf16 forward instantiated with block_m queries (block_m / 16
-    warps) and block_n keys per tile, one of ``cuda.TILE_CONFIGS``; (64, 64)
-    is K1's own instantiation. q (B, Lq, H, 128), k/v (B, Lk, H, 128) bf16
-    in any strides with unit stride along D. The tile sweep's kernel: the
-    port's attention always runs K1 (``attention``)."""
-    if not _on_cuda(q, "attention_tiles"):
+def attention_point(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    point: Tuple[int, int, int]) -> torch.Tensor:
+    """P2: K1's forward (``csrc/attention_wgmma.cu``) built at a point of its
+    sweep, (consumer warpgroups, keys per tile, ring stages); (2, 64, 4) is
+    K1's own (``cuda.K1_POINT``), which gives K1's bits. bf16 q (B, Lq, H,
+    D), k/v (B, Lk, H, D) that a TMA tensor map describes. The tile sweep's
+    kernel: the port's attention always runs K1's point (``attention``)."""
+    if not _on_cuda(q, "attention_point"):
         return attention_reference(q, k, v)
     from gen3c_tpu_torch.kernels import cuda
 
-    out = cuda.attention_tiles(q, k, v, block_m, block_n)
+    out = cuda.attention_point(q, k, v, point)
     launch_counts["P2"] += 1
     return out
 

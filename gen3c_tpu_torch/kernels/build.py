@@ -1,12 +1,18 @@
-"""Build the CUDA kernels of ``csrc/`` into one shared library, at first use.
+"""Build the CUDA kernels of ``csrc/`` into a shared library, at first use.
 
 The sources have a plain C interface (no PyTorch or Python headers), so
 ``nvcc`` alone compiles them in seconds and no ``ninja`` is needed; the
 library is loaded with ``ctypes``. Each source compiles to an object in
 its own ``nvcc`` process, all started together, and one more ``nvcc``
-links them. The output goes to ``_build/<hash>/`` next to this file, keyed
-by a hash of the sources and the flags, so an edited source rebuilds and
-an unchanged one is reused. Any failure raises.
+links them. The output goes to ``_build/<key>/`` next to this file, keyed
+by a hash of the sources, the flags, the extra ``-D`` defines and the
+sources built, so an edited source rebuilds and an unchanged one is
+reused. Any failure raises.
+
+``build()`` with no arguments is the kernel library, every source. With
+``forward_only(defines)`` it builds ``attention_wgmma.cu``'s forward alone
+with ``-D`` overrides of its shape into a library of its own: P2's sweep
+points (``kernels.cuda.attention_point``).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -59,10 +66,24 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> dict:
-    """Compile (or reuse) the library. Returns {"path", "seconds",
-    "cached", "log"}; ``log`` holds nvcc's output, ptxas -v included."""
-    out_dir = BUILD_ROOT / source_hash()
+def build_dir(defines: Sequence[str] = (), sources: Optional[Sequence[Path]] = None) -> Path:
+    """Where ``build`` puts the library of ``sources`` (default: every
+    ``.cu``) built with ``defines``."""
+    names = " ".join(p.name for p in _sources(sources))
+    key = f"{source_hash()} {' '.join(defines)} {names}"
+    return BUILD_ROOT / hashlib.sha256(key.encode()).hexdigest()[:16]
+
+
+def _sources(sources: Optional[Sequence[Path]]) -> list:
+    return sorted(CSRC.glob("*.cu")) if sources is None else [Path(p) for p in sources]
+
+
+def build(defines: Sequence[str] = (), sources: Optional[Sequence[Path]] = None) -> dict:
+    """Compile (or reuse) the library of ``sources`` (default: every
+    ``.cu``, the kernel library) with the extra nvcc flags ``defines``.
+    Returns {"path", "seconds", "cached", "log"}; ``log`` holds nvcc's
+    output, ptxas -v included."""
+    out_dir = build_dir(defines, sources)
     lib = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     if lib.exists():
@@ -73,9 +94,9 @@ def build() -> dict:
     tag = os.getpid()
     t0 = time.perf_counter()
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in _sources(sources):
         obj = out_dir / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
     log, failed = "", []
@@ -100,3 +121,13 @@ def build() -> dict:
         raise KernelBuildError(f"nvcc failed with exit codes {failed}:\n{log[-8000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return {"path": str(lib), "seconds": seconds, "cached": False, "log": log}
+
+
+FWD_SOURCE = CSRC / "attention_wgmma.cu"
+FWD_ONLY = "-DGEN3C_ATTN_FWD_ONLY"
+
+
+def forward_only(defines: Sequence[str]) -> dict:
+    """``build``'s arguments for attention_wgmma.cu's forward alone
+    (``FWD_ONLY``) with ``defines`` (``-DGEN3C_FWD_*=...``)."""
+    return {"defines": (*defines, FWD_ONLY), "sources": (FWD_SOURCE,)}

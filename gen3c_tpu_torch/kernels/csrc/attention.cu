@@ -7,9 +7,6 @@
 //       (make_temporal_band_mask, dit.py:370-409, used at :459-460)
 // All compute softmax(q.k^T / sqrt(d)) . v per (batch, head) with the
 // softmax in fp32; K2 is the Lq != Lk case of the same kernel.
-//   P2  scripts/sweep_attention.py:32-68, the splash block-size sweep:
-//       K1's body instantiated with other tiles (attn_fwd_bf16_tiles,
-//       gen3c_attention_bf16_tiles); K1 itself keeps its 64 x 64 tile.
 //
 // K3's band (hw, window, prefix): query token i sees key token j iff
 // |i/hw - j/hw| <= window or j/hw < prefix (frames of hw tokens, t-major
@@ -26,7 +23,9 @@
 // contiguous. Lq and Lk are arbitrary (ragged last tiles are masked); any
 // D <= 128 is zero-padded to the MMA depth inside the kernel.
 //
-// Two kernels:
+// The bf16 mma.sync body: the inputs no TMA tensor map describes
+// (kernels/cuda.py attention_route; attention_wgmma.cu serves the rest; the
+// fp32 forward is attention_f32.cu).
 //   attn_fwd_bf16  bf16 in/out, FlashAttention-2 structure: one CTA per
 //                  (64-query tile, head, batch), four warps of 16 query
 //                  rows each, a loop over 64-key K/V tiles staged in shared
@@ -34,17 +33,15 @@
 //                  on the tensor cores with mma.sync m16n8k16 (bf16 in,
 //                  fp32 accumulate). The scale is applied to the fp32
 //                  logits.
-//   attn_fwd_f32   fp32 in/out on the CUDA cores (one warp per query, 32-key
-//                  tiles), for the fp32 tiny preset: bf16 or TF32 tensor-core
-//                  products would not hold the fp32 tolerance.
+//   attn_fwd_bf16_band  the same restricted to K3's band.
 //
 // What bounds it: at the GEN3C-7B self-attention shape (L = 56,320, D = 128)
 // the work is ~2 * 2 * L^2 * D flop per (batch, head) against ~4 * L * D
 // bytes of q/k/v, far above the card's flop:byte ridge, so the tensor-core
-// rate is the bound. This first version loads tiles synchronously (no
-// cp.async/TMA pipeline) and reads MMA operands with plain 32-bit shared
-// loads instead of ldmatrix; WGMMA, TMA and warp specialisation are left to
-// later work.
+// rate is the bound. This body loads tiles synchronously (no cp.async/TMA
+// pipeline) and reads MMA operands with plain 32-bit shared loads; the
+// TMA + wgmma body (attention_wgmma.cu) serves every input a tensor map
+// describes, so this one serves only the rest.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -155,10 +152,9 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Stage rows [row0, row0 + ROWS) x [0, DP) of one (batch, head) slice into
-// shared memory (row pitch DP + 8), zero-filling rows >= L and dims >= D,
-// with THREADS threads.
-template <int DP, bool VEC, int ROWS = 64, int THREADS = kThreads>
+// Stage rows [row0, row0 + 64) x [0, DP) of one (batch, head) slice into
+// shared memory (row pitch DP + 8), zero-filling rows >= L and dims >= D.
+template <int DP, bool VEC>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
                                           const __nv_bfloat16* base,
                                           long long s_l, int row0, int L,
@@ -166,7 +162,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
   constexpr int kPitch = DP + 8;
   if (VEC) {  // D % 8 == 0 and 16-byte aligned rows: one uint4 per 8 dims
     constexpr int kChunks = DP / 8;
-    for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
+    for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
       const int r = i / kChunks;
       const int c = (i % kChunks) * 8;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -177,7 +173,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
       *reinterpret_cast<uint4*>(smem + r * kPitch + c) = val;
     }
   } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
+    for (int i = threadIdx.x; i < 64 * DP; i += kThreads) {
       const int r = i / DP;
       const int c = i % DP;
       __nv_bfloat16 val = __float2bfloat16(0.f);
@@ -189,19 +185,18 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
   }
 }
 
-// K1's body for a tile of BM queries (BM / 16 warps of 16 rows) and BN keys.
-template <int DP, bool VEC, int BM, int BN>
-__device__ __forceinline__ void attn_fwd_bf16_body(const AttnParams& p) {
-  constexpr int kTileThreads = BM * 2;
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    attn_fwd_bf16(const AttnParams p) {
   constexpr int kPitch = DP + 8;  // +16 bytes: conflict-free fragment reads
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BM * kPitch;
-  __nv_bfloat16* sV = sK + BN * kPitch;
+  __nv_bfloat16* sK = sQ + kBlockM * kPitch;
+  __nv_bfloat16* sV = sK + kBlockN * kPitch;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BM;
+  const int q0 = blockIdx.x * kBlockM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;   // fragment row group
@@ -215,7 +210,7 @@ __device__ __forceinline__ void attn_fwd_bf16_body(const AttnParams& p) {
   const __nv_bfloat16* v =
       static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  load_tile<DP, VEC, BM, kTileThreads>(sQ, q, p.q_sl, q0, p.Lq, p.D);
+  load_tile<DP, VEC>(sQ, q, p.q_sl, q0, p.Lq, p.D);
 
   const float scale_log2 = p.scale * 1.4426950408889634f;
   float o[DP / 8][4];
@@ -226,16 +221,16 @@ __device__ __forceinline__ void attn_fwd_bf16_body(const AttnParams& p) {
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
   float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
 
-  for (int n0 = 0; n0 < p.Lk; n0 += BN) {
+  for (int n0 = 0; n0 < p.Lk; n0 += kBlockN) {
     __syncthreads();  // previous tile fully consumed
-    load_tile<DP, VEC, BN, kTileThreads>(sK, k, p.k_sl, n0, p.Lk, p.D);
-    load_tile<DP, VEC, BN, kTileThreads>(sV, v, p.v_sl, n0, p.Lk, p.D);
+    load_tile<DP, VEC>(sK, k, p.k_sl, n0, p.Lk, p.D);
+    load_tile<DP, VEC>(sV, v, p.v_sl, n0, p.Lk, p.D);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[BN / 8][4];
+    float s[kBlockN / 8][4];
 #pragma unroll
-    for (int t = 0; t < BN / 8; ++t) {
+    for (int t = 0; t < kBlockN / 8; ++t) {
       s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
     }
 #pragma unroll
@@ -244,7 +239,7 @@ __device__ __forceinline__ void attn_fwd_bf16_body(const AttnParams& p) {
       const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * kPitch),
                              ld_u32(qa + 8), ld_u32(qa + 8 * kPitch + 8)};
 #pragma unroll
-      for (int t = 0; t < BN / 8; ++t) {
+      for (int t = 0; t < kBlockN / 8; ++t) {
         const __nv_bfloat16* kb = sK + (t * 8 + g) * kPitch + kk * 16 + tg * 2;
         const uint32_t bb[2] = {ld_u32(kb), ld_u32(kb + 8)};
         mma_16816(s[t], a, bb);
@@ -254,7 +249,7 @@ __device__ __forceinline__ void attn_fwd_bf16_body(const AttnParams& p) {
     // online softmax: scale the fp32 logits, mask keys >= Lk
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int t = 0; t < BN / 8; ++t) {
+    for (int t = 0; t < kBlockN / 8; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n0 + t * 8 + tg * 2 + (e & 1);
@@ -273,7 +268,7 @@ __device__ __forceinline__ void attn_fwd_bf16_body(const AttnParams& p) {
       l_run[i] *= alpha[i];
     }
 #pragma unroll
-    for (int t = 0; t < BN / 8; ++t) {
+    for (int t = 0; t < kBlockN / 8; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float pe = exp2f(s[t][e] - m_run[e >> 1]);
@@ -292,7 +287,7 @@ __device__ __forceinline__ void attn_fwd_bf16_body(const AttnParams& p) {
     // O += P V: the accumulator layout of two adjacent key n-tiles is the
     // A-operand layout of one k16 step, so P never leaves registers.
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
+    for (int j = 0; j < kBlockN / 16; ++j) {
       const uint32_t a[4] = {pack_f32x2(s[2 * j][0], s[2 * j][1]),
                              pack_f32x2(s[2 * j][2], s[2 * j][3]),
                              pack_f32x2(s[2 * j + 1][0], s[2 * j + 1][1]),
@@ -328,19 +323,6 @@ __device__ __forceinline__ void attn_fwd_bf16_body(const AttnParams& p) {
       if (col + 1 < p.D) orow[col + 1] = __float2bfloat16(o[t][2 * i + 1] * inv);
     }
   }
-}
-
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-    attn_fwd_bf16(const AttnParams p) {
-  attn_fwd_bf16_body<DP, VEC, kBlockM, kBlockN>(p);
-}
-
-// P2: K1 with another tile, for the tile sweep (head dim 128, 16-byte rows).
-template <int BM, int BN>
-__global__ void __launch_bounds__(BM * 2)
-    attn_fwd_bf16_tiles(const AttnParams p) {
-  attn_fwd_bf16_body<128, true, BM, BN>(p);
 }
 
 // K3: attn_fwd_bf16 restricted to the key tiles of each query tile's band.
@@ -517,94 +499,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kF32Warps = 8;  // one query per warp
-constexpr int kF32Keys = 32;  // keys per tile: one per lane
-constexpr int kF32MaxD = 128;
-
-__global__ void __launch_bounds__(kF32Warps * 32)
-    attn_fwd_f32(const AttnParams p, const Band band) {
-  __shared__ float sQ[kF32Warps][kF32MaxD];
-  __shared__ float sK[kF32Keys][kF32MaxD + 1];  // +1: lane-per-key reads
-  __shared__ float sV[kF32Keys][kF32MaxD];
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kF32Warps + warp;
-  const bool row_ok = row < p.Lq;
-
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-
-  for (int d = lane; d < kF32MaxD; d += 32) {
-    sQ[warp][d] =
-        (row_ok && d < p.D) ? q[static_cast<long long>(row) * p.q_sl + d] : 0.f;
-  }
-  float acc[kF32MaxD / 32] = {0.f, 0.f, 0.f, 0.f};  // dims lane + 32 i
-  float m_run = -INFINITY;
-  float l_run = 0.f;
-
-  const int q0 = blockIdx.x * kF32Warps;
-  const int q_last = min(q0 + kF32Warps, p.Lq) - 1;
-  int b0, e0, b1, e1;
-  kv_tile_ranges(p, band, q0, q_last, kF32Keys, b0, e0, b1, e1);
-  const int n_tiles = (e0 - b0) + (e1 - b1);
-  const int qf = row / max(band.hw, 1);
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int n0 = (it < e0 - b0 ? b0 + it : b1 + it - (e0 - b0)) * kF32Keys;
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Keys * kF32MaxD; i += kF32Warps * 32) {
-      const int r = i / kF32MaxD;
-      const int c = i % kF32MaxD;
-      const bool ok = n0 + r < p.Lk && c < p.D;
-      sK[r][c] = ok ? k[static_cast<long long>(n0 + r) * p.k_sl + c] : 0.f;
-      sV[r][c] = ok ? v[static_cast<long long>(n0 + r) * p.v_sl + c] : 0.f;
-    }
-    __syncthreads();
-
-    float sc = 0.f;  // lane j scores key n0 + j
-    for (int d = 0; d < p.D; ++d) sc += sQ[warp][d] * sK[lane][d];
-    sc = key_visible(p, band, qf, n0 + lane) ? sc * p.scale : -INFINITY;
-    float mx = sc;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-    const float m_new = fmaxf(m_run, mx);
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet
-    const float alpha = expf(m_run - m_use);
-    const float pj = expf(sc - m_use);
-    float psum = pj;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    }
-    l_run = l_run * alpha + psum;
-    m_run = m_new;
-#pragma unroll
-    for (int i = 0; i < kF32MaxD / 32; ++i) acc[i] *= alpha;
-    for (int j = 0; j < kF32Keys; ++j) {
-      const float pjj = __shfl_sync(0xffffffffu, pj, j);
-#pragma unroll
-      for (int i = 0; i < kF32MaxD / 32; ++i) acc[i] += pjj * sV[j][lane + 32 * i];
-    }
-  }
-  if (band.visited != nullptr && threadIdx.x == 0) {
-    atomicAdd(band.visited, static_cast<unsigned long long>(n_tiles));
-  }
-  if (!row_ok) return;
-  float* orow = static_cast<float*>(p.o) +
-                ((static_cast<long long>(b) * p.Lq + row) * p.H + h) * p.D;
-#pragma unroll
-  for (int i = 0; i < kF32MaxD / 32; ++i) {
-    const int d = lane + 32 * i;
-    if (d < p.D) orow[d] = acc[i] / l_run;
-  }
-}
-
 template <int DP, bool VEC>
 cudaError_t launch_bf16(const AttnParams& p, const Band& band, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kBlockM + 2 * kBlockN) * (DP + 8) *
@@ -628,18 +522,6 @@ cudaError_t dispatch_vec(const AttnParams& p, const Band& band, bool vec,
                          cudaStream_t stream) {
   return vec ? launch_bf16<DP, true>(p, band, stream)
              : launch_bf16<DP, false>(p, band, stream);
-}
-
-template <int BM, int BN>
-cudaError_t launch_tiles(const AttnParams& p, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(BM + 2 * BN) * (128 + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(attn_fwd_bf16_tiles<BM, BN>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lq + BM - 1) / BM, p.H, p.B);
-  attn_fwd_bf16_tiles<BM, BN><<<grid, BM * 2, smem, stream>>>(p);
-  return cudaGetLastError();
 }
 
 AttnParams make_params(const void* q, const void* k, const void* v, void* o,
@@ -686,7 +568,7 @@ bool bad_band(const int* band) {
 // strides: 9 element strides (batch, seq, head) of q, k, v in that order.
 // band: null for full attention, else {hw, window, prefix} (K3).
 // visited: null, or a device counter that each CTA of a band call adds its
-// visited key tiles to (64-key tiles for bf16, 32-key tiles for fp32).
+// visited 64-key tiles to.
 // vec: nonzero when D % 8 == 0 and every row start is 16-byte aligned.
 // Returns a cudaError_t (0 on success).
 extern "C" int gen3c_attention_bf16(const void* q, const void* k, const void* v,
@@ -704,42 +586,4 @@ extern "C" int gen3c_attention_bf16(const void* q, const void* k, const void* v,
   if (D <= 32) return static_cast<int>(dispatch_vec<32>(p, bd, vec != 0, s));
   if (D <= 64) return static_cast<int>(dispatch_vec<64>(p, bd, vec != 0, s));
   return static_cast<int>(dispatch_vec<128>(p, bd, vec != 0, s));
-}
-
-extern "C" int gen3c_attention_f32(const void* q, const void* k, const void* v,
-                                   void* o, const long long* strides, int B,
-                                   int Lq, int Lk, int H, int D, float scale,
-                                   const int* band, void* visited,
-                                   void* stream) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || D <= 0 || D > kF32MaxD ||
-      H > 65535 || B > 65535 || bad_band(band)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const AttnParams p = make_params(q, k, v, o, strides, B, Lq, Lk, H, D, scale);
-  const dim3 grid((Lq + kF32Warps - 1) / kF32Warps, H, B);
-  attn_fwd_f32<<<grid, kF32Warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, make_band(band, visited));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// P2: K1's bf16 forward with a (block_m, block_n) tile of the sweep's list
-// (kernels/cuda.py TILE_CONFIGS); (64, 64) launches K1's own kernel. Head
-// dim 128, 16-byte aligned rows. Returns a cudaError_t (0 on success).
-extern "C" int gen3c_attention_bf16_tiles(const void* q, const void* k, const void* v,
-                                          void* o, const long long* strides, int B,
-                                          int Lq, int Lk, int H, int D, float scale,
-                                          int block_m, int block_n, void* stream) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || D != 128 || H > 65535 || B > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const AttnParams p = make_params(q, k, v, o, strides, B, Lq, Lk, H, D, scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (block_m == 64 && block_n == 64) err = launch_bf16<128, true>(p, make_band(nullptr, nullptr), s);
-  if (block_m == 64 && block_n == 32) err = launch_tiles<64, 32>(p, s);
-  if (block_m == 64 && block_n == 128) err = launch_tiles<64, 128>(p, s);
-  if (block_m == 128 && block_n == 32) err = launch_tiles<128, 32>(p, s);
-  if (block_m == 128 && block_n == 64) err = launch_tiles<128, 64>(p, s);
-  if (block_m == 128 && block_n == 128) err = launch_tiles<128, 128>(p, s);
-  return static_cast<int>(err);
 }

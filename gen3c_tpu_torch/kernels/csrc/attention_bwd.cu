@@ -27,8 +27,10 @@
 // memory to the MMA depth.
 //
 // Kernels (bf16: tensor cores, mma.sync m16n8k16, bf16 in, fp32 accumulate;
-// fp32: CUDA cores, for the fp32 tiny preset, whose tolerance bf16 or TF32
-// products would not hold):
+// fp32: the backward on the CUDA cores, for the fp32 tiny preset, whose
+// tolerance bf16 or single TF32 products would not hold; the fp32 forward
+// with lse is attention_f32.cu's three TF32 products, the body every fp32
+// forward runs, which the fp32 entries here call):
 //   attn_fwd_lse_bf16  K1's FlashAttention-2 forward (a copy of attn_fwd_bf16 in
 //                      attention.cu, which stays byte-for-byte untouched: its
 //                      code generation is fragile) that also writes lse.
@@ -42,9 +44,9 @@
 //   attn_bwd_dq_bf16   one CTA per (64-query tile, head, batch), looping over
 //                      64-key tiles: S = Q K^T, dP = dO V^T, dQ += dS K.
 //   attn_bwd_delta     Delta in fp32, one warp per (batch, query, head) row.
-//   *_f32              the same three passes on the CUDA cores, one warp per
-//                      query (forward, dQ) or per key (dK/dV), 32-wide tiles;
-//                      they take the band below too (hw 0: full attention).
+//   *_f32              the backward's passes on the CUDA cores, one warp per
+//                      query (dQ) or per key (dK/dV), 32-wide tiles; they
+//                      take the band below too (hw 0: full attention).
 //
 // K4-band: the same forward and backward under K3's temporal band (the
 // splash kernel's VJP with make_temporal_band_mask, gen3c_tpu/models/
@@ -83,6 +85,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// attention_f32.cu: the fp32 forward with lse
+extern "C" int gen3c_attention_f32_lse(const void* q, const void* k, const void* v, void* o,
+                                       float* lse, int B, int Lq, int Lk, int H, int D,
+                                       float scale, const int* band, int q_off, int k_off,
+                                       void* stream);
 
 namespace {
 
@@ -702,8 +710,8 @@ __global__ void __launch_bounds__(256) attn_bwd_delta(const Params p) {
 
 // ------------------------------- fp32 (CUDA cores) -------------------------------
 
-constexpr int kF32Warps = 8;  // one query (forward, dQ) or key (dK/dV) per warp
-constexpr int kF32Tile = 32;  // keys (forward, dQ) or queries (dK/dV) per tile
+constexpr int kF32Warps = 8;  // one query (dQ) or key (dK/dV) per warp
+constexpr int kF32Tile = 32;  // keys (dQ) or queries (dK/dV) per tile
 constexpr int kF32MaxD = 128;
 
 // Stage kF32Tile rows of a and b into sA/sB (row pitch kF32MaxD + 1), zero past L or D.
@@ -721,81 +729,8 @@ __device__ __forceinline__ void load_f32_pair(float (*sA)[kF32MaxD + 1],
 }
 
 // The f32 kernels take the band too (hw <= 0: full attention): the CTA's 8
-// queries (forward, dQ) visit band_key_tiles' 32-key tiles, its 8 keys
-// (dK/dV) band_query_tiles' 32-query tiles, and every element is masked.
-// The forward also serves K1ring in fp32: it places its queries and keys at
-// band.q_off + i and band.k_off + j (0 outside a ring step), and a row that
-// sees no key writes out 0 and lse -inf.
-__global__ void __launch_bounds__(kF32Warps * 32) attn_fwd_lse_f32(const Params p,
-                                                                   const Band band) {
-  __shared__ float sQ[kF32Warps][kF32MaxD];
-  __shared__ float sK[kF32Tile][kF32MaxD + 1];  // +1: lane-per-key reads
-  __shared__ float sV[kF32Tile][kF32MaxD + 1];
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kF32Warps + warp;
-  const bool row_ok = row < p.Lq;
-  const long long s_l = static_cast<long long>(p.H) * p.D;
-
-  const float* q = static_cast<const float*>(p.q) + row_offset(p, b, h, p.Lq, 0);
-  const float* k = static_cast<const float*>(p.k) + row_offset(p, b, h, p.Lk, 0);
-  const float* v = static_cast<const float*>(p.v) + row_offset(p, b, h, p.Lk, 0);
-  for (int d = lane; d < kF32MaxD; d += 32) {
-    sQ[warp][d] = (row_ok && d < p.D) ? q[static_cast<long long>(row) * s_l + d] : 0.f;
-  }
-  float acc[kF32MaxD / 32] = {0.f, 0.f, 0.f, 0.f};  // dims lane + 32 i
-  float m_run = -INFINITY;
-  float l_run = 0.f;
-
-  const int q0 = blockIdx.x * kF32Warps;
-  int b0, e0, b1, e1;
-  band_key_tiles(band, p.Lk, band.q_off + q0, band.q_off + min(q0 + kF32Warps, p.Lq) - 1,
-                 kF32Tile, b0, e0, b1, e1, band.k_off);
-  const int n_tiles = (e0 - b0) + (e1 - b1);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int n0 = (it < e0 - b0 ? b0 + it : b1 + it - (e0 - b0)) * kF32Tile;
-    __syncthreads();
-    load_f32_pair(sK, sV, k, v, s_l, n0, p.Lk, p.D);
-    __syncthreads();
-    float sc = 0.f;  // lane j scores key n0 + j
-    for (int d = 0; d < p.D; ++d) sc += sQ[warp][d] * sK[lane][d];
-    const bool vis = n0 + lane < p.Lk &&
-                     band_tokens_visible(band, band.q_off + row, band.k_off + n0 + lane);
-    sc = vis ? sc * p.scale : -INFINITY;
-    float mx = sc;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(m_run, mx);
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet
-    const float alpha = expf(m_run - m_use);
-    const float pj = expf(sc - m_use);
-    float psum = pj;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l_run = l_run * alpha + psum;
-    m_run = m_new;
-#pragma unroll
-    for (int i = 0; i < kF32MaxD / 32; ++i) acc[i] *= alpha;
-    for (int j = 0; j < kF32Tile; ++j) {
-      const float pjj = __shfl_sync(0xffffffffu, pj, j);
-#pragma unroll
-      for (int i = 0; i < kF32MaxD / 32; ++i) acc[i] += pjj * sV[j][lane + 32 * i];
-    }
-  }
-  if (!row_ok) return;
-  float* orow = static_cast<float*>(p.out) + row_offset(p, b, h, p.Lq, row);
-  const bool any_key = l_run > 0.f;  // else m_run is -inf and the lse below -inf
-#pragma unroll
-  for (int i = 0; i < kF32MaxD / 32; ++i) {
-    const int d = lane + 32 * i;
-    if (d < p.D) orow[d] = any_key ? acc[i] / l_run : 0.f;
-  }
-  if (lane == 0) p.lse[(static_cast<long long>(b) * p.H + h) * p.Lq + row] = m_run + logf(l_run);
-}
-
+// queries (dQ) visit band_key_tiles' 32-key tiles, its 8 keys (dK/dV)
+// band_query_tiles' 32-query tiles, and every element is masked.
 __global__ void __launch_bounds__(kF32Warps * 32) attn_bwd_dq_f32(const Params p,
                                                                   const Band band) {
   __shared__ float sQ[kF32Warps][kF32MaxD];
@@ -1009,10 +944,10 @@ int fwd_lse(const void* q, const void* k, const void* v, void* out, float* lse, 
   p.H = H;
   p.D = D;
   p.scale = scale;
-  if (!bf16) {
-    attn_fwd_lse_f32<<<dim3((Lq + kF32Warps - 1) / kF32Warps, H, B), kF32Warps * 32, 0, s>>>(
-        p, bd);
-    return static_cast<int>(cudaGetLastError());
+  if (!bf16) {  // attention_f32.cu's body (it counts no visited tiles)
+    const int band[3] = {bd.hw, bd.window, bd.prefix};
+    return gen3c_attention_f32_lse(q, k, v, out, lse, B, Lq, Lk, H, D, scale,
+                                   bd.hw > 0 ? band : nullptr, bd.q_off, bd.k_off, s);
   }
   const bool vv = vec != 0;
   if (D <= 32) {
@@ -1031,7 +966,7 @@ int fwd_lse(const void* q, const void* k, const void* v, void* out, float* lse, 
 
 // Forward with logsumexp. q (B, Lq, H, D), k/v (B, Lk, H, D), out like q, all
 // contiguous; lse (B, H, Lq) fp32. bf16 != 0: bf16 tensors (tensor cores),
-// else fp32 (CUDA cores). vec: nonzero when D % 8 == 0 and every tensor is
+// else fp32 (attention_f32.cu, three TF32 products). vec: nonzero when D % 8 == 0 and every tensor is
 // 16-byte aligned (bf16 only). band: null for full attention, else {hw,
 // window, prefix} (K4-band's forward); visited: null, or one device counter
 // that a bf16 band call adds its visited 64-key tiles to. Returns a

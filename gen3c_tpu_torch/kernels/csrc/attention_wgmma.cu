@@ -4,7 +4,8 @@
 // TMA tensor map can describe (kernels/cuda.py ``attention_route``: head dim a
 // multiple of 8 up to 128, 16-byte aligned base and strides). They replace,
 // for those inputs, the mma.sync bodies of attention.cu and attention_bwd.cu,
-// which stay for the rest and for P2's tile sweep:
+// which stay for the rest. P2, K1's tile sweep, is this forward built at
+// other points of its shape (the forward's constants below):
 //   attn_fwd_wgmma<DP, kBand, kLse>  K1, K2, K1cp, K1ag (no band, no lse), K3
 //       and K1cp under the band (band), the training forward of K4 and
 //       K1ring's full-attention step (lse), K3lse and K1ring under the band
@@ -84,22 +85,49 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kConsumerThreads = 256;               // two consumer warpgroups
-constexpr int kThreads = kConsumerThreads + 128;    // and one producer warpgroup
-// The forward's register split (setmaxnreg). ptxas budgets a 384-thread
+constexpr int kConsumerThreads = 256;               // dQ, dK/dV: two consumer warpgroups
+constexpr int kThreads = kConsumerThreads + 128;    // dQ: and one producer warpgroup
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+constexpr int kBlockM = 128;  // dQ: queries per CTA; dK/dV: keys per CTA
+constexpr int kBlockN = 64;   // dQ: keys per tile
+constexpr int kBlockQ = 32;   // dK/dV: queries per tile
+constexpr int kDqStages = 3;
+
+// The forward's own shape, compile-time constants that -D overrides: its
+// consumer warpgroups (64 queries each), keys per tile, ring stages and
+// register split (setmaxnreg). The defaults are K1's; P2, K1's sweep
+// (scripts/sweep_attention.py), builds this source at other points with
+// GEN3C_ATTN_FWD_ONLY (the forward entry alone). ptxas budgets a 384-thread
 // CTA at 168 registers a thread either way; with setmaxnreg in a kernel it
 // uses all 168, without it fewer (the forward 134-147 at D 128, and K3 then
 // ran 11% slower: PERF.md). The dQ kernel takes none: without it K4 ran 3%
 // faster (dQ at 155 registers) and K4-band 2.5% slower.
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-static_assert(128 * kProducerRegs + kConsumerThreads * kConsumerRegs <= kThreads * 168,
+#ifndef GEN3C_FWD_WARPGROUPS
+#define GEN3C_FWD_WARPGROUPS 2
+#endif
+#ifndef GEN3C_FWD_BLOCK_N
+#define GEN3C_FWD_BLOCK_N 64
+#endif
+#ifndef GEN3C_FWD_STAGES
+#define GEN3C_FWD_STAGES 4
+#endif
+#ifndef GEN3C_FWD_PRODUCER_REGS
+#define GEN3C_FWD_PRODUCER_REGS 40
+#endif
+#ifndef GEN3C_FWD_CONSUMER_REGS
+#define GEN3C_FWD_CONSUMER_REGS 232
+#endif
+constexpr int kFwdConsumerThreads = 128 * GEN3C_FWD_WARPGROUPS;
+constexpr int kFwdThreads = kFwdConsumerThreads + 128;  // and one producer warpgroup
+constexpr int kFwdConsumerWarps = kFwdConsumerThreads / 32;
+constexpr int kFwdBlockM = 64 * GEN3C_FWD_WARPGROUPS;  // queries per CTA
+constexpr int kFwdBlockN = GEN3C_FWD_BLOCK_N;          // keys per tile
+constexpr int kFwdStages = GEN3C_FWD_STAGES;
+constexpr int kProducerRegs = GEN3C_FWD_PRODUCER_REGS, kConsumerRegs = GEN3C_FWD_CONSUMER_REGS;
+static_assert(kFwdBlockN == 64 || kFwdBlockN == 128, "the forward takes 64 or 128 keys a tile");
+static_assert(128 * kProducerRegs + kFwdConsumerThreads * kConsumerRegs <=
+                  kFwdThreads * (65536 / kFwdThreads / 8 * 8),
               "the register split must fit what the CTA launches with");
-constexpr int kConsumerWarps = kConsumerThreads / 32;
-constexpr int kBlockM = 128;  // forward, dQ: queries per CTA; dK/dV: keys per CTA
-constexpr int kBlockN = 64;   // forward, dQ: keys per tile
-constexpr int kBlockQ = 32;   // dK/dV: queries per tile
-constexpr int kFwdStages = 4;
-constexpr int kDqStages = 3;
 constexpr int kDkdvStages = 4;
 constexpr int kRowBytes = 128;  // one 64-dim half of a row
 constexpr float kLog2e = 1.4426950408889634f;
@@ -163,8 +191,8 @@ __device__ __forceinline__ bool in_ranges(int t, int b0, int e0, int b1, int e1)
 template <int DP>
 struct FwdSmem {
   static constexpr int kHalves = DP / 64;
-  static constexpr int kQHalf = kBlockM * kRowBytes;
-  static constexpr int kKvHalf = kBlockN * kRowBytes;
+  static constexpr int kQHalf = kFwdBlockM * kRowBytes;
+  static constexpr int kKvHalf = kFwdBlockN * kRowBytes;
   static constexpr int kStage = 2 * kHalves * kKvHalf;  // K halves, then V halves
   static constexpr int kQ = kHalves * kQHalf;
   static constexpr int kBars = (1 + 2 * kFwdStages) * 8;
@@ -172,7 +200,7 @@ struct FwdSmem {
 };
 
 template <int DP, bool kBand, bool kLse>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kFwdThreads, 1)
     attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const FwdParams p, const Band band) {
   using S = FwdSmem<DP>;
@@ -187,13 +215,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockM;
+  const int q0 = blockIdx.x * kFwdBlockM;
   const int q_off = kBand ? band.q_off : 0;
   const int k_off = kBand ? band.k_off : 0;
-  int b0 = 0, e0 = (p.Lk + kBlockN - 1) / kBlockN, b1 = 0, e1 = 0;
+  int b0 = 0, e0 = (p.Lk + kFwdBlockN - 1) / kFwdBlockN, b1 = 0, e1 = 0;
   if constexpr (kBand) {
-    band_key_tiles(band, p.Lk, q_off + q0, q_off + min(q0 + kBlockM, p.Lq) - 1, kBlockN, b0, e0,
-                   b1, e1, k_off);
+    band_key_tiles(band, p.Lk, q_off + q0, q_off + min(q0 + kFwdBlockM, p.Lq) - 1, kFwdBlockN,
+                   b0, e0, b1, e1, k_off);
   }
   const int n_tiles = (e0 - b0) + (e1 - b1);
 
@@ -201,15 +229,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_init(q_full, 1);
     for (int s = 0; s < kFwdStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
+      mbar_init(&empty[s], kFwdConsumerWarps);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumerThreads) {  // producer
+  if (threadIdx.x >= kFwdConsumerThreads) {  // producer
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == kConsumerThreads) {
+    if (threadIdx.x == kFwdConsumerThreads) {
       tma_prefetch_map(&tq);
       tma_prefetch_map(&tk);
       tma_prefetch_map(&tv);
@@ -218,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kFwdStages;
         mbar_wait(&empty[s], ((it / kFwdStages) & 1) ^ 1);
-        const int n0 = nth_tile(it, b0, e0, b1) * kBlockN;
+        const int n0 = nth_tile(it, b0, e0, b1) * kFwdBlockN;
         unsigned char* stage = sKV + s * S::kStage;
         mbar_arrive_expect_tx(&full[s], S::kStage);
         load_rows<DP>(stage, S::kKvHalf, &tk, p.order_k, &full[s], h, n0, b);
@@ -243,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int wq_last = min(wq0 + 64, p.Lq) - 1;
       wb0 = we0 = wb1 = we1 = 0;
       if (active) {
-        band_key_tiles(band, p.Lk, q_off + wq0, q_off + wq_last, kBlockN, wb0, we0, wb1, we1,
+        band_key_tiles(band, p.Lk, q_off + wq0, q_off + wq_last, kFwdBlockN, wb0, we0, wb1, we1,
                        k_off);
       }
       qf_lo = (q_off + wq0) / band.hw;
@@ -268,22 +296,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(&full[s], (it / kFwdStages) & 1);
       if (active && in_ranges(tile, wb0, we0, wb1, we1)) {
         ++visited;
-        const int n0 = tile * kBlockN;
+        const int n0 = tile * kFwdBlockN;
         const uint32_t q_at = opaque(q_base);
         const uint32_t k_base = smem_u32(sKV + s * S::kStage);
         const uint32_t v_base = k_base + S::kHalves * S::kKvHalf;
 
-        // S = Q K^T, 64 rows x 64 keys
-        float sc[32];
+        // S = Q K^T, 64 rows x kFwdBlockN keys
+        float sc[kFwdBlockN / 2];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+        for (int i = 0; i < kFwdBlockN / 2; ++i) sc[i] = 0.f;
         fence_regs(sc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;
-          wgmma_ss_n64(sc, wgmma_desc(q_at + (kk / 4) * S::kQHalf + off, 16, 1024),
-                       wgmma_desc(k_base + (kk / 4) * S::kKvHalf + off, 16, 1024), kk > 0);
+          if constexpr (kFwdBlockN == 64) {
+            wgmma_ss_n64(sc, wgmma_desc(q_at + (kk / 4) * S::kQHalf + off, 16, 1024),
+                         wgmma_desc(k_base + (kk / 4) * S::kKvHalf + off, 16, 1024), kk > 0);
+          } else {
+            wgmma_ss_n128(sc, wgmma_desc(q_at + (kk / 4) * S::kQHalf + off, 16, 1024),
+                          wgmma_desc(k_base + (kk / 4) * S::kKvHalf + off, 16, 1024), kk > 0);
+          }
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -292,20 +325,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         // online softmax: scale the fp32 logits; a tile that is not wholly
         // visible to this warpgroup's rows (the ragged end, a band edge)
         // masks per element
-        bool masked = n0 + kBlockN > p.Lk;
+        bool masked = n0 + kFwdBlockN > p.Lk;
         if constexpr (kBand) {
-          masked = !band_tile_visible(band, p.Lk, n0, kBlockN, qf_lo, qf_hi, k_off);
+          masked = !band_tile_visible(band, p.Lk, n0, kFwdBlockN, qf_lo, qf_hi, k_off);
         }
         float mx[2] = {m_run[0], m_run[1]};
         if (!masked) {
 #pragma unroll
-          for (int i = 0; i < 32; ++i) {
+          for (int i = 0; i < kFwdBlockN / 2; ++i) {
             sc[i] *= scale_log2;
             mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
           }
         } else {
 #pragma unroll
-          for (int i = 0; i < 32; ++i) {
+          for (int i = 0; i < kFwdBlockN / 2; ++i) {
             const int col = n0 + 8 * (i >> 2) + 2 * tg + (i & 1);
             bool vis = col < p.Lk;
             if constexpr (kBand) {
@@ -329,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           l_run[r] *= alpha[r];
         }
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
+        for (int i = 0; i < kFwdBlockN / 2; ++i) {
           const float pe = exp2f(sc[i] - m_use[(i >> 1) & 1]);
           sc[i] = pe;
           l_run[(i >> 1) & 1] += pe;
@@ -338,13 +371,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
         // O += P V
-        uint32_t pa[4][4];
+        uint32_t pa[kFwdBlockN / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) acc_to_a(sc, kk, pa[kk]);
+        for (int kk = 0; kk < kFwdBlockN / 16; ++kk) acc_to_a(sc, kk, pa[kk]);
         fence_regs(o);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < kFwdBlockN / 16; ++kk) {
           const uint64_t dv = wgmma_desc(v_base + kk * 2048, S::kKvHalf, 1024);
           if constexpr (DP == 128) {
             wgmma_rs_n128(o, pa[kk], dv);
@@ -390,6 +423,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 }
+
+#ifndef GEN3C_ATTN_FWD_ONLY
 
 // ------------------------------- backward: dK/dV ------------------------------
 
@@ -875,6 +910,8 @@ __global__ void __launch_bounds__(256) attn_bwd_delta_wgmma(const BwdParams p) {
   }
 }
 
+#endif  // GEN3C_ATTN_FWD_ONLY
+
 // ------------------------------------ host -------------------------------------
 
 // The map words of one tensor, as kernels/cuda.py tensor_map_params packs
@@ -921,8 +958,8 @@ cudaError_t launch_fwd(const CUtensorMap* maps, const FwdParams& p, const Band& 
   const int smem = FwdSmem<DP>::kBytes;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lq + kBlockM - 1) / kBlockM, p.H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], p, band);
+  const dim3 grid((p.Lq + kFwdBlockM - 1) / kFwdBlockM, p.H, B);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(maps[0], maps[1], maps[2], p, band);
   return cudaGetLastError();
 }
 
@@ -936,6 +973,7 @@ cudaError_t dispatch_fwd(const CUtensorMap* maps, const FwdParams& p, const Band
   return launch_fwd<DP, false, false>(maps, p, band, B, s);
 }
 
+#ifndef GEN3C_ATTN_FWD_ONLY
 template <int DP, bool kBand>
 cudaError_t launch_bwd(const CUtensorMap* dkdv_maps, const CUtensorMap* dq_maps,
                        const BwdParams& p, const Band& band, int B, cudaStream_t stream) {
@@ -955,6 +993,7 @@ cudaError_t launch_bwd(const CUtensorMap* dkdv_maps, const CUtensorMap* dq_maps,
       dq_maps[0], dq_maps[1], dq_maps[2], dq_maps[3], p, band);
   return cudaGetLastError();
 }
+#endif  // GEN3C_ATTN_FWD_ONLY
 
 bool bad_shape(int B, int Lq, int Lk, int H, int D) {
   return B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || D <= 0 || D > 128 || D % 8 != 0 ||
@@ -978,20 +1017,33 @@ Band make_band(const int* band, void* visited, int q_off, int k_off) {
 // the maps' words with them): forward q, k, v; backward dK/dV q, k, v, dout,
 // then dQ q, k, v, dout.
 extern "C" void gen3c_attention_wgmma_box_rows(int* fwd, int* bwd) {
-  fwd[0] = kBlockM;
-  fwd[1] = fwd[2] = kBlockN;
+  fwd[0] = kFwdBlockM;
+  fwd[1] = fwd[2] = kFwdBlockN;
   bwd[0] = bwd[3] = kBlockQ;
   bwd[1] = bwd[2] = kBlockM;
   bwd[4] = bwd[7] = kBlockM;
   bwd[5] = bwd[6] = kBlockN;
 }
 
+// The forward's shape as built (kernels/cuda.py checks each build of P2's
+// sweep, K1's included, against the point it asked for): consumer
+// warpgroups, keys a tile, ring stages, producer and consumer registers.
+extern "C" void gen3c_attention_wgmma_fwd_point(int* shape) {
+  shape[0] = GEN3C_FWD_WARPGROUPS;
+  shape[1] = kFwdBlockN;
+  shape[2] = kFwdStages;
+  shape[3] = kProducerRegs;
+  shape[4] = kConsumerRegs;
+}
+
 // The dynamic shared memory each kernel asks for at head dim dp (64 or
 // 128): fwd, dK/dV, dQ.
 extern "C" void gen3c_attention_wgmma_smem(int dp, int* bytes) {
   bytes[0] = dp == 64 ? FwdSmem<64>::kBytes : FwdSmem<128>::kBytes;
+#ifndef GEN3C_ATTN_FWD_ONLY
   bytes[1] = dp == 64 ? DkdvSmem<64>::kBytes : DkdvSmem<128>::kBytes;
   bytes[2] = dp == 64 ? DqSmem<64>::kBytes : DqSmem<128>::kBytes;
+#endif
 }
 
 // Forward (lse null: without the row logsumexp). q, k, v bf16 with their
@@ -1010,7 +1062,7 @@ extern "C" int gen3c_attention_wgmma_fwd(const void* q, const void* k, const voi
   }
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
-  const int rows[3] = {kBlockM, kBlockN, kBlockN};
+  const int rows[3] = {kFwdBlockM, kFwdBlockN, kFwdBlockN};
   for (int i = 0; i < 3; ++i) {
     cudaError_t err = make_map(&maps[i], bases[i], words + i * kMapWords, rows[i]);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1033,6 +1085,7 @@ extern "C" int gen3c_attention_wgmma_fwd(const void* q, const void* k, const voi
   return static_cast<int>(dispatch_fwd<128>(maps, p, bd, B, with_lse, s));
 }
 
+#ifndef GEN3C_ATTN_FWD_ONLY
 // Backward (K4; K4-band with a band): dq, dk, dv (contiguous, like q, k, v)
 // from q, k, v, out, dout (contiguous bf16), the forward's lse (B, H, Lq);
 // delta (B, H, Lq) fp32 scratch. words: 8 x kMapWords, the dK/dV kernel's
@@ -1096,3 +1149,4 @@ extern "C" int gen3c_attention_wgmma_bwd(const void* q, const void* k, const voi
   }
   return static_cast<int>(err);
 }
+#endif  // GEN3C_ATTN_FWD_ONLY

@@ -32,7 +32,8 @@ def library() -> ctypes.CDLL:
             attn = [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
                     _I, _I, _I, _I, _I, ctypes.c_float, ctypes.POINTER(_I), _P]
             lib.gen3c_attention_bf16.argtypes = attn + [_I, _P]
-            lib.gen3c_attention_f32.argtypes = attn + [_P]
+            lib.gen3c_attention_f32.argtypes = attn + [_I, _P]
+            lib.gen3c_attention_f32_smem.argtypes = [_I]
             lib.gen3c_splat.argtypes = [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P,
                                                               ctypes.POINTER(ctypes.c_float), _P]
             lib.gen3c_quant_rows.argtypes = [_P, _L, _I, _I, _I, _P, _P, _P]
@@ -46,33 +47,24 @@ def library() -> ctypes.CDLL:
             lib.gen3c_attention_merge.argtypes = [_P] * 5 + [_I] * 6 + [_P]
             lib.gen3c_attention_bwd.argtypes = [_P] * 10 + shape
             lib.gen3c_mma_probe.argtypes = [_P, _P, _P] + [_I] * 7 + [_P]
-            lib.gen3c_attention_bf16_tiles.argtypes = attn[:-2] + [_I, _I, _P]
             lib.gen3c_ray_triangle_depth.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
             lib.gen3c_ray_triangle_prepare.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P]
             words = ctypes.POINTER(ctypes.c_longlong)
             band_ptr = ctypes.POINTER(_I)
-            lib.gen3c_attention_wgmma_fwd.argtypes = ([_P, _P, _P, words, _P, _P] + [_I] * 5
-                                                      + [ctypes.c_float, band_ptr, _I, _I, _P, _P])
+            _fwd_argtypes(lib)
             lib.gen3c_attention_wgmma_bwd.argtypes = ([_P] * 5 + [words] + [_P] * 5 + [_I] * 5
                                                       + [ctypes.c_float, band_ptr, _P, _P])
-            lib.gen3c_attention_wgmma_box_rows.argtypes = [ctypes.POINTER(_I)] * 2
-            lib.gen3c_attention_wgmma_box_rows.restype = None
-            lib.gen3c_attention_wgmma_smem.argtypes = [_I, ctypes.POINTER(_I)]
-            lib.gen3c_attention_wgmma_smem.restype = None
             for fn in (lib.gen3c_attention_bf16, lib.gen3c_attention_f32, lib.gen3c_splat,
                        lib.gen3c_quant_rows, lib.gen3c_w8a8_gemm_wgmma,
                        lib.gen3c_attention_fwd_lse, lib.gen3c_attention_bwd,
                        lib.gen3c_attention_ring_fold, lib.gen3c_attention_merge,
-                       lib.gen3c_mma_probe, lib.gen3c_attention_bf16_tiles,
+                       lib.gen3c_mma_probe, lib.gen3c_attention_f32_smem,
                        lib.gen3c_ray_triangle_depth, lib.gen3c_ray_triangle_prepare,
-                       lib.gen3c_attention_wgmma_fwd,
                        lib.gen3c_attention_wgmma_bwd):
                 fn.restype = _I
-            fwd_rows, bwd_rows = (_I * 3)(), (_I * 8)()
-            lib.gen3c_attention_wgmma_box_rows(fwd_rows, bwd_rows)
-            if (tuple(fwd_rows), tuple(bwd_rows)) != (WGMMA_FWD_BOX_ROWS, WGMMA_BWD_BOX_ROWS):
-                raise RuntimeError(f"attention_wgmma.cu's box rows {tuple(fwd_rows)} "
-                                   f"{tuple(bwd_rows)} differ from cuda.py's")
+            if _box_rows(lib) != (WGMMA_FWD_BOX_ROWS, WGMMA_BWD_BOX_ROWS):
+                raise RuntimeError(f"attention_wgmma.cu's box rows {_box_rows(lib)} differ "
+                                   "from cuda.py's")
             w8a8_rows = (_I * 2)()
             lib.gen3c_w8a8_box_rows(w8a8_rows)
             if tuple(w8a8_rows) != W8A8_BOX_ROWS:
@@ -80,6 +72,28 @@ def library() -> ctypes.CDLL:
                                    f"cuda.py's {W8A8_BOX_ROWS}")
             _lib = lib
         return _lib
+
+
+def _fwd_argtypes(lib: ctypes.CDLL) -> None:
+    """The signatures of attention_wgmma.cu's forward entries, in the
+    library or in a forward built apart (``forward_variant``)."""
+    lib.gen3c_attention_wgmma_fwd.argtypes = (
+        [_P, _P, _P, ctypes.POINTER(_L), _P, _P] + [_I] * 5
+        + [ctypes.c_float, ctypes.POINTER(_I), _I, _I, _P, _P])
+    lib.gen3c_attention_wgmma_fwd.restype = _I
+    lib.gen3c_attention_wgmma_box_rows.argtypes = [ctypes.POINTER(_I)] * 2
+    lib.gen3c_attention_wgmma_box_rows.restype = None
+    lib.gen3c_attention_wgmma_smem.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.gen3c_attention_wgmma_smem.restype = None
+    lib.gen3c_attention_wgmma_fwd_point.argtypes = [ctypes.POINTER(_I)]
+    lib.gen3c_attention_wgmma_fwd_point.restype = None
+
+
+def _box_rows(lib: ctypes.CDLL) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The (forward, backward) box rows a build of attention_wgmma.cu wants."""
+    fwd_rows, bwd_rows = (_I * 3)(), (_I * 8)()
+    lib.gen3c_attention_wgmma_box_rows(fwd_rows, bwd_rows)
+    return tuple(fwd_rows), tuple(bwd_rows)
 
 
 def _check(rc: int, what: str) -> None:
@@ -138,9 +152,10 @@ def _visited_ptr(visited: Optional[torch.Tensor], n: int):
 # K3lse, K1ring; K4 and K4-band) takes one of two bodies, by one rule:
 # ``attention_route``. "wgmma" (csrc/attention_wgmma.cu, TMA loads and wgmma
 # products) for every input a TMA tensor map can describe; "mma_sync"
-# (attention.cu / attention_bwd.cu) for the rest. fp32 inputs run the CUDA-core
-# kernels and take no route. Each launch of the family adds one to its route's
-# count in ``kernels.route_counts``.
+# (attention.cu / attention_bwd.cu) for the rest. fp32 inputs take no route:
+# the forward runs attention_f32.cu (three TF32 products on the tensor cores),
+# the training kernels attention_bwd.cu's fp32 bodies. Each launch of the
+# family adds one to its route's count in ``kernels.route_counts``.
 
 TMA_BOX_COLS = 64  # elements of D per box: 128 bytes of bf16, the swizzle span
 TMA_SWIZZLE = 128
@@ -168,8 +183,9 @@ def tma_describable(t: torch.Tensor) -> bool:
 def attention_route(*tensors: torch.Tensor) -> str:
     """The body a bf16 attention call runs: "wgmma" when every tensor of the
     call is ``tma_describable``, else "mma_sync"; "fp32" for fp32 inputs
-    (the CUDA-core kernels). The same rule for every entry of the family,
-    so at a given shape and layout they all take the same body."""
+    (attention_f32.cu and attention_bwd.cu's fp32 bodies). The same rule
+    for every entry of the family, so at a given shape and layout they all
+    take the same body."""
     if tensors[0].dtype == torch.float32:
         return "fp32"
     return "wgmma" if all(tma_describable(t) for t in tensors) else "mma_sync"
@@ -246,7 +262,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               visited: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, Lq, H, D) x (B, Lk, H, D) -> (B, Lq, H, D): for bf16 inputs the
     body of ``attention_route`` (gen3c_attention_wgmma_fwd or
-    gen3c_attention_bf16), gen3c_attention_f32 for fp32 inputs.
+    gen3c_attention_bf16), gen3c_attention_f32 (3xTF32) for fp32 inputs.
 
     band=(hw, window, prefix) restricts each query to its temporal band
     (K3); the kernel then visits only the key tiles the band reaches. It
@@ -272,48 +288,133 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
             B, Lq, Lk, H, D, scale, band_arg, visited_ptr)
+    vec = rows_of_16_bytes(q, k, v)
     if q.dtype == torch.bfloat16:
-        vec = D % 8 == 0 and all(
-            t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-            for t in (q, k, v)
-        )
         _check(lib.gen3c_attention_bf16(*args, int(vec), _stream(q)), "attention_bf16")
         _count_route(route)
     else:
-        _check(lib.gen3c_attention_f32(*args, _stream(q)), "attention_f32")
+        _check(lib.gen3c_attention_f32(*args, int(vec), _stream(q)), "attention_f32")
     return out
 
 
-# P2: the (block_m, block_n) tiles attention.cu instantiates K1's bf16
-# forward with (block_m / 16 warps); (64, 64) is K1's own.
-TILE_CONFIGS = ((64, 32), (64, 64), (64, 128), (128, 32), (128, 64), (128, 128))
-SMEM_LIMIT = 227 * 1024  # shared memory one CTA may use on an H100
+def rows_of_16_bytes(*tensors: torch.Tensor) -> bool:
+    """Whether the attention.cu / attention_f32.cu kernels may copy every
+    row of these (B, L, H, D) tensors in 16-byte pieces (their `vec`): each
+    row starts 16-byte aligned and holds whole 16-byte pieces."""
+    per_piece = 16 // tensors[0].element_size()
+    return tensors[0].shape[3] % per_piece == 0 and all(
+        t.data_ptr() % 16 == 0 and all(s % per_piece == 0 for s in t.stride()[:3])
+        for t in tensors)
 
 
-def tile_smem_bytes(block_m: int, block_n: int, d: int = 128) -> int:
-    """Shared memory of one CTA: the Q tile and the K and V tiles, rows of
-    D + 8 bf16 (16 bytes of padding against bank conflicts)."""
-    return (block_m + 2 * block_n) * (d + 8) * 2
+def f32_smem_bytes(d: int) -> int:
+    """The dynamic shared memory attention_f32.cu's kernel asks for at head
+    dim d (its DP: 32, 64 or 128)."""
+    return library().gen3c_attention_f32_smem(32 if d <= 32 else 64 if d <= 64 else 128)
 
 
-def attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    block_m: int, block_n: int) -> torch.Tensor:
-    """gen3c_attention_bf16_tiles (P2): K1's bf16 forward with a
-    (block_m, block_n) tile of ``TILE_CONFIGS``. Head dim 128 only; q, k
-    and v in any strides whose rows start 16-byte aligned."""
-    if (block_m, block_n) not in TILE_CONFIGS:
-        raise ValueError(f"attention tiles: ({block_m}, {block_n}) is not one of {TILE_CONFIGS}")
+# ---------------------------------- P2 -----------------------------------
+#
+# P2, K1's sweep, runs K1's own forward (attention_wgmma.cu's attn_fwd_wgmma)
+# compiled at a point of the Hopper counterparts of splash's block sizes:
+# (consumer warpgroups, keys per tile, ring stages); 64 queries a warpgroup.
+# K1's point is the library's own forward; every other point is that source's
+# forward built apart with -D overrides (build.forward_only), loaded once a
+# process. The source is the truth: each library, K1's included, is checked
+# on loading against the point asked for (its exported shape, register split
+# and shared memory), so that the Python copies below (the -D values, the
+# shared-memory formula that filters the points before any build) cannot
+# drift from it.
+
+K1_POINT = (2, 64, 4)
+SMEM_LIMIT = 232_448  # dynamic shared memory one CTA may use on an H100
+FWD_REGS = {2: (40, 232), 3: (24, 160)}  # setmaxnreg split (producer, consumers)
+_forward_variants: dict = {}
+
+
+def fwd_point_defines(point: Tuple[int, int, int]) -> Tuple[str, ...]:
+    """The nvcc -D flags that build attention_wgmma.cu's forward at point;
+    none for K1's own."""
+    if tuple(point) == K1_POINT:
+        return ()
+    warpgroups, block_n, stages = point
+    producer, consumer = FWD_REGS[warpgroups]
+    return (f"-DGEN3C_FWD_WARPGROUPS={warpgroups}", f"-DGEN3C_FWD_BLOCK_N={block_n}",
+            f"-DGEN3C_FWD_STAGES={stages}", f"-DGEN3C_FWD_PRODUCER_REGS={producer}",
+            f"-DGEN3C_FWD_CONSUMER_REGS={consumer}")
+
+
+def fwd_point_smem_bytes(point: Tuple[int, int, int], d: int = 128) -> int:
+    """attention_wgmma.cu's FwdSmem at point and head dim d (the filter
+    before a build; each build's own value is checked against it): 1,024
+    bytes of alignment, the Q tile, each stage's K and V tiles (128-byte
+    rows a 64-dim half) and the stages' two mbarriers plus Q's."""
+    warpgroups, block_n, stages = point
+    halves = 1 if d <= 64 else 2
+    return (1024 + halves * 64 * warpgroups * 128 + stages * 2 * halves * block_n * 128
+            + (1 + 2 * stages) * 8)
+
+
+def fwd_point_fits(point: Tuple[int, int, int], d: int = 128) -> bool:
+    """Whether a CTA at point fits the card: its shared memory, and its
+    register split within what ptxas budgets its threads (65,536 registers
+    an SM over the CTA's threads, a multiple of 8)."""
+    warpgroups = point[0]
+    threads = 128 * (warpgroups + 1)
+    producer, consumer = FWD_REGS[warpgroups]
+    budget = 65536 // threads // 8 * 8
+    return (fwd_point_smem_bytes(point, d) <= SMEM_LIMIT
+            and 128 * producer + 128 * warpgroups * consumer <= threads * budget)
+
+
+def _check_point(lib: ctypes.CDLL, point: Tuple[int, int, int]) -> None:
+    """Raise unless lib's forward was built at point: its exported
+    (warpgroups, keys a tile, stages, producer and consumer registers) and
+    its shared memory at D 64 and 128 against what this module asked for."""
+    shape, smem64, smem128 = (_I * 5)(), (_I * 3)(), (_I * 3)()
+    lib.gen3c_attention_wgmma_fwd_point(shape)
+    lib.gen3c_attention_wgmma_smem(64, smem64)
+    lib.gen3c_attention_wgmma_smem(128, smem128)
+    got = (tuple(shape), smem64[0], smem128[0])
+    want = ((*point, *FWD_REGS[point[0]]), fwd_point_smem_bytes(point, 64),
+            fwd_point_smem_bytes(point, 128))
+    if got != want:
+        raise RuntimeError(f"attention_wgmma.cu's forward built for {point} reports (shape, "
+                           f"smem D 64, smem D 128) {got}; cuda.py expects {want}")
+
+
+def forward_variant(point: Tuple[int, int, int]) -> ctypes.CDLL:
+    """The library whose gen3c_attention_wgmma_fwd is K1's forward at
+    point: the kernel library itself at K1's point, else the forward built
+    apart (first use); checked against point on loading."""
+    point = tuple(point)
+    defines = fwd_point_defines(point)
+    lib = None if defines else library()
+    with _lock:
+        if point not in _forward_variants:
+            if defines:
+                lib = ctypes.CDLL(_build.build(**_build.forward_only(defines))["path"])
+                _fwd_argtypes(lib)
+            _check_point(lib, point)
+            _forward_variants[point] = lib
+        return _forward_variants[point]
+
+
+def attention_point(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    point: Tuple[int, int, int]) -> torch.Tensor:
+    """P2: gen3c_attention_wgmma_fwd (no band, no lse) built at point, on
+    bf16 inputs a TMA tensor map describes; at K1's point, K1's call."""
     B, Lq, Lk, H, D = _check_qkv(q, k, v)
-    if q.dtype != torch.bfloat16 or D != 128:
-        raise ValueError(f"attention tiles: bf16 with head dim 128 only, got {q.dtype} D={D}")
-    if not all(t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-               and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)):
-        raise ValueError("attention tiles: rows must be 16-byte aligned with unit stride along D")
+    if attention_route(q, k, v) != "wgmma":
+        raise ValueError("attention point: bf16 q, k, v that a TMA tensor map describes only")
+    if not fwd_point_fits(point, D):
+        raise ValueError(f"attention point {point} does not fit a CTA")
+    lib = forward_variant(point)
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v) for i in range(3)))
-    _check(library().gen3c_attention_bf16_tiles(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, B, Lq, Lk, H, D,
-        1.0 / math.sqrt(D), block_m, block_n, _stream(q)), "attention_bf16_tiles")
+    words = _map_words(zip((q, k, v), _box_rows(lib)[0]))
+    _check(lib.gen3c_attention_wgmma_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), words, out.data_ptr(), None, B, Lq, Lk, H, D,
+        1.0 / math.sqrt(D), None, 0, 0, None, _stream(q)), "attention_wgmma_fwd")
     return out
 
 

@@ -7,24 +7,30 @@ instantiations added beside them) is held to the version before it:
     python -m gen3c_tpu_torch.scripts.compare_attention_builds ptx OLD.cu NEW.cu
         compiles both sources with kernels/build.py's flags, to PTX and
         through ptxas -v, and prints for every kernel entry whether its PTX
-        is the same (line information and the anonymous namespace's hash
-        aside) and its registers and stack, spill-store and spill-load
-        bytes in each version.
+        is the same (line information, the anonymous namespace's hash and
+        the module-wide numbers in block labels aside; where it differs,
+        the first line that does) and its registers and stack,
+        spill-store and spill-load bytes in each version.
 
     PYTHONPATH=<checkout> python gen3c_tpu_torch/scripts/compare_attention_builds.py run TAG
         runs the K1 and K3 (B = 2) and the K4 and K4-band (B = 1) of the
         gen3c_tpu_torch found first on the path at the GEN3C-7B self shape
         (B, 56,320, 32, 128) bf16, full and with the band 3,520 / 2 / 1,
-        and K4 at two ragged bf16 shapes, and prints one JSON line: a hash
-        of every output (forward, lse, dq, dk, dv), CUDA-event
-        milliseconds (median of 3 after a warm-up) and, where the checkout
+        and K4 at two ragged bf16 shapes, and K1vit (MoGe's fp32 attention,
+        (1, 1,351, 16, 64) as views of one qkv projection), and prints one
+        JSON line: a hash of every output (forward, lse, dq, dk, dv),
+        CUDA-event milliseconds (median of 3 after a warm-up), K1vit's
+        largest error against its plain version and, where the checkout
         counts them, the attention launches by body (``route_counts``).
 
 Run ``run`` for the old and the new checkout in one call, in the order old,
 new, new, old: equal hashes show the same bits, and the times compare. The
 wgmma body (attention_wgmma.cu) sums in the mma.sync bodies' order (each
 k16 step in the tensor core, the same tiles per row in the same order), so
-across that change of body too the hashes agree.
+across that change of body too the hashes agree. K1vit's hash differs
+wherever the fp32 body changes its summation order (the 3xTF32 body of
+attention_f32.cu against the CUDA-core body before it); its error against
+the plain version says whether both hold the fp32 tolerance.
 """
 
 from __future__ import annotations
@@ -38,10 +44,14 @@ import tempfile
 from pathlib import Path
 
 _NAMESPACE = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+# a basic block's label, $L__BB<function>_<block>: the function's number is
+# its place in the module, which moves when a source gains or loses a kernel
+_BLOCK_LABEL = re.compile(r"\$L__BB\d+_")
 
 
 def _ptx_entries(ptx: str) -> dict:
-    """{entry name: its PTX lines, without line information or comments}."""
+    """{entry name: its PTX lines, without line information, comments or
+    the module-wide numbers in block labels}."""
     out, cur = {}, None
     for line in ptx.splitlines():
         m = re.match(r"\s*\.(?:visible\s+)?\.?entry\s+(\S+?)\(", line)
@@ -53,7 +63,7 @@ def _ptx_entries(ptx: str) -> dict:
         if s.startswith(".section"):  # debug sections: they spell the namespace hash in bytes
             cur = None
         if cur is not None and s and not s.startswith((".loc", ".file", "//")):
-            out[cur].append(_NAMESPACE.sub("NS", s))
+            out[cur].append(_BLOCK_LABEL.sub("$L__BB_", _NAMESPACE.sub("NS", s)))
     return out
 
 
@@ -99,8 +109,13 @@ def compare_ptx(old: str, new: str) -> bool:
         same_counts &= a == b or name not in ptx["old"] or name not in ptx["new"]
         same_ptx = ptx["old"].get(name) == ptx["new"].get(name)
         n_same_ptx += same_ptx
-        print(json.dumps({"entry": name, "ptx_identical": same_ptx,
-                          "regs_stack_spills_old": a, "regs_stack_spills_new": b}))
+        row = {"entry": name, "ptx_identical": same_ptx, "regs_stack_spills_old": a,
+               "regs_stack_spills_new": b}
+        if not same_ptx and name in ptx["old"] and name in ptx["new"]:
+            row["first_diff"] = next(
+                ((i, x, y) for i, (x, y) in enumerate(zip(ptx["old"][name], ptx["new"][name]))
+                 if x != y), (min(len(ptx["old"][name]), len(ptx["new"][name])), None, None))
+        print(json.dumps(row))
     print(json.dumps({"entries": len(ptx["new"]), "added": len(set(ptx["new"]) - set(ptx["old"])),
                       "removed": len(set(ptx["old"]) - set(ptx["new"])),
                       "ptx_identical": n_same_ptx, "counts_identical": same_counts}))
@@ -117,8 +132,8 @@ def _hash(*tensors) -> str:
 
 
 def run(tag: str) -> dict:
-    """The K1 / K3 / K4 / K4-band hashes and times of the gen3c_tpu_torch on
-    the path."""
+    """The K1 / K3 / K4 / K4-band / K1vit hashes and times of the
+    gen3c_tpu_torch on the path."""
     import torch
 
     import gen3c_tpu_torch
@@ -164,6 +179,13 @@ def run(tag: str) -> dict:
         q, k, v, do = inputs((2, 1000, 4, 64), (2, lk, 4, 64), 1)
         out, lse = cuda.attention_fwd_lse(q, k, v, band)
         res[f"{name}_hash"] = _hash(out, lse, *cuda.attention_bwd(q, k, v, out, do, lse, band))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn((1, 1351, 3 * 1024), generator=gen, device="cuda")
+    q, k, v = (t.reshape(1, 1351, 16, 64) for t in qkv.chunk(3, dim=-1))
+    out = cuda.attention(q, k, v)
+    res["k1vit_hash"] = _hash(out)
+    res["k1vit_max_abs_err"] = (out - kernels.attention_reference(q, k, v)).abs().max().item()
+    res["k1vit_ms"] = ms(lambda: cuda.attention(q, k, v))
     res["routes"] = dict(getattr(kernels, "route_counts", {})) or None
     print(json.dumps(res), flush=True)
     return res

@@ -106,6 +106,23 @@ def test_fp32_takes_no_route():
     assert kcuda.attention_route(q, q, q) == "fp32"
 
 
+@pytest.mark.parametrize("make,whole", [
+    # MoGe's q, k, v: fp32 views of one qkv projection, rows of 3,072 floats
+    (lambda: torch.zeros((1, 1351, 3 * 1024)).chunk(3, dim=-1)[1].reshape(1, 1351, 16, 64), True),
+    (lambda: torch.zeros((2, 10, 3, 24)), True),  # the tiny preset's fp32 head dim
+    (lambda: torch.zeros((2, 10, 3, 22)), False),  # 88-byte rows
+    (lambda: torch.zeros((2, 10, 3 * 24 + 1))[..., 1:].view(2, 10, 3, 24), False),  # odd stride
+    (lambda: torch.zeros((2, 10, 3, 24), dtype=torch.bfloat16), True),
+    (lambda: torch.zeros((2, 10, 3, 20), dtype=torch.bfloat16), False),
+])
+def test_rows_of_16_bytes(make, whole):
+    """attention.cu's and attention_f32.cu's 16-byte copies: rows that start
+    16-byte aligned and hold whole 16-byte pieces; else 4-byte (fp32) or
+    2-byte (bf16) copies."""
+    t = make()
+    assert kcuda.rows_of_16_bytes(t, t, t) == whole
+
+
 @pytest.mark.parametrize("make", [
     lambda: torch.zeros((2, 10, 3, 20), dtype=torch.bfloat16),  # 40-byte rows
     lambda: torch.zeros((2, 10, 3, 32), dtype=torch.bfloat16)[..., :20],

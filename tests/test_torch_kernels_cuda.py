@@ -14,7 +14,8 @@ backward) at ragged self and cross shapes, K6 (the ray-triangle depth)
 at ragged ray and triangle counts and bit for bit at T = 0, 1, a
 straddling mesh and T = 120,000 (its setup kernel: the plain rule's
 bits), K5 with NaN and +inf depths and with its corners merged across lanes,
-every tile of P2 (K1's tile sweep), K1cp
+every point of P2 (K1's tile sweep), the fp32 forward (three TF32
+products) on MoGe's strided q, k, v and on rows off alignment, K1cp
 (K1 read in place from the Ulysses all-to-all's layout: K1's bits), and
 K1ring + K1merge over 4 KV shards with and without the band (rows left
 without a key by a shard: 0 and -inf, no NaN).
@@ -121,7 +122,7 @@ def _visible_tiles(lq, lk, band, q_tile, k_tile):
 
 
 @pytest.mark.parametrize("dtype,atol,k_tile,q_tile", [(torch.bfloat16, 2e-2, 64, 64),
-                                                      (torch.float32, 1e-4, 32, 8)])
+                                                      (torch.float32, 1e-4, 32, 64)])
 @pytest.mark.parametrize("hw", [7, 60, 64, 100])
 def test_band_attention_kernel_matches_reference(gen, dtype, atol, k_tile, q_tile, hw):
     """K3 against the dense-mask reference, and the key tiles it visits
@@ -665,25 +666,50 @@ def test_ray_triangle_kernel_is_the_plain_version_bit_for_bit(gen, case):
     assert (want > 0).any() or t == 0
 
 
-@pytest.mark.parametrize("config", [(64, 32, "blhd"), (64, 64, "blhd"), (64, 128, "blhd"),
-                                    (128, 32, "blhd"), (128, 64, "blhd"), (128, 128, "blhd"),
-                                    (64, 64, "bhld")])
+@pytest.mark.parametrize("config", [((2, 64, 4), "blhd"), ((2, 64, 2), "blhd"),
+                                    ((2, 64, 3), "blhd"), ((2, 128, 2), "blhd"),
+                                    ((2, 128, 3), "blhd"), ((3, 64, 2), "blhd"),
+                                    ((3, 64, 3), "blhd"), ((3, 64, 4), "blhd"),
+                                    ((3, 128, 2), "blhd"), ((2, 64, 4), "bhld")])
 def test_attention_tile_sweep_matches_reference(gen, config):
-    """Every P2 tile against the plain attention at ragged shapes (and K1's
-    own tile equal to K1), counted as P2 and not as K1."""
+    """Every P2 point (K1's wgmma forward built at the point) against the
+    plain attention at ragged shapes, K1's own point equal to K1 and every
+    64-key point too; counted as P2 and not as K1."""
     from gen3c_tpu_torch.scripts import sweep_attention as sweep
 
     assert config in sweep.configs()
     before = dict(kernels.launch_counts)
-    assert sweep.check(config, gen) <= 2e-2
-    bm, bn, layout = config
+    checked = sweep.check(config, gen)
+    assert checked["check_max_abs_err"] <= 2e-2
+    point, layout = config
     for lq, lk in ((1, 1), (130, 7), (257, 300)):
         q, k, v = sweep.qkv((2, lq, 3, 128), (2, lk, 3, 128), layout, gen)
-        out = kernels.attention_tiles(q, k, v, bm, bn)
+        out = kernels.attention_point(q, k, v, point)
         assert (out.float() - attention_reference(q, k, v).float()).abs().max().item() <= 2e-2
+        if point[1] == 64:  # the same tiles in the same order for every row
+            assert torch.equal(out, kcuda.attention(q, k, v))
     torch.cuda.synchronize()
     assert kernels.launch_counts["P2"] == before["P2"] + 4
-    assert kernels.launch_counts["K1"] == before["K1"] + ((bm, bn) == (64, 64))
+    assert kernels.launch_counts["K1"] == before["K1"] + 1  # the check's K1 call
+
+
+@pytest.mark.parametrize("layout", ["moge", "unaligned"])
+def test_attention_f32_kernel_takes_any_strides(gen, layout):
+    """The 3xTF32 fp32 forward on MoGe's q, k, v (views of one qkv
+    projection, rows of 3,072 floats: 16-byte copies) and on rows off
+    16-byte alignment (an odd row stride: 4-byte copies), within 1e-4 of the
+    plain version."""
+    if layout == "moge":
+        qkv = torch.randn((1, 1351, 3 * 1024), generator=gen, device="cuda")
+        q, k, v = (t.reshape(1, 1351, 16, 64) for t in qkv.chunk(3, dim=-1))
+    else:
+        buf = torch.randn((2, 333, 3 * 4 * 24 + 1), generator=gen, device="cuda")
+        q, k, v = (t.reshape(2, 333, 4, 24) for t in buf[..., 1:].chunk(3, dim=-1))
+        assert q.stride(1) % 4 and q.data_ptr() % 16
+    out = kernels.attention(q, k, v, kernel_id="K1vit")
+    ref = attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
 
 
 def _ulysses_view(x, cp, rank):

@@ -4,10 +4,15 @@ attention_reference (K1/K2) against gen3c_tpu.models.dit.attention_op and
 splat_reference (K5) against gen3c_tpu.ops.geometry.bilinear_splatting, on
 the same numpy inputs. On the CPU attention_op takes its XLA path and
 bilinear_splatting its scatter-add path; mma_probe_reference (P1) is held
-to the probe script's Pallas kernel in interpret mode. The CUDA kernels
-themselves are held against these references on the card by chip_smoke.py.
+to the probe script's Pallas kernel in interpret mode. The fp32 forward's
+arithmetic (csrc/attention_f32.cu: each operand split into two TF32 parts,
+three TF32 products) is emulated here at MoGe's shape and held to
+attention_op and attention_reference, beside one TF32 product, which misses
+the fp32 tolerance. The CUDA kernels themselves are held against these
+references on the card by chip_smoke.py.
 """
 
+import math
 import subprocess
 import sys
 
@@ -177,3 +182,69 @@ def test_mma_probe_reference_matches_pallas_interpret(dtype, m, k, n, reps):
         assert got.dtype == torch.float32
         bound = reps * ((ta.float().abs() + 1) @ tb.float().abs()).numpy()
         assert (np.abs(got.numpy() - want) <= 1e-5 * bound).all()
+
+
+ATTN_F32_TOL = 1e-4  # chip_smoke.py's: the fp32 forward against its plain version
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 (10 mantissa bits) in fp32's layout, rounded to nearest
+    with ties away from zero: cvt.rna.tf32.f32 on the card."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_split(x: torch.Tensor):
+    """x = big + small in TF32 parts (hopper.h's tf32_split)."""
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def test_tf32_split_rebuilds_fp32_within_2_pow_22():
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal(200_000) * 10.0 ** rng.uniform(-30, 30, 200_000)).astype(np.float32)
+    x = torch.from_numpy(x)
+    big, small = _tf32_split(x)
+    for part in (big, small):
+        assert ((part.view(torch.int32) & 0x1FFF) == 0).all()  # TF32 values
+    rel = (big.double() + small.double() - x.double()).abs() / x.double().abs()
+    assert rel.max().item() <= 2.0 ** -22
+    # ties go away from zero; below the tie, to the nearer value
+    one = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -23], dtype=torch.float32)
+    assert _tf32(one).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0]
+
+
+def _tf32_attention(q, k, v, products: int) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v with each product on TF32 parts, summed in
+    fp32 (a product of two TF32 values is exact in fp32): three products
+    (small.big + big.small + big.big) as attention_f32.cu forms them, or
+    one (big.big)."""
+    B, L, H, D = q.shape
+    out = torch.empty_like(q)
+
+    def product(a, b):
+        (ab, as_), (bb, bs) = _tf32_split(a), _tf32_split(b)
+        return ab @ bb if products == 1 else as_ @ bb + ab @ bs + ab @ bb
+
+    for b in range(B):
+        for h in range(H):
+            p = torch.softmax(product(q[b, :, h], k[b, :, h].T) / math.sqrt(D), dim=-1)
+            out[b, :, h] = product(p, v[b, :, h])
+    return out
+
+
+@pytest.mark.parametrize("products,holds", [(3, True), (1, False)])
+def test_three_tf32_products_hold_the_fp32_tolerance(products, holds):
+    """At MoGe ViT-L's shape, (1, 1,351, 16, 64) fp32 as views of one qkv
+    projection: three TF32 products stay within ATTN_F32_TOL of the plain
+    version (and of attention_op), one does not: why K1vit splits."""
+    rng = np.random.default_rng(0)
+    qkv = rng.standard_normal((1, 1351, 3 * 1024)).astype(np.float32)
+    q, k, v = (a.reshape(1, 1351, 16, 64) for a in np.split(qkv, 3, axis=-1))
+    want = np.asarray(attention_op(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(a)) for a in (q, k, v))
+    plain = attention_reference(tq, tk, tv)
+    np.testing.assert_allclose(plain.numpy(), want, atol=1e-5, rtol=0)
+    got = _tf32_attention(tq, tk, tv, products)
+    for truth in (plain, torch.from_numpy(np.array(want))):
+        err = (got - truth).abs().max().item()
+        assert (err <= ATTN_F32_TOL) == holds, (products, err)

@@ -56,6 +56,18 @@ def test_ptx_entries_ignore_line_info_and_namespace_hash():
     assert a["_ZN49NS4fwdEv"] != c["_ZN49NS4fwdEv"] and a["_ZN49NS4bwdEv"] == c["_ZN49NS4bwdEv"]
 
 
+def test_ptx_entries_ignore_the_module_numbers_of_block_labels():
+    """A kernel added or removed before an entry renumbers the entry's block
+    labels ($L__BB<function>_<block>); a branch to another block is still
+    a change."""
+    def branchy(fn, block):
+        return _ptx(NS_A, 10, f"@%p1 bra $L__BB{fn}_{block};\n$L__BB{fn}_{block}:")
+
+    a, b, c = (cab._ptx_entries(branchy(fn, block)) for fn, block in ((0, 2), (7, 2), (0, 3)))
+    assert a == b
+    assert a["_ZN49NS4fwdEv"] != c["_ZN49NS4fwdEv"]
+
+
 def test_ptx_entries_leave_out_the_debug_sections():
     """-lineinfo appends .section .debug_str to the last entry's text,
     spelling the anonymous namespace's hash as bytes."""
@@ -218,17 +230,71 @@ def test_probe_sweeps_the_jax_scripts_cases():
 
 
 def test_sweep_configs_fit_shared_memory_and_warp_rows():
-    """P2's tiles: BLOCK_M 64 or 128 (16 query rows per warp: 4 or 8 warps),
-    BLOCK_N 32, 64 or 128, each within a CTA's 227 KB of shared memory at D
-    = 128; K1's own 64 x 64 tile is among them, and is the one tile also
+    """P2's points: (consumer warpgroups 2 or 3 of 64 query rows, 64 or 128
+    keys a tile, 2-4 stages), each whose CTA fits 232,448 bytes of shared
+    memory (attention_wgmma.cu's FwdSmem) and whose setmaxnreg split fits
+    ptxas's register budget; K1's own point first, and the one point also
     read from the (B, H, L, D) layout."""
-    assert set(kcuda.TILE_CONFIGS) == {(bm, bn) for bm in (64, 128) for bn in (32, 64, 128)
-                                       if kcuda.tile_smem_bytes(bm, bn) <= kcuda.SMEM_LIMIT}
-    assert all(bm % 16 == 0 and bm // 16 in (4, 8) for bm, _ in kcuda.TILE_CONFIGS)
-    assert kcuda.tile_smem_bytes(64, 64) == (64 + 128) * 136 * 2  # K1's launch
+    grid = [(wg, bn, st) for wg in (2, 3) for bn in (64, 128) for st in (2, 3, 4)]
+    pts = sweep.points()
+    assert pts[0] == kcuda.K1_POINT == (2, 64, 4)
+    assert set(pts) == {p for p in grid if kcuda.fwd_point_smem_bytes(p) <= kcuda.SMEM_LIMIT}
+    assert len(pts) == len(set(pts)) == 9
+    for wg, bn, st in pts:
+        threads = 128 * (wg + 1)
+        producer, consumer = kcuda.FWD_REGS[wg]
+        assert kcuda.fwd_point_fits((wg, bn, st))
+        assert 128 * producer + 128 * wg * consumer <= threads * (65536 // threads // 8 * 8)
+        assert producer % 8 == consumer % 8 == 0 and 24 <= producer < consumer <= 256
+    # the worked cases: K1's point, the widest 128-key point, one that does not fit
+    assert kcuda.fwd_point_smem_bytes((2, 64, 4)) == 1024 + 32768 + 4 * 32768 + 72
+    assert kcuda.fwd_point_smem_bytes((2, 128, 3)) == 230456 <= kcuda.SMEM_LIMIT
+    assert not kcuda.fwd_point_fits((3, 128, 3))
     got = sweep.configs()
-    assert got[:len(kcuda.TILE_CONFIGS)] == [(bm, bn, "blhd") for bm, bn in kcuda.TILE_CONFIGS]
-    assert got[len(kcuda.TILE_CONFIGS):] == [(64, 64, "bhld")]
-    assert sweep.configs(quick=True) == got[:len(kcuda.TILE_CONFIGS)]
-    assert sweep.tag((128, 32, "blhd")) == "bm=128 bn=32 warps=8 layout=blhd"
+    assert got == [(p, "blhd") for p in pts] + [((2, 64, 4), "bhld")]
+    assert sweep.configs(quick=True) == got[:-1]
+    assert sweep.tag(((3, 64, 4), "blhd")) == "wg=3 bm=192 bn=64 stages=4 layout=blhd"
     assert sweep.FLOPS == 4.0 * 2 * 32 * 56320 ** 2 * 128
+
+
+def test_sweep_points_build_apart_with_distinct_flags():
+    """K1's point is the kernel library's own forward (no -D flag); every
+    other point builds attention_wgmma.cu's forward alone with flags of its
+    own, into a directory of its own, and the register split K1 uses is the
+    source's default."""
+    from gen3c_tpu_torch.kernels import build
+
+    pts = sweep.points()
+    assert kcuda.fwd_point_defines(kcuda.K1_POINT) == ()
+    flags = [kcuda.fwd_point_defines(p) for p in pts[1:]]
+    assert all(f and all(x.startswith("-DGEN3C_FWD_") for x in f) for f in flags)
+    assert len(set(flags)) == len(flags)
+    dirs = {build.build_dir(**build.forward_only(f)) for f in flags} | {build.build_dir()}
+    assert len(dirs) == len(flags) + 1 and all(d.parent == build.BUILD_ROOT for d in dirs)
+    assert build.forward_only(flags[0])["sources"] == (build.CSRC / "attention_wgmma.cu",)
+    assert "-DGEN3C_FWD_WARPGROUPS=3" in kcuda.fwd_point_defines((3, 64, 4))
+    assert "-DGEN3C_FWD_CONSUMER_REGS=160" in kcuda.fwd_point_defines((3, 64, 4))
+    src = (build.CSRC / "attention_wgmma.cu").read_text()
+    for name, value in (("WARPGROUPS", 2), ("BLOCK_N", 64), ("STAGES", 4),
+                        ("PRODUCER_REGS", kcuda.FWD_REGS[2][0]),
+                        ("CONSUMER_REGS", kcuda.FWD_REGS[2][1])):
+        assert f"#define GEN3C_FWD_{name} {value}\n" in src
+
+    class Built:  # what a build exports: its shape and its shared memory
+        def __init__(self, point, regs, smem):
+            self.shape, self.smem = (*point, *regs), smem
+
+        def gen3c_attention_wgmma_fwd_point(self, out):
+            out[:] = self.shape
+
+        def gen3c_attention_wgmma_smem(self, dp, out):
+            out[0] = self.smem[dp]
+
+    for point in pts:
+        smem = {d: kcuda.fwd_point_smem_bytes(point, d) for d in (64, 128)}
+        kcuda._check_point(Built(point, kcuda.FWD_REGS[point[0]], smem), point)
+        with pytest.raises(RuntimeError):  # another split in the source than cuda.py's
+            kcuda._check_point(Built(point, (32, 224), smem), point)
+        with pytest.raises(RuntimeError):  # a shared-memory layout the formula missed
+            kcuda._check_point(Built(point, kcuda.FWD_REGS[point[0]],
+                                     {d: b + 8 for d, b in smem.items()}), point)
