@@ -91,7 +91,7 @@ Every bf16 attention case of phase 3 also prints its launches by body
 (kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
 registers, stack and spill bytes (ptxas -v, the build log) and dynamic
 shared memory of the attention_wgmma.cu entries it ran; phase 2 lists every
-such entry and fails if one spills. Every 7B-shape call of the attention
+such entry, and every mma_probe.cu entry (P1), and fails if one spills. Every 7B-shape call of the attention
 family, and main, train, lora_band_train and cp, must run the wgmma body
 only. K4's cases also hold two backward calls to the same bits. At the 7B
 self shape the mma.sync bodies, which serve the bf16 inputs no TMA map
@@ -103,8 +103,11 @@ row logsumexp at the 7B self- and cross-attention shapes and at a ragged
 fp32 tiny shape; K4-band at the 7B self shape with the fast preset's band
 (its visited-tile fractions, its forward against K3's bits), at a full
 window against K4's bits and at a ragged fp32 shape; K3lse, the band
-forward with the row logsumexp, at the LoRA + band shape; P1, the mma.sync
-rate probe, in bf16 and int8; K5 (the splat) on a smooth flow, uniformly
+forward with the row logsumexp, at the LoRA + band shape; P1, the wgmma
+rate probe, in bf16 and int8 at the QK^T block shape (held to its plain
+version at R 8,000, its SM clock sampled, the library's one product of the
+stacked operands beside it), and every instruction form of it on a ragged
+shape and timed at that block shape; K5 (the splat) on a smooth flow, uniformly
 random targets and NaN / +inf depths (the plain version's NaN pixels), and
 forward_warp's depth splat (C = 1) on the smooth and the random flow, its
 three kernels timed apart beside the parent's torch passes and its corners
@@ -187,6 +190,10 @@ LORA_RANK = 16
 LORA_STEPS = 2
 P1_SHAPE = (1408, 128, 1024)  # the QK^T block shape of scripts/probe_int8_attention.py
 P1_REPS = 8000  # that script's R at K = 128
+# every P1 form held to its plain version here: ragged M and N, K two chunks
+# of the bf16 n256 form, R cut into one-pass slices (odd starts)
+P1_FORMS_SHAPE = (200, 256, 130)
+P1_FORMS_REPS = 5
 # K6 against its plain version (the same operations in the same order, no
 # contraction): hit decisions may flip on at most 1e-4 of the rays, and hit
 # distances both report agree within 1e-5 relative
@@ -427,6 +434,7 @@ def phase_build() -> None:
         f.write(info["log"])
     counts = _ptxas()
     wgmma = {k: v for k, v in counts.items() if "_wgmma" in k}
+    p1 = {k: v for k, v in counts.items() if "mma_probe" in k}
 
     def entries(found):
         return {k: {"registers": v[0], "stack": v[1], "spill_stores": v[2], "spill_loads": v[3]}
@@ -435,10 +443,13 @@ def phase_build() -> None:
     emit("build", seconds=round(seconds, 3), library_seconds=round(info["seconds"], 3),
          cached=info["cached"], library=info["path"], wgmma_entries=entries(wgmma),
          f32_entries=entries({k: v for k, v in counts.items() if "attn_fwd_tf32x3" in k}),
-         p2_forward_seconds=[round(f["seconds"], 3) for f in fwd])
+         p1_entries=entries(p1), p2_forward_seconds=[round(f["seconds"], 3) for f in fwd])
     spilled = [k for k, v in wgmma.items() if v[2] or v[3]]
     if len(wgmma) < 17 or spilled:
         raise AssertionError(f"attention_wgmma.cu: {len(wgmma)} entries, spilling: {spilled}")
+    spilled = [k for k, v in p1.items() if v[2] or v[3]]
+    if len(p1) != 8 or spilled:  # six forms and two sums
+        raise AssertionError(f"mma_probe.cu: {len(p1)} entries, spilling: {spilled}")
 
 
 def _attention_case(name, shape_q, shape_kv, dtype, tol, gen, time_it=True, band=None,
@@ -697,22 +708,53 @@ def _k4_full_window_case(gen) -> dict:
 
 
 def _mma_probe_case(gen, dtype: str) -> dict:
-    """P1 against its plain version (probe_int8_attention.check), then its
-    rate at the attention QK^T block shape, as the probe script runs it."""
+    """P1 at the attention QK^T block shape, as the probe script runs it: its
+    headline form checked at R = 3, timed at R = P1_REPS and held to its
+    plain version there (int8 bit for bit, bf16 within the bound), run back
+    to back for a second beside nvidia-smi's SM clock, and the library
+    yardstick: one product of the stacked operands, freed after."""
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.scripts import probe_int8_attention as probe
 
     M, K, N = P1_SHAPE
     kernels.reset_launch_counts()
-    r = probe.measure(M, K, N, dtype, P1_REPS, gen, plain=True)
-    r["launches"] = kernels.launch_counts["P1"]  # the probe's own run: check and timings
-    r["name"] = f"P1 mma.sync rate probe ({dtype})"
+    r = probe.measure(M, K, N, dtype, P1_REPS, gen, plain=True, library=True, sustain=True)
+    r["launches"] = kernels.launch_counts["P1"]  # the probe's own run: checks and timings
+    r["name"] = f"P1 wgmma rate probe ({dtype})"
+    r["sm_clock_mhz"] = r["sustained"]["sm_clock_mhz"]
     elem = 1 if dtype == "int8" else 2
     r.update(**bound((M * K + K * N) * elem + M * N * 4, 2.0 * M * K * N * P1_REPS,
-                     INT8_PEAK_TOPS if dtype == "int8" else BF16_PEAK_TFLOPS),
-             library_ms=None)  # no one PyTorch call sums R products
+                     INT8_PEAK_TOPS if dtype == "int8" else BF16_PEAK_TFLOPS))
+    r["bound_share"] = r["bound_ms"] / r["ms"]
     emit("kernel", **r)
     return r
+
+
+def _mma_probe_forms_case(gen) -> dict:
+    """Every instruction form of P1 against its plain version on a ragged
+    shape at a small R whose slices start at odd passes (int8 bit for bit,
+    bf16 within the bound), then each timed at the QK^T block shape."""
+    from gen3c_tpu_torch.kernels import cuda
+    from gen3c_tpu_torch.scripts import probe_int8_attention as probe
+
+    M, K, N = P1_FORMS_SHAPE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {"name": "P1 instruction forms", "shape": list(P1_FORMS_SHAPE), "reps": P1_FORMS_REPS,
+           "forms": []}
+    for dtype, forms in cuda.MMA_PROBE_FORMS.items():
+        for form in forms:
+            plan = cuda.mma_probe_plan(M, N, K, P1_FORMS_REPS, dtype, form, sms)
+            starts = [plan.unit(u)["r0"] for u in range(plan.grid)]
+            if not any(r0 % 2 for r0 in starts):
+                raise AssertionError(f"P1 {dtype} {form}: no R slice starts at an odd pass")
+            a, b = probe.operands(M, K, N, dtype, gen)
+            err = probe.check(a, b, P1_FORMS_REPS, form)
+            qk = probe.measure(*P1_SHAPE, dtype, P1_REPS, gen, form=form, timings=3)
+            res["forms"].append({"dtype": dtype, "form": form, "ragged_max_abs_err": err,
+                                 "ragged_units": plan.grid, "qk_ms": qk["ms"],
+                                 "qk_rate": qk["rate"], "qk_peak_share": qk["peak_share"]})
+    emit("kernel", **res)
+    return res
 
 
 def splat_inputs(gen, random_flow: bool = False, nonfinite: bool = False):
@@ -1428,6 +1470,8 @@ def phase_kernels() -> dict:
     results["K3lse"] = _k3lse_case(gen)
     torch.cuda.empty_cache()
     results["P1"] = [_mma_probe_case(gen, dtype) for dtype in ("bf16", "int8")]
+    results["P1_forms"] = _mma_probe_forms_case(gen)
+    torch.cuda.empty_cache()
     results["K5"] = _splat_case(gen)
     results["K6"] = _ray_case()
     results["K6_dense"] = _ray_case("K6 ray-triangle depth, dense mesh", K6_DENSE_SCENE)
@@ -2717,7 +2761,8 @@ def main(argv=None) -> int:
             dynamic_launches["K6"], kern["K6"]),
         row(f"P2 K1 tile sweep (best {kern['P2']['best']})", "attention_wgmma.cu",
             "scripts/sweep_attention.py:32", kern["P2"]["launches"], kern["P2"]),
-    ] + [row(p1["name"], "mma_probe.cu", "scripts/probe_int8_attention.py:59", p1["launches"], p1)
+    ] + [row(p1["name"], "mma_probe.cu", "scripts/probe_int8_attention.py:59", p1["launches"], p1,
+             **{k: p1[k] for k in ("form", "sm_clock_mhz", "bound_share", "library_call")})
          for p1 in kern["P1"]]
     table.append(row("K1vit MoGe ViT-L self-attention (fp32)", "attention_f32.cu",
                      "gen3c_tpu/aux/moge.py:159", moge_launches["K1vit"], kern["K1vit"],

@@ -19,7 +19,7 @@
   K6   nearest ray-triangle hit  (gen3c_tpu/ops/raycast.py:97-140)
   K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59), one pass a row
   K7   int8 x int8 GEMM + rescale (quantize.py:60-69), TMA + wgmma s8
-  P1   mma.sync rate probe       (scripts/probe_int8_attention.py:37-62; ``mma_probe``)
+  P1   wgmma rate probe          (scripts/probe_int8_attention.py:37-62; ``mma_probe``)
   P2   K1's tile sweep           (scripts/sweep_attention.py:32-68; ``attention_point``:
                                  K1's wgmma forward built at a point of the sweep)
 
@@ -293,17 +293,18 @@ def splat(
     return out
 
 
-def mma_probe(a: torch.Tensor, b: torch.Tensor, reps: int, ctas_per_sm: int = 1) -> torch.Tensor:
+def mma_probe(a: torch.Tensor, b: torch.Tensor, reps: int,
+              form: Optional[str] = None) -> torch.Tensor:
     """P1: sum over i < reps of (a + i % 2) @ b, a (M, K) and b (K, N) both
     bf16 (fp32 out) or both int8 (int32 out); see ``mma_probe_reference``.
-    On a card, ``csrc/mma_probe.cu`` keeps each CTA's operand tiles in
-    shared memory and issues the product ``reps`` times with at least
-    ``ctas_per_sm`` CTAs per SM (a matmul-rate probe; ``cuda.mma_probe``
-    also returns the CTAs it launched)."""
+    On a card, ``csrc/mma_probe.cu`` issues it on wgmma as ``form``
+    (``cuda.MMA_PROBE_FORMS``; default the widest the N tile allows) over
+    ``cuda.mma_probe_plan``'s units, each CTA's operands resident in shared
+    memory, then sums the units' partials: one launch counted for both."""
     if not _on_cuda(a, "mma_probe"):
         return mma_probe_reference(a, b, reps)
     from gen3c_tpu_torch.kernels import cuda
 
-    out, _ = cuda.mma_probe(a, b, reps, ctas_per_sm)
+    out = cuda.mma_probe(a, b, reps, form)
     launch_counts["P1"] += 1
     return out

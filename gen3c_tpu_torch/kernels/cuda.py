@@ -8,8 +8,10 @@ is refused. Nothing here is imported by the CPU path.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -46,7 +48,8 @@ def library() -> ctypes.CDLL:
             lib.gen3c_attention_ring_fold.argtypes = [_P] * 5 + shape[:-2] + [_I, _I, _P]
             lib.gen3c_attention_merge.argtypes = [_P] * 5 + [_I] * 6 + [_P]
             lib.gen3c_attention_bwd.argtypes = [_P] * 10 + shape
-            lib.gen3c_mma_probe.argtypes = [_P, _P, _P] + [_I] * 7 + [_P]
+            lib.gen3c_mma_probe.argtypes = ([_P] * 4 + [_I] * 8
+                                           + [ctypes.POINTER(ctypes.c_longlong), _P])
             lib.gen3c_ray_triangle_depth.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
             lib.gen3c_ray_triangle_prepare.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P]
             words = ctypes.POINTER(ctypes.c_longlong)
@@ -803,35 +806,161 @@ def splat(
     return out, known
 
 
-def mma_probe_cols(k: int, element_size: int) -> int:
-    """The output columns of a P1 CTA: 64 if its 64 rows of A and 64 of B^T
-    (K elements and 16 bytes of padding each) fit in shared memory, else 32."""
-    return 64 if (64 + 64) * (k * element_size + 16) <= 227 * 1024 else 32
+# P1's instruction forms by operand dtype: (the instruction's N, A from
+# registers). "ss": both operands in shared memory, "rs": A in registers.
+MMA_PROBE_FORMS = {
+    "bf16": {"ss64": (64, False), "ss128": (128, False), "ss256": (256, False),
+             "rs128": (128, True)},
+    "int8": {"ss128": (128, False), "ss256": (256, False)},
+}
+MMA_PROBE_ROWS = 128  # rows of A a unit: two warpgroups of 64
+MMA_PROBE_SMEM_LIMIT = 232448  # a CTA's shared memory
+MMA_PROBE_ONE_CTA = 120 * 1024  # the least a CTA asks for: one CTA an SM
+MMA_PROBE_RS_MAX_STEPS = 8  # k steps of A and A + 1 a thread holds in registers
+MMA_PROBE_WAVES_MAX = 4  # the most units the slice search looks at, in waves
+
+
+def _probe_dtype(dtype) -> str:
+    names = {torch.bfloat16: "bf16", torch.int8: "int8", "bf16": "bf16", "int8": "int8"}
+    if dtype not in names:
+        raise TypeError(f"mma probe takes bf16 or int8, got {dtype}")
+    return names[dtype]
+
+
+def mma_probe_form(n: int, dtype) -> str:
+    """The headline form at N columns: the widest instruction the N tile
+    allows (n256 above 128 columns, n128 above 64, else n64; int8 has no
+    n64 form)."""
+    if n > 128:
+        return "ss256"
+    return "ss64" if n <= 64 and _probe_dtype(dtype) == "bf16" else "ss128"
+
+
+@dataclass(frozen=True)
+class MmaProbePlan:
+    """How ``mma_probe`` cuts its work (``csrc/mma_probe.cu`` recomputes it
+    and refuses a launch whose plan differs). A unit is (an M tile of
+    ``rows``, an N tile of the instruction's ``ni`` columns, a K chunk of
+    ``chunk_steps`` k steps of 32 bytes, a slice of the R passes); one CTA
+    a unit, ``grid`` of them, each writing a partial of ``scratch``
+    accumulators that a second kernel sums."""
+
+    M: int
+    N: int
+    K: int
+    reps: int
+    dtype: str
+    form: str
+    ni: int
+    rs: bool
+    rows: int
+    m_tiles: int
+    n_tiles: int
+    steps: int  # k steps of 32 bytes along K
+    chunk_steps: int
+    chunks: int
+    slices: int
+    smem: int
+    grid: int
+    scratch: int  # accumulators (4 bytes each)
+
+    def words(self) -> Tuple[int, ...]:
+        """What the C entry checks, in its order."""
+        return (self.chunk_steps, self.chunks, self.slices, self.smem, self.grid, self.scratch)
+
+    def unit(self, u: int) -> dict:
+        """Unit u's tiles: rows m0.., columns n0.., K elements k0 .. k0 +
+        k_len, passes r0 .. r1 (the kernel's decoding of blockIdx.x)."""
+        nt, u = u % self.n_tiles, u // self.n_tiles
+        mt, u = u % self.m_tiles, u // self.m_tiles
+        chunk, slice_ = u % self.chunks, u // self.chunks
+        per_step = 32 // (2 if self.dtype == "bf16" else 1)
+        steps = min(self.chunk_steps, self.steps - chunk * self.chunk_steps)
+        return {"m0": mt * self.rows, "n0": nt * self.ni, "chunk": chunk, "slice": slice_,
+                "k0": chunk * self.chunk_steps * per_step, "k_len": steps * per_step,
+                "r0": slice_ * self.reps // self.slices,
+                "r1": (slice_ + 1) * self.reps // self.slices}
+
+
+@functools.lru_cache(maxsize=256)
+def mma_probe_plan(M: int, N: int, K: int, reps: int, dtype, form: str,
+                   sms: int) -> MmaProbePlan:
+    """P1's work units on a card of ``sms`` SMs (runs on the CPU). A K chunk
+    holds as many k steps as fit A, A + 1 and B^T in shared memory (SS) or
+    A and A + 1 in registers (RS), in chunks as even as the steps allow; R
+    is cut into slices, never more than the passes: of the counts from the
+    fewest whose units reach the SM count up to ``MMA_PROBE_WAVES_MAX``
+    waves, the fewest whose units fill their waves of one CTA an SM best
+    (whole waves where a count gives them)."""
+    name = _probe_dtype(dtype)
+    if form not in MMA_PROBE_FORMS[name]:
+        raise ValueError(f"mma probe: no {form!r} form in {name} "
+                         f"(forms: {sorted(MMA_PROBE_FORMS[name])})")
+    if K % 32 or K <= 0 or M <= 0 or N <= 0 or reps < 0 or sms <= 0:
+        raise ValueError(f"mma probe takes K % 32 == 0 and positive M, N, K (got M={M} K={K} "
+                         f"N={N}), reps >= 0 (got {reps})")
+    ni, rs = MMA_PROBE_FORMS[name][form]
+    rows = MMA_PROBE_ROWS
+    steps = K * (2 if name == "bf16" else 1) // 32
+    m_tiles, n_tiles = -(-M // rows), -(-N // ni)
+    max_steps = (MMA_PROBE_RS_MAX_STEPS if rs
+                 else 4 * ((MMA_PROBE_SMEM_LIMIT - 1024) // ((2 * rows + ni) * 128)))
+    chunks = -(-steps // max_steps)
+    chunk_steps = -(-steps // chunks)
+    nbytes = ni * chunk_steps * 32 if rs else (2 * rows + ni) * 128 * -(-chunk_steps // 4)
+    smem = max(1024 + nbytes, MMA_PROBE_ONE_CTA)
+    base = m_tiles * n_tiles * chunks
+    slices = 1
+    if reps > 1:
+        lo = min(reps, -(-sms // base))
+        hi = max(lo, min(reps, MMA_PROBE_WAVES_MAX * sms // base))
+        best_units, best_slots = 0, 1  # the best fill so far, units / slots
+        for s in range(lo, hi + 1):
+            units, slots = base * s, -(-(base * s) // sms) * sms
+            if units * best_slots > best_units * slots:
+                slices, best_units, best_slots = s, units, slots
+    return MmaProbePlan(M=M, N=N, K=K, reps=reps, dtype=name, form=form, ni=ni, rs=rs, rows=rows,
+                        m_tiles=m_tiles, n_tiles=n_tiles, steps=steps, chunk_steps=chunk_steps,
+                        chunks=chunks, slices=slices, smem=smem, grid=base * slices,
+                        scratch=slices * chunks * m_tiles * rows * n_tiles * ni)
 
 
 def mma_probe(a: torch.Tensor, b: torch.Tensor, reps: int,
-              ctas_per_sm: int = 1) -> Tuple[torch.Tensor, int]:
+              form: Optional[str] = None) -> torch.Tensor:
     """gen3c_mma_probe (P1): sum over i < reps of (a + i % 2) @ b for a (M,
     K) and b (K, N), both bf16 (fp32 out) or both int8 (int32 out), K a
-    multiple of 32 up to 1024. Returns (out, the CTAs launched): at least
-    ``ctas_per_sm`` CTAs per SM, each holding a 64-row block of the output
-    with its operands in shared memory (``mma_probe_cols`` columns); a
-    small output is computed several times over."""
+    multiple of 32, issued as ``form`` (``MMA_PROBE_FORMS``; default the
+    headline ``mma_probe_form``) over ``mma_probe_plan``'s units: one CTA
+    each, its operands resident in shared memory, then a pass that sums the
+    units' partials."""
     if not (a.is_cuda and b.device == a.device) or a.dtype != b.dtype:
         raise ValueError("mma probe: a and b must share one CUDA device and dtype")
-    if a.dtype not in (torch.bfloat16, torch.int8):
-        raise TypeError(f"mma probe takes bf16 or int8, got {a.dtype}")
+    name = _probe_dtype(a.dtype)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"mma probe: bad shapes {tuple(a.shape)} x {tuple(b.shape)}")
     (M, K), N = a.shape, b.shape[1]
-    if K % 32 or not 0 < K <= 1024 or M == 0 or N == 0 or reps < 0 or ctas_per_sm < 1:
-        raise ValueError(f"mma probe takes K % 32 == 0, K <= 1024 (got M={M} K={K} N={N}), "
-                         f"reps >= 0 (got {reps})")
-    int8 = a.dtype == torch.int8
-    a, bT = a.contiguous(), b.t().contiguous()
-    out = torch.empty((M, N), dtype=torch.int32 if int8 else torch.float32, device=a.device)
-    bn = mma_probe_cols(K, a.element_size())
-    min_ctas = ctas_per_sm * torch.cuda.get_device_properties(a.device).multi_processor_count
-    _check(library().gen3c_mma_probe(a.data_ptr(), bT.data_ptr(), out.data_ptr(), M, N, K,
-                                     int(reps), int(int8), bn, min_ctas, _stream(a)), "mma_probe")
-    return out, max(-(-M // 64) * -(-N // bn), min_ctas)
+    form = mma_probe_form(N, name) if form is None else form
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    plan = mma_probe_plan(M, N, K, int(reps), name, form, sms)
+    a = _aligned(a.contiguous())
+    if plan.rs:  # b as it lies, (K, N): rows padded with zeros to whole 16-byte pieces
+        bmat = b.contiguous() if N % 8 == 0 else torch.nn.functional.pad(b, (0, 8 - N % 8))
+        bmat, pitch = _aligned(bmat), bmat.shape[1]
+    else:  # b^T (N, K), K-major as the A operand
+        bmat, pitch = _aligned(b.t().contiguous()), K
+    acc = torch.int32 if name == "int8" else torch.float32
+    partial = torch.empty(plan.scratch, dtype=acc, device=a.device)
+    out = torch.empty((M, N), dtype=acc, device=a.device)
+    words = (ctypes.c_longlong * len(plan.words()))(*plan.words())
+    with torch.cuda.device(a.device):  # the C entry checks the plan against this device
+        rc = library().gen3c_mma_probe(a.data_ptr(), bmat.data_ptr(), partial.data_ptr(),
+                                       out.data_ptr(), M, N, K, pitch, int(reps),
+                                       int(name == "int8"), plan.ni, int(plan.rs), words,
+                                       _stream(a))
+    _check(rc, "mma_probe")
+    return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself where its data starts on 16 bytes, else a fresh copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -23,7 +23,8 @@ non-Pallas paths:
     (:205-316) with the scatter-add as ``index_add_`` (the ``.at[].add`` of
     :299-300).
   * ``mma_probe_reference``: the loop of scripts/probe_int8_attention.py's
-    Pallas kernel (:37-62), P1's plain version.
+    Pallas kernel (:37-62), P1's plain version; ``mma_probe_stacked`` the
+    same sum as the operands of one product (P1's library yardstick).
   * ``ray_triangle_depth_reference``: gen3c_tpu/ops/raycast.py
     ``ray_triangle_depth`` (:97-140), K6's plain version, chunked over rays.
 """
@@ -284,6 +285,25 @@ def mma_probe_reference(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Te
     for i in range(reps):
         acc += (a.float() + i % 2).to(a.dtype).float() @ bf
     return acc
+
+
+def mma_probe_stacked(a: torch.Tensor, b: torch.Tensor,
+                      reps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """P1's sum as one product: (a', b'^T) with a' = [a | a + 1 | a | ...]
+    (M, reps K) and b'^T = [b^T | b^T | ...] (N, reps K), a + 1 rounded or
+    wrapped as in ``mma_probe_reference``, so that a' @ b' is the sum over
+    i < reps of (a + i % 2) @ b. The operands of P1's library yardstick (one
+    ``torch.mm`` or ``torch._int_mm``); the port never computes P1 so."""
+    (M, K), N = a.shape, b.shape[1]
+    if a.dtype == torch.int8:
+        a1 = (a.to(torch.int16) + 1).to(torch.int8)
+    else:
+        a1 = (a.float() + 1).to(a.dtype)
+    stacked = torch.empty((M, reps, K), dtype=a.dtype, device=a.device)
+    stacked[:, 0::2] = a[:, None]
+    stacked[:, 1::2] = a1[:, None]
+    bT = b.t()[:, None, :].expand(N, reps, K).reshape(N, reps * K)
+    return stacked.reshape(M, reps * K), bT
 
 
 def splat_max_logd(depth: torch.Tensor, group: Optional[int] = None) -> torch.Tensor:

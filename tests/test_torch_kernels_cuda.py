@@ -8,7 +8,8 @@ the test, never at import). Run on a GPU machine with
 Shapes cover what the wrappers promise: bf16 and fp32, head dims from 8 to
 128 (zero-padded to the MMA depth), ragged Lq and Lk, strided inputs,
 temporal bands whose frames straddle the 64-key tiles, several splat
-groups in one launch, int8 GEMMs of any M, N, K and row layout, K7q in
+groups in one launch, int8 GEMMs of any M, N, K and row layout, every
+instruction form of P1 at ragged shapes with K cut into chunks, K7q in
 one pass at any K and row alignment, and K4 (the attention
 backward) at ragged self and cross shapes, K6 (the ray-triangle depth)
 at ragged ray and triangle counts and bit for bit at T = 0, 1, a
@@ -268,33 +269,41 @@ def test_band_backward_full_window_is_k4(gen, dtype):
     assert all(torch.equal(a, c) for a, c in zip(full, banded))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+_P1_FORMS = [(dtype, form) for dtype, forms in kcuda.MMA_PROBE_FORMS.items() for form in forms]
+
+
+@pytest.mark.parametrize("dtype,form", _P1_FORMS)
 @pytest.mark.parametrize("m,k,n,reps", [(64, 128, 64, 1), (200, 256, 130, 3), (512, 1024, 512, 2),
-                                        (1408, 1024, 128, 2), (1408, 128, 1024, 4), (1, 32, 1, 5)])
-def test_mma_probe_matches_reference(gen, dtype, m, k, n, reps):
-    """P1 against its plain version: int8 exactly (small integers: int32
-    cannot wrap); bf16 within fp32 summation order, 1e-5 of reps * (|a| +
-    1) @ |b| per element."""
-    if dtype == torch.int8:
-        a = torch.randint(-100, 100, (m, k), generator=gen, device="cuda").to(torch.int8)
-        a[0, :4] = 127  # a + 1 wraps to -128 on odd passes, as the Pallas add does
-        b = torch.randint(-100, 100, (k, n), generator=gen, device="cuda").to(torch.int8)
-    else:
-        a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-        b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+                                        (1408, 1024, 128, 2), (1408, 128, 1024, 4), (1, 32, 1, 5),
+                                        (200, 256, 130, 5), (333, 1056, 200, 9), (64, 64, 64, 0)])
+def test_mma_probe_matches_reference(gen, dtype, form, m, k, n, reps):
+    """Every P1 form against its plain version: int8 exactly (a + 1 wraps
+    on a's 127s; small integers, so int32 cannot wrap); bf16 within fp32
+    summation order, 1e-5 of reps * (|a| + 1) @ |b| per element. The cases
+    hold K = 1,024 and 1,056 cut into chunks, odd R cut into slices that
+    start at odd passes, ragged M and N, and R = 0. The plan's grid is its
+    units, which reach the SM count wherever the work allows; a launch
+    whose plan is not the C entry's own is refused."""
+    from gen3c_tpu_torch.scripts import probe_int8_attention as probe
+
+    a, b = probe.operands(m, k, n, dtype, gen)
     before = kernels.launch_counts["P1"]
-    out = kernels.mma_probe(a, b, reps)
+    out = kernels.mma_probe(a, b, reps, form)
     want = kernels.mma_probe_reference(a, b, reps)
     torch.cuda.synchronize()
     assert kernels.launch_counts["P1"] == before + 1
     assert out.shape == (m, n) and out.dtype == want.dtype
-    if dtype == torch.int8:
+    if dtype == "int8":
         assert torch.equal(out, want)
     else:
         bound = reps * ((a.float().abs() + 1) @ b.float().abs())
         assert ((out - want).abs() <= 1e-5 * bound).all()
-    _, ctas = kcuda.mma_probe(a, b, reps)
-    assert ctas >= torch.cuda.get_device_properties(0).multi_processor_count
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = kcuda.mma_probe_plan(m, n, k, reps, dtype, form, sms)
+    base = plan.m_tiles * plan.n_tiles * plan.chunks
+    assert plan.grid == base * plan.slices
+    if base * reps >= sms:
+        assert plan.grid >= sms
 
 
 def test_attention_without_grad_is_the_forward_launch(gen):

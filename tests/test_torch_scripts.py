@@ -224,9 +224,48 @@ def test_scripts_refuse_to_run_without_a_card(main):
 
 
 def test_probe_sweeps_the_jax_scripts_cases():
+    """P1's sweep: the JAX script's shapes at its R, each dtype's headline
+    form (the widest the N tile allows) first, and at the block shapes the
+    port's own forms no wider than the N tile."""
     assert probe.SQUARE_K == (128, 256, 512, 1024)
     assert [s[:3] for s in probe.BLOCK_SHAPES] == [(1408, 128, 1024), (1408, 1024, 128)]
-    assert probe.CTAS_PER_SM == (1, 4)
+    cases = probe.cases()
+    forms = {}
+    for c in cases:
+        forms.setdefault((c["case"], c["dtype"]), []).append((c["form"], c["headline"]))
+    reps = {c["case"]: c["reps"] for c in cases}
+    assert reps == {"square K=128": 20000, "square K=256": 10000, "square K=512": 5000,
+                    "square K=1024": 2500, "QK^T": 8000, "PV": 1000, "K1 S tile": 64000,
+                    "K1 PV tile": 64000}
+    for k in probe.SQUARE_K:
+        for dtype in ("bf16", "int8"):
+            assert forms[f"square K={k}", dtype] == [("ss256", True)]
+    assert forms["QK^T", "bf16"] == [("ss256", True), ("ss64", False), ("ss128", False),
+                                     ("rs128", False)]
+    assert forms["QK^T", "int8"] == [("ss256", True), ("ss128", False)]
+    assert forms["PV", "bf16"] == [("ss128", True), ("ss64", False), ("rs128", False)]
+    assert forms["PV", "int8"] == [("ss128", True)]
+    # K1's tiles: S (1408, 128) x (128, 64) and P V (1408, 64) x (64, 128), bf16
+    assert forms["K1 S tile", "bf16"] == [("ss64", True)]
+    assert forms["K1 PV tile", "bf16"] == [("ss128", True), ("rs128", False)]
+    assert ("K1 S tile", "int8") not in forms
+    tiles = {c["case"]: (c["M"], c["K"], c["N"]) for c in cases if c["case"].startswith("K1")}
+    assert tiles == {"K1 S tile": (1408, 128, 64), "K1 PV tile": (1408, 64, 128)}
+    assert all(c["form"] in kcuda.MMA_PROBE_FORMS[c["dtype"]] for c in cases)
+
+
+def test_probe_ratios_pair_each_width_across_dtypes():
+    rows = [{"case": "QK^T", "dtype": d, "form": f, "rate": r, "sustained": {"rate": r / 2}}
+            for d, f, r in (("bf16", "ss256", 800.0), ("int8", "ss256", 1600.0),
+                            ("bf16", "ss128", 700.0), ("int8", "ss128", 1050.0),
+                            ("bf16", "ss64", 500.0))]
+    rows.append({"case": "PV", "dtype": "bf16", "form": "ss128", "rate": 600.0})
+    rows.append({"case": "PV", "dtype": "int8", "form": "ss128", "rate": 900.0})
+    got = probe.ratios(rows)
+    assert got == [
+        {"case": "QK^T", "form": "ss128", "int8_over_bf16": 1.5, "basis": "sustained"},
+        {"case": "QK^T", "form": "ss256", "int8_over_bf16": 2.0, "basis": "sustained"},
+        {"case": "PV", "form": "ss128", "int8_over_bf16": 1.5, "basis": "median"}]
 
 
 def test_sweep_configs_fit_shared_memory_and_warp_rows():
