@@ -87,6 +87,20 @@ Phases, each printing one JSON line of its own numbers:
  18 checkpoint  a 2-block GEN3C-7B-width net written as model.pt and as
              dit.npz and loaded back through build_gen3c_model, bits equal;
              a prompt encoder without its files raises
+ 19 serving  the inference server (serving.server.serve on 127.0.0.1, any
+             free port, driven over HTTP with urllib) around a
+             Gen3cPersistentModel of GEN3C-7B at full width (bf16, seeded,
+             gates randomized), MAIN_STEPS steps, depth from MoGe ViT-L
+             (seeded weights through GEN3C_MOGE_CHECKPOINT; moge_jax raises
+             without them): /seed-model on one 704x1280 image (MoGe on the
+             card), job A on a 241-frame path (two chunks, a 121-frame
+             partial seen on the way, the result fetched as JPEGs and
+             decoded), job B cancelled while queued behind A (never runs),
+             job C cancelled while its first chunk runs (cancelled after
+             exactly one chunk), /render-preview on a 5-frame path,
+             /metadata: seconds of each, job A's generate / chain / depth /
+             fetch split, the fetch's bytes, peak GiB and the launches of
+             K1, K2 (28 x MAIN_STEPS x 3 chunks), K5 and K1vit (24 x 2)
 Every bf16 attention case of phase 3 also prints its launches by body
 (kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
 registers, stack and spill bytes (ptxas -v, the build log) and dynamic
@@ -145,6 +159,7 @@ import argparse
 import contextlib
 import copy
 import gc
+import io
 import json
 import os
 import shutil
@@ -2127,6 +2142,252 @@ def phase_chain() -> dict:
     return res
 
 
+SERVING_FRAMES = 241  # two chunks
+SERVING_POLL_S = 0.25
+SERVING_TIMEOUT_S = 600  # each wait for a job's state
+
+
+def _http(method: str, url: str, body: Optional[bytes] = None):
+    """(status, body) of one request; an HTTP error status is returned."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=SERVING_TIMEOUT_S) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _serving_path(n: int, h: int, w: int, scale: float) -> dict:
+    """The smoke's "left" path (_run_chain's: 0.3 of the centre's depth) as
+    an InferenceRequest's cameras, centred on the seeded scene (``scale``:
+    its median depth, as a client authors a path in the scene it sees):
+    c2ws and focal lengths from the trajectory, K of a 0.8 * w focal, the
+    seed's."""
+    from gen3c_tpu_torch.ops.camera import generate_camera_trajectory
+
+    k = np.array([[0.8 * w, 0, w / 2], [0, 0.8 * w, h / 2], [0, 0, 1]], np.float32)
+    w2cs, ks = generate_camera_trajectory("left", np.eye(4, dtype=np.float32), k, n, 0.3,
+                                          "center_facing", scale)
+    ks = ks[0].numpy()
+    return {"cameras_to_world": np.linalg.inv(w2cs[0].numpy())[:, :3].astype(np.float32),
+            "focal_lengths": np.stack([ks[:, 0, 0], ks[:, 1, 1]], 1).astype(np.float32),
+            "principal_points": np.full((n, 2), 0.5, np.float32),
+            "resolutions": np.tile([[w, h]], (n, 1))}
+
+
+def phase_serving() -> dict:
+    """The inference server around the 7B (phase 19 of the docstring)."""
+    import threading
+
+    from PIL import Image
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.aux import moge
+    from gen3c_tpu_torch.pipelines.depth import make_depth_estimator
+    from gen3c_tpu_torch.scripts.time_main_path import seeded_moge_params
+    from gen3c_tpu_torch.serving.api_types import InferenceRequest, SeedingRequest
+    from gen3c_tpu_torch.serving.encoding import CompressionFormat, compress_images
+    from gen3c_tpu_torch.serving.models import Gen3cPersistentModel
+    from gen3c_tpu_torch.serving.serialization import dumps_api_message, loads_api_message
+    from gen3c_tpu_torch.serving.server import serve
+
+    tmp = tempfile.mkdtemp(prefix="smoke_serving_")
+    saved_env = os.environ.get("GEN3C_MOGE_CHECKPOINT")
+    server = service = model = None
+    try:
+        os.environ["GEN3C_MOGE_CHECKPOINT"] = os.path.join(tmp, "missing.pt")
+        try:
+            make_depth_estimator("moge_jax", device="cuda")
+            raise AssertionError("serving: moge_jax without its checkpoint did not raise")
+        except FileNotFoundError:
+            pass
+        ckpt = os.path.join(tmp, "moge.pt")
+        torch.save({k: v.cpu() for k, v in
+                    seeded_moge_params(moge.MOGE_VITL, 0, "cuda").items()}, ckpt)
+        os.environ["GEN3C_MOGE_CHECKPOINT"] = ckpt
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Gen3cPersistentModel("gen3c_7b", checkpoint_dir=None, num_steps=MAIN_STEPS,
+                                     depth_source="moge_jax", device="cuda")
+        _randomize_gates(model.model.net, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        ready_s = time.perf_counter() - t0
+        h, w, chunk = model.preset.height, model.preset.width, model.model.chunk_size
+        server, service = serve(host="127.0.0.1", port=0, model=model)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def status(rid: str) -> dict:
+            code, body = _http("GET", f"{base}/job-status?request_id={rid}")
+            if code != 200:
+                raise AssertionError(f"serving: job-status {rid}: {code} {body[:200]}")
+            st = json.loads(body)
+            if st["state"] == "error":
+                raise AssertionError(f"serving: job {rid} failed: {st}")
+            return st
+
+        def submit(rid: str, n: int) -> None:
+            req = InferenceRequest(request_id=rid, **_serving_path(n, h, w, scale))
+            code, body = _http("POST", f"{base}/request-inference", dumps_api_message(req))
+            if code != 202:
+                raise AssertionError(f"serving: request-inference {rid}: {code} {body[:200]}")
+
+        def wait(rid: str, states: tuple, on_poll=None) -> dict:
+            t_end = time.perf_counter() + SERVING_TIMEOUT_S
+            while time.perf_counter() < t_end:
+                st = status(rid)
+                if on_poll is not None:
+                    on_poll(st)
+                if st["state"] in states:
+                    return st
+                time.sleep(SERVING_POLL_S)
+            raise AssertionError(f"serving: job {rid} never reached {states}: {st}")
+
+        kernels.reset_launch_counts()
+        image = ((_seed_image(h, w, 5)[0, :, 0].transpose(1, 2, 0) + 1) * 127.5).round()
+        seed = SeedingRequest(request_id="seed", images=image.astype(np.uint8)[None],
+                              cameras_to_world=np.eye(4, dtype=np.float32)[:3][None],
+                              focal_lengths=np.full((1, 2), 0.8 * w, np.float32),
+                              principal_points=np.full((1, 2), 0.5, np.float32))
+        t0 = time.perf_counter()
+        code, body = _http("POST", f"{base}/seed-model", dumps_api_message(seed))
+        seed_s = time.perf_counter() - t0
+        if code != 200:
+            raise AssertionError(f"serving: seed-model: {code} {body[:500]}")
+        seeded = loads_api_message(body)
+        seed_launches = dict(kernels.launch_counts)
+        scale = float(np.median(seeded.depths))
+
+        # A runs; B waits behind it and is cancelled there
+        t_a = time.perf_counter()
+        submit("A", SERVING_FRAMES)
+        submit("B", SERVING_FRAMES)
+        code, _ = _http("POST", f"{base}/cancel-inference?request_id=B")
+        if code != 200 or status("B")["state"] != "cancelled":
+            raise AssertionError(f"serving: B not cancelled while pending: {code}")
+        partial = {}
+
+        def see_partial(st):
+            if st["state"] == "running" and st["frames_done"] and "frames" not in partial:
+                t0 = time.perf_counter()
+                code, body = _http("GET", f"{base}/inference-result?request_id=A&partial=1")
+                if code == 206:
+                    part = loads_api_message(body)
+                    # the raw frames' JSON is built and parsed in this process,
+                    # beside the worker's chain
+                    partial.update(frames=len(part.images), shape=list(part.images.shape),
+                                   frames_done=st["frames_done"], bytes=len(body),
+                                   seen_after_s=t0 - t_a, fetch_s=time.perf_counter() - t0)
+
+        done = wait("A", ("done", "cancelled"), see_partial)
+        generate_a_s = time.perf_counter() - t_a
+        timings_a = model.last_timings
+        t0 = time.perf_counter()
+        code, body = _http("GET", f"{base}/inference-result?request_id=A&format=jpg")
+        fetch_transfer_s = time.perf_counter() - t0
+        if code != 200:
+            raise AssertionError(f"serving: inference-result A: {code} {body[:200]}")
+        fetch_bytes = len(body)
+        result = loads_api_message(body)
+        frames = np.stack([np.asarray(Image.open(io.BytesIO(b)).convert("RGB"))
+                           for b in result.images_compressed])
+        fetch_s = time.perf_counter() - t0
+        # the fetched last frame is the JPEG of the model's last frame, byte
+        # for byte (the same encoder on the same frame)
+        last_jpg = compress_images(model.get_latest_rgb()[None].astype(np.float32) / 255.0,
+                                   CompressionFormat.JPG)[0]
+        last_equal = result.images_compressed[-1] == last_jpg
+
+        # C is cancelled while its first chunk runs
+        t_c = time.perf_counter()
+        submit("C", SERVING_FRAMES)
+        wait("C", ("running",))
+        code, _ = _http("POST", f"{base}/cancel-inference?request_id=C")
+        cancel_sent_s = time.perf_counter() - t_c
+        cancelled = wait("C", ("cancelled", "done"))
+        cancel_s = time.perf_counter() - t_c
+        chunks_c = len(model.last_timings["generate"])
+        b_state = status("B")
+
+        t0 = time.perf_counter()
+        code, body = _http("POST", f"{base}/render-preview",
+                           dumps_api_message(InferenceRequest(
+                               request_id="P", **_serving_path(5, h, w, scale))))
+        preview_s = time.perf_counter() - t0
+        if code != 200:
+            raise AssertionError(f"serving: render-preview: {code} {body[:200]}")
+        preview = loads_api_message(body).images
+        launches = dict(kernels.launch_counts)
+        code, body = _http("GET", f"{base}/metadata")
+        meta = json.loads(body)
+        res = {
+            "model": model.preset.name, "steps": MAIN_STEPS, "depth": "moge_jax (ViT-L, seeded)",
+            "model_ready_s": ready_s, "seed_request_s": seed_s,
+            "seed_depth_shape": list(seeded.depths.shape), "seed_depth_median": scale,
+            "job_a": {"frames": SERVING_FRAMES, "state": done["state"], "wall_s": generate_a_s,
+                      "generate_s": timings_a["generate"], "render_s": timings_a["render"],
+                      "depth_s": timings_a["depth"], "update_s": timings_a["update"],
+                      "chain_s": sum(timings_a["render"][1:]) + sum(timings_a["update"]),
+                      "denoise_step_s": [[s["seconds"] for s in p["denoise_steps"]]
+                                         for p in timings_a["pipeline"]],
+                      "partial": partial, "fetch_s": fetch_s,
+                      "fetch_transfer_s": fetch_transfer_s, "fetch_bytes": fetch_bytes,
+                      "jpeg_bytes": sum(len(b) for b in result.images_compressed),
+                      "fetched_shape": list(frames.shape), "last_frame_jpg_equal": last_equal,
+                      "frames_std": float(frames.std())},
+            "job_b": b_state,
+            "job_c": {"state": cancelled["state"], "frames_done": cancelled["frames_done"],
+                      "progress": cancelled["progress"], "chunks_run": chunks_c,
+                      "cancel_sent_after_s": cancel_sent_s, "cancelled_after_s": cancel_s},
+            "preview_s": preview_s, "preview_shape": list(preview.shape),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "seed_launches": seed_launches, "launches": launches, "metadata": meta,
+        }
+        emit("serving", **res)
+        want = 28 * MAIN_STEPS * 3  # A's two chunks and C's one
+        bad = []
+        if done["state"] != "done" or frames.shape != (SERVING_FRAMES, h, w, 3) \
+                or frames.dtype != np.uint8:
+            bad.append(f"job A {done['state']}, fetched {frames.shape} {frames.dtype}")
+        if partial.get("frames") != chunk or partial.get("shape") != [chunk, h, w, 3]:
+            bad.append(f"job A's partial {partial}")
+        if not last_equal or frames.std() == 0:
+            bad.append(f"job A's frames: last JPEG equal {last_equal}, std {frames.std()}")
+        if b_state["state"] != "cancelled" or b_state["frames_done"]:
+            bad.append(f"job B {b_state}")
+        if cancelled["state"] != "cancelled" or cancelled["frames_done"] != chunk or chunks_c != 1:
+            bad.append(f"job C {cancelled}, {chunks_c} chunks")
+        if preview.shape != (5, h, w, 3) or not preview.any():
+            bad.append(f"preview {preview.shape}")
+        if not meta.get("seeded") or meta.get("chunk_size") != chunk:
+            bad.append(f"metadata {meta}")
+        if launches["K1"] != want or launches["K2"] != want or launches["K5"] == 0 \
+                or launches["K1vit"] != 24 * 2 or seed_launches["K1vit"] != 24:
+            bad.append(f"launches {launches} (K1 = K2 = {want}, K1vit 48, K5 > 0)")
+        if bad:
+            raise AssertionError(f"serving: {bad}")
+        return res
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            service.shutdown()
+            service.worker.join(timeout=SERVING_TIMEOUT_S)
+        # the next phase needs the card: the handler class, the service and
+        # its worker hold the model
+        server = service = model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved_env is None:
+            os.environ.pop("GEN3C_MOGE_CHECKPOINT", None)
+        else:
+            os.environ["GEN3C_MOGE_CHECKPOINT"] = saved_env
+
+
 def _cut_rel_err(a: torch.Tensor, ref: torch.Tensor) -> dict:
     m = ref.float().abs().mean()
     d = (a.float().cpu() - ref.float()).abs()
@@ -2702,6 +2963,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cp_runs = phase_cp(main_latent, cp_refs)["runs"]
+    phase_serving()
     fast_launches = phase_fast()["launches"]
     phase_fast_parity()
     phase_chain()

@@ -5,7 +5,9 @@ Generate a chunk; for each further chunk estimate the depth of the last
 frame, insert it into the 3D cache (``update_cache``), re-render the warp
 buffers for the next window (one frame of overlap) and generate again.
 The chain runs serially: the JAX package's overlap thread hid a slow host
-fetch that this port does not have.
+fetch that this port does not have. ``on_chunk`` reports each finished
+chunk (serving's progress and partial results, the CLIs' incremental
+save) and ``cancel_event`` stops the loop between chunks.
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ from gen3c_tpu_torch.pipelines.gen3c_pipeline import synchronize
 from gen3c_tpu_torch.utils import log
 
 
+class GenerationCancelled(Exception):
+    """Raised when a cancel_event is set between AR chunks."""
+
+
 def run_chunked_generation(
     pipeline,
     cache,
@@ -33,8 +39,15 @@ def run_chunked_generation(
     use_start_frame_idx: bool = False,  # Cache4D: chunk c renders its own source frames
     save_buffer: bool = False,
     timings: Optional[dict] = None,
+    on_chunk: Optional[Callable] = None,  # (chunks_done, num_chunks, video_so_far)
+    cancel_event=None,  # threading.Event-like, polled between chunks
 ) -> Tuple[np.ndarray, List[np.ndarray]]:
     """Returns (video (T, H, W, 3) uint8, list of warp buffers).
+
+    ``on_chunk(chunks_done, num_chunks, video_so_far)`` is called after
+    every finished chunk. ``cancel_event.is_set()`` is polled before the
+    first render and before each later chunk, and raises
+    ``GenerationCancelled``: a running chunk finishes first.
 
     ``use_start_frame_idx`` renders the window [start, end) of a
     per-frame cache (``Cache4D``) from its own source frames.
@@ -84,6 +97,11 @@ def run_chunked_generation(
         timings["generate"].append(time.perf_counter() - t0)
         return video
 
+    def check_cancel():
+        if cancel_event is not None and cancel_event.is_set():
+            raise GenerationCancelled()
+
+    check_cancel()
     log.info(f"Generating frames 0 - {chunk}")
     before = chunk_start()
     warp_images, warp_masks = render(0, chunk)
@@ -91,10 +109,13 @@ def run_chunked_generation(
     video = generate(seed_frames, warp_images, warp_masks)
     del warp_images, warp_masks
     chunk_end(before)
+    if on_chunk is not None:
+        on_chunk(1, num_iters, video)
 
     for it in range(1, num_iters):
         start = it * (chunk - 1)
         end = start + chunk
+        check_cancel()
         log.info(f"Generating frames {start} - {end}")
         last = video[-1].astype(np.float32) / 255.0  # (H, W, 3) in [0, 1]
         before = chunk_start()
@@ -120,6 +141,8 @@ def run_chunked_generation(
         del warp_images, warp_masks
         chunk_end(before)
         video = np.concatenate([video, video_new[1:]], axis=0)
+        if on_chunk is not None:
+            on_chunk(it + 1, num_iters, video)
     return video, all_warps
 
 

@@ -29,7 +29,7 @@ from gen3c_tpu_torch.pipelines.chunked import compose_buffer_video, run_chunked_
 from gen3c_tpu_torch.pipelines.data_loaders import load_multiview_npz
 from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
 from gen3c_tpu_torch.utils import log
-from gen3c_tpu_torch.utils.io import save_video
+from gen3c_tpu_torch.utils.io import IncrementalVideoSaver
 
 
 def create_parser() -> argparse.ArgumentParser:
@@ -98,18 +98,21 @@ def demo(args, built: Optional[tuple] = None, record: Optional[dict] = None) -> 
         cfg_rescale=args.cfg_rescale)
     cache, w2cs, ks, seed_frames = load_scene(args, torch.device(args.device))
     record = {} if record is None else record
+    saver = IncrementalVideoSaver(args.fps)
     video, all_warps = run_chunked_generation(
         pipeline, cache, w2cs, ks, seed_frames, prompt=args.prompt,
         negative_prompt=args.negative_prompt or None, update_cache_with_depth=None,
-        save_buffer=args.save_buffer, timings=record)
+        save_buffer=args.save_buffer, timings=record,
+        on_chunk=(None if args.save_buffer or process_rank() != 0
+                  else lambda done, total, v: saver.update(v)))
     record["pipeline"] = pipeline.last_timings
     record["selections"] = cache.selections
     final = compose_buffer_video(video, all_warps, preset.height, preset.width)
     record["video"] = final
     if process_rank() != 0:  # every rank holds the video; rank 0 writes it
         return ""
-    save_path = save_video(final, args.fps,
-                           os.path.join(args.video_save_folder, f"{args.video_save_name}.mp4"))
+    save_path = saver.save(final, os.path.join(args.video_save_folder,
+                                               f"{args.video_save_name}.mp4"))
     log.info(f"Saved video to {save_path}")
     return save_path
 

@@ -39,7 +39,8 @@ from gen3c_tpu_torch.pipelines.depth import make_depth_estimator
 from gen3c_tpu_torch.pipelines.factory import PRESETS
 from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline, synchronize
 from gen3c_tpu_torch.utils import log
-from gen3c_tpu_torch.utils.io import read_image_bcthw, read_prompts_from_file, save_video
+from gen3c_tpu_torch.utils.io import (IncrementalVideoSaver, read_image_bcthw,
+                                      read_prompts_from_file)
 
 
 def create_parser() -> argparse.ArgumentParser:
@@ -212,6 +213,11 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name,
     )
     if device.type == "cuda":
         record["setup_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    # each finished chunk's frames are JPEG-encoded while the next denoises;
+    # not with --save_buffer, whose composed frames all differ
+    saver = IncrementalVideoSaver(args.fps)
+    on_chunk = (None if args.save_buffer or process_rank() != 0
+                else lambda done, total, v: saver.update(v))
     timings = {}
     t0 = time.perf_counter()
     video, all_warps = run_chunked_generation(
@@ -222,6 +228,7 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name,
         update_cache_with_depth=estimator,
         save_buffer=args.save_buffer,
         timings=timings,
+        on_chunk=on_chunk,
     )
     chunk_peaks, chunk_launches = timings.pop("peak_gib"), timings.pop("launches")
     record.update(timings, chunked_generation=time.perf_counter() - t0,
@@ -232,8 +239,7 @@ def _generate_one(args, preset, pipeline, device, image_path, prompt, save_name,
         return ""
     t0 = time.perf_counter()
     final_video = compose_buffer_video(video, all_warps, h, w)
-    save_path = save_video(final_video, args.fps,
-                           os.path.join(args.video_save_folder, f"{save_name}.mp4"))
+    save_path = saver.save(final_video, os.path.join(args.video_save_folder, f"{save_name}.mp4"))
     record["save"] = time.perf_counter() - t0
     log.info(f"Saved video to {save_path}")
     return save_path

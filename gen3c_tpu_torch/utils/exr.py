@@ -1,8 +1,9 @@
-"""OpenEXR scanline reader for depth files (no OpenEXR or cv2 needed).
+"""OpenEXR scanline codec for depth files (no OpenEXR or cv2 needed).
 
-The port's own copy of the reading half of gen3c_tpu/utils/exr.py:
-single-part scanline files, EXR version 2, compression NONE, ZIPS or ZIP,
-pixel types HALF, FLOAT and UINT. Unlike that module it checks the
+The port's own copy of gen3c_tpu/utils/exr.py: single-part scanline files,
+EXR version 2, compression NONE, ZIPS or ZIP, pixel types HALF, FLOAT and
+UINT; the writer gives that module's bytes. Unlike that module the reader
+checks the
 header's extents and the offset table against the size of the data before
 it allocates or reads, so a malformed or hostile file raises ValueError
 and not an IndexError, a struct.error or a huge allocation.
@@ -18,9 +19,24 @@ import numpy as np
 
 _MAGIC = 0x01312F76
 _PIXEL_DTYPES = {0: np.dtype("<u4"), 1: np.dtype("<f2"), 2: np.dtype("<f4")}
+_PIXEL_TYPES = {dt: code for code, dt in _PIXEL_DTYPES.items()}
 _LINES_PER_CHUNK = {0: 1, 2: 1, 3: 16}  # NONE, ZIPS, ZIP
 _COMPRESSION_NAMES = {0: "NONE", 1: "RLE", 2: "ZIPS", 3: "ZIP", 4: "PIZ", 5: "PXR24",
                       6: "B44", 7: "B44A", 8: "DWAA", 9: "DWAB"}
+
+
+def _zip_encode(raw: bytes) -> bytes:
+    """OpenEXR ZIP chunk encode: split the bytes into two halves, delta
+    predictor, deflate."""
+    a = np.frombuffer(raw, np.uint8)
+    half = (a.size + 1) // 2
+    t = np.empty(a.size, np.uint8)
+    t[:half] = a[0::2]
+    t[half:] = a[1::2]
+    d = np.empty(a.size, np.int16)
+    d[0] = t[0]
+    d[1:] = t[1:].astype(np.int16) - t[:-1].astype(np.int16) + 128
+    return zlib.compress(d.astype(np.uint8).tobytes())
 
 
 def _zip_decode(data: bytes, raw_size: int) -> bytes:
@@ -159,3 +175,69 @@ def read_exr_depth(data: bytes, channel: Optional[str] = None) -> np.ndarray:
     if channel not in chans:
         raise ValueError(f"EXR has no channel {channel!r} (has {sorted(chans)})")
     return chans[channel].astype(np.float32)
+
+
+def _attr(name: str, type_: str, data: bytes) -> bytes:
+    return name.encode() + b"\0" + type_.encode() + b"\0" + struct.pack("<i", len(data)) + data
+
+
+def write_exr(channels: Dict[str, np.ndarray], compression: str = "zip") -> bytes:
+    """(H, W) channel arrays -> single-part scanline EXR bytes. float16 is
+    written as HALF, float32 as FLOAT, uint32 as UINT, anything else as
+    float32; compression "none", "zips" or "zip"."""
+    comp = {"none": 0, "zips": 2, "zip": 3}.get(compression.lower())
+    if comp is None:
+        raise ValueError(f"Unsupported EXR compression {compression!r}")
+    if not channels:
+        raise ValueError("write_exr needs at least one channel")
+    names = sorted(channels)  # the channel list is sorted by name
+    arrs = []
+    h = w = None
+    for name in names:
+        a = np.asarray(channels[name])
+        if a.ndim != 2:
+            raise ValueError(f"Channel {name!r} must be (H, W), got {a.shape}")
+        if a.dtype not in _PIXEL_TYPES:
+            a = a.astype(np.float32)
+        a = a.astype(a.dtype.newbyteorder("<"), copy=False)
+        if h is None:
+            h, w = a.shape
+        elif a.shape != (h, w):
+            raise ValueError("All EXR channels must share one (H, W)")
+        arrs.append(a)
+    chlist = b"".join(name.encode() + b"\0" + struct.pack("<i", _PIXEL_TYPES[a.dtype])
+                      + b"\0\0\0\0" + struct.pack("<ii", 1, 1)  # pLinear, reserved, sampling
+                      for name, a in zip(names, arrs)) + b"\0"
+    box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
+    header = (_attr("channels", "chlist", chlist)
+              + _attr("compression", "compression", struct.pack("<B", comp))
+              + _attr("dataWindow", "box2i", box)
+              + _attr("displayWindow", "box2i", box)
+              + _attr("lineOrder", "lineOrder", b"\0")
+              + _attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + _attr("screenWindowCenter", "v2f", struct.pack("<ff", 0.0, 0.0))
+              + _attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+              + b"\0")
+    lpc = _LINES_PER_CHUNK[comp]
+    chunks = []
+    for y0 in range(0, h, lpc):
+        # a chunk: each scanline's channels in the list's order
+        raw = b"".join(a[y].tobytes() for y in range(y0, min(y0 + lpc, h)) for a in arrs)
+        data = raw if comp == 0 else _zip_encode(raw)
+        if comp != 0 and len(data) >= len(raw):
+            data = raw  # stored raw where deflate does not help, as OpenEXR does
+        chunks.append(struct.pack("<ii", y0, len(data)) + data)
+    head = struct.pack("<II", _MAGIC, 2) + header
+    offset = len(head) + 8 * len(chunks)
+    table = []
+    for c in chunks:
+        table.append(struct.pack("<Q", offset))
+        offset += len(c)
+    return head + b"".join(table) + b"".join(chunks)
+
+
+def write_exr_depth(depth: np.ndarray, channel: str = "Z", half: bool = False,
+                    compression: str = "zip") -> bytes:
+    """One (H, W) depth plane as EXR bytes (float32, or float16 with half)."""
+    depth = np.asarray(depth).astype(np.float16 if half else np.float32)
+    return write_exr({channel: depth}, compression=compression)

@@ -41,3 +41,13 @@ def warning(msg: str, rank0_only: bool = True) -> None:
     if not rank0_only or _rank() == 0:
         get_logger().warning(msg)
 
+
+
+def error(msg: str, rank0_only: bool = True) -> None:
+    if not rank0_only or _rank() == 0:
+        get_logger().error(msg)
+
+
+def debug(msg: str, rank0_only: bool = True) -> None:
+    if not rank0_only or _rank() == 0:
+        get_logger().debug(msg)

@@ -847,7 +847,8 @@ def test_offload_flags_are_no_ops_on_the_card(tmp_path, monkeypatch):
     Image.fromarray((np.random.default_rng(0).uniform(size=(96, 160, 3)) * 255)
                     .astype(np.uint8)).save(img)
     videos = []
-    monkeypatch.setattr(cli, "save_video", lambda video, fps, path: videos.append(video) or path)
+    monkeypatch.setattr(cli.IncrementalVideoSaver, "save",
+                        lambda self, video, path: videos.append(video) or path)
     for flags in ([], ["--offload_diffusion_transformer", "--offload_tokenizer"]):
         args = cli.create_parser().parse_args(
             ["--device", "cuda", "--model_preset", "gen3c_tiny", "--num_steps", "2",

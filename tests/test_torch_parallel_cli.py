@@ -11,7 +11,9 @@ all-reduced statistics run in another order. Rank 0 alone writes the video.
 The runs see a stand-in ``imageio`` whose ``mimsave`` stores the frames
 losslessly (np.save) where the mp4 would go: the lossy codecs (the mp4, or
 the MJPEG AVI written without imageio) turn a one-level change of a pixel
-into changes of up to ~20 levels across its 8x8 block.
+into changes of up to ~20 levels across its 8x8 block. A stand-in
+``imageio_ffmpeg`` names an ffmpeg, so that the CLI's incremental saver,
+as with a real ffmpeg, leaves the save to ``save_video``'s mp4.
 """
 
 import os
@@ -40,6 +42,11 @@ def mimsave(path, video, *args, **kwargs):
 """
 
 
+_FFMPEG_PRESENT = """def get_ffmpeg_exe():
+    return "ffmpeg"
+"""
+
+
 def _run(tmp_path, name, frames, ranks=1, flags=()):
     """One CLI run; returns (frames as uint8 (F, H, W, 3), its log)."""
     img = tmp_path / "in.png"
@@ -47,6 +54,7 @@ def _run(tmp_path, name, frames, ranks=1, flags=()):
         _tiny_image(img)
         (tmp_path / "stub").mkdir()
         (tmp_path / "stub" / "imageio.py").write_text(_LOSSLESS_IMAGEIO)
+        (tmp_path / "stub" / "imageio_ffmpeg.py").write_text(_FFMPEG_PRESENT)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path / "stub"), REPO]))
     out = tmp_path / name
     launch = [sys.executable, "-m"]

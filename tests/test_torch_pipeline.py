@@ -209,14 +209,16 @@ def test_cli_subprocess(tmp_path):
 
 
 def test_cli_saves_avi_without_imageio(tmp_path, monkeypatch):
-    """Without imageio the CLI writes the MJPEG AVI that gen3c_tpu's
+    """Without imageio the CLI's saver writes the MJPEG AVI that gen3c_tpu's
     save_video writes when ffmpeg is missing, and it reads back."""
     from gen3c_tpu.utils.mjpeg_avi import read_mjpeg_avi
     from gen3c_tpu_torch.pipelines import gen3c_single_image as cli
 
     monkeypatch.setitem(sys.modules, "imageio", None)  # import imageio -> ImportError
     video = np.random.default_rng(0).integers(0, 255, (3, 16, 24, 3), dtype=np.uint8)
-    path = cli.save_video(video, 24, str(tmp_path / "v" / "out.mp4"))
+    saver = cli.IncrementalVideoSaver(24)
+    saver.update(video[:2])
+    path = saver.save(video, str(tmp_path / "v" / "out.mp4"))
     assert path == str(tmp_path / "v" / "out.avi")
     frames = read_mjpeg_avi(path)[0]
     assert len(frames) == 3 and frames[0].shape == (16, 24, 3)
@@ -296,8 +298,9 @@ def test_port_never_imports_jax():
     train step, the Trainer, a LoRA step with the band, the training CLI on
     a packaged clip, the dynamic and multiview CLIs with foreground
     masking, checkpoints written and loaded, the T5 stack, the single-image
-    AR chain with MoGe depth, a two-rank context-parallel run under
-    torchrun), without importing jax, jaxlib or any gen3c_tpu module."""
+    AR chain with MoGe depth, the serving model, the debug server and the
+    native host libraries, a two-rank context-parallel run under torchrun),
+    without importing jax, jaxlib or any gen3c_tpu module."""
     code = r"""
 import importlib, pkgutil, sys
 import numpy as np, torch
@@ -412,6 +415,33 @@ with tempfile.TemporaryDirectory() as root:
          str(2 * p.chunk_size - 1), "--video_save_folder", root, "--checkpoint_dir",
          f"{root}/npz"]), record=record)
     assert len(record["depth"]) == 1 and record["seed_depth"] > 0
+# serving: the tiny persistent model seeded and run over two chunks with a
+# preview, the debug server over HTTP, the native host libraries
+import threading, urllib.request
+from gen3c_tpu_torch.native import camera_path, point_raster
+from gen3c_tpu_torch.serving.api_types import InferenceRequest, SeedingRequest
+from gen3c_tpu_torch.serving.models import DebugInferenceModel, Gen3cPersistentModel
+from gen3c_tpu_torch.serving.server import serve
+served = Gen3cPersistentModel("gen3c_tiny", checkpoint_dir=None, num_steps=1,
+                              depth_source="heuristic", device="cpu")
+cams = lambda n: dict(cameras_to_world=np.tile(np.eye(4, dtype=np.float32)[:3], (n, 1, 1)),
+                      focal_lengths=np.full((n, 2), 100.0, np.float32),
+                      principal_points=np.full((n, 2), 0.5, np.float32))
+served.seed_model(SeedingRequest(request_id="s", images=np.zeros((1, p.height, p.width, 3),
+                                                                 np.uint8), **cams(1)))
+n = 2 * p.chunk_size - 1
+req = lambda: InferenceRequest(request_id="i", resolutions=np.tile([[p.width, p.height]], (n, 1)),
+                               **cams(n))
+assert served.run_inference(req()).images.shape == (n, p.height, p.width, 3)
+assert served.render_preview(req()).images.shape == (n, p.height, p.width, 3)
+server, service = serve(host="127.0.0.1", port=0, model=DebugInferenceModel())
+threading.Thread(target=server.serve_forever, daemon=True).start()
+with urllib.request.urlopen(f"http://127.0.0.1:{server.server_address[1]}/metadata") as r:
+    assert r.status == 200
+server.shutdown(); service.shutdown()
+path = camera_path.CameraPath()
+path.add_keyframe_from_c2w(np.eye(4, dtype=np.float32)[:3])
+assert path.sample(3)[0].shape == (3, 3, 4) and point_raster.available()
 # a context-parallel run: two ranks (torchrun, gloo), ring attention, each
 # rank checking its own modules
 import os, subprocess
