@@ -101,6 +101,34 @@ Phases, each printing one JSON line of its own numbers:
              /metadata: seconds of each, job A's generate / chain / depth /
              fetch split, the fetch's bytes, peak GiB and the launches of
              K1, K2 (28 x MAIN_STEPS x 3 chunks), K5 and K1vit (24 x 2)
+ 20 span     span caching on main_path's 7B, before it is freed: the
+             blocks ranked by rank_block_contributions at one noise level
+             (one B = 1 forward), the lowest 14-block span, then
+             SPAN_STEPS = 6 steps of interval 2 with the bf16 carry on the
+             121-frame chunk through Gen3CModel.generate_samples: each
+             step's kind and s, the carry's bytes, peak GiB, and K1 = K2 =
+             5 x 28 + (28 - 14) launches after the ranking (the skip step
+             ran only the blocks outside the span); then the int8 and the
+             bf16 carries over SPAN_SHORT_T = 4 latent frames (14,080
+             tokens, to hold the time) at the 7B's width, their launches
+             and the int8 result against the bf16 one
+ 21 text2world  the text2world CLI's entry point with the seeded
+             cosmos_t2w_7b (16 input channels, gates randomized): 121
+             frames, 704x1280, T2W_STEPS = 3 dpm2m steps, CFG B=2: the
+             frames' shape and dtype, finite latents, s per step, launches
+ 22 interpolator  the world interpolator's entry point with the seeded
+             cosmos_v2w_7b on two seeded 704x1280 ends, INTERP_STEPS = 3
+             res2ab steps: the final latent's first and last frames
+             against their ends' latents and the decoded first frame
+             against the VAE's decode of the first end (INTERP_*_TOL), s
+             per step, peak GiB, launches
+ 23 tokenizer the tokenizer CLI's round trip of a 121-frame 704x1280 clip
+             (JPEG frames, a seeded pan) with the seeded CV8x8x8: PSNR,
+             encode and decode s, peak GiB
+ 24 quality  approximation_quality_curve (the tiny fp32 DiT: the fp32
+             attention body of attention_f32.cu, W8A8 rows on K7q + K7) on
+             the card, held row by row to the same curve on the CPU
+             (QUALITY_TOL); s of each, launches
 Every bf16 attention case of phase 3 also prints its launches by body
 (kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
 registers, stack and spill bytes (ptxas -v, the build log) and dynamic
@@ -2938,6 +2966,361 @@ def phase_train_cli() -> dict:
     return res
 
 
+# ----------------- span caching and the Cosmos sibling pipelines -----------------
+
+SPAN_STEPS = 6  # the fewest steps with a skip: refreshes on 0, 1, 2, 4, 5, the skip on 3
+SPAN_INTERVAL = 2
+SPAN_PATTERN = [True, True, True, False, True, True]
+# the int8 carry (and a bf16 one beside it) at the 7B's width over 4 of
+# the chunk's 16 latent frames (14,080 tokens), to hold the phase's time
+SPAN_SHORT_T = 4
+T2W_STEPS = 3
+INTERP_STEPS = 3
+# the interpolator's ends: the final latent's first and last frames against
+# their ends' latents (max |delta| / max |end|), and the decoded first frame
+# against the VAE's own decode of the first end (mean |delta| in uint8
+# levels). The last step (sigma 0.0002, below the condition's augment sigma
+# 0.001) lets the network move the condition frames too, so they are not
+# exact: the first run measured 0.027 / 0.037 and 4.43 levels; the bounds
+# are those rounded up to about 2.5 times (PERF.md). Each end must
+# also be nearer its own end than the other end
+INTERP_LATENT_TOL = 0.1
+INTERP_FIRST_FRAME_TOL = 10.0
+# the quality curve, card against CPU, the same weights on both: each row
+# as rounded (rel_l2 to 5 digits, PSNR to 2) within two units of its last
+# digit. Set from the first run with the same weights, which gave every row
+# equal and the two exact loops 148.65 dB apart (PERF.md)
+QUALITY_TOL = {"rel_l2": 2e-5, "psnr_db": 0.02}
+
+
+def _timed_steps(device, steps: list):
+    """An on_step hook that appends each step's seconds (synchronized) and
+    kinds to ``steps``."""
+    last = [time.perf_counter()]
+
+    def on_step(i, cfg, refresh):
+        torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        steps.append({"s": now - last[0], "cfg": cfg, "refresh": refresh})
+        last[0] = now
+
+    return on_step
+
+
+def phase_span(model, preset) -> dict:
+    """Span caching on main_path's GEN3C-7B (phase 20 of the docstring)."""
+    import dataclasses
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.diffusion.sampler import generate_samples
+    from gen3c_tpu_torch.models.gen3c import dit_net_fns
+    from gen3c_tpu_torch.scripts.rank_block_contributions import best_span, block_contributions
+
+    net, cfg = model.net, model.net.cfg
+    n = cfg.num_blocks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_block = block_contributions(net, preset.state_shape, num_sigmas=1, seed=0)
+    torch.cuda.synchronize()
+    rank_s = time.perf_counter() - t0
+    lo, hi, _ = best_span(per_block, n // 2)
+    width = hi - lo
+    C, T, Hl, Wl = preset.state_shape
+    rng = np.random.default_rng(3)
+    cond = torch.from_numpy(rng.standard_normal((1, C, 1, Hl, Wl)).astype(np.float32) * 0.5)
+    pose = torch.from_numpy(rng.standard_normal((1, 64, T, Hl, Wl)).astype(np.float32) * 0.3)
+    emb = torch.zeros((1, 512, 1024), device="cuda")
+    carry = {}
+
+    def record_carry(module, args, out):
+        if isinstance(out, tuple):
+            d = out[1] if isinstance(out[1], tuple) else (out[1],)
+            carry["bytes"], carry["dtypes"] = tensor_bytes(*d), [str(t.dtype) for t in d]
+
+    handle = net.register_forward_hook(record_carry)
+    try:
+        net.cfg = dataclasses.replace(cfg, cache_block_span=(lo, hi), cache_span_dtype="bf16")
+        steps = []
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        samples = model.generate_samples(
+            emb, cond.cuda(), pose.cuda(), num_condition_t=1, num_steps=SPAN_STEPS, seed=0,
+            step_cache_interval=SPAN_INTERVAL, on_step=_timed_steps("cuda", steps))
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        full = {"steps": steps, "launches": launches, "carry_bytes": carry["bytes"],
+                "carry_dtypes": carry["dtypes"],
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "finite": bool(torch.isfinite(samples).all().item())}
+        del samples
+        # the int8 carry and the bf16 one at SPAN_SHORT_T latent frames,
+        # the sampler called as Gen3CModel.generate_samples calls it
+        short = {}
+        arrays = dict(
+            init_noise=rng.standard_normal((1, C, SPAN_SHORT_T, Hl, Wl)),
+            augment_noise=rng.standard_normal((1, C, SPAN_SHORT_T, Hl, Wl)),
+            crossattn_cond=np.zeros((1, 512, 1024)), crossattn_uncond=np.zeros((1, 512, 1024)),
+            gt_latent=np.concatenate([cond.numpy(), np.zeros((1, C, SPAN_SHORT_T - 1, Hl, Wl))],
+                                     axis=2),
+            condition_video_indicator=np.eye(1, SPAN_SHORT_T).reshape(1, 1, SPAN_SHORT_T, 1, 1),
+            condition_video_input_mask=np.broadcast_to(
+                np.eye(1, SPAN_SHORT_T).reshape(1, 1, SPAN_SHORT_T, 1, 1),
+                (1, 1, SPAN_SHORT_T, Hl, Wl)),
+            pose_latent_cond=pose.numpy()[:, :, :SPAN_SHORT_T],
+            pose_latent_uncond=np.zeros((1, 64, SPAN_SHORT_T, Hl, Wl)))
+        tensors = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).cuda()
+                   for k, v in arrays.items()}
+        outs = {}
+        for dtype in ("bf16", "int8"):
+            net.cfg = dataclasses.replace(cfg, cache_block_span=(lo, hi), cache_span_dtype=dtype)
+            net_fn, skip = dit_net_fns(net, True)
+            steps = []
+            kernels.reset_launch_counts()
+            outs[dtype] = generate_samples(
+                net_fn, net_fn_skip=skip, **tensors, num_steps=SPAN_STEPS,
+                step_cache_interval=SPAN_INTERVAL, net_in_dtype=cfg.dtype,
+                on_step=_timed_steps("cuda", steps))
+            torch.cuda.synchronize()
+            short[dtype] = {"steps": steps, "launches": dict(kernels.launch_counts),
+                            "carry_bytes": carry["bytes"], "carry_dtypes": carry["dtypes"]}
+    finally:
+        net.cfg = cfg
+        handle.remove()
+    d = (outs["int8"] - outs["bf16"]).abs()
+    ref = outs["bf16"].abs()
+    res = {"model": preset.name, "per_block": [float(v) for v in per_block], "rank_s": rank_s,
+           "span": [lo, hi], "width": width, "full": full, "short_latent_t": SPAN_SHORT_T,
+           "short": short, "int8_vs_bf16": {"max": float(d.max() / ref.max()),
+                                            "mean": float(d.mean() / ref.mean())},
+           "finite_short": bool(all(torch.isfinite(o).all().item() for o in outs.values()))}
+    emit("span", **res)
+    want_k1 = (SPAN_STEPS - 1) * n + (n - width)
+    for name, run in [("full", full)] + [(f"short {k}", v) for k, v in short.items()]:
+        if [s["refresh"] for s in run["steps"]] != SPAN_PATTERN:
+            raise AssertionError(f"span {name}: steps {run['steps']}")
+        if run["launches"]["K1"] != want_k1 or run["launches"]["K2"] != want_k1:
+            raise AssertionError(f"span {name}: K1/K2 {run['launches']['K1']}/"
+                                 f"{run['launches']['K2']} launches, expected {want_k1}: the "
+                                 f"skip step must run the {n - width} blocks outside the span")
+    tokens = 2 * T * (Hl // 2) * (Wl // 2)  # the CFG batch's tokens
+    if full["carry_bytes"] != tokens * cfg.model_channels * 2 or not full["finite"]:
+        raise AssertionError(f"span: carry {full['carry_bytes']} bytes, finite {full['finite']}")
+    if short["int8"]["carry_dtypes"] != ["torch.int8", "torch.float32"] or not res["finite_short"]:
+        raise AssertionError(f"span int8: {short['int8']}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_text2world() -> dict:
+    """The text2world CLI's entry point with the seeded cosmos_t2w_7b
+    (phase 21 of the docstring)."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.pipelines import text2world
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
+        args = text2world.create_parser().parse_args(
+            ["--prompt", "a calm lake at sunrise", "--model_preset", "cosmos_t2w_7b",
+             "--num_steps", str(T2W_STEPS), "--solver", "dpm2m", "--checkpoint_dir",
+             os.path.join(root, "none"), "--video_save_folder", root, "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, preset = text2world.build_model(args, text2world.T2W_PRESETS["cosmos_t2w_7b"])
+        _randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        latents = []
+        decode = model.decode
+        model.decode = lambda lat: (latents.append(bool(torch.isfinite(lat).all().item())),
+                                    decode(lat))[1]
+        record = {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = text2world.demo(args, built=(model, preset), record=record)
+        total_s = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        saved = os.path.getsize(path) if os.path.isfile(path) else 0
+    video = record["video"]
+    cfg = preset.dit
+    res = {"model": preset.name, "blocks": cfg.num_blocks, "channels": cfg.model_channels,
+           "heads": cfg.num_heads, "in_channels": cfg.in_channels, "solver": "dpm2m",
+           "frames": int(video.shape[0]), "video_shape": list(video.shape),
+           "dtype": str(video.dtype), "latents_finite": latents == [True],
+           "steps": record["steps"], "build_model_s": build_s, "entry_point_s": total_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
+           "saved": [os.path.basename(path), saved]}
+    emit("text2world", **res)
+    if res["video_shape"] != [121, 704, 1280, 3] or video.dtype != np.uint8 or not saved:
+        raise AssertionError(f"text2world: video {res['video_shape']} {video.dtype}, {saved} B")
+    if not res["latents_finite"] or [s["cfg"] for s in record["steps"]] != [True] * T2W_STEPS:
+        raise AssertionError(f"text2world: {res}")
+    if launches["K1"] != T2W_STEPS * cfg.num_blocks or launches["K2"] != launches["K1"]:
+        raise AssertionError(f"text2world launches: {launches}")
+    del model, decode  # the decode wrapper closes a cycle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _write_png(path: str, image: np.ndarray) -> None:
+    """A (1, 3, 1, H, W) image in [-1, 1] as an 8-bit PNG."""
+    from PIL import Image
+
+    Image.fromarray(((image[0, :, 0].transpose(1, 2, 0) + 1) * 127.5).round().astype(np.uint8)
+                    ).save(path)
+
+
+def phase_interpolator() -> dict:
+    """The world interpolator's entry point with the seeded cosmos_v2w_7b
+    (phase 22 of the docstring)."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.pipelines import text2world, world_interpolator
+    from gen3c_tpu_torch.pipelines.gen3c_pipeline import video_to_uint8
+    from gen3c_tpu_torch.utils.io import read_image_bcthw
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
+        ends = [os.path.join(root, f"{name}.png") for name in ("first", "last")]
+        for path, seed in zip(ends, (1, 2)):
+            _write_png(path, _seed_image(704, 1280, seed))
+        args = world_interpolator.create_parser().parse_args(
+            ["--first_image", ends[0], "--last_image", ends[1], "--model_preset",
+             "cosmos_v2w_7b", "--num_steps", str(INTERP_STEPS), "--checkpoint_dir",
+             os.path.join(root, "none"), "--video_save_folder", root, "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, preset = text2world.build_model(args, text2world.T2W_PRESETS["cosmos_v2w_7b"])
+        _randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        latents = []
+        decode = model.decode
+        model.decode = lambda lat: (latents.append(lat), decode(lat))[1]
+        record = {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = world_interpolator.demo(args, built=(model, preset), record=record)
+        total_s = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        saved = os.path.getsize(path) if os.path.isfile(path) else 0
+        with torch.no_grad():
+            end_latents = [model.create_condition_latent_from_input_frames(
+                torch.from_numpy(read_image_bcthw(p, preset.height, preset.width)).cuda(), 1)
+                for p in ends]
+            end_frames = [video_to_uint8(decode(lat))[0] for lat in end_latents]
+    samples, video = latents[0], record["video"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def levels(a, b):
+        return float(np.abs(a.astype(np.int16) - b.astype(np.int16)).mean())
+
+    ends_first, ends_last = end_latents[0][:, :, 0], end_latents[1][:, :, 0]
+    res = {"model": preset.name, "solver": args.solver, "frames": int(video.shape[0]),
+           "video_shape": list(video.shape), "step_s": record["step_seconds"][0],
+           "build_model_s": build_s, "entry_point_s": total_s, "peak_mem_gib": peak,
+           "launches": launches, "saved": [os.path.basename(path), saved],
+           "first_latent_rel": rel(samples[:, :, 0], ends_first),
+           "last_latent_rel": rel(samples[:, :, -1], ends_last),
+           "first_latent_rel_to_last_end": rel(samples[:, :, 0], ends_last),
+           "last_latent_rel_to_first_end": rel(samples[:, :, -1], ends_first),
+           "first_frame_mean_levels": levels(video[0], end_frames[0]),
+           "first_frame_mean_levels_to_last_end": levels(video[0], end_frames[1]),
+           "latent_tol": INTERP_LATENT_TOL, "first_frame_tol": INTERP_FIRST_FRAME_TOL}
+    emit("interpolator", **res)
+    if res["video_shape"] != [121, 704, 1280, 3] or not saved:
+        raise AssertionError(f"interpolator: video {res['video_shape']}, {saved} B")
+    if (max(res["first_latent_rel"], res["last_latent_rel"]) > INTERP_LATENT_TOL
+            or res["first_frame_mean_levels"] > INTERP_FIRST_FRAME_TOL
+            or res["first_latent_rel"] >= res["first_latent_rel_to_last_end"]
+            or res["last_latent_rel"] >= res["last_latent_rel_to_first_end"]
+            or res["first_frame_mean_levels"] >= res["first_frame_mean_levels_to_last_end"]):
+        raise AssertionError(f"interpolator: the ends are not followed: {res}")
+    if launches["K1"] != INTERP_STEPS * preset.dit.num_blocks or launches["K2"] != launches["K1"]:
+        raise AssertionError(f"interpolator launches: {launches}")
+    del model, decode, samples, latents, end_latents  # the decode wrapper closes a cycle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_tokenizer() -> dict:
+    """The tokenizer CLI's round trip of a 121-frame 704x1280 clip with the
+    seeded CV8x8x8 (phase 23 of the docstring)."""
+    from PIL import Image
+
+    from gen3c_tpu_torch.pipelines import tokenizer_cli
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
+        clip = os.path.join(root, "clip")
+        os.makedirs(clip)
+        wide = _seed_image(704, 1280 + 2 * 121, 4)[0, :, 0].transpose(1, 2, 0)
+        for i in range(121):  # a pan of 2 pixels a frame, JPEG frames
+            frame = ((wide[:, 2 * i:2 * i + 1280] + 1) * 127.5).round().astype(np.uint8)
+            Image.fromarray(frame).save(os.path.join(clip, f"{i:04d}.jpg"), quality=95)
+        record = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tokenizer_cli.main(["--mode", "roundtrip", "--input", clip, "--output",
+                            os.path.join(root, "recon.mp4"), "--vae_preset", "cv8x8x8",
+                            "--device", "cuda"], record=record)
+        total_s = time.perf_counter() - t0
+    frames = record.pop("frames")
+    res = {"vae": "cv8x8x8", "frames": list(frames.shape), "psnr_db": record["psnr"],
+           "encode_s": record["encode_s"], "decode_s": record["decode_s"],
+           "entry_point_s": total_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit("tokenizer", **res)
+    if res["frames"] != [121, 704, 1280, 3] or not np.isfinite(res["psnr_db"]):
+        raise AssertionError(f"tokenizer: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_quality() -> dict:
+    """The approximation error curve on the card against the CPU (phase
+    24 of the docstring)."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.diffusion import quality
+    from gen3c_tpu_torch.diffusion.quality import approximation_quality_curve
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = approximation_quality_curve(device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    t0 = time.perf_counter()
+    cpu = approximation_quality_curve(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    # the two devices' exact loops against each other: the curve's floor
+    exact = [quality._sample(quality.init_quality_net(0, dev),
+                             quality.quality_inputs(0, device=dev), 35) for dev in ("cuda", "cpu")]
+    floor = quality._metrics(exact[1], exact[0])
+    delta = {k: {"rel_l2": abs(card[k]["rel_l2"] - cpu[k]["rel_l2"]),
+                 "psnr_db": abs(card[k]["psnr_db"] - cpu[k]["psnr_db"])} for k in cpu}
+    res = {"card": card, "cpu": cpu, "delta": delta, "exact_card_vs_cpu": floor,
+           "tol": QUALITY_TOL, "card_s": card_s, "cpu_s": cpu_s, "launches": launches}
+    emit("quality", **res)
+    if list(card) != list(cpu) or any(d[m] > QUALITY_TOL[m] for d in delta.values()
+                                      for m in QUALITY_TOL):
+        raise AssertionError(f"quality: card against CPU {delta}")
+    # the ordering gate of tests/test_quality_gate.py on the card's curve
+    rel = {k: r["rel_l2"] for k, r in card.items()}
+    singles = [rel[k] for k in ("w8a8", "band_w2", "cache_i2", "guidance_q0.5")]
+    if not (all(0 < v < 0.1 for v in rel.values())
+            and rel["band_w4"] <= rel["band_w2"] <= rel["band_w1"]
+            and rel["cache_i2"] <= rel["cache_i3"]
+            and rel["guidance_q0.75"] <= rel["guidance_q0.5"]
+            and max(singles) * 0.5 <= rel["fast_preset"] <= 2.0 * sum(singles)):
+        raise AssertionError(f"quality: the card's curve fails the ordering gate: {card}")
+    if any(launches[k] == 0 for k in ("K1", "K2", "K3", "K7q", "K7")):
+        raise AssertionError(f"quality launches: {launches}")
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="gen3c_tpu_torch smoke run on one GPU")
     p.add_argument("--cp-rank", type=int, default=None, help=argparse.SUPPRESS)
@@ -2957,6 +3340,7 @@ def main(argv=None) -> int:
     phase_multiview(model, preset)
     main_latent = main_res.pop("samples")
     cp_refs = phase_cp_reference(model, preset, main_latent)
+    span_res = phase_span(model, preset)
     # the two ranks need the card to themselves: the 7B must be gone, even
     # where a reference cycle still holds it
     del model
@@ -2964,6 +3348,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cp_runs = phase_cp(main_latent, cp_refs)["runs"]
     phase_serving()
+    t2w_launches = phase_text2world()["launches"]
+    interp_launches = phase_interpolator()["launches"]
+    phase_tokenizer()
+    quality_launches = phase_quality()["launches"]
     fast_launches = phase_fast()["launches"]
     phase_fast_parity()
     phase_chain()
@@ -2990,11 +3378,16 @@ def main(argv=None) -> int:
         return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
                 "launches": launches, **{**got, **override}}
 
+    # the launches of the span, text2world and interpolator phases
+    def by_phase(kid):
+        return {"span": span_res["full"]["launches"][kid], "text2world": t2w_launches[kid],
+                "interpolator": interp_launches[kid]}
+
     table = [
         row("K1 self-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:445",
-            launches["K1"], kern["K1"]),
+            launches["K1"], kern["K1"], phase_launches=by_phase("K1")),
         row("K2 cross-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:472",
-            launches["K2"], kern["K2"]),
+            launches["K2"], kern["K2"], phase_launches=by_phase("K2")),
         row("K5 forward-warp splat", "splat.cu", "gen3c_tpu/ops/geometry.py:205",
             launches["K5"], kern["K5"],
             max_abs_err=max([kern["K5"]["max_abs_err"]]
@@ -3003,11 +3396,13 @@ def main(argv=None) -> int:
             fast_launches["K3"], kern["K3"]),
         row("K7q per-token int8 quantize (K=4096)", "w8a8.cu", "gen3c_tpu/models/quantize.py:55",
             fast_launches["K7q"], kern["K7q"][0],
+            phase_launches={"quality (fp32 W8A8 rows)": quality_launches["K7q"]},
             max_abs_err=max(r["max_abs_err"] for r in kern["K7q"]),
             widths=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_share")}
                     for r in kern["K7q"]]),
         row("K7 int8 GEMM + rescale (fc1 shape)", "w8a8.cu", "gen3c_tpu/models/quantize.py:61",
             fast_launches["K7"], k7,
+            phase_launches={"quality (fp32 W8A8 rows)": quality_launches["K7"]},
             max_abs_err=max(r["max_abs_err"] for r in k7_cases),
             shapes=[{k: r[k] for k in ("name", "copied", "ms", "library_ms", "bound_ms")}
                     for r in k7_cases]),
@@ -3028,7 +3423,10 @@ def main(argv=None) -> int:
          for p1 in kern["P1"]]
     table.append(row("K1vit MoGe ViT-L self-attention (fp32)", "attention_f32.cu",
                      "gen3c_tpu/aux/moge.py:159", moge_launches["K1vit"], kern["K1vit"],
-                     body="3xtf32", **{k: kern["K1vit"][k] for k in (
+                     body="3xtf32", phase_launches={"quality (the tiny fp32 DiT's K1 + K2 + K3)":
+                                                    sum(quality_launches[k]
+                                                        for k in ("K1", "K2", "K3"))},
+                     **{k: kern["K1vit"][k] for k in (
                          "bound_share", "fp32_cuda_core_bound_ms", "ms_one_call",
                          "library_ms_one_call")}))
     # the cp phase's kernels, at its shard shapes (cp = 2), launches of rank 0's runs

@@ -17,8 +17,10 @@ refresh decision. Under CFG parallelism (``cfg``, 2 ranks) rank 0 runs the
 conditioned forward and rank 1 the unconditioned one, and one all-reduce
 combines them (gen3c_tpu's ``cfg_axis``).
 
-Not ported: the dpm2m/res2ab solvers, span caching (``net_fn_skip``), and
-the JAX package's host-loop and streaming variants.
+The dpm2m and res2ab solvers replace the Euler step with a multistep one
+at the same network cost, and span caching (``net_fn_skip``) runs only the
+blocks outside a cached span on the skipped steps. Not ported: the JAX
+package's host-loop and streaming variants.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from gen3c_tpu_torch.diffusion.scheduler import EDMEulerSchedule
+from gen3c_tpu_torch.diffusion.solvers import dpm2m_x0_step, res_x0_rk2_step
 from gen3c_tpu_torch.parallel import collectives
 from gen3c_tpu_torch.parallel.mesh import Axis
 
@@ -89,18 +92,21 @@ def apply_cfg(out_cond: torch.Tensor, out_uncond: torch.Tensor, guidance: float,
     return _rescale(out, per_sample_std(out_cond, shard), per_sample_std(out, shard), cfg_rescale)
 
 
+MULTISTEP_SOLVERS = ("dpm2m", "res2ab")
+
+
 @torch.no_grad()
 def generate_samples(
-    net_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+    net_fn: Callable[..., torch.Tensor],
     init_noise: torch.Tensor,  # (B, C, T, H, W) ~ N(0, 1)
     augment_noise: torch.Tensor,  # (B, C, T, H, W), fixed across steps
     crossattn_cond: torch.Tensor,  # (B, M, 1024)
     crossattn_uncond: torch.Tensor,
     gt_latent: torch.Tensor,  # (B, C, T, H, W)
     condition_video_indicator: torch.Tensor,  # (1, 1, T, 1, 1)
-    condition_video_input_mask: torch.Tensor,  # (B, 1, T, H, W)
-    pose_latent_cond: torch.Tensor,  # (B, P, T, H, W)
-    pose_latent_uncond: torch.Tensor,
+    condition_video_input_mask: Optional[torch.Tensor] = None,  # (B, 1, T, H, W)
+    pose_latent_cond: Optional[torch.Tensor] = None,  # (B, P, T, H, W)
+    pose_latent_uncond: Optional[torch.Tensor] = None,
     num_steps: int = 35,
     guidance: float = 1.0,
     condition_augment_sigma: float = 0.001,
@@ -113,14 +119,17 @@ def generate_samples(
     on_step: Optional[Callable[[int, bool, bool], None]] = None,
     cp: Optional[Axis] = None,
     cfg: Optional[Axis] = None,
+    solver: str = "euler",
+    net_fn_skip: Optional[Callable[..., torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Run the denoising loop; returns the final latent (B, C, T, H, W), fp32.
 
     net_fn(x_in, t_in, crossattn) -> raw DiT output for a batch whose
-    channels already carry [x, input mask, pose latent]: 2B for a CFG
-    step, B for a condition-only one. on_step(i, cfg, refreshed) is
-    called after each step (timing hooks): whether step i ran CFG and
-    whether it ran the network (False: it reused the cache).
+    channels carry [x, input mask, pose latent] (each of the last two only
+    when given: text2world has neither): 2B for a CFG step, B for a
+    condition-only one. on_step(i, cfg, refreshed) is called after each
+    step (timing hooks): whether step i ran CFG and whether it ran the whole
+    network (False: it reused the cache, or ran the span-skipping net).
 
     step_cache_interval > 1: the network runs on steps i < 2, i >= n - 2,
     (i - 2) % interval == 0 and on re-entry into the guidance interval;
@@ -128,14 +137,29 @@ def generate_samples(
     L1 drift of the scaled latent exceeds the threshold (interval ignored;
     not composable with a guidance interval that excludes steps).
 
+    solver: "euler", or a multistep rule at the same network cost, "dpm2m"
+    (DPM-Solver++(2M)) or "res2ab" (exponential-integrator AB2): each step
+    turns the replaced output into an x0 prediction and, for 0 < i and a
+    next sigma above 0, extrapolates from it and the previous step's
+    (``solvers``); otherwise it takes the Euler step (sampler.py:533-598).
+    Not composable with any step caching.
+
+    net_fn_skip: Delta-DiT span caching (arXiv:2406.01125,
+    sampler.py:615-675). net_fn then returns (out, span_delta), and on the
+    steps the fixed interval skips net_fn_skip(x_in, t_in, crossattn,
+    span_delta) runs the blocks outside the span with the cached delta in
+    its place. Needs step_cache_interval >= 2, CFG on every step, no
+    threshold and no cfg axis.
+
     cp: the context-parallel axis the tensors are sharded on (latent T),
     for CFG rescale's stds and the adaptive drift. cfg: a 2-rank CFG axis
     (sampler.py:368-531): a CFG step runs net_fn once at batch B, the
     conditioned half on rank 0 and the unconditioned on rank 1, and
     all_reduce of (1 + g) * cond and -g * uncond combines them; the cache
-    then holds that combined output. It composes with the guidance interval
-    (condition-only steps run replicated) and the fixed-interval cache, not
-    with adaptive caching.
+    then holds that combined output, and the multistep solvers read it. It
+    composes with the guidance interval (condition-only steps run
+    replicated) and the fixed-interval cache, not with adaptive or span
+    caching.
     """
     sigmas = [float(s) for s in schedule.sigmas(num_steps)]
     c_noises = [float(t) for t in schedule.timesteps(num_steps)]
@@ -147,23 +171,44 @@ def generate_samples(
     indicator_base = condition_video_indicator.float()
     augment_latent = (gt + augment_noise.float() * aug) * schedule.c_in(aug)
     crossattn_both = torch.cat([crossattn_cond, crossattn_uncond], dim=0)
-    mask = condition_video_input_mask.to(net_in_dtype)
-    pose_cond = pose_latent_cond.to(net_in_dtype)
-    pose_uncond = pose_latent_uncond.to(net_in_dtype)
+    extra_cond, extra_uncond = [], []
+    if condition_video_input_mask is not None:
+        mask = condition_video_input_mask.to(net_in_dtype)
+        extra_cond.append(mask)
+        extra_uncond.append(mask)
+    if pose_latent_cond is not None:
+        extra_cond.append(pose_latent_cond.to(net_in_dtype))
+        extra_uncond.append(pose_latent_uncond.to(net_in_dtype))
+    span = net_fn_skip is not None
 
     gi = None
     if guidance_interval is not None:
         gi = guidance_interval_steps(schedule, num_steps, guidance_interval)
         if gi == (0, num_steps):
             gi = None  # every step in the interval: the plain CFG loop
-        elif step_cache_threshold > 0:
+        elif step_cache_threshold > 0 or span:
             raise ValueError("guidance_interval composes with the plain and fixed-"
-                             "interval-cached loops only (not adaptive caching)")
+                             "interval-cached loops only (not adaptive/span caching)")
     adaptive = step_cache_threshold > 0
     caching = adaptive or step_cache_interval > 1
-    if cfg is not None and adaptive:
+    if cfg is not None and (adaptive or span):
         raise ValueError("cfg_axis (CFG parallelism) composes with the plain and fixed-interval-"
                          "cached loops only (not adaptive/span caching)")
+    multistep = None
+    if solver != "euler":
+        if solver not in MULTISTEP_SOLVERS:
+            raise ValueError(f"unknown solver {solver!r}; expected euler/dpm2m/res2ab")
+        if caching or span:
+            raise ValueError("multistep solvers are not supported with step caching")
+        multistep = res_x0_rk2_step if solver == "res2ab" else dpm2m_x0_step
+    if span:
+        if step_cache_interval <= 1:
+            raise ValueError(
+                f"net_fn_skip requires step_cache_interval >= 2 (interval {step_cache_interval} "
+                "would silently enable caching on a caller that asked for the uncached loop)")
+        if adaptive:
+            raise ValueError("step_cache_threshold is not supported with net_fn_skip (span "
+                             "caching refreshes on a fixed interval); use one or the other")
 
     def cfg_parallel_output(x_cond, x_uncond, t_in):
         """This rank's half of the CFG pair, combined by one all-reduce
@@ -180,10 +225,15 @@ def generate_samples(
         return _rescale(out, std_c, per_sample_std(out, cp), cfg_rescale)
 
     # the last raw [cond | uncond] network output (condition-only steps
-    # refresh or read its cond half only); under cfg the combined B-sized one
-    cached = torch.zeros(((B if cfg is not None else 2 * B),) + tuple(gt.shape[1:]),
-                         dtype=torch.float32, device=dev)
+    # refresh or read its cond half only); under cfg the combined B-sized
+    # one; span caching carries the span's delta instead
+    cached = None
+    if caching and not span:
+        cached = torch.zeros(((B if cfg is not None else 2 * B),) + tuple(gt.shape[1:]),
+                             dtype=torch.float32, device=dev)
+    delta = None
     prev = torch.zeros_like(xt)
+    prev_x0 = xt  # the multistep solvers' previous x0 (unread on step 0)
     drift_acc = 0.0
 
     for i in range(num_steps):
@@ -211,17 +261,26 @@ def generate_samples(
         else:
             refresh = True
 
-        if refresh:
+        if refresh or span:
             x_scaled = (new_xt * c_in).to(net_in_dtype)
-            x_cond = torch.cat([x_scaled, mask, pose_cond], dim=1)
+            x_cond = torch.cat([x_scaled] + extra_cond, dim=1)
+        if span:
+            x_in = torch.cat([x_cond, torch.cat([x_scaled] + extra_uncond, dim=1)])
+            t_in = torch.full((2 * B,), c_noises[i], dtype=torch.float32, device=dev)
+            if refresh:
+                net_out, delta = net_fn(x_in, t_in, crossattn_both)
+            else:
+                net_out = net_fn_skip(x_in, t_in, crossattn_both, delta)
+            net_out = net_out.float()
+        elif refresh:
             if cfg is not None and use_cfg:
                 # the cache holds the combined B-sized output
                 t_in = torch.full((B,), c_noises[i], dtype=torch.float32, device=dev)
                 net_out = cfg_parallel_output(
-                    x_cond, torch.cat([x_scaled, mask, pose_uncond], dim=1), t_in)
+                    x_cond, torch.cat([x_scaled] + extra_uncond, dim=1), t_in)
                 cached = net_out
             elif use_cfg:
-                x_in = torch.cat([x_cond, torch.cat([x_scaled, mask, pose_uncond], dim=1)])
+                x_in = torch.cat([x_cond, torch.cat([x_scaled] + extra_uncond, dim=1)])
                 t_in = torch.full((2 * B,), c_noises[i], dtype=torch.float32, device=dev)
                 net_out = net_fn(x_in, t_in, crossattn_both).float()
                 if caching:
@@ -239,7 +298,16 @@ def generate_samples(
             net_output = net_out
         latent_unscaled = schedule.reverse_precondition_output(gt, new_xt, sigma)
         new_output = indicator * latent_unscaled + (1 - indicator) * net_output
-        xt = schedule.step(new_output, new_xt, sigma, sigmas[i + 1])
+        sigma_next = sigmas[i + 1]
+        if multistep is None:
+            xt = schedule.step(new_output, new_xt, sigma, sigma_next)
+        else:
+            x0 = schedule.precondition_outputs(new_xt, new_output, sigma)
+            if i > 0 and sigma_next > 0:
+                xt = multistep(new_xt, sigma_next, sigma, x0, sigmas[max(i - 1, 0)], prev_x0)
+            else:
+                xt = schedule.step(new_output, new_xt, sigma, sigma_next)
+            prev_x0 = x0
         if on_step is not None:
             on_step(i, use_cfg, refresh)
     return xt

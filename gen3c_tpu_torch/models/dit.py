@@ -1,7 +1,7 @@
 """GeneralDIT: the Cosmos 7B video diffusion transformer in PyTorch.
 
 Port of gen3c_tpu/models/dit.py ``dit_forward`` (no tensor or sequence
-parallelism, no span cache), differentiable for training (attention's
+parallelism), differentiable for training (attention's
 backward is kernel K4), with optional per-block remat. Under context
 parallelism (``forward(cp=axis)``, one process per rank) the tokens are
 this rank's contiguous latent-T shard: the position tables are built for
@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -79,6 +79,13 @@ class DiTConfig:
     attn_prefix_frames: int = 1
     # self-attention under context parallelism: allgather, ring or ulysses
     cp_attn_impl: str = "allgather"
+    # Delta-DiT span caching (arXiv:2406.01125): blocks [lo, hi) are the
+    # span whose residual delta the sampler carries; its skipped steps run
+    # the other blocks and re-apply the delta. None: no span
+    cache_block_span: Optional[Tuple[int, int]] = None
+    # the carry: "bf16" (or "fp32") keeps the delta in the token dtype,
+    # "int8" per-token symmetric codes with fp32 scales
+    cache_span_dtype: str = "bf16"
 
     @property
     def head_dim(self) -> int:
@@ -283,6 +290,32 @@ def cp_self_attention(q, k, v, cp: Axis, impl: str, band=None):
         raise ValueError(f"unknown cp_attn_impl {impl!r}; expected 'allgather', 'ring' or "
                          f"'ulysses'")
     return _allgather_attention(q, k, v, cp)
+
+
+# ------------------------------ span carry ------------------------------
+
+# a span delta: (B, L, D) in the token dtype, or (int8 codes, fp32 scales (B, L, 1))
+SpanDelta = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def quantize_span_delta(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 of a span delta (dit.py:1082-1090): scale
+    = absmax / 127 as XLA compiles it, a multiply by the fp32 reciprocal;
+    codes = round(d / max(scale, 1e-8)) clipped to +-127. An elementwise
+    pass that XLA runs outside any kernel, plain PyTorch here too."""
+    df = d.float()
+    scales = df.abs().amax(dim=-1, keepdim=True) * (1.0 / 127.0)
+    codes = torch.round(df / scales.clamp_min(1e-8)).clamp_(-127, 127).to(torch.int8)
+    return codes, scales
+
+
+def dequantize_span_delta(delta: SpanDelta) -> torch.Tensor:
+    """The carried delta as values: codes * scales in fp32 for the int8
+    carry, the tensor itself otherwise."""
+    if isinstance(delta, tuple):
+        codes, scales = delta
+        return codes.float() * scales
+    return delta
 
 
 # ------------------------------ modules ------------------------------
@@ -490,7 +523,9 @@ class GeneralDIT(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, crossattn_emb: torch.Tensor,
                 fps: Optional[float] = None,
                 padding_mask: Optional[torch.Tensor] = None,
-                remat: bool = False, cp: Optional[Axis] = None) -> torch.Tensor:
+                remat: bool = False, cp: Optional[Axis] = None,
+                span_delta: Optional[SpanDelta] = None, return_span_delta: bool = False,
+                return_block_residuals: bool = False):
         """remat=True recomputes each block's activations in the backward
         instead of keeping them (``torch.utils.checkpoint``, non-reentrant:
         dit.py's ``jax.checkpoint(block_step)``, :1040-1045). Serving calls
@@ -501,7 +536,18 @@ class GeneralDIT(nn.Module):
         cp: the context-parallel axis (size > 1). x is then this rank's
         contiguous latent-T shard; the RoPE table and the extra position
         embedding are built for the T * cp frames and sliced to it
-        (dit.py:929-946), and self-attention runs ``cfg.cp_attn_impl``."""
+        (dit.py:929-946), and self-attention runs ``cfg.cp_attn_impl``.
+
+        Span caching (``cfg.cache_block_span`` = (lo, hi), dit.py:1048-1118):
+        return_span_delta=True also returns what the span's blocks added to
+        the tokens (tokens after block hi - 1 less the tokens entering block
+        lo; zeros for an empty span), in the token dtype or, with
+        ``cache_span_dtype`` "int8", as (int8 codes, fp32 per-token
+        scales); span_delta given instead adds that delta at block lo and
+        skips blocks [lo, hi). return_block_residuals=True returns (out,
+        (num_blocks,) fp32) with each block's mean |output - input| over
+        mean |input|, which ranks the blocks for a span (under cp, this
+        rank's shard's)."""
         cfg = self.cfg
         dtype = cfg.dtype
         B, C, T, H, W = x.shape
@@ -525,18 +571,60 @@ class GeneralDIT(nn.Module):
 
         ctx = crossattn_emb.to(dtype)
         impl = cfg.cp_attn_impl
-        for blk in self.blocks.values():
+        span = cfg.cache_block_span
+        if (span_delta is not None or return_span_delta) and span is None:
+            raise ValueError("span_delta/return_span_delta need cfg.cache_block_span")
+        lo, hi = span if span is not None else (-1, -1)
+        tokens_at_lo = new_delta = None
+        residuals = []
+        for bi, blk in enumerate(self.blocks.values()):
+            if bi == lo:
+                if span_delta is not None:  # a skipped step: the cached delta
+                    tokens = tokens + dequantize_span_delta(span_delta).to(tokens.dtype)
+                elif return_span_delta:
+                    tokens_at_lo = tokens
+            if span_delta is not None and lo <= bi < hi:
+                continue
+            before = tokens if return_block_residuals else None
             if remat and torch.is_grad_enabled():
                 tokens = checkpoint(blk, tokens, emb, lora, extra, ctx, rope, band, cp, impl,
                                     use_reentrant=False)
             else:
                 tokens = blk(tokens, emb, lora, extra, ctx, rope, band, cp, impl)
+            if return_block_residuals:
+                bf = before.float()
+                residuals.append((tokens.float() - bf).abs().mean() / (bf.abs().mean() + 1e-8))
+            if return_span_delta and lo < hi and bi == hi - 1:
+                new_delta = self._span_carry(tokens - tokens_at_lo)
+        if return_span_delta and lo == hi:  # an empty span adds nothing
+            new_delta = self._span_carry(torch.zeros_like(tokens))
 
         fshift, fscale = _adaln_modulation(self.final_layer.adaLN_modulation, emb, lora, 2)
         tokens = (_layer_norm(tokens).float() * (1 + fscale[:, None, :])
                   + fshift[:, None, :]).to(dtype)
         tokens = F.linear(tokens, linear_weight(self.final_layer.linear, dtype))
-        return self.unpatchify(tokens.reshape(B, Tp, Hp, Wp, -1), T, H, W)
+        out = self.unpatchify(tokens.reshape(B, Tp, Hp, Wp, -1), T, H, W)
+        if return_block_residuals:
+            return out, torch.stack(residuals)
+        if return_span_delta:
+            return out, new_delta
+        return out
+
+    def _span_carry(self, d: torch.Tensor) -> SpanDelta:
+        """The span delta as the sampler carries it (``cache_span_dtype``)."""
+        return quantize_span_delta(d) if self.cfg.cache_span_dtype == "int8" else d
+
+    @torch.no_grad()
+    def randomize_degenerate_inits(self, generator: torch.Generator) -> "GeneralDIT":
+        """Draw the blocks' zero-initialized AdaLN output layers and the
+        final linear from 0.1 * N(0, 1) (dit.py ``randomize_degenerate_inits``):
+        with them zero every block is the identity and the output constant,
+        which leaves nothing for a caching policy or a block ranking to see."""
+        for name, p in self.named_parameters():
+            if (name.startswith("blocks.") and name.endswith("adaLN_modulation.2.weight")) \
+                    or name == "final_layer.linear.weight":
+                p.copy_(0.1 * torch.randn(p.shape, generator=generator, device=p.device))
+        return self
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator) -> "GeneralDIT":

@@ -2,8 +2,9 @@
 
 Latents are scaled by sigma_data; the warped buffers and their masks are
 VAE-encoded per buffer into the pose latent; sampling is the EDM-Euler
-loop with batched CFG, with the JAX package's guidance interval, CFG
-rescale and step caching, on one device or, when the model carries
+loop with batched CFG, or the dpm2m / res2ab multistep solvers, with the
+JAX package's guidance interval, CFG rescale and step caching (the whole
+output, or a span of blocks), on one device or, when the model carries
 process groups with a cp or cfg axis of size > 1, context- and
 CFG-parallel over them (``parallel.cp.cp_generate_samples``).
 """
@@ -109,12 +110,16 @@ class Gen3CModel:
         guidance_interval: Optional[Sequence[float]] = None,
         cfg_rescale: float = 0.0,
         on_step=None,
+        solver: str = "euler",
     ) -> torch.Tensor:
         """The GEN3C denoise; returns the latent (B, 16, T, H', W'), fp32.
 
         guidance_interval=(sigma_lo, sigma_hi) restricts CFG to the steps
         whose sigma lies inside it; the sampling options are those of
-        ``diffusion.sampler.generate_samples``."""
+        ``diffusion.sampler.generate_samples``. With the net's
+        ``cache_block_span`` set and step_cache_interval > 1 the skipped
+        steps run the blocks outside the span (span caching,
+        gen3c_tpu/models/gen3c.py:352-420); a threshold with it raises."""
         B = condition_latent.shape[0]
         state_shape = tuple(self.state_shape)
         dev = condition_latent.device
@@ -154,14 +159,27 @@ class Gen3CModel:
             guidance_interval=guidance_interval,
             cfg_rescale=cfg_rescale,
             on_step=on_step,
+            solver=solver,
         )
         if self.groups is not None and self.groups.parallel:
             # gen3c_tpu/models/gen3c.py:317-350: every rank holds the global noise
             from gen3c_tpu_torch.parallel.cp import cp_generate_samples
 
             return cp_generate_samples(self.groups, self.net, **inputs)
+        span = self.net.cfg.cache_block_span is not None and step_cache_interval > 1
+        if span and step_cache_threshold > 0:
+            raise ValueError("step_cache_block_span and step_cache_threshold are mutually "
+                             "exclusive caching policies; pick one")
+        net_fn, net_fn_skip = dit_net_fns(self.net, span)
+        return generate_samples(net_fn, net_fn_skip=net_fn_skip, **inputs)
 
-        def net_fn(x_in, t_in, crossattn):
-            return self.net(x_in, t_in, crossattn, fps=24.0)
 
-        return generate_samples(net_fn, **inputs)
+def dit_net_fns(net: GeneralDIT, span: bool, cp=None):
+    """(net_fn, net_fn_skip) for the sampler: the DiT at fps 24 (in its cp
+    mode on an axis), and with span caching the refresh forward that also
+    returns the span's delta and the skip forward that re-applies it
+    (gen3c.py ``_dit_net_fn_span_*``); net_fn_skip is None without."""
+    if not span:
+        return (lambda x, t, ctx: net(x, t, ctx, fps=24.0, cp=cp)), None
+    return ((lambda x, t, ctx: net(x, t, ctx, fps=24.0, cp=cp, return_span_delta=True)),
+            (lambda x, t, ctx, delta: net(x, t, ctx, fps=24.0, cp=cp, span_delta=delta)))

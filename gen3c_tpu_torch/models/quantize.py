@@ -12,7 +12,7 @@ quantization of its activations.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -77,8 +77,8 @@ def linear_weight(module: nn.Module, dtype: torch.dtype) -> torch.Tensor:
 
 
 @torch.no_grad()
-def quantize_dit_(net: nn.Module, act_quant: bool = False, structure_only: bool = False
-                  ) -> nn.Module:
+def quantize_dit_(net: nn.Module, act_quant: bool = False, structure_only: bool = False,
+                  min_size: Optional[int] = None) -> nn.Module:
     """Replace, in place and one layer at a time, every large linear of a
     GeneralDIT with a QuantLinear, freeing each source weight as it goes
     (quantize.py ``quantize_dit_params_inplace``). The layers are those
@@ -86,10 +86,13 @@ def quantize_dit_(net: nn.Module, act_quant: bool = False, structure_only: bool 
     elements (x_embedder, the timestep MLP, every q/k/v/out, fc1, fc2; the
     final linear only if it is that large). structure_only: put empty
     QuantLinears in their place (on the weights' device, ``meta`` too),
-    for a pre-quantized checkpoint to load into."""
+    for a pre-quantized checkpoint to load into. min_size replaces
+    _MIN_SIZE (0: every such linear, as the quality curve's W8A8 rows
+    quantize the toy net, gen3c_tpu/diffusion/quality.py:78-103)."""
+    min_size = _MIN_SIZE if min_size is None else min_size
     targets = [name for name, mod in net.named_modules()
                if isinstance(mod, nn.Linear) and name.endswith(_QUANTIZABLE_SUFFIXES)
-               and mod.weight.numel() >= _MIN_SIZE]
+               and mod.weight.numel() >= min_size]
     for name in targets:
         parent_name, _, attr = name.rpartition(".")
         parent = net.get_submodule(parent_name)

@@ -8,7 +8,10 @@ split_inputs_cp; text embeddings and weights stay replicated), runs the
 sampler with the DiT in its context-parallel mode (``GeneralDIT.forward(cp=
 ...)``) and CFG split over the cfg axis when it has 2 ranks, then gathers
 the samples on T (cat_outputs_cp), so that every rank returns the whole
-latent. The JAX package's span-cache variants are not ported.
+latent. With the net's ``cache_block_span`` and step_cache_interval > 1 the
+sampler carries each rank's shard of the span delta. The JAX package's
+tensor- and sequence-parallel span variants (cp.py:64-91) wait for
+tensor parallelism (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from gen3c_tpu_torch.diffusion.sampler import generate_samples
 from gen3c_tpu_torch.models.dit import GeneralDIT
+from gen3c_tpu_torch.models.gen3c import dit_net_fns
 from gen3c_tpu_torch.parallel import collectives
 from gen3c_tpu_torch.parallel.mesh import Groups
 
@@ -39,12 +43,13 @@ def cp_generate_samples(groups: Groups, net: GeneralDIT, **sampler_kw) -> torch.
         raise ValueError(f"latent T={T} must divide by cp={n}")
     t0, t1 = groups.cp.rank * (T // n), (groups.cp.rank + 1) * (T // n)
     for k in _SHARDED:
-        sampler_kw[k] = sampler_kw[k][:, :, t0:t1]
-
-    def net_fn(x_in, t_in, crossattn):
-        return net(x_in, t_in, crossattn, fps=24.0, cp=cp)
-
-    out = generate_samples(net_fn, cp=cp, cfg=cfg, **sampler_kw)
+        if sampler_kw.get(k) is not None:
+            sampler_kw[k] = sampler_kw[k][:, :, t0:t1]
+    # span caching (gen3c_tpu/parallel/cp.py:139-166): each rank carries the
+    # delta of its own tokens, sharded like everything else
+    span = net.cfg.cache_block_span is not None and sampler_kw.get("step_cache_interval", 1) > 1
+    net_fn, net_fn_skip = dit_net_fns(net, span, cp)
+    out = generate_samples(net_fn, cp=cp, cfg=cfg, net_fn_skip=net_fn_skip, **sampler_kw)
     if cp is None:
         return out
     return collectives.all_gather(out, 2, cp).contiguous()

@@ -7,8 +7,8 @@ the JAX factory loads, in its order (``checkpoint_dir`` layout below), and
 draws a seeded random init on the target device, with a warning, for a
 part it finds no checkpoint of. ``apply_perf_preset``
 expands ``--perf_preset fast`` (W8A8, band attention, step caching,
-guidance interval) as the JAX package does; ``add_perf_flags``,
-``check_ported`` and ``build_from_args`` serve the CLIs.
+guidance interval) as the JAX package does; ``add_perf_flags`` and
+``build_from_args`` serve the CLIs.
 
 Over several devices (``num_devices`` > 1, one process per rank as
 ``torchrun`` starts them) the model carries the process groups of its
@@ -141,6 +141,8 @@ def build_gen3c_model(
     parallel: str = "cp",
     cp_attn: Optional[str] = None,
     dist_backend: Optional[str] = None,
+    cache_block_span: Optional[Tuple[int, int]] = None,
+    cache_span_dtype: str = "bf16",
 ) -> Tuple[Gen3CModel, Gen3CPreset]:
     """Build a Gen3CModel on ``device`` (a bare "cuda": cuda:$LOCAL_RANK),
     loading weights from ``checkpoint_dir`` as the JAX factory does
@@ -173,6 +175,11 @@ def build_gen3c_model(
     device). cp_attn ("allgather", the default, "ring" or "ulysses") is the
     self-attention under context parallelism; a band over several devices
     needs "ulysses" or "ring".
+
+    cache_block_span=(lo, hi), 0 <= lo <= hi <= num_blocks: the DiT blocks
+    whose residual delta span caching carries (with step_cache_interval >
+    1, the skipped steps run the other blocks), in cache_span_dtype ("bf16":
+    the token dtype, or "int8").
     """
     if quantize not in (False, "int8", "w8a8"):
         raise ValueError(f"quantize must be False, 'int8' or 'w8a8', got {quantize!r}")
@@ -182,6 +189,13 @@ def build_gen3c_model(
                          f"'ulysses'")
     if isinstance(preset, str):
         preset = PRESETS[preset]
+    if cache_block_span is not None:
+        lo, hi = cache_block_span
+        n = preset.dit.num_blocks
+        if not 0 <= lo <= hi <= n:
+            raise ValueError(f"cache_block_span {cache_block_span} out of range for {n} blocks")
+        preset = dataclasses.replace(preset, dit=dataclasses.replace(
+            preset.dit, cache_block_span=(lo, hi), cache_span_dtype=cache_span_dtype))
     if dtype is not None:
         preset = dataclasses.replace(preset, dit=dataclasses.replace(preset.dit, dtype=dtype))
     if cp_attn is not None:
@@ -357,27 +371,13 @@ def add_parallel_flags(p) -> None:
                    help="> 1: one process per device, launched by torchrun --nproc_per_node N")
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError naming the first set flag of a CLI whose
-    feature this port does not have (flags a CLI lacks count as unset)."""
-    unported = {
-        "--step_cache_block_span": getattr(args, "step_cache_block_span", None) is not None,
-        "--step_cache_span_dtype": getattr(args, "step_cache_span_dtype", "bf16") != "bf16",
-        "--solver": getattr(args, "solver", "euler") != "euler",
-    }
-    for flag, used in unported.items():
-        if used:
-            raise NotImplementedError(f"{flag} is not ported to gen3c_tpu_torch yet")
-
-
 def build_from_args(args) -> Tuple[Gen3CModel, Gen3CPreset]:
-    """``apply_perf_preset``, ``check_ported``, then ``build_gen3c_model`` on
-    ``args.device`` with the quantization, band and parallel strategy the
-    flags ask for; ``args.device`` becomes the device the rank runs on. The
+    """``apply_perf_preset``, then ``build_gen3c_model`` on ``args.device``
+    with the quantization, band, span cache and parallel strategy the flags
+    ask for; ``args.device`` becomes the device the rank runs on. The
     offload flags are accepted and change nothing (offload is not ported:
-    the 7B fits one card)."""
+    the 7B fits one card, with a span carry beside it)."""
     apply_perf_preset(args)
-    check_ported(args)
     for flag, what in (("offload_diffusion_transformer", "the DiT"),
                        ("offload_tokenizer", "the VAE")):
         if getattr(args, flag, False):
@@ -387,7 +387,10 @@ def build_from_args(args) -> Tuple[Gen3CModel, Gen3CPreset]:
                                       checkpoint_dir=args.checkpoint_dir, quantize=quantize,
                                       attn_temporal_window=args.attn_temporal_window,
                                       num_devices=args.num_devices, parallel=args.parallel,
-                                      cp_attn=args.cp_attn)
+                                      cp_attn=args.cp_attn,
+                                      cache_block_span=getattr(args, "step_cache_block_span", None),
+                                      cache_span_dtype=getattr(args, "step_cache_span_dtype",
+                                                               "bf16"))
     args.device = str(model.device)
     return model, preset
 

@@ -46,7 +46,8 @@ def create_parser() -> argparse.ArgumentParser:
                    help="distributed dir / packaged .pt or .npz")
     p.add_argument("--video_save_name", type=str, default="output")
     p.add_argument("--solver", default="euler", choices=("euler", "dpm2m", "res2ab"),
-                   help="only euler is ported")
+                   help="denoise integration rule at equal network cost (multistep: "
+                        "dpm2m, res2ab; not with step caching)")
     p.add_argument("--video_save_folder", type=str, default="outputs/")
     p.add_argument("--guidance", type=float, default=1.0)
     p.add_argument("--num_steps", type=int, default=35)
@@ -107,7 +108,6 @@ def demo(args, built: Optional[tuple] = None, record: Optional[dict] = None) -> 
     "generate"), the last chunk's ``pipeline.last_timings`` ("pipeline")
     and the frames saved ("video", uint8 (T, H, W', 3))."""
     factory.apply_perf_preset(args)
-    factory.check_ported(args)
     model, preset = built if built is not None else factory.build_from_args(args)
     factory.validate_num_frames(args.num_video_frames, preset.chunk_size)
     pipeline = Gen3cPipeline(
@@ -115,7 +115,7 @@ def demo(args, built: Optional[tuple] = None, record: Optional[dict] = None) -> 
         guidance=args.guidance, num_steps=args.num_steps, seed=args.seed,
         step_cache_interval=args.step_cache_interval,
         guidance_interval=tuple(args.guidance_interval) if args.guidance_interval else None,
-        cfg_rescale=args.cfg_rescale)
+        cfg_rescale=args.cfg_rescale, solver=args.solver)
     cache, w2cs, ks, seed_frames = load_scene(args, preset, torch.device(args.device))
     record = {} if record is None else record
     saver = IncrementalVideoSaver(args.fps)

@@ -42,7 +42,8 @@ def create_parser() -> argparse.ArgumentParser:
     factory.add_prompt_encoder_flags(p)
     p.add_argument("--video_save_name", type=str, default="output")
     p.add_argument("--solver", default="euler", choices=("euler", "dpm2m", "res2ab"),
-                   help="only euler is ported")
+                   help="denoise integration rule at equal network cost (multistep: "
+                        "dpm2m, res2ab; not with step caching)")
     p.add_argument("--video_save_folder", type=str, default="outputs/")
     p.add_argument("--guidance", type=float, default=1.0)
     p.add_argument("--num_steps", type=int, default=35)
@@ -87,7 +88,6 @@ def demo(args, built: Optional[tuple] = None, record: Optional[dict] = None) -> 
     ``record`` as in ``gen3c_dynamic.demo``; ``record["selections"]`` gets
     the buffers each chunk's render kept."""
     factory.apply_perf_preset(args)
-    factory.check_ported(args)
     model, preset = built if built is not None else factory.build_from_args(args)
     factory.validate_num_frames(args.num_video_frames, preset.chunk_size)
     pipeline = Gen3cPipeline(
@@ -95,7 +95,7 @@ def demo(args, built: Optional[tuple] = None, record: Optional[dict] = None) -> 
         guidance=args.guidance, num_steps=args.num_steps, seed=args.seed,
         step_cache_interval=args.step_cache_interval,
         guidance_interval=tuple(args.guidance_interval) if args.guidance_interval else None,
-        cfg_rescale=args.cfg_rescale)
+        cfg_rescale=args.cfg_rescale, solver=args.solver)
     cache, w2cs, ks, seed_frames = load_scene(args, torch.device(args.device))
     record = {} if record is None else record
     saver = IncrementalVideoSaver(args.fps)

@@ -6,9 +6,9 @@ gen3c_tpu/pipelines/gen3c_pipeline.py).
   warped buffers + masks -> per-buffer VAE latents (pose conditioning)
   -> EDM-Euler denoise with batched CFG -> VAE decode -> uint8 frames
 
-Sampling is Euler with the JAX package's guidance interval, CFG rescale
-and step caching (fixed-interval or adaptive); the dpm2m/res2ab solvers
-and span caching are not ported and the CLI refuses them.
+Sampling is Euler, dpm2m or res2ab (``solver``) with the JAX package's
+guidance interval, CFG rescale and step caching (fixed-interval, adaptive,
+or of a span of blocks when the model's DiT has one).
 """
 
 from __future__ import annotations
@@ -52,6 +52,8 @@ class Gen3cPipeline:
     guidance_interval: Optional[Sequence[float]] = None
     cfg_rescale: float = 0.0
     seed: int = 0
+    # the denoise's integration rule: euler, dpm2m or res2ab
+    solver: str = "euler"
 
     def __post_init__(self):
         if self.text_encoder is None:
@@ -128,6 +130,7 @@ class Gen3cPipeline:
             guidance_interval=self.guidance_interval,
             cfg_rescale=self.cfg_rescale,
             on_step=on_step,
+            solver=self.solver,
         )
         del pose_latent
         t3 = time.perf_counter()

@@ -4,7 +4,8 @@ Port of gen3c_tpu/pipelines/gen3c_single_image.py: image -> depth -> 3D
 cache -> preset trajectory -> chunked autoregressive generation (121*N-1
 frames, one frame of overlap, cache updated from the re-estimated depth of
 each chunk's last frame) -> video file. The flag names are the JAX CLI's;
-a flag whose feature is not ported raises NotImplementedError.
+the tensor-parallel --parallel strategies, which are not ported, raise
+NotImplementedError.
 
 Usage:
   python -m gen3c_tpu_torch.pipelines.gen3c_single_image \
@@ -68,14 +69,23 @@ def create_parser() -> argparse.ArgumentParser:
                         "cond branch's std (arXiv:2305.08891); 0 = plain CFG")
     p.add_argument("--num_steps", type=int, default=35)
     p.add_argument("--solver", default="euler", choices=("euler", "dpm2m", "res2ab"),
-                   help="only euler is ported")
+                   help="denoise integration rule at equal network cost: euler, or the "
+                        "multistep dpm2m (DPM-Solver++(2M)) or res2ab (exponential-"
+                        "integrator AB2); not with step caching")
     p.add_argument("--step_cache_interval", type=int, default=1,
                    help="> 1: run the DiT every Nth step after a 2-step warmup "
                         "and before a 2-step tail, reusing its output between")
     p.add_argument("--step_cache_block_span", type=int, nargs=2, default=None,
-                   metavar=("LO", "HI"), help="not ported yet")
+                   metavar=("LO", "HI"),
+                   help="with --step_cache_interval > 1: span caching, the skipped steps "
+                        "run only the DiT blocks outside [LO, HI) and re-apply the span's "
+                        "cached residual (python -m gen3c_tpu_torch.scripts."
+                        "rank_block_contributions recommends a span). The carry is the "
+                        "CFG batch's tokens: 2 x 56,320 x 4096 bf16 = 0.92 GB at the 7B")
     p.add_argument("--step_cache_span_dtype", type=str, default="bf16",
-                   choices=["bf16", "int8"], help="not ported yet")
+                   choices=["bf16", "int8"],
+                   help="the span carry: bf16 (the token dtype) or int8 codes with "
+                        "per-token fp32 scales (0.46 GB + 0.45 MB at the 7B)")
     p.add_argument("--step_cache_threshold", type=float, default=0.0,
                    help="> 0: adaptive step caching, refresh when the latent's "
                         "accumulated relative drift exceeds it (overrides "
@@ -155,7 +165,7 @@ def demo(args, record: Optional[dict] = None) -> str:
         step_cache_interval=args.step_cache_interval,
         step_cache_threshold=args.step_cache_threshold,
         guidance_interval=tuple(args.guidance_interval) if args.guidance_interval else None,
-        cfg_rescale=args.cfg_rescale)
+        cfg_rescale=args.cfg_rescale, solver=args.solver)
     if args.batch_input_path:
         inputs = read_prompts_from_file(args.batch_input_path)
     else:

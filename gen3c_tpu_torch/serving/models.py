@@ -407,7 +407,7 @@ class Gen3cPersistentModel(InferenceModel):
                 "guidance_interval": (list(self.pipeline.guidance_interval)
                                       if self.pipeline.guidance_interval else None),
                 "cfg_rescale": self.pipeline.cfg_rescale,
-                "solver": "euler",  # the port's only solver (ROADMAP item 9)
+                "solver": self.pipeline.solver,
             },
         }
 

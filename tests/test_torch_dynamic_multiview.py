@@ -389,9 +389,36 @@ def test_single_image_cli_foreground_masking_matches_jax(tmp_path, monkeypatch, 
 
 
 @pytest.mark.parametrize("cli", ["gen3c_dynamic", "gen3c_multiview"])
-@pytest.mark.parametrize("flag", [["--solver", "dpm2m"], ["--enable_prompt_encoder"],
-                                  ["--parallel", "cp2tp2"], ["--parallel", "tp"],
-                                  ["--parallel", "cfg2tp2"]])
+def test_new_clis_run_the_multistep_solver(cli, tmp_path, monkeypatch, models):  # noqa: F811
+    """--solver dpm2m through the dynamic and multiview CLIs: 3 steps (the
+    multistep rule runs on step 1; a 2-step run would be Euler on both),
+    against gen3c_tpu's CLI on the same weights."""
+    import importlib
+
+    jcli = importlib.import_module(f"gen3c_tpu.pipelines.{cli}")
+    tcli = importlib.import_module(f"gen3c_tpu_torch.pipelines.{cli}")
+    preset = models[2]
+    h, w = preset.height, preset.width
+    common = ["--model_preset", "gen3c_tiny", "--checkpoint_dir", str(tmp_path / "none"),
+              "--num_video_frames", "9", "--num_steps", "3", "--solver", "dpm2m", "--video_save_folder", str(tmp_path / "out")]
+    if cli == "gen3c_dynamic":
+        _write_clip(tmp_path / "clip.npz", preset, 9)
+        argv = ["--input_video_path", str(tmp_path / "clip.npz"), "--trajectory", "left"]
+    else:
+        image, depth, mask, w2c, k = _scene(3, h, w, 9)
+        w2c[:, 0, 3] = [0.0, 0.2, -0.2]
+        traj_w2c, traj_k = _targets(9, h, w)
+        np.savez(tmp_path / "mv.npz", images_key_frames=image, depth_key_frames=depth,
+                 K_key_frames=k, w2cs_key_frames=w2c, w2cs_all=traj_w2c, Ks_all=traj_k)
+        argv = ["--npz_path", str(tmp_path / "mv.npz"), "--frame_buffer_max", "2"]
+    got, want = _cli_pair(monkeypatch, models, jcli, tcli, argv + common)
+    assert got.shape == (9, h, w, 3)
+    _assert_frames_close(got, want)
+
+
+@pytest.mark.parametrize("cli", ["gen3c_dynamic", "gen3c_multiview"])
+@pytest.mark.parametrize("flag", [["--enable_prompt_encoder"], ["--parallel", "cp2tp2"],
+                                  ["--parallel", "tp"], ["--parallel", "cfg2tp2"]])
 def test_new_clis_refuse_unported_flags(cli, flag, tmp_path):
     """Flags of paths the port does not have yet raise NotImplementedError
     naming the flag (multi-device cp and cfg2 and the offload flags are

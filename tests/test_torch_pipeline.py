@@ -244,10 +244,75 @@ def test_cli_fast_preset_subprocess(tmp_path):
     assert "c*" in log  # a cached condition-only step in the step log
 
 
-@pytest.mark.parametrize("flag", [["--step_cache_block_span", "0", "4"],
-                                  ["--step_cache_span_dtype", "int8"], ["--solver", "res2ab"],
-                                  ["--parallel", "cp2tp2"], ["--solver", "dpm2m"],
-                                  ["--parallel", "cfg2tp2"],
+@pytest.mark.parametrize("flag", [["--step_cache_block_span", "1", "2", "--step_cache_interval", "2"],
+                                  ["--step_cache_span_dtype", "int8", "--step_cache_block_span",
+                                   "0", "1", "--step_cache_interval", "2"],
+                                  ["--solver", "res2ab"], ["--solver", "dpm2m"]],
+                         ids=["span", "span-int8", "res2ab", "dpm2m"])
+def test_cli_sampler_flags_match_jax(flag, tmp_path, monkeypatch, models):
+    """Span caching (bf16 and int8 carries) and the multistep solvers
+    through the single-image CLI: one 9-frame chunk of gen3c_tiny in 6
+    steps (a skipped step at 3 under span caching), on the CPU, against
+    gen3c_tpu's CLI on the same weights, the span reaching each package's
+    model through its factory's cache_block_span / cache_span_dtype."""
+    import copy
+    import dataclasses
+
+    from PIL import Image
+
+    import gen3c_tpu.pipelines.chunked as jchunked
+    from gen3c_tpu.pipelines import gen3c_single_image as jcli
+    from gen3c_tpu_torch.pipelines import gen3c_single_image as tcli
+
+    jmodel, tmodel, preset = models
+    Image.fromarray((np.random.default_rng(8).uniform(size=(preset.height, preset.width, 3))
+                     * 255).astype(np.uint8)).save(tmp_path / "in.png")
+    argv = ["--input_image_path", str(tmp_path / "in.png"), "--model_preset", "gen3c_tiny",
+            "--checkpoint_dir", str(tmp_path / "none"), "--num_video_frames", "9",
+            "--num_steps", "6", "--guidance", "2", "--depth_source", "heuristic",
+            "--video_save_folder", str(tmp_path / "out"), *flag]
+    built = {}
+
+    def jbuild(*a, cache_block_span=None, cache_span_dtype="bf16", **kw):
+        cfg = dataclasses.replace(jmodel.dit_cfg, cache_span_dtype=cache_span_dtype,
+                                  cache_block_span=tuple(cache_block_span)
+                                  if cache_block_span else None)
+        return dataclasses.replace(jmodel, dit_cfg=cfg), preset
+
+    def tbuild(*a, cache_block_span=None, cache_span_dtype="bf16", **kw):
+        net = copy.copy(tmodel.net)
+        net.cfg = dataclasses.replace(tmodel.net.cfg, cache_span_dtype=cache_span_dtype,
+                                      cache_block_span=tuple(cache_block_span)
+                                      if cache_block_span else None)
+        built["cfg"] = net.cfg
+        return dataclasses.replace(tmodel, net=net), preset
+
+    monkeypatch.setattr(jcli, "build_gen3c_model", jbuild)
+    monkeypatch.setattr(tfactory, "build_gen3c_model", tbuild)
+    runs = {}
+    for name, module in (("jax", jchunked), ("port", sys.modules[tcli.__name__])):
+        inner = module.run_chunked_generation
+
+        def wrapped(*args, _inner=inner, _name=name, **kwargs):
+            out = _inner(*args, **kwargs)
+            runs[_name] = (out[0].copy(), args[0])
+            return out
+
+        monkeypatch.setattr(module, "run_chunked_generation", wrapped)
+    jcli.demo(jcli.create_parser().parse_args(argv))
+    tcli.demo(tcli.create_parser().parse_args(argv + ["--device", "cpu"]))
+    pipeline = runs["port"][1]
+    steps = [s["refresh"] for s in pipeline.last_timings["denoise_steps"]]
+    if "--step_cache_block_span" in flag:
+        assert built["cfg"].cache_block_span == tuple(int(v) for v in flag[flag.index(
+            "--step_cache_block_span") + 1:][:2])
+        assert steps == [True, True, True, False, True, True]
+    else:
+        assert pipeline.solver == flag[1] and all(steps)
+    _assert_frames_close(runs["port"][0], runs["jax"][0])
+
+
+@pytest.mark.parametrize("flag", [["--parallel", "cp2tp2"], ["--parallel", "cfg2tp2"],
                                   ["--enable_prompt_encoder", "--t5_backend", "torch"],
                                   ["--enable_prompt_encoder"], ["--parallel", "tp"],
                                   ["--parallel", "cp2tp2sp"], ["--parallel", "cfg2cp2tp2"]])
@@ -290,7 +355,6 @@ def test_perf_preset_expands_as_jax(flags):
     for key in ("quantize_w8a8", "quantize_int8", "attn_temporal_window", "step_cache_interval",
                 "step_cache_threshold", "guidance_interval", "cfg_rescale", "perf_preset"):
         assert getattr(ours, key) == getattr(theirs, key), key
-    tfactory.check_ported(ours)
 
 
 def test_port_never_imports_jax():
@@ -299,11 +363,14 @@ def test_port_never_imports_jax():
     a packaged clip, the dynamic and multiview CLIs with foreground
     masking, checkpoints written and loaded, the T5 stack, the single-image
     AR chain with MoGe depth, the serving model, the debug server and the
-    native host libraries, a two-rank context-parallel run under torchrun),
-    without importing jax, jaxlib or any gen3c_tpu module."""
+    native host libraries, a two-rank context-parallel run under torchrun,
+    the ODE solvers, span caching and a multistep denoise, text2world, the
+    world interpolator, the tokenizer CLI, the quality curve and the block
+    ranking), without importing jax, jaxlib or any gen3c_tpu module."""
     code = r"""
 import importlib, pkgutil, sys
 import numpy as np, torch
+torch.set_num_threads(2)  # as this file's own process: the suite runs beside it
 import gen3c_tpu_torch
 for m in pkgutil.walk_packages(gen3c_tpu_torch.__path__, "gen3c_tpu_torch."):
     importlib.import_module(m.name)
@@ -466,6 +533,36 @@ with tempfile.TemporaryDirectory() as root:
                          env=dict(os.environ, PYTHONPATH=os.getcwd()), capture_output=True,
                          text=True, timeout=200)
     assert out.returncode == 0 and out.stdout.count("rank jax-free") == 2, out.stderr[-2000:]
+# the slice-14 modules: the ODE solvers, a multistep and a span-cached
+# denoise, text2world, the interpolator, the tokenizer CLI, the quality
+# curve and the block ranking
+from gen3c_tpu_torch.diffusion.solvers import SOLVERS, sample_ode
+for solver in SOLVERS:
+    assert torch.isfinite(sample_ode(lambda x, s: torch.tanh(x), torch.ones(1, 2, 1, 2, 2),
+                                     num_steps=3, solver=solver)).all()
+span_model, _ = build_gen3c_model("gen3c_tiny", device="cpu", seed=0, cache_block_span=(0, 1),
+                                  cache_span_dtype="int8")
+for kw in (dict(step_cache_interval=2, num_steps=6), dict(solver="res2ab", num_steps=3)):
+    video, _ = Gen3cPipeline(model=span_model, **kw).generate(
+        "", np.zeros((1, 3, 1, p.height, p.width), np.float32),
+        torch.zeros(1, p.chunk_size, 1, 3, p.height, p.width),
+        torch.ones(1, p.chunk_size, 1, 1, p.height, p.width))
+import argparse, imageio
+from gen3c_tpu_torch.pipelines import text2world, tokenizer_cli, world_interpolator
+t2w, tp = build_gen3c_model(text2world.COSMOS_V2W_TINY, device="cpu", seed=0)
+assert text2world.generate_world(t2w, tp, np.zeros((1, 512, 1024), np.float32), num_steps=2,
+                                 solver="dpm2m").shape == (tp.chunk_size, tp.height, tp.width, 3)
+ends = np.zeros((1, 3, 1, tp.height, tp.width), np.float32)
+world_interpolator._interpolate_pair(t2w, tp, ends, ends, argparse.Namespace(
+    num_steps=2, guidance=7.0, guidance_interval=None, solver="res2ab"), seed=1)
+from gen3c_tpu_torch.diffusion.quality import approximation_quality_curve
+assert len(approximation_quality_curve(num_steps=3, lat_t=4, lat_hw=4, device="cpu")) == 10
+from gen3c_tpu_torch.scripts import rank_block_contributions
+rank_block_contributions.main(["--device", "cpu", "--num_sigmas", "1"])
+with tempfile.TemporaryDirectory() as root:
+    imageio.mimsave(f"{root}/in.gif", list(np.zeros((9, 32, 32, 3), np.uint8)))
+    tokenizer_cli.main(["--input", f"{root}/in.gif", "--output", f"{root}/o.mp4",
+                        "--vae_preset", "tiny", "--chunk_duration", "9", "--device", "cpu"])
 foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gen3c_tpu"))
 assert not foreign, foreign[:8]
 print("jax-free")

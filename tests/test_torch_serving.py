@@ -135,8 +135,18 @@ def test_persistent_model_two_chunk_inference_matches_jax(models, shared_scale_m
     np.testing.assert_array_equal(got.cameras_to_world, want.cameras_to_world)
     np.testing.assert_array_equal(tm.get_latest_rgb(), got.images[-1])
     meta, jmeta = tm.metadata(), jm.metadata()
-    assert meta["seeded"] and meta["chunk_size"] == 9 and meta["perf"]["solver"] == "euler"
+    assert meta["seeded"] and meta["chunk_size"] == 9
+    assert meta["perf"]["solver"] == tm.pipeline.solver == jmeta["perf"]["solver"] == "euler"
     assert set(meta) == set(jmeta) and set(meta["perf"]) == set(jmeta["perf"])
+
+
+def test_metadata_reports_the_pipeline_solver(models, monkeypatch):
+    """/metadata's perf.solver is the pipeline's (serving/models.py:545),
+    here a res2ab pipeline in both packages."""
+    jm, tm = models
+    monkeypatch.setattr(jm.pipeline, "solver", "res2ab")
+    monkeypatch.setattr(tm.pipeline, "solver", "res2ab")
+    assert tm.metadata()["perf"]["solver"] == jm.metadata()["perf"]["solver"] == "res2ab"
 
 
 def test_render_preview_matches_jax(models):
