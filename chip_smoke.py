@@ -129,6 +129,24 @@ Phases, each printing one JSON line of its own numbers:
              attention body of attention_f32.cu, W8A8 rows on K7q + K7) on
              the card, held row by row to the same curve on the CPU
              (QUALITY_TOL); s of each, launches
+ 25 mv_world the multiview world model: K1 at the Sample-AV 7B's (2, 76,320,
+             32, 128) (76,320 = 6 views x 8 x 30 x 53, not a multiple of 128;
+             held to its plain version on MV_HEAD_SLICE heads) and K2 with the
+             views folded into the batch, (12, 12,720) over (12, 512); the
+             text2world_multiview CLI's entry point with the seeded
+             cosmos_t2w_mv_7b (gates and repeat-frame Linear randomized, zero
+             T5 for the 6 x 512 context), MV_T2W_STEPS CFG steps, all 6 views
+             decoded to 57 x 480 x 848 uint8, then cosmos_v2w_mv_7b for
+             MV_V2W_STEPS step from a seeded 480x848 image (each view's first
+             latent frame held to the image's latent): s per step, decode s per
+             view, peak GiB, launches by kernel and body (wgmma only); the tiny
+             fp32 multiview preset drawn on the CPU, card against CPU
+ 26 mv_action_train  one train_step of the multiview 7B (cosmos_v2w_mv_7b,
+             76,320 tokens, 6 x 512 text tokens, video-extend with the per-view
+             indicator) at MV_TRAIN_BLOCKS = 10 blocks (12 would pass the
+             card's memory) and of video2world_action_7b (56,320 tokens, a (1,
+             1, 7) action) at TRAIN_BLOCKS_7B = 12, per-block remat: s per
+             step, loss, grad-norm, peak GiB, K4's launches by forward
 Every bf16 attention case of phase 3 also prints its launches by body
 (kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
 registers, stack and spill bytes (ptxas -v, the build log) and dynamic
@@ -3321,6 +3339,275 @@ def phase_quality() -> dict:
     return res
 
 
+# the multiview world model: the Sample-AV 7B's 76,320 tokens
+MV_T2W_STEPS = 2  # both CFG: K1 = K2 = 2 x 28 launches
+MV_V2W_STEPS = 1
+MV_HEAD_SLICE = 4  # K1 at 76,320 held to its plain version on these heads (the rest timed)
+# the tiny fp32 multiview preset, card (3xTF32 attention, fp32 cuBLAS) against
+# CPU on the same weights: the final latent's |delta| relative to mean |cpu|
+# (set before the first run, PERF.md)
+MV_TINY_TOL = {"max": 1e-3, "mean": 1e-4}
+MV_TINY_STEPS = 3
+# v2w: each view's first latent frame against the seed image's latent, relative
+# to its largest |value| (the condition region is replaced on every step above
+# the augment sigma; 1 step of 1 leaves only fp32 rounding)
+MV_COND_TOL = 1e-2
+MV_TRAIN_STEPS = 1
+# the multiview train step's depth: the train phase's 12 blocks peak at 66.49
+# GiB at 56,320 tokens on an H100, 35.1 GiB of it the state; its 31.4 GiB of
+# activations scaled to 76,320 tokens (x 1.36) put 12 blocks at ~78 GiB, past
+# the card. 10 blocks (2 x 2.9 GiB less state) peak at 71.2 GiB
+MV_TRAIN_BLOCKS = 10
+
+
+def _randomize_mv(net, gen) -> None:
+    """``_randomize_gates`` and a random repeat-frame Linear, so that the
+    frame-repeat negative condition reaches the output."""
+    _randomize_gates(net, gen)
+    with torch.no_grad():
+        for p in net.repeat_frame_embedding.parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen, device=p.device))
+
+
+def _mv_k1_case(gen) -> dict:
+    """K1 at the multiview 7B's (2, 76,320, 32, 128) bf16: the kernel on all
+    heads, held to its plain version on MV_HEAD_SLICE heads (on all 32 it
+    would take ~7 s); kernel, SDPA and bound over all heads, the plain ms
+    over the slice ("plain_heads")."""
+    from gen3c_tpu_torch import kernels
+
+    shape = (2, 76320, 32, 128)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    before = dict(kernels.route_counts)
+    out = kernels.attention(q, k, v)
+    hs = slice(0, MV_HEAD_SLICE)
+    sl = [t[:, :, hs] for t in (q, k, v)]
+    ref = kernels.attention_reference(*sl)
+    err = (out[:, :, hs].float() - ref.float()).abs()
+    res = {"name": "K1 self-attention, multiview 7B", "q": list(shape), "kv": list(shape),
+           "dtype": "torch.bfloat16", "ragged_tail": shape[1] % 128,
+           "checked_heads": MV_HEAD_SLICE, "max_abs_err": err.max().item(),
+           "mean_abs_err": err.mean().item(), "finite": bool(torch.isfinite(out).all().item())}
+    del out, ref, err
+    B, L, H, D = shape
+    flop = 4.0 * B * H * L * L * D
+    res["ms"] = cuda_ms(lambda: kernels.attention(q, k, v), reps=3)
+    res["plain_ms"] = cuda_ms(lambda: kernels.attention_reference(*sl), reps=1, warmup=0)
+    res["plain_heads"] = MV_HEAD_SLICE
+    res.update(tflops=flop / res["ms"] / 1e9, library_ms=library_ms(lambda: _sdpa(q, k, v)),
+               **bound(tensor_bytes(q, k, v, q), flop, BF16_PEAK_TFLOPS))
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["routes"] = route_delta(before)
+    emit("kernel", **res)
+    require_wgmma(res["name"], res["routes"])
+    if not res["finite"] or res["max_abs_err"] > ATTN_TOL["max"] \
+            or res["mean_abs_err"] > ATTN_TOL["mean"]:
+        raise AssertionError(f"K1 at 76,320: kernel disagrees with its plain version: {res}")
+    return res
+
+
+def _mv_kernel_summary(case: dict) -> dict:
+    """A multiview kernel case's shapes, times, bound and error; its plain
+    version's ms is over ``plain_heads`` of the heads."""
+    return {**{k: case[k] for k in ("q", "kv", "ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by", "max_abs_err", "tflops")},
+            "plain_heads": case.get("plain_heads", case["q"][2])}
+
+
+def _mv_tiny_card_vs_cpu() -> dict:
+    """cosmos_t2w_mv_tiny (fp32, 3 views) drawn on the CPU, its gates and
+    repeat-frame Linear randomized there, copied to the card:
+    generate_multiview_world's final latent on both."""
+    from gen3c_tpu_torch.models.vae import VideoTokenizer
+    from gen3c_tpu_torch.pipelines import text2world_multiview as tmv
+
+    preset = tmv.MV_T2W_TINY
+    cpu = tmv.build_model(preset, "cpu", seed=1, checkpoint_dir=None)
+    _randomize_mv(cpu.net, torch.Generator().manual_seed(2))
+    tok = cpu.tokenizer
+    card = tmv.MultiviewModel(
+        net=copy.deepcopy(cpu.net).to("cuda"),
+        tokenizer=VideoTokenizer(copy.deepcopy(tok.vae).to("cuda"), tok.pixel_chunk_duration,
+                                 tok.latent_mean, tok.latent_std, tok.spatial_resolution))
+    t5 = np.random.default_rng(3).standard_normal((1, 3 * 512, 1024)).astype(np.float32)
+    lat = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        record = {}
+        tmv.generate_multiview_world(model, preset, t5, num_steps=MV_TINY_STEPS, seed=4,
+                                     record=record)
+        lat[name] = record["latent"].float()
+    d = (lat["card"] - lat["cpu"]).abs()
+    scale = lat["cpu"].abs().mean().item()
+    return {"preset": preset.name, "steps": MV_TINY_STEPS, "rel_max": d.max().item() / scale,
+            "rel_mean": d.mean().item() / scale, "tol": MV_TINY_TOL}
+
+
+def _mv_run(preset_name: str, steps: int, root: str, extra: list) -> dict:
+    """The multiview CLI's entry point on a seeded, gate-randomized 7B
+    preset: its record, launches, routes, peak GiB and build s."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.pipelines import text2world_multiview as tmv
+
+    args = tmv.create_parser().parse_args(
+        ["--model_preset", preset_name, "--num_steps", str(steps), "--checkpoint_dir",
+         os.path.join(root, "none"), "--video_save_folder", root, "--device", "cuda", *extra])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tmv.build_model(tmv.resolve_preset(args), "cuda", seed=1,
+                            checkpoint_dir=args.checkpoint_dir)
+    _randomize_mv(model.net, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    record = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    paths = tmv.demo(args, built=model, record=record)
+    torch.cuda.synchronize()
+    cfg = model.net.cfg
+    res = {"model": preset_name, "blocks": cfg.num_blocks, "channels": cfg.model_channels,
+           "heads": cfg.num_heads, "views": cfg.n_views, "in_channels": cfg.in_channels,
+           "dtype": str(cfg.dtype), "latent": list(record["latent"].shape),
+           "tokens": int(np.prod(record["latent"].shape[2:])) // 4,
+           "videos": [list(v.shape) for v in record["videos"]],
+           "video_dtypes": sorted({str(v.dtype) for v in record["videos"]}),
+           "latent_finite": bool(torch.isfinite(record["latent"]).all().item()),
+           "step_s": [s["seconds"] for s in record["steps"]],
+           "step_cfg": [s["cfg"] for s in record["steps"]],
+           "decode_s_per_view": record["decode_seconds"], "build_model_s": build_s,
+           "entry_point_s": time.perf_counter() - t0,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": dict(kernels.launch_counts), "routes": dict(kernels.route_counts),
+           "saved": len(paths)}
+    if cfg.in_channels > 16:  # v2w: each view's first latent frame against the seed's latent
+        from gen3c_tpu_torch.utils.io import read_image_bcthw
+
+        img = read_image_bcthw(extra[extra.index("--input_image_path") + 1], 480, 848)
+        pad = np.concatenate([img] + [np.zeros_like(img)] * 56, axis=2)
+        cond = model.encode(torch.from_numpy(pad).cuda())[:, :, 0].float().cpu()
+        Tl = record["latent"].shape[2] // cfg.n_views
+        res["condition_rel_err"] = max(
+            ((record["latent"][:, :, v * Tl] - cond).abs().max() / cond.abs().max()).item()
+            for v in range(cfg.n_views))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mv_world() -> dict:
+    """The multiview world model (phase 25 of the docstring): K1 and K2 at
+    its shapes, the CLI in both modes at the 7B, the tiny preset card
+    against CPU."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    kern = {"K1": _mv_k1_case(gen)}
+    torch.cuda.empty_cache()
+    # views folded into the batch: (2 x 6, 12,720) queries over each view's 512 keys
+    kern["K2"] = _attention_case("K2 cross-attention, multiview 7B (views folded)",
+                                 (12, 12720, 32, 128), (12, 512, 32, 128), torch.bfloat16,
+                                 ATTN_TOL, gen)
+    torch.cuda.empty_cache()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
+        t2w = _mv_run("cosmos_t2w_mv_7b", MV_T2W_STEPS, root, [])
+        seed_png = os.path.join(root, "seed.png")
+        _write_png(seed_png, _seed_image(480, 848, 5))
+        v2w = _mv_run("cosmos_v2w_mv_7b", MV_V2W_STEPS, root,
+                      ["--mode", "video2world", "--input_image_path", seed_png])
+    tiny = _mv_tiny_card_vs_cpu()
+    res = {"kernels": {k: _mv_kernel_summary(r) for k, r in kern.items()},
+           "t2w": t2w, "v2w": v2w, "tiny_card_vs_cpu": tiny}
+    emit("mv_world", **res)
+    for run, steps in ((t2w, MV_T2W_STEPS), (v2w, MV_V2W_STEPS)):
+        require_wgmma(f"mv_world {run['model']}", run["routes"])
+        n = steps * run["blocks"]
+        if (run["tokens"] != 76320 or run["videos"] != [[57, 480, 848, 3]] * 6
+                or run["video_dtypes"] != ["uint8"] or not run["latent_finite"]
+                or run["step_cfg"] != [True] * steps or run["saved"] != 6
+                or run["launches"]["K1"] != n or run["launches"]["K2"] != n):
+            raise AssertionError(f"mv_world {run['model']}: {run}")
+    if v2w["condition_rel_err"] > MV_COND_TOL:
+        raise AssertionError(f"mv_world v2w: the views' first frames left the seed: {v2w}")
+    if tiny["rel_max"] > MV_TINY_TOL["max"] or tiny["rel_mean"] > MV_TINY_TOL["mean"]:
+        raise AssertionError(f"mv_world: tiny card against CPU {tiny}")
+    res["launches"] = {k: t2w["launches"][k] + v2w["launches"][k] for k in t2w["launches"]}
+    res["kernel_cases"] = kern
+    return res
+
+
+def _train_one(cfg, batch, name: str, **step_kw) -> dict:
+    """MV_TRAIN_STEPS train_steps of a seeded, gate-randomized net of
+    ``cfg`` on ``batch`` (per-block remat, TrainerConfig's optimizer)."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.training.train import build_net
+    from gen3c_tpu_torch.training.train_step import init_train_state, make_optimizer, train_step
+    from gen3c_tpu_torch.training.trainer import TrainerConfig
+
+    tc = TrainerConfig()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    net = build_net(cfg, "cuda", seed=0)
+    _randomize_gates(net, torch.Generator(device="cuda").manual_seed(1))
+    opt = make_optimizer(lr=tc.lr, weight_decay=tc.weight_decay, grad_clip=tc.grad_clip,
+                         warmup_steps=tc.warmup_steps, grad_accum_steps=tc.grad_accum_steps)
+    state = init_train_state(net, opt)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(0)
+    kernels.reset_launch_counts()
+    steps = []
+    for _ in range(MV_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, gen, cfg, opt, remat=True, **step_kw)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t0, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"])})
+    x0 = batch["x0"]
+    res = {"model": name, "blocks": cfg.num_blocks, "channels": cfg.model_channels,
+           "params": sum(p.numel() for p in net.parameters()),
+           "tokens": int(np.prod(x0.shape[2:])) // 4, "ctx_tokens": batch["crossattn_emb"].shape[1],
+           "steps": steps, "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+           "launches": dict(kernels.launch_counts), "routes": dict(kernels.route_counts),
+           "k4_by_forward": dict(kernels.k4_launches_by_forward)}
+    del state, net, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = 2 * cfg.num_blocks
+    require_wgmma(f"mv_action_train {name}", res["routes"])
+    if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) and s["grad_norm"] > 0
+               for s in steps):
+        raise AssertionError(f"mv_action_train {name}: non-finite or zero loss: {res}")
+    if res["launches"]["K4"] != MV_TRAIN_STEPS * per_step:
+        raise AssertionError(f"mv_action_train {name}: K4 launches {res['launches']}")
+    return res
+
+
+def phase_mv_action_train() -> dict:
+    """One train step of the multiview 7B (76,320 tokens, video-extend with
+    the per-view indicator) at MV_TRAIN_BLOCKS blocks and of
+    video2world_action_7b (56,320 tokens, a (1, 1, 7) action) at
+    TRAIN_BLOCKS_7B, with per-block remat (phase 26 of the docstring)."""
+    import dataclasses
+
+    from gen3c_tpu_torch.pipelines.text2world_multiview import MV_V2W_7B
+    from gen3c_tpu_torch.utils.registry import get_experiment
+
+    mv_cfg = dataclasses.replace(MV_V2W_7B.dit, num_blocks=MV_TRAIN_BLOCKS)
+    _, VT, Hl, Wl = MV_V2W_7B.state_shape
+    mv = _train_one(mv_cfg, _train_batch(mv_cfg, VT, Hl, Wl, 6 * 512, seed=0),
+                    "cosmos_v2w_mv_7b", video_extend=True)
+    act_cfg = dataclasses.replace(get_experiment("video2world_action_7b").dit,
+                                  num_blocks=TRAIN_BLOCKS_7B)
+    batch = _train_batch(act_cfg, LATENT_T_7B, 88, 160, 512, seed=1)
+    batch["action"] = torch.randn((1, 1, 7), generator=torch.Generator().manual_seed(2))
+    act = _train_one(act_cfg, batch, "video2world_action_7b", video_extend=True)
+    res = {"multiview": mv, "action": act}
+    emit("mv_action_train", **res)
+    if mv["tokens"] != 76320 or act["tokens"] != 56320:
+        raise AssertionError(f"mv_action_train tokens: {mv['tokens']}, {act['tokens']}")
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="gen3c_tpu_torch smoke run on one GPU")
     p.add_argument("--cp-rank", type=int, default=None, help=argparse.SUPPRESS)
@@ -3352,6 +3639,7 @@ def main(argv=None) -> int:
     interp_launches = phase_interpolator()["launches"]
     phase_tokenizer()
     quality_launches = phase_quality()["launches"]
+    mv_res = phase_mv_world()
     fast_launches = phase_fast()["launches"]
     phase_fast_parity()
     phase_chain()
@@ -3359,6 +3647,7 @@ def main(argv=None) -> int:
     phase_t5()
     phase_checkpoint()
     train_launches = phase_train()["k4_by_forward"]
+    mv_train = phase_mv_action_train()
     lora_launches = phase_lora_band_train()["launches"]
     phase_train_parity()
     phase_band_train_parity()
@@ -3378,16 +3667,24 @@ def main(argv=None) -> int:
         return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
                 "launches": launches, **{**got, **override}}
 
-    # the launches of the span, text2world and interpolator phases
+    # the launches of the span, text2world, interpolator and multiview phases
     def by_phase(kid):
         return {"span": span_res["full"]["launches"][kid], "text2world": t2w_launches[kid],
-                "interpolator": interp_launches[kid]}
+                "interpolator": interp_launches[kid], "mv_world": mv_res["launches"][kid],
+                "mv_action_train": sum(r["launches"][kid] for r in mv_train.values())}
+
+    def mv_shape(kid):  # the kernel at the multiview 7B's shape (mv_world's case)
+        return _mv_kernel_summary(mv_res["kernel_cases"][kid])
+
+    # K4 in mv_action_train, by the forward it differentiates
+    k4_mv = {f"mv_action_train ({k})": {fwd: r["k4_by_forward"][fwd] for fwd in ("K1", "K2")}
+             for k, r in mv_train.items()}
 
     table = [
         row("K1 self-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:445",
-            launches["K1"], kern["K1"], phase_launches=by_phase("K1")),
+            launches["K1"], kern["K1"], phase_launches=by_phase("K1"), multiview=mv_shape("K1")),
         row("K2 cross-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:472",
-            launches["K2"], kern["K2"], phase_launches=by_phase("K2")),
+            launches["K2"], kern["K2"], phase_launches=by_phase("K2"), multiview=mv_shape("K2")),
         row("K5 forward-warp splat", "splat.cu", "gen3c_tpu/ops/geometry.py:205",
             launches["K5"], kern["K5"],
             max_abs_err=max([kern["K5"]["max_abs_err"]]
@@ -3407,9 +3704,11 @@ def main(argv=None) -> int:
             shapes=[{k: r[k] for k in ("name", "copied", "ms", "library_ms", "bound_ms")}
                     for r in k7_cases]),
         row("K4 self-attention backward", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:464",
-            train_launches["K1"], kern["K4_self"]),
+            train_launches["K1"], kern["K4_self"],
+            phase_launches={k: v["K1"] for k, v in k4_mv.items()}),
         row("K4 cross-attention backward", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:508",
-            train_launches["K2"], kern["K4_cross"]),
+            train_launches["K2"], kern["K4_cross"],
+            phase_launches={k: v["K2"] for k, v in k4_mv.items()}),
         row("K4-band band self-attention backward", "attention_wgmma.cu",
             "gen3c_tpu/models/dit.py:464", lora_launches["K4band"], kern["K4band"]),
         row("K3lse band forward with lse", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:459",

@@ -7,7 +7,9 @@ the reference checkpoint's torch name and transposes the linears back to
 gen3c_tpu/models/quantize.py) becomes the ``weight`` (int8 codes, (out,
 in)) and ``scale`` ((out,)) of a ``models.quantize.QuantLinear``; the net
 must have been given that structure (``quantize_dit_``) before loading. ``vae_state_from_jax`` is the identity, because the JAX VAE
-params are already keyed by the reference names. ``train_params_from_jax``
+params are already keyed by the reference names. ``multiview_state_from_jax``
+and ``action_state_from_jax`` carry the multiview and action nets' trees
+(``net_state_from_jax`` picks by the tree's keys). ``train_params_from_jax``
 carries a training tree across, the logvar head and its {"net", "logvar"}
 wrapper included; ``lora_state_from_jax`` the LoRA adapters. All take numpy-valued
 trees (``jax.device_get`` output, or the numpy and bf16 torch leaves of
@@ -78,6 +80,43 @@ def dit_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def multiview_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A gen3c_tpu multiview DiT tree (``init_multiview_dit_params`` or
+    ``convert_multiview_dit_state_dict``) -> MultiviewGeneralDIT state_dict:
+    ``dit_state_from_jax`` without the learnable extra position slots (the
+    multiview forward ignores them; the port's net has none), plus
+    ``view_embeddings.weight`` (V, vc) and the repeat-frame Linear(1, vc)."""
+    sd = {k: v for k, v in dit_state_from_jax(tree).items()
+          if not k.startswith("extra_pos_embedder.")}
+    sd["view_embeddings.weight"] = _a(tree["view_embeddings"])
+    if "repeat_frame_embedding" in tree:
+        sd["repeat_frame_embedding.weight"] = _t(tree["repeat_frame_embedding"]["w"])
+        sd["repeat_frame_embedding.bias"] = _a(tree["repeat_frame_embedding"]["b"])
+    return sd
+
+
+def action_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A gen3c_tpu action DiT tree (``init_action_dit_params``) -> ActionDiT
+    state_dict: ``dit_state_from_jax`` plus both action MLPs, fc1 / fc2
+    weights transposed to (out, in)."""
+    sd = dit_state_from_jax(tree)
+    for name in ("action_embedder_B_D", "action_embedder_B_3D"):
+        for fc in ("fc1", "fc2"):
+            sd[f"{name}.{fc}.weight"] = _t(tree[name][fc]["w"])
+            sd[f"{name}.{fc}.bias"] = _a(tree[name][fc]["b"])
+    return sd
+
+
+def net_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Any gen3c_tpu DiT tree -> the state_dict of the port's net of its
+    kind (multiview, action or the single-stream GeneralDIT)."""
+    if "view_embeddings" in tree:
+        return multiview_state_from_jax(tree)
+    if "action_embedder_B_3D" in tree:
+        return action_state_from_jax(tree)
+    return dit_state_from_jax(tree)
+
+
 def logvar_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX logvar head ({"freqs", "phases", "w"}, losses.py
     ``init_logvar_params``) -> training.losses.LogvarHead state_dict; the
@@ -91,8 +130,8 @@ def train_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     ``loss_add_logvar`` wrapper {"net", "logvar"} as
     training.train_step.NetWithLogvar (``net.*``, ``logvar.*``)."""
     if "net" not in tree:
-        return dit_state_from_jax(tree)
-    return {**{f"net.{k}": v for k, v in dit_state_from_jax(tree["net"]).items()},
+        return net_state_from_jax(tree)
+    return {**{f"net.{k}": v for k, v in net_state_from_jax(tree["net"]).items()},
             **{f"logvar.{k}": v for k, v in logvar_state_from_jax(tree["logvar"]).items()}}
 
 

@@ -16,6 +16,13 @@ once ``dit_state_for_net`` has unwrapped and accounted for its keys:
   * the augment-sigma and action embedders, which JAX's converter carries
     but the GEN3C forward never reads (forward-dead under AdaLN-LoRA; the
     port's GEN3C net has no such parameters): accounted for and dropped.
+    An ``ActionDiT`` (models/dit_action.py) has the action embedders, so
+    for it they load like any other parameter.
+
+``convert_multiview_dit_state_dict`` builds gen3c_tpu's multiview tree
+from a Sample-AV state dict; the port's ``MultiviewGeneralDIT`` loads the
+same state dict through ``dit_state_for_net`` (its sincos position tables
+are not in a checkpoint, and it has no learnable extra position slots).
 
 ``strict=True`` raises on any other key the net does not have, as
 ``convert_dit_state_dict(strict=True)`` does. ``convert_dit_state_dict``
@@ -189,6 +196,32 @@ def convert_dit_state_dict(state_dict: Mapping[str, Any], cfg: DiTConfig,
     if strict and set(sd) - consumed:
         raise _drift(set(sd) - consumed)
     return _map(params, lambda x: x.to(dtype))
+
+
+def convert_multiview_dit_state_dict(state_dict: Mapping[str, Any], cfg,
+                                     dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """A reference MultiviewGeneralDIT state dict (the Sample-AV models) ->
+    gen3c_tpu's multiview tree (gen3c_tpu/models/convert.py:296-330): the
+    GeneralDIT mapping, with zero learnable extra position slots where the
+    checkpoint has none (the multiview forward ignores them), plus
+    ``view_embeddings`` (nn.Embedding, (V, vc)) and the optional
+    ``repeat_frame_embedding`` (nn.Linear(1, vc): w (1, vc), b (vc,)).
+    "net." is stripped; logvar and TE "_extra_state" keys are skipped."""
+    sd = {}
+    for k, v in state_dict.items():
+        if "_extra_state" in k or k.startswith("logvar"):
+            continue
+        sd[k[len("net."):] if k.startswith("net.") else k] = v
+    D = cfg.model_channels
+    for name, n in (("t", cfg.len_t), ("h", cfg.len_h), ("w", cfg.len_w)):
+        sd.setdefault(f"extra_pos_embedder.pos_emb_{name}", torch.zeros((n, D)))
+    params = convert_dit_state_dict(sd, cfg, dtype)
+    params["view_embeddings"] = _a(sd["view_embeddings.weight"]).to(dtype)
+    if "repeat_frame_embedding.weight" in sd:
+        params["repeat_frame_embedding"] = {
+            "w": _t(sd["repeat_frame_embedding.weight"]).to(dtype),
+            "b": _a(sd["repeat_frame_embedding.bias"]).to(dtype)}
+    return params
 
 
 def _map(tree, fn):

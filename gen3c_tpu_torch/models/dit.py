@@ -371,7 +371,17 @@ class VideoAttn(nn.Module):
         super().__init__()
         self.attn = Attention(dim, ctx_dim, num_heads, device, dtype)
 
-    def forward(self, x, context=None, rope=None, band=None, cp=None, cp_impl="allgather"):
+    def forward(self, x, context=None, rope=None, band=None, cp=None, cp_impl="allgather",
+                n_views: int = 1):
+        """n_views > 1 (cross-attention of the multiview net): the views fold
+        into the batch, tokens (B, V*Lv, D) -> (B*V, Lv, D) and context (B,
+        V*M, D_ctx) -> (B*V, M, D_ctx), views of the same memory, so each
+        view attends to its own prompt (dit_multiview.py:198-206)."""
+        if n_views > 1:
+            B, L, D = x.shape
+            ctx = context.reshape(B * n_views, context.shape[1] // n_views, context.shape[2])
+            out = self.attn(x.reshape(B * n_views, L // n_views, D), ctx)
+            return out.reshape(B, L, D)
         return self.attn(x, context, rope, band, cp, cp_impl)
 
 
@@ -417,10 +427,11 @@ class GeneralDITTransformerBlock(nn.Module):
                              D, L, device, dtype),
         ])
 
-    def forward(self, x, emb, lora, extra, ctx, rope, band=None, cp=None, cp_impl="allgather"):
+    def forward(self, x, emb, lora, extra, ctx, rope, band=None, cp=None, cp_impl="allgather",
+                n_views: int = 1):
         x = x + extra
         x = self.blocks[0](x, emb, lora, rope=rope, band=band, cp=cp, cp_impl=cp_impl)
-        x = self.blocks[1](x, emb, lora, context=ctx)
+        x = self.blocks[1](x, emb, lora, context=ctx, n_views=n_views)
         return self.blocks[2](x, emb, lora)
 
 
@@ -484,18 +495,23 @@ class GeneralDIT(nn.Module):
         self.requires_grad_(False)
         self._rope_cache = {}
 
-    def patchify(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def patchify(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor],
+                 extra_channels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, C, T, H, W) -> (B, T', H', W', D) tokens; patch channel order
-        (c, t_patch, h_patch, w_patch)."""
+        (c, t_patch, h_patch, w_patch). The channels are [x | padding mask |
+        extra_channels]: the multiview net's view condition goes last."""
         cfg = self.cfg
-        B, C, T, H, W = x.shape
-        ps, pt = cfg.patch_spatial, cfg.patch_temporal
+        B, _, T, H, W = x.shape
+        parts = [x]
         if cfg.concat_padding_mask:
             if padding_mask is None:
                 padding_mask = torch.zeros((B, H, W), dtype=x.dtype, device=x.device)
-            pm = padding_mask[:, None, None].to(x.dtype).expand(B, 1, T, H, W)
-            x = torch.cat([x, pm], dim=1)
-            C += 1
+            parts.append(padding_mask[:, None, None].to(x.dtype).expand(B, 1, T, H, W))
+        if extra_channels is not None:
+            parts.append(extra_channels)
+        x = torch.cat(parts, dim=1) if len(parts) > 1 else x
+        C = x.shape[1]
+        ps, pt = cfg.patch_spatial, cfg.patch_temporal
         x = x.reshape(B, C, T // pt, pt, H // ps, ps, W // ps, ps)
         x = x.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(B, T // pt, H // ps, W // ps, C * pt * ps * ps)
         return F.linear(x, linear_weight(self.x_embedder.proj[1], x.dtype))
@@ -525,7 +541,7 @@ class GeneralDIT(nn.Module):
                 padding_mask: Optional[torch.Tensor] = None,
                 remat: bool = False, cp: Optional[Axis] = None,
                 span_delta: Optional[SpanDelta] = None, return_span_delta: bool = False,
-                return_block_residuals: bool = False):
+                return_block_residuals: bool = False, action: Optional[torch.Tensor] = None):
         """remat=True recomputes each block's activations in the backward
         instead of keeping them (``torch.utils.checkpoint``, non-reentrant:
         dit.py's ``jax.checkpoint(block_step)``, :1040-1045). Serving calls
@@ -547,7 +563,15 @@ class GeneralDIT(nn.Module):
         skips blocks [lo, hi). return_block_residuals=True returns (out,
         (num_blocks,) fp32) with each block's mean |output - input| over
         mean |input|, which ranks the blocks for a span (under cp, this
-        rank's shard's)."""
+        rank's shard's).
+
+        action: (B, 7) or (B, T_act, 7) robot actions, for an ``ActionDiT``
+        (models/dit_action.py; dit.py:864-985): the first frame's action
+        runs through ``action_embedder_B_3D`` (fc1, tanh-form GELU, fc2,
+        fp32) and adds to the AdaLN-LoRA vector. ``action_embedder_B_D`` is
+        carried and never applied, as in gen3c_tpu and the reference, whose
+        B_D add lands on a local rebound after the affine embedding was
+        taken (general_dit_action.py:421-431)."""
         cfg = self.cfg
         dtype = cfg.dtype
         B, C, T, H, W = x.shape
@@ -562,13 +586,7 @@ class GeneralDIT(nn.Module):
         band = (None if cfg.attn_temporal_window is None
                 else (Hp * Wp, cfg.attn_temporal_window, cfg.attn_prefix_frames))
 
-        # affine emb = RMSNorm(sincos); lora = the 2-layer MLP output
-        sincos = timestep_sincos(timesteps.reshape(-1), D)
-        temb = self.t_embedder[1]
-        h = F.silu(F.linear(sincos, linear_weight(temb.linear_1, torch.float32)))
-        lora = F.linear(h, linear_weight(temb.linear_2, torch.float32))
-        emb = _rms_norm(sincos, self.affline_norm.weight)
-
+        emb, lora = self.time_embedding(timesteps, action)
         ctx = crossattn_emb.to(dtype)
         impl = cfg.cp_attn_impl
         span = cfg.cache_block_span
@@ -599,16 +617,39 @@ class GeneralDIT(nn.Module):
         if return_span_delta and lo == hi:  # an empty span adds nothing
             new_delta = self._span_carry(torch.zeros_like(tokens))
 
-        fshift, fscale = _adaln_modulation(self.final_layer.adaLN_modulation, emb, lora, 2)
-        tokens = (_layer_norm(tokens).float() * (1 + fscale[:, None, :])
-                  + fshift[:, None, :]).to(dtype)
-        tokens = F.linear(tokens, linear_weight(self.final_layer.linear, dtype))
-        out = self.unpatchify(tokens.reshape(B, Tp, Hp, Wp, -1), T, H, W)
+        out = self.unpatchify(self.final(tokens, emb, lora).reshape(B, Tp, Hp, Wp, -1), T, H, W)
         if return_block_residuals:
             return out, torch.stack(residuals)
         if return_span_delta:
             return out, new_delta
         return out
+
+    def time_embedding(self, timesteps: torch.Tensor, action: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(emb, lora), fp32: the affine embedding RMSNorm(sincos) and the
+        2-layer MLP's AdaLN-LoRA vector, plus the action term if given."""
+        sincos = timestep_sincos(timesteps.reshape(-1), self.cfg.model_channels)
+        temb = self.t_embedder[1]
+        h = F.silu(F.linear(sincos, linear_weight(temb.linear_1, torch.float32)))
+        lora = F.linear(h, linear_weight(temb.linear_2, torch.float32))
+        if action is not None:
+            mlp = getattr(self, "action_embedder_B_3D", None)
+            if mlp is None:
+                raise ValueError("action conditioning needs an ActionDiT (models/dit_action.py)")
+            a = (action[:, 0] if action.ndim == 3 else action).float()
+            h = F.gelu(F.linear(a, mlp.fc1.weight.float(), mlp.fc1.bias.float()),
+                       approximate="tanh")
+            lora = lora + F.linear(h, mlp.fc2.weight.float(), mlp.fc2.bias.float())
+        return _rms_norm(sincos, self.affline_norm.weight), lora
+
+    def final(self, tokens: torch.Tensor, emb: torch.Tensor, lora: torch.Tensor) -> torch.Tensor:
+        """The final layer: AdaLN-modulated LayerNorm and the linear to
+        patch channels, (B, L, p*p*t*C) in the model dtype."""
+        dtype = self.cfg.dtype
+        fshift, fscale = _adaln_modulation(self.final_layer.adaLN_modulation, emb, lora, 2)
+        tokens = (_layer_norm(tokens).float() * (1 + fscale[:, None, :])
+                  + fshift[:, None, :]).to(dtype)
+        return F.linear(tokens, linear_weight(self.final_layer.linear, dtype))
 
     def _span_carry(self, d: torch.Tensor) -> SpanDelta:
         """The span delta as the sampler carries it (``cache_span_dtype``)."""

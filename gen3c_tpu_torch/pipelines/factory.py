@@ -308,6 +308,20 @@ def _acquire_vae(preset: Gen3CPreset, checkpoint_dir: Optional[str], device, gen
     return vae, mean, std
 
 
+def build_tokenizer(preset: Gen3CPreset, device: Union[str, torch.device] = "cuda",
+                    seed: int = 0, checkpoint_dir: Optional[str] = None) -> VideoTokenizer:
+    """Only the video tokenizer of a preset, on ``device`` (gen3c_tpu's
+    ``build_tokenizer``, for pipelines with a DiT of their own): the VAE
+    from ``checkpoint_dir`` as ``build_gen3c_model`` finds it, else a
+    random init from ``seed``; its chunk is ``preset.chunk_size`` frames."""
+    device = resolve_device(device)
+    vae, mean, std = _acquire_vae(preset, checkpoint_dir, device,
+                                  torch.Generator(device=device).manual_seed(seed))
+    vae.eval()
+    return VideoTokenizer(vae, pixel_chunk_duration=preset.chunk_size, latent_mean=mean,
+                          latent_std=std, spatial_resolution=(preset.height, preset.width))
+
+
 def apply_perf_preset(args) -> None:
     """Expand --perf_preset into individual knobs, only where the user left
     the default, so explicit flags win (gen3c_tpu/pipelines/factory.py

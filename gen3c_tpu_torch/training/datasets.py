@@ -10,7 +10,10 @@ train_step format, on the model's device:
 
 The clip's first frame seeds a ``Cache3DBuffer``, the clip's own cameras
 render the warp buffers (K5), and the VAE encodes the clip and the buffers.
-The video-only and multiview datasets wait for their slices.
+
+``VideoClipDataset`` (text/video-to-world: mp4 or npz videos, no cache;
+zero or one condition-mask channel) and ``MultiviewClipDataset`` (V views
+of a clip, their latents stacked on latent T) port gen3c_tpu's :145-283.
 """
 
 from __future__ import annotations
@@ -120,10 +123,129 @@ class Gen3CClipDataset:
             seed=int(self.rng.randint(0, 2 ** 31)))
 
     def __iter__(self) -> Iterator[dict]:
-        while True:
-            picks = self.rng.choice(len(self.clips), self.batch_size)
-            samples = [self._load_sample(self.clips[i]) for i in picks]
-            yield {k: torch.cat([s[k] for s in samples], dim=0) for k in samples[0]}
+        return _batches(self._load_sample, self.clips, self.rng, self.batch_size)
+
+
+def _t5_or_zeros(path: str) -> np.ndarray:
+    """The clip's sibling <clip>.t5.npy embedding, else zeros (512, 1024)."""
+    t5_path = os.path.splitext(path)[0] + ".t5.npy"
+    return np.load(t5_path) if os.path.exists(t5_path) else np.zeros((512, 1024), np.float32)
+
+
+def _batches(sample, clips: List[str], rng: np.random.RandomState, batch_size: int
+             ) -> Iterator[dict]:
+    """Batches of ``batch_size`` samples of random clips, for ever."""
+    while True:
+        picks = rng.choice(len(clips), batch_size)
+        samples = [sample(clips[i]) for i in picks]
+        yield {k: torch.cat([s[k] for s in samples], dim=0) for k in samples[0]}
+
+
+class VideoClipDataset:
+    """Text/video-to-world training clips (gen3c_tpu's ``VideoClipDataset``).
+
+    Layout: <root>/*.mp4 or *.npz ("video": (F, 3, H, W) or (F, H, W, 3))
+    with an optional sibling <clip>.t5.npy. num_condition_t = 0 gives t2w
+    batches (no condition channels), > 0 v2w batches (one condition-mask
+    channel over the first num_condition_t latent frames). A sample is a
+    random clip and a random window of ``model.chunk_size`` frames, from a
+    numpy RandomState(seed), as gen3c_tpu draws them."""
+
+    def __init__(self, root: str, model, batch_size: int = 1, seed: int = 0,
+                 num_condition_t: int = 0):
+        self.root = root
+        self.model = model
+        self.batch_size = batch_size
+        self.num_condition_t = num_condition_t
+        self.clips: List[str] = sorted(os.path.join(root, f) for f in os.listdir(root)
+                                       if f.endswith((".mp4", ".npz")))
+        if not self.clips:
+            raise FileNotFoundError(f"no clips (*.mp4, *.npz) under {root}")
+        self.rng = np.random.RandomState(seed)
+        log.info(f"VideoClipDataset: {len(self.clips)} clips in {root}")
+
+    def _load_video(self, path: str) -> np.ndarray:
+        """(F, 3, H, W) in [-1, 1]."""
+        if path.endswith(".npz"):
+            video = np.load(path)["video"].astype(np.float32)
+            if video.shape[-1] == 3:
+                video = video.transpose(0, 3, 1, 2)
+            return _to_signed_range(video, path)
+        from gen3c_tpu_torch.utils.io import read_video_bcthw
+
+        video, _ = read_video_bcthw(path)
+        return video[0].transpose(1, 0, 2, 3)
+
+    @torch.no_grad()
+    def _sample(self, path: str) -> dict:
+        video = self._load_video(path)
+        chunk = self.model.chunk_size
+        if video.shape[0] < chunk:
+            raise ValueError(f"{path}: {video.shape[0]} frames, fewer than the chunk's {chunk}")
+        start = self.rng.randint(0, video.shape[0] - chunk + 1)
+        clip = np.ascontiguousarray(video[start:start + chunk].transpose(1, 0, 2, 3)[None])
+        x0 = self.model.encode(torch.from_numpy(clip).to(self.model.device)).float()
+        _, _, T, Hl, Wl = x0.shape
+        extra = torch.zeros((1, 1 if self.num_condition_t > 0 else 0, T, Hl, Wl),
+                            dtype=torch.float32, device=x0.device)
+        extra[:, :, :self.num_condition_t] = 1.0
+        return {"x0": x0,
+                "crossattn_emb": torch.from_numpy(
+                    np.asarray(_t5_or_zeros(path), np.float32)[None]).to(x0.device),
+                "extra_channels": extra}
+
+    def __iter__(self) -> Iterator[dict]:
+        return _batches(self._sample, self.clips, self.rng, self.batch_size)
+
+
+class MultiviewClipDataset:
+    """Multiview training clips (gen3c_tpu's ``MultiviewClipDataset``): V
+    synchronized views of a clip, each encoded on its own, their latents
+    stacked on latent T ((B, 16, V*T', H', W'), the multiview DiT's
+    layout), with no condition channels.
+
+    Layout: <root>/*.npz with "videos" (V, F, 3, H, W) or (V, F, H, W, 3)
+    and an optional sibling .t5.npy, the views' embeddings concatenated.
+    Without one the context is zeros (1, 512, 1024), as gen3c_tpu yields
+    it: not V x 512 tokens, so the multiview forward refuses it at any V
+    that does not divide 512 (gen3c_tpu fails there too)."""
+
+    def __init__(self, root: str, model, n_views: int, batch_size: int = 1, seed: int = 0):
+        self.root = root
+        self.model = model
+        self.n_views = n_views
+        self.batch_size = batch_size
+        self.clips: List[str] = sorted(os.path.join(root, f) for f in os.listdir(root)
+                                       if f.endswith(".npz"))
+        if not self.clips:
+            raise FileNotFoundError(f"no clips (*.npz) under {root}")
+        self.rng = np.random.RandomState(seed)
+        log.info(f"MultiviewClipDataset: {len(self.clips)} clips in {root}")
+
+    @torch.no_grad()
+    def _sample(self, path: str) -> dict:
+        videos = np.load(path)["videos"].astype(np.float32)
+        if videos.shape[-1] == 3:
+            videos = videos.transpose(0, 1, 4, 2, 3)
+        videos = _to_signed_range(videos, path)
+        V, chunk = self.n_views, self.model.chunk_size
+        if videos.shape[0] < V or videos.shape[1] < chunk:
+            raise ValueError(f"{path}: videos {videos.shape[:2]}, need {V} views of {chunk} "
+                             f"frames")
+        start = self.rng.randint(0, videos.shape[1] - chunk + 1)
+        dev = self.model.device
+        x0 = torch.cat([self.model.encode(torch.from_numpy(np.ascontiguousarray(
+            videos[v, start:start + chunk].transpose(1, 0, 2, 3)[None])).to(dev))
+            for v in range(V)], dim=2).float()
+        _, _, T, Hl, Wl = x0.shape
+        return {"x0": x0,
+                "crossattn_emb": torch.from_numpy(
+                    np.asarray(_t5_or_zeros(path), np.float32)[None]).to(dev),
+                "extra_channels": torch.zeros((1, 0, T, Hl, Wl), dtype=torch.float32,
+                                              device=dev)}
+
+    def __iter__(self) -> Iterator[dict]:
+        return _batches(self._sample, self.clips, self.rng, self.batch_size)
 
 
 class PrefetchIterator:

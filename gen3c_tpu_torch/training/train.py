@@ -4,7 +4,10 @@
         experiment=gen3c_tiny trainer.max_iter=4 trainer.save_every=2 \\
         trainer.warmup_steps=1 trainer.job_dir=runs/tiny
 
-``experiment=`` picks a preset (gen3c_tiny, gen3c_7b, GEN3C_Cosmos_7B),
+``experiment=`` picks a preset (any name of ``utils.registry.experiments``:
+gen3c_tiny, gen3c_7b, GEN3C_Cosmos_7B, the Cosmos text2world and multiview
+presets, video2world_instruction_* and video2world_action_*; the net is a
+GeneralDIT, a MultiviewGeneralDIT or an ActionDiT by the preset's config),
 ``trainer.<field>=`` overrides TrainerConfig, any other ``a.b=v`` the
 preset (``dit.num_blocks=12``, ``dit.attn_temporal_window=2`` for band
 attention). The DiT gets seeded random weights on ``--device``: ``cuda``
@@ -14,7 +17,9 @@ mesh flags are accepted and refused above one device. The data is
 ``--synthetic`` latents or ``--data_root``, a directory of packaged RGBD
 clips (``datasets.Gen3CClipDataset``): the preset's GEN3C model is built
 on the device, and its DiT is the one trained (one DiT, not two) while its
-VAE and the 3D cache turn each clip into a batch.
+VAE and the 3D cache turn each clip into a batch. The synthetic stream's
+context has 16 tokens a view; an action experiment's batches also carry
+actions (B, 1, 7) from numpy's RandomState(17), as gen3c_tpu's do.
 """
 
 from __future__ import annotations
@@ -25,18 +30,34 @@ from typing import Optional
 
 import torch
 
+import numpy as np
+
 from gen3c_tpu_torch.models.dit import DiTConfig, GeneralDIT
+from gen3c_tpu_torch.models.dit_action import ActionDiT, ActionDiTConfig
+from gen3c_tpu_torch.models.dit_multiview import MultiviewDiTConfig, MultiviewGeneralDIT
 from gen3c_tpu_torch.training.trainer import Trainer, TrainerConfig, synthetic_latent_dataset
 from gen3c_tpu_torch.utils import log, registry
 
 
 def build_net(dit_cfg: DiTConfig, device, seed: int) -> GeneralDIT:
-    """A GeneralDIT with the JAX package's random init, drawn on ``device``."""
+    """The net of ``dit_cfg``'s kind (MultiviewGeneralDIT, ActionDiT or
+    GeneralDIT) with the JAX package's random init, drawn on ``device``."""
     device = torch.device(device)
+    cls = (MultiviewGeneralDIT if isinstance(dit_cfg, MultiviewDiTConfig)
+           else ActionDiT if isinstance(dit_cfg, ActionDiTConfig) else GeneralDIT)
     with torch.device("meta"):
-        net = GeneralDIT(dit_cfg)
+        net = cls(dit_cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     return net.to_empty(device=device).init_random(gen)
+
+
+def with_actions(stream, batch_size: int, dim: int, seed: int = 17):
+    """The batches of ``stream`` with "action" (B, 1, dim) fp32 from numpy's
+    RandomState(seed): bridge-style robot actions, one vector a clip."""
+    rng = np.random.RandomState(seed)
+    for b in stream:
+        yield {**b, "action": torch.from_numpy(
+            rng.randn(batch_size, 1, dim).astype(np.float32))}
 
 
 def main(argv=None) -> Optional[Trainer]:
@@ -99,7 +120,10 @@ def main(argv=None) -> Optional[Trainer]:
         net = build_net(preset.dit, args.device, t_cfg.seed)
         C, T, Hl, Wl = preset.state_shape
         data = synthetic_latent_dataset(args.batch_size, C, T, Hl, Wl,
-                                        extra_channels=preset.dit.in_channels - C, ctx_len=16)
+                                        extra_channels=preset.dit.in_channels - C,
+                                        ctx_len=16 * getattr(preset.dit, "n_views", 1))
+        if isinstance(preset.dit, ActionDiTConfig):
+            data = with_actions(data, args.batch_size, preset.dit.action_dim)
     trainer = Trainer(t_cfg, preset.dit, net)
     state = trainer.train(data)
     log.info(f"training done at step {state.step}")

@@ -6,7 +6,10 @@ the optax chain clip_by_global_norm -> adamw(linear warmup) [->
 MultiSteps] written out over a dict of parameters, and the state updated
 in place (the JAX step is pure and donates its state; here the parameters,
 moments and EMA are overwritten, which keeps one copy of each on the card).
-Sequence parallelism and the multiview and action nets are not ported.
+The net is a GeneralDIT, an ActionDiT (the batch's "action" goes into its
+forward) or a MultiviewGeneralDIT (fps 24, the condition indicator
+repeated per view), as ``_net`` picks in gen3c_tpu (:76-93). Sequence
+parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn as nn
 
 from gen3c_tpu_torch.diffusion.scheduler import EDMEulerSchedule
 from gen3c_tpu_torch.models.dit import DiTConfig
+from gen3c_tpu_torch.models.dit_multiview import MultiviewDiTConfig
 from gen3c_tpu_torch.training.ema import ema_update, power_ema_beta
 from gen3c_tpu_torch.training.losses import (
     LogvarHead,
@@ -210,9 +214,11 @@ class StepDraws:
 def draw_step(generator: torch.Generator, x0_shape, dropout: bool, video_extend: bool,
               text_dropout_rate: float = 0.0, video_cond_dropout_rate: float = 0.0,
               condition_location: str = "first_random_n", first_random_n_min: int = 0,
-              first_random_n_max: int = 4, random_condition_rate: float = 0.5) -> StepDraws:
+              first_random_n_max: int = 4, random_condition_rate: float = 0.5,
+              n_views: int = 1) -> StepDraws:
     """A step's draws from ``generator`` (a CPU generator: the same draws
-    on any device), x0_shape = (B, C, T, H, W)."""
+    on any device), x0_shape = (B, C, T, H, W); with n_views > 1 T holds
+    the views, and the indicator's per-view pattern repeats for each."""
     B = x0_shape[0]
     d = StepDraws(sigma=sample_sigma(generator, B),
                   noise=torch.randn(tuple(x0_shape), generator=generator))
@@ -221,8 +227,9 @@ def draw_step(generator: torch.Generator, x0_shape, dropout: bool, video_extend:
             generator, B, text_dropout_rate, video_cond_dropout_rate)
     if video_extend:
         d.indicator = sample_condition_indicator(
-            generator, B, x0_shape[2], location=condition_location, n_min=first_random_n_min,
-            n_max=first_random_n_max, random_rate=random_condition_rate)
+            generator, B, x0_shape[2] // n_views, location=condition_location,
+            n_min=first_random_n_min, n_max=first_random_n_max, random_rate=random_condition_rate,
+            n_views=n_views)
         d.augment_sigma = sample_sigma(generator, B)
         d.augment_noise = torch.randn(tuple(x0_shape), generator=generator)
     return d
@@ -276,15 +283,16 @@ def loss_and_grads(
     "condition_video_indicator"), the image leg (data_type="image": x0 may
     be (B, C, H, W), extra_channels may be absent), the logvar head
     (params a NetWithLogvar), remat. Random draws come from ``rng``
-    (``draw_step``) unless ``draws`` gives them.
+    (``draw_step``) unless ``draws`` gives them. A batch's "action" (B, 7)
+    or (B, T_act, 7) conditions an ActionDiT; a MultiviewDiTConfig runs the
+    multiview forward (remat per block, where gen3c_tpu remats the whole
+    net: the same arithmetic).
     """
     if sp_sharding is not None:
         raise NotImplementedError("sequence parallelism is not ported (ROADMAP Queue 1 item 15)")
-    if batch.get("action") is not None:
-        raise NotImplementedError("action-conditioned training is not ported "
-                                  "(ROADMAP Queue 1 item 13, models/dit_action.py)")
-    if getattr(cfg, "n_views", 1) > 1:
-        raise NotImplementedError("multiview training is not ported (ROADMAP Queue 1 item 10)")
+    multiview = isinstance(cfg, MultiviewDiTConfig)
+    if multiview and batch.get("action") is not None:
+        raise ValueError("action conditioning is for the single-stream DiT only, not multiview")
     if data_type == "image":
         video_extend = False
     dev = next(params.parameters()).device
@@ -297,7 +305,8 @@ def loss_and_grads(
     if draws is None:
         draws = draw_step(rng, x0.shape, dropout, video_extend,
                           text_dropout_rate, video_cond_dropout_rate, condition_location,
-                          first_random_n_min, first_random_n_max, random_condition_rate)
+                          first_random_n_min, first_random_n_max, random_condition_rate,
+                          cfg.n_views if multiview else 1)
     sigma = draws.sigma.to(dev, torch.float32)
     noise = draws.noise.to(dev, torch.float32)
     crossattn_emb = batch["crossattn_emb"]
@@ -325,9 +334,10 @@ def loss_and_grads(
         extra_channels = torch.cat([in_mask, extra_channels[:, 1:]], dim=1)
 
     net = params.net if loss_add_logvar else params
+    kw = {} if multiview else {"action": batch.get("action")}
 
     def net_fn(x_in, c_noise, ctx):
-        return net(x_in, c_noise, ctx, fps=24.0, remat=remat)
+        return net(x_in, c_noise, ctx, fps=24.0, remat=remat, **kw)
 
     named = dict(params.named_parameters())
     with torch.enable_grad():

@@ -64,8 +64,12 @@ class TrainerConfig:
 
 
 class Trainer:
-    """EDM training of ``net`` (a GeneralDIT on its device) with the
-    config's optimizer; the train state lives on the net's device."""
+    """EDM training of ``net`` (a GeneralDIT, ActionDiT or
+    MultiviewGeneralDIT on its device) with the config's optimizer; the
+    train state lives on the net's device. Every tensor of a batch reaches
+    ``train_step`` (gen3c_tpu shards "action" over dp beside the rest,
+    trainer.py:118-125): an action experiment's "action" conditions its
+    net."""
 
     def __init__(self, config: TrainerConfig, dit_cfg: DiTConfig, net: nn.Module,
                  callbacks: Optional[CallBackGroup] = None):
