@@ -147,6 +147,29 @@ Phases, each printing one JSON line of its own numbers:
              card's memory) and of video2world_action_7b (56,320 tokens, a (1,
              1, 7) action) at TRAIN_BLOCKS_7B = 12, per-block remat: s per
              step, loss, grad-norm, peak GiB, K4's launches by forward
+ 27 ar_world the Cosmos AR world model (ar_4b: the 4B at full width, dim 4096,
+             16 layers, 32 query / 8 KV heads of 128, vocab 64,000, seeded bf16
+             weights): K8 (GQA attention over the KV cache) held to its plain
+             version on a filled seeded cache layer (1, 12,800, 8, 128), decode at
+             pos 5,120 and 12,799 in bf16 and int8 (K8_DECODE_TOL, relative;
+             two more with the query on the key at pos; each shows that the
+             check would see the last key or a key split dropped) and the
+             5,120-token prefill (plain on K8_PLAIN_GROUP KV-head group,
+             ATTN_TOL), SDPA (enable_gqa) beside it;
+             then generate_world_tokens, the CLI's path: DV8x16x16 encodes a
+             seeded 33-frame 640x1024 clip to the (1, 5, 40, 64) grid, 5,120
+             prefix tokens prefill, AR_DECODE_TOKENS = 128 decode (top-p 0.8),
+             with a bf16 and with an int8 cache: prefill s, s per decode token,
+             peak GiB, K8 = 16 x 128 launches each; one decode step traced
+             (torch.profiler): its kernels, the device's busy share of an
+             untraced step and K8's share; the DV decode to 33 frames; and
+             ar_tiny (fp32) greedy on the card and on the CPU, tokens equal
+ 28 dd       the seeded 7B diffusion decoder (48 input channels, bf16, gates
+             randomized) on ar_world's grid: K1 and K2 at its (2, 20,480, 32,
+             128) shapes held to their plain versions, then refine's one
+             reflect-padded 8-latent-frame chunk at 80 x 128 (20,480 tokens),
+             DD_STEPS = 2 CFG steps (B = 2), the CV8x8x8 decode to 57 frames,
+             trimmed to 33: s per step, decode s, peak GiB, K1 = K2 = 28 x 2
 Every bf16 attention case of phase 3 also prints its launches by body
 (kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
 registers, stack and spill bytes (ptxas -v, the build log) and dynamic
@@ -173,9 +196,9 @@ forward_warp's depth splat (C = 1) on the smooth and the random flow, its
 three kernels timed apart beside the parent's torch passes and its corners
 merged across lanes counted; K6 (the ray-triangle depth) on the 901,120
 rays of a 704x1280 frame against the boundary mesh of a seeded depth (~19k
-triangles) and of a dense one (~112k), the plain version's bits (its setup
-kernel's too), the triangles it cannot cull, the
-pairs its tiles keep and those the bound counts (a per-ray footprint), its
+triangles) and of a dense one (~112k; held on every 4th image row), the
+plain version's bits (its setup kernel's too), the triangles it cannot
+cull, the pairs its tiles keep and those the bound counts (a per-ray footprint), its
 setup and kernel timed apart; P2, K1's tile sweep, at the 7B self-attention
 shape: K1's wgmma forward at K1's own point, with three consumer
 warpgroups, with 128 keys a tile (those two built apart in phase 2, their
@@ -265,6 +288,11 @@ K6_OPS_PER_PAIR = 36
 # _foreground_depth's dense scene: the boundary covers the whole frame, so
 # the mesh holds every quad of the 1/4-resolution grid (111,650 triangles)
 K6_DENSE_SCENE = {"discs": 64, "bars": 128, "bar_top": 0.0}
+K6_FRAME_W = 1280  # k6_mesh's rays: row-major over a 704 x 1280 frame
+# the dense mesh's rays held to the plain version: every 4th image row (its
+# all-pairs plain version took 22.7 s over every ray; the seeded scene's
+# case holds all 901,120)
+K6_DENSE_PLAIN_ROW_STEP = 4
 # P2 in the smoke, points (consumer warpgroups, keys a tile, stages) of K1's
 # wgmma forward: K1's own, three warpgroups, 128 keys a tile, and K1's point
 # read from the (B, H, L, D) layout (the script sweeps them all)
@@ -357,12 +385,18 @@ def _band_mask(L: int, band) -> torch.Tensor:
     return frames[f][:, f]
 
 
+# the helpers scripts/card.py shares, imported at call time: the
+# compare_*_builds scripts load this file beside another tree's package
 def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+    from gen3c_tpu_torch.scripts.card import nvidia_smi_line as smi
+
+    return smi()
+
+
+def randomize_gates(net, gen) -> None:
+    from gen3c_tpu_torch.scripts.card import randomize_gates as gates
+
+    gates(net, gen)
 
 
 def cuda_times(fn, reps: int = 3, warmup: int = 1, calls: int = 1) -> list:
@@ -1111,23 +1145,26 @@ def k6_mesh(**scene):
     return rays, v0, v1, v2
 
 
-def _ray_case(name: str = "K6 ray-triangle depth", scene: Optional[dict] = None) -> dict:
+def _ray_case(name: str = "K6 ray-triangle depth", scene: Optional[dict] = None,
+              plain_row_step: int = 1) -> dict:
     """K6 on the 901,120 rays of a 704x1280 camera against the boundary mesh
     of a seeded depth (``scene``: _foreground_depth's arguments) seen from a
     camera moved left and forward, as foreground masking builds it: the
-    plain version's bits (and its setup kernel's), the triangles it cannot
-    bound, the pairs the 256-ray tiles keep and those a per-ray footprint
-    keeps (the bound's), and the call, its setup and its kernel timed
-    apart."""
+    plain version's bits (and its setup kernel's) on the rays of every
+    ``plain_row_step``-th image row, the triangles it cannot bound, the
+    pairs the 256-ray tiles keep and those a per-ray footprint keeps (the
+    bound's), and the call, its setup and its kernel timed apart."""
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.kernels import cuda, reference
 
     rays, v0, v1, v2 = k6_mesh(**(scene or {}))
     R, T = rays.shape[0], v0.shape[0]
-    got = kernels.ray_triangle_depth(rays, v0, v1, v2)
+    got_all = kernels.ray_triangle_depth(rays, v0, v1, v2)
+    rows = torch.arange(R, device=rays.device).view(-1, K6_FRAME_W)[::plain_row_step].reshape(-1)
+    got = got_all[rows]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    want = kernels.ray_triangle_depth_reference(rays, v0, v1, v2)
+    want = kernels.ray_triangle_depth_reference(rays[rows], v0, v1, v2)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
@@ -1150,11 +1187,11 @@ def _ray_case(name: str = "K6 ray-triangle depth", scene: Optional[dict] = None)
            "rel_err": (diff / want[both]).max().item() if diff.numel() else 0.0,
            "tol": K6_TOL, "uncullable": int(torch.isinf(boxes).all(dim=1).sum()),
            "all_pairs": R * T, "survivor_pairs": survivors, "footprint_pairs": footprint,
-           "plain_ms": plain_ms}
+           "plain_ms": plain_ms, "plain_rays": int(rows.numel())}
     res["ms"] = cuda_ms(lambda: kernels.ray_triangle_depth(rays, v0, v1, v2), reps=5)
     res["setup_ms"] = cuda_ms(lambda: cuda.ray_triangle_setup_and_bounds(v0, v1, v2), reps=5)
     res["kernel_ms"] = cuda_ms(lambda: cuda.ray_triangle_hits(rays, *mesh), reps=5)
-    nbytes = tensor_bytes(rays, v0, v1, v2, got)
+    nbytes = tensor_bytes(rays, v0, v1, v2, got_all)
     # the bound counts the footprint's pairs; the all-pairs yardstick counts all R x T
     res.update(gpairs_per_s=survivors / res["kernel_ms"] / 1e6, library_ms=None,
                all_pairs_bound_ms=bound(nbytes, K6_OPS_PER_PAIR * R * T,
@@ -1165,7 +1202,7 @@ def _ray_case(name: str = "K6 ray-triangle depth", scene: Optional[dict] = None)
             or res["flip_fraction"] > K6_TOL["flip_fraction"]
             or res["rel_err"] > K6_TOL["rel_err"] or res["hit_fraction"] == 0):
         raise AssertionError(f"K6: kernel disagrees with its plain version: {res}")
-    del rays, v0, v1, v2, got, want, mesh
+    del rays, v0, v1, v2, got, got_all, want, mesh
     torch.cuda.empty_cache()
     return res
 
@@ -1535,7 +1572,8 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     results["K5"] = _splat_case(gen)
     results["K6"] = _ray_case()
-    results["K6_dense"] = _ray_case("K6 ray-triangle depth, dense mesh", K6_DENSE_SCENE)
+    results["K6_dense"] = _ray_case("K6 ray-triangle depth, dense mesh", K6_DENSE_SCENE,
+                                    K6_DENSE_PLAIN_ROW_STEP)
     torch.cuda.empty_cache()
     results["P2"] = _p2_case(gen)
     torch.cuda.empty_cache()
@@ -1603,7 +1641,7 @@ def build_7b():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, preset = build_gen3c_model("gen3c_7b", device="cuda", seed=0)
-    _randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
+    randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
     return model, preset, time.perf_counter() - t0
 
@@ -1702,7 +1740,7 @@ def cp_worker(rank: int, port: int, out_dir: str) -> int:
     t0 = time.perf_counter()
     model, preset = build_gen3c_model("gen3c_7b", device="cuda:0", seed=0, num_devices=CP_RANKS,
                                       parallel="cp", cp_attn="ulysses", dist_backend="gloo")
-    _randomize_gates(model.net, torch.Generator(device="cuda:0").manual_seed(1))
+    randomize_gates(model.net, torch.Generator(device="cuda:0").manual_seed(1))
     groups = {"cp": model.groups, "cfg2": mesh.make_groups(cfg=2, backend="gloo")}
     torch.cuda.synchronize()
     out = {"rank": rank, "build_s": time.perf_counter() - t0,
@@ -2100,7 +2138,7 @@ def phase_fast_parity() -> dict:
     cfg = DiTConfig(in_channels=16 + 16 * 4 + 1, model_channels=1024, num_blocks=2,
                     num_heads=8, rope_t_extrapolation_ratio=2.0, attn_temporal_window=1)
     cpu = GeneralDIT(cfg).init_random(torch.Generator().manual_seed(2))
-    _randomize_gates(cpu, torch.Generator().manual_seed(3))
+    randomize_gates(cpu, torch.Generator().manual_seed(3))
     gpu = copy.deepcopy(cpu).to("cuda")
     rng = np.random.default_rng(0)
     T, H, W = 5, 24, 40  # 12 x 20 = 240 tokens per latent frame: frames straddle tiles
@@ -2141,21 +2179,12 @@ def phase_fast_parity() -> dict:
     return res
 
 
-def _randomize_gates(net, gen) -> None:
-    """Random AdaLN output layers and final linear (a fresh init has them
-    zero, which makes the network's output identically zero)."""
-    with torch.no_grad():
-        for name, p in net.named_parameters():
-            if name.endswith("adaLN_modulation.2.weight") or name == "final_layer.linear.weight":
-                p.copy_(0.1 * torch.randn(p.shape, generator=gen, device=p.device))
-
-
 def phase_chain() -> dict:
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
 
     cpu_model, preset = build_gen3c_model("gen3c_tiny", device="cpu", seed=0)
-    _randomize_gates(cpu_model.net, torch.Generator().manual_seed(1))
+    randomize_gates(cpu_model.net, torch.Generator().manual_seed(1))
     gpu_model, _ = build_gen3c_model("gen3c_tiny", device="cuda", seed=0)
     gpu_model.net.load_state_dict(cpu_model.net.state_dict())
     gpu_model.tokenizer.vae.load_state_dict(cpu_model.tokenizer.vae.state_dict())
@@ -2258,7 +2287,7 @@ def phase_serving() -> dict:
         t0 = time.perf_counter()
         model = Gen3cPersistentModel("gen3c_7b", checkpoint_dir=None, num_steps=MAIN_STEPS,
                                      depth_source="moge_jax", device="cuda")
-        _randomize_gates(model.model.net, torch.Generator(device="cuda").manual_seed(1))
+        randomize_gates(model.model.net, torch.Generator(device="cuda").manual_seed(1))
         torch.cuda.synchronize()
         ready_s = time.perf_counter() - t0
         h, w, chunk = model.preset.height, model.preset.width, model.model.chunk_size
@@ -2626,7 +2655,7 @@ def phase_checkpoint() -> dict:
     preset = dataclasses.replace(GEN3C_7B_PRESET, dit=dataclasses.replace(
         GEN3C_7B_PRESET.dit, num_blocks=CKPT_BLOCKS))
     model, _ = build_gen3c_model(preset, device="cuda", seed=0)
-    _randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
+    randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
     state = {k: v.cpu() for k, v in model.net.state_dict().items()}
     del model
     torch.cuda.empty_cache()
@@ -2696,7 +2725,7 @@ def phase_train() -> dict:
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     net = build_net(cfg, "cuda", seed=0)
-    _randomize_gates(net, torch.Generator(device="cuda").manual_seed(1))
+    randomize_gates(net, torch.Generator(device="cuda").manual_seed(1))
     opt = make_optimizer(lr=tc.lr, weight_decay=tc.weight_decay, grad_clip=tc.grad_clip,
                          warmup_steps=tc.warmup_steps, grad_accum_steps=tc.grad_accum_steps)
     state = init_train_state(net, opt)
@@ -2781,7 +2810,7 @@ def phase_lora_band_train() -> dict:
     model, preset = build_gen3c_model("gen3c_7b", device="cuda", seed=0,
                                       attn_temporal_window=BAND_7B[1])
     net, cfg = model.net, preset.dit
-    _randomize_gates(net, torch.Generator(device="cuda").manual_seed(1))
+    randomize_gates(net, torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
     res = {"model": preset.name, "blocks": cfg.num_blocks, "channels": cfg.model_channels,
            "heads": cfg.num_heads, "head_dim": cfg.head_dim, "dtype": str(cfg.dtype),
@@ -2871,7 +2900,7 @@ def _train_parity(phase: str, window) -> dict:
     cfg = DiTConfig(in_channels=16 + 16 * 4 + 1, model_channels=1024, num_blocks=2,
                     num_heads=8, rope_t_extrapolation_ratio=2.0, attn_temporal_window=window)
     cpu = GeneralDIT(cfg).init_random(torch.Generator().manual_seed(2))
-    _randomize_gates(cpu, torch.Generator().manual_seed(3))
+    randomize_gates(cpu, torch.Generator().manual_seed(3))
     gpu = copy.deepcopy(cpu).to("cuda")
     T, H, W = 5, 24, 40  # 1,200 tokens: 5 latent frames of 12 x 20
     batch = _train_batch(cfg, T, H, W, 512, seed=4)
@@ -3144,7 +3173,7 @@ def phase_text2world() -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model, preset = text2world.build_model(args, text2world.T2W_PRESETS["cosmos_t2w_7b"])
-        _randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
+        randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         latents = []
@@ -3208,7 +3237,7 @@ def phase_interpolator() -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model, preset = text2world.build_model(args, text2world.T2W_PRESETS["cosmos_v2w_7b"])
-        _randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
+        randomize_gates(model.net, torch.Generator(device="cuda").manual_seed(1))
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         latents = []
@@ -3361,9 +3390,9 @@ MV_TRAIN_BLOCKS = 10
 
 
 def _randomize_mv(net, gen) -> None:
-    """``_randomize_gates`` and a random repeat-frame Linear, so that the
+    """``randomize_gates`` and a random repeat-frame Linear, so that the
     frame-repeat negative condition reaches the output."""
-    _randomize_gates(net, gen)
+    randomize_gates(net, gen)
     with torch.no_grad():
         for p in net.repeat_frame_embedding.parameters():
             p.copy_(0.1 * torch.randn(p.shape, generator=gen, device=p.device))
@@ -3547,7 +3576,7 @@ def _train_one(cfg, batch, name: str, **step_kw) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     net = build_net(cfg, "cuda", seed=0)
-    _randomize_gates(net, torch.Generator(device="cuda").manual_seed(1))
+    randomize_gates(net, torch.Generator(device="cuda").manual_seed(1))
     opt = make_optimizer(lr=tc.lr, weight_decay=tc.weight_decay, grad_clip=tc.grad_clip,
                          warmup_steps=tc.warmup_steps, grad_accum_steps=tc.grad_accum_steps)
     state = init_train_state(net, opt)
@@ -3608,6 +3637,341 @@ def phase_mv_action_train() -> dict:
     return res
 
 
+
+# the AR world model: the 4B (ar_4b) at full width, seeded bf16 weights
+AR_DECODE_TOKENS = 128  # of the uncut run's 7,680 (scripts/time_ar_world.py runs them all)
+AR_4B_CACHE = (1, 12800, 8, 128)  # one layer of the 4B's KV cache: (B, max_seq, Hkv, d)
+AR_PREFIX = 5120  # 2 of the grid's 5 latent frames of 40 x 64 tokens
+# K8's decode against its plain version, relative to mean |plain| (a row
+# over thousands of random keys is small: mean |out| about 0.018 at pos
+# 5,120 and 0.012 at 12,799). Both round the output to bf16 and the plain
+# version its logits too, in bf16 and int8 alike (the codes and scales are
+# exact in both). On an H100: 0.027-0.042 max (one bf16 step at the largest
+# outputs) and 0.004 mean over the four random cases, 0.042 / 0.004 (bf16)
+# and 0.074 / 0.009 (int8) with the query on the last key. A reference with
+# its first split dropped reads 0.12 mean on the random cases, one with its
+# last key dropped 1.0 on the aligned ones: each case shows that its drop
+# would fail these limits (``_k8_drops``)
+K8_DECODE_TOL = {"max": 0.15, "mean": 0.03}
+# the aligned decode case's queries: K8_ALIGN x their KV head's key at pos,
+# a logit of about 0.8 x 128 / sqrt(128) = 9, half the softmax's weight
+K8_ALIGN = 0.8
+DECODE_TRACE_STEPS = 16  # untraced decode steps timed beside the traced one
+K8_PLAIN_GROUP = 1  # K8's prefill held to its plain version on this many KV-head groups
+AR_TINY_NEW = 192  # ar_tiny's generated tokens (the grid's last 3 of 4 latent frames)
+# the diffusion decoder: one reflect-padded 8-latent-frame chunk at 80 x 128
+DD_STEPS = 2  # of its 15 EDM-Euler steps (a 2-step schedule: every step the same kind)
+
+
+def _k8_drops(q, k, v, pos: int, ks, vs, ref: torch.Tensor) -> dict:
+    """The decode check's reach: the plain version with the last visible key
+    dropped (causal offset pos - 1) and with K8's first key split dropped
+    (kv_valid_start at the split's end, ``cuda.gqa_plan``), each held to the
+    plain reference as K8 is; ``seen``: it would fail K8_DECODE_TOL."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import cuda
+
+    B, _, Hq, _ = q.shape
+    vis = pos + 1
+    _, splits = cuda.gqa_plan(B, 1, Hq, k.shape[2], vis, cuda._sm_count(q.device.index or 0))
+    per = -(-vis // splits)
+    start = torch.full((B,), per, dtype=torch.long, device=q.device)
+    out = {}
+    for what, args in (("last key", (pos - 1, None)), ("first split", (pos, start))):
+        rmax, rmean = _rel_err(kernels.gqa_attention_reference(q, k, v, *args, ks, vs), ref)
+        out[what] = {"rel_max_err": rmax, "rel_mean_err": rmean,
+                     "seen": rmax > K8_DECODE_TOL["max"] or rmean > K8_DECODE_TOL["mean"]}
+    out["first split"]["keys"] = per
+    return out
+
+
+def _k8_case(gen, name: str, pos: int, int8: bool, prefill: bool = False,
+             aligned: bool = False) -> dict:
+    """K8 on one layer of a filled seeded 4B cache (1, 12,800, 8, 128): decode
+    (one query at ``pos`` over keys [0, pos]) or the 5,120-token prefill, bf16
+    or int8 codes with fp32 scales (quantized as the cache stores them);
+    aligned: each query head is K8_ALIGN x its KV head's key at pos, so that
+    the last key carries half the output. Held to its plain version (the
+    prefill on K8_PLAIN_GROUP KV-head groups to ATTN_TOL, decode to
+    K8_DECODE_TOL with ``_k8_drops`` showing its reach); kernel, plain and
+    SDPA (enable_gqa, over the visible keys; int8: on the dequantized bf16
+    K/V) timed; the bound over the visible keys only."""
+    import torch.nn.functional as F
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.models.dit import quantize_span_delta
+
+    B, S, Hkv, D = AR_4B_CACHE
+    Hq, rep = 32, 32 // Hkv
+    Lq = AR_PREFIX if prefill else 1
+    vis = AR_PREFIX if prefill else pos + 1
+    k, v = (torch.randn(AR_4B_CACHE, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    ks = vs = None
+    if int8:
+        (k, ks), (v, vs) = quantize_span_delta(k), quantize_span_delta(v)
+    q = torch.randn((B, Lq, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    if aligned:
+        key = k[:, pos].float() * (ks[:, pos] if int8 else 1.0)  # (B, Hkv, D)
+        q[:, 0] = (K8_ALIGN * key).repeat_interleave(rep, dim=1).to(q.dtype)
+    out = kernels.gqa_attention(q, k, v, pos, None, ks, vs)
+    g = slice(0, K8_PLAIN_GROUP if prefill else Hkv)
+    h = slice(0, g.stop * rep)
+    plain_args = (q[:, :, h], k[:, :, g], v[:, :, g], pos, None,
+                  None if ks is None else ks[:, :, g], None if vs is None else vs[:, :, g])
+    ref = kernels.gqa_attention_reference(*plain_args)
+    torch.cuda.synchronize()
+    err = (out[:, :, h].float() - ref.float()).abs()
+    res = {"name": name, "q": [B, Lq, Hq, D], "cache": list(AR_4B_CACHE), "pos": pos,
+           "visible_keys": vis, "int8": int8, "aligned": aligned, "plain_heads": h.stop,
+           "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+           "mean_abs_plain": ref.float().abs().mean().item(),
+           "finite": bool(torch.isfinite(out).all().item())}
+    if prefill:
+        res["tol"] = ATTN_TOL
+        failed = res["max_abs_err"] > ATTN_TOL["max"] or res["mean_abs_err"] > ATTN_TOL["mean"]
+    else:
+        res["rel_max_err"], res["rel_mean_err"] = _rel_err(out[:, :, h], ref)
+        res.update(tol=K8_DECODE_TOL, drops=_k8_drops(*plain_args[:4], *plain_args[5:], ref))
+        failed = (res["rel_max_err"] > K8_DECODE_TOL["max"]
+                  or res["rel_mean_err"] > K8_DECODE_TOL["mean"])
+    del out, ref, err
+    calls = 1 if prefill else 20
+    res["ms"] = cuda_ms(lambda: kernels.gqa_attention(q, k, v, pos, None, ks, vs), reps=3,
+                        calls=calls)
+    res["plain_ms"] = cuda_ms(lambda: kernels.gqa_attention_reference(*plain_args), reps=1,
+                              calls=calls)
+    kd, vd = k[:, :vis], v[:, :vis]
+    if int8:
+        kd = (kd.float() * ks[:, :vis]).to(torch.bfloat16)
+        vd = (vd.float() * vs[:, :vis]).to(torch.bfloat16)
+    qt, kt, vt = q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)
+    res["library_ms"] = library_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=prefill, enable_gqa=True), calls=calls)
+    res["library_call"] = "F.scaled_dot_product_attention(enable_gqa=True" + (
+        ", is_causal=True)" if prefill else ")") + (" on dequantized bf16 K/V" if int8 else "")
+    pairs = Lq * (Lq + 1) // 2 if prefill else vis
+    kv_bytes = 2 * vis * Hkv * D * k.element_size() + (2 * vis * Hkv * 4 if int8 else 0)
+    res.update(bound(kv_bytes + 2 * tensor_bytes(q), 4.0 * Hq * D * pairs, BF16_PEAK_TFLOPS))
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    emit("kernel", **res)
+    if not res["finite"] or failed:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version: {res}")
+    if not prefill and not res["drops"]["last key" if aligned else "first split"]["seen"]:
+        raise AssertionError(f"{name}: the check cannot see a dropped key range: {res}")
+    del q, k, v, ks, vs, kd, vd
+    torch.cuda.empty_cache()
+    return res
+
+
+def _decode_step_trace(model, prefix: torch.Tensor) -> dict:
+    """One decode step of the 4B as ``generate`` takes it (the forward on a
+    bf16 cache after a prefill of ``prefix``, then top-p sampling), traced by
+    torch.profiler: the kernels it launches (K8 and PyTorch's) and the
+    device's busy time (the union of its kernels and copies), beside the
+    seconds of DECODE_TRACE_STEPS untraced steps (host and device, from
+    synchronize to synchronize): the device's busy share of a step and K8's
+    kernels' share. None where the profiler saw no device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gen3c_tpu_torch.models.ar_transformer import _sample, init_kv_cache, torch_gumbel
+
+    cache = init_kv_cache(model.cfg, 1, device="cuda")
+    noise = torch_gumbel(torch.Generator(device="cuda").manual_seed(0))
+    logits, _ = model(prefix, cache=cache)
+    tok = _sample(logits[:, -1], 0, 1.0, 0, 0.8, noise)
+
+    def step(i):
+        logits, _ = model(tok[:, None], cache=cache)
+        return _sample(logits[:, -1], i, 1.0, 0, 0.8, noise)
+
+    tok = step(1)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(DECODE_TRACE_STEPS):
+        tok = step(2 + i)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / DECODE_TRACE_STEPS
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tok = step(2 + DECODE_TRACE_STEPS)
+        torch.cuda.synchronize()
+    dev = sorted(((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA))
+    busy_us, end = 0.0, float("-inf")
+    for a, b, _ in dev:  # the union of the intervals
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    copies = sum(1 for *_, n in dev if n.lower().startswith(("memcpy", "memset")))
+    gqa_us = sum(b - a for a, b, n in dev if "gqa" in n)
+    del cache
+    if not dev:
+        return {"kernels": None}
+    return {"kernels": len(dev) - copies, "copies": copies,
+            "gqa": sum(1 for *_, n in dev if "gqa" in n), "position": int(prefix.shape[1]),
+            "step_s": step_s, "untraced_steps": DECODE_TRACE_STEPS,
+            "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / step_s,
+            "gqa_kernel_s": gqa_us / 1e6, "gqa_share": gqa_us / 1e6 / step_s}
+
+
+def _ar_tiny_card_vs_cpu() -> dict:
+    """ar_tiny (fp32) drawn on the CPU and copied to the card; one greedy
+    generate of AR_TINY_NEW tokens after a 64-token prompt on each, TF32 off
+    (fp32 cuBLAS and K8's fp32 body on the card): the tokens must agree."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.models.ar_transformer import generate
+    from gen3c_tpu_torch.pipelines.autoregressive import AR_PRESETS, build_ar_model
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = build_ar_model(AR_PRESETS["ar_tiny"], "cpu", seed=2)
+        card = copy.deepcopy(cpu).to("cuda")
+        prompt = torch.randint(0, 64000, (1, 64), generator=torch.Generator().manual_seed(3))
+        before = kernels.launch_counts["K8"]
+        got = generate(card, prompt.cuda(), AR_TINY_NEW, temperature=0.0).cpu()
+        k8 = kernels.launch_counts["K8"] - before
+        want = generate(cpu, prompt, AR_TINY_NEW, temperature=0.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"preset": "ar_tiny", "new_tokens": AR_TINY_NEW,
+            "equal": bool(torch.equal(got, want)),
+            "first_difference": int((got != want).nonzero()[0, 1]) if not torch.equal(got, want)
+            else None, "card_k8_launches": k8}
+
+
+def phase_ar_world() -> dict:
+    """The Cosmos AR world model at the 4B's full width (phase 27 of the
+    docstring); returns its record with the bf16 run's token grid."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.pipelines import autoregressive as ar
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    kern = {}
+    for name, pos, int8, prefill in (
+            ("K8 decode bf16 pos 5,120", AR_PREFIX, False, False),
+            ("K8 decode bf16 pos 12,799", AR_4B_CACHE[1] - 1, False, False),
+            ("K8 decode int8 pos 5,120", AR_PREFIX, True, False),
+            ("K8 decode int8 pos 12,799", AR_4B_CACHE[1] - 1, True, False),
+            ("K8 prefill bf16 5,120", 0, False, True)):
+        kern[name] = _k8_case(gen, name, pos, int8, prefill)
+    for name, pos, int8 in (("K8 decode bf16 pos 5,120 aligned", AR_PREFIX, False),
+                            ("K8 decode int8 pos 12,799 aligned", AR_4B_CACHE[1] - 1, True)):
+        kern[name] = _k8_case(gen, name, pos, int8, aligned=True)
+    preset = ar.AR_PRESETS["ar_4b"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ar.build_ar_model(preset, "cuda", seed=0)
+    tokenizer = ar.build_dv_tokenizer(preset, "cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    clip = torch.rand((1, 3, preset.chunk, preset.height, preset.width),
+                      generator=torch.Generator(device="cuda").manual_seed(4),
+                      device="cuda") * 2 - 1
+    runs = {}
+    for kv in ("bf16", "int8"):
+        record = {}
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        grid = ar.generate_world_tokens(model, tokenizer, clip, temperature=1.0, top_p=0.8,
+                                        quantize_kv=kv == "int8", seed=0,
+                                        max_new_tokens=AR_DECODE_TOKENS, record=record)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        runs[kv] = {"grid": list(grid.shape), "grid_max": int(grid.max()),
+                    "grid_min": int(grid.min()), "encode_s": record["encode_s"][0],
+                    "prefill_s": record["prefill_s"][0],
+                    "s_per_decode_token": record["decode_s"][0] / (AR_DECODE_TOKENS - 1),
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "launches": launches}
+        if kv == "bf16":
+            bf16_grid = grid
+    prefix = bf16_grid[:, :2].reshape(1, -1)
+    step = _decode_step_trace(model, prefix)
+    t0 = time.perf_counter()
+    frames = tokenizer.decode(bf16_grid)
+    torch.cuda.synchronize()
+    decode = {"s": time.perf_counter() - t0, "shape": list(frames.shape),
+              "finite": bool(torch.isfinite(frames).all().item())}
+    del model, tokenizer, frames, clip
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny = _ar_tiny_card_vs_cpu()
+    res = {"model": "ar_4b", "params": n_params, "dtype": "bfloat16", "layers": 16,
+           "prefix_tokens": int(prefix.shape[1]), "decode_tokens": AR_DECODE_TOKENS,
+           "build_s": build_s, "runs": runs, "decode_step": step,
+           "dv_decode": decode, "tiny_card_vs_cpu": tiny,
+           "kernel_cases": {k: {kk: r[kk] for kk in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by", "max_abs_err", "visible_keys")}
+                            for k, r in kern.items()}}
+    emit("ar_world", **res)
+    for kv, run in runs.items():
+        if (run["grid"] != [1, 5, 40, 64] or run["grid_min"] < 0 or run["grid_max"] >= 64000
+                or run["launches"]["K8"] != 16 * AR_DECODE_TOKENS):
+            raise AssertionError(f"ar_world {kv}: {run}")
+    if decode["shape"] != [1, 3, 33, 640, 1024] or not decode["finite"]:
+        raise AssertionError(f"ar_world: DV decode {decode}")
+    if not tiny["equal"] or tiny["card_k8_launches"] != 2 * AR_TINY_NEW:
+        raise AssertionError(f"ar_world: ar_tiny card against CPU {tiny}")
+    res["kernels"] = kern
+    res["launches"] = {k: runs["bf16"]["launches"][k] + runs["int8"]["launches"][k]
+                       for k in runs["bf16"]["launches"]}
+    res["grid"] = bf16_grid
+    return res
+
+
+def phase_dd(grid: torch.Tensor) -> dict:
+    """The seeded 7B diffusion decoder on ar_world's (1, 5, 40, 64) grid
+    (phase 28 of the docstring)."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.pipelines import diffusion_decoder as dd
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    kern = {"K1": _attention_case("K1 self-attention, diffusion decoder 7B", (2, 20480, 32, 128),
+                                  (2, 20480, 32, 128), torch.bfloat16, ATTN_TOL, gen),
+            "K2": _attention_case("K2 cross-attention, diffusion decoder 7B", (2, 20480, 32, 128),
+                                  (2, 512, 32, 128), torch.bfloat16, ATTN_TOL, gen)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = dd.make_dd_pipeline(dd.DIFFUSION_DECODER_7B, dd.CV8x8x8,
+                               dd.DDSamplingConfig(num_steps=DD_STEPS), 2, "cuda", seed=0)
+    randomize_gates(pipe.net, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    chunks = pipe.chunks(grid)
+    record = {}
+    kernels.reset_launch_counts()
+    before = dict(kernels.route_counts)
+    video = pipe.refine(grid, seed=0, record=record)[:, :, :33]
+    torch.cuda.synchronize()
+    cfg = pipe.net.cfg
+    res = {"model": "diffusion_decoder_7b", "blocks": cfg.num_blocks,
+           "channels": cfg.model_channels, "in_channels": cfg.in_channels,
+           "chunks": [list(c.shape) for c in chunks],
+           # DiT tokens: the chunk's token grid at the latent scale, in 2 x 2 patches
+           "tokens": int(np.prod(chunks[0].shape[2:]))
+           * (pipe.token_to_latent_scale // cfg.patch_spatial) ** 2,
+           "steps": DD_STEPS, "step_s": record["step_s"], "decode_s": record["decode_s"],
+           "build_s": build_s, "video": list(video.shape),
+           "finite": bool(torch.isfinite(video).all().item()),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": dict(kernels.launch_counts), "routes": route_delta(before),
+           "kernel_cases": {k: _mv_kernel_summary(r) for k, r in kern.items()}}
+    emit("dd", **res)
+    require_wgmma("dd", res["routes"])
+    n = DD_STEPS * cfg.num_blocks
+    if (res["tokens"] != 20480 or res["chunks"] != [[1, 1, 8, 40, 64]]
+            or res["video"] != [1, 3, 33, 640, 1024] or not res["finite"]
+            or res["launches"]["K1"] != n or res["launches"]["K2"] != n):
+        raise AssertionError(f"dd: {res}")
+    del pipe, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["kernels"] = kern
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="gen3c_tpu_torch smoke run on one GPU")
     p.add_argument("--cp-rank", type=int, default=None, help=argparse.SUPPRESS)
@@ -3640,6 +4004,8 @@ def main(argv=None) -> int:
     phase_tokenizer()
     quality_launches = phase_quality()["launches"]
     mv_res = phase_mv_world()
+    ar_res = phase_ar_world()
+    dd_res = phase_dd(ar_res.pop("grid"))
     fast_launches = phase_fast()["launches"]
     phase_fast_parity()
     phase_chain()
@@ -3671,7 +4037,8 @@ def main(argv=None) -> int:
     def by_phase(kid):
         return {"span": span_res["full"]["launches"][kid], "text2world": t2w_launches[kid],
                 "interpolator": interp_launches[kid], "mv_world": mv_res["launches"][kid],
-                "mv_action_train": sum(r["launches"][kid] for r in mv_train.values())}
+                "mv_action_train": sum(r["launches"][kid] for r in mv_train.values()),
+                "dd": dd_res["launches"][kid]}
 
     def mv_shape(kid):  # the kernel at the multiview 7B's shape (mv_world's case)
         return _mv_kernel_summary(mv_res["kernel_cases"][kid])
@@ -3682,9 +4049,11 @@ def main(argv=None) -> int:
 
     table = [
         row("K1 self-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:445",
-            launches["K1"], kern["K1"], phase_launches=by_phase("K1"), multiview=mv_shape("K1")),
+            launches["K1"], kern["K1"], phase_launches=by_phase("K1"), multiview=mv_shape("K1"),
+            decoder=dd_res["kernel_cases"]["K1"]),
         row("K2 cross-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:472",
-            launches["K2"], kern["K2"], phase_launches=by_phase("K2"), multiview=mv_shape("K2")),
+            launches["K2"], kern["K2"], phase_launches=by_phase("K2"), multiview=mv_shape("K2"),
+            decoder=dd_res["kernel_cases"]["K2"]),
         row("K5 forward-warp splat", "splat.cu", "gen3c_tpu/ops/geometry.py:205",
             launches["K5"], kern["K5"],
             max_abs_err=max([kern["K5"]["max_abs_err"]]
@@ -3745,6 +4114,19 @@ def main(argv=None) -> int:
             ms=ring["merge_ms"], plain_ms=ring["plain_merge_ms"], library_ms=None,
             **ring["merge_bound"]),
     ]
+    k8 = ar_res["kernels"]
+    table.append(row("K8 GQA attention over the KV cache (4B decode, bf16, pos 5,120)",
+                     "gqa_attention.cu", "gen3c_tpu/models/ar_transformer.py:252",
+                     ar_res["launches"]["K8"], k8["K8 decode bf16 pos 5,120"],
+                     max_abs_err=max(c["max_abs_err"] for c in k8.values()),
+                     library_call=k8["K8 decode bf16 pos 5,120"]["library_call"],
+                     phase_launches={"ar_world bf16 cache": ar_res["runs"]["bf16"]["launches"]["K8"],
+                                     "ar_world int8 cache": ar_res["runs"]["int8"]["launches"]["K8"],
+                                     "ar_tiny card": ar_res["tiny_card_vs_cpu"]["card_k8_launches"]},
+                     cases=[{"name": n, **{k: c[k] for k in ("visible_keys", "ms", "plain_ms",
+                                                            "library_ms", "bound_ms", "bound_by",
+                                                            "max_abs_err", "plain_heads")}}
+                            for n, c in k8.items()]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     incomplete = [(r["name"], k) for r in table for k in keys if k not in r]

@@ -11,7 +11,10 @@ params are already keyed by the reference names. ``multiview_state_from_jax``
 and ``action_state_from_jax`` carry the multiview and action nets' trees
 (``net_state_from_jax`` picks by the tree's keys). ``train_params_from_jax``
 carries a training tree across, the logvar head and its {"net", "logvar"}
-wrapper included; ``lora_state_from_jax`` the LoRA adapters. All take numpy-valued
+wrapper included; ``lora_state_from_jax`` the LoRA adapters;
+``ar_state_from_jax`` the AR world model's transformer and
+``dd_state_from_jax`` its diffusion decoder (the DV tokenizer takes
+``vae_state_from_jax``). All take numpy-valued
 trees (``jax.device_get`` output, or the numpy and bf16 torch leaves of
 ``utils.checkpoint.load_params_npz_tree``), so this module needs no JAX.
 """
@@ -144,3 +147,45 @@ def lora_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Te
 def vae_state_from_jax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX VAE params (flat, reference-named, numpy leaves) -> CausalVAE state_dict."""
     return {k: _a(v) for k, v in flat.items()}
+
+
+def ar_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """gen3c_tpu AR tree (``init_ar_params`` / its converters, raw or
+    ``quantize_ar_params``-quantized leaves) -> ARTransformer state_dict:
+    linears transposed to (out, in) under the Cosmos AR names; a quantized
+    token table's (1, dim) scale flattened (the network must have the
+    quantized structure: ``quantize_ar_params(..., structure_only=True)``)."""
+    def lin(name, w):
+        return _linear(name, w if isinstance(w, Mapping) else {"w": w})
+
+    table = tree["tok_embeddings"]
+    if isinstance(table, Mapping):
+        codes = table["q"] if "q" in table else table["q8"]
+        sd = {"tok_embeddings.weight": _a(codes),
+              "tok_embeddings.scale": _a(table["scale"]).reshape(-1)}
+    else:
+        sd = {"tok_embeddings.weight": _a(table)}
+    sd["norm.weight"] = _a(tree["norm"]["scale"])
+    sd.update(lin("output", tree["output"]))
+    names = {"wq": "attention.wq", "wk": "attention.wk", "wv": "attention.wv",
+             "wo": "attention.wo", "w1": "feed_forward.w1", "w2": "feed_forward.w2",
+             "w3": "feed_forward.w3", "cwq": "cross_attention.wq", "cwk": "cross_attention.wk",
+             "cwv": "cross_attention.wv", "cwo": "cross_attention.wo"}
+    norms = {"attention_norm": "attention_norm", "ffn_norm": "ffn_norm",
+             "q_norm": "attention.q_norm", "k_norm": "attention.k_norm",
+             "cross_norm": "cross_attention_norm"}
+    for i, lp in enumerate(tree["layers"]):
+        for k, v in lp.items():
+            if k in names:
+                sd.update(lin(f"layers.{i}.{names[k]}", v))
+            else:
+                sd[f"layers.{i}.{norms[k]}.weight"] = _a(v["scale"])
+    return sd
+
+
+def dd_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """gen3c_tpu diffusion-decoder tree (``init_dd_params``: a DiT tree plus
+    "token_embedder.weight" (vocab, dim)) -> DiffusionDecoderDiT state_dict."""
+    sd = dit_state_from_jax({k: v for k, v in tree.items() if k != "token_embedder.weight"})
+    sd["token_embedder.weight"] = _a(tree["token_embedder.weight"])
+    return sd

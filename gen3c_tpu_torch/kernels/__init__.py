@@ -19,6 +19,8 @@
   K6   nearest ray-triangle hit  (gen3c_tpu/ops/raycast.py:97-140)
   K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59), one pass a row
   K7   int8 x int8 GEMM + rescale (quantize.py:60-69), TMA + wgmma s8
+  K8   GQA attention over the KV cache (gen3c_tpu/models/ar_transformer.py:252-297,
+                                 XLA): causal, left padding, int8 codes with fp32 scales
   P1   wgmma rate probe          (scripts/probe_int8_attention.py:37-62; ``mma_probe``)
   P2   K1's tile sweep           (scripts/sweep_attention.py:32-68; ``attention_point``:
                                  K1's wgmma forward built at a point of the sweep)
@@ -34,7 +36,7 @@ describes the inputs, else the mma.sync bodies: K1, K2 and K3 in
 preset's K1, K2, K3) is ``csrc/attention_f32.cu``; P2 is
 ``attention_wgmma.cu``'s forward built at its sweep's points; K5 is
 ``csrc/splat.cu``; K6 is
-``csrc/raycast.cu``; K7q and K7 are ``csrc/w8a8.cu``; P1 is
+``csrc/raycast.cu``; K7q and K7 are ``csrc/w8a8.cu``; K8 is ``csrc/gqa_attention.cu``; P1 is
 ``csrc/mma_probe.cu``. A CUDA tensor launches the compiled kernel (built at
 first use, see ``build``); a CPU tensor runs the plain PyTorch version in
 ``reference``. There is no other switch: on a card the references run only
@@ -63,6 +65,7 @@ from gen3c_tpu_torch.kernels.reference import (
     attention_backward_reference,
     attention_forward_reference,
     attention_reference,
+    gqa_attention_reference,
     int8_matmul_reference,
     mma_probe_reference,
     quantize_rows_reference,
@@ -75,7 +78,8 @@ from gen3c_tpu_torch.kernels.reference import (
 
 __all__ = [
     "attention", "attention_point", "splat", "ray_triangle_depth", "quantize_rows",
-    "w8a8_matmul", "mma_probe", "ring_fold", "ring_merge", "launch_counts", "route_counts",
+    "w8a8_matmul", "mma_probe", "ring_fold", "ring_merge", "gqa_attention", "launch_counts",
+    "route_counts", "gqa_attention_reference",
     "reset_launch_counts", "attention_reference", "attention_forward_reference", "attention_backward_reference", "splat_reference",
     "ray_triangle_depth_reference", "quantize_rows_reference", "int8_matmul_reference",
     "w8a8_matmul_reference", "mma_probe_reference", "ring_fold_reference",
@@ -84,7 +88,7 @@ __all__ = [
 
 launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K3lse": 0, "K4": 0, "K4band": 0, "K5": 0, "K6": 0,
                  "K7q": 0, "K7": 0, "P1": 0, "P2": 0, "K1cp": 0, "K1ag": 0, "K1ring": 0,
-                 "K1merge": 0, "K1vit": 0}
+                 "K1merge": 0, "K1vit": 0, "K8": 0}
 # K4's launches split by the forward they differentiate (K1 self-, K2 cross-attention)
 k4_launches_by_forward = {"K1": 0, "K2": 0}
 # the bf16 attention family's launches by body (cuda.attention_route)
@@ -227,6 +231,28 @@ def w8a8_matmul(x: torch.Tensor, qweight: torch.Tensor, wscale: torch.Tensor,
     out = cuda.int8_gemm(xq, qweight, xscale, wscale, out_dtype)
     launch_counts["K7"] += 1
     return out.reshape(*x.shape[:-1], qweight.shape[0])
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal_offset: Optional[int] = None,
+                  kv_valid_start: Optional[torch.Tensor] = None,
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8: grouped-query attention of q (B, Lq, Hq, d) over k/v (B, Lk, Hkv,
+    d), a KV cache read in place: key j is visible to query i iff
+    kv_valid_start[b] <= j <= causal_offset + i (causal_offset None: every
+    key); int8 k/v with fp32 k_scale/v_scale (B, Lk, Hkv, 1). See
+    ``gqa_attention_reference``. On a card the kernel reads only the keys
+    some query can see and never repeats heads; a row that sees no key (a
+    left-pad query) gives 0 there, where the plain version averages every
+    key: such rows are never read (their keys are masked in every layer)."""
+    if not _on_cuda(q, "gqa_attention"):
+        return gqa_attention_reference(q, k, v, causal_offset, kv_valid_start, k_scale, v_scale)
+    from gen3c_tpu_torch.kernels import cuda
+
+    out = cuda.gqa_attention(q, k, v, causal_offset, kv_valid_start, k_scale, v_scale)
+    launch_counts["K8"] += 1
+    return out
 
 
 def attention_point(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

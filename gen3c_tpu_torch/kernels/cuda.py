@@ -52,6 +52,8 @@ def library() -> ctypes.CDLL:
                                            + [ctypes.POINTER(ctypes.c_longlong), _P])
             lib.gen3c_ray_triangle_depth.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
             lib.gen3c_ray_triangle_prepare.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P]
+            lib.gen3c_gqa_attention.argtypes = ([_P] * 9 + [ctypes.POINTER(_L)] + [_I] * 13
+                                                + [_P])
             words = ctypes.POINTER(ctypes.c_longlong)
             band_ptr = ctypes.POINTER(_I)
             _fwd_argtypes(lib)
@@ -63,7 +65,7 @@ def library() -> ctypes.CDLL:
                        lib.gen3c_attention_ring_fold, lib.gen3c_attention_merge,
                        lib.gen3c_mma_probe, lib.gen3c_attention_f32_smem,
                        lib.gen3c_ray_triangle_depth, lib.gen3c_ray_triangle_prepare,
-                       lib.gen3c_attention_wgmma_bwd):
+                       lib.gen3c_attention_wgmma_bwd, lib.gen3c_gqa_attention):
                 fn.restype = _I
             if _box_rows(lib) != (WGMMA_FWD_BOX_ROWS, WGMMA_BWD_BOX_ROWS):
                 raise RuntimeError(f"attention_wgmma.cu's box rows {_box_rows(lib)} differ "
@@ -964,3 +966,102 @@ def mma_probe(a: torch.Tensor, b: torch.Tensor, reps: int,
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t itself where its data starts on 16 bytes, else a fresh copy."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# ------------------------------ K8: GQA over a KV cache ------------------------------
+
+GQA_ROWS_PER_WARP = (1, 8)  # decode (Lq * rep <= GQA_DECODE_ROWS), else prefill
+GQA_DECODE_ROWS = 16
+GQA_KEYS_PER_SPLIT = 64  # the fewest keys a decode split takes
+GQA_CTAS_PER_SM = 4  # decode splits until the grid holds this many CTAs a SM
+
+
+def gqa_plan(B: int, Lq: int, Hq: int, Hkv: int, kv_end: int, sms: int) -> Tuple[int, int]:
+    """(rows per warp, key splits) of a K8 launch. Decode (few rows) takes one
+    row a warp and splits the visible keys until the grid has about
+    GQA_CTAS_PER_SM CTAs a SM, each split at least GQA_KEYS_PER_SPLIT keys;
+    a longer query takes 8 rows a warp and one split."""
+    rows = Lq * (Hq // Hkv)
+    rw = GQA_ROWS_PER_WARP[0] if rows <= GQA_DECODE_ROWS else GQA_ROWS_PER_WARP[1]
+    row_ctas = B * Hkv * -(-rows // (4 * rw))  # gqa_attention.cu: four warps a CTA
+    target = GQA_CTAS_PER_SM * sms
+    if row_ctas >= target or kv_end <= GQA_KEYS_PER_SPLIT:
+        return rw, 1
+    return rw, max(1, min(-(-target // row_ctas), -(-kv_end // GQA_KEYS_PER_SPLIT)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal_offset: Optional[int] = None,
+                  kv_valid_start: Optional[torch.Tensor] = None,
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """gen3c_gqa_attention (K8): q (B, Lq, Hq, d) bf16 or fp32 over k/v (B,
+    Lk, Hkv, d) of q's dtype, or int8 codes with fp32 k_scale/v_scale (B,
+    Lk, Hkv, 1); read in place (any batch, sequence and head strides, unit
+    stride along d) up to the last key a query can see. Returns (B, Lq, Hq,
+    d) in q's dtype."""
+    if not (q.is_cuda and all(t.device == q.device for t in (k, v))):
+        raise ValueError("gqa kernel: q, k, v must be on one CUDA device")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"gqa kernel takes bf16 or fp32 queries, got {q.dtype}")
+    int8 = k_scale is not None
+    if (v_scale is not None) != int8:
+        raise ValueError("gqa kernel: give k_scale and v_scale together")
+    want = torch.int8 if int8 else q.dtype
+    if k.dtype != want or v.dtype != want:
+        raise TypeError(f"gqa kernel: k/v must be {want} with {q.dtype} queries"
+                        f"{' and scales' if int8 else ''}, got {k.dtype}/{v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"gqa kernel: bad shapes {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or Hq % Hkv or not 0 < D <= 128 or Lk == 0:
+        raise ValueError(f"gqa kernel: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree "
+                         "(Hq % Hkv == 0, d <= 128)")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    scale_strides = [0] * 6
+    if int8:
+        for t in (k_scale, v_scale):
+            if t.shape != (B, Lk, Hkv, 1) or t.dtype != torch.float32 or t.device != q.device:
+                raise ValueError(f"gqa kernel: scales must be fp32 {(B, Lk, Hkv, 1)} on the "
+                                 f"card, got {tuple(t.shape)} {t.dtype}")
+        scale_strides = [k_scale.stride(0), k_scale.stride(1), k_scale.stride(2),
+                         v_scale.stride(0), v_scale.stride(1), v_scale.stride(2)]
+    start = None
+    if kv_valid_start is not None:
+        if kv_valid_start.shape != (B,) or kv_valid_start.device != q.device:
+            raise ValueError(f"gqa kernel: kv_valid_start must be ({B},) on the card")
+        start = kv_valid_start.to(torch.int32).contiguous()
+    causal = -1 if causal_offset is None else int(causal_offset)
+    if causal_offset is not None and causal < 0:
+        raise ValueError(f"gqa kernel: causal_offset must be >= 0, got {causal_offset}")
+    kv_end = Lk if causal < 0 else min(Lk, causal + Lq)
+    rw, splits = gqa_plan(B, Lq, Hq, Hkv, kv_end, _sm_count(q.device.index or 0))
+    out = torch.empty((B, Lq, Hq, D), dtype=q.dtype, device=q.device)
+    part_o = part_lse = None
+    if splits > 1:
+        part_o = torch.empty((splits, B, Lq, Hq, D), dtype=torch.float32, device=q.device)
+        part_lse = torch.empty((splits, B, Lq, Hq), dtype=torch.float32, device=q.device)
+    size = k.element_size()
+    vec = (D * size) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 and all((t.stride(i) * size) % 16 == 0 for i in range(3))
+        for t in (k, v))
+    strides = (ctypes.c_longlong * 15)(q.stride(0), q.stride(1), q.stride(2),
+                                       k.stride(0), k.stride(1), k.stride(2),
+                                       v.stride(0), v.stride(1), v.stride(2), *scale_strides)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _check(library().gen3c_gqa_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(start),
+        out.data_ptr(), ptr(part_o), ptr(part_lse), strides, B, Lq, Lk, Hq, Hkv, D, causal,
+        kv_end, splits, int(q.dtype == torch.bfloat16), int(int8), rw, int(vec), _stream(q)),
+        "gqa_attention")
+    return out

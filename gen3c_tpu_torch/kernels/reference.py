@@ -27,6 +27,8 @@ non-Pallas paths:
     same sum as the operands of one product (P1's library yardstick).
   * ``ray_triangle_depth_reference``: gen3c_tpu/ops/raycast.py
     ``ray_triangle_depth`` (:97-140), K6's plain version, chunked over rays.
+  * ``gqa_attention_reference``: gen3c_tpu/models/ar_transformer.py
+    ``_gqa_attention`` (:252-297), K8's plain version, line for line.
 """
 
 from __future__ import annotations
@@ -648,3 +650,52 @@ def ray_triangle_footprint_pairs(ray_dirs: torch.Tensor, boxes: torch.Tensor,
             total += int(((v >= boxes[sel, o_lo][owner]) & (v <= boxes[sel, o_hi][owner])).sum())
             start = stop
     return int(total)
+
+
+def gqa_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal_offset: Optional[int] = None,
+                            kv_valid_start: Optional[torch.Tensor] = None,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Grouped-query attention over a KV cache, K8's plain version
+    (ar_transformer.py ``_gqa_attention``, :252-297, line for line).
+
+    q (B, Lq, Hq, d); k/v (B, Lk, Hkv, d), Hq % Hkv == 0. Key j is visible
+    to query i iff kv_valid_start[b] <= j <= causal_offset + i;
+    causal_offset None: every key (the T5 cross-attention), still cut by
+    kv_valid_start. K and V are repeated to Hq heads, the logits formed in
+    q's dtype, scaled by 1/sqrt(d) and soft-maxed in fp32 with -1e30 on the
+    masked keys (a row that sees no key averages every key). int8 mode:
+    k/v hold int8 codes, k_scale/v_scale (B, Lk, Hkv, 1) fp32 multiply
+    logit column j and probability column j before P V. The output is in
+    q's dtype."""
+    B, Lq, Hq, d = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    if k_scale is not None:
+        k = k.to(q.dtype)
+    if v_scale is not None:
+        v = v.to(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    logits = logits * (1.0 / math.sqrt(d))
+    if k_scale is not None:
+        ks = k_scale.repeat_interleave(rep, dim=2)  # (B, Lk, Hq, 1)
+        logits = logits * ks[..., 0].transpose(1, 2)[:, :, None, :]
+    kpos = torch.arange(Lk, device=q.device)[None, :]
+    if causal_offset is not None:
+        qpos = torch.arange(Lq, device=q.device)[:, None] + causal_offset
+        mask = (kpos <= qpos)[None]  # (1, Lq, Lk)
+        if kv_valid_start is not None:
+            mask = mask & (kpos[None] >= kv_valid_start[:, None, None])
+        logits = torch.where(mask[:, None], logits, torch.full_like(logits, -1e30))
+    elif kv_valid_start is not None:
+        mask = kpos >= kv_valid_start[:, None]  # (B, Lk)
+        logits = torch.where(mask[:, None, None, :], logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        vs = v_scale.repeat_interleave(rep, dim=2)  # (B, Lk, Hq, 1)
+        probs = probs * vs[..., 0].transpose(1, 2)[:, :, None, :]
+    probs = probs.to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -29,6 +29,14 @@ are not in a checkpoint, and it has no learnable extra position slots).
 itself is here too: it builds the JAX package's parameter tree (linears
 transposed to (in, out)) from the same state dict, which is what
 ``utils.checkpoint.save_params_npz`` writes as ``gen3c_tpu/dit.npz``.
+
+The AR world model's converters (gen3c_tpu/models/convert.py:236-490) give
+the state dict of the port's ``models.ar_transformer.ARTransformer``,
+whose keys are the reference Cosmos AR names: ``convert_cosmos_ar_state_dict``
+selects and casts a Cosmos AR checkpoint's keys, ``convert_hf_llama`` maps
+a Hugging Face LlamaForCausalLM's. ``shard_ar_tp_state_dict`` and
+``merge_ar_tp_state_dicts`` cut a Cosmos AR state dict into Megatron
+tensor-parallel shards and join them again (checkpoint format only).
 """
 
 from __future__ import annotations
@@ -230,3 +238,137 @@ def _map(tree, fn):
     if isinstance(tree, list):
         return [_map(v, fn) for v in tree]
     return fn(tree)
+
+
+def _ar_get(state_dict: Mapping[str, Any], dtype: torch.dtype):
+    def get(name: str) -> torch.Tensor:
+        v = state_dict[name]
+        v = v.detach().float().cpu() if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+        return v.to(dtype).contiguous()
+    return get
+
+
+def convert_hf_llama(state_dict: Mapping[str, Any], cfg, dtype: Optional[torch.dtype] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """A Hugging Face LlamaForCausalLM state dict -> ARTransformer state
+    dict, every tensor in ``dtype`` (default cfg.dtype; the norm scales too,
+    which the module then holds in fp32 with those values), as
+    convert.py:236-291. HF's q/k are in the rotate-half layout of
+    ``_apply_rope``; a checkpoint without lm_head ties the output to the
+    token table."""
+    get = _ar_get(state_dict, dtype or cfg.dtype)
+    names = {"self_attn.q_proj": "attention.wq", "self_attn.k_proj": "attention.wk",
+             "self_attn.v_proj": "attention.wv", "self_attn.o_proj": "attention.wo",
+             "mlp.gate_proj": "feed_forward.w1", "mlp.down_proj": "feed_forward.w2",
+             "mlp.up_proj": "feed_forward.w3", "input_layernorm": "attention_norm",
+             "post_attention_layernorm": "ffn_norm"}
+    out = {"tok_embeddings.weight": get("model.embed_tokens.weight"),
+           "norm.weight": get("model.norm.weight"),
+           "output.weight": get("lm_head.weight" if "lm_head.weight" in state_dict
+                                else "model.embed_tokens.weight")}
+    for i in range(cfg.n_layers):
+        for hf, ours in names.items():
+            out[f"layers.{i}.{ours}.weight"] = get(f"model.layers.{i}.{hf}.weight")
+    return out
+
+
+def convert_cosmos_ar_state_dict(state_dict: Mapping[str, Any], cfg,
+                                 dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """A reference Cosmos AR transformer state dict (llama names, per-head
+    q_norm / k_norm, cross-attention when cfg.context_dim) -> ARTransformer
+    state dict: the keys the config uses, in ``dtype`` (default cfg.dtype),
+    as convert.py:437-490."""
+    get = _ar_get(state_dict, dtype or cfg.dtype)
+    keys = ["tok_embeddings.weight", "norm.weight", "output.weight"]
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}"
+        keys += [f"{pre}.attention.{w}.weight" for w in ("wq", "wk", "wv", "wo")]
+        keys += [f"{pre}.feed_forward.{w}.weight" for w in ("w1", "w2", "w3")]
+        keys += [f"{pre}.attention_norm.weight", f"{pre}.ffn_norm.weight"]
+        if cfg.use_qk_normalization:
+            keys += [f"{pre}.attention.q_norm.weight", f"{pre}.attention.k_norm.weight"]
+        if cfg.context_dim:
+            keys.append(f"{pre}.cross_attention_norm.weight")
+            keys += [f"{pre}.cross_attention.{w}.weight" for w in ("wq", "wk", "wv", "wo")]
+    return {k: get(k) for k in keys}
+
+
+def _split(v: torch.Tensor, tp: int, dim: int, rank: int) -> torch.Tensor:
+    if v.shape[dim] % tp:
+        raise ValueError(f"cannot split {tuple(v.shape)} into {tp} equal parts along {dim}")
+    return v.chunk(tp, dim=dim)[rank]
+
+
+def shard_ar_tp_state_dict(state_dict: Mapping[str, Any], tp: int, rank: int, n_heads: int,
+                           n_kv_heads: int, dim: int, context_dim: Optional[int] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s Megatron tensor-parallel shard of a Cosmos AR state
+    dict (convert.py:331-375): wq / wk / wv split head-major on the output
+    dim, w1 / w3 / the token table / the output column-split, w2 / wo
+    row-split, norms replicated. Keys keep an optional "model." prefix."""
+    out = {}
+    for full_key, v in state_dict.items():
+        key = full_key[len("model."):] if full_key.startswith("model.") else full_key
+        v = torch.as_tensor(v)
+        if key.startswith("layers."):
+            if ".attention.wq.weight" in key or "cross_attention.wq.weight" in key:
+                v = _split(v.reshape(n_heads, -1, dim), tp, 0, rank).reshape(-1, dim)
+            elif ".attention.wk.weight" in key or ".attention.wv.weight" in key:
+                v = _split(v.reshape(n_kv_heads, -1, dim), tp, 0, rank).reshape(-1, dim)
+            elif "cross_attention.wk.weight" in key or "cross_attention.wv.weight" in key:
+                if context_dim is None:
+                    raise ValueError("cross-attention shards need context_dim")
+                v = _split(v.reshape(n_kv_heads, -1, context_dim), tp, 0, rank)
+                v = v.reshape(-1, context_dim)
+            elif "feed_forward.w1.weight" in key or "feed_forward.w3.weight" in key:
+                v = _split(v, tp, 0, rank)
+            elif ("feed_forward.w2.weight" in key or ".attention.wo.weight" in key
+                  or "cross_attention.wo.weight" in key):
+                v = _split(v, tp, 1, rank)
+        elif key in ("tok_embeddings.weight", "output.weight"):
+            v = _split(v, tp, 0, rank)
+        out[full_key] = v.contiguous()
+    return out
+
+
+def merge_ar_tp_state_dicts(shards: list, n_heads: int, n_kv_heads: int, dim: int,
+                            context_dim: Optional[int] = None, head_dim: Optional[int] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``shard_ar_tp_state_dict`` (convert.py:377-434):
+    head-major concatenation for q / k / v, column or row concatenation for
+    the rest, replicated tensors averaged after a closeness check against
+    the mean (atol 5e-2, rtol 0.1; a mismatch raises)."""
+    tp = len(shards)
+    head_dim = dim // n_heads if head_dim is None else head_dim
+    n_local_heads, n_local_kv = n_heads // tp, n_kv_heads // tp
+    merged = {}
+    for full_key in shards[0]:
+        key = full_key[len("model."):] if full_key.startswith("model.") else full_key
+        vals = [torch.as_tensor(s[full_key]) for s in shards]
+        if key in ("tok_embeddings.weight", "output.weight"):
+            merged[full_key] = torch.cat(vals, dim=0)
+        elif ".attention.wq.weight" in key or "cross_attention.wq.weight" in key:
+            merged[full_key] = torch.cat([v.reshape(n_local_heads, head_dim, dim) for v in vals],
+                                         dim=0).reshape(head_dim * n_heads, dim)
+        elif ".attention.wk.weight" in key or ".attention.wv.weight" in key:
+            merged[full_key] = torch.cat([v.reshape(n_local_kv, head_dim, dim) for v in vals],
+                                         dim=0).reshape(head_dim * n_kv_heads, dim)
+        elif "cross_attention.wk.weight" in key or "cross_attention.wv.weight" in key:
+            if context_dim is None:
+                raise ValueError("cross-attention shards need context_dim")
+            merged[full_key] = torch.cat(
+                [v.reshape(n_local_kv, head_dim, context_dim) for v in vals],
+                dim=0).reshape(head_dim * n_kv_heads, context_dim)
+        elif "feed_forward.w1.weight" in key or "feed_forward.w3.weight" in key:
+            merged[full_key] = torch.cat(vals, dim=0)
+        elif ("feed_forward.w2.weight" in key or ".attention.wo.weight" in key
+              or "cross_attention.wo.weight" in key):
+            merged[full_key] = torch.cat(vals, dim=1)
+        else:
+            avg = torch.stack(vals).mean(dim=0)
+            if not torch.allclose(vals[0], avg, atol=5e-2, rtol=0.1):
+                raise ValueError(f"replicated tensor {full_key} differs across shards")
+            if "norm" not in key and vals[0].ndim > 1:
+                raise ValueError(f"unexpected replicated key {full_key}")
+            merged[full_key] = avg
+    return merged

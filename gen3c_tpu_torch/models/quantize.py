@@ -106,3 +106,99 @@ def quantize_dit_(net: nn.Module, act_quant: bool = False, structure_only: bool 
         setattr(parent, attr, q)
         del lin
     return net
+
+
+class QuantEmbedding(nn.Module):
+    """A token table held as int8 ``weight`` (vocab, dim) with one fp32
+    ``scale`` a hidden channel (dim,): quantize.py quantizes the (vocab,
+    dim) table per column and dequantizes the looked-up rows."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, device=None):
+        super().__init__()
+        self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
+        self.register_buffer("weight", torch.zeros((num_embeddings, embedding_dim),
+                                                   dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones((embedding_dim,), dtype=torch.float32,
+                                                 device=device))
+
+    def forward(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """codes[tokens].astype(dtype) * scale.astype(dtype) (ar_transformer.py ``_embed``)."""
+        return self.weight[tokens].to(dtype) * self.scale.to(dtype)
+
+
+def _quantized_ar_module(mod: nn.Module, act_quant: bool, structure_only: bool,
+                         min_size: int, device) -> Optional[nn.Module]:
+    """The quantized replacement of one AR linear or token table (None: kept).
+    Every linear of the AR network is one of quantize.py's _AR_QUANT_KEYS
+    (wq, wk, wv, wo, w1, w2, w3, cwq, cwk, cwv, cwo, output); the table
+    never takes W8A8."""
+    if isinstance(mod, nn.Embedding) and mod.weight.numel() >= min_size:
+        q = QuantEmbedding(mod.num_embeddings, mod.embedding_dim, device=device)
+        if not structure_only:
+            codes, scale = quantize_linear(mod.weight.T)
+            q.weight.copy_(codes.T)
+            q.scale.copy_(scale)
+        return q
+    if isinstance(mod, nn.Linear) and mod.weight.numel() >= min_size:
+        q = QuantLinear(mod.in_features, mod.out_features, act_quant, device=device)
+        if not structure_only:
+            codes, scale = quantize_linear(mod.weight)
+            q.weight.copy_(codes)
+            q.scale.copy_(scale)
+        return q
+    return None
+
+
+@torch.no_grad()
+def quantize_ar_params(model: nn.Module, act_quant: bool = False, structure_only: bool = False,
+                       min_size: Optional[int] = None, device=None) -> nn.Module:
+    """Int8 weight-only (or W8A8, act_quant) quantization of an
+    ``ARTransformer`` in place, one layer at a time (quantize.py
+    ``quantize_ar_params``): every linear and the token table with >=
+    _MIN_SIZE elements, per output channel (the table per hidden channel,
+    dequantized on lookup); the norm scales stay fp32. device: where the
+    quantized layers go (default: where each weight is); quantizing on the
+    CPU and placing each layer on the card as it is done is
+    ``quantize_ar_params_transfer``. structure_only: empty quantized layers
+    for a pre-quantized state dict to load into."""
+    min_size = _MIN_SIZE if min_size is None else min_size
+    targets = [name for name, mod in model.named_modules()
+               if isinstance(mod, (nn.Linear, nn.Embedding))]
+    for name in targets:
+        parent_name, _, attr = name.rpartition(".")
+        parent = model.get_submodule(parent_name) if parent_name else model
+        mod = getattr(parent, attr)
+        q = _quantized_ar_module(mod, act_quant, structure_only, min_size, mod.weight.device)
+        if q is None:
+            if device is not None:
+                setattr(parent, attr, mod.to(device))
+            continue
+        setattr(parent, attr, q if device is None else q.to(device))
+        del mod
+    if device is not None:
+        model.to(device)  # the norm scales and what stayed unquantized
+    return model
+
+
+def quantize_ar_params_transfer(model: nn.Module, act_quant: bool = False,
+                                device=None) -> nn.Module:
+    """Quantize a CPU-resident AR network and move it to ``device`` (default
+    the current card) layer by layer: the card never holds the unquantized
+    weights, only the int8 codes, scales and one layer at a time
+    (quantize.py ``quantize_ar_params_transfer``)."""
+    return quantize_ar_params(model, act_quant=act_quant,
+                              device=device if device is not None else torch.device("cuda"))
+
+
+def maybe_quantized_convert(convert_fn, env_var: str = "GEN3C_QUANTIZE_LLM",
+                            act_quant: bool = False, device=None):
+    """Run a converter thunk (returning an AR network) with opt-in int8
+    quantization: with the variable "1" the thunk builds on the CPU and the
+    quantized layers move to ``device`` one by one; otherwise it runs as it
+    is (quantize.py ``maybe_quantized_convert``). convert_fn(device) takes
+    the device to build on."""
+    import os
+
+    if os.environ.get(env_var, "0") != "1":
+        return convert_fn(device)
+    return quantize_ar_params_transfer(convert_fn("cpu"), act_quant=act_quant, device=device)

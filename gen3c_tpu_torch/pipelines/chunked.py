@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from gen3c_tpu_torch import kernels
-from gen3c_tpu_torch.pipelines.gen3c_pipeline import synchronize
 from gen3c_tpu_torch.utils import log
+from gen3c_tpu_torch.utils.timing import synchronize
 
 
 class GenerationCancelled(Exception):

@@ -23,12 +23,7 @@ import torch
 from gen3c_tpu_torch.models.gen3c import Gen3CModel
 from gen3c_tpu_torch.models.t5 import DummyT5TextEncoder
 from gen3c_tpu_torch.utils import log
-
-
-def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work (a no-op on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from gen3c_tpu_torch.utils.timing import synchronize
 
 
 def video_to_uint8(video: torch.Tensor) -> np.ndarray:

@@ -38,10 +38,11 @@ from gen3c_tpu_torch.pipelines import factory
 from gen3c_tpu_torch.pipelines.chunked import compose_buffer_video, run_chunked_generation
 from gen3c_tpu_torch.pipelines.depth import make_depth_estimator
 from gen3c_tpu_torch.pipelines.factory import PRESETS
-from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline, synchronize
+from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
 from gen3c_tpu_torch.utils import log
 from gen3c_tpu_torch.utils.io import (IncrementalVideoSaver, read_image_bcthw,
                                       read_prompts_from_file)
+from gen3c_tpu_torch.utils.timing import synchronize
 
 
 def create_parser() -> argparse.ArgumentParser:

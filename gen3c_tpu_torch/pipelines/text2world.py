@@ -39,9 +39,10 @@ from gen3c_tpu_torch.models.gen3c import dit_net_fns
 from gen3c_tpu_torch.models.t5 import DummyT5TextEncoder
 from gen3c_tpu_torch.pipelines import factory
 from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET, GEN3C_TINY_PRESET, Gen3CPreset
-from gen3c_tpu_torch.pipelines.gen3c_pipeline import synchronize, video_to_uint8
+from gen3c_tpu_torch.pipelines.gen3c_pipeline import video_to_uint8
 from gen3c_tpu_torch.utils import io as io_utils
 from gen3c_tpu_torch.utils import log
+from gen3c_tpu_torch.utils.timing import synchronize
 
 # t2w: 16 latent channels in; v2w: + 1 condition-mask channel
 COSMOS_T2W_7B = Gen3CPreset(

@@ -50,11 +50,11 @@ from gen3c_tpu_torch.models.dit_multiview import (
 from gen3c_tpu_torch.models.vae import VAEConfig, VideoTokenizer
 from gen3c_tpu_torch.pipelines import factory
 from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET, GEN3C_TINY_PRESET
-from gen3c_tpu_torch.pipelines.gen3c_pipeline import synchronize
 from gen3c_tpu_torch.training.train import build_net
 from gen3c_tpu_torch.utils import checkpoint as ckpt
 from gen3c_tpu_torch.utils import io as io_utils
 from gen3c_tpu_torch.utils import log
+from gen3c_tpu_torch.utils.timing import synchronize
 
 VIEW_NAMES = ("front", "left", "right", "back", "back_left", "back_right")
 

@@ -26,9 +26,9 @@ import torch
 
 from gen3c_tpu_torch.models.vae import CV8x8x8, CausalVAE, VAEConfig, VideoTokenizer
 from gen3c_tpu_torch.pipelines.factory import resolve_device
-from gen3c_tpu_torch.pipelines.gen3c_pipeline import synchronize
 from gen3c_tpu_torch.utils import io as io_utils
 from gen3c_tpu_torch.utils import log
+from gen3c_tpu_torch.utils.timing import synchronize
 
 VAE_PRESETS = {
     "cv8x8x8": CV8x8x8,

@@ -29,10 +29,11 @@ from gen3c_tpu_torch.diffusion.sampler import arch_invariant_randn, generate_sam
 from gen3c_tpu_torch.models.conditioner import (VideoExtendCondition,
                                                 add_condition_video_indicator_and_input_mask)
 from gen3c_tpu_torch.models.gen3c import dit_net_fns
-from gen3c_tpu_torch.pipelines.gen3c_pipeline import synchronize, video_to_uint8
+from gen3c_tpu_torch.pipelines.gen3c_pipeline import video_to_uint8
 from gen3c_tpu_torch.pipelines.text2world import T2W_PRESETS, build_model
 from gen3c_tpu_torch.utils import io as io_utils
 from gen3c_tpu_torch.utils import log
+from gen3c_tpu_torch.utils.timing import synchronize
 
 
 def create_parser() -> argparse.ArgumentParser:

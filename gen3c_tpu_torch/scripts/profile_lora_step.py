@@ -100,6 +100,7 @@ def main(argv=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET
+    from gen3c_tpu_torch.scripts.card import randomize_gates
     from gen3c_tpu_torch.training.lora import init_lora_params, lora_leaves, lora_train_step
     from gen3c_tpu_torch.training.train import build_net
     from gen3c_tpu_torch.training.train_step import make_optimizer
@@ -109,10 +110,7 @@ def main(argv=None) -> dict:
                               attn_prefix_frames=BAND[1])
     net = build_net(cfg, "cuda", seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    with torch.no_grad():  # a fresh init has these zero: the output would be zero
-        for name, param in net.named_parameters():
-            if name.endswith("adaLN_modulation.2.weight") or name == "final_layer.linear.weight":
-                param.copy_(0.1 * torch.randn(param.shape, generator=gen, device="cuda"))
+    randomize_gates(net, gen)
     c, t, h, w = LATENT
     batch = {"x0": torch.randn((1, c, t, h, w), generator=gen, device="cuda"),
              "crossattn_emb": torch.randn((1, CTX, 1024), generator=gen, device="cuda"),

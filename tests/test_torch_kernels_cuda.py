@@ -859,3 +859,58 @@ def test_offload_flags_are_no_ops_on_the_card(tmp_path, monkeypatch):
     assert len(videos) == 2 and videos[0].shape == videos[1].shape == (9, 96, 160, 3)
     diff = np.abs(videos[0].astype(np.int16) - videos[1].astype(np.int16))
     assert (diff <= 1).mean() >= 0.999, (diff.max(), (diff > 1).mean())
+
+
+def _gqa_inputs(gen, B, Lq, Lk, Hq, Hkv, d, dtype, int8):
+    q = torch.randn((B, Lq, Hq, d), generator=gen, device="cuda").to(dtype)
+    if not int8:
+        k, v = (torch.randn((B, Lk, Hkv, d), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        return q, k, v, None, None
+    k, v = (torch.randint(-127, 128, (B, Lk, Hkv, d), generator=gen, device="cuda",
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((B, Lk, Hkv, 1), generator=gen, device="cuda") * 0.02 + 1e-3
+              for _ in range(2))
+    return q, k, v, ks, vs
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,d,offset,start", [
+    (1, 1, 12800, 32, 8, 128, 5120, None),    # 4B decode, splits over the visible keys
+    (1, 1, 12800, 32, 8, 128, 12799, None),   # the last position
+    (2, 1, 300, 4, 2, 32, 40, (0, 17)),       # tiny heads, left padding
+    (1, 333, 333, 32, 8, 128, 0, None),       # prefill, ragged tiles
+    (2, 70, 200, 8, 8, 64, 100, (5, 130)),    # rep 1, chunked prefill past pad rows
+    (1, 5, 77, 12, 4, 24, None, None),        # cross-attention, d off the tile
+])
+def test_gqa_kernel_matches_reference(gen, dtype, atol, int8, B, Lq, Lk, Hq, Hkv, d, offset,
+                                      start):
+    """K8 against its plain version on every row that sees a key (a row that
+    sees none is 0 on the card: left-pad queries, never read)."""
+    q, k, v, ks, vs = _gqa_inputs(gen, B, Lq, Lk, Hq, Hkv, d, dtype, int8)
+    kv_start = None if start is None else torch.tensor(start, device="cuda")
+    kernels.reset_launch_counts()
+    out = kernels.gqa_attention(q, k, v, offset, kv_start, ks, vs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["K8"] == 1 and out.dtype == dtype
+    ref = reference.gqa_attention_reference(q, k, v, offset, kv_start, ks, vs)
+    seen = torch.ones((B, Lq), dtype=torch.bool, device="cuda")
+    if offset is not None and kv_start is not None:
+        seen = (offset + torch.arange(Lq, device="cuda"))[None] >= kv_start[:, None]
+    assert torch.allclose(out[seen].float(), ref[seen].float(), atol=atol, rtol=0)
+    assert (out[~seen] == 0).all()
+
+
+def test_gqa_kernel_strided_cache_and_rejects(gen):
+    """The kernel reads a layer of a (layers, B, S, Hkv, d) cache in place,
+    and refuses what it does not take."""
+    cache = torch.randn((3, 2, 96, 2, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((2, 3, 8, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    out = kernels.gqa_attention(q, cache[1], cache[2], 50)
+    ref = reference.gqa_attention_reference(q, cache[1], cache[2], 50)
+    assert torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=0)
+    with pytest.raises(TypeError):
+        kernels.gqa_attention(q, cache[1].float(), cache[2].float(), 50)
+    with pytest.raises(ValueError):
+        kernels.gqa_attention(q[:, :, :7], cache[1], cache[2], 50)
