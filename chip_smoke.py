@@ -154,15 +154,20 @@ Phases, each printing one JSON line of its own numbers:
              pos 5,120 and 12,799 in bf16 and int8 (K8_DECODE_TOL, relative;
              two more with the query on the key at pos; each shows that the
              check would see the last key or a key split dropped) and the
-             5,120-token prefill (plain on K8_PLAIN_GROUP KV-head group,
-             ATTN_TOL), SDPA (enable_gqa) beside it;
+             5,120-token prefill in bf16 (wgmma) and int8 (mma.sync; plain on
+             K8_PLAIN_GROUP KV-head group, ATTN_TOL); K8's and SDPA's
+             (enable_gqa) device time (torch.profiler, the L2 read over
+             before each call; a profile that lost a kernel, or a time under
+             the bound, fails), the event time of calls back to back (host
+             included) and the wrapper's host us a call;
              then generate_world_tokens, the CLI's path: DV8x16x16 encodes a
              seeded 33-frame 640x1024 clip to the (1, 5, 40, 64) grid, 5,120
              prefix tokens prefill, AR_DECODE_TOKENS = 128 decode (top-p 0.8),
              with a bf16 and with an int8 cache: prefill s, s per decode token,
              peak GiB, K8 = 16 x 128 launches each; one decode step traced
-             (torch.profiler): its kernels, the device's busy share of an
-             untraced step and K8's share; the DV decode to 33 frames; and
+             (torch.profiler): its kernels (16 of K8's, one a layer), the
+             device's busy share of an untraced step and K8's share; the DV
+             decode to 33 frames; and
              ar_tiny (fp32) greedy on the card and on the CPU, tokens equal
  28 dd       the seeded 7B diffusion decoder (48 input channels, bf16, gates
              randomized) on ar_world's grid: K1 and K2 at its (2, 20,480, 32,
@@ -399,6 +404,18 @@ def randomize_gates(net, gen) -> None:
     gates(net, gen)
 
 
+def device_ms(fn, calls: int = 20):
+    from gen3c_tpu_torch.scripts.card import device_ms as dev
+
+    return dev(fn, calls)
+
+
+def host_us(fn, calls: int = 20) -> float:
+    from gen3c_tpu_torch.scripts.card import host_us as host
+
+    return host(fn, calls)
+
+
 def cuda_times(fn, reps: int = 3, warmup: int = 1, calls: int = 1) -> list:
     """Milliseconds a call of fn() takes on the current stream (CUDA events)
     in each of reps runs of `calls` calls back to back, after warmup calls.
@@ -443,7 +460,7 @@ def wgmma_entries(kind: str, d: int, band: bool, lse: bool = False) -> dict:
     b = f"Lb{int(band)}E"
     if kind == "fwd":
         want = {f"attn_fwd_wgmma<{dp},{int(band)},{int(lse)}>":
-                (f"attn_fwd_wgmmaILi{dp}E{b}Lb{int(lse)}EE", smem["fwd"])}
+                (f"attn_fwd_wgmmaILi{dp}E{b}Lb{int(lse)}ELb0EE", smem["fwd"])}
     else:
         want = {f"attn_bwd_dkdv_wgmma<{dp},{int(band)}>": (f"attn_bwd_dkdv_wgmmaILi{dp}E{b}E",
                                                           smem["dkdv"]),
@@ -3649,14 +3666,15 @@ AR_PREFIX = 5120  # 2 of the grid's 5 latent frames of 40 x 64 tokens
 # exact in both). On an H100: 0.027-0.042 max (one bf16 step at the largest
 # outputs) and 0.004 mean over the four random cases, 0.042 / 0.004 (bf16)
 # and 0.074 / 0.009 (int8) with the query on the last key. A reference with
-# its first split dropped reads 0.12 mean on the random cases, one with its
-# last key dropped 1.0 on the aligned ones: each case shows that its drop
-# would fail these limits (``_k8_drops``)
+# its first split dropped reads 0.17-0.27 mean on the random cases, one with
+# its last key dropped 1.0 on the aligned ones: each case shows that its
+# drop would fail these limits (``_k8_drops``)
 K8_DECODE_TOL = {"max": 0.15, "mean": 0.03}
 # the aligned decode case's queries: K8_ALIGN x their KV head's key at pos,
 # a logit of about 0.8 x 128 / sqrt(128) = 9, half the softmax's weight
 K8_ALIGN = 0.8
 DECODE_TRACE_STEPS = 16  # untraced decode steps timed beside the traced one
+DECODE_TRACE_TRIES = 5  # traced steps at most, until two in a row agree
 K8_PLAIN_GROUP = 1  # K8's prefill held to its plain version on this many KV-head groups
 AR_TINY_NEW = 192  # ar_tiny's generated tokens (the grid's last 3 of 4 latent frames)
 # the diffusion decoder: one reflect-padded 8-latent-frame chunk at 80 x 128
@@ -3666,15 +3684,17 @@ DD_STEPS = 2  # of its 15 EDM-Euler steps (a 2-step schedule: every step the sam
 def _k8_drops(q, k, v, pos: int, ks, vs, ref: torch.Tensor) -> dict:
     """The decode check's reach: the plain version with the last visible key
     dropped (causal offset pos - 1) and with K8's first key split dropped
-    (kv_valid_start at the split's end, ``cuda.gqa_plan``), each held to the
-    plain reference as K8 is; ``seen``: it would fail K8_DECODE_TOL."""
+    (kv_valid_start at the split's end: ``cuda.gqa_plan`` over the cache's
+    capacity, ``cuda.gqa_split_range``), each held to the plain reference as
+    K8 is; ``seen``: it would fail K8_DECODE_TOL."""
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.kernels import cuda
 
     B, _, Hq, _ = q.shape
     vis = pos + 1
-    _, splits = cuda.gqa_plan(B, 1, Hq, k.shape[2], vis, cuda._sm_count(q.device.index or 0))
-    per = -(-vis // splits)
+    splits = cuda.gqa_plan(B, 1, Hq, k.shape[2], k.shape[1], cuda._sm_count(q.device.index or 0),
+                           ks is not None)
+    per = cuda.gqa_split_range(0, splits, 0, vis)[1]
     start = torch.full((B,), per, dtype=torch.long, device=q.device)
     out = {}
     for what, args in (("last key", (pos - 1, None)), ("first split", (pos, start))):
@@ -3693,14 +3713,23 @@ def _k8_case(gen, name: str, pos: int, int8: bool, prefill: bool = False,
     aligned: each query head is K8_ALIGN x its KV head's key at pos, so that
     the last key carries half the output. Held to its plain version (the
     prefill on K8_PLAIN_GROUP KV-head groups to ATTN_TOL, decode to
-    K8_DECODE_TOL with ``_k8_drops`` showing its reach); kernel, plain and
-    SDPA (enable_gqa, over the visible keys; int8: on the dequantized bf16
-    K/V) timed; the bound over the visible keys only."""
+    K8_DECODE_TOL with ``_k8_drops`` showing its reach). Timed: the kernel's
+    and SDPA's (enable_gqa, over the visible keys; int8: on the dequantized
+    bf16 K/V) device time the same way (``device_ms``: torch.profiler's
+    kernel durations, the L2 read over before each call; a time under the
+    bound fails the case), beside it the CUDA-event time of calls back to
+    back, which includes the host's time between launches where it exceeds
+    the kernel's, and the wrapper's host microseconds a call; the plain
+    version by CUDA events. The bound over the visible keys only. ``s``:
+    the case's seconds, ``device_timing_s`` those of its device_ms and
+    host_us calls."""
     import torch.nn.functional as F
 
     from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import cuda
     from gen3c_tpu_torch.models.dit import quantize_span_delta
 
+    t_case = time.perf_counter()
     B, S, Hkv, D = AR_4B_CACHE
     Hq, rep = 32, 32 // Hkv
     Lq = AR_PREFIX if prefill else 1
@@ -3737,8 +3766,18 @@ def _k8_case(gen, name: str, pos: int, int8: bool, prefill: bool = False,
                   or res["rel_mean_err"] > K8_DECODE_TOL["mean"])
     del out, ref, err
     calls = 1 if prefill else 20
-    res["ms"] = cuda_ms(lambda: kernels.gqa_attention(q, k, v, pos, None, ks, vs), reps=3,
-                        calls=calls)
+
+    def k8():
+        return kernels.gqa_attention(q, k, v, pos, None, ks, vs)
+
+    res["route"] = cuda.gqa_route(q, k, v, int8)
+    t_timing = time.perf_counter()
+    dev = device_ms(k8, calls=3 if prefill else 20)
+    res["host_and_device_ms"] = cuda_ms(k8, reps=3, calls=calls)
+    res["ms"], res["kernels_a_call"], res["kernel_names"] = dev["ms"], dev["kernels"], dev["names"]
+    res["profile_tries"] = dev["tries"]
+    res["host_us"] = host_us(k8, calls=3 if prefill else 20)
+    timing_s = time.perf_counter() - t_timing
     res["plain_ms"] = cuda_ms(lambda: kernels.gqa_attention_reference(*plain_args), reps=1,
                               calls=calls)
     kd, vd = k[:, :vis], v[:, :vis]
@@ -3746,17 +3785,28 @@ def _k8_case(gen, name: str, pos: int, int8: bool, prefill: bool = False,
         kd = (kd.float() * ks[:, :vis]).to(torch.bfloat16)
         vd = (vd.float() * vs[:, :vis]).to(torch.bfloat16)
     qt, kt, vt = q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)
-    res["library_ms"] = library_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=prefill, enable_gqa=True), calls=calls)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=prefill, enable_gqa=True)
+
+    t_timing = time.perf_counter()
+    lib_dev = device_ms(sdpa, calls=3 if prefill else 20)
+    timing_s += time.perf_counter() - t_timing
+    res["library_host_and_device_ms"] = library_ms(sdpa, calls=calls)
+    res["library_ms"], res["library_kernels_a_call"] = lib_dev["ms"], lib_dev["kernels"]
+    res["library_kernel_names"], res["library_profile_tries"] = lib_dev["names"], lib_dev["tries"]
     res["library_call"] = "F.scaled_dot_product_attention(enable_gqa=True" + (
         ", is_causal=True)" if prefill else ")") + (" on dequantized bf16 K/V" if int8 else "")
     pairs = Lq * (Lq + 1) // 2 if prefill else vis
     kv_bytes = 2 * vis * Hkv * D * k.element_size() + (2 * vis * Hkv * 4 if int8 else 0)
     res.update(bound(kv_bytes + 2 * tensor_bytes(q), 4.0 * Hq * D * pairs, BF16_PEAK_TFLOPS))
     res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["s"], res["device_timing_s"] = time.perf_counter() - t_case, timing_s
     emit("kernel", **res)
     if not res["finite"] or failed:
         raise AssertionError(f"{name}: kernel disagrees with its plain version: {res}")
+    if min(res["ms"], res["library_ms"]) < res["bound_ms"]:
+        raise AssertionError(f"{name}: a device time under the bound is no reading: {res}")
     if not prefill and not res["drops"]["last key" if aligned else "first split"]["seen"]:
         raise AssertionError(f"{name}: the check cannot see a dropped key range: {res}")
     del q, k, v, ks, vs, kd, vd
@@ -3771,7 +3821,8 @@ def _decode_step_trace(model, prefix: torch.Tensor) -> dict:
     device's busy time (the union of its kernels and copies), beside the
     seconds of DECODE_TRACE_STEPS untraced steps (host and device, from
     synchronize to synchronize): the device's busy share of a step and K8's
-    kernels' share. None where the profiler saw no device."""
+    kernels' share. A profile now and then loses kernels, so steps are
+    traced until two in a row hold as many (at most DECODE_TRACE_TRIES)."""
     from torch.profiler import ProfilerActivity, profile
 
     from gen3c_tpu_torch.models.ar_transformer import _sample, init_kv_cache, torch_gumbel
@@ -3792,11 +3843,19 @@ def _decode_step_trace(model, prefix: torch.Tensor) -> dict:
         tok = step(2 + i)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / DECODE_TRACE_STEPS
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tok = step(2 + DECODE_TRACE_STEPS)
-        torch.cuda.synchronize()
-    dev = sorted(((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA))
+    traced = []
+    for i in range(DECODE_TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tok = step(2 + DECODE_TRACE_STEPS + i)
+            torch.cuda.synchronize()
+        dev = sorted(((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA))
+        traced.append(len(dev))
+        if dev and traced[-2:] == [len(dev)] * 2:
+            break
+    else:
+        raise AssertionError(f"ar_world: no two traced decode steps agree on their kernels "
+                             f"({traced}): the profiles lost kernels")
     busy_us, end = 0.0, float("-inf")
     for a, b, _ in dev:  # the union of the intervals
         busy_us += max(0.0, b - max(a, end))
@@ -3804,9 +3863,7 @@ def _decode_step_trace(model, prefix: torch.Tensor) -> dict:
     copies = sum(1 for *_, n in dev if n.lower().startswith(("memcpy", "memset")))
     gqa_us = sum(b - a for a, b, n in dev if "gqa" in n)
     del cache
-    if not dev:
-        return {"kernels": None}
-    return {"kernels": len(dev) - copies, "copies": copies,
+    return {"kernels": len(dev) - copies, "copies": copies, "traced": traced,
             "gqa": sum(1 for *_, n in dev if "gqa" in n), "position": int(prefix.shape[1]),
             "step_s": step_s, "untraced_steps": DECODE_TRACE_STEPS,
             "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / step_s,
@@ -3847,16 +3904,19 @@ def phase_ar_world() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     kern = {}
+    t0 = time.perf_counter()
     for name, pos, int8, prefill in (
             ("K8 decode bf16 pos 5,120", AR_PREFIX, False, False),
             ("K8 decode bf16 pos 12,799", AR_4B_CACHE[1] - 1, False, False),
             ("K8 decode int8 pos 5,120", AR_PREFIX, True, False),
             ("K8 decode int8 pos 12,799", AR_4B_CACHE[1] - 1, True, False),
-            ("K8 prefill bf16 5,120", 0, False, True)):
+            ("K8 prefill bf16 5,120", 0, False, True),
+            ("K8 prefill int8 5,120", 0, True, True)):
         kern[name] = _k8_case(gen, name, pos, int8, prefill)
     for name, pos, int8 in (("K8 decode bf16 pos 5,120 aligned", AR_PREFIX, False),
                             ("K8 decode int8 pos 12,799 aligned", AR_4B_CACHE[1] - 1, True)):
         kern[name] = _k8_case(gen, name, pos, int8, aligned=True)
+    k8_cases_s = time.perf_counter() - t0
     preset = ar.AR_PRESETS["ar_4b"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3901,9 +3961,12 @@ def phase_ar_world() -> dict:
            "prefix_tokens": int(prefix.shape[1]), "decode_tokens": AR_DECODE_TOKENS,
            "build_s": build_s, "runs": runs, "decode_step": step,
            "dv_decode": decode, "tiny_card_vs_cpu": tiny,
-           "kernel_cases": {k: {kk: r[kk] for kk in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                     "bound_by", "max_abs_err", "visible_keys")}
-                            for k, r in kern.items()}}
+           "kernel_cases": {k: {kk: r[kk] for kk in (
+               "ms", "host_and_device_ms", "host_us", "kernels_a_call", "route", "plain_ms",
+               "library_ms", "library_kernels_a_call", "library_host_and_device_ms", "bound_ms",
+               "bound_by", "max_abs_err", "visible_keys", "s", "device_timing_s")}
+               for k, r in kern.items()},
+           "k8_cases_s": k8_cases_s}
     emit("ar_world", **res)
     for kv, run in runs.items():
         if (run["grid"] != [1, 5, 40, 64] or run["grid_min"] < 0 or run["grid_max"] >= 64000
@@ -3911,6 +3974,13 @@ def phase_ar_world() -> dict:
             raise AssertionError(f"ar_world {kv}: {run}")
     if decode["shape"] != [1, 3, 33, 640, 1024] or not decode["finite"]:
         raise AssertionError(f"ar_world: DV decode {decode}")
+    if step["gqa"] != 16:
+        raise AssertionError(f"ar_world: K8 is not one launch a layer in a decode step: {step}")
+    routes = {n: c["route"] for n, c in kern.items()}
+    if (routes.pop("K8 prefill bf16 5,120") != "wgmma"
+            or routes.pop("K8 prefill int8 5,120") != "mma_sync"
+            or set(routes.values()) != {"decode"}):
+        raise AssertionError(f"ar_world: K8 took another body: {routes}")
     if not tiny["equal"] or tiny["card_k8_launches"] != 2 * AR_TINY_NEW:
         raise AssertionError(f"ar_world: ar_tiny card against CPU {tiny}")
     res["kernels"] = kern
@@ -4123,9 +4193,11 @@ def main(argv=None) -> int:
                      phase_launches={"ar_world bf16 cache": ar_res["runs"]["bf16"]["launches"]["K8"],
                                      "ar_world int8 cache": ar_res["runs"]["int8"]["launches"]["K8"],
                                      "ar_tiny card": ar_res["tiny_card_vs_cpu"]["card_k8_launches"]},
-                     cases=[{"name": n, **{k: c[k] for k in ("visible_keys", "ms", "plain_ms",
-                                                            "library_ms", "bound_ms", "bound_by",
-                                                            "max_abs_err", "plain_heads")}}
+                     cases=[{"name": n, **{k: c[k] for k in (
+                         "visible_keys", "ms", "host_and_device_ms", "host_us", "kernels_a_call",
+                         "route", "plain_ms", "library_ms", "library_kernels_a_call",
+                         "library_host_and_device_ms",
+                         "bound_ms", "bound_by", "max_abs_err", "plain_heads")}}
                             for n, c in k8.items()]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

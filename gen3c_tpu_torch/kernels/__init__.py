@@ -242,8 +242,9 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d), a KV cache read in place: key j is visible to query i iff
     kv_valid_start[b] <= j <= causal_offset + i (causal_offset None: every
     key); int8 k/v with fp32 k_scale/v_scale (B, Lk, Hkv, 1). See
-    ``gqa_attention_reference``. On a card the kernel reads only the keys
-    some query can see and never repeats heads; a row that sees no key (a
+    ``gqa_attention_reference``. On a card one launch (``cuda.gqa_route``'s
+    body: a decode's key splits merged inside it) reads only the keys some
+    query can see and never repeats heads; a row that sees no key (a
     left-pad query) gives 0 there, where the plain version averages every
     key: such rows are never read (their keys are masked in every layer)."""
     if not _on_cuda(q, "gqa_attention"):

@@ -6,15 +6,17 @@
 // for those inputs, the mma.sync bodies of attention.cu and attention_bwd.cu,
 // which stay for the rest. P2, K1's tile sweep, is this forward built at
 // other points of its shape (the forward's constants below):
-//   attn_fwd_wgmma<DP, kBand, kLse>  K1, K2, K1cp, K1ag (no band, no lse), K3
-//       and K1cp under the band (band), the training forward of K4 and
-//       K1ring's full-attention step (lse), K3lse and K1ring under the band
-//       (band and lse). The TPU kernels: gen3c_tpu/models/dit.py:445-471
-//       (splash), :472-510 (flash), :459-460 (the temporal band), :653-678
-//       (Ulysses) and the XLA ring fold (:529). Every entry instantiates this
-//       one body, so their bit-for-bit relations hold by construction: the
-//       output with lse is the output without it, and a band whose window
-//       covers every frame visits every tile, unmasked, in order: K1's bits.
+//   attn_fwd_wgmma<DP, kBand, kLse, kGqa>  K1, K2, K1cp, K1ag (no band, no
+//       lse), K3 and K1cp under the band (band), the training forward of K4
+//       and K1ring's full-attention step (lse), K3lse and K1ring under the
+//       band (band and lse), K8's bf16 prefill (kGqa: see GqaMask). The TPU
+//       kernels: gen3c_tpu/models/dit.py:445-471 (splash), :472-510 (flash),
+//       :459-460 (the temporal band), :653-678 (Ulysses), the XLA ring fold
+//       (:529) and gen3c_tpu/models/ar_transformer.py:252 (K8). Every entry
+//       instantiates this one body, so their bit-for-bit relations hold by
+//       construction: the output with lse is the output without it, and a
+//       band whose window covers every frame visits every tile, unmasked, in
+//       order: K1's bits.
 //   attn_bwd_dkdv_wgmma / attn_bwd_dq_wgmma <DP, kBand>  K4 and K4-band, the
 //       splash / flash VJPs (dit.py:464-470, :508), two kernels that each own
 //       their output rows: no atomics, deterministic bits, and the full-window
@@ -186,6 +188,20 @@ __device__ __forceinline__ bool in_ranges(int t, int b0, int e0, int b1, int e1)
   return (t >= b0 && t < e0) || (t >= b1 && t < e1);
 }
 
+// ------------------------------ K8's prefill mask ------------------------------
+
+// The forward's kGqa mode, K8's bf16 prefill (gqa_attention.cu): query head h
+// reads K/V head h / rep, and key j is visible to query i iff kv_start[b] <=
+// j and (offset < 0 or j <= offset + i). A kernel argument of its own, as the
+// band is, read only under kGqa.
+struct GqaMask {
+  const long long* kv_start;  // (B,) or null
+  int rep;
+  int offset;  // < 0: no causal mask
+};
+
+constexpr GqaMask kNoGqa = {nullptr, 1, -1};
+
 // ---------------------------------- forward -----------------------------------
 
 template <int DP>
@@ -199,10 +215,11 @@ struct FwdSmem {
   static constexpr int kBytes = 1024 + kQ + kFwdStages * kStage + kBars;
 };
 
-template <int DP, bool kBand, bool kLse>
+template <int DP, bool kBand, bool kLse, bool kGqa>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, const FwdParams p, const Band band) {
+                   const __grid_constant__ CUtensorMap tv, const FwdParams p, const Band band,
+                   const GqaMask gqa) {
   using S = FwdSmem<DP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
@@ -215,13 +232,24 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kFwdBlockM;
+  const int hk = kGqa ? h / gqa.rep : h;  // K's and V's head
+  // kGqa: the query tiles with the most keys (the last) first
+  const int q0 = (kGqa ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kFwdBlockM;
   const int q_off = kBand ? band.q_off : 0;
   const int k_off = kBand ? band.k_off : 0;
   int b0 = 0, e0 = (p.Lk + kFwdBlockN - 1) / kFwdBlockN, b1 = 0, e1 = 0;
   if constexpr (kBand) {
     band_key_tiles(band, p.Lk, q_off + q0, q_off + min(q0 + kFwdBlockM, p.Lq) - 1, kFwdBlockN,
                    b0, e0, b1, e1, k_off);
+  }
+  int lo = 0;  // kGqa: the CTA's keys are [lo, hi), the tiles [b0, e0)
+  if constexpr (kGqa) {
+    if (gqa.kv_start != nullptr) {
+      lo = static_cast<int>(min(max(gqa.kv_start[b], 0LL), static_cast<long long>(p.Lk)));
+    }
+    const int hi = gqa.offset < 0 ? p.Lk : min(p.Lk, gqa.offset + min(q0 + kFwdBlockM, p.Lq));
+    b0 = lo / kFwdBlockN;
+    e0 = hi > lo ? (hi + kFwdBlockN - 1) / kFwdBlockN : b0;
   }
   const int n_tiles = (e0 - b0) + (e1 - b1);
 
@@ -249,9 +277,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         const int n0 = nth_tile(it, b0, e0, b1) * kFwdBlockN;
         unsigned char* stage = sKV + s * S::kStage;
         mbar_arrive_expect_tx(&full[s], S::kStage);
-        load_rows<DP>(stage, S::kKvHalf, &tk, p.order_k, &full[s], h, n0, b);
-        load_rows<DP>(stage + S::kHalves * S::kKvHalf, S::kKvHalf, &tv, p.order_v, &full[s], h, n0,
-                      b);
+        load_rows<DP>(stage, S::kKvHalf, &tk, p.order_k, &full[s], hk, n0, b);
+        load_rows<DP>(stage + S::kHalves * S::kKvHalf, S::kKvHalf, &tv, p.order_v, &full[s], hk,
+                      n0, b);
       }
     }
   } else {  // consumers
@@ -278,6 +306,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       qf_hi = (q_off + wq_last) / band.hw;
       qf_row[0] = (q_off + wq0 + warp * 16 + g) / band.hw;
       qf_row[1] = (q_off + wq0 + warp * 16 + g + 8) / band.hw;
+    }
+    int whi0 = p.Lk;  // kGqa: this warpgroup's first row sees keys [lo, whi0)
+    if constexpr (kGqa) {
+      if (!active) {
+        we0 = wb0;
+      } else if (gqa.offset >= 0) {
+        const int whi = min(p.Lk, gqa.offset + min(wq0 + 64, p.Lq));
+        we0 = whi > lo ? (whi + kFwdBlockN - 1) / kFwdBlockN : wb0;
+        whi0 = min(p.Lk, gqa.offset + wq0 + 1);
+      }
     }
 
     const float scale_log2 = p.scale * kLog2e;
@@ -329,6 +367,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         if constexpr (kBand) {
           masked = !band_tile_visible(band, p.Lk, n0, kFwdBlockN, qf_lo, qf_hi, k_off);
         }
+        if constexpr (kGqa) masked = n0 < lo || n0 + kFwdBlockN > whi0;
         float mx[2] = {m_run[0], m_run[1]};
         if (!masked) {
 #pragma unroll
@@ -343,6 +382,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
             bool vis = col < p.Lk;
             if constexpr (kBand) {
               vis = vis && band_frames_visible(band, qf_row[(i >> 1) & 1], (k_off + col) / band.hw);
+            }
+            if constexpr (kGqa) {
+              vis = vis && col >= lo &&
+                    (gqa.offset < 0 ||
+                     col <= gqa.offset + wq0 + warp * 16 + g + 8 * ((i >> 1) & 1));
             }
             const float x = vis ? sc[i] * scale_log2 : -INFINITY;
             sc[i] = x;
@@ -951,15 +995,15 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int DP, bool kBand, bool kLse>
+template <int DP, bool kBand, bool kLse, bool kGqa = false>
 cudaError_t launch_fwd(const CUtensorMap* maps, const FwdParams& p, const Band& band, int B,
-                       cudaStream_t stream) {
-  auto kernel = attn_fwd_wgmma<DP, kBand, kLse>;
+                       cudaStream_t stream, const GqaMask& gqa = kNoGqa) {
+  auto kernel = attn_fwd_wgmma<DP, kBand, kLse, kGqa>;
   const int smem = FwdSmem<DP>::kBytes;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lq + kFwdBlockM - 1) / kFwdBlockM, p.H, B);
-  kernel<<<grid, kFwdThreads, smem, stream>>>(maps[0], maps[1], maps[2], p, band);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(maps[0], maps[1], maps[2], p, band, gqa);
   return cudaGetLastError();
 }
 
@@ -1086,6 +1130,43 @@ extern "C" int gen3c_attention_wgmma_fwd(const void* q, const void* k, const voi
 }
 
 #ifndef GEN3C_ATTN_FWD_ONLY
+// K8's bf16 prefill: the forward (no band, no lse) in its kGqa mode over q
+// (B, Lq, Hq, D) and k/v (B, Lk, Hkv, D) with their map words (3 x
+// kMapWords, box rows as the forward's); kv_start null or (B,) int64 on the
+// card; causal_offset < 0: no causal mask. out (B, Lq, Hq, D) contiguous.
+// Returns a cudaError_t (0 on success).
+extern "C" int gen3c_gqa_attention_wgmma(const void* q, const void* k, const void* v,
+                                         const long long* words, void* out,
+                                         const long long* kv_start, int B, int Lq, int Lk, int Hq,
+                                         int Hkv, int D, int causal_offset, void* stream) {
+  if (bad_shape(B, Lq, Lk, Hq, D) || Hkv <= 0 || Hq % Hkv != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const int rows[3] = {kFwdBlockM, kFwdBlockN, kFwdBlockN};
+  for (int i = 0; i < 3; ++i) {
+    cudaError_t err = make_map(&maps[i], bases[i], words + i * kMapWords, rows[i]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  FwdParams p;
+  p.o = static_cast<__nv_bfloat16*>(out);
+  p.lse = nullptr;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.H = Hq;
+  p.D = D;
+  p.scale = 1.f / sqrtf(static_cast<float>(D));
+  p.order_q = static_cast<int>(words[12]);
+  p.order_k = static_cast<int>(words[kMapWords + 12]);
+  p.order_v = static_cast<int>(words[2 * kMapWords + 12]);
+  const GqaMask gqa = {kv_start, Hq / Hkv, causal_offset};
+  const Band bd = make_band(nullptr, nullptr, 0, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 64) return static_cast<int>(launch_fwd<64, false, false, true>(maps, p, bd, B, s, gqa));
+  return static_cast<int>(launch_fwd<128, false, false, true>(maps, p, bd, B, s, gqa));
+}
+
 // Backward (K4; K4-band with a band): dq, dk, dv (contiguous, like q, k, v)
 // from q, k, v, out, dout (contiguous bf16), the forward's lse (B, H, Lq);
 // delta (B, H, Lq) fp32 scratch. words: 8 x kMapWords, the dK/dV kernel's

@@ -52,8 +52,10 @@ def library() -> ctypes.CDLL:
                                            + [ctypes.POINTER(ctypes.c_longlong), _P])
             lib.gen3c_ray_triangle_depth.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
             lib.gen3c_ray_triangle_prepare.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P]
-            lib.gen3c_gqa_attention.argtypes = ([_P] * 9 + [ctypes.POINTER(_L)] + [_I] * 13
-                                                + [_P])
+            lib.gen3c_gqa_attention.argtypes = [_P] * 7 + [ctypes.POINTER(_L), _I, _I, _P]
+            lib.gen3c_gqa_attention_wgmma.argtypes = ([_P, _P, _P, ctypes.POINTER(_L), _P, _P]
+                                                      + [_I] * 7 + [_P])
+            lib.gen3c_gqa_plan_words.argtypes = []
             words = ctypes.POINTER(ctypes.c_longlong)
             band_ptr = ctypes.POINTER(_I)
             _fwd_argtypes(lib)
@@ -65,11 +67,15 @@ def library() -> ctypes.CDLL:
                        lib.gen3c_attention_ring_fold, lib.gen3c_attention_merge,
                        lib.gen3c_mma_probe, lib.gen3c_attention_f32_smem,
                        lib.gen3c_ray_triangle_depth, lib.gen3c_ray_triangle_prepare,
-                       lib.gen3c_attention_wgmma_bwd, lib.gen3c_gqa_attention):
+                       lib.gen3c_attention_wgmma_bwd, lib.gen3c_gqa_attention,
+                       lib.gen3c_gqa_attention_wgmma, lib.gen3c_gqa_plan_words):
                 fn.restype = _I
             if _box_rows(lib) != (WGMMA_FWD_BOX_ROWS, WGMMA_BWD_BOX_ROWS):
                 raise RuntimeError(f"attention_wgmma.cu's box rows {_box_rows(lib)} differ "
                                    "from cuda.py's")
+            if lib.gen3c_gqa_plan_words() != GQA_PLAN_WORDS:
+                raise RuntimeError(f"gqa_attention.cu's plan has {lib.gen3c_gqa_plan_words()} "
+                                   f"words; cuda.py writes {GQA_PLAN_WORDS}")
             w8a8_rows = (_I * 2)()
             lib.gen3c_w8a8_box_rows(w8a8_rows)
             if tuple(w8a8_rows) != W8A8_BOX_ROWS:
@@ -970,24 +976,54 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------ K8: GQA over a KV cache ------------------------------
 
-GQA_ROWS_PER_WARP = (1, 8)  # decode (Lq * rep <= GQA_DECODE_ROWS), else prefill
-GQA_DECODE_ROWS = 16
-GQA_KEYS_PER_SPLIT = 64  # the fewest keys a decode split takes
-GQA_CTAS_PER_SM = 4  # decode splits until the grid holds this many CTAs a SM
+GQA_DECODE_ROWS = 16  # rows (Lq * rep) of gqa_attention.cu's decode body: one m16 tile
+GQA_TILE_KEYS = 64  # keys a stage of gqa_attention.cu's mma bodies
+# decode CTAs an SM takes at once, by K/V type: bf16 one (fewer splits to
+# merge), int8 codes two (one CTA's stage conversion overlaps the other's
+# loads); each SM has room for two rings
+GQA_DECODE_CTAS_PER_SM = {False: 1, True: 2}
+GQA_PLAN_WORDS = 28  # gqa_attention.cu's kPlanWords
+GQA_CACHED_LAUNCHES = 256  # launches kept (shape, layout and stream); then the cache restarts
 
 
-def gqa_plan(B: int, Lq: int, Hq: int, Hkv: int, kv_end: int, sms: int) -> Tuple[int, int]:
-    """(rows per warp, key splits) of a K8 launch. Decode (few rows) takes one
-    row a warp and splits the visible keys until the grid has about
-    GQA_CTAS_PER_SM CTAs a SM, each split at least GQA_KEYS_PER_SPLIT keys;
-    a longer query takes 8 rows a warp and one split."""
-    rows = Lq * (Hq // Hkv)
-    rw = GQA_ROWS_PER_WARP[0] if rows <= GQA_DECODE_ROWS else GQA_ROWS_PER_WARP[1]
-    row_ctas = B * Hkv * -(-rows // (4 * rw))  # gqa_attention.cu: four warps a CTA
-    target = GQA_CTAS_PER_SM * sms
-    if row_ctas >= target or kv_end <= GQA_KEYS_PER_SPLIT:
-        return rw, 1
-    return rw, max(1, min(-(-target // row_ctas), -(-kv_end // GQA_KEYS_PER_SPLIT)))
+def gqa_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, int8: bool) -> str:
+    """The body a K8 call runs: "fp32" for fp32 queries (gqa_f32, the CUDA
+    cores); for bf16 queries "decode" when Lq * rep <= GQA_DECODE_ROWS
+    (gqa_mma's decode: one launch, its key splits merged in it), "wgmma" for
+    a longer bf16 query over bf16 K/V that a TMA map describes (the
+    attention_wgmma.cu forward in its kGqa mode), else "mma_sync" (gqa_mma's
+    prefill: int8 codes, or rows no map describes)."""
+    if q.dtype == torch.float32:
+        return "fp32"
+    if q.shape[1] * (q.shape[2] // k.shape[2]) <= GQA_DECODE_ROWS:
+        return "decode"
+    if not int8 and all(tma_describable(t) for t in (q, k, v)):
+        return "wgmma"
+    return "mma_sync"
+
+
+def gqa_plan(B: int, Lq: int, Hq: int, Hkv: int, Lk: int, sms: int, int8: bool) -> int:
+    """Key splits of a K8 launch with bf16 queries over a cache of capacity
+    Lk (int8: codes): a decode (Lq * rep <= GQA_DECODE_ROWS) takes as many
+    as the ``sms`` SMs take at once, GQA_DECODE_CTAS_PER_SM[int8] each (one
+    more CTA would wait for a second wave) and at most one a GQA_TILE_KEYS
+    of the capacity; a prefill takes 1. Never the position, so a decode's
+    grid is the same at every step; ``gqa_split_range`` cuts the visible
+    keys."""
+    if Lq * (Hq // Hkv) > GQA_DECODE_ROWS:
+        return 1
+    want = GQA_DECODE_CTAS_PER_SM[int8] * sms // (B * Hkv)
+    return max(1, min(want, -(-Lk // GQA_TILE_KEYS)))
+
+
+def gqa_split_range(split: int, splits: int, lo: int, hi: int) -> Tuple[int, int]:
+    """The keys [begin, end) that split ``split`` of ``splits`` takes of the
+    visible keys [lo, hi) (gqa_attention.cu's arithmetic): runs of
+    ceil((hi - lo) / splits) in order, the last ones short or empty."""
+    n = max(hi - lo, 0)
+    per = -(-n // splits)
+    begin = lo + min(split * per, n)
+    return begin, min(begin + per, hi)
 
 
 @functools.lru_cache(maxsize=None)
@@ -995,16 +1031,22 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal_offset: Optional[int] = None,
-                  kv_valid_start: Optional[torch.Tensor] = None,
-                  k_scale: Optional[torch.Tensor] = None,
-                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """gen3c_gqa_attention (K8): q (B, Lq, Hq, d) bf16 or fp32 over k/v (B,
-    Lk, Hkv, d) of q's dtype, or int8 codes with fp32 k_scale/v_scale (B,
-    Lk, Hkv, 1); read in place (any batch, sequence and head strides, unit
-    stride along d) up to the last key a query can see. Returns (B, Lq, Hq,
-    d) in q's dtype."""
+@dataclass
+class _GqaLaunch:
+    """What a K8 call of one shape, layout and stream needs beyond its
+    pointers: its body, the C entry's words (the plan, or the tensor-map
+    words of the wgmma route), and the decode's scratch, kept alive here."""
+    route: str
+    words: ctypes.Array
+    scratch: Tuple[torch.Tensor, ...]
+    start_int64: bool  # kv_valid_start may be passed as it is
+
+
+_gqa_launches: dict = {}
+
+
+def _gqa_prepare(q, k, v, k_scale, v_scale, kv_valid_start) -> _GqaLaunch:
+    """Check a K8 call and build its launch (once a key of ``gqa_attention``)."""
     if not (q.is_cuda and all(t.device == q.device for t in (k, v))):
         raise ValueError("gqa kernel: q, k, v must be on one CUDA device")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -1024,44 +1066,90 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != D or Hq % Hkv or not 0 < D <= 128 or Lk == 0:
         raise ValueError(f"gqa kernel: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree "
                          "(Hq % Hkv == 0, d <= 128)")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     scale_strides = [0] * 6
     if int8:
         for t in (k_scale, v_scale):
             if t.shape != (B, Lk, Hkv, 1) or t.dtype != torch.float32 or t.device != q.device:
                 raise ValueError(f"gqa kernel: scales must be fp32 {(B, Lk, Hkv, 1)} on the "
                                  f"card, got {tuple(t.shape)} {t.dtype}")
-        scale_strides = [k_scale.stride(0), k_scale.stride(1), k_scale.stride(2),
-                         v_scale.stride(0), v_scale.stride(1), v_scale.stride(2)]
-    start = None
+        scale_strides = [*k_scale.stride()[:3], *v_scale.stride()[:3]]
+    start_int64 = True
     if kv_valid_start is not None:
         if kv_valid_start.shape != (B,) or kv_valid_start.device != q.device:
             raise ValueError(f"gqa kernel: kv_valid_start must be ({B},) on the card")
-        start = kv_valid_start.to(torch.int32).contiguous()
+        start_int64 = kv_valid_start.dtype == torch.int64 and kv_valid_start.stride(0) == 1
+    route = gqa_route(q, k, v, int8)
+    if route == "wgmma":
+        return _GqaLaunch(route, _map_words(zip((q, k, v), WGMMA_FWD_BOX_ROWS)), (), start_int64)
+    splits = 1 if route == "fp32" else gqa_plan(B, Lq, Hq, Hkv, Lk,
+                                                 _sm_count(q.device.index or 0), int8)
+    scratch = ()
+    if splits > 1:  # the splits' (o, lse), o in rows of gqa_attention.cu's DP
+        rows, dp = Lq * (Hq // Hkv), 32 if D <= 32 else (64 if D <= 64 else 128)
+        scratch = (torch.empty(B * Hkv * splits * rows * dp, dtype=torch.float32, device=q.device),
+                   torch.empty(B * Hkv * splits * rows, dtype=torch.float32, device=q.device),
+                   torch.zeros(B * Hkv, dtype=torch.int32, device=q.device))
+    size = k.element_size()
+    vec = (D * size) % 16 == 0 and (k.data_ptr() | v.data_ptr()) % 16 == 0 and all(
+        (t.stride(i) * size) % 16 == 0 for t in (k, v) for i in range(3))
+    words = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *scale_strides,
+             B, Lq, Lk, Hq, Hkv, D, splits, int(q.dtype == torch.bfloat16), int(int8), int(vec),
+             *(t.data_ptr() for t in scratch), *([0] * (3 - len(scratch)))]
+    return _GqaLaunch(route, (ctypes.c_longlong * GQA_PLAN_WORDS)(*words), scratch, start_int64)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal_offset: Optional[int] = None,
+                  kv_valid_start: Optional[torch.Tensor] = None,
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """gen3c_gqa_attention (K8): q (B, Lq, Hq, d) bf16 or fp32 over k/v (B,
+    Lk, Hkv, d) of q's dtype, or int8 codes with fp32 k_scale/v_scale (B,
+    Lk, Hkv, 1); read in place (any batch, sequence and head strides, unit
+    stride along d) up to the last key a query can see, by ``gqa_route``'s
+    body. Returns (B, Lq, Hq, d) in q's dtype.
+
+    The checks, the plan, the words and a decode's scratch (its split
+    partials and tickets) are built once for each shape, layout, alignment
+    and stream, and a call then costs a dict lookup and the launch. Each
+    stream has its own scratch, so calls on concurrent streams never share
+    it; calls on one stream run in order."""
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        return gqa_attention(*(t.contiguous() for t in (q, k, v)), causal_offset,
+                             kv_valid_start, k_scale, v_scale)
+    stream = _stream(q)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
+           v.shape, v.stride(), v.dtype, v.device, qp % 16 == 0, (kp | vp) % 16 == 0, stream,
+           None if k_scale is None else (k_scale.shape, k_scale.stride(), k_scale.dtype,
+                                         k_scale.device),
+           None if v_scale is None else (v_scale.shape, v_scale.stride(), v_scale.dtype,
+                                         v_scale.device),
+           None if kv_valid_start is None else (kv_valid_start.shape, kv_valid_start.stride(),
+                                                kv_valid_start.dtype, kv_valid_start.device))
+    launch = _gqa_launches.get(key)
+    if launch is None:
+        launch = _gqa_prepare(q, k, v, k_scale, v_scale, kv_valid_start)
+        if len(_gqa_launches) >= GQA_CACHED_LAUNCHES:
+            _gqa_launches.clear()
+        _gqa_launches[key] = launch
     causal = -1 if causal_offset is None else int(causal_offset)
     if causal_offset is not None and causal < 0:
         raise ValueError(f"gqa kernel: causal_offset must be >= 0, got {causal_offset}")
-    kv_end = Lk if causal < 0 else min(Lk, causal + Lq)
-    rw, splits = gqa_plan(B, Lq, Hq, Hkv, kv_end, _sm_count(q.device.index or 0))
+    B, Lq, Hq, D = q.shape
+    Lk = k.shape[1]
+    start = kv_valid_start
+    if start is not None and not launch.start_int64:
+        start = start.to(torch.int64).contiguous()
+    sp = None if start is None else start.data_ptr()
     out = torch.empty((B, Lq, Hq, D), dtype=q.dtype, device=q.device)
-    part_o = part_lse = None
-    if splits > 1:
-        part_o = torch.empty((splits, B, Lq, Hq, D), dtype=torch.float32, device=q.device)
-        part_lse = torch.empty((splits, B, Lq, Hq), dtype=torch.float32, device=q.device)
-    size = k.element_size()
-    vec = (D * size) % 16 == 0 and all(
-        t.data_ptr() % 16 == 0 and all((t.stride(i) * size) % 16 == 0 for i in range(3))
-        for t in (k, v))
-    strides = (ctypes.c_longlong * 15)(q.stride(0), q.stride(1), q.stride(2),
-                                       k.stride(0), k.stride(1), k.stride(2),
-                                       v.stride(0), v.stride(1), v.stride(2), *scale_strides)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    _check(library().gen3c_gqa_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(start),
-        out.data_ptr(), ptr(part_o), ptr(part_lse), strides, B, Lq, Lk, Hq, Hkv, D, causal,
-        kv_end, splits, int(q.dtype == torch.bfloat16), int(int8), rw, int(vec), _stream(q)),
-        "gqa_attention")
+    if launch.route == "wgmma":
+        rc = library().gen3c_gqa_attention_wgmma(qp, kp, vp, launch.words, out.data_ptr(), sp, B,
+                                                 Lq, Lk, Hq, k.shape[2], D, causal, stream)
+    else:
+        rc = library().gen3c_gqa_attention(
+            qp, kp, vp, None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(), sp, out.data_ptr(), launch.words,
+            causal, Lk if causal < 0 else min(Lk, causal + Lq), stream)
+    _check(rc, "gqa_attention")
     return out

@@ -85,10 +85,9 @@ def _ptxas_counts(log: str) -> dict:
     return out
 
 
-def compare_ptx(old: str, new: str) -> bool:
-    """Print the per-entry comparison; True when every entry that both
-    versions have keeps its registers and spills (entries one version adds
-    are listed, with null counts on the other side)."""
+def compile_ptx(old: str, new: str) -> tuple:
+    """Both sources compiled with kernels/build.py's flags: ({"old", "new":
+    ``_ptx_entries``}, {"old", "new": ``_ptxas_counts``})."""
     from gen3c_tpu_torch.kernels.build import NVCC_FLAGS, find_nvcc
 
     flags = [f for f in NVCC_FLAGS if f != "--ptxas-options=-v"]
@@ -103,6 +102,14 @@ def compare_ptx(old: str, new: str) -> bool:
                                  check=True, capture_output=True, text=True)
             ptx[tag] = _ptx_entries(out.read_text())
             counts[tag] = _ptxas_counts(log.stdout + log.stderr)
+    return ptx, counts
+
+
+def compare_ptx(old: str, new: str) -> bool:
+    """Print the per-entry comparison; True when every entry that both
+    versions have keeps its registers and spills (entries one version adds
+    are listed, with null counts on the other side)."""
+    ptx, counts = compile_ptx(old, new)
     same_counts, n_same_ptx = True, 0
     for name in sorted(set(ptx["old"]) | set(ptx["new"])):
         a, b = counts["old"].get(name), counts["new"].get(name)

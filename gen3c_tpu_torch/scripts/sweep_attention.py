@@ -97,7 +97,7 @@ def qkv(shape_q, shape_kv, layout: str, gen: torch.Generator):
 def build_points(pts: List[Point]) -> dict:
     """Build every point's forward at once (K1's: the kernel library), and
     read each one's ptxas line for the entry P2 runs (attn_fwd_wgmma<128,
-    false, false>): {point: {"registers", "stack", "spill_stores",
+    false, false, false>): {point: {"registers", "stack", "spill_stores",
     "spill_loads", "build_s"}}."""
     from gen3c_tpu_torch.kernels import build
     from gen3c_tpu_torch.kernels.cuda import fwd_point_defines
@@ -113,7 +113,7 @@ def build_points(pts: List[Point]) -> dict:
     for point, info in zip(pts, builds):
         counts = _ptxas_counts(info["log"])
         regs, stack, st, ld = next(v for k, v in counts.items()
-                                   if "attn_fwd_wgmmaILi128ELb0ELb0E" in k)
+                                   if "attn_fwd_wgmmaILi128ELb0ELb0ELb0EE" in k)
         out[point] = {"registers": regs, "stack": stack, "spill_stores": st, "spill_loads": ld,
                       "build_s": info["seconds"]}
     return out

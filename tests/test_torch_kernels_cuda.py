@@ -21,10 +21,13 @@ products) on MoGe's strided q, k, v and on rows off alignment, K1cp
 K1ring + K1merge over 4 KV shards with and without the band (rows left
 without a key by a shard: 0 and -inf, no NaN).
 Tolerances: bf16
-outputs of fp32 softmaxes (atol 2e-2), fp32 (atol 1e-4), atomic fp32 splat
+outputs of fp32 softmaxes (atol 2e-2; K8's decode rows also relative to mean
+|plain|, K8_DECODE_TOL), fp32 (atol 1e-4), atomic fp32 splat
 sums (1e-4 on pixels both call known, masks on >= 99.9% of pixels); int8
 codes, scales, int32 accumulators and the rescaled outputs exactly.
 """
+
+import math
 
 import pytest
 import torch
@@ -861,6 +864,24 @@ def test_offload_flags_are_no_ops_on_the_card(tmp_path, monkeypatch):
     assert (diff <= 1).mean() >= 0.999, (diff.max(), (diff > 1).mean())
 
 
+# K8's decode against its plain version, relative to mean |plain| (chip_smoke.py's
+# K8_DECODE_TOL): a decode row over thousands of random keys has a mean
+# |out| of about 0.02, as small as the absolute bf16 tolerance
+K8_DECODE_TOL = {"max": 0.15, "mean": 0.03}
+K8_ALIGNED_LOGIT = 9.0  # about half the softmax's weight on the key a query lies on
+
+
+def _rel_errs(out, ref):
+    """max and mean |out - ref|, each relative to mean |ref|."""
+    diff, scale = (out.float() - ref.float()).abs(), ref.float().abs().mean()
+    return (diff.max() / scale).item(), (diff.mean() / scale).item()
+
+
+def _within_decode_tol(out, ref) -> bool:
+    rmax, rmean = _rel_errs(out, ref)
+    return rmax <= K8_DECODE_TOL["max"] and rmean <= K8_DECODE_TOL["mean"]
+
+
 def _gqa_inputs(gen, B, Lq, Lk, Hq, Hkv, d, dtype, int8):
     q = torch.randn((B, Lq, Hq, d), generator=gen, device="cuda").to(dtype)
     if not int8:
@@ -883,6 +904,11 @@ def _gqa_inputs(gen, B, Lq, Lk, Hq, Hkv, d, dtype, int8):
     (1, 333, 333, 32, 8, 128, 0, None),       # prefill, ragged tiles
     (2, 70, 200, 8, 8, 64, 100, (5, 130)),    # rep 1, chunked prefill past pad rows
     (1, 5, 77, 12, 4, 24, None, None),        # cross-attention, d off the tile
+    (1, 1024, 1224, 32, 8, 128, 200, (37,)),  # prefill after a prefix, left padding
+    (1, 4, 12800, 32, 8, 128, 5000, None),    # decode of 16 rows (4 queries x rep 4)
+    (2, 2, 700, 8, 2, 64, 600, (3, 100)),     # decode of 8 rows, left padding
+    (1, 1, 1001, 32, 8, 128, 1000, None),     # Lk off the 64-key tile, the last position
+    (2, 1, 1001, 16, 4, 128, None, (0, 500)),  # cross-attention decode over a ragged Lk
 ])
 def test_gqa_kernel_matches_reference(gen, dtype, atol, int8, B, Lq, Lk, Hq, Hkv, d, offset,
                                       start):
@@ -899,7 +925,77 @@ def test_gqa_kernel_matches_reference(gen, dtype, atol, int8, B, Lq, Lk, Hq, Hkv
     if offset is not None and kv_start is not None:
         seen = (offset + torch.arange(Lq, device="cuda"))[None] >= kv_start[:, None]
     assert torch.allclose(out[seen].float(), ref[seen].float(), atol=atol, rtol=0)
+    if kcuda.gqa_route(q, k, v, int8) == "decode":
+        assert _within_decode_tol(out[seen], ref[seen]), _rel_errs(out[seen], ref[seen])
     assert (out[~seen] == 0).all()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_gqa_decode_repeats_its_bits_and_merges_empty_splits(gen, int8):
+    """The decode's one launch: two calls in a row give the same bits (the
+    last CTA of each (batch, KV head) resets its ticket), and at pos 10 of a
+    12,800-row cache, where some splits see no key, the merge gives the
+    plain version's values; a row whose keys all lie before its
+    kv_valid_start gives 0."""
+    q, k, v, ks, vs = _gqa_inputs(gen, 2, 1, 12800, 32, 8, 128, torch.bfloat16, int8)
+    splits = kcuda.gqa_plan(2, 1, 32, 8, 12800, kcuda._sm_count(0), int8)
+    ranges = [kcuda.gqa_split_range(s, splits, 0, 11) for s in range(splits)]
+    assert any(begin == end for begin, end in ranges)  # splits that see none of the 11 keys
+    start = torch.tensor([0, 11], device="cuda")
+    kernels.reset_launch_counts()
+    first = kernels.gqa_attention(q, k, v, 10, start, ks, vs)
+    second = kernels.gqa_attention(q, k, v, 10, start, ks, vs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["K8"] == 2
+    assert torch.equal(first, second)
+    ref = reference.gqa_attention_reference(q, k, v, 10, start, ks, vs)
+    assert torch.allclose(first[0].float(), ref[0].float(), atol=2e-2, rtol=0)
+    assert _within_decode_tol(first[0], ref[0]), _rel_errs(first[0], ref[0])
+    assert (first[1] == 0).all()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,offset,start", [
+    (1, 4, 12800, 32, 8, 5000, None),     # decode of 16 rows: row i's keys end at 5,000 + i
+    (2, 1, 1001, 16, 4, None, (0, 500)),  # cross-attention decode, left padding
+])
+def test_gqa_decode_sees_exactly_its_keys(gen, int8, B, Lq, Lk, Hq, Hkv, offset, start):
+    """Even query heads lie on their row's last visible key and odd ones on
+    the key just outside the row (the next key of a causal row, the key
+    before kv_valid_start, else the last key), each with a logit of
+    K8_ALIGNED_LOGIT, so that a decode that drops its last key or sees one
+    key more moves the output by about its own size. K8 is held to its
+    plain version relative to mean |plain|, and the plain version with each
+    of those mistakes fails that limit."""
+    d, rep = 128, Hq // Hkv
+    q, k, v, ks, vs = _gqa_inputs(gen, B, Lq, Lk, Hq, Hkv, d, torch.bfloat16, int8)
+    kv_start = None if start is None else torch.tensor(start, device="cuda")
+    for b in range(B):
+        for i in range(Lq):
+            last = Lk - 1 if offset is None else offset + i
+            outside = (last + 1 if offset is not None
+                       else start[b] - 1 if start is not None and start[b] > 0 else last)
+            for h in range(Hq):
+                j, g = last if h % 2 == 0 else outside, h // rep
+                if int8:
+                    ks[b, j, g] = vs[b, j, g] = 0.02  # the largest scale: the key stands out
+                key = k[b, j, g].float() * (ks[b, j, g] if int8 else 1.0)
+                q[b, i, h] = (K8_ALIGNED_LOGIT * math.sqrt(d) / key.square().sum()
+                              * key).to(q.dtype)
+    assert kcuda.gqa_route(q, k, v, int8) == "decode"
+    out = kernels.gqa_attention(q, k, v, offset, kv_start, ks, vs)
+    ref = reference.gqa_attention_reference(q, k, v, offset, kv_start, ks, vs)
+    assert _within_decode_tol(out, ref), _rel_errs(out, ref)
+    if offset is not None:
+        wrong = [reference.gqa_attention_reference(q, k, v, offset + step, kv_start, ks, vs)
+                 for step in (-1, 1)]
+    else:
+        cut = [None if t is None else t[:, :-1] for t in (k, v, ks, vs)]
+        wrong = [reference.gqa_attention_reference(q, cut[0], cut[1], None, kv_start, *cut[2:]),
+                 reference.gqa_attention_reference(q, k, v, None, (kv_start - 1).clamp(min=0),
+                                                   ks, vs)]
+    for w in wrong:
+        assert not _within_decode_tol(w, ref), _rel_errs(w, ref)
 
 
 def test_gqa_kernel_strided_cache_and_rejects(gen):

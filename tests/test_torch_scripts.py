@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from gen3c_tpu_torch.scripts import compare_attention_builds as cab
+from gen3c_tpu_torch.scripts import compare_gqa_builds as cgb
 from gen3c_tpu_torch.scripts import compare_render_builds as crb
 from gen3c_tpu_torch.scripts import compare_w8a8_builds as cwb
 from gen3c_tpu_torch.kernels import cuda as kcuda
@@ -133,6 +134,28 @@ def test_compare_render_builds_refuses_to_run_without_a_card():
         pytest.skip("checks the refusal without a card")
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         crb.main(["run", "cpu"])
+
+
+def test_compare_gqa_builds_usage_and_cases():
+    """ptx takes two sources and run one tag; anything else prints the usage.
+    The cases are chip_smoke.py's K8 shapes: decode at pos 5,120 and 12,799
+    (and at pos 0, the fixed cost) and the 5,120-token prefill, bf16 and
+    int8, on the 4B's cache layer."""
+    for argv in ([], ["ptx", "a.cu"], ["run"], ["run", "a", "b"], ["diff", "a"]):
+        with pytest.raises(SystemExit, match="side by side"):
+            cgb.main(argv)
+    assert cgb.CACHE == (1, 12800, 8, 128) and cgb.HQ == 32
+    assert {(lq, pos, int8) for _, lq, pos, int8 in cgb.CASES} == {
+        (1, 0, False), (1, 0, True), (1, 5120, False), (1, 12799, False), (1, 5120, True),
+        (1, 12799, True), (5120, 0, False), (5120, 0, True)}
+    assert callable(cgb.card().device_ms) and callable(cgb.card().host_us)
+
+
+def test_compare_gqa_builds_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal without a card")
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        cgb.main(["run", "cpu"])
 
 
 def test_time_fast_chunk_usage():
