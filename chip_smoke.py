@@ -113,11 +113,13 @@ Phases, each printing one JSON line of its own numbers:
              tokens, to hold the time) at the 7B's width, their launches
              and the int8 result against the bf16 one
  21 text2world  the text2world CLI's entry point with the seeded
-             cosmos_t2w_7b (16 input channels, gates randomized): 121
+             cosmos_t2w_7b (16 input channels, gates randomized; its first
+             SIBLING_BLOCKS = 4 of 28 blocks): 121
              frames, 704x1280, T2W_STEPS = 3 dpm2m steps, CFG B=2: the
              frames' shape and dtype, finite latents, s per step, launches
  22 interpolator  the world interpolator's entry point with the seeded
-             cosmos_v2w_7b on two seeded 704x1280 ends, INTERP_STEPS = 3
+             cosmos_v2w_7b (its first SIBLING_BLOCKS of 28 blocks) on two
+             seeded 704x1280 ends, INTERP_STEPS = 3
              res2ab steps: the final latent's first and last frames
              against their ends' latents and the decoded first frame
              against the VAE's decode of the first end (INTERP_*_TOL), s
@@ -127,15 +129,17 @@ Phases, each printing one JSON line of its own numbers:
              encode and decode s, peak GiB
  24 quality  approximation_quality_curve (the tiny fp32 DiT: the fp32
              attention body of attention_f32.cu, W8A8 rows on K7q + K7) on
-             the card, held row by row to the same curve on the CPU
-             (QUALITY_TOL); s of each, launches
+             the card, its band w2, W8A8 and fast rows held to the same
+             rows on the CPU (QUALITY_TOL, QUALITY_CPU_ROWS); s of each,
+             launches
  25 mv_world the multiview world model: K1 at the Sample-AV 7B's (2, 76,320,
              32, 128) (76,320 = 6 views x 8 x 30 x 53, not a multiple of 128;
              held to its plain version on MV_HEAD_SLICE heads) and K2 with the
              views folded into the batch, (12, 12,720) over (12, 512); the
              text2world_multiview CLI's entry point with the seeded
              cosmos_t2w_mv_7b (gates and repeat-frame Linear randomized, zero
-             T5 for the 6 x 512 context), MV_T2W_STEPS CFG steps, all 6 views
+             T5 for the 6 x 512 context; its first SIBLING_BLOCKS of 28
+             blocks, as for cosmos_v2w_mv_7b), MV_T2W_STEPS CFG steps, all 6 views
              decoded to 57 x 480 x 848 uint8, then cosmos_v2w_mv_7b for
              MV_V2W_STEPS step from a seeded 480x848 image (each view's first
              latent frame held to the image's latent): s per step, decode s per
@@ -175,6 +179,39 @@ Phases, each printing one JSON line of its own numbers:
              reflect-padded 8-latent-frame chunk at 80 x 128 (20,480 tokens),
              DD_STEPS = 2 CFG steps (B = 2), the CV8x8x8 decode to 57 frames,
              trimmed to 33: s per step, decode s, peak GiB, K1 = K2 = 28 x 2
+ 29 guardrail the guardrails (aux.guardrail) at their published widths with
+             seeded weights built on the card and a stand-in tokenizer (bytes
+             to ids, one chat template: the card's machine has no
+             transformers): K1vit at SigLIP's (16, 729, 16, 72) fp32 shape and
+             its pooling probe, K8 at each guard's decode (pos 256 over a
+             4,096-row cache) and prefill shapes beside SDPA and the bound;
+             the text runner (blocklist + LlamaGuard3: Llama-Guard-3-8B, 32 x
+             4096, 32 / 8 heads, llama3 rope scaling) twice on a ~200-byte
+             prompt (s, K8 = 32 x 16 launches a run, the same new ids), a
+             blocklisted prompt refused with no launch, the first new
+             token's logits of a 2-layer cut, card (bf16) against CPU (fp32)
+             within GUARD_CUT_TOL; Aegis (LlamaGuard-7b, rep 1, a seeded rank-16
+             LoRA merged on the card) the same way with 100 tokens; the video
+             runner (SigLIP so400m + the 7-class head biased to "Safe", then
+             RetinaFace ResNet-50) on a seeded 121-frame 704x1280 clip: s of
+             each, K1vit launches, the head biased to "Violence" refusing at
+             frame 0, SigLIP's features of 2 frames and RetinaFace's loc /
+             conf on 1 frame against the CPU (VISION_TOL), and a run at
+             threshold 0.5 whose boxes and pixelated frame are held to the
+             CPU's; Gen3cPipeline (tiny preset) with a
+             blocking text runner: generate gives None, the AR loop raises
+ 30 upsampler the VLM prompt upsampler: Pixtral-12B's vision tower (1024 x
+             24, bf16) and its text model's widths (5,120 x 40 layers, 8 KV
+             heads, vocab 131,072) at 40 heads of 128 (Pixtral's own 32 x
+             128 head width is not dim / heads, which no ARConfig holds):
+             K1vit at the tower's (1, 2,240, 16, 64), K8 at rep 5 (decode,
+             and the spliced prefill's bucket) beside SDPA and the bound;
+             upsample on a 704x1280 frame
+             (560x1024, 2,240 patches spliced at [IMG]) and on the text
+             alone, UPSAMPLER_NEW_TOKENS = 32 new tokens of the reference's
+             400: s, launches (K8 40 x 32, K1vit 24 a frame); 2-layer cuts
+             of the text model and of the tower (+ projector), card
+             against CPU
 Every bf16 attention case of phase 3 also prints its launches by body
 (kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
 registers, stack and spill bytes (ptxas -v, the build log) and dynamic
@@ -344,8 +381,14 @@ MOGE_SHIFT_CELL = 9.99 / 63 * (2 / 63) ** 2
 CKPT_BLOCKS = 2  # the checkpoint round trip's depth at 7B width
 
 
+_T_START = time.perf_counter()
+
+
 def emit(phase: str, **numbers) -> None:
-    print(json.dumps({"phase": phase, **numbers}), flush=True)
+    """One JSON line; "at_s": the process's seconds so far (the phases'
+    times are the differences)."""
+    print(json.dumps({"phase": phase, "at_s": round(time.perf_counter() - _T_START, 3),
+                      **numbers}), flush=True)
 
 
 def bound(nbytes: float, ops: float, peak_tops: float) -> dict:
@@ -438,6 +481,18 @@ def cuda_times(fn, reps: int = 3, warmup: int = 1, calls: int = 1) -> list:
 def cuda_ms(fn, reps: int = 3, warmup: int = 1, calls: int = 1) -> float:
     """Median milliseconds of fn() on the current stream (CUDA events)."""
     return float(np.median(cuda_times(fn, reps, warmup, calls)))
+
+
+def timed_call(fn):
+    """(fn()'s value, its milliseconds on the current stream by CUDA
+    events): a plain version's one timed run, taken on the call whose value
+    its check reads instead of on a call of its own."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _ptxas() -> dict:
@@ -584,8 +639,7 @@ def _attention_case(name, shape_q, shape_kv, dtype, tol, gen, time_it=True, band
         v = torch.randn(shape_kv, generator=gen, device="cuda").to(dtype)
     before = dict(kernels.route_counts)
     out = kernels.attention(q, k, v, band=band)
-    ref = kernels.attention_reference(q, k, v, band)
-    torch.cuda.synchronize()
+    ref, ref_ms = timed_call(lambda: kernels.attention_reference(q, k, v, band))
     err = (out.float() - ref.float()).abs()
     res = {"name": name, "q": list(shape_q), "kv": list(shape_kv), "dtype": str(dtype),
            "band": list(band) if band else None, "strides": list(q.stride()),
@@ -597,8 +651,9 @@ def _attention_case(name, shape_q, shape_kv, dtype, tol, gen, time_it=True, band
         flop = 4.0 * B * H * Lq * shape_kv[1] * D
         calls = 1 if flop > 1e11 else 20  # a sub-millisecond call: 20 back to back a run
         ms = cuda_ms(lambda: kernels.attention(q, k, v), reps=3, calls=calls)
-        plain_ms = cuda_ms(lambda: kernels.attention_reference(q, k, v), reps=1,
-                           warmup=int(calls > 1), calls=calls)
+        plain_ms = ref_ms if calls == 1 and band is None else cuda_ms(
+            lambda: kernels.attention_reference(q, k, v), reps=1, warmup=int(calls > 1),
+            calls=calls)
         nbytes = tensor_bytes(q, k, v, q)
         # bf16: the tensor cores' bf16 rate; fp32: attention_f32.cu's three
         # TF32 products at the TF32 rate (the CUDA cores' fp32 bound beside it)
@@ -722,8 +777,8 @@ def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True, band=None, mma_s
     got = cuda.attention_bwd(q, k, v, out, do, lse, band, visited=vis_b)
     res["equal_bits_twice"] = all(bool(torch.equal(a, b)) for a, b in
                                   zip(got, cuda.attention_bwd(q, k, v, out, do, lse, band)))
-    plain = kernels.attention_backward_reference(q, k, v, out, do, lse, band)
-    torch.cuda.synchronize()
+    plain, plain_ms = timed_call(
+        lambda: kernels.attention_backward_reference(q, k, v, out, do, lse, band))
     res["finite"] = bool(all(torch.isfinite(g).all().item() for g in got))
     res["max_abs_err"] = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, plain))
     ok = res["finite"] and res[f"fwd_equals_{forward}"] and res["equal_bits_twice"]
@@ -762,9 +817,7 @@ def _k4_case(name, shape_q, shape_kv, dtype, gen, time_it=True, band=None, mma_s
     del got, plain, ref_out, ref_lse
     if time_it:
         res["ms"] = cuda_ms(lambda: cuda.attention_bwd(q, k, v, out, do, lse, band), reps=3)
-        res["plain_ms"] = cuda_ms(
-            lambda: kernels.attention_backward_reference(q, k, v, out, do, lse, band), reps=1,
-            warmup=0)
+        res["plain_ms"] = plain_ms
         res["fwd_lse_ms"] = cuda_ms(lambda: cuda.attention_fwd_lse(q, k, v, band), reps=3)
         flop = 10.0 * B * H * pairs * D  # the visible work only
         res.update(tflops=flop / res["ms"] / 1e9, plain_tflops=flop / res["plain_ms"] / 1e9,
@@ -1006,7 +1059,7 @@ def _band_case(gen) -> dict:
                for _ in range(3))
     before = dict(kernels.route_counts)
     out = kernels.attention(q, k, v, band=BAND_7B)
-    ref = kernels.attention_reference(q, k, v, BAND_7B)
+    ref, plain_ms = timed_call(lambda: kernels.attention_reference(q, k, v, BAND_7B))
     visited = torch.zeros(1, dtype=torch.int64, device="cuda")
     cuda.attention(q, k, v, BAND_7B, visited=visited)
     torch.cuda.synchronize()
@@ -1024,8 +1077,7 @@ def _band_case(gen) -> dict:
     res["full_window_equals_k1"] = bool(torch.equal(kernels.attention(q, k, v, band=full_band),
                                                     kernels.attention(q, k, v)))
     res["ms"] = cuda_ms(lambda: kernels.attention(q, k, v, band=BAND_7B), reps=3)
-    res["plain_ms"] = cuda_ms(lambda: kernels.attention_reference(q, k, v, BAND_7B), reps=1,
-                              warmup=0)
+    res["plain_ms"] = plain_ms
     flop = 4.0 * B * H * D * pairs * BAND_7B[0] ** 2  # the unmasked work only
     res.update(tflops=flop / res["ms"] / 1e9, plain_tflops=flop / res["plain_ms"] / 1e9,
                **bound(tensor_bytes(q, k, v, q), flop, BF16_PEAK_TFLOPS))
@@ -1289,8 +1341,8 @@ def _k3lse_case(gen) -> dict:
                for _ in range(3))
     before = dict(kernels.route_counts)
     out, lse = cuda.attention_fwd_lse(q, k, v, BAND_7B)
-    ref, ref_lse = kernels.attention_forward_reference(q, k, v, BAND_7B)
-    torch.cuda.synchronize()
+    (ref, ref_lse), plain_ms = timed_call(
+        lambda: kernels.attention_forward_reference(q, k, v, BAND_7B))
     err = (out.float() - ref.float()).abs()
     res = {"name": "K3lse band forward with lse", "q": [B, L, H, D], "band": list(BAND_7B),
            "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
@@ -1298,8 +1350,7 @@ def _k3lse_case(gen) -> dict:
            "equals_k3": bool(torch.equal(out, cuda.attention(q, k, v, BAND_7B)))}
     del ref, ref_lse, err
     res["ms"] = cuda_ms(lambda: cuda.attention_fwd_lse(q, k, v, BAND_7B), reps=3)
-    res["plain_ms"] = cuda_ms(lambda: kernels.attention_forward_reference(q, k, v, BAND_7B),
-                              reps=1, warmup=0)
+    res["plain_ms"] = plain_ms
     flop = 4.0 * B * H * D * _band_pairs(LATENT_T_7B, *BAND_7B[1:]) * BAND_7B[0] ** 2
     res.update(tflops=flop / res["ms"] / 1e9,
                **bound(tensor_bytes(q, k, v, out, lse), flop, BF16_PEAK_TFLOPS))
@@ -3038,8 +3089,16 @@ SPAN_PATTERN = [True, True, True, False, True, True]
 # the int8 carry (and a bf16 one beside it) at the 7B's width over 4 of
 # the chunk's 16 latent frames (14,080 tokens), to hold the phase's time
 SPAN_SHORT_T = 4
+# 3 steps each: the fewest at which a step (the second) has a next sigma
+# above 0 and so takes dpm2m's and res2ab's multistep update on the card
 T2W_STEPS = 3
 INTERP_STEPS = 3
+# text2world, the interpolator and the multiview world model run their
+# 7Bs' first SIBLING_BLOCKS of 28 blocks, at full width, for the smoke's
+# time: their phases hold the CLI entry points, the solvers and the views'
+# fold; main_path runs the 7B's 28 blocks at this width, mv_world's K1 and
+# K2 cases the multiview shapes
+SIBLING_BLOCKS = 4
 # the interpolator's ends: the final latent's first and last frames against
 # their ends' latents (max |delta| / max |end|), and the decoded first frame
 # against the VAE's own decode of the first end (mean |delta| in uint8
@@ -3055,6 +3114,13 @@ INTERP_FIRST_FRAME_TOL = 10.0
 # digit. Set from the first run with the same weights, which gave every row
 # equal and the two exact loops 148.65 dB apart (PERF.md)
 QUALITY_TOL = {"rel_l2": 2e-5, "psnr_db": 0.02}
+# the CPU's half of that check, cut for the smoke's time to the band w2,
+# W8A8 and fast-preset rows (the fast preset runs W8A8, the band, the step
+# cache and the guidance interval together): 4 of its 11 35-step loops.
+# Every row was held in full in the smokes before the cut
+QUALITY_CPU_ROWS = dict(windows=(2,), intervals=(), thresholds=(), guidance_quantiles=())
+# the rows those arguments give (the W8A8 and fast-preset rows always come)
+QUALITY_CPU_KEYS = {"band_w2", "w8a8", "fast_preset"}
 
 
 def _timed_steps(device, steps: list):
@@ -3200,14 +3266,16 @@ def phase_text2world() -> dict:
         record = {}
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        path = text2world.demo(args, built=(model, preset), record=record)
+        with _depth(model.net, SIBLING_BLOCKS):
+            path = text2world.demo(args, built=(model, preset), record=record)
         total_s = time.perf_counter() - t0
         launches = dict(kernels.launch_counts)
         saved = os.path.getsize(path) if os.path.isfile(path) else 0
     video = record["video"]
     cfg = preset.dit
-    res = {"model": preset.name, "blocks": cfg.num_blocks, "channels": cfg.model_channels,
-           "heads": cfg.num_heads, "in_channels": cfg.in_channels, "solver": "dpm2m",
+    res = {"model": preset.name, "blocks": SIBLING_BLOCKS, "of_blocks": cfg.num_blocks,
+           "channels": cfg.model_channels, "heads": cfg.num_heads,
+           "in_channels": cfg.in_channels, "solver": "dpm2m",
            "frames": int(video.shape[0]), "video_shape": list(video.shape),
            "dtype": str(video.dtype), "latents_finite": latents == [True],
            "steps": record["steps"], "build_model_s": build_s, "entry_point_s": total_s,
@@ -3218,7 +3286,7 @@ def phase_text2world() -> dict:
         raise AssertionError(f"text2world: video {res['video_shape']} {video.dtype}, {saved} B")
     if not res["latents_finite"] or [s["cfg"] for s in record["steps"]] != [True] * T2W_STEPS:
         raise AssertionError(f"text2world: {res}")
-    if launches["K1"] != T2W_STEPS * cfg.num_blocks or launches["K2"] != launches["K1"]:
+    if launches["K1"] != T2W_STEPS * SIBLING_BLOCKS or launches["K2"] != launches["K1"]:
         raise AssertionError(f"text2world launches: {launches}")
     del model, decode  # the decode wrapper closes a cycle
     gc.collect()
@@ -3263,7 +3331,8 @@ def phase_interpolator() -> dict:
         record = {}
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        path = world_interpolator.demo(args, built=(model, preset), record=record)
+        with _depth(model.net, SIBLING_BLOCKS):
+            path = world_interpolator.demo(args, built=(model, preset), record=record)
         total_s = time.perf_counter() - t0
         launches = dict(kernels.launch_counts)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3282,7 +3351,8 @@ def phase_interpolator() -> dict:
         return float(np.abs(a.astype(np.int16) - b.astype(np.int16)).mean())
 
     ends_first, ends_last = end_latents[0][:, :, 0], end_latents[1][:, :, 0]
-    res = {"model": preset.name, "solver": args.solver, "frames": int(video.shape[0]),
+    res = {"model": preset.name, "blocks": SIBLING_BLOCKS, "of_blocks": preset.dit.num_blocks,
+           "solver": args.solver, "frames": int(video.shape[0]),
            "video_shape": list(video.shape), "step_s": record["step_seconds"][0],
            "build_model_s": build_s, "entry_point_s": total_s, "peak_mem_gib": peak,
            "launches": launches, "saved": [os.path.basename(path), saved],
@@ -3302,7 +3372,7 @@ def phase_interpolator() -> dict:
             or res["last_latent_rel"] >= res["last_latent_rel_to_first_end"]
             or res["first_frame_mean_levels"] >= res["first_frame_mean_levels_to_last_end"]):
         raise AssertionError(f"interpolator: the ends are not followed: {res}")
-    if launches["K1"] != INTERP_STEPS * preset.dit.num_blocks or launches["K2"] != launches["K1"]:
+    if launches["K1"] != INTERP_STEPS * SIBLING_BLOCKS or launches["K2"] != launches["K1"]:
         raise AssertionError(f"interpolator launches: {launches}")
     del model, decode, samples, latents, end_latents  # the decode wrapper closes a cycle
     gc.collect()
@@ -3357,7 +3427,7 @@ def phase_quality() -> dict:
     card_s = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
     t0 = time.perf_counter()
-    cpu = approximation_quality_curve(device="cpu")
+    cpu = approximation_quality_curve(device="cpu", **QUALITY_CPU_ROWS)
     cpu_s = time.perf_counter() - t0
     # the two devices' exact loops against each other: the curve's floor
     exact = [quality._sample(quality.init_quality_net(0, dev),
@@ -3368,8 +3438,8 @@ def phase_quality() -> dict:
     res = {"card": card, "cpu": cpu, "delta": delta, "exact_card_vs_cpu": floor,
            "tol": QUALITY_TOL, "card_s": card_s, "cpu_s": cpu_s, "launches": launches}
     emit("quality", **res)
-    if list(card) != list(cpu) or any(d[m] > QUALITY_TOL[m] for d in delta.values()
-                                      for m in QUALITY_TOL):
+    if set(cpu) != QUALITY_CPU_KEYS or set(cpu) - set(card) or any(
+            d[m] > QUALITY_TOL[m] for d in delta.values() for m in QUALITY_TOL):
         raise AssertionError(f"quality: card against CPU {delta}")
     # the ordering gate of tests/test_quality_gate.py on the card's curve
     rel = {k: r["rel_l2"] for k, r in card.items()}
@@ -3386,7 +3456,7 @@ def phase_quality() -> dict:
 
 
 # the multiview world model: the Sample-AV 7B's 76,320 tokens
-MV_T2W_STEPS = 2  # both CFG: K1 = K2 = 2 x 28 launches
+MV_T2W_STEPS = 2  # both CFG: K1 = K2 = 2 x SIBLING_BLOCKS launches
 MV_V2W_STEPS = 1
 MV_HEAD_SLICE = 4  # K1 at 76,320 held to its plain version on these heads (the rest timed)
 # the tiny fp32 multiview preset, card (3xTF32 attention, fp32 cuBLAS) against
@@ -3429,7 +3499,7 @@ def _mv_k1_case(gen) -> dict:
     out = kernels.attention(q, k, v)
     hs = slice(0, MV_HEAD_SLICE)
     sl = [t[:, :, hs] for t in (q, k, v)]
-    ref = kernels.attention_reference(*sl)
+    ref, plain_ms = timed_call(lambda: kernels.attention_reference(*sl))
     err = (out[:, :, hs].float() - ref.float()).abs()
     res = {"name": "K1 self-attention, multiview 7B", "q": list(shape), "kv": list(shape),
            "dtype": "torch.bfloat16", "ragged_tail": shape[1] % 128,
@@ -3439,7 +3509,7 @@ def _mv_k1_case(gen) -> dict:
     B, L, H, D = shape
     flop = 4.0 * B * H * L * L * D
     res["ms"] = cuda_ms(lambda: kernels.attention(q, k, v), reps=3)
-    res["plain_ms"] = cuda_ms(lambda: kernels.attention_reference(*sl), reps=1, warmup=0)
+    res["plain_ms"] = plain_ms
     res["plain_heads"] = MV_HEAD_SLICE
     res.update(tflops=flop / res["ms"] / 1e9, library_ms=library_ms(lambda: _sdpa(q, k, v)),
                **bound(tensor_bytes(q, k, v, q), flop, BF16_PEAK_TFLOPS))
@@ -3508,10 +3578,12 @@ def _mv_run(preset_name: str, steps: int, root: str, extra: list) -> dict:
     record = {}
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    paths = tmv.demo(args, built=model, record=record)
+    with _depth(model.net, SIBLING_BLOCKS):
+        paths = tmv.demo(args, built=model, record=record)
     torch.cuda.synchronize()
     cfg = model.net.cfg
-    res = {"model": preset_name, "blocks": cfg.num_blocks, "channels": cfg.model_channels,
+    res = {"model": preset_name, "blocks": SIBLING_BLOCKS, "of_blocks": cfg.num_blocks,
+           "channels": cfg.model_channels,
            "heads": cfg.num_heads, "views": cfg.n_views, "in_channels": cfg.in_channels,
            "dtype": str(cfg.dtype), "latent": list(record["latent"].shape),
            "tokens": int(np.prod(record["latent"].shape[2:])) // 4,
@@ -3706,9 +3778,12 @@ def _k8_drops(q, k, v, pos: int, ks, vs, ref: torch.Tensor) -> dict:
 
 
 def _k8_case(gen, name: str, pos: int, int8: bool, prefill: bool = False,
-             aligned: bool = False) -> dict:
-    """K8 on one layer of a filled seeded 4B cache (1, 12,800, 8, 128): decode
-    (one query at ``pos`` over keys [0, pos]) or the 5,120-token prefill, bf16
+             aligned: bool = False, cache: tuple = AR_4B_CACHE, hq: int = 32,
+             prefill_len: int = AR_PREFIX) -> dict:
+    """K8 on one layer of a filled seeded cache (B, capacity, Hkv, d), by
+    default the 4B's (1, 12,800, 8, 128) with 32 query heads: decode (one
+    query at ``pos`` over keys [0, pos]) or the ``prefill_len``-token
+    prefill (5,120 for the 4B), bf16
     or int8 codes with fp32 scales (quantized as the cache stores them);
     aligned: each query head is K8_ALIGN x its KV head's key at pos, so that
     the last key carries half the output. Held to its plain version (the
@@ -3730,11 +3805,11 @@ def _k8_case(gen, name: str, pos: int, int8: bool, prefill: bool = False,
     from gen3c_tpu_torch.models.dit import quantize_span_delta
 
     t_case = time.perf_counter()
-    B, S, Hkv, D = AR_4B_CACHE
-    Hq, rep = 32, 32 // Hkv
-    Lq = AR_PREFIX if prefill else 1
-    vis = AR_PREFIX if prefill else pos + 1
-    k, v = (torch.randn(AR_4B_CACHE, generator=gen, device="cuda").to(torch.bfloat16)
+    B, S, Hkv, D = cache
+    Hq, rep = hq, hq // Hkv
+    Lq = prefill_len if prefill else 1
+    vis = prefill_len if prefill else pos + 1
+    k, v = (torch.randn(cache, generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
     ks = vs = None
     if int8:
@@ -3751,7 +3826,7 @@ def _k8_case(gen, name: str, pos: int, int8: bool, prefill: bool = False,
     ref = kernels.gqa_attention_reference(*plain_args)
     torch.cuda.synchronize()
     err = (out[:, :, h].float() - ref.float()).abs()
-    res = {"name": name, "q": [B, Lq, Hq, D], "cache": list(AR_4B_CACHE), "pos": pos,
+    res = {"name": name, "q": [B, Lq, Hq, D], "cache": list(cache), "pos": pos,
            "visible_keys": vis, "int8": int8, "aligned": aligned, "plain_heads": h.stop,
            "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
            "mean_abs_plain": ref.float().abs().mean().item(),
@@ -4042,6 +4117,600 @@ def phase_dd(grid: torch.Tensor) -> dict:
     return res
 
 
+# the guardrails and the prompt upsampler: every model at its published
+# width with seeded weights built on the card, a stand-in tokenizer
+GUARD_PROMPT = ("A slow aerial shot over a misty pine forest at dawn: a narrow river winds "
+                "between the trees, sunlight breaks through low clouds and lights the water, and "
+                "a flock of birds circles above the canopy before the camera tilts toward them.")
+GUARD_BLOCKED_WORDS = ["forbiddenword"]
+GUARD_BLOCKED_PROMPT = "a forbiddenword drawn on the forest floor"
+GUARD_K8_POS = 256  # the guards' K8 decode cases: a visible position near their prompts'
+GUARD_CUT_LAYERS = 2
+# the first new token's logits of a 2-layer full-width cut: the card in bf16
+# (the path's own arithmetic) against the CPU in fp32 on the same weights,
+# relative to mean |CPU logit|; bf16 rounds the activations and the K/V
+# cache (2^-8 relative) and the logits sum 4,096-5,120 products of them
+GUARD_CUT_TOL = {"max": 0.1, "mean": 0.02}
+AEGIS_LORA = (16, 32.0)  # (r, alpha) of the seeded adapter, on q/k/v/o and the MLP
+AEGIS_TARGETS = (("self_attn", "q_proj"), ("self_attn", "k_proj"), ("self_attn", "v_proj"),
+                 ("self_attn", "o_proj"), ("mlp", "gate_proj"), ("mlp", "up_proj"),
+                 ("mlp", "down_proj"))
+VIDEO_FRAMES = 121
+SIGLIP_CPU_FRAMES = 2
+# SigLIP features and RetinaFace loc / conf, card against CPU, fp32 on both
+# (TF32 off for matmuls and convolutions; SigLIP's attention 3xTF32 on the
+# card, within 1e-4 of fp32), relative to mean |CPU|
+VISION_TOL = {"max": 1e-3, "mean": 1e-4}
+SAFE_BIAS = 10.0  # the seeded head's bias toward "Safe": the runner passes, the blur runs
+UNSAFE_CLASS = 2  # "Violence": the seeded head biased to it blocks at frame 0
+RETINA_LOW = (0.5, (20, 20))  # (threshold, min_size) of the one-frame run held to the CPU
+RETINA_BOX_AGREE = 0.99  # boxes within 0.5 px of one on the other device, each way
+UPSAMPLER_NEW_TOKENS = 32  # of the reference's 400
+
+
+class StandInTokenizer:
+    """The smoke's tokenizer (the card's machine has no transformers): byte b
+    is id BYTE_BASE + b, "[IMG]" the image id, one fixed chat template; decode
+    keeps the bytes and records the ids it was given."""
+
+    BYTE_BASE = 1000
+    eos_token_id = 2
+    chat_template = "<s>[INST] {} [/INST]"
+
+    def __init__(self, image_token_id: int = 10):
+        self.image_token_id = image_token_id
+        self.decoded = []
+
+    def encode(self, text: str) -> list:
+        ids = []
+        for i, part in enumerate(text.split("[IMG]")):
+            if i:
+                ids.append(self.image_token_id)
+            ids += [self.BYTE_BASE + b for b in part.encode("utf-8")]
+        return ids
+
+    def apply_chat_template(self, chat, return_tensors="np", add_generation_prompt=False):
+        text = self.chat_template.format("\n".join(m["content"] for m in chat))
+        return np.asarray([self.encode(text)], np.int64)
+
+    def __call__(self, texts, add_special_tokens=False, return_tensors="np"):
+        return {"input_ids": np.asarray([self.encode(t) for t in texts], np.int64)}
+
+    def decode(self, ids, skip_special_tokens=True) -> str:
+        ids = np.asarray(ids).reshape(-1)
+        self.decoded.append(ids.copy())
+        return bytes(int(i) - self.BYTE_BASE for i in ids
+                     if self.BYTE_BASE <= i < self.BYTE_BASE + 256).decode("utf-8", "replace")
+
+
+def _guard_configs() -> dict:
+    """The published text models' shapes: Llama-Guard-3-8B, LlamaGuard-7b
+    (Aegis's base) and Pixtral-12B's text model at 40 heads of 128 (its real
+    32 heads of 128 in a 5,120-wide model is a head width neither package's
+    ARConfig can hold)."""
+    from gen3c_tpu_torch.models.ar_transformer import ARConfig
+
+    common = dict(norm_eps=1e-5, use_qk_normalization=False, dtype=torch.bfloat16)
+    return {
+        "llama_guard_3_8b": ARConfig(dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                                     vocab_size=128256, ffn_hidden_size=14336,
+                                     rope_theta=500000.0, max_seq_len=4096,
+                                     rope_scaling=(8.0, 1.0, 4.0, 8192), **common),
+        "llama_guard_7b": ARConfig(dim=4096, n_layers=32, n_heads=32, n_kv_heads=32,
+                                   vocab_size=32000, ffn_hidden_size=11008, rope_theta=10000.0,
+                                   max_seq_len=4096, **common),
+        "pixtral_12b_text": ARConfig(dim=5120, n_layers=40, n_heads=40, n_kv_heads=8,
+                                     vocab_size=131072, ffn_hidden_size=14336,
+                                     rope_theta=1e9, max_seq_len=4300, **common),
+    }
+
+
+def _bucketed(cfg, ids: np.ndarray, new_tokens: int):
+    """generate_bucketed's left padding of one row: (padded (1, Lpad), pad)."""
+    from gen3c_tpu_torch.models.ar_transformer import _bucket_length
+
+    lpad = _bucket_length(ids.shape[-1], 128, cfg, new_tokens)
+    padded = np.zeros((1, lpad), np.int64)
+    padded[0, lpad - ids.shape[-1]:] = ids.reshape(-1)
+    return padded, lpad - ids.shape[-1]
+
+
+def _ar_cut_check(model, ids: np.ndarray, new_tokens: int) -> dict:
+    """The first new token's logits, as generate_bucketed's prefill forms
+    them (left-padded, on a cache), of a GUARD_CUT_LAYERS-layer cut of
+    ``model`` (its first layers, final norm and output): on the card in the
+    model's dtype, on the CPU in fp32 from the same weights. Both start
+    from the card's token embeddings of the padded ids (the forward's
+    input_embeddings), the cut's own output is the identity and the output
+    projection is applied to the last row alone: the token table's copy and
+    the projection of every row would be most of the CPU's time."""
+    import dataclasses
+
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from gen3c_tpu_torch.models.ar_transformer import ARTransformer, init_kv_cache
+
+    cfg = dataclasses.replace(model.cfg, n_layers=GUARD_CUT_LAYERS)
+    with torch.device("meta"):
+        cut, cpu = ARTransformer(cfg), ARTransformer(dataclasses.replace(cfg,
+                                                                         dtype=torch.float32))
+    for m, dev, dt in ((cut, "cuda", cfg.dtype), (cpu, "meta", torch.float32)):
+        m.tok_embeddings = nn.Embedding(1, cfg.dim, device=dev, dtype=dt)  # unread
+        m.output = nn.Linear(cfg.dim, cfg.dim, bias=False, device=dev, dtype=dt)
+    cut.norm = model.norm
+    cut.layers = nn.ModuleList(list(model.layers[:GUARD_CUT_LAYERS]))
+    with torch.no_grad():
+        cut.output.weight.copy_(torch.eye(cfg.dim))
+    cpu = cpu.to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu().float() for k, v in cut.state_dict().items()})
+    padded, pad = _bucketed(cfg, ids, new_tokens)
+    emb = model.embed(torch.from_numpy(padded).cuda())
+
+    def first(m, dev, w_out):
+        cache = init_kv_cache(m.cfg, 1, dtype=m.cfg.dtype, device=dev)
+        h, _ = m(None, cache=cache, pad_lens=torch.tensor([pad], device=dev),
+                 input_embeddings=emb.to(dev, m.cfg.dtype))
+        h = h[0, -1].to(m.cfg.dtype)  # the normed row (the identity's output), in m's dtype
+        return F.linear(h, w_out).float().cpu()
+
+    t0 = time.perf_counter()
+    got = first(cut, "cuda", model.output.weight)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = first(cpu, "cpu", model.output.weight.cpu().float())
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    return {"layers": GUARD_CUT_LAYERS, "tokens": int(padded.shape[1]), "pad": pad,
+            "err": _cut_rel_err(got, want), "argmax_equal": int(got.argmax()) == int(want.argmax()),
+            "finite": bool(torch.isfinite(got).all()), "card_s": card_s, "cpu_s": cpu_s}
+
+
+def _seeded_lora(cfg, gen) -> dict:
+    """A PEFT-named LoRA adapter of rank AEGIS_LORA[0] on every projection of
+    every layer, A and B N(0, 0.02) on the card."""
+    r = AEGIS_LORA[0]
+    hd = cfg.dim // cfg.n_heads
+    dims = {"q_proj": (cfg.dim, cfg.n_heads * hd), "k_proj": (cfg.dim, cfg.n_kv_heads * hd),
+            "v_proj": (cfg.dim, cfg.n_kv_heads * hd), "o_proj": (cfg.n_heads * hd, cfg.dim),
+            "gate_proj": (cfg.dim, cfg.ffn_hidden_size), "up_proj": (cfg.dim, cfg.ffn_hidden_size),
+            "down_proj": (cfg.ffn_hidden_size, cfg.dim)}
+    state = {}
+    for i in range(cfg.n_layers):
+        for block, proj in AEGIS_TARGETS:
+            din, dout = dims[proj]
+            key = f"base_model.model.model.layers.{i}.{block}.{proj}.lora_A.weight"
+            state[key] = torch.empty(r, din, device="cuda").normal_(0, 0.02, generator=gen)
+            state[key.replace("lora_A", "lora_B")] = torch.empty(dout, r, device="cuda").normal_(
+                0, 0.02, generator=gen)
+    return state
+
+
+def _case_summary(r: dict) -> dict:
+    keys = ("ms", "host_and_device_ms", "route", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err", "visible_keys", "q", "kv", "cache", "routes")
+    return {k: r[k] for k in keys if k in r}
+
+
+def _llm_guard(kind: str, seed: int) -> dict:
+    """One LLM guard at full width in the text runner (the blocklist, then
+    the guard): two runs of the ~200-character prompt (seconds, K8's
+    launches and routes, the new ids, which must repeat), the blocklisted
+    prompt (refused with no K8 launch), the 2-layer cut on the card and the
+    CPU."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.aux import guardrail as G
+
+    cfg = _guard_configs()["llama_guard_3_8b" if kind == "LlamaGuard3" else "llama_guard_7b"]
+    cls = G.LlamaGuard3 if kind == "LlamaGuard3" else G.Aegis
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = G._build_ar(cfg, "cuda").init_random(gen)
+    merged = None
+    if cls is G.Aegis:
+        adapter = _seeded_lora(cfg, gen)
+        merged = G.merge_peft_lora_into_llama(model, adapter, alpha=AEGIS_LORA[1], r=AEGIS_LORA[0])
+        del adapter
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tok = StandInTokenizer()
+    guard = cls(model, tok)
+    runner = G.GuardrailRunner([G.Blocklist(extra_words=GUARD_BLOCKED_WORDS), guard])
+    ids = guard.prompt_ids(GUARD_PROMPT)
+    runs = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        verdict = runner.run(GUARD_PROMPT)
+        torch.cuda.synchronize()
+        runs.append({"s": time.perf_counter() - t0, "verdict": verdict,
+                     "k8": kernels.launch_counts["K8"], "new_ids": tok.decoded[-1].tolist()})
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    blocked = runner.run(GUARD_BLOCKED_PROMPT)
+    blocked_s = time.perf_counter() - t0
+    blocked_k8 = kernels.launch_counts["K8"]
+    cut = _ar_cut_check(model, ids, cls.NEW_TOKENS)
+    res = {"guard": kind, "params": sum(p.numel() for p in model.parameters()),
+           "layers": cfg.n_layers, "heads": [cfg.n_heads, cfg.n_kv_heads], "dim": cfg.dim,
+           "vocab": cfg.vocab_size, "lora_merged": merged, "build_s": build_s,
+           "prompt_tokens": int(ids.shape[1]),
+           "bucket": int(_bucketed(cfg, ids, cls.NEW_TOKENS)[0].shape[1]),
+           "new_tokens": cls.NEW_TOKENS, "runs": [{k: r[k] for k in ("s", "verdict", "k8")}
+                                                 for r in runs],
+           "ids_repeat": runs[0]["new_ids"] == runs[1]["new_ids"],
+           "new_ids_head": runs[0]["new_ids"][:8], "blocked": blocked, "blocked_s": blocked_s,
+           "blocked_k8": blocked_k8, "cut": cut, "cut_tol": GUARD_CUT_TOL,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del runner, guard, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("guardrail_text", **res)
+    k8 = cfg.n_layers * cls.NEW_TOKENS
+    if (any(r["k8"] != k8 or not isinstance(r["verdict"], bool) for r in runs)
+            or not res["ids_repeat"] or len(runs[0]["new_ids"]) != cls.NEW_TOKENS
+            or runs[0]["verdict"] != runs[1]["verdict"]):
+        raise AssertionError(f"guardrail {kind}: {res}")
+    if blocked is not False or blocked_k8 != 0:
+        raise AssertionError(f"guardrail {kind}: the blocklisted prompt reached the model: {res}")
+    if (cls is G.Aegis and merged != cfg.n_layers * len(AEGIS_TARGETS)) or not cut["finite"] or any(
+            cut["err"][k] > GUARD_CUT_TOL[k] for k in GUARD_CUT_TOL):
+        raise AssertionError(f"guardrail {kind}: the card and the CPU disagree on the cut: {res}")
+    return res
+
+
+def _video_clip(frames: int, h: int, w: int, seed: int) -> np.ndarray:
+    """A seeded (T, H, W, 3) uint8 clip: 32-pixel colour blocks panning one
+    block a frame, with noise."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 256, (h // 32 + 1, w // 32 + 1 + frames, 3)).astype(np.int16)
+    out = np.empty((frames, h, w, 3), np.uint8)
+    for t in range(frames):
+        block = np.repeat(np.repeat(coarse[:, t:t + w // 32 + 1], 32, 0), 32, 1)[:h, :w]
+        out[t] = np.clip(block + rng.integers(-8, 9, (h, w, 3)), 0, 255)
+    return out
+
+
+def _box_agreement(a: np.ndarray, b: np.ndarray) -> float:
+    """The smaller of the fractions of a's boxes within 0.5 px of one of b's
+    and of b's within 0.5 px of one of a's (1.0 for two empty sets)."""
+    if len(a) == 0 or len(b) == 0:
+        return float(len(a) == len(b))
+    near = np.abs(a[:, None, :] - b[None, :, :]).max(-1) <= 0.5
+    return float(min(near.any(1).mean(), near.any(0).mean()))
+
+
+def _video_guard(seed: int) -> dict:
+    """The video runner (SigLIP so400m + the 7-class head, then the
+    RetinaFace face blur) on a seeded 121-frame 704x1280 clip, with checks
+    against the CPU."""
+    import copy as _copy
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.aux import guardrail as G
+    from gen3c_tpu_torch.aux import retinaface as R
+    from gen3c_tpu_torch.aux import siglip as S
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    encoder = S.SiglipVisionModel(S.SiglipVisionConfig(), device="cuda").init_random(gen)
+    head = S.SafetyClassifier(encoder.cfg.hidden_size, device="cuda").init_random(gen)
+    with torch.no_grad():
+        head.layers[6].bias[0] = SAFE_BIAS
+    net = R.init_retinaface_params(torch.Generator().manual_seed(seed)).to("cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    filt, blur = G.VideoContentSafetyFilter(encoder, head), G.RetinaFaceFilter(net)
+    runner = G.GuardrailRunner([filt], postprocessors=[blur])
+    clip = _video_clip(VIDEO_FRAMES, 704, 1280, seed)
+    parts = {}
+
+    def timed(fn, key):
+        def run(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            parts[key] = time.perf_counter() - t
+            return out
+        return run
+
+    filt.is_safe, blur.postprocess = timed(filt.is_safe, "filter_s"), timed(blur.postprocess,
+                                                                           "blur_s")
+    kernels.reset_launch_counts()
+    before = dict(kernels.route_counts)
+    t0 = time.perf_counter()
+    out = runner.run(clip)
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    routes = route_delta(before)
+    del filt.is_safe, blur.postprocess
+    # the seeded head biased to an unsafe class instead: refused at frame 0
+    with torch.no_grad():
+        head.layers[6].bias[0], head.layers[6].bias[UNSAFE_CLASS] = 0.0, SAFE_BIAS
+    unsafe = filt.is_safe(clip[:filt.batch_size])
+    refused = runner.run(clip[:filt.batch_size])
+    with torch.no_grad():
+        head.layers[6].bias[0], head.layers[6].bias[UNSAFE_CLASS] = SAFE_BIAS, 0.0
+    # SigLIP's features and RetinaFace's loc / conf, card against CPU
+    pixels = torch.from_numpy(np.stack([S.preprocess_frame(f) for f in clip[:SIGLIP_CPU_FRAMES]]))
+    feats = encoder(pixels.cuda()).cpu()
+    enc_cpu = _copy.deepcopy(encoder).to("cpu")
+    t0 = time.perf_counter()
+    feats_cpu = enc_cpu(pixels)
+    siglip_cpu_s = time.perf_counter() - t0
+    del enc_cpu
+    frame = torch.from_numpy(clip[:1].astype(np.float32)).flip(-1) - torch.tensor(R.BGR_MEANS)
+    frame = frame.permute(0, 3, 1, 2).contiguous()
+    loc, conf = (t.cpu() for t in net(frame.cuda()))
+    net_cpu = _copy.deepcopy(net).to("cpu")
+    t0 = time.perf_counter()
+    loc_cpu, conf_cpu = net_cpu(frame)
+    retina_cpu_s = time.perf_counter() - t0
+    # a lower threshold: tens of the seeded detector's boxes are pixelated,
+    # on the card and on the CPU
+    thr, min_size = RETINA_LOW
+    priors, scale = R.prior_boxes(704, 1280), np.array([1280, 704, 1280, 704], np.float32)
+    boxes = [R.filter_detected_boxes(R.decode_boxes(lc.numpy(), priors)[0] * scale,
+                                     cf[0, :, 1].numpy(), confidence_threshold=thr)
+             for lc, cf in ((loc, conf), (loc_cpu, conf_cpu))]
+    low = [R.blur_faces_in_frames(n, clip[:1], confidence_threshold=thr, min_size=min_size)
+           for n in (net, net_cpu)]
+    del net_cpu
+    res = {"frames": list(clip.shape), "siglip": {"params": sum(p.numel()
+                                                              for p in encoder.parameters()),
+                                                  "layers": encoder.cfg.num_hidden_layers,
+                                                  "width": encoder.cfg.hidden_size,
+                                                  "batch": filt.batch_size},
+           "retinaface_params": sum(p.numel() for p in net.parameters()), "build_s": build_s,
+           "run_s": run_s, **parts, "passed": out is not None,
+           "unchanged_fraction": float((out == clip).mean()) if out is not None else None,
+           "launches": launches, "routes": routes, "unsafe": list(unsafe),
+           "refused": refused is None,
+           "siglip_err": _cut_rel_err(feats, feats_cpu), "siglip_cpu_s": siglip_cpu_s,
+           "loc_err": _cut_rel_err(loc, loc_cpu), "conf_err": _cut_rel_err(conf, conf_cpu),
+           "retina_cpu_s": retina_cpu_s, "tol": VISION_TOL,
+           "low_threshold": {"threshold": thr, "min_size": list(min_size),
+                             "boxes": [len(b) for b in boxes],
+                             "agreement": _box_agreement(*boxes),
+                             "pixelated_fraction": float((low[0] != clip[0]).mean()),
+                             "frames_equal_fraction": float((low[0] == low[1]).mean())},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del encoder, head, net, filt, blur, runner, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("guardrail_video", **res)
+    batches = -(-VIDEO_FRAMES // res["siglip"]["batch"])
+    if (not res["passed"] or launches["K1vit"] != batches * (S.SiglipVisionConfig().num_hidden_layers
+                                                              + 1)
+            or routes.get("wgmma") or res["unsafe"] != [
+                False, f"unsafe frames detected (frame 0: "
+                       f"{G._SAFETY_CLASS_NAMES[UNSAFE_CLASS]})"] or not res["refused"]):
+        raise AssertionError(f"guardrail video runner: {res}")
+    if any(res[k][m] > VISION_TOL[m] for k in ("siglip_err", "loc_err", "conf_err")
+           for m in VISION_TOL):
+        raise AssertionError(f"guardrail video: the card and the CPU disagree: {res}")
+    lowr = res["low_threshold"]
+    if (min(lowr["boxes"]) == 0 or lowr["agreement"] < RETINA_BOX_AGREE
+            or lowr["pixelated_fraction"] == 0
+            or lowr["frames_equal_fraction"] < RETINA_BOX_AGREE):
+        raise AssertionError(f"guardrail video: the low-threshold boxes: {res}")
+    return res
+
+
+def _pipeline_guard() -> dict:
+    """Gen3cPipeline on the tiny preset on the card with a blocking text
+    runner: generate returns None before any kernel, and the AR loop raises."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.aux import guardrail as G
+    from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
+    from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
+
+    model, preset = build_gen3c_model("gen3c_tiny", device="cuda", seed=0)
+    runner = G.GuardrailRunner([G.Blocklist(extra_words=GUARD_BLOCKED_WORDS)])
+    h, w, n = preset.height, preset.width, preset.chunk_size
+    kernels.reset_launch_counts()
+    out = Gen3cPipeline(model=model, num_steps=1, text_guardrail=runner).generate(
+        GUARD_BLOCKED_PROMPT, _seed_image(h, w, 0), torch.zeros(1, n, 1, 3, h, w),
+        torch.ones(1, n, 1, 1, h, w))
+    launches = sum(kernels.launch_counts.values())
+    try:
+        _run_chain(model, preset, "cuda", n, 1, 0, text_guardrail=runner)  # prompt "": blocked
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    res = {"preset": preset.name, "generate": out, "launches": launches, "chain_raised": raised}
+    emit("guardrail_pipeline", **res)
+    if out is not None or launches or raised != "Generation blocked by guardrail":
+        raise AssertionError(f"guardrail pipeline hooks: {res}")
+    return res
+
+
+def phase_guardrail() -> dict:
+    """The guardrails on the card (phase 29 of the docstring): K8 at the
+    guards' shapes, the two LLM guards, the video runner, the pipeline's
+    hooks."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    cfgs = _guard_configs()
+    tok = StandInTokenizer()
+    from gen3c_tpu_torch.aux import guardrail as G
+
+    buckets = {}
+    for kind, cls in (("llama_guard_3_8b", G.LlamaGuard3), ("llama_guard_7b", G.Aegis)):
+        ids = cls(None, tok).prompt_ids(GUARD_PROMPT)
+        buckets[kind] = _bucketed(cfgs[kind], ids, cls.NEW_TOKENS)[0].shape[1]
+    f32 = {"max": ATTN_F32_TOL, "mean": ATTN_F32_TOL}
+    batch = G.VideoContentSafetyFilter.batch_size
+    kern = {"K1vit SigLIP so400m self-attention (fp32, d 72)": _attention_case(
+                "K1vit SigLIP so400m self-attention (fp32, d 72)", (batch, 729, 16, 72),
+                (batch, 729, 16, 72), torch.float32, f32, gen),
+            "K1vit SigLIP pooling probe (fp32, d 72)": _attention_case(
+                "K1vit SigLIP pooling probe (fp32, d 72)", (batch, 1, 16, 72),
+                (batch, 729, 16, 72), torch.float32, f32, gen)}
+    for kind, label in (("llama_guard_3_8b", "Llama-Guard-3-8B, rep 4"),
+                        ("llama_guard_7b", "LlamaGuard-7b (Aegis), rep 1")):
+        c = cfgs[kind]
+        cache = (1, c.max_seq_len, c.n_kv_heads, c.head_dim)
+        name = f"K8 decode bf16 pos {GUARD_K8_POS}, {label}"
+        kern[name] = _k8_case(gen, name, GUARD_K8_POS, False, cache=cache, hq=c.n_heads)
+        name = f"K8 prefill bf16 {buckets[kind]}, {label}"
+        kern[name] = _k8_case(gen, name, 0, False, prefill=True, cache=cache, hq=c.n_heads,
+                              prefill_len=buckets[kind])
+    text = {"LlamaGuard3": _llm_guard("LlamaGuard3", 0), "Aegis": _llm_guard("Aegis", 1)}
+    video = _video_guard(2)
+    pipeline = _pipeline_guard()
+    res = {"kernel_cases": {k: _case_summary(r) for k, r in kern.items()},
+           "text": {k: {kk: r[kk] for kk in ("build_s", "runs", "bucket", "cut")}
+                    for k, r in text.items()},
+           "video_s": {k: video[k] for k in ("run_s", "filter_s", "blur_s", "build_s")},
+           "pipeline": pipeline, "s": time.perf_counter() - t_phase}
+    emit("guardrail", **res)
+    routes = {n: c["route"] for n, c in kern.items() if n.startswith("K8")}
+    if [r for n, r in routes.items() if ("decode" in n) != (r == "decode")] or any(
+            r not in ("decode", "wgmma") for r in routes.values()):
+        raise AssertionError(f"guardrail: K8 took another body: {routes}")
+    res["kernels"] = kern
+    res["launches"] = {"K8": {k: r["runs"][0]["k8"] + r["runs"][1]["k8"] for k, r in text.items()},
+                       "K1vit": video["launches"]["K1vit"]}
+    return res
+
+
+def _upsampler_prompt() -> dict:
+    """The upsampler phase's text model and tower configs, stand-in
+    tokenizer, seeded 704x1280 frame, chat ids, the frame's patches and the
+    spliced prompt's bucket (the K8 prefill's length)."""
+    from gen3c_tpu_torch.aux import prompt_upsampler as P
+    from gen3c_tpu_torch.aux import vision_encoder as V
+    from gen3c_tpu_torch.models.ar_transformer import _bucket_length
+
+    cfg = _guard_configs()["pixtral_12b_text"]
+    vcfg = V.VisionConfig(dtype=torch.bfloat16)
+    tok = StandInTokenizer()
+    frame = _video_clip(1, 704, 1280, 3)
+    probe = P.VLMPromptUpsampler(None, V.VisionEncoder(vcfg, device="meta"), tok, 10,
+                                 UPSAMPLER_NEW_TOKENS)
+    ids = probe._chat_ids(GUARD_PROMPT)
+    patches = int(np.prod(probe._prepare_frame(frame).shape[1:])) // vcfg.patch_size ** 2
+    spliced = len(ids) - 1 + patches
+    return {"cfg": cfg, "vcfg": vcfg, "tok": tok, "frame": frame, "ids": ids,
+            "patches": patches, "spliced": spliced,
+            "bucket": _bucket_length(spliced, 128, cfg, UPSAMPLER_NEW_TOKENS)}
+
+
+def _upsampler_k8_cases(gen, up: dict) -> dict:
+    """K8 at the upsampler's text model (rep 5): decode at GUARD_K8_POS over
+    its 4,300-row cache and the prefill of ``up``'s spliced prompt
+    (``_upsampler_prompt``)."""
+    cfg, bucket = up["cfg"], up["bucket"]
+    cache = (1, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    name = f"K8 decode bf16 pos {GUARD_K8_POS}, Pixtral-12B text (40 x 128), rep 5"
+    kern = {name: _k8_case(gen, name, GUARD_K8_POS, False, cache=cache, hq=cfg.n_heads)}
+    name = f"K8 prefill bf16 {bucket}, Pixtral-12B text (40 x 128), rep 5"
+    kern[name] = _k8_case(gen, name, 0, False, prefill=True, cache=cache, hq=cfg.n_heads,
+                          prefill_len=bucket)
+    return kern
+
+
+def phase_upsampler() -> dict:
+    """The VLM prompt upsampler on the card (phase 30 of the docstring):
+    K1vit and K8 at its shapes, the Pixtral-12B vision tower and the text
+    model at 40 heads of 128, the frame-conditioned and text-only paths,
+    the 2-layer cuts."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.aux import guardrail as G
+    from gen3c_tpu_torch.aux import prompt_upsampler as P
+    from gen3c_tpu_torch.aux import vision_encoder as V
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    up = _upsampler_prompt()
+    cfg, vcfg, tok, frame, ids = up["cfg"], up["vcfg"], up["tok"], up["frame"], up["ids"]
+    patches, spliced, bucket = up["patches"], up["spliced"], up["bucket"]
+    name = f"K1vit Pixtral-12B tower self-attention (bf16, d 64, {patches} patches)"
+    kern = {name: _attention_case(name, (1, patches, vcfg.num_heads, vcfg.head_dim),
+                                  (1, patches, vcfg.num_heads, vcfg.head_dim), torch.bfloat16,
+                                  ATTN_TOL, gen), **_upsampler_k8_cases(gen, up)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    text_model = G._build_ar(cfg, "cuda").init_random(gen)
+    vision = V.VisionEncoder(vcfg, device="cuda").init_random(gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    up = P.VLMPromptUpsampler(text_model, vision, tok, 10, UPSAMPLER_NEW_TOKENS)
+    runs = {}
+    for path, frames in (("vlm", frame), ("text", None)):
+        kernels.reset_launch_counts()
+        before = dict(kernels.route_counts)
+        t0 = time.perf_counter()
+        out = up.upsample(GUARD_PROMPT, frames=frames)
+        torch.cuda.synchronize()
+        runs[path] = {"s": time.perf_counter() - t0, "chars": len(out),
+                      "new_ids": tok.decoded[-1].tolist(),
+                      "launches": {k: kernels.launch_counts[k] for k in ("K8", "K1vit")},
+                      "routes": route_delta(before)}
+    text_cut = _ar_cut_check(text_model, ids[ids != 10][None], UPSAMPLER_NEW_TOKENS)
+    # the vision cut: the tower's first two layers and the projector
+    vcut_cfg = V.VisionConfig(num_layers=GUARD_CUT_LAYERS, dtype=torch.bfloat16)
+    with torch.device("meta"):
+        vcut = V.VisionEncoder(vcut_cfg)
+    vcut.patch_conv, vcut.ln_pre = vision.patch_conv, vision.ln_pre
+    vcut.multi_modal_projector = vision.multi_modal_projector
+    vcut.transformer.layers = torch.nn.ModuleList(list(vision.transformer.layers[
+        :GUARD_CUT_LAYERS]))
+    image = torch.from_numpy(up._prepare_frame(frame))
+    got = V.vision_encode(vcut, image.cuda()).float().cpu()
+    vcpu = V.VisionEncoder(V.VisionConfig(num_layers=GUARD_CUT_LAYERS), device="meta")
+    vcpu = vcpu.to_empty(device="cpu")
+    vcpu.load_state_dict({k: v.float().cpu() for k, v in vcut.state_dict().items()})
+    t0 = time.perf_counter()
+    want = V.vision_encode(vcpu, image)
+    vision_cpu_s = time.perf_counter() - t0
+    n_text = sum(p.numel() for p in text_model.parameters())
+    res = {"text_model": {"params": n_text, "dim": cfg.dim, "layers": cfg.n_layers,
+                          "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+                          "vocab": cfg.vocab_size, "max_seq_len": cfg.max_seq_len},
+           "vision": {"params": sum(p.numel() for p in vision.parameters()),
+                      "width": vcfg.hidden_size, "layers": vcfg.num_layers,
+                      "heads": vcfg.num_heads, "patches": patches},
+           "frame": list(frame.shape[1:]), "prepared": list(image.shape),
+           "spliced_tokens": spliced, "bucket": bucket, "new_tokens": UPSAMPLER_NEW_TOKENS,
+           "build_s": build_s, "runs": {k: {kk: r[kk] for kk in ("s", "chars", "launches",
+                                                                   "routes")}
+                                        for k, r in runs.items()},
+           "text_cut": text_cut, "vision_cut": {"layers": GUARD_CUT_LAYERS,
+                                                "err": _cut_rel_err(got, want),
+                                                "cpu_s": vision_cpu_s},
+           "cut_tol": GUARD_CUT_TOL,
+           "kernel_cases": {k: _case_summary(r) for k, r in kern.items()},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del up, text_model, vision, vcut, vcpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t_phase
+    emit("upsampler", **res)
+    k8 = cfg.n_layers * UPSAMPLER_NEW_TOKENS
+    want_launches = {"vlm": {"K8": k8, "K1vit": vcfg.num_layers},
+                     "text": {"K8": k8, "K1vit": 0}}
+    if ({k: r["launches"] for k, r in runs.items()} != want_launches
+            or runs["vlm"]["routes"].get("mma_sync")):
+        raise AssertionError(f"upsampler: {res}")
+    routes = [c["route"] for n, c in kern.items() if n.startswith("K8")]
+    if routes != ["decode", "wgmma"]:
+        raise AssertionError(f"upsampler: K8 took another body at rep 5: {routes}")
+    if (not text_cut["finite"] or any(text_cut["err"][k] > GUARD_CUT_TOL[k] for k in GUARD_CUT_TOL)
+            or any(res["vision_cut"]["err"][k] > GUARD_CUT_TOL[k] for k in GUARD_CUT_TOL)):
+        raise AssertionError(f"upsampler: the card and the CPU disagree on a cut: {res}")
+    res["kernels"] = kern
+    res["launches"] = {"K8": sum(r["launches"]["K8"] for r in runs.values()),
+                       "K1vit": sum(r["launches"]["K1vit"] for r in runs.values())}
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="gen3c_tpu_torch smoke run on one GPU")
     p.add_argument("--cp-rank", type=int, default=None, help=argparse.SUPPRESS)
@@ -4076,6 +4745,8 @@ def main(argv=None) -> int:
     mv_res = phase_mv_world()
     ar_res = phase_ar_world()
     dd_res = phase_dd(ar_res.pop("grid"))
+    guard_res = phase_guardrail()
+    ups_res = phase_upsampler()
     fast_launches = phase_fast()["launches"]
     phase_fast_parity()
     phase_chain()
@@ -4163,7 +4834,14 @@ def main(argv=None) -> int:
                      "gen3c_tpu/aux/moge.py:159", moge_launches["K1vit"], kern["K1vit"],
                      body="3xtf32", phase_launches={"quality (the tiny fp32 DiT's K1 + K2 + K3)":
                                                     sum(quality_launches[k]
-                                                        for k in ("K1", "K2", "K3"))},
+                                                        for k in ("K1", "K2", "K3")),
+                                                    "guardrail (SigLIP, 121 frames, fp32)":
+                                                    guard_res["launches"]["K1vit"],
+                                                    "upsampler (Pixtral tower, 1 call, bf16)":
+                                                    ups_res["launches"]["K1vit"]},
+                     vision_cases=[{"name": n, **_case_summary(c)}
+                                   for res in (guard_res, ups_res)
+                                   for n, c in res["kernels"].items() if n.startswith("K1vit")],
                      **{k: kern["K1vit"][k] for k in (
                          "bound_share", "fp32_cuda_core_bound_ms", "ms_one_call",
                          "library_ms_one_call")}))
@@ -4192,13 +4870,18 @@ def main(argv=None) -> int:
                      library_call=k8["K8 decode bf16 pos 5,120"]["library_call"],
                      phase_launches={"ar_world bf16 cache": ar_res["runs"]["bf16"]["launches"]["K8"],
                                      "ar_world int8 cache": ar_res["runs"]["int8"]["launches"]["K8"],
-                                     "ar_tiny card": ar_res["tiny_card_vs_cpu"]["card_k8_launches"]},
+                                     "ar_tiny card": ar_res["tiny_card_vs_cpu"]["card_k8_launches"],
+                                     **{f"guardrail {g} (2 runs)": n
+                                        for g, n in guard_res["launches"]["K8"].items()},
+                                     "upsampler (VLM + text)": ups_res["launches"]["K8"]},
                      cases=[{"name": n, **{k: c[k] for k in (
-                         "visible_keys", "ms", "host_and_device_ms", "host_us", "kernels_a_call",
-                         "route", "plain_ms", "library_ms", "library_kernels_a_call",
-                         "library_host_and_device_ms",
+                         "q", "cache", "visible_keys", "ms", "host_and_device_ms", "host_us",
+                         "kernels_a_call", "route", "plain_ms", "library_ms",
+                         "library_kernels_a_call", "library_host_and_device_ms",
                          "bound_ms", "bound_by", "max_abs_err", "plain_heads")}}
-                            for n, c in k8.items()]))
+                            for n, c in {**k8, **{n: c for res in (guard_res, ups_res)
+                                                  for n, c in res["kernels"].items()
+                                                  if n.startswith("K8")}}.items()]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     incomplete = [(r["name"], k) for r in table for k in keys if k not in r]

@@ -14,7 +14,11 @@ carries a training tree across, the logvar head and its {"net", "logvar"}
 wrapper included; ``lora_state_from_jax`` the LoRA adapters;
 ``ar_state_from_jax`` the AR world model's transformer and
 ``dd_state_from_jax`` its diffusion decoder (the DV tokenizer takes
-``vae_state_from_jax``). All take numpy-valued
+``vae_state_from_jax``). The auxiliary models: ``siglip_state_from_jax``
+and ``safety_head_state_from_jax`` (the video safety filter),
+``retinaface_state_from_jax`` (the face blur) and
+``pixtral_vision_state_from_jax`` (the upsampler's vision tower; its text
+model and the LLM guards take ``ar_state_from_jax``). All take numpy-valued
 trees (``jax.device_get`` output, or the numpy and bf16 torch leaves of
 ``utils.checkpoint.load_params_npz_tree``), so this module needs no JAX.
 """
@@ -188,4 +192,115 @@ def dd_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     "token_embedder.weight" (vocab, dim)) -> DiffusionDecoderDiT state_dict."""
     sd = dit_state_from_jax({k: v for k, v in tree.items() if k != "token_embedder.weight"})
     sd["token_embedder.weight"] = _a(tree["token_embedder.weight"])
+    return sd
+
+
+def _lin_b(name: str, entry: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX {"w" (in, out), "b"} linear -> ``name.weight`` (out, in), ``name.bias``."""
+    return {f"{name}.weight": _t(entry["w"]), f"{name}.bias": _a(entry["b"])}
+
+
+def _ln(name: str, entry: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {f"{name}.weight": _a(entry["scale"]), f"{name}.bias": _a(entry["bias"])}
+
+
+def siglip_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """gen3c_tpu SigLIP vision tree (``convert_hf_siglip_vision``) ->
+    aux.siglip.SiglipVisionModel state_dict: the patch matmul back to the
+    (D, 3, ps, ps) convolution weight, the pooling head's q / k / v packed
+    into ``in_proj_weight`` / ``in_proj_bias``."""
+    w = _t(tree["patch"]["w"])  # (D, 3 * ps * ps)
+    ps = int(round((w.shape[1] // 3) ** 0.5))
+    sd = {"embeddings.patch_embedding.weight": w.reshape(w.shape[0], 3, ps, ps).contiguous(),
+          "embeddings.patch_embedding.bias": _a(tree["patch"]["b"]),
+          "embeddings.position_embedding.weight": _a(tree["pos_emb"]),
+          **_ln("post_layernorm", tree["post_ln"])}
+    for i, lp in enumerate(tree["layers"]):
+        pre = f"encoder.layers.{i}"
+        sd.update({**_ln(f"{pre}.layer_norm1", lp["ln1"]), **_ln(f"{pre}.layer_norm2", lp["ln2"]),
+                   **_lin_b(f"{pre}.mlp.fc1", lp["mlp"]["fc1"]),
+                   **_lin_b(f"{pre}.mlp.fc2", lp["mlp"]["fc2"])})
+        for p in ("q", "k", "v", "out"):
+            sd.update(_lin_b(f"{pre}.self_attn.{p}_proj", lp["attn"][p]))
+    head = tree["head"]
+    attn = head["attn"]
+    sd.update({"head.probe": _a(head["probe"]),
+               "head.attention.in_proj_weight": torch.cat([_t(attn[p]["w"]) for p in "qkv"]),
+               "head.attention.in_proj_bias": torch.cat([_a(attn[p]["b"]) for p in "qkv"]),
+               **_lin_b("head.attention.out_proj", attn["out"]), **_ln("head.layernorm", head["ln"]),
+               **_lin_b("head.mlp.fc1", head["mlp"]["fc1"]),
+               **_lin_b("head.mlp.fc2", head["mlp"]["fc2"])})
+    return sd
+
+
+def _bn(name: str, entry: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {f"{name}.weight": _a(entry["scale"]), f"{name}.bias": _a(entry["bias"]),
+            f"{name}.running_mean": _a(entry["mean"]), f"{name}.running_var": _a(entry["var"])}
+
+
+def safety_head_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """gen3c_tpu safety classifier tree ({"fc1", "bn1", "fc2", "bn2", "fc3"})
+    -> aux.siglip.SafetyClassifier state_dict (``layers.{0,1,3,4,6}``)."""
+    sd = {**_lin_b("layers.0", tree["fc1"]), **_bn("layers.1", tree["bn1"]),
+          **_lin_b("layers.3", tree["fc2"]), **_bn("layers.4", tree["bn2"]),
+          **_lin_b("layers.6", tree["fc3"])}
+    for idx in (1, 4):
+        sd[f"layers.{idx}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def retinaface_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """gen3c_tpu RetinaFace tree (``init_retinaface_params`` /
+    ``convert_retinaface``) -> aux.retinaface.RetinaFace state_dict, under
+    Resnet50_Final.pth's names."""
+    def conv(name, p):
+        out = {f"{name}.weight": _a(p["w"])}
+        if "b" in p:
+            out[f"{name}.bias"] = _a(p["b"])
+        return out
+
+    def cbn(name, p):
+        return {**conv(f"{name}.0", p["conv"]), **_bn(f"{name}.1", p["bn"])}
+
+    body = tree["body"]
+    sd = {**conv("body.conv1", body["conv1"]), **_bn("body.bn1", body["bn1"])}
+    for li in ("layer1", "layer2", "layer3", "layer4"):
+        for i, blk in enumerate(body[li]):
+            pre = f"body.{li}.{i}"
+            for c in ("1", "2", "3"):
+                sd.update({**conv(f"{pre}.conv{c}", blk[f"conv{c}"]),
+                           **_bn(f"{pre}.bn{c}", blk[f"bn{c}"])})
+            if "downsample" in blk:
+                sd.update(cbn(f"{pre}.downsample", blk["downsample"]))
+    for k, p in tree["fpn"].items():
+        sd.update(cbn(f"fpn.{k}", p))
+    for i in range(3):
+        for k, p in tree[f"ssh{i + 1}"].items():
+            sd.update(cbn(f"ssh{i + 1}.{k}", p))
+        sd.update(conv(f"ClassHead.{i}.conv1x1", tree["ClassHead"][i]))
+        sd.update(conv(f"BboxHead.{i}.conv1x1", tree["BboxHead"][i]))
+    return sd
+
+
+def pixtral_vision_state_from_jax(tree: Mapping[str, Any], num_channels: int = 3
+                                  ) -> Dict[str, torch.Tensor]:
+    """gen3c_tpu Pixtral vision tree (``init_vision_params`` /
+    ``convert_hf_pixtral_vision``) -> aux.vision_encoder.VisionEncoder
+    state_dict: the (C * P * P, D) patch matmul back to the (D, C, P, P)
+    convolution, the linears to (out, in), the projector's biases."""
+    w = _t(tree["patch_conv"])  # (D, C * P * P)
+    P = int(round((w.shape[1] // num_channels) ** 0.5))
+    sd = {"patch_conv.weight": w.reshape(w.shape[0], num_channels, P, P).contiguous(),
+          "ln_pre.weight": _a(tree["ln_pre"]["scale"])}
+    names = {"q": "attention.q_proj", "k": "attention.k_proj", "v": "attention.v_proj",
+             "o": "attention.o_proj", "gate": "feed_forward.gate_proj",
+             "up": "feed_forward.up_proj", "down": "feed_forward.down_proj"}
+    for i, lp in enumerate(tree["layers"]):
+        pre = f"transformer.layers.{i}"
+        sd[f"{pre}.attention_norm.weight"] = _a(lp["attention_norm"]["scale"])
+        sd[f"{pre}.ffn_norm.weight"] = _a(lp["ffn_norm"]["scale"])
+        for k, name in names.items():
+            sd[f"{pre}.{name}.weight"] = _t(lp[k])
+    for part in ("linear_1", "linear_2"):
+        sd.update(_lin_b(f"multi_modal_projector.{part}", tree["projector"][part]))
     return sd

@@ -47,7 +47,8 @@ def run_chunked_generation(
     ``on_chunk(chunks_done, num_chunks, video_so_far)`` is called after
     every finished chunk. ``cancel_event.is_set()`` is polled before the
     first render and before each later chunk, and raises
-    ``GenerationCancelled``: a running chunk finishes first.
+    ``GenerationCancelled``: a running chunk finishes first. A chunk that
+    the pipeline's guardrails block raises ``RuntimeError``.
 
     ``use_start_frame_idx`` renders the window [start, end) of a
     per-frame cache (``Cache4D``) from its own source frames.
@@ -92,10 +93,12 @@ def run_chunked_generation(
 
     def generate(seed, wi, wm):
         t0 = time.perf_counter()
-        video, _ = pipeline.generate(prompt=prompt, image_frames=seed, rendered_warp_images=wi,
-                                     rendered_warp_masks=wm, negative_prompt=negative_prompt)
+        out = pipeline.generate(prompt=prompt, image_frames=seed, rendered_warp_images=wi,
+                                rendered_warp_masks=wm, negative_prompt=negative_prompt)
+        if out is None:
+            raise RuntimeError("Generation blocked by guardrail")
         timings["generate"].append(time.perf_counter() - t0)
-        return video
+        return out[0]
 
     def check_cancel():
         if cancel_event is not None and cancel_event.is_set():

@@ -6,6 +6,11 @@ gen3c_tpu/pipelines/gen3c_pipeline.py).
   warped buffers + masks -> per-buffer VAE latents (pose conditioning)
   -> EDM-Euler denoise with batched CFG -> VAE decode -> uint8 frames
 
+A text guardrail (``aux.guardrail.GuardrailRunner``) refuses a prompt before
+any encode, a video guardrail the decoded frames after the decode (its
+post-processing, the face blur, applied to the uint8 frames it passes):
+``generate`` then returns None.
+
 Sampling is Euler, dpm2m or res2ab (``solver``) with the JAX package's
 guidance interval, CFG rescale and step caching (fixed-interval, adaptive,
 or of a span of blocks when the model's DiT has one).
@@ -39,6 +44,10 @@ class Gen3cPipeline:
     # encode_prompts(prompt) -> (embeddings, mask), e.g. models.t5's
     # T5TextEncoder; None: zero embeddings (DummyT5TextEncoder)
     text_encoder: Optional[object] = None
+    # aux.guardrail.GuardrailRunner-like: run(prompt) -> bool; run(frames)
+    # -> the post-processed frames, or None when blocked
+    text_guardrail: Optional[object] = None
+    video_guardrail: Optional[object] = None
     guidance: float = 1.0
     num_steps: int = 35
     step_cache_interval: int = 1
@@ -74,8 +83,12 @@ class Gen3cPipeline:
         rendered_warp_masks: torch.Tensor,  # (B, F, N, 1, H, W)
         negative_prompt: Optional[str] = None,
         seed: Optional[int] = None,
-    ) -> Tuple[np.ndarray, str]:
-        """Generate one chunk: ((T, H, W, 3) uint8 frames, prompt)."""
+    ) -> Optional[Tuple[np.ndarray, str]]:
+        """Generate one chunk: ((T, H, W, 3) uint8 frames, prompt), or None
+        when a guardrail blocks the prompt or the video."""
+        if self.text_guardrail is not None and not self.text_guardrail.run(prompt):
+            log.warning("Guardrail blocked the prompt.")
+            return None
         dev = self.model.device
         timings = {"denoise_steps": []}
         t0 = time.perf_counter()
@@ -138,4 +151,9 @@ class Gen3cPipeline:
                  for s in timings["denoise_steps"]]
         log.info(f"denoise steps {steps}s (c: condition-only, *: cached), "
                  f"decode {timings['decode']:.2f}s")
+        if self.video_guardrail is not None:
+            frames_u8 = self.video_guardrail.run(frames_u8)
+            if frames_u8 is None:
+                log.warning("Guardrail blocked the generated video.")
+                return None
         return frames_u8, prompt

@@ -11,6 +11,8 @@ import torch
 
 L2_FLUSH_BYTES = 128 << 20  # read before each timed call: over twice the H100's 50 MB L2
 HOST_SLEEP_CYCLES = 200_000_000  # ~0.1 s of the card asleep while host time is taken
+# the records of one kernel name a device_ms try may lose and still count
+LOST_RECORDS = 2
 
 
 def nvidia_smi_line() -> str:
@@ -32,21 +34,44 @@ def randomize_gates(net: torch.nn.Module, gen: torch.Generator) -> None:
                 p.copy_(0.1 * torch.randn(p.shape, generator=gen, device=p.device))
 
 
+def records_a_call(profiles: list, calls: int):
+    """From fn's (name, µs) records in profiles of ``calls`` and 2 x
+    ``calls`` calls: (µs a call, each name's count a call, the records
+    lost), or None where a profile lacks a name, a count is not whole or a
+    name lost more than LOST_RECORDS records. A name's count a call is its
+    records over 3 x ``calls`` rounded; its time the count times the mean of
+    its kept durations."""
+    names = {n for p in profiles for n, _ in p}
+    if not names or any({n for n, _ in p} != names for p in profiles):
+        return None
+    durations = {n: [us for p in profiles for m, us in p if m == n] for n in names}
+    per_call = {n: round(len(d) / (3 * calls)) for n, d in durations.items()}
+    lost = {n: per_call[n] * 3 * calls - len(d) for n, d in durations.items()}
+    if any(per_call[n] < 1 or not 0 <= lost[n] <= LOST_RECORDS for n in names):
+        return None
+    us = sum(per_call[n] * sum(d) / len(d) for n, d in durations.items())
+    return us, per_call, sum(lost.values())
+
+
 def device_ms(fn, calls: int = 20, tries: int = 5) -> dict:
-    """The device's time for one call of fn, from torch.profiler: the sum of
-    the durations of the kernels (and copies) fn launches, over ``calls``
-    calls, each after a read of L2_FLUSH_BYTES, so that fn reads its inputs
-    from HBM as a caller between other work does (a read, since a write
-    would leave the L2 dirty and fn's reads would pay for its write-back);
-    the read's own kernels are known by name from a profile of the read
-    alone and left out. The host's time between launches does not count,
-    so a call whose host work exceeds its kernels is timed by its kernels.
-    A profile now and then holds no kernel or loses some (seen on an H100),
-    and a sum of durations then reads short, so a reading counts only where
-    the read's profile holds kernels and the profile of the calls holds
-    ``calls`` times the kernels of a profile of one call; it is taken again
-    up to ``tries`` times, and raises RuntimeError after that.
-    {"ms", "kernels" a call, "names", "tries": per try the counts above}."""
+    """The device's time for one call of fn, from torch.profiler's kernel
+    (and copy) records, over ``calls`` calls, each after a read of
+    L2_FLUSH_BYTES, so that fn reads its inputs from HBM as a caller between
+    other work does (a read, since a write would leave the L2 dirty and fn's
+    reads would pay for its write-back); the read's own kernels are known by
+    name from a profile of ``calls`` reads alone and left out. The host's
+    time between launches does not count, so a call whose host work exceeds
+    its kernels is timed by its kernels.
+
+    The profiler can lose records (seen on an H100: one or two of a
+    profile's, now and then all of them, more often the longer the process
+    has run; not at the edges of its window only, since one was still lost
+    behind a 10 ms sleep at a profile's start). So a reading does not need
+    every record: ``records_a_call`` over two profiles, of ``calls`` and 2 x
+    ``calls`` calls. A try that it refuses is taken again, up to ``tries``
+    times, and RuntimeError is raised after that.
+    {"ms", "kernels" a call, "names", "tries": per try (the read's names,
+    fn's records in each profile, the records lost or None)}."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -64,19 +89,22 @@ def device_ms(fn, calls: int = 20, tries: int = 5) -> dict:
     fn()
     seen = []
     for _ in range(tries):
-        flush_names = {e.name for e in device_events(1, False)}
-        one, events = ([[e for e in device_events(n, True) if e.name not in flush_names]
-                        for n in (1, calls)] if flush_names else ([], []))
-        seen.append([len(flush_names), len(one), len(events)])
-        if one and len(events) == calls * len(one):
+        flush_names = {e.name for e in device_events(calls, False)}
+        profiles = [[(e.name, e.time_range.end - e.time_range.start)
+                     for e in device_events(n, True) if e.name not in flush_names]
+                    for n in (calls, 2 * calls)] if flush_names else [[], []]
+        got = records_a_call(profiles, calls)
+        seen.append([len(flush_names), [len(p) for p in profiles], got and got[2]])
+        if got:
             break
     else:
-        raise RuntimeError(f"device_ms: (read's kernel names, kernels of one call, kernels of "
-                           f"{calls} calls) a try {seen}: the profiles lost kernels")
+        raise RuntimeError(f"device_ms: (read's kernel names, fn's records in profiles of "
+                           f"{calls} and {2 * calls} calls, records lost) a try {seen}: the "
+                           "profiles lost too many records")
     del flush
-    us = sum(e.time_range.end - e.time_range.start for e in events)
-    return {"ms": us / calls / 1e3, "kernels": len(one),
-            "names": sorted({e.name for e in events}), "tries": seen}
+    us, per_call, _ = got
+    return {"ms": us / 1e3, "kernels": sum(per_call.values()), "names": sorted(per_call),
+            "tries": seen}
 
 
 def host_us(fn, calls: int = 20) -> float:

@@ -1010,3 +1010,69 @@ def test_gqa_kernel_strided_cache_and_rejects(gen):
         kernels.gqa_attention(q, cache[1].float(), cache[2].float(), 50)
     with pytest.raises(ValueError):
         kernels.gqa_attention(q[:, :, :7], cache[1], cache[2], 50)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,offset,start", [
+    (1, 1, 4096, 32, 8, 256, (56,)),    # Llama-Guard-3-8B decode: rep 4, a short cache
+    (1, 1, 4096, 32, 32, 256, (56,)),   # LlamaGuard-7b (Aegis) decode: rep 1, B * Hkv = 32
+    (1, 1, 4300, 40, 8, 2431, (91,)),   # the upsampler's text model decode: rep 5
+    (1, 1, 4300, 40, 8, 3, None),       # rep 5 at pos 3: most splits see no key
+    (1, 256, 4096, 32, 32, 0, (56,)),   # Aegis prefill: rep 1, left padding
+    (1, 256, 4096, 32, 8, 0, (56,)),    # Llama-Guard-3 prefill
+    (1, 2432, 4300, 40, 8, 0, (91,)),   # the VLM's spliced prefill: rep 5
+    (2, 37, 300, 40, 8, 100, (5, 130)),  # rep 5, a ragged chunk past pad rows
+])
+def test_gqa_kernel_at_the_guard_and_upsampler_shapes(gen, int8, B, Lq, Lk, Hq, Hkv, offset,
+                                                      start):
+    """K8 at rep 4, rep 1 (the decode's m16 tile holds one real row, and
+    gqa_plan divides the CTAs by B * Hkv = 32) and rep 5, over caches of
+    the guards' capacity, against its plain version on every row that sees
+    a key (bf16 atol 2e-2, the decode also relative to mean |plain|)."""
+    q, k, v, ks, vs = _gqa_inputs(gen, B, Lq, Lk, Hq, Hkv, 128, torch.bfloat16, int8)
+    kv_start = None if start is None else torch.tensor(start, device="cuda")
+    route = kcuda.gqa_route(q, k, v, int8)
+    assert route == ("decode" if Lq * Hq // Hkv <= 16 else "mma_sync" if int8 else "wgmma")
+    if route == "decode":
+        splits = kcuda.gqa_plan(B, Lq, Hq, Hkv, Lk, kcuda._sm_count(0), int8)
+        want = kcuda.GQA_DECODE_CTAS_PER_SM[int8] * kcuda._sm_count(0) // (B * Hkv)
+        assert splits == max(1, min(want, -(-Lk // kcuda.GQA_TILE_KEYS)))
+    kernels.reset_launch_counts()
+    out = kernels.gqa_attention(q, k, v, offset, kv_start, ks, vs)
+    again = kernels.gqa_attention(q, k, v, offset, kv_start, ks, vs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["K8"] == 2 and torch.equal(out, again)
+    ref = reference.gqa_attention_reference(q, k, v, offset, kv_start, ks, vs)
+    seen = torch.ones((B, Lq), dtype=torch.bool, device="cuda")
+    if kv_start is not None:
+        seen = (offset + torch.arange(Lq, device="cuda"))[None] >= kv_start[:, None]
+    assert torch.allclose(out[seen].float(), ref[seen].float(), atol=2e-2, rtol=0)
+    if route == "decode":
+        assert _within_decode_tol(out[seen], ref[seen]), _rel_errs(out[seen], ref[seen])
+    assert (out[~seen] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["siglip self", "siglip probe", "pixtral"])
+def test_k1vit_at_the_vision_shapes(gen, case):
+    """kernels.attention counted "K1vit" at SigLIP so400m's fp32 shapes (d =
+    72, zero-padded to 128 in attention_f32.cu: the self-attention on views
+    of one projection, the pooling head's one probe query over 729 keys;
+    atol 1e-4) and Pixtral-12B's bf16 tower (d = 64, the wgmma body; atol
+    2e-2)."""
+    if case == "pixtral":
+        q, k, v = (torch.randn((2240, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+                   .reshape(1, 2240, 16, 64) for _ in range(3))
+        atol, route = 2e-2, "wgmma"
+    else:
+        x = torch.randn((2, 729, 3 * 1152), generator=gen, device="cuda")
+        q, k, v = (t.reshape(2, 729, 16, 72) for t in x.chunk(3, dim=-1))
+        if case == "siglip probe":
+            q = torch.randn((2, 1, 16, 72), generator=gen, device="cuda")
+        atol, route = 1e-4, "fp32"
+    assert kcuda.attention_route(q, k, v) == route
+    kernels.reset_launch_counts()
+    out = kernels.attention(q, k, v, kernel_id="K1vit")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["K1vit"] == 1
+    assert kernels.route_counts["wgmma"] == (route == "wgmma")
+    assert (out.float() - attention_reference(q, k, v).float()).abs().max().item() <= atol

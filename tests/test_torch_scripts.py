@@ -151,6 +151,27 @@ def test_compare_gqa_builds_usage_and_cases():
     assert callable(cgb.card().device_ms) and callable(cgb.card().host_us)
 
 
+@pytest.mark.parametrize("lost", [0, 1, 2, 3])
+def test_device_ms_counts_a_call_from_the_records_kept(lost):
+    """card.records_a_call on hand-made profiles of 20 and 40 calls of two
+    kernels (8 and 2 µs, one of each a call): each name's count a call and
+    its mean kept duration give the time whichever records the profiler
+    lost, up to LOST_RECORDS of a name; more lost, a name missing from a
+    profile or a count that is not whole is refused."""
+    from gen3c_tpu_torch.scripts import card
+
+    calls = 20
+    short, long = ([("k", 8.0), ("m", 2.0)] * n for n in (calls, 2 * calls))
+    got = card.records_a_call([short[2 * lost:], long], calls)  # lose `lost` of each name
+    if lost <= card.LOST_RECORDS:
+        assert got == (10.0, {"k": 1, "m": 1}, 2 * lost)
+    else:
+        assert got is None
+    assert card.records_a_call([short, [r for r in long if r[0] == "k"]], calls) is None
+    assert card.records_a_call([short + [("k", 8.0)] * calls, long], calls) is None
+    assert card.records_a_call([[], []], calls) is None
+
+
 def test_compare_gqa_builds_refuses_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal without a card")
