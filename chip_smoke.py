@@ -66,10 +66,10 @@ Phases, each printing one JSON line of its own numbers:
              one card, each a rank (torchrun's environment, gloo: NCCL
              refuses two ranks of a communicator on one GPU) that builds
              the 7B from main_path's seeds through build_gen3c_model and runs
-             main_path's chunk through its entry point: Ulysses over all
-             28 blocks, held to main_path's latent, then ring, all-gather
-             and cfg2 at CP_SHORT_BLOCKS blocks, held to the single process
-             at that depth within CP_NOISE_FACTOR times the bf16 noise floor
+             main_path's chunk through its entry point: Ulysses, ring,
+             all-gather and cfg2 at CP_SHORT_BLOCKS blocks, held to the
+             single process at that depth within CP_NOISE_FACTOR times the
+             bf16 noise floor
              measured there (the single process with its CFG pair as two
              B = 1 calls), not below CP_TOL; per rank s per step, the bytes each
              collective moved, peak GiB and launches (K1cp, K1ring +
@@ -101,14 +101,15 @@ Phases, each printing one JSON line of its own numbers:
              /metadata: seconds of each, job A's generate / chain / depth /
              fetch split, the fetch's bytes, peak GiB and the launches of
              K1, K2 (28 x MAIN_STEPS x 3 chunks), K5 and K1vit (24 x 2)
- 20 span     span caching on main_path's 7B, before it is freed: the
-             blocks ranked by rank_block_contributions at one noise level
-             (one B = 1 forward), the lowest 14-block span, then
-             SPAN_STEPS = 6 steps of interval 2 with the bf16 carry on the
-             121-frame chunk through Gen3CModel.generate_samples: each
-             step's kind and s, the carry's bytes, peak GiB, and K1 = K2 =
-             5 x 28 + (28 - 14) launches after the ranking (the skip step
-             ran only the blocks outside the span); then the int8 and the
+ 20 span     span caching on main_path's 7B, before it is freed, on its
+             first SPAN_BLOCKS = 8 of 28 blocks: the blocks ranked by
+             rank_block_contributions at one noise level (one B = 1
+             forward), the lowest 4-block span, then SPAN_STEPS = 6 steps of
+             interval 2 with the bf16 carry on the 121-frame chunk through
+             Gen3CModel.generate_samples: each step's kind and s, the carry's
+             bytes, peak GiB, and K1 = K2 = 5 x 8 + (8 - 4) launches after
+             the ranking (the skip step ran only the blocks outside the
+             span); then the int8 and the
              bf16 carries over SPAN_SHORT_T = 4 latent frames (14,080
              tokens, to hold the time) at the 7B's width, their launches
              and the int8 result against the bf16 one
@@ -212,6 +213,23 @@ Phases, each printing one JSON line of its own numbers:
              400: s, launches (K8 40 x 32, K1vit 24 a frame); 2-layer cuts
              of the text model and of the tower (+ projector), card
              against CPU
+ 31 tokenizer_train  tokenizer_train_step (AdamW) on the seeded CV8x8x8 at
+             the default VAEConfig's full width, a 17-frame 256x256 clip,
+             TOK_TRAIN_STEPS = 3 steps with every term (LPIPS VGG16 + gram,
+             RAFT-Large at scale 2 with 12 updates, consistency windows 9 /
+             8): s per step, peak GiB, each term; 2 steps of the tokenizer
+             CLI (--perceptual lpips --w_flow 1 --flow_estimator raft); one
+             step's terms and grad norm on a 17x64x64 cut at full width,
+             card against CPU (TF32 off, TOK_PARITY_TOL)
+ 32 ar_train K8bwd (K8's backward) against its plain version at the 4B's
+             causal (1, 12,800, 32 / 8, 128), a left-padded batch, the
+             cross-attention's non-causal 512 keys and ar_tiny's fp32, beside
+             SDPA's backward and the bound; then ar_train_step on the seeded
+             ar_4b, all 16 layers, over the 12,800-token grid, B = 1,
+             AR_TRAIN_STEPS = 3 steps with per-layer remat: s per step, peak
+             GiB, loss, grad norm, K8 (32) and K8bwd (16) launches a step;
+             a 2-layer cut at full width over 256 tokens, card (bf16)
+             against CPU (fp32) within AR_PARITY_TOL
 Every bf16 attention case of phase 3 also prints its launches by body
 (kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
 registers, stack and spill bytes (ptxas -v, the build log) and dynamic
@@ -272,6 +290,7 @@ import copy
 import gc
 import io
 import json
+import math
 import os
 import shutil
 import socket
@@ -348,7 +367,7 @@ TRAIN_STEPS = 1
 CP_SIZES = (2, 4, 8)  # K1cp's shard shapes: (2, 56,320, 32 / cp, 128)
 RING_CP_SIZES = (2, 4)  # K1ring's: (2, 56,320 / cp, 32, 128), cp = 2 the cp phase's
 CP_RANKS = 2  # the cp phase: two ranks on the one card
-CP_SHORT_BLOCKS = 4  # of 28: the depth of the ring, all-gather and cfg2 runs
+CP_SHORT_BLOCKS = 4  # of 28: the depth of every cp run and of its single-process reference
 # a rank's latent against the single process's, relative to mean
 # |reference|: both are bf16 7B forwards, but each rank's linears run on half
 # the rows (cuBLAS tiles them otherwise, and bf16 rounds each output), so
@@ -1755,11 +1774,11 @@ def _rel_diff(got: np.ndarray, ref: np.ndarray) -> dict:
             "rel_max": float(d.max()) / scale, "rel_mean": float(d.mean()) / scale}
 
 
-def phase_cp_reference(model, preset, main_latent: np.ndarray) -> dict:
-    """What the cp phase is held to: the single-process latents (main_path's
-    for the 28-block run, main_path's chunk and steps at CP_SHORT_BLOCKS
-    blocks for the others) and, at both depths, the bf16 noise floor: how
-    far the same single process moves when it runs one sample at a time."""
+def phase_cp_reference(model, preset) -> dict:
+    """What the cp phase is held to: the single-process latent (main_path's
+    chunk and steps at CP_SHORT_BLOCKS blocks) and the bf16 noise floor
+    there: how far the same single process moves when it runs one sample at
+    a time."""
     def run(blocks, one_at_a_time):
         net = model.net
         if one_at_a_time:
@@ -1773,15 +1792,14 @@ def phase_cp_reference(model, preset, main_latent: np.ndarray) -> dict:
         return pipeline.last_samples.float().cpu().numpy()
 
     short = run(CP_SHORT_BLOCKS, False)
-    noise = {"full": _rel_diff(run(None, True), main_latent),
-             "short": _rel_diff(run(CP_SHORT_BLOCKS, True), short)}
+    noise = {"short": _rel_diff(run(CP_SHORT_BLOCKS, True), short)}
     torch.cuda.empty_cache()
     emit("cp_reference", blocks=CP_SHORT_BLOCKS, one_sample_at_a_time=noise)
     return {"short": short, "noise": noise}
 
 
 # the cp phase's runs, in order: (name, parallel strategy, cp_attn, blocks)
-CP_RUNS = (("ulysses", "cp", "ulysses", None), ("ring", "cp", "ring", CP_SHORT_BLOCKS),
+CP_RUNS = (("ulysses", "cp", "ulysses", CP_SHORT_BLOCKS), ("ring", "cp", "ring", CP_SHORT_BLOCKS),
            ("allgather", "cp", "allgather", CP_SHORT_BLOCKS),
            ("cfg2", "cfg2", "allgather", CP_SHORT_BLOCKS))
 
@@ -1851,12 +1869,11 @@ def cp_worker(rank: int, port: int, out_dir: str) -> int:
     return 0
 
 
-def phase_cp(main_latent: np.ndarray, refs: dict) -> dict:
-    """CP_RANKS ranks of the 7B on the one card (cp_worker, gloo): Ulysses
-    over all 28 blocks against main_path's single-process latent, and
+def phase_cp(refs: dict) -> dict:
+    """CP_RANKS ranks of the 7B on the one card (cp_worker, gloo): Ulysses,
     ring, all-gather and cfg2 at CP_SHORT_BLOCKS blocks against
-    phase_cp_reference's, each within CP_NOISE_FACTOR times that depth's
-    noise floor (not below CP_TOL). The ranks share the card and their
+    phase_cp_reference's single-process latent, each within CP_NOISE_FACTOR
+    times its noise floor (not below CP_TOL). The ranks share the card and their
     collectives go through host memory: none of these times is a
     multi-card time."""
     with socket.socket() as s:
@@ -1898,8 +1915,7 @@ def phase_cp(main_latent: np.ndarray, refs: dict) -> dict:
                    "(gloo): no time here is a multi-card time", "runs": {}}
     bad = []
     for name, _, _, blocks in CP_RUNS:
-        ref = main_latent if blocks is None else refs["short"]
-        noise = refs["noise"]["full" if blocks is None else "short"]
+        ref, noise = refs["short"], refs["noise"]["short"]
         tol = {k: max(CP_TOL[k], CP_NOISE_FACTOR * noise[f"rel_{k}"]) for k in ("max", "mean")}
         run = {"rank": [r["runs"][name] for r in ranks], "tol": tol,
                **_rel_diff(np.load(os.path.join(out_dir, f"cp_{name}.npy")), ref)}
@@ -3089,6 +3105,7 @@ SPAN_PATTERN = [True, True, True, False, True, True]
 # the int8 carry (and a bf16 one beside it) at the 7B's width over 4 of
 # the chunk's 16 latent frames (14,080 tokens), to hold the phase's time
 SPAN_SHORT_T = 4
+SPAN_BLOCKS = 8  # of 28: the depth span caching runs at (its span: half of them)
 # 3 steps each: the fewest at which a step (the second) has a next sigma
 # above 0 and so takes dpm2m's and res2ab's multistep update on the card
 T2W_STEPS = 3
@@ -3138,7 +3155,20 @@ def _timed_steps(device, steps: list):
 
 
 def phase_span(model, preset) -> dict:
-    """Span caching on main_path's GEN3C-7B (phase 20 of the docstring)."""
+    """Span caching on main_path's GEN3C-7B at its first SPAN_BLOCKS blocks
+    (phase 20 of the docstring)."""
+    import dataclasses
+
+    net, cfg = model.net, model.net.cfg
+    with _depth(net, SPAN_BLOCKS):
+        net.cfg = dataclasses.replace(cfg, num_blocks=SPAN_BLOCKS)
+        try:
+            return _span_run(model, preset, net, net.cfg, SPAN_BLOCKS)
+        finally:
+            net.cfg = cfg
+
+
+def _span_run(model, preset, net, cfg, n: int) -> dict:
     import dataclasses
 
     from gen3c_tpu_torch import kernels
@@ -3146,8 +3176,6 @@ def phase_span(model, preset) -> dict:
     from gen3c_tpu_torch.models.gen3c import dit_net_fns
     from gen3c_tpu_torch.scripts.rank_block_contributions import best_span, block_contributions
 
-    net, cfg = model.net, model.net.cfg
-    n = cfg.num_blocks
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     per_block = block_contributions(net, preset.state_shape, num_sigmas=1, seed=0)
@@ -4711,6 +4739,386 @@ def phase_upsampler() -> dict:
     return res
 
 
+# ------------------ the rest of training: the tokenizer and AR trainers ------------------
+
+AR_TRAIN_TOKENS = 12800  # the 4B's (5, 40, 64) grid
+# per gradient, max |kernel - plain| over max |plain| and mean over mean: bf16 P and dS
+# feed the tensor cores (2^-9 relative a term) and the outputs round to bf16 (2^-9)
+K8BWD_TOL = {"max": 2e-2, "mean": 4e-3}
+K8BWD_F32_TOL = {"max": 1e-5, "mean": 1e-5}  # fp32 on the CUDA cores, sums in another order
+K8BWD_PLAIN_GROUP = 1  # KV-head groups the plain version checks at the 4B's widths
+
+
+def _k8bwd_case(gen, name: str, B: int, Lq: int, Lk: int, Hq: int, Hkv: int, D: int,
+                dtype, causal: Optional[int], pad=None, plain_groups: Optional[int] = None
+                ) -> dict:
+    """K8bwd (``cuda.gqa_attention_bwd``) after K8's forward with lse on
+    seeded q (B, Lq, Hq, D), k/v (B, Lk, Hkv, D), dout like q, held to
+    ``gqa_attention_backward_reference`` (fp32) on ``plain_groups`` KV-head
+    groups (all by default) per gradient: the largest error relative to
+    the plain version's largest |gradient|, the mean error to its mean. pad: per-row kv_valid_start; the query rows that then
+    see no key get dout 0 for the comparison (the plain version averages
+    every key there, the kernel adds nothing), and a second backward with
+    their dout kept must give them dq 0 and finite values everywhere.
+    Timed (CUDA events, the backward alone: Delta, dK/dV, dQ) beside SDPA's
+    backward (``is_causal`` / non-causal, ``enable_gqa``; padded: its dense
+    boolean mask) and the plain version; the bound counts FlashAttention-2's
+    five products over the visible pairs."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import cuda
+
+    t_case = time.perf_counter()
+    q = torch.randn((B, Lq, Hq, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, Lk, Hkv, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    dout = torch.randn((B, Lq, Hq, D), generator=gen, device="cuda").to(dtype)
+    start = None if pad is None else torch.tensor(pad, dtype=torch.int64, device="cuda")
+    out, lse = cuda.gqa_attention_fwd_lse(q, k, v, causal, start)
+    qpos = torch.arange(Lq, device="cuda")
+    kpos = torch.arange(Lk, device="cuda")
+    lo = torch.zeros(B, dtype=torch.int64, device="cuda") if start is None else start
+    last = (qpos + causal)[None].clamp(max=Lk - 1) if causal is not None else \
+        torch.full((1, Lq), Lk - 1, device="cuda")
+    seen = (last - lo[:, None] + 1).clamp(min=0)  # (B, Lq) visible keys a row
+    none = seen == 0  # rows that see no key
+    res = {"name": name, "q": [B, Lq, Hq, D], "kv": [B, Lk, Hkv, D], "dtype": str(dtype),
+           "causal_offset": causal, "kv_valid_start": pad, "rows_without_keys": int(none.sum())}
+    if none.any():
+        dq_all, dk_all, dv_all = cuda.gqa_attention_bwd(q, k, v, out, dout, lse, causal, start)
+        res["no_key_rows"] = {
+            "lse_all_neg_inf": bool(torch.isneginf(lse.transpose(1, 2)[none]).all().item()),
+            "out_zero": bool((out[none] == 0).all().item()),
+            "dq_zero": bool((dq_all[none] == 0).all().item()),
+            "finite": bool(all(torch.isfinite(t).all().item() for t in (dq_all, dk_all, dv_all)))}
+        del dq_all, dk_all, dv_all
+        dout = dout.masked_fill(none[:, :, None, None], 0)
+    dq, dk, dv = cuda.gqa_attention_bwd(q, k, v, out, dout, lse, causal, start)
+    groups = Hkv if plain_groups is None else plain_groups
+    rep = Hq // Hkv
+    h, g = slice(0, groups * rep), slice(0, groups)
+    plain_args = (q[:, :, h], k[:, :, g], v[:, :, g], dout[:, :, h], causal, start)
+    plain, plain_ms = timed_call(lambda: kernels.gqa_attention_backward_reference(
+        *(t.float() if torch.is_tensor(t) and t.is_floating_point() else t for t in plain_args)))
+    errs = {}
+    for nm, got, ref in zip(("dq", "dk", "dv"), (dq[:, :, h], dk[:, :, g], dv[:, :, g]), plain):
+        d = (got.float() - ref.float()).abs()
+        errs[nm] = {"rel_max": (d.max() / ref.float().abs().max()).item(),
+                    "rel_mean": (d.mean() / ref.float().abs().mean()).item(),
+                    "max_abs": d.max().item()}
+    ref_lse = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q[:, :, h].float(),
+                                           k[:, :, g].float().repeat_interleave(rep, dim=2))
+                              / math.sqrt(D) + torch.where(
+                                  (kpos[None, None, :] >= lo[:, None, None])
+                                  & (kpos[None, None, :] <= last[..., None]),
+                                  0.0, float("-inf"))[:, None], dim=-1)
+    seen_rows = ~none[:, None, :].expand_as(ref_lse)
+    res["lse_max_abs_err"] = (lse[:, h][seen_rows] - ref_lse[seen_rows]).abs().max().item()
+    del plain, ref_lse
+    tol = K8BWD_TOL if dtype == torch.bfloat16 else K8BWD_F32_TOL
+    res.update(grads=errs, tol=tol, plain_heads=h.stop,
+               max_abs_err=max(e["max_abs"] for e in errs.values()),
+               finite=bool(all(torch.isfinite(t).all().item() for t in (dq, dk, dv))))
+    del dq, dk, dv
+    res["ms"] = cuda_ms(lambda: cuda.gqa_attention_bwd(q, k, v, out, dout, lse, causal, start),
+                        reps=3, calls=3 if Lq * Lk > 1e7 else 20)
+    res["forward_lse_ms"] = cuda_ms(lambda: cuda.gqa_attention_fwd_lse(q, k, v, causal, start),
+                                    reps=3, calls=3 if Lq * Lk > 1e7 else 20)
+    res["plain_ms"] = plain_ms
+    mask = None
+    if pad is not None:
+        mask = ((kpos[None, None, :] >= lo[:, None, None])
+                & (kpos[None, None, :] <= last[..., None]))[:, None]  # (B, 1, Lq, Lk)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    try:
+        import torch.nn.functional as F
+
+        lib_out = F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in leaves), attn_mask=mask,
+            is_causal=causal is not None and mask is None, enable_gqa=True).transpose(1, 2)
+        res["library_ms"] = library_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True), calls=3 if Lq * Lk > 1e7 else 20)
+        del lib_out
+    except (torch.OutOfMemoryError, RuntimeError) as e:  # no SDPA backward holds the shape
+        res["library_ms"], res["library_error"] = None, str(e)[:200]
+    del leaves
+    res["library_call"] = ("F.scaled_dot_product_attention(enable_gqa=True"
+                           + (", attn_mask=dense bool)" if mask is not None else
+                              ", is_causal=True)" if causal is not None else ")")
+                           + " backward (torch.autograd.grad)")
+    pairs = int(seen.sum().item()) * Hq
+    io = tensor_bytes(q, k, v, out, dout, lse) + tensor_bytes(q, k, v)
+    res.update(bound(io, 10.0 * pairs * D,
+                     BF16_PEAK_TFLOPS if dtype == torch.bfloat16 else FP32_PEAK_TFLOPS))
+    res["visible_pairs"] = pairs
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["s"] = time.perf_counter() - t_case
+    emit("kernel", **res)
+    bad = [nm for nm, e in errs.items() if e["rel_max"] > tol["max"] or e["rel_mean"] > tol["mean"]]
+    nk = res.get("no_key_rows", {})
+    if bad or not res["finite"] or res["lse_max_abs_err"] > 1e-2 or not all(nk.values()):
+        raise AssertionError(f"{name}: K8bwd disagrees with its plain version ({bad}): {res}")
+    if res["ms"] < res["bound_ms"]:
+        raise AssertionError(f"{name}: a time under the bound is no reading: {res}")
+    del q, k, v, dout, out, lse, mask
+    torch.cuda.empty_cache()
+    return res
+
+
+def k8bwd_cases(gen) -> dict:
+    """K8bwd at the 4B's training shape (causal bf16, 12,800 tokens), a
+    left-padded batch, the cross-attention's non-causal shape (512 keys),
+    a short causal bf16 one at rep 1 and d 32 and ar_tiny's fp32 (d 32,
+    rep 2)."""
+    return {c["name"]: c for c in (
+        _k8bwd_case(gen, "K8bwd 4B causal bf16", 1, AR_TRAIN_TOKENS, AR_TRAIN_TOKENS, 32, 8, 128,
+                    torch.bfloat16, 0, plain_groups=K8BWD_PLAIN_GROUP),
+        _k8bwd_case(gen, "K8bwd left-padded bf16", 2, 2048, 2048, 32, 8, 128, torch.bfloat16, 0,
+                    pad=[0, 700]),
+        _k8bwd_case(gen, "K8bwd cross-attention bf16", 1, AR_TRAIN_TOKENS, 512, 32, 8, 128,
+                    torch.bfloat16, None),
+        _k8bwd_case(gen, "K8bwd short rep 1 d 32 bf16", 1, 200, 200, 4, 4, 32,
+                    torch.bfloat16, 0),
+        _k8bwd_case(gen, "K8bwd ar_tiny fp32", 1, 255, 255, 4, 2, 32, torch.float32, 0),
+    )}
+
+
+AR_TRAIN_STEPS = 3
+AR_TRAIN_LR = 1e-4
+AR_PARITY_LAYERS = 2  # of the 4B's 16, at its full width, card against CPU
+AR_PARITY_TOKENS = 257  # the cut's sequence (256 positions in)
+# bf16 weights and products on the card (fp32 softmax, norms and loss), fp32 on the CPU
+AR_PARITY_TOL = {"loss": 1e-2, "grad_norm": 3e-2}
+# every leaf's largest error within 5e-2 of its largest |gradient| (bf16 products
+# and bf16 gradients on the card); a zeroed or mis-wired dq / dk / dv moves a
+# layer's wq / wk / wv by the order of its whole gradient
+AR_PARITY_LEAF_TOL = 5e-2
+TOK_TRAIN_STEPS = 3
+TOK_CLIP = (17, 256)  # frames, square crop (scripts/probe_raft_memory.py's training crop)
+TOK_CLI_STEPS = 2
+TOK_PARITY_CLIP = (17, 64)  # the card-against-CPU cut: full channel widths, a smaller clip
+# fp32 on both sides (RAFT with TF32 off on the card); RAFT's 12 updates feed each
+# rounding back into the lookups' coordinates (up to ~4e-4 of the flow's range in
+# the CPU tests)
+TOK_PARITY_TOL = {"term": 1e-2, "grad_norm": 1e-2}
+TOK_RAFT_BWD_TOL = 1e-5  # the same fp32 products either way; TF32 would give ~1e-3
+TOK_LOSS = dict(w_gram=1.0, w_flow=1.0, flow_scale=2, w_consistency=1.0, consistency_frames=9,
+                consistency_step=8)
+
+
+def phase_ar_train() -> dict:
+    """K8bwd's kernel cases, then ``ar_train_step`` (AdamW, optax.adamw's
+    counterpart) on the seeded ar_4b at full width (all 16 layers, 4.01 B
+    parameters with their AdamW state) over the 12,800-token (5, 40, 64)
+    grid, B = 1, AR_TRAIN_STEPS steps with per-layer recompute: s per step,
+    peak GiB, loss, grad norm and the K8 / K8bwd launches of each step
+    (counts reset before each). Then the loss, the grad norm and each
+    leaf's gradient of an AR_PARITY_LAYERS-layer cut at full width over
+    AR_PARITY_TOKENS tokens, card (bf16) against CPU (fp32) on the same
+    weights."""
+    import dataclasses
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.models.ar_transformer import ARTransformer
+    from gen3c_tpu_torch.pipelines import autoregressive as ar
+    from gen3c_tpu_torch.training import ar_train
+    from gen3c_tpu_torch.training.train_step import AdamW, global_norm, trainable_params
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    t0 = time.perf_counter()
+    kern = k8bwd_cases(gen)
+    cases_s = time.perf_counter() - t0
+    preset = ar.AR_PRESETS["ar_4b"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ar.build_ar_model(preset, "cuda", seed=0)
+    params = trainable_params(model)
+    opt = AdamW(AR_TRAIN_LR)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    state_gib = sum(4 * p.numel() * p.element_size() for p in params.values()) / 2 ** 30
+    tokens = torch.randint(0, preset.ar.vocab_size, (1, AR_TRAIN_TOKENS), generator=gen,
+                           device="cuda")
+    steps = []
+    for _ in range(AR_TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, state, m = ar_train.ar_train_step(model, state, tokens, opt)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t0, "loss": m["loss"].item(),
+                      "accuracy": m["accuracy"].item(), "grad_norm": m["grad_norm"].item(),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "launches": {k: kernels.launch_counts[k] for k in ("K8", "K8bwd")}})
+    del model, params, state, opt, tokens, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the cut, card against CPU
+    cut = dataclasses.replace(preset.ar, n_layers=AR_PARITY_LAYERS)
+    card = ARTransformer(cut, device="cuda").init_random(
+        torch.Generator(device="cuda").manual_seed(5))
+    cpu = ARTransformer(dataclasses.replace(cut, dtype=torch.float32))
+    cpu.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()})
+    toks = torch.randint(0, cut.vocab_size, (1, AR_PARITY_TOKENS),
+                         generator=torch.Generator().manual_seed(6))
+    parity, leaf_grads = {}, {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        params = trainable_params(model)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _ = ar_train.ar_loss(model, toks.to(model.device))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        parity[name] = {"loss": loss.item(),
+                        "grad_norm": global_norm(dict(zip(params, grads))).item(),
+                        "s": time.perf_counter() - t0,
+                        "launches": {k: kernels.launch_counts[k] for k in ("K8", "K8bwd")}}
+        leaf_grads[name] = {n: g.float().cpu() for n, g in zip(params, grads)}
+    del card, cpu, params, model, loss, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = {k: abs(parity["card"][k] - parity["cpu"][k]) / abs(parity["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    # each leaf's largest error relative to its largest |gradient|: the
+    # attention's wq / wk / wv / wo take K8bwd's dq, dk and dv
+    leaf_rel = {n: ((leaf_grads["card"][n] - g).abs().max() / g.abs().max()).item()
+                for n, g in leaf_grads["cpu"].items()}
+    del leaf_grads
+    worst = max(leaf_rel, key=leaf_rel.get)
+    res = {"model": "ar_4b", "layers": preset.ar.n_layers, "params": n_params,
+           "tokens": AR_TRAIN_TOKENS, "dtype": "bfloat16", "optimizer": "AdamW (optax.adamw)",
+           "lr": AR_TRAIN_LR, "state_gib_reckoned": state_gib, "build_s": build_s,
+           "steps": steps, "k8bwd_cases_s": cases_s,
+           "parity": {"layers": AR_PARITY_LAYERS, "tokens": AR_PARITY_TOKENS, **parity,
+                      "rel": rel, "tol": AR_PARITY_TOL, "leaf_rel_max": leaf_rel,
+                      "worst_leaf": worst, "leaf_tol": AR_PARITY_LEAF_TOL}}
+    emit("ar_train", **res)
+    bad = [i for i, st in enumerate(steps)
+           if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]))
+           or st["launches"] != {"K8": 2 * preset.ar.n_layers, "K8bwd": preset.ar.n_layers}]
+    if bad or any(rel[k] > AR_PARITY_TOL[k] for k in rel) \
+            or not leaf_rel[worst] <= AR_PARITY_LEAF_TOL \
+            or parity["card"]["launches"]["K8bwd"] != AR_PARITY_LAYERS:
+        raise AssertionError(f"ar_train: steps {bad} or the cut disagrees: {res}")
+    res["kernels"] = kern
+    res["launches"] = {k: sum(st["launches"][k] for st in steps) for k in ("K8", "K8bwd")}
+    return res
+
+
+def raft_backward_without_tf32(params: dict, video: torch.Tensor) -> float:
+    """RAFT's gradient with respect to both frames of ``video`` (1, 3, 2,
+    H, W) under cuDNN's default flags (TF32 on), as the step takes it,
+    against the same with TF32 off everywhere: the largest difference
+    relative to the largest |gradient|. TF32 anywhere in RAFT's backward
+    parts them by ~1e-3."""
+    from gen3c_tpu_torch.aux import raft
+
+    dflow = torch.randn((1, 2, *video.shape[-2:]), generator=torch.Generator().manual_seed(12))
+
+    def grads():
+        frames = [video[:, :, i].detach().clone().requires_grad_(True) for i in range(2)]
+        flow = raft.raft_flow(params, *frames, num_flow_updates=12)
+        return torch.cat([g.flatten() for g in torch.autograd.grad(flow, frames,
+                                                                   dflow.to(flow))])
+
+    got = grads()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = grads()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_tokenizer_train() -> dict:
+    """``tokenizer_train_step`` (AdamW) on the seeded CV8x8x8 tokenizer at
+    the default VAEConfig's full width over a 17-frame 256 x 256 clip, B =
+    1, TOK_TRAIN_STEPS steps with every term on (LPIPS VGG16 with the gram
+    term, RAFT-Large flow at scale 2 with 12 updates, consistency windows
+    of 9 frames, step 8; seeded VGG16 and RAFT): s per step, peak GiB, each
+    term. Then TOK_CLI_STEPS steps of the CLI (--synthetic --perceptual lpips
+    --w_flow 1 --flow_estimator raft), and one step's terms and grad norm on
+    a TOK_PARITY_CLIP cut at full channel widths, card against CPU (fp32;
+    the card as the step runs: RAFT with TF32 off, its backward too, the
+    rest under cuDNN's default), and ``raft_backward_without_tf32``."""
+    from gen3c_tpu_torch.aux import raft
+    from gen3c_tpu_torch.models.vae import CV8x8x8, CausalVAE
+    from gen3c_tpu_torch.training import lpips
+    from gen3c_tpu_torch.training import tokenizer_train as tt
+    from gen3c_tpu_torch.training.train_step import AdamW, global_norm, trainable_params
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    vae = CausalVAE(CV8x8x8, device="cuda").init_random(gen)
+    params = trainable_params(vae)
+    lp = lpips.init_vgg16_params(gen, device="cuda")
+    rp = raft.init_raft_params(gen, device="cuda")
+    kw = dict(TOK_LOSS, lpips_params=lp, flow_fn=raft.make_raft_flow_fn(rp, 12))
+    frames, res_px = TOK_CLIP
+    video = torch.rand((1, 3, frames, res_px, res_px), generator=gen, device="cuda") * 2 - 1
+    opt = AdamW(1e-4)
+    state = opt.init(params)
+    steps = []
+    for i in range(1, TOK_TRAIN_STEPS + 1):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, m = tt.tokenizer_train_step(params, state, video, CV8x8x8, opt,
+                                                   iteration=i, **kw)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t0,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      **{k: v.item() for k, v in m.items()}})
+    n_params = sum(p.numel() for p in params.values())
+    del vae, params, state, opt, video
+    torch.cuda.empty_cache()
+
+    record = {}
+    t0 = time.perf_counter()
+    tt.main(["--synthetic", "--max_iter", str(TOK_CLI_STEPS), "--log_every", "1",
+             "--perceptual", "lpips", "--w_flow", "1", "--flow_estimator", "raft",
+             "--device", "cuda"], record=record)
+    cli = {"s": time.perf_counter() - t0, "steps": record["steps"]}
+
+    frames, res_px = TOK_PARITY_CLIP
+    clip = torch.rand((1, 3, frames, res_px, res_px), generator=torch.Generator().manual_seed(8))
+    cpu_vae = CausalVAE(CV8x8x8).init_random(torch.Generator().manual_seed(9))
+    cpu_lp = lpips.init_vgg16_params(torch.Generator().manual_seed(10))
+    cpu_rp = raft.init_raft_params(torch.Generator().manual_seed(11))
+    parity = {}
+    for name, dev in (("card", "cuda"), ("cpu", "cpu")):
+        vae = copy.deepcopy(cpu_vae).to(dev)
+        lp_d = {k: v.to(dev) for k, v in cpu_lp.items()}
+        rp_d = {k: v.to(dev) for k, v in cpu_rp.items()}
+        t0 = time.perf_counter()
+        m, grads = tt.tokenizer_loss_and_grads(
+            trainable_params(vae), CV8x8x8, clip.to(dev) * 2 - 1, iteration=1,
+            **dict(TOK_LOSS, lpips_params=lp_d, flow_fn=raft.make_raft_flow_fn(rp_d, 12)))
+        parity[name] = {"s": time.perf_counter() - t0, "grad_norm": global_norm(grads).item(),
+                        **{k: v.item() for k, v in m.items()}}
+        del vae, grads
+    raft_tf32 = raft_backward_without_tf32({k: v.cuda() for k, v in cpu_rp.items()},
+                                           clip[:, :, :2].cuda() * 2 - 1)
+    torch.cuda.empty_cache()
+    rel = {k: abs(parity["card"][k] - parity["cpu"][k]) / max(abs(parity["cpu"][k]), 1e-12)
+           for k in parity["cpu"] if k != "s"}
+    res = {"config": "CV8x8x8 (128 channels, mult (2, 4, 4), 2 res blocks, patch 4, 16 latent "
+                     "channels)", "params": n_params, "clip": [1, 3, *TOK_CLIP[:1],
+                                                               TOK_CLIP[1], TOK_CLIP[1]],
+           "loss": {k: v for k, v in TOK_LOSS.items()}, "raft_updates": 12, "steps": steps,
+           "cli": cli, "parity": {"clip": list(TOK_PARITY_CLIP), **parity, "rel": rel,
+                                  "tol": TOK_PARITY_TOL},
+           "raft_backward_tf32_rel": raft_tf32, "raft_backward_tol": TOK_RAFT_BWD_TOL}
+    emit("tokenizer_train", **res)
+    terms = {"l1", "mse", "grad", "temporal", "perceptual", "gram", "flow", "consistency",
+             "loss"}
+    bad = [i for i, st in enumerate(steps)
+           if set(st) - {"s", "peak_gib"} != terms or not all(math.isfinite(st[k]) for k in terms)]
+    bad += [f"cli {st['step']}" for st in cli["steps"]
+            if not ({"perceptual", "flow"} <= set(st) and math.isfinite(st["loss"]))]
+    off = [k for k, r in rel.items() if r > TOK_PARITY_TOL["grad_norm" if k == "grad_norm"
+                                                         else "term"]]
+    if bad or off or len(cli["steps"]) != TOK_CLI_STEPS or not raft_tf32 <= TOK_RAFT_BWD_TOL:
+        raise AssertionError(f"tokenizer_train: steps {bad}, card against CPU off on {off}: {res}")
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="gen3c_tpu_torch smoke run on one GPU")
     p.add_argument("--cp-rank", type=int, default=None, help=argparse.SUPPRESS)
@@ -4728,15 +5136,15 @@ def main(argv=None) -> int:
     launches = main_res["launches"]
     dynamic_launches = phase_dynamic(model, preset)["launches"]
     phase_multiview(model, preset)
-    main_latent = main_res.pop("samples")
-    cp_refs = phase_cp_reference(model, preset, main_latent)
+    main_res.pop("samples")
+    cp_refs = phase_cp_reference(model, preset)
     span_res = phase_span(model, preset)
     # the two ranks need the card to themselves: the 7B must be gone, even
     # where a reference cycle still holds it
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    cp_runs = phase_cp(main_latent, cp_refs)["runs"]
+    cp_runs = phase_cp(cp_refs)["runs"]
     phase_serving()
     t2w_launches = phase_text2world()["launches"]
     interp_launches = phase_interpolator()["launches"]
@@ -4759,6 +5167,8 @@ def main(argv=None) -> int:
     phase_train_parity()
     phase_band_train_parity()
     phase_train_cli()
+    phase_tokenizer_train()
+    ar_train_res = phase_ar_train()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gen3c_tpu"))
     if foreign:
         raise AssertionError(f"the port imported JAX or the JAX package: {foreign[:8]}")
@@ -4873,7 +5283,9 @@ def main(argv=None) -> int:
                                      "ar_tiny card": ar_res["tiny_card_vs_cpu"]["card_k8_launches"],
                                      **{f"guardrail {g} (2 runs)": n
                                         for g, n in guard_res["launches"]["K8"].items()},
-                                     "upsampler (VLM + text)": ups_res["launches"]["K8"]},
+                                     "upsampler (VLM + text)": ups_res["launches"]["K8"],
+                                     "ar_train (forward with lse, 3 steps, remat)":
+                                     ar_train_res["launches"]["K8"]},
                      cases=[{"name": n, **{k: c[k] for k in (
                          "q", "cache", "visible_keys", "ms", "host_and_device_ms", "host_us",
                          "kernels_a_call", "route", "plain_ms", "library_ms",
@@ -4882,6 +5294,17 @@ def main(argv=None) -> int:
                             for n, c in {**k8, **{n: c for res in (guard_res, ups_res)
                                                   for n, c in res["kernels"].items()
                                                   if n.startswith("K8")}}.items()]))
+    k8bwd = ar_train_res["kernels"]
+    table.append(row("K8bwd GQA attention backward (4B training, 12,800 tokens, causal bf16)",
+                     "gqa_attention_bwd.cu", "gen3c_tpu/models/ar_transformer.py:252",
+                     ar_train_res["launches"]["K8bwd"], k8bwd["K8bwd 4B causal bf16"],
+                     max_abs_err=max(c["max_abs_err"] for c in k8bwd.values()),
+                     library_call=k8bwd["K8bwd 4B causal bf16"]["library_call"],
+                     cases=[{k: c.get(k) for k in (
+                         "name", "q", "kv", "dtype", "causal_offset", "kv_valid_start", "ms",
+                         "forward_lse_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                         "bound_share", "max_abs_err", "grads", "plain_heads",
+                         "rows_without_keys", "no_key_rows")} for c in k8bwd.values()]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     incomplete = [(r["name"], k) for r in table for k in keys if k not in r]

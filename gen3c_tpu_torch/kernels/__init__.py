@@ -21,6 +21,8 @@
   K7   int8 x int8 GEMM + rescale (quantize.py:60-69), TMA + wgmma s8
   K8   GQA attention over the KV cache (gen3c_tpu/models/ar_transformer.py:252-297,
                                  XLA): causal, left padding, int8 codes with fp32 scales
+  K8bwd  its backward for training (XLA's autodiff of the same function, reached
+                                 from gen3c_tpu/training/ar_train.py:52), bf16 or fp32
   P1   wgmma rate probe          (scripts/probe_int8_attention.py:37-62; ``mma_probe``)
   P2   K1's tile sweep           (scripts/sweep_attention.py:32-68; ``attention_point``:
                                  K1's wgmma forward built at a point of the sweep)
@@ -36,7 +38,9 @@ describes the inputs, else the mma.sync bodies: K1, K2 and K3 in
 preset's K1, K2, K3) is ``csrc/attention_f32.cu``; P2 is
 ``attention_wgmma.cu``'s forward built at its sweep's points; K5 is
 ``csrc/splat.cu``; K6 is
-``csrc/raycast.cu``; K7q and K7 are ``csrc/w8a8.cu``; K8 is ``csrc/gqa_attention.cu``; P1 is
+``csrc/raycast.cu``; K7q and K7 are ``csrc/w8a8.cu``; K8 is ``csrc/gqa_attention.cu`` (its bf16
+prefill and training forward ``attention_wgmma.cu``'s GQA mode), K8bwd
+``csrc/gqa_attention_bwd.cu``; P1 is
 ``csrc/mma_probe.cu``. A CUDA tensor launches the compiled kernel (built at
 first use, see ``build``); a CPU tensor runs the plain PyTorch version in
 ``reference``. There is no other switch: on a card the references run only
@@ -65,6 +69,7 @@ from gen3c_tpu_torch.kernels.reference import (
     attention_backward_reference,
     attention_forward_reference,
     attention_reference,
+    gqa_attention_backward_reference,
     gqa_attention_reference,
     int8_matmul_reference,
     mma_probe_reference,
@@ -79,7 +84,7 @@ from gen3c_tpu_torch.kernels.reference import (
 __all__ = [
     "attention", "attention_point", "splat", "ray_triangle_depth", "quantize_rows",
     "w8a8_matmul", "mma_probe", "ring_fold", "ring_merge", "gqa_attention", "launch_counts",
-    "route_counts", "gqa_attention_reference",
+    "route_counts", "gqa_attention_reference", "gqa_attention_backward_reference",
     "reset_launch_counts", "attention_reference", "attention_forward_reference", "attention_backward_reference", "splat_reference",
     "ray_triangle_depth_reference", "quantize_rows_reference", "int8_matmul_reference",
     "w8a8_matmul_reference", "mma_probe_reference", "ring_fold_reference",
@@ -88,7 +93,7 @@ __all__ = [
 
 launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K3lse": 0, "K4": 0, "K4band": 0, "K5": 0, "K6": 0,
                  "K7q": 0, "K7": 0, "P1": 0, "P2": 0, "K1cp": 0, "K1ag": 0, "K1ring": 0,
-                 "K1merge": 0, "K1vit": 0, "K8": 0}
+                 "K1merge": 0, "K1vit": 0, "K8": 0, "K8bwd": 0}
 # K4's launches split by the forward they differentiate (K1 self-, K2 cross-attention)
 k4_launches_by_forward = {"K1": 0, "K2": 0}
 # the bf16 attention family's launches by body (cuda.attention_route)
@@ -246,14 +251,57 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     body: a decode's key splits merged inside it) reads only the keys some
     query can see and never repeats heads; a row that sees no key (a
     left-pad query) gives 0 there, where the plain version averages every
-    key: such rows are never read (their keys are masked in every layer)."""
-    if not _on_cuda(q, "gqa_attention"):
+    key: such rows are never read (their keys are masked in every layer).
+
+    With a gradient to track (grad mode on and q, k or v requiring grad;
+    no int8 scales) this is ``_GqaAttention``: K8's forward with the row
+    logsumexp (counted K8) and K8bwd as its backward."""
+    on_cuda = _on_cuda(q, "gqa_attention")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if k_scale is not None or v_scale is not None:
+            raise ValueError("gqa_attention: an int8 cache has no backward")
+        return _GqaAttention.apply(q, k, v, causal_offset, kv_valid_start)
+    if not on_cuda:
         return gqa_attention_reference(q, k, v, causal_offset, kv_valid_start, k_scale, v_scale)
     from gen3c_tpu_torch.kernels import cuda
 
     out = cuda.gqa_attention(q, k, v, causal_offset, kv_valid_start, k_scale, v_scale)
     launch_counts["K8"] += 1
     return out
+
+
+class _GqaAttention(torch.autograd.Function):
+    """K8 whose backward is K8bwd (dq, dk, dv from the saved q, k, v,
+    output and row logsumexp; dk and dv summed over each KV head's query
+    heads) on a card, ``gqa_attention_backward_reference`` on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal_offset, kv_valid_start):
+        lse = None
+        if q.device.type == "cuda":
+            from gen3c_tpu_torch.kernels import cuda
+
+            out, lse = cuda.gqa_attention_fwd_lse(q, k, v, causal_offset, kv_valid_start)
+            launch_counts["K8"] += 1
+        else:
+            out = gqa_attention_reference(q, k, v, causal_offset, kv_valid_start)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal_offset, ctx.kv_valid_start = causal_offset, kv_valid_start
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cuda":
+            from gen3c_tpu_torch.kernels import cuda
+
+            dq, dk, dv = cuda.gqa_attention_bwd(q, k, v, out, dout, lse, ctx.causal_offset,
+                                                ctx.kv_valid_start)
+            launch_counts["K8bwd"] += 1
+        else:
+            dq, dk, dv = gqa_attention_backward_reference(q, k, v, dout, ctx.causal_offset,
+                                                          ctx.kv_valid_start)
+        return dq, dk, dv, None, None
 
 
 def attention_point(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,7 +9,8 @@
 //   attn_fwd_wgmma<DP, kBand, kLse, kGqa>  K1, K2, K1cp, K1ag (no band, no
 //       lse), K3 and K1cp under the band (band), the training forward of K4
 //       and K1ring's full-attention step (lse), K3lse and K1ring under the
-//       band (band and lse), K8's bf16 prefill (kGqa: see GqaMask). The TPU
+//       band (band and lse), K8's bf16 prefill (kGqa: see GqaMask; with lse
+//       the training forward whose backward is gqa_attention_bwd.cu's K8bwd). The TPU
 //       kernels: gen3c_tpu/models/dit.py:445-471 (splash), :472-510 (flash),
 //       :459-460 (the temporal band), :653-678 (Ulysses), the XLA ring fold
 //       (:529) and gen3c_tpu/models/ar_transformer.py:252 (K8). Every entry
@@ -1130,15 +1131,17 @@ extern "C" int gen3c_attention_wgmma_fwd(const void* q, const void* k, const voi
 }
 
 #ifndef GEN3C_ATTN_FWD_ONLY
-// K8's bf16 prefill: the forward (no band, no lse) in its kGqa mode over q
-// (B, Lq, Hq, D) and k/v (B, Lk, Hkv, D) with their map words (3 x
-// kMapWords, box rows as the forward's); kv_start null or (B,) int64 on the
-// card; causal_offset < 0: no causal mask. out (B, Lq, Hq, D) contiguous.
-// Returns a cudaError_t (0 on success).
+// K8's bf16 prefill: the forward (no band) in its kGqa mode over q (B, Lq,
+// Hq, D) and k/v (B, Lk, Hkv, D) with their map words (3 x kMapWords, box
+// rows as the forward's); kv_start null or (B,) int64 on the card;
+// causal_offset < 0: no causal mask. out (B, Lq, Hq, D) contiguous; lse null
+// (inference) or (B, Hq, Lq) fp32, the row logsumexp K8bwd reads (training;
+// -inf for a row that sees no key). Returns a cudaError_t (0 on success).
 extern "C" int gen3c_gqa_attention_wgmma(const void* q, const void* k, const void* v,
                                          const long long* words, void* out,
                                          const long long* kv_start, int B, int Lq, int Lk, int Hq,
-                                         int Hkv, int D, int causal_offset, void* stream) {
+                                         int Hkv, int D, int causal_offset, float* lse,
+                                         void* stream) {
   if (bad_shape(B, Lq, Lk, Hq, D) || Hkv <= 0 || Hq % Hkv != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1151,7 +1154,7 @@ extern "C" int gen3c_gqa_attention_wgmma(const void* q, const void* k, const voi
   }
   FwdParams p;
   p.o = static_cast<__nv_bfloat16*>(out);
-  p.lse = nullptr;
+  p.lse = lse;
   p.Lq = Lq;
   p.Lk = Lk;
   p.H = Hq;
@@ -1163,6 +1166,10 @@ extern "C" int gen3c_gqa_attention_wgmma(const void* q, const void* k, const voi
   const GqaMask gqa = {kv_start, Hq / Hkv, causal_offset};
   const Band bd = make_band(nullptr, nullptr, 0, 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lse != nullptr) {
+    if (D <= 64) return static_cast<int>(launch_fwd<64, false, true, true>(maps, p, bd, B, s, gqa));
+    return static_cast<int>(launch_fwd<128, false, true, true>(maps, p, bd, B, s, gqa));
+  }
   if (D <= 64) return static_cast<int>(launch_fwd<64, false, false, true>(maps, p, bd, B, s, gqa));
   return static_cast<int>(launch_fwd<128, false, false, true>(maps, p, bd, B, s, gqa));
 }

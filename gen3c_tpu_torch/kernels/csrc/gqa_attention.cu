@@ -50,6 +50,8 @@
 // gqa_f32: fp32 queries (ar_tiny with TF32 off, the card-against-CPU check)
 // over fp32 K/V or int8 codes, on the CUDA cores: 32-key tiles in fp32
 // shared memory, four warps of RW rows, one split.
+// With an lse pointer it also writes the row logsumexp: K8's fp32 training
+// forward, whose backward is K8bwd (gqa_attention_bwd.cu).
 //
 // Layout: q (B, Lq, Hq, d), k/v (B, Lk, Hkv, d), scales (B, Lk, Hkv, 1), any
 // element strides for the batch, sequence and head axes, unit stride along
@@ -81,6 +83,7 @@ constexpr int kMergeBatch = 16;  // splits whose partials the last CTA loads at 
 constexpr int kDecodeRows = 16;  // gqa_mma: rows of the decode body (one m16 tile)
 constexpr int kF32Keys = 32;     // gqa_f32: keys a tile, one a lane
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct GqaParams {
   const void* q;
@@ -105,6 +108,7 @@ struct GqaParams {
   int splits;
   int vec;
   float scale_log2;  // log2(e) / sqrt(d)
+  float* lse;        // gqa_f32: null, or (B, Hq, Lq) natural log (training, for K8bwd)
 };
 
 // The first key row b sees.
@@ -720,6 +724,11 @@ __global__ void __launch_bounds__(kThreads) gqa_f32(const GqaParams p) {
       const int col = lane + 32 * c;
       if (col < p.D) o[col] = acc[r][c] * inv;
     }
+    // m and l in log2 units; a row that sees no key: -inf
+    if (p.lse != nullptr && lane == 0) {
+      p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Lq + i] =
+          l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -INFINITY;
+    }
   }
 }
 
@@ -803,11 +812,13 @@ extern "C" int gen3c_gqa_plan_words() { return kPlanWords; }
 // causal mask. kv_end: keys at or past it are seen by no query (min(Lk,
 // offset + Lq) when causal). bf16 q: gqa_mma (decode when Lq * rep <= 16,
 // with `splits` ranges, else the prefill body with one); fp32 q: gqa_f32
-// (splits 1). Returns a cudaError_t (0 on success).
+// (splits 1). lse: null, or with fp32 q over fp32 K/V the (B, Hq, Lq) fp32
+// row logsumexp (the training forward, whose backward is K8bwd in
+// gqa_attention_bwd.cu). Returns a cudaError_t (0 on success).
 extern "C" int gen3c_gqa_attention(const void* q, const void* k, const void* v,
                                    const float* k_scale, const float* v_scale,
                                    const long long* kv_start, void* out, const long long* plan,
-                                   int causal_offset, int kv_end, void* stream) {
+                                   int causal_offset, int kv_end, float* lse, void* stream) {
   GqaParams p;
   p.q_b = plan[0], p.q_l = plan[1], p.q_h = plan[2];
   p.k_b = plan[3], p.k_l = plan[4], p.k_h = plan[5];
@@ -827,7 +838,8 @@ extern "C" int gen3c_gqa_attention(const void* q, const void* k, const void* v,
       p.D > 128 || p.splits <= 0 || kv_end < 0 || kv_end > p.Lk ||
       (p.splits > 1 && (p.part_o == nullptr || p.part_lse == nullptr || p.ticket == nullptr ||
                         !q_bf16)) ||
-      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) || p.B * p.Hkv > 65535) {
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) || p.B * p.Hkv > 65535 ||
+      (lse != nullptr && (q_bf16 || kv_int8))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.q = q;
@@ -840,6 +852,7 @@ extern "C" int gen3c_gqa_attention(const void* q, const void* k, const void* v,
   p.causal = causal_offset >= 0;
   p.offset = causal_offset >= 0 ? causal_offset : 0;
   p.kv_end = kv_end;
+  p.lse = lse;
   p.scale_log2 = kLog2e / sqrtf(static_cast<float>(p.D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

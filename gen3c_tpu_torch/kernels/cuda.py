@@ -52,9 +52,10 @@ def library() -> ctypes.CDLL:
                                            + [ctypes.POINTER(ctypes.c_longlong), _P])
             lib.gen3c_ray_triangle_depth.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
             lib.gen3c_ray_triangle_prepare.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P]
-            lib.gen3c_gqa_attention.argtypes = [_P] * 7 + [ctypes.POINTER(_L), _I, _I, _P]
+            lib.gen3c_gqa_attention.argtypes = [_P] * 7 + [ctypes.POINTER(_L), _I, _I, _P, _P]
             lib.gen3c_gqa_attention_wgmma.argtypes = ([_P, _P, _P, ctypes.POINTER(_L), _P, _P]
-                                                      + [_I] * 7 + [_P])
+                                                      + [_I] * 7 + [_P, _P])
+            lib.gen3c_gqa_attention_bwd.argtypes = [_P] * 11 + [_I] * 9 + [_P]
             lib.gen3c_gqa_plan_words.argtypes = []
             words = ctypes.POINTER(ctypes.c_longlong)
             band_ptr = ctypes.POINTER(_I)
@@ -68,7 +69,8 @@ def library() -> ctypes.CDLL:
                        lib.gen3c_mma_probe, lib.gen3c_attention_f32_smem,
                        lib.gen3c_ray_triangle_depth, lib.gen3c_ray_triangle_prepare,
                        lib.gen3c_attention_wgmma_bwd, lib.gen3c_gqa_attention,
-                       lib.gen3c_gqa_attention_wgmma, lib.gen3c_gqa_plan_words):
+                       lib.gen3c_gqa_attention_wgmma, lib.gen3c_gqa_plan_words,
+                       lib.gen3c_gqa_attention_bwd):
                 fn.restype = _I
             if _box_rows(lib) != (WGMMA_FWD_BOX_ROWS, WGMMA_BWD_BOX_ROWS):
                 raise RuntimeError(f"attention_wgmma.cu's box rows {_box_rows(lib)} differ "
@@ -1102,7 +1104,8 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal_offset: Optional[int] = None,
                   kv_valid_start: Optional[torch.Tensor] = None,
                   k_scale: Optional[torch.Tensor] = None,
-                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  v_scale: Optional[torch.Tensor] = None,
+                  lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """gen3c_gqa_attention (K8): q (B, Lq, Hq, d) bf16 or fp32 over k/v (B,
     Lk, Hkv, d) of q's dtype, or int8 codes with fp32 k_scale/v_scale (B,
     Lk, Hkv, 1); read in place (any batch, sequence and head strides, unit
@@ -1113,10 +1116,14 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     partials and tickets) are built once for each shape, layout, alignment
     and stream, and a call then costs a dict lookup and the launch. Each
     stream has its own scratch, so calls on concurrent streams never share
-    it; calls on one stream run in order."""
+    it; calls on one stream run in order.
+
+    lse, a (B, Hq, Lq) fp32 tensor on the card, receives the row logsumexp
+    (-inf for a row that sees no key): the training forward, which only the
+    "wgmma" and "fp32" routes write (``gqa_attention_fwd_lse``)."""
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         return gqa_attention(*(t.contiguous() for t in (q, k, v)), causal_offset,
-                             kv_valid_start, k_scale, v_scale)
+                             kv_valid_start, k_scale, v_scale, lse)
     stream = _stream(q)
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
@@ -1142,14 +1149,93 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if start is not None and not launch.start_int64:
         start = start.to(torch.int64).contiguous()
     sp = None if start is None else start.data_ptr()
+    lp = None
+    if lse is not None:
+        if launch.route not in ("wgmma", "fp32") or k_scale is not None:
+            raise ValueError(f"gqa kernel: the forward with lse takes bf16 q/k/v a TMA map "
+                             f"describes or fp32 q/k/v, not the {launch.route} route")
+        if lse.shape != (B, Hq, Lq) or lse.dtype != torch.float32 or lse.device != q.device \
+                or not lse.is_contiguous():
+            raise ValueError(f"gqa kernel: lse must be contiguous fp32 {(B, Hq, Lq)} on the card")
+        lp = lse.data_ptr()
     out = torch.empty((B, Lq, Hq, D), dtype=q.dtype, device=q.device)
     if launch.route == "wgmma":
         rc = library().gen3c_gqa_attention_wgmma(qp, kp, vp, launch.words, out.data_ptr(), sp, B,
-                                                 Lq, Lk, Hq, k.shape[2], D, causal, stream)
+                                                 Lq, Lk, Hq, k.shape[2], D, causal, lp, stream)
     else:
         rc = library().gen3c_gqa_attention(
             qp, kp, vp, None if k_scale is None else k_scale.data_ptr(),
             None if v_scale is None else v_scale.data_ptr(), sp, out.data_ptr(), launch.words,
-            causal, Lk if causal < 0 else min(Lk, causal + Lq), stream)
+            causal, Lk if causal < 0 else min(Lk, causal + Lq), lp, stream)
     _check(rc, "gqa_attention")
     return out
+
+
+def gqa_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal_offset: Optional[int] = None,
+                          kv_valid_start: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's training forward: (out (B, Lq, Hq, d), its fp32 row logsumexp
+    (B, Hq, Lq)) of contiguous copies of q, k, v, both bf16 (the "wgmma"
+    route: attention_wgmma.cu's kGqa forward with lse; d a multiple of 8)
+    or both fp32 (gqa_f32 with lse). A row that sees no key gives 0 and
+    -inf. Raises for anything else (int8 caches are not trained)."""
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and gqa_route(q, k, v, False) != "wgmma":
+        raise ValueError(f"gqa kernel: the bf16 forward with lse needs Lq * rep > "
+                         f"{GQA_DECODE_ROWS} and d % 8 == 0, got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    B, Lq, Hq, _ = q.shape
+    lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
+    return gqa_attention(q, k, v, causal_offset, kv_valid_start, lse=lse), lse
+
+
+def gqa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                      dout: torch.Tensor, lse: torch.Tensor,
+                      causal_offset: Optional[int] = None,
+                      kv_valid_start: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """gen3c_gqa_attention_bwd (K8bwd): (dq, dk, dv) like (q, k, v) of K8's
+    attention from the forward's out and lse (``gqa_attention_fwd_lse``)
+    and the upstream gradient dout (like out). q, k, v bf16 (mma.sync) or
+    fp32 (CUDA cores); dk and dv summed over each KV head's query heads in
+    the kernel. Contiguous copies are made of strided inputs."""
+    if not (q.is_cuda and all(t.device == q.device for t in (k, v, out, dout, lse))):
+        raise ValueError("gqa backward: every tensor must be on one CUDA device")
+    if q.dtype not in (torch.bfloat16, torch.float32) or not all(
+            t.dtype == q.dtype for t in (k, v, out, dout)):
+        raise TypeError(f"gqa backward takes bf16 or fp32 q, k, v, out, dout alike, got "
+                        f"{[t.dtype for t in (q, k, v, out, dout)]}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"gqa backward: bad shapes {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or Hq % Hkv or not 0 < D <= 128 or Lk == 0 or Lq == 0:
+        raise ValueError(f"gqa backward: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree "
+                         "(Hq % Hkv == 0, 0 < d <= 128)")
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"gqa backward: out {tuple(out.shape)} and dout {tuple(dout.shape)} "
+                         f"must be like q {tuple(q.shape)}")
+    if lse.shape != (B, Hq, Lq) or lse.dtype != torch.float32:
+        raise ValueError(f"gqa backward: lse {tuple(lse.shape)} {lse.dtype}, expected "
+                         f"({B}, {Hq}, {Lq}) fp32")
+    if causal_offset is not None and causal_offset < 0:
+        raise ValueError(f"gqa backward: causal_offset must be >= 0, got {causal_offset}")
+    q, k, v, out, dout, lse = (t.contiguous() for t in (q, k, v, out, dout, lse))
+    start = None
+    if kv_valid_start is not None:
+        if kv_valid_start.shape != (B,) or kv_valid_start.device != q.device:
+            raise ValueError(f"gqa backward: kv_valid_start must be ({B},) on the card")
+        start = kv_valid_start.to(torch.int64).contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    vec = bf16 and D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
+    _check(library().gen3c_gqa_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), None if start is None else start.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, Hq, Hkv, D,
+        -1 if causal_offset is None else int(causal_offset), int(bf16), int(vec), _stream(q)),
+        "gqa_attention_bwd")
+    return dq, dk, dv

@@ -699,3 +699,52 @@ def gqa_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         probs = probs * vs[..., 0].transpose(1, 2)[:, :, None, :]
     probs = probs.to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def gqa_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     dout: torch.Tensor, causal_offset: Optional[int] = None,
+                                     kv_valid_start: Optional[torch.Tensor] = None
+                                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``gqa_attention_reference`` (no int8 scales) at the
+    upstream gradient dout, K8bwd's plain version: the gradient
+    ``jax.grad`` takes of ar_transformer.py's ``_gqa_attention`` (:252-297),
+    formed in fp32 and cast to the inputs' dtypes.
+
+    P is the forward's softmax with -1e30 on the masked logits; dS = P (dO
+    V^T - rowsum(P * dO V^T)) flows only to the visible logits (the
+    ``where``), dq = dS K / sqrt(d), and dk, dv (dS^T q / sqrt(d), P^T dO)
+    are summed over each KV head's rep query heads. A row that sees no key
+    averages every key, as there: its dq is 0, but it adds dO / Lk to every
+    row of dv (K8bwd's kernel, whose forward gives such a row 0, adds
+    nothing)."""
+    B, Lq, Hq, d = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    kr = kf.repeat_interleave(rep, dim=2)
+    vr = vf.repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    kpos = torch.arange(Lk, device=q.device)[None, :]
+    mask = None
+    if causal_offset is not None:
+        qpos = torch.arange(Lq, device=q.device)[:, None] + causal_offset
+        mask = (kpos <= qpos)[None]  # (1, Lq, Lk)
+        if kv_valid_start is not None:
+            mask = mask & (kpos[None] >= kv_valid_start[:, None, None])
+        mask = mask[:, None]
+    elif kv_valid_start is not None:
+        mask = (kpos >= kv_valid_start[:, None])[:, None, None, :]
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = probs * (dp - (probs * dp).sum(dim=-1, keepdim=True))
+    if mask is not None:
+        ds = torch.where(mask, ds, torch.zeros_like(ds))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs, dof)
+    dk = dk.reshape(B, Lk, Hkv, rep, d).sum(dim=3)
+    dv = dv.reshape(B, Lk, Hkv, rep, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

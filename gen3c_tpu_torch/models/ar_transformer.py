@@ -19,6 +19,10 @@ decode loop is a Python loop over steps. Attention is kernel K8
 the cache in place up to the last visible key; on the CPU its plain version,
 ``_gqa_attention`` line for line.
 
+Training (gen3c_tpu/training/ar_train.py's forward): ``train_hidden``, the
+cache-free forward with gradients and each layer recomputed in the
+backward, through the same layer body (``_block``) as ``forward``.
+
 Sampling: ``jax.random.categorical`` is argmax(logits + Gumbel noise). The
 noise comes from a ``GumbelSource``, called with the step (0 for the
 prefill's token, i for the i-th decode step) and the logits' shape; the
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gen3c_tpu_torch import kernels
 from gen3c_tpu_torch.models.dit import quantize_span_delta
@@ -253,6 +258,38 @@ class ARBlock(nn.Module):
         self.feed_forward = _FeedForward(cfg, device)
 
 
+def _block(cfg: ARConfig, layer: ARBlock, h: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor, attend, context: Optional[torch.Tensor]) -> torch.Tensor:
+    """One layer of ``ar_forward``: pre-norm GQA self-attention through
+    attend(q, k, v) (the cache's or the prefill's K8), the cross-attention
+    to the context (when the config has one and it is given), the SwiGLU
+    MLP."""
+    B, L = h.shape[:2]
+    hd = cfg.head_dim
+    att = layer.attention
+    x = _rms(h, layer.attention_norm.weight, cfg.norm_eps)
+    q = _mm(x, att.wq).reshape(B, L, cfg.n_heads, hd)
+    k = _mm(x, att.wk).reshape(B, L, cfg.n_kv_heads, hd)
+    v = _mm(x, att.wv).reshape(B, L, cfg.n_kv_heads, hd)
+    if cfg.use_qk_normalization:
+        q = _rms(q, att.q_norm.weight, cfg.norm_eps)
+        k = _rms(k, att.k_norm.weight, cfg.norm_eps)
+    q = _apply_rope(q, cos, sin)
+    k = _apply_rope(k, cos, sin)
+    h = h + _mm(attend(q, k, v).reshape(B, L, -1), att.wo)
+    if cfg.context_dim and context is not None:
+        ca = layer.cross_attention
+        x = _rms(h, layer.cross_attention_norm.weight, cfg.norm_eps)
+        cq = _mm(x, ca.wq).reshape(B, L, cfg.n_heads, hd)
+        ctx = context.to(cfg.dtype)
+        ckx = _mm(ctx, ca.wk).reshape(B, -1, cfg.n_kv_heads, hd)
+        cvx = _mm(ctx, ca.wv).reshape(B, -1, cfg.n_kv_heads, hd)
+        h = h + _mm(_gqa_attention(cq, ckx, cvx).reshape(B, L, -1), ca.wo)
+    ff = layer.feed_forward
+    x = _rms(h, layer.ffn_norm.weight, cfg.norm_eps)
+    return h + _mm(F.silu(_mm(x, ff.w1)) * _mm(x, ff.w3), ff.w2)
+
+
 def _mm(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
     """x @ W in x's dtype: a plain linear, or a QuantLinear (weight-only int8
     dequantized into the product; W8A8 through K7q + K7)."""
@@ -332,53 +369,58 @@ class ARTransformer(nn.Module):
             positions = (pos0 + torch.arange(L, device=h.device)[None, :]
                          - pad_lens.to(h.device)[:, None]).clamp_min(0)
             cos, sin = cos_full[positions], sin_full[positions]
-        hd = cfg.head_dim
         for li, layer in enumerate(self.layers):
-            att = layer.attention
-            x = _rms(h, layer.attention_norm.weight, cfg.norm_eps)
-            q = _mm(x, att.wq).reshape(B, L, cfg.n_heads, hd)
-            k = _mm(x, att.wk).reshape(B, L, cfg.n_kv_heads, hd)
-            v = _mm(x, att.wv).reshape(B, L, cfg.n_kv_heads, hd)
-            if cfg.use_qk_normalization:
-                q = _rms(q, att.q_norm.weight, cfg.norm_eps)
-                k = _rms(k, att.k_norm.weight, cfg.norm_eps)
-            q = _apply_rope(q, cos, sin)
-            k = _apply_rope(k, cos, sin)
             if cache is not None:
-                ck, cv = cache.k[li], cache.v[li]
-                cks = cvs = None
-                if cache.k_scale is not None:
-                    kq, ks = quantize_span_delta(k)
-                    vq, vs = quantize_span_delta(v)
-                    ck[:, pos0:pos0 + L] = kq
-                    cv[:, pos0:pos0 + L] = vq
-                    cks, cvs = cache.k_scale[li], cache.v_scale[li]
-                    cks[:, pos0:pos0 + L] = ks
-                    cvs[:, pos0:pos0 + L] = vs
-                else:
-                    ck[:, pos0:pos0 + L] = k.to(ck.dtype)
-                    cv[:, pos0:pos0 + L] = v.to(cv.dtype)
-                    ck, cv = ck.to(dtype), cv.to(dtype)
-                attn = _gqa_attention(q, ck, cv, pos0, pad_lens, cks, cvs)
+                def attend(q, k, v, li=li):
+                    ck, cv = cache.k[li], cache.v[li]
+                    cks = cvs = None
+                    if cache.k_scale is not None:
+                        kq, ks = quantize_span_delta(k)
+                        vq, vs = quantize_span_delta(v)
+                        ck[:, pos0:pos0 + L] = kq
+                        cv[:, pos0:pos0 + L] = vq
+                        cks, cvs = cache.k_scale[li], cache.v_scale[li]
+                        cks[:, pos0:pos0 + L] = ks
+                        cvs[:, pos0:pos0 + L] = vs
+                    else:
+                        ck[:, pos0:pos0 + L] = k.to(ck.dtype)
+                        cv[:, pos0:pos0 + L] = v.to(cv.dtype)
+                        ck, cv = ck.to(dtype), cv.to(dtype)
+                    return _gqa_attention(q, ck, cv, pos0, pad_lens, cks, cvs)
             else:
-                attn = _gqa_attention(q, k, v, 0, pad_lens)
-            h = h + _mm(attn.reshape(B, L, -1), att.wo)
-            if cfg.context_dim and context is not None:
-                ca = layer.cross_attention
-                x = _rms(h, layer.cross_attention_norm.weight, cfg.norm_eps)
-                cq = _mm(x, ca.wq).reshape(B, L, cfg.n_heads, hd)
-                ctx = context.to(dtype)
-                ckx = _mm(ctx, ca.wk).reshape(B, -1, cfg.n_kv_heads, hd)
-                cvx = _mm(ctx, ca.wv).reshape(B, -1, cfg.n_kv_heads, hd)
-                h = h + _mm(_gqa_attention(cq, ckx, cvx).reshape(B, L, -1), ca.wo)
-            ff = layer.feed_forward
-            x = _rms(h, layer.ffn_norm.weight, cfg.norm_eps)
-            h = h + _mm(F.silu(_mm(x, ff.w1)) * _mm(x, ff.w3), ff.w2)
+                def attend(q, k, v):
+                    return _gqa_attention(q, k, v, 0, pad_lens)
+            h = _block(cfg, layer, h, cos, sin, attend, context)
         h = _rms(h, self.norm.weight, cfg.norm_eps)
         logits = _mm(h, self.output).float()
         if cache is not None:
             cache.pos = pos0 + L
         return logits, cache
+
+
+def train_hidden(model: "ARTransformer", tokens: torch.Tensor,
+                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``ar_forward`` without a cache, with gradients, up to the final norm:
+    (B, L, dim) for tokens (B, L), whose product with ``model.output`` is
+    the forward's logits. Each layer is recomputed in the backward (remat:
+    the 4B's 16 layers keep only their inputs); the self-attention is K8
+    with K8bwd as its backward (``kernels.gqa_attention`` under autograd)."""
+    cfg = model.cfg
+    h = model.embed(tokens)
+    L = h.shape[1]
+    if L > cfg.max_seq_len:
+        raise ValueError(f"{L} positions pass max_seq_len {cfg.max_seq_len}")
+    cos, sin = (t[:L] for t in model.rope(h.device))
+
+    def attend(q, k, v):
+        return _gqa_attention(q, k, v, 0, None)
+
+    for layer in model.layers:
+        def run(h, layer=layer):
+            return _block(cfg, layer, h, cos, sin, attend, context)
+
+        h = checkpoint(run, h, use_reentrant=False)
+    return _rms(h, model.norm.weight, cfg.norm_eps)
 
 
 # ------------------------------ sampling ------------------------------

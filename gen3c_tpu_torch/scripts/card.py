@@ -11,6 +11,9 @@ import torch
 
 L2_FLUSH_BYTES = 128 << 20  # read before each timed call: over twice the H100's 50 MB L2
 HOST_SLEEP_CYCLES = 200_000_000  # ~0.1 s of the card asleep while host time is taken
+# the host's pause at each end of a device_ms profile: before its first launch
+# and after the card has finished its last kernel
+PROFILE_MARGIN_S = 0.1
 # the records of one kernel name a device_ms try may lose and still count
 LOST_RECORDS = 2
 
@@ -53,23 +56,35 @@ def records_a_call(profiles: list, calls: int):
     return us, per_call, sum(lost.values())
 
 
-def device_ms(fn, calls: int = 20, tries: int = 5) -> dict:
+# the L2 read's kernel names seen so far in this process (the same reduction of
+# the same size at every call): a profile that lost all of one name's records
+# must not let that name count as fn's
+_flush_names: set = set()
+
+
+def device_ms(fn, calls: int = 20, tries: int = 10) -> dict:
     """The device's time for one call of fn, from torch.profiler's kernel
     (and copy) records, over ``calls`` calls, each after a read of
     L2_FLUSH_BYTES, so that fn reads its inputs from HBM as a caller between
     other work does (a read, since a write would leave the L2 dirty and fn's
     reads would pay for its write-back); the read's own kernels are known by
-    name from a profile of ``calls`` reads alone and left out. The host's
+    name from a profile of ``calls`` reads alone (with every name such a
+    profile showed earlier in the process) and left out. The host's
     time between launches does not count, so a call whose host work exceeds
     its kernels is timed by its kernels.
 
     The profiler can lose records (seen on an H100: one or two of a
     profile's, now and then all of them, more often the longer the process
-    has run; not at the edges of its window only, since one was still lost
-    behind a 10 ms sleep at a profile's start). So a reading does not need
-    every record: ``records_a_call`` over two profiles, of ``calls`` and 2 x
-    ``calls`` calls. A try that it refuses is taken again, up to ``tries``
-    times, and RuntimeError is raised after that.
+    has run; one was still lost behind a 10 ms device sleep at a profile's
+    start; late in a long run the reads' profile of every try of one call
+    lost one of the read's two kernel names, which then counted as fn's,
+    hence the names kept across the process; in two long runs every try of
+    one reading lost 2 of fn's records in each profile without
+    PROFILE_MARGIN_S of the host idle at each end of a profile, and read
+    on the first try with it). The cause is not established. So a reading
+    does not need every record: ``records_a_call`` over two profiles, of
+    ``calls`` and 2 x ``calls`` calls. A try that it refuses is taken again,
+    up to ``tries`` times, and RuntimeError is raised after that.
     {"ms", "kernels" a call, "names", "tries": per try (the read's names,
     fn's records in each profile, the records lost or None)}."""
     from torch.profiler import ProfilerActivity, profile
@@ -79,19 +94,22 @@ def device_ms(fn, calls: int = 20, tries: int = 5) -> dict:
     def device_events(n, with_fn):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
             for _ in range(n):
                 flush.sum()
                 if with_fn:
                     fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
         return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
     fn()
     seen = []
     for _ in range(tries):
         flush_names = {e.name for e in device_events(calls, False)}
+        _flush_names.update(flush_names)
         profiles = [[(e.name, e.time_range.end - e.time_range.start)
-                     for e in device_events(n, True) if e.name not in flush_names]
+                     for e in device_events(n, True) if e.name not in _flush_names]
                     for n in (calls, 2 * calls)] if flush_names else [[], []]
         got = records_a_call(profiles, calls)
         seen.append([len(flush_names), [len(p) for p in profiles], got and got[2]])

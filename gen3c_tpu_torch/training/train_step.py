@@ -15,6 +15,7 @@ parallelism is not ported.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -135,6 +136,26 @@ class Optimizer:
             state.mu[n].copy_(mu)
             state.nu[n].copy_(nu)
         state.count = count
+
+
+class AdamW(Optimizer):
+    """optax.adamw(lr) (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 times
+    the lr): a constant learning rate and no gradient clipping, the
+    tokenizer and AR trainers' optimizer. Updates the parameters and state
+    in place, the moments in the parameters' dtype."""
+
+    def __init__(self, lr: float = 1e-4, b1: float = 0.9, b2: float = 0.999,
+                 weight_decay: float = 1e-4):
+        super().__init__(lr, weight_decay, (b1, b2), grad_clip=math.inf, warmup_steps=1)
+
+    def schedule(self, count: int) -> torch.Tensor:
+        return torch.tensor(self.lr, dtype=torch.float32)
+
+
+def trainable_params(module: nn.Module) -> Dict[str, nn.Parameter]:
+    """A module's parameters by name with gradients on (the port's modules
+    keep them off for inference): the tokenizer and AR trainers' params."""
+    return {n: p.requires_grad_(True) for n, p in module.named_parameters()}
 
 
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 0.1,

@@ -1076,3 +1076,45 @@ def test_k1vit_at_the_vision_shapes(gen, case):
     assert kernels.launch_counts["K1vit"] == 1
     assert kernels.route_counts["wgmma"] == (route == "wgmma")
     assert (out.float() - attention_reference(q, k, v).float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,d,offset,start", [
+    (1, 200, 200, 8, 2, 128, 0, None),        # causal prefill, rep 4
+    (1, 200, 200, 4, 4, 32, 0, None),         # causal, rep 1, d 32
+    (2, 130, 130, 4, 4, 64, 0, [0, 50]),      # left padding: rows that see no key
+    (2, 70, 150, 6, 3, 40, 80, [7, 120]),     # a causal offset, d off the MMA depth
+    (1, 90, 33, 8, 2, 32, None, None),        # the cross-attention (no causal mask)
+    (2, 45, 33, 4, 2, 128, None, [3, 33]),    # non-causal, one row with no key at all
+])
+def test_gqa_backward_kernel(gen, dtype, B, Lq, Lk, Hq, Hkv, d, offset, start):
+    """K8bwd through ``kernels.gqa_attention`` under autograd (K8's forward
+    with lse, then K8bwd): the leaves' gradients against
+    ``gqa_attention_backward_reference`` (fp32) with dout zero on the rows
+    that see no key (the plain version averages every key there, the kernel
+    adds nothing: those rows get dq 0, and every gradient stays finite).
+    bf16: the largest error within 2e-2 of the largest |gradient| (P and dS
+    enter the tensor cores in bf16, the outputs round to bf16), fp32 within
+    1e-5."""
+    q, k, v, _, _ = _gqa_inputs(gen, B, Lq, Lk, Hq, Hkv, d, dtype, False)
+    kv_start = None if start is None else torch.tensor(start, device="cuda")
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    lo = torch.zeros(B, dtype=torch.long, device="cuda") if start is None else kv_start
+    last = (torch.arange(Lq, device="cuda") + (offset if offset is not None else Lk)).clamp(
+        max=Lk - 1)
+    none = last[None] < lo[:, None]  # (B, Lq): rows that see no key
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(kernels.launch_counts)
+    out = kernels.gqa_attention(*leaves, offset, kv_start)
+    torch.autograd.backward(out, dout)
+    assert kernels.launch_counts["K8"] == before["K8"] + 1
+    assert kernels.launch_counts["K8bwd"] == before["K8bwd"] + 1
+    for t in leaves:
+        assert torch.isfinite(t.grad).all()
+    assert (leaves[0].grad[none] == 0).all() and (out.detach()[none] == 0).all()
+    dout = dout.masked_fill(none[:, :, None, None], 0)
+    want = reference.gqa_attention_backward_reference(q.float(), k.float(), v.float(),
+                                                      dout.float(), offset, kv_start)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for t, w in zip(leaves, want):
+        assert (t.grad.float() - w).abs().max() <= tol * w.abs().max() + 1e-6

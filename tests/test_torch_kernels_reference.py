@@ -120,7 +120,7 @@ def test_kernels_import_without_nvcc_or_triton():
         "import sys, gen3c_tpu_torch.kernels as k, gen3c_tpu_torch.kernels.cuda; "
         "assert 'triton' not in sys.modules; "
         "assert sorted(k.launch_counts) == ['K1', 'K1ag', 'K1cp', 'K1merge', 'K1ring', 'K1vit', 'K2', 'K3', "
-        "'K3lse', 'K4', 'K4band', 'K5', 'K6', 'K7', 'K7q', 'K8', 'P1', 'P2']; print('ok')"
+        "'K3lse', 'K4', 'K4band', 'K5', 'K6', 'K7', 'K7q', 'K8', 'K8bwd', 'P1', 'P2']; print('ok')"
     )
     env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
