@@ -223,13 +223,16 @@ Phases, each printing one JSON line of its own numbers:
              card against CPU (TF32 off, TOK_PARITY_TOL)
  32 ar_train K8bwd (K8's backward) against its plain version at the 4B's
              causal (1, 12,800, 32 / 8, 128), a left-padded batch, the
-             cross-attention's non-causal 512 keys and ar_tiny's fp32, beside
-             SDPA's backward and the bound; then ar_train_step on the seeded
-             ar_4b, all 16 layers, over the 12,800-token grid, B = 1,
+             cross-attention's non-causal 512 keys (a split dK/dV grid), rep
+             1 at d 32 and ar_tiny's fp32, beside SDPA's backward and the
+             bound; each bf16 case on the wgmma route, its splits recorded,
+             two calls the same bits (K8BWD_CASES); then ar_train_step on the
+             seeded ar_4b, all 16 layers, over the 12,800-token grid, B = 1,
              AR_TRAIN_STEPS = 3 steps with per-layer remat: s per step, peak
              GiB, loss, grad norm, K8 (32) and K8bwd (16) launches a step;
-             a 2-layer cut at full width over 256 tokens, card (bf16)
-             against CPU (fp32) within AR_PARITY_TOL
+             then steps traced by torch.profiler: K8bwd's and K8's share of
+             a step (ar_train_trace); a 2-layer cut at full width over 256
+             tokens, card (bf16) against CPU (fp32) within AR_PARITY_TOL
 Every bf16 attention case of phase 3 also prints its launches by body
 (kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
 registers, stack and spill bytes (ptxas -v, the build log) and dynamic
@@ -292,6 +295,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -523,24 +527,28 @@ def _ptxas() -> dict:
     return _ptxas_counts(build.build()["log"])
 
 
-def wgmma_entries(kind: str, d: int, band: bool, lse: bool = False) -> dict:
+def wgmma_entries(kind: str, d: int, band: bool, lse: bool = False, gqa: bool = False,
+                  splits: int = 1) -> dict:
     """The attention_wgmma.cu entries one call launches ("fwd": the forward,
-    "bwd": Delta, dK/dV and dQ) at head dim d: registers, stack and spill
-    bytes from the build log, and the dynamic shared memory they ask for."""
+    "bwd": Delta, dK/dV, with gqa and splits > 1 the split's reduction, and
+    dQ) at head dim d: registers, stack and spill bytes from the build log,
+    and the dynamic shared memory they ask for. gqa: K8's mode (kGqa)."""
     from gen3c_tpu_torch.kernels import cuda
 
     dp = 64 if d <= 64 else 128
     smem = cuda.wgmma_smem_bytes(d)
-    b = f"Lb{int(band)}E"
+    b, g = f"Lb{int(band)}E", f"Lb{int(gqa)}E"
     if kind == "fwd":
-        want = {f"attn_fwd_wgmma<{dp},{int(band)},{int(lse)}>":
-                (f"attn_fwd_wgmmaILi{dp}E{b}Lb{int(lse)}ELb0EE", smem["fwd"])}
+        want = {f"attn_fwd_wgmma<{dp},{int(band)},{int(lse)},{int(gqa)}>":
+                (f"attn_fwd_wgmmaILi{dp}E{b}Lb{int(lse)}E{g}E", smem["fwd"])}
     else:
-        want = {f"attn_bwd_dkdv_wgmma<{dp},{int(band)}>": (f"attn_bwd_dkdv_wgmmaILi{dp}E{b}E",
-                                                          smem["dkdv"]),
-                f"attn_bwd_dq_wgmma<{dp},{int(band)}>": (f"attn_bwd_dq_wgmmaILi{dp}E{b}E",
-                                                        smem["dq"]),
+        want = {f"attn_bwd_dkdv_wgmma<{dp},{int(band)},{int(gqa)}>":
+                (f"attn_bwd_dkdv_wgmmaILi{dp}E{b}{g}E", smem["dkdv"]),
+                f"attn_bwd_dq_wgmma<{dp},{int(band)},{int(gqa)}>":
+                (f"attn_bwd_dq_wgmmaILi{dp}E{b}{g}E", smem["dq"]),
                 "attn_bwd_delta_wgmma": ("attn_bwd_delta_wgmma", 0)}
+        if gqa and splits > 1:
+            want["gqa_bwd_reduce"] = ("gqa_bwd_reduce", 0)
     counts = _ptxas()
     out = {}
     for name, (pattern, dynamic) in want.items():
@@ -4763,7 +4771,10 @@ def _k8bwd_case(gen, name: str, B: int, Lq: int, Lk: int, Hq: int, Hkv: int, D: 
     Timed (CUDA events, the backward alone: Delta, dK/dV, dQ) beside SDPA's
     backward (``is_causal`` / non-causal, ``enable_gqa``; padded: its dense
     boolean mask) and the plain version; the bound counts FlashAttention-2's
-    five products over the visible pairs."""
+    five products over the visible pairs. A bf16 case must take the wgmma
+    route (attention_wgmma.cu's pair in its kGqa mode; ``splits``: its
+    dK/dV grid's, ``cuda.gqa_bwd_plan``), and a second call must give the
+    same bits."""
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.kernels import cuda
 
@@ -4792,7 +4803,17 @@ def _k8bwd_case(gen, name: str, B: int, Lq: int, Lk: int, Hq: int, Hkv: int, D: 
             "finite": bool(all(torch.isfinite(t).all().item() for t in (dq_all, dk_all, dv_all)))}
         del dq_all, dk_all, dv_all
         dout = dout.masked_fill(none[:, :, None, None], 0)
+    before = dict(kernels.route_counts)
     dq, dk, dv = cuda.gqa_attention_bwd(q, k, v, out, dout, lse, causal, start)
+    res["routes"] = route_delta(before)
+    again = cuda.gqa_attention_bwd(q, k, v, out, dout, lse, causal, start)
+    res["repeats_bits"] = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                              for a, b in zip((dq, dk, dv), again))
+    del again
+    if dtype == torch.bfloat16:
+        res["splits"] = cuda.gqa_bwd_plan(B, Lq, Lk, Hq, Hkv, causal,
+                                          torch.cuda.get_device_properties(0).multi_processor_count)
+        res["entries"] = wgmma_entries("bwd", D, band=False, gqa=True, splits=res["splits"])
     groups = Hkv if plain_groups is None else plain_groups
     rep = Hq // Hkv
     h, g = slice(0, groups * rep), slice(0, groups)
@@ -4857,6 +4878,10 @@ def _k8bwd_case(gen, name: str, B: int, Lq: int, Lk: int, Hq: int, Hkv: int, D: 
     nk = res.get("no_key_rows", {})
     if bad or not res["finite"] or res["lse_max_abs_err"] > 1e-2 or not all(nk.values()):
         raise AssertionError(f"{name}: K8bwd disagrees with its plain version ({bad}): {res}")
+    if not res["repeats_bits"]:
+        raise AssertionError(f"{name}: two K8bwd calls gave different bits: {res}")
+    if dtype == torch.bfloat16 and res["routes"] != {"wgmma": 1, "mma_sync": 0}:
+        raise AssertionError(f"{name}: a bf16 K8bwd call took {res['routes']}, not wgmma: {res}")
     if res["ms"] < res["bound_ms"]:
         raise AssertionError(f"{name}: a time under the bound is no reading: {res}")
     del q, k, v, dout, out, lse, mask
@@ -4864,26 +4889,39 @@ def _k8bwd_case(gen, name: str, B: int, Lq: int, Lk: int, Hq: int, Hkv: int, D: 
     return res
 
 
+# K8bwd's cases: the 4B's training shape (causal bf16, 12,800 tokens; the plain
+# version on K8BWD_PLAIN_GROUP groups), a left-padded batch, the cross-attention's
+# non-causal shape (512 keys: the split dK/dV grid), a short causal bf16 one at rep 1
+# and d 32, and ar_tiny's fp32 (d 32, rep 2). (name, B, Lq, Lk, Hq, Hkv, D, dtype,
+# causal offset, kv_valid_start, plain groups); scripts/compare_gqa_builds.py runs them too
+K8BWD_CASES = (
+    ("K8bwd 4B causal bf16", 1, AR_TRAIN_TOKENS, AR_TRAIN_TOKENS, 32, 8, 128, "bfloat16", 0,
+     None, K8BWD_PLAIN_GROUP),
+    ("K8bwd left-padded bf16", 2, 2048, 2048, 32, 8, 128, "bfloat16", 0, [0, 700], None),
+    ("K8bwd cross-attention bf16", 1, AR_TRAIN_TOKENS, 512, 32, 8, 128, "bfloat16", None, None,
+     None),
+    ("K8bwd short rep 1 d 32 bf16", 1, 200, 200, 4, 4, 32, "bfloat16", 0, None, None),
+    ("K8bwd ar_tiny fp32", 1, 255, 255, 4, 2, 32, "float32", 0, None, None),
+)
+
+
 def k8bwd_cases(gen) -> dict:
-    """K8bwd at the 4B's training shape (causal bf16, 12,800 tokens), a
-    left-padded batch, the cross-attention's non-causal shape (512 keys),
-    a short causal bf16 one at rep 1 and d 32 and ar_tiny's fp32 (d 32,
-    rep 2)."""
+    """K8bwd at each of K8BWD_CASES."""
     return {c["name"]: c for c in (
-        _k8bwd_case(gen, "K8bwd 4B causal bf16", 1, AR_TRAIN_TOKENS, AR_TRAIN_TOKENS, 32, 8, 128,
-                    torch.bfloat16, 0, plain_groups=K8BWD_PLAIN_GROUP),
-        _k8bwd_case(gen, "K8bwd left-padded bf16", 2, 2048, 2048, 32, 8, 128, torch.bfloat16, 0,
-                    pad=[0, 700]),
-        _k8bwd_case(gen, "K8bwd cross-attention bf16", 1, AR_TRAIN_TOKENS, 512, 32, 8, 128,
-                    torch.bfloat16, None),
-        _k8bwd_case(gen, "K8bwd short rep 1 d 32 bf16", 1, 200, 200, 4, 4, 32,
-                    torch.bfloat16, 0),
-        _k8bwd_case(gen, "K8bwd ar_tiny fp32", 1, 255, 255, 4, 2, 32, torch.float32, 0),
-    )}
+        _k8bwd_case(gen, name, B, Lq, Lk, Hq, Hkv, D, getattr(torch, dtype), causal, pad=pad,
+                    plain_groups=groups)
+        for name, B, Lq, Lk, Hq, Hkv, D, dtype, causal, pad, groups in K8BWD_CASES)}
 
 
 AR_TRAIN_STEPS = 3
 AR_TRAIN_LR = 1e-4
+AR_TRACE_TRIES = 5  # traced (1 step, 2 steps) pairs at most, until one keeps its records
+# the kernels of a training step that are K8bwd (attention_wgmma.cu's backward pair in
+# its kGqa mode, its Delta and the split's reduction) and K8 (the kGqa forward, with
+# or without lse), by the names torch.profiler gives them
+K8BWD_KERNELS = re.compile(r"attn_bwd_(?:dkdv|dq)_wgmma<\d+, ?(?:false|0), ?(?:true|1)>"
+                           r"|attn_bwd_delta_wgmma|gqa_bwd_reduce")
+K8_KERNELS = re.compile(r"attn_fwd_wgmma<\d+, ?(?:false|0), ?(?:true|false|1|0), ?(?:true|1)>")
 AR_PARITY_LAYERS = 2  # of the 4B's 16, at its full width, card against CPU
 AR_PARITY_TOKENS = 257  # the cut's sequence (256 positions in)
 # bf16 weights and products on the card (fp32 softmax, norms and loss), fp32 on the CPU
@@ -4905,6 +4943,86 @@ TOK_LOSS = dict(w_gram=1.0, w_flow=1.0, flow_scale=2, w_consistency=1.0, consist
                 consistency_step=8)
 
 
+def read_ar_train_trace(profiles: list, step_s: float, k8bwd_launches: int,
+                        k8bwd_kernels: int, k8_launches: int):
+    """A traced 4B training step from its (name, µs) records in profiles of
+    one step and of two: K8bwd's kernels (K8BWD_KERNELS: k8bwd_kernels
+    names, each launched k8bwd_launches times a step) and K8's forward
+    (K8_KERNELS: one name, k8_launches a step) read by ``scripts/card.py``'s
+    ``records_known`` with those counts from the launch counters (a few lost
+    records cost nothing) as seconds a step and shares of the untraced
+    step's ``step_s`` seconds; the step's kernel seconds and its largest
+    kernels from the two-step profile's records, halved: a lower bound when
+    the profiler lost some of them (``all_records_kept`` false; late in a
+    long process it lost ≈ 20 of every ≈ 10,166-record profile, now and then
+    none). None when the names are not those, or ``records_known`` refuses
+    their records."""
+    from gen3c_tpu_torch.scripts.card import records_by_name, records_known
+
+    bwd = sorted({n for pr in profiles for n, _ in pr if K8BWD_KERNELS.search(n)})
+    fwd = sorted({n for pr in profiles for n, _ in pr if K8_KERNELS.search(n)})
+    if len(bwd) != k8bwd_kernels or len(fwd) != 1:
+        return None
+    got = records_known(profiles, 1, {**{n: k8bwd_launches for n in bwd}, fwd[0]: k8_launches})
+    if got is None:
+        return None
+    us, lost = got
+    k8bwd_s, k8_s = sum(us[n] for n in bwd) / 1e6, us[fwd[0]] / 1e6
+    two = {}
+    for n, us in profiles[1]:
+        c, t = two.get(n, (0, 0.0))
+        two[n] = (c + 1, t + us)
+    kernel_s = sum(t for _, t in two.values()) / 2e6
+    top = sorted(two.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"step_s": step_s, "kernel_s": kernel_s, "kernel_share": kernel_s / step_s,
+            "all_records_kept": records_by_name(profiles, 1) is not None,
+            "records": [len(pr) for pr in profiles], "k8_records_lost": lost,
+            "k8bwd_kernels_a_step": k8bwd_launches * len(bwd), "k8bwd_s": k8bwd_s,
+            "k8bwd_share_of_step": k8bwd_s / step_s, "k8bwd_share_of_kernels": k8bwd_s / kernel_s,
+            "k8_kernels_a_step": k8_launches, "k8_s": k8_s, "k8_share_of_step": k8_s / step_s,
+            "k8_share_of_kernels": k8_s / kernel_s,
+            "top_kernels": [{"name": n[:120], "a_step": c / 2, "s": t / 2e6}
+                            for n, (c, t) in top]}
+
+
+def _ar_train_trace(step, step_s: float, k8bwd_launches: int, k8_launches: int,
+                    k8bwd_kernels: int) -> dict:
+    """4B training steps traced by torch.profiler, a profile of one step and
+    one of two (the host idle PROFILE_MARGIN_S at each end, as
+    ``card.device_ms`` has it), read by ``read_ar_train_trace``; up to
+    AR_TRACE_TRIES pairs until one reads (k8bwd_kernels K8bwd kernel names
+    of k8bwd_launches each and one K8 name of k8_launches, each within
+    LOST_RECORDS of its count), else it fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gen3c_tpu_torch.scripts.card import PROFILE_MARGIN_S
+
+    def profiled(n):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        return [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    tries = []
+    for _ in range(AR_TRACE_TRIES):
+        profiles = [profiled(1), profiled(2)]
+        res = read_ar_train_trace(profiles, step_s, k8bwd_launches, k8bwd_kernels, k8_launches)
+        names = [sorted({n[:60] for pr in profiles for n, _ in pr if p.search(n)})
+                 for p in (K8BWD_KERNELS, K8_KERNELS)]
+        tries.append([[len(pr) for pr in profiles], res is not None])
+        if res:
+            res["tries"] = tries
+            return res
+    raise AssertionError(f"ar_train: no traced pair kept {k8bwd_kernels} K8bwd kernels of "
+                         f"{k8bwd_launches} and one K8 of {k8_launches} a step (records a "
+                         f"profile, read a try: {tries}; names of the last: {names})")
+
+
 def phase_ar_train() -> dict:
     """K8bwd's kernel cases, then ``ar_train_step`` (AdamW, optax.adamw's
     counterpart) on the seeded ar_4b at full width (all 16 layers, 4.01 B
@@ -4918,6 +5036,7 @@ def phase_ar_train() -> dict:
     import dataclasses
 
     from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import cuda
     from gen3c_tpu_torch.models.ar_transformer import ARTransformer
     from gen3c_tpu_torch.pipelines import autoregressive as ar
     from gen3c_tpu_torch.training import ar_train
@@ -4951,7 +5070,21 @@ def phase_ar_train() -> dict:
                       "accuracy": m["accuracy"].item(), "grad_norm": m["grad_norm"].item(),
                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                       "launches": {k: kernels.launch_counts[k] for k in ("K8", "K8bwd")}})
-    del model, params, state, opt, tokens, m
+    # K8bwd's and K8's share of a step, traced (the steps after the timed ones)
+    live = {"model": model, "state": state}
+
+    def one_step():
+        live["model"], live["state"], _ = ar_train.ar_train_step(live["model"], live["state"],
+                                                                 tokens, opt)
+
+    splits = cuda.gqa_bwd_plan(1, AR_TRAIN_TOKENS, AR_TRAIN_TOKENS, preset.ar.n_heads,
+                               preset.ar.n_kv_heads, 0,
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+    trace = _ar_train_trace(one_step, float(np.mean([st["s"] for st in steps[1:]])),
+                            steps[-1]["launches"]["K8bwd"], steps[-1]["launches"]["K8"],
+                            3 + (splits > 1))
+    emit("ar_train_trace", **trace)
+    del model, params, state, opt, tokens, m, live
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4989,7 +5122,7 @@ def phase_ar_train() -> dict:
     res = {"model": "ar_4b", "layers": preset.ar.n_layers, "params": n_params,
            "tokens": AR_TRAIN_TOKENS, "dtype": "bfloat16", "optimizer": "AdamW (optax.adamw)",
            "lr": AR_TRAIN_LR, "state_gib_reckoned": state_gib, "build_s": build_s,
-           "steps": steps, "k8bwd_cases_s": cases_s,
+           "steps": steps, "k8bwd_cases_s": cases_s, "trace": trace,
            "parity": {"layers": AR_PARITY_LAYERS, "tokens": AR_PARITY_TOKENS, **parity,
                       "rel": rel, "tol": AR_PARITY_TOL, "leaf_rel_max": leaf_rel,
                       "worst_leaf": worst, "leaf_tol": AR_PARITY_LEAF_TOL}}
@@ -5295,16 +5428,21 @@ def main(argv=None) -> int:
                                                   for n, c in res["kernels"].items()
                                                   if n.startswith("K8")}}.items()]))
     k8bwd = ar_train_res["kernels"]
+    trace = ar_train_res["trace"]
     table.append(row("K8bwd GQA attention backward (4B training, 12,800 tokens, causal bf16)",
-                     "gqa_attention_bwd.cu", "gen3c_tpu/models/ar_transformer.py:252",
+                     "attention_wgmma.cu", "gen3c_tpu/models/ar_transformer.py:252",
                      ar_train_res["launches"]["K8bwd"], k8bwd["K8bwd 4B causal bf16"],
                      max_abs_err=max(c["max_abs_err"] for c in k8bwd.values()),
                      library_call=k8bwd["K8bwd 4B causal bf16"]["library_call"],
+                     fp32_source=csrc + "gqa_attention_bwd.cu",
+                     share_of_ar_train_step={k: trace[k] for k in (
+                         "step_s", "k8bwd_s", "k8bwd_share_of_step", "k8_s", "k8_share_of_step")},
                      cases=[{k: c.get(k) for k in (
                          "name", "q", "kv", "dtype", "causal_offset", "kv_valid_start", "ms",
                          "forward_lse_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                         "bound_share", "max_abs_err", "grads", "plain_heads",
-                         "rows_without_keys", "no_key_rows")} for c in k8bwd.values()]))
+                         "bound_share", "max_abs_err", "grads", "plain_heads", "routes", "splits",
+                         "repeats_bits", "rows_without_keys", "no_key_rows")}
+                            for c in k8bwd.values()]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     incomplete = [(r["name"], k) for r in table for k in keys if k not in r]

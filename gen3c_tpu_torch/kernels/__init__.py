@@ -22,7 +22,9 @@
   K8   GQA attention over the KV cache (gen3c_tpu/models/ar_transformer.py:252-297,
                                  XLA): causal, left padding, int8 codes with fp32 scales
   K8bwd  its backward for training (XLA's autodiff of the same function, reached
-                                 from gen3c_tpu/training/ar_train.py:52), bf16 or fp32
+                                 from gen3c_tpu/training/ar_train.py:52): bf16 on
+                                 TMA + wgmma (K4's pair in its GQA mode), fp32 on the
+                                 CUDA cores
   P1   wgmma rate probe          (scripts/probe_int8_attention.py:37-62; ``mma_probe``)
   P2   K1's tile sweep           (scripts/sweep_attention.py:32-68; ``attention_point``:
                                  K1's wgmma forward built at a point of the sweep)
@@ -39,9 +41,10 @@ preset's K1, K2, K3) is ``csrc/attention_f32.cu``; P2 is
 ``attention_wgmma.cu``'s forward built at its sweep's points; K5 is
 ``csrc/splat.cu``; K6 is
 ``csrc/raycast.cu``; K7q and K7 are ``csrc/w8a8.cu``; K8 is ``csrc/gqa_attention.cu`` (its bf16
-prefill and training forward ``attention_wgmma.cu``'s GQA mode), K8bwd
-``csrc/gqa_attention_bwd.cu``; P1 is
-``csrc/mma_probe.cu``. A CUDA tensor launches the compiled kernel (built at
+prefill and training forward ``attention_wgmma.cu``'s GQA mode); K8bwd in
+bf16 is ``attention_wgmma.cu``'s backward pair in its GQA mode (a split
+dK/dV grid where the key axis is short: ``cuda.gqa_bwd_plan``), in fp32
+``csrc/gqa_attention_bwd.cu``; P1 is ``csrc/mma_probe.cu``. A CUDA tensor launches the compiled kernel (built at
 first use, see ``build``); a CPU tensor runs the plain PyTorch version in
 ``reference``. There is no other switch: on a card the references run only
 where a caller asks for them by name.
@@ -54,8 +57,9 @@ above that ``csrc/attention_wgmma.cu`` can serve: K1, K2, K3, K1cp, K1ag,
 K3lse, K1ring and the forwards with lse, K4, K4band) by the body
 ``cuda.attention_route`` chose: "wgmma" (TMA + wgmma,
 ``attention_wgmma.cu``) for inputs a TMA tensor map describes, "mma_sync"
-(``attention.cu`` / ``attention_bwd.cu``) for the rest. P2 calls its
-forward by point and takes no route.
+(``attention.cu`` / ``attention_bwd.cu``) for the rest. A bf16 K8bwd call
+counts "wgmma" too (it has no other body). P2 calls its forward by point
+and takes no route.
 """
 
 from __future__ import annotations

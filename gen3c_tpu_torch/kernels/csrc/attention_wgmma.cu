@@ -18,10 +18,14 @@
 //       construction: the output with lse is the output without it, and a
 //       band whose window covers every frame visits every tile, unmasked, in
 //       order: K1's bits.
-//   attn_bwd_dkdv_wgmma / attn_bwd_dq_wgmma <DP, kBand>  K4 and K4-band, the
-//       splash / flash VJPs (dit.py:464-470, :508), two kernels that each own
-//       their output rows: no atomics, deterministic bits, and the full-window
-//       band gives K4's bits.
+//   attn_bwd_dkdv_wgmma / attn_bwd_dq_wgmma <DP, kBand, kGqa>  K4 and K4-band,
+//       the splash / flash VJPs (dit.py:464-470, :508), two kernels that each
+//       own their output rows: no atomics, deterministic bits, and the
+//       full-window band gives K4's bits; kGqa: K8bwd in bf16, the gradient
+//       of K8 (ar_transformer.py:252, reached from
+//       gen3c_tpu/training/ar_train.py:52), with K8's mask and head map (see
+//       GqaMask, GqaBwd) and, where the key axis is short, a split dK/dV grid
+//       whose fp32 partial sums gqa_bwd_reduce adds in a fixed order.
 //   attn_bwd_delta_wgmma  Delta = rowsum(dO * O), one bandwidth-bound pass.
 //
 // Shape of the kernels: two consumer warpgroups (warps 0-7) that own 64 rows
@@ -51,6 +55,20 @@
 // The design recomputes S in both backward kernels (7 products against
 // FlashAttention-2's 5), the price of owning every output row.
 //
+// The backward's GQA mode (kGqa, K8bwd): query head h reads K/V head h /
+// rep, key j is visible to query i iff kv_start[b] <= j and (offset < 0 or
+// j <= offset + i), and a row that sees no key (lse -inf) stages lse +inf,
+// so that its P is 0: dq 0, nothing added to dk or dv. A dK/dV CTA takes
+// (128 keys, KV head, split, batch) and walks the rep query heads of its KV
+// head, each over the 32-query tiles from the first that sees one of its
+// keys, summing dK and dV in registers over all of them; dQ's CTA takes
+// (128 queries, query head, batch), its key tiles from kv_start to its last
+// query's diagonal. Tiles no row of a consumer sees are skipped; only those
+// across kv_start or the diagonal are masked per element. Where key tiles x
+// Hkv x B CTAs do not fill the SMs (the cross-attention's 512 keys: 32
+// CTAs), kernels/cuda.py gqa_bwd_plan splits each tile's units over
+// several CTAs, each writing fp32 partial sums for gqa_bwd_reduce.
+//
 // The band (K3's temporal band, gen3c_tpu/models/dit.py:370-409): query
 // token i sees key token j iff |i/hw - j/hw| <= window or j/hw < prefix, at
 // global positions q_off + i and k_off + j (K1ring's shards; 0 otherwise).
@@ -75,6 +93,8 @@
 // 4 L^2 D flop per (batch, head) forward and 14 L^2 D backward (this
 // design) against ~4 L D bytes: the tensor-core rate. wgmma is the only
 // instruction that reaches it (mma.sync tops out at 315.5 TF/s, PERF.md).
+// K8bwd at the 4B's training shape (12,800 tokens, causal, 32 / 8 heads,
+// D 128) is 3.4 Tflop over ~50 MB: the tensor cores too.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -132,6 +152,9 @@ static_assert(128 * kProducerRegs + kFwdConsumerThreads * kConsumerRegs <=
                   kFwdThreads * (65536 / kFwdThreads / 8 * 8),
               "the register split must fit what the CTA launches with");
 constexpr int kDkdvStages = 4;
+// the backward's tensor-map box rows: dK/dV q, k, v, dout, then dQ q, k, v, dout
+constexpr int kBwdBoxRows[8] = {kBlockQ, kBlockM, kBlockM, kBlockQ,
+                                kBlockM, kBlockN, kBlockN, kBlockM};
 constexpr int kRowBytes = 128;  // one 64-dim half of a row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -202,6 +225,43 @@ struct GqaMask {
 };
 
 constexpr GqaMask kNoGqa = {nullptr, 1, -1};
+
+// The backward pair's kGqa mode, K8bwd in bf16: K8's mask and head map, K/V
+// and dK/dV with Hkv heads. dK/dV: `splits` CTAs share one (key tile, KV
+// head, batch), each taking a run of its (rep head, query tile) units
+// (kernels/cuda.py gqa_split_range over them); with splits > 1 each writes its fp32 partial sums
+// to ws (dK's (splits, B, Lk, Hkv, D), then dV's) and gqa_bwd_reduce adds
+// them in split order.
+struct GqaBwd {
+  GqaMask mask;
+  int Hkv;
+  int splits;
+  float* ws;
+};
+
+constexpr GqaBwd kNoGqaBwd = {kNoGqa, 0, 1, nullptr};
+
+// The first key (clamped to [0, Lk]) batch b sees.
+__device__ __forceinline__ int gqa_first_key(const GqaMask& gqa, int b, int Lk) {
+  if (gqa.kv_start == nullptr) return 0;
+  return static_cast<int>(min(max(gqa.kv_start[b], 0LL), static_cast<long long>(Lk)));
+}
+
+// A row's lse in log2 units under kGqa: a row that sees no key (lse -inf)
+// or lies past Lq stages +inf, so that its P is 0 and never NaN.
+__device__ __forceinline__ float gqa_lse_log2(const float* lse, int row, int Lq) {
+  const float l = row < Lq ? lse[row] : -INFINITY;
+  return l == -INFINITY ? INFINITY : l * kLog2e;
+}
+
+// The first 32-query tile (of [0, me)) whose rows see one of the keys
+// [k0, k_end) (k_end <= Lk), given the batch's first key lo; me when none.
+__device__ __forceinline__ int gqa_first_query_tile(const GqaMask& gqa, int k0, int k_end, int lo,
+                                                    int me, int block_q) {
+  const int first = max(k0, lo);  // the first visible key of the range
+  if (first >= k_end) return me;
+  return gqa.offset < 0 ? 0 : min(me, max(0, first - gqa.offset) / block_q);
+}
 
 // ---------------------------------- forward -----------------------------------
 
@@ -491,13 +551,22 @@ struct DkdvSmem {
 // 255 registers each: dK and dV are 128 fp32 registers a thread, and in a
 // 384-thread CTA they spilled (ptxas compiles it for 168 registers a thread,
 // and setmaxnreg does not raise that).
-template <int DP, bool kBand>
+//
+// kGqa (K8bwd): the CTA is (key tile, KV head g, split, batch), grid x
+// walking the key tiles slowest, so that the causal tiles with the most
+// queries launch first. Its units are the rep query heads g rep + r, each
+// over the 32-query tiles from the first that sees one of its keys, r
+// slowest; split s takes run s of gqa_split_range(s, splits, 0, units),
+// ceil(units / splits) a run. Q and dO load at
+// head g rep + r, lse and Delta at (b, g rep + r, row): dK and dV of the
+// KV head sum over its query heads here, without atomics.
+template <int DP, bool kBand, bool kGqa>
 __global__ void __launch_bounds__(kConsumerThreads, 1)
     attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         const __grid_constant__ CUtensorMap tdo, const BwdParams p,
-                        const Band band) {
+                        const Band band, const GqaBwd gqa) {
   using S = DkdvSmem<DP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
@@ -511,14 +580,26 @@ __global__ void __launch_bounds__(kConsumerThreads, 1)
   uint64_t* empty = bars + 1 + kDkdvStages;
 
   const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int n0 = blockIdx.x * kBlockM;  // the CTA's first key
+  const int h = kGqa ? blockIdx.x % gqa.Hkv : blockIdx.y;  // K's and V's head
+  const int n0 = (kGqa ? blockIdx.x / gqa.Hkv : blockIdx.x) * kBlockM;  // the CTA's first key
   const long long bh = static_cast<long long>(b) * p.H + h;
   int mb = 0, me = (p.Lq + kBlockQ - 1) / kBlockQ;
   if constexpr (kBand) {
     band_query_tiles(band, p.Lq, n0, min(n0 + kBlockM, p.Lk) - 1, kBlockQ, mb, me);
   }
-  const int n_tiles = me - mb;
+  int n_tiles = me - mb;
+  int lo = 0, u0 = 0;  // kGqa: the batch's first key; the split's first unit
+  if constexpr (kGqa) {
+    lo = gqa_first_key(gqa.mask, b, p.Lk);
+    mb = gqa_first_query_tile(gqa.mask, n0, min(n0 + kBlockM, p.Lk), lo, me, kBlockQ);
+    const int units = gqa.mask.rep * (me - mb);
+    const int per = (units + gqa.splits - 1) / gqa.splits;
+    u0 = min(static_cast<int>(blockIdx.y) * per, units);
+    n_tiles = min(u0 + per, units) - u0;
+  }
+  // unit `it` of this CTA: its query head and query tile
+  auto unit_head = [&](int it) { return kGqa ? h * gqa.mask.rep + (u0 + it) / (me - mb) : h; };
+  auto unit_tile = [&](int it) { return kGqa ? mb + (u0 + it) % (me - mb) : mb + it; };
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -535,24 +616,30 @@ __global__ void __launch_bounds__(kConsumerThreads, 1)
   const bool loader = threadIdx.x < 32;
   auto load_tile = [&](int it) {
     const int s = it % kDkdvStages;
-    const int m0 = (mb + it) * kBlockQ;
+    const int m0 = unit_tile(it) * kBlockQ;
     const int row = m0 + static_cast<int>(threadIdx.x);
+    const int hq = unit_head(it);
+    const long long bq = static_cast<long long>(b) * p.H + hq;
     // a missing query row gets lse 0 and Delta 0 (its Q and dO rows are
-    // zero, so its terms vanish)
-    sLse[s * kBlockQ + threadIdx.x] = row < p.Lq ? p.lse[bh * p.Lq + row] * kLog2e : 0.f;
-    sDelta[s * kBlockQ + threadIdx.x] = row < p.Lq ? p.delta[bh * p.Lq + row] : 0.f;
+    // zero, so its terms vanish); kGqa: lse +inf (gqa_lse_log2)
+    sLse[s * kBlockQ + threadIdx.x] = kGqa ? gqa_lse_log2(p.lse + bq * p.Lq, row, p.Lq)
+                                           : row < p.Lq ? p.lse[bh * p.Lq + row] * kLog2e : 0.f;
+    sDelta[s * kBlockQ + threadIdx.x] = row < p.Lq ? p.delta[bq * p.Lq + row] : 0.f;
     if (threadIdx.x == 0) {
       unsigned char* stage = sQD + s * S::kStage;
       mbar_arrive_expect_tx(&full[s], S::kStage);
-      load_rows<DP>(stage, S::kQHalf, &tq, p.order_q, &full[s], h, m0, b);
-      load_rows<DP>(stage + S::kHalves * S::kQHalf, S::kQHalf, &tdo, p.order_do, &full[s], h,
+      load_rows<DP>(stage, S::kQHalf, &tq, p.order_q, &full[s], hq, m0, b);
+      load_rows<DP>(stage + S::kHalves * S::kQHalf, S::kQHalf, &tdo, p.order_do, &full[s], hq,
                     m0, b);
     } else {
       mbar_arrive(&full[s]);
     }
   };
+  // kGqa: a CTA without units (its keys before kv_start or past every
+  // query's diagonal, or an empty split) loads nothing and writes zeros
+  const bool has_units = !kGqa || n_tiles > 0;
   if (loader) {
-    if (threadIdx.x == 0) {
+    if (threadIdx.x == 0 && has_units) {
       tma_prefetch_map(&tq);
       tma_prefetch_map(&tk);
       tma_prefetch_map(&tv);
@@ -581,6 +668,10 @@ __global__ void __launch_bounds__(kConsumerThreads, 1)
       kf_row[0] = (wk0 + warp * 16 + g) / band.hw;
       kf_row[1] = (wk0 + warp * 16 + g + 8) / band.hw;
     }
+    if constexpr (kGqa) {  // the query tiles before the first that sees one of its keys: skipped
+      wmb = active ? gqa_first_query_tile(gqa.mask, wk0, min(wk0 + 64, p.Lk), lo, me, kBlockQ)
+                   : me;
+    }
 
     const float scale_log2 = p.scale * kLog2e;
     float dk[DP / 2], dv[DP / 2];
@@ -590,10 +681,10 @@ __global__ void __launch_bounds__(kConsumerThreads, 1)
     const uint32_t k_base = smem_u32(sKV) + cw * 64 * kRowBytes;
     const uint32_t v_base = k_base + S::kHalves * S::kKvHalf;
 
-    mbar_wait(kv_full, 0);
+    if (has_units) mbar_wait(kv_full, 0);
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % kDkdvStages;
-      const int mt = mb + it;
+      const int mt = unit_tile(it);
       mbar_wait(&full[s], (it / kDkdvStages) & 1);
       if (active && mt >= wmb && mt < wme) {
         ++visited;
@@ -635,6 +726,9 @@ __global__ void __launch_bounds__(kConsumerThreads, 1)
           masked = masked || !band_tile_visible(band, p.Lk, wk0, 64, m0 / band.hw,
                                                 (min(m0 + kBlockQ, p.Lq) - 1) / band.hw, 0);
         }
+        if constexpr (kGqa) {  // keys before kv_start, or past the first query's diagonal
+          masked = masked || wk0 < lo || (gqa.mask.offset >= 0 && wk0 + 63 > gqa.mask.offset + m0);
+        }
         if (!masked) {
 #pragma unroll
           for (int i = 0; i < 16; ++i) {
@@ -650,6 +744,10 @@ __global__ void __launch_bounds__(kConsumerThreads, 1)
             bool vis = m0 + col < p.Lq;
             if constexpr (kBand) {
               vis = vis && band_frames_visible(band, (m0 + col) / band.hw, kf_row[(i >> 1) & 1]);
+            }
+            if constexpr (kGqa) {
+              const int key = wk0 + warp * 16 + g + 8 * ((i >> 1) & 1);
+              vis = vis && key >= lo && (gqa.mask.offset < 0 || key <= gqa.mask.offset + m0 + col);
             }
             const float pe = vis ? exp2f(st[i] * scale_log2 - lse[col]) : 0.f;
             st[i] = pe;
@@ -704,23 +802,55 @@ __global__ void __launch_bounds__(kConsumerThreads, 1)
       atomicAdd(band.visited, static_cast<unsigned long long>(visited));
     }
 
+    // kGqa: dK and dV have Hkv heads; a split grid writes fp32 partial sums
+    const int H_out = kGqa ? gqa.Hkv : p.H;
+    const bool partial = kGqa && gqa.splits > 1;
+    const long long ws_part = static_cast<long long>(p.B) * p.Lk * H_out * p.D;
+    float* ws_dk = partial ? gqa.ws + blockIdx.y * ws_part : nullptr;
+    float* ws_dv = partial ? ws_dk + gqa.splits * ws_part : nullptr;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = wk0 + warp * 16 + g + 8 * r;
       if (row >= p.Lk) continue;
-      const long long off = ((static_cast<long long>(b) * p.Lk + row) * p.H + h) * p.D;
+      const long long off = ((static_cast<long long>(b) * p.Lk + row) * H_out + h) * p.D;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int col = 8 * j + 2 * tg;
         if (col < p.D) {
-          *reinterpret_cast<uint32_t*>(p.dk + off + col) =
-              pack_bf16x2(dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
-          *reinterpret_cast<uint32_t*>(p.dv + off + col) =
-              pack_bf16x2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+          if (partial) {
+            *reinterpret_cast<float2*>(ws_dk + off + col) =
+                make_float2(dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
+            *reinterpret_cast<float2*>(ws_dv + off + col) =
+                make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(p.dk + off + col) =
+                pack_bf16x2(dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
+            *reinterpret_cast<uint32_t*>(p.dv + off + col) =
+                pack_bf16x2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+          }
         }
       }
     }
   }
+}
+
+// K8bwd's split dK/dV: dk and dv (bf16, n elements each) from the splits'
+// fp32 partial sums in ws (dK's splits, then dV's, n each), added in split
+// order, so the bits repeat. Four elements a thread (n % 8 == 0).
+__global__ void __launch_bounds__(256)
+    gqa_bwd_reduce(const float* ws, int splits, long long n, __nv_bfloat16* dk,
+                   __nv_bfloat16* dv) {
+  const long long i = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+  for (int s = 0; s < splits; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(ws + s * n + i);
+    const float4 y = *reinterpret_cast<const float4*>(ws + (splits + s) * n + i);
+    a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
+    c.x += y.x, c.y += y.y, c.z += y.z, c.w += y.w;
+  }
+  *reinterpret_cast<uint2*>(dk + i) = make_uint2(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w));
+  *reinterpret_cast<uint2*>(dv + i) = make_uint2(pack_bf16x2(c.x, c.y), pack_bf16x2(c.z, c.w));
 }
 
 // --------------------------------- backward: dQ -------------------------------
@@ -736,13 +866,16 @@ struct DqSmem {
   static constexpr int kBytes = 1024 + kQD + kDqStages * kStage + kBars;
 };
 
-template <int DP, bool kBand>
+// kGqa (K8bwd): query head h reads K/V head h / rep; the CTA's key tiles
+// run from kv_start to the last query's diagonal, the query tiles with the
+// most keys (the last) first, as the forward's kGqa mode.
+template <int DP, bool kBand, bool kGqa>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tdo, const BwdParams p,
-                      const Band band) {
+                      const Band band, const GqaMask gqa) {
   using S = DqSmem<DP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
@@ -755,10 +888,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockM;
+  const int hk = kGqa ? h / gqa.rep : h;  // K's and V's head
+  const int q0 = (kGqa ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBlockM;
   int b0 = 0, e0 = (p.Lk + kBlockN - 1) / kBlockN, b1 = 0, e1 = 0;
   if constexpr (kBand) {
     band_key_tiles(band, p.Lk, q0, min(q0 + kBlockM, p.Lq) - 1, kBlockN, b0, e0, b1, e1, 0);
+  }
+  int lo = 0;  // kGqa: the CTA's keys are [lo, hi), the tiles [b0, e0)
+  if constexpr (kGqa) {
+    lo = gqa_first_key(gqa, b, p.Lk);
+    const int hi = gqa.offset < 0 ? p.Lk : min(p.Lk, gqa.offset + min(q0 + kBlockM, p.Lq));
+    b0 = lo / kBlockN;
+    e0 = hi > lo ? (hi + kBlockN - 1) / kBlockN : b0;
   }
   const int n_tiles = (e0 - b0) + (e1 - b1);
 
@@ -787,9 +928,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int n0 = nth_tile(it, b0, e0, b1) * kBlockN;
         unsigned char* stage = sKV + s * S::kStage;
         mbar_arrive_expect_tx(&full[s], S::kStage);
-        load_rows<DP>(stage, S::kKvHalf, &tk, p.order_k, &full[s], h, n0, b);
-        load_rows<DP>(stage + S::kHalves * S::kKvHalf, S::kKvHalf, &tv, p.order_v, &full[s], h, n0,
-                      b);
+        load_rows<DP>(stage, S::kKvHalf, &tk, p.order_k, &full[s], hk, n0, b);
+        load_rows<DP>(stage + S::kHalves * S::kKvHalf, S::kKvHalf, &tv, p.order_v, &full[s], hk,
+                      n0, b);
       }
     }
   } else {  // consumers
@@ -812,14 +953,25 @@ __global__ void __launch_bounds__(kThreads, 1)
       qf_row[0] = (wq0 + warp * 16 + g) / band.hw;
       qf_row[1] = (wq0 + warp * 16 + g + 8) / band.hw;
     }
+    int whi0 = p.Lk;  // kGqa: this warpgroup's first row sees keys [lo, whi0)
+    if constexpr (kGqa) {
+      if (!active) {
+        we0 = wb0;
+      } else if (gqa.offset >= 0) {
+        const int whi = min(p.Lk, gqa.offset + min(wq0 + 64, p.Lq));
+        we0 = whi > lo ? (whi + kBlockN - 1) / kBlockN : wb0;
+        whi0 = min(p.Lk, gqa.offset + wq0 + 1);
+      }
+    }
     // rows g and g + 8; a missing row gets lse 0 and Delta 0 (zero q and dO
-    // rows: its dS is 0 and it is not written)
+    // rows: its dS is 0 and it is not written); kGqa: lse +inf (gqa_lse_log2)
     const long long bh = static_cast<long long>(b) * p.H + h;
     float lse_l2[2], dlt[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = wq0 + warp * 16 + g + 8 * r;
-      lse_l2[r] = row < p.Lq ? p.lse[bh * p.Lq + row] * kLog2e : 0.f;
+      lse_l2[r] = kGqa ? gqa_lse_log2(p.lse + bh * p.Lq, row, p.Lq)
+                       : row < p.Lq ? p.lse[bh * p.Lq + row] * kLog2e : 0.f;
       dlt[r] = row < p.Lq ? p.delta[bh * p.Lq + row] : 0.f;
     }
 
@@ -871,6 +1023,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if constexpr (kBand) {
           masked = !band_tile_visible(band, p.Lk, n0, kBlockN, qf_lo, qf_hi, 0);
         }
+        if constexpr (kGqa) masked = n0 < lo || n0 + kBlockN > whi0;
         if (!masked) {
 #pragma unroll
           for (int i = 0; i < 32; ++i) {
@@ -884,6 +1037,11 @@ __global__ void __launch_bounds__(kThreads, 1)
             bool vis = col < p.Lk;
             if constexpr (kBand) {
               vis = vis && band_frames_visible(band, qf_row[(i >> 1) & 1], col / band.hw);
+            }
+            if constexpr (kGqa) {
+              vis = vis && col >= lo &&
+                    (gqa.offset < 0 ||
+                     col <= gqa.offset + wq0 + warp * 16 + g + 8 * ((i >> 1) & 1));
             }
             const float pe = vis ? exp2f(sc[i] * scale_log2 - lse_l2[(i >> 1) & 1]) : 0.f;
             sc[i] = pe * (dp[i] - dlt[(i >> 1) & 1]);
@@ -1019,23 +1177,77 @@ cudaError_t dispatch_fwd(const CUtensorMap* maps, const FwdParams& p, const Band
 }
 
 #ifndef GEN3C_ATTN_FWD_ONLY
-template <int DP, bool kBand>
+// dK/dV (kGqa with a split grid: then the reduction), then dQ.
+template <int DP, bool kBand, bool kGqa = false>
 cudaError_t launch_bwd(const CUtensorMap* dkdv_maps, const CUtensorMap* dq_maps,
-                       const BwdParams& p, const Band& band, int B, cudaStream_t stream) {
-  auto dkdv = attn_bwd_dkdv_wgmma<DP, kBand>;
+                       const BwdParams& p, const Band& band, int B, cudaStream_t stream,
+                       const GqaBwd& gqa = kNoGqaBwd) {
+  auto dkdv = attn_bwd_dkdv_wgmma<DP, kBand, kGqa>;
   const int smem_dkdv = DkdvSmem<DP>::kBytes;
   cudaError_t err = set_smem(dkdv, smem_dkdv);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3((p.Lk + kBlockM - 1) / kBlockM, p.H, B), kConsumerThreads, smem_dkdv, stream>>>(
-      dkdv_maps[0], dkdv_maps[1], dkdv_maps[2], dkdv_maps[3], p, band);
+  const int key_tiles = (p.Lk + kBlockM - 1) / kBlockM;
+  const dim3 dkdv_grid = kGqa ? dim3(key_tiles * gqa.Hkv, gqa.splits, B) : dim3(key_tiles, p.H, B);
+  dkdv<<<dkdv_grid, kConsumerThreads, smem_dkdv, stream>>>(dkdv_maps[0], dkdv_maps[1],
+                                                          dkdv_maps[2], dkdv_maps[3], p, band, gqa);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto dq = attn_bwd_dq_wgmma<DP, kBand>;
+  if (kGqa && gqa.splits > 1) {
+    const long long n = static_cast<long long>(B) * p.Lk * gqa.Hkv * p.D;
+    gqa_bwd_reduce<<<static_cast<unsigned>((n / 4 + 255) / 256), 256, 0, stream>>>(
+        gqa.ws, gqa.splits, n, p.dk, p.dv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  auto dq = attn_bwd_dq_wgmma<DP, kBand, kGqa>;
   const int smem_dq = DqSmem<DP>::kBytes;
   err = set_smem(dq, smem_dq);
   if (err != cudaSuccess) return err;
   dq<<<dim3((p.Lq + kBlockM - 1) / kBlockM, p.H, B), kThreads, smem_dq, stream>>>(
-      dq_maps[0], dq_maps[1], dq_maps[2], dq_maps[3], p, band);
+      dq_maps[0], dq_maps[1], dq_maps[2], dq_maps[3], p, band, gqa.mask);
+  return cudaGetLastError();
+}
+#endif  // GEN3C_ATTN_FWD_ONLY
+
+#ifndef GEN3C_ATTN_FWD_ONLY
+// The backward's eight tensor maps (the dK/dV kernel's q, k, v, dout, then
+// the dQ kernel's: box rows as gen3c_attention_wgmma_box_rows) and its
+// parameters; H is q's heads.
+cudaError_t bwd_setup(CUtensorMap* maps, BwdParams* p, const void* q, const void* k,
+                      const void* v, const void* out, const void* dout, const long long* words,
+                      const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Lq,
+                      int Lk, int H, int D, float scale) {
+  const void* bases[8] = {q, k, v, dout, q, k, v, dout};
+  for (int i = 0; i < 8; ++i) {
+    cudaError_t err = make_map(&maps[i], bases[i], words + i * kMapWords, kBwdBoxRows[i]);
+    if (err != cudaSuccess) return err;
+  }
+  for (int i = 0; i < 4; ++i) {  // the dQ kernel's maps must hold the same orders
+    if (words[i * kMapWords + 12] != words[(4 + i) * kMapWords + 12]) return cudaErrorInvalidValue;
+  }
+  p->o = static_cast<const __nv_bfloat16*>(out);
+  p->dout = static_cast<const __nv_bfloat16*>(dout);
+  p->lse = lse;
+  p->delta = delta;
+  p->dq = static_cast<__nv_bfloat16*>(dq);
+  p->dk = static_cast<__nv_bfloat16*>(dk);
+  p->dv = static_cast<__nv_bfloat16*>(dv);
+  p->B = B;
+  p->Lq = Lq;
+  p->Lk = Lk;
+  p->H = H;
+  p->D = D;
+  p->scale = scale;
+  p->order_q = static_cast<int>(words[12]);
+  p->order_k = static_cast<int>(words[kMapWords + 12]);
+  p->order_v = static_cast<int>(words[2 * kMapWords + 12]);
+  p->order_do = static_cast<int>(words[3 * kMapWords + 12]);
+  return cudaSuccess;
+}
+
+cudaError_t launch_delta(const BwdParams& p, cudaStream_t s) {
+  const long long rows = static_cast<long long>(p.B) * p.Lq * p.H;
+  attn_bwd_delta_wgmma<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(p);
   return cudaGetLastError();
 }
 #endif  // GEN3C_ATTN_FWD_ONLY
@@ -1064,10 +1276,7 @@ Band make_band(const int* band, void* visited, int q_off, int k_off) {
 extern "C" void gen3c_attention_wgmma_box_rows(int* fwd, int* bwd) {
   fwd[0] = kFwdBlockM;
   fwd[1] = fwd[2] = kFwdBlockN;
-  bwd[0] = bwd[3] = kBlockQ;
-  bwd[1] = bwd[2] = kBlockM;
-  bwd[4] = bwd[7] = kBlockM;
-  bwd[5] = bwd[6] = kBlockN;
+  for (int i = 0; i < 8; ++i) bwd[i] = kBwdBoxRows[i];
 }
 
 // The forward's shape as built (kernels/cuda.py checks each build of P2's
@@ -1190,42 +1399,14 @@ extern "C" int gen3c_attention_wgmma_bwd(const void* q, const void* k, const voi
       (band != nullptr && (band[0] <= 0 || band[1] < 0 || band[2] < 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int fwd_rows[3], bwd_rows[8];
-  gen3c_attention_wgmma_box_rows(fwd_rows, bwd_rows);
   CUtensorMap maps[8];
-  const void* bases[8] = {q, k, v, dout, q, k, v, dout};
-  for (int i = 0; i < 8; ++i) {
-    cudaError_t err = make_map(&maps[i], bases[i], words + i * kMapWords, bwd_rows[i]);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   BwdParams p;
-  p.o = static_cast<const __nv_bfloat16*>(out);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = lse;
-  p.delta = delta;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.B = B;
-  p.Lq = Lq;
-  p.Lk = Lk;
-  p.H = H;
-  p.D = D;
-  p.scale = scale;
-  p.order_q = static_cast<int>(words[12]);
-  p.order_k = static_cast<int>(words[kMapWords + 12]);
-  p.order_v = static_cast<int>(words[2 * kMapWords + 12]);
-  p.order_do = static_cast<int>(words[3 * kMapWords + 12]);
-  for (int i = 0; i < 4; ++i) {  // the dQ kernel's maps must hold the same orders
-    if (words[i * kMapWords + 12] != words[(4 + i) * kMapWords + 12]) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
+  cudaError_t err = bwd_setup(maps, &p, q, k, v, out, dout, words, lse, delta, dq, dk, dv, B, Lq,
+                              Lk, H, D, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const Band bd = make_band(band, visited, 0, 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = static_cast<long long>(B) * Lq * H;
-  attn_bwd_delta_wgmma<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(p);
-  cudaError_t err = cudaGetLastError();
+  err = launch_delta(p, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool bnd = bd.hw > 0;
   if (D <= 64) {
@@ -1236,5 +1417,40 @@ extern "C" int gen3c_attention_wgmma_bwd(const void* q, const void* k, const voi
               : launch_bwd<128, false>(maps, maps + 4, p, bd, B, s);
   }
   return static_cast<int>(err);
+}
+
+// K8bwd in bf16: dq (like q), dk, dv (like k, v) of K8's attention (the
+// backward pair in its kGqa mode) from q (B, Lq, Hq, D), k / v (B, Lk, Hkv,
+// D), the forward's out and dout (like q), all contiguous bf16, and the
+// forward's lse (B, Hq, Lq) fp32 (-inf: a row that sees no key). words: 8 x
+// kMapWords as gen3c_attention_wgmma_bwd's; kv_start null or (B,) int64 on
+// the card; causal_offset < 0: no causal mask; delta (B, Hq, Lq) fp32
+// scratch. splits: the dK/dV grid's split of each key tile (kernels/cuda.py
+// gqa_bwd_plan); with splits > 1, ws holds 2 x splits x B x Lk x Hkv x D fp32
+// (null otherwise). Launches Delta, dK/dV, (the split's reduction,) dQ.
+// Returns a cudaError_t (0 on success).
+extern "C" int gen3c_gqa_attention_wgmma_bwd(const void* q, const void* k, const void* v,
+                                             const void* out, const void* dout,
+                                             const long long* words, const float* lse,
+                                             const long long* kv_start, float* delta, void* dq,
+                                             void* dk, void* dv, float* ws, int B, int Lq, int Lk,
+                                             int Hq, int Hkv, int D, int causal_offset, int splits,
+                                             void* stream) {
+  if (bad_shape(B, Lq, Lk, Hq, D) || Hkv <= 0 || Hq % Hkv != 0 || splits < 1 || splits > 65535 ||
+      (splits > 1 && ws == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap maps[8];
+  BwdParams p;
+  cudaError_t err = bwd_setup(maps, &p, q, k, v, out, dout, words, lse, delta, dq, dk, dv, B, Lq,
+                              Lk, Hq, D, 1.f / sqrtf(static_cast<float>(D)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const GqaBwd gqa = {{kv_start, Hq / Hkv, causal_offset}, Hkv, splits, ws};
+  const Band bd = make_band(nullptr, nullptr, 0, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = launch_delta(p, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (D <= 64) return static_cast<int>(launch_bwd<64, false, true>(maps, maps + 4, p, bd, B, s, gqa));
+  return static_cast<int>(launch_bwd<128, false, true>(maps, maps + 4, p, bd, B, s, gqa));
 }
 #endif  // GEN3C_ATTN_FWD_ONLY

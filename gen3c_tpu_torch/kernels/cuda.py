@@ -55,7 +55,9 @@ def library() -> ctypes.CDLL:
             lib.gen3c_gqa_attention.argtypes = [_P] * 7 + [ctypes.POINTER(_L), _I, _I, _P, _P]
             lib.gen3c_gqa_attention_wgmma.argtypes = ([_P, _P, _P, ctypes.POINTER(_L), _P, _P]
                                                       + [_I] * 7 + [_P, _P])
-            lib.gen3c_gqa_attention_bwd.argtypes = [_P] * 11 + [_I] * 9 + [_P]
+            lib.gen3c_gqa_attention_bwd.argtypes = [_P] * 11 + [_I] * 7 + [_P]
+            lib.gen3c_gqa_attention_wgmma_bwd.argtypes = ([_P] * 5 + [ctypes.POINTER(_L)]
+                                                          + [_P] * 7 + [_I] * 8 + [_P])
             lib.gen3c_gqa_plan_words.argtypes = []
             words = ctypes.POINTER(ctypes.c_longlong)
             band_ptr = ctypes.POINTER(_I)
@@ -70,7 +72,7 @@ def library() -> ctypes.CDLL:
                        lib.gen3c_ray_triangle_depth, lib.gen3c_ray_triangle_prepare,
                        lib.gen3c_attention_wgmma_bwd, lib.gen3c_gqa_attention,
                        lib.gen3c_gqa_attention_wgmma, lib.gen3c_gqa_plan_words,
-                       lib.gen3c_gqa_attention_bwd):
+                       lib.gen3c_gqa_attention_bwd, lib.gen3c_gqa_attention_wgmma_bwd):
                 fn.restype = _I
             if _box_rows(lib) != (WGMMA_FWD_BOX_ROWS, WGMMA_BWD_BOX_ROWS):
                 raise RuntimeError(f"attention_wgmma.cu's box rows {_box_rows(lib)} differ "
@@ -1028,6 +1030,52 @@ def gqa_split_range(split: int, splits: int, lo: int, hi: int) -> Tuple[int, int
     return begin, min(begin + per, hi)
 
 
+# ------------------------------ K8bwd's dK/dV grid ------------------------------
+#
+# The bf16 backward is attention_wgmma.cu's pair in its kGqa mode. Its dK/dV
+# kernel takes a CTA per (GQA_BWD_KEYS keys, KV head, batch) and walks that
+# tile's units: the rep query heads of the KV head, each over the
+# GQA_BWD_QUERIES-query tiles from the first that sees one of its keys.
+# Where those CTAs do not fill the SMs, ``gqa_bwd_plan`` splits each tile's
+# units over several CTAs, and the kernel's split s takes run s of
+# ``gqa_split_range(s, splits, 0, units)``. The functions below are the
+# kernel's arithmetic.
+
+GQA_BWD_KEYS = WGMMA_BWD_BOX_ROWS[1]  # keys a dK/dV CTA: its K map's box rows
+GQA_BWD_QUERIES = WGMMA_BWD_BOX_ROWS[0]  # queries a dK/dV unit: its Q map's box rows
+
+
+def gqa_bwd_units(Lq: int, Lk: int, rep: int, causal_offset: Optional[int], kv_start: int,
+                  key_tile: int) -> list:
+    """The (rep head, query tile) units of the dK/dV CTA of key tile
+    ``key_tile`` (keys [GQA_BWD_KEYS key_tile, + GQA_BWD_KEYS) of Lk) in the
+    order it walks them, for a batch whose first visible key is kv_start:
+    per rep head, the query tiles from the first whose rows see the tile's
+    first visible key (every later query sees it too) to the last; none
+    when no key of the tile is visible."""
+    n0 = key_tile * GQA_BWD_KEYS
+    first = max(n0, min(max(kv_start, 0), Lk))
+    me = -(-Lq // GQA_BWD_QUERIES)
+    if first >= min(n0 + GQA_BWD_KEYS, Lk):
+        return []
+    mb = 0 if causal_offset is None else min(me, max(0, first - causal_offset) // GQA_BWD_QUERIES)
+    return [(r, mt) for r in range(rep) for mt in range(mb, me)]
+
+
+def gqa_bwd_plan(B: int, Lq: int, Lk: int, Hq: int, Hkv: int,
+                 causal_offset: Optional[int], sms: int) -> int:
+    """The splits of K8bwd's dK/dV grid: 1 where its key tiles x Hkv x B
+    CTAs (one an SM: their shared memory) already fill the ``sms`` SMs,
+    else as many as fit the SMs in one wave (sms // CTAs), never more
+    than a CTA has units (``gqa_bwd_units`` of the first key tile, which
+    every query that sees any key sees)."""
+    ctas = -(-Lk // GQA_BWD_KEYS) * Hkv * B
+    if ctas >= sms:
+        return 1
+    units = len(gqa_bwd_units(Lq, Lk, Hq // Hkv, causal_offset, 0, 0))
+    return max(1, min(sms // ctas, units))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -1195,11 +1243,16 @@ def gqa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: to
                       causal_offset: Optional[int] = None,
                       kv_valid_start: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """gen3c_gqa_attention_bwd (K8bwd): (dq, dk, dv) like (q, k, v) of K8's
-    attention from the forward's out and lse (``gqa_attention_fwd_lse``)
-    and the upstream gradient dout (like out). q, k, v bf16 (mma.sync) or
-    fp32 (CUDA cores); dk and dv summed over each KV head's query heads in
-    the kernel. Contiguous copies are made of strided inputs."""
+    """K8bwd: (dq, dk, dv) like (q, k, v) of K8's attention from the
+    forward's out and lse (``gqa_attention_fwd_lse``) and the upstream
+    gradient dout (like out), dk and dv summed over each KV head's query
+    heads in the kernel. bf16 (d a multiple of 8): attention_wgmma.cu's
+    backward pair in its kGqa mode (gen3c_gqa_attention_wgmma_bwd, TMA +
+    wgmma; the dK/dV grid split by ``gqa_bwd_plan``, its fp32 partial sums
+    in a workspace made here), counted in ``route_counts["wgmma"]``; fp32:
+    gen3c_gqa_attention_bwd (the CUDA cores). Every operand is made
+    contiguous, and a bf16 one a TMA map cannot describe (off 16-byte
+    alignment) is copied. Raises for anything else."""
     if not (q.is_cuda and all(t.device == q.device for t in (k, v, out, dout, lse))):
         raise ValueError("gqa backward: every tensor must be on one CUDA device")
     if q.dtype not in (torch.bfloat16, torch.float32) or not all(
@@ -1222,20 +1275,35 @@ def gqa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: to
                          f"({B}, {Hq}, {Lq}) fp32")
     if causal_offset is not None and causal_offset < 0:
         raise ValueError(f"gqa backward: causal_offset must be >= 0, got {causal_offset}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and D % 8:
+        raise ValueError(f"gqa backward: bf16 takes d % 8 == 0 (TMA rows of 16 bytes), got {D}")
     q, k, v, out, dout, lse = (t.contiguous() for t in (q, k, v, out, dout, lse))
+    if bf16:
+        q, k, v, out, dout = (t if tma_describable(t) else t.clone() for t in (q, k, v, out, dout))
     start = None
     if kv_valid_start is not None:
         if kv_valid_start.shape != (B,) or kv_valid_start.device != q.device:
             raise ValueError(f"gqa backward: kv_valid_start must be ({B},) on the card")
         start = kv_valid_start.to(torch.int64).contiguous()
-    bf16 = q.dtype == torch.bfloat16
-    vec = bf16 and D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
-    _check(library().gen3c_gqa_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), None if start is None else start.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, Hq, Hkv, D,
-        -1 if causal_offset is None else int(causal_offset), int(bf16), int(vec), _stream(q)),
-        "gqa_attention_bwd")
+    causal = -1 if causal_offset is None else int(causal_offset)
+    sp = None if start is None else start.data_ptr()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr())
+    if not bf16:
+        _check(library().gen3c_gqa_attention_bwd(
+            *ptrs, lse.data_ptr(), sp, delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, Lq, Lk, Hq, Hkv, D, causal, _stream(q)), "gqa_attention_bwd")
+        return dq, dk, dv
+    splits = gqa_bwd_plan(B, Lq, Lk, Hq, Hkv, causal_offset, _sm_count(q.device.index or 0))
+    ws = None
+    if splits > 1:  # the splits' fp32 dK, then dV: (splits, B, Lk, Hkv, D) each
+        ws = torch.empty(2 * splits * B * Lk * Hkv * D, dtype=torch.float32, device=q.device)
+    words = _map_words(zip((q, k, v, dout) * 2, WGMMA_BWD_BOX_ROWS))
+    _check(library().gen3c_gqa_attention_wgmma_bwd(
+        *ptrs, words, lse.data_ptr(), sp, delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), None if ws is None else ws.data_ptr(), B, Lq, Lk, Hq, Hkv, D, causal,
+        splits, _stream(q)), "gqa_attention_wgmma_bwd")
+    _count_route("wgmma")
     return dq, dk, dv

@@ -37,13 +37,13 @@ def randomize_gates(net: torch.nn.Module, gen: torch.Generator) -> None:
                 p.copy_(0.1 * torch.randn(p.shape, generator=gen, device=p.device))
 
 
-def records_a_call(profiles: list, calls: int):
+def records_by_name(profiles: list, calls: int):
     """From fn's (name, µs) records in profiles of ``calls`` and 2 x
-    ``calls`` calls: (µs a call, each name's count a call, the records
-    lost), or None where a profile lacks a name, a count is not whole or a
-    name lost more than LOST_RECORDS records. A name's count a call is its
-    records over 3 x ``calls`` rounded; its time the count times the mean of
-    its kept durations."""
+    ``calls`` calls: ({name: (its count a call, its µs a call)}, the
+    records lost), or None where a profile lacks a name, a count is not
+    whole or a name lost more than LOST_RECORDS records. A name's count a
+    call is its records over 3 x ``calls`` rounded; its time the count
+    times the mean of its kept durations."""
     names = {n for p in profiles for n, _ in p}
     if not names or any({n for n, _ in p} != names for p in profiles):
         return None
@@ -52,8 +52,37 @@ def records_a_call(profiles: list, calls: int):
     lost = {n: per_call[n] * 3 * calls - len(d) for n, d in durations.items()}
     if any(per_call[n] < 1 or not 0 <= lost[n] <= LOST_RECORDS for n in names):
         return None
-    us = sum(per_call[n] * sum(d) / len(d) for n, d in durations.items())
-    return us, per_call, sum(lost.values())
+    return ({n: (per_call[n], per_call[n] * sum(d) / len(d)) for n, d in durations.items()},
+            sum(lost.values()))
+
+
+def records_known(profiles: list, calls: int, counts: dict):
+    """``records_by_name`` where the program counts its own launches: from
+    fn's (name, µs) records in profiles of ``calls`` and 2 x ``calls``
+    calls and each name's launches a call (``counts``), ({name: its µs a
+    call, the count times the mean of its kept durations}, the records
+    lost), or None where a name has no record, more records than its count
+    allows, or lost more than LOST_RECORDS."""
+    out, lost = {}, 0
+    for n, c in counts.items():
+        d = [us for p in profiles for m, us in p if m == n]
+        miss = 3 * calls * c - len(d)
+        if not d or not 0 <= miss <= LOST_RECORDS:
+            return None
+        out[n] = c * sum(d) / len(d)
+        lost += miss
+    return out, lost
+
+
+def records_a_call(profiles: list, calls: int):
+    """``records_by_name`` summed: (µs a call, each name's count a call,
+    the records lost), or None."""
+    got = records_by_name(profiles, calls)
+    if got is None:
+        return None
+    by_name, lost = got
+    return (sum(us for _, us in by_name.values()), {n: c for n, (c, _) in by_name.items()},
+            lost)
 
 
 # the L2 read's kernel names seen so far in this process (the same reduction of

@@ -85,6 +85,34 @@ def _ptxas_counts(log: str) -> dict:
     return out
 
 
+_TEMPLATE_ARG = re.compile(r"L([ib])(n?\d+)E")
+
+
+def entry_key(name: str) -> str:
+    """An entry's name for pairing two versions: a template kernel's
+    mangled name read as ``kernel<arg,...>`` (ints, bools as 0 / 1) with
+    its trailing false bools dropped, so that a kernel which gained a bool
+    template flag (and with it, often, a parameter) pairs, at the flag's
+    false value, with the entry it was; any other name as it is."""
+    # a source name is <length><identifier>; the length may follow other digits
+    for m, j in ((m, j) for m in re.finditer(r"\d+", name) for j in range(m.start(), m.end())):
+        n, at = int(name[j:m.end()]), m.end()
+        ident = name[at:at + n]
+        if not re.fullmatch(r"[A-Za-z_]\w*", ident) or name[at + n:at + n + 1] != "I":
+            continue
+        args, pos = [], at + n + 1
+        while (a := _TEMPLATE_ARG.match(name, pos)) is not None:
+            args.append(a.group(2).replace("n", "-"))
+            pos = a.end()
+        if not args or name[pos:pos + 1] != "E":
+            continue
+        while len(args) > 1 and args[-1] == "0" and _TEMPLATE_ARG.findall(name[at:pos])[
+                len(args) - 1][0] == "b":
+            args.pop()
+        return f"{ident}<{','.join(args)}>"
+    return name
+
+
 def compile_ptx(old: str, new: str) -> tuple:
     """Both sources compiled with kernels/build.py's flags: ({"old", "new":
     ``_ptx_entries``}, {"old", "new": ``_ptxas_counts``})."""
@@ -110,6 +138,9 @@ def compare_ptx(old: str, new: str) -> bool:
     versions have keeps its registers and spills (entries one version adds
     are listed, with null counts on the other side)."""
     ptx, counts = compile_ptx(old, new)
+    for d in (*ptx.values(), *counts.values()):  # pair the entries by entry_key
+        for name in list(d):
+            d[entry_key(name)] = d.pop(name)
     same_counts, n_same_ptx = True, 0
     for name in sorted(set(ptx["old"]) | set(ptx["new"])):
         a, b = counts["old"].get(name), counts["new"].get(name)

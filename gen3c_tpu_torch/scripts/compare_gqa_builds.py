@@ -1,15 +1,20 @@
-"""Two versions of K8 (GQA attention over a KV cache) side by side, on one card.
+"""Two versions of K8 (GQA attention over a KV cache) and K8bwd (its backward)
+side by side, on one card.
 
 A change to K8's body (``kernels/csrc/gqa_attention.cu``, and the kGqa mode
-of ``attention_wgmma.cu``'s forward that runs its bf16 prefill) is held to
-the version before it:
+of ``attention_wgmma.cu``'s forward that runs its bf16 prefill) or to
+K8bwd's (``attention_wgmma.cu``'s backward pair in its kGqa mode, and
+``gqa_attention_bwd.cu``'s fp32 bodies) is held to the version before it:
 
-    python -m gen3c_tpu_torch.scripts.compare_gqa_builds ptx OLD.cu NEW.cu
-        both sources compiled with kernels/build.py's flags; per kernel
-        entry its registers, stack, spill-store and spill-load bytes in each
-        version (``compare_attention_builds``' ptx mode), and the
-        tensor-core instructions its PTX holds: ``wgmma`` (wgmma.mma_async)
-        and ``mma`` (mma.sync) lines, 0 for a CUDA-core body.
+    python -m gen3c_tpu_torch.scripts.compare_gqa_builds ptx OLD.cu NEW.cu [OLD2.cu NEW2.cu ...]
+        each pair of sources compiled with kernels/build.py's flags; per
+        kernel entry its registers, stack, spill-store and spill-load bytes
+        in each version (``compare_attention_builds``' ptx mode, entries
+        paired by ``entry_key``: a template flag added with the value false
+        keeps the pairing), and the tensor-core instructions its PTX holds:
+        ``wgmma`` (wgmma.mma_async) and ``mma`` (mma.sync) lines, 0 for a
+        CUDA-core body. Give attention_wgmma.cu and gqa_attention_bwd.cu
+        both, so that K8bwd's old entries and new ones are listed.
 
     PYTHONPATH=<checkout> python gen3c_tpu_torch/scripts/compare_gqa_builds.py run TAG
         runs the K8 of the gen3c_tpu_torch found first on the path at
@@ -25,7 +30,14 @@ the version before it:
         same way, the wrapper's host microseconds a
         call, the largest error against the plain version (the prefill's on
         its first KV head's four query heads) with the mean |plain| beside
-        it, and a hash of the output.
+        it, and a hash of the output. Then K8bwd (``cuda.gqa_attention_bwd``
+        after K8's forward with lse) at chip_smoke.py's K8BWD_CASES (this
+        tree's, loaded by path): device ms a call, SDPA's backward
+        (``enable_gqa``; a dense mask for the padded case) timed the same
+        way, each gradient's largest error against the plain version
+        (relative to its largest |gradient|, on the case's plain groups;
+        rows that see no key get dout 0, as in the smoke) and a hash of dq,
+        dk and dv.
 
 Run ``run`` for the old and the new checkout in one call, in the order old,
 new, new, old: the times compare, and equal hashes within a version show
@@ -54,13 +66,20 @@ CASES = (("decode bf16 pos 0", 1, 0, False),
 PLAIN_HEADS = 4  # the prefill's plain version on the first KV head's query heads
 
 
-def compare_ptx(old: str, new: str) -> bool:
-    """Print ``compare_attention_builds``' per-entry rows with each entry's
-    tensor-core instruction counts; True when every entry both versions
-    have keeps its registers and spills."""
-    from gen3c_tpu_torch.scripts.compare_attention_builds import compile_ptx
+def compare_ptx(*pairs: str) -> bool:
+    """Print ``compare_attention_builds``' per-entry rows, entries paired by
+    ``entry_key``, with each entry's tensor-core instruction counts, for
+    the (old, new) source pairs; True when every entry both versions have
+    keeps its registers and spills."""
+    from gen3c_tpu_torch.scripts.compare_attention_builds import compile_ptx, entry_key
 
-    ptx, counts = compile_ptx(old, new)
+    ptx = {"old": {}, "new": {}}
+    counts = {"old": {}, "new": {}}
+    for old, new in zip(pairs[::2], pairs[1::2]):
+        got_ptx, got_counts = compile_ptx(old, new)
+        for side in ("old", "new"):
+            ptx[side].update({entry_key(n): x for n, x in got_ptx[side].items()})
+            counts[side].update({entry_key(n): x for n, x in got_counts[side].items()})
 
     def tensor_cores(lines):
         if lines is None:
@@ -82,20 +101,94 @@ def compare_ptx(old: str, new: str) -> bool:
     return same_counts
 
 
-def card():
-    """This tree's ``scripts/card.py``, loaded by path: the timing helpers
-    stay the same whichever checkout's package the path holds."""
+def _this_tree(path: Path, name: str):
+    """A module of the tree this script belongs to, loaded by path, so that
+    it stays the same whichever checkout's package the path holds."""
     import importlib.util
 
-    path = Path(__file__).with_name("card.py")
-    spec = importlib.util.spec_from_file_location("_gqa_card", path)
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
+def card():
+    """This tree's ``scripts/card.py``: the timing helpers."""
+    return _this_tree(Path(__file__).with_name("card.py"), "_gqa_card")
+
+
+def chip_smoke():
+    """This tree's chip_smoke.py: K8bwd's cases."""
+    return _this_tree(Path(__file__).resolve().parents[2] / "chip_smoke.py", "_gqa_chip_smoke")
+
+
+def run_bwd(timing, gen) -> dict:
+    """K8bwd at chip_smoke.py's K8BWD_CASES: {case name: device ms, SDPA's
+    backward device ms, errors, hash}."""
+    import hashlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.kernels import cuda
+
+    out = {}
+    for name, B, Lq, Lk, Hq, Hkv, D, dtype, causal, pad, groups in chip_smoke().K8BWD_CASES:
+        dtype = getattr(torch, dtype)
+        q = torch.randn((B, Lq, Hq, D), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, Lk, Hkv, D), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        dout = torch.randn((B, Lq, Hq, D), generator=gen, device="cuda").to(dtype)
+        start = None if pad is None else torch.tensor(pad, dtype=torch.int64, device="cuda")
+        o, lse = cuda.gqa_attention_fwd_lse(q, k, v, causal, start)
+        qpos, kpos = torch.arange(Lq, device="cuda"), torch.arange(Lk, device="cuda")
+        lo = torch.zeros(B, dtype=torch.int64, device="cuda") if start is None else start
+        last = ((qpos + causal).clamp(max=Lk - 1) if causal is not None
+                else torch.full((Lq,), Lk - 1, device="cuda"))
+        mask = (kpos[None, None] >= lo[:, None, None]) & (kpos[None, None] <= last[None, :, None])
+        none = ~mask.any(-1)  # (B, Lq): rows that see no key
+        dout = dout.masked_fill(none[:, :, None, None], 0)
+
+        def bwd():
+            return cuda.gqa_attention_bwd(q, k, v, o, dout, lse, causal, start)
+
+        grads = bwd()
+        g = Hkv if groups is None else groups
+        rep = Hq // Hkv
+        plain = kernels.gqa_attention_backward_reference(
+            q[:, :, :g * rep].float(), k[:, :, :g].float(), v[:, :, :g].float(),
+            dout[:, :, :g * rep].float(), causal, start)
+        errs = {}
+        for nm, got, ref in zip(("dq", "dk", "dv"), grads, plain):
+            got = got[:, :, :g * rep] if nm == "dq" else got[:, :, :g]
+            d = (got.float() - ref).abs()
+            errs[nm] = {"rel_max": (d.max() / ref.abs().max()).item(),
+                        "rel_mean": (d.mean() / ref.abs().mean()).item()}
+        h = hashlib.sha256()
+        for t in grads:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        calls = 3 if Lq * Lk > 1e7 else 20
+        dev = timing.device_ms(bwd, calls=calls)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib = F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in leaves), attn_mask=mask[:, None] if pad else None,
+            is_causal=causal is not None and not pad, enable_gqa=True).transpose(1, 2)
+        sdpa = timing.device_ms(lambda: torch.autograd.grad(lib, leaves, dout, retain_graph=True),
+                                calls=calls)
+        out[name] = {"device_ms": dev["ms"], "kernels_a_call": dev["kernels"],
+                     "sdpa_device_ms": sdpa["ms"], "sdpa_kernels_a_call": sdpa["kernels"],
+                     "errors": errs, "plain_heads": g * rep,
+                     "max_rel_err": max(e["rel_max"] for e in errs.values()),
+                     "hash": h.hexdigest()[:16]}
+        del q, k, v, dout, o, lse, grads, plain, leaves, lib, mask
+        torch.cuda.empty_cache()
+    return out
+
+
 def run(tag: str) -> dict:
-    """K8's device times, errors and hashes of the gen3c_tpu_torch on the path."""
+    """K8's and K8bwd's device times, errors and hashes of the
+    gen3c_tpu_torch on the path."""
     import hashlib
 
     import torch
@@ -147,14 +240,15 @@ def run(tag: str) -> dict:
                      .hexdigest()[:16]}
         del q, k, v, ks, vs, out, ref, kd, vd, qt, kt, vt
         torch.cuda.empty_cache()
+    res["K8bwd"] = run_bwd(timing, gen)
     print(json.dumps(res), flush=True)
     return res
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if len(argv) == 3 and argv[0] == "ptx":
-        return 0 if compare_ptx(argv[1], argv[2]) else 1
+    if len(argv) >= 3 and len(argv) % 2 == 1 and argv[0] == "ptx":
+        return 0 if compare_ptx(*argv[1:]) else 1
     if len(argv) == 2 and argv[0] == "run":
         run(argv[1])
         return 0

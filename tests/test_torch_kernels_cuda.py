@@ -1078,16 +1078,38 @@ def test_k1vit_at_the_vision_shapes(gen, case):
     assert (out.float() - attention_reference(q, k, v).float()).abs().max().item() <= atol
 
 
+def _dout_layout(dout: torch.Tensor, layout: str) -> torch.Tensor:
+    """dout as given ("contiguous"), as every other head of a tensor twice
+    as wide ("strided": a view a tensor map cannot take whole), or
+    contiguous from 2 bytes into its storage ("offset": off 16-byte
+    alignment); the same values."""
+    if layout == "contiguous":
+        return dout
+    if layout == "strided":
+        wide = torch.zeros((*dout.shape[:2], 2 * dout.shape[2], dout.shape[3]),
+                           dtype=dout.dtype, device=dout.device)
+        wide[:, :, ::2] = dout
+        return wide[:, :, ::2]
+    flat = torch.empty(dout.numel() + 1, dtype=dout.dtype, device=dout.device)
+    out = flat[1:].view(dout.shape)
+    out.copy_(dout)
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,d,offset,start", [
-    (1, 200, 200, 8, 2, 128, 0, None),        # causal prefill, rep 4
-    (1, 200, 200, 4, 4, 32, 0, None),         # causal, rep 1, d 32
-    (2, 130, 130, 4, 4, 64, 0, [0, 50]),      # left padding: rows that see no key
-    (2, 70, 150, 6, 3, 40, 80, [7, 120]),     # a causal offset, d off the MMA depth
-    (1, 90, 33, 8, 2, 32, None, None),        # the cross-attention (no causal mask)
-    (2, 45, 33, 4, 2, 128, None, [3, 33]),    # non-causal, one row with no key at all
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,d,offset,start,layout", [
+    (1, 200, 200, 8, 2, 128, 0, None, "contiguous"),      # causal prefill, rep 4
+    (1, 200, 200, 4, 4, 32, 0, None, "contiguous"),       # causal, rep 1, d 32
+    (2, 130, 130, 4, 4, 64, 0, [0, 50], "contiguous"),    # left padding: rows that see no key
+    (2, 70, 150, 6, 3, 40, 80, [7, 120], "contiguous"),   # a causal offset, d off the MMA depth
+    (1, 90, 33, 8, 2, 32, None, None, "contiguous"),      # the cross-attention (no causal mask)
+    (2, 45, 33, 4, 2, 128, None, [3, 33], "contiguous"),  # non-causal, one row with no key at all
+    (2, 1000, 200, 8, 2, 64, None, [0, 37], "contiguous"),  # a long query axis: split dK/dV
+    (1, 300, 300, 8, 2, 128, 0, None, "strided"),         # dout a strided view (autograd's)
+    (1, 300, 300, 8, 2, 128, 0, None, "offset"),          # dout off 16-byte alignment
+    (1, 150, 150, 10, 2, 64, 0, None, "contiguous"),      # rep 5
 ])
-def test_gqa_backward_kernel(gen, dtype, B, Lq, Lk, Hq, Hkv, d, offset, start):
+def test_gqa_backward_kernel(gen, dtype, B, Lq, Lk, Hq, Hkv, d, offset, start, layout):
     """K8bwd through ``kernels.gqa_attention`` under autograd (K8's forward
     with lse, then K8bwd): the leaves' gradients against
     ``gqa_attention_backward_reference`` (fp32) with dout zero on the rows
@@ -1095,10 +1117,15 @@ def test_gqa_backward_kernel(gen, dtype, B, Lq, Lk, Hq, Hkv, d, offset, start):
     adds nothing: those rows get dq 0, and every gradient stays finite).
     bf16: the largest error within 2e-2 of the largest |gradient| (P and dS
     enter the tensor cores in bf16, the outputs round to bf16), fp32 within
-    1e-5."""
+    1e-5. The long query axis over 200 keys takes a split dK/dV grid
+    (``cuda.gqa_bwd_plan`` > 1); dout may come strided or off alignment,
+    as autograd may hand it."""
     q, k, v, _, _ = _gqa_inputs(gen, B, Lq, Lk, Hq, Hkv, d, dtype, False)
     kv_start = None if start is None else torch.tensor(start, device="cuda")
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    if Lq == 1000:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert kcuda.gqa_bwd_plan(B, Lq, Lk, Hq, Hkv, offset, sms) > 1
     lo = torch.zeros(B, dtype=torch.long, device="cuda") if start is None else kv_start
     last = (torch.arange(Lq, device="cuda") + (offset if offset is not None else Lk)).clamp(
         max=Lk - 1)
@@ -1106,7 +1133,7 @@ def test_gqa_backward_kernel(gen, dtype, B, Lq, Lk, Hq, Hkv, d, offset, start):
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = dict(kernels.launch_counts)
     out = kernels.gqa_attention(*leaves, offset, kv_start)
-    torch.autograd.backward(out, dout)
+    torch.autograd.backward(out, _dout_layout(dout, layout))
     assert kernels.launch_counts["K8"] == before["K8"] + 1
     assert kernels.launch_counts["K8bwd"] == before["K8bwd"] + 1
     for t in leaves:
@@ -1118,3 +1145,39 @@ def test_gqa_backward_kernel(gen, dtype, B, Lq, Lk, Hq, Hkv, d, offset, start):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     for t, w in zip(leaves, want):
         assert (t.grad.float() - w).abs().max() <= tol * w.abs().max() + 1e-6
+
+
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,d,offset,start", [
+    (1, 2048, 256, 32, 8, 128, None, None),   # the cross-attention's widths, 2 key tiles
+    (2, 700, 200, 10, 2, 64, 100, [0, 150]),  # causal after an offset, rep 5, padding
+])
+def test_gqa_backward_split_repeats_its_bits_and_counts_its_route(gen, B, Lq, Lk, Hq, Hkv, d,
+                                                                  offset, start):
+    """A bf16 K8bwd call whose dK/dV grid is split (``gqa_bwd_plan`` > 1):
+    two calls give the same bits (the splits' fp32 partial sums are added in
+    split order, no atomics), each bf16 call adds one to
+    ``route_counts["wgmma"]`` and none to "mma_sync", and the result holds
+    the plain version within 2e-2 of the largest |gradient|."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert kcuda.gqa_bwd_plan(B, Lq, Lk, Hq, Hkv, offset, sms) > 1
+    q, k, v, _, _ = _gqa_inputs(gen, B, Lq, Lk, Hq, Hkv, d, torch.bfloat16, False)
+    kv_start = None if start is None else torch.tensor(start, device="cuda")
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = kcuda.gqa_attention_fwd_lse(q, k, v, offset, kv_start)
+    last = (torch.arange(Lq, device="cuda") + (offset if offset is not None else Lk)).clamp(
+        max=Lk - 1)
+    lo = torch.zeros(B, dtype=torch.long, device="cuda") if start is None else kv_start
+    dout = dout.masked_fill((last[None] < lo[:, None])[:, :, None, None], 0)
+    before = dict(kernels.route_counts)
+    first = kcuda.gqa_attention_bwd(q, k, v, out, dout, lse, offset, kv_start)
+    second = kcuda.gqa_attention_bwd(q, k, v, out, dout, lse, offset, kv_start)
+    torch.cuda.synchronize()
+    assert kernels.route_counts["wgmma"] == before["wgmma"] + 2
+    assert kernels.route_counts["mma_sync"] == before["mma_sync"]
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    want = reference.gqa_attention_backward_reference(q.float(), k.float(), v.float(),
+                                                      dout.float(), offset, kv_start)
+    for t, w in zip(first, want):
+        assert torch.isfinite(t).all()
+        assert (t.float() - w).abs().max() <= 2e-2 * w.abs().max() + 1e-6

@@ -172,6 +172,83 @@ def test_device_ms_counts_a_call_from_the_records_kept(lost):
     assert card.records_a_call([[], []], calls) is None
 
 
+def test_compare_gqa_builds_runs_the_smokes_k8bwd_cases():
+    """``run`` times K8bwd at chip_smoke.py's K8BWD_CASES (this tree's): the
+    4B's causal training shape, the left-padded batch, the cross-attention's
+    512 keys, rep 1 at d 32 and ar_tiny's fp32; ``ptx`` takes pairs of
+    sources."""
+    cases = {c[0]: c[1:] for c in cgb.chip_smoke().K8BWD_CASES}
+    assert cases == {
+        "K8bwd 4B causal bf16": (1, 12800, 12800, 32, 8, 128, "bfloat16", 0, None, 1),
+        "K8bwd left-padded bf16": (2, 2048, 2048, 32, 8, 128, "bfloat16", 0, [0, 700], None),
+        "K8bwd cross-attention bf16": (1, 12800, 512, 32, 8, 128, "bfloat16", None, None, None),
+        "K8bwd short rep 1 d 32 bf16": (1, 200, 200, 4, 4, 32, "bfloat16", 0, None, None),
+        "K8bwd ar_tiny fp32": (1, 255, 255, 4, 2, 32, "float32", 0, None, None)}
+    for argv in (["ptx", "a.cu", "b.cu", "c.cu"], ["ptx"]):
+        with pytest.raises(SystemExit, match="side by side"):
+            cgb.main(argv)
+
+
+def test_ar_train_trace_reads_k8_whole_when_other_records_are_lost():
+    """chip_smoke.read_ar_train_trace on hand-made profiles of one and two
+    4B steps (K8bwd's three kernels 16 times a step, K8's forward 32 times,
+    an elementwise pass 1,000 times): K8bwd's and K8's seconds a step are
+    exact although the elementwise pass lost 20 records of each profile
+    (the step's kernel time is then a lower bound, flagged) or K8bwd's dK/dV
+    and K8 lost 2 (card.LOST_RECORDS) of the one-step profile's; 3 lost of
+    one name, or a name missing, or another kernel count, reads None."""
+    cs = cgb.chip_smoke()
+    dkdv = "void (anonymous namespace)::attn_bwd_dkdv_wgmma<128, false, true>(CUtensorMap_st)"
+    dq = "void (anonymous namespace)::attn_bwd_dq_wgmma<128, false, true>(CUtensorMap_st)"
+    delta = "void (anonymous namespace)::attn_bwd_delta_wgmma((anonymous namespace)::BwdParams)"
+    fwd = "void (anonymous namespace)::attn_fwd_wgmma<128, false, true, true>(CUtensorMap_st)"
+    ew = "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>"
+    step = ([(dkdv, 9000.0), (dq, 4000.0), (delta, 100.0)] * 16 + [(fwd, 3000.0)] * 32
+            + [(ew, 50.0)] * 1000)
+    def read(one, two):  # 16 K8bwd launches of 3 kernels, 32 K8 forwards a step
+        return cs.read_ar_train_trace([one, two], 1.5, 16, 3, 32)
+
+    whole = read(step, step * 2)
+    assert whole["all_records_kept"] and whole["k8_records_lost"] == 0
+    lossy = read(step[:-20], step * 2)
+    assert not lossy["all_records_kept"]
+
+    def drop(records, name, n):  # the first n records of name lost
+        idx = [i for i, r in enumerate(records) if r[0] == name][:n]
+        return [r for i, r in enumerate(records) if i not in idx]
+
+    two_lost = read(drop(drop(step, dkdv, 2), fwd, 2), step * 2)
+    assert two_lost["k8_records_lost"] == 4
+    for r in (whole, lossy, two_lost):
+        assert (r["k8bwd_kernels_a_step"], r["k8_kernels_a_step"]) == (48, 32)
+        assert abs(r["k8bwd_s"] - 16 * 13100e-6) < 1e-9 and abs(r["k8_s"] - 32 * 3000e-6) < 1e-9
+        assert abs(r["k8bwd_share_of_step"] - 16 * 13100e-6 / 1.5) < 1e-9
+    assert abs(whole["kernel_s"] - (16 * 13100 + 32 * 3000 + 1000 * 50) * 1e-6) < 1e-9
+    assert read(drop(step, dkdv, 3), step * 2) is None
+    assert read([r for r in step if r[0] != fwd], step * 2) is None
+    assert cs.read_ar_train_trace([step, step * 2], 1.5, 16, 4, 32) is None
+
+
+def test_entry_key_pairs_a_kernel_that_gained_a_false_flag():
+    """compare_*_builds' ptx pairs an entry whose template gained a bool flag
+    (and a parameter) at the flag's false value with the entry it was; the
+    flag's true value stays apart, and other names stay as they are."""
+    from gen3c_tpu_torch.scripts.compare_attention_builds import entry_key
+
+    old = "_ZN71NS19attn_bwd_dkdv_wgmmaILi128ELb1EEEv14CUtensorMap_stS1_S1_S1_NS_9BwdParamsENS_4BandE"
+    new = ("_ZN71NS19attn_bwd_dkdv_wgmmaILi128ELb1ELb0EEEv14CUtensorMap_stS1_S1_S1_NS_9BwdParams"
+           "ENS_4BandENS_6GqaBwdE")
+    assert entry_key(old) == entry_key(new) == "attn_bwd_dkdv_wgmma<128,1>"
+    assert entry_key(new.replace("ILi128ELb1ELb0E", "ILi64ELb0ELb1E")) == \
+        "attn_bwd_dkdv_wgmma<64,0,1>"
+    assert entry_key("_ZN71NS17attn_bwd_dq_wgmmaILi64ELb0EEEv") == "attn_bwd_dq_wgmma<64>"
+    # the length of the source name may follow the namespace hash's digits
+    assert entry_key("_ZN4_cu_123456714attn_fwd_wgmmaILi128ELb0ELb1ELb1EEEv") == \
+        "attn_fwd_wgmma<128,0,1,1>"
+    for name in ("_ZN71NS20attn_bwd_delta_wgmmaENS_9BwdParamsE", "gqa_bwd_reduce"):
+        assert entry_key(name) == name
+
+
 def test_compare_gqa_builds_refuses_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal without a card")
