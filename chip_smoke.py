@@ -90,7 +90,8 @@ Phases, each printing one JSON line of its own numbers:
  19 serving  the inference server (serving.server.serve on 127.0.0.1, any
              free port, driven over HTTP with urllib) around a
              Gen3cPersistentModel of GEN3C-7B at full width (bf16, seeded,
-             gates randomized), MAIN_STEPS steps, depth from MoGe ViT-L
+             gates randomized; its first SERVING_BLOCKS = 4 of 28
+             blocks), MAIN_STEPS steps, depth from MoGe ViT-L
              (seeded weights through GEN3C_MOGE_CHECKPOINT; moge_jax raises
              without them): /seed-model on one 704x1280 image (MoGe on the
              card), job A on a 241-frame path (two chunks, a 121-frame
@@ -100,7 +101,7 @@ Phases, each printing one JSON line of its own numbers:
              exactly one chunk), /render-preview on a 5-frame path,
              /metadata: seconds of each, job A's generate / chain / depth /
              fetch split, the fetch's bytes, peak GiB and the launches of
-             K1, K2 (28 x MAIN_STEPS x 3 chunks), K5 and K1vit (24 x 2)
+             K1, K2 (4 x MAIN_STEPS x 3 chunks), K5 and K1vit (24 x 2)
  20 span     span caching on main_path's 7B, before it is freed, on its
              first SPAN_BLOCKS = 8 of 28 blocks: the blocks ranked by
              rank_block_contributions at one noise level (one B = 1
@@ -226,13 +227,35 @@ Phases, each printing one JSON line of its own numbers:
              cross-attention's non-causal 512 keys (a split dK/dV grid), rep
              1 at d 32 and ar_tiny's fp32, beside SDPA's backward and the
              bound; each bf16 case on the wgmma route, its splits recorded,
-             two calls the same bits (K8BWD_CASES); then ar_train_step on the
+             two calls the same bits (K8BWD_CASES); the same at 1, 3 and 4
+             queries at rep 4 and at d 36, rep 2 (K8BWD_SHORT_CASES: K8's
+             forward with lse and K8bwd on the wgmma bodies, d padded to
+             40); each case's forward output and lse held to the plain
+             version too; then ar_train_step on the
              seeded ar_4b, all 16 layers, over the 12,800-token grid, B = 1,
              AR_TRAIN_STEPS = 3 steps with per-layer remat: s per step, peak
              GiB, loss, grad norm, K8 (32) and K8bwd (16) launches a step;
              then steps traced by torch.profiler: K8bwd's and K8's share of
              a step (ar_train_trace); a 2-layer cut at full width over 256
              tokens, card (bf16) against CPU (fp32) within AR_PARITY_TOL
+ 33 cp_train data- and context-parallel training (after cp): K4 and K1cp's
+             forward with lse at a Ulysses rank's shard (1, 56,320, 16,
+             128) against the plain versions; then CP_RANKS processes on
+             the one card (gloo, `--cp-train-rank r`) train the 7B at full
+             width on CP_TRAIN_BLOCKS = 6 of 28 blocks with
+             make_sharded_train_step: cp 2 over one 121-frame clip for 2
+             steps, dp 2 over two 8-latent-frame clips for 1, each held to
+             the same net, batch and draws in this one process (loss, grad
+             norm, three leaves' updates and first moments within
+             CP_TRAIN_TOL): s per step per rank, peak GiB, launches (K1cp /
+             K1 and K4 per block), the collectives' bytes and host seconds
+ 34 offline_tools  (after checkpoint) make_random_checkpoint writes a seeded
+             2-block GEN3C-7B-width dit.npz, persist_quantized_dit its W8A8
+             file (quantized on the card), build_gen3c_model loads it
+             pre-quantized and runs one forward at 56,320 tokens (K7q, K7;
+             codes equal to the file's, within OFFLINE_W8A8_TOL of bf16);
+             with phase 17's get_t5_embeddings run on the seeded T5 (two
+             prompts to .t5.npy, read back through training/datasets.py)
 Every bf16 attention case of phase 3 also prints its launches by body
 (kernels.route_counts: wgmma or mma_sync), its share of its bound, and the
 registers, stack and spill bytes (ptxas -v, the build log) and dynamic
@@ -1948,6 +1971,254 @@ def phase_cp(refs: dict) -> dict:
     return res
 
 
+# the cp_train phase: the 7B at full width (4096 channels, 32 x 128 heads, bf16) on
+# CP_TRAIN_BLOCKS of its 28 blocks, two ranks on the one card over gloo, each
+# holding the whole training state (12 bytes a parameter: 2 x 18.0 GiB at 6
+# blocks) beside its activations (per-block remat; the 12-block train phase's
+# peak was 31 GiB above its state at 56,320 tokens, so ~15.5 GiB at a rank's
+# 28,160): 8 blocks would pass the card's 80 GB
+CP_TRAIN_BLOCKS = 6
+CP_TRAIN_STEPS = 2
+CP_TRAIN_LR = 1e-4  # warmup 1: optax's first update has lr 0, the second lr
+# (name, dp, cp, steps, latent T, B): Ulysses over the 121-frame clip's 16 latent
+# frames (28,160 tokens a rank), then dp over two clips of 8 latent frames (each
+# rank one clip of 28,160 tokens: the same activations a rank)
+CP_TRAIN_RUNS = (("cp2", 1, 2, CP_TRAIN_STEPS, LATENT_T_7B, 1), ("dp2", 2, 1, 1, 8, 2))
+CP_TRAIN_LEAVES = ("blocks.block0.blocks.0.block.attn.to_q.0.weight",
+                   "blocks.block0.blocks.2.block.layer1.weight", "final_layer.linear.weight")
+CP_TRAIN_MEMORY_FRACTION = 0.48
+CP_TRAIN_TIMEOUT_S = 600  # the two ranks, together
+# two ranks against one: the same bf16 arithmetic per token but GEMMs over half
+# the rows (cuBLAS may tile them otherwise) and each rank's bf16 weight gradient
+# rounded before the fp32 sum; the first moments' bounds are TRAIN_PARITY_TOL's.
+# AdamW divides each gradient by its own root mean square, so an element whose
+# gradient is at the noise floor steps by up to lr either way: the updates are
+# held in the mean and by the share of elements off by more than a tenth of
+# the largest step (the 99% of tests/test_torch_ar_train.py's two-step check)
+CP_TRAIN_TOL = {"loss": 1e-2, "grad_norm": 2e-2, "leaf_mean": 5e-2, "leaf_max": 0.1,
+                "update_share_off": 0.01}
+
+
+def _cp_train_batch(cfg, T: int, B: int, seed: int = 0) -> dict:
+    """B synthetic 704x1280 clips of T latent frames drawn on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    return {"x0": torch.randn((B, 16, T, 88, 160), generator=gen),
+            "crossattn_emb": torch.randn((B, 512, 1024), generator=gen),
+            "extra_channels": torch.randn((B, cfg.in_channels - 16, T, 88, 160), generator=gen)}
+
+
+def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int) -> dict:
+    """CP_TRAIN_BLOCKS of the 7B trained ``steps`` steps on ``_cp_train_batch``
+    (the same net, batch and draws on every rank and in the one-rank
+    reference): over ``groups`` through make_sharded_train_step, or on one
+    device (groups None) through train_step. Per step s, loss, grad norm,
+    peak GiB, launches, K4's by forward, routes and the collectives' bytes
+    and host seconds; the CP_TRAIN_LEAVES' parameters, updates and first
+    moments (CPU fp32)."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.parallel import collectives
+    from gen3c_tpu_torch.training.train import build_net
+    from gen3c_tpu_torch.training.train_step import (
+        init_train_state,
+        make_optimizer,
+        make_sharded_train_step,
+        train_step,
+    )
+
+    net = build_net(cfg, "cuda:0", seed=0)
+    randomize_gates(net, torch.Generator(device="cuda:0").manual_seed(1))
+    opt = make_optimizer(lr=CP_TRAIN_LR, warmup_steps=1)
+    state = init_train_state(net, opt)
+    named = dict(net.named_parameters())
+    before = {n: named[n].detach().float().cpu() for n in CP_TRAIN_LEAVES}
+    if groups is not None:
+        step = make_sharded_train_step(groups, cfg, opt, remat=True)
+    else:
+        def step(st, b, rng):
+            return train_step(st, b, rng, cfg, opt, remat=True)
+    batch = {k: v.to("cuda:0") for k, v in _cp_train_batch(cfg, T, B).items()}
+    rng = torch.Generator().manual_seed(0)
+    out = {"run": name, "latent": [B, 16, T, 88, 160], "tokens": B * T * 88 * 160 // 4,
+           "steps": []}
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        if groups is not None:
+            torch.distributed.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        collectives.reset_traffic()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, rng)
+        torch.cuda.synchronize()
+        out["steps"].append({
+            "s": time.perf_counter() - t0, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": {k: v for k, v in kernels.launch_counts.items() if v},
+            "k4_by_forward": dict(kernels.k4_launches_by_forward),
+            "routes": dict(kernels.route_counts),
+            "traffic": {op: dict(c) for op, c in collectives.traffic.items() if c["calls"]}})
+    out["params"] = sum(p.numel() for p in named.values())
+    out["leaves"] = {n: {"update": named[n].detach().float().cpu() - before[n],
+                         "mu": state.opt_state.mu[n].float().cpu()} for n in CP_TRAIN_LEAVES}
+    del state, net, named, batch, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cp_train_worker(rank: int, port: int, out_dir: str) -> int:
+    """One rank of the cp_train phase (torchrun's environment, gloo on
+    cuda:0): each of CP_TRAIN_RUNS over its (dp, cp) mesh; its numbers to
+    train_rank<r>.json and, rank 0, its leaves to train_<run>.pt."""
+    import dataclasses
+
+    from gen3c_tpu_torch.parallel import mesh
+    from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(CP_RANKS),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.cuda.set_per_process_memory_fraction(CP_TRAIN_MEMORY_FRACTION, 0)
+    torch.cuda.set_device(0)
+    mesh.maybe_distributed_init("gloo", "cuda:0")
+    cfg = dataclasses.replace(GEN3C_7B_PRESET.dit, num_blocks=CP_TRAIN_BLOCKS)
+    out = {"rank": rank, "runs": {}}
+    for name, dp, cp, steps, T, B in CP_TRAIN_RUNS:
+        groups = mesh.make_groups(dp=dp, cp=cp, backend="gloo")
+        res = _cp_train_run(cfg, groups, name, steps, T, B)
+        leaves = res.pop("leaves")
+        if rank == 0:
+            torch.save(leaves, os.path.join(out_dir, f"train_{name}.pt"))
+        out["runs"][name] = {**res, "dp_rank": groups.dp.rank, "cp_rank": groups.cp.rank}
+    with open(os.path.join(out_dir, f"train_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _leaf_rel(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    d = (got - ref).abs()
+    peak = ref.abs().max().clamp_min(1e-30)
+    return {"rel_max": (d.max() / peak).item(),
+            "rel_mean": (d.mean() / ref.abs().mean().clamp_min(1e-30)).item(),
+            "share_off": (d > 0.1 * peak).float().mean().item()}
+
+
+def phase_cp_train() -> dict:
+    """Data- and context-parallel training of the 7B at full width: K4 (and
+    K1cp's forward with lse) at a Ulysses rank's shard, (1, 56,320, 16, 128),
+    held to the plain versions; then CP_RANKS ranks on the one card
+    (cp_train_worker, gloo) train CP_TRAIN_BLOCKS blocks with
+    make_sharded_train_step, CP_TRAIN_RUNS (cp 2 over one 121-frame clip,
+    2 steps; dp 2 over two 8-latent-frame clips, 1 step), and the same net,
+    batch and draws train in this one process: loss, grad norm and the
+    CP_TRAIN_LEAVES' updates and first moments held within CP_TRAIN_TOL;
+    every rank's launches (K1cp 2 x blocks a step under remat, K4 for each
+    attention), s per step per rank, the collectives' bytes and host
+    seconds. The ranks share the card and gloo passes through host memory:
+    no time here is a multi-card time."""
+    import dataclasses as dc
+
+    from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    heads = GEN3C_7B_PRESET.dit.num_heads // CP_RANKS
+    shard = (1, LATENT_T_7B * 88 * 160 // 4, heads, 128)
+    k4 = _k4_case(f"K4 cp training shard (cp={CP_RANKS}: {heads} heads)", shard, shard,
+                  torch.bfloat16, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=OUT_DIR, prefix="cp_train_")
+    logs = [open(os.path.join(out_dir, f"train_rank{r}.log"), "w") for r in range(CP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cp-train-rank",
+                               str(r), "--cp-port", str(port), "--cp-out", out_dir],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(CP_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, CP_TRAIN_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    wall_s = time.perf_counter() - t0
+    if any(proc.returncode != 0 for proc in procs):
+        tails = [open(os.path.join(out_dir, f"train_rank{r}.log")).read()[-3000:]
+                 for r in range(CP_RANKS)]
+        raise AssertionError(f"cp_train: ranks exited {[p.returncode for p in procs]} after "
+                             f"{wall_s:.0f} s:\n" + "\n----\n".join(tails))
+    ranks = [json.load(open(os.path.join(out_dir, f"train_rank{r}.json")))
+             for r in range(CP_RANKS)]
+    cfg = dc.replace(GEN3C_7B_PRESET.dit, num_blocks=CP_TRAIN_BLOCKS)
+    res = {"model": "gen3c_7b", "blocks": CP_TRAIN_BLOCKS, "channels": cfg.model_channels,
+           "heads": cfg.num_heads, "head_dim": cfg.head_dim, "dtype": str(cfg.dtype),
+           "ranks": CP_RANKS, "backend": "gloo", "wall_s": wall_s, "k4_case": {
+               k: k4[k] for k in ("q", "ms", "fwd_lse_ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "max_abs_err", "bound_share")},
+           "note": "both ranks share one card and their collectives go through host memory "
+                   "(gloo): no time here is a multi-card time", "runs": {}}
+    bad = []
+    for name, dp, cp, steps, T, B in CP_TRAIN_RUNS:
+        one = _cp_train_run(cfg, None, name, steps, T, B)
+        got_leaves = torch.load(os.path.join(out_dir, f"train_{name}.pt"), weights_only=True)
+        runs = [r["runs"][name] for r in ranks]
+        rel = [{k: abs(st[k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+               for st, ref in zip(runs[0]["steps"], one["steps"])]
+        leaves = {}
+        for n, ref in one["leaves"].items():
+            leaves[n] = {"mu": _leaf_rel(got_leaves[n]["mu"], ref["mu"])}
+            if ref["update"].abs().max() > 0:
+                leaves[n]["update"] = _leaf_rel(got_leaves[n]["update"], ref["update"])
+        one_leaves = one.pop("leaves")
+        del got_leaves, one_leaves
+        run = {"dp": dp, "cp": cp, "ranks": runs, "one_rank": one, "rel": rel,
+               "leaves": leaves, "tol": CP_TRAIN_TOL}
+        res["runs"][name] = run
+        for r, rk in enumerate(runs):
+            if any(abs(st[k] - rs[k]) > 1e-6 * abs(rs[k]) for st, rs in zip(rk["steps"],
+                                                                              runs[0]["steps"])
+                   for k in ("loss", "grad_norm")):
+                bad.append(f"{name}: rank {r}'s loss or grad norm differs from rank 0's")
+        if any(v > CP_TRAIN_TOL[k] for st in rel for k, v in st.items()):
+            bad.append(f"{name}: loss / grad norm off the one-rank step {rel}")
+        for n, lv in leaves.items():
+            mu, up = lv["mu"], lv.get("update")
+            if mu["rel_max"] > CP_TRAIN_TOL["leaf_max"] or mu["rel_mean"] > CP_TRAIN_TOL[
+                    "leaf_mean"] or (up is not None and (
+                        up["rel_mean"] > CP_TRAIN_TOL["leaf_mean"]
+                        or up["share_off"] > CP_TRAIN_TOL["update_share_off"])):
+                bad.append(f"{name}: leaf {n} off the one-rank step {lv}")
+        nb = CP_TRAIN_BLOCKS
+        self_id = "K1cp" if cp > 1 else "K1"
+        for rk in runs:
+            for st in rk["steps"]:
+                la, by = st["launches"], st["k4_by_forward"]
+                if la.get(self_id) != 2 * nb or la.get("K4") != 2 * nb or by[self_id] != nb \
+                        or by["K2"] != nb or st["routes"]["mma_sync"]:
+                    bad.append(f"{name}: a step launched {la}, K4 by forward {by}, "
+                               f"routes {st['routes']}")
+        for st in one["steps"]:
+            if not (math.isfinite(st["loss"]) and st["grad_norm"] > 0):
+                bad.append(f"{name}: the one-rank step gave {st}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit("cp_train", **res)
+    if bad:
+        raise AssertionError(f"cp_train: {bad}: {res}")
+    res["k4"] = k4
+    return res
+
+
 def phase_main(model, preset, build_s: float) -> dict:
     from gen3c_tpu_torch import kernels
 
@@ -2310,6 +2581,7 @@ def phase_chain() -> dict:
 
 
 SERVING_FRAMES = 241  # two chunks
+SERVING_BLOCKS = 4  # of 28: the served 7B's depth (its width is the 7B's), for the smoke's time
 SERVING_POLL_S = 0.25
 SERVING_TIMEOUT_S = 600  # each wait for a job's state
 
@@ -2380,6 +2652,10 @@ def phase_serving() -> dict:
         model = Gen3cPersistentModel("gen3c_7b", checkpoint_dir=None, num_steps=MAIN_STEPS,
                                      depth_source="moge_jax", device="cuda")
         randomize_gates(model.model.net, torch.Generator(device="cuda").manual_seed(1))
+        for name in list(model.model.net.blocks)[SERVING_BLOCKS:]:  # the full width, cut depth
+            del model.model.net.blocks[name]
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         ready_s = time.perf_counter() - t0
         h, w, chunk = model.preset.height, model.preset.width, model.model.chunk_size
@@ -2514,7 +2790,7 @@ def phase_serving() -> dict:
             "seed_launches": seed_launches, "launches": launches, "metadata": meta,
         }
         emit("serving", **res)
-        want = 28 * MAIN_STEPS * 3  # A's two chunks and C's one
+        want = SERVING_BLOCKS * MAIN_STEPS * 3  # A's two chunks and C's one
         bad = []
         if done["state"] != "done" or frames.shape != (SERVING_FRAMES, h, w, 3) \
                 or frames.dtype != np.uint8:
@@ -2601,6 +2877,7 @@ def phase_t5() -> dict:
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "finite": bool(torch.isfinite(out).all().item()), "out_shape": list(out.shape)}
     del out
+    res["tool"] = _t5_tool(enc)
     cut_cfg = dataclasses.replace(T5_11B, num_layers=T5_CUT_LAYERS)
     state = {k: v for k, v in enc.state_dict().items()
              if not k.startswith("layers.") or int(k.split(".")[1]) < T5_CUT_LAYERS}
@@ -2629,6 +2906,143 @@ def phase_t5() -> dict:
         raise AssertionError(f"T5: {res}")
     if any(res["cut_err"][k] > T5_CUT_TOL[k] for k in T5_CUT_TOL):
         raise AssertionError(f"T5: the card and the CPU disagree on the 2-layer cut: {res}")
+    return res
+
+
+T5_TOOL_PROMPTS = ({"prompt": "A slow dolly shot through a sunlit greenhouse, rows of ferns "
+                               "swaying as the camera moves left.", "name": "clip_000"},
+                   {"prompt": "A drone rises over a harbour at dusk."})
+
+
+class _SeededT5Prompts:
+    """``encode_prompts`` of the seeded full-width T5 with the smoke's byte
+    tokenizer (the card's machine has no T5 files): ids BYTE_BASE + b and
+    </s> (1), padded to max_length, the output zero past the prompt."""
+
+    def __init__(self, enc):
+        self.enc = enc
+
+    @torch.no_grad()
+    def encode_prompts(self, prompt: str, max_length: int = 512):
+        ids = [StandInTokenizer.BYTE_BASE + b for b in prompt.encode("utf-8")][:max_length - 1]
+        ids.append(1)
+        n = len(ids)
+        tok = torch.zeros((1, max_length), dtype=torch.long)
+        mask = torch.zeros((1, max_length), dtype=torch.long)
+        tok[0, :n], mask[0, :n] = torch.tensor(ids), 1
+        out = self.enc(tok.cuda(), mask.cuda()) * mask.cuda()[..., None]
+        return out.float().cpu().numpy(), mask.numpy()
+
+
+def _t5_tool(enc) -> dict:
+    """scripts/get_t5_embeddings.py's port (``write_embeddings``) with the
+    seeded T5 on the card: two prompts of a JSONL (one unnamed) to
+    <clip>.t5.npy files, read back through training/datasets.py as their
+    clips' embeddings and held bit for bit to a direct encode."""
+    from gen3c_tpu_torch.models.t5 import T5_11B
+    from gen3c_tpu_torch.scripts.get_t5_embeddings import write_embeddings
+    from gen3c_tpu_torch.training.datasets import _t5_or_zeros
+
+    encoder = _SeededT5Prompts(enc)
+    d = tempfile.mkdtemp(dir=OUT_DIR, prefix="t5_tool_")
+    try:
+        prompts = os.path.join(d, "prompts.jsonl")
+        with open(prompts, "w") as f:
+            f.write("\n".join(json.dumps(p) for p in T5_TOOL_PROMPTS) + "\n")
+        t0 = time.perf_counter()
+        written = write_embeddings(encoder, prompts, d, max_length=T5_LEN)
+        write_s = time.perf_counter() - t0
+        names = [os.path.basename(w) for w in written]
+        same = []
+        for p, w in zip(T5_TOOL_PROMPTS, written):
+            back = _t5_or_zeros(w[:-len(".t5.npy")] + ".npz")
+            same.append(bool(np.array_equal(back, encoder.encode_prompts(
+                p["prompt"], T5_LEN)[0][0])))
+        shapes = [list(np.load(w).shape) for w in written]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res = {"files": names, "shapes": shapes, "write_s": write_s, "read_back_equal": same}
+    if names != ["clip_000.t5.npy", "000001.t5.npy"] or not all(same) \
+            or shapes != [[T5_LEN, T5_11B.d_model]] * 2:
+        raise AssertionError(f"offline_tools: get_t5_embeddings wrote or read back wrongly: {res}")
+    return res
+
+
+OFFLINE_BLOCKS = 2  # the seeded 7B-width checkpoint's depth (its disk write stays ~1.2 GB)
+OFFLINE_W8A8_TOL = 0.1  # the W8A8 forward's relative L2 against bf16 on the same weights
+
+
+def phase_offline_tools(t5_tool: dict) -> dict:
+    """The offline tools of gen3c_tpu_torch/scripts/ on the card: a seeded
+    GEN3C-7B-width checkpoint (OFFLINE_BLOCKS blocks) written as dit.npz by
+    make_random_checkpoint, its W8A8 form persisted by persist_quantized_dit
+    (quantized on the card, the JAX script's file), loaded pre-quantized
+    through build_gen3c_model and run once on the fast path's linears (K7q,
+    K7) at the 121-frame chunk's 56,320 tokens, its codes equal to the
+    file's and its output within OFFLINE_W8A8_TOL of the bf16 net's; with
+    phase_t5's get_t5_embeddings run (``_t5_tool``). s and bytes of each."""
+    import dataclasses
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.models.quantize import QuantLinear
+    from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET, build_gen3c_model
+    from gen3c_tpu_torch.scripts import make_random_checkpoint, persist_quantized_dit
+    from gen3c_tpu_torch.utils import checkpoint as ckpt
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(dir=OUT_DIR, prefix="offline_")
+    res = {"blocks": OFFLINE_BLOCKS, "t5": t5_tool}
+    try:
+        t0 = time.perf_counter()
+        written = make_random_checkpoint.main(["--checkpoint_dir", root, "--preset", "gen3c_7b",
+                                               "--num_blocks", str(OFFLINE_BLOCKS),
+                                               "--seed", "0", "--device", "cuda"])
+        res["random_checkpoint"] = {"s": time.perf_counter() - t0,
+                                    "bytes": os.path.getsize(written[0])}
+        t0 = time.perf_counter()
+        qpath = persist_quantized_dit.main(["--checkpoint_dir", root, "--mode", "w8a8",
+                                            "--preset", "gen3c_7b", "--num_blocks",
+                                            str(OFFLINE_BLOCKS), "--device", "cuda"])
+        res["persist_w8a8"] = {"s": time.perf_counter() - t0, "bytes": os.path.getsize(qpath)}
+        preset = dataclasses.replace(GEN3C_7B_PRESET, dit=dataclasses.replace(
+            GEN3C_7B_PRESET.dit, num_blocks=OFFLINE_BLOCKS))
+        t0 = time.perf_counter()
+        model, _ = build_gen3c_model(preset, device="cuda", checkpoint_dir=root,
+                                     quantize="w8a8")
+        res["load_s"] = time.perf_counter() - t0
+        net = model.net
+        codes = ckpt.load_flat_npz(qpath)["['blocks']/[0]/['mlp']/['fc1']/['q8']"]
+        fc1 = net.blocks["block0"].blocks[2].block.layer1
+        res["codes_equal"] = isinstance(fc1, QuantLinear) and bool(torch.equal(
+            fc1.weight.cpu(), torch.from_numpy(codes).T))
+        # the same weights unquantized (the seeded file's gates are not zero)
+        bf16_model, _ = build_gen3c_model(preset, device="cuda", checkpoint_dir=root)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn((1, preset.dit.in_channels, LATENT_T_7B, 88, 160),
+                        generator=gen, device="cuda")
+        t = torch.full((1,), 0.25 * math.log(2.0), device="cuda")
+        ctx = torch.randn((1, 512, 1024), generator=gen, device="cuda")
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = net(x, t, ctx, fps=24.0)
+            torch.cuda.synchronize()
+            res["forward_s"] = time.perf_counter() - t0
+            res["launches"] = {k: v for k, v in kernels.launch_counts.items() if v}
+            want = bf16_model.net(x, t, ctx, fps=24.0)
+        res["rel_l2_vs_bf16"] = ((out.float() - want.float()).norm()
+                                 / want.float().norm()).item()
+        res["finite"] = bool(torch.isfinite(out).all().item())
+        del model, bf16_model, net, out, want, x, ctx
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("offline_tools", **res)
+    if not (res["codes_equal"] and res["finite"]) or res["rel_l2_vs_bf16"] > OFFLINE_W8A8_TOL \
+            or not res["launches"].get("K7q") or not res["launches"].get("K7"):
+        raise AssertionError(f"offline_tools: {res}")
     return res
 
 
@@ -4768,6 +5182,8 @@ def _k8bwd_case(gen, name: str, B: int, Lq: int, Lk: int, Hq: int, Hkv: int, D: 
     see no key get dout 0 for the comparison (the plain version averages
     every key there, the kernel adds nothing), and a second backward with
     their dout kept must give them dq 0 and finite values everywhere.
+    The forward's output is held to ``gqa_attention_reference`` within the
+    same largest-error bound, its lse within 1e-2 on the rows that see a key.
     Timed (CUDA events, the backward alone: Delta, dK/dV, dQ) beside SDPA's
     backward (``is_causal`` / non-causal, ``enable_gqa``; padded: its dense
     boolean mask) and the plain version; the bound counts FlashAttention-2's
@@ -4834,7 +5250,11 @@ def _k8bwd_case(gen, name: str, B: int, Lq: int, Lk: int, Hq: int, Hkv: int, D: 
                                   0.0, float("-inf"))[:, None], dim=-1)
     seen_rows = ~none[:, None, :].expand_as(ref_lse)
     res["lse_max_abs_err"] = (lse[:, h][seen_rows] - ref_lse[seen_rows]).abs().max().item()
-    del plain, ref_lse
+    ref_out = kernels.gqa_attention_reference(*(t.float() for t in plain_args[:3]), causal, start)
+    seen_out = ~none[:, :, None, None].expand_as(ref_out)
+    res["out_rel_max"] = ((out[:, :, h].float() - ref_out)[seen_out].abs().max()
+                          / ref_out[seen_out].abs().max()).item()
+    del plain, ref_lse, ref_out
     tol = K8BWD_TOL if dtype == torch.bfloat16 else K8BWD_F32_TOL
     res.update(grads=errs, tol=tol, plain_heads=h.stop,
                max_abs_err=max(e["max_abs"] for e in errs.values()),
@@ -4876,7 +5296,8 @@ def _k8bwd_case(gen, name: str, B: int, Lq: int, Lk: int, Hq: int, Hkv: int, D: 
     emit("kernel", **res)
     bad = [nm for nm, e in errs.items() if e["rel_max"] > tol["max"] or e["rel_mean"] > tol["mean"]]
     nk = res.get("no_key_rows", {})
-    if bad or not res["finite"] or res["lse_max_abs_err"] > 1e-2 or not all(nk.values()):
+    if bad or not res["finite"] or res["lse_max_abs_err"] > 1e-2 or not all(nk.values()) \
+            or res["out_rel_max"] > tol["max"]:
         raise AssertionError(f"{name}: K8bwd disagrees with its plain version ({bad}): {res}")
     if not res["repeats_bits"]:
         raise AssertionError(f"{name}: two K8bwd calls gave different bits: {res}")
@@ -4905,12 +5326,25 @@ K8BWD_CASES = (
 )
 
 
-def k8bwd_cases(gen) -> dict:
-    """K8bwd at each of K8BWD_CASES."""
+# K8 with lse and K8bwd where a bf16 forward with lse once had no body: query
+# axes of a decode's shape (Lq * rep <= 16: the training forward runs them on the
+# wgmma body's first rows) and a head width off the multiple of 8 (d 36, zero-padded
+# to 40 in the wrappers); not in scripts/compare_gqa_builds.py, whose older
+# checkouts refuse them
+K8BWD_SHORT_CASES = (
+    ("K8bwd one query at rep 4 bf16", 1, 1, 40, 32, 8, 128, "bfloat16", 39, None, None),
+    ("K8bwd 3 tokens at rep 4 bf16", 1, 3, 3, 32, 8, 128, "bfloat16", 0, None, None),
+    ("K8bwd 4 tokens at rep 4 bf16", 1, 4, 4, 32, 8, 128, "bfloat16", 0, None, None),
+    ("K8bwd d 36 at rep 2 bf16", 1, 200, 200, 4, 2, 36, "bfloat16", 0, None, None),
+)
+
+
+def k8bwd_cases(gen, cases=K8BWD_CASES) -> dict:
+    """K8bwd at each of ``cases`` (K8BWD_CASES by default)."""
     return {c["name"]: c for c in (
         _k8bwd_case(gen, name, B, Lq, Lk, Hq, Hkv, D, getattr(torch, dtype), causal, pad=pad,
                     plain_groups=groups)
-        for name, B, Lq, Lk, Hq, Hkv, D, dtype, causal, pad, groups in K8BWD_CASES)}
+        for name, B, Lq, Lk, Hq, Hkv, D, dtype, causal, pad, groups in cases)}
 
 
 AR_TRAIN_STEPS = 3
@@ -5045,6 +5479,7 @@ def phase_ar_train() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(19)
     t0 = time.perf_counter()
     kern = k8bwd_cases(gen)
+    kern.update(k8bwd_cases(gen, K8BWD_SHORT_CASES))
     cases_s = time.perf_counter() - t0
     preset = ar.AR_PRESETS["ar_4b"]
     torch.cuda.reset_peak_memory_stats()
@@ -5257,9 +5692,12 @@ def main(argv=None) -> int:
     p.add_argument("--cp-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--cp-port", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--cp-out", type=str, default="", help=argparse.SUPPRESS)
+    p.add_argument("--cp-train-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.cp_rank is not None:  # one rank of the cp phase
         return cp_worker(args.cp_rank, args.cp_port, args.cp_out)
+    if args.cp_train_rank is not None:  # one rank of the cp_train phase
+        return cp_train_worker(args.cp_train_rank, args.cp_port, args.cp_out)
     t_start = time.perf_counter()
     info = phase_device()
     phase_build()
@@ -5278,6 +5716,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cp_runs = phase_cp(cp_refs)["runs"]
+    cp_train = phase_cp_train()
     phase_serving()
     t2w_launches = phase_text2world()["launches"]
     interp_launches = phase_interpolator()["launches"]
@@ -5292,8 +5731,9 @@ def main(argv=None) -> int:
     phase_fast_parity()
     phase_chain()
     moge_launches = phase_moge()["launches"]
-    phase_t5()
+    t5_tool = phase_t5()["tool"]
     phase_checkpoint()
+    phase_offline_tools(t5_tool)
     train_launches = phase_train()["k4_by_forward"]
     mv_train = phase_mv_action_train()
     lora_launches = phase_lora_band_train()["launches"]
@@ -5327,6 +5767,11 @@ def main(argv=None) -> int:
     def mv_shape(kid):  # the kernel at the multiview 7B's shape (mv_world's case)
         return _mv_kernel_summary(mv_res["kernel_cases"][kid])
 
+    def cp_train_k4(fwd, run):  # K4 in cp_train's run, by the forward, rank 0's steps
+        steps = cp_train["runs"][run]["ranks"][0]["steps"]
+        return {f"cp_train {run} (rank 0, {len(steps)} steps, {fwd})":
+                sum(st["k4_by_forward"][fwd] for st in steps)}
+
     # K4 in mv_action_train, by the forward it differentiates
     k4_mv = {f"mv_action_train ({k})": {fwd: r["k4_by_forward"][fwd] for fwd in ("K1", "K2")}
              for k, r in mv_train.items()}
@@ -5358,7 +5803,11 @@ def main(argv=None) -> int:
                     for r in k7_cases]),
         row("K4 self-attention backward", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:464",
             train_launches["K1"], kern["K4_self"],
-            phase_launches={k: v["K1"] for k, v in k4_mv.items()}),
+            phase_launches={**{k: v["K1"] for k, v in k4_mv.items()},
+                            **cp_train_k4("K1cp", "cp2"), **cp_train_k4("K1", "dp2")},
+            cp_training_shard={k: cp_train["k4"][k] for k in (
+                "q", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                "bound_share")}),
         row("K4 cross-attention backward", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:508",
             train_launches["K2"], kern["K4_cross"],
             phase_launches={k: v["K2"] for k, v in k4_mv.items()}),
@@ -5394,7 +5843,11 @@ def main(argv=None) -> int:
     ring = next(r for r in kern["K1ring"] if r["cp"] == CP_RANKS and r["band"] is None)
     table += [
         row("K1cp Ulysses self-attention (cp=2 heads)", "attention_wgmma.cu",
-            "gen3c_tpu/models/dit.py:653", cp_launch["ulysses"]["K1cp"], k1cp),
+            "gen3c_tpu/models/dit.py:653", cp_launch["ulysses"]["K1cp"], k1cp,
+            training={"forward_with_lse_ms": cp_train["k4"]["fwd_lse_ms"],
+                      "shape": cp_train["k4"]["q"],
+                      "launches": sum(st["launches"]["K1cp"] for st in
+                                      cp_train["runs"]["cp2"]["ranks"][0]["steps"])}),
         row("K1ag all-gather self-attention (cp=2)", "attention_wgmma.cu",
             "gen3c_tpu/models/dit.py:766", cp_launch["allgather"]["K1ag"], kern["K1ag"]),
         row("K1ring ring-attention step (cp=2)", "attention_wgmma.cu",

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -161,3 +161,80 @@ def approximation_quality_curve(
     inputs = quality_inputs(seed, lat_t, lat_hw, net.cfg.crossattn_emb_channels, device)
     return quality_curve(net, inputs, num_steps, windows, intervals, thresholds,
                          guidance_quantiles)
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR of a against b in fp64, the peak b's largest |value|
+    (scripts/cache_quality_gate.py ``psnr``)."""
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    if mse == 0:
+        return float("inf")
+    peak = float(np.max(np.abs(np.asarray(b)))) or 1.0
+    return 10.0 * np.log10(peak * peak / mse)
+
+
+def fixed_refreshes(num_steps: int, interval: int, warmup: int = 2, tail: int = 2) -> int:
+    """The network runs of a fixed step cache: the first ``warmup`` and last
+    ``tail`` steps and every ``interval``-th between (the sampler's rule)."""
+    return sum(1 for i in range(num_steps)
+               if i < warmup or i >= num_steps - tail or (i - warmup) % interval == 0)
+
+
+@torch.no_grad()
+def cache_policy_table(net: GeneralDIT, state_shape, num_steps: int = 35, seed: int = 0
+                       ) -> List[dict]:
+    """scripts/cache_quality_gate.py's table over ``net``: the denoise loop
+    uncached and under each step-caching policy on the same inputs (numpy's
+    RandomState(seed) in the JAX script's order: noise, text, pose; one
+    condition frame, guidance 1), each row {"policy", "psnr_vs_uncached"
+    (the final latent's, dB, 2 decimals), "relative_cost" (network runs
+    over steps, None where the data decides)}: fixed intervals 2 and 3,
+    adaptive thresholds 0.05 / 0.15 / 0.3, and span caching of the middle
+    half of the blocks at intervals 2 and 3."""
+    from gen3c_tpu_torch.models.gen3c import dit_net_fns
+
+    dev = next(net.parameters()).device
+    C, T, H, W = state_shape
+    B, n = 1, num_steps
+    rng = np.random.RandomState(seed)
+    ctx = net.cfg.crossattn_emb_channels
+    arrays = dict(
+        init_noise=rng.randn(B, C, T, H, W).astype(np.float32),
+        augment_noise=np.zeros((B, C, T, H, W), np.float32),
+        crossattn_cond=rng.randn(B, 16, ctx).astype(np.float32),
+        crossattn_uncond=np.zeros((B, 16, ctx), np.float32),
+        gt_latent=np.zeros((B, C, T, H, W), np.float32),
+        condition_video_indicator=np.zeros((1, 1, T, 1, 1), np.float32),
+        condition_video_input_mask=np.zeros((B, 1, T, H, W), np.float32),
+        pose_latent_cond=rng.randn(B, 64, T, H, W).astype(np.float32),
+        pose_latent_uncond=np.zeros((B, 64, T, H, W), np.float32),
+    )
+    arrays["condition_video_indicator"][:, :, :1] = 1.0
+    common = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    net_fn, _ = dit_net_fns(net, span=False)
+
+    def run(fn=net_fn, **options):
+        return generate_samples(fn, **common, num_steps=n, guidance=1.0,
+                                **options).float().cpu().numpy()
+
+    ref = run()
+    rows = []
+    for interval in (2, 3):
+        rows.append({"policy": f"fixed interval={interval}",
+                     "psnr_vs_uncached": round(psnr(run(step_cache_interval=interval), ref), 2),
+                     "relative_cost": round(fixed_refreshes(n, interval) / n, 3)})
+    for thr in (0.05, 0.15, 0.3):
+        rows.append({"policy": f"adaptive threshold={thr}",
+                     "psnr_vs_uncached": round(psnr(run(step_cache_threshold=thr), ref), 2),
+                     "relative_cost": None})  # data-dependent refresh count
+    nb = net.cfg.num_blocks
+    span = (nb // 4, nb - nb // 4)
+    refresh, skip = dit_net_fns(_with_cfg(net, cache_block_span=span), span=True)
+    frac = (span[1] - span[0]) / nb
+    for interval in (2, 3):
+        out = run(refresh, net_fn_skip=skip, step_cache_interval=interval)
+        r = fixed_refreshes(n, interval)
+        rows.append({"policy": f"span {span} interval={interval}",
+                     "psnr_vs_uncached": round(psnr(out, ref), 2),
+                     "relative_cost": round((r + (n - r) * (1 - frac)) / n, 3)})
+    return rows

@@ -98,8 +98,9 @@ __all__ = [
 launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K3lse": 0, "K4": 0, "K4band": 0, "K5": 0, "K6": 0,
                  "K7q": 0, "K7": 0, "P1": 0, "P2": 0, "K1cp": 0, "K1ag": 0, "K1ring": 0,
                  "K1merge": 0, "K1vit": 0, "K8": 0, "K8bwd": 0}
-# K4's launches split by the forward they differentiate (K1 self-, K2 cross-attention)
-k4_launches_by_forward = {"K1": 0, "K2": 0}
+# K4's launches split by the forward they differentiate (K1 self-, K2 cross-attention,
+# K1cp a context-parallel rank's self-attention heads)
+k4_launches_by_forward = {"K1": 0, "K2": 0, "K1cp": 0}
 # the bf16 attention family's launches by body (cuda.attention_route)
 route_counts = {"wgmma": 0, "mma_sync": 0}
 

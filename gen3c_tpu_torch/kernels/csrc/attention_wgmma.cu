@@ -1343,14 +1343,17 @@ extern "C" int gen3c_attention_wgmma_fwd(const void* q, const void* k, const voi
 // K8's bf16 prefill: the forward (no band) in its kGqa mode over q (B, Lq,
 // Hq, D) and k/v (B, Lk, Hkv, D) with their map words (3 x kMapWords, box
 // rows as the forward's); kv_start null or (B,) int64 on the card;
-// causal_offset < 0: no causal mask. out (B, Lq, Hq, D) contiguous; lse null
+// causal_offset < 0: no causal mask; scale multiplies the logits (1/sqrt(d)
+// of the head dim before kernels/cuda.py zero-padded it to D, a multiple of
+// 8: zero columns add nothing to a logit or an output row). out (B, Lq, Hq,
+// D) contiguous; lse null
 // (inference) or (B, Hq, Lq) fp32, the row logsumexp K8bwd reads (training;
 // -inf for a row that sees no key). Returns a cudaError_t (0 on success).
 extern "C" int gen3c_gqa_attention_wgmma(const void* q, const void* k, const void* v,
                                          const long long* words, void* out,
                                          const long long* kv_start, int B, int Lq, int Lk, int Hq,
-                                         int Hkv, int D, int causal_offset, float* lse,
-                                         void* stream) {
+                                         int Hkv, int D, int causal_offset, float scale,
+                                         float* lse, void* stream) {
   if (bad_shape(B, Lq, Lk, Hq, D) || Hkv <= 0 || Hq % Hkv != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1368,7 +1371,7 @@ extern "C" int gen3c_gqa_attention_wgmma(const void* q, const void* k, const voi
   p.Lk = Lk;
   p.H = Hq;
   p.D = D;
-  p.scale = 1.f / sqrtf(static_cast<float>(D));
+  p.scale = scale;
   p.order_q = static_cast<int>(words[12]);
   p.order_k = static_cast<int>(words[kMapWords + 12]);
   p.order_v = static_cast<int>(words[2 * kMapWords + 12]);
@@ -1424,7 +1427,8 @@ extern "C" int gen3c_attention_wgmma_bwd(const void* q, const void* k, const voi
 // D), the forward's out and dout (like q), all contiguous bf16, and the
 // forward's lse (B, Hq, Lq) fp32 (-inf: a row that sees no key). words: 8 x
 // kMapWords as gen3c_attention_wgmma_bwd's; kv_start null or (B,) int64 on
-// the card; causal_offset < 0: no causal mask; delta (B, Hq, Lq) fp32
+// the card; causal_offset < 0: no causal mask; scale as
+// gen3c_gqa_attention_wgmma's; delta (B, Hq, Lq) fp32
 // scratch. splits: the dK/dV grid's split of each key tile (kernels/cuda.py
 // gqa_bwd_plan); with splits > 1, ws holds 2 x splits x B x Lk x Hkv x D fp32
 // (null otherwise). Launches Delta, dK/dV, (the split's reduction,) dQ.
@@ -1434,8 +1438,8 @@ extern "C" int gen3c_gqa_attention_wgmma_bwd(const void* q, const void* k, const
                                              const long long* words, const float* lse,
                                              const long long* kv_start, float* delta, void* dq,
                                              void* dk, void* dv, float* ws, int B, int Lq, int Lk,
-                                             int Hq, int Hkv, int D, int causal_offset, int splits,
-                                             void* stream) {
+                                             int Hq, int Hkv, int D, int causal_offset,
+                                             float scale, int splits, void* stream) {
   if (bad_shape(B, Lq, Lk, Hq, D) || Hkv <= 0 || Hq % Hkv != 0 || splits < 1 || splits > 65535 ||
       (splits > 1 && ws == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1443,7 +1447,7 @@ extern "C" int gen3c_gqa_attention_wgmma_bwd(const void* q, const void* k, const
   CUtensorMap maps[8];
   BwdParams p;
   cudaError_t err = bwd_setup(maps, &p, q, k, v, out, dout, words, lse, delta, dq, dk, dv, B, Lq,
-                              Lk, Hq, D, 1.f / sqrtf(static_cast<float>(D)));
+                              Lk, Hq, D, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   const GqaBwd gqa = {{kv_start, Hq / Hkv, causal_offset}, Hkv, splits, ws};
   const Band bd = make_band(nullptr, nullptr, 0, 0);

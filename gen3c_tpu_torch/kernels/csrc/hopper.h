@@ -532,7 +532,15 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
 
 // cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is fetched
 // through the runtime's entry-point lookup, so the library needs no -lcuda.
+// Being a driver call, it needs a context current to the calling thread, which
+// a thread that has made no runtime call yet lacks (a backward on autograd's
+// device thread, whose first call into the library builds its maps): there it
+// fails with CUDA_ERROR_INVALID_CONTEXT. cudaFree(nullptr) binds the current
+// device's primary context to the thread first (a no-op once it is bound); an
+// error of its own stays the runtime's last error, which the caller's launch
+// check reports.
 inline EncodeTiled encode_tiled() {
+  (void)cudaFree(nullptr);
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* ptr = nullptr;

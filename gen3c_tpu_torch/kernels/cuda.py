@@ -54,10 +54,11 @@ def library() -> ctypes.CDLL:
             lib.gen3c_ray_triangle_prepare.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P]
             lib.gen3c_gqa_attention.argtypes = [_P] * 7 + [ctypes.POINTER(_L), _I, _I, _P, _P]
             lib.gen3c_gqa_attention_wgmma.argtypes = ([_P, _P, _P, ctypes.POINTER(_L), _P, _P]
-                                                      + [_I] * 7 + [_P, _P])
+                                                      + [_I] * 7 + [ctypes.c_float, _P, _P])
             lib.gen3c_gqa_attention_bwd.argtypes = [_P] * 11 + [_I] * 7 + [_P]
             lib.gen3c_gqa_attention_wgmma_bwd.argtypes = ([_P] * 5 + [ctypes.POINTER(_L)]
-                                                          + [_P] * 7 + [_I] * 8 + [_P])
+                                                          + [_P] * 7 + [_I] * 7
+                                                          + [ctypes.c_float, _I, _P])
             lib.gen3c_gqa_plan_words.argtypes = []
             words = ctypes.POINTER(ctypes.c_longlong)
             band_ptr = ctypes.POINTER(_I)
@@ -990,15 +991,22 @@ GQA_PLAN_WORDS = 28  # gqa_attention.cu's kPlanWords
 GQA_CACHED_LAUNCHES = 256  # launches kept (shape, layout and stream); then the cache restarts
 
 
-def gqa_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, int8: bool) -> str:
+def gqa_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, int8: bool,
+              lse: bool = False) -> str:
     """The body a K8 call runs: "fp32" for fp32 queries (gqa_f32, the CUDA
     cores); for bf16 queries "decode" when Lq * rep <= GQA_DECODE_ROWS
     (gqa_mma's decode: one launch, its key splits merged in it), "wgmma" for
     a longer bf16 query over bf16 K/V that a TMA map describes (the
     attention_wgmma.cu forward in its kGqa mode), else "mma_sync" (gqa_mma's
-    prefill: int8 codes, or rows no map describes)."""
+    prefill: int8 codes, or rows no map describes). The training forward
+    (lse=True, ``gqa_attention_fwd_lse``) runs bf16 at every shape on
+    "wgmma": its queries and keys are copied into maps' rows (``pad_head``)
+    where they are not already, and a short query axis fills the first
+    rows of one 128-row tile, the rest zero-filled by TMA and never stored."""
     if q.dtype == torch.float32:
         return "fp32"
+    if lse:
+        return "wgmma"
     if q.shape[1] * (q.shape[2] // k.shape[2]) <= GQA_DECODE_ROWS:
         return "decode"
     if not int8 and all(tma_describable(t) for t in (q, k, v)):
@@ -1167,8 +1175,8 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     it; calls on one stream run in order.
 
     lse, a (B, Hq, Lq) fp32 tensor on the card, receives the row logsumexp
-    (-inf for a row that sees no key): the training forward, which only the
-    "wgmma" and "fp32" routes write (``gqa_attention_fwd_lse``)."""
+    (-inf for a row that sees no key): fp32's training forward
+    (``gqa_attention_fwd_lse``, which runs bf16's itself)."""
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         return gqa_attention(*(t.contiguous() for t in (q, k, v)), causal_offset,
                              kv_valid_start, k_scale, v_scale, lse)
@@ -1199,9 +1207,9 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sp = None if start is None else start.data_ptr()
     lp = None
     if lse is not None:
-        if launch.route not in ("wgmma", "fp32") or k_scale is not None:
-            raise ValueError(f"gqa kernel: the forward with lse takes bf16 q/k/v a TMA map "
-                             f"describes or fp32 q/k/v, not the {launch.route} route")
+        if launch.route != "fp32":
+            raise ValueError(f"gqa kernel: lse here is fp32's; the {launch.route} route's "
+                             "forward with lse is gqa_attention_fwd_lse")
         if lse.shape != (B, Hq, Lq) or lse.dtype != torch.float32 or lse.device != q.device \
                 or not lse.is_contiguous():
             raise ValueError(f"gqa kernel: lse must be contiguous fp32 {(B, Hq, Lq)} on the card")
@@ -1209,7 +1217,8 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Lq, Hq, D), dtype=q.dtype, device=q.device)
     if launch.route == "wgmma":
         rc = library().gen3c_gqa_attention_wgmma(qp, kp, vp, launch.words, out.data_ptr(), sp, B,
-                                                 Lq, Lk, Hq, k.shape[2], D, causal, lp, stream)
+                                                 Lq, Lk, Hq, k.shape[2], D, causal,
+                                                 1.0 / math.sqrt(D), lp, stream)
     else:
         rc = library().gen3c_gqa_attention(
             qp, kp, vp, None if k_scale is None else k_scale.data_ptr(),
@@ -1219,23 +1228,75 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def pad_head(t: torch.Tensor, d: int) -> torch.Tensor:
+    """t (..., d0) with its last axis zero-padded to d (t itself when d0 ==
+    d), contiguous: K8's bf16 training path runs head widths that are not
+    a multiple of 8 on the wgmma bodies, whose TMA rows are 16-byte
+    multiples. Zero columns add nothing to a logit q . k or to an output
+    row P V, so the kernel's (out, dq, dk, dv) are the unpadded ones in
+    their first d0 columns, given the scale of the unpadded width."""
+    d0 = t.shape[-1]
+    if d0 == d:
+        return _aligned(t.contiguous())
+    return torch.nn.functional.pad(t, (0, d - d0)).contiguous()
+
+
+def gqa_train_width(d: int) -> int:
+    """The head width K8's bf16 training path runs at: d rounded up to a
+    multiple of 8 (``pad_head``)."""
+    return -(-d // 8) * 8
+
+
+def _gqa_train_start(kv_valid_start: Optional[torch.Tensor], B: int,
+                     device: torch.device) -> Optional[torch.Tensor]:
+    if kv_valid_start is None:
+        return None
+    if kv_valid_start.shape != (B,) or kv_valid_start.device != device:
+        raise ValueError(f"gqa kernel: kv_valid_start must be ({B},) on the card")
+    return kv_valid_start.to(torch.int64).contiguous()
+
+
 def gqa_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal_offset: Optional[int] = None,
                           kv_valid_start: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8's training forward: (out (B, Lq, Hq, d), its fp32 row logsumexp
-    (B, Hq, Lq)) of contiguous copies of q, k, v, both bf16 (the "wgmma"
-    route: attention_wgmma.cu's kGqa forward with lse; d a multiple of 8)
-    or both fp32 (gqa_f32 with lse). A row that sees no key gives 0 and
-    -inf. Raises for anything else (int8 caches are not trained)."""
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    if q.dtype == torch.bfloat16 and gqa_route(q, k, v, False) != "wgmma":
-        raise ValueError(f"gqa kernel: the bf16 forward with lse needs Lq * rep > "
-                         f"{GQA_DECODE_ROWS} and d % 8 == 0, got q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
-    B, Lq, Hq, _ = q.shape
+    (B, Hq, Lq)) of q, k, v, both bf16 or both fp32. bf16 runs at every
+    shape on the "wgmma" route (``gqa_route(..., lse=True)``):
+    attention_wgmma.cu's kGqa forward with lse over contiguous copies of q,
+    k, v whose head axis ``pad_head`` widens to a multiple of 8, with the
+    logits scaled by 1/sqrt(d) of the unpadded d and the output sliced back
+    to d columns. A short query axis (Lq * rep <= GQA_DECODE_ROWS, a decode
+    body's shape) takes the first rows of one 128-row tile. fp32: gqa_f32
+    with lse. A row that sees no key gives 0 and -inf. int8 caches are not
+    trained; d > 128 raises."""
+    B, Lq, Hq, d = q.shape
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
-    return gqa_attention(q, k, v, causal_offset, kv_valid_start, lse=lse), lse
+    if gqa_route(q, k, v, False, lse=True) == "fp32":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        return gqa_attention(q, k, v, causal_offset, kv_valid_start, lse=lse), lse
+    if not (q.is_cuda and all(t.device == q.device for t in (k, v))):
+        raise ValueError("gqa kernel: q, k, v must be on one CUDA device")
+    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise TypeError(f"gqa kernel: the bf16 forward with lse takes bf16 k/v (an int8 cache "
+                        f"is not trained), got {k.dtype}/{v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != d or Hq % k.shape[2] or not 0 < d <= 128 or k.shape[1] == 0:
+        raise ValueError(f"gqa kernel: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree "
+                         "(Hq % Hkv == 0, 0 < d <= 128)")
+    if causal_offset is not None and causal_offset < 0:
+        raise ValueError(f"gqa kernel: causal_offset must be >= 0, got {causal_offset}")
+    dp = gqa_train_width(d)
+    qp, kp, vp = (pad_head(t, dp) for t in (q, k, v))
+    start = _gqa_train_start(kv_valid_start, B, q.device)
+    out = torch.empty((B, Lq, Hq, dp), dtype=q.dtype, device=q.device)
+    words = _map_words(zip((qp, kp, vp), WGMMA_FWD_BOX_ROWS))
+    _check(library().gen3c_gqa_attention_wgmma(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), words, out.data_ptr(),
+        None if start is None else start.data_ptr(), B, Lq, k.shape[1], Hq, k.shape[2], dp,
+        -1 if causal_offset is None else int(causal_offset), 1.0 / math.sqrt(d),
+        lse.data_ptr(), _stream(q)), "gqa_attention_wgmma")
+    return (out if dp == d else out[..., :d]), lse
 
 
 def gqa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -1246,13 +1307,17 @@ def gqa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: to
     """K8bwd: (dq, dk, dv) like (q, k, v) of K8's attention from the
     forward's out and lse (``gqa_attention_fwd_lse``) and the upstream
     gradient dout (like out), dk and dv summed over each KV head's query
-    heads in the kernel. bf16 (d a multiple of 8): attention_wgmma.cu's
-    backward pair in its kGqa mode (gen3c_gqa_attention_wgmma_bwd, TMA +
-    wgmma; the dK/dV grid split by ``gqa_bwd_plan``, its fp32 partial sums
-    in a workspace made here), counted in ``route_counts["wgmma"]``; fp32:
+    heads in the kernel. bf16, at every shape the forward takes:
+    attention_wgmma.cu's backward pair in its kGqa mode
+    (gen3c_gqa_attention_wgmma_bwd, TMA + wgmma; the dK/dV grid split by
+    ``gqa_bwd_plan``, its fp32 partial sums in a workspace made here),
+    counted in ``route_counts["wgmma"]``, over copies of q, k, v, out and
+    dout whose head axis ``pad_head`` widens to a multiple of 8 (the logits
+    scaled by 1/sqrt(d) of the unpadded d; dq, dk, dv sliced back to d); a
+    short query axis covers the first rows of its tiles. fp32:
     gen3c_gqa_attention_bwd (the CUDA cores). Every operand is made
     contiguous, and a bf16 one a TMA map cannot describe (off 16-byte
-    alignment) is copied. Raises for anything else."""
+    alignment) is copied. Raises for anything else (d > 128)."""
     if not (q.is_cuda and all(t.device == q.device for t in (k, v, out, dout, lse))):
         raise ValueError("gqa backward: every tensor must be on one CUDA device")
     if q.dtype not in (torch.bfloat16, torch.float32) or not all(
@@ -1276,16 +1341,14 @@ def gqa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: to
     if causal_offset is not None and causal_offset < 0:
         raise ValueError(f"gqa backward: causal_offset must be >= 0, got {causal_offset}")
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and D % 8:
-        raise ValueError(f"gqa backward: bf16 takes d % 8 == 0 (TMA rows of 16 bytes), got {D}")
-    q, k, v, out, dout, lse = (t.contiguous() for t in (q, k, v, out, dout, lse))
+    d = D
+    lse = lse.contiguous()
     if bf16:
-        q, k, v, out, dout = (t if tma_describable(t) else t.clone() for t in (q, k, v, out, dout))
-    start = None
-    if kv_valid_start is not None:
-        if kv_valid_start.shape != (B,) or kv_valid_start.device != q.device:
-            raise ValueError(f"gqa backward: kv_valid_start must be ({B},) on the card")
-        start = kv_valid_start.to(torch.int64).contiguous()
+        D = gqa_train_width(d)
+        q, k, v, out, dout = (pad_head(t, D) for t in (q, k, v, out, dout))
+    else:
+        q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    start = _gqa_train_start(kv_valid_start, B, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
     causal = -1 if causal_offset is None else int(causal_offset)
@@ -1304,6 +1367,8 @@ def gqa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: to
     _check(library().gen3c_gqa_attention_wgmma_bwd(
         *ptrs, words, lse.data_ptr(), sp, delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), None if ws is None else ws.data_ptr(), B, Lq, Lk, Hq, Hkv, D, causal,
-        splits, _stream(q)), "gqa_attention_wgmma_bwd")
+        1.0 / math.sqrt(d), splits, _stream(q)), "gqa_attention_wgmma_bwd")
     _count_route("wgmma")
+    if D != d:
+        dq, dk, dv = (t[..., :d] for t in (dq, dk, dv))
     return dq, dk, dv

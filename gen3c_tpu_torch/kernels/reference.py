@@ -656,7 +656,8 @@ def gqa_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             causal_offset: Optional[int] = None,
                             kv_valid_start: Optional[torch.Tensor] = None,
                             k_scale: Optional[torch.Tensor] = None,
-                            v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            v_scale: Optional[torch.Tensor] = None,
+                            scale: Optional[float] = None) -> torch.Tensor:
     """Grouped-query attention over a KV cache, K8's plain version
     (ar_transformer.py ``_gqa_attention``, :252-297, line for line).
 
@@ -668,7 +669,8 @@ def gqa_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masked keys (a row that sees no key averages every key). int8 mode:
     k/v hold int8 codes, k_scale/v_scale (B, Lk, Hkv, 1) fp32 multiply
     logit column j and probability column j before P V. The output is in
-    q's dtype."""
+    q's dtype. scale replaces 1/sqrt(d) (the unpadded width's, for inputs
+    that ``cuda.pad_head`` widened)."""
     B, Lq, Hq, d = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     rep = Hq // Hkv
@@ -679,7 +681,7 @@ def gqa_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if v_scale is not None:
         v = v.to(q.dtype)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-    logits = logits * (1.0 / math.sqrt(d))
+    logits = logits * (1.0 / math.sqrt(d) if scale is None else scale)
     if k_scale is not None:
         ks = k_scale.repeat_interleave(rep, dim=2)  # (B, Lk, Hq, 1)
         logits = logits * ks[..., 0].transpose(1, 2)[:, :, None, :]
@@ -703,9 +705,11 @@ def gqa_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def gqa_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      dout: torch.Tensor, causal_offset: Optional[int] = None,
-                                     kv_valid_start: Optional[torch.Tensor] = None
+                                     kv_valid_start: Optional[torch.Tensor] = None,
+                                     scale: Optional[float] = None
                                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of ``gqa_attention_reference`` (no int8 scales) at the
+    """(dq, dk, dv) of ``gqa_attention_reference`` (no int8 scales; scale
+    as there) at the
     upstream gradient dout, K8bwd's plain version: the gradient
     ``jax.grad`` takes of ar_transformer.py's ``_gqa_attention`` (:252-297),
     formed in fp32 and cast to the inputs' dtypes.
@@ -720,7 +724,7 @@ def gqa_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.
     B, Lq, Hq, d = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     rep = Hq // Hkv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
     kr = kf.repeat_interleave(rep, dim=2)
     vr = vf.repeat_interleave(rep, dim=2)

@@ -41,6 +41,7 @@ tensor-parallel shards and join them again (checkpoint format only).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Iterable, Mapping, Optional
 
 import torch
@@ -337,7 +338,8 @@ def merge_ar_tp_state_dicts(shards: list, n_heads: int, n_kv_heads: int, dim: in
     """The inverse of ``shard_ar_tp_state_dict`` (convert.py:377-434):
     head-major concatenation for q / k / v, column or row concatenation for
     the rest, replicated tensors averaged after a closeness check against
-    the mean (atol 5e-2, rtol 0.1; a mismatch raises)."""
+    the mean (atol 5e-2, rtol 0.1; a mismatch raises). The mean is numpy's
+    over the stacked shards: summed shard after shard, then divided."""
     tp = len(shards)
     head_dim = dim // n_heads if head_dim is None else head_dim
     n_local_heads, n_local_kv = n_heads // tp, n_kv_heads // tp
@@ -365,7 +367,7 @@ def merge_ar_tp_state_dicts(shards: list, n_heads: int, n_kv_heads: int, dim: in
               or "cross_attention.wo.weight" in key):
             merged[full_key] = torch.cat(vals, dim=1)
         else:
-            avg = torch.stack(vals).mean(dim=0)
+            avg = functools.reduce(torch.add, vals) / tp
             if not torch.allclose(vals[0], avg, atol=5e-2, rtol=0.1):
                 raise ValueError(f"replicated tensor {full_key} differs across shards")
             if "norm" not in key and vals[0].ndim > 1:

@@ -541,7 +541,8 @@ class GeneralDIT(nn.Module):
                 padding_mask: Optional[torch.Tensor] = None,
                 remat: bool = False, cp: Optional[Axis] = None,
                 span_delta: Optional[SpanDelta] = None, return_span_delta: bool = False,
-                return_block_residuals: bool = False, action: Optional[torch.Tensor] = None):
+                return_block_residuals: bool = False, action: Optional[torch.Tensor] = None,
+                cp_attn_impl: Optional[str] = None):
         """remat=True recomputes each block's activations in the backward
         instead of keeping them (``torch.utils.checkpoint``, non-reentrant:
         dit.py's ``jax.checkpoint(block_step)``, :1040-1045). Serving calls
@@ -552,7 +553,11 @@ class GeneralDIT(nn.Module):
         cp: the context-parallel axis (size > 1). x is then this rank's
         contiguous latent-T shard; the RoPE table and the extra position
         embedding are built for the T * cp frames and sliced to it
-        (dit.py:929-946), and self-attention runs ``cfg.cp_attn_impl``.
+        (dit.py:929-946), and self-attention runs ``cfg.cp_attn_impl``, or
+        ``cp_attn_impl`` when given (the training step's "ulysses"). With a
+        gradient tracked, the strategy's collectives carry it back
+        (``parallel.collectives``): K1cp's forward with lse and K4 run on
+        each rank's H/cp heads of the whole sequence.
 
         Span caching (``cfg.cache_block_span`` = (lo, hi), dit.py:1048-1118):
         return_span_delta=True also returns what the span's blocks added to
@@ -588,7 +593,7 @@ class GeneralDIT(nn.Module):
 
         emb, lora = self.time_embedding(timesteps, action)
         ctx = crossattn_emb.to(dtype)
-        impl = cfg.cp_attn_impl
+        impl = cfg.cp_attn_impl if cp_attn_impl is None else cp_attn_impl
         span = cfg.cache_block_span
         if (span_delta is not None or return_span_delta) and span is None:
             raise ValueError("span_delta/return_span_delta need cfg.cache_block_span")

@@ -12,6 +12,7 @@ quantization of its activations.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -106,6 +107,42 @@ def quantize_dit_(net: nn.Module, act_quant: bool = False, structure_only: bool 
         setattr(parent, attr, q)
         del lin
     return net
+
+
+@torch.no_grad()
+def quantize_dit_tree(tree, act_quant: bool = False, device="cpu"):
+    """gen3c_tpu's ``quantize_dit_params_numpy`` (quantize.py:217-246) on a
+    DiT tree in the JAX package's layout (nested dicts and lists whose
+    leaves are numpy arrays or tensors: ``utils.checkpoint.
+    load_params_npz_tree``, ``models.convert.convert_dit_state_dict``):
+    every {"w"} entry of a 2-d (in, out) weight with >= _MIN_SIZE
+    elements becomes {"q" | "q8" (act_quant): int8
+    codes (in, out), "scale": fp32 (1, out)} as CPU tensors, computed on
+    ``device`` one weight at a time; everything else is returned as it is.
+
+    The JAX function is numpy on the host: scale = max(absmax / 127.0,
+    1e-12) and codes = clip(round(w / scale), -127, 127), both true fp32
+    divisions, where the jitted quantizers (and ``quantize_linear``, K7q)
+    multiply by the fp32 reciprocal of 127. The files it writes are held
+    here bit for bit, so this twin divides too: the same file from the
+    same weights, on any device (IEEE division, round half to even)."""
+    key = "q8" if act_quant else "q"
+
+    def visit(node):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if len(node) == 1 and w is not None and getattr(w, "ndim", 0) == 2 \
+                    and math.prod(w.shape) >= _MIN_SIZE:
+                wf = torch.as_tensor(w).to(device=device, dtype=torch.float32)
+                scale = (wf.abs().amax(dim=0, keepdim=True) / 127.0).clamp_min(1e-12)
+                codes = torch.round(wf / scale).clamp_(-127, 127).to(torch.int8)
+                return {key: codes.cpu(), "scale": scale.cpu()}
+            return {k: visit(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v) for v in node]
+        return node
+
+    return visit(tree)
 
 
 class QuantEmbedding(nn.Module):

@@ -14,6 +14,15 @@ collectives gen3c_tpu uses inside its shard_map):
                                ``pmean``, diffusion/sampler.py:81-82,
                                390-398, 691-692)
 
+Each one is differentiable where a gradient is tracked (grad mode on and
+the input requiring grad): a ``torch.autograd.Function`` whose backward
+is its adjoint, the collective that carries the cotangents back:
+seq_to_heads and heads_to_seq are each other's, all_gather's is the
+reduce-scatter (``reduce_scatter``: all-to-all, then the sum in rank
+order), all_reduce's is itself (each rank's cotangent of its copy of the
+sum, summed; a mean divides by the axis size). A training step under
+context parallelism differentiates its Ulysses attention through them.
+
 On NCCL they take CUDA tensors directly. On gloo, which the caller chooses
 for CPU tensors, or for CUDA tensors when the ranks share one card (NCCL
 refuses two ranks of a communicator on one GPU), an op that gloo does not
@@ -92,12 +101,64 @@ def _all_to_all(send: torch.Tensor, axis: Axis) -> torch.Tensor:
     return recv
 
 
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _SeqToHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _seq_to_heads(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _heads_to_seq(g, ctx.axis), None
+
+
+class _HeadsToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _heads_to_seq(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_to_heads(g, ctx.axis), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.axis), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, op):
+        ctx.axis, ctx.op = axis, op
+        return _all_reduce(x, axis, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis, ctx.op), None, None
+
+
 def seq_to_heads(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """(B, L/n, H, D) sequence shard -> (B, L, H/n, D) head shard: rank r
     gets heads [r H/n, (r+1) H/n) of every rank's positions, in rank order
     (``jax.lax.all_to_all(split_axis=2, concat_axis=1, tiled=True)``). The
     result is a view of the receive buffer, (n, L/n, B, H/n, D) in memory:
-    one sequence stride of B H/n D elements."""
+    one sequence stride of B H/n D elements. Its adjoint is heads_to_seq."""
+    return _SeqToHeads.apply(x, axis) if _tracked(x) else _seq_to_heads(x, axis)
+
+
+def _seq_to_heads(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     B, Lloc, H, D = x.shape
     n = axis.size
     if H % n:
@@ -109,7 +170,12 @@ def seq_to_heads(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 def heads_to_seq(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """The inverse of ``seq_to_heads``: (B, L, H/n, D) -> (B, L/n, H, D),
-    contiguous (``jax.lax.all_to_all(split_axis=1, concat_axis=2)``)."""
+    contiguous (``jax.lax.all_to_all(split_axis=1, concat_axis=2)``). Its
+    adjoint is seq_to_heads."""
+    return _HeadsToSeq.apply(x, axis) if _tracked(x) else _heads_to_seq(x, axis)
+
+
+def _heads_to_seq(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     B, L, Hc, D = x.shape
     n = axis.size
     send = x.reshape(B, n, L // n, Hc, D).permute(1, 2, 0, 3, 4).contiguous()
@@ -121,7 +187,11 @@ def all_gather(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
     """The shards of every rank concatenated along ``dim`` in rank order
     (``jax.lax.all_gather(axis=dim, tiled=True)``). A view of the receive
     buffer, (n, shard length, the other dims) in memory: ``dim`` keeps a
-    single stride."""
+    single stride. Its adjoint is ``reduce_scatter``."""
+    return _AllGather.apply(x, dim, axis) if _tracked(x) else _all_gather(x, dim, axis)
+
+
+def _all_gather(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
     n = axis.size
     t0 = time.perf_counter()
     send = x.movedim(dim, 0).contiguous()
@@ -133,6 +203,25 @@ def all_gather(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
         out = out.to(x.device)
     _record("all_gather", _nbytes(send) * (n - 1), t0)
     return out.view((n * send.shape[0],) + tuple(send.shape[1:])).movedim(0, dim)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
+    """Rank r's shard of the sum over the axis of x (every rank's full
+    length along ``dim``): chunk r of each rank's x, summed in rank order
+    (``jax.lax.psum_scatter(scatter_dimension=dim, tiled=True)``), through
+    one all-to-all (gloo has no reduce-scatter). The adjoint of
+    ``all_gather``; counted under "all_to_all"."""
+    n = axis.size
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: {x.shape[dim]} along dim {dim} does not split "
+                         f"{n} ways")
+    send = x.movedim(dim, 0)
+    send = send.reshape((n, send.shape[0] // n) + tuple(send.shape[1:])).contiguous()
+    recv = _all_to_all(send, axis)  # (source rank, shard, the other dims)
+    out = recv[0].clone()
+    for part in recv[1:]:
+        out += part
+    return out.movedim(0, dim)
 
 
 def ring_shift(tensors: List[torch.Tensor], axis: Axis) -> List[torch.Tensor]:
@@ -157,7 +246,13 @@ def ring_shift(tensors: List[torch.Tensor], axis: Axis) -> List[torch.Tensor]:
 
 
 def all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:
-    """The sum (or mean) of x over the axis, a new tensor on x's device."""
+    """The sum (or mean) of x over the axis, a new tensor on x's device. Its
+    adjoint is itself: each rank's cotangent of its copy, summed (or
+    averaged)."""
+    return _AllReduce.apply(x, axis, op) if _tracked(x) else _all_reduce(x, axis, op)
+
+
+def _all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:
     if op not in ("sum", "mean"):
         raise ValueError(f"all_reduce takes 'sum' or 'mean', not {op!r}")
     t0 = time.perf_counter()

@@ -11,7 +11,7 @@ the samples on T (cat_outputs_cp), so that every rank returns the whole
 latent. With the net's ``cache_block_span`` and step_cache_interval > 1 the
 sampler carries each rank's shard of the span delta. The JAX package's
 tensor- and sequence-parallel span variants (cp.py:64-91) wait for
-tensor parallelism (ROADMAP item 15).
+tensor parallelism (ROADMAP item 15b).
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ Over several devices (``num_devices`` > 1, one process per rank as
 (the CFG pair split over 2 ranks) or "cfg2cpN" (both, on 2N ranks), with
 ``cp_attn`` choosing the self-attention strategy (gen3c_tpu/pipelines/
 factory.py:138-157, 374-453). Tensor parallelism ("tp", "cpNtpM[sp]",
-"cfg2...tpM") is not ported (ROADMAP item 15).
+"cfg2...tpM") is not ported (ROADMAP item 15b).
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ def parse_parallel(parallel: str) -> Tuple[int, Optional[int]]:
     if parallel == "tp" or cp_tp or (cfg and cfg.group(2)):
         raise NotImplementedError(
             f"--parallel {parallel}: tensor and sequence parallelism are not ported to "
-            f"gen3c_tpu_torch yet ({mesh.ITEM_15})")
+            f"gen3c_tpu_torch yet ({mesh.ITEM_15B})")
     if cfg:
         return 2, int(cfg.group(1) or 1)
     return 1, None

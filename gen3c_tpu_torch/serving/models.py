@@ -149,7 +149,7 @@ class Gen3cPersistentModel(InferenceModel):
 
     ``num_devices`` > 1 raises NotImplementedError: the port's context
     parallelism runs one process per rank, and a server process driving
-    several cards is not ported (ROADMAP item 15). ``offload_dit`` is
+    several cards is not ported (ROADMAP item 15d). ``offload_dit`` is
     accepted and logs that the DiT stays on the device, as the CLIs'
     offload flags do. ``quantize`` ("int8", "w8a8") and
     ``attn_temporal_window`` build the DiT as the CLIs do.
@@ -175,7 +175,7 @@ class Gen3cPersistentModel(InferenceModel):
         cfg_rescale: float = 0.0,
         device="cuda",
     ):
-        from gen3c_tpu_torch.parallel.mesh import ITEM_15
+        from gen3c_tpu_torch.parallel.mesh import ITEM_15D
         from gen3c_tpu_torch.pipelines.depth import make_depth_estimator
         from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
         from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
@@ -183,7 +183,7 @@ class Gen3cPersistentModel(InferenceModel):
         if num_devices > 1:
             raise NotImplementedError(
                 f"num_devices={num_devices}: a server process over several devices is not "
-                f"ported to gen3c_tpu_torch yet ({ITEM_15})")
+                f"ported to gen3c_tpu_torch yet ({ITEM_15D})")
         if offload_dit:
             log.info("offload_dit: ignored, the DiT stays on the device (offload is not ported)")
         t0 = time.perf_counter()

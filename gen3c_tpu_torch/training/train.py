@@ -1,8 +1,12 @@
-"""Training CLI (port of gen3c_tpu/training/train.py) on one device.
+"""Training CLI (port of gen3c_tpu/training/train.py) on one device or a
+(dp, cp) mesh of ranks.
 
     python -m gen3c_tpu_torch.training.train --synthetic --remat \\
         experiment=gen3c_tiny trainer.max_iter=4 trainer.save_every=2 \\
         trainer.warmup_steps=1 trainer.job_dir=runs/tiny
+
+    torchrun --nproc_per_node 4 -m gen3c_tpu_torch.training.train --synthetic \\
+        --dp 2 --cp 2 --batch_size 2 experiment=gen3c_tiny trainer.max_iter=4 ...
 
 ``experiment=`` picks a preset (any name of ``utils.registry.experiments``:
 gen3c_tiny, gen3c_7b, GEN3C_Cosmos_7B, the Cosmos text2world and multiview
@@ -12,8 +16,15 @@ GeneralDIT, a MultiviewGeneralDIT or an ActionDiT by the preset's config),
 preset (``dit.num_blocks=12``, ``dit.attn_temporal_window=2`` for band
 attention). The DiT gets seeded random weights on ``--device``: ``cuda``
 unless the caller passes another (the tests pass ``cpu``). Running again
-with the same job_dir resumes from its latest checkpoint. The JAX CLI's
-mesh flags are accepted and refused above one device. The data is
+with the same job_dir resumes from its latest checkpoint. Under torchrun
+each process is a rank of a (dp, cp) mesh (``--dp``, ``--cp``; cp by
+default every rank dp leaves, as gen3c_tpu's ``make_mesh``; the batch
+splits over dp, the latent frames over cp, and ``--batch_size`` must
+divide by dp): every rank builds the same net and the same global batches,
+and ``train_step.make_sharded_train_step`` takes its slice. The ranks join
+over NCCL on ``cuda:$LOCAL_RANK`` (one rank a card) or gloo on the CPU.
+``--tp``, ``--fsdp`` and
+``--sequence_parallel`` raise (ROADMAP item 15b, 15c). The data is
 ``--synthetic`` latents or ``--data_root``, a directory of packaged RGBD
 clips (``datasets.Gen3CClipDataset``): the preset's GEN3C model is built
 on the device, and its DiT is the one trained (one DiT, not two) while its
@@ -35,6 +46,8 @@ import numpy as np
 from gen3c_tpu_torch.models.dit import DiTConfig, GeneralDIT
 from gen3c_tpu_torch.models.dit_action import ActionDiT, ActionDiTConfig
 from gen3c_tpu_torch.models.dit_multiview import MultiviewDiTConfig, MultiviewGeneralDIT
+from gen3c_tpu_torch.parallel import mesh
+from gen3c_tpu_torch.pipelines.factory import resolve_device
 from gen3c_tpu_torch.training.trainer import Trainer, TrainerConfig, synthetic_latent_dataset
 from gen3c_tpu_torch.utils import log, registry
 
@@ -79,14 +92,22 @@ def main(argv=None) -> Optional[Trainer]:
                    help="Kendall uncertainty loss with a learned per-sigma logvar head")
     p.add_argument("--text_dropout_rate", type=float, default=0.0)
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device (default cuda; pass cpu to train on the CPU)")
+                   help="torch device (default cuda: cuda:$LOCAL_RANK under torchrun; pass "
+                        "cpu to train on the CPU)")
     args = p.parse_args(flags)
-    if args.dp > 1 or (args.cp or 1) > 1 or args.tp > 1 or args.fsdp or args.sequence_parallel:
-        raise NotImplementedError("dp/cp/tp meshes, FSDP and sequence parallelism are not "
-                                  "ported (ROADMAP Queue 1 item 15): train on one device")
+    if args.tp > 1 or args.sequence_parallel:
+        raise NotImplementedError(f"tensor and sequence parallelism are not ported "
+                                  f"({mesh.ITEM_15B})")
+    if args.fsdp:
+        raise NotImplementedError(f"FSDP is not ported ({mesh.ITEM_15C})")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device here "
                            "(pass --device cpu to train on the CPU)")
+    if args.batch_size % args.dp:
+        raise SystemExit(f"--batch_size {args.batch_size} must be divisible by --dp {args.dp}")
+    device = resolve_device(args.device)
+    mesh.maybe_distributed_init(None, device)
+    groups = mesh.make_groups(dp=args.dp, cp=args.cp)
 
     exp_name = "gen3c_tiny"
     t_cfg = TrainerConfig()
@@ -106,25 +127,26 @@ def main(argv=None) -> Optional[Trainer]:
     if args.text_dropout_rate:
         t_cfg = registry.apply_overrides(t_cfg, [f"text_dropout_rate={args.text_dropout_rate}"])
 
-    log.info(f"experiment={exp_name} device={args.device}")
+    log.info(f"experiment={exp_name} device={device} mesh dp={groups.dp.size} "
+             f"cp={groups.cp.size}")
     if args.data_root:
         from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
         from gen3c_tpu_torch.training.datasets import Gen3CClipDataset
 
         # the net build_net would draw: build_gen3c_model seeds its generator
         # the same way and draws the DiT first
-        model, _ = build_gen3c_model(preset, device=args.device, seed=t_cfg.seed)
+        model, _ = build_gen3c_model(preset, device=device, seed=t_cfg.seed)
         net = model.net
         data = iter(Gen3CClipDataset(args.data_root, model, args.batch_size))
     else:
-        net = build_net(preset.dit, args.device, t_cfg.seed)
+        net = build_net(preset.dit, device, t_cfg.seed)
         C, T, Hl, Wl = preset.state_shape
         data = synthetic_latent_dataset(args.batch_size, C, T, Hl, Wl,
                                         extra_channels=preset.dit.in_channels - C,
                                         ctx_len=16 * getattr(preset.dit, "n_views", 1))
         if isinstance(preset.dit, ActionDiTConfig):
             data = with_actions(data, args.batch_size, preset.dit.action_dim)
-    trainer = Trainer(t_cfg, preset.dit, net)
+    trainer = Trainer(t_cfg, preset.dit, net, groups=groups)
     state = trainer.train(data)
     log.info(f"training done at step {state.step}")
     return trainer

@@ -1,15 +1,27 @@
-"""One training step on one device: EDM loss, grads, clip, AdamW, EMA.
+"""One training step: EDM loss, grads, clip, AdamW, EMA, on one device or
+over data- and context-parallel ranks.
 
 Port of gen3c_tpu/training/train_step.py (``make_optimizer``,
-``TrainState``, ``init_train_state``, ``train_step``) for a single device:
-the optax chain clip_by_global_norm -> adamw(linear warmup) [->
-MultiSteps] written out over a dict of parameters, and the state updated
-in place (the JAX step is pure and donates its state; here the parameters,
-moments and EMA are overwritten, which keeps one copy of each on the card).
-The net is a GeneralDIT, an ActionDiT (the batch's "action" goes into its
-forward) or a MultiviewGeneralDIT (fps 24, the condition indicator
-repeated per view), as ``_net`` picks in gen3c_tpu (:76-93). Sequence
-parallelism is not ported.
+``TrainState``, ``init_train_state``, ``train_step``,
+``make_sharded_train_step``): the optax chain clip_by_global_norm ->
+adamw(linear warmup) [-> MultiSteps] written out over a dict of
+parameters, and the state updated in place (the JAX step is pure and
+donates its state; here the parameters, moments and EMA are overwritten,
+which keeps one copy of each on the card). The net is a GeneralDIT, an
+ActionDiT (the batch's "action" goes into its forward) or a
+MultiviewGeneralDIT (fps 24, the condition indicator repeated per view),
+as ``_net`` picks in gen3c_tpu (:76-93).
+
+Over a (dp, cp) mesh (``parallel.mesh.make_groups``; one process a rank,
+each holding the whole state) the step is the one-device step of the
+global batch: every rank draws the global draws from the same generator
+and takes its slice of them and of the batch (B on dp; latent T of x0,
+extra_channels and loss_mask on cp; an image batch is not split on cp, its
+cp ranks repeat it), the DiT runs Ulysses self-attention across the cp
+ranks, each rank's loss is its share of the global loss, and the loss and
+gradients are summed over every rank before the clip, so that AdamW and
+the EMA take the same step on every rank. Tensor and sequence parallelism
+(ROADMAP item 15b) and FSDP (15c) are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +36,8 @@ import torch.nn as nn
 from gen3c_tpu_torch.diffusion.scheduler import EDMEulerSchedule
 from gen3c_tpu_torch.models.dit import DiTConfig
 from gen3c_tpu_torch.models.dit_multiview import MultiviewDiTConfig
+from gen3c_tpu_torch.parallel import collectives
+from gen3c_tpu_torch.parallel.mesh import ITEM_15B, ITEM_15C, Groups
 from gen3c_tpu_torch.training.ema import ema_update, power_ema_beta
 from gen3c_tpu_torch.training.losses import (
     LogvarHead,
@@ -260,9 +274,10 @@ def train_step(state: TrainState, batch: dict, rng: Optional[torch.Generator],
                cfg: DiTConfig, optimizer: Optimizer, schedule: EDMEulerSchedule = EDMEulerSchedule(),
                **options) -> Tuple[TrainState, dict]:
     """One optimizer step (gen3c_tpu's ``train_step``; see its docstring for
-    the batch keys, and ``loss_and_grads`` for the options). The state is
-    updated in place and returned. metrics: loss, grad_norm (before the
-    clip), sigma_mean, as 0-d tensors on the parameters' device."""
+    the batch keys, and ``loss_and_grads`` for the options, ``groups``
+    among them). The state is updated in place and returned. metrics: loss,
+    grad_norm (before the clip), sigma_mean, as 0-d tensors on the
+    parameters' device; under a mesh the global batch's, on every rank."""
     loss, grads, sigma = loss_and_grads(state.params, batch, rng, cfg, schedule, **options)
     params = state.named_params()
     grad_norm = global_norm(grads)
@@ -295,6 +310,7 @@ def loss_and_grads(
     compute_loss_for_condition_region: bool = False,
     data_type: str = "video",
     draws: Optional[StepDraws] = None,
+    groups: Optional[Groups] = None,
 ) -> Tuple[torch.Tensor, Tensors, torch.Tensor]:
     """The EDM loss of ``params`` (the module train_step trains) on one
     batch and its gradient by parameter name: (loss, grads, sigma).
@@ -308,9 +324,14 @@ def loss_and_grads(
     or (B, T_act, 7) conditions an ActionDiT; a MultiviewDiTConfig runs the
     multiview forward (remat per block, where gen3c_tpu remats the whole
     net: the same arithmetic).
+
+    groups: this rank's (dp, cp) mesh (``make_sharded_train_step``). The
+    batch and the draws are then the global ones, sliced here
+    (``shard_step_inputs``); the loss, the gradients and the returned
+    sigma are the global batch's, equal on every rank.
     """
     if sp_sharding is not None:
-        raise NotImplementedError("sequence parallelism is not ported (ROADMAP Queue 1 item 15)")
+        raise NotImplementedError(f"sequence parallelism is not ported ({ITEM_15B})")
     multiview = isinstance(cfg, MultiviewDiTConfig)
     if multiview and batch.get("action") is not None:
         raise ValueError("action conditioning is for the single-stream DiT only, not multiview")
@@ -328,6 +349,16 @@ def loss_and_grads(
                           text_dropout_rate, video_cond_dropout_rate, condition_location,
                           first_random_n_min, first_random_n_max, random_condition_rate,
                           cfg.n_views if multiview else 1)
+    global_sigma = draws.sigma.to(dev, torch.float32)
+    cp = None
+    share = 1.0
+    if groups is not None and groups.parallel:
+        batch, draws, cp, share = shard_step_inputs(batch, draws, groups, cfg, data_type,
+                                                    loss_reduce)
+        x0 = batch["x0"]
+        if data_type == "image" and x0.ndim == 4:
+            x0 = x0[:, :, None]
+        B = x0.shape[0]
     sigma = draws.sigma.to(dev, torch.float32)
     noise = draws.noise.to(dev, torch.float32)
     crossattn_emb = batch["crossattn_emb"]
@@ -356,6 +387,8 @@ def loss_and_grads(
 
     net = params.net if loss_add_logvar else params
     kw = {} if multiview else {"action": batch.get("action")}
+    if cp is not None:
+        kw.update(cp=cp, cp_attn_impl="ulysses")
 
     def net_fn(x_in, c_noise, ctx):
         return net(x_in, c_noise, ctx, fps=24.0, remat=remat, **kw)
@@ -370,7 +403,146 @@ def loss_and_grads(
             condition_video_indicator=indicator, augment_sigma=augment_sigma,
             augment_noise=augment_noise, video_cond_keep=video_keep,
             compute_loss_for_condition_region=compute_loss_for_condition_region)
+        if share != 1.0:
+            loss = loss * share
         grad_list = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(named.items(), grad_list)}
-    return loss.detach(), grads, sigma
+    loss = loss.detach()
+    if groups is not None and groups.parallel:
+        loss = collectives.all_reduce(loss, groups.world)
+        all_reduce_grads(grads, groups)
+    return loss, grads, global_sigma
+
+
+def shard_step_inputs(batch: dict, draws: StepDraws, groups: Groups, cfg: DiTConfig,
+                      data_type: str, loss_reduce: str = "mean"
+                      ) -> Tuple[dict, StepDraws, Optional[Any], float]:
+    """This rank's slice of a global batch and of its global draws, as
+    gen3c_tpu's ``make_sharded_train_step`` shards them (:315-330): every
+    batch tensor on dp along B (x0, crossattn_emb, extra_channels,
+    loss_mask, weights_per_sample, action, a given condition indicator);
+    a video batch's x0, extra_channels, loss_mask and indicator on cp
+    along latent T, with the draws of the same shapes (noise, augment
+    noise, the indicator) cut the same way. An image batch (T = 1) is not
+    split on cp: its cp ranks repeat it (gen3c_tpu :315-321). The shards
+    must be equal (B % dp == 0, T % cp == 0).
+
+    Returns (batch, draws, the cp axis for the DiT or None, share): the
+    factor that makes this rank's loss its part of the global loss, so
+    that the sum over the ranks is the one-device loss: 1 / (dp cp) of its
+    local mean, and for loss_reduce "sum" (whose local loss counts only
+    its own elements) cp times more for a split video batch."""
+    dp, cp = groups.dp, groups.cp
+    video = data_type != "image"
+    x0 = batch["x0"]
+    B = x0.shape[0]
+    if B % dp.size:
+        raise ValueError(f"the batch of {B} does not split over dp={dp.size}")
+    if isinstance(cfg, MultiviewDiTConfig) and cp.size > 1:
+        raise NotImplementedError(f"context parallelism for the multiview net is not ported "
+                                  f"(ROADMAP item 15a covers the single-stream nets)")
+    split_t = video and cp.size > 1
+    if split_t:
+        if cfg.attn_temporal_window is not None:
+            raise ValueError("attn_temporal_window training requires cp=1 (the banded splash "
+                             "kernel cannot partition the token axis; use dp/tp)")
+        if cfg.num_heads % cp.size:
+            raise ValueError(f"Ulysses needs the heads ({cfg.num_heads}) to divide the cp "
+                             f"size ({cp.size})")
+        if x0.shape[2] % cp.size:
+            raise ValueError(f"latent T = {x0.shape[2]} does not split over cp={cp.size}")
+    nb = B // dp.size
+    b = slice(dp.rank * nb, (dp.rank + 1) * nb)
+
+    def on_t(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """B on dp, and dim 2 (latent T) on cp for a split video batch."""
+        if t is None:
+            return None
+        t = t[b] if t.shape[0] == B else t
+        if split_t and t.ndim >= 3 and t.shape[2] > 1:
+            nt = t.shape[2] // cp.size
+            t = t[:, :, cp.rank * nt:(cp.rank + 1) * nt]
+        return t
+
+    local = {}
+    for key, value in batch.items():
+        if not torch.is_tensor(value):
+            local[key] = value
+        elif key in ("x0", "extra_channels", "loss_mask", "condition_video_indicator"):
+            local[key] = on_t(value)
+        else:
+            local[key] = value[b] if value.ndim and value.shape[0] == B else value
+    d = StepDraws(sigma=draws.sigma[b], noise=on_t(draws.noise),
+                  keep_text=None if draws.keep_text is None else draws.keep_text[b],
+                  keep_vid=draws.keep_vid, indicator=on_t(draws.indicator),
+                  augment_sigma=None if draws.augment_sigma is None else draws.augment_sigma[b],
+                  augment_noise=on_t(draws.augment_noise))
+    share = 1.0 / (dp.size * cp.size)
+    if loss_reduce == "sum" and split_t:
+        share *= cp.size
+    return local, d, (cp if split_t else None), share
+
+
+GRAD_BUCKET_ELEMENTS = 1 << 26  # fp32 elements summed in one all-reduce (256 MiB)
+
+
+@torch.no_grad()
+def all_reduce_grads(grads: Tensors, groups: Groups) -> None:
+    """Sum each gradient over every rank of the mesh, in place: the
+    gradients in buckets of up to GRAD_BUCKET_ELEMENTS, each flattened to
+    fp32, summed in one all-reduce and written back in the gradients'
+    dtype (a bf16 gradient rounds once, after the sum)."""
+    names = list(grads)
+    i = 0
+    while i < len(names):
+        bucket, n = [], 0
+        while i < len(names) and (not bucket or n + grads[names[i]].numel()
+                                  <= GRAD_BUCKET_ELEMENTS):
+            bucket.append(names[i])
+            n += grads[names[i]].numel()
+            i += 1
+        flat = torch.cat([grads[k].reshape(-1).float() for k in bucket])
+        flat = collectives.all_reduce(flat, groups.world)
+        for k, part in zip(bucket, flat.split([grads[k].numel() for k in bucket])):
+            grads[k].copy_(part.view_as(grads[k]))
+        del flat
+
+
+def make_sharded_train_step(groups: Groups, cfg: DiTConfig, optimizer: Optimizer,
+                            remat: bool = False, fsdp_axis: Optional[str] = None,
+                            sequence_parallel: bool = False, loss_add_logvar: bool = False,
+                            text_dropout_rate: float = 0.0, video_cond_dropout_rate: float = 0.0,
+                            loss_reduce: str = "mean", loss_scale: float = 1.0,
+                            data_type: str = "video",
+                            schedule: EDMEulerSchedule = EDMEulerSchedule(), **loss_kwargs):
+    """The train step over this rank's (dp, cp) mesh (gen3c_tpu's
+    ``make_sharded_train_step``, :249-345): ``step(state, batch, rng,
+    draws=None) -> (state, metrics)`` with the global batch and the same
+    generator (or the same injected global draws) on every rank;
+    ``train_step`` with ``groups`` (see ``shard_step_inputs``). Self-
+    attention under cp runs Ulysses: the all-to-all turns the sequence
+    shard into H/cp heads of the whole sequence, K1cp's forward with lse and
+    K4 run there. gen3c_tpu's step leaves cp to GSPMD and reads no
+    ``cp_attn_impl``, so neither does this one. fsdp_axis (ROADMAP item 15c)
+    and sequence_parallel (15b) raise NotImplementedError; a band with cp >
+    1 raises as gen3c_tpu's does (:292-297)."""
+    if fsdp_axis is not None:
+        raise NotImplementedError(f"FSDP is not ported ({ITEM_15C})")
+    if sequence_parallel:
+        raise NotImplementedError(f"sequence parallelism is not ported ({ITEM_15B})")
+    if groups.cfg.size != 1:
+        raise ValueError("the train step's mesh has no cfg axis (cfg=1)")
+    if cfg.attn_temporal_window is not None and groups.cp.size > 1:
+        raise ValueError("attn_temporal_window training requires cp=1 (the banded splash "
+                         "kernel cannot partition the token axis; use dp/tp)")
+
+    def step(state: TrainState, batch: dict, rng: Optional[torch.Generator],
+             draws: Optional[StepDraws] = None) -> Tuple[TrainState, dict]:
+        return train_step(state, batch, rng, cfg, optimizer, schedule, remat=remat,
+                          loss_add_logvar=loss_add_logvar, text_dropout_rate=text_dropout_rate,
+                          video_cond_dropout_rate=video_cond_dropout_rate,
+                          loss_reduce=loss_reduce, loss_scale=loss_scale, data_type=data_type,
+                          draws=draws, groups=groups, **loss_kwargs)
+
+    return step

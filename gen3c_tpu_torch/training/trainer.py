@@ -1,13 +1,18 @@
-"""Training loop on one device: callbacks, async checkpoints, resume (port
-of gen3c_tpu/training/trainer.py).
+"""Training loop on one device or over a (dp, cp) mesh: callbacks, async
+checkpoints, resume (port of gen3c_tpu/training/trainer.py).
 
-The hooks (``training.callbacks``) fire in gen3c_tpu's order. dp/cp/tp
-meshes, FSDP and sequence parallelism are not ported.
+The hooks (``training.callbacks``) fire in gen3c_tpu's order. Over a mesh
+(``groups``, one process a rank) every rank feeds the same global batches
+and draws (``train_step.make_sharded_train_step`` slices them), takes the
+same optimizer step and restores the same checkpoint; only rank 0 writes
+the job's files (config.json, checkpoints). Tensor and sequence
+parallelism (ROADMAP item 15b) and FSDP (15c) are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 from typing import Callable, Iterable, Optional
@@ -17,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from gen3c_tpu_torch.models.dit import DiTConfig
+from gen3c_tpu_torch.parallel.mesh import ITEM_15B, ITEM_15C, Groups
 from gen3c_tpu_torch.training.callbacks import CallBackGroup, HangWatchdog, IterSpeed
 from gen3c_tpu_torch.training.checkpointing import Checkpointer
 from gen3c_tpu_torch.training.losses import LogvarHead
@@ -25,6 +31,7 @@ from gen3c_tpu_torch.training.train_step import (
     TrainState,
     init_train_state,
     make_optimizer,
+    make_sharded_train_step,
     train_step,
 )
 
@@ -45,8 +52,8 @@ class TrainerConfig:
     seed: int = 0
     grad_accum_steps: int = 1
     remat: bool = False  # rematerialize DiT blocks (activation checkpointing)
-    fsdp: bool = False  # not ported
-    sequence_parallel: bool = False  # not ported
+    fsdp: bool = False  # not ported (ROADMAP item 15c)
+    sequence_parallel: bool = False  # not ported (ROADMAP item 15b)
     step_timeout_s: float = 0.0  # SIGALRM watchdog per step; 0 = off
     prefetch_batches: int = 2  # background prefetch depth; 0 = synchronous
     loss_add_logvar: bool = False  # Kendall loss with a learned logvar head
@@ -69,18 +76,23 @@ class Trainer:
     train state lives on the net's device. Every tensor of a batch reaches
     ``train_step`` (gen3c_tpu shards "action" over dp beside the rest,
     trainer.py:118-125): an action experiment's "action" conditions its
-    net."""
+    net. groups: this rank's (dp, cp) mesh (``parallel.mesh.make_groups``;
+    None or a one-rank mesh: one device)."""
 
     def __init__(self, config: TrainerConfig, dit_cfg: DiTConfig, net: nn.Module,
-                 callbacks: Optional[CallBackGroup] = None):
-        if config.fsdp or config.sequence_parallel:
-            raise NotImplementedError("FSDP and sequence parallelism are not ported "
-                                      "(ROADMAP Queue 1 item 15)")
+                 callbacks: Optional[CallBackGroup] = None, groups: Optional[Groups] = None):
+        if config.fsdp:
+            raise NotImplementedError(f"FSDP is not ported ({ITEM_15C})")
+        if config.sequence_parallel:
+            raise NotImplementedError(f"sequence parallelism is not ported ({ITEM_15B})")
         self.config = config
         self.dit_cfg = dit_cfg
+        self.groups = groups if groups is not None and groups.parallel else None
+        self.writes = self.groups is None or self.groups.world.rank == 0
         os.makedirs(config.job_dir, exist_ok=True)
-        with open(os.path.join(config.job_dir, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(config), f, indent=2, default=str)
+        if self.writes:
+            with open(os.path.join(config.job_dir, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(config), f, indent=2, default=str)
         self.optimizer = make_optimizer(
             lr=config.lr, weight_decay=config.weight_decay, grad_clip=config.grad_clip,
             warmup_steps=config.warmup_steps, grad_accum_steps=config.grad_accum_steps)
@@ -96,6 +108,23 @@ class Trainer:
         if config.step_timeout_s > 0:
             self.callbacks.append(HangWatchdog(config.step_timeout_s))
         self._rng = torch.Generator().manual_seed(config.seed)
+        self._steps = {}
+
+    def _step_fn(self, data_type: str):
+        """The step of a batch kind: ``train_step`` on one device, else
+        ``make_sharded_train_step`` over the mesh (one a kind, as gen3c_tpu
+        builds its image leg)."""
+        if self.groups is None:
+            return functools.partial(train_step, cfg=self.dit_cfg, optimizer=self.optimizer,
+                                     **self._step_kwargs(data_type))
+        if data_type not in self._steps:
+            self._steps[data_type] = make_sharded_train_step(
+                self.groups, self.dit_cfg, self.optimizer, **self._step_kwargs(data_type))
+        return self._steps[data_type]
+
+    def _save(self, step: int) -> None:
+        if self.writes:
+            self.checkpointer.save(step, self.state.state_dict())
 
     def _step_kwargs(self, data_type: str) -> dict:
         c = self.config
@@ -136,7 +165,7 @@ class Trainer:
         finally:
             if prefetch is not None:
                 prefetch.close()
-        self.checkpointer.save(cfg.max_iter, self.state.state_dict())
+        self._save(cfg.max_iter)
         self.checkpointer.wait()
         self.callbacks.on_train_end(self)
         self.callbacks.on_app_end(self)
@@ -157,15 +186,14 @@ class Trainer:
             self.callbacks.on_before_forward(self, step)
             self.callbacks.on_before_backward(self, step)
             self.callbacks.on_before_optimizer_step(self, step)
-            self.state, metrics = train_step(self.state, batch, self._rng, self.dit_cfg,
-                                             self.optimizer, **self._step_kwargs(data_type))
+            self.state, metrics = self._step_fn(data_type)(self.state, batch, self._rng)
             self.callbacks.on_after_forward(self, step)
             self.callbacks.on_after_backward(self, step)
             self.callbacks.on_before_zero_grad(self, step)
             self.callbacks.on_training_step_end(self, step, metrics)
             if cfg.save_every and step % cfg.save_every == 0:
                 self.callbacks.on_save_checkpoint_start(self, step)
-                self.checkpointer.save(step, self.state.state_dict())
+                self._save(step)
                 self.callbacks.on_save_checkpoint_end(self, step)
             if validate_fn is not None and cfg.validation_every \
                     and step % cfg.validation_every == 0:

@@ -88,15 +88,15 @@ def _key_name(key: Union[str, int]) -> str:
     return f"[{key}]" if isinstance(key, int) else f"[{key!r}]"
 
 
-def _flatten(tree: Any, prefix: Tuple[str, ...] = ()):
+def flatten_params(tree: Any, prefix: Tuple[str, ...] = ()):
     """(path, leaf) pairs of a nested dict / list tree in jax.tree_util's
     order (dict keys sorted, lists in order)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _flatten(tree[k], prefix + (_key_name(k),))
+            yield from flatten_params(tree[k], prefix + (_key_name(k),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _flatten(v, prefix + (_key_name(i),))
+            yield from flatten_params(v, prefix + (_key_name(i),))
     else:
         yield "/".join(prefix), tree
 
@@ -106,7 +106,7 @@ def save_params_npz(path: str, params: Any) -> None:
     gen3c_tpu's ``save_params_npz`` writes for the same tree: path-encoded
     names, each bf16 leaf as its uint16 bits under "::bf16"."""
     flat = {}
-    for name, leaf in _flatten(params):
+    for name, leaf in flatten_params(params):
         if isinstance(leaf, torch.Tensor):
             leaf = leaf.detach().cpu()
             if leaf.dtype == torch.bfloat16:

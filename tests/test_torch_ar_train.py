@@ -122,6 +122,48 @@ def test_ar_train_step_matches_optax_adamw():
     assert off.mean() < 0.01 and np.abs(got - ref).max() < 4e-3
 
 
+SHORT = {"rep4_four_tokens": (dataclasses.replace(jar.AR_TINY, n_heads=8, n_kv_heads=2), 5),
+         "rep4_one_token": (dataclasses.replace(jar.AR_TINY, n_heads=8, n_kv_heads=2), 2),
+         "rep2_d36": (dataclasses.replace(jar.AR_TINY, dim=144, n_heads=4, n_kv_heads=2), 9)}
+
+
+@pytest.mark.parametrize("name", sorted(SHORT))
+def test_ar_train_step_at_short_and_padded_shapes_matches_jax_grad(name):
+    """``ar_train_step`` where K8's training forward and K8bwd see a decode
+    body's shape (4 query tokens, or 1, at rep 4: Lq * rep <= 16) or a head
+    width off the multiple of 8 (d 36, padded to 40 on a card): the loss,
+    every gradient (``jax.grad`` on shared weights) and the AdamW step agree
+    with JAX's."""
+    jcfg, L = SHORT[name]
+    params = jar.init_ar_params(jax.random.PRNGKey(1), jcfg)
+    model = tar.ARTransformer(_port_cfg(jcfg))
+    model.load_state_dict(ar_state_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    tokens = np.random.RandomState(7).randint(0, jcfg.vocab_size, (2, L)).astype(np.int32)
+    (jloss, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jtrain.ar_loss(p, jcfg, jnp.asarray(tokens)), has_aux=True))(params)
+    tparams = trainable_params(model)
+    tloss, _ = ttrain.ar_loss(model, torch.from_numpy(tokens).long())
+    grads = torch.autograd.grad(tloss, list(tparams.values()))
+    np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-5)
+    want = ar_state_from_jax(jax.tree_util.tree_map(np.asarray, jg))
+    for (n, _), g in zip(tparams.items(), grads):
+        w = want[n].numpy()
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4 * np.abs(w).max() + 1e-12, rtol=1e-3,
+                                   err_msg=n)
+    opt_j = optax.adamw(1e-3)
+    jp, _, jm = jax.jit(lambda p, s, t: jtrain.ar_train_step(p, s, t, jcfg, opt_j))(
+        params, opt_j.init(params), jnp.asarray(tokens))
+    opt_t = AdamW(1e-3)
+    _, _, tm = ttrain.ar_train_step(model, opt_t.init(tparams), torch.from_numpy(tokens).long(),
+                                    opt_t)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
+    want = ar_state_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    got = np.concatenate([tparams[n].detach().numpy().ravel() for n in sorted(want)])
+    ref = np.concatenate([want[n].numpy().ravel() for n in sorted(want)])
+    off = np.abs(got - ref) > 1e-6 + 1e-4 * np.abs(ref)
+    assert off.mean() < 0.01 and np.abs(got - ref).max() < 4e-3
+
+
 MASKS = {"causal": (0, None, 13), "causal_offset": (4, None, 9),
          "left_pad": (0, [0, 6], 13), "offset_left_pad": (4, [3, 9], 9),
          "cross": (None, None, 7), "cross_kv_start": (None, [2, 13], 7)}

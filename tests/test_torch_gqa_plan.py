@@ -149,3 +149,55 @@ def test_gqa_bwd_plan_at_the_4b_shapes():
     assert kcuda.gqa_bwd_plan(1, 12800, 12800, 32, 8, 0, 132) == 1
     assert kcuda.gqa_bwd_plan(1, 12800, 512, 32, 8, None, 132) == 4
     assert "kv_start" not in inspect.signature(kcuda.gqa_bwd_plan).parameters
+
+
+@pytest.mark.parametrize("Lq,Hq,Hkv,d", [(1, 32, 8, 128), (4, 32, 8, 128), (3, 8, 2, 36),
+                                         (200, 8, 2, 128)])
+def test_gqa_training_forward_takes_wgmma_at_every_shape(Lq, Hq, Hkv, d):
+    """K8's bf16 forward with lse runs the wgmma body whatever the query
+    axis (a decode's Lq * rep <= 16 included) and head width (padded to a
+    multiple of 8 first); the inference forward still picks by shape."""
+    q = torch.empty((1, Lq, Hq, kcuda.gqa_train_width(d)), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((1, 300, Hkv, q.shape[3]), dtype=torch.bfloat16, device="meta")
+    assert kcuda.gqa_route(q, k, k, False, lse=True) == "wgmma"
+    short = Lq * (Hq // Hkv) <= kcuda.GQA_DECODE_ROWS
+    assert kcuda.gqa_route(q, k, k, False) == ("decode" if short else "wgmma")
+    assert kcuda.gqa_route(q.float(), k.float(), k.float(), False, lse=True) == "fp32"
+
+
+@pytest.mark.parametrize("d,want", [(8, 8), (36, 40), (20, 24), (127, 128), (128, 128), (1, 8)])
+def test_pad_head_widens_to_whole_tma_rows(d, want):
+    assert kcuda.gqa_train_width(d) == want
+    t = torch.randn(2, 3, 4, d).to(torch.bfloat16)
+    p = kcuda.pad_head(t, want)
+    assert p.shape == (2, 3, 4, want) and p.is_contiguous() and p.data_ptr() % 16 == 0
+    assert torch.equal(p[..., :d], t) and not p[..., d:].any()
+    assert kcuda.tma_describable(p)
+
+
+@pytest.mark.parametrize("causal,start", [(0, None), (2, [0, 3]), (None, [1, 0])])
+def test_padded_heads_at_the_unpadded_scale_give_the_plain_gradient(causal, start):
+    """What the wrappers do around the kernels, on the plain versions: the
+    head axis zero-padded from 36 to 40, the logits scaled by 1/sqrt(36),
+    the results sliced back, equal the unpadded forward and backward; the
+    padded width's own scale would not."""
+    from gen3c_tpu_torch.kernels import reference
+
+    g = torch.Generator().manual_seed(3)
+    B, Lq, Lk, Hq, Hkv, d = 2, 4, 6, 8, 2, 36
+    q = torch.randn((B, Lq, Hq, d), generator=g, dtype=torch.float64)
+    k, v = (torch.randn((B, Lk, Hkv, d), generator=g, dtype=torch.float64) for _ in range(2))
+    dout = torch.randn(q.shape, generator=g, dtype=torch.float64)
+    kv = None if start is None else torch.tensor(start)
+    dp = kcuda.gqa_train_width(d)
+    padded = [kcuda.pad_head(t, dp) for t in (q, k, v, dout)]
+    want = reference.gqa_attention_reference(q, k, v, causal, kv)
+    got = reference.gqa_attention_reference(*padded[:3], causal, kv, scale=d ** -0.5)
+    torch.testing.assert_close(got[..., :d], want, rtol=1e-12, atol=1e-12)
+    assert not got[..., d:].any()
+    wrong = reference.gqa_attention_reference(*padded[:3], causal, kv)
+    assert (wrong[..., :d] - want).abs().max() > 1e-3
+    want_g = reference.gqa_attention_backward_reference(q, k, v, dout, causal, kv)
+    got_g = reference.gqa_attention_backward_reference(*padded, causal, kv, scale=d ** -0.5)
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a[..., :d], b, rtol=1e-12, atol=1e-12)

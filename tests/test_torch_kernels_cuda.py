@@ -1108,6 +1108,12 @@ def _dout_layout(dout: torch.Tensor, layout: str) -> torch.Tensor:
     (1, 300, 300, 8, 2, 128, 0, None, "strided"),         # dout a strided view (autograd's)
     (1, 300, 300, 8, 2, 128, 0, None, "offset"),          # dout off 16-byte alignment
     (1, 150, 150, 10, 2, 64, 0, None, "contiguous"),      # rep 5
+    (1, 1, 5, 8, 2, 128, None, None, "contiguous"),       # one query at rep 4: Lq rep <= 16
+    (1, 3, 3, 8, 2, 128, 0, None, "contiguous"),          # three tokens
+    (2, 4, 4, 8, 2, 128, 0, [0, 1], "contiguous"),        # four tokens, left padding
+    (1, 1, 40, 8, 2, 128, 39, None, "contiguous"),        # one query over a longer cache
+    (1, 100, 100, 4, 2, 36, 0, None, "contiguous"),       # d 36 at rep 2: padded to 40
+    (2, 3, 3, 4, 2, 36, 0, [0, 1], "strided"),            # short and padded
 ])
 def test_gqa_backward_kernel(gen, dtype, B, Lq, Lk, Hq, Hkv, d, offset, start, layout):
     """K8bwd through ``kernels.gqa_attention`` under autograd (K8's forward
@@ -1119,7 +1125,9 @@ def test_gqa_backward_kernel(gen, dtype, B, Lq, Lk, Hq, Hkv, d, offset, start, l
     enter the tensor cores in bf16, the outputs round to bf16), fp32 within
     1e-5. The long query axis over 200 keys takes a split dK/dV grid
     (``cuda.gqa_bwd_plan`` > 1); dout may come strided or off alignment,
-    as autograd may hand it."""
+    as autograd may hand it. The short query axes (Lq * rep <= 16, a decode
+    body's shape) and d 36 (zero-padded to 40 in the wrappers) run the
+    same wgmma bodies in bf16."""
     q, k, v, _, _ = _gqa_inputs(gen, B, Lq, Lk, Hq, Hkv, d, dtype, False)
     kv_start = None if start is None else torch.tensor(start, device="cuda")
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
@@ -1181,3 +1189,46 @@ def test_gqa_backward_split_repeats_its_bits_and_counts_its_route(gen, B, Lq, Lk
     for t, w in zip(first, want):
         assert torch.isfinite(t).all()
         assert (t.float() - w).abs().max() <= 2e-2 * w.abs().max() + 1e-6
+
+
+def test_tensor_map_entries_run_in_fresh_threads(gen):
+    """The entries that build TMA tensor maps (the wgmma attention family,
+    K8bwd, K7) called first in a thread that has made no CUDA call of its
+    own, three threads in a row, as autograd's device thread calls a
+    backward: cuTensorMapEncodeTiled is a driver call that needs the
+    thread's context, which the library binds itself (each once failed
+    there with cudaError 1, the encode's CUDA_ERROR_INVALID_CONTEXT). Each
+    result equals the same call's on this thread."""
+    import threading
+
+    q, k, v, _, _ = _gqa_inputs(gen, 1, 200, 200, 8, 2, 128, torch.bfloat16, False)
+    out, lse = kcuda.gqa_attention_fwd_lse(q, k, v, 0)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn((1, 300, 4, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    xo, xl = kcuda.attention_fwd_lse(x, x, x)
+    a = torch.randn((256, 512), generator=gen, device="cuda").to(torch.bfloat16)
+    aq, asc = kcuda.quantize_rows(a)
+    wq, wsc = kcuda.quantize_rows(torch.randn((384, 512), generator=gen, device="cuda"))
+    calls = {"K8bwd": lambda: kcuda.gqa_attention_bwd(q, k, v, out, dout, lse, 0),
+             "K4": lambda: kcuda.attention_bwd(x, x, x, xo, xo, xl),
+             "K1": lambda: (kcuda.attention(x, x, x),),
+             "K7": lambda: (kcuda.int8_gemm(aq, wq, asc, wsc, torch.bfloat16),)}
+    want = {name: fn() for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    for i in range(3):
+        got, errors = {}, {}
+
+        def run():
+            for name, fn in calls.items():
+                try:
+                    got[name] = fn()
+                    torch.cuda.synchronize()
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors[name] = repr(e)
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        assert not errors, (i, errors)
+        for name, ref in want.items():
+            assert all(torch.equal(a, b) for a, b in zip(got[name], ref)), (i, name)

@@ -402,9 +402,14 @@ def test_cli_overrides_and_resume(tmp_path):
     assert trainer.state.step == 2
     again = train.main([a.replace("max_iter=2", "max_iter=3") for a in args])
     assert again.state.step == 3 and again.checkpointer.steps() == [1, 2, 3]
-    for flags in (["--dp", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError):
+    for flags in (["--tp", "2"], ["--fsdp"], ["--sequence_parallel"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 15[bc]"):
             train.main(["--synthetic", "--device", "cpu", *flags, f"trainer.job_dir={job}2"])
+    with pytest.raises(SystemExit):  # --dp is ported: the batch must split over it
+        train.main(["--synthetic", "--device", "cpu", "--dp", "2", f"trainer.job_dir={job}2"])
+    with pytest.raises(ValueError, match="world size is 1"):  # and it needs the ranks
+        train.main(["--synthetic", "--device", "cpu", "--dp", "2", "--batch_size", "2",
+                    f"trainer.job_dir={job}2"])
     with pytest.raises(FileNotFoundError):  # --data_root is ported: a missing root raises
         train.main(["--data_root", str(tmp_path / "missing"), "--device", "cpu",
                     f"trainer.job_dir={job}3"])

@@ -191,3 +191,171 @@ def sample(rank, world, cfg: int, cp: int, dit_kw: dict, state: dict, arrays: di
     groups = _groups(rank, world, cfg, cp)
     tensors = {k: torch.from_numpy(v) for k, v in arrays.items()}
     return cp_generate_samples(groups, _net(dit_kw, state), **tensors, **opts).numpy()
+
+
+# ------------------------------ training over a (dp, cp) mesh ------------------------------
+
+_MESHES = {}
+
+
+def mesh_groups(rank: int, world: int, dp: int, cp: int):
+    """This rank's Groups of a (dp, cp) training mesh (cfg 1): ``make_groups``
+    when it spans the pool, else its replica's, laid out as make_groups lays
+    out dp * cp ranks (rank = dp_index * cp + cp_index) from the replica's
+    first rank; every rank creates every group, in one order."""
+    import torch.distributed as dist
+
+    from gen3c_tpu_torch.parallel.mesh import Axis, Groups, make_groups
+
+    key = (dp, cp)
+    if key not in _MESHES:
+        n = dp * cp
+        if n == world:
+            _MESHES[key] = make_groups(dp=dp, cp=cp, backend="gloo")
+        else:
+            axes = {}
+            for base in range(0, world, n):
+                here = 0 <= rank - base < n
+                dp_i, cp_i = divmod(rank - base, cp)
+                members = []
+                if cp > 1:
+                    members += [("cp", d, [base + d * cp + j for j in range(cp)])
+                                for d in range(dp)]
+                if dp > 1:
+                    members += [("dp", j, [base + d * cp + j for d in range(dp)])
+                                for j in range(cp)]
+                members.append(("world", 0, list(range(base, base + n))))
+                for name, which, ranks in members:
+                    g = dist.new_group(ranks, backend="gloo")
+                    if here and rank in ranks:
+                        index = {"cp": cp_i, "dp": dp_i, "world": rank - base}[name]
+                        axes[name] = Axis(g, index, len(ranks))
+            _MESHES[key] = Groups(cp=axes.get("cp", Axis()), dp=axes.get("dp", Axis()),
+                                  world=axes["world"])
+    return _MESHES[key]
+
+
+def train_module(kind: str, state: dict, logvar: bool):
+    """The fp32 module a training test trains: the tiny GEN3C DiT or the tiny
+    action DiT (``kind`` "gen3c" / "action"), with the logvar head when
+    ``logvar``; its parameters from ``state`` (numpy, port names)."""
+    import torch
+
+    from gen3c_tpu_torch.models.dit import GeneralDIT
+    from gen3c_tpu_torch.models.dit_action import ActionDiT
+    from gen3c_tpu_torch.training.losses import LogvarHead
+    from gen3c_tpu_torch.training.train_step import NetWithLogvar
+
+    cfg = train_cfg(kind)
+    net = ActionDiT(cfg) if kind == "action" else GeneralDIT(cfg)
+    module = NetWithLogvar(net, LogvarHead()) if logvar else net
+    module.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+    return module
+
+
+def train_cfg(kind: str):
+    from gen3c_tpu_torch.pipelines.factory import GEN3C_TINY_PRESET
+    from gen3c_tpu_torch.utils import registry
+
+    if kind == "action":
+        return registry.get_experiment("video2world_action_tiny").dit
+    return GEN3C_TINY_PRESET.dit
+
+
+def run_train_steps(groups, kind: str, state: dict, batches: list, draws: list, opt_kw: dict,
+                    step_kw: dict, data_type: str = "video") -> dict:
+    """Steps of the port's train step on ``batches`` with the injected global
+    ``draws`` (dicts of numpy StepDraws fields): over ``groups`` through
+    ``make_sharded_train_step``, or on one device (groups None) through
+    ``train_step``. Returns per-step loss, grad_norm, sigma_mean and the
+    final params (numpy, port names)."""
+    import torch
+
+    from gen3c_tpu_torch.training import train_step as tts
+
+    cfg = train_cfg(kind)
+    module = train_module(kind, state, step_kw.get("loss_add_logvar", False))
+    opt = tts.make_optimizer(**opt_kw)
+    st = tts.init_train_state(module, opt)
+    if groups is not None:
+        step = tts.make_sharded_train_step(groups, cfg, opt, data_type=data_type, **step_kw)
+    else:
+        def step(s, b, rng, draws):
+            return tts.train_step(s, b, rng, cfg, opt, data_type=data_type, draws=draws,
+                                  **step_kw)
+    out = {"loss": [], "grad_norm": [], "sigma_mean": []}
+    for b, d in zip(batches, draws):
+        tb = {k: torch.from_numpy(v) for k, v in b.items()}
+        td = tts.StepDraws(**{k: None if v is None else torch.from_numpy(np.asarray(v))
+                              for k, v in d.items()})
+        st, m = step(st, tb, None, draws=td)
+        for k in out:
+            out[k].append(float(m[k]))
+    out["params"] = {n: p.detach().numpy().copy() for n, p in module.named_parameters()}
+    out["step"] = st.step
+    return out
+
+
+def train(rank, world, dp: int, cp: int, **kw) -> dict:
+    """``run_train_steps`` over this rank's (dp, cp) mesh, plus the K1cp
+    launches of its forward (the Ulysses ranks' attention) and its place."""
+    from gen3c_tpu_torch import kernels
+
+    groups = mesh_groups(rank, world, dp, cp)
+    kernels.reset_launch_counts()
+    out = run_train_steps(groups, **kw)
+    out.update(dp_rank=groups.dp.rank, cp_rank=groups.cp.rank, world_rank=groups.world.rank)
+    return out
+
+
+def collective_gradcheck(rank, world, cp: int, op: str) -> bool:
+    """torch.autograd.gradcheck (fp64) of one differentiable collective over
+    a cp axis of the pool, as a function of every rank's input at once: each
+    rank holds the same global input X (its shard X[r] goes in) and gathers
+    the global output Y; the scaffolding's own adjoints (take: the shard's
+    cotangent summed over the ranks; gather: the rank's chunk of the
+    replicated cotangent) make F: X -> Y the same function on every rank, so
+    gradcheck's numerical Jacobian (every rank perturbing the same element
+    of X in step) and the analytic one (the collective's backward between
+    the two) must agree."""
+    import torch
+    import torch.distributed as dist
+
+    from gen3c_tpu_torch.parallel import collectives as coll
+
+    axis = _groups(rank, world, 1, cp).cp
+    n, r = axis.size, axis.rank
+
+    class Take(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x[r].clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            full = torch.zeros((n,) + tuple(g.shape), dtype=g.dtype)
+            full[r] = g
+            dist.all_reduce(full, group=axis.group)
+            return full
+
+    class Gather(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, y):
+            out = [torch.empty_like(y) for _ in range(n)]
+            dist.all_gather(out, y.contiguous(), group=axis.group)
+            return torch.stack(out)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g[r].clone()
+
+    fns = {"seq_to_heads": lambda x: coll.seq_to_heads(x, axis),
+           "heads_to_seq": lambda x: coll.heads_to_seq(x, axis),
+           "all_gather": lambda x: coll.all_gather(x, 1, axis),
+           "all_reduce": lambda x: coll.all_reduce(x, axis),
+           "all_reduce_mean": lambda x: coll.all_reduce(x, axis, "mean")}
+    shape = {"heads_to_seq": (1, 2 * n, 1, 3)}.get(op, (1, 2, n, 3))  # (B, L, H, D) shards
+    g = torch.Generator().manual_seed(11)
+    X = torch.randn((n,) + shape, generator=g, dtype=torch.float64, requires_grad=True)
+    return torch.autograd.gradcheck(lambda x: Gather.apply(fns[op](Take.apply(x))), (X,),
+                                    eps=1e-6, atol=1e-8, rtol=1e-6)
