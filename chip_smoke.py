@@ -20,8 +20,9 @@ Phases, each printing one JSON line of its own numbers:
              Euler steps and batched CFG; seconds per phase, peak memory,
              and the launches of each kernel in that run
   5 fast     the same model and chunk with the --perf_preset fast knobs:
-             W8A8 (quantized on the card), band window 2, step-cache
-             interval 2, guidance interval 1.75..81, 8 steps: the asserted
+             W8A8 (quantized on the card, all 28 blocks), band window 2,
+             step-cache interval 2, guidance interval 1.75..81, 8 steps on
+             the first FAST_BLOCKS = 14 blocks: the asserted
              CFG/condition-only and refresh/cached step pattern, seconds
              per step by kind, quantize seconds, peak memory, launches
   6 fast_parity  a 1024-channel, 2-block bf16 DiT with W8A8 and band
@@ -54,7 +55,8 @@ Phases, each printing one JSON line of its own numbers:
              checkpoints, then resumed to 6, then 2 steps with --data_root on
              a packaged clip and band window 1
  13 dynamic  the gen3c_dynamic CLI's entry point with the same 7B (built once
-             for main, dynamic and multiview) on a seeded 121-frame 704x1280
+             for main, dynamic and multiview; here and in multiview its first
+             DYNAMIC_BLOCKS = 4 of 28 blocks) on a seeded 121-frame 704x1280
              packaged clip whose depth has nearer discs and a railing (depth
              boundaries), --foreground_masking, DYNAMIC_STEPS Euler steps: render s with
              and without masking, K6 launches (121), the culled fraction,
@@ -67,14 +69,18 @@ Phases, each printing one JSON line of its own numbers:
              refuses two ranks of a communicator on one GPU) that builds
              the 7B from main_path's seeds through build_gen3c_model and runs
              main_path's chunk through its entry point: Ulysses, ring,
-             all-gather and cfg2 at CP_SHORT_BLOCKS blocks, held to the
+             all-gather, cfg2, then tp 2 (each rank's 16 heads and half of
+             every block's linears) and cp1tp2sp (with sequence
+             parallelism), each laid out by pipelines.factory.parallelize,
+             at CP_SHORT_BLOCKS blocks, held to the
              single process at that depth within CP_NOISE_FACTOR times the
              bf16 noise floor
              measured there (the single process with its CFG pair as two
              B = 1 calls), not below CP_TOL; per rank s per step, the bytes each
-             collective moved, peak GiB and launches (K1cp, K1ring +
-             K1merge, K1ag). The ranks share the card and their collectives
-             pass through host memory: none of these is a multi-card time
+             collective moved, peak GiB, the heads a rank ran and launches
+             (K1cp, K1ring + K1merge, K1ag; K1 and K2 under tp). The ranks
+             share the card and their collectives pass through host memory:
+             none of these is a multi-card time
  16 moge     MoGe ViT-L (fp32, seeded weights) on a seeded 704x1280 image
              through moge_infer, the single-image path's depth source: s,
              peak GiB, its fp32 attention's launches (K1vit, 24), and the
@@ -238,13 +244,15 @@ Phases, each printing one JSON line of its own numbers:
              then steps traced by torch.profiler: K8bwd's and K8's share of
              a step (ar_train_trace); a 2-layer cut at full width over 256
              tokens, card (bf16) against CPU (fp32) within AR_PARITY_TOL
- 33 cp_train data- and context-parallel training (after cp): K4 and K1cp's
-             forward with lse at a Ulysses rank's shard (1, 56,320, 16,
-             128) against the plain versions; then CP_RANKS processes on
-             the one card (gloo, `--cp-train-rank r`) train the 7B at full
-             width on CP_TRAIN_BLOCKS = 6 of 28 blocks with
+ 33 cp_train data-, context- and tensor-parallel training (after cp): K4
+             and K1cp's forward with lse at a Ulysses rank's shard (1,
+             56,320, 16, 128) against the plain versions; then CP_RANKS
+             processes on the one card (gloo, `--cp-train-rank r`) train the
+             7B at full width on CP_TRAIN_BLOCKS = 2 of 28 blocks with
              make_sharded_train_step: cp 2 over one 121-frame clip for 2
-             steps, dp 2 over two 8-latent-frame clips for 1, each held to
+             steps, dp 2 over two 8-latent-frame clips for 1, tp 2 over one
+             8-latent-frame clip for 2 and with sequence parallelism for 1
+             (the leaves gathered from the shards), each held to
              the same net, batch and draws in this one process (loss, grad
              norm, three leaves' updates and first moments within
              CP_TRAIN_TOL): s per step per rank, peak GiB, launches (K1cp /
@@ -387,6 +395,10 @@ K6_DENSE_PLAIN_ROW_STEP = 4
 P2_SMOKE_CONFIGS = (((2, 64, 4), "blhd"), ((3, 64, 4), "blhd"), ((2, 128, 3), "blhd"),
                     ((2, 64, 4), "bhld"))
 DYNAMIC_STEPS = 1
+# of 28: the depth dynamic and multiview run main_path's 7B at (its width is the
+# 7B's); their checks are the renders, the masking and the CLIs' outputs, and
+# the 4 blocks pay for the cp phase's tensor-parallel runs
+DYNAMIC_BLOCKS = 4
 MULTIVIEW_STEPS = 1
 MULTIVIEW_KEY_FRAMES = 4
 MAIN_STEPS = 1  # main_path's Euler steps; its latent is the cp phase's reference
@@ -1829,10 +1841,20 @@ def phase_cp_reference(model, preset) -> dict:
     return {"short": short, "noise": noise}
 
 
-# the cp phase's runs, in order: (name, parallel strategy, cp_attn, blocks)
+# the cp phase's runs, in order: (name, parallel strategy, cp_attn, blocks); the
+# tensor-parallel ones last: they run on the net cut to each rank's tp shards
 CP_RUNS = (("ulysses", "cp", "ulysses", CP_SHORT_BLOCKS), ("ring", "cp", "ring", CP_SHORT_BLOCKS),
            ("allgather", "cp", "allgather", CP_SHORT_BLOCKS),
-           ("cfg2", "cfg2", "allgather", CP_SHORT_BLOCKS))
+           ("cfg2", "cfg2", "allgather", CP_SHORT_BLOCKS),
+           ("tp", "tp", "allgather", CP_SHORT_BLOCKS),
+           ("cp1tp2sp", "cp1tp2sp", "allgather", CP_SHORT_BLOCKS))
+# what each run must launch, and what it must not
+CP_WANT = {"ulysses": ("K1cp", "K2", "K5"), "ring": ("K1ring", "K1merge", "K2"),
+           "allgather": ("K1ag", "K2"), "cfg2": ("K1", "K2"), "tp": ("K1", "K2", "K5"),
+           "cp1tp2sp": ("K1", "K2", "K5")}
+CP_STRAY = {"ulysses": ("K1", "K1ag", "K1ring"), "ring": ("K1", "K1cp", "K1ag"),
+            "allgather": ("K1", "K1cp", "K1ring"), "cfg2": ("K1cp", "K1ag", "K1ring"),
+            "tp": ("K1cp", "K1ag", "K1ring"), "cp1tp2sp": ("K1cp", "K1ag", "K1ring")}
 
 
 def cp_worker(rank: int, port: int, out_dir: str) -> int:
@@ -1840,16 +1862,21 @@ def cp_worker(rank: int, port: int, out_dir: str) -> int:
     environment: the 7B (main_path's seeds) through build_gen3c_model over
     CP_RANKS ranks on cuda:0 with gloo, then each of CP_RUNS through
     main_path's entry point (run_chunked_generation, 121 frames,
-    MAIN_STEPS steps); per run its seconds, collective traffic, peak GiB
-    and launches to rank<r>.json, and rank 0's latent to cp_<name>.npy."""
+    MAIN_STEPS steps), each laid out by pipelines.factory.parallelize,
+    the step build_gen3c_model ends with (the tensor-parallel runs on the
+    net it cuts to this rank's shards: q/k/v/out and fc1/fc2 of all 28
+    blocks);
+    per run its seconds, collective traffic, peak GiB, launches and the
+    heads a rank runs to rank<r>.json, and rank 0's latent to
+    cp_<name>.npy."""
     import dataclasses
 
     import torch.distributed as dist
 
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.models import dit
-    from gen3c_tpu_torch.parallel import collectives, mesh
-    from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
+    from gen3c_tpu_torch.parallel import collectives
+    from gen3c_tpu_torch.pipelines.factory import build_gen3c_model, parallelize
 
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(CP_RANKS),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
@@ -1858,13 +1885,15 @@ def cp_worker(rank: int, port: int, out_dir: str) -> int:
     model, preset = build_gen3c_model("gen3c_7b", device="cuda:0", seed=0, num_devices=CP_RANKS,
                                       parallel="cp", cp_attn="ulysses", dist_backend="gloo")
     randomize_gates(model.net, torch.Generator(device="cuda:0").manual_seed(1))
-    groups = {"cp": model.groups, "cfg2": mesh.make_groups(cfg=2, backend="gloo")}
     torch.cuda.synchronize()
     out = {"rank": rank, "build_s": time.perf_counter() - t0,
            "backend": dist.get_backend(model.groups.cp.group), "runs": {}}
     for name, parallel, impl, blocks in CP_RUNS:
-        model.groups = groups[parallel]
         model.net.cfg = dataclasses.replace(model.net.cfg, cp_attn_impl=impl)
+        groups = parallelize(model, parallel, CP_RANKS, backend="gloo")
+        torch.cuda.empty_cache()
+        cfg, cp, tp, sp = (groups.cfg.size, groups.cp.size, groups.tp.size,
+                           model.sequence_parallel)
         with _depth(model.net, blocks):
             torch.cuda.synchronize()
             dist.barrier()
@@ -1889,7 +1918,9 @@ def cp_worker(rank: int, port: int, out_dir: str) -> int:
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
             "routes": routes, "traffic_per_step": {op: {k: v / len(steps) for k, v in c.items()}
                                  for op, c in collectives.traffic.items() if c["calls"]},
-            "ring_steps": dict(dit.ring_steps),
+            "ring_steps": dict(dit.ring_steps), "cfg": cfg, "cp": cp, "tp": tp, "sp": sp,
+            "heads_a_rank": model.net.blocks.block0.blocks[0].block.attn.to_q[0].weight.shape[0]
+            // model.net.cfg.head_dim,
             "latents_finite": bool(torch.isfinite(samples).all().item())}
         del pipeline, samples
         torch.cuda.empty_cache()
@@ -1902,11 +1933,16 @@ def cp_worker(rank: int, port: int, out_dir: str) -> int:
 
 def phase_cp(refs: dict) -> dict:
     """CP_RANKS ranks of the 7B on the one card (cp_worker, gloo): Ulysses,
-    ring, all-gather and cfg2 at CP_SHORT_BLOCKS blocks against
+    ring, all-gather, cfg2, and tensor parallelism (tp 2: each rank's 16 of
+    the 32 heads and half of every block's linears) without and with
+    sequence parallelism at CP_SHORT_BLOCKS blocks against
     phase_cp_reference's single-process latent, each within CP_NOISE_FACTOR
-    times its noise floor (not below CP_TOL). The ranks share the card and their
-    collectives go through host memory: none of these times is a
-    multi-card time."""
+    times its noise floor (not below CP_TOL), each launching CP_WANT's
+    kernels and none of CP_STRAY's, on the wgmma bodies only. The ranks
+    share the card and their collectives go through host memory: none of
+    these times is a multi-card time."""
+    from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET
+
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -1954,13 +1990,14 @@ def phase_cp(refs: dict) -> dict:
         if run["rel_max"] > tol["max"] or run["rel_mean"] > tol["mean"] or not all(
                 r["latents_finite"] for r in run["rank"]):
             bad.append(f"{name} disagrees with the single process")
-        launches = run["rank"][0]["launches"]
-        want = {"ulysses": ("K1cp", "K2", "K5"), "ring": ("K1ring", "K1merge", "K2"),
-                "allgather": ("K1ag", "K2"), "cfg2": ("K1", "K2")}[name]
-        stray = {"ulysses": ("K1", "K1ag", "K1ring"), "ring": ("K1", "K1cp", "K1ag"),
-                 "allgather": ("K1", "K1cp", "K1ring"), "cfg2": ("K1cp", "K1ag", "K1ring")}[name]
-        if any(launches[k] == 0 for k in want) or any(launches[k] for k in stray):
-            bad.append(f"{name} launched {launches}")
+        for rk in run["rank"]:
+            launches = rk["launches"]
+            if any(launches[k] == 0 for k in CP_WANT[name]) or any(
+                    launches[k] for k in CP_STRAY[name]):
+                bad.append(f"{name} launched {launches}")
+            heads = GEN3C_7B_PRESET.dit.num_heads // rk["tp"]
+            if rk["heads_a_rank"] != heads:
+                bad.append(f"{name}: a rank ran {rk['heads_a_rank']} heads, not {heads}")
         routes = [r["routes"] for r in run["rank"]]
         if any(r["mma_sync"] or not r["wgmma"] for r in routes):
             bad.append(f"{name}: attention launches by body {routes}, expected wgmma only")
@@ -1973,19 +2010,35 @@ def phase_cp(refs: dict) -> dict:
 
 # the cp_train phase: the 7B at full width (4096 channels, 32 x 128 heads, bf16) on
 # CP_TRAIN_BLOCKS of its 28 blocks, two ranks on the one card over gloo, each
-# holding the whole training state (12 bytes a parameter: 2 x 18.0 GiB at 6
-# blocks) beside its activations (per-block remat; the 12-block train phase's
-# peak was 31 GiB above its state at 56,320 tokens, so ~15.5 GiB at a rank's
-# 28,160): 8 blocks would pass the card's 80 GB
-CP_TRAIN_BLOCKS = 6
+# holding the whole training state under dp and cp (12 bytes a parameter: 2 x
+# ~6.6 GiB at 2 blocks) and half of every block's linears' under tp, beside
+# its activations (per-block remat; the 12-block train phase's peak was 31 GiB
+# above its state at 56,320 tokens, so ~15.5 GiB at a rank's 28,160): 8 blocks
+# would pass the card's 80 GB. A step's time is gloo's host path, which grows
+# with the blocks: 2 (PR 21 ran 6) pay for the tp runs' time
+CP_TRAIN_BLOCKS = 2
 CP_TRAIN_STEPS = 2
 CP_TRAIN_LR = 1e-4  # warmup 1: optax's first update has lr 0, the second lr
-# (name, dp, cp, steps, latent T, B): Ulysses over the 121-frame clip's 16 latent
-# frames (28,160 tokens a rank), then dp over two clips of 8 latent frames (each
-# rank one clip of 28,160 tokens: the same activations a rank)
-CP_TRAIN_RUNS = (("cp2", 1, 2, CP_TRAIN_STEPS, LATENT_T_7B, 1), ("dp2", 2, 1, 1, 8, 2))
+# (name, dp, cp, tp, sequence parallelism, steps, latent T, B): Ulysses over the
+# 121-frame clip's 16 latent frames (28,160 tokens a rank), then dp over two
+# clips of 8 latent frames (each rank one clip of 28,160 tokens: the same
+# activations a rank), then tp over one clip of 8 latent frames (each rank
+# 28,160 tokens through its 16 heads; with sp 14,080 between the sub-blocks)
+CP_TRAIN_RUNS = (("cp2", 1, 2, 1, False, CP_TRAIN_STEPS, LATENT_T_7B, 1),
+                 ("dp2", 2, 1, 1, False, 1, 8, 2),
+                 ("tp2", 1, 1, 2, False, CP_TRAIN_STEPS, 8, 1),
+                 ("tp2sp", 1, 1, 2, True, 1, 8, 1))
+# one leaf of each kind the tp runs shard or sum: q's rows (dim 0), out's columns
+# (dim 1), fc1's rows, q's RMSNorm scale (a part on each tp rank, summed over
+# tp) and the final layer (replicated)
 CP_TRAIN_LEAVES = ("blocks.block0.blocks.0.block.attn.to_q.0.weight",
-                   "blocks.block0.blocks.2.block.layer1.weight", "final_layer.linear.weight")
+                   "blocks.block0.blocks.0.block.attn.to_out.0.weight",
+                   "blocks.block0.blocks.2.block.layer1.weight",
+                   "blocks.block0.blocks.0.block.attn.to_q.1.weight",
+                   "final_layer.linear.weight")
+# the tp run whose state is then gathered as Trainer saves it
+# (sharding.gather_to_host), with the card's peak held to one gathered tensor
+CP_TRAIN_SAVE_RUN = "tp2"
 CP_TRAIN_MEMORY_FRACTION = 0.48
 CP_TRAIN_TIMEOUT_S = 600  # the two ranks, together
 # two ranks against one: the same bf16 arithmetic per token but GEMMs over half
@@ -2007,16 +2060,20 @@ def _cp_train_batch(cfg, T: int, B: int, seed: int = 0) -> dict:
             "extra_channels": torch.randn((B, cfg.in_channels - 16, T, 88, 160), generator=gen)}
 
 
-def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int) -> dict:
+def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int, sp: bool = False) -> dict:
     """CP_TRAIN_BLOCKS of the 7B trained ``steps`` steps on ``_cp_train_batch``
     (the same net, batch and draws on every rank and in the one-rank
-    reference): over ``groups`` through make_sharded_train_step, or on one
-    device (groups None) through train_step. Per step s, loss, grad norm,
-    peak GiB, launches, K4's by forward, routes and the collectives' bytes
-    and host seconds; the CP_TRAIN_LEAVES' parameters, updates and first
-    moments (CPU fp32)."""
+    reference): over ``groups`` through make_sharded_train_step (over a tp
+    axis on the net cut to this rank's shards, as Trainer cuts it; sp:
+    sequence parallelism), or on one device (groups None) through
+    train_step. Per step s, loss, grad norm, peak GiB, launches, K4's by
+    forward, routes and the collectives' bytes and host seconds; the
+    CP_TRAIN_LEAVES' updates and first moments (CPU fp32; tp shards
+    gathered, in CP_TRAIN_SAVE_RUN by Trainer's save gather, whose seconds,
+    bytes and growth of the card's peak it records)."""
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.parallel import collectives
+    from gen3c_tpu_torch.parallel.sharding import gather_to_host, shard_params
     from gen3c_tpu_torch.training.train import build_net
     from gen3c_tpu_torch.training.train_step import (
         init_train_state,
@@ -2028,11 +2085,13 @@ def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int) -> dict:
     net = build_net(cfg, "cuda:0", seed=0)
     randomize_gates(net, torch.Generator(device="cuda:0").manual_seed(1))
     opt = make_optimizer(lr=CP_TRAIN_LR, warmup_steps=1)
+    before = {n: p.detach().float().cpu() for n, p in net.named_parameters()
+              if n in CP_TRAIN_LEAVES}
+    dims = {} if groups is None else shard_params(net, groups)
     state = init_train_state(net, opt)
     named = dict(net.named_parameters())
-    before = {n: named[n].detach().float().cpu() for n in CP_TRAIN_LEAVES}
     if groups is not None:
-        step = make_sharded_train_step(groups, cfg, opt, remat=True)
+        step = make_sharded_train_step(groups, cfg, opt, remat=True, sequence_parallel=sp)
     else:
         def step(st, b, rng):
             return train_step(st, b, rng, cfg, opt, remat=True)
@@ -2058,9 +2117,37 @@ def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int) -> dict:
             "k4_by_forward": dict(kernels.k4_launches_by_forward),
             "routes": dict(kernels.route_counts),
             "traffic": {op: dict(c) for op, c in collectives.traffic.items() if c["calls"]}})
-    out["params"] = sum(p.numel() for p in named.values())
-    out["leaves"] = {n: {"update": named[n].detach().float().cpu() - before[n],
-                         "mu": state.opt_state.mu[n].float().cpu()} for n in CP_TRAIN_LEAVES}
+    out["params"] = sum(p.numel() for p in named.values())  # this rank's
+    now = {n: named[n].detach() for n in CP_TRAIN_LEAVES}
+    mu = {n: state.opt_state.mu[n] for n in CP_TRAIN_LEAVES}
+    if dims and name == CP_TRAIN_SAVE_RUN:
+        # Trainer._save's gather, kept on every rank here: the leaves come
+        # from it. The card may grow by one gathered tensor and the
+        # collective's own buffers: gloo's all-gather on CUDA tensors holds a
+        # second full-size one beside the shard's contiguous copy (2.5 x the
+        # largest on an H100 80GB HBM3 at 700 W); the whole state gathered at
+        # once would be ~18 x (4.87 GB at 2 blocks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        host = gather_to_host(state.state_dict(), dims, groups.tp, True)
+        torch.cuda.synchronize()
+        sizes = [t.numel() * t.element_size() for part in ("params", "mu", "nu", "ema")
+                 for n, t in host[part].items() if n in dims]
+        out["save"] = {"s": time.perf_counter() - t0,
+                       "peak_growth_bytes": torch.cuda.max_memory_allocated() - base,
+                       "bound_bytes": 3 * max(sizes),
+                       "gathered_bytes": sum(sizes),
+                       "host_bytes": sum(t.numel() * t.element_size()
+                                         for part in ("params", "mu", "nu", "ema")
+                                         for t in host[part].values())}
+        now, mu = host["params"], host["mu"]
+        del host
+    elif dims:
+        now, mu = (gather_to_host(t, dims, groups.tp, True) for t in (now, mu))
+    out["leaves"] = {n: {"update": now[n].float().cpu() - before[n],
+                         "mu": mu[n].float().cpu()} for n in CP_TRAIN_LEAVES}
     del state, net, named, batch, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -2083,13 +2170,14 @@ def cp_train_worker(rank: int, port: int, out_dir: str) -> int:
     mesh.maybe_distributed_init("gloo", "cuda:0")
     cfg = dataclasses.replace(GEN3C_7B_PRESET.dit, num_blocks=CP_TRAIN_BLOCKS)
     out = {"rank": rank, "runs": {}}
-    for name, dp, cp, steps, T, B in CP_TRAIN_RUNS:
-        groups = mesh.make_groups(dp=dp, cp=cp, backend="gloo")
-        res = _cp_train_run(cfg, groups, name, steps, T, B)
+    for name, dp, cp, tp, sp, steps, T, B in CP_TRAIN_RUNS:
+        groups = mesh.make_groups(dp=dp, cp=cp, tp=tp, backend="gloo")
+        res = _cp_train_run(cfg, groups, name, steps, T, B, sp)
         leaves = res.pop("leaves")
         if rank == 0:
             torch.save(leaves, os.path.join(out_dir, f"train_{name}.pt"))
-        out["runs"][name] = {**res, "dp_rank": groups.dp.rank, "cp_rank": groups.cp.rank}
+        out["runs"][name] = {**res, "dp_rank": groups.dp.rank, "cp_rank": groups.cp.rank,
+                             "tp_rank": groups.tp.rank}
     with open(os.path.join(out_dir, f"train_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.barrier()
@@ -2106,18 +2194,23 @@ def _leaf_rel(got: torch.Tensor, ref: torch.Tensor) -> dict:
 
 
 def phase_cp_train() -> dict:
-    """Data- and context-parallel training of the 7B at full width: K4 (and
-    K1cp's forward with lse) at a Ulysses rank's shard, (1, 56,320, 16, 128),
-    held to the plain versions; then CP_RANKS ranks on the one card
-    (cp_train_worker, gloo) train CP_TRAIN_BLOCKS blocks with
+    """Data-, context- and tensor-parallel training of the 7B at full width:
+    K4 (and K1cp's forward with lse) at a Ulysses rank's shard, (1, 56,320,
+    16, 128), held to the plain versions; then CP_RANKS ranks on the one
+    card (cp_train_worker, gloo) train CP_TRAIN_BLOCKS blocks with
     make_sharded_train_step, CP_TRAIN_RUNS (cp 2 over one 121-frame clip,
-    2 steps; dp 2 over two 8-latent-frame clips, 1 step), and the same net,
-    batch and draws train in this one process: loss, grad norm and the
-    CP_TRAIN_LEAVES' updates and first moments held within CP_TRAIN_TOL;
-    every rank's launches (K1cp 2 x blocks a step under remat, K4 for each
-    attention), s per step per rank, the collectives' bytes and host
-    seconds. The ranks share the card and gloo passes through host memory:
-    no time here is a multi-card time."""
+    2 steps; dp 2 over two 8-latent-frame clips, 1 step; tp 2 over one
+    8-latent-frame clip, 2 steps, and with sequence parallelism, 1 step:
+    each rank its 16 heads and half of every block's linears), and the same
+    net, batch and draws train in this one process: loss, grad norm and the
+    CP_TRAIN_LEAVES' updates and first moments (gathered from the tp
+    shards) held within CP_TRAIN_TOL; every rank's launches (K1cp or K1 2 x
+    blocks a step under remat, K4 for each attention), s per step per rank,
+    peak GiB, the collectives' bytes and host seconds; in CP_TRAIN_SAVE_RUN
+    the card's peak during the checkpoint gather grown by no more than 3 x
+    its largest gathered tensor (one tensor at a time). The ranks share the
+    card and gloo passes through host memory: no time here is a multi-card
+    time."""
     import dataclasses as dc
 
     from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET
@@ -2169,7 +2262,7 @@ def phase_cp_train() -> dict:
            "note": "both ranks share one card and their collectives go through host memory "
                    "(gloo): no time here is a multi-card time", "runs": {}}
     bad = []
-    for name, dp, cp, steps, T, B in CP_TRAIN_RUNS:
+    for name, dp, cp, tp, sp, steps, T, B in CP_TRAIN_RUNS:
         one = _cp_train_run(cfg, None, name, steps, T, B)
         got_leaves = torch.load(os.path.join(out_dir, f"train_{name}.pt"), weights_only=True)
         runs = [r["runs"][name] for r in ranks]
@@ -2182,8 +2275,8 @@ def phase_cp_train() -> dict:
                 leaves[n]["update"] = _leaf_rel(got_leaves[n]["update"], ref["update"])
         one_leaves = one.pop("leaves")
         del got_leaves, one_leaves
-        run = {"dp": dp, "cp": cp, "ranks": runs, "one_rank": one, "rel": rel,
-               "leaves": leaves, "tol": CP_TRAIN_TOL}
+        run = {"dp": dp, "cp": cp, "tp": tp, "sequence_parallel": sp, "ranks": runs,
+               "one_rank": one, "rel": rel, "leaves": leaves, "tol": CP_TRAIN_TOL}
         res["runs"][name] = run
         for r, rk in enumerate(runs):
             if any(abs(st[k] - rs[k]) > 1e-6 * abs(rs[k]) for st, rs in zip(rk["steps"],
@@ -2211,6 +2304,15 @@ def phase_cp_train() -> dict:
         for st in one["steps"]:
             if not (math.isfinite(st["loss"]) and st["grad_norm"] > 0):
                 bad.append(f"{name}: the one-rank step gave {st}")
+        if name == CP_TRAIN_SAVE_RUN:
+            for r, rk in enumerate(runs):
+                sv = rk.get("save")
+                if sv is None or sv["peak_growth_bytes"] > sv["bound_bytes"]:
+                    bad.append(f"{name}: rank {r}'s save gather grew the card by more than "
+                               f"3 x its largest gathered tensor: {sv}")
+        if tp > 1 and not all(rk["params"] < one["params"] for rk in runs):
+            bad.append(f"{name}: a rank holds {[rk['params'] for rk in runs]} parameters, "
+                       f"one rank {one['params']}: the linears were not sharded")
     shutil.rmtree(out_dir, ignore_errors=True)
     emit("cp_train", **res)
     if bad:
@@ -2303,7 +2405,8 @@ def phase_dynamic(model, preset) -> dict:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        path = gen3c_dynamic.demo(args, built=(model, preset), record=record)
+        with _depth(model.net, DYNAMIC_BLOCKS):
+            path = gen3c_dynamic.demo(args, built=(model, preset), record=record)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches = dict(kernels.launch_counts)
@@ -2386,7 +2489,8 @@ def phase_multiview(model, preset) -> dict:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        path = gen3c_multiview.demo(args, built=(model, preset), record=record)
+        with _depth(model.net, DYNAMIC_BLOCKS):
+            path = gen3c_multiview.demo(args, built=(model, preset), record=record)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches = dict(kernels.launch_counts)
@@ -2410,6 +2514,10 @@ def phase_multiview(model, preset) -> dict:
 
 
 FAST_STEPS = 8
+# of 28: the depth the fast chunk runs at, after all 28 blocks are quantized (the
+# step pattern, the launches and the video do not depend on it; 14 pay for the
+# cp phase's tensor-parallel runs)
+FAST_BLOCKS = 14
 # at 8 steps the guidance interval 1.75..81 covers steps 0-3; the cache
 # (interval 2, 2 warmup and 2 tail steps) runs the net on 0, 1, 2, 4, 6, 7
 FAST_PATTERN = [(True, True)] * 3 + [(True, False), (False, True), (False, False),
@@ -2452,10 +2560,11 @@ def phase_fast() -> dict:
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    video, pipeline, timings = _run_chain(
-        model, preset, "cuda", num_frames=121, num_steps=FAST_STEPS, seed=0,
-        step_cache_interval=args.step_cache_interval,
-        guidance_interval=tuple(args.guidance_interval))
+    with _depth(model.net, FAST_BLOCKS):
+        video, pipeline, timings = _run_chain(
+            model, preset, "cuda", num_frames=121, num_steps=FAST_STEPS, seed=0,
+            step_cache_interval=args.step_cache_interval,
+            guidance_interval=tuple(args.guidance_interval))
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
@@ -5759,7 +5868,10 @@ def main(argv=None) -> int:
 
     # the launches of the span, text2world, interpolator and multiview phases
     def by_phase(kid):
-        return {"span": span_res["full"]["launches"][kid], "text2world": t2w_launches[kid],
+        return {"span": span_res["full"]["launches"][kid],
+                **{f"cp {run} (rank 0, tp 2: 16 heads)": cp_runs[run]["rank"][0]["launches"][kid]
+                   for run in ("tp", "cp1tp2sp")},
+                "text2world": t2w_launches[kid],
                 "interpolator": interp_launches[kid], "mv_world": mv_res["launches"][kid],
                 "mv_action_train": sum(r["launches"][kid] for r in mv_train.values()),
                 "dd": dd_res["launches"][kid]}
@@ -5804,7 +5916,8 @@ def main(argv=None) -> int:
         row("K4 self-attention backward", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:464",
             train_launches["K1"], kern["K4_self"],
             phase_launches={**{k: v["K1"] for k, v in k4_mv.items()},
-                            **cp_train_k4("K1cp", "cp2"), **cp_train_k4("K1", "dp2")},
+                            **cp_train_k4("K1cp", "cp2"), **cp_train_k4("K1", "dp2"),
+                            **cp_train_k4("K1", "tp2"), **cp_train_k4("K1", "tp2sp")},
             cp_training_shard={k: cp_train["k4"][k] for k in (
                 "q", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
                 "bound_share")}),

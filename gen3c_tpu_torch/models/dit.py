@@ -1,15 +1,19 @@
 """GeneralDIT: the Cosmos 7B video diffusion transformer in PyTorch.
 
-Port of gen3c_tpu/models/dit.py ``dit_forward`` (no tensor or sequence
-parallelism), differentiable for training (attention's
-backward is kernel K4), with optional per-block remat. Under context
-parallelism (``forward(cp=axis)``, one process per rank) the tokens are
-this rank's contiguous latent-T shard: the position tables are built for
-the whole sequence and sliced, and self-attention runs one of the JAX
-package's three strategies (``DiTConfig.cp_attn_impl``): "ulysses" (an
-all-to-all to H/cp heads of the whole sequence, kernel K1cp, then back),
-"ring" (KV shards passed around the ring, each folded in by K1ring and
-merged by K1merge) or "allgather" (K/V gathered, kernel K1ag).
+Port of gen3c_tpu/models/dit.py ``dit_forward``, differentiable for
+training (attention's backward is kernel K4), with optional per-block
+remat. Under context parallelism (``forward(cp=axis)``, one process per
+rank) the tokens are this rank's contiguous latent-T shard: the position
+tables are built for the whole sequence and sliced, and self-attention
+runs one of the JAX package's three strategies (``DiTConfig.cp_attn_impl``):
+"ulysses" (an all-to-all to H/cp heads of the whole sequence, kernel K1cp,
+then back), "ring" (KV shards passed around the ring, each folded in by
+K1ring and merged by K1merge) or "allgather" (K/V gathered, kernel K1ag).
+Under tensor parallelism (``forward(tp=axis)`` on a net that
+``parallel.sharding.shard_params`` sliced) each rank projects its H/tp
+heads and 4D/tp hidden units, and the row-parallel outputs are summed over
+tp (Megatron); with ``sp=True`` the tokens between the sub-blocks are
+sharded over tp as well (Megatron-SP, dit.py:680-800, 951-966).
 The module tree carries the reference checkpoint's parameter names, the
 left-hand side of gen3c_tpu/models/convert.py ``convert_dit_state_dict``,
 so a reference ``model.pt`` loads with ``load_state_dict``:
@@ -334,8 +338,41 @@ def _linear(din: int, dout: int, device, dtype) -> nn.Linear:
     return nn.Linear(din, dout, bias=False, device=device, dtype=dtype)
 
 
+def _tp_axis(module: nn.Module, tp: Optional[Axis], sp: bool) -> Optional[Axis]:
+    """The axis a sub-block runs tensor-parallel on: tp where
+    ``shard_params`` sharded its linears (``tp_size``), None where they
+    stayed whole (quantized: every rank computes the sub-block entire, as
+    GSPMD computes JAX's whole leaves). Sequence parallelism needs the
+    shards."""
+    if tp is None or module.tp_size == 1:
+        if sp:
+            raise ValueError("sequence parallelism needs the sub-block's linears sharded over "
+                             "tp (parallel.sharding.shard_params); a quantized linear stays "
+                             "whole")
+        return None
+    if module.tp_size != tp.size:
+        raise ValueError(f"the sub-block is sharded {module.tp_size} ways, the tp axis has "
+                         f"{tp.size} ranks")
+    return tp
+
+
+def _tp_in(x: torch.Tensor, tp: Axis, sp: bool) -> torch.Tensor:
+    """A column-parallel product's input: under sp the tokens of every tp
+    rank, gathered (dit.py:721-723), else x with its cotangent summed over
+    tp."""
+    return collectives.all_gather(x, 1, tp) if sp else collectives.copy_to_tp(x, tp)
+
+
+def _tp_out(y: torch.Tensor, tp: Axis, sp: bool) -> torch.Tensor:
+    """A row-parallel product's partial sums, summed over tp: under sp this
+    rank's tokens of the sum (``psum_scatter``), else all of them."""
+    return collectives.reduce_scatter(y, 1, tp) if sp else collectives.reduce_from_tp(y, tp)
+
+
 class Attention(nn.Module):
     """q/k/v/out projections with per-head RMSNorm on q and k."""
+
+    tp_size = 1  # the ways shard_params split the projections (1: whole)
 
     def __init__(self, dim: int, ctx_dim: int, num_heads: int, device=None, dtype=None):
         super().__init__()
@@ -346,9 +383,20 @@ class Attention(nn.Module):
         self.to_v = nn.Sequential(_linear(ctx_dim, dim, device, dtype))
         self.to_out = nn.Sequential(_linear(dim, dim, device, dtype))
 
-    def forward(self, x, context=None, rope=None, band=None, cp=None, cp_impl="allgather"):
+    def forward(self, x, context=None, rope=None, band=None, cp=None, cp_impl="allgather",
+                tp=None, sp=False):
         """cp: the context-parallel axis (self-attention of a sequence
-        shard, by strategy cp_impl; see ``cp_self_attention``)."""
+        shard, by strategy cp_impl; see ``cp_self_attention``). tp: the
+        tensor-parallel axis: with sharded projections this rank runs its
+        H/tp heads (cross-attention's context k/v too) and the output
+        projection's partial sums are summed over tp (dit.py:771-778); sp:
+        x holds this rank's L/tp tokens, gathered before the projections,
+        and the output keeps them (dit.py:721-723, 774-776)."""
+        tp = _tp_axis(self, tp, sp)
+        if tp is not None:
+            x = _tp_in(x, tp, sp)
+            if context is not None:
+                context = collectives.copy_to_tp(context, tp)
         B, L, D = x.shape
         ctx = x if context is None else context
         hd = D // self.num_heads
@@ -363,7 +411,8 @@ class Attention(nn.Module):
         else:
             out = kernels.attention(q, k, v, kernel_id="K1" if context is None else "K2",
                                     band=band)
-        return self.to_out[0](out.reshape(B, L, D))
+        out = self.to_out[0](out.reshape(B, L, -1))
+        return out if tp is None else _tp_out(out, tp, sp)
 
 
 class VideoAttn(nn.Module):
@@ -372,7 +421,7 @@ class VideoAttn(nn.Module):
         self.attn = Attention(dim, ctx_dim, num_heads, device, dtype)
 
     def forward(self, x, context=None, rope=None, band=None, cp=None, cp_impl="allgather",
-                n_views: int = 1):
+                n_views: int = 1, tp=None, sp=False):
         """n_views > 1 (cross-attention of the multiview net): the views fold
         into the batch, tokens (B, V*Lv, D) -> (B*V, Lv, D) and context (B,
         V*M, D_ctx) -> (B*V, M, D_ctx), views of the same memory, so each
@@ -380,21 +429,28 @@ class VideoAttn(nn.Module):
         if n_views > 1:
             B, L, D = x.shape
             ctx = context.reshape(B * n_views, context.shape[1] // n_views, context.shape[2])
-            out = self.attn(x.reshape(B * n_views, L // n_views, D), ctx)
+            out = self.attn(x.reshape(B * n_views, L // n_views, D), ctx, tp=tp, sp=sp)
             return out.reshape(B, L, D)
-        return self.attn(x, context, rope, band, cp, cp_impl)
+        return self.attn(x, context, rope, band, cp, cp_impl, tp, sp)
 
 
 class GPT2FeedForward(nn.Module):
     """Linear -> erf-GELU -> Linear, no biases."""
+
+    tp_size = 1  # the ways shard_params split the linears (1: whole)
 
     def __init__(self, dim: int, hidden: int, device=None, dtype=None):
         super().__init__()
         self.layer1 = _linear(dim, hidden, device, dtype)
         self.layer2 = _linear(hidden, dim, device, dtype)
 
-    def forward(self, x):
-        return self.layer2(_gelu(self.layer1(x)))
+    def forward(self, x, tp=None, sp=False):
+        """tp, sp: as ``Attention``'s; fc1 (layer1) column-parallel over the
+        hidden units, fc2 (layer2) row-parallel (dit.py:786-798)."""
+        tp = _tp_axis(self, tp, sp)
+        if tp is None:
+            return self.layer2(_gelu(self.layer1(x)))
+        return _tp_out(self.layer2(_gelu(self.layer1(_tp_in(x, tp, sp)))), tp, sp)
 
 
 class DITBuildingBlock(nn.Module):
@@ -428,11 +484,12 @@ class GeneralDITTransformerBlock(nn.Module):
         ])
 
     def forward(self, x, emb, lora, extra, ctx, rope, band=None, cp=None, cp_impl="allgather",
-                n_views: int = 1):
+                n_views: int = 1, tp=None, sp=False):
         x = x + extra
-        x = self.blocks[0](x, emb, lora, rope=rope, band=band, cp=cp, cp_impl=cp_impl)
-        x = self.blocks[1](x, emb, lora, context=ctx, n_views=n_views)
-        return self.blocks[2](x, emb, lora)
+        x = self.blocks[0](x, emb, lora, rope=rope, band=band, cp=cp, cp_impl=cp_impl, tp=tp,
+                           sp=sp)
+        x = self.blocks[1](x, emb, lora, context=ctx, n_views=n_views, tp=tp, sp=sp)
+        return self.blocks[2](x, emb, lora, tp=tp, sp=sp)
 
 
 class _PatchEmbed(nn.Module):
@@ -542,7 +599,7 @@ class GeneralDIT(nn.Module):
                 remat: bool = False, cp: Optional[Axis] = None,
                 span_delta: Optional[SpanDelta] = None, return_span_delta: bool = False,
                 return_block_residuals: bool = False, action: Optional[torch.Tensor] = None,
-                cp_attn_impl: Optional[str] = None):
+                cp_attn_impl: Optional[str] = None, tp: Optional[Axis] = None, sp: bool = False):
         """remat=True recomputes each block's activations in the backward
         instead of keeping them (``torch.utils.checkpoint``, non-reentrant:
         dit.py's ``jax.checkpoint(block_step)``, :1040-1045). Serving calls
@@ -558,6 +615,17 @@ class GeneralDIT(nn.Module):
         gradient tracked, the strategy's collectives carry it back
         (``parallel.collectives``): K1cp's forward with lse and K4 run on
         each rank's H/cp heads of the whole sequence.
+
+        tp: the tensor-parallel axis (size > 1) of a net that
+        ``parallel.sharding.shard_params`` sliced: each sub-block runs its
+        rank's H/tp heads or 4D/tp hidden units and sums its row-parallel
+        output over tp (dit.py:680-800); under cp x tp Ulysses runs on
+        (H/tp)/cp heads. sp=True (Megatron-SP, dit.py:951-966, 1110-1112):
+        this rank keeps tokens [r L/tp, (r+1) L/tp) of its (cp) sequence and
+        its rows of the extra position embedding between the sub-blocks
+        (RoPE stays whole: it is applied after the gather), and the output
+        is gathered over tp after the final layer. A span delta and the
+        block residuals are then this rank's tokens', as under cp.
 
         Span caching (``cfg.cache_block_span`` = (lo, hi), dit.py:1048-1118):
         return_span_delta=True also returns what the span's blocks added to
@@ -590,10 +658,15 @@ class GeneralDIT(nn.Module):
         extra = extra.to(dtype).reshape(1, L, D)
         band = (None if cfg.attn_temporal_window is None
                 else (Hp * Wp, cfg.attn_temporal_window, cfg.attn_prefix_frames))
+        impl = cfg.cp_attn_impl if cp_attn_impl is None else cp_attn_impl
+        tp = self._check_tp(tp, sp, cp, impl, L)
+        if sp:  # this rank's contiguous L/tp tokens between the sub-blocks
+            n = L // tp.size
+            tokens = tokens[:, tp.rank * n:(tp.rank + 1) * n]
+            extra = extra[:, tp.rank * n:(tp.rank + 1) * n]
 
         emb, lora = self.time_embedding(timesteps, action)
         ctx = crossattn_emb.to(dtype)
-        impl = cfg.cp_attn_impl if cp_attn_impl is None else cp_attn_impl
         span = cfg.cache_block_span
         if (span_delta is not None or return_span_delta) and span is None:
             raise ValueError("span_delta/return_span_delta need cfg.cache_block_span")
@@ -611,9 +684,9 @@ class GeneralDIT(nn.Module):
             before = tokens if return_block_residuals else None
             if remat and torch.is_grad_enabled():
                 tokens = checkpoint(blk, tokens, emb, lora, extra, ctx, rope, band, cp, impl,
-                                    use_reentrant=False)
+                                    tp=tp, sp=sp, use_reentrant=False)
             else:
-                tokens = blk(tokens, emb, lora, extra, ctx, rope, band, cp, impl)
+                tokens = blk(tokens, emb, lora, extra, ctx, rope, band, cp, impl, tp=tp, sp=sp)
             if return_block_residuals:
                 bf = before.float()
                 residuals.append((tokens.float() - bf).abs().mean() / (bf.abs().mean() + 1e-8))
@@ -622,12 +695,35 @@ class GeneralDIT(nn.Module):
         if return_span_delta and lo == hi:  # an empty span adds nothing
             new_delta = self._span_carry(torch.zeros_like(tokens))
 
-        out = self.unpatchify(self.final(tokens, emb, lora).reshape(B, Tp, Hp, Wp, -1), T, H, W)
+        tokens = self.final(tokens, emb, lora)
+        if sp:  # the whole (cp) sequence for unpatchify, the same on every tp rank
+            tokens = collectives.gather_to_replicas(tokens, 1, tp)
+        out = self.unpatchify(tokens.reshape(B, Tp, Hp, Wp, -1), T, H, W)
         if return_block_residuals:
             return out, torch.stack(residuals)
         if return_span_delta:
             return out, new_delta
         return out
+
+    def _check_tp(self, tp: Optional[Axis], sp: bool, cp: Optional[Axis], impl: str,
+                  L: int) -> Optional[Axis]:
+        """The tp axis the blocks run on (None for a size-1 axis), after
+        the layouts tensor parallelism refuses: sp without tp, a sequence
+        sp cannot split, Ulysses whose cp does not divide the H/tp heads."""
+        if tp is not None and tp.size == 1:
+            tp = None
+        if sp and tp is None:
+            raise ValueError("sp requires a tp axis of size > 1")
+        if sp and L % tp.size:
+            raise ValueError(f"L={L} must divide tp={tp.size} for sp")
+        if tp is not None and cp is not None and impl == "ulysses":
+            heads = self.cfg.num_heads // tp.size
+            if heads % cp.size:
+                raise ValueError(
+                    f"Ulysses under cp x tp runs (H/tp)/cp heads a rank: the "
+                    f"{self.cfg.num_heads} heads over tp={tp.size} leave {heads} a tp rank, "
+                    f"which cp={cp.size} does not divide")
+        return tp
 
     def time_embedding(self, timesteps: torch.Tensor, action: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -143,11 +143,15 @@ class MultiviewGeneralDIT(GeneralDIT):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, crossattn_emb: torch.Tensor,
                 fps: Optional[float] = None, padding_mask: Optional[torch.Tensor] = None,
-                frame_repeat: Optional[torch.Tensor] = None, remat: bool = False):
+                frame_repeat: Optional[torch.Tensor] = None, remat: bool = False,
+                tp=None):
         """x (B, C, V*T, H, W); crossattn_emb (B, V*M, D_ctx), each view's
         prompt in turn; frame_repeat (B, V). remat=True recomputes each
         block in the backward (per block; gen3c_tpu remats the whole
-        multiview net, the same arithmetic)."""
+        multiview net, the same arithmetic). tp: the tensor-parallel axis
+        of a net ``parallel.sharding.shard_params`` sliced, run through
+        GeneralDIT's blocks (no sequence parallelism: gen3c_tpu's multiview
+        forward has no hook for it, train_step.py:287-291)."""
         cfg = self.cfg
         dtype = cfg.dtype
         V = cfg.n_views
@@ -168,10 +172,10 @@ class MultiviewGeneralDIT(GeneralDIT):
                 f"prompts (B, V*M, D_ctx): it cannot fold into the batch for cross-attention")
         for blk in self.blocks.values():
             if remat and torch.is_grad_enabled():
-                tokens = checkpoint(blk, tokens, emb, lora, extra, ctx, rope, n_views=V,
+                tokens = checkpoint(blk, tokens, emb, lora, extra, ctx, rope, n_views=V, tp=tp,
                                     use_reentrant=False)
             else:
-                tokens = blk(tokens, emb, lora, extra, ctx, rope, n_views=V)
+                tokens = blk(tokens, emb, lora, extra, ctx, rope, n_views=V, tp=tp)
         return self.unpatchify(self.final(tokens, emb, lora).reshape(B, Tp_all, Hp, Wp, -1),
                                VT, H, W)
 

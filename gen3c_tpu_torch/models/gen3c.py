@@ -5,8 +5,9 @@ VAE-encoded per buffer into the pose latent; sampling is the EDM-Euler
 loop with batched CFG, or the dpm2m / res2ab multistep solvers, with the
 JAX package's guidance interval, CFG rescale and step caching (the whole
 output, or a span of blocks), on one device or, when the model carries
-process groups with a cp or cfg axis of size > 1, context- and
-CFG-parallel over them (``parallel.cp.cp_generate_samples``).
+process groups with a cp, cfg or tp axis of size > 1, context-, CFG- and
+tensor-parallel over them (``parallel.cp.cp_generate_samples``), with
+sequence parallelism where ``sequence_parallel`` is set.
 """
 
 from __future__ import annotations
@@ -38,8 +39,10 @@ class Gen3CModel:
     chunk_size: int = 121  # pixel frames per diffusion call
     state_shape: Tuple[int, int, int, int] = (16, 16, 88, 160)
     schedule: EDMEulerSchedule = dataclasses.field(default_factory=EDMEulerSchedule)
-    # this rank's cfg and cp axes (parallel.mesh.make_groups); None: one device
+    # this rank's cfg, cp and tp axes (parallel.mesh.make_groups); None: one device
     groups: Optional[Groups] = None
+    # Megatron-SP in the cp x tp denoise (needs a tp axis of size > 1)
+    sequence_parallel: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -165,7 +168,8 @@ class Gen3CModel:
             # gen3c_tpu/models/gen3c.py:317-350: every rank holds the global noise
             from gen3c_tpu_torch.parallel.cp import cp_generate_samples
 
-            return cp_generate_samples(self.groups, self.net, **inputs)
+            return cp_generate_samples(self.groups, self.net,
+                                       sequence_parallel=self.sequence_parallel, **inputs)
         span = self.net.cfg.cache_block_span is not None and step_cache_interval > 1
         if span and step_cache_threshold > 0:
             raise ValueError("step_cache_block_span and step_cache_threshold are mutually "
@@ -174,12 +178,14 @@ class Gen3CModel:
         return generate_samples(net_fn, net_fn_skip=net_fn_skip, **inputs)
 
 
-def dit_net_fns(net: GeneralDIT, span: bool, cp=None):
-    """(net_fn, net_fn_skip) for the sampler: the DiT at fps 24 (in its cp
-    mode on an axis), and with span caching the refresh forward that also
-    returns the span's delta and the skip forward that re-applies it
-    (gen3c.py ``_dit_net_fn_span_*``); net_fn_skip is None without."""
+def dit_net_fns(net: GeneralDIT, span: bool, cp=None, tp=None, sp: bool = False):
+    """(net_fn, net_fn_skip) for the sampler: the DiT at fps 24 (in its cp,
+    tp and sp modes on their axes), and with span caching the refresh
+    forward that also returns the span's delta and the skip forward that
+    re-applies it (gen3c.py ``_dit_net_fn_span_*``, parallel/cp.py's
+    ``_cp[_tp[_sp]]_span_*``); net_fn_skip is None without."""
+    kw = dict(fps=24.0, cp=cp, tp=tp, sp=sp)
     if not span:
-        return (lambda x, t, ctx: net(x, t, ctx, fps=24.0, cp=cp)), None
-    return ((lambda x, t, ctx: net(x, t, ctx, fps=24.0, cp=cp, return_span_delta=True)),
-            (lambda x, t, ctx, delta: net(x, t, ctx, fps=24.0, cp=cp, span_delta=delta)))
+        return (lambda x, t, ctx: net(x, t, ctx, **kw)), None
+    return ((lambda x, t, ctx: net(x, t, ctx, return_span_delta=True, **kw)),
+            (lambda x, t, ctx, delta: net(x, t, ctx, span_delta=delta, **kw)))

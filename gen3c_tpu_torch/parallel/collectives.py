@@ -13,15 +13,35 @@ collectives gen3c_tpu uses inside its shard_map):
   all_reduce                   sum or mean over the axis (``psum`` /
                                ``pmean``, diffusion/sampler.py:81-82,
                                390-398, 691-692)
+  reduce_scatter               this rank's chunk of the sum over the axis
+                               (``psum_scatter``, the sequence-parallel
+                               row output, dit.py:774-776, 793-795)
+
+and Megatron's two tensor-parallel operators, where the sum and its
+adjoint part ways (dit.py:771-778, 792-798 under autodiff):
+
+  copy_to_tp                   identity forward, all-reduce backward: the
+                               input of a column-parallel linear
+  reduce_from_tp               all-reduce forward, identity backward: a
+                               row-parallel linear's partial sums
+  gather_to_replicas           all-gather forward whose consumers are
+                               the same on every rank (the SP net's
+                               output), this rank's chunk backward
 
 Each one is differentiable where a gradient is tracked (grad mode on and
 the input requiring grad): a ``torch.autograd.Function`` whose backward
 is its adjoint, the collective that carries the cotangents back:
-seq_to_heads and heads_to_seq are each other's, all_gather's is the
-reduce-scatter (``reduce_scatter``: all-to-all, then the sum in rank
-order), all_reduce's is itself (each rank's cotangent of its copy of the
-sum, summed; a mean divides by the axis size). A training step under
-context parallelism differentiates its Ulysses attention through them.
+seq_to_heads and heads_to_seq are each other's, all_gather's is
+reduce_scatter (all-to-all, then the sum in rank order) and
+reduce_scatter's is all_gather, all_reduce's is itself (each rank's
+cotangent of its copy of the sum, summed; a mean divides by the axis
+size). ``all_reduce`` is the right adjoint only where every rank's
+consumer of the sum differs; a row-parallel output feeds the same
+computation on every tp rank, whose cotangents are equal, and summing
+them would hand each rank tp times the gradient: that is reduce_from_tp.
+A training step under context parallelism differentiates its Ulysses
+attention through them, one under tensor parallelism its Megatron
+linears.
 
 On NCCL they take CUDA tensors directly. On gloo, which the caller chooses
 for CPU tensors, or for CUDA tensors when the ranks share one card (NCCL
@@ -37,7 +57,8 @@ batch, ...)), which the attention kernels read as they are.
 
 ``traffic`` counts, per op, the calls, the bytes of other ranks' data this
 rank received (all-to-all (n-1)/n of the buffer, all-gather n-1 shards, a
-ring shift one shard, all-reduce n-1 copies of the tensor) and the host
+ring shift one shard, all-reduce n-1 copies of the tensor, reduce-scatter
+(n-1)/n of the buffer, as its all-to-all) and the host
 seconds spent in the op (for gloo on a card, the copies and the exchange;
 for NCCL, the enqueue).
 """
@@ -59,7 +80,7 @@ from gen3c_tpu_torch.parallel.mesh import Axis
 GLOO_CUDA_OPS = frozenset({"all_reduce", "all_to_all", "all_gather"})
 
 traffic = {op: {"calls": 0, "bytes": 0, "seconds": 0.0}
-           for op in ("all_to_all", "all_gather", "ring_shift", "all_reduce")}
+           for op in ("all_to_all", "all_gather", "ring_shift", "all_reduce", "reduce_scatter")}
 
 
 def reset_traffic() -> None:
@@ -88,8 +109,9 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _all_to_all(send: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """dist.all_to_all_single over dim 0 of a contiguous (n, ...) buffer."""
+def _all_to_all(send: torch.Tensor, axis: Axis, op: str = "all_to_all") -> torch.Tensor:
+    """dist.all_to_all_single over dim 0 of a contiguous (n, ...) buffer,
+    counted under ``op``."""
     t0 = time.perf_counter()
     staged = _staged("all_to_all", send, axis)
     src = _host(send) if staged else send
@@ -97,7 +119,7 @@ def _all_to_all(send: torch.Tensor, axis: Axis) -> torch.Tensor:
     dist.all_to_all_single(recv, src, group=axis.group)
     if staged:
         recv = recv.to(send.device)
-    _record("all_to_all", _nbytes(send) * (axis.size - 1) // axis.size, t0)
+    _record(op, _nbytes(send) * (axis.size - 1) // axis.size, t0)
     return recv
 
 
@@ -136,6 +158,49 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return reduce_scatter(g, ctx.dim, ctx.axis), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _reduce_scatter(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.axis), None, None
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherToReplicas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis, ctx.n = dim, axis, x.shape[dim]
+        return _all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n).contiguous(), None, None
 
 
 class _AllReduce(torch.autograd.Function):
@@ -210,14 +275,19 @@ def reduce_scatter(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
     length along ``dim``): chunk r of each rank's x, summed in rank order
     (``jax.lax.psum_scatter(scatter_dimension=dim, tiled=True)``), through
     one all-to-all (gloo has no reduce-scatter). The adjoint of
-    ``all_gather``; counted under "all_to_all"."""
+    ``all_gather``, whose own adjoint it is; counted under
+    "reduce_scatter"."""
+    return _ReduceScatter.apply(x, dim, axis) if _tracked(x) else _reduce_scatter(x, dim, axis)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
     n = axis.size
     if x.shape[dim] % n:
         raise ValueError(f"reduce_scatter: {x.shape[dim]} along dim {dim} does not split "
                          f"{n} ways")
     send = x.movedim(dim, 0)
     send = send.reshape((n, send.shape[0] // n) + tuple(send.shape[1:])).contiguous()
-    recv = _all_to_all(send, axis)  # (source rank, shard, the other dims)
+    recv = _all_to_all(send, axis, "reduce_scatter")  # (source rank, shard, the other dims)
     out = recv[0].clone()
     for part in recv[1:]:
         out += part
@@ -243,6 +313,28 @@ def ring_shift(tensors: List[torch.Tensor], axis: Axis) -> List[torch.Tensor]:
         out.append(recv.to(t.device) if staged else recv)
         _record("ring_shift", _nbytes(t), t0)
     return out
+
+
+def copy_to_tp(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """x itself; its cotangent is summed over the axis (Megatron's copy to
+    the tensor-parallel region): the input of a column-parallel linear,
+    whose ranks each take a part of the gradient."""
+    return _CopyToTp.apply(x, axis) if _tracked(x) else x
+
+
+def reduce_from_tp(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum of x over the axis; its cotangent passes unchanged
+    (Megatron's reduce from the tensor-parallel region): a row-parallel
+    linear's partial sums, whose sum every rank then uses alike."""
+    return _ReduceFromTp.apply(x, axis) if _tracked(x) else _all_reduce(x, axis)
+
+
+def gather_to_replicas(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
+    """``all_gather`` of shards that every rank then consumes the same way
+    (the sequence-parallel net's output, before a loss every tp rank
+    computes alike): the cotangent is equal on every rank, so its adjoint
+    is this rank's chunk of it, not their sum."""
+    return _GatherToReplicas.apply(x, dim, axis) if _tracked(x) else _all_gather(x, dim, axis)
 
 
 def all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:

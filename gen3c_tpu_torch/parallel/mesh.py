@@ -6,13 +6,15 @@ The JAX package lays its devices out as one (dp, cfg, cp, tp) mesh:
   cfg — CFG parallel (size 2: the conditioned and unconditioned forwards
         run on different ranks, one sum per denoise step combines them)
   cp  — context parallel (latent-T / token sharding in the denoiser)
-  tp  — tensor parallel (not ported: ROADMAP item 15b)
+  tp  — tensor parallel (Megatron column / row shards of the DiT's linears,
+        ``parallel.sharding``; with sequence parallelism also the tokens
+        between them)
 
 Here every device is a process, a rank of ``torch.distributed`` as
 ``torchrun`` starts them, and each mesh axis is a process group. Ranks
-follow the mesh's row-major order: rank = (dp_index * cfg + cfg_index) *
-cp + cp_index (tp is 1). ``maybe_distributed_init`` joins the job torchrun
-describes; ``make_groups`` replaces ``make_mesh``.
+follow the mesh's row-major order, tp fastest: rank = ((dp_index * cfg +
+cfg_index) * cp + cp_index) * tp + tp_index. ``maybe_distributed_init``
+joins the job torchrun describes; ``make_groups`` replaces ``make_mesh``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-ITEM_15B = "ROADMAP item 15b"  # tensor and sequence parallelism
 ITEM_15C = "ROADMAP item 15c"  # pipeline parallelism, sharded renders, FSDP
 ITEM_15D = "ROADMAP item 15d"  # serving over several cards
 
@@ -41,18 +42,21 @@ class Axis:
 
 @dataclasses.dataclass(frozen=True)
 class Groups:
-    """The dp, cfg and cp axes of this rank (``make_groups``), and ``world``:
-    every rank of the mesh (the ranks a training step's gradients are
-    summed over)."""
+    """The dp, cfg, cp and tp axes of this rank (``make_groups``), ``world``:
+    every rank of the mesh, and ``shard_peers``: the ranks that hold this
+    rank's tp shard, over which a sharded leaf's gradient and the loss are
+    summed (dp x cfg x cp at its tp index: the world at tp 1)."""
 
     cfg: Axis = Axis()
     cp: Axis = Axis()
     dp: Axis = Axis()
     world: Axis = Axis()
+    tp: Axis = Axis()
+    shard_peers: Axis = Axis()
 
     @property
     def parallel(self) -> bool:
-        return any(a.size > 1 for a in (self.cfg, self.cp, self.dp, self.world))
+        return any(a.size > 1 for a in (self.cfg, self.cp, self.dp, self.world, self.tp))
 
 
 def default_backend(device) -> str:
@@ -94,36 +98,36 @@ def maybe_distributed_init(backend: Optional[str] = None, device="cuda") -> bool
 
 def make_groups(dp: int = 1, cfg: int = 1, cp: Optional[int] = 1, tp: int = 1,
                 backend: Optional[str] = None) -> Groups:
-    """The dp, cfg and cp process groups of a (dp, cfg, cp, tp) mesh over
-    the ranks of the default process group, and this rank's place in each.
+    """The dp, cfg, cp and tp process groups of a (dp, cfg, cp, tp) mesh
+    over the ranks of the default process group, and this rank's place in
+    each.
 
-    cp None takes every rank dp * cfg leave (gen3c_tpu's ``make_mesh``).
-    backend names the groups' backend (default: the default group's); a
-    caller may ask for gloo on CUDA tensors, whose collectives then pass
-    through host memory (``collectives``). The world size must be dp * cfg
-    * cp; tp > 1 raises NotImplementedError (ROADMAP item 15b). Every rank
-    must call this with the same arguments (``dist.new_group``)."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"tensor parallelism (tp={tp}) is not ported to gen3c_tpu_torch yet ({ITEM_15B})")
+    cp None takes every rank dp * cfg * tp leave (gen3c_tpu's
+    ``make_mesh``). backend names the groups' backend (default: the
+    default group's); a caller may ask for gloo on CUDA tensors, whose
+    collectives then pass through host memory (``collectives``). The world
+    size must be dp * cfg * cp * tp. Every rank must call this with the
+    same arguments (``dist.new_group``)."""
     if cfg not in (1, 2):
         raise ValueError(f"cfg axis must be 1 or 2, got {cfg}")
-    if dp < 1:
-        raise ValueError(f"dp must be >= 1, got {dp}")
+    if dp < 1 or tp < 1:
+        raise ValueError(f"dp and tp must be >= 1, got dp={dp}, tp={tp}")
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
     if cp is None:
-        if world % (dp * cfg):
-            raise ValueError(f"dp*cfg = {dp * cfg} does not divide the ranks: the world size "
-                             f"is {world}")
-        cp = world // (dp * cfg)
+        if world % (dp * cfg * tp):
+            raise ValueError(f"dp*cfg*tp = {dp * cfg * tp} does not divide the ranks: the "
+                             f"world size is {world}")
+        cp = world // (dp * cfg * tp)
     if cp < 1:
         raise ValueError(f"cp must be >= 1, got {cp}")
-    if dp * cfg * cp != world:
-        raise ValueError(f"dp*cfg*cp = {dp * cfg * cp} ranks, but the world size is {world}")
+    if dp * cfg * cp * tp != world:
+        raise ValueError(f"dp*cfg*cp*tp = {dp * cfg * cp * tp} ranks, but the world size is "
+                         f"{world}")
     if world == 1:
         return Groups()
     rank = dist.get_rank()
-    dp_i, rest = divmod(rank, cfg * cp)
+    rest, tp_i = divmod(rank, tp)
+    dp_i, rest = divmod(rest, cfg * cp)
     cfg_i, cp_i = divmod(rest, cp)
 
     def axis(members, index, size):
@@ -136,18 +140,26 @@ def make_groups(dp: int = 1, cfg: int = 1, cp: Optional[int] = 1, tp: int = 1,
                 mine = Axis(group, index, size)
         return mine
 
-    def at(d, c, j):
-        return (d * cfg + c) * cp + j
+    def at(d, c, j, k=0):
+        return ((d * cfg + c) * cp + j) * tp + k
 
-    cp_axis = cfg_axis = dp_axis = Axis()
+    cells = [(d, c, j) for d in range(dp) for c in range(cfg) for j in range(cp)]
+    cp_axis = cfg_axis = dp_axis = tp_axis = shard_peers = Axis()
     if cp > 1:
-        cp_axis = axis([[at(d, c, j) for j in range(cp)] for d in range(dp) for c in range(cfg)],
-                       cp_i, cp)
+        cp_axis = axis([[at(d, c, j, k) for j in range(cp)] for d in range(dp)
+                        for c in range(cfg) for k in range(tp)], cp_i, cp)
     if cfg > 1:
-        cfg_axis = axis([[at(d, c, j) for c in range(cfg)] for d in range(dp) for j in range(cp)],
-                        cfg_i, cfg)
+        cfg_axis = axis([[at(d, c, j, k) for c in range(cfg)] for d in range(dp)
+                         for j in range(cp) for k in range(tp)], cfg_i, cfg)
     if dp > 1:
-        dp_axis = axis([[at(d, c, j) for d in range(dp)] for c in range(cfg) for j in range(cp)],
-                       dp_i, dp)
+        dp_axis = axis([[at(d, c, j, k) for d in range(dp)] for c in range(cfg)
+                        for j in range(cp) for k in range(tp)], dp_i, dp)
+    if tp > 1:
+        tp_axis = axis([[at(*cell, k) for k in range(tp)] for cell in cells], tp_i, tp)
+        if len(cells) > 1:  # else this rank alone holds its shard
+            shard_peers = axis([[at(*cell, k) for cell in cells] for k in range(tp)],
+                               (dp_i * cfg + cfg_i) * cp + cp_i, len(cells))
     world_axis = axis([list(range(world))], rank, world)
-    return Groups(cfg_axis, cp_axis, dp_axis, world_axis)
+    if tp == 1:
+        shard_peers = world_axis
+    return Groups(cfg_axis, cp_axis, dp_axis, world_axis, tp_axis, shard_peers)

@@ -12,11 +12,12 @@ guidance interval) as the JAX package does; ``add_perf_flags`` and
 
 Over several devices (``num_devices`` > 1, one process per rank as
 ``torchrun`` starts them) the model carries the process groups of its
-``parallel`` strategy: "cp" (context parallel over every rank), "cfg2"
-(the CFG pair split over 2 ranks) or "cfg2cpN" (both, on 2N ranks), with
-``cp_attn`` choosing the self-attention strategy (gen3c_tpu/pipelines/
-factory.py:138-157, 374-453). Tensor parallelism ("tp", "cpNtpM[sp]",
-"cfg2...tpM") is not ported (ROADMAP item 15b).
+``parallel`` strategy: "cp" (context parallel over every rank), "tp"
+(the DiT's linears sharded Megatron-style over every rank), "cpNtpM"
+(both, on N·M ranks; "cpNtpMsp" adds sequence parallelism), "cfg2" (the
+CFG pair split over 2 ranks) or "cfg2[cpN][tpM]" (with cp and tp, on
+2·N·M ranks), with ``cp_attn`` choosing the self-attention strategy
+(gen3c_tpu/pipelines/factory.py:138-157, 374-453).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from gen3c_tpu_torch.models.gen3c import Gen3CModel
 from gen3c_tpu_torch.models.quantize import quantize_dit_
 from gen3c_tpu_torch.models.vae import CV8x8x8, CausalVAE, VAEConfig, VideoTokenizer
 from gen3c_tpu_torch.parallel import mesh
+from gen3c_tpu_torch.parallel.sharding import shard_params
 from gen3c_tpu_torch.utils import checkpoint as ckpt
 from gen3c_tpu_torch.utils import log
 
@@ -99,22 +101,70 @@ GEN3C_TINY_PRESET = Gen3CPreset(
 PRESETS = {p.name: p for p in (GEN3C_7B_PRESET, GEN3C_TINY_PRESET)}
 
 
-def parse_parallel(parallel: str) -> Tuple[int, Optional[int]]:
-    """(cfg, cp) of a strategy name: "cp" -> (1, None: every rank), "cfg2"
-    -> (2, 1), "cfg2cpN" -> (2, N). An unknown name raises ValueError;
-    the tensor-parallel ones ("tp", "cpNtpM[sp]", "cfg2[cpN]tpM")
-    NotImplementedError (gen3c_tpu/pipelines/factory.py:374-453)."""
+def parse_parallel(parallel: str) -> Tuple[int, Optional[int], Optional[int], bool]:
+    """(cfg, cp, tp, sp) of a strategy name, None for the axis that takes
+    every rank: "cp" -> (1, None, 1, False), "tp" -> (1, 1, None, False),
+    "cpNtpM[sp]" -> (1, N, M, sp), "cfg2[cpN][tpM]" -> (2, N or 1, M or 1,
+    False). An unknown name raises ValueError
+    (gen3c_tpu/pipelines/factory.py:374-453)."""
     cp_tp = re.fullmatch(r"cp(\d+)tp(\d+)(sp)?", parallel)
     cfg = re.fullmatch(r"cfg2(?:cp(\d+))?(?:tp(\d+))?", parallel)
     if parallel not in ("cp", "tp") and not cp_tp and not cfg:
         raise ValueError(f"unknown parallel strategy {parallel!r}")
-    if parallel == "tp" or cp_tp or (cfg and cfg.group(2)):
-        raise NotImplementedError(
-            f"--parallel {parallel}: tensor and sequence parallelism are not ported to "
-            f"gen3c_tpu_torch yet ({mesh.ITEM_15B})")
     if cfg:
-        return 2, int(cfg.group(1) or 1)
-    return 1, None
+        return 2, int(cfg.group(1) or 1), int(cfg.group(2) or 1), False
+    if cp_tp:
+        return 1, int(cp_tp.group(1)), int(cp_tp.group(2)), cp_tp.group(3) == "sp"
+    return (1, 1, None, False) if parallel == "tp" else (1, None, 1, False)
+
+
+def resolve_layout(parallel: str, num_devices: int, quantize: Union[bool, str] = False
+                   ) -> Tuple[int, int, int, bool]:
+    """(cfg, cp, tp, sp) of a strategy over ``num_devices`` ranks, validated
+    as gen3c_tpu's factory validates it (:374-453, its messages): an
+    unknown name, a layout that needs another number of devices, "sp"
+    without a tp axis, "cpNtpM" with quantize; and "cfg2[cpN]tpM" with
+    quantize, where gen3c_tpu's shard_map would sum the ranks' whole
+    quantized outputs over tp (a departure: refused here)."""
+    cfg, cp, tp, sp = parse_parallel(parallel)
+    cp = num_devices // cfg if cp is None else cp
+    tp = num_devices if tp is None else tp
+    if sp and tp < 2:
+        raise ValueError("the 'sp' suffix (Megatron sequence parallelism) needs tp>=2")
+    if cfg * cp * tp != num_devices:
+        raise ValueError(f"parallel={parallel!r} needs {cfg * cp * tp} devices, got "
+                         f"num_devices={num_devices}")
+    if quantize and cfg == 1 and parallel not in ("cp", "tp"):
+        raise ValueError("cpNtpM serving is the bf16 multi-chip path; combine with "
+                         "quantize=False")
+    if quantize and tp > 1 and cfg == 2:
+        raise ValueError(
+            f"parallel={parallel!r} with quantize: the quantized linears stay whole on "
+            f"every rank (as gen3c_tpu's specs keep them), and gen3c_tpu's cfg2...tpM "
+            f"shard_map sums their whole outputs over tp, a wrong result; use "
+            f"quantize=False, or 'cfg2[cpN]' or 'tp'")
+    return cfg, cp, tp, sp
+
+
+def parallelize(model: Gen3CModel, parallel: str, num_devices: int,
+                quantize: Union[bool, str] = False, backend: Optional[str] = None) -> mesh.Groups:
+    """Lay ``model`` out over this job's ranks by a strategy
+    (``resolve_layout``): the groups of its (cfg, cp, tp) mesh
+    (``parallel.mesh.make_groups`` with ``backend``), its sequence
+    parallelism and, over a tp axis, this rank's shards of the DiT
+    (``parallel.sharding.shard_params``; a quantized sub-block stays
+    whole). A net already cut for this tp size stays as it is, so a model
+    may be laid out again by another strategy with the same tp. Every rank
+    calls this with the same arguments; returns the groups."""
+    cfg, cp, tp, sp = resolve_layout(parallel, num_devices, quantize)
+    groups = mesh.make_groups(cfg=cfg, cp=cp, tp=tp, backend=backend)
+    shard_params(model.net, groups)
+    model.groups = groups
+    model.sequence_parallel = sp
+    log.info(f"parallel denoising over {num_devices} ranks: cfg={cfg} x cp={cp} x tp={tp}"
+             + (" + sequence parallelism" if sp else "")
+             + (f" ({model.net.cfg.cp_attn_impl} self-attention)" if cp > 1 else ""))
+    return groups
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -170,9 +220,15 @@ def build_gen3c_model(
     (``torchrun``'s environment; ``parallel.mesh.maybe_distributed_init``
     joins it with dist_backend, default NCCL on CUDA and gloo on the CPU;
     gloo also serves ranks that share one card). Every rank builds the same
-    weights from the same seed, and the model carries the groups of the
-    ``parallel`` strategy (``parse_parallel``, validated even at one
-    device). cp_attn ("allgather", the default, "ring" or "ulysses") is the
+    weights from the same seed, and ``parallelize`` lays the model out by
+    the ``parallel`` strategy (the name is validated even at one device,
+    the rest by ``resolve_layout`` as gen3c_tpu validates it over several,
+    before the job is joined). With a tp axis each rank keeps its shard of
+    the DiT: "tp" with quantize keeps the quantized linears whole on every
+    rank, as JAX's specs do; "cpNtpM" refuses quantize as gen3c_tpu does,
+    and so does "cfg2[cpN]tpM", where gen3c_tpu's shard_map would sum the
+    ranks' whole outputs (a departure).
+    cp_attn ("allgather", the default, "ring" or "ulysses") is the
     self-attention under context parallelism; a band over several devices
     needs "ulysses" or "ring".
 
@@ -183,7 +239,7 @@ def build_gen3c_model(
     """
     if quantize not in (False, "int8", "w8a8"):
         raise ValueError(f"quantize must be False, 'int8' or 'w8a8', got {quantize!r}")
-    cfg_n, cp_n = parse_parallel(parallel)
+    parse_parallel(parallel)
     if cp_attn is not None and cp_attn not in ("allgather", "ring", "ulysses"):
         raise ValueError(f"unknown cp_attn {cp_attn!r}; expected 'allgather', 'ring' or "
                          f"'ulysses'")
@@ -210,21 +266,14 @@ def build_gen3c_model(
         preset = dataclasses.replace(preset, dit=dataclasses.replace(
             preset.dit, attn_temporal_window=attn_temporal_window))
     device = resolve_device(device)
-    groups = None
     if num_devices > 1:
+        resolve_layout(parallel, num_devices, quantize)  # before the job is joined
         mesh.maybe_distributed_init(dist_backend, device)
         world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
         if world != num_devices:
             raise ValueError(f"num_devices={num_devices} but this job has {world} process(es): "
                              f"launch one per device (torchrun --nproc_per_node "
                              f"{num_devices})")
-        cp_n = num_devices // cfg_n if cp_n is None else cp_n
-        if cfg_n * cp_n != num_devices:
-            raise ValueError(f"parallel={parallel!r} needs {cfg_n * cp_n} devices, got "
-                             f"num_devices={num_devices}")
-        groups = mesh.make_groups(cfg=cfg_n, cp=cp_n, backend=dist_backend)
-        log.info(f"parallel denoising over {num_devices} ranks: cfg={cfg_n} x cp={cp_n}"
-                 + (f" ({preset.dit.cp_attn_impl} self-attention)" if cp_n > 1 else ""))
     gen = torch.Generator(device=device).manual_seed(seed)
     net, prequantized = _acquire_dit(preset, checkpoint_dir, quantize, device, gen, seed)
     vae, latent_mean, latent_std = _acquire_vae(preset, checkpoint_dir, device, gen)
@@ -242,8 +291,9 @@ def build_gen3c_model(
         frame_buffer_max=preset.frame_buffer_max,
         chunk_size=preset.chunk_size,
         state_shape=preset.state_shape,
-        groups=groups,
     )
+    if num_devices > 1:
+        parallelize(model, parallel, num_devices, quantize, dist_backend)
     return model, preset
 
 
@@ -380,7 +430,7 @@ def add_parallel_flags(p) -> None:
                    choices=["allgather", "ring", "ulysses"],
                    help="self-attention under context parallelism (default allgather)")
     p.add_argument("--parallel", type=str, default="cp",
-                   help="multi-device strategy: cp, cfg2 or cfg2cpN")
+                   help="multi-device strategy: cp, tp, cpNtpM[sp] or cfg2[cpN][tpM]")
     p.add_argument("--num_devices", "--num_gpus", type=int, default=1, dest="num_devices",
                    help="> 1: one process per device, launched by torchrun --nproc_per_node N")
 

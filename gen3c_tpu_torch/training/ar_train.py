@@ -76,5 +76,5 @@ def ar_train_step(model: ARTransformer, opt_state: OptState, tokens: torch.Tenso
     grads = {n: torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)}
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = global_norm(grads)
-    optimizer.update(grads, opt_state, params)
+    optimizer.update(grads, opt_state, params, grad_norm=metrics["grad_norm"])
     return model, opt_state, metrics

@@ -51,10 +51,12 @@ class Checkpointer:
     def _path(self, step: int) -> str:
         return os.path.join(self.ckpt_dir, f"step_{step}.pt")
 
-    def save(self, step: int, state_dict: dict) -> None:
-        """Copy ``state_dict`` to the host now; write it in the background."""
+    def save(self, step: int, state_dict: dict, copy: bool = True) -> None:
+        """Copy ``state_dict`` to the host now (copy False: it is a host
+        copy of its own already, written as it is); write it in the
+        background."""
         self.wait()
-        host = _to_host(state_dict)
+        host = _to_host(state_dict) if copy else state_dict
 
         def write():
             try:

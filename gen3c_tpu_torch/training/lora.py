@@ -174,5 +174,5 @@ def lora_train_step(lora: Adapters, opt_state: OptState, base: GeneralDIT, batch
                            batch["extra_channels"])
         grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     grad_norm = global_norm(grads)
-    optimizer.update(grads, opt_state, leaves)
+    optimizer.update(grads, opt_state, leaves, grad_norm=grad_norm)
     return lora, opt_state, {"loss": loss.detach(), "grad_norm": grad_norm}

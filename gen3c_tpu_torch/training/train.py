@@ -1,5 +1,5 @@
 """Training CLI (port of gen3c_tpu/training/train.py) on one device or a
-(dp, cp) mesh of ranks.
+(dp, cp, tp) mesh of ranks.
 
     python -m gen3c_tpu_torch.training.train --synthetic --remat \\
         experiment=gen3c_tiny trainer.max_iter=4 trainer.save_every=2 \\
@@ -7,6 +7,9 @@
 
     torchrun --nproc_per_node 4 -m gen3c_tpu_torch.training.train --synthetic \\
         --dp 2 --cp 2 --batch_size 2 experiment=gen3c_tiny trainer.max_iter=4 ...
+
+    torchrun --nproc_per_node 2 -m gen3c_tpu_torch.training.train --synthetic \\
+        --tp 2 --sequence_parallel experiment=gen3c_tiny trainer.max_iter=4 ...
 
 ``experiment=`` picks a preset (any name of ``utils.registry.experiments``:
 gen3c_tiny, gen3c_7b, GEN3C_Cosmos_7B, the Cosmos text2world and multiview
@@ -17,14 +20,15 @@ preset (``dit.num_blocks=12``, ``dit.attn_temporal_window=2`` for band
 attention). The DiT gets seeded random weights on ``--device``: ``cuda``
 unless the caller passes another (the tests pass ``cpu``). Running again
 with the same job_dir resumes from its latest checkpoint. Under torchrun
-each process is a rank of a (dp, cp) mesh (``--dp``, ``--cp``; cp by
-default every rank dp leaves, as gen3c_tpu's ``make_mesh``; the batch
-splits over dp, the latent frames over cp, and ``--batch_size`` must
-divide by dp): every rank builds the same net and the same global batches,
-and ``train_step.make_sharded_train_step`` takes its slice. The ranks join
-over NCCL on ``cuda:$LOCAL_RANK`` (one rank a card) or gloo on the CPU.
-``--tp``, ``--fsdp`` and
-``--sequence_parallel`` raise (ROADMAP item 15b, 15c). The data is
+each process is a rank of a (dp, cp, tp) mesh (``--dp``, ``--cp``,
+``--tp``; cp by default every rank dp and tp leave, as gen3c_tpu's
+``make_mesh``; the batch splits over dp, the latent frames over cp, the
+DiT's linears over tp (Megatron; ``--sequence_parallel`` also the tokens
+between them), and ``--batch_size`` must divide by dp): every rank builds
+the same net and the same global batches, the trainer keeps this rank's
+tp shards, and ``train_step.make_sharded_train_step`` takes its slice. The
+ranks join over NCCL on ``cuda:$LOCAL_RANK`` (one rank a card) or gloo on
+the CPU. ``--fsdp`` raises (ROADMAP item 15c). The data is
 ``--synthetic`` latents or ``--data_root``, a directory of packaged RGBD
 clips (``datasets.Gen3CClipDataset``): the preset's GEN3C model is built
 on the device, and its DiT is the one trained (one DiT, not two) while its
@@ -86,7 +90,9 @@ def main(argv=None) -> Optional[Trainer]:
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--fsdp", action="store_true")
-    p.add_argument("--sequence_parallel", action="store_true")
+    p.add_argument("--sequence_parallel", action="store_true",
+                   help="Megatron-SP: token-sharded residual stream between TP matmuls "
+                        "(needs tp>1 to have effect)")
     p.add_argument("--remat", action="store_true", help="activation-checkpoint DiT blocks")
     p.add_argument("--loss_add_logvar", action="store_true",
                    help="Kendall uncertainty loss with a learned per-sigma logvar head")
@@ -95,9 +101,6 @@ def main(argv=None) -> Optional[Trainer]:
                    help="torch device (default cuda: cuda:$LOCAL_RANK under torchrun; pass "
                         "cpu to train on the CPU)")
     args = p.parse_args(flags)
-    if args.tp > 1 or args.sequence_parallel:
-        raise NotImplementedError(f"tensor and sequence parallelism are not ported "
-                                  f"({mesh.ITEM_15B})")
     if args.fsdp:
         raise NotImplementedError(f"FSDP is not ported ({mesh.ITEM_15C})")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
@@ -107,7 +110,7 @@ def main(argv=None) -> Optional[Trainer]:
         raise SystemExit(f"--batch_size {args.batch_size} must be divisible by --dp {args.dp}")
     device = resolve_device(args.device)
     mesh.maybe_distributed_init(None, device)
-    groups = mesh.make_groups(dp=args.dp, cp=args.cp)
+    groups = mesh.make_groups(dp=args.dp, cp=args.cp, tp=args.tp)
 
     exp_name = "gen3c_tiny"
     t_cfg = TrainerConfig()
@@ -121,14 +124,14 @@ def main(argv=None) -> Optional[Trainer]:
         else:
             rest.append(ov)
     preset = registry.apply_overrides(registry.get_experiment(exp_name), rest)
-    for flag in ("remat", "loss_add_logvar"):
+    for flag in ("remat", "loss_add_logvar", "sequence_parallel"):
         if getattr(args, flag):
             t_cfg = registry.apply_overrides(t_cfg, [f"{flag}=True"])
     if args.text_dropout_rate:
         t_cfg = registry.apply_overrides(t_cfg, [f"text_dropout_rate={args.text_dropout_rate}"])
 
     log.info(f"experiment={exp_name} device={device} mesh dp={groups.dp.size} "
-             f"cp={groups.cp.size}")
+             f"cp={groups.cp.size} tp={groups.tp.size}")
     if args.data_root:
         from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
         from gen3c_tpu_torch.training.datasets import Gen3CClipDataset

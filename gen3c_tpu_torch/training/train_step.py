@@ -1,5 +1,5 @@
 """One training step: EDM loss, grads, clip, AdamW, EMA, on one device or
-over data- and context-parallel ranks.
+over data-, context- and tensor-parallel ranks.
 
 Port of gen3c_tpu/training/train_step.py (``make_optimizer``,
 ``TrainState``, ``init_train_state``, ``train_step``,
@@ -12,23 +12,28 @@ ActionDiT (the batch's "action" goes into its forward) or a
 MultiviewGeneralDIT (fps 24, the condition indicator repeated per view),
 as ``_net`` picks in gen3c_tpu (:76-93).
 
-Over a (dp, cp) mesh (``parallel.mesh.make_groups``; one process a rank,
-each holding the whole state) the step is the one-device step of the
-global batch: every rank draws the global draws from the same generator
-and takes its slice of them and of the batch (B on dp; latent T of x0,
-extra_channels and loss_mask on cp; an image batch is not split on cp, its
-cp ranks repeat it), the DiT runs Ulysses self-attention across the cp
-ranks, each rank's loss is its share of the global loss, and the loss and
-gradients are summed over every rank before the clip, so that AdamW and
-the EMA take the same step on every rank. Tensor and sequence parallelism
-(ROADMAP item 15b) and FSDP (15c) are not ported.
+Over a (dp, cp, tp) mesh (``parallel.mesh.make_groups``; one process a
+rank) the step is the one-device step of the global batch: every rank
+draws the global draws from the same generator and takes its slice of
+them and of the batch (B on dp; latent T of x0, extra_channels and
+loss_mask on cp; an image batch is not split on cp, its cp ranks repeat
+it; the tp ranks of a cell take the same slice), the DiT runs Ulysses
+self-attention across the cp ranks and, on a net that
+``parallel.sharding.shard_params`` sliced, its Megatron linears across the
+tp ranks (with sequence parallelism the tokens between them too). Each
+rank's loss is its share of the global loss; the loss and each sharded
+leaf's gradient are summed over the ranks that hold the same shard (dp x
+cp), each replicated leaf's over those or, where each tp rank holds a
+part of it, over every rank; the clip's global norm counts each shard
+once. AdamW, its moments and the EMA then take the same step on every
+rank's shards. FSDP (ROADMAP item 15c) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -36,8 +41,8 @@ import torch.nn as nn
 from gen3c_tpu_torch.diffusion.scheduler import EDMEulerSchedule
 from gen3c_tpu_torch.models.dit import DiTConfig
 from gen3c_tpu_torch.models.dit_multiview import MultiviewDiTConfig
-from gen3c_tpu_torch.parallel import collectives
-from gen3c_tpu_torch.parallel.mesh import ITEM_15B, ITEM_15C, Groups
+from gen3c_tpu_torch.parallel import collectives, sharding
+from gen3c_tpu_torch.parallel.mesh import ITEM_15C, Axis, Groups
 from gen3c_tpu_torch.training.ema import ema_update, power_ema_beta
 from gen3c_tpu_torch.training.losses import (
     LogvarHead,
@@ -114,8 +119,15 @@ class Optimizer:
                         acc_grads=acc)
 
     @torch.no_grad()
-    def update(self, grads: Tensors, state: OptState, params: Tensors) -> None:
-        """Apply one step to ``params`` and ``state`` in place."""
+    def update(self, grads: Tensors, state: OptState, params: Tensors,
+               norm: Optional[Callable[[Tensors], torch.Tensor]] = None,
+               grad_norm: Optional[torch.Tensor] = None) -> None:
+        """Apply one step to ``params`` and ``state`` in place. norm: the
+        clip's global norm of the gradients (default ``global_norm``; a
+        tensor-parallel step's counts each shard once); grad_norm: its value
+        on ``grads`` where the caller has taken it already (without
+        accumulation the clip reads it, and norm is not called)."""
+        norm = norm or global_norm
         k = self.grad_accum_steps
         if k > 1:
             for n, g in grads.items():  # running mean over the window
@@ -126,14 +138,15 @@ class Optimizer:
             if not emit:
                 return
             grads = state.acc_grads
-        self._adamw(grads, state, params)
+            grad_norm = None
+        self._adamw(grads, state, params, norm(grads) if grad_norm is None else grad_norm)
         if k > 1:
             for acc in state.acc_grads.values():
                 acc.zero_()
 
-    def _adamw(self, grads: Tensors, state: OptState, params: Tensors) -> None:
+    def _adamw(self, grads: Tensors, state: OptState, params: Tensors,
+               g_norm: torch.Tensor) -> None:
         b1, b2 = self.betas
-        g_norm = global_norm(grads)
         clip = bool(g_norm >= self.grad_clip)
         count = state.count + 1
         bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** count
@@ -182,6 +195,26 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 0.1,
 def global_norm(tensors: Tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (optax.global_norm)."""
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors.values()))
+
+
+def sharded_global_norm(tensors: Tensors, sharded, tp: Axis) -> torch.Tensor:
+    """``global_norm`` of a state whose leaves named in ``sharded`` are this
+    rank's tp shards: their squares summed over tp, each replicated leaf's
+    counted once. The same value on every tp rank."""
+    sq = sum(t.float().pow(2).sum() for n, t in tensors.items() if n in sharded)
+    sq = collectives.all_reduce(torch.as_tensor(sq, dtype=torch.float32), tp)
+    return torch.sqrt(sq + sum(t.float().pow(2).sum() for n, t in tensors.items()
+                               if n not in sharded))
+
+
+def grad_norm_fn(params: nn.Module, groups: Optional[Groups]) -> Callable[[Tensors], torch.Tensor]:
+    """The global norm of ``params``' gradients: ``global_norm``, or over a
+    tp axis of size > 1 the norm of the whole gradient from this rank's
+    shards (``sharded_global_norm``)."""
+    if groups is None or groups.tp.size == 1:
+        return global_norm
+    sharded = set(sharding.sharded_leaves(params))
+    return lambda grads: sharded_global_norm(grads, sharded, groups.tp)
 
 
 @dataclasses.dataclass
@@ -272,16 +305,20 @@ def draw_step(generator: torch.Generator, x0_shape, dropout: bool, video_extend:
 
 def train_step(state: TrainState, batch: dict, rng: Optional[torch.Generator],
                cfg: DiTConfig, optimizer: Optimizer, schedule: EDMEulerSchedule = EDMEulerSchedule(),
+               norm: Optional[Callable[[Tensors], torch.Tensor]] = None,
                **options) -> Tuple[TrainState, dict]:
     """One optimizer step (gen3c_tpu's ``train_step``; see its docstring for
     the batch keys, and ``loss_and_grads`` for the options, ``groups``
     among them). The state is updated in place and returned. metrics: loss,
     grad_norm (before the clip), sigma_mean, as 0-d tensors on the
-    parameters' device; under a mesh the global batch's, on every rank."""
+    parameters' device; under a mesh the global batch's, on every rank.
+    norm: the global norm of the gradients (default
+    ``grad_norm_fn(state.params, groups)``)."""
     loss, grads, sigma = loss_and_grads(state.params, batch, rng, cfg, schedule, **options)
     params = state.named_params()
-    grad_norm = global_norm(grads)
-    optimizer.update(grads, state.opt_state, params)
+    norm = norm or grad_norm_fn(state.params, options.get("groups"))
+    grad_norm = norm(grads)
+    optimizer.update(grads, state.opt_state, params, norm, grad_norm)
     del grads
     state.step += 1
     ema_update(state.ema_params, params.items(), power_ema_beta(state.step))
@@ -295,7 +332,7 @@ def loss_and_grads(
     cfg: DiTConfig,
     schedule: EDMEulerSchedule = EDMEulerSchedule(),
     remat: bool = False,
-    sp_sharding=None,
+    sequence_parallel: bool = False,
     loss_add_logvar: bool = False,
     text_dropout_rate: float = 0.0,
     video_cond_dropout_rate: float = 0.0,
@@ -311,6 +348,7 @@ def loss_and_grads(
     data_type: str = "video",
     draws: Optional[StepDraws] = None,
     groups: Optional[Groups] = None,
+    tp_parts: Optional[set] = None,
 ) -> Tuple[torch.Tensor, Tensors, torch.Tensor]:
     """The EDM loss of ``params`` (the module train_step trains) on one
     batch and its gradient by parameter name: (loss, grads, sigma).
@@ -325,13 +363,15 @@ def loss_and_grads(
     multiview forward (remat per block, where gen3c_tpu remats the whole
     net: the same arithmetic).
 
-    groups: this rank's (dp, cp) mesh (``make_sharded_train_step``). The
-    batch and the draws are then the global ones, sliced here
+    groups: this rank's (dp, cp, tp) mesh (``make_sharded_train_step``).
+    The batch and the draws are then the global ones, sliced here
     (``shard_step_inputs``); the loss, the gradients and the returned
-    sigma are the global batch's, equal on every rank.
+    sigma are the global batch's, equal on every rank (a sharded leaf's
+    gradient: this rank's shard of it). sequence_parallel (Megatron-SP,
+    gen3c_tpu's ``sp_sharding``): the DiT's tokens between the sub-blocks
+    sharded over tp; nothing at tp 1. tp_parts: ``tp_partial_leaves`` of
+    params (worked out here when None).
     """
-    if sp_sharding is not None:
-        raise NotImplementedError(f"sequence parallelism is not ported ({ITEM_15B})")
     multiview = isinstance(cfg, MultiviewDiTConfig)
     if multiview and batch.get("action") is not None:
         raise ValueError("action conditioning is for the single-stream DiT only, not multiview")
@@ -389,6 +429,12 @@ def loss_and_grads(
     kw = {} if multiview else {"action": batch.get("action")}
     if cp is not None:
         kw.update(cp=cp, cp_attn_impl="ulysses")
+    tp = groups.tp if groups is not None and groups.tp.size > 1 else None
+    sp = sequence_parallel and tp is not None
+    if tp is not None:
+        kw["tp"] = tp
+    if sp:
+        kw["sp"] = True
 
     def net_fn(x_in, c_noise, ctx):
         return net(x_in, c_noise, ctx, fps=24.0, remat=remat, **kw)
@@ -410,9 +456,24 @@ def loss_and_grads(
              for (n, p), g in zip(named.items(), grad_list)}
     loss = loss.detach()
     if groups is not None and groups.parallel:
-        loss = collectives.all_reduce(loss, groups.world)
-        all_reduce_grads(grads, groups)
+        if groups.shard_peers.size > 1:
+            loss = collectives.all_reduce(loss, groups.shard_peers)
+        if tp is not None and tp_parts is None:
+            tp_parts = tp_partial_leaves(params, net, sp)
+        all_reduce_grads(grads, groups, tp_parts or ())
     return loss, grads, global_sigma
+
+
+def tp_partial_leaves(params: nn.Module, net: nn.Module, sequence_parallel: bool) -> set:
+    """The replicated leaves of ``params`` whose gradient each tp rank holds
+    a part of: q's and k's RMSNorm scales (applied to this rank's H/tp
+    heads) and, under sequence parallelism, every replicated leaf of the
+    DiT ``net`` (each tp rank's tokens are L/tp of them; the logvar head,
+    on sigma alone, is whole on every rank)."""
+    if not sequence_parallel:
+        return sharding.head_norm_leaves(params)
+    prefix = "net." if isinstance(params, NetWithLogvar) else ""
+    return {prefix + n for n, _ in net.named_parameters()} - set(sharding.sharded_leaves(params))
 
 
 def shard_step_inputs(batch: dict, draws: StepDraws, groups: Groups, cfg: DiTConfig,
@@ -488,12 +549,27 @@ GRAD_BUCKET_ELEMENTS = 1 << 26  # fp32 elements summed in one all-reduce (256 Mi
 
 
 @torch.no_grad()
-def all_reduce_grads(grads: Tensors, groups: Groups) -> None:
-    """Sum each gradient over every rank of the mesh, in place: the
-    gradients in buckets of up to GRAD_BUCKET_ELEMENTS, each flattened to
-    fp32, summed in one all-reduce and written back in the gradients'
-    dtype (a bf16 gradient rounds once, after the sum)."""
-    names = list(grads)
+def all_reduce_grads(grads: Tensors, groups: Groups, tp_parts=()) -> None:
+    """Sum each gradient over the ranks that computed a part of it, in
+    place. Without tp that is every rank of the mesh. Over a tp axis: a
+    sharded leaf's over the ranks holding its shard (``groups.shard_peers``,
+    dp x cp), and so a replicated leaf's that every tp rank holds whole (it
+    saw every token and every head); the leaves named in ``tp_parts``
+    (``tp_partial_leaves``), whose gradient each tp rank holds a part of,
+    over every rank."""
+    if groups.tp.size == 1:
+        _all_reduce_buckets(grads, list(grads), groups.world)
+        return
+    if groups.shard_peers.size > 1:
+        _all_reduce_buckets(grads, [n for n in grads if n not in tp_parts], groups.shard_peers)
+    _all_reduce_buckets(grads, [n for n in grads if n in tp_parts], groups.world)
+
+
+def _all_reduce_buckets(grads: Tensors, names: list, axis: Axis) -> None:
+    """Sum the named gradients over the axis, in place: in buckets of up to
+    GRAD_BUCKET_ELEMENTS, each flattened to fp32, summed in one all-reduce
+    and written back in the gradients' dtype (a bf16 gradient rounds once,
+    after the sum)."""
     i = 0
     while i < len(names):
         bucket, n = [], 0
@@ -503,7 +579,7 @@ def all_reduce_grads(grads: Tensors, groups: Groups) -> None:
             n += grads[names[i]].numel()
             i += 1
         flat = torch.cat([grads[k].reshape(-1).float() for k in bucket])
-        flat = collectives.all_reduce(flat, groups.world)
+        flat = collectives.all_reduce(flat, axis)
         for k, part in zip(bucket, flat.split([grads[k].numel() for k in bucket])):
             grads[k].copy_(part.view_as(grads[k]))
         del flat
@@ -516,30 +592,45 @@ def make_sharded_train_step(groups: Groups, cfg: DiTConfig, optimizer: Optimizer
                             loss_reduce: str = "mean", loss_scale: float = 1.0,
                             data_type: str = "video",
                             schedule: EDMEulerSchedule = EDMEulerSchedule(), **loss_kwargs):
-    """The train step over this rank's (dp, cp) mesh (gen3c_tpu's
+    """The train step over this rank's (dp, cp, tp) mesh (gen3c_tpu's
     ``make_sharded_train_step``, :249-345): ``step(state, batch, rng,
     draws=None) -> (state, metrics)`` with the global batch and the same
     generator (or the same injected global draws) on every rank;
-    ``train_step`` with ``groups`` (see ``shard_step_inputs``). Self-
-    attention under cp runs Ulysses: the all-to-all turns the sequence
-    shard into H/cp heads of the whole sequence, K1cp's forward with lse and
-    K4 run there. gen3c_tpu's step leaves cp to GSPMD and reads no
-    ``cp_attn_impl``, so neither does this one. fsdp_axis (ROADMAP item 15c)
-    and sequence_parallel (15b) raise NotImplementedError; a band with cp >
-    1 raises as gen3c_tpu's does (:292-297)."""
+    ``train_step`` with ``groups`` (see ``shard_step_inputs`` and
+    ``all_reduce_grads``). Over a tp axis the state's module must be
+    sliced first (``parallel.sharding.shard_params``, as ``Trainer`` does),
+    so that AdamW's moments and the EMA live per shard. Self-attention
+    under cp runs Ulysses: the all-to-all turns the sequence shard into
+    H/cp heads of the whole sequence (H/tp/cp under tp), K1cp's forward with
+    lse and K4 run there. gen3c_tpu's step leaves cp to GSPMD and reads no
+    ``cp_attn_impl``, so neither does this one. sequence_parallel shards the
+    tokens between the sub-blocks over tp (nothing at tp 1; refused for the
+    multiview net, :287-291). fsdp_axis (ROADMAP item 15c) raises
+    NotImplementedError; a band with cp > 1 raises as gen3c_tpu's does
+    (:292-297)."""
     if fsdp_axis is not None:
         raise NotImplementedError(f"FSDP is not ported ({ITEM_15C})")
-    if sequence_parallel:
-        raise NotImplementedError(f"sequence parallelism is not ported ({ITEM_15B})")
+    if sequence_parallel and isinstance(cfg, MultiviewDiTConfig):
+        raise ValueError("sequence_parallel is not supported for multiview training (the "
+                         "multiview forward has no SP constraint hook)")
     if groups.cfg.size != 1:
         raise ValueError("the train step's mesh has no cfg axis (cfg=1)")
     if cfg.attn_temporal_window is not None and groups.cp.size > 1:
         raise ValueError("attn_temporal_window training requires cp=1 (the banded splash "
                          "kernel cannot partition the token axis; use dp/tp)")
 
+    leaves = {}  # the state's module and its leaf sets, worked out at its first step
+
     def step(state: TrainState, batch: dict, rng: Optional[torch.Generator],
              draws: Optional[StepDraws] = None) -> Tuple[TrainState, dict]:
-        return train_step(state, batch, rng, cfg, optimizer, schedule, remat=remat,
+        if leaves.get("module") is not state.params:
+            net = state.params.net if loss_add_logvar else state.params
+            leaves.update(module=state.params, norm=grad_norm_fn(state.params, groups),
+                          tp_parts=tp_partial_leaves(state.params, net, sequence_parallel)
+                          if groups.tp.size > 1 else ())
+        return train_step(state, batch, rng, cfg, optimizer, schedule, norm=leaves["norm"],
+                          tp_parts=leaves["tp_parts"], remat=remat,
+                          sequence_parallel=sequence_parallel,
                           loss_add_logvar=loss_add_logvar, text_dropout_rate=text_dropout_rate,
                           video_cond_dropout_rate=video_cond_dropout_rate,
                           loss_reduce=loss_reduce, loss_scale=loss_scale, data_type=data_type,

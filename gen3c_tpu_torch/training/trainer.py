@@ -1,12 +1,17 @@
-"""Training loop on one device or over a (dp, cp) mesh: callbacks, async
-checkpoints, resume (port of gen3c_tpu/training/trainer.py).
+"""Training loop on one device or over a (dp, cp, tp) mesh: callbacks,
+async checkpoints, resume (port of gen3c_tpu/training/trainer.py).
 
 The hooks (``training.callbacks``) fire in gen3c_tpu's order. Over a mesh
 (``groups``, one process a rank) every rank feeds the same global batches
 and draws (``train_step.make_sharded_train_step`` slices them), takes the
-same optimizer step and restores the same checkpoint; only rank 0 writes
-the job's files (config.json, checkpoints). Tensor and sequence
-parallelism (ROADMAP item 15b) and FSDP (15c) are not ported.
+same optimizer step on its shards and restores the same checkpoint; only
+rank 0 writes the job's files (config.json, checkpoints). Over a tp axis
+the net is sliced to this rank's shards before the state is made, so that
+AdamW's moments and the EMA are per shard too (gen3c_tpu's trainer.py:
+151-153); a checkpoint stays in the one-device form (every rank gathers
+its shards into rank 0's host memory, a tensor at a time, and rank 0
+writes), so a run at one tp size resumes at another. FSDP (ROADMAP item
+15c) is not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 import torch.nn as nn
 
 from gen3c_tpu_torch.models.dit import DiTConfig
-from gen3c_tpu_torch.parallel.mesh import ITEM_15B, ITEM_15C, Groups
+from gen3c_tpu_torch.parallel import sharding
+from gen3c_tpu_torch.parallel.mesh import ITEM_15C, Groups
 from gen3c_tpu_torch.training.callbacks import CallBackGroup, HangWatchdog, IterSpeed
 from gen3c_tpu_torch.training.checkpointing import Checkpointer
 from gen3c_tpu_torch.training.losses import LogvarHead
@@ -53,7 +59,7 @@ class TrainerConfig:
     grad_accum_steps: int = 1
     remat: bool = False  # rematerialize DiT blocks (activation checkpointing)
     fsdp: bool = False  # not ported (ROADMAP item 15c)
-    sequence_parallel: bool = False  # not ported (ROADMAP item 15b)
+    sequence_parallel: bool = False  # Megatron-SP over the tp axis (nothing at tp 1)
     step_timeout_s: float = 0.0  # SIGALRM watchdog per step; 0 = off
     prefetch_batches: int = 2  # background prefetch depth; 0 = synchronous
     loss_add_logvar: bool = False  # Kendall loss with a learned logvar head
@@ -76,15 +82,14 @@ class Trainer:
     train state lives on the net's device. Every tensor of a batch reaches
     ``train_step`` (gen3c_tpu shards "action" over dp beside the rest,
     trainer.py:118-125): an action experiment's "action" conditions its
-    net. groups: this rank's (dp, cp) mesh (``parallel.mesh.make_groups``;
-    None or a one-rank mesh: one device)."""
+    net. groups: this rank's (dp, cp, tp) mesh (``parallel.mesh.make_groups``;
+    None or a one-rank mesh: one device); over a tp axis the trainer slices
+    ``net`` to this rank's shards (``parallel.sharding.shard_params``)."""
 
     def __init__(self, config: TrainerConfig, dit_cfg: DiTConfig, net: nn.Module,
                  callbacks: Optional[CallBackGroup] = None, groups: Optional[Groups] = None):
         if config.fsdp:
             raise NotImplementedError(f"FSDP is not ported ({ITEM_15C})")
-        if config.sequence_parallel:
-            raise NotImplementedError(f"sequence parallelism is not ported ({ITEM_15B})")
         self.config = config
         self.dit_cfg = dit_cfg
         self.groups = groups if groups is not None and groups.parallel else None
@@ -102,6 +107,8 @@ class Trainer:
             head = LogvarHead(device=device).init_random(
                 torch.Generator(device=device).manual_seed(config.seed + 1))
             params = NetWithLogvar(net, head)
+        # the leaves sliced over tp, by name: {} without a tp axis
+        self.shard_dims = {} if self.groups is None else sharding.shard_params(params, self.groups)
         self.state: TrainState = init_train_state(params, self.optimizer)
         self.checkpointer = Checkpointer(os.path.join(config.job_dir, "checkpoints"))
         self.callbacks = callbacks or CallBackGroup([IterSpeed(config.log_every)])
@@ -119,12 +126,22 @@ class Trainer:
                                      **self._step_kwargs(data_type))
         if data_type not in self._steps:
             self._steps[data_type] = make_sharded_train_step(
-                self.groups, self.dit_cfg, self.optimizer, **self._step_kwargs(data_type))
+                self.groups, self.dit_cfg, self.optimizer,
+                sequence_parallel=self.config.sequence_parallel, **self._step_kwargs(data_type))
         return self._steps[data_type]
 
     def _save(self, step: int) -> None:
+        """Rank 0 writes the state in its one-device form; over a tp axis
+        every rank gathers its shards into rank 0's host memory first, a
+        tensor at a time (``sharding.gather_to_host``)."""
+        sd = self.state.state_dict()
+        if not self.shard_dims:
+            if self.writes:
+                self.checkpointer.save(step, sd)
+            return
+        host = sharding.gather_to_host(sd, self.shard_dims, self.groups.tp, self.writes)
         if self.writes:
-            self.checkpointer.save(step, self.state.state_dict())
+            self.checkpointer.save(step, host, copy=False)
 
     def _step_kwargs(self, data_type: str) -> dict:
         c = self.config
@@ -146,6 +163,9 @@ class Trainer:
         restored = self.checkpointer.restore()
         if restored is None:
             return 0
+        if self.shard_dims:
+            restored = {k: sharding.shard_tensors(v, self.shard_dims, self.groups.tp)
+                        if isinstance(v, dict) else v for k, v in restored.items()}
         self.state.load_state_dict(restored)
         self.callbacks.on_load_checkpoint_end(self, self.state.step)
         return self.state.step

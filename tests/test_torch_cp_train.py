@@ -1,14 +1,15 @@
-"""Data- and context-parallel DiT training (``train_step.
-make_sharded_train_step``, ``Trainer(groups=)``, ``train.py --dp --cp``)
-against JAX's one-device ``train_step`` and the port's one-rank step, on
-CPU ranks over gloo.
+"""Data-, context- and tensor-parallel DiT training (``train_step.
+make_sharded_train_step``, ``Trainer(groups=)``, ``train.py --dp --cp --tp
+[--sequence_parallel]``) against JAX's one-device ``train_step`` and the
+port's one-rank step, on CPU ranks over gloo.
 
 A pool of 4 spawned ranks (``tests/torch_cp_ranks.py``) runs each (dp, cp)
 layout, 2-rank layouts as two replicas. Every rank gets the global batch
 and the global draws (JAX's, injected as ``StepDraws``) and takes its
 slice; the tiny GEN3C DiT (4 heads, fp32) trains 2 steps with the logvar
 head, video-extend conditioning, text dropout, warmup 2 and an active clip
-at 0.5, over a (2, 16, 4, 8, 12) latent (B 2 on dp, T 4 on cp).
+at 0.5, over a (2, 16, 4, 8, 12) latent (B 2 on dp, T 4 on cp; under tp
+each rank holds its shards, gathered for the comparison).
 
 Tolerances, fp32: against the port's one-rank step, loss and grad norm
 1e-5 relative (the ranks' partial sums are added in another order), and
@@ -157,12 +158,47 @@ def test_sharded_steps_match_jax_and_one_rank(ranks, gen3c_refs, dp, cp):
     _assert_matches(results, jax_out, one)
 
 
+# (dp, cp, tp, sequence parallelism)
+_TP_LAYOUTS = [(1, 1, 2, False), (1, 1, 2, True), (1, 2, 2, False), (1, 2, 2, True),
+               (2, 1, 2, True)]
+
+
+@pytest.mark.parametrize("dp,cp,tp,sp", _TP_LAYOUTS,
+                         ids=[f"dp{d}-cp{c}-tp{t}{'-sp' if s else ''}"
+                              for d, c, t, s in _TP_LAYOUTS])
+def test_tp_steps_match_jax_and_one_rank(ranks, gen3c_refs, dp, cp, tp, sp):
+    """Tensor parallelism (Megatron column / row shards of every q/k/v/out
+    and fc1/fc2; with sp the tokens between them too) on its own and beside
+    cp and dp: the loss, the grad norm (each shard counted once) and every
+    parameter after 2 steps, gathered, as JAX's one-device step and the
+    port's one rank. This holds the gradients of the sharded leaves (summed
+    over the ranks with the same shard), of q's and k's norm scales (a part
+    on each tp rank) and, under sp, of every replicated leaf."""
+    job, jax_out, one = gen3c_refs
+    job = dict(job, step_kw=dict(job["step_kw"], sequence_parallel=sp))
+    results = ranks.run("train", dp=dp, cp=cp, tp=tp, **job)
+    n = dp * cp * tp
+    places = [(r["dp_rank"], r["cp_rank"], r["tp_rank"]) for r in results[:n]]
+    assert places == [(d, c, k) for d in range(dp) for c in range(cp) for k in range(tp)]
+    assert len(results[0]["sharded"]) == 2 * (2 * 4 + 2)
+    _assert_matches(results, jax_out, one)
+
+
 @pytest.mark.parametrize("dp,cp", [(2, 1), (2, 2)])
 def test_action_on_dp_matches_jax_and_one_rank(ranks, dp, cp):
     """The action experiment: each dp rank's samples take their own actions
     (B, 1, 7) into the AdaLN-LoRA vector."""
     job, jax_out, one = _references("action", {"text_dropout_rate": 0.3})
     _assert_matches(ranks.run("train", dp=dp, cp=cp, **job), jax_out, one)
+
+
+def test_action_under_tp_matches_jax_and_one_rank(ranks):
+    """The action DiT's blocks sharded over tp beside dp (dp 2 x tp 2; its
+    action embedders stay replicated, whole on every rank)."""
+    job, jax_out, one = _references("action", {"text_dropout_rate": 0.3})
+    results = ranks.run("train", dp=2, cp=1, tp=2, **job)
+    assert results[0]["sharded"] and not any("action" in n for n in results[0]["sharded"])
+    _assert_matches(results, jax_out, one)
 
 
 def test_image_batch_at_cp2_matches_one_device(ranks):
@@ -180,16 +216,22 @@ def test_sum_reduce_over_the_mesh_matches_one_device(ranks):
     _assert_matches(ranks.run("train", dp=2, cp=2, **job), jax_out, one)
 
 
-@pytest.mark.parametrize("cp", [2, 4])
-@pytest.mark.parametrize("op", ["seq_to_heads", "heads_to_seq", "all_gather", "all_reduce",
-                                "all_reduce_mean"])
+# the tensor-parallel operators at 2 ranks, the smoke's tp (a 4-rank gradcheck
+# takes seconds a case)
+_GRADCHECK_CASES = [(op, cp) for op in ("seq_to_heads", "heads_to_seq", "all_gather", "all_reduce",
+                                        "all_reduce_mean") for cp in (2, 4)] + [
+    (op, 2) for op in ("reduce_scatter", "copy_to_tp", "reduce_from_tp", "gather_to_replicas")]
+
+
+@pytest.mark.parametrize("op,cp", _GRADCHECK_CASES, ids=[f"{o}-{c}" for o, c in _GRADCHECK_CASES])
 def test_collective_gradients_pass_gradcheck(ranks, op, cp):
     assert all(ranks.run("collective_gradcheck", cp=cp, op=op))
 
 
 def test_refusals():
-    """As gen3c_tpu: a band with cp > 1; not ported: FSDP (15c), sequence
-    parallelism (15b), tp (15b), the multiview net under cp."""
+    """As gen3c_tpu: a band with cp > 1, sequence parallelism for the
+    multiview net (train_step.py:287-291); not ported: FSDP (15c), the
+    multiview net under cp. A tp mesh needs its ranks."""
     from gen3c_tpu_torch.models.dit_multiview import MultiviewDiTConfig
     from gen3c_tpu_torch.pipelines.factory import GEN3C_TINY_PRESET
     from gen3c_tpu_torch.parallel.mesh import make_groups
@@ -204,9 +246,10 @@ def test_refusals():
     tts.make_sharded_train_step(Groups(dp=Axis(None, 0, 2), world=Axis(None, 0, 2)), band, opt)
     with pytest.raises(NotImplementedError, match="ROADMAP item 15c"):
         tts.make_sharded_train_step(cp2, cfg, opt, fsdp_axis="dp")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
-        tts.make_sharded_train_step(cp2, cfg, opt, sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
+    tts.make_sharded_train_step(cp2, cfg, opt, sequence_parallel=True)
+    with pytest.raises(ValueError, match="not supported for multiview training"):
+        tts.make_sharded_train_step(cp2, MultiviewDiTConfig(), opt, sequence_parallel=True)
+    with pytest.raises(ValueError, match="world size is 1"):
         make_groups(dp=2, tp=2)
     x = torch.zeros((2, 16, 2, 8, 8))
     draws = tts.StepDraws(sigma=torch.ones(2), noise=x)
@@ -214,9 +257,10 @@ def test_refusals():
         tts.shard_step_inputs({"x0": x}, draws, cp2, MultiviewDiTConfig(), "video")
     with pytest.raises(ValueError, match="does not split over dp"):
         tts.shard_step_inputs({"x0": x[:1]}, draws, Groups(dp=Axis(None, 0, 2)), cfg, "video")
-    for flags in (["--tp", "2"], ["--fsdp"], ["--sequence_parallel"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15[bc]"):
-            train.main(["--synthetic", "--device", "cpu", *flags])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15c"):
+        train.main(["--synthetic", "--device", "cpu", "--fsdp"])
+    with pytest.raises(ValueError, match="world size is 1"):
+        train.main(["--synthetic", "--device", "cpu", "--tp", "2"])
 
 
 def _cli(job, nproc, *flags):
@@ -245,3 +289,59 @@ def test_cli_dp_cp_trains_as_one_process(tmp_path):
         for n, w in one[part].items():
             err = (four[part][n] - w).abs().max().item()
             assert err <= 1e-5 * max(w.abs().max().item(), 1.0), (part, n, err)
+
+
+def test_cli_tp_sp_trains_as_one_process(tmp_path):
+    """``torchrun --nproc_per_node 2 -m gen3c_tpu_torch.training.train --tp 2
+    --sequence_parallel`` (gloo) against the same CLI in one process: the
+    step-2 checkpoint, in the one-device form rank 0 writes after every
+    rank gathers its shards."""
+    one = _cli(str(tmp_path / "one"), 1)
+    two = _cli(str(tmp_path / "two"), 2, "--tp", "2", "--sequence_parallel")
+    assert two["step"] == one["step"] == 2
+    for part in ("params", "ema", "mu", "nu"):
+        for n, w in one[part].items():
+            assert two[part][n].shape == w.shape, (part, n)
+            err = (two[part][n] - w).abs().max().item()
+            assert err <= 1e-5 * max(w.abs().max().item(), 1.0), (part, n, err)
+
+
+@pytest.mark.parametrize("dp, tp", [(2, 2), (1, 4)])
+def test_save_gathers_one_tensor_at_a_time(ranks, dp, tp):
+    """Trainer's checkpoint gather (``sharding.gather_to_host``) brings the
+    sharded state to the writing rank's host memory a tensor at a time:
+    at each all-gather no earlier gathered buffer is alive, so the device
+    never holds more than one gathered tensor beside the state; params,
+    moments and EMA each gathered once; rank 0's host state equals the
+    one-device state it was cut from, bit for bit, in host memory of its
+    own; the other ranks keep nothing."""
+    out = ranks.run("save_gather", dp=dp, tp=tp)
+    for r, o in enumerate(out):
+        assert o["alive_at_gather"] == 0, o
+        assert o["sharded"] == 2 * (2 * 4 + 2) and o["gathers"] == 4 * o["sharded"], o
+        assert o["host_none"] == (r != 0), o
+    assert out[0]["equal"] is True and out[0]["on_host"] is True
+
+
+def test_trainer_checkpoints_cross_tp_sizes(ranks, tmp_path):
+    """A checkpoint written at tp 2 (a dp 2 x tp 2 mesh: rank 0 writes the
+    gathered state) restores at tp 1, which trains a step and writes its
+    own; that one restores at tp 2, every rank slicing its shards back."""
+    from gen3c_tpu_torch.training.train import build_net
+    from gen3c_tpu_torch.training.trainer import Trainer
+
+    job = str(tmp_path / "job")
+    at_tp2 = ranks.run("trainer_run", dp=2, tp=2, job_dir=job, max_iter=2)
+    assert [r["step"] for r in at_tp2] == [2] * WORLD and at_tp2[0]["sharded"] == 2 * (2 * 4 + 2)
+    cfg = torch_cp_ranks.train_cfg("gen3c")
+    one = Trainer(torch_cp_ranks.trainer_config(job, 3), cfg, build_net(cfg, "cpu", 0))
+    assert one.maybe_resume() == 2
+    for n, p in one.state.params.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), at_tp2[0]["params"][n])
+    state = one.train(torch_cp_ranks.trainer_data())
+    assert state.step == 3 and one.checkpointer.steps() == [1, 2, 3]
+    back = ranks.run("trainer_run", dp=2, tp=2, job_dir=job, max_iter=3)
+    for r in back:
+        assert r["step"] == 3
+        for n, p in state.params.named_parameters():
+            np.testing.assert_array_equal(r["params"][n], p.detach().numpy())

@@ -420,10 +420,12 @@ def test_new_clis_run_the_multistep_solver(cli, tmp_path, monkeypatch, models): 
 @pytest.mark.parametrize("flag", [["--enable_prompt_encoder"], ["--parallel", "cp2tp2"],
                                   ["--parallel", "tp"], ["--parallel", "cfg2tp2"]])
 def test_new_clis_refuse_unported_flags(cli, flag, tmp_path):
-    """Flags of paths the port does not have yet raise NotImplementedError
-    naming the flag (multi-device cp and cfg2 and the offload flags are
-    ported: tests/test_torch_parallel*.py). The prompt encoder is ported:
-    without the t5-11b files it raises an error naming them."""
+    """The flags of paths that were not ported before: the prompt encoder
+    without the t5-11b files raises an error naming them; the
+    tensor-parallel strategies (ported: tests/test_torch_tp.py, as
+    multi-device cp and cfg2 and the offload flags are) reach
+    build_gen3c_model, which validates them over 4 devices and then needs
+    torchrun's 4 processes."""
     import importlib
 
     module = importlib.import_module(f"gen3c_tpu_torch.pipelines.{cli}")
@@ -434,7 +436,8 @@ def test_new_clis_refuse_unported_flags(cli, flag, tmp_path):
         with pytest.raises(FileNotFoundError, match="google-t5/t5-11b"):
             module.demo(args)
         return
-    with pytest.raises(NotImplementedError, match=flag[0]):
+    args.model_preset, args.num_devices = "gen3c_tiny", 4
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4"):
         module.demo(args)
 
 

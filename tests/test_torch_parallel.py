@@ -283,24 +283,17 @@ def test_cfg_parallel_refuses_adaptive_caching():
 # ------------------------------ strategies ------------------------------
 
 
-@pytest.mark.parametrize("parallel,want", [("cp", (1, None)), ("cfg2", (2, 1)),
-                                           ("cfg2cp4", (2, 4))])
+@pytest.mark.parametrize("parallel,want", [("cp", (1, None, 1, False)), ("cfg2", (2, 1, 1, False)),
+                                           ("cfg2cp4", (2, 4, 1, False))])
 def test_parse_parallel(parallel, want):
     assert tfactory.parse_parallel(parallel) == want
-
-
-@pytest.mark.parametrize("parallel", ["tp", "cp2tp2", "cp4tp2sp", "cfg2tp2", "cfg2cp2tp2"])
-def test_tensor_parallel_strategies_are_not_ported(parallel):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tfactory.build_gen3c_model("gen3c_tiny", device="cpu", num_devices=4, parallel=parallel)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):  # even at one device
-        tfactory.build_gen3c_model("gen3c_tiny", device="cpu", parallel=parallel)
 
 
 def test_strategy_validation_as_jax():
     """test_parallel.py:481: an unknown strategy raises at any device count;
     a job whose size is not num_devices, a band over the all-gather
-    strategy, an unknown cp_attn and a mesh the port lacks raise too."""
+    strategy, an unknown cp_attn and a mesh larger than the job raise too
+    (the tensor-parallel strategies: tests/test_torch_tp.py)."""
     from gen3c_tpu.pipelines.factory import build_gen3c_model as jax_build
 
     for n in (1, 4):
@@ -316,7 +309,7 @@ def test_strategy_validation_as_jax():
                                    attn_temporal_window=1)
     with pytest.raises(ValueError, match="unknown cp_attn"):
         tfactory.build_gen3c_model("gen3c_tiny", device="cpu", cp_attn="rings")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(ValueError, match="dp\\*cfg\\*cp\\*tp = 4 ranks, but the world size is 1"):
         tmesh.make_groups(tp=2, cp=2)
     with pytest.raises(ValueError, match="world size is 1"):
         tmesh.make_groups(cp=2)

@@ -317,10 +317,12 @@ def test_cli_sampler_flags_match_jax(flag, tmp_path, monkeypatch, models):
                                   ["--enable_prompt_encoder"], ["--parallel", "tp"],
                                   ["--parallel", "cp2tp2sp"], ["--parallel", "cfg2cp2tp2"]])
 def test_cli_unported_flags_raise(flag, tmp_path):
-    """Flags of paths the port does not have yet raise NotImplementedError
-    naming the flag (the tensor-parallel strategies even at one device).
-    The prompt encoder is ported: without the t5-11b files it raises an
-    error naming them (tests/test_torch_t5.py has it load)."""
+    """The flags of paths that were not ported before: the prompt encoder
+    without the t5-11b files raises an error naming them
+    (tests/test_torch_t5.py has it load); the tensor-parallel strategies
+    reach build_gen3c_model, which validates them over 4 devices as
+    gen3c_tpu's factory does and then needs torchrun's 4 processes
+    (tests/test_torch_tp.py runs them)."""
     from gen3c_tpu_torch.pipelines import gen3c_single_image as cli
 
     if flag[0] == "--enable_prompt_encoder":
@@ -330,8 +332,11 @@ def test_cli_unported_flags_raise(flag, tmp_path):
         with pytest.raises(FileNotFoundError, match="google-t5/t5-11b"):
             cli.demo(args)
         return
-    args = cli.create_parser().parse_args(["--input_image_path", "x.png", *flag])
-    with pytest.raises(NotImplementedError, match=flag[0]):
+    args = cli.create_parser().parse_args(["--input_image_path", "x.png", *flag, "--device",
+                                           "cpu", "--model_preset", "gen3c_tiny",
+                                           "--num_gpus", "4"])
+    want = "needs 8 devices" if flag[1] == "cfg2cp2tp2" else "torchrun --nproc_per_node 4"
+    with pytest.raises(ValueError, match=want):
         cli.demo(args)
 
 

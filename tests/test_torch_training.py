@@ -402,9 +402,14 @@ def test_cli_overrides_and_resume(tmp_path):
     assert trainer.state.step == 2
     again = train.main([a.replace("max_iter=2", "max_iter=3") for a in args])
     assert again.state.step == 3 and again.checkpointer.steps() == [1, 2, 3]
-    for flags in (["--tp", "2"], ["--fsdp"], ["--sequence_parallel"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15[bc]"):
-            train.main(["--synthetic", "--device", "cpu", *flags, f"trainer.job_dir={job}2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15c"):
+        train.main(["--synthetic", "--device", "cpu", "--fsdp", f"trainer.job_dir={job}2"])
+    with pytest.raises(ValueError, match="world size is 1"):  # --tp is ported: it needs ranks
+        train.main(["--synthetic", "--device", "cpu", "--tp", "2", f"trainer.job_dir={job}2"])
+    # --sequence_parallel reaches TrainerConfig; on one device (tp 1) it changes nothing
+    sp = train.main([a.replace("max_iter=2", "max_iter=1").replace(job, job + "sp")
+                     for a in args] + ["--sequence_parallel"])
+    assert sp.config.sequence_parallel and sp.state.step == 1
     with pytest.raises(SystemExit):  # --dp is ported: the batch must split over it
         train.main(["--synthetic", "--device", "cpu", "--dp", "2", f"trainer.job_dir={job}2"])
     with pytest.raises(ValueError, match="world size is 1"):  # and it needs the ranks

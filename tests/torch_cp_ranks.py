@@ -98,53 +98,79 @@ class Ranks:
 
 # ------------------------------ tasks ------------------------------
 
-_GROUPS = {}
+_LAYOUTS = {}
 _NETS = {}
 
 
-def _groups(rank: int, world: int, cfg: int, cp: int):
-    """This rank's Groups for a (cfg, cp) layout: ``make_groups`` when it
-    spans the pool, else its replica's (every rank creates every group, in
-    one order, as new_group asks)."""
+def layout_groups(rank: int, world: int, dp: int = 1, cfg: int = 1, cp: int = 1, tp: int = 1):
+    """This rank's Groups of a (dp, cfg, cp, tp) mesh: ``make_groups`` when
+    it spans the pool, else its replica's, laid out as make_groups lays out
+    dp * cfg * cp * tp ranks (tp fastest) from the replica's first rank;
+    every rank creates every group, in one order, as new_group asks."""
     import torch.distributed as dist
 
     from gen3c_tpu_torch.parallel.mesh import Axis, Groups, make_groups
 
-    key = (cfg, cp)
-    if key not in _GROUPS:
-        n = cfg * cp
+    key = (dp, cfg, cp, tp)
+    if key not in _LAYOUTS:
+        n = dp * cfg * cp * tp
         if n == world:
-            _GROUPS[key] = make_groups(cfg=cfg, cp=cp, backend="gloo")
+            _LAYOUTS[key] = make_groups(dp=dp, cfg=cfg, cp=cp, tp=tp, backend="gloo")
         else:
-            mine = Groups()
+            cells = [(d, c, j) for d in range(dp) for c in range(cfg) for j in range(cp)]
+            axes = {}
             for base in range(0, world, n):
-                cfg_i, cp_i = divmod(rank - base, cp)
-                here = 0 <= rank - base < n
+                def at(d, c, j, k, base=base):
+                    return base + ((d * cfg + c) * cp + j) * tp + k
+
+                members = []
                 if cp > 1:
-                    for c in range(cfg):
-                        g = dist.new_group([base + c * cp + j for j in range(cp)], backend="gloo")
-                        if here and c == cfg_i:
-                            mine = Groups(mine.cfg, Axis(g, cp_i, cp))
+                    members += [("cp", [at(d, c, j, k) for j in range(cp)]) for d in range(dp)
+                                for c in range(cfg) for k in range(tp)]
                 if cfg > 1:
-                    for j in range(cp):
-                        g = dist.new_group([base + c * cp + j for c in range(cfg)], backend="gloo")
-                        if here and j == cp_i:
-                            mine = Groups(Axis(g, cfg_i, cfg), mine.cp)
-            _GROUPS[key] = mine
-    return _GROUPS[key]
+                    members += [("cfg", [at(d, c, j, k) for c in range(cfg)]) for d in range(dp)
+                                for j in range(cp) for k in range(tp)]
+                if dp > 1:
+                    members += [("dp", [at(d, c, j, k) for d in range(dp)]) for c in range(cfg)
+                                for j in range(cp) for k in range(tp)]
+                if tp > 1:
+                    members += [("tp", [at(*cell, k) for k in range(tp)]) for cell in cells]
+                    if len(cells) > 1:
+                        members += [("shard_peers", [at(*cell, k) for cell in cells])
+                                    for k in range(tp)]
+                members.append(("world", list(range(base, base + n))))
+                for name, ranks in members:
+                    g = dist.new_group(ranks, backend="gloo")
+                    if rank in ranks:
+                        axes[name] = Axis(g, ranks.index(rank), len(ranks))
+            _LAYOUTS[key] = Groups(
+                cfg=axes.get("cfg", Axis()), cp=axes.get("cp", Axis()), dp=axes.get("dp", Axis()),
+                world=axes["world"], tp=axes.get("tp", Axis()),
+                shard_peers=axes.get("shard_peers", Axis()) if tp > 1 else axes["world"])
+    return _LAYOUTS[key]
 
 
-def _net(dit_kw: dict, state: dict):
-    """The fp32 GeneralDIT of ``dit_kw`` with ``state`` (numpy), cached by
-    its config (each test sends the same state with it)."""
+def _net(dit_kw: dict, state: dict, groups=None, min_size=None):
+    """The fp32 GeneralDIT of ``dit_kw`` with ``state`` (numpy), quantized
+    (``quantize_dit_(min_size=)``) when min_size is given and cut to this
+    rank's tp shards (``shard_params``) over a tp axis of ``groups``;
+    cached by its config, min_size and tp place (each test sends the same
+    state with it)."""
     import torch
 
     from gen3c_tpu_torch.models.dit import DiTConfig, GeneralDIT
+    from gen3c_tpu_torch.models.quantize import quantize_dit_
+    from gen3c_tpu_torch.parallel.sharding import shard_params
 
-    key = tuple(sorted(dit_kw.items()))
+    tp = None if groups is None else groups.tp
+    key = (tuple(sorted(dit_kw.items())), min_size, None if tp is None else (tp.size, tp.rank))
     if key not in _NETS:
         net = GeneralDIT(DiTConfig(dtype=torch.float32, **dit_kw))
         net.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+        if min_size is not None:
+            quantize_dit_(net, min_size=min_size)
+        if groups is not None:
+            shard_params(net, groups)
         _NETS[key] = net
     return _NETS[key]
 
@@ -157,7 +183,7 @@ def attention(rank, world, cp: int, impl: str, q, k, v, band=None) -> dict:
 
     from gen3c_tpu_torch.models import dit
 
-    axis = _groups(rank, world, 1, cp).cp
+    axis = layout_groups(rank, world, cp=cp).cp
     n = q.shape[1] // cp
     sl = slice(axis.rank * n, (axis.rank + 1) * n)
     dit.ring_steps.update(folded=0, skipped=0)
@@ -167,73 +193,113 @@ def attention(rank, world, cp: int, impl: str, q, k, v, band=None) -> dict:
     return {"out": out.numpy(), "cp_rank": axis.rank, "ring_steps": dict(dit.ring_steps)}
 
 
-def forward(rank, world, cp: int, dit_kw: dict, state: dict, x, t, ctx) -> dict:
-    """GeneralDIT.forward(cp=...) on this rank's latent-T shard of x."""
+def forward(rank, world, cp: int, dit_kw: dict, state: dict, x, t, ctx, tp: int = 1,
+            sp: bool = False, min_size=None) -> dict:
+    """GeneralDIT.forward(cp=, tp=, sp=) on this rank's latent-T shard of x
+    (the net quantized with min_size when given, then cut to this rank's tp
+    shards): its output, its places and the leaves it holds a shard of."""
     import torch
 
-    axis = _groups(rank, world, 1, cp).cp
+    from gen3c_tpu_torch.parallel.sharding import sharded_leaves
+
+    groups = layout_groups(rank, world, cp=cp, tp=tp)
+    net = _net(dit_kw, state, groups if tp > 1 else None, min_size)
     n = x.shape[2] // cp
-    xs = np.ascontiguousarray(x[:, :, axis.rank * n:(axis.rank + 1) * n])
+    xs = np.ascontiguousarray(x[:, :, groups.cp.rank * n:(groups.cp.rank + 1) * n])
     with torch.no_grad():
-        out = _net(dit_kw, state)(torch.from_numpy(xs), torch.from_numpy(t), torch.from_numpy(ctx),
-                                  fps=24.0, cp=axis)
-    return {"out": out.numpy(), "cp_rank": axis.rank}
+        out = net(torch.from_numpy(xs), torch.from_numpy(t), torch.from_numpy(ctx), fps=24.0,
+                  cp=groups.cp if cp > 1 else None, tp=groups.tp if tp > 1 else None, sp=sp)
+    return {"out": out.numpy(), "cp_rank": groups.cp.rank, "tp_rank": groups.tp.rank,
+            "sharded": sorted(sharded_leaves(net))}
 
 
 def sample(rank, world, cfg: int, cp: int, dit_kw: dict, state: dict, arrays: dict,
-           opts: dict) -> np.ndarray:
-    """parallel.cp.cp_generate_samples over a (cfg, cp) layout: the whole
-    final latent as this rank returns it."""
+           opts: dict, tp: int = 1, sp: bool = False) -> np.ndarray:
+    """parallel.cp.cp_generate_samples over a (cfg, cp, tp) layout (sp:
+    sequence parallelism): the whole final latent as this rank returns it."""
     import torch
 
     from gen3c_tpu_torch.parallel.cp import cp_generate_samples
 
-    groups = _groups(rank, world, cfg, cp)
+    groups = layout_groups(rank, world, cfg=cfg, cp=cp, tp=tp)
+    net = _net(dit_kw, state, groups if tp > 1 else None)
     tensors = {k: torch.from_numpy(v) for k, v in arrays.items()}
-    return cp_generate_samples(groups, _net(dit_kw, state), **tensors, **opts).numpy()
+    return cp_generate_samples(groups, net, sequence_parallel=sp, **tensors, **opts).numpy()
 
 
-# ------------------------------ training over a (dp, cp) mesh ------------------------------
+def mv_forward(rank, world, tp: int, x, t, ctx) -> dict:
+    """A tiny multiview net (tests/test_torch_multiview_world.py's TINY_MV,
+    seeded, its gates randomized) whole and cut to this rank's tp shards:
+    both forwards, the sharded one through GeneralDIT's blocks under tp."""
+    import torch
 
-_MESHES = {}
+    from gen3c_tpu_torch.models.dit_multiview import MultiviewDiTConfig
+    from gen3c_tpu_torch.parallel.sharding import shard_params, sharded_leaves
+    from gen3c_tpu_torch.training.train import build_net
+
+    cfg = MultiviewDiTConfig(max_img_h=16, max_img_w=16, max_frames=8, in_channels=16,
+                             out_channels=16, model_channels=96, num_blocks=2, num_heads=4,
+                             crossattn_emb_channels=32, adaln_lora_dim=8, n_views=3,
+                             view_condition_dim=4, add_repeat_frame_embedding=True,
+                             dtype=torch.float32)
+    net = build_net(cfg, "cpu", seed=3)
+    net.randomize_degenerate_inits(torch.Generator().manual_seed(9))
+    groups = layout_groups(rank, world, tp=tp)
+    args = [torch.from_numpy(a) for a in (x, t, ctx)]
+    with torch.no_grad():
+        whole = net(*args, fps=24.0).numpy()
+        shard_params(net, groups)
+        out = net(*args, fps=24.0, tp=groups.tp).numpy()
+    return {"whole": whole, "out": out, "sharded": len(sharded_leaves(net))}
 
 
-def mesh_groups(rank: int, world: int, dp: int, cp: int):
-    """This rank's Groups of a (dp, cp) training mesh (cfg 1): ``make_groups``
-    when it spans the pool, else its replica's, laid out as make_groups lays
-    out dp * cp ranks (rank = dp_index * cp + cp_index) from the replica's
-    first rank; every rank creates every group, in one order."""
-    import torch.distributed as dist
+def build(rank, world, parallel: str, quantize=False) -> dict:
+    """pipelines.factory.build_gen3c_model("gen3c_tiny", parallel=) over the
+    pool (gloo on the CPU): the groups' sizes, sequence parallelism, the
+    rows of block 0's q projection and the leaves this rank holds a shard
+    of."""
+    from gen3c_tpu_torch.parallel.sharding import sharded_leaves
+    from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
 
-    from gen3c_tpu_torch.parallel.mesh import Axis, Groups, make_groups
+    model, _ = build_gen3c_model("gen3c_tiny", device="cpu", num_devices=world,
+                                 parallel=parallel, quantize=quantize, dist_backend="gloo")
+    g = model.groups
+    q = model.net.blocks.block0.blocks[0].block.attn.to_q[0].weight
+    return {"cfg": g.cfg.size, "cp": g.cp.size, "tp": g.tp.size, "sp": model.sequence_parallel,
+            "q_rows": q.shape[0], "sharded": len(sharded_leaves(model.net))}
 
-    key = (dp, cp)
-    if key not in _MESHES:
-        n = dp * cp
-        if n == world:
-            _MESHES[key] = make_groups(dp=dp, cp=cp, backend="gloo")
-        else:
-            axes = {}
-            for base in range(0, world, n):
-                here = 0 <= rank - base < n
-                dp_i, cp_i = divmod(rank - base, cp)
-                members = []
-                if cp > 1:
-                    members += [("cp", d, [base + d * cp + j for j in range(cp)])
-                                for d in range(dp)]
-                if dp > 1:
-                    members += [("dp", j, [base + d * cp + j for d in range(dp)])
-                                for j in range(cp)]
-                members.append(("world", 0, list(range(base, base + n))))
-                for name, which, ranks in members:
-                    g = dist.new_group(ranks, backend="gloo")
-                    if here and rank in ranks:
-                        index = {"cp": cp_i, "dp": dp_i, "world": rank - base}[name]
-                        axes[name] = Axis(g, index, len(ranks))
-            _MESHES[key] = Groups(cp=axes.get("cp", Axis()), dp=axes.get("dp", Axis()),
-                                  world=axes["world"])
-    return _MESHES[key]
 
+def relayout(rank, world, strategies: list) -> list:
+    """build_gen3c_model("gen3c_tiny", parallel="cp") over the pool, then
+    pipelines.factory.parallelize by each strategy in turn: per strategy
+    the groups' sizes, sequence parallelism, the rows of block 0's q
+    projection and whether they equal a fresh build's by that strategy;
+    or the ValueError it raised."""
+    import torch
+
+    from gen3c_tpu_torch.pipelines.factory import build_gen3c_model, parallelize
+
+    def q(m):
+        return m.net.blocks.block0.blocks[0].block.attn.to_q[0].weight
+
+    model, _ = build_gen3c_model("gen3c_tiny", device="cpu", num_devices=world,
+                                 parallel="cp", dist_backend="gloo")
+    out = []
+    for parallel in strategies:
+        try:
+            g = parallelize(model, parallel, world, backend="gloo")
+        except ValueError as e:
+            out.append({"error": str(e)})
+            continue
+        fresh, _ = build_gen3c_model("gen3c_tiny", device="cpu", num_devices=world,
+                                     parallel=parallel, dist_backend="gloo")
+        out.append({"cfg": g.cfg.size, "cp": g.cp.size, "tp": g.tp.size,
+                    "sp": model.sequence_parallel, "q_rows": q(model).shape[0],
+                    "as_fresh": bool(torch.equal(q(model), q(fresh)))})
+    return out
+
+
+# ------------------------------ training over a (dp, cp, tp) mesh ------------------------------
 
 def train_module(kind: str, state: dict, logvar: bool):
     """The fp32 module a training test trains: the tiny GEN3C DiT or the tiny
@@ -266,15 +332,18 @@ def run_train_steps(groups, kind: str, state: dict, batches: list, draws: list, 
                     step_kw: dict, data_type: str = "video") -> dict:
     """Steps of the port's train step on ``batches`` with the injected global
     ``draws`` (dicts of numpy StepDraws fields): over ``groups`` through
-    ``make_sharded_train_step``, or on one device (groups None) through
+    ``make_sharded_train_step`` (over a tp axis on the module's shards,
+    ``shard_params``), or on one device (groups None) through
     ``train_step``. Returns per-step loss, grad_norm, sigma_mean and the
-    final params (numpy, port names)."""
+    final params (numpy, port names; shards gathered)."""
     import torch
 
+    from gen3c_tpu_torch.parallel import sharding
     from gen3c_tpu_torch.training import train_step as tts
 
     cfg = train_cfg(kind)
     module = train_module(kind, state, step_kw.get("loss_add_logvar", False))
+    dims = {} if groups is None else sharding.shard_params(module, groups)
     opt = tts.make_optimizer(**opt_kw)
     st = tts.init_train_state(module, opt)
     if groups is not None:
@@ -291,21 +360,123 @@ def run_train_steps(groups, kind: str, state: dict, batches: list, draws: list, 
         st, m = step(st, tb, None, draws=td)
         for k in out:
             out[k].append(float(m[k]))
-    out["params"] = {n: p.detach().numpy().copy() for n, p in module.named_parameters()}
+    params = {n: p.detach() for n, p in module.named_parameters()}
+    if dims:
+        params = sharding.gather_to_host(params, dims, groups.tp, True)
+    out["params"] = {n: p.numpy().copy() for n, p in params.items()}
     out["step"] = st.step
+    out["sharded"] = sorted(dims)
     return out
 
 
-def train(rank, world, dp: int, cp: int, **kw) -> dict:
-    """``run_train_steps`` over this rank's (dp, cp) mesh, plus the K1cp
-    launches of its forward (the Ulysses ranks' attention) and its place."""
-    from gen3c_tpu_torch import kernels
-
-    groups = mesh_groups(rank, world, dp, cp)
-    kernels.reset_launch_counts()
+def train(rank, world, dp: int, cp: int, tp: int = 1, **kw) -> dict:
+    """``run_train_steps`` over this rank's (dp, cp, tp) mesh, plus its
+    place."""
+    groups = layout_groups(rank, world, dp=dp, cp=cp, tp=tp)
     out = run_train_steps(groups, **kw)
-    out.update(dp_rank=groups.dp.rank, cp_rank=groups.cp.rank, world_rank=groups.world.rank)
+    out.update(dp_rank=groups.dp.rank, cp_rank=groups.cp.rank, tp_rank=groups.tp.rank,
+               world_rank=groups.world.rank)
     return out
+
+
+def trainer_run(rank, world, dp: int, tp: int, job_dir: str, max_iter: int) -> dict:
+    """``Trainer`` over this rank's (dp, tp) mesh on the tiny GEN3C DiT
+    (seeded, ``train.build_net``) and the synthetic stream, up to
+    ``max_iter`` steps, resuming from ``job_dir``'s latest checkpoint:
+    the step it reached and its parameters in the one-device form."""
+    from gen3c_tpu_torch.parallel import sharding
+    from gen3c_tpu_torch.training.train import build_net
+    from gen3c_tpu_torch.training.trainer import Trainer
+
+    groups = layout_groups(rank, world, dp=dp, tp=tp)
+    cfg = train_cfg("gen3c")
+    trainer = Trainer(trainer_config(job_dir, max_iter), cfg, build_net(cfg, "cpu", 0),
+                      groups=groups)
+    state = trainer.train(trainer_data())
+    params = {n: p.detach() for n, p in state.params.named_parameters()}
+    if trainer.shard_dims:
+        params = sharding.gather_to_host(params, trainer.shard_dims, groups.tp, True)
+    return {"step": state.step, "params": {n: p.numpy().copy() for n, p in params.items()},
+            "sharded": len(trainer.shard_dims)}
+
+
+def save_gather(rank, world, dp: int, tp: int) -> dict:
+    """``sharding.gather_to_host`` (Trainer's checkpoint gather) of a train
+    state cut over this rank's (dp, tp) mesh from a one-device state whose
+    moments are drawn at random, with every all-gather's output watched:
+    how many earlier ones were still alive at each gather, the gathers
+    made, whether the host state (where this rank writes, world rank 0;
+    else None) equals the one-device state bit for bit, and whether every
+    host tensor lies in host memory and is no view of the state."""
+    import weakref
+
+    import torch
+
+    from gen3c_tpu_torch.parallel import collectives, sharding
+    from gen3c_tpu_torch.training.train import build_net
+    from gen3c_tpu_torch.training.train_step import init_train_state, make_optimizer
+
+    groups = layout_groups(rank, world, dp=dp, tp=tp)
+    parts = ("params", "mu", "nu", "ema")
+    whole = init_train_state(build_net(train_cfg("gen3c"), "cpu", 0), make_optimizer())
+    gen = torch.Generator().manual_seed(0)
+    for part in (whole.opt_state.mu, whole.opt_state.nu):
+        for t in part.values():
+            t.copy_(torch.randn(t.shape, generator=gen))
+    net = build_net(train_cfg("gen3c"), "cpu", 0)
+    dims = sharding.shard_params(net, groups)
+    state = init_train_state(net, make_optimizer())
+    for mine, one in ((state.opt_state.mu, whole.opt_state.mu),
+                      (state.opt_state.nu, whole.opt_state.nu)):
+        for n, t in sharding.shard_tensors(one, dims, groups.tp).items():
+            mine[n].copy_(t)
+    sd = state.state_dict()
+    buffers, alive_at_gather = [], []
+    real = collectives.all_gather
+
+    def watched(x, dim, axis):
+        # a copy of the gather (its strides kept) that only the caller holds:
+        # gloo's work may hold the receive buffer a moment after it returns
+        alive_at_gather.append(sum(ref() is not None for ref in buffers))
+        out = real(x, dim, axis).clone()
+        buffers.append(weakref.ref(out))
+        return out
+
+    keep = groups.world.rank == 0
+    collectives.all_gather = watched
+    try:
+        host = sharding.gather_to_host(sd, dims, groups.tp, keep)
+    finally:
+        collectives.all_gather = real
+    equal = on_host = None
+    if keep:
+        one = whole.state_dict()
+        equal = all(set(host[k]) == set(one[k]) and all(torch.equal(host[k][n], one[k][n])
+                                                       for n in one[k]) for k in parts) \
+            and host["step"] == sd["step"] and host["count"] == sd["count"]
+        live = {t.data_ptr() for k in parts for t in sd[k].values()}
+        on_host = all(t.device.type == "cpu" and t.is_contiguous()
+                      and t.data_ptr() not in live for k in parts for t in host[k].values())
+    return {"alive_at_gather": max(alive_at_gather), "gathers": len(alive_at_gather),
+            "sharded": len(dims), "host_none": host is None, "equal": equal,
+            "on_host": on_host}
+
+
+def trainer_config(job_dir: str, max_iter: int):
+    """The checkpoint test's TrainerConfig: a save a step, warmup 1, no
+    prefetch thread."""
+    from gen3c_tpu_torch.training.trainer import TrainerConfig
+
+    return TrainerConfig(job_dir=job_dir, max_iter=max_iter, save_every=1, warmup_steps=1,
+                         prefetch_batches=0, lr=1e-3, text_dropout_rate=0.3)
+
+
+def trainer_data():
+    """The checkpoint test's batches: 2 synthetic clips of 2 latent frames."""
+    from gen3c_tpu_torch.training.trainer import synthetic_latent_dataset
+
+    return synthetic_latent_dataset(2, 16, 2, 8, 12, extra_channels=train_cfg("gen3c").in_channels
+                                    - 16)
 
 
 def collective_gradcheck(rank, world, cp: int, op: str) -> bool:
@@ -323,7 +494,7 @@ def collective_gradcheck(rank, world, cp: int, op: str) -> bool:
 
     from gen3c_tpu_torch.parallel import collectives as coll
 
-    axis = _groups(rank, world, 1, cp).cp
+    axis = layout_groups(rank, world, cp=cp).cp
     n, r = axis.size, axis.rank
 
     class Take(torch.autograd.Function):
@@ -353,9 +524,19 @@ def collective_gradcheck(rank, world, cp: int, op: str) -> bool:
            "heads_to_seq": lambda x: coll.heads_to_seq(x, axis),
            "all_gather": lambda x: coll.all_gather(x, 1, axis),
            "all_reduce": lambda x: coll.all_reduce(x, axis),
-           "all_reduce_mean": lambda x: coll.all_reduce(x, axis, "mean")}
+           "all_reduce_mean": lambda x: coll.all_reduce(x, axis, "mean"),
+           "reduce_scatter": lambda x: coll.reduce_scatter(x, 2, axis),
+           # the tensor-parallel operators' adjoints hold where their inputs
+           # (copy_to_tp) or outputs (reduce_from_tp, gather_to_replicas) are
+           # the same on every rank: copy_to_tp's rank-specific consumers
+           # scale it by r + 1, the other two keep the rank's own copy
+           "copy_to_tp": lambda x: coll.copy_to_tp(x, axis) * (r + 1),
+           "reduce_from_tp": lambda x: coll.reduce_from_tp(x, axis),
+           "gather_to_replicas": lambda x: coll.gather_to_replicas(x, 1, axis)}
     shape = {"heads_to_seq": (1, 2 * n, 1, 3)}.get(op, (1, 2, n, 3))  # (B, L, H, D) shards
+    take = (lambda x: x) if op == "copy_to_tp" else Take.apply  # copy_to_tp: X replicated
+    gather = (lambda y: y) if op in ("reduce_from_tp", "gather_to_replicas") else Gather.apply
     g = torch.Generator().manual_seed(11)
     X = torch.randn((n,) + shape, generator=g, dtype=torch.float64, requires_grad=True)
-    return torch.autograd.gradcheck(lambda x: Gather.apply(fns[op](Take.apply(x))), (X,),
+    return torch.autograd.gradcheck(lambda x: gather(fns[op](take(x))), (X,),
                                     eps=1e-6, atol=1e-8, rtol=1e-6)
