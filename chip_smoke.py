@@ -56,7 +56,7 @@ Phases, each printing one JSON line of its own numbers:
              a packaged clip and band window 1
  13 dynamic  the gen3c_dynamic CLI's entry point with the same 7B (built once
              for main, dynamic and multiview; here and in multiview its first
-             DYNAMIC_BLOCKS = 4 of 28 blocks) on a seeded 121-frame 704x1280
+             DYNAMIC_BLOCKS = 2 of 28 blocks) on a seeded 121-frame 704x1280
              packaged clip whose depth has nearer discs and a railing (depth
              boundaries), --foreground_masking, DYNAMIC_STEPS Euler steps: render s with
              and without masking, K6 launches (121), the culled fraction,
@@ -78,9 +78,22 @@ Phases, each printing one JSON line of its own numbers:
              measured there (the single process with its CFG pair as two
              B = 1 calls), not below CP_TOL; per rank s per step, the bytes each
              collective moved, peak GiB, the heads a rank ran and launches
-             (K1cp, K1ring + K1merge, K1ag; K1 and K2 under tp). The ranks
-             share the card and their collectives pass through host memory:
-             none of these is a multi-card time
+             (K1cp, K1ring + K1merge, K1ag; K1 and K2 under tp). Then, the
+             7B freed, the same two ranks run pp2 (GPipe: 2 stages over 2
+             of the 7B's blocks at full width, B = 2 in 2 microbatches of
+             28,160 tokens: the output and dL/dx held to one process, K1,
+             K2 and K4 a stage, the p2p bytes), render_cp2 (the 121 target
+             renders at 704x1280 split over the ranks, held to one
+             process's render_cache; K5 a rank) and ar_tp (the 4B at full
+             width on AR_TP_LAYERS of its layers, tp 2: a 5,120-token
+             prefill and AR_TP_DECODE teacher-forced decode steps, bf16 and
+             int8 cache, and the W8A8 model, logits held to one process
+             within CP_NOISE_FACTOR times the noise floor of its row sums
+             halved; a row-parallel W8A8 product bit for bit one
+             process's; a greedy generate the same on both ranks; K8 on
+             16 / 4 heads a rank, ms a token, the collectives' bytes, peak
+             GiB). The ranks share the card and their collectives pass
+             through host memory: none of these is a multi-card time
  16 moge     MoGe ViT-L (fp32, seeded weights) on a seeded 704x1280 image
              through moge_infer, the single-image path's depth source: s,
              peak GiB, its fp32 attention's launches (K1vit, 24), and the
@@ -248,11 +261,14 @@ Phases, each printing one JSON line of its own numbers:
              and K1cp's forward with lse at a Ulysses rank's shard (1,
              56,320, 16, 128) against the plain versions; then CP_RANKS
              processes on the one card (gloo, `--cp-train-rank r`) train the
-             7B at full width on CP_TRAIN_BLOCKS = 2 of 28 blocks with
+             7B at full width on CP_TRAIN_BLOCKS = 1 of 28 blocks with
              make_sharded_train_step: cp 2 over one 121-frame clip for 2
              steps, dp 2 over two 8-latent-frame clips for 1, tp 2 over one
-             8-latent-frame clip for 2 and with sequence parallelism for 1
-             (the leaves gathered from the shards), each held to
+             8-latent-frame clip for 2 and with sequence parallelism for 1,
+             then dp 2 with FSDP on dp 2's clips for 1 (each rank exactly
+             half of the cut leaves' params, moments and EMA, then the
+             checkpoint gather within its bound) (the leaves gathered from
+             the shards), each held to
              the same net, batch and draws in this one process (loss, grad
              norm, three leaves' updates and first moments within
              CP_TRAIN_TOL): s per step per rank, peak GiB, launches (K1cp /
@@ -397,8 +413,9 @@ P2_SMOKE_CONFIGS = (((2, 64, 4), "blhd"), ((3, 64, 4), "blhd"), ((2, 128, 3), "b
 DYNAMIC_STEPS = 1
 # of 28: the depth dynamic and multiview run main_path's 7B at (its width is the
 # 7B's); their checks are the renders, the masking and the CLIs' outputs, and
-# the 4 blocks pay for the cp phase's tensor-parallel runs
-DYNAMIC_BLOCKS = 4
+# the 2 blocks (4 in PR 22) pay for the cp phase's tensor-parallel runs and,
+# with the cp and cp_train cuts, for PR 23's pp2, render_cp2, ar_tp and fsdp2
+DYNAMIC_BLOCKS = 2
 MULTIVIEW_STEPS = 1
 MULTIVIEW_KEY_FRAMES = 4
 MAIN_STEPS = 1  # main_path's Euler steps; its latent is the cp phase's reference
@@ -406,7 +423,7 @@ TRAIN_STEPS = 1
 CP_SIZES = (2, 4, 8)  # K1cp's shard shapes: (2, 56,320, 32 / cp, 128)
 RING_CP_SIZES = (2, 4)  # K1ring's: (2, 56,320 / cp, 32, 128), cp = 2 the cp phase's
 CP_RANKS = 2  # the cp phase: two ranks on the one card
-CP_SHORT_BLOCKS = 4  # of 28: the depth of every cp run and of its single-process reference
+CP_SHORT_BLOCKS = 1  # of 28 (4 until PR 23): the depth of every cp run and of its reference
 # a rank's latent against the single process's, relative to mean
 # |reference|: both are bf16 7B forwards, but each rank's linears run on half
 # the rows (cuBLAS tiles them otherwise, and bf16 rounds each output), so
@@ -1187,6 +1204,49 @@ def _quant_case(gen, k: int) -> dict:
     return res
 
 
+def _quant_row_scale_case(gen) -> dict:
+    """K7q's row-scale mode at the 4B's row-parallel W8A8 input under tp 2:
+    w2's, 5,120 prefill tokens x 14,336 hidden units, a rank holding 7,168
+    of each row. Each half's row-absmax pass, their max, and each half's
+    codes with it, against the plain version (bit for bit) and the whole
+    row's codes and scale; timed: one rank's two passes."""
+    from gen3c_tpu_torch import kernels
+
+    k = 14336 // 2
+    x = torch.randn((AR_PREFIX, 2 * k), generator=gen, device="cuda").to(torch.bfloat16)
+    x[0] = 0  # a zero token
+    x[1, k + 5] = 40.0  # a row whose absmax lies in the other rank's half
+    halves = (x[:, :k].contiguous(), x[:, k:].contiguous())
+    amax = torch.maximum(*(kernels.row_absmax(h) for h in halves))
+    want_amax = torch.maximum(*(kernels.row_absmax_reference(h) for h in halves))
+    whole_codes, whole_scale = kernels.quantize_rows_reference(x)
+    codes, scale = zip(*(kernels.quantize_rows(h, amax) for h in halves))
+    want = [kernels.quantize_rows_reference(h, want_amax) for h in halves]
+    torch.cuda.synchronize()
+    res = {"name": "K7q row-scale mode (4B w2 input, tp 2: a rank's 7,168 of 14,336)",
+           "shape": list(halves[0].shape), "amax_equal": bool(torch.equal(amax, want_amax)),
+           "codes_equal": all(torch.equal(c, w[0]) for c, w in zip(codes, want)),
+           "scales_equal": all(torch.equal(sc, w[1]) for sc, w in zip(scale, want)),
+           "whole_row_equal": bool(torch.equal(torch.cat(codes, 1), whole_codes)
+                                   and all(torch.equal(sc, whole_scale) for sc in scale)),
+           "max_abs_err": max((sc - w[1]).abs().max().item() for sc, w in zip(scale, want))}
+    h = halves[0]
+    res["absmax_ms"] = cuda_ms(lambda: kernels.row_absmax(h), reps=5)
+    res["codes_ms"] = cuda_ms(lambda: kernels.quantize_rows(h, amax), reps=5)
+    res["ms"] = cuda_ms(lambda: kernels.quantize_rows(h, kernels.row_absmax(h)), reps=5)
+    res["plain_ms"] = cuda_ms(lambda: kernels.quantize_rows_reference(
+        h, kernels.row_absmax_reference(h)), reps=3)
+    res["one_pass_ms"] = cuda_ms(lambda: kernels.quantize_rows(h), reps=5)
+    # the function reads x once and writes its codes, scales and absmax
+    res.update(library_ms=None, **bound(tensor_bytes(h, codes[0], scale[0], amax),
+                                        4.0 * h.numel(), FP32_PEAK_TFLOPS))
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    emit("kernel", **res)
+    if not all(res[k] for k in ("amax_equal", "codes_equal", "scales_equal", "whole_row_equal")):
+        raise AssertionError(f"K7q row-scale mode disagrees with its plain version: {res}")
+    return res
+
+
 def _gemm_case(gen, name: str, M: int, K: int, N: int) -> dict:
     """K7 at one linear shape: exact int32 accumulators and bf16 outputs
     against the plain version, then times. The codes are K7q's, contiguous:
@@ -1711,6 +1771,7 @@ def phase_kernels() -> dict:
     results["K3"] = _band_case(gen)
     torch.cuda.empty_cache()
     results["K7q"] = [_quant_case(gen, k) for k in (4096, 16384)]
+    results["K7q_row_scale"] = _quant_row_scale_case(gen)
     torch.cuda.empty_cache()
     tokens = 2 * 56320  # the CFG batch of one 121-frame chunk
     results["K7"] = [_gemm_case(gen, name, M, K, N) for name, M, K, N in [
@@ -1857,6 +1918,334 @@ CP_STRAY = {"ulysses": ("K1", "K1ag", "K1ring"), "ring": ("K1", "K1cp", "K1ag"),
             "tp": ("K1cp", "K1ag", "K1ring"), "cp1tp2sp": ("K1cp", "K1ag", "K1ring")}
 
 
+# the cp phase's ranks then run, on the card the 7B left them: pp2, GPipe over 2
+# stages of 2 of the 7B's blocks at full width, one a stage, B = 2 in M = 2
+# microbatches of cp_train's dp clip (8 latent frames, 28,160 tokens a sample:
+# at 56,320 two ranks' backward activations would not fit the card); render_cp2,
+# the 7B preset's 121 target renders at 704 x 1280 split over the two ranks; and
+# ar_tp, the 4B AR model at full width (4,096 channels, 32 / 8 heads, tp 2: 16 / 4
+# a rank) on AR_TP_LAYERS of its 16 layers
+PP_BLOCKS, PP_B, PP_M, PP_T = 2, 2, 2, 8
+RENDER_FRAMES = 121
+AR_TP_LAYERS = 2
+AR_TP_DECODE = 16  # teacher-forced cached decode steps after the 5,120-token prefill
+AR_TP_GENERATE = 8  # greedy tokens of the short generate, the same on both ranks
+AR_TP_PROMPT = 256
+# a run's outputs against one process's, relative to mean |reference|: the bound
+# is CP_NOISE_FACTOR times the noise floor the same process shows when the same
+# arithmetic is tiled otherwise (pp2: the 2-sample forward at once against one
+# sample at a time, as the microbatches run, and its gradient; ar_tp: each
+# row-parallel linear as two half products summed in bf16, tp 2's arithmetic
+# without the parallel code), never below PAR_TOL. A wrong stage order,
+# a lost microbatch, a wrong head or vocab shard moves the output by O(1)
+PAR_TOL = {"max": 0.1, "mean": 0.01}
+
+
+def _rel_t(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """_rel_diff on the card."""
+    d = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().mean().item()
+    return {"max_abs_diff": d.max().item(), "mean_abs_diff": d.mean().item(),
+            "rel_max": d.max().item() / scale, "rel_mean": d.mean().item() / scale}
+
+
+def _counted(fn):
+    """fn() with the launch counts and the collectives' traffic set to 0
+    just before (after a barrier) and read just after, with its seconds and
+    the card's peak: (value, record)."""
+    import torch.distributed as dist
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    collectives.reset_traffic()
+    t0 = time.perf_counter()
+    value = fn()
+    torch.cuda.synchronize()
+    return value, {"s": time.perf_counter() - t0,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "launches": {k: v for k, v in kernels.launch_counts.items() if v},
+                   "traffic": {op: dict(c) for op, c in collectives.traffic.items()
+                               if c["calls"]}}
+
+
+def _pp2_run(rank: int, axis) -> dict:
+    """pp_dit_forward of PP_BLOCKS of the 7B over the two ranks and the
+    gradient of sum(out ** 2) with respect to x; rank 0 then runs the same
+    net one sample at a time (what each microbatch is) with its gradient,
+    and the 2-sample forward at once (the noise floor)."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from gen3c_tpu_torch.parallel.pp import pp_dit_forward
+    from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET
+    from gen3c_tpu_torch.training.train import build_net
+
+    cfg = dc.replace(GEN3C_7B_PRESET.dit, num_blocks=PP_BLOCKS)
+    net = build_net(cfg, "cuda:0", seed=0)
+    randomize_gates(net, torch.Generator(device="cuda:0").manual_seed(1))
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((PP_B, cfg.in_channels, PP_T, 88, 160), generator=gen).cuda()
+    t = torch.rand((PP_B,), generator=gen).cuda()
+    ctx = torch.randn((PP_B, 512, 1024), generator=gen).cuda()
+    xg = x.clone().requires_grad_(True)
+
+    def run():
+        out = pp_dit_forward(axis, net, xg, t, ctx, n_microbatches=PP_M)
+        (out.float() ** 2).sum().backward()
+        return out.detach()
+
+    out, rec = _counted(run)
+    res = {"blocks": PP_BLOCKS, "stages": axis.size, "stage": axis.rank, "B": PP_B,
+           "microbatches": PP_M, "tokens_a_sample": PP_T * 88 * 160 // 4, **rec,
+           "finite": bool(torch.isfinite(out).all().item())}
+    if rank == 0:
+        grad = xg.grad
+        ref_out, ref_grad = [], []
+        for i in range(PP_B):
+            xi = x[i:i + 1].clone().requires_grad_(True)
+            oi = net(xi, t[i:i + 1], ctx[i:i + 1], fps=24.0)
+            (oi.float() ** 2).sum().backward()
+            ref_out.append(oi.detach())
+            ref_grad.append(xi.grad)
+            del oi, xi
+        ref_out, ref_grad = torch.cat(ref_out), torch.cat(ref_grad)
+        # the noise floor: both samples at once (remat keeps the card's peak
+        # at one block's activations), the tiling the pipeline's final layer
+        # sees
+        xb = x.clone().requires_grad_(True)
+        ob = net(xb, t, ctx, fps=24.0, remat=True)
+        (ob.float() ** 2).sum().backward()
+        res.update(out=_rel_t(out, ref_out), grad_x=_rel_t(grad, ref_grad),
+                   noise=_rel_t(ob.detach(), ref_out), noise_grad=_rel_t(xb.grad, ref_grad))
+        del ref_out, ref_grad, grad, ob, xb
+    dist.barrier()
+    del net, xg, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _render_cp2_run(rank: int, axis) -> dict:
+    """sharded_render_cache of the 7B preset's RENDER_FRAMES targets at
+    704 x 1280 over the two ranks; rank 0 then renders them in one process
+    (``render_cache``): the share of pixels off by more than SPLAT_TOL and
+    of masks that differ (K5's atomics sum in another order)."""
+    import torch.distributed as dist
+
+    from gen3c_tpu_torch.cache import Cache3DBuffer
+    from gen3c_tpu_torch.ops.camera import generate_camera_trajectory
+    from gen3c_tpu_torch.parallel.cache_sharding import sharded_render_cache
+    from gen3c_tpu_torch.pipelines.depth import HeuristicDepthEstimator
+
+    h, w = 704, 1280
+    image = _seed_image(h, w, 3)
+    depth, k, _ = HeuristicDepthEstimator()((image[0, :, 0].transpose(1, 2, 0) + 1) / 2)
+    w2c0 = np.eye(4, dtype=np.float32)
+    cache = Cache3DBuffer(frame_buffer_max=2, input_image=torch.from_numpy(image[:, :, 0]),
+                          input_depth=torch.from_numpy(depth[None, None]),
+                          input_w2c=torch.from_numpy(w2c0[None]),
+                          input_intrinsics=torch.from_numpy(k[None]), device="cuda:0")
+    w2cs, ks = generate_camera_trajectory("left", w2c0, k, RENDER_FRAMES, 0.3, "center_facing",
+                                          1.0, device="cuda:0")
+    (px, mk), rec = _counted(lambda: sharded_render_cache(cache, axis, w2cs, ks))
+    res = {"frames": RENDER_FRAMES, "size": [h, w], "shape": list(px.shape), **rec,
+           "finite": bool(torch.isfinite(px).all().item())}
+    if rank == 0:
+        one_px, one_mk = cache.render_cache(w2cs, ks)
+        d = (px - one_px).abs()
+        res.update(max_abs_diff=d.max().item(), share_off=(d > SPLAT_TOL).float().mean().item(),
+                   mask_share_off=(mk != one_mk).float().mean().item())
+        del one_px, one_mk, d
+    dist.barrier()
+    del px, mk, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ar_tp_run(rank: int, groups) -> dict:
+    """The 4B (AR_TP_LAYERS of its layers, full width, bf16, seed 0) whole
+    on rank 0, then cut to each rank's tp shards (``shard_ar_params``): a
+    5,120-token prefill and AR_TP_DECODE teacher-forced cached decode steps
+    with the bf16 and the int8 cache, their logits held to one process's
+    (and to its noise floor: its row-parallel sums halved,
+    ``_halved_row_sums``); a short greedy
+    generate, the same tokens on both ranks; then the W8A8 model
+    (``quantize_ar_params(act_quant=True)``, the row-parallel wo and w2
+    through K7q's row-scale mode and K7's summed int32 products): its
+    forward's logits at every prefill position, held the same way (its
+    decode is not: K8's decode splits its keys by the KV heads a call
+    holds, and a bit off in its output moves W8A8's codes). Per run: K8's
+    launches a rank, the collectives' bytes and host seconds, ms per decode
+    token, peak GiB."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from gen3c_tpu_torch.models import ar_transformer as tar
+    from gen3c_tpu_torch.models.quantize import quantize_ar_params
+    from gen3c_tpu_torch.parallel import collectives
+    from gen3c_tpu_torch.parallel.sharding import shard_ar_params
+    from gen3c_tpu_torch.pipelines.autoregressive import AR_PRESETS
+
+    cfg = dc.replace(AR_PRESETS["ar_4b"].ar, n_layers=AR_TP_LAYERS)
+    tokens = torch.randint(0, cfg.vocab_size, (1, AR_PREFIX + AR_TP_DECODE),
+                           generator=torch.Generator().manual_seed(7)).cuda()
+
+    def build():
+        with torch.device("meta"):
+            model = tar.ARTransformer(cfg)
+        return model.to_empty(device="cuda:0").init_random(
+            torch.Generator(device="cuda:0").manual_seed(0))
+
+    @torch.no_grad()
+    def teacher(model, int8: bool):
+        cache = tar.init_kv_cache(cfg, 1, dtype=cfg.dtype, quantized=int8, device="cuda:0",
+                                  tp=model.tp_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model(tokens[:, :AR_PREFIX], cache=cache)
+        rows = [logits[:, -1]]
+        del logits
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        step_ms = []
+        for i in range(AR_PREFIX, AR_PREFIX + AR_TP_DECODE):
+            t0 = time.perf_counter()
+            step, _ = model(tokens[:, i:i + 1], cache=cache)
+            rows.append(step[:, -1])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return torch.cat(rows).float(), prefill_s, step_ms
+
+    @torch.no_grad()
+    def prefill(model):
+        """The W8A8 model's cache-free forward: every position's logits."""
+        t0 = time.perf_counter()
+        logits = model(tokens[:, :AR_PREFIX])[0][0]
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0, []
+
+    res = {"layers": AR_TP_LAYERS, "dim": cfg.dim, "heads": cfg.n_heads,
+           "kv_heads": cfg.n_kv_heads, "tp": groups.tp.size, "prefix": AR_PREFIX,
+           "decode_steps": AR_TP_DECODE, "runs": {}}
+    # the bf16 model's cached decode with either cache, then the W8A8 model's
+    # forward (its logits at every prefill position)
+    for quant, kind, int8 in ((None, "bf16 cache", False), (None, "int8 cache", True),
+                              ("w8a8", "forward", False)):
+        def run_it(model):
+            return prefill(model) if quant else teacher(model, int8)
+
+        if kind != "int8 cache":
+            model = build()
+            if quant:
+                quantize_ar_params(model, act_quant=True)
+        ref = noise = None
+        if rank == 0:
+            if kind == "int8 cache":  # the model is cut already: a whole one for the reference
+                whole = build()
+                ref = run_it(whole)[0]
+                with _halved_row_sums(tar):
+                    noise = _rel_t(run_it(whole)[0], ref)
+                del whole
+            else:
+                ref = run_it(model)[0]
+                with _halved_row_sums(tar):
+                    noise = _rel_t(run_it(model)[0], ref)
+        dist.barrier()
+        shard_ar_params(model, groups)
+        name = ("w8a8 " if quant else "bf16 ") + kind
+        (logits, prefill_s, step_ms), rec = _counted(lambda: run_it(model))
+        run = {"prefill_s": prefill_s,
+               "heads_a_rank": model.layers[0].attention.wq.weight.shape[0] // cfg.head_dim,
+               "kv_heads_a_rank": model.layers[0].attention.wk.weight.shape[0]
+               // cfg.head_dim, **rec, "finite": bool(torch.isfinite(logits).all().item())}
+        if step_ms:
+            run.update(ms_per_token=float(np.mean(step_ms)),
+                       ms_per_token_median=float(np.median(step_ms)))
+        if rank == 0:
+            run.update(logits=_rel_t(logits, ref), noise=noise)
+            if step_ms:
+                run["rows_rel_mean"] = [_rel_t(a, b)["rel_mean"] for a, b in zip(logits, ref)]
+        res["runs"][name] = run
+        del logits, ref
+        if quant:
+            res["w8a8_row_parallel"] = _w8a8_row_parallel_check(groups)
+        if kind == "bf16 cache":
+            with torch.no_grad():
+                out, rec = _counted(lambda: tar.generate(model, tokens[:, :AR_TP_PROMPT],
+                                                         AR_TP_GENERATE, temperature=0.0))
+            both = collectives.all_gather(out, 0, groups.tp)
+            res["generate"] = {**rec, "new_tokens": AR_TP_GENERATE,
+                               "same_on_every_rank": bool((both == both[:1]).all().item())}
+        if kind != "bf16 cache":
+            del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def _halved_row_sums(tar):
+    """One process's row-parallel linears (wo, w2) as two products over the
+    halves of their inputs, each rounded to the model's dtype and summed:
+    the arithmetic tp 2 gives them, with no parallel code (ar_tp's noise
+    floor). A W8A8 linear's int32 sums are exact either way: it runs as
+    it is."""
+    import torch.nn.functional as F
+
+    whole = tar._row_out
+
+    def halved(x, lin, tp):
+        if tp is not None or not isinstance(lin, torch.nn.Linear):
+            return whole(x, lin, tp)
+        k = x.shape[-1] // 2
+        w = lin.weight.to(x.dtype)
+        return F.linear(x[..., :k], w[:, :k]) + F.linear(x[..., k:], w[:, k:])
+
+    tar._row_out = halved
+    try:
+        yield
+    finally:
+        tar._row_out = whole
+
+
+def _w8a8_row_parallel_check(groups) -> dict:
+    """``kernels.w8a8_matmul(tp=)`` on each rank's half of a (AR_PREFIX,
+    14,336) bf16 input and of int8 weight codes (4,096, 14,336), the 4B's
+    w2 at tp 2, against one process's ``w8a8_matmul`` of the whole: the
+    same bits (K7q's row-scale mode, the max and the int32 sums over tp)."""
+    from gen3c_tpu_torch import kernels
+
+    gen = torch.Generator(device="cuda:0").manual_seed(9)
+    x = torch.randn((AR_PREFIX, 14336), generator=gen, device="cuda:0").to(torch.bfloat16)
+    w = (torch.randn((4096, 14336), generator=gen, device="cuda:0") * 0.02).to(torch.bfloat16)
+    wq, ws = kernels.quantize_rows(w)
+    k = x.shape[1] // groups.tp.size
+    cols = slice(groups.tp.rank * k, (groups.tp.rank + 1) * k)
+    one = kernels.w8a8_matmul(x, wq, ws, torch.bfloat16)
+    got = kernels.w8a8_matmul(x[:, cols].contiguous(), wq[:, cols].contiguous(), ws,
+                              torch.bfloat16, tp=groups.tp)
+    return {"shape": [AR_PREFIX, k, 4096], "equal": bool(torch.equal(got, one)),
+            **_rel_t(got, one)}
+
+
+def _cp_extras(rank: int, out_dir: str) -> dict:
+    """pp2, render_cp2 and ar_tp on the cp phase's two ranks (gloo), after
+    the 7B is gone; each rank's numbers."""
+    from gen3c_tpu_torch.parallel import mesh
+
+    axis = mesh.pp_axis(backend="gloo")
+    tp = mesh.make_groups(tp=CP_RANKS, backend="gloo")
+    return {"pp2": _pp2_run(rank, axis), "render_cp2": _render_cp2_run(rank, axis),
+            "ar_tp": _ar_tp_run(rank, tp)}
+
+
 def cp_worker(rank: int, port: int, out_dir: str) -> int:
     """One rank of the cp phase, a process of its own with torchrun's
     environment: the 7B (main_path's seeds) through build_gen3c_model over
@@ -1924,6 +2313,10 @@ def cp_worker(rank: int, port: int, out_dir: str) -> int:
             "latents_finite": bool(torch.isfinite(samples).all().item())}
         del pipeline, samples
         torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(_cp_extras(rank, out_dir))
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -2001,11 +2394,75 @@ def phase_cp(refs: dict) -> dict:
         routes = [r["routes"] for r in run["rank"]]
         if any(r["mma_sync"] or not r["wgmma"] for r in routes):
             bad.append(f"{name}: attention launches by body {routes}, expected wgmma only")
+    bad += _check_cp_extras(ranks, res)
     shutil.rmtree(out_dir, ignore_errors=True)
     emit("cp", **res)
     if bad:
         raise AssertionError(f"cp: {bad}: {res}")
     return res
+
+
+def _noise_tol(noise: dict) -> dict:
+    return {k: max(PAR_TOL[k], CP_NOISE_FACTOR * noise[f"rel_{k}"]) for k in ("max", "mean")}
+
+
+def _off(rel: dict, tol: dict) -> bool:
+    return rel["rel_max"] > tol["max"] or rel["rel_mean"] > tol["mean"]
+
+
+def _check_cp_extras(ranks: list, res: dict) -> list:
+    """pp2, render_cp2 and ar_tp of the cp phase's ranks (``_cp_extras``)
+    against their one-process runs and bounds, into res; what failed."""
+    bad = []
+    pp = [r["pp2"] for r in ranks]
+    tol, tol_grad = _noise_tol(pp[0]["noise"]), _noise_tol(pp[0]["noise_grad"])
+    res["pp2"] = {"ranks": pp, "tol": tol, "tol_grad": tol_grad}
+    if _off(pp[0]["out"], tol) or _off(pp[0]["grad_x"], tol_grad) or \
+            not all(r["finite"] for r in pp):
+        bad.append(f"pp2: output or gradient off the one process: {pp[0]}")
+    blocks_a_stage = PP_BLOCKS // CP_RANKS
+    for r in pp:
+        la = r["launches"]
+        want = PP_M * blocks_a_stage
+        if la.get("K1") != want or la.get("K2") != want or la.get("K4") != 2 * want:
+            bad.append(f"pp2: stage {r['stage']} launched {la}")
+        if r["traffic"].get("p2p", {}).get("calls") != 2 * PP_M:
+            bad.append(f"pp2: stage {r['stage']} point-to-point traffic {r['traffic']}")
+    rd = [r["render_cp2"] for r in ranks]
+    res["render_cp2"] = {"ranks": rd, "share_tol": 1 - SPLAT_MASK_AGREE}
+    per_rank = -(-RENDER_FRAMES // CP_RANKS)
+    from gen3c_tpu_torch.cache.cache3d import Cache3DBase
+
+    if rd[0]["share_off"] > 1 - SPLAT_MASK_AGREE or rd[0]["mask_share_off"] > 1 - SPLAT_MASK_AGREE \
+            or not all(r["finite"] for r in rd):
+        bad.append(f"render_cp2: off the one-process render: {rd[0]}")
+    for r in rd:
+        if r["shape"] != [1, RENDER_FRAMES, 1, 3, 704, 1280] or \
+                r["launches"].get("K5") != -(-per_rank // Cache3DBase.render_chunk):
+            bad.append(f"render_cp2: a rank rendered {r['shape']}, launches {r['launches']}")
+    ar = [r["ar_tp"] for r in ranks]
+    res["ar_tp"] = {"ranks": ar}
+    for name, run in ar[0]["runs"].items():
+        tol = _noise_tol(run["noise"])
+        run["tol"] = tol
+        if _off(run["logits"], tol):
+            bad.append(f"ar_tp {name}: logits off the one process: {run}")
+    for r in ar:
+        for name, run in r["runs"].items():
+            la = run["launches"]
+            k8 = AR_TP_LAYERS * (1 if name.endswith("forward") else 1 + AR_TP_DECODE)
+            if la.get("K8") != k8 or run["heads_a_rank"] != 16 \
+                    or run["kv_heads_a_rank"] != 4 or not run["finite"]:
+                bad.append(f"ar_tp {name}: a rank ran {run['heads_a_rank']} / "
+                           f"{run['kv_heads_a_rank']} heads, launched {la}")
+            if name.startswith("w8a8") and not (la.get("K7q") and la.get("K7")):
+                bad.append(f"ar_tp {name}: W8A8 launched {la}")
+        if not r["generate"]["same_on_every_rank"]:
+            bad.append(f"ar_tp: the ranks generated other tokens: {r['generate']}")
+        if not r["w8a8_row_parallel"]["equal"]:
+            bad.append(f"ar_tp: a row-parallel W8A8 product differs from one process's: "
+                       f"{r['w8a8_row_parallel']}")
+    return bad
 
 
 # the cp_train phase: the 7B at full width (4096 channels, 32 x 128 heads, bf16) on
@@ -2015,19 +2472,23 @@ def phase_cp(refs: dict) -> dict:
 # its activations (per-block remat; the 12-block train phase's peak was 31 GiB
 # above its state at 56,320 tokens, so ~15.5 GiB at a rank's 28,160): 8 blocks
 # would pass the card's 80 GB. A step's time is gloo's host path, which grows
-# with the blocks: 2 (PR 21 ran 6) pay for the tp runs' time
-CP_TRAIN_BLOCKS = 2
+# with the blocks: 1 (PR 21 ran 6, PR 22 2) pays for the tp and FSDP runs' time
+CP_TRAIN_BLOCKS = 1
 CP_TRAIN_STEPS = 2
 CP_TRAIN_LR = 1e-4  # warmup 1: optax's first update has lr 0, the second lr
 # (name, dp, cp, tp, sequence parallelism, steps, latent T, B): Ulysses over the
 # 121-frame clip's 16 latent frames (28,160 tokens a rank), then dp over two
 # clips of 8 latent frames (each rank one clip of 28,160 tokens: the same
 # activations a rank), then tp over one clip of 8 latent frames (each rank
-# 28,160 tokens through its 16 heads; with sp 14,080 between the sub-blocks)
+# 28,160 tokens through its 16 heads; with sp 14,080 between the sub-blocks), then
+# dp with FSDP over the dp run's two clips (each rank 1/2 of every block's
+# linears, of the large embedders and of their moments and EMA)
 CP_TRAIN_RUNS = (("cp2", 1, 2, 1, False, CP_TRAIN_STEPS, LATENT_T_7B, 1),
                  ("dp2", 2, 1, 1, False, 1, 8, 2),
                  ("tp2", 1, 1, 2, False, CP_TRAIN_STEPS, 8, 1),
-                 ("tp2sp", 1, 1, 2, True, 1, 8, 1))
+                 ("tp2sp", 1, 1, 2, True, 1, 8, 1),
+                 ("fsdp2", 2, 1, 1, False, 1, 8, 2))
+CP_TRAIN_FSDP = ("fsdp2",)  # the runs that cut the state over dp (sharding.shard_fsdp)
 # one leaf of each kind the tp runs shard or sum: q's rows (dim 0), out's columns
 # (dim 1), fc1's rows, q's RMSNorm scale (a part on each tp rank, summed over
 # tp) and the final layer (replicated)
@@ -2036,9 +2497,9 @@ CP_TRAIN_LEAVES = ("blocks.block0.blocks.0.block.attn.to_q.0.weight",
                    "blocks.block0.blocks.2.block.layer1.weight",
                    "blocks.block0.blocks.0.block.attn.to_q.1.weight",
                    "final_layer.linear.weight")
-# the tp run whose state is then gathered as Trainer saves it
+# the runs whose state is then gathered as Trainer saves it
 # (sharding.gather_to_host), with the card's peak held to one gathered tensor
-CP_TRAIN_SAVE_RUN = "tp2"
+CP_TRAIN_SAVE_RUNS = ("tp2", "fsdp2")
 CP_TRAIN_MEMORY_FRACTION = 0.48
 CP_TRAIN_TIMEOUT_S = 600  # the two ranks, together
 # two ranks against one: the same bf16 arithmetic per token but GEMMs over half
@@ -2060,7 +2521,8 @@ def _cp_train_batch(cfg, T: int, B: int, seed: int = 0) -> dict:
             "extra_channels": torch.randn((B, cfg.in_channels - 16, T, 88, 160), generator=gen)}
 
 
-def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int, sp: bool = False) -> dict:
+def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int, sp: bool = False,
+                  fsdp: bool = False) -> dict:
     """CP_TRAIN_BLOCKS of the 7B trained ``steps`` steps on ``_cp_train_batch``
     (the same net, batch and draws on every rank and in the one-rank
     reference): over ``groups`` through make_sharded_train_step (over a tp
@@ -2069,11 +2531,19 @@ def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int, sp: bool =
     train_step. Per step s, loss, grad norm, peak GiB, launches, K4's by
     forward, routes and the collectives' bytes and host seconds; the
     CP_TRAIN_LEAVES' updates and first moments (CPU fp32; tp shards
-    gathered, in CP_TRAIN_SAVE_RUN by Trainer's save gather, whose seconds,
-    bytes and growth of the card's peak it records)."""
+    gathered, in CP_TRAIN_SAVE_RUNS by Trainer's save gather, whose seconds,
+    bytes and growth of the card's peak it records). fsdp: the state cut
+    over dp too (``shard_fsdp``, FSDP); "held" then counts the bytes of this
+    rank's params, first and second moments and EMA of the cut leaves, and
+    "whole" those of the one-device state."""
     from gen3c_tpu_torch import kernels
     from gen3c_tpu_torch.parallel import collectives
-    from gen3c_tpu_torch.parallel.sharding import gather_to_host, shard_params
+    from gen3c_tpu_torch.parallel.sharding import (
+        gather_to_host,
+        named_leaves,
+        shard_fsdp,
+        shard_params,
+    )
     from gen3c_tpu_torch.training.train import build_net
     from gen3c_tpu_torch.training.train_step import (
         init_train_state,
@@ -2087,11 +2557,14 @@ def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int, sp: bool =
     opt = make_optimizer(lr=CP_TRAIN_LR, warmup_steps=1)
     before = {n: p.detach().float().cpu() for n, p in net.named_parameters()
               if n in CP_TRAIN_LEAVES}
+    whole = {n: p.numel() for n, p in net.named_parameters()}
     dims = {} if groups is None else shard_params(net, groups)
+    cut = shard_fsdp(net, groups) if fsdp else {}
     state = init_train_state(net, opt)
-    named = dict(net.named_parameters())
+    named = named_leaves(net)
     if groups is not None:
-        step = make_sharded_train_step(groups, cfg, opt, remat=True, sequence_parallel=sp)
+        step = make_sharded_train_step(groups, cfg, opt, remat=True, sequence_parallel=sp,
+                                       fsdp_axis="dp" if fsdp else None)
     else:
         def step(st, b, rng):
             return train_step(st, b, rng, cfg, opt, remat=True)
@@ -2118,9 +2591,18 @@ def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int, sp: bool =
             "routes": dict(kernels.route_counts),
             "traffic": {op: dict(c) for op, c in collectives.traffic.items() if c["calls"]}})
     out["params"] = sum(p.numel() for p in named.values())  # this rank's
+    if cut:
+        sd = state.state_dict()
+        parts = ("params", "mu", "nu", "ema")
+        out["fsdp"] = {"leaves": len(cut), "whole_elements": sum(whole[n] for n in cut),
+                       "held_elements": {part: sum(sd[part][n].numel() for n in cut)
+                                         for part in parts},
+                       "held_bytes": {part: sum(sd[part][n].numel() * sd[part][n].element_size()
+                                                for n in cut) for part in parts}}
+        del sd
     now = {n: named[n].detach() for n in CP_TRAIN_LEAVES}
     mu = {n: state.opt_state.mu[n] for n in CP_TRAIN_LEAVES}
-    if dims and name == CP_TRAIN_SAVE_RUN:
+    if (dims or cut) and name in CP_TRAIN_SAVE_RUNS:
         # Trainer._save's gather, kept on every rank here: the leaves come
         # from it. The card may grow by one gathered tensor and the
         # collective's own buffers: gloo's all-gather on CUDA tensors holds a
@@ -2131,10 +2613,10 @@ def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int, sp: bool =
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        host = gather_to_host(state.state_dict(), dims, groups.tp, True)
+        host = gather_to_host(state.state_dict(), dims, groups.tp, True, cut, groups.dp)
         torch.cuda.synchronize()
         sizes = [t.numel() * t.element_size() for part in ("params", "mu", "nu", "ema")
-                 for n, t in host[part].items() if n in dims]
+                 for n, t in host[part].items() if n in dims or n in cut]
         out["save"] = {"s": time.perf_counter() - t0,
                        "peak_growth_bytes": torch.cuda.max_memory_allocated() - base,
                        "bound_bytes": 3 * max(sizes),
@@ -2144,8 +2626,8 @@ def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int, sp: bool =
                                          for t in host[part].values())}
         now, mu = host["params"], host["mu"]
         del host
-    elif dims:
-        now, mu = (gather_to_host(t, dims, groups.tp, True) for t in (now, mu))
+    elif dims or cut:
+        now, mu = (gather_to_host(t, dims, groups.tp, True, cut, groups.dp) for t in (now, mu))
     out["leaves"] = {n: {"update": now[n].float().cpu() - before[n],
                          "mu": mu[n].float().cpu()} for n in CP_TRAIN_LEAVES}
     del state, net, named, batch, opt
@@ -2172,7 +2654,7 @@ def cp_train_worker(rank: int, port: int, out_dir: str) -> int:
     out = {"rank": rank, "runs": {}}
     for name, dp, cp, tp, sp, steps, T, B in CP_TRAIN_RUNS:
         groups = mesh.make_groups(dp=dp, cp=cp, tp=tp, backend="gloo")
-        res = _cp_train_run(cfg, groups, name, steps, T, B, sp)
+        res = _cp_train_run(cfg, groups, name, steps, T, B, sp, name in CP_TRAIN_FSDP)
         leaves = res.pop("leaves")
         if rank == 0:
             torch.save(leaves, os.path.join(out_dir, f"train_{name}.pt"))
@@ -2262,8 +2744,11 @@ def phase_cp_train() -> dict:
            "note": "both ranks share one card and their collectives go through host memory "
                    "(gloo): no time here is a multi-card time", "runs": {}}
     bad = []
+    ones = {}  # the one-rank step of each (steps, T, B): fsdp2 trains dp2's
     for name, dp, cp, tp, sp, steps, T, B in CP_TRAIN_RUNS:
-        one = _cp_train_run(cfg, None, name, steps, T, B)
+        if (steps, T, B) not in ones:
+            ones[(steps, T, B)] = _cp_train_run(cfg, None, name, steps, T, B)
+        one = copy.deepcopy(ones[(steps, T, B)])
         got_leaves = torch.load(os.path.join(out_dir, f"train_{name}.pt"), weights_only=True)
         runs = [r["runs"][name] for r in ranks]
         rel = [{k: abs(st[k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
@@ -2304,12 +2789,18 @@ def phase_cp_train() -> dict:
         for st in one["steps"]:
             if not (math.isfinite(st["loss"]) and st["grad_norm"] > 0):
                 bad.append(f"{name}: the one-rank step gave {st}")
-        if name == CP_TRAIN_SAVE_RUN:
+        if name in CP_TRAIN_SAVE_RUNS:
             for r, rk in enumerate(runs):
                 sv = rk.get("save")
                 if sv is None or sv["peak_growth_bytes"] > sv["bound_bytes"]:
                     bad.append(f"{name}: rank {r}'s save gather grew the card by more than "
                                f"3 x its largest gathered tensor: {sv}")
+        if name in CP_TRAIN_FSDP:  # each rank holds exactly its 1/dp of the cut leaves
+            for r, rk in enumerate(runs):
+                fs = rk.get("fsdp")
+                if fs is None or fs["whole_elements"] % dp or any(
+                        v != fs["whole_elements"] // dp for v in fs["held_elements"].values()):
+                    bad.append(f"{name}: rank {r} holds {fs} of the cut leaves, not 1/{dp}")
         if tp > 1 and not all(rk["params"] < one["params"] for rk in runs):
             bad.append(f"{name}: a rank holds {[rk['params'] for rk in runs]} parameters, "
                        f"one rank {one['params']}: the linears were not sharded")
@@ -5824,7 +6315,8 @@ def main(argv=None) -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    cp_runs = phase_cp(cp_refs)["runs"]
+    cp_res = phase_cp(cp_refs)
+    cp_runs = cp_res["runs"]
     cp_train = phase_cp_train()
     phase_serving()
     t2w_launches = phase_text2world()["launches"]
@@ -5867,10 +6359,15 @@ def main(argv=None) -> int:
                 "launches": launches, **{**got, **override}}
 
     # the launches of the span, text2world, interpolator and multiview phases
+    pp2 = cp_res["pp2"]["ranks"][0]
+    render_cp2 = cp_res["render_cp2"]["ranks"][0]
+    ar_tp = cp_res["ar_tp"]["ranks"][0]["runs"]
+
     def by_phase(kid):
         return {"span": span_res["full"]["launches"][kid],
                 **{f"cp {run} (rank 0, tp 2: 16 heads)": cp_runs[run]["rank"][0]["launches"][kid]
                    for run in ("tp", "cp1tp2sp")},
+                "cp pp2 (stage 0: 1 block, 2 microbatches)": pp2["launches"].get(kid, 0),
                 "text2world": t2w_launches[kid],
                 "interpolator": interp_launches[kid], "mv_world": mv_res["launches"][kid],
                 "mv_action_train": sum(r["launches"][kid] for r in mv_train.values()),
@@ -5897,19 +6394,28 @@ def main(argv=None) -> int:
             decoder=dd_res["kernel_cases"]["K2"]),
         row("K5 forward-warp splat", "splat.cu", "gen3c_tpu/ops/geometry.py:205",
             launches["K5"], kern["K5"],
+            phase_launches={"cp render_cp2 (rank 0: 61 of 121 targets)":
+                            render_cp2["launches"]["K5"]},
             max_abs_err=max([kern["K5"]["max_abs_err"]]
                             + [c["max_abs_err"] for c in kern["K5"]["cases"].values()])),
         row("K3 band self-attention", "attention_wgmma.cu", "gen3c_tpu/models/dit.py:459",
             fast_launches["K3"], kern["K3"]),
         row("K7q per-token int8 quantize (K=4096)", "w8a8.cu", "gen3c_tpu/models/quantize.py:55",
             fast_launches["K7q"], kern["K7q"][0],
-            phase_launches={"quality (fp32 W8A8 rows)": quality_launches["K7q"]},
-            max_abs_err=max(r["max_abs_err"] for r in kern["K7q"]),
+            phase_launches={"quality (fp32 W8A8 rows)": quality_launches["K7q"],
+                            "cp ar_tp w8a8 (rank 0, tp 2)":
+                            ar_tp["w8a8 forward"]["launches"]["K7q"]},
+            max_abs_err=max(r["max_abs_err"] for r in kern["K7q"] + [kern["K7q_row_scale"]]),
             widths=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_share")}
-                    for r in kern["K7q"]]),
+                    for r in kern["K7q"] + [kern["K7q_row_scale"]]],
+            row_scale={k: kern["K7q_row_scale"][k] for k in (
+                "name", "shape", "ms", "absmax_ms", "codes_ms", "one_pass_ms", "plain_ms",
+                "bound_ms", "bound_by", "bound_share", "max_abs_err")}),
         row("K7 int8 GEMM + rescale (fc1 shape)", "w8a8.cu", "gen3c_tpu/models/quantize.py:61",
             fast_launches["K7"], k7,
-            phase_launches={"quality (fp32 W8A8 rows)": quality_launches["K7"]},
+            phase_launches={"quality (fp32 W8A8 rows)": quality_launches["K7"],
+                            "cp ar_tp w8a8 (rank 0, tp 2)":
+                            ar_tp["w8a8 forward"]["launches"]["K7"]},
             max_abs_err=max(r["max_abs_err"] for r in k7_cases),
             shapes=[{k: r[k] for k in ("name", "copied", "ms", "library_ms", "bound_ms")}
                     for r in k7_cases]),
@@ -5917,7 +6423,9 @@ def main(argv=None) -> int:
             train_launches["K1"], kern["K4_self"],
             phase_launches={**{k: v["K1"] for k, v in k4_mv.items()},
                             **cp_train_k4("K1cp", "cp2"), **cp_train_k4("K1", "dp2"),
-                            **cp_train_k4("K1", "tp2"), **cp_train_k4("K1", "tp2sp")},
+                            **cp_train_k4("K1", "tp2"), **cp_train_k4("K1", "tp2sp"),
+                            **cp_train_k4("K1", "fsdp2"),
+                            "cp pp2 (stage 0, self + cross)": pp2["launches"]["K4"]},
             cp_training_shard={k: cp_train["k4"][k] for k in (
                 "q", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
                 "bound_share")}),
@@ -5980,6 +6488,8 @@ def main(argv=None) -> int:
                      phase_launches={"ar_world bf16 cache": ar_res["runs"]["bf16"]["launches"]["K8"],
                                      "ar_world int8 cache": ar_res["runs"]["int8"]["launches"]["K8"],
                                      "ar_tiny card": ar_res["tiny_card_vs_cpu"]["card_k8_launches"],
+                                     **{f"cp ar_tp {n} (rank 0, tp 2: 16 / 4 heads)":
+                                        r["launches"]["K8"] for n, r in ar_tp.items()},
                                      **{f"guardrail {g} (2 runs)": n
                                         for g, n in guard_res["launches"]["K8"].items()},
                                      "upsampler (VLM + text)": ups_res["launches"]["K8"],

@@ -17,7 +17,10 @@
                                  TF32 products on the tensor cores (attention_f32.cu)
   K5   forward-warp splat        (gen3c_tpu/ops/geometry.py:205-316)
   K6   nearest ray-triangle hit  (gen3c_tpu/ops/raycast.py:97-140)
-  K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59), one pass a row
+  K7q  per-token int8 quantize   (gen3c_tpu/models/quantize.py:55-59), one pass a row;
+                                 its row-scale mode for a row split over tp ranks:
+                                 a pass that writes the slice's row absmax, then the
+                                 codes with the max over the ranks
   K7   int8 x int8 GEMM + rescale (quantize.py:60-69), TMA + wgmma s8
   K8   GQA attention over the KV cache (gen3c_tpu/models/ar_transformer.py:252-297,
                                  XLA): causal, left padding, int8 codes with fp32 scales
@@ -79,6 +82,7 @@ from gen3c_tpu_torch.kernels.reference import (
     mma_probe_reference,
     quantize_rows_reference,
     ray_triangle_depth_reference,
+    row_absmax_reference,
     ring_fold_reference,
     ring_merge_reference,
     splat_reference,
@@ -91,6 +95,7 @@ __all__ = [
     "route_counts", "gqa_attention_reference", "gqa_attention_backward_reference",
     "reset_launch_counts", "attention_reference", "attention_forward_reference", "attention_backward_reference", "splat_reference",
     "ray_triangle_depth_reference", "quantize_rows_reference", "int8_matmul_reference",
+    "row_absmax", "row_absmax_reference",
     "w8a8_matmul_reference", "mma_probe_reference", "ring_fold_reference",
     "ring_merge_reference",
 ]
@@ -215,24 +220,46 @@ def ring_merge(acc: torch.Tensor, acc_lse: torch.Tensor, out: Optional[torch.Ten
     return merged
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row absmax int8 quantization (K7q): x (M, K) -> (int8 codes
-    (M, K), fp32 scales (M,)); see ``quantize_rows_reference``."""
+    (M, K), fp32 scales (M,)); see ``quantize_rows_reference``. absmax (M,)
+    fp32: the rows' absmax taken elsewhere (K7q's row-scale mode, x a slice
+    of the rows: ``row_absmax``)."""
     if not _on_cuda(x, "quantize_rows"):
-        return quantize_rows_reference(x)
+        return quantize_rows_reference(x, absmax)
     from gen3c_tpu_torch.kernels import cuda
 
-    out = cuda.quantize_rows(x)
+    out = cuda.quantize_rows(x, absmax)
+    launch_counts["K7q"] += 1
+    return out
+
+
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """K7q's row-absmax pass: max |x| of each row of x (M, K), fp32 (M,)."""
+    if not _on_cuda(x, "row_absmax"):
+        return row_absmax_reference(x)
+    from gen3c_tpu_torch.kernels import cuda
+
+    out = cuda.row_absmax(x)
     launch_counts["K7q"] += 1
     return out
 
 
 def w8a8_matmul(x: torch.Tensor, qweight: torch.Tensor, wscale: torch.Tensor,
-                out_dtype: torch.dtype) -> torch.Tensor:
+                out_dtype: torch.dtype, tp=None) -> torch.Tensor:
     """x (..., K) @ int8 qweight (N, K)^T with dynamic per-token int8
     activations: K7q on x's rows, then K7 (int32 accumulation, rescale by
-    both scales, cast to out_dtype). gen3c_tpu's ``w8a8_matmul``."""
+    both scales, cast to out_dtype). gen3c_tpu's ``w8a8_matmul``.
+
+    tp: the axis (``parallel.mesh.Axis``) of a row-parallel linear, x and
+    qweight this rank's columns of the rows: each token's scale is the
+    absmax over the whole row (K7q's row-absmax pass, then the max over
+    tp, then its codes), K7's int32 sums are added over tp (exact), then
+    rescaled, so that every rank holds the one-device product, bit for bit."""
     K = x.shape[-1]
+    if tp is not None and tp.size > 1:
+        return _w8a8_row_parallel(x, qweight, wscale, out_dtype, tp)
     if not _on_cuda(x, "w8a8_matmul"):
         return w8a8_matmul_reference(x, qweight, wscale, out_dtype)
     from gen3c_tpu_torch.kernels import cuda
@@ -241,6 +268,24 @@ def w8a8_matmul(x: torch.Tensor, qweight: torch.Tensor, wscale: torch.Tensor,
     out = cuda.int8_gemm(xq, qweight, xscale, wscale, out_dtype)
     launch_counts["K7"] += 1
     return out.reshape(*x.shape[:-1], qweight.shape[0])
+
+
+def _w8a8_row_parallel(x, qweight, wscale, out_dtype, tp) -> torch.Tensor:
+    from gen3c_tpu_torch.parallel import collectives
+
+    x2 = x.reshape(-1, x.shape[-1])
+    absmax = collectives.all_reduce(row_absmax(x2), tp, "max")
+    xq, xscale = quantize_rows(x2, absmax)
+    if _on_cuda(x, "w8a8_matmul"):
+        from gen3c_tpu_torch.kernels import cuda
+
+        acc = cuda.int8_gemm(xq, qweight, None, None, torch.int32)
+        launch_counts["K7"] += 1
+    else:
+        acc = int8_matmul_reference(xq, qweight)
+    acc = collectives.all_reduce(acc, tp)
+    out = acc.float().mul_(xscale[:, None]).mul_(wscale.float()[None, :])
+    return out.to(out_dtype).reshape(*x.shape[:-1], qweight.shape[0])
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -135,10 +135,18 @@ __device__ __forceinline__ void load_slice(uint4 (&v)[kQuantChunks], const uint4
 // `group` threads (32 to kQuantThreads, a power of two) per row, the CTA's
 // kQuantThreads / group rows one after the other. A row of more than
 // kQuantChunks * group chunks is walked in slices of that many.
+//
+// Row-scale mode, for a row split over ranks (the input of a row-parallel
+// W8A8 linear, its columns over tp): amax_out non-null writes each row's
+// absmax there and nothing else (the shard's part, which the caller reduces
+// by max over the ranks); amax_in non-null takes each row's absmax from
+// there instead of its own, so every rank's codes and scale are those of
+// the whole row. Both null: the one-pass kernel above.
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads)
     quant_rows(const T* __restrict__ x, long long ld, int M, int K, int group,
-               int8_t* __restrict__ q, float* __restrict__ scale) {
+               int8_t* __restrict__ q, float* __restrict__ scale,
+               const float* __restrict__ amax_in, float* __restrict__ amax_out) {
   constexpr int E = Chunk<T>::kElems;
   __shared__ float part[kQuantThreads / 32];
   const int slot = threadIdx.x / group;
@@ -183,6 +191,11 @@ __global__ void __launch_bounds__(kQuantThreads)
     for (int i = 1; i < group / 32; ++i) amax = fmaxf(amax, part[w0 + i]);
   }
   if (!live) return;
+  if (amax_out != nullptr) {  // the row-absmax pass of the row-scale mode
+    if (t == 0) amax_out[row] = amax;
+    return;
+  }
+  if (amax_in != nullptr) amax = amax_in[row];
 
   const float s = fmaxf(__fmul_rn(amax, 1.f / 127.f), 1e-12f);
   int8_t* qr = q + static_cast<long long>(row) * K;
@@ -489,9 +502,12 @@ cudaError_t launch_wgmma(const CUtensorMap* maps, const WgParams& p, cudaStream_
 
 // K7q. x: (M, K) rows of stride ld elements, unit stride along K, any
 // alignment; is_bf16: 1 for bf16 x, 0 for fp32. q: (M, K) int8 contiguous;
-// scale: (M,).
+// scale: (M,). amax_in / amax_out (M,) fp32 or null: the row-scale mode
+// (quant_rows): amax_out set writes the rows' absmax only (q and scale
+// unused), amax_in set quantizes with the given absmax.
 extern "C" int gen3c_quant_rows(const void* x, long long ld, int M, int K,
                                 int is_bf16, void* q, void* scale,
+                                const void* amax_in, void* amax_out,
                                 void* stream) {
   if (M <= 0 || K <= 0 || ld < K) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -505,11 +521,13 @@ extern "C" int gen3c_quant_rows(const void* x, long long ld, int M, int K,
   if (is_bf16) {
     quant_rows<__nv_bfloat16><<<grid, kQuantThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), ld, M, K, group, static_cast<int8_t*>(q),
-        static_cast<float*>(scale));
+        static_cast<float*>(scale), static_cast<const float*>(amax_in),
+        static_cast<float*>(amax_out));
   } else {
     quant_rows<float><<<grid, kQuantThreads, 0, s>>>(
         static_cast<const float*>(x), ld, M, K, group, static_cast<int8_t*>(q),
-        static_cast<float*>(scale));
+        static_cast<float*>(scale), static_cast<const float*>(amax_in),
+        static_cast<float*>(amax_out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,7 +38,7 @@ def library() -> ctypes.CDLL:
             lib.gen3c_attention_f32_smem.argtypes = [_I]
             lib.gen3c_splat.argtypes = [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P,
                                                               ctypes.POINTER(ctypes.c_float), _P]
-            lib.gen3c_quant_rows.argtypes = [_P, _L, _I, _I, _I, _P, _P, _P]
+            lib.gen3c_quant_rows.argtypes = [_P, _L, _I, _I, _I, _P, _P, _P, _P, _P]
             lib.gen3c_w8a8_gemm_wgmma.argtypes = [_P, _P, ctypes.POINTER(ctypes.c_longlong),
                                                   _P, _P, _P, _I, _I, _I, _I, _P]
             lib.gen3c_w8a8_box_rows.argtypes = [ctypes.POINTER(_I)]
@@ -640,25 +640,51 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     return dq, dk, dv
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """gen3c_quant_rows (K7q): x (M, K) bf16/fp32 -> (int8 codes (M, K),
     fp32 scales (M,)), one pass over each row (rows over 64 KiB: two); rows
-    of any stride and alignment."""
+    of any stride and alignment. absmax (M,) fp32: the rows' absmax taken
+    elsewhere (``row_absmax`` over every rank's slice of the rows)."""
+    x = _quant_input(x)
+    M, K = x.shape
+    if absmax is not None and (not absmax.is_cuda or absmax.dtype != torch.float32
+                               or absmax.shape != (M,)):
+        raise ValueError(f"quant kernel: absmax must be fp32 ({M},) on the card, got "
+                         f"{absmax.dtype} {tuple(absmax.shape)} on {absmax.device}")
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    scale = torch.empty((M,), dtype=torch.float32, device=x.device)
+    absmax = None if absmax is None else absmax.contiguous()
+    _check(library().gen3c_quant_rows(x.data_ptr(), x.stride(0), M, K,
+                                      int(x.dtype == torch.bfloat16), codes.data_ptr(),
+                                      scale.data_ptr(),
+                                      None if absmax is None else absmax.data_ptr(), None,
+                                      _stream(x)), "quant_rows")
+    return codes, scale
+
+
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """K7q's row-absmax pass: max |x| of each row of x (M, K) bf16/fp32,
+    fp32 (M,); nothing else is written."""
+    x = _quant_input(x)
+    M, K = x.shape
+    amax = torch.empty((M,), dtype=torch.float32, device=x.device)
+    _check(library().gen3c_quant_rows(x.data_ptr(), x.stride(0), M, K,
+                                      int(x.dtype == torch.bfloat16), None, None, None,
+                                      amax.data_ptr(), _stream(x)), "quant_rows")
+    return amax
+
+
+def _quant_input(x: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda or x.ndim != 2:
         raise ValueError(f"quant kernel takes a 2-D CUDA tensor, got {x.device} {tuple(x.shape)}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"quant kernel takes bf16 or fp32, got {x.dtype}")
-    M, K = x.shape
-    if M == 0 or K == 0:
+    if 0 in x.shape:
         raise ValueError(f"quant kernel: empty input {tuple(x.shape)}")
-    if x.stride(1) != 1 or x.stride(0) < K:
+    if x.stride(1) != 1 or x.stride(0) < x.shape[1]:
         x = x.contiguous()
-    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
-    scale = torch.empty((M,), dtype=torch.float32, device=x.device)
-    _check(library().gen3c_quant_rows(x.data_ptr(), x.stride(0), M, K,
-                                      int(x.dtype == torch.bfloat16), codes.data_ptr(),
-                                      scale.data_ptr(), _stream(x)), "quant_rows")
-    return codes, scale
+    return x
 
 
 # ---------------------------------- K7 -----------------------------------

@@ -223,7 +223,14 @@ def ring_merge_reference(acc: torch.Tensor, acc_lse: torch.Tensor,
     return None
 
 
-def quantize_rows_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def row_absmax_reference(x: torch.Tensor) -> torch.Tensor:
+    """max |x| of each row of x (M, K), fp32 (M,): K7q's first pass where
+    the row is split over ranks (``quantize_rows_reference(x, absmax)``)."""
+    return x.float().abs().amax(dim=-1)
+
+
+def quantize_rows_reference(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row absmax int8: x (M, K) -> (codes (M, K) int8, scales (M,) fp32).
 
     scale = max(absmax * INV_127, 1e-12); code = clip(round_half_even(x /
@@ -232,9 +239,16 @@ def quantize_rows_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     compiles that division by a constant into a multiply by the fp32
     reciprocal, and the port reproduces the compiled numbers. The codes
     are a true division. An all-zero row gets codes 0.
+
+    absmax (M,) fp32, when given, is the row's absmax taken elsewhere: x is
+    then a slice of longer rows (a row-parallel input, its columns split
+    over tp ranks) and the max over every slice sets the scale, as it does
+    for the whole row. Max is exact, so each slice's codes are those of
+    the whole row's.
     """
     xf = x.float()
-    scale = (xf.abs().amax(dim=-1, keepdim=True) * INV_127).clamp_min(1e-12)
+    amax = xf.abs().amax(dim=-1, keepdim=True) if absmax is None else absmax.float()[:, None]
+    scale = (amax * INV_127).clamp_min(1e-12)
     codes = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
     return codes, scale.squeeze(-1)
 

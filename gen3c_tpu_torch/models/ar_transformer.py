@@ -19,6 +19,17 @@ decode loop is a Python loop over steps. Attention is kernel K8
 the cache in place up to the last visible key; on the CPU its plain version,
 ``_gqa_attention`` line for line.
 
+Tensor parallelism (what GSPMD makes of ``ar_forward`` on parameters that
+gen3c_tpu's ``shard_ar_params`` placed): ``parallel.sharding.
+shard_ar_params`` cuts the model to this rank's Megatron shards and sets
+``model.tp``; each layer then runs its rank's H/tp query and Hkv/tp KV
+heads (K8 on them, the GQA ratio unchanged), sums its row-parallel
+outputs (wo, w2, the cross-attention's wo) over tp, looks tokens up in
+its V/tp rows of the table (Megatron's vocab-parallel embedding: zero
+outside, summed over tp) and gathers the LM head's logits over the vocab,
+so that every rank holds the same fp32 logits and samples the same token
+from the same generator. The KV cache holds the rank's Hkv/tp heads.
+
 Training (gen3c_tpu/training/ar_train.py's forward): ``train_hidden``, the
 cache-free forward with gradients and each layer recomputed in the
 backward, through the same layer body (``_block``) as ``forward``.
@@ -46,6 +57,8 @@ from torch.utils.checkpoint import checkpoint
 from gen3c_tpu_torch import kernels
 from gen3c_tpu_torch.models.dit import quantize_span_delta
 from gen3c_tpu_torch.models.quantize import QuantEmbedding, QuantLinear
+from gen3c_tpu_torch.parallel import collectives
+from gen3c_tpu_torch.parallel.mesh import Axis
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
 # (step, shape, device) -> fp32 Gumbel noise of that shape
@@ -104,10 +117,11 @@ class KVCache:
 
 
 def init_kv_cache(cfg: ARConfig, batch: int, dtype: torch.dtype = torch.bfloat16,
-                  quantized: bool = False, device=None) -> KVCache:
+                  quantized: bool = False, device=None, tp: int = 1) -> KVCache:
     """An empty cache; quantized: int8 codes + fp32 per-(position, head)
-    scales, half the bytes of a bf16 cache (plus 1 / head_dim)."""
-    shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    scales, half the bytes of a bf16 cache (plus 1 / head_dim). tp: the
+    tensor-parallel size, a rank's cache holding its n_kv_heads / tp heads."""
+    shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads // tp, cfg.head_dim)
     if quantized:
         sshape = shape[:-1] + (1,)
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
@@ -259,35 +273,39 @@ class ARBlock(nn.Module):
 
 
 def _block(cfg: ARConfig, layer: ARBlock, h: torch.Tensor, cos: torch.Tensor,
-           sin: torch.Tensor, attend, context: Optional[torch.Tensor]) -> torch.Tensor:
+           sin: torch.Tensor, attend, context: Optional[torch.Tensor],
+           tp: Optional[Axis] = None) -> torch.Tensor:
     """One layer of ``ar_forward``: pre-norm GQA self-attention through
     attend(q, k, v) (the cache's or the prefill's K8), the cross-attention
     to the context (when the config has one and it is given), the SwiGLU
-    MLP."""
+    MLP. tp: the axis of a sharded layer (this rank's H/tp and Hkv/tp heads,
+    the row-parallel outputs summed over it)."""
     B, L = h.shape[:2]
     hd = cfg.head_dim
+    n = 1 if tp is None else tp.size
+    hq, hkv = cfg.n_heads // n, cfg.n_kv_heads // n
     att = layer.attention
-    x = _rms(h, layer.attention_norm.weight, cfg.norm_eps)
-    q = _mm(x, att.wq).reshape(B, L, cfg.n_heads, hd)
-    k = _mm(x, att.wk).reshape(B, L, cfg.n_kv_heads, hd)
-    v = _mm(x, att.wv).reshape(B, L, cfg.n_kv_heads, hd)
+    x = _col_in(_rms(h, layer.attention_norm.weight, cfg.norm_eps), tp)
+    q = _mm(x, att.wq).reshape(B, L, hq, hd)
+    k = _mm(x, att.wk).reshape(B, L, hkv, hd)
+    v = _mm(x, att.wv).reshape(B, L, hkv, hd)
     if cfg.use_qk_normalization:
         q = _rms(q, att.q_norm.weight, cfg.norm_eps)
         k = _rms(k, att.k_norm.weight, cfg.norm_eps)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
-    h = h + _mm(attend(q, k, v).reshape(B, L, -1), att.wo)
+    h = h + _row_out(attend(q, k, v).reshape(B, L, -1), att.wo, tp)
     if cfg.context_dim and context is not None:
         ca = layer.cross_attention
-        x = _rms(h, layer.cross_attention_norm.weight, cfg.norm_eps)
-        cq = _mm(x, ca.wq).reshape(B, L, cfg.n_heads, hd)
-        ctx = context.to(cfg.dtype)
-        ckx = _mm(ctx, ca.wk).reshape(B, -1, cfg.n_kv_heads, hd)
-        cvx = _mm(ctx, ca.wv).reshape(B, -1, cfg.n_kv_heads, hd)
-        h = h + _mm(_gqa_attention(cq, ckx, cvx).reshape(B, L, -1), ca.wo)
+        x = _col_in(_rms(h, layer.cross_attention_norm.weight, cfg.norm_eps), tp)
+        cq = _mm(x, ca.wq).reshape(B, L, hq, hd)
+        ctx = _col_in(context.to(cfg.dtype), tp)
+        ckx = _mm(ctx, ca.wk).reshape(B, -1, hkv, hd)
+        cvx = _mm(ctx, ca.wv).reshape(B, -1, hkv, hd)
+        h = h + _row_out(_gqa_attention(cq, ckx, cvx).reshape(B, L, -1), ca.wo, tp)
     ff = layer.feed_forward
-    x = _rms(h, layer.ffn_norm.weight, cfg.norm_eps)
-    return h + _mm(F.silu(_mm(x, ff.w1)) * _mm(x, ff.w3), ff.w2)
+    x = _col_in(_rms(h, layer.ffn_norm.weight, cfg.norm_eps), tp)
+    return h + _row_out(F.silu(_mm(x, ff.w1)) * _mm(x, ff.w3), ff.w2, tp)
 
 
 def _mm(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
@@ -298,8 +316,29 @@ def _mm(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype))
 
 
+def _col_in(x: torch.Tensor, tp: Optional[Axis]) -> torch.Tensor:
+    """A column-parallel product's input: x, its cotangent summed over tp."""
+    return x if tp is None else collectives.copy_to_tp(x, tp)
+
+
+def _row_out(x: torch.Tensor, lin: nn.Module, tp: Optional[Axis]) -> torch.Tensor:
+    """x @ W of a row-parallel linear (x and W this rank's columns), summed
+    over tp. A W8A8 one scales each token by the absmax of its whole row
+    (K7q's row-scale mode) and sums K7's int32 products (``kernels.
+    w8a8_matmul(tp=)``): the one-device result."""
+    if tp is None:
+        return _mm(x, lin)
+    if isinstance(lin, QuantLinear) and lin.act_quant:
+        return kernels.w8a8_matmul(x, lin.weight, lin.scale, x.dtype, tp=tp)
+    return collectives.reduce_from_tp(_mm(x, lin), tp)
+
+
 class ARTransformer(nn.Module):
-    """The AR network; ``forward`` is gen3c_tpu's ``ar_forward``."""
+    """The AR network; ``forward`` is gen3c_tpu's ``ar_forward``. tp: the
+    tensor-parallel axis of a model ``parallel.sharding.shard_ar_params``
+    cut to this rank's shards (None: whole)."""
+
+    tp: Optional[Axis] = None
 
     def __init__(self, cfg: ARConfig, device=None):
         super().__init__()
@@ -333,10 +372,38 @@ class ARTransformer(nn.Module):
             self._rope = {key: rope_tables(self.cfg, device)}
         return self._rope[key]
 
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.tp is None else self.tp.size
+
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token table's rows of ``tokens``; under tp Megatron's
+        vocab-parallel lookup: this rank's V/tp rows, zero for a token
+        outside them, summed over tp (exact: one term is not zero)."""
+        tp = self.tp
+        inside = None
+        if tp is not None:
+            n = self.tok_embeddings.weight.shape[0]
+            local = tokens - tp.rank * n
+            inside = (local >= 0) & (local < n)
+            tokens = torch.where(inside, local, torch.zeros_like(local))
         if isinstance(self.tok_embeddings, QuantEmbedding):
-            return self.tok_embeddings(tokens, self.cfg.dtype)
-        return self.tok_embeddings.weight.to(self.cfg.dtype)[tokens]
+            rows = self.tok_embeddings(tokens, self.cfg.dtype)
+        else:
+            rows = self.tok_embeddings.weight.to(self.cfg.dtype)[tokens]
+        if tp is None:
+            return rows
+        return collectives.reduce_from_tp(torch.where(inside[..., None], rows,
+                                                      torch.zeros_like(rows)), tp)
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The LM head's fp32 logits of the final-normed stream h; under tp
+        this rank's V/tp of them gathered over the vocab, the same on every
+        rank."""
+        logits = _mm(h, self.output)
+        if self.tp is not None:
+            logits = collectives.all_gather(logits, logits.ndim - 1, self.tp).contiguous()
+        return logits.float()
 
     @torch.no_grad()
     def forward(self, tokens: Optional[torch.Tensor], rope: Optional[Rope] = None,
@@ -390,9 +457,8 @@ class ARTransformer(nn.Module):
             else:
                 def attend(q, k, v):
                     return _gqa_attention(q, k, v, 0, pad_lens)
-            h = _block(cfg, layer, h, cos, sin, attend, context)
-        h = _rms(h, self.norm.weight, cfg.norm_eps)
-        logits = _mm(h, self.output).float()
+            h = _block(cfg, layer, h, cos, sin, attend, context, self.tp)
+        logits = self.logits(_rms(h, self.norm.weight, cfg.norm_eps))
         if cache is not None:
             cache.pos = pos0 + L
         return logits, cache
@@ -404,8 +470,13 @@ def train_hidden(model: "ARTransformer", tokens: torch.Tensor,
     (B, L, dim) for tokens (B, L), whose product with ``model.output`` is
     the forward's logits. Each layer is recomputed in the backward (remat:
     the 4B's 16 layers keep only their inputs); the self-attention is K8
-    with K8bwd as its backward (``kernels.gqa_attention`` under autograd)."""
+    with K8bwd as its backward (``kernels.gqa_attention`` under autograd).
+    A tensor-parallel model is refused: AR training under tp is not ported
+    (gen3c_tpu has no entry point for it either)."""
     cfg = model.cfg
+    if model.tp is not None:
+        raise NotImplementedError("AR training under tensor parallelism is not ported "
+                                  "(ROADMAP Queue 1, after item 15d)")
     h = model.embed(tokens)
     L = h.shape[1]
     if L > cfg.max_seq_len:
@@ -491,7 +562,8 @@ def _decode(model: ARTransformer, prompt: Optional[torch.Tensor], embeddings, ma
     cfg = model.cfg
     B = (prompt if prompt is not None else embeddings).shape[0]
     noise = _gumbel_source(model, temperature, gumbel, seed)
-    cache = init_kv_cache(cfg, B, dtype=cfg.dtype, quantized=quantize_kv, device=model.device)
+    cache = init_kv_cache(cfg, B, dtype=cfg.dtype, quantized=quantize_kv, device=model.device,
+                          tp=model.tp_size)
     if pad_lens is not None:
         pad_lens = torch.as_tensor(pad_lens, device=model.device)
     logits, cache = model(prompt, cache=cache, context=context, pad_lens=pad_lens,

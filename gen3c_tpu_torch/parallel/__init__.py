@@ -2,9 +2,17 @@
 training over ``torch.distributed`` (port of gen3c_tpu/parallel/{mesh,cp,
 sharding}.py and the shardings of gen3c_tpu/training/train_step.py): one
 process per rank, as the reference's ``torchrun --nproc_per_node N``.
-Pipeline parallelism, ``cache_sharding.py`` and FSDP (ROADMAP item 15c)
-and the AR transformer's tensor parallelism (15b-ar) are not ported."""
+FSDP (``sharding.shard_fsdp``), the AR transformer under tensor
+parallelism (``sharding.shard_ar_params``), GPipe pipeline parallelism
+(``pp``) and sharded cache renders (``cache_sharding``) are ported too;
+serving over several cards (ROADMAP item 15d) is not."""
 
-from gen3c_tpu_torch.parallel.mesh import Axis, Groups, make_groups, maybe_distributed_init
+from gen3c_tpu_torch.parallel.mesh import (
+    Axis,
+    Groups,
+    make_groups,
+    maybe_distributed_init,
+    pp_axis,
+)
 
-__all__ = ["Axis", "Groups", "make_groups", "maybe_distributed_init"]
+__all__ = ["Axis", "Groups", "make_groups", "maybe_distributed_init", "pp_axis"]

@@ -10,12 +10,18 @@ collectives gen3c_tpu uses inside its shard_map):
                                the samples at the end, parallel/cp.py)
   ring_shift                   rank r sends to r + 1 and receives from r - 1
                                (``ppermute``, dit.py:646-647)
-  all_reduce                   sum or mean over the axis (``psum`` /
+  all_reduce                   sum, mean or max over the axis (``psum`` /
                                ``pmean``, diffusion/sampler.py:81-82,
-                               390-398, 691-692)
+                               390-398, 691-692; the max: a row-parallel
+                               W8A8 input's absmax, which GSPMD takes over
+                               the row's shards)
   reduce_scatter               this rank's chunk of the sum over the axis
                                (``psum_scatter``, the sequence-parallel
                                row output, dit.py:774-776, 793-795)
+  send / recv                  one tensor from one rank of the axis to
+                               another, under a tag (the pipeline's
+                               activations and their gradients, the
+                               ``ppermute`` of gen3c_tpu/parallel/pp.py)
 
 and Megatron's two tensor-parallel operators, where the sum and its
 adjoint part ways (dit.py:771-778, 792-798 under autodiff):
@@ -80,7 +86,8 @@ from gen3c_tpu_torch.parallel.mesh import Axis
 GLOO_CUDA_OPS = frozenset({"all_reduce", "all_to_all", "all_gather"})
 
 traffic = {op: {"calls": 0, "bytes": 0, "seconds": 0.0}
-           for op in ("all_to_all", "all_gather", "ring_shift", "all_reduce", "reduce_scatter")}
+           for op in ("all_to_all", "all_gather", "ring_shift", "all_reduce", "reduce_scatter",
+                      "p2p")}
 
 
 def reset_traffic() -> None:
@@ -338,22 +345,51 @@ def gather_to_replicas(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
 
 
 def all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:
-    """The sum (or mean) of x over the axis, a new tensor on x's device. Its
-    adjoint is itself: each rank's cotangent of its copy, summed (or
-    averaged)."""
+    """The sum (or mean, or max) of x over the axis, a new tensor on x's
+    device. The sum's and the mean's adjoint is itself: each rank's
+    cotangent of its copy, summed (or averaged); the max (a row's absmax
+    over its slices, for a scale) carries no gradient."""
+    if op == "max":
+        return _all_reduce(x.detach(), axis, op)
     return _AllReduce.apply(x, axis, op) if _tracked(x) else _all_reduce(x, axis, op)
 
 
 def _all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:
-    if op not in ("sum", "mean"):
-        raise ValueError(f"all_reduce takes 'sum' or 'mean', not {op!r}")
+    if op not in ("sum", "mean", "max"):
+        raise ValueError(f"all_reduce takes 'sum', 'mean' or 'max', not {op!r}")
     t0 = time.perf_counter()
     staged = _staged("all_reduce", x, axis)
     y = _host(x) if staged else x.clone()
-    dist.all_reduce(y, group=axis.group)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=axis.group)
     if staged:
         y = y.to(x.device)
     if op == "mean":
         y = y / axis.size
     _record("all_reduce", _nbytes(x) * (axis.size - 1), t0)
     return y
+
+
+def send(t: torch.Tensor, dst: int, tag: int, axis: Axis) -> None:
+    """t to rank ``dst`` of the axis under ``tag``, waited for (a CUDA
+    tensor staged through host memory on gloo); counted under "p2p" with
+    the bytes sent."""
+    t0 = time.perf_counter()
+    src = _host(t) if _staged("p2p", t, axis) else t.contiguous()
+    dist.send(src, dist.get_global_rank(axis.group, dst), group=axis.group, tag=tag)
+    _record("p2p", _nbytes(t), t0)
+
+
+def recv(shape, dtype: torch.dtype, device, src: int, tag: int, axis: Axis) -> torch.Tensor:
+    """The tensor rank ``src`` of the axis sends under ``tag``: a new one of
+    ``shape`` and ``dtype`` on ``device``; counted under "p2p" with the
+    bytes received."""
+    t0 = time.perf_counter()
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    buf = (torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+           if _staged("p2p", out, axis) else out)
+    dist.recv(buf, dist.get_global_rank(axis.group, src), group=axis.group, tag=tag)
+    if buf is not out:
+        out.copy_(buf)
+    _record("p2p", _nbytes(out), t0)
+    return out

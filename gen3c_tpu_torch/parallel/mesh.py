@@ -15,6 +15,8 @@ Here every device is a process, a rank of ``torch.distributed`` as
 follow the mesh's row-major order, tp fastest: rank = ((dp_index * cfg +
 cfg_index) * cp + cp_index) * tp + tp_index. ``maybe_distributed_init``
 joins the job torchrun describes; ``make_groups`` replaces ``make_mesh``.
+Pipeline parallelism (``parallel.pp``) runs on a plain axis of its own,
+``pp_axis``: gen3c_tpu builds ``Mesh(devices, ("pp",))`` for it.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-ITEM_15C = "ROADMAP item 15c"  # pipeline parallelism, sharded renders, FSDP
 ITEM_15D = "ROADMAP item 15d"  # serving over several cards
 
 
@@ -163,3 +164,13 @@ def make_groups(dp: int = 1, cfg: int = 1, cp: Optional[int] = 1, tp: int = 1,
     if tp == 1:
         shard_peers = world_axis
     return Groups(cfg_axis, cp_axis, dp_axis, world_axis, tp_axis, shard_peers)
+
+
+def pp_axis(backend: Optional[str] = None) -> Axis:
+    """A pipeline axis over every rank of the default process group, stage
+    s = rank s (gen3c_tpu's ``Mesh(devices, ("pp",))``); one rank: a
+    size-1 axis. Every rank must call this (``dist.new_group``)."""
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world == 1:
+        return Axis()
+    return Axis(dist.new_group(list(range(world)), backend=backend), dist.get_rank(), world)

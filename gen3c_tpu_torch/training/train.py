@@ -28,7 +28,8 @@ between them), and ``--batch_size`` must divide by dp): every rank builds
 the same net and the same global batches, the trainer keeps this rank's
 tp shards, and ``train_step.make_sharded_train_step`` takes its slice. The
 ranks join over NCCL on ``cuda:$LOCAL_RANK`` (one rank a card) or gloo on
-the CPU. ``--fsdp`` raises (ROADMAP item 15c). The data is
+the CPU. ``--fsdp`` also cuts the large leaves, their moments and EMA
+over dp (FSDP; a no-op at dp 1, as gen3c_tpu's). The data is
 ``--synthetic`` latents or ``--data_root``, a directory of packaged RGBD
 clips (``datasets.Gen3CClipDataset``): the preset's GEN3C model is built
 on the device, and its DiT is the one trained (one DiT, not two) while its
@@ -101,8 +102,6 @@ def main(argv=None) -> Optional[Trainer]:
                    help="torch device (default cuda: cuda:$LOCAL_RANK under torchrun; pass "
                         "cpu to train on the CPU)")
     args = p.parse_args(flags)
-    if args.fsdp:
-        raise NotImplementedError(f"FSDP is not ported ({mesh.ITEM_15C})")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device here "
                            "(pass --device cpu to train on the CPU)")
@@ -124,7 +123,7 @@ def main(argv=None) -> Optional[Trainer]:
         else:
             rest.append(ov)
     preset = registry.apply_overrides(registry.get_experiment(exp_name), rest)
-    for flag in ("remat", "loss_add_logvar", "sequence_parallel"):
+    for flag in ("remat", "loss_add_logvar", "sequence_parallel", "fsdp"):
         if getattr(args, flag):
             t_cfg = registry.apply_overrides(t_cfg, [f"{flag}=True"])
     if args.text_dropout_rate:

@@ -26,7 +26,15 @@ leaf's gradient are summed over the ranks that hold the same shard (dp x
 cp), each replicated leaf's over those or, where each tp rank holds a
 part of it, over every rank; the clip's global norm counts each shard
 once. AdamW, its moments and the EMA then take the same step on every
-rank's shards. FSDP (ROADMAP item 15c) is not ported.
+rank's shards.
+
+FSDP (``fsdp_axis="dp"`` on a module ``parallel.sharding.shard_fsdp`` cut):
+each rank holds 1/dp of every large leaf (beside its tp cut) with its
+moments and EMA, gathered over dp where the net reads it (again in
+remat's recompute); the gather's adjoint, a reduce-scatter, leaves this
+rank's shard of the gradient summed over dp, which is then summed over
+the rest of the ranks that hold that shard only (cp, and tp where each tp
+rank holds a part), and the clip's norm counts each dp shard once.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from gen3c_tpu_torch.diffusion.scheduler import EDMEulerSchedule
 from gen3c_tpu_torch.models.dit import DiTConfig
 from gen3c_tpu_torch.models.dit_multiview import MultiviewDiTConfig
 from gen3c_tpu_torch.parallel import collectives, sharding
-from gen3c_tpu_torch.parallel.mesh import ITEM_15C, Axis, Groups
+from gen3c_tpu_torch.parallel.mesh import Axis, Groups
 from gen3c_tpu_torch.training.ema import ema_update, power_ema_beta
 from gen3c_tpu_torch.training.losses import (
     LogvarHead,
@@ -197,24 +205,38 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors.values()))
 
 
-def sharded_global_norm(tensors: Tensors, sharded, tp: Axis) -> torch.Tensor:
+def sharded_global_norm(tensors: Tensors, sharded, tp: Axis, fsdp=(),
+                        dp: Axis = Axis()) -> torch.Tensor:
     """``global_norm`` of a state whose leaves named in ``sharded`` are this
-    rank's tp shards: their squares summed over tp, each replicated leaf's
-    counted once. The same value on every tp rank."""
-    sq = sum(t.float().pow(2).sum() for n, t in tensors.items() if n in sharded)
-    sq = collectives.all_reduce(torch.as_tensor(sq, dtype=torch.float32), tp)
-    return torch.sqrt(sq + sum(t.float().pow(2).sum() for n, t in tensors.items()
-                               if n not in sharded))
+    rank's tp shards and those named in ``fsdp`` its dp shards (FSDP): each
+    part's squares summed over the axes it is cut on, each replicated
+    leaf's counted once. The same value on every rank of tp and dp."""
+    dev = next(iter(tensors.values())).device
+
+    def sq(keep):
+        return sum((t.float().pow(2).sum() for n, t in tensors.items() if keep(n)),
+                   torch.zeros((), dtype=torch.float32, device=dev))
+
+    # [tp only, dp only, both] of the leaves cut somewhere
+    parts = torch.stack([sq(lambda n: n in sharded and n not in fsdp),
+                         sq(lambda n: n in fsdp and n not in sharded),
+                         sq(lambda n: n in sharded and n in fsdp)])
+    if fsdp and dp.size > 1:
+        parts = torch.cat([parts[:1], collectives.all_reduce(parts[1:], dp)])
+    if sharded and tp.size > 1:
+        parts = torch.cat([collectives.all_reduce(parts[::2], tp), parts[1:2]])
+    return torch.sqrt(parts.sum() + sq(lambda n: n not in sharded and n not in fsdp))
 
 
 def grad_norm_fn(params: nn.Module, groups: Optional[Groups]) -> Callable[[Tensors], torch.Tensor]:
     """The global norm of ``params``' gradients: ``global_norm``, or over a
-    tp axis of size > 1 the norm of the whole gradient from this rank's
-    shards (``sharded_global_norm``)."""
-    if groups is None or groups.tp.size == 1:
+    tp axis of size > 1 or on FSDP shards the norm of the whole gradient
+    from this rank's shards (``sharded_global_norm``)."""
+    fsdp = set(sharding.fsdp_leaves(params))
+    if groups is None or (groups.tp.size == 1 and not fsdp):
         return global_norm
-    sharded = set(sharding.sharded_leaves(params))
-    return lambda grads: sharded_global_norm(grads, sharded, groups.tp)
+    sharded = set(sharding.sharded_leaves(params)) if groups.tp.size > 1 else set()
+    return lambda grads: sharded_global_norm(grads, sharded, groups.tp, fsdp, groups.dp)
 
 
 @dataclasses.dataclass
@@ -229,12 +251,13 @@ class TrainState:
     step: int
 
     def named_params(self) -> Dict[str, nn.Parameter]:
-        return dict(self.params.named_parameters())
+        """The parameters by name (an FSDP shard under its parameter's)."""
+        return sharding.named_leaves(self.params)
 
     def state_dict(self) -> Dict[str, Any]:
         """Every tensor of the state by name (for the checkpointer)."""
         o = self.opt_state
-        return {"params": {n: p.detach() for n, p in self.params.named_parameters()},
+        return {"params": {n: p.detach() for n, p in self.named_params().items()},
                 "mu": o.mu, "nu": o.nu, "acc_grads": o.acc_grads, "ema": self.ema_params,
                 "count": o.count, "mini_step": o.mini_step, "step": self.step}
 
@@ -256,7 +279,7 @@ class TrainState:
 def init_train_state(params: nn.Module, optimizer: Optimizer) -> TrainState:
     """Turn the module's grads on; fp32 EMA copies; zero moments."""
     params.requires_grad_(True)
-    named = dict(params.named_parameters())
+    named = sharding.named_leaves(params)
     return TrainState(params=params, opt_state=optimizer.init(named),
                       ema_params={n: p.detach().float().clone() for n, p in named.items()},
                       step=0)
@@ -349,6 +372,7 @@ def loss_and_grads(
     draws: Optional[StepDraws] = None,
     groups: Optional[Groups] = None,
     tp_parts: Optional[set] = None,
+    fsdp: Optional[set] = None,
 ) -> Tuple[torch.Tensor, Tensors, torch.Tensor]:
     """The EDM loss of ``params`` (the module train_step trains) on one
     batch and its gradient by parameter name: (loss, grads, sigma).
@@ -370,7 +394,8 @@ def loss_and_grads(
     gradient: this rank's shard of it). sequence_parallel (Megatron-SP,
     gen3c_tpu's ``sp_sharding``): the DiT's tokens between the sub-blocks
     sharded over tp; nothing at tp 1. tp_parts: ``tp_partial_leaves`` of
-    params (worked out here when None).
+    params, fsdp: its ``sharding.fsdp_leaves`` (each worked out here when
+    None).
     """
     multiview = isinstance(cfg, MultiviewDiTConfig)
     if multiview and batch.get("action") is not None:
@@ -439,7 +464,7 @@ def loss_and_grads(
     def net_fn(x_in, c_noise, ctx):
         return net(x_in, c_noise, ctx, fps=24.0, remat=remat, **kw)
 
-    named = dict(params.named_parameters())
+    named = sharding.named_leaves(params)
     with torch.enable_grad():
         loss, _ = edm_loss(
             net_fn, x0, sigma, noise, crossattn_emb, extra_channels, schedule,
@@ -460,7 +485,9 @@ def loss_and_grads(
             loss = collectives.all_reduce(loss, groups.shard_peers)
         if tp is not None and tp_parts is None:
             tp_parts = tp_partial_leaves(params, net, sp)
-        all_reduce_grads(grads, groups, tp_parts or ())
+        if fsdp is None:
+            fsdp = set(sharding.fsdp_leaves(params))
+        all_reduce_grads(grads, groups, tp_parts or (), fsdp)
     return loss, grads, global_sigma
 
 
@@ -473,7 +500,7 @@ def tp_partial_leaves(params: nn.Module, net: nn.Module, sequence_parallel: bool
     if not sequence_parallel:
         return sharding.head_norm_leaves(params)
     prefix = "net." if isinstance(params, NetWithLogvar) else ""
-    return {prefix + n for n, _ in net.named_parameters()} - set(sharding.sharded_leaves(params))
+    return {prefix + n for n in sharding.named_leaves(net)} - set(sharding.sharded_leaves(params))
 
 
 def shard_step_inputs(batch: dict, draws: StepDraws, groups: Groups, cfg: DiTConfig,
@@ -549,20 +576,29 @@ GRAD_BUCKET_ELEMENTS = 1 << 26  # fp32 elements summed in one all-reduce (256 Mi
 
 
 @torch.no_grad()
-def all_reduce_grads(grads: Tensors, groups: Groups, tp_parts=()) -> None:
+def all_reduce_grads(grads: Tensors, groups: Groups, tp_parts=(), fsdp=()) -> None:
     """Sum each gradient over the ranks that computed a part of it, in
     place. Without tp that is every rank of the mesh. Over a tp axis: a
     sharded leaf's over the ranks holding its shard (``groups.shard_peers``,
     dp x cp), and so a replicated leaf's that every tp rank holds whole (it
     saw every token and every head); the leaves named in ``tp_parts``
     (``tp_partial_leaves``), whose gradient each tp rank holds a part of,
-    over every rank."""
+    over every rank. An FSDP shard's (named in ``fsdp``) comes out of the
+    gather's reduce-scatter summed over dp already: it is summed over cp,
+    and over tp where it is a tp part, and never over dp again."""
+    whole = [n for n in grads if n not in fsdp]
     if groups.tp.size == 1:
-        _all_reduce_buckets(grads, list(grads), groups.world)
-        return
-    if groups.shard_peers.size > 1:
-        _all_reduce_buckets(grads, [n for n in grads if n not in tp_parts], groups.shard_peers)
-    _all_reduce_buckets(grads, [n for n in grads if n in tp_parts], groups.world)
+        _all_reduce_buckets(grads, whole, groups.world)
+    else:
+        if groups.shard_peers.size > 1:
+            _all_reduce_buckets(grads, [n for n in whole if n not in tp_parts],
+                                groups.shard_peers)
+        _all_reduce_buckets(grads, [n for n in whole if n in tp_parts], groups.world)
+    cut = [n for n in grads if n in fsdp]
+    if groups.cp.size > 1:
+        _all_reduce_buckets(grads, cut, groups.cp)
+    if groups.tp.size > 1:
+        _all_reduce_buckets(grads, [n for n in cut if n in tp_parts], groups.tp)
 
 
 def _all_reduce_buckets(grads: Tensors, names: list, axis: Axis) -> None:
@@ -605,11 +641,12 @@ def make_sharded_train_step(groups: Groups, cfg: DiTConfig, optimizer: Optimizer
     lse and K4 run there. gen3c_tpu's step leaves cp to GSPMD and reads no
     ``cp_attn_impl``, so neither does this one. sequence_parallel shards the
     tokens between the sub-blocks over tp (nothing at tp 1; refused for the
-    multiview net, :287-291). fsdp_axis (ROADMAP item 15c) raises
-    NotImplementedError; a band with cp > 1 raises as gen3c_tpu's does
-    (:292-297)."""
-    if fsdp_axis is not None:
-        raise NotImplementedError(f"FSDP is not ported ({ITEM_15C})")
+    multiview net, :287-291). fsdp_axis "dp": FSDP, on a module
+    ``parallel.sharding.shard_fsdp`` cut over this rank's dp axis (as
+    ``Trainer(fsdp=True)`` cuts it; nothing to cut at dp 1); a band with
+    cp > 1 raises as gen3c_tpu's does (:292-297)."""
+    if fsdp_axis not in (None, "dp"):
+        raise ValueError(f"FSDP shards over the 'dp' axis, not {fsdp_axis!r}")
     if sequence_parallel and isinstance(cfg, MultiviewDiTConfig):
         raise ValueError("sequence_parallel is not supported for multiview training (the "
                          "multiview forward has no SP constraint hook)")
@@ -625,11 +662,15 @@ def make_sharded_train_step(groups: Groups, cfg: DiTConfig, optimizer: Optimizer
              draws: Optional[StepDraws] = None) -> Tuple[TrainState, dict]:
         if leaves.get("module") is not state.params:
             net = state.params.net if loss_add_logvar else state.params
+            fsdp = set(sharding.fsdp_leaves(state.params))
+            if fsdp_axis == "dp" and groups.dp.size > 1 and not fsdp:
+                raise ValueError("fsdp_axis='dp' needs the module cut over dp first "
+                                 "(parallel.sharding.shard_fsdp)")
             leaves.update(module=state.params, norm=grad_norm_fn(state.params, groups),
                           tp_parts=tp_partial_leaves(state.params, net, sequence_parallel)
-                          if groups.tp.size > 1 else ())
+                          if groups.tp.size > 1 else (), fsdp=fsdp)
         return train_step(state, batch, rng, cfg, optimizer, schedule, norm=leaves["norm"],
-                          tp_parts=leaves["tp_parts"], remat=remat,
+                          tp_parts=leaves["tp_parts"], fsdp=leaves["fsdp"], remat=remat,
                           sequence_parallel=sequence_parallel,
                           loss_add_logvar=loss_add_logvar, text_dropout_rate=text_dropout_rate,
                           video_cond_dropout_rate=video_cond_dropout_rate,

@@ -10,8 +10,11 @@ the net is sliced to this rank's shards before the state is made, so that
 AdamW's moments and the EMA are per shard too (gen3c_tpu's trainer.py:
 151-153); a checkpoint stays in the one-device form (every rank gathers
 its shards into rank 0's host memory, a tensor at a time, and rank 0
-writes), so a run at one tp size resumes at another. FSDP (ROADMAP item
-15c) is not ported.
+writes), so a run at one tp size resumes at another. With ``fsdp`` the
+net's large leaves are also cut over dp (``sharding.shard_fsdp``, after
+the tp cut; gen3c_tpu's trainer.py:129, 153): each rank keeps 1/dp of
+them with their moments and EMA, and a checkpoint gathers them over dp
+too.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch.nn as nn
 
 from gen3c_tpu_torch.models.dit import DiTConfig
 from gen3c_tpu_torch.parallel import sharding
-from gen3c_tpu_torch.parallel.mesh import ITEM_15C, Groups
+from gen3c_tpu_torch.parallel.mesh import Groups
 from gen3c_tpu_torch.training.callbacks import CallBackGroup, HangWatchdog, IterSpeed
 from gen3c_tpu_torch.training.checkpointing import Checkpointer
 from gen3c_tpu_torch.training.losses import LogvarHead
@@ -58,7 +61,7 @@ class TrainerConfig:
     seed: int = 0
     grad_accum_steps: int = 1
     remat: bool = False  # rematerialize DiT blocks (activation checkpointing)
-    fsdp: bool = False  # not ported (ROADMAP item 15c)
+    fsdp: bool = False  # FSDP: params, moments and EMA sharded over dp (a no-op at dp 1)
     sequence_parallel: bool = False  # Megatron-SP over the tp axis (nothing at tp 1)
     step_timeout_s: float = 0.0  # SIGALRM watchdog per step; 0 = off
     prefetch_batches: int = 2  # background prefetch depth; 0 = synchronous
@@ -84,12 +87,11 @@ class Trainer:
     trainer.py:118-125): an action experiment's "action" conditions its
     net. groups: this rank's (dp, cp, tp) mesh (``parallel.mesh.make_groups``;
     None or a one-rank mesh: one device); over a tp axis the trainer slices
-    ``net`` to this rank's shards (``parallel.sharding.shard_params``)."""
+    ``net`` to this rank's shards (``parallel.sharding.shard_params``), and
+    with ``config.fsdp`` over dp too (``parallel.sharding.shard_fsdp``)."""
 
     def __init__(self, config: TrainerConfig, dit_cfg: DiTConfig, net: nn.Module,
                  callbacks: Optional[CallBackGroup] = None, groups: Optional[Groups] = None):
-        if config.fsdp:
-            raise NotImplementedError(f"FSDP is not ported ({ITEM_15C})")
         self.config = config
         self.dit_cfg = dit_cfg
         self.groups = groups if groups is not None and groups.parallel else None
@@ -107,8 +109,10 @@ class Trainer:
             head = LogvarHead(device=device).init_random(
                 torch.Generator(device=device).manual_seed(config.seed + 1))
             params = NetWithLogvar(net, head)
-        # the leaves sliced over tp, by name: {} without a tp axis
+        # the leaves sliced over tp, and with fsdp over dp, by name: {} without such an axis
         self.shard_dims = {} if self.groups is None else sharding.shard_params(params, self.groups)
+        self.fsdp_dims = (sharding.shard_fsdp(params, self.groups)
+                          if config.fsdp and self.groups is not None else {})
         self.state: TrainState = init_train_state(params, self.optimizer)
         self.checkpointer = Checkpointer(os.path.join(config.job_dir, "checkpoints"))
         self.callbacks = callbacks or CallBackGroup([IterSpeed(config.log_every)])
@@ -127,19 +131,21 @@ class Trainer:
         if data_type not in self._steps:
             self._steps[data_type] = make_sharded_train_step(
                 self.groups, self.dit_cfg, self.optimizer,
+                fsdp_axis="dp" if self.config.fsdp else None,
                 sequence_parallel=self.config.sequence_parallel, **self._step_kwargs(data_type))
         return self._steps[data_type]
 
     def _save(self, step: int) -> None:
         """Rank 0 writes the state in its one-device form; over a tp axis
-        every rank gathers its shards into rank 0's host memory first, a
-        tensor at a time (``sharding.gather_to_host``)."""
+        or with FSDP every rank gathers its shards into rank 0's host memory
+        first, a tensor at a time (``sharding.gather_to_host``)."""
         sd = self.state.state_dict()
-        if not self.shard_dims:
+        if not self.shard_dims and not self.fsdp_dims:
             if self.writes:
                 self.checkpointer.save(step, sd)
             return
-        host = sharding.gather_to_host(sd, self.shard_dims, self.groups.tp, self.writes)
+        host = sharding.gather_to_host(sd, self.shard_dims, self.groups.tp, self.writes,
+                                       self.fsdp_dims, self.groups.dp)
         if self.writes:
             self.checkpointer.save(step, host, copy=False)
 
@@ -163,8 +169,9 @@ class Trainer:
         restored = self.checkpointer.restore()
         if restored is None:
             return 0
-        if self.shard_dims:
-            restored = {k: sharding.shard_tensors(v, self.shard_dims, self.groups.tp)
+        if self.shard_dims or self.fsdp_dims:
+            restored = {k: sharding.shard_tensors(v, self.shard_dims, self.groups.tp,
+                                                  self.fsdp_dims, self.groups.dp)
                         if isinstance(v, dict) else v for k, v in restored.items()}
         self.state.load_state_dict(restored)
         self.callbacks.on_load_checkpoint_end(self, self.state.step)

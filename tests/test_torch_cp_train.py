@@ -228,10 +228,12 @@ def test_collective_gradients_pass_gradcheck(ranks, op, cp):
     assert all(ranks.run("collective_gradcheck", cp=cp, op=op))
 
 
-def test_refusals():
+def test_refusals(tmp_path):
     """As gen3c_tpu: a band with cp > 1, sequence parallelism for the
-    multiview net (train_step.py:287-291); not ported: FSDP (15c), the
-    multiview net under cp. A tp mesh needs its ranks."""
+    multiview net (train_step.py:287-291); not ported: the multiview net
+    under cp. A tp mesh needs its ranks. FSDP is ported: the step takes
+    fsdp_axis "dp" (any other axis is refused, as JAX's specs name dp),
+    and ``train.py --fsdp`` trains on one device."""
     from gen3c_tpu_torch.models.dit_multiview import MultiviewDiTConfig
     from gen3c_tpu_torch.pipelines.factory import GEN3C_TINY_PRESET
     from gen3c_tpu_torch.parallel.mesh import make_groups
@@ -244,8 +246,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="attn_temporal_window training requires cp=1"):
         tts.make_sharded_train_step(cp2, band, opt)
     tts.make_sharded_train_step(Groups(dp=Axis(None, 0, 2), world=Axis(None, 0, 2)), band, opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15c"):
-        tts.make_sharded_train_step(cp2, cfg, opt, fsdp_axis="dp")
+    assert callable(tts.make_sharded_train_step(cp2, cfg, opt, fsdp_axis="dp"))
+    with pytest.raises(ValueError, match="not 'cp'"):
+        tts.make_sharded_train_step(cp2, cfg, opt, fsdp_axis="cp")
     tts.make_sharded_train_step(cp2, cfg, opt, sequence_parallel=True)
     with pytest.raises(ValueError, match="not supported for multiview training"):
         tts.make_sharded_train_step(cp2, MultiviewDiTConfig(), opt, sequence_parallel=True)
@@ -257,8 +260,9 @@ def test_refusals():
         tts.shard_step_inputs({"x0": x}, draws, cp2, MultiviewDiTConfig(), "video")
     with pytest.raises(ValueError, match="does not split over dp"):
         tts.shard_step_inputs({"x0": x[:1]}, draws, Groups(dp=Axis(None, 0, 2)), cfg, "video")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15c"):
-        train.main(["--synthetic", "--device", "cpu", "--fsdp"])
+    trainer = train.main(["--synthetic", "--device", "cpu", "--fsdp", "trainer.max_iter=1",
+                          "trainer.warmup_steps=1", f"trainer.job_dir={tmp_path / 'fsdp'}"])
+    assert trainer.config.fsdp and trainer.state.step == 1
     with pytest.raises(ValueError, match="world size is 1"):
         train.main(["--synthetic", "--device", "cpu", "--tp", "2"])
 

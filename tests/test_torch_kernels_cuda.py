@@ -514,6 +514,38 @@ def test_quant_rows_one_pass_matches_reference(gen, k, dtype, layout):
     assert (codes[3] == 0).all() and codes[5, k // 2] == 127 and codes[6, k - 1] == -127
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [16, 1000, 2048, 7168, 40000])
+def test_quant_rows_row_scale_mode_matches_reference(gen, k, dtype, layout):
+    """K7q's row-scale mode (a row-parallel W8A8 input, the row split over
+    tp): the row-absmax pass gives each row's max |x| and writes nothing
+    else; the codes with a given absmax are the plain version's with it.
+    Two column halves quantized with the max of their absmax are the
+    whole row's codes and scale, bit for bit (the 4B's wo and w2 at tp 2:
+    K 2,048 and 7,168 a rank)."""
+    m = 37
+    if layout == "contiguous":
+        x = torch.randn((m, 2 * k), generator=gen, device="cuda").to(dtype)
+    else:
+        x = torch.randn((m, 2 * k + 3), generator=gen, device="cuda").to(dtype)[:, 1:2 * k + 1]
+    x[3] = 0
+    x[5, k + k // 2] = 40.0  # an outlier in the second half
+    amax = kcuda.row_absmax(x)
+    torch.cuda.synchronize()
+    assert torch.equal(amax, reference.row_absmax_reference(x))
+    halves = (x[:, :k], x[:, k:])
+    whole_codes, whole_scale = quantize_rows_reference(x)
+    row = torch.maximum(*(kcuda.row_absmax(h) for h in halves))
+    for i, h in enumerate(halves):
+        codes, scale = kcuda.quantize_rows(h, row)
+        want_codes, want_scale = quantize_rows_reference(h, row)
+        torch.cuda.synchronize()
+        assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+        assert torch.equal(codes, whole_codes[:, i * k:(i + 1) * k])
+        assert torch.equal(scale, whole_scale)
+
+
 def test_w8a8_kernel_rejects_what_it_does_not_take(gen):
     xq = torch.zeros((4, 32), dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError):

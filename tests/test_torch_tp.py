@@ -154,8 +154,42 @@ def test_shard_dims_match_jax_pspecs(params):
     assert got[f"{blk}.0.block.attn.to_out.0.weight"] == 1  # P('tp', None)
     assert got[f"{blk}.2.block.layer1.weight"] == 0 and got[f"{blk}.2.block.layer2.weight"] == 1
     assert got["affline_norm.weight"] is None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15c"):
-        sharding.dit_shard_dims(_port_net(params[1]), fsdp_axis="dp")
+    # FSDP (tests/test_training.py:174): every entry's dp dimension beside its
+    # tp one, JAX's dit_param_pspecs(fsdp_axis="dp") coded the same way
+    fsdp_specs = jax.tree_util.tree_leaves(dit_param_pspecs(p, fsdp_axis="dp"),
+                                           is_leaf=lambda s: isinstance(s, P))
+    coded = []
+    for leaf, spec in zip(leaves, fsdp_specs):
+        a = np.zeros(leaf.shape, np.float32)
+        for d, axis in enumerate(spec):
+            if axis == "dp":
+                a = a + np.arange(1, leaf.shape[d] + 1, dtype=np.float32).reshape(
+                    [-1 if i == d else 1 for i in range(leaf.ndim)])
+        coded.append(a)
+    port = dit_state_from_jax(jax.tree_util.tree_unflatten(treedef, coded))
+    fsdp = sharding.dit_shard_dims(_port_net(params[1]), fsdp_axis="dp")
+    for k, v in port.items():
+        v = v.numpy()
+        varies = [d for d in range(v.ndim) if (v != v.take([0], axis=d)).any()]
+        assert fsdp[k] == (want[k], varies[0] if varies else None), k
+    assert fsdp[f"{blk}.0.block.attn.to_q.0.weight"] == (0, 1)  # JAX P('dp', 'tp')
+    assert fsdp[f"{blk}.0.block.attn.to_out.0.weight"] == (1, 0)  # P('tp', 'dp')
+    assert fsdp["affline_norm.weight"] == (None, None)
+    # the 7B's large leaves outside the blocks' linears, as JAX's
+    # test_fsdp_param_specs_shard_large_leaves has them: t_embedder's
+    # linear_2 (4096, 12288) P(None, 'dp') and the final linear (4096, 64)
+    # P('dp', None) in (in, out); a position table (T, D) its larger dim
+    import dataclasses as dc
+
+    from gen3c_tpu_torch.models.dit import GeneralDIT
+    from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET
+
+    with torch.device("meta"):
+        big = GeneralDIT(dc.replace(GEN3C_7B_PRESET.dit, num_blocks=1))
+    dims = sharding.dit_shard_dims(big, fsdp_axis="dp")
+    assert dims["t_embedder.1.linear_2.weight"] == (None, 0)
+    assert dims["final_layer.linear.weight"] == (None, 1)
+    assert dims["extra_pos_embedder.pos_emb_h"] == (None, 1)
 
 
 # ------------------------------ the sampler ------------------------------

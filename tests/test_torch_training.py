@@ -402,8 +402,12 @@ def test_cli_overrides_and_resume(tmp_path):
     assert trainer.state.step == 2
     again = train.main([a.replace("max_iter=2", "max_iter=3") for a in args])
     assert again.state.step == 3 and again.checkpointer.steps() == [1, 2, 3]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15c"):
-        train.main(["--synthetic", "--device", "cpu", "--fsdp", f"trainer.job_dir={job}2"])
+    # --fsdp is ported: on one device (dp 1) it cuts nothing, trains and resumes
+    fsdp_args = [a.replace(job, job + "fsdp") for a in args] + ["--fsdp"]
+    fsdp = train.main(fsdp_args)
+    assert fsdp.config.fsdp and fsdp.fsdp_dims == {} and fsdp.state.step == 2
+    fsdp = train.main([a.replace("max_iter=2", "max_iter=3") for a in fsdp_args])
+    assert fsdp.state.step == 3 and fsdp.checkpointer.steps() == [1, 2, 3]
     with pytest.raises(ValueError, match="world size is 1"):  # --tp is ported: it needs ranks
         train.main(["--synthetic", "--device", "cpu", "--tp", "2", f"trainer.job_dir={job}2"])
     # --sequence_parallel reaches TrainerConfig; on one device (tp 1) it changes nothing

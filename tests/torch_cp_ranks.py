@@ -329,13 +329,15 @@ def train_cfg(kind: str):
 
 
 def run_train_steps(groups, kind: str, state: dict, batches: list, draws: list, opt_kw: dict,
-                    step_kw: dict, data_type: str = "video") -> dict:
+                    step_kw: dict, data_type: str = "video", fsdp: bool = False) -> dict:
     """Steps of the port's train step on ``batches`` with the injected global
     ``draws`` (dicts of numpy StepDraws fields): over ``groups`` through
     ``make_sharded_train_step`` (over a tp axis on the module's shards,
-    ``shard_params``), or on one device (groups None) through
-    ``train_step``. Returns per-step loss, grad_norm, sigma_mean and the
-    final params (numpy, port names; shards gathered)."""
+    ``shard_params``; with fsdp cut over dp too, ``shard_fsdp``), or on one
+    device (groups None) through ``train_step``. Returns per-step loss,
+    grad_norm, sigma_mean, the final params and first moments (numpy, port
+    names; shards gathered) and the elements of this rank's params, first
+    moments and EMA."""
     import torch
 
     from gen3c_tpu_torch.parallel import sharding
@@ -344,10 +346,12 @@ def run_train_steps(groups, kind: str, state: dict, batches: list, draws: list, 
     cfg = train_cfg(kind)
     module = train_module(kind, state, step_kw.get("loss_add_logvar", False))
     dims = {} if groups is None else sharding.shard_params(module, groups)
+    cut = sharding.shard_fsdp(module, groups) if fsdp else {}
     opt = tts.make_optimizer(**opt_kw)
     st = tts.init_train_state(module, opt)
     if groups is not None:
-        step = tts.make_sharded_train_step(groups, cfg, opt, data_type=data_type, **step_kw)
+        step = tts.make_sharded_train_step(groups, cfg, opt, data_type=data_type,
+                                           fsdp_axis="dp" if fsdp else None, **step_kw)
     else:
         def step(s, b, rng, draws):
             return tts.train_step(s, b, rng, cfg, opt, data_type=data_type, draws=draws,
@@ -360,12 +364,16 @@ def run_train_steps(groups, kind: str, state: dict, batches: list, draws: list, 
         st, m = step(st, tb, None, draws=td)
         for k in out:
             out[k].append(float(m[k]))
-    params = {n: p.detach() for n, p in module.named_parameters()}
-    if dims:
-        params = sharding.gather_to_host(params, dims, groups.tp, True)
-    out["params"] = {n: p.numpy().copy() for n, p in params.items()}
+    sd = st.state_dict()
+    out["held"] = {part: sum(t.numel() for t in sd[part].values()) for part in ("params", "mu",
+                                                                               "ema")}
+    if dims or cut:
+        sd = sharding.gather_to_host(sd, dims, groups.tp, True, cut, groups.dp)
+    out["params"] = {n: p.numpy().copy() for n, p in sd["params"].items()}
+    out["mu"] = {n: p.numpy().copy() for n, p in sd["mu"].items()}
     out["step"] = st.step
     out["sharded"] = sorted(dims)
+    out["fsdp"] = sorted(cut)
     return out
 
 
@@ -379,28 +387,36 @@ def train(rank, world, dp: int, cp: int, tp: int = 1, **kw) -> dict:
     return out
 
 
-def trainer_run(rank, world, dp: int, tp: int, job_dir: str, max_iter: int) -> dict:
-    """``Trainer`` over this rank's (dp, tp) mesh on the tiny GEN3C DiT
-    (seeded, ``train.build_net``) and the synthetic stream, up to
-    ``max_iter`` steps, resuming from ``job_dir``'s latest checkpoint:
-    the step it reached and its parameters in the one-device form."""
+def trainer_run(rank, world, dp: int, tp: int, job_dir: str, max_iter: int,
+                fsdp: bool = False) -> dict:
+    """``Trainer`` over this rank's (dp, tp) mesh (fsdp: with FSDP) on the
+    tiny GEN3C DiT (seeded, ``train.build_net``) and the synthetic stream,
+    up to ``max_iter`` steps, resuming from ``job_dir``'s latest
+    checkpoint (a replica after the first: ``<job_dir>_replica<i>``): the
+    step it reached and its parameters in the one-device form."""
+    import dataclasses
+
     from gen3c_tpu_torch.parallel import sharding
     from gen3c_tpu_torch.training.train import build_net
     from gen3c_tpu_torch.training.trainer import Trainer
 
     groups = layout_groups(rank, world, dp=dp, tp=tp)
+    replica = rank // (dp * tp)
+    if replica:  # a replica of its own writes a job of its own
+        job_dir = f"{job_dir}_replica{replica}"
     cfg = train_cfg("gen3c")
-    trainer = Trainer(trainer_config(job_dir, max_iter), cfg, build_net(cfg, "cpu", 0),
-                      groups=groups)
+    config = dataclasses.replace(trainer_config(job_dir, max_iter), fsdp=fsdp)
+    trainer = Trainer(config, cfg, build_net(cfg, "cpu", 0), groups=groups)
     state = trainer.train(trainer_data())
-    params = {n: p.detach() for n, p in state.params.named_parameters()}
-    if trainer.shard_dims:
-        params = sharding.gather_to_host(params, trainer.shard_dims, groups.tp, True)
+    params = {n: p.detach() for n, p in state.named_params().items()}
+    if trainer.shard_dims or trainer.fsdp_dims:
+        params = sharding.gather_to_host(params, trainer.shard_dims, groups.tp, True,
+                                         trainer.fsdp_dims, groups.dp)
     return {"step": state.step, "params": {n: p.numpy().copy() for n, p in params.items()},
-            "sharded": len(trainer.shard_dims)}
+            "sharded": len(trainer.shard_dims), "fsdp": len(trainer.fsdp_dims)}
 
 
-def save_gather(rank, world, dp: int, tp: int) -> dict:
+def save_gather(rank, world, dp: int, tp: int, fsdp: bool = False) -> dict:
     """``sharding.gather_to_host`` (Trainer's checkpoint gather) of a train
     state cut over this rank's (dp, tp) mesh from a one-device state whose
     moments are drawn at random, with every all-gather's output watched:
@@ -425,10 +441,11 @@ def save_gather(rank, world, dp: int, tp: int) -> dict:
             t.copy_(torch.randn(t.shape, generator=gen))
     net = build_net(train_cfg("gen3c"), "cpu", 0)
     dims = sharding.shard_params(net, groups)
+    cut = sharding.shard_fsdp(net, groups) if fsdp else {}
     state = init_train_state(net, make_optimizer())
     for mine, one in ((state.opt_state.mu, whole.opt_state.mu),
                       (state.opt_state.nu, whole.opt_state.nu)):
-        for n, t in sharding.shard_tensors(one, dims, groups.tp).items():
+        for n, t in sharding.shard_tensors(one, dims, groups.tp, cut, groups.dp).items():
             mine[n].copy_(t)
     sd = state.state_dict()
     buffers, alive_at_gather = [], []
@@ -445,7 +462,7 @@ def save_gather(rank, world, dp: int, tp: int) -> dict:
     keep = groups.world.rank == 0
     collectives.all_gather = watched
     try:
-        host = sharding.gather_to_host(sd, dims, groups.tp, keep)
+        host = sharding.gather_to_host(sd, dims, groups.tp, keep, cut, groups.dp)
     finally:
         collectives.all_gather = real
     equal = on_host = None
@@ -458,7 +475,7 @@ def save_gather(rank, world, dp: int, tp: int) -> dict:
         on_host = all(t.device.type == "cpu" and t.is_contiguous()
                       and t.data_ptr() not in live for k in parts for t in host[k].values())
     return {"alive_at_gather": max(alive_at_gather), "gathers": len(alive_at_gather),
-            "sharded": len(dims), "host_none": host is None, "equal": equal,
+            "sharded": len(dims), "fsdp": len(cut), "host_none": host is None, "equal": equal,
             "on_host": on_host}
 
 
@@ -540,3 +557,120 @@ def collective_gradcheck(rank, world, cp: int, op: str) -> bool:
     X = torch.randn((n,) + shape, generator=g, dtype=torch.float64, requires_grad=True)
     return torch.autograd.gradcheck(lambda x: gather(fns[op](take(x))), (X,),
                                     eps=1e-6, atol=1e-8, rtol=1e-6)
+
+
+# ------------------------------ the AR transformer under tp ------------------------------
+
+def _ar_model(cfg_kw: dict, state: dict, quant=None):
+    """The port's ARTransformer of ``cfg_kw`` (dtype by name) with ``state``
+    (numpy, port names); quant "q" / "q8": the quantized structure
+    (every linear and the table, min_size 1) before the state loads."""
+    import torch
+
+    from gen3c_tpu_torch.models.ar_transformer import ARConfig, ARTransformer
+    from gen3c_tpu_torch.models.quantize import quantize_ar_params
+
+    kw = dict(cfg_kw)
+    kw["dtype"] = getattr(torch, kw.get("dtype", "float32"))
+    for k in ("latent_shape", "original_latent_shape"):
+        if k in kw:
+            kw[k] = tuple(kw[k])
+    model = ARTransformer(ARConfig(**kw))
+    if quant is not None:
+        quantize_ar_params(model, act_quant=quant == "q8", structure_only=True, min_size=1)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model
+
+
+def ar_tp(rank, world, tp: int, cfg_kw: dict, state: dict, tokens, quant=None, context=None,
+          decode: bool = False) -> dict:
+    """The AR model whole and cut to this rank's tp shards
+    (``shard_ar_params``): the prefill's logits of ``tokens`` on both; with
+    decode, greedy ``generate`` (bf16 and int8 caches), ``generate_bucketed``
+    and ``generate_with_embeddings`` on both; the cut entries, the cache's
+    heads and K8's launches under tp."""
+    import torch
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.models import ar_transformer as tar
+    from gen3c_tpu_torch.parallel.sharding import shard_ar_params
+
+    groups = layout_groups(rank, world, tp=tp)
+    model = _ar_model(cfg_kw, state, quant)
+    ids = torch.from_numpy(tokens).long()
+    ctx = None if context is None else torch.from_numpy(context)
+
+    def run():
+        out = {"logits": model(ids, context=ctx)[0].float().numpy()}
+        if decode:
+            for kv in (False, True):  # teacher-forced: a 10-token prefill, then one at a time
+                cache = tar.init_kv_cache(model.cfg, ids.shape[0], dtype=model.cfg.dtype,
+                                          quantized=kv, tp=model.tp_size)
+                steps = [model(ids[:, :10], cache=cache, context=ctx)[0][:, -1]]
+                for i in range(10, ids.shape[1]):
+                    steps.append(model(ids[:, i:i + 1], cache=cache, context=ctx)[0][:, -1])
+                out[f"decode_int8={kv}"] = torch.stack(steps, 1).float().numpy()
+            for kv in (False, True):
+                out[f"generate_int8={kv}"] = tar.generate(
+                    model, ids, 6, temperature=0.0, context=ctx, quantize_kv=kv).numpy()
+            rows = [tokens[0, 3:], tokens[1]]
+            out["bucketed"] = tar.generate_bucketed(model, rows, 5, temperature=0.0,
+                                                    context=ctx, bucket=8).numpy()
+            emb = model.embed(ids[:, :5])
+            out["embeddings"] = tar.generate_with_embeddings(model, emb, 5, temperature=0.0,
+                                                             context=ctx).numpy()
+        return out
+
+    with torch.no_grad():
+        whole = run()
+        dims = shard_ar_params(model, groups)
+        kernels.reset_launch_counts()
+        cut = run()
+    cache = tar.init_kv_cache(model.cfg, 1, tp=model.tp_size)
+    return {"whole": whole, "tp": cut, "sharded": sorted(dims), "tp_rank": groups.tp.rank,
+            "cache_heads": cache.k.shape[3], "q_rows": model.layers[0].attention.wq.weight.shape[0]}
+
+
+# ------------------------------ pipeline parallelism, sharded renders ------------------------------
+
+def pp_forward(rank, world, pp: int, state: dict, x, t, ctx, n_microbatches: int,
+               cut: bool = False) -> dict:
+    """``pp_dit_forward`` of the tiny GEN3C DiT (fp32, ``state``) over a pp
+    axis of ``pp`` ranks (a replica's cp axis of the pool) and the
+    gradient of sum(out ** 2) with respect to x (``backward``); cut: the
+    net keeps its stage's blocks only (``shard_pp_params``)."""
+    import torch
+
+    from gen3c_tpu_torch.parallel import collectives
+    from gen3c_tpu_torch.parallel.pp import pp_dit_forward, shard_pp_params
+
+    axis = layout_groups(rank, world, cp=pp).cp
+    net = train_module("gen3c", state, False)
+    kept = shard_pp_params(net, axis) if cut else None
+    xt = torch.from_numpy(x).requires_grad_(True)
+    collectives.reset_traffic()
+    out = pp_dit_forward(axis, net, xt, torch.from_numpy(t), torch.from_numpy(ctx),
+                         n_microbatches=n_microbatches)
+    (out.float() ** 2).sum().backward()
+    return {"out": out.detach().numpy(), "grad_x": xt.grad.numpy(), "stage": axis.rank,
+            "kept": kept, "blocks": len(net.blocks), "p2p": dict(collectives.traffic["p2p"])}
+
+
+def sharded_render(rank, world, n: int, image, depth, k, w2cs, ks) -> dict:
+    """``sharded_render_cache`` of a static Cache3DBuffer over a cp axis of
+    ``n`` ranks, and the one-process ``render_cache`` of the same cache."""
+    import torch
+
+    from gen3c_tpu_torch.cache import Cache3DBuffer
+    from gen3c_tpu_torch.parallel.cache_sharding import sharded_render_cache
+
+    axis = layout_groups(rank, world, cp=n).cp
+    w2c0 = np.eye(4, dtype=np.float32)
+    cache = Cache3DBuffer(frame_buffer_max=2, input_image=torch.from_numpy(image[None]),
+                          input_depth=torch.from_numpy(depth[None, None]),
+                          input_w2c=torch.from_numpy(w2c0[None]),
+                          input_intrinsics=torch.from_numpy(k[None]))
+    px, mk = sharded_render_cache(cache, axis, torch.from_numpy(w2cs), torch.from_numpy(ks))
+    one_px, one_mk = cache.render_cache(torch.from_numpy(w2cs), torch.from_numpy(ks))
+    return {"px": px.numpy(), "mk": mk.numpy(), "one_px": one_px.numpy(),
+            "one_mk": one_mk.numpy()}
