@@ -22,7 +22,7 @@ Phases, each printing one JSON line of its own numbers:
   5 fast     the same model and chunk with the --perf_preset fast knobs:
              W8A8 (quantized on the card, all 28 blocks), band window 2,
              step-cache interval 2, guidance interval 1.75..81, 8 steps on
-             the first FAST_BLOCKS = 14 blocks: the asserted
+             the first FAST_BLOCKS = 7 blocks: the asserted
              CFG/condition-only and refresh/cached step pattern, seconds
              per step by kind, quantize seconds, peak memory, launches
   6 fast_parity  a 1024-channel, 2-block bf16 DiT with W8A8 and band
@@ -33,19 +33,20 @@ Phases, each printing one JSON line of its own numbers:
              between chunks; the first chunk is compared with the same
              model run on the CPU through the plain versions
   8 train    train_step at GEN3C-7B width (4096 channels, 32 x 128 heads,
-             bf16, 12 of 28 blocks, gates randomized) on one 121-frame
+             bf16, TRAIN_BLOCKS_7B = 6 of 28 blocks, gates randomized) on one 121-frame
              704x1280 clip (56,320 tokens, 512 text tokens), B=1, remat,
              TrainerConfig's optimizer defaults, TRAIN_STEPS steps: s per step, loss
              and grad-norm per step, state GiB reckoned and measured, peak
              GiB, and the launches of K1, K2 and K4
-  9 lora_band_train  LoRA fine-tuning of the full 28-block GEN3C-7B (bf16,
+  9 lora_band_train  LoRA fine-tuning of GEN3C-7B at full width on
+             LORA_BLOCKS = 7 of its 28 blocks (bf16,
              random base from seed 0, gates randomized) with the fast
              preset's band (window 2, prefix 1): the batch from
              build_gen3c_train_batch on a seeded 121-frame 704x1280 RGBD
              clip (7B VAE, K5), then LORA_STEPS lora_train_steps (rank 16 on the
              attention projections, remat): s per step, loss, grad-norm,
              peak GiB, base and adapter GiB reckoned and measured, launches
-             per step (K4band 28, K3lse 56, K2 56, K4 28, K1 0), and the base
+             per step (K4band 7, K3lse 14, K2 14, K4 7, K1 0), and the base
              bitwise unchanged
  10 train_parity  one train_step of a 1024-channel, 2-block bf16 DiT on the
              card (kernels) and on the CPU (plain versions) with the same
@@ -109,7 +110,7 @@ Phases, each printing one JSON line of its own numbers:
  19 serving  the inference server (serving.server.serve on 127.0.0.1, any
              free port, driven over HTTP with urllib) around a
              Gen3cPersistentModel of GEN3C-7B at full width (bf16, seeded,
-             gates randomized; its first SERVING_BLOCKS = 4 of 28
+             gates randomized; its first SERVING_BLOCKS = 1 of 28
              blocks), MAIN_STEPS steps, depth from MoGe ViT-L
              (seeded weights through GEN3C_MOGE_CHECKPOINT; moge_jax raises
              without them): /seed-model on one 704x1280 image (MoGe on the
@@ -120,7 +121,21 @@ Phases, each printing one JSON line of its own numbers:
              exactly one chunk), /render-preview on a 5-frame path,
              /metadata: seconds of each, job A's generate / chain / depth /
              fetch split, the fetch's bytes, peak GiB and the launches of
-             K1, K2 (4 x MAIN_STEPS x 3 chunks), K5 and K1vit (24 x 2)
+             K1, K2 (1 x MAIN_STEPS x 3 chunks), K5 and K1vit (24 x 2);
+             then job A again from a fresh seed with the DiT called one
+             sample at a time: the bf16 noise floor of its frames
+ 19b serving_cp2  the same server over two ranks on the one card (gloo;
+             `--serving-rank r`): Gen3cPersistentModel(num_devices=2,
+             parallel="cp", cp_attn="ulysses") of the same 7B, MoGe and
+             seeds on each rank; rank 0 serves and is driven over HTTP
+             (seed, job A of 241 frames fetched as JPEGs, job C cancelled
+             while its first chunk runs), then stops the server, whose
+             "stop" returns rank 1 from follow(): rank 0's and rank 1's job
+             A frames held to serving's within CP_NOISE_FACTOR times its
+             noise floor (not below CP_TOL), job C cancelled after one
+             chunk on both ranks; per rank ready s, s a step, the
+             collectives' bytes and host seconds, peak GiB and launches
+             (K1cp and K2 one a block a step, K5; K1vit on rank 0 only)
  20 span     span caching on main_path's 7B, before it is freed, on its
              first SPAN_BLOCKS = 8 of 28 blocks: the blocks ranked by
              rank_block_contributions at one noise level (one B = 1
@@ -168,9 +183,9 @@ Phases, each printing one JSON line of its own numbers:
              fp32 multiview preset drawn on the CPU, card against CPU
  26 mv_action_train  one train_step of the multiview 7B (cosmos_v2w_mv_7b,
              76,320 tokens, 6 x 512 text tokens, video-extend with the per-view
-             indicator) at MV_TRAIN_BLOCKS = 10 blocks (12 would pass the
+             indicator) at MV_TRAIN_BLOCKS = 5 blocks (12 would pass the
              card's memory) and of video2world_action_7b (56,320 tokens, a (1,
-             1, 7) action) at TRAIN_BLOCKS_7B = 12, per-block remat: s per
+             1, 7) action) at TRAIN_BLOCKS_7B = 6, per-block remat: s per
              step, loss, grad-norm, peak GiB, K4's launches by forward
  27 ar_world the Cosmos AR world model (ar_4b: the 4B at full width, dim 4096,
              16 layers, 32 query / 8 KV heads of 128, vocab 64,000, seeded bf16
@@ -249,8 +264,10 @@ Phases, each printing one JSON line of its own numbers:
              two calls the same bits (K8BWD_CASES); the same at 1, 3 and 4
              queries at rep 4 and at d 36, rep 2 (K8BWD_SHORT_CASES: K8's
              forward with lse and K8bwd on the wgmma bodies, d padded to
-             40); each case's forward output and lse held to the plain
-             version too; then ar_train_step on the
+             40); and a tp 2 rank's (1, 12,800, 16 / 4, 128) causal bf16
+             (K8BWD_TP_CASES, ar_tp_train's shape); each case's forward
+             output and lse held to the plain version too; then
+             ar_train_step on the
              seeded ar_4b, all 16 layers, over the 12,800-token grid, B = 1,
              AR_TRAIN_STEPS = 3 steps with per-layer remat: s per step, peak
              GiB, loss, grad norm, K8 (32) and K8bwd (16) launches a step;
@@ -272,7 +289,15 @@ Phases, each printing one JSON line of its own numbers:
              the same net, batch and draws in this one process (loss, grad
              norm, three leaves' updates and first moments within
              CP_TRAIN_TOL): s per step per rank, peak GiB, launches (K1cp /
-             K1 and K4 per block), the collectives' bytes and host seconds
+             K1 and K4 per block), the collectives' bytes and host seconds;
+             then ar_tp_train in the same ranks: the 4B at full width on
+             AR_TP_TRAIN_LAYERS = 2 of its 16 layers at tp 2 (16 / 4 heads
+             a rank) over 12,800 tokens, 2 AdamW steps through
+             make_sharded_ar_train_step (the vocab-parallel cross entropy),
+             held to the same steps in this one process (loss, grad norm,
+             five leaves within CP_TRAIN_TOL): s a step a rank, peak GiB, K8
+             (2 a layer) and K8bwd (1 a layer) a step a rank, the loss's
+             collective bytes
  34 offline_tools  (after checkpoint) make_random_checkpoint writes a seeded
              2-block GEN3C-7B-width dit.npz, persist_quantized_dit its W8A8
              file (quantized on the card), build_gen3c_model loads it
@@ -373,7 +398,7 @@ LATENT_T_7B = 16
 # the logits and dO.V^T to bf16) plus a margin, relative to mean |truth|
 K4_TOL = {"max_margin": 1e-2, "mean_margin": 1e-3}
 K4_F32_TOL = 1e-4  # relative to mean |plain|, fp32 on both sides
-TRAIN_BLOCKS_7B = 12  # of 28: the state (12 bytes a parameter) must fit 80 GB
+TRAIN_BLOCKS_7B = 6  # of 28 (12 before serving_cp2): the train phase's and the action step's depth
 # card (kernels) against CPU (plain versions), both bf16, per gradient leaf:
 # mean |delta| / mean |cpu| and max |delta| / max |cpu|; loss and grad-norm
 # relative (set before the first run, PERF.md)
@@ -384,6 +409,7 @@ TF32_PEAK_TFLOPS = 495.0  # H100 SXM dense TF32 (data sheet): the 3xTF32 fp32 fo
 HBM_TB_PER_S = 3.35  # H100 SXM HBM3 (data sheet)
 LORA_RANK = 16
 LORA_STEPS = 2
+LORA_BLOCKS = 7  # of 28 (all 28 before serving_cp2): lora_band_train's depth, at the 7B's width
 P1_SHAPE = (1408, 128, 1024)  # the QK^T block shape of scripts/probe_int8_attention.py
 P1_REPS = 8000  # that script's R at K = 128
 # every P1 form held to its plain version here: ragged M and N, K two chunks
@@ -2235,6 +2261,37 @@ def _w8a8_row_parallel_check(groups) -> dict:
             **_rel_t(got, one)}
 
 
+def _spawn_ranks(flag: str, n: int, out_dir: str, timeout_s: float, env=None):
+    """n processes of this script with ``flag`` r (r = 0..n-1), each a rank
+    (its worker sets torchrun's environment) on one free port, their output
+    to ``<flag><r>.log`` in out_dir; waits for all of them (killed at
+    timeout_s); (return codes, seconds, log tails)."""
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    names = [os.path.join(out_dir, f"{flag.strip('-')}{r}.log") for r in range(n)]
+    logs = [open(name, "w") for name in names]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
+                               "--cp-port", str(port), "--cp-out", out_dir],
+                              stdout=logs[r], stderr=subprocess.STDOUT,
+                              env={**os.environ, **(env or {})}) for r in range(n)]
+    t0 = time.perf_counter()
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    tails = [open(name).read()[-3000:] for name in names]
+    return [p.returncode for p in procs], time.perf_counter() - t0, tails
+
+
 def _cp_extras(rank: int, out_dir: str) -> dict:
     """pp2, render_cp2 and ar_tp on the cp phase's two ranks (gloo), after
     the 7B is gone; each rank's numbers."""
@@ -2336,37 +2393,15 @@ def phase_cp(refs: dict) -> dict:
     these times is a multi-card time."""
     from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     parent_gib = torch.cuda.memory_allocated() / 2 ** 30
     free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
     os.makedirs(OUT_DIR, exist_ok=True)
     out_dir = tempfile.mkdtemp(dir=OUT_DIR, prefix="cp_")
-    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w") for r in range(CP_RANKS)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cp-rank", str(r),
-                               "--cp-port", str(port), "--cp-out", out_dir],
-                              stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(CP_RANKS)]
-    t0 = time.perf_counter()
-    try:
-        for proc in procs:
-            proc.wait(timeout=max(1.0, CP_TIMEOUT_S - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for f in logs:
-            f.close()
-    wall_s = time.perf_counter() - t0
-    if any(proc.returncode != 0 for proc in procs):
-        tails = [open(os.path.join(out_dir, f"rank{r}.log")).read()[-3000:] for r in range(CP_RANKS)]
-        raise AssertionError(f"cp: ranks exited {[p.returncode for p in procs]} after "
-                             f"{wall_s:.0f} s (this process held {parent_gib:.2f} GiB, "
-                             f"{free_gib:.2f} GiB free):\n" + "\n----\n".join(tails))
+    codes, wall_s, tails = _spawn_ranks("--cp-rank", CP_RANKS, out_dir, CP_TIMEOUT_S)
+    if any(codes):
+        raise AssertionError(f"cp: ranks exited {codes} after {wall_s:.0f} s (this process "
+                             f"held {parent_gib:.2f} GiB, {free_gib:.2f} GiB free):\n"
+                             + "\n----\n".join(tails))
     ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(CP_RANKS)]
     res = {"ranks": CP_RANKS, "backend": ranks[0]["backend"], "wall_s": wall_s,
            "build_s": [r["build_s"] for r in ranks], "parent_gib": parent_gib,
@@ -2636,6 +2671,111 @@ def _cp_train_run(cfg, groups, name: str, steps: int, T: int, B: int, sp: bool =
     return out
 
 
+# ar_tp_train, in cp_train's ranks: the 4B AR model at full width (4,096 channels,
+# 32 / 8 heads; 16 / 4 a rank at tp 2) on AR_TP_TRAIN_LAYERS of its 16 layers over
+# the 12,800-token grid, AR_TP_TRAIN_STEPS AdamW steps with remat, held to one rank;
+# one leaf of each kind: a column linear (rows), a row linear (columns), q's norm
+# scale (a part a tp rank), the final norm (replicated) and the LM head's rows
+# around the vocab's split (each rank's through the vocab-parallel cross entropy)
+AR_TP_TRAIN_LAYERS = 2
+AR_TP_TRAIN_STEPS = 2
+AR_TP_TRAIN_LEAVES = ("layers.0.attention.wq.weight", "layers.1.feed_forward.w2.weight",
+                      "layers.0.attention.q_norm.weight", "norm.weight", "output.weight")
+AR_TP_HEAD_ROWS = slice(31_744, 32_256)  # output.weight's rows compared: 512 across the split
+
+
+def _ar_tp_train_run(groups) -> dict:
+    """The seeded 4B cut to AR_TP_TRAIN_LAYERS layers trained
+    AR_TP_TRAIN_STEPS steps on one seeded 12,800-token sequence: over
+    ``groups`` (tp) through make_sharded_ar_train_step on the model
+    shard_ar_params cut to this rank's heads, or (groups None) one rank's
+    ar_train_step. Per step s, loss, accuracy, grad norm, peak GiB, K8 and
+    K8bwd launches, every collective's bytes and host seconds, and the loss's
+    own in its forward (the vocab-parallel cross entropy's all-reduces; the
+    recompute, which checkpoint stops early, counts among the rest); the
+    AR_TP_TRAIN_LEAVES' updates and first moments (CPU
+    fp32, gathered from the tp shards; the LM head's AR_TP_HEAD_ROWS)."""
+    import dataclasses
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.models.ar_transformer import ARTransformer
+    from gen3c_tpu_torch.parallel import collectives, sharding
+    from gen3c_tpu_torch.pipelines import autoregressive as ar
+    from gen3c_tpu_torch.training import ar_train
+    from gen3c_tpu_torch.training.train_step import AdamW
+
+    cfg = dataclasses.replace(ar.AR_PRESETS["ar_4b"].ar, n_layers=AR_TP_TRAIN_LAYERS)
+    model = ARTransformer(cfg, device="cuda:0").init_random(
+        torch.Generator(device="cuda:0").manual_seed(7))
+    tokens = torch.randint(0, cfg.vocab_size, (1, AR_TRAIN_TOKENS),
+                           generator=torch.Generator().manual_seed(8)).to("cuda:0")
+
+    def rows(n, t):
+        return t[AR_TP_HEAD_ROWS] if n == "output.weight" else t
+
+    before = {n: rows(n, p.detach().float().cpu()).clone() for n, p in model.named_parameters()
+              if n in AR_TP_TRAIN_LEAVES}
+    opt = AdamW(AR_TRAIN_LR)
+    if groups is not None:
+        sharding.shard_ar_params(model, groups)
+        sharded_step = ar_train.make_sharded_ar_train_step(groups, opt)
+    else:
+        sharded_step = None
+    named = sharding.named_leaves(model)
+    state = opt.init(named)
+    loss_traffic = {"calls": 0, "bytes": 0, "seconds": 0.0}
+    terms = ar_train._vocab_parallel_terms
+
+    def counted_terms(*args):  # the loss's collectives in the forward
+        was = {k: sum(c[k] for c in collectives.traffic.values()) for k in loss_traffic}
+        out = terms(*args)
+        for k in loss_traffic:
+            loss_traffic[k] += sum(c[k] for c in collectives.traffic.values()) - was[k]
+        return out
+
+    ar_train._vocab_parallel_terms = counted_terms
+    out = {"layers": AR_TP_TRAIN_LAYERS, "tokens": AR_TRAIN_TOKENS, "steps": [],
+           "q_heads_a_rank": model.layers[0].attention.wq.weight.shape[0] // cfg.head_dim,
+           "kv_heads_a_rank": model.layers[0].attention.wk.weight.shape[0] // cfg.head_dim}
+    try:
+        for _ in range(AR_TP_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            if groups is not None:
+                torch.distributed.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            collectives.reset_traffic()
+            loss_traffic.update(calls=0, bytes=0, seconds=0.0)
+            t0 = time.perf_counter()
+            if sharded_step is None:
+                model, state, m = ar_train.ar_train_step(model, state, tokens, opt)
+            else:
+                model, state, m = sharded_step(model, state, tokens)
+            torch.cuda.synchronize()
+            out["steps"].append({
+                "s": time.perf_counter() - t0, "loss": float(m["loss"]),
+                "accuracy": float(m["accuracy"]), "grad_norm": float(m["grad_norm"]),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launches": {k: kernels.launch_counts[k] for k in ("K8", "K8bwd")},
+                "routes": dict(kernels.route_counts), "loss_traffic": dict(loss_traffic),
+                "traffic": {op: dict(c) for op, c in collectives.traffic.items()
+                            if c["calls"]}})
+    finally:
+        ar_train._vocab_parallel_terms = terms
+    out["params"] = sum(p.numel() for p in named.values())  # this rank's
+    now = {n: named[n].detach() for n in AR_TP_TRAIN_LEAVES}
+    mu = {n: state.mu[n] for n in AR_TP_TRAIN_LEAVES}
+    if groups is not None:
+        dims = sharding.ar_sharded_leaves(model)
+        now, mu = (sharding.gather_to_host(t, dims, groups.tp, True) for t in (now, mu))
+    out["leaves"] = {n: {"update": rows(n, now[n].float().cpu()) - before[n],
+                         "mu": rows(n, mu[n].float().cpu())} for n in AR_TP_TRAIN_LEAVES}
+    del state, model, named, opt, tokens, now, mu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def cp_train_worker(rank: int, port: int, out_dir: str) -> int:
     """One rank of the cp_train phase (torchrun's environment, gloo on
     cuda:0): each of CP_TRAIN_RUNS over its (dp, cp) mesh; its numbers to
@@ -2660,6 +2800,11 @@ def cp_train_worker(rank: int, port: int, out_dir: str) -> int:
             torch.save(leaves, os.path.join(out_dir, f"train_{name}.pt"))
         out["runs"][name] = {**res, "dp_rank": groups.dp.rank, "cp_rank": groups.cp.rank,
                              "tp_rank": groups.tp.rank}
+    ar_tp = _ar_tp_train_run(mesh.make_groups(tp=CP_RANKS, backend="gloo"))
+    leaves = ar_tp.pop("leaves")
+    if rank == 0:
+        torch.save(leaves, os.path.join(out_dir, "train_ar_tp.pt"))
+    out["ar_tp_train"] = ar_tp
     with open(os.path.join(out_dir, f"train_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.barrier()
@@ -2704,35 +2849,13 @@ def phase_cp_train() -> dict:
                   torch.bfloat16, gen)
     gc.collect()
     torch.cuda.empty_cache()
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
     os.makedirs(OUT_DIR, exist_ok=True)
     out_dir = tempfile.mkdtemp(dir=OUT_DIR, prefix="cp_train_")
-    logs = [open(os.path.join(out_dir, f"train_rank{r}.log"), "w") for r in range(CP_RANKS)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cp-train-rank",
-                               str(r), "--cp-port", str(port), "--cp-out", out_dir],
-                              stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(CP_RANKS)]
-    t0 = time.perf_counter()
-    try:
-        for proc in procs:
-            proc.wait(timeout=max(1.0, CP_TRAIN_TIMEOUT_S - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for f in logs:
-            f.close()
-    wall_s = time.perf_counter() - t0
-    if any(proc.returncode != 0 for proc in procs):
-        tails = [open(os.path.join(out_dir, f"train_rank{r}.log")).read()[-3000:]
-                 for r in range(CP_RANKS)]
-        raise AssertionError(f"cp_train: ranks exited {[p.returncode for p in procs]} after "
-                             f"{wall_s:.0f} s:\n" + "\n----\n".join(tails))
+    codes, wall_s, tails = _spawn_ranks("--cp-train-rank", CP_RANKS, out_dir,
+                                        CP_TRAIN_TIMEOUT_S)
+    if any(codes):
+        raise AssertionError(f"cp_train: ranks exited {codes} after {wall_s:.0f} s:\n"
+                             + "\n----\n".join(tails))
     ranks = [json.load(open(os.path.join(out_dir, f"train_rank{r}.json")))
              for r in range(CP_RANKS)]
     cfg = dc.replace(GEN3C_7B_PRESET.dit, num_blocks=CP_TRAIN_BLOCKS)
@@ -2804,11 +2927,93 @@ def phase_cp_train() -> dict:
         if tp > 1 and not all(rk["params"] < one["params"] for rk in runs):
             bad.append(f"{name}: a rank holds {[rk['params'] for rk in runs]} parameters, "
                        f"one rank {one['params']}: the linears were not sharded")
+    ar_res = _check_ar_tp_train(ranks, out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
     emit("cp_train", **res)
+    emit("ar_tp_train", **ar_res)
+    bad += ar_res.pop("bad")
+    res["ar_tp_train"] = ar_res
     if bad:
         raise AssertionError(f"cp_train: {bad}: {res}")
     res["k4"] = k4
+    return res
+
+
+def _leaf_rels(got: dict, ref: dict) -> dict:
+    """_leaf_rel of each leaf's first moment and (where it moved) update."""
+    return {n: {"mu": _leaf_rel(got[n]["mu"], r["mu"]),
+                **({"update": _leaf_rel(got[n]["update"], r["update"])}
+                   if r["update"].abs().max() > 0 else {})} for n, r in ref.items()}
+
+
+def _check_ar_tp_train(ranks: list, out_dir: str) -> dict:
+    """ar_tp_train of cp_train's ranks against the same 4B cut, sequence
+    and steps in this one process: loss and grad norm a step, the leaves'
+    updates and first moments within CP_TRAIN_TOL (as cp_train's runs), or
+    within CP_NOISE_FACTOR times the one rank's own noise floor where that
+    is wider: the one rank again with its row-parallel sums halved in bf16
+    (``_halved_row_sums``, ar_tp's floor: tp 2's arithmetic without the
+    parallel code). The 4B's logits are rounded to bf16 (as gen3c_tpu's)
+    and the softmax over 64,000 entries turns a logit's last bit into ~1%
+    of every gradient element, which AdamW's sign-like first steps turn
+    into a flipped step where |g| is below it. Every rank the same loss
+    and grad norm, its 16 / 4 heads and fewer parameters than one rank; K8
+    2 x layers (the forward and remat's) and K8bwd once a layer, a step a
+    rank. The numbers, "bad": what failed."""
+    import gen3c_tpu_torch.models.ar_transformer as tar
+
+    runs = [r["ar_tp_train"] for r in ranks]
+    got = torch.load(os.path.join(out_dir, "train_ar_tp.pt"), weights_only=True)
+    one = _ar_tp_train_run(None)
+    ref = one.pop("leaves")
+    with _halved_row_sums(tar):
+        floor_run = _ar_tp_train_run(None)
+    floor = {"rel": [{k: abs(st[k] - rs[k]) / abs(rs[k]) for k in ("loss", "grad_norm")}
+                     for st, rs in zip(floor_run["steps"], one["steps"])],
+             "leaves": _leaf_rels(floor_run.pop("leaves"), ref)}
+    rel = [{k: abs(st[k] - rs[k]) / abs(rs[k]) for k in ("loss", "grad_norm")}
+           for st, rs in zip(runs[0]["steps"], one["steps"])]
+    leaves = _leaf_rels(got, ref)
+    del got, ref
+
+    def bound(key: str, floor_value: float) -> float:
+        return max(CP_TRAIN_TOL[key], CP_NOISE_FACTOR * floor_value)
+
+    res = {"model": "ar_4b", "layers": AR_TP_TRAIN_LAYERS, "tokens": AR_TRAIN_TOKENS, "tp": 2,
+           "ranks": runs, "one_rank": one, "rel": rel, "leaves": leaves, "floor": floor,
+           "tol": CP_TRAIN_TOL, "noise_factor": CP_NOISE_FACTOR,
+           "note": "both ranks share one card and their collectives go through host memory "
+                   "(gloo): no time here is a multi-card time"}
+    bad = []
+    if any(v > bound(k, fs[k]) for st, fs in zip(rel, floor["rel"]) for k, v in st.items()):
+        bad.append(f"ar_tp_train: loss / grad norm off the one-rank step {rel}, floor "
+                   f"{floor['rel']}")
+    for n, lv in leaves.items():
+        mu, up = lv["mu"], lv.get("update")
+        fmu, fup = floor["leaves"][n]["mu"], floor["leaves"][n].get("update", {})
+        if mu["rel_max"] > bound("leaf_max", fmu["rel_max"]) \
+                or mu["rel_mean"] > bound("leaf_mean", fmu["rel_mean"]) \
+                or (up is not None and (
+                    up["rel_mean"] > bound("leaf_mean", fup.get("rel_mean", 0.0))
+                    or up["share_off"] > bound("update_share_off", fup.get("share_off", 0.0)))):
+            bad.append(f"ar_tp_train: leaf {n} off the one-rank step {lv}, floor "
+                       f"{floor['leaves'][n]}")
+    want = {"K8": 2 * AR_TP_TRAIN_LAYERS, "K8bwd": AR_TP_TRAIN_LAYERS}
+    for r, rk in enumerate(runs):
+        if any(abs(st[k] - rs[k]) > 1e-6 * abs(rs[k]) for st, rs in zip(rk["steps"],
+                                                                          runs[0]["steps"])
+               for k in ("loss", "grad_norm")):
+            bad.append(f"ar_tp_train: rank {r}'s loss or grad norm differs from rank 0's")
+        if (rk["q_heads_a_rank"], rk["kv_heads_a_rank"]) != (16, 4) \
+                or rk["params"] >= one["params"]:
+            bad.append(f"ar_tp_train: rank {r} ran {rk['q_heads_a_rank']} / "
+                       f"{rk['kv_heads_a_rank']} heads, held {rk['params']} parameters")
+        for st in rk["steps"]:
+            if st["launches"] != want or not (math.isfinite(st["loss"])
+                                              and st["grad_norm"] > 0):
+                bad.append(f"ar_tp_train: rank {r}'s step {st['launches']} (want {want}), "
+                           f"loss {st['loss']}, grad norm {st['grad_norm']}")
+    res["bad"] = bad
     return res
 
 
@@ -3006,9 +3211,9 @@ def phase_multiview(model, preset) -> dict:
 
 FAST_STEPS = 8
 # of 28: the depth the fast chunk runs at, after all 28 blocks are quantized (the
-# step pattern, the launches and the video do not depend on it; 14 pay for the
-# cp phase's tensor-parallel runs)
-FAST_BLOCKS = 14
+# step pattern, the launches and the video do not depend on it; 14 paid for the
+# cp phase's tensor-parallel runs, 7 for serving_cp2 and ar_tp_train)
+FAST_BLOCKS = 7
 # at 8 steps the guidance interval 1.75..81 covers steps 0-3; the cache
 # (interval 2, 2 warmup and 2 tail steps) runs the net on 0, 1, 2, 4, 6, 7
 FAST_PATTERN = [(True, True)] * 3 + [(True, False), (False, True), (False, False),
@@ -3181,7 +3386,7 @@ def phase_chain() -> dict:
 
 
 SERVING_FRAMES = 241  # two chunks
-SERVING_BLOCKS = 4  # of 28: the served 7B's depth (its width is the 7B's), for the smoke's time
+SERVING_BLOCKS = 1  # of 28 (4 before serving_cp2): the served 7B's depth (its width is the 7B's)
 SERVING_POLL_S = 0.25
 SERVING_TIMEOUT_S = 600  # each wait for a job's state
 
@@ -3218,7 +3423,10 @@ def _serving_path(n: int, h: int, w: int, scale: float) -> dict:
 
 
 def phase_serving() -> dict:
-    """The inference server around the 7B (phase 19 of the docstring)."""
+    """The inference server around the 7B (phase 19 of the docstring). Job
+    A's frames, the noise floor of its frames and the seeded MoGe checkpoint
+    stay for serving_cp2 (``frames_a``, ``noise``, ``moge_dir``: the caller
+    removes the directory)."""
     import threading
 
     from PIL import Image
@@ -3229,7 +3437,6 @@ def phase_serving() -> dict:
     from gen3c_tpu_torch.scripts.time_main_path import seeded_moge_params
     from gen3c_tpu_torch.serving.api_types import InferenceRequest, SeedingRequest
     from gen3c_tpu_torch.serving.encoding import CompressionFormat, compress_images
-    from gen3c_tpu_torch.serving.models import Gen3cPersistentModel
     from gen3c_tpu_torch.serving.serialization import dumps_api_message, loads_api_message
     from gen3c_tpu_torch.serving.server import serve
 
@@ -3249,13 +3456,7 @@ def phase_serving() -> dict:
         os.environ["GEN3C_MOGE_CHECKPOINT"] = ckpt
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        model = Gen3cPersistentModel("gen3c_7b", checkpoint_dir=None, num_steps=MAIN_STEPS,
-                                     depth_source="moge_jax", device="cuda")
-        randomize_gates(model.model.net, torch.Generator(device="cuda").manual_seed(1))
-        for name in list(model.model.net.blocks)[SERVING_BLOCKS:]:  # the full width, cut depth
-            del model.model.net.blocks[name]
-        gc.collect()
-        torch.cuda.empty_cache()
+        model = _served_7b(device="cuda")
         torch.cuda.synchronize()
         ready_s = time.perf_counter() - t0
         h, w, chunk = model.preset.height, model.preset.width, model.model.chunk_size
@@ -3366,8 +3567,11 @@ def phase_serving() -> dict:
         launches = dict(kernels.launch_counts)
         code, body = _http("GET", f"{base}/metadata")
         meta = json.loads(body)
+        frames_a = service.results["A"].images
+        noise = _serving_noise(model, seed, _serving_path(SERVING_FRAMES, h, w, scale), frames_a)
         res = {
             "model": model.preset.name, "steps": MAIN_STEPS, "depth": "moge_jax (ViT-L, seeded)",
+            "blocks": SERVING_BLOCKS, "noise": noise,
             "model_ready_s": ready_s, "seed_request_s": seed_s,
             "seed_depth_shape": list(seeded.depths.shape), "seed_depth_median": scale,
             "job_a": {"frames": SERVING_FRAMES, "state": done["state"], "wall_s": generate_a_s,
@@ -3412,7 +3616,10 @@ def phase_serving() -> dict:
             bad.append(f"launches {launches} (K1 = K2 = {want}, K1vit 48, K5 > 0)")
         if bad:
             raise AssertionError(f"serving: {bad}")
-        return res
+        return {**res, "frames_a": frames_a, "moge_dir": tmp}
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     finally:
         if server is not None:
             server.shutdown()
@@ -3424,11 +3631,286 @@ def phase_serving() -> dict:
         server = service = model = None
         gc.collect()
         torch.cuda.empty_cache()
-        shutil.rmtree(tmp, ignore_errors=True)
         if saved_env is None:
             os.environ.pop("GEN3C_MOGE_CHECKPOINT", None)
         else:
             os.environ["GEN3C_MOGE_CHECKPOINT"] = saved_env
+
+
+def _serving_noise(model, seed, path: dict, frames: np.ndarray) -> dict:
+    """The bf16 noise floor of served frames: job A's request again from a
+    fresh seed (A ran right after seeding), on the same process with its DiT
+    called one sample at a time (``_OneSampleAtATime``, the cp phase's
+    floor), against A's frames."""
+    from gen3c_tpu_torch.serving.api_types import InferenceRequest
+
+    net = model.model.net
+    model.seed_model(seed)
+    model.model.net = _OneSampleAtATime(net)
+    try:
+        again = model.run_inference(InferenceRequest(request_id="noise", **path)).images
+    finally:
+        model.model.net = net
+    return _rel_diff(again.astype(np.float32), frames.astype(np.float32))
+
+
+# serving_cp2: the served 7B (full width, SERVING_BLOCKS blocks, seeded MoGe) over
+# two ranks on the one card, context-parallel (Ulysses), gloo for the DiT and the
+# channel; rank 0 serves HTTP, rank 1 follows
+SERVING_CP2_RANKS = 2
+SERVING_CP2_MEMORY_FRACTION = 0.45
+SERVING_CP2_TIMEOUT_S = 420  # the two ranks, together
+
+
+def _served_7b(**kw):
+    """serving's model: the 7B's seeds, its gates randomized from seed 1,
+    cut to its first SERVING_BLOCKS blocks, MoGe depth (GEN3C_MOGE_CHECKPOINT)."""
+    from gen3c_tpu_torch.serving.models import Gen3cPersistentModel
+
+    model = Gen3cPersistentModel("gen3c_7b", checkpoint_dir=None, num_steps=MAIN_STEPS,
+                                 depth_source="moge_jax", **kw)
+    randomize_gates(model.model.net, torch.Generator(device=model.device).manual_seed(1))
+    for name in list(model.model.net.blocks)[SERVING_BLOCKS:]:  # the full width, cut depth
+        del model.model.net.blocks[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model
+
+
+def _recording_runs(model, runs: list, frames: dict) -> None:
+    """Wrap ``model._run_inference`` (every rank's inference, rank 0's and a
+    follower's alike): each call's chunks, denoise-step seconds, launches,
+    collective traffic and peak GiB appended to ``runs``, its frames to
+    ``frames`` by request id."""
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.pipelines.chunked import GenerationCancelled
+    from gen3c_tpu_torch.parallel import collectives
+
+    run = model._run_inference
+
+    def recorded(req, *args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        collectives.reset_traffic()
+        t0 = time.perf_counter()
+        outcome = "done"
+        try:
+            result = run(req, *args, **kwargs)
+            frames[req.request_id] = result.images
+            return result
+        except GenerationCancelled:
+            outcome = "cancelled"
+            raise
+        finally:
+            torch.cuda.synchronize()
+            tm = model.last_timings
+            runs.append({"request_id": req.request_id, "outcome": outcome,
+                         "s": time.perf_counter() - t0, "chunks": len(tm.get("generate", [])),
+                         "step_s": [[st["seconds"] for st in pl["denoise_steps"]]
+                                    for pl in tm.get("pipeline", [])],
+                         "generate_s": tm.get("generate", []), "update_s": tm.get("update", []),
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                         "launches": {k: v for k, v in kernels.launch_counts.items() if v},
+                         "traffic": {op: dict(c) for op, c in collectives.traffic.items()
+                                     if c["calls"]}})
+
+    model._run_inference = recorded
+
+
+def serving_cp2_worker(rank: int, port: int, out_dir: str) -> int:
+    """One rank of serving_cp2 (torchrun's environment, gloo on cuda:0):
+    the served 7B through Gen3cPersistentModel(num_devices=2, parallel="cp",
+    cp_attn="ulysses"); rank 0 serves it on 127.0.0.1 and drives it over
+    HTTP (seed, job A of SERVING_FRAMES frames fetched as JPEGs, job C
+    cancelled while its first chunk runs), then stops the server, which
+    sends "stop"; rank 1 follows. Each rank's numbers to
+    serving_rank<r>.json, its job A frames to serving_frames<r>.npy."""
+    import threading
+
+    import torch.distributed as dist
+
+    from gen3c_tpu_torch.serving.api_types import InferenceRequest, SeedingRequest
+    from gen3c_tpu_torch.serving.encoding import CompressionFormat, compress_images
+    from gen3c_tpu_torch.serving.serialization import dumps_api_message, loads_api_message
+    from gen3c_tpu_torch.serving.server import serve
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(SERVING_CP2_RANKS),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.cuda.set_per_process_memory_fraction(SERVING_CP2_MEMORY_FRACTION, 0)
+    t0 = time.perf_counter()
+    model = _served_7b(num_devices=SERVING_CP2_RANKS, parallel="cp", cp_attn="ulysses",
+                       device="cuda:0", dist_backend="gloo",
+                       channel_timeout_s=SERVING_CP2_TIMEOUT_S)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "ready_s": time.perf_counter() - t0, "leads": model.leads,
+           "backend": dist.get_backend(model.model.groups.cp.group),
+           "heads_a_rank_after_all_to_all": model.model.net.cfg.num_heads // SERVING_CP2_RANKS,
+           "runs": []}
+    frames = {}
+    _recording_runs(model, out["runs"], frames)
+    h, w, chunk = model.preset.height, model.preset.width, model.model.chunk_size
+    if not model.leads:
+        out["calls"] = model.follow()
+    else:
+        server, service = serve(host="127.0.0.1", port=0, model=model)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def status(rid: str) -> dict:
+            code, body = _http("GET", f"{base}/job-status?request_id={rid}")
+            st = json.loads(body)
+            if code != 200 or st["state"] == "error":
+                raise AssertionError(f"serving_cp2: job {rid}: {code} {st}")
+            return st
+
+        def wait(rid: str, states: tuple) -> dict:
+            t_end = time.perf_counter() + SERVING_TIMEOUT_S
+            while time.perf_counter() < t_end:
+                st = status(rid)
+                if st["state"] in states:
+                    return st
+                time.sleep(SERVING_POLL_S)
+            raise AssertionError(f"serving_cp2: job {rid} never reached {states}: {st}")
+
+        try:
+            image = ((_seed_image(h, w, 5)[0, :, 0].transpose(1, 2, 0) + 1) * 127.5).round()
+            seed = SeedingRequest(request_id="seed", images=image.astype(np.uint8)[None],
+                                  cameras_to_world=np.eye(4, dtype=np.float32)[:3][None],
+                                  focal_lengths=np.full((1, 2), 0.8 * w, np.float32),
+                                  principal_points=np.full((1, 2), 0.5, np.float32))
+            t0 = time.perf_counter()
+            code, body = _http("POST", f"{base}/seed-model", dumps_api_message(seed))
+            out["seed_s"] = time.perf_counter() - t0
+            if code != 200:
+                raise AssertionError(f"serving_cp2: seed-model: {code} {body[:500]}")
+            scale = float(np.median(loads_api_message(body).depths))
+            out["seed_depth_median"] = scale
+
+            def submit(rid: str) -> None:
+                req = InferenceRequest(request_id=rid,
+                                       **_serving_path(SERVING_FRAMES, h, w, scale))
+                code, body = _http("POST", f"{base}/request-inference", dumps_api_message(req))
+                if code != 202:
+                    raise AssertionError(f"serving_cp2: request {rid}: {code} {body[:200]}")
+
+            t0 = time.perf_counter()
+            submit("A")
+            out["job_a"] = {"state": wait("A", ("done", "cancelled"))["state"],
+                            "wall_s": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+            code, body = _http("GET", f"{base}/inference-result?request_id=A&format=jpg")
+            fetched = loads_api_message(body)
+            out["job_a"].update(fetch_s=time.perf_counter() - t0, fetch_code=code,
+                                fetch_bytes=len(body), fetched=len(fetched.images_compressed))
+            last_jpg = compress_images(model.get_latest_rgb()[None].astype(np.float32) / 255.0,
+                                       CompressionFormat.JPG)[0]
+            out["job_a"]["last_frame_jpg_equal"] = fetched.images_compressed[-1] == last_jpg
+            # C's cancel once its first chunk renders: past the first of the
+            # polls every rank makes alike (_SharedEvent), whose round trip
+            # over the channel "running" alone does not wait for
+            t0 = time.perf_counter()
+            previous = model.last_timings
+            submit("C")
+            t_end = time.perf_counter() + SERVING_TIMEOUT_S
+            while not (model.last_timings is not previous and model.last_timings.get("render")):
+                if time.perf_counter() > t_end:
+                    raise AssertionError("serving_cp2: job C never rendered its first chunk")
+                time.sleep(0.05)
+            _http("POST", f"{base}/cancel-inference?request_id=C")
+            st = wait("C", ("cancelled", "done"))
+            out["job_c"] = {"state": st["state"], "frames_done": st["frames_done"],
+                            "cancelled_after_s": time.perf_counter() - t0}
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.shutdown()
+            service.worker.join(timeout=SERVING_TIMEOUT_S)
+            t0 = time.perf_counter()
+            model.shutdown()  # "stop": rank 1's follow returns
+            out["stop_s"] = time.perf_counter() - t0
+    np.save(os.path.join(out_dir, f"serving_frames{rank}.npy"), frames["A"])
+    out["h_w_chunk"] = [h, w, chunk]
+    with open(os.path.join(out_dir, f"serving_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_serving_cp2(served: dict) -> dict:
+    """The served 7B over SERVING_CP2_RANKS ranks on the one card
+    (serving_cp2_worker): rank 0's job A frames held to the one-process
+    serving phase's (same seeds, seed image and path) within
+    CP_NOISE_FACTOR times serving's noise floor, not below CP_TOL; rank 1's
+    to rank 0's the same way; job A done on both ranks in 2 chunks, job C
+    cancelled after exactly one chunk on both, rank 1's follow returned
+    after 3 calls (seed, A, C); every rank's launches (K1cp and K2 one a
+    block a step, K5; K1vit on rank 0 only: it alone runs MoGe) and no
+    K1 / K1ag / K1ring. The ranks share the card and gloo passes through
+    host memory: no time here is a multi-card time."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=OUT_DIR, prefix="serving_cp2_")
+    try:
+        ckpt = os.path.join(served["moge_dir"], "moge.pt")
+        codes, wall_s, tails = _spawn_ranks("--serving-rank", SERVING_CP2_RANKS, out_dir,
+                                            SERVING_CP2_TIMEOUT_S,
+                                            env={"GEN3C_MOGE_CHECKPOINT": ckpt})
+        if any(codes):
+            raise AssertionError(f"serving_cp2: ranks exited {codes} after {wall_s:.0f} s:\n"
+                                 + "\n----\n".join(tails))
+        ranks = [json.load(open(os.path.join(out_dir, f"serving_rank{r}.json")))
+                 for r in range(SERVING_CP2_RANKS)]
+        frames = [np.load(os.path.join(out_dir, f"serving_frames{r}.npy")).astype(np.float32)
+                  for r in range(SERVING_CP2_RANKS)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(served["moge_dir"], ignore_errors=True)
+    ref = served["frames_a"].astype(np.float32)
+    noise = served["noise"]
+    tol = {k: max(CP_TOL[k], CP_NOISE_FACTOR * noise[f"rel_{k}"]) for k in ("max", "mean")}
+    lead, follower = ranks
+    h, w, chunk = lead["h_w_chunk"]
+    res = {"ranks": SERVING_CP2_RANKS, "parallel": "cp", "cp_attn": "ulysses",
+           "backend": lead["backend"], "blocks": SERVING_BLOCKS, "steps": MAIN_STEPS,
+           "wall_s": wall_s, "noise": noise, "tol": tol,
+           "rank0_vs_one_process": _rel_diff(frames[0], ref),
+           "rank1_vs_rank0": _rel_diff(frames[1], frames[0]),
+           "rank1_equals_rank0": bool(np.array_equal(frames[1], frames[0])),
+           "rank": ranks,
+           "note": "both ranks share one card and their collectives go through host memory "
+                   "(gloo): no time here is a multi-card time"}
+    emit("serving_cp2", **res)
+    bad = []
+    for name in ("rank0_vs_one_process", "rank1_vs_rank0"):
+        if _off(res[name], tol):
+            bad.append(f"{name}: {res[name]} off {tol}")
+    if frames[0].shape != (SERVING_FRAMES, h, w, 3):
+        bad.append(f"job A's frames {frames[0].shape}")
+    if lead["job_a"]["state"] != "done" or lead["job_a"]["fetched"] != SERVING_FRAMES \
+            or not lead["job_a"]["last_frame_jpg_equal"]:
+        bad.append(f"job A {lead['job_a']}")
+    if lead["job_c"]["state"] != "cancelled" or lead["job_c"]["frames_done"] != chunk:
+        bad.append(f"job C {lead['job_c']}")
+    if follower.get("calls") != 3:
+        bad.append(f"rank 1 followed {follower.get('calls')} calls, not 3 (seed, A, C)")
+    for r, rk in enumerate(ranks):
+        runs = {run["request_id"]: run for run in rk["runs"]}
+        a, c = runs.get("A"), runs.get("C")
+        if a is None or c is None or a["outcome"] != "done" or a["chunks"] != 2 \
+                or c["outcome"] != "cancelled" or c["chunks"] != 1:
+            bad.append(f"rank {r}'s runs {[(x['request_id'], x['outcome'], x['chunks']) for x in rk['runs']]}")
+            continue
+        la = a["launches"]
+        want = 2 * SERVING_BLOCKS * MAIN_STEPS
+        if la.get("K1cp") != want or la.get("K2") != want or not la.get("K5") \
+                or any(la.get(k) for k in ("K1", "K1ag", "K1ring")) \
+                or bool(la.get("K1vit")) != (r == 0):
+            bad.append(f"rank {r}'s job A launched {la} (K1cp = K2 = {want}, K5, K1vit on "
+                       f"rank 0 only)")
+    if bad:
+        raise AssertionError(f"serving_cp2: {bad}")
+    return res
 
 
 def _cut_rel_err(a: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -3816,7 +4298,7 @@ def _train_batch(cfg, T, H, W, ctx_len, seed):
 
 
 def phase_train() -> dict:
-    """train_step at GEN3C-7B width, 12 blocks, one 121-frame clip."""
+    """train_step at GEN3C-7B width, TRAIN_BLOCKS_7B blocks, one 121-frame clip."""
     import dataclasses
 
     from gen3c_tpu_torch import kernels
@@ -3899,12 +4381,14 @@ def _synthetic_clip(frames: int, h: int, w: int, seed: int):
 
 
 def phase_lora_band_train() -> dict:
-    """LoRA fine-tuning of the full 28-block GEN3C-7B with the fast preset's
-    band: a batch from build_gen3c_train_batch on a 121-frame 704x1280 RGBD
+    """LoRA fine-tuning of GEN3C-7B at full width on LORA_BLOCKS of its 28
+    blocks with the fast preset's band: a batch from build_gen3c_train_batch on a 121-frame 704x1280 RGBD
     clip (7B VAE, K5), then lora_train_step (rank 16 on DEFAULT_TARGETS,
     remat, make_optimizer with warmup 1) over the frozen base."""
     from gen3c_tpu_torch import kernels
-    from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
+    import dataclasses
+
+    from gen3c_tpu_torch.pipelines.factory import GEN3C_7B_PRESET, build_gen3c_model
     from gen3c_tpu_torch.training.datasets import build_gen3c_train_batch
     from gen3c_tpu_torch.training.lora import init_lora_params, lora_leaves, lora_train_step
     from gen3c_tpu_torch.training.train_step import make_optimizer
@@ -3913,8 +4397,10 @@ def phase_lora_band_train() -> dict:
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    model, preset = build_gen3c_model("gen3c_7b", device="cuda", seed=0,
-                                      attn_temporal_window=BAND_7B[1])
+    full = GEN3C_7B_PRESET
+    model, preset = build_gen3c_model(
+        dataclasses.replace(full, dit=dataclasses.replace(full.dit, num_blocks=LORA_BLOCKS)),
+        device="cuda", seed=0, attn_temporal_window=BAND_7B[1])
     net, cfg = model.net, preset.dit
     randomize_gates(net, torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
@@ -3979,7 +4465,7 @@ def phase_lora_band_train() -> dict:
         raise AssertionError(f"lora_band_train: launches per step {got}, expected {want}: {res}")
     if not (res["base_unchanged"] and res["adapters_moved"] and res["batch_finite"]
             and all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps)
-            and res["batch_launches"]["K5"] > 0 and n == 28):
+            and res["batch_launches"]["K5"] > 0 and n == LORA_BLOCKS):
         raise AssertionError(f"lora_band_train: {res}")
     del model, net, batch, lora, opt_state, saved
     torch.cuda.empty_cache()
@@ -4522,8 +5008,9 @@ MV_TRAIN_STEPS = 1
 # the multiview train step's depth: the train phase's 12 blocks peak at 66.49
 # GiB at 56,320 tokens on an H100, 35.1 GiB of it the state; its 31.4 GiB of
 # activations scaled to 76,320 tokens (x 1.36) put 12 blocks at ~78 GiB, past
-# the card. 10 blocks (2 x 2.9 GiB less state) peak at 71.2 GiB
-MV_TRAIN_BLOCKS = 10
+# the card. 10 blocks (2 x 2.9 GiB less state) peak at 71.2 GiB; 5 since serving_cp2,
+# for the smoke's time
+MV_TRAIN_BLOCKS = 5
 
 
 def _randomize_mv(net, gen) -> None:
@@ -5939,6 +6426,14 @@ K8BWD_SHORT_CASES = (
 )
 
 
+# K8 with lse and K8bwd on a tp 2 rank's heads of the 4B's training shape (16 / 4:
+# ar_tp_train's; cuda.gqa_bwd_plan picks its dK/dV grid by key length and heads)
+K8BWD_TP_CASES = (
+    ("K8bwd 4B tp 2 rank causal bf16", 1, AR_TRAIN_TOKENS, AR_TRAIN_TOKENS, 16, 4, 128,
+     "bfloat16", 0, None, K8BWD_PLAIN_GROUP),
+)
+
+
 def k8bwd_cases(gen, cases=K8BWD_CASES) -> dict:
     """K8bwd at each of ``cases`` (K8BWD_CASES by default)."""
     return {c["name"]: c for c in (
@@ -6080,6 +6575,7 @@ def phase_ar_train() -> dict:
     t0 = time.perf_counter()
     kern = k8bwd_cases(gen)
     kern.update(k8bwd_cases(gen, K8BWD_SHORT_CASES))
+    kern.update(k8bwd_cases(gen, K8BWD_TP_CASES))
     cases_s = time.perf_counter() - t0
     preset = ar.AR_PRESETS["ar_4b"]
     torch.cuda.reset_peak_memory_stats()
@@ -6293,11 +6789,14 @@ def main(argv=None) -> int:
     p.add_argument("--cp-port", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--cp-out", type=str, default="", help=argparse.SUPPRESS)
     p.add_argument("--cp-train-rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--serving-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.cp_rank is not None:  # one rank of the cp phase
         return cp_worker(args.cp_rank, args.cp_port, args.cp_out)
     if args.cp_train_rank is not None:  # one rank of the cp_train phase
         return cp_train_worker(args.cp_train_rank, args.cp_port, args.cp_out)
+    if args.serving_rank is not None:  # one rank of the serving_cp2 phase
+        return serving_cp2_worker(args.serving_rank, args.cp_port, args.cp_out)
     t_start = time.perf_counter()
     info = phase_device()
     phase_build()
@@ -6318,7 +6817,9 @@ def main(argv=None) -> int:
     cp_res = phase_cp(cp_refs)
     cp_runs = cp_res["runs"]
     cp_train = phase_cp_train()
-    phase_serving()
+    served = phase_serving()
+    serving_cp2 = phase_serving_cp2(served)
+    del served
     t2w_launches = phase_text2world()["launches"]
     interp_launches = phase_interpolator()["launches"]
     phase_tokenizer()
@@ -6458,6 +6959,8 @@ def main(argv=None) -> int:
                      **{k: kern["K1vit"][k] for k in (
                          "bound_share", "fp32_cuda_core_bound_ms", "ms_one_call",
                          "library_ms_one_call")}))
+    served_a = next(r for r in serving_cp2["rank"][0]["runs"] if r["request_id"] == "A")
+    ar_tp_steps = cp_train["ar_tp_train"]["ranks"][0]["steps"]
     # the cp phase's kernels, at its shard shapes (cp = 2), launches of rank 0's runs
     cp_launch = {name: run["rank"][0]["launches"] for name, run in cp_runs.items()}
     k1cp = next(r for r in kern["K1cp"] if r["cp"] == CP_RANKS and r["band"] is None)
@@ -6468,7 +6971,9 @@ def main(argv=None) -> int:
             training={"forward_with_lse_ms": cp_train["k4"]["fwd_lse_ms"],
                       "shape": cp_train["k4"]["q"],
                       "launches": sum(st["launches"]["K1cp"] for st in
-                                      cp_train["runs"]["cp2"]["ranks"][0]["steps"])}),
+                                      cp_train["runs"]["cp2"]["ranks"][0]["steps"])},
+            phase_launches={"serving_cp2 job A (rank 0, 2 chunks)":
+                            served_a["launches"]["K1cp"]}),
         row("K1ag all-gather self-attention (cp=2)", "attention_wgmma.cu",
             "gen3c_tpu/models/dit.py:766", cp_launch["allgather"]["K1ag"], kern["K1ag"]),
         row("K1ring ring-attention step (cp=2)", "attention_wgmma.cu",
@@ -6494,7 +6999,10 @@ def main(argv=None) -> int:
                                         for g, n in guard_res["launches"]["K8"].items()},
                                      "upsampler (VLM + text)": ups_res["launches"]["K8"],
                                      "ar_train (forward with lse, 3 steps, remat)":
-                                     ar_train_res["launches"]["K8"]},
+                                     ar_train_res["launches"]["K8"],
+                                     "cp_train ar_tp_train (rank 0, tp 2: 16 / 4 heads, "
+                                     "2 steps, remat)":
+                                     sum(st["launches"]["K8"] for st in ar_tp_steps)},
                      cases=[{"name": n, **{k: c[k] for k in (
                          "q", "cache", "visible_keys", "ms", "host_and_device_ms", "host_us",
                          "kernels_a_call", "route", "plain_ms", "library_ms",
@@ -6511,6 +7019,12 @@ def main(argv=None) -> int:
                      max_abs_err=max(c["max_abs_err"] for c in k8bwd.values()),
                      library_call=k8bwd["K8bwd 4B causal bf16"]["library_call"],
                      fp32_source=csrc + "gqa_attention_bwd.cu",
+                     phase_launches={"cp_train ar_tp_train (rank 0, tp 2: 16 / 4 heads, "
+                                     "2 steps)": sum(st["launches"]["K8bwd"]
+                                                     for st in ar_tp_steps)},
+                     tp_shape={k: k8bwd["K8bwd 4B tp 2 rank causal bf16"].get(k) for k in (
+                         "q", "kv", "ms", "forward_lse_ms", "plain_ms", "library_ms",
+                         "bound_ms", "bound_by", "bound_share", "max_abs_err", "splits")},
                      share_of_ar_train_step={k: trace[k] for k in (
                          "step_s", "k8bwd_s", "k8bwd_share_of_step", "k8_s", "k8_share_of_step")},
                      cases=[{k: c.get(k) for k in (

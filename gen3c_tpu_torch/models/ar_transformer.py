@@ -32,7 +32,8 @@ from the same generator. The KV cache holds the rank's Hkv/tp heads.
 
 Training (gen3c_tpu/training/ar_train.py's forward): ``train_hidden``, the
 cache-free forward with gradients and each layer recomputed in the
-backward, through the same layer body (``_block``) as ``forward``.
+backward, through the same layer body (``_block``) as ``forward``, whole or
+on a rank's tp shards.
 
 Sampling: ``jax.random.categorical`` is argmax(logits + Gumbel noise). The
 noise comes from a ``GumbelSource``, called with the step (0 for the
@@ -471,12 +472,13 @@ def train_hidden(model: "ARTransformer", tokens: torch.Tensor,
     the forward's logits. Each layer is recomputed in the backward (remat:
     the 4B's 16 layers keep only their inputs); the self-attention is K8
     with K8bwd as its backward (``kernels.gqa_attention`` under autograd).
-    A tensor-parallel model is refused: AR training under tp is not ported
-    (gen3c_tpu has no entry point for it either)."""
+    A model ``shard_ar_params`` cut runs its rank's shards as ``forward``
+    does (H/tp and Hkv/tp heads for K8 and K8bwd, the vocab-parallel
+    lookup, the row outputs summed over tp), differentiable through
+    ``collectives.copy_to_tp`` / ``reduce_from_tp``: what GSPMD makes of
+    gen3c_tpu's jitted step on a (dp, tp) mesh. The stream it returns is
+    whole on every tp rank."""
     cfg = model.cfg
-    if model.tp is not None:
-        raise NotImplementedError("AR training under tensor parallelism is not ported "
-                                  "(ROADMAP Queue 1, after item 15d)")
     h = model.embed(tokens)
     L = h.shape[1]
     if L > cfg.max_seq_len:
@@ -488,7 +490,7 @@ def train_hidden(model: "ARTransformer", tokens: torch.Tensor,
 
     for layer in model.layers:
         def run(h, layer=layer):
-            return _block(cfg, layer, h, cos, sin, attend, context)
+            return _block(cfg, layer, h, cos, sin, attend, context, model.tp)
 
         h = checkpoint(run, h, use_reentrant=False)
     return _rms(h, model.norm.weight, cfg.norm_eps)

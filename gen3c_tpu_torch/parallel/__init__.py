@@ -5,7 +5,7 @@ process per rank, as the reference's ``torchrun --nproc_per_node N``.
 FSDP (``sharding.shard_fsdp``), the AR transformer under tensor
 parallelism (``sharding.shard_ar_params``), GPipe pipeline parallelism
 (``pp``) and sharded cache renders (``cache_sharding``) are ported too;
-serving over several cards (ROADMAP item 15d) is not."""
+serving over several cards is ``serving.models.Gen3cPersistentModel``'s."""
 
 from gen3c_tpu_torch.parallel.mesh import (
     Axis,

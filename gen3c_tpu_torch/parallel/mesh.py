@@ -28,9 +28,6 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-ITEM_15D = "ROADMAP item 15d"  # serving over several cards
-
-
 @dataclasses.dataclass(frozen=True)
 class Axis:
     """One mesh axis as this rank sees it: its process group (None for a

@@ -39,7 +39,9 @@ cross-attention's wq/wk/wv column-parallel (dim 0), wo/w2 and its wo
 row-parallel (dim 1), the token table vocab-parallel (dim 0) and the LM
 head column-parallel (dim 0); a quantized entry's codes shard like the
 weight, a column entry's per-output-channel scale follows its rows and a
-row entry's stays whole (``ar_shard_dims``, ``shard_ar_params``).
+row entry's stays whole (``ar_shard_dims``, ``shard_ar_params``). Under
+FSDP (``ar_param_pspecs(fsdp_axis="dp")``) those linears' other dimension
+is split over dp (``ar_fsdp_dims``), through ``shard_fsdp`` as the DiT's.
 
 Here the weights are sliced in place (``shard_params``, ``shard_fsdp``,
 ``shard_ar_params``) and the modules run their Megatron collectives
@@ -220,8 +222,9 @@ def named_leaves(module: nn.Module) -> Dict[str, nn.Parameter]:
 @torch.no_grad()
 def shard_fsdp(module: nn.Module, groups: Groups) -> Dict[str, int]:
     """FSDP (gen3c_tpu's ``shard_params(..., fsdp_axis="dp")``): cut each
-    parameter ``dit_shard_dims(fsdp_axis="dp")`` gives a dp dimension to
-    this rank's 1/dp along it, in place, and gather it over dp wherever a
+    parameter ``dit_shard_dims(fsdp_axis="dp")`` gives a dp dimension (of
+    an ``ARTransformer``: ``ar_fsdp_dims``) to this rank's 1/dp along it,
+    in place, and gather it over dp wherever a
     module reads it (``_GatherDp``). Call it after ``shard_params`` (the tp
     shards are cut further). Returns ``fsdp_leaves(module)``: nothing at
     dp 1 (a no-op, as JAX's dp-1 mesh) or on a module cut already."""
@@ -230,8 +233,11 @@ def shard_fsdp(module: nn.Module, groups: Groups) -> Dict[str, int]:
     if dp.size == 1 or done:
         return done
     params = dict(module.named_parameters())
-    dims = {k: d for k, (_, d) in dit_shard_dims(module, "dp").items()
-            if d is not None and k in params}
+    if hasattr(module, "tok_embeddings"):  # the AR transformer
+        dims = ar_fsdp_dims(module)
+    else:
+        dims = {k: d for k, (_, d) in dit_shard_dims(module, "dp").items()
+                if d is not None and k in params}
     from torch.nn.utils import parametrize
 
     for name, d in dims.items():
@@ -258,6 +264,43 @@ def _ar_dim(key: str) -> Optional[int]:
 _AR_COLUMN = ("attention.wq", "attention.wk", "attention.wv", "feed_forward.w1",
               "feed_forward.w3")  # the cross-attention's wq/wk/wv end the same way
 _AR_ROW = ("attention.wo", "feed_forward.w2")
+
+
+def ar_sharded_leaves(model: nn.Module) -> Dict[str, int]:
+    """The parameters of an ``ARTransformer`` that ``shard_ar_params`` cut,
+    by (one-device) name: their tp dimension (empty for a whole model)."""
+    if getattr(model, "tp", None) is None:
+        return {}
+    dims = {n: _ar_dim(n) for n in named_leaves(model)}
+    return {n: d for n, d in dims.items() if d is not None}
+
+
+def ar_head_norm_leaves(model: nn.Module) -> set:
+    """The self-attention's q and k RMSNorm scales of a tp-cut
+    ``ARTransformer``: replicated, applied to this rank's heads only, so
+    each tp rank's gradient of them is a part."""
+    if getattr(model, "tp", None) is None or not model.cfg.use_qk_normalization:
+        return set()
+    return {f"layers.{i}.attention.{norm}.weight" for i in range(len(model.layers))
+            for norm in ("q_norm", "k_norm")}
+
+
+def ar_fsdp_dims(model: nn.Module) -> Dict[str, int]:
+    """The dp dimension of each FSDP leaf of an ``ARTransformer``
+    (``ar_param_pspecs(fsdp_axis="dp")``): the column linears' input
+    dimension (P(dp, tp) on JAX's (in, out) weights: dim 1 here), the row
+    linears' output dimension (P(tp, dp): dim 0); the token table, the LM
+    head and the norms stay whole over dp."""
+    out = {}
+    for n in named_leaves(model):
+        module, _, leaf = n.rpartition(".")
+        if leaf != "weight":
+            continue
+        if module.endswith(_AR_COLUMN):
+            out[n] = 1
+        elif module.endswith(_AR_ROW):
+            out[n] = 0
+    return out
 
 
 def ar_shard_dims(model: nn.Module) -> Dict[str, Optional[int]]:

@@ -6,8 +6,8 @@ directory) -> ``Cache4D`` (one cache frame per video frame, never updated:
 the depth of every frame is known) -> generation along a preset camera
 trajectory, chunked 121*N-1 frames with one frame of overlap, target
 frame t rendered from video frame t. The flag names are the JAX CLI's,
-plus ``--device``; a flag whose feature is not ported raises
-NotImplementedError.
+plus ``--device``; every --parallel strategy runs, one process per rank
+under ``torchrun``.
 
 Usage:
   python -m gen3c_tpu_torch.pipelines.gen3c_dynamic \

@@ -5,8 +5,8 @@ Port of gen3c_tpu/pipelines/gen3c_multiview.py: N posed RGBD key frames
 (each chunk keeps the ``--frame_buffer_max`` buffers whose renders cover
 the most of its targets) -> generation along the stored trajectory
 (w2cs_all / Ks_all), chunked with one frame of overlap. The flag names are
-the JAX CLI's, plus ``--device``; a flag whose feature is not ported
-raises NotImplementedError.
+the JAX CLI's, plus ``--device``; every --parallel strategy runs, one
+process per rank under ``torchrun``.
 
 Usage:
   python -m gen3c_tpu_torch.pipelines.gen3c_multiview --npz_path data.npz \

@@ -3,9 +3,9 @@
 Port of gen3c_tpu/pipelines/gen3c_single_image.py: image -> depth -> 3D
 cache -> preset trajectory -> chunked autoregressive generation (121*N-1
 frames, one frame of overlap, cache updated from the re-estimated depth of
-each chunk's last frame) -> video file. The flag names are the JAX CLI's;
-the tensor-parallel --parallel strategies, which are not ported, raise
-NotImplementedError.
+each chunk's last frame) -> video file. The flag names are the JAX CLI's,
+plus ``--device``; every --parallel strategy runs, one process per rank
+under ``torchrun``.
 
 Usage:
   python -m gen3c_tpu_torch.pipelines.gen3c_single_image \

@@ -13,11 +13,27 @@ gen3c_tpu/serving/models.py).
     over each request's camera path, and renders instant previews of the
     seeded cache (kernel K5, or the host rasterizer of
     ``native/point_raster`` with GEN3C_PREVIEW_NATIVE=1).
+
+Over several cards (``num_devices`` > 1, one process per rank as
+``torchrun`` starts them; gen3c_tpu serves them from one SPMD process)
+rank 0 leads: it serves the requests, and each call of ``seed_model``,
+``run_inference`` and ``clear_cache`` first sends the method's name and
+its (numpy) request to every rank over a gloo group of its own
+(``_Channel``), whose other ranks make the same call in ``follow()``
+until rank 0 sends "stop" (``shutdown``). The ranks then run the same
+steps and meet in the denoiser's collectives. Rank 0 estimates every
+depth and sends it (the seed's and, between chunks, the last frame's),
+so that every rank's cache holds the same points; a request's cancel
+flag is rank 0's, read by every rank at the same polls
+(``_SharedEvent``). Previews, point clouds, metadata, progress and
+depths of results stay on rank 0: they run no collective.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
+import threading
 import time
 from typing import Optional
 
@@ -32,6 +48,8 @@ from gen3c_tpu_torch.serving.api_types import (
     SeedingResult,
 )
 from gen3c_tpu_torch.utils import log
+
+CHANNEL_TIMEOUT_S = 1800.0  # each wait on the serving channel (gloo's default)
 
 
 def _resize_images_bhwc(images: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -88,6 +106,10 @@ class InferenceModel:
         """(points (N, 3) float32 in world space, colors (N, 3) uint8) of
         the seeded 3D cache: the web viewer's preview geometry."""
         raise NotImplementedError
+
+    def shutdown(self) -> None:
+        """Release what the model holds beyond its process (the other ranks
+        of a model over several cards)."""
 
 
 class DebugInferenceModel(InferenceModel):
@@ -147,12 +169,16 @@ class Gen3cPersistentModel(InferenceModel):
     """GEN3C built once on ``device`` and serving many seeding and
     inference requests.
 
-    ``num_devices`` > 1 raises NotImplementedError: the port's context
-    parallelism runs one process per rank, and a server process driving
-    several cards is not ported (ROADMAP item 15d). ``offload_dit`` is
-    accepted and logs that the DiT stays on the device, as the CLIs'
-    offload flags do. ``quantize`` ("int8", "w8a8") and
-    ``attn_temporal_window`` build the DiT as the CLIs do.
+    ``num_devices`` > 1: this process is one rank of a job of that many
+    (``torchrun``; ``build_gen3c_model`` joins it with ``dist_backend`` and
+    lays the DiT out by ``parallel`` and ``cp_attn``, on cuda:$LOCAL_RANK
+    for a bare "cuda"). Rank 0 serves; every other rank calls
+    ``follow()`` (see the module docstring); ``channel_timeout_s`` bounds
+    each wait on the channel, so that a rank that fails alone fails its
+    peers instead of hanging them. ``offload_dit`` is accepted and logs
+    that the DiT stays on the device, as the CLIs' offload flags do.
+    ``quantize`` ("int8", "w8a8") and ``attn_temporal_window`` build the
+    DiT as the CLIs do.
     """
 
     def __init__(
@@ -174,23 +200,21 @@ class Gen3cPersistentModel(InferenceModel):
         guidance_interval: Optional[tuple] = None,
         cfg_rescale: float = 0.0,
         device="cuda",
+        dist_backend: Optional[str] = None,
+        channel_timeout_s: float = CHANNEL_TIMEOUT_S,
     ):
-        from gen3c_tpu_torch.parallel.mesh import ITEM_15D
         from gen3c_tpu_torch.pipelines.depth import make_depth_estimator
         from gen3c_tpu_torch.pipelines.factory import build_gen3c_model
         from gen3c_tpu_torch.pipelines.gen3c_pipeline import Gen3cPipeline
 
-        if num_devices > 1:
-            raise NotImplementedError(
-                f"num_devices={num_devices}: a server process over several devices is not "
-                f"ported to gen3c_tpu_torch yet ({ITEM_15D})")
         if offload_dit:
             log.info("offload_dit: ignored, the DiT stays on the device (offload is not ported)")
         t0 = time.perf_counter()
         self.model, self.preset = build_gen3c_model(
             model_preset, device=device, seed=seed, checkpoint_dir=checkpoint_dir,
-            quantize=quantize, attn_temporal_window=attn_temporal_window, parallel=parallel,
-            cp_attn=cp_attn)
+            quantize=quantize, attn_temporal_window=attn_temporal_window,
+            num_devices=num_devices, parallel=parallel, cp_attn=cp_attn,
+            dist_backend=dist_backend)
         self.device = self.model.device
         self.quantize = quantize
         self.pipeline = Gen3cPipeline(
@@ -199,7 +223,11 @@ class Gen3cPersistentModel(InferenceModel):
             guidance_interval=(tuple(float(v) for v in guidance_interval)
                                if guidance_interval else None),
             cfg_rescale=float(cfg_rescale), seed=seed)
+        self.channel = _Channel(channel_timeout_s) if num_devices > 1 else None
         self.depth_estimator = make_depth_estimator(depth_source, device=str(self.device))
+        # the depths every rank's cache takes: rank 0's
+        self._cache_depth = (self.depth_estimator if self.channel is None
+                             else _LeaderDepth(self.depth_estimator, self.channel))
         log.info(f"serving model ready in {time.perf_counter() - t0:.1f}s "
                  "(build + pipeline + depth)")
         self.cache = None
@@ -210,6 +238,53 @@ class Gen3cPersistentModel(InferenceModel):
         # run_chunked_generation's per-chunk seconds, launches and peaks of
         # the last request, a cancelled one included
         self.last_timings: dict = {}
+
+    @property
+    def leads(self) -> bool:
+        """True on the rank that serves (rank 0, or the only process)."""
+        return self.channel is None or self.channel.rank == 0
+
+    def _call(self, name: str, *args, **local):
+        """Rank 0's call of ``name`` on ``args``: sent to every rank first,
+        then made here with ``local`` too (rank 0's own hooks), the channel
+        held throughout (the server's handler threads and its worker call
+        in)."""
+        if self.channel is None:
+            return getattr(self, name)(*args, **local)
+        if not self.leads:
+            raise RuntimeError(f"rank {self.channel.rank} follows rank 0: call follow()")
+        with self.channel.lock:
+            self.channel.send((name, args))
+            return getattr(self, name)(*args, **local)
+
+    def follow(self) -> int:
+        """A rank other than 0: make rank 0's calls as they come, until it
+        sends "stop"; returns the calls made. A call that raises here raises
+        on rank 0 too (the ranks run the same steps): it is logged and the
+        next one awaited."""
+        if self.leads:
+            raise RuntimeError("rank 0 leads: it serves, it does not follow")
+        calls = 0
+        while True:
+            msg = self.channel.recv()
+            if msg == "stop":
+                return calls
+            if msg == "ping":
+                continue
+            name, args = msg
+            try:
+                getattr(self, name)(*args)
+            except GenerationCancelled:
+                log.info(f"rank {self.channel.rank}: inference cancelled")
+            except Exception as e:  # noqa: BLE001 - rank 0 raised it to its client
+                log.error(f"rank {self.channel.rank}: {name} failed: {e}")
+            calls += 1
+
+    def shutdown(self) -> None:
+        """Rank 0: send "stop", after which every other rank's ``follow``
+        returns (once the running call ends)."""
+        if self.channel is not None and self.leads:
+            self.channel.stop()
 
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
@@ -222,6 +297,9 @@ class Gen3cPersistentModel(InferenceModel):
                 self._tensor(req.intrinsics_matrix(for_resolutions=target_res))[None])
 
     def seed_model(self, req: SeedingRequest) -> SeedingResult:
+        return self._call("_seed_model", req)
+
+    def _seed_model(self, req: SeedingRequest) -> SeedingResult:
         from gen3c_tpu_torch.cache import Cache3DBuffer, Cache4D
 
         h, w = self.preset.height, self.preset.width
@@ -247,7 +325,7 @@ class Gen3cPersistentModel(InferenceModel):
                 masks_in = _resize_depths_bhw(masks_in, h, w) > 0.5
             masks_in = masks_in.astype(np.float32)
         if depths_in is None:
-            depths = np.stack([self.depth_estimator(images[i])[0] for i in range(n)])
+            depths = np.stack([self._cache_depth(images[i])[0] for i in range(n)])
         else:
             depths = depths_in
 
@@ -269,10 +347,17 @@ class Gen3cPersistentModel(InferenceModel):
 
     def run_inference(self, req: InferenceRequest, on_chunk=None,
                       cancel_event=None) -> InferenceResult:
+        assert self.cache is not None, "seed the model first"
+        return self._call("_run_inference", req, on_chunk=on_chunk, cancel_event=cancel_event)
+
+    def _run_inference(self, req: InferenceRequest, on_chunk=None,
+                       cancel_event=None) -> InferenceResult:
         from gen3c_tpu_torch.cache import Cache3DBuffer, Cache4D
         from gen3c_tpu_torch.pipelines.chunked import run_chunked_generation
 
         assert self.cache is not None, "seed the model first"
+        if self.channel is not None:  # rank 0's flag (a follower has none), read alike
+            cancel_event = _SharedEvent(self.channel, cancel_event)
         t0 = time.perf_counter()
         chunk = self.model.chunk_size
         # pad the camera path so that (n - 1) % (chunk - 1) == 0; the result
@@ -283,13 +368,13 @@ class Gen3cPersistentModel(InferenceModel):
         self.last_timings = {}
         video, _ = run_chunked_generation(
             self.pipeline, self.cache, w2cs, ks, self._seed_frame, prompt=req.prompt or "",
-            update_cache_with_depth=(self.depth_estimator
+            update_cache_with_depth=(self._cache_depth
                                      if isinstance(self.cache, Cache3DBuffer) else None),
             use_start_frame_idx=isinstance(self.cache, Cache4D),
             timings=self.last_timings, on_chunk=on_chunk, cancel_event=cancel_event)
         video = video[:n_padded]
         depths_out = None
-        if req.return_depths:
+        if req.return_depths and self.leads:  # rank 0's own: it sends nothing
             depths_out = np.stack([self.depth_estimator(f / 255.0)[0] for f in video])
         result = InferenceResult(
             request_id=req.request_id,
@@ -381,6 +466,9 @@ class Gen3cPersistentModel(InferenceModel):
         return _subsample(points, colors, max_points)
 
     def clear_cache(self) -> None:
+        self._call("_clear_cache")
+
+    def _clear_cache(self) -> None:
         self.cache = None
         self._native_pc = None
         self.seeding_request = None
@@ -410,6 +498,86 @@ class Gen3cPersistentModel(InferenceModel):
                 "solver": self.pipeline.solver,
             },
         }
+
+
+class _Channel:
+    """Rank 0's calls to the other ranks: ``broadcast_object_list`` of a
+    picklable message over a gloo group of its own (whatever the DiT's
+    backend: NCCL refuses two ranks on one card, and the messages are host
+    objects), every wait bounded by ``timeout_s``. ``lock`` serialises rank
+    0's use of it; while the server idles, a thread of rank 0 sends "ping"
+    every timeout_s / 4, so that an idle follower does not time out."""
+
+    def __init__(self, timeout_s: float):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.rank = dist.get_rank()
+        self.group = dist.new_group(list(range(dist.get_world_size())), backend="gloo",
+                                    timeout=datetime.timedelta(seconds=timeout_s))
+        self.lock = threading.RLock()
+        self._stopped = threading.Event()
+        if self.rank == 0:
+            threading.Thread(target=self._ping, args=(timeout_s / 4,), daemon=True,
+                             name="gen3c-serving-ping").start()
+
+    def _ping(self, every: float) -> None:
+        while not self._stopped.wait(every):
+            if self.lock.acquire(blocking=False):  # a running call keeps the ranks busy
+                try:
+                    if not self._stopped.is_set():
+                        self.send("ping")
+                finally:
+                    self.lock.release()
+
+    def send(self, msg) -> None:
+        self.dist.broadcast_object_list([msg], src=0, group=self.group)
+
+    def recv(self):
+        box = [None]
+        self.dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def stop(self) -> None:
+        with self.lock:
+            if not self._stopped.is_set():
+                self._stopped.set()
+                self.send("stop")
+
+
+class _SharedEvent:
+    """A cancel event every rank polls alike: ``is_set`` is rank 0's
+    ``event`` (None: never set), sent over the channel at each poll, so that
+    every rank stops at the same chunk and none waits in a collective the
+    others left. ``run_chunked_generation`` polls at the same points on
+    every rank."""
+
+    def __init__(self, channel: _Channel, event):
+        self.channel, self.event = channel, event
+
+    def is_set(self) -> bool:
+        if self.channel.rank == 0:
+            flag = bool(self.event is not None and self.event.is_set())
+            self.channel.send(flag)
+            return flag
+        return bool(self.channel.recv())
+
+
+class _LeaderDepth:
+    """The depth estimator of a rank of several: rank 0 estimates and sends
+    the depth map, the other ranks take it (the same points in every
+    rank's cache, whatever the card's last bits). Returns (depth, K, None),
+    K None on a follower."""
+
+    def __init__(self, estimator, channel: _Channel):
+        self.estimator, self.channel = estimator, channel
+
+    def __call__(self, image: np.ndarray):
+        if self.channel.rank == 0:
+            depth, k, _ = self.estimator(image)
+            self.channel.send(np.asarray(depth, np.float32))
+            return depth, k, None
+        return self.channel.recv(), None, None
 
 
 def _subsample(points: np.ndarray, colors: np.ndarray, max_points: int):

@@ -24,6 +24,12 @@ Inference requests run on one worker thread, since the model's device is a
 serial resource; results land in a bounded LRU cache.
 
     python -m gen3c_tpu_torch.serving.server [--host H] [--port P] [--device cuda]
+
+Over several cards, one process per rank: rank 0 serves, the others follow
+its calls (``serving.models.Gen3cPersistentModel``):
+
+    GEN3C_NUM_DEVICES=2 GEN3C_PARALLEL=cp GEN3C_CP_ATTN=ulysses \
+        torchrun --nproc_per_node 2 -m gen3c_tpu_torch.serving.server
 """
 
 from __future__ import annotations
@@ -296,6 +302,9 @@ def build_model_from_env(device: str = "cuda"):
             if os.environ.get("GEN3C_OFFLOAD_DIT", "").strip() else None
         ),
         device=device,
+        # over several cards: the DiT's collectives' backend (default NCCL on
+        # CUDA; gloo for ranks that share a card)
+        dist_backend=os.environ.get("GEN3C_DIST_BACKEND") or None,
     )
 
 
@@ -623,6 +632,10 @@ def serve(host: Optional[str] = None, port: Optional[int] = None, model=None,
 
 
 def main():
+    """Serve the model the environment describes. Over several cards
+    (GEN3C_NUM_DEVICES=N under ``torchrun --nproc_per_node N``) every rank
+    builds it; rank 0 serves and the others follow rank 0's calls until
+    the server stops."""
     import argparse
 
     p = argparse.ArgumentParser(description="GEN3C inference server (PyTorch/CUDA)")
@@ -632,7 +645,11 @@ def main():
                    help="bind port (default: GEN3C_API_PORT or 8000)")
     p.add_argument("--device", default="cuda", help="torch device of the model")
     args = p.parse_args()
-    server, service = serve(host=args.host, port=args.port, device=args.device)
+    model = build_model_from_env(args.device)
+    if not getattr(model, "leads", True):
+        model.follow()
+        return
+    server, service = serve(host=args.host, port=args.port, model=model)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -640,6 +657,7 @@ def main():
     finally:
         service.shutdown()
         server.server_close()
+        model.shutdown()
 
 
 if __name__ == "__main__":

@@ -528,8 +528,8 @@ def shard_step_inputs(batch: dict, draws: StepDraws, groups: Groups, cfg: DiTCon
     if B % dp.size:
         raise ValueError(f"the batch of {B} does not split over dp={dp.size}")
     if isinstance(cfg, MultiviewDiTConfig) and cp.size > 1:
-        raise NotImplementedError(f"context parallelism for the multiview net is not ported "
-                                  f"(ROADMAP item 15a covers the single-stream nets)")
+        raise NotImplementedError("context parallelism for the multiview net's training is "
+                                  "not ported (ROADMAP item 15e)")
     split_t = video and cp.size > 1
     if split_t:
         if cfg.attn_temporal_window is not None:

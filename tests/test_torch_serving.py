@@ -259,12 +259,6 @@ def test_cancel_hooks_match_jax(models, when):
     assert calls["port"] == calls["jax"] == ([] if when == "before" else [(1, 2, 9)])
 
 
-def test_num_devices_raises_naming_the_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tmodels.Gen3cPersistentModel("gen3c_tiny", checkpoint_dir=None, num_devices=2,
-                                     device="cpu")
-
-
 # ---------------------------------------------------------------- the server
 
 

@@ -3,8 +3,8 @@ host libraries and its incremental video save, against the originals on
 the CPU.
 
 ``serving/{api_types,serialization,encoding}.py``, ``serving/viewer.html``
-and ``native/{camera_path,point_raster,render_buffer}.cpp`` must be the
-originals byte for byte once each ``gen3c_tpu.`` is rewritten to
+and ``native/{camera_path,point_raster,render_buffer,gen3c_native,
+viewer_main}.cpp`` must be the originals byte for byte once each ``gen3c_tpu.`` is rewritten to
 ``gen3c_tpu_torch.``; the ctypes bindings, built into the port's own
 ``native/_build/``, must give the JAX bindings' outputs; and
 ``IncrementalVideoSaver`` must write ``save_video``'s bytes. Each CLI of
@@ -36,7 +36,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 COPIES = ["serving/api_types.py", "serving/serialization.py", "serving/encoding.py",
           "serving/viewer.html", "native/camera_path.cpp", "native/point_raster.cpp",
-          "native/render_buffer.cpp"]
+          "native/render_buffer.cpp", "native/gen3c_native.cpp", "native/viewer_main.cpp"]
 
 
 @pytest.mark.parametrize("rel", COPIES)

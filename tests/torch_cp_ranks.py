@@ -15,10 +15,12 @@ groups of their own (the layout ``mesh.make_groups`` gives 2 ranks).
 from __future__ import annotations
 
 import datetime
+import json
 import multiprocessing as mp
 import os
 import queue
 import socket
+import time
 import traceback
 
 import numpy as np
@@ -629,6 +631,246 @@ def ar_tp(rank, world, tp: int, cfg_kw: dict, state: dict, tokens, quant=None, c
     cache = tar.init_kv_cache(model.cfg, 1, tp=model.tp_size)
     return {"whole": whole, "tp": cut, "sharded": sorted(dims), "tp_rank": groups.tp.rank,
             "cache_heads": cache.k.shape[3], "q_rows": model.layers[0].attention.wq.weight.shape[0]}
+
+
+def ar_tp_train(rank, world, dp: int, tp: int, fsdp: bool, cfg_kw: dict, state: dict,
+                batches: list, contexts: list, lr: float, loss_kw: dict) -> dict:
+    """``make_sharded_ar_train_step`` over this rank's (dp, tp) mesh on the
+    AR model of ``cfg_kw`` with ``state``, cut to its tp shards
+    (``shard_ar_params``) and with fsdp over dp too (``shard_fsdp``), one
+    AdamW step a batch: per step loss, accuracy, grad norm and the summed
+    gradients the optimizer took, the final params, first moments and
+    gradients gathered to the one-device form (``gather_to_host``), and
+    the elements of this rank's params."""
+    import torch
+
+    from gen3c_tpu_torch import kernels
+    from gen3c_tpu_torch.parallel import sharding
+    from gen3c_tpu_torch.training import ar_train
+    from gen3c_tpu_torch.training.train_step import AdamW
+
+    groups = layout_groups(rank, world, dp=dp, tp=tp)
+    model = _ar_model(cfg_kw, state)
+    dims = sharding.shard_ar_params(model, groups)
+    cut = sharding.shard_fsdp(model, groups) if fsdp else {}
+    seen = []
+
+    class Recording(AdamW):
+        def update(self, grads, *args, **kw):
+            seen.append({n: g.detach().clone() for n, g in grads.items()})
+            return super().update(grads, *args, **kw)
+
+    opt = Recording(lr)
+    opt_state = opt.init(sharding.named_leaves(model))
+    step = ar_train.make_sharded_ar_train_step(groups, opt, fsdp=fsdp)
+    kernels.reset_launch_counts()
+    out = {"loss": [], "accuracy": [], "grad_norm": []}
+    for tokens, ctx in zip(batches, contexts):
+        model, opt_state, m = step(model, opt_state, torch.from_numpy(tokens).long(),
+                                   None if ctx is None else torch.from_numpy(ctx), **loss_kw)
+        for k in out:
+            out[k].append(float(m[k]))
+    tp_dims = sharding.ar_sharded_leaves(model)
+    fsdp_dims = sharding.fsdp_leaves(model)
+
+    def gather(tensors):
+        host = sharding.gather_to_host(tensors, tp_dims, groups.tp, True, fsdp_dims, groups.dp)
+        return {n: t.numpy().copy() for n, t in host.items()}
+
+    params = {n: p.detach() for n, p in sharding.named_leaves(model).items()}
+    out.update(params=gather(params), mu=gather(opt_state.mu), grads=gather(seen[0]),
+               held=sum(p.numel() for p in params.values()), sharded=sorted(dims),
+               fsdp=sorted(cut), tp_rank=groups.tp.rank, dp_rank=groups.dp.rank,
+               launches=dict(kernels.launch_counts),
+               q_heads=model.layers[0].attention.wq.weight.shape[0] // model.cfg.head_dim)
+    return out
+
+
+def ar_tp_hidden(rank, world, tp: int, cfg_kw: dict, state: dict, tokens) -> dict:
+    """The tp-cut model's ``train_hidden`` through its (gathered) LM head,
+    and its inference forward's logits."""
+    import torch
+
+    from gen3c_tpu_torch.models import ar_transformer as tar
+    from gen3c_tpu_torch.parallel.sharding import shard_ar_params
+
+    groups = layout_groups(rank, world, tp=tp)
+    model = _ar_model(cfg_kw, state)
+    shard_ar_params(model, groups)
+    ids = torch.from_numpy(tokens).long()
+    with torch.no_grad():
+        return {"hidden_logits": model.logits(tar.train_hidden(model, ids)).numpy(),
+                "forward": model(ids)[0].numpy()}
+
+
+def vocab_argmax(rank, world, tp: int, logits) -> list:
+    """``ar_train.vocab_parallel_argmax`` of ``logits`` (rows, V) over a tp
+    axis, this rank holding its V/tp columns."""
+    import torch
+
+    from gen3c_tpu_torch.parallel import collectives
+    from gen3c_tpu_torch.training.ar_train import vocab_parallel_argmax
+
+    groups = layout_groups(rank, world, tp=tp)
+    axis = groups.tp
+    full = torch.from_numpy(logits)
+    n = full.shape[-1] // axis.size
+    local = full[..., axis.rank * n:(axis.rank + 1) * n]
+    local_max = local.max(dim=-1).values
+    gmax = collectives.all_reduce(local_max, axis, op="max")
+    return vocab_parallel_argmax(local, local_max, gmax, axis.rank * n, axis).tolist()
+
+
+# ------------------------------ serving over several ranks ------------------------------
+
+def _serving_model(parallel: str, ckpt: str):
+    """The tiny GEN3C serving model (2 steps, heuristic depth, ``ckpt``'s
+    weights) over this pool's ranks with ``parallel``, on the CPU over gloo."""
+    from gen3c_tpu_torch.serving.models import Gen3cPersistentModel
+
+    return Gen3cPersistentModel(
+        "gen3c_tiny", checkpoint_dir=ckpt, num_steps=2, depth_source="heuristic",
+        num_devices=2, parallel=parallel, cp_attn="ulysses" if parallel == "cp" else None,
+        device="cpu", dist_backend="gloo", channel_timeout_s=TIMEOUT_S)
+
+
+def serving_session(rank, world, parallel: str, ckpt: str, seed_req, req, cancel_req,
+                    next_req, align: list, scale_maps: list) -> dict:
+    """A session of the served model over 2 ranks: rank 0 seeds, runs
+    ``req`` (its second chunk started from ``align``'s frame, its non-rigid
+    depth fit ``scale_maps``' arrays, as the single-process tests align
+    them), runs ``cancel_req`` with a cancel set by its first chunk, runs
+    ``next_req``, clears the cache (a request then fails), reseeds and runs
+    ``next_req`` again, then stops; rank 1 follows. Every rank reports the
+    outcome of each inference it ran (frames, or the exception) and its
+    chunks a call."""
+    import torch
+
+    import gen3c_tpu_torch.ops.camera as tcam
+
+    model = _serving_model(parallel, ckpt)
+    fits = [torch.from_numpy(np.array(a)) for a in scale_maps]
+    fit = tcam._nonrigid_scale_map
+    tcam._nonrigid_scale_map = lambda *args: fits.pop(0)
+    try:
+        return _session(model, seed_req, req, cancel_req, next_req, align)
+    finally:
+        tcam._nonrigid_scale_map = fit
+
+
+def _session(model, seed_req, req, cancel_req, next_req, align: list) -> dict:
+    import threading
+
+    generate = model.pipeline.generate
+    pending = list(align)
+    outcomes = []
+    run = model._run_inference
+
+    def recorded(*args, **kwargs):
+        try:
+            res = run(*args, **kwargs)
+        except BaseException as e:  # noqa: BLE001 - reported, then raised on
+            outcomes.append({"error": type(e).__name__,
+                             "chunks": len(model.last_timings.get("generate", []))})
+            raise
+        outcomes.append({"frames": res.images.copy(),
+                         "chunks": len(model.last_timings["generate"])})
+        return res
+
+    model._run_inference = recorded
+    first_chunk = []
+
+    def aligned_generate(*args, **kwargs):
+        video, prompt = generate(*args, **kwargs)
+        if pending:
+            first_chunk.append(video.copy())
+            video[-1] = pending.pop(0)
+        return video, prompt
+
+    model.pipeline.generate = aligned_generate
+    out = {"rank": model.channel.rank, "leads": model.leads}
+    if not model.leads:
+        out["calls"] = model.follow()
+    else:
+        seeded = model.seed_model(seed_req)
+        out["seed_depths"] = seeded.depths
+        progress = []
+        model.run_inference(req, on_chunk=lambda d, t, v: progress.append((d, t, len(v))))
+        out["progress"] = progress
+        ev = threading.Event()
+        cancelled_after = []
+
+        def cancel_on_first(d, t, v):
+            cancelled_after.append(d)
+            ev.set()
+
+        try:
+            model.run_inference(cancel_req, on_chunk=cancel_on_first, cancel_event=ev)
+            out["cancel"] = "not raised"
+        except Exception as e:  # noqa: BLE001
+            out["cancel"] = type(e).__name__
+        out["cancelled_after"] = cancelled_after
+        model.run_inference(next_req)
+        model.clear_cache()
+        try:
+            model.run_inference(next_req)
+            out["after_clear"] = "ran"
+        except AssertionError:
+            out["after_clear"] = "refused"
+        model.seed_model(seed_req)
+        model.run_inference(next_req)
+        model.shutdown()
+    out["first_chunk"] = first_chunk[0] if first_chunk else None
+    out["outcomes"] = outcomes
+    return out
+
+
+def serving_http(rank, world, parallel: str, ckpt: str, seed_wire: bytes, req_wire: bytes
+                 ) -> dict:
+    """The whole HTTP round trip over 2 ranks: rank 0 serves on port 0
+    (``serving.server.serve``) while rank 1 follows; seed, a synchronous
+    inference, its result, the metadata, then the server's shutdown sends
+    "stop" and rank 1's ``follow`` returns."""
+    import threading
+    import urllib.request
+
+    from gen3c_tpu_torch.serving.serialization import loads_api_message
+    from gen3c_tpu_torch.serving.server import serve
+
+    model = _serving_model(parallel, ckpt)
+    if not model.leads:
+        return {"rank": rank, "calls": model.follow()}
+    server, service = serve(host="127.0.0.1", port=0, model=model)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def call(method, path, body=None):
+        request = urllib.request.Request(base + path, data=body, method=method)
+        with urllib.request.urlopen(request, timeout=TIMEOUT_S) as resp:
+            return resp.status, resp.read()
+
+    try:
+        codes = {"seed": call("POST", "/seed-model", seed_wire)[0],
+                 "submit": call("POST", "/request-inference", req_wire)[0]}
+        t_end = time.time() + TIMEOUT_S
+        while time.time() < t_end:  # the service's worker thread runs the job
+            state = json.loads(call("GET", "/job-status?request_id=http")[1])["state"]
+            if state in ("done", "error", "cancelled"):
+                break
+            time.sleep(0.2)
+        codes["result"], body = call("GET", "/inference-result?request_id=http")
+        codes["preview"] = call("POST", "/render-preview", req_wire)[0]  # rank 0's alone
+        meta = json.loads(call("GET", "/metadata")[1])
+        codes["clear"] = call("POST", "/clear-cache")[0]
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.shutdown()
+        service.worker.join(timeout=TIMEOUT_S)
+        model.shutdown()
+    return {"rank": rank, "state": state, "codes": codes,
+            "frames": loads_api_message(body).images, "seeded": meta["seeded"],
+            "cache_after_clear": model.cache is None}
 
 
 # ------------------------------ pipeline parallelism, sharded renders ------------------------------
